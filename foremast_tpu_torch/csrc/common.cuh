@@ -1,0 +1,240 @@
+// Block-level building blocks shared by the port's kernels (sm_90a).
+//
+// Every kernel of this library runs one CTA per row and keeps the row in
+// shared memory, so what is shared here is block-wide:
+// reductions, in-place scans over shared arrays, a bitonic sort of 64-bit
+// keys, the rank-key encoding and the causal moving average
+// (ma_predict). pair_verdict.cu and ma_band.cu both include this header,
+// so the two kernels' moving-average semantics cannot drift apart.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace fm {
+
+// The block functions below serve any CTA of whole warps up to kMaxThreads
+// threads; each kernel launches at the size that measured best for it.
+constexpr int kMaxThreads = 256;
+
+// Scratch every block function below may use: one 8-byte slot per thread.
+struct Scratch {
+  alignas(8) unsigned char bytes[kMaxThreads * 8];
+  template <typename T>
+  __device__ T* as() { return reinterpret_cast<T*>(bytes); }
+};
+
+template <typename T>
+struct Add {
+  __device__ T operator()(T a, T b) const { return a + b; }
+};
+template <typename T>
+struct Max {
+  __device__ T operator()(T a, T b) const { return a > b ? a : b; }
+};
+template <typename T>
+struct Min {
+  __device__ T operator()(T a, T b) const { return a < b ? a : b; }
+};
+
+// Every thread passes a value and gets the block's total. Called by all
+// threads of the block.
+template <typename T, typename Op>
+__device__ T block_reduce(T v, Op op, Scratch& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
+  T* w = s.as<T>();
+  __syncthreads();  // the previous call's readers are done with the slots
+  if (lane == 0) w[warp] = v;
+  __syncthreads();
+  T r = w[0];
+  for (int i = 1; i < int(blockDim.x >> 5); ++i) r = op(r, w[i]);
+  return r;
+}
+
+template <typename T>
+__device__ T block_sum(T v, Scratch& s) { return block_reduce(v, Add<T>(), s); }
+
+// In-place inclusive scan of a[0, n) in shared memory. Each thread scans a
+// contiguous chunk, the chunk totals are scanned across the block, and each
+// chunk adds its offset. Called by all threads; syncs before and after.
+template <typename T, typename Op>
+__device__ void block_scan(T* a, int n, Op op, T ident, Scratch& s) {
+  __syncthreads();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int per = (n + nt - 1) / nt;
+  const int beg = min(tid * per, n), end = min(beg + per, n);
+  T acc = ident;
+  for (int i = beg; i < end; ++i) {
+    acc = op(acc, a[i]);
+    a[i] = acc;
+  }
+  T* tot = s.as<T>();
+  tot[tid] = acc;
+  __syncthreads();
+  for (int off = 1; off < nt; off <<= 1) {
+    const T v = tid >= off ? tot[tid - off] : ident;
+    __syncthreads();
+    tot[tid] = op(tot[tid], v);
+    __syncthreads();
+  }
+  const T pre = tid > 0 ? tot[tid - 1] : ident;
+  for (int i = beg; i < end; ++i) a[i] = op(pre, a[i]);
+  __syncthreads();
+}
+
+__host__ __device__ inline int next_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Ascending bitonic sort of a[0, n), n a power of two, in shared memory.
+// Not stable; the statistics built on it read only tie-group quantities,
+// which do not depend on the order of equal keys.
+__device__ inline void bitonic_sort(uint64_t* a, int n) {
+  __syncthreads();
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const uint64_t x = a[i], y = a[ixj];
+          if ((x > y) == ((i & k) == 0)) {
+            a[i] = y;
+            a[ixj] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Rank key: bits 63..32 the value as an order-preserving unsigned (masked
+// slots and NaN mapped to +inf, -0.0 folded into +0.0), bits 2..1 the class
+// (valid 0 < valid NaN 1 < masked 2), bit 0 a payload the sort carries.
+// A tie group is a run of equal key >> 1. Padding sorts after everything.
+constexpr uint64_t kPadKey = ~0ull;
+
+__device__ __forceinline__ uint64_t rank_key(float v, bool valid, bool payload) {
+  const bool nan = v != v;
+  float k = (valid && !nan) ? v : CUDART_INF_F;
+  k = (k == 0.0f) ? 0.0f : k;  // -0.0 and +0.0 are one tie group
+  uint32_t b = __float_as_uint(k);
+  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  const uint32_t cls = valid ? (nan ? 1u : 0u) : 2u;
+  return (uint64_t(b) << 32) | (cls << 1) | (payload ? 1u : 0u);
+}
+
+__device__ __forceinline__ uint64_t tie_group(uint64_t key) { return key >> 1; }
+
+// Tie-group statistics of sorted keys whose first nvalid entries are the
+// valid ones (the class sorts them first): the rank sum of the payload
+// members times two, the tie term sum(t^3 - t), and the KS integer
+// statistic max |cx*n2 - cy*n1| over group ends, where cx counts payload
+// members <= the group's value. cnt and start are int scratch of nvalid
+// entries. All integer, so exact.
+struct GroupStats {
+  long long twice_wsum;
+  long long tie;
+  long long ks_t;
+};
+
+__device__ inline GroupStats sorted_group_stats(const uint64_t* keys, int nvalid, int n1, int n2,
+                                                int* cnt, int* start, Scratch& s) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < nvalid; i += blockDim.x) {
+    cnt[i] = int(keys[i] & 1u);
+    start[i] = (i == 0 || tie_group(keys[i]) != tie_group(keys[i - 1])) ? i : 0;
+  }
+  block_scan(cnt, nvalid, Add<int>(), 0, s);
+  block_scan(start, nvalid, Max<int>(), 0, s);
+  long long w = 0, tie = 0, ks = 0;
+  for (int e = threadIdx.x; e < nvalid; e += blockDim.x) {
+    if (e + 1 < nvalid && tie_group(keys[e]) == tie_group(keys[e + 1])) continue;
+    const int b = start[e];
+    const long long t = e - b + 1;
+    const long long cx = cnt[e];
+    const long long members = cx - (b > 0 ? cnt[b - 1] : 0);
+    w += members * (b + e + 2);  // members * 2 * average 1-based rank
+    tie += t * t * t - t;
+    const long long cy = (e + 1) - cx;
+    const long long d = cx * n2 - cy * n1;
+    ks = max(ks, d < 0 ? -d : d);
+  }
+  GroupStats g;
+  g.twice_wsum = block_sum(w, s);
+  g.tie = block_sum(tie, s);
+  g.ks_t = block_reduce(ks, Max<long long>(), s);
+  return g;
+}
+
+// jnp.maximum: NaN in either operand gives NaN (fmaxf would drop it).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// Causal time-based moving average (the reference's _moving_average_1d).
+//
+// S[j] and C[j] (j = 0..n) are the float64 sum and the count of the history
+// values in slots [0, j); slots >= n hold no history. The prediction for
+// slot t is the mean of the history in [t - w, t). Where that window is
+// empty it freezes at the mean of the window ending just after the last
+// observation before t, or, before the first observation, at `first`. A
+// window w < 1 is empty everywhere (the mean of an empty window is 0).
+//
+// Sums are float64 prefix differences: a constant history gives its level
+// exactly, so its residuals and sigma are exactly 0.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float ma_mean(const double* S, const int* C, int lo, int hi) {
+  const int c = C[hi] - C[lo];
+  return c > 0 ? float((S[hi] - S[lo]) / double(c)) : 0.0f;
+}
+
+__device__ inline float ma_predict(const double* S, const int* C, int n, int t, int w,
+                                   float first) {
+  const int hi = min(t, n);
+  const int lo = min(max(t - w, 0), hi);
+  if (C[hi] > C[lo]) return ma_mean(S, C, lo, hi);
+  const int k = C[hi];  // observations before t
+  if (k == 0) return first;
+  // j = 1 + the last observation before t = the smallest j with C[j] >= k
+  int a = 0, b = hi;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (C[mid] >= k) b = mid; else a = mid + 1;
+  }
+  return ma_mean(S, C, min(max(a - w, 0), a), a);
+}
+
+// Fill S[0..n] and C[0..n] from the n history slots (x where hist, else
+// nothing), and return the first history value (0 when there is none).
+// x and hist are global; called by all threads.
+__device__ inline float ma_prefix(const float* x, const uint8_t* hist_a, const uint8_t* hist_b,
+                                  int n, double* S, int* C, Scratch& s) {
+  // hist = hist_a[i] && !hist_b[i] (hist_b may be null)
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const bool h = hist_a[i] && !(hist_b != nullptr && hist_b[i]);
+    S[i + 1] = h ? double(x[i]) : 0.0;
+    C[i + 1] = h ? 1 : 0;
+  }
+  if (threadIdx.x == 0) {
+    S[0] = 0.0;
+    C[0] = 0;
+  }
+  block_scan(S + 1, n, Add<double>(), 0.0, s);
+  block_scan(C + 1, n, Add<int>(), 0, s);
+  if (C[n] == 0) return 0.0f;
+  int a = 0, b = n;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (C[mid] >= 1) b = mid; else a = mid + 1;
+  }
+  return x[a - 1];
+}
+
+}  // namespace fm

@@ -1,0 +1,118 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``csrc/*.cu`` compiles to an object for sm_90a, all in parallel, and
+the objects link into one shared library with a plain C interface. The
+library lands in ``build/foremast_tpu_torch/<hash>/`` beside the package,
+named by a hash of the sources and flags, so a changed source rebuilds and
+an unchanged one loads at once. Nothing is built at import: the first
+launch builds. A failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "foremast_tpu_torch")
+
+# -fmad=false: every float32 expression rounds as the plain twin's does
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+    return path
+
+
+def _sources():
+    cu = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    return cu, headers
+
+
+def library_path() -> str:
+    cu, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + headers:
+        with open(p, "rb") as f:
+            h.update(os.path.basename(p).encode() + f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], "libforemast_kernels.so")
+
+
+def build() -> str:
+    """Compile and link the library if it is not built yet; return its path.
+
+    The compiler's output, ptxas' register and shared-memory report
+    included, is kept in build.log beside the library.
+    """
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    d = os.path.dirname(out)
+    os.makedirs(d, exist_ok=True)
+    cu, _ = _sources()
+    exe = nvcc()
+    procs = []
+    for src in cu:
+        obj = os.path.join(d, os.path.basename(src) + ".o")
+        cmd = [exe, *NVCC_FLAGS, "-c", src, "-o", obj]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, objs, failed = [], [], []
+    for cmd, obj, p in procs:
+        text, _ = p.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        objs.append(obj)
+        if p.returncode != 0:
+            failed.append(obj)
+    if not failed:
+        tmp = out + f".tmp{os.getpid()}"
+        cmd = [exe, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + p.stdout)
+        if p.returncode != 0:
+            failed.append(out)
+    with open(os.path.join(d, "build.log"), "w") as f:
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("building the CUDA kernels failed:\n" + "\n".join(log))
+    os.replace(tmp, out)
+    return out
+
+
+def build_log() -> str:
+    with open(os.path.join(os.path.dirname(library_path()), "build.log")) as f:
+        return f.read()
+
+
+def _declare(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.fm_pair_verdict.argtypes = [P] * 12 + [I, P, I, I, I, I] + [P] * 7 + [P, P]
+    lib.fm_pair_verdict.restype = I
+    lib.fm_ma_band.argtypes = [P, P, P, I, P, P, P, I, I] + [P] * 8 + [P]
+    lib.fm_ma_band.restype = I
+    lib.fm_error_string.argtypes = [I]
+    lib.fm_error_string.restype = ctypes.c_char_p
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _declare(lib)
+            _lib = lib
+        return _lib

@@ -1,0 +1,157 @@
+#!/usr/bin/env python3
+"""Time and profile the port's kernels on chip_smoke.py's main-path inputs.
+
+    python3 <checkout>/scripts/time_torch_kernels.py [--profile] [--out DIR]
+
+Runs on one CUDA card. The package is the one in the current directory;
+the inputs and the timing routine are those of the chip_smoke.py beside
+this script: kernel A (`score_pairs`) on the 100,000-pair pass at T = 128,
+kernel B (`moving_average_band`) on the 100,000-row band pass at bucket
+1024, each the mean of 20 launches by CUDA events after one warm-up. To
+compare two versions, start this one script from each checkout in turn
+within one call (parent, change, change, parent): the inputs stay, the
+package changes.
+
+--profile splits the time as well:
+  - kernel A by phase, from its clock stamps: each phase's share of the
+    CTAs' cycles and mean cycles per pair, and kernel A's time with the
+    stamps on;
+  - one torch.profiler trace of three `score_pairs` calls from numpy: the
+    device time of the host-to-device copies against the kernel's, and the
+    host wall time of each call. The Chrome trace goes to DIR.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _chip_smoke()
+
+
+def phase_split(t):
+    """Kernel A's phases on device tensors t, from its clock stamps."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    B = t[0].shape[0]
+    clocks = torch.zeros((B, len(kernels.PAIR_PHASES) + 1), dtype=torch.int64, device=cs.DEV)
+
+    def run():
+        return kernels.pair_verdict(
+            *t, wilcoxon_table=fl.wilcoxon_pmf_table(t[0].device),
+            ks_exact_max=fl.KS_EXACT_MAX_T, wilcoxon_exact_max_n=fl.WILCOXON_EXACT_MAX_N,
+            phase_clocks=clocks)
+
+    on_ms = cs.cuda_ms(run, cs.TIMED_RUNS)
+    off_ms = cs.cuda_ms(lambda: fl.score_pairs(*t, device=cs.DEV), cs.TIMED_RUNS)
+    cyc = clocks.diff(dim=1).double()
+    check_ok = bool((cyc >= 0).all())
+    total = cyc.sum(0)
+    share = (total / total.sum()).tolist()
+    mean = cyc.mean(0).tolist()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    # CTA-cycles over SM-cycles of the kernel: how many pairs an SM held at once
+    resident = float(total.sum()) / (on_ms * 1e-3 * mhz * 1e6 * sms)
+    print(f"  kernel A phases (B = {B}), stamps monotone: {check_ok}; "
+          f"{on_ms:.3f} ms with stamps, {off_ms:.3f} ms without", flush=True)
+    for name, sh, m in zip(kernels.PAIR_PHASES, share, mean):
+        print(f"    {name:15s} {100 * sh:6.2f}% of CTA cycles, {m:10.1f} cycles per pair",
+              flush=True)
+    print(f"    mean {sum(mean):.1f} cycles per pair; {resident:.2f} pairs resident per SM "
+          f"on average (at the {mhz:.0f} MHz max SM clock, {sms} SMs)", flush=True)
+    return {"ms_stamps_on": on_ms, "ms_stamps_off": off_ms,
+            "share": dict(zip(kernels.PAIR_PHASES, share)),
+            "cycles_per_pair": dict(zip(kernels.PAIR_PHASES, mean)),
+            "resident_per_sm": resident, "monotone": check_ok}
+
+
+def _device_us(e):
+    for name in ("device_time_total", "cuda_time_total"):
+        v = getattr(e, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def trace_pass(args, out_dir):
+    """torch.profiler over three score_pairs calls from numpy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    fl.score_pairs(*args, device=cs.DEV)
+    torch.cuda.synchronize()
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fl.score_pairs(*args, device=cs.DEV)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    rows = sorted(((e.key, _device_us(e) / 3e3, e.count / 3) for e in prof.key_averages()),
+                  key=lambda r: -r[1])
+    device = [r for r in rows if r[1] > 0]
+    copy_ms = sum(r[1] for r in device if "memcpy" in r[0].lower() and "htod" in r[0].lower())
+    kern_ms = sum(r[1] for r in device if "pair_verdict" in r[0])
+    print(f"  torch.profiler, 3 calls of score_pairs from numpy: wall {walls} ms", flush=True)
+    print(f"    per call on the device: host-to-device copies {copy_ms:.3f} ms, "
+          f"pair_verdict kernel {kern_ms:.3f} ms", flush=True)
+    for key, ms, n in device[:8]:
+        print(f"    {ms:9.3f} ms  x{n:g}  {key[:90]}", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "score_pairs_trace.json")
+    prof.export_chrome_trace(path)
+    print(f"    Chrome trace: {path}", flush=True)
+    return {"wall_ms": walls, "htod_ms": copy_ms, "kernel_ms": kern_ms,
+            "device_rows": [{"name": k, "ms": m, "calls": n} for k, m, n in device[:8]]}
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--profile", action="store_true", help="split kernel A and the pass")
+    p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
+    opt = p.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("time_torch_kernels: needs a CUDA device")
+    from foremast_tpu_torch.ops import forecast as fc
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    args, _ = cs.pair_path_inputs(np.random.default_rng(cs.SEED))
+    t = fl.pair_args_from_numpy(args, cs.DEV)
+    ka = cs.cuda_ms(lambda: fl.score_pairs(*t, device=cs.DEV), cs.TIMED_RUNS)
+    bargs, _ = cs.band_path_inputs(torch.Generator(device=cs.DEV).manual_seed(cs.SEED))
+    kb = cs.cuda_ms(lambda: fc.moving_average_band(*bargs[:3], 30, *bargs[3:], device=cs.DEV),
+                    cs.TIMED_RUNS)
+    res = {"checkout": os.getcwd(), "kernel_a_ms": ka, "kernel_b_ms": kb,
+           "device": torch.cuda.get_device_name(0)}
+    print(f"{os.getcwd()}: kernel A {ka:.3f} ms, kernel B {kb:.3f} ms; {res['device']}",
+          flush=True)
+    if opt.profile:
+        res["phases"] = phase_split(t)
+        res["trace"] = trace_pass(args, opt.out)
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()

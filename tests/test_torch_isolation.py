@@ -1,0 +1,108 @@
+"""The port stands alone: foremast_tpu_torch imports neither JAX nor any
+module of foremast_tpu, and its entry points never drift onto the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import foremast_tpu_torch
+from foremast_tpu_torch.ops import forecast as tfc
+from foremast_tpu_torch.parallel import fleet as tfl
+
+PKG = os.path.dirname(os.path.abspath(foremast_tpu_torch.__file__))
+REPO = os.path.dirname(PKG)
+
+
+def _py_files():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "optax") or top == "foremast_tpu"
+
+
+def test_no_file_of_the_port_imports_jax_or_the_reference():
+    files = list(_py_files())
+    assert len(files) >= 10
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert not _forbidden(n), f"{path} imports {n}"
+
+
+def test_importing_the_port_loads_no_jax_or_reference_module():
+    # a finder that refuses the reference and JAX, ahead of every other
+    code = (
+        "import sys\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'foremast_tpu'):\n"
+        "            raise ImportError('the port imported ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "before = set(sys.modules)\n"
+        "import foremast_tpu_torch.parallel.fleet, foremast_tpu_torch.ops.forecast\n"
+        "import foremast_tpu_torch.ops.windowing, foremast_tpu_torch.kernels\n"
+        "new = [m for m in set(sys.modules) - before\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'foremast_tpu')]\n"
+        "print(sorted(new)); sys.exit(1 if new else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = tfl.pair_arg_spec(2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfl.score_pairs(*args)
+    x = np.zeros((2, 16), np.float32)
+    m = np.ones((2, 16), bool)
+    pol = (np.ones(2, np.float32), np.full(2, 3, np.int32), np.zeros(2, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfc.moving_average_band(x, m, ~m, 5, *pol)
+    out = tfl.score_pairs(*args, device="cpu")
+    assert out["unhealthy"].device.type == "cpu"
+    out = tfc.moving_average_band(x, m, ~m, 5, *pol, device="cpu")
+    assert out["preds"].device.type == "cpu"
+
+
+def test_tensor_on_another_device_is_an_error():
+    args = list(tfl.pair_arg_spec(2, 16))
+    args[0] = torch.zeros((2, 16), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="not on cpu"):
+        tfl.score_pairs(*args, device="cpu")
+
+
+def test_launchers_refuse_cpu_tensors():
+    from foremast_tpu_torch import kernels
+    x = torch.zeros((2, 16))
+    m = torch.ones((2, 16), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.ma_band(x, m, ~m, 5, torch.ones(2), torch.full((2,), 3, dtype=torch.int32),
+                        torch.zeros(2))
+    assert kernels.launches == {"pair_verdict": 0, "ma_band": 0}
+
+
+def test_pair_verdict_refuses_t_beyond_shared_memory():
+    from foremast_tpu_torch import kernels
+    args = [torch.from_numpy(a) for a in tfl.pair_arg_spec(1, kernels.MAX_PAIR_T + 1)]
+    with pytest.raises(ValueError, match=str(kernels.MAX_PAIR_T)):
+        kernels.pair_verdict(*args, wilcoxon_table=torch.zeros(1), ks_exact_max=256,
+                             wilcoxon_exact_max_n=50)
