@@ -12,8 +12,13 @@ package. Phases, each printed as it ends; any failure exits non-zero:
   2. device  the card's name and power limit, from nvidia-smi;
   3. kernels each kernel against its plain PyTorch twin on the card, on
              adversarial rows (ties, +-0, NaN, +inf, masked and all-masked
-             slots, both KS and both Wilcoxon regimes): kernel A at B = 2048,
-             T in {16, 128, 1024, 4096}; kernel B at T in {128, 1024, 16384};
+             slots, both KS and both Wilcoxon regimes): kernel A at
+             T in {16, 128, 1024, 4096, 8192, 16384} (the last two from
+             device scratch); kernel B at T in {128, 1024, 16384}; kernels
+             C (SES, DES, Holt-Winters), D, E (SES, DES), F and B's
+             band_from_preds at T in {128, 1024, 4096, 16384} on rows that
+             are all-masked, single-point, constant, with leading or
+             trailing gaps, with a period >= T/2 or below 4;
   4. pairs   the pair path at full size: 100,000 ErrorGenerator-style
              (baseline, canary) pairs at T = 128 through resample_to_grid ->
              pack_windows -> score_pairs on the card; every bad canary
@@ -21,13 +26,22 @@ package. Phases, each printed as it ends; any failure exits non-zero:
   5. bands   the band path at full size: 100,000 rows of 512 history + 128
              current slots (bucket 1024), 10% with a level shift;
              moving_average_band on the card; recall 1.0, false positives
-             under 1%.
+             under 1%;
+  6. seasonal the seasonal band path at full size: 100,000 rows of 7 days
+             of history at 60 s (10,080 points) + 60 current points in
+             bucket 16384, made on the card (40% daily cycle, 30% 8-hour
+             shift cycle, 30% aperiodic with a trend, 5% lost scrapes, a
+             +8 sigma level shift in 10% of the current windows), through
+             forecast_band under holt_winters, exponential_smoothing and
+             double_exponential; recall, false positives, planted-period
+             recovery, times and launches per algorithm; then each of its
+             kernels alone and its twin on the same inputs.
 
-Each path resets the launch counters just before it runs and reads them just
-after: a kernel of the path that did not launch fails the run. The
-second-to-last line is a JSON object with each kernel's launches, error
-against its twin, times on the card and bound; the last line is
-{"ok": true, "device": {...}}.
+Each path (each algorithm of the seasonal phase) resets the launch counters
+just before it runs and reads them just after: a kernel of the path that did
+not launch fails the run. The second-to-last line is a JSON object with each
+kernel's launches, error against its twin, times on the card and bound; the
+last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -50,8 +64,12 @@ FP32_OPS_PER_S = 67e12 / 2
 STEP = 60
 PAIRS, PAIR_T = 100_000, 128
 BAND_ROWS, BAND_HIST, BAND_CUR, BAND_T = 100_000, 512, 128, 1024
+SEASON_ROWS, SEASON_HIST, SEASON_CUR, SEASON_T = 100_000, 10_080, 60, 16384
+SEASON_ALGOS = ("holt_winters", "exponential_smoothing", "double_exponential")
 TIMED_RUNS = 20
+SEASON_RUNS = 5
 CHECK_ROWS = 2048  # rows per kernel-vs-twin comparison
+SERIES_CHECK_ROWS = 256  # rows per smoother / fit comparison (the twins step in Python)
 
 
 def phase(name):
@@ -63,9 +81,11 @@ def check(ok, what):
         raise AssertionError(what)
 
 
-def cuda_ms(fn, runs):
-    """Mean time of fn on the card over `runs` launches, by CUDA events."""
-    fn()
+def cuda_ms(fn, runs, warm=True):
+    """Mean time of fn on the card over `runs` launches, by CUDA events,
+    after one untimed call unless warm is False (for the slow twins)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -194,22 +214,28 @@ def kernel_a_vs_twin(rng):
     from foremast_tpu_torch.ops.pairwise import KS_EXACT_MAX_T
 
     worst = 0.0
-    for T in (16, 128, 1024, 4096):
-        args = adversarial_pairs(CHECK_ROWS, T, rng)
+    for T in (16, 128, 1024, 4096, 8192, 16384):
+        # above 4096 the pairs' sorts run in device scratch: fewer rows
+        B = CHECK_ROWS if T <= 4096 else 512
+        args = adversarial_pairs(B, T, rng)
         t = fl.pair_args_from_numpy(args, DEV)
         kern = fl.score_pairs(*t, device=DEV)
         plain = fl.pair_verdict_plain(*t)
         torch.cuda.synchronize()
         err, bracketed = compare_pair_verdict(t, kern, plain)
-        const = torch.arange(CHECK_ROWS, device=DEV) % 8 == 7
+        const = torch.arange(B, device=DEV) % 8 == 7
         check(bool((kern["band_count"][const] == 0).all()),
               "a current window identical to a constant baseline was flagged")
         worst = max(worst, err)
         n1, n2 = args[1].sum(1), args[3].sum(1)
         stephens = int(((n1 > KS_EXACT_MAX_T) | (n2 > KS_EXACT_MAX_T)).sum())
+        scratch = ""
+        if T > 4096:
+            ms = cuda_ms(lambda: fl.score_pairs(*t, device=DEV), 3)
+            scratch = f"; from device scratch: {ms:.3f} ms for {B} pairs"
         print(f"  pair_verdict T={T}: max |dp| = {err:.3g} (tol {P_ATOL}), "
-              f"{bracketed} of {CHECK_ROWS} rows bracketed, {stephens} in the Stephens regime",
-              flush=True)
+              f"{bracketed} of {B} rows bracketed, {stephens} in the Stephens regime"
+              + scratch, flush=True)
     return worst
 
 
@@ -288,6 +314,217 @@ def kernel_b_vs_twin(gen):
         print(f"  ma_band T={T}: max |d preds| = {err:.3g}, {bracketed} of {B} rows bracketed",
               flush=True)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# kernels C, D, E, F and band_from_preds vs their twins
+# ---------------------------------------------------------------------------
+EPS32 = float(np.finfo(np.float32).eps)
+PERIOD_CANDIDATES = (60, 480, 720, 1440)  # EngineConfig.hw_period_candidates
+
+
+def adversarial_series(B, T, gen):
+    """Smoother and period rows on the card, ten kinds: a 24-step cycle
+    with gaps, a leading gap, a trailing gap (the models free-run), all
+    masked, one observation, constant, a cycle longer than T/2, a 3-step
+    cycle, a trend, and NaN and +inf at masked slots (a masked step must
+    not read them). Per-row alpha, beta, gamma over the engine's grid
+    ranges; periods from 2 to past T. The last eighth is the scored region;
+    the band policy runs every bound mode. Returns (x, mask, region, alpha,
+    beta, gamma, period, threshold, bound_mode, min_lower_bound)."""
+    dev = DEV
+    kind = torch.arange(B, device=dev) % 10
+    t = torch.arange(T, device=dev, dtype=torch.float32)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def on(k, v):
+        return torch.where((kind == k)[:, None], v, 0.0)
+
+    x = 30 + 2 * torch.randn((B, T), generator=gen, device=dev)
+    x = (x + on(0, 4 * torch.sin(2 * math.pi * t / 24)) + on(6, 5 * torch.sin(2 * math.pi * t / (0.6 * T)))
+         + on(7, 3 * torch.sin(2 * math.pi * t / 3)) + on(8, 20 * t / T))
+    m = u(B, T) > 0.1
+    m[kind == 1] &= t >= T // 5
+    m[kind == 2] &= t < T - T // 4
+    m[kind == 3] = False
+    m[kind == 4] = t == T // 2
+    x[kind == 5] = 60.42
+    m[kind == 5] = True
+    hole = ~m & (kind == 9)[:, None]
+    x = torch.where(hole, torch.where(u(B, T) < 0.5, torch.nan, torch.inf), x)
+    region = (t >= T - T // 8).expand(B, T).contiguous()
+    choices = torch.tensor([2, 3, 24, 31, 32, 33, T // 2 + 1, T + 5, 480, 1440],
+                           dtype=torch.int32, device=dev)
+    period = choices[torch.randint(0, len(choices), (B,), generator=gen, device=dev)]
+    thr = torch.tensor([1.0, 2.0, 3.0], device=dev)[torch.arange(B, device=dev) % 3]
+    mode = (torch.arange(B, device=dev) % 4).to(torch.int32)
+    mlb = torch.where(torch.arange(B, device=dev) % 5 == 0, 31.0, 0.0)
+    return (x.contiguous(), m.contiguous(), region, 0.1 + 0.8 * u(B), 0.3 * u(B),
+            0.05 + 0.45 * u(B), period, thr.contiguous(), mode, mlb.contiguous())
+
+
+def row_scale(x, m):
+    return torch.nan_to_num(torch.where(m, x, 0.0).abs(), posinf=0.0).amax(1).clamp(min=1.0)
+
+
+def close_rows(got, want, rtol, atol_rows, what):
+    """|got - want| <= rtol |want| + atol_rows per row, NaN where the other
+    is NaN and equal infinities; returns the largest difference."""
+    check(bool((torch.isnan(got) == torch.isnan(want)).all()), f"{what}: NaN pattern differs")
+    same = torch.isnan(want) | (torch.isinf(want) & (got == want))
+    d = torch.where(same, 0.0, (got.double() - want.double()).abs())
+    lim = rtol * torch.nan_to_num(want.double().abs(), posinf=0.0) + atol_rows.double()[:, None]
+    check(bool((d <= lim).all()), f"{what}: differs by {float(d.max()):.3g}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def compare_smooth(kind, x, hist, params, kern):
+    """Kernel C against smooth_plain: the same float32 recurrences in the
+    same order (-fmad=false), HW's initial level a float64 mean: equal to
+    4 eps32 of the row's scale."""
+    from foremast_tpu_torch.ops import forecast as fc
+
+    plain = fc.smooth_plain(kind, x, hist, *params)
+    return close_rows(kern, plain, 4 * EPS32, 4 * EPS32 * row_scale(x, hist), f"smooth {kind}")
+
+
+def compare_scan(kind, x, hist, params, kern):
+    """Kernel E against its twin, which applies the same maps one step at a
+    time: the combine order differs, so the reference's own tolerances for
+    its scan forms, SES 1e-5 and DES 1e-4, relative and of the row's scale."""
+    from foremast_tpu_torch.ops import seqscan as sq
+
+    plain = (sq.ses_predictions_assoc_plain if kind == 1 else sq.des_predictions_assoc_plain)(
+        x, hist, *params)
+    tol = 1e-5 if kind == 1 else 1e-4
+    return close_rows(kern, plain, tol, tol * row_scale(x, hist), f"affine_scan {kind}")
+
+
+def compare_hw_fit(x, hist, fit, period, grid, kern):
+    """Kernel D against its twin: float64 sums in the same order, so the
+    errors agree to 1e-9 relative and the chosen candidates exactly."""
+    from foremast_tpu_torch.ops import forecast as fc
+
+    plain = fc.fit_holt_winters_plain(x, hist, fit, period, grid)
+    err = close_rows(kern["mse"], plain["mse"], 1e-9, torch.zeros(x.shape[0], device=x.device),
+                     "hw_fit mse")
+    check(bool(torch.equal(kern["best"], plain["best"])), "hw_fit best differs")
+    check(bool(torch.equal(kern["params"], plain["params"])), "hw_fit params differ")
+    return err
+
+
+def near_decision(S, H, cands, T, alias_margin=0.05, contrast_margin=0.01, min_acf=0.2):
+    """Rows whose period choice sits within 1e-5 of a margin, from scores S
+    (B, C) and the scores H (B, C) at each candidate's half lag."""
+    ok = torch.zeros_like(S, dtype=torch.bool)
+    near = torch.zeros(S.shape[0], dtype=torch.bool, device=S.device)
+    for c, p in enumerate(cands):
+        if not 2 <= p < T:
+            continue
+        if p >= 4:
+            d = S[:, c].double() + contrast_margin - H[:, c].double()
+            ok[:, c] = d >= 0
+            near |= torch.isfinite(d) & (d.abs() < 1e-5)
+        else:
+            ok[:, c] = True
+    best = torch.where(ok, S.double(), -math.inf).amax(1)
+    cut = torch.clamp(best - alias_margin, min=min_acf)
+    near |= (ok & torch.isfinite(S) & ((S.double() - cut[:, None]).abs() < 1e-5)).any(1)
+    return near
+
+
+def compare_detect_period(x, hist, cands, fallback, kern):
+    """Kernel F against its twin: float64 sums in another order, so the
+    scores agree to 1e-6 (correlations, scale 1) with the same -inf
+    pattern, and the periods exactly except on rows within 1e-5 of a
+    margin. Returns (largest score difference, rows bracketed)."""
+    from foremast_tpu_torch.ops import forecast as fc
+
+    T = x.shape[1]
+    pp, ps = fc.detect_period_plain(x, hist, cands, fallback, 0.2, 0.05, 0.01)
+    kp, ks = kern
+    err = close_rows(ks, ps, 0.0, torch.full((x.shape[0],), 1e-6, device=x.device),
+                     "detect_period scores")
+    check(bool((torch.isneginf(ks) == torch.isneginf(ps)).all()), "detect_period -inf differs")
+    halves = tuple(p // 2 if p >= 4 else 2 for p in cands)
+    _, hs = fc.detect_period_plain(x, hist, halves, fallback, 0.2, 0.05, 0.01)
+    near = near_decision(ps, hs, cands, T)
+    check(bool((kp[~near] == pp[~near]).all()), "detect_period periods differ")
+    return err, int(near.sum())
+
+
+def compare_band_from_preds(x, m, region, preds, thr, mode, mlb, kern):
+    """band_from_preds against residual_sigma + band_anomalies: sigma to
+    1e-5 relative plus 4 eps32 of the row's scale, counts within the
+    bracket of a band edge moving by that much, flags, first index and
+    count exact where the bracket is, checked exact. Returns (largest band
+    edge difference, rows bracketed)."""
+    from foremast_tpu_torch.ops import forecast as fc
+
+    plain = fc.band_from_preds_plain(x, m, region, preds, thr, mode, mlb)
+    scale = row_scale(x, m)
+    ks, ps = kern["sigma"], plain["sigma"]
+    fs = torch.isfinite(ps)
+    check(bool((torch.isfinite(ks) == fs).all()), "band_from_preds sigma finiteness differs")
+    check(bool(((ks[fs] - ps[fs]).abs() <= 1e-5 * ps[fs] + 4 * EPS32 * scale[fs]).all()),
+          "band_from_preds sigma differs")
+    sig = torch.nan_to_num(ps, posinf=0.0)
+    tol = (4 * EPS32 * (scale + thr * sig) + 1e-5 * thr * sig)[:, None]
+    lo, hi = band_bracket(x, m, region, plain["upper"], plain["lower"], mode, tol)
+    check(bool(((lo <= kern["count"]) & (kern["count"] <= hi)).all()),
+          "band_from_preds counts outside bracket")
+    exact = lo == hi
+    for key in ("count", "first_index"):
+        check(bool((kern[key][exact] == plain[key][exact]).all()), f"band_from_preds {key} differs")
+    check(bool((kern["flags"][exact] == plain["flags"][exact]).all()), "band_from_preds flags differ")
+    check(bool((kern["checked"] == plain["checked"]).all()), "band_from_preds checked differs")
+    err = max(max_abs_err(kern["upper"], plain["upper"]), max_abs_err(kern["lower"], plain["lower"]))
+    return err, int((~exact).sum())
+
+
+def kernels_c_to_f_vs_twin(gen):
+    """Kernels C, D, E, F and band_from_preds against their twins on
+    adversarial rows at T in {128, 1024, 4096, 16384}."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    grid = torch.tensor(fc.DEFAULT_GRID, dtype=torch.float32, device=DEV)
+    cands = (2, 3, 24) + PERIOD_CANDIDATES
+    for T in (128, 1024, 4096, 16384):
+        B = 1024
+        x, m, region, al, be, ga, period, thr, mode, mlb = adversarial_series(B, T, gen)
+        hist = m & ~region
+        n = SERIES_CHECK_ROWS
+        xs, hs = x[:n], hist[:n]
+        errs = {}
+        for kind, params in ((1, (al,)), (2, (al, be)), (3, (al, be, ga, period))):
+            sub = tuple(p[:n].contiguous() for p in params)
+            errs[f"smooth{kind}"] = compare_smooth(kind, xs, hs, sub,
+                                                   kernels.smooth(kind, xs, hs, *sub))
+        for kind, params in ((1, (al,)), (2, (al, be))):
+            errs[f"scan{kind}"] = compare_scan(kind, x, hist, params,
+                                               kernels.affine_scan(kind, x, hist, *params))
+        fit = hs & (torch.arange(T, device=DEV) >= 2 * period[:n, None])
+        errs["hw_fit"] = compare_hw_fit(xs, hs, fit, period[:n], grid,
+                                        kernels.hw_fit(xs, hs, fit, period[:n], grid))
+        fb = torch.full((B,), 7, dtype=torch.int32, device=DEV)
+        candt = torch.tensor(cands, dtype=torch.int32, device=DEV)
+        errs["detect_period"], near = compare_detect_period(
+            x, hist, cands, fb, kernels.detect_period(x, hist, candt, fb, 0.2, 0.05, 0.01))
+        preds = torch.where(torch.isfinite(x), x, 30.0) + torch.randn((B, T), generator=gen,
+                                                                       device=DEV)
+        errs["band_from_preds"], bracketed = compare_band_from_preds(
+            x, m, region, preds, thr, mode, mlb,
+            kernels.band_from_preds(x, m, region, preds, thr, mode, mlb))
+        const = torch.arange(B, device=DEV) % 10 == 5
+        check(bool((fc.detect_period(x[const], hist[const], cands, 7, 0.2, device=DEV)[0]
+                    == 7).all()), "a constant row did not keep its fallback")
+        torch.cuda.synchronize()
+        print(f"  T={T}: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; periods: {near} of {B} rows bracketed; band: {bracketed} of {B} rows "
+              f"bracketed", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +717,206 @@ def band_path(gen):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# ---------------------------------------------------------------------------
+# the seasonal band path at full size
+# ---------------------------------------------------------------------------
+# The engine's band verdict (EngineConfig.band_min_points,
+# band_violation_fraction): unhealthy when count >= max(2, 0.1 checked).
+BAND_MIN_POINTS, BAND_VIOLATION_FRACTION = 2, 0.1
+# The kernels each algorithm's forecast_band must launch.
+SEASON_KERNELS = {"holt_winters": ("detect_period", "hw_fit", "smooth", "band_from_preds"),
+                  "exponential_smoothing": ("affine_scan", "band_from_preds"),
+                  "double_exponential": ("smooth", "band_from_preds")}
+# Detection limits. DES is held to sanity bounds only: the reference's own
+# DES (the engine's fixed alpha 0.5, beta 0.1) extrapolates its trend
+# across the 60-point window, and on this data flags ~6% of healthy rows
+# and ~98.7% of shifted ones (the JAX reference on the CPU, 1,500 rows of
+# this generator); the port's DES counts equal the reference's there.
+SEASON_LIMITS = {"holt_winters": (0.99, 0.01), "exponential_smoothing": (0.99, 0.01),
+                 "double_exponential": (0.95, 0.15)}
+
+
+def season_inputs(gen):
+    """The seasonal path's rows on the card and their truth: 7 days of
+    60 s history (10,080 points) + 60 current points in bucket 16384; a
+    level in [20, 100], white noise of sigma = level / 20; 40% a daily
+    cycle (1440 steps), 30% an 8-hour shift cycle (480), each of amplitude
+    2-4 sigma and random phase, 30% aperiodic with a trend of up to
+    +-2 sigma over the history; 5% lost scrapes; a +8 sigma level shift in
+    the current window of 10% of the rows. The band policy is the
+    reference's cpu / memory one (ML_THRESHOLD 5, ML_BOUND upper). Made in
+    chunks of rows to bound the temporaries."""
+    dev = DEV
+    B, T, n = SEASON_ROWS, SEASON_T, SEASON_HIST + SEASON_CUR
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    kind = torch.where(u(B) < 0.4, 0, torch.where(u(B) < 0.5, 1, 2))
+    shifted = u(B) < 0.10
+    level = 20 + 80 * u(B)
+    sigma = level / 20
+    amp, phase = sigma * (2 + 2 * u(B)), 2 * math.pi * u(B)
+    slope = (u(B) - 0.5) * 4 * sigma / SEASON_HIST
+    cycle = torch.where(kind == 0, 1440.0, 480.0)
+    t = torch.arange(T, device=dev, dtype=torch.float32)
+    region_row = (t >= SEASON_HIST) & (t < n)
+    x = torch.empty((B, T), device=dev)
+    mask = torch.empty((B, T), dtype=torch.bool, device=dev)
+    for lo in range(0, B, 8192):
+        s = slice(lo, min(B, lo + 8192))
+        k = kind[s][:, None]
+        v = level[s, None] + sigma[s, None] * torch.randn((s.stop - lo, T), generator=gen,
+                                                          device=dev)
+        v += torch.where(k < 2, amp[s, None] * torch.sin(2 * math.pi * t / cycle[s, None]
+                                                         + phase[s, None]),
+                         slope[s, None] * t)
+        v += torch.where(shifted[s, None] & region_row, 8 * sigma[s, None], 0.0)
+        m = (t < n) & (u(s.stop - lo, T) > 0.05)
+        x[s] = torch.where(m, v, 0.0)
+        mask[s] = m
+    region = region_row.expand(B, T).contiguous()
+    policy = (torch.full((B,), 5.0, device=dev), torch.full((B,), 1, dtype=torch.int32, device=dev),
+              torch.zeros(B, device=dev))
+    return (x, mask, region) + policy, kind, shifted
+
+
+def season_bounds(B, T, n_fit, G, lags):
+    """Least time (ms, bound_by) for each seasonal kernel's work on these
+    inputs: bytes each input read and each output written once over HBM,
+    against the operations at the fp32 instruction rate (a float64 add
+    counted as two). Per step: SES 3 operations (its scan form ~11), DES 8,
+    Holt-Winters 14 per candidate plus 5 per fitted point; the period
+    detrend 12 per slot and 13 per pair of slots at each distinct lag;
+    the band ~10 per slot."""
+    BT = B * T
+
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        return {"bound_ms": max(tb, to) * 1e3, "bound_by": "bytes" if tb >= to else "operations"}
+
+    return {
+        "smooth": bound(BT * 9 + B * 8, 8 * BT),
+        "affine_scan": bound(BT * 9 + B * 4, 11 * BT),
+        "hw_fit": bound(BT * 6 + B * (4 + 12 + 4 + 8 * G) + G * 12,
+                        14 * G * BT + 5 * G * n_fit),
+        "detect_period": bound(BT * 5 + B * (8 + 4 * len(PERIOD_CANDIDATES)),
+                               12 * BT + 13 * B * sum(T - p for p in lags)),
+        "band_from_preds": bound(BT * 19 + B * 28, 10 * BT),
+    }
+
+
+def seasonal_path(gen):
+    """Drive forecast_band under each algorithm at full size, then time
+    each of its kernels alone and its twin on the path's inputs."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+    from foremast_tpu_torch.ops import seqscan as sq
+
+    t0 = time.perf_counter()
+    args, kind, shifted = season_inputs(gen)
+    torch.cuda.synchronize()
+    x, mask, region, thr, mode, mlb = args
+    B, T = x.shape
+    print(f"  {B} rows x {T} slots made on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{int((kind == 0).sum())} daily, {int((kind == 1).sum())} shift, "
+          f"{int((kind == 2).sum())} aperiodic, {int(shifted.sum())} shifted", flush=True)
+    periodic = kind < 2
+    planted = torch.where(kind == 0, 1440, 480).to(torch.int32)
+    launches = {k: 0 for k in kernels.launches}
+    for algo in SEASON_ALGOS:
+        kernels.reset_launches()
+        out = fc.forecast_band(*args, algorithm=algo, device=DEV)
+        torch.cuda.synchronize()
+        ran = dict(kernels.launches)
+        for k in SEASON_KERNELS[algo]:
+            check(ran[k] >= 1, f"{algo} did not launch {k}")
+        for k, v in ran.items():
+            launches[k] += v
+        gate = torch.clamp(BAND_VIOLATION_FRACTION * out["checked"].float(), min=BAND_MIN_POINTS)
+        flagged = out["count"].float() >= gate
+        recall = float(flagged[shifted].float().mean())
+        fp = float(flagged[~shifted].float().mean())
+        check(bool(torch.isfinite(out["sigma"]).all()), f"{algo}: sigma not finite")
+        check(bool(torch.isfinite(out["preds"][mask]).all()), f"{algo}: predictions not finite")
+        check(bool((out["checked"] == (mask & region).sum(1)).all()), f"{algo}: checked differs")
+        min_recall, max_fp = SEASON_LIMITS[algo]
+        check(recall >= min_recall, f"{algo}: recall {recall:.4f} < {min_recall}")
+        check(fp < max_fp, f"{algo}: false-positive share {fp:.5f} >= {max_fp}")
+        line = (f"  {algo}: recall {recall:.5f} on {int(shifted.sum())} shifted rows, false "
+                f"positives {fp:.5f} (limits {min_recall}, {max_fp})")
+        if algo == "holt_winters":
+            got = out["period"]
+            rec = float((got[periodic] == planted[periodic]).float().mean())
+            check(rec >= 0.99, f"planted period recovered on {rec:.4f} < 0.99 of periodic rows")
+            line += (f"; planted period recovered on {rec:.5f} of {int(periodic.sum())} "
+                     f"periodic rows; aperiodic rows on the fallback 1440: "
+                     f"{float((got[~periodic] == 1440).float().mean()):.5f}")
+        del out
+        e2e = wall_ms(lambda: fc.forecast_band(*args, algorithm=algo, device=DEV), SEASON_RUNS)
+        print(line + f"; forecast_band {SEASON_RUNS} runs: median {np.median(e2e):.3f} ms, "
+              f"p99 {np.percentile(e2e, 99):.3f} ms, {B / np.median(e2e) * 1e3:.0f} rows/s; "
+              f"launches {ran}", flush=True)
+
+    # each kernel alone on the path's inputs, beside its twin; comparisons on
+    # the first rows (the smoother and fit twins step in Python)
+    hist = mask & ~region
+    n, c = SERIES_CHECK_ROWS, CHECK_ROWS
+    f32 = dict(dtype=torch.float32, device=DEV)
+    rows = {}
+    fb = torch.full((B,), 1440, dtype=torch.int32, device=DEV)
+    candt = torch.tensor(PERIOD_CANDIDATES, dtype=torch.int32, device=DEV)
+
+    def detect():
+        return kernels.detect_period(x, hist, candt, fb, 0.2, 0.05, 0.01)
+
+    period, _ = detect()
+    err, _ = compare_detect_period(x[:c], hist[:c], PERIOD_CANDIDATES, fb[:c],
+                                   kernels.detect_period(x[:c], hist[:c], candt, fb[:c],
+                                                         0.2, 0.05, 0.01))
+    rows["detect_period"] = (err, cuda_ms(detect, 3), cuda_ms(
+        lambda: fc.detect_period_plain(x, hist, PERIOD_CANDIDATES, fb, 0.2, 0.05, 0.01), 1))
+    fit = hist & (torch.arange(T, device=DEV) >= 2 * period[:, None])
+    grid = torch.tensor(fc.DEFAULT_GRID, **f32)
+    err = compare_hw_fit(x[:n], hist[:n], fit[:n], period[:n], grid,
+                         kernels.hw_fit(x[:n], hist[:n], fit[:n], period[:n], grid))
+    rows["hw_fit"] = (err, cuda_ms(lambda: kernels.hw_fit(x, hist, fit, period, grid,
+                                                          max_period=1440), 2),
+                      cuda_ms(lambda: fc.fit_holt_winters_plain(x, hist, fit, period, grid), 1,
+                              warm=False))
+    n_fit = int((fit & hist).sum())
+    del fit
+    al5, be1, al3 = (torch.full((B,), v, **f32) for v in (0.5, 0.1, 0.3))
+    err = compare_smooth(2, x[:n], hist[:n], (al5[:n], be1[:n]),
+                         kernels.smooth(2, x[:n], hist[:n], al5[:n], be1[:n]))
+    rows["smooth"] = (err, cuda_ms(lambda: kernels.smooth(2, x, hist, al5, be1), 3),
+                      cuda_ms(lambda: fc.smooth_plain(2, x, hist, al5, be1), 1, warm=False))
+    err = compare_scan(1, x[:c], hist[:c], (al3[:c],), kernels.affine_scan(1, x[:c], hist[:c],
+                                                                             al3[:c]))
+    rows["affine_scan"] = (err, cuda_ms(lambda: kernels.affine_scan(1, x, hist, al3), 3),
+                           cuda_ms(lambda: sq.ses_predictions_assoc_plain(x, hist, al3), 1,
+                                   warm=False))
+    preds = kernels.smooth(2, x, hist, al5, be1)
+    pol = (thr, mode, mlb)
+    err, _ = compare_band_from_preds(
+        x[:c], mask[:c], region[:c], preds[:c], thr[:c], mode[:c], mlb[:c],
+        kernels.band_from_preds(x[:c], mask[:c], region[:c], preds[:c], *(p[:c] for p in pol)))
+    rows["band_from_preds"] = (
+        err, cuda_ms(lambda: kernels.band_from_preds(x, mask, region, preds, *pol), 5),
+        cuda_ms(lambda: fc.band_from_preds_plain(x, mask, region, preds, *pol), 1))
+    del preds
+    lags = sorted({q for p in PERIOD_CANDIDATES for q in (p, p // 2)})
+    bounds = season_bounds(B, T, n_fit, grid.shape[0], lags)
+    result = {}
+    for name, (err, ms, plain_ms) in rows.items():
+        result[name] = {"launches": launches[name], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, **bounds[name]}
+        print(f"  {name}: kernel {ms:.3f} ms, plain twin {plain_ms:.1f} ms, bound "
+              f"{bounds[name]['bound_ms']:.3f} ms ({bounds[name]['bound_by']}), max |err| "
+              f"against the twin {err:.3g}, launches on the path {launches[name]}", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -495,7 +932,9 @@ def main() -> int:
     build.library()
     print(f"  built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry function" in line:
+            print("  ptxas: " + line.split("'")[1], flush=True)
+        elif "registers" in line or "spill" in line:
             print("  ptxas:" + line.split("ptxas info")[-1], flush=True)
 
     phase("device")
@@ -512,19 +951,35 @@ def main() -> int:
     phase("kernels")
     kernel_a_vs_twin(rng)
     kernel_b_vs_twin(gen)
+    kernels_c_to_f_vs_twin(gen)
 
     phase("pairs")
     a = pair_path(rng)
     phase("bands")
     b = band_path(gen)
+    phase("seasonal")
+    s = seasonal_path(gen)
 
+    csrc = "foremast_tpu_torch/csrc/"
     rows = [
-        {"name": "pair_verdict", "route": "cuda",
-         "source": "foremast_tpu_torch/csrc/pair_verdict.cu",
-         "replaces": "foremast_tpu/parallel/fleet.py:65", **a, "library_ms": None},
-        {"name": "ma_band", "route": "cuda", "source": "foremast_tpu_torch/csrc/ma_band.cu",
-         "replaces": "foremast_tpu/ops/forecast.py:110", **b, "library_ms": None},
+        {"name": "pair_verdict", "source": csrc + "pair_verdict.cu",
+         "replaces": "foremast_tpu/parallel/fleet.py:65", **a},
+        {"name": "ma_band", "source": csrc + "ma_band.cu",
+         "replaces": "foremast_tpu/ops/forecast.py:110", **b},
+        {"name": "smooth", "source": csrc + "smoothers.cu",
+         "replaces": "foremast_tpu/ops/forecast.py:156", **s["smooth"]},
+        {"name": "hw_fit", "source": csrc + "smoothers.cu",
+         "replaces": "foremast_tpu/ops/forecast.py:358", **s["hw_fit"]},
+        {"name": "affine_scan", "source": csrc + "seqscan.cu",
+         "replaces": "foremast_tpu/ops/seqscan.py:61", **s["affine_scan"]},
+        {"name": "detect_period", "source": csrc + "period.cu",
+         "replaces": "foremast_tpu/ops/forecast.py:225", **s["detect_period"]},
+        {"name": "band_from_preds", "source": csrc + "ma_band.cu",
+         "replaces": "foremast_tpu/ops/forecast.py:478", **s["band_from_preds"]},
     ]
+    for r in rows:
+        # no single PyTorch call computes any of these functions
+        r.update(route="cuda", library_ms=None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)

@@ -1,11 +1,12 @@
 // Block-level building blocks shared by the port's kernels (sm_90a).
 //
-// Every kernel of this library runs one CTA per row and keeps the row in
-// shared memory, so what is shared here is block-wide:
-// reductions, in-place scans over shared arrays, a bitonic sort of 64-bit
-// keys, the rank-key encoding and the causal moving average
-// (ma_predict). pair_verdict.cu and ma_band.cu both include this header,
-// so the two kernels' moving-average semantics cannot drift apart.
+// Most kernels of this library run one CTA per row, so most of what is
+// shared here is block-wide: reductions, in-place scans (over shared or
+// device memory), a bitonic sort of 64-bit keys, the rank-key encoding and
+// the causal moving average (ma_predict), which pair_verdict.cu and
+// ma_band.cu both use so that their moving-average semantics cannot drift
+// apart. The warp-level helpers at the end (shuffle reductions, cp.async
+// copies) serve the kernels that run a warp per row group (smoothers.cu).
 #pragma once
 
 #include <cstdint>
@@ -235,6 +236,33 @@ __device__ inline float ma_prefix(const float* x, const uint8_t* hist_a, const u
     if (C[mid] >= 1) b = mid; else a = mid + 1;
   }
   return x[a - 1];
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level helpers.
+// ---------------------------------------------------------------------------
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Every lane passes a value and gets the warp's total (xor butterfly).
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullWarp, v, o);
+  return v;
+}
+
+// Asynchronous 4- and 8-byte copies from device to shared memory (sm_80+):
+// a warp issues a tile's loads back to back and waits once.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace fm

@@ -8,8 +8,14 @@
 // (:362), the distribution tails (ops/stats.py) and the moving-average band
 // over baseline ++ current (ops/forecast.py:110, fleet.py:137-163).
 //
-// Design: one CTA of 128 threads per pair, the pair's 2T entries in shared
-// memory (2 x 4096 x 16 B = 128 KB at the largest supported T).
+// Design: one CTA of 128 threads per pair. Up to T = 4096 the pair's 2T
+// sort entries (2 x 4096 x 16 B = 128 KB) and the band's prefix sums live
+// in shared memory. Above that (the 8192 and 16384 buckets, up to 512 KB
+// of sort entries a pair) they live in device scratch that the launcher
+// allocates, one slot per CTA; the launch then holds at most as many CTAs
+// as the scratch budget allows and each walks pairs grid-stride, so the
+// scratch stays bounded whatever B is. Only the KS DP's two diagonals
+// (at most KS_EXACT_MAX_T + 1 floats each) stay in shared memory there.
 //   1. A bitonic sort of 2T 64-bit rank keys (value, class, x-membership)
 //      gives the Mann-Whitney / Kruskal rank sum, the tie term and the KS
 //      integer statistic from group-end counts (block scans of counts and
@@ -73,6 +79,9 @@ struct PairArgs {
   uint8_t* pairwise_unhealthy;
   uint8_t* band_unhealthy;
   long long* clocks;  // null, or (B, kPairStamps) clock64() stamps per pair
+  int B;
+  unsigned char* scratch;  // null (shared-memory path), or one slot per CTA
+  size_t scratch_stride;
 };
 
 // With a.clocks set, thread 0 of each CTA stamps the SM clock at the start
@@ -83,8 +92,8 @@ struct PairArgs {
 // kernels.PAIR_PHASES; null costs one uniform branch per stamp.
 constexpr int kPairStamps = 9;
 
-__device__ __forceinline__ void stamp(long long* clocks, int k) {
-  if (clocks != nullptr && threadIdx.x == 0) clocks[size_t(blockIdx.x) * kPairStamps + k] = clock64();
+__device__ __forceinline__ void stamp(long long* clocks, int row, int k) {
+  if (clocks != nullptr && threadIdx.x == 0) clocks[size_t(row) * kPairStamps + k] = clock64();
 }
 
 template <typename T>
@@ -136,16 +145,17 @@ __device__ float ks_exact_sf(long long t, int n1, int n2, float* buf) {
   return clamp01(1.0f - inside_prob);
 }
 
-__global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Scratch scr;
-  const int row = blockIdx.x, T = a.T, tid = threadIdx.x;
+// One pair's verdict, by the whole CTA. work holds the sort entries and the
+// band's prefix sums, dp the KS DP's two diagonals (shared memory).
+__device__ __forceinline__ void pair_row(const PairArgs& a, int row, unsigned char* work,
+                                         float* dp, Scratch& scr) {
+  const int T = a.T, tid = threadIdx.x;
   const size_t off = size_t(row) * T;
   const float* xb = a.baseline + off;
   const float* xc = a.current + off;
   const uint8_t* mb = a.b_mask + off;
   const uint8_t* mc = a.c_mask + off;
-  stamp(a.clocks, 0);
+  stamp(a.clocks, row, 0);
 
   // counts: valid per side, paired blocks, sign-test wins and losses,
   // nonzero paired differences
@@ -168,11 +178,11 @@ __global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) 
   pos = block_sum(pos, scr);
   neg = block_sum(neg, scr);
   nz = block_sum(nz, scr);
-  stamp(a.clocks, 1);
+  stamp(a.clocks, row, 1);
 
   // 1. one sort of the combined sample
   const int n_sort = next_pow2(2 * T);
-  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* keys = reinterpret_cast<uint64_t*>(work);
   int* cnt = reinterpret_cast<int*>(keys + n_sort);
   int* start = cnt + n_sort;
   for (int i = tid; i < n_sort; i += blockDim.x) {
@@ -182,9 +192,9 @@ __global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) 
     keys[i] = k;
   }
   bitonic_sort(keys, n_sort);
-  stamp(a.clocks, 2);
+  stamp(a.clocks, row, 2);
   const GroupStats g = sorted_group_stats(keys, n1 + n2, n1, n2, cnt, start, scr);
-  stamp(a.clocks, 3);
+  stamp(a.clocks, row, 3);
 
   // 2. Wilcoxon: sort |x - y| over the nonzero paired differences
   const int n_w = next_pow2(T);
@@ -200,9 +210,9 @@ __global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) 
     keys[i] = k;
   }
   bitonic_sort(keys, n_w);
-  stamp(a.clocks, 4);
+  stamp(a.clocks, row, 4);
   const GroupStats gw = sorted_group_stats(keys, nz, 0, 0, cnt, start, scr);
-  stamp(a.clocks, 5);
+  stamp(a.clocks, row, 5);
 
   // 3. p-values (block-uniform scalars)
   const float f1 = float(n1), f2 = float(n2), N = f1 + f2;
@@ -234,15 +244,15 @@ __global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) 
   float p_ks = 1.0f;
   if (n1 > 0 && n2 > 0) {
     if (n1 <= a.ks_exact_max && n2 <= a.ks_exact_max) {
-      __syncthreads();  // the DP reuses the sort's shared memory
-      p_ks = ks_exact_sf(g.ks_t, n1, n2, reinterpret_cast<float*>(smem));
+      __syncthreads();  // the DP may reuse the sort's shared memory
+      p_ks = ks_exact_sf(g.ks_t, n1, n2, dp);
     } else {
       const float D = float(g.ks_t) / (f1 * f2);
       const float en = sqrtf(f1 * f2 / (f1 + f2));
       p_ks = kolmogorov_sf((en + 0.12f + 0.11f / en) * D);
     }
   }
-  stamp(a.clocks, 6);
+  stamp(a.clocks, row, 6);
 
   float p_w;
   {
@@ -281,7 +291,7 @@ __global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) 
     cdf = block_sum(cdf, scr);
     if (ns > 0) p_sign = clamp01(2.0f * float(cdf));
   }
-  stamp(a.clocks, 7);
+  stamp(a.clocks, row, 7);
 
   // 4. gates and combinator
   const float pv[5] = {p_mw, p_w, p_kw, p_ks, p_sign};
@@ -308,7 +318,7 @@ __global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) 
 
   // band over baseline ++ current: the baseline is the history
   __syncthreads();
-  double* S = reinterpret_cast<double*>(smem);
+  double* S = reinterpret_cast<double*>(work);
   int* C = reinterpret_cast<int*>(S + T + 1);
   const float first = ma_prefix(xb, mb, nullptr, T, S, C, scr);
   const int w = a.ma_window[row];
@@ -334,7 +344,7 @@ __global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) 
     count += viol;
   }
   count = block_sum(count, scr);
-  stamp(a.clocks, 8);
+  stamp(a.clocks, row, 8);
   const float frac = float(count) / fmaxf(f2, 1.0f);
   const bool band_unhealthy = frac > 0.3f;
 
@@ -349,16 +359,38 @@ __global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) 
   }
 }
 
+// kScratch false: one pair per CTA, its working set in shared memory.
+// kScratch true: one slot of device scratch per CTA, pairs grid-stride.
+template <bool kScratch>
+__global__ void __launch_bounds__(kPairThreads) pair_verdict_kernel(PairArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Scratch scr;
+  float* dp = reinterpret_cast<float*>(smem);
+  if constexpr (kScratch) {
+    unsigned char* work = a.scratch + size_t(blockIdx.x) * a.scratch_stride;
+    for (int row = blockIdx.x; row < a.B; row += gridDim.x) pair_row(a, row, work, dp, scr);
+  } else {
+    pair_row(a, blockIdx.x, smem, dp, scr);
+  }
+}
+
 }  // namespace fm
 
-// Dynamic shared memory of one CTA: the largest of the sort (keys, counts,
-// group starts), the KS DP's two diagonals and the band's prefix sums.
-static size_t pair_verdict_smem(int T, int ks_exact_max) {
+// Bytes of one pair's working set: the largest of the sort (keys, counts,
+// group starts) and the band's prefix sums. In shared memory up to
+// T = 4096 (kernels.SHARED_PAIR_T), in a scratch slot above it.
+static size_t pair_work_bytes(int T) {
   const size_t sort = size_t(fm::next_pow2(2 * T)) * 16;
-  const size_t dp = size_t(2) * (size_t(T < ks_exact_max ? T : ks_exact_max) + 1) * 4;
   const size_t band = size_t(T + 1) * 12;
-  size_t m = sort > dp ? sort : dp;
-  return m > band ? m : band;
+  return sort > band ? sort : band;
+}
+
+static size_t pair_dp_bytes(int T, int ks_exact_max) {
+  return size_t(2) * (size_t(T < ks_exact_max ? T : ks_exact_max) + 1) * 4;
+}
+
+extern "C" long long fm_pair_verdict_scratch_stride(int T) {
+  return (long long)((pair_work_bytes(T) + 255) / 256 * 256);
 }
 
 extern "C" int fm_pair_verdict(
@@ -368,17 +400,29 @@ extern "C" int fm_pair_verdict(
     const int* min_points, int min_points_width, const float* wilcoxon_table, int wilcoxon_max_n,
     int ks_exact_max, int B, int T, uint8_t* unhealthy, float* severity, float* pvalues,
     int* band_count, float* min_p, uint8_t* pairwise_unhealthy, uint8_t* band_unhealthy,
-    long long* clocks, void* stream) {
+    long long* clocks, unsigned char* scratch, long long scratch_stride, int grid,
+    void* stream) {
   fm::PairArgs a{baseline, b_mask, current, c_mask, pvalue_threshold, test_mask, combine,
                  ma_window, band_threshold, bound_mode, min_lower_bound, min_points,
                  min_points_width, wilcoxon_table, wilcoxon_max_n, ks_exact_max, T, unhealthy,
                  severity, pvalues, band_count, min_p, pairwise_unhealthy, band_unhealthy,
-                 clocks};
-  const size_t smem = pair_verdict_smem(T, ks_exact_max);
-  cudaError_t e = cudaFuncSetAttribute(fm::pair_verdict_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  fm::pair_verdict_kernel<<<B, fm::kPairThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+                 clocks, B, scratch, size_t(scratch_stride)};
+  const size_t dp = pair_dp_bytes(T, ks_exact_max);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (scratch == nullptr) {
+    const size_t work = pair_work_bytes(T);
+    const size_t smem = work > dp ? work : dp;
+    e = cudaFuncSetAttribute(fm::pair_verdict_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+    fm::pair_verdict_kernel<false><<<grid, fm::kPairThreads, smem, st>>>(a);
+  } else {
+    e = cudaFuncSetAttribute(fm::pair_verdict_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(dp));
+    if (e != cudaSuccess) return int(e);
+    fm::pair_verdict_kernel<true><<<grid, fm::kPairThreads, dp, st>>>(a);
+  }
   return int(cudaGetLastError());
 }
 

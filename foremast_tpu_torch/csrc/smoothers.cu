@@ -1,0 +1,421 @@
+// Kernels C and D: the sequential smoothers and the Holt-Winters grid fit.
+//
+// Kernel C, `smooth`, replaces the reference's vmapped lax.scan programs
+// ops/forecast.py _ses_1d (:156), _des_1d (:169) and _hw_1d (:186), jitted as
+// ses_predictions, des_predictions and holt_winters_predictions (:213-216).
+// Kernel D, `hw_fit`, replaces fit_holt_winters (:358) over _default_grid
+// (:349): the masked mean squared one-step error of every (alpha, beta,
+// gamma) candidate and the argmin (the first minimum wins, NaN first, as
+// jnp.argmin). Its refit of the winner is a launch of kernel C with the
+// chosen parameters per row. Both run the one step function below, so the
+// fit and the predictions cannot drift apart.
+//
+// Semantics are the reference's: pred_t is the state before step t, a
+// masked step carries the state forward (level + trend for DES and HW), the
+// level starts at the first valid value (SES, DES) or at the masked mean of
+// the first period (HW), and HW's season starts at x - l0 where the mask is
+// set. The period is per row (the reference's static period, and the
+// engine's partition by period, become a (B,) input); a period above T
+// acts as T and one below 1 as 1.
+//
+// What bounds them on an H100, and the design's answer:
+// - C walks each row sequentially, one lane per row: a chain of ~10
+//   dependent float32 operations per step. With 32 rows per warp and some
+//   3,000 warps at B = 100k the card hides that chain, and the kernel is
+//   bound by bytes: 9 B per slot (value, mask, prediction). One lane per row
+//   reading along T would not coalesce, so each warp stages a tile of
+//   32 rows x 32 steps through shared memory (cp.async for the values, a
+//   ballot per row for the mask) and writes its predictions back the same
+//   way, transposed.
+// - HW's season ring is `period` floats per row (5.76 KB at 1440): too much
+//   for registers or, across the thousands of rows a card needs in flight,
+//   for shared memory. It lives in device scratch that the launcher
+//   allocates, one ring per row in flight, and is staged tile by tile: a
+//   tile of 32 steps reads at most 32 ring slots, written at least `period`
+//   steps earlier, and writes back the last min(period, 32) of them. That
+//   adds 8 B per slot of traffic to C.
+// - D runs 60 candidates per row: 60 x B x T steps, ~14 operations each,
+//   which bounds it by operations (~40 ms at B = 100k, T = 16384). One warp
+//   takes one row, two candidates per lane, and shares the row's value and
+//   mask through shuffles. The 60 rings of a row (346 KB at period 1440)
+//   cannot live in shared memory, so they too live in device scratch,
+//   (period, 64) floats per warp, read and written 256 B per step per warp;
+//   the launcher bounds the warps in flight so that the scratch stays under
+//   its budget, and each warp walks rows grid-stride. The ring traffic
+//   (8 B x 60 per slot) makes D bound by bytes in practice.
+// - D sums each candidate's squared error in float64 (the reference sums in
+//   float32), so a close race between two candidates is decided by the
+//   exact error rather than by rounding.
+//
+// Built with -fmad=false: every float32 expression rounds as the plain
+// twin's PyTorch operations do.
+#include "common.cuh"
+
+namespace fm {
+
+enum : int { kSES = 1, kDES = 2, kHW = 3 };
+
+constexpr int kTile = 32;        // steps per staged tile
+constexpr int kSmoothWarps = 4;  // warps per CTA (kernel C)
+constexpr int kFitWarps = 4;     // warps per CTA (kernel D)
+constexpr int kFitLanes = 64;    // candidate slots per row in kernel D
+
+// One step of the reference's recurrences on (l, b, s). Returns pred_t, the
+// forecast before observing x_t; oma = 1 - alpha and so on, precomputed in
+// float32 as the reference does.
+template <int KIND>
+__device__ __forceinline__ float smooth_step(float xt, bool mt, float al, float oma, float be,
+                                             float omb, float ga, float omg, float& l, float& b,
+                                             float& s) {
+  if constexpr (KIND == kSES) {
+    const float pred = l;
+    l = mt ? al * xt + oma * l : l;
+    return pred;
+  }
+  const float lb = l + b;
+  if constexpr (KIND == kDES) {
+    const float ln = mt ? al * xt + oma * lb : lb;
+    b = mt ? be * (ln - l) + omb * b : b;
+    l = ln;
+    return lb;
+  }
+  const float st = s;
+  const float pred = lb + st;
+  const float ln = mt ? al * (xt - st) + oma * lb : lb;
+  b = mt ? be * (ln - l) + omb * b : b;
+  s = mt ? ga * (xt - ln) + omg * st : st;
+  l = ln;
+  return pred;
+}
+
+__device__ __forceinline__ int clamp_period(int p, int T) { return min(max(p, 1), T); }
+
+// The masked mean of x[0, P) of one row, by one warp: HW's initial level.
+// Summed in float64 and rounded once, so that it does not depend on the
+// order of the sum: a Holt-Winters row whose (alpha, beta, gamma) lie
+// outside the stable region amplifies a one-ulp difference in l0 without
+// bound, and the twin sums in another order.
+__device__ __forceinline__ float hw_level0(const float* x, const uint8_t* mask, int P) {
+  double s = 0.0;
+  int c = 0;
+  for (int k = threadIdx.x & 31; k < P; k += 32) {
+    if (mask[k]) {
+      s += double(x[k]);
+      c += 1;
+    }
+  }
+  s = warp_sum(s);
+  c = warp_sum(c);
+  return float(s / double(c > 0 ? c : 1));
+}
+
+// ---------------------------------------------------------------------------
+// Kernel C
+// ---------------------------------------------------------------------------
+struct SmoothArgs {
+  const float* x;
+  const uint8_t* mask;
+  const float* alpha;
+  const float* beta;    // DES, HW
+  const float* gamma;   // HW
+  const int* period;    // HW
+  int B;
+  int T;
+  float* ring;          // HW: (warps in flight, 32, ring_stride)
+  int ring_stride;
+  float* preds;
+};
+
+template <int KIND>
+__global__ void __launch_bounds__(kSmoothWarps * 32) smooth_kernel(SmoothArgs a) {
+  __shared__ float xs[kSmoothWarps][32][kTile + 1];  // values, then predictions
+  __shared__ float rs[KIND == kHW ? kSmoothWarps : 1][32][kTile + 1];  // season tile
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int T = a.T;
+  const int warp_id = blockIdx.x * kSmoothWarps + w;
+  const int n_warps = gridDim.x * kSmoothWarps;
+  const int n_groups = (a.B + 31) / 32;
+  float* ring = KIND == kHW ? a.ring + size_t(warp_id) * 32 * a.ring_stride : nullptr;
+
+  for (int g = warp_id; g < n_groups; g += n_warps) {
+    const int row0 = g * 32;
+    const int row = row0 + lane;
+    const bool live = row < a.B;
+    float al = 0.0f, be = 0.0f, ga = 0.0f;
+    int P = 1;
+    if (live) {
+      al = a.alpha[row];
+      if constexpr (KIND != kSES) be = a.beta[row];
+      if constexpr (KIND == kHW) {
+        ga = a.gamma[row];
+        P = clamp_period(a.period[row], T);
+      }
+    }
+    const float oma = 1.0f - al, omb = 1.0f - be, omg = 1.0f - ga;
+
+    // initial state: the first valid value, or HW's masked mean of the
+    // first period (rows in turn, the whole warp on each)
+    float l = 0.0f, b = 0.0f, s = 0.0f;
+    for (int r = 0; r < 32 && row0 + r < a.B; ++r) {
+      const size_t off = size_t(row0 + r) * T;
+      if constexpr (KIND == kHW) {
+        const float l0 = hw_level0(a.x + off, a.mask + off, __shfl_sync(kFullWarp, P, r));
+        if (lane == r) l = l0;
+      } else {
+        for (int t0 = 0; t0 < T; t0 += 32) {
+          const bool m = t0 + lane < T && a.mask[off + t0 + lane];
+          const unsigned bits = __ballot_sync(kFullWarp, m);
+          if (bits != 0u) {
+            const float v = a.x[off + t0 + __ffs(bits) - 1];
+            if (lane == r) l = v;
+            break;
+          }
+        }
+      }
+    }
+    const float l0 = l;
+
+    for (int t0 = 0; t0 < T; t0 += kTile) {
+      const int L = min(kTile, T - t0);
+      // stage: row r's L values by lanes 0..L-1, its mask as one ballot
+      unsigned mbits = 0u;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const bool in = row0 + r < a.B && lane < L;
+        const size_t at = size_t(row0 + r) * T + t0 + lane;
+        if (in) cp_async4(&xs[w][r][lane], a.x + at);
+        const unsigned bits = __ballot_sync(kFullWarp, in && a.mask[at]);
+        if (lane == r) mbits = bits;
+      }
+      cp_async_wait_all();
+      __syncwarp();
+      int base = 0;
+      if constexpr (KIND == kHW) {
+        // season slots (t0 + j) mod P for j < min(P, L): a slot's first
+        // visit (t < P) takes s0 = x - l0 where the mask is set, a later
+        // one the ring
+        base = t0 % P;
+        for (int r = 0; r < 32; ++r) {
+          const int Pr = __shfl_sync(kFullWarp, P, r);
+          const int br = __shfl_sync(kFullWarp, base, r);
+          const float l0r = __shfl_sync(kFullWarp, l0, r);
+          const unsigned mr = __shfl_sync(kFullWarp, mbits, r);
+          if (row0 + r < a.B && lane < min(Pr, L)) {
+            const int t = t0 + lane;
+            int k = br + lane;
+            if (k >= Pr) k -= Pr;
+            if (t < Pr) {
+              rs[w][r][lane] = ((mr >> lane) & 1u) ? xs[w][r][lane] - l0r : 0.0f;
+            } else {
+              cp_async4(&rs[w][r][lane], ring + size_t(r) * a.ring_stride + k);
+            }
+          }
+        }
+        cp_async_wait_all();
+        __syncwarp();
+      }
+      // walk: lane = row, sequential over the tile's steps
+      if (live) {
+        for (int j = 0; j < L; ++j) {
+          const float xt = xs[w][lane][j];
+          const bool mt = (mbits >> j) & 1u;
+          if constexpr (KIND == kHW) s = j >= P ? rs[w][lane][j - P] : rs[w][lane][j];
+          xs[w][lane][j] = smooth_step<KIND>(xt, mt, al, oma, be, omb, ga, omg, l, b, s);
+          if constexpr (KIND == kHW) rs[w][lane][j] = s;
+        }
+      }
+      __syncwarp();
+#pragma unroll 8
+      for (int r = 0; r < 32; ++r) {
+        if (row0 + r < a.B && lane < L) a.preds[size_t(row0 + r) * T + t0 + lane] = xs[w][r][lane];
+      }
+      if constexpr (KIND == kHW) {
+        // the last min(P, L) steps of the tile hold the newest value of
+        // every slot they touched
+        for (int r = 0; r < 32; ++r) {
+          const int Pr = __shfl_sync(kFullWarp, P, r);
+          const int br = __shfl_sync(kFullWarp, base, r);
+          if (row0 + r < a.B && lane < L && lane >= L - min(Pr, L)) {
+            int k = br + lane;
+            k = k >= Pr ? (Pr >= kTile ? k - Pr : k % Pr) : k;
+            ring[size_t(r) * a.ring_stride + k] = rs[w][r][lane];
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel D
+// ---------------------------------------------------------------------------
+struct HwFitArgs {
+  const float* x;
+  const uint8_t* mask;
+  const uint8_t* fit;
+  const int* period;
+  const float* grid;  // (G, 3): alpha, beta, gamma
+  int G;
+  int B;
+  int T;
+  float* ring;        // (warps in flight, ring_stride, kFitLanes)
+  int ring_stride;
+  float* params;      // (B, 3)
+  int* best;          // (B,)
+  double* mse;        // (B, G)
+};
+
+// argmin order: NaN before any number (jnp.argmin returns the first NaN),
+// then the smaller value, then the smaller index
+__device__ __forceinline__ bool fit_better(double av, int ai, double bv, int bi) {
+  const bool an = av != av, bn = bv != bv;
+  if (an != bn) return an;
+  if (!an && av != bv) return av < bv;
+  return ai < bi;
+}
+
+__global__ void __launch_bounds__(kFitWarps * 32) hw_fit_kernel(HwFitArgs a) {
+  __shared__ __align__(8) float rs[kFitWarps][kTile][kFitLanes];  // season tile
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int T = a.T, G = a.G;
+  const int warp_id = blockIdx.x * kFitWarps + w;
+  const int n_warps = gridDim.x * kFitWarps;
+  float* ring = a.ring + size_t(warp_id) * a.ring_stride * kFitLanes;
+  // lane holds candidates c0 = 2 lane and c0 + 1
+  const int c0 = 2 * lane;
+  float al[2], be[2], ga[2], oma[2], omb[2], omg[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int c = min(c0 + q, G - 1);
+    al[q] = a.grid[3 * c];
+    be[q] = a.grid[3 * c + 1];
+    ga[q] = a.grid[3 * c + 2];
+    oma[q] = 1.0f - al[q];
+    omb[q] = 1.0f - be[q];
+    omg[q] = 1.0f - ga[q];
+  }
+
+  for (int row = warp_id; row < a.B; row += n_warps) {
+    const size_t off = size_t(row) * T;
+    const float* x = a.x + off;
+    const uint8_t* mask = a.mask + off;
+    const uint8_t* fit = a.fit + off;
+    const int P = clamp_period(a.period[row], T);
+    const float l0 = hw_level0(x, mask, P);
+    float l[2] = {l0, l0}, b[2] = {0.0f, 0.0f};
+    double sse[2] = {0.0, 0.0};
+    int n_fit = 0;
+
+    for (int t0 = 0; t0 < T; t0 += kTile) {
+      const int L = min(kTile, T - t0);
+      const bool in = lane < L;
+      const float xv = in ? x[t0 + lane] : 0.0f;
+      const unsigned mbits = __ballot_sync(kFullWarp, in && mask[t0 + lane]);
+      const unsigned fbits = __ballot_sync(kFullWarp, in && fit[t0 + lane]);
+      n_fit += __popc(mbits & fbits);
+      const int need = min(P, L);
+      const int base = t0 % P;
+      for (int j = 0; j < need; ++j) {
+        const float xj = __shfl_sync(kFullWarp, xv, j);
+        if (t0 + j < P) {
+          const float s0 = ((mbits >> j) & 1u) ? xj - l0 : 0.0f;
+          rs[w][j][c0] = s0;
+          rs[w][j][c0 + 1] = s0;
+        } else {
+          int k = base + j;
+          if (k >= P) k -= P;
+          cp_async8(&rs[w][j][c0], ring + size_t(k) * kFitLanes + c0);
+        }
+      }
+      cp_async_wait_all();
+      __syncwarp();
+      for (int j = 0; j < L; ++j) {
+        const float xt = __shfl_sync(kFullWarp, xv, j);
+        const bool mt = (mbits >> j) & 1u;
+        const bool ft = (fbits >> j) & 1u;
+        const int js = j >= P ? j - P : j;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float s = rs[w][js][c0 + q];
+          const float pred = smooth_step<kHW>(xt, mt, al[q], oma[q], be[q], omb[q], ga[q],
+                                              omg[q], l[q], b[q], s);
+          rs[w][j][c0 + q] = s;
+          if (mt && ft) {
+            const double r = double(xt - pred);
+            sse[q] += r * r;
+          }
+        }
+      }
+      __syncwarp();
+      for (int j = L - need; j < L; ++j) {
+        int k = base + j;
+        k = k >= P ? (P >= kTile ? k - P : k % P) : k;
+        *reinterpret_cast<float2*>(ring + size_t(k) * kFitLanes + c0) =
+            *reinterpret_cast<const float2*>(&rs[w][j][c0]);
+      }
+      __syncwarp();
+    }
+
+    // mean squared error per candidate, then the warp's argmin
+    const double n = double(max(n_fit, 1));
+    double bv = 0.0;
+    int bi = G;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = c0 + q;
+      if (c < G) {
+        const double v = sse[q] / n;
+        a.mse[size_t(row) * G + c] = v;
+        if (bi == G || fit_better(v, c, bv, bi)) {
+          bv = v;
+          bi = c;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const double ov = __shfl_xor_sync(kFullWarp, bv, o);
+      const int oi = __shfl_xor_sync(kFullWarp, bi, o);
+      if (oi < G && (bi == G || fit_better(ov, oi, bv, bi))) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      a.best[row] = bi;
+      for (int k = 0; k < 3; ++k) a.params[size_t(row) * 3 + k] = a.grid[3 * bi + k];
+    }
+  }
+}
+
+}  // namespace fm
+
+extern "C" int fm_smooth(int kind, const float* x, const uint8_t* mask, const float* alpha,
+                         const float* beta, const float* gamma, const int* period, int B, int T,
+                         float* ring, int ring_stride, int n_warps, float* preds, void* stream) {
+  fm::SmoothArgs a{x, mask, alpha, beta, gamma, period, B, T, ring, ring_stride, preds};
+  const int grid = (n_warps + fm::kSmoothWarps - 1) / fm::kSmoothWarps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == fm::kSES) {
+    fm::smooth_kernel<fm::kSES><<<grid, fm::kSmoothWarps * 32, 0, st>>>(a);
+  } else if (kind == fm::kDES) {
+    fm::smooth_kernel<fm::kDES><<<grid, fm::kSmoothWarps * 32, 0, st>>>(a);
+  } else if (kind == fm::kHW) {
+    fm::smooth_kernel<fm::kHW><<<grid, fm::kSmoothWarps * 32, 0, st>>>(a);
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+extern "C" int fm_hw_fit(const float* x, const uint8_t* mask, const uint8_t* fit,
+                         const int* period, const float* grid, int G, int B, int T, float* ring,
+                         int ring_stride, int n_warps, float* params, int* best, double* mse,
+                         void* stream) {
+  if (G < 1 || G > fm::kFitLanes) return int(cudaErrorInvalidValue);
+  fm::HwFitArgs a{x, mask, fit, period, grid, G, B, T, ring, ring_stride, params, best, mse};
+  const int blocks = (n_warps + fm::kFitWarps - 1) / fm::kFitWarps;
+  fm::hw_fit_kernel<<<blocks, fm::kFitWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return int(cudaGetLastError());
+}

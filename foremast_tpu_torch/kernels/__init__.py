@@ -1,13 +1,23 @@
 """Launchers of the port's hand-written CUDA kernels.
 
-Kernel A, `pair_verdict` (``csrc/pair_verdict.cu``), judges B canary pairs
-in one launch; kernel B, `ma_band` (``csrc/ma_band.cu``), runs the
-moving-average band chain for B rows in one launch. Each launcher checks
-device, dtype, shape and contiguity, allocates the outputs, launches on
-PyTorch's current stream without synchronising, raises if the launch
-failed, and adds one to its entry of `launches`. They take CUDA tensors
-only; the entry points (``parallel.fleet.score_pairs``,
-``ops.forecast.moving_average_band``) send CPU tensors to the plain twins.
+- Kernel A, `pair_verdict` (``csrc/pair_verdict.cu``), judges B canary
+  pairs in one launch.
+- Kernel B (``csrc/ma_band.cu``) runs the band chain for B rows: `ma_band`
+  under moving_average_all, `band_from_preds` from given predictions.
+- Kernel C, `smooth` (``csrc/smoothers.cu``), runs SES, DES or additive
+  Holt-Winters one-step predictions; kernel D, `hw_fit` (same file), the
+  Holt-Winters grid fit.
+- Kernel E, `affine_scan` (``csrc/seqscan.cu``), runs SES or DES as a scan
+  of affine maps (the long-window forms).
+- Kernel F, `detect_period` (``csrc/period.cu``), elects each row's
+  seasonal period.
+
+Each launcher checks device, dtype, shape and contiguity, allocates the
+outputs (and the scratch a kernel needs), launches on PyTorch's current
+stream without synchronising, raises if the launch failed, and adds one to
+its entry of `launches` per launch. They take CUDA tensors only; the entry
+points (``parallel.fleet.score_pairs``, ``ops.forecast``,
+``ops.seqscan``) send CPU tensors to the plain twins.
 """
 from __future__ import annotations
 
@@ -17,19 +27,35 @@ import torch
 
 from . import build
 
-__all__ = ["launches", "reset_launches", "pair_verdict", "ma_band",
-           "MAX_PAIR_T", "MAX_BAND_T", "PAIR_PHASES"]
+__all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_preds",
+           "smooth", "hw_fit", "affine_scan", "detect_period", "MAX_PAIR_T",
+           "SHARED_PAIR_T", "MAX_BAND_T", "MAX_PERIOD_T", "MAX_CANDIDATES",
+           "MAX_GRID", "PAIR_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
-# kernel A keeps a pair's 2T sort entries in shared memory: 2 x 4096 x 16 B
-MAX_PAIR_T = 4096
+# kernel A: up to this T a pair's 2T sort entries (16 B each) live in
+# shared memory; above it, in device scratch
+SHARED_PAIR_T = 4096
+MAX_PAIR_T = 16384  # MAX_WINDOW_STEPS
 # kernel B keeps 12 B of prefix sums per slot: MAX_WINDOW_STEPS
 MAX_BAND_T = 16384
+# kernel F keeps 5 B per slot (residual, mask) in shared memory
+MAX_PERIOD_T = 16384
+MAX_CANDIDATES = 16
+# kernel D runs two candidates per lane of a warp
+MAX_GRID = 64
+
+SMOOTH_SES, SMOOTH_DES, SMOOTH_HW = 1, 2, 3
+
+# device scratch that kernels A (T > SHARED_PAIR_T), C (HW) and D may hold
+# at once; each bounds the CTAs or warps in flight to stay under it
+SCRATCH_BYTES = 1 << 30
 
 # kernel A's phases, in order, as its optional clock stamps split it
 PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans",
                "mw_kw_ks", "exact_tails", "gates_band")
 
-launches = {"pair_verdict": 0, "ma_band": 0}
+launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
+            "hw_fit": 0, "affine_scan": 0, "detect_period": 0}
 
 
 def reset_launches() -> None:
@@ -72,8 +98,8 @@ def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
     dev = baseline.device
     if not 1 <= T <= MAX_PAIR_T:
         raise ValueError(
-            f"pair_verdict supports 1 <= T <= {MAX_PAIR_T} (a pair's sort lives in "
-            f"shared memory); got T = {T}")
+            f"pair_verdict supports 1 <= T <= {MAX_PAIR_T} (the largest window "
+            f"bucket); got T = {T}")
     mpw = min_points.shape[-1] if min_points.dim() == 2 else 0
     if mpw not in (3, 4):
         raise ValueError(f"min_points must be (B, 3) or (B, 4), got {tuple(min_points.shape)}")
@@ -107,6 +133,12 @@ def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
     if B == 0:
         return out
     lib = build.library()
+    scratch, stride, grid = None, 0, B
+    if T > SHARED_PAIR_T:
+        # one slot of device scratch per CTA; the CTAs walk pairs grid-stride
+        stride = lib.fm_pair_verdict_scratch_stride(T)
+        grid = max(1, min(B, SCRATCH_BYTES // stride))
+        scratch = torch.empty(grid * stride, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fm_pair_verdict(
@@ -118,7 +150,8 @@ def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
             _ptr(out["unhealthy"]), _ptr(out["severity"]), _ptr(out["pvalues"]),
             _ptr(out["band_count"]), _ptr(out["min_p"]),
             _ptr(out["pairwise_unhealthy"]), _ptr(out["band_unhealthy"]),
-            None if phase_clocks is None else _ptr(phase_clocks), ctypes.c_void_p(stream))
+            None if phase_clocks is None else _ptr(phase_clocks),
+            None if scratch is None else _ptr(scratch), stride, grid, ctypes.c_void_p(stream))
     _raise_on(rc, "pair_verdict", lib)
     launches["pair_verdict"] += 1
     return out
@@ -164,3 +197,205 @@ def ma_band(x, mask, region, window: int, threshold, bound_mode, min_lower_bound
     _raise_on(rc, "ma_band", lib)
     launches["ma_band"] += 1
     return out
+
+
+def _band_outputs(B: int, T: int, dev) -> dict:
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return {
+        "sigma": torch.empty(B, **f32),
+        "upper": torch.empty((B, T), **f32),
+        "lower": torch.empty((B, T), **f32),
+        "flags": torch.empty((B, T), dtype=torch.bool, device=dev),
+        "count": torch.empty(B, **i32),
+        "first_index": torch.empty(B, **i32),
+        "checked": torch.empty(B, **i32),
+    }
+
+
+def band_from_preds(x, mask, region, preds, threshold, bound_mode, min_lower_bound):
+    """Launch kernel B's second entry: residual sigma over mask & ~region
+    and the band over mask & region, from given predictions."""
+    B, T = x.shape
+    dev = x.device
+    for t, name, dt, shape in (
+            (x, "x", torch.float32, (B, T)),
+            (mask, "mask", torch.bool, (B, T)),
+            (region, "region", torch.bool, (B, T)),
+            (preds, "preds", torch.float32, (B, T)),
+            (threshold, "threshold", torch.float32, (B,)),
+            (bound_mode, "bound_mode", torch.int32, (B,)),
+            (min_lower_bound, "min_lower_bound", torch.float32, (B,))):
+        _check(t, name, dt, shape, dev)
+    out = _band_outputs(B, T, dev)
+    if B == 0 or T == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_band_from_preds(
+            _ptr(x), _ptr(mask), _ptr(region), _ptr(preds), _ptr(threshold),
+            _ptr(bound_mode), _ptr(min_lower_bound), B, T,
+            *(_ptr(out[k]) for k in ("sigma", "upper", "lower", "flags", "count",
+                                     "first_index", "checked")),
+            ctypes.c_void_p(stream))
+    _raise_on(rc, "band_from_preds", lib)
+    launches["band_from_preds"] += 1
+    return out
+
+
+def _row_params(B: int, dev, named) -> None:
+    for t, name, dt in named:
+        _check(t, name, dt, (B,), dev)
+
+
+def smooth(kind: int, x, mask, alpha, beta=None, gamma=None, period=None,
+           max_period: int | None = None):
+    """Launch kernel C: one-step predictions (B, T) of SES (kind
+    SMOOTH_SES), DES (SMOOTH_DES, with beta) or additive Holt-Winters
+    (SMOOTH_HW, with beta, gamma and a (B,) int32 period). max_period, an
+    upper bound on the periods, sizes HW's ring scratch; without it the
+    launcher reads the largest period from the card."""
+    B, T = x.shape
+    dev = x.device
+    _check(x, "x", torch.float32, (B, T), dev)
+    _check(mask, "mask", torch.bool, (B, T), dev)
+    named = [(alpha, "alpha", torch.float32)]
+    if kind in (SMOOTH_DES, SMOOTH_HW):
+        named.append((beta, "beta", torch.float32))
+    if kind == SMOOTH_HW:
+        named += [(gamma, "gamma", torch.float32), (period, "period", torch.int32)]
+    elif kind != SMOOTH_SES and kind != SMOOTH_DES:
+        raise ValueError(f"unknown smoother kind {kind}")
+    _row_params(B, dev, named)
+    preds = torch.empty((B, T), dtype=torch.float32, device=dev)
+    if B == 0 or T == 0:
+        return preds
+    groups = (B + 31) // 32
+    ring, stride = None, 0
+    n_warps = groups
+    if kind == SMOOTH_HW:
+        if max_period is None:
+            max_period = int(period.max())
+        stride = max(1, min(int(max_period), T))
+        n_warps = max(1, min(groups, SCRATCH_BYTES // (32 * stride * 4)))
+    n_warps = -(-n_warps // 4) * 4  # whole CTAs of 4 warps
+    if kind == SMOOTH_HW:
+        ring = torch.empty(n_warps * 32 * stride, dtype=torch.float32, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_smooth(
+            kind, _ptr(x), _ptr(mask), _ptr(alpha),
+            None if beta is None or kind == SMOOTH_SES else _ptr(beta),
+            None if kind != SMOOTH_HW else _ptr(gamma),
+            None if kind != SMOOTH_HW else _ptr(period), B, T,
+            None if ring is None else _ptr(ring), stride, n_warps, _ptr(preds),
+            ctypes.c_void_p(stream))
+    _raise_on(rc, "smooth", lib)
+    launches["smooth"] += 1
+    return preds
+
+
+def hw_fit(x, mask, fit_mask, period, grid, max_period: int | None = None):
+    """Launch kernel D: each row's mean squared one-step Holt-Winters error
+    over fit_mask & mask for every (alpha, beta, gamma) row of grid (G <=
+    MAX_GRID), and the argmin. Returns params (B, 3), best (B,) int32 and
+    mse (B, G) float64."""
+    B, T = x.shape
+    dev = x.device
+    G = grid.shape[0] if grid.dim() == 2 else 0
+    if not 1 <= G <= MAX_GRID:
+        raise ValueError(f"hw_fit takes a (G, 3) grid with 1 <= G <= {MAX_GRID}")
+    for t, name, dt, shape in (
+            (x, "x", torch.float32, (B, T)),
+            (mask, "mask", torch.bool, (B, T)),
+            (fit_mask, "fit_mask", torch.bool, (B, T)),
+            (period, "period", torch.int32, (B,)),
+            (grid, "grid", torch.float32, (G, 3))):
+        _check(t, name, dt, shape, dev)
+    out = {
+        "params": torch.empty((B, 3), dtype=torch.float32, device=dev),
+        "best": torch.empty(B, dtype=torch.int32, device=dev),
+        "mse": torch.empty((B, G), dtype=torch.float64, device=dev),
+    }
+    if B == 0 or T == 0:
+        return out
+    if max_period is None:
+        max_period = int(period.max())
+    stride = max(1, min(int(max_period), T))
+    slot = stride * 64 * 4  # (period, 64 candidates) floats per warp
+    n_warps = max(1, min(B, SCRATCH_BYTES // slot))
+    n_warps = -(-n_warps // 4) * 4
+    ring = torch.empty(n_warps * stride * 64, dtype=torch.float32, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_hw_fit(
+            _ptr(x), _ptr(mask), _ptr(fit_mask), _ptr(period), _ptr(grid), G, B, T,
+            _ptr(ring), stride, n_warps, _ptr(out["params"]), _ptr(out["best"]),
+            _ptr(out["mse"]), ctypes.c_void_p(stream))
+    _raise_on(rc, "hw_fit", lib)
+    launches["hw_fit"] += 1
+    return out
+
+
+def affine_scan(kind: int, x, mask, alpha, beta=None):
+    """Launch kernel E: SES (SMOOTH_SES) or DES (SMOOTH_DES, with beta)
+    one-step predictions (B, T) as a scan of affine maps."""
+    B, T = x.shape
+    dev = x.device
+    _check(x, "x", torch.float32, (B, T), dev)
+    _check(mask, "mask", torch.bool, (B, T), dev)
+    named = [(alpha, "alpha", torch.float32)]
+    if kind == SMOOTH_DES:
+        named.append((beta, "beta", torch.float32))
+    elif kind != SMOOTH_SES:
+        raise ValueError(f"affine_scan runs SES or DES, not kind {kind}")
+    _row_params(B, dev, named)
+    preds = torch.empty((B, T), dtype=torch.float32, device=dev)
+    if B == 0 or T == 0:
+        return preds
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_affine_scan(kind, _ptr(x), _ptr(mask), _ptr(alpha),
+                                None if kind == SMOOTH_SES else _ptr(beta), B, T,
+                                _ptr(preds), ctypes.c_void_p(stream))
+    _raise_on(rc, "affine_scan", lib)
+    launches["affine_scan"] += 1
+    return preds
+
+
+def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: float,
+                  contrast_margin: float):
+    """Launch kernel F: each row's period among `candidates` ((C,) int32,
+    C <= MAX_CANDIDATES) or its `fallback` ((B,) int32). Returns period
+    (B,) int32 and scores (B, C) float32."""
+    B, T = x.shape
+    dev = x.device
+    if not 1 <= T <= MAX_PERIOD_T:
+        raise ValueError(f"detect_period supports 1 <= T <= {MAX_PERIOD_T}; got T = {T}")
+    C = candidates.shape[0] if candidates.dim() == 1 else -1
+    if not 0 <= C <= MAX_CANDIDATES:
+        raise ValueError(f"detect_period takes at most {MAX_CANDIDATES} candidates")
+    for t, name, dt, shape in (
+            (x, "x", torch.float32, (B, T)),
+            (mask, "mask", torch.bool, (B, T)),
+            (candidates, "candidates", torch.int32, (C,)),
+            (fallback, "fallback", torch.int32, (B,))):
+        _check(t, name, dt, shape, dev)
+    period = torch.empty(B, dtype=torch.int32, device=dev)
+    scores = torch.empty((B, C), dtype=torch.float32, device=dev)
+    if B == 0:
+        return period, scores
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_detect_period(
+            _ptr(x), _ptr(mask), _ptr(candidates), C, _ptr(fallback), float(min_acf),
+            float(alias_margin), float(contrast_margin), B, T, _ptr(period), _ptr(scores),
+            ctypes.c_void_p(stream))
+    _raise_on(rc, "detect_period", lib)
+    launches["detect_period"] += 1
+    return period, scores

@@ -98,11 +98,25 @@ def build_log() -> str:
 
 
 def _declare(lib):
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fm_pair_verdict.argtypes = [P] * 12 + [I, P, I, I, I, I] + [P] * 7 + [P, P]
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    LL = ctypes.c_longlong
+    lib.fm_pair_verdict.argtypes = ([P] * 12 + [I, P, I, I, I, I] + [P] * 7
+                                    + [P, P, LL, I, P])
     lib.fm_pair_verdict.restype = I
+    lib.fm_pair_verdict_scratch_stride.argtypes = [I]
+    lib.fm_pair_verdict_scratch_stride.restype = LL
     lib.fm_ma_band.argtypes = [P, P, P, I, P, P, P, I, I] + [P] * 8 + [P]
     lib.fm_ma_band.restype = I
+    lib.fm_band_from_preds.argtypes = [P] * 7 + [I, I] + [P] * 7 + [P]
+    lib.fm_band_from_preds.restype = I
+    lib.fm_smooth.argtypes = [I] + [P] * 6 + [I, I, P, I, I, P, P]
+    lib.fm_smooth.restype = I
+    lib.fm_hw_fit.argtypes = [P] * 5 + [I, I, I, P, I, I, P, P, P, P]
+    lib.fm_hw_fit.restype = I
+    lib.fm_affine_scan.argtypes = [I, P, P, P, P, I, I, P, P]
+    lib.fm_affine_scan.restype = I
+    lib.fm_detect_period.argtypes = [P, P, P, I, P, F, F, F, I, I, P, P, P]
+    lib.fm_detect_period.restype = I
     lib.fm_error_string.argtypes = [I]
     lib.fm_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,157 @@
+// Host emulation of the CUDA subset the port's kernels use, for g++ (C++20):
+// one OS thread per CUDA thread, the blocks of a launch one after another,
+// __syncthreads as a std::barrier over the block, warp shuffles and ballots
+// through a per-warp exchange buffer and barrier, __shared__ variables as
+// function statics (one block runs at a time), cp.async as a plain copy.
+// It checks what a kernel computes, never how fast: see emulate.py.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <type_traits>
+#include <vector>
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3 {
+  unsigned x, y, z;
+};
+struct float2 {
+  float x, y;
+};
+struct float4 {
+  float x, y, z, w;
+};
+struct uint2 {
+  unsigned x, y;
+};
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+
+namespace emu {
+struct Warp {
+  std::barrier<> bar{32};
+  uint64_t buf[32];
+};
+struct Ctx {
+  uint3 tid, bid;
+  dim3 bdim, gdim;
+  unsigned char* smem;
+  std::barrier<>* block_bar;
+  Warp* warp;
+  int lane;
+};
+inline thread_local Ctx ctx;
+
+template <typename T>
+inline T exchange(T v, int src) {
+  Warp& w = *ctx.warp;
+  uint64_t u = 0;
+  std::memcpy(&u, &v, sizeof(T));
+  w.buf[ctx.lane] = u;
+  w.bar.arrive_and_wait();
+  uint64_t r = w.buf[src & 31];
+  w.bar.arrive_and_wait();
+  T out;
+  std::memcpy(&out, &r, sizeof(T));
+  return out;
+}
+
+template <typename K, typename... Args>
+void launch(K kernel, dim3 grid, dim3 block, size_t smem, void*, Args... args) {
+  const unsigned nt = block.x;
+  for (unsigned b = 0; b < grid.x; ++b) {
+    std::vector<unsigned char> sm(smem + 64, 0xcd);
+    std::barrier<> bar(nt);
+    std::vector<std::unique_ptr<Warp>> warps;
+    for (unsigned w = 0; w < (nt + 31) / 32; ++w) warps.emplace_back(new Warp());
+    std::vector<std::thread> th;
+    for (unsigned t = 0; t < nt; ++t) {
+      th.emplace_back([&, t]() {
+        ctx.tid = {t, 0, 0};
+        ctx.bid = {b, 0, 0};
+        ctx.bdim = block;
+        ctx.gdim = grid;
+        ctx.smem = sm.data();
+        ctx.block_bar = &bar;
+        ctx.warp = warps[t / 32].get();
+        ctx.lane = int(t % 32);
+        kernel(args...);
+      });
+    }
+    for (auto& x : th) x.join();
+  }
+}
+}  // namespace emu
+
+#define threadIdx (emu::ctx.tid)
+#define blockIdx (emu::ctx.bid)
+#define blockDim (emu::ctx.bdim)
+#define gridDim (emu::ctx.gdim)
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+#define CUDART_INF_F INFINITY
+
+template <typename A, typename B>
+inline std::common_type_t<A, B> min(A a, B b) { return a < b ? a : b; }
+template <typename A, typename B>
+inline std::common_type_t<A, B> max(A a, B b) { return a < b ? b : a; }
+
+inline void __syncthreads() { emu::ctx.block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::ctx.warp->bar.arrive_and_wait(); }
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src) { return emu::exchange(v, src); }
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int m) { return emu::exchange(v, emu::ctx.lane ^ m); }
+template <typename T>
+inline T __shfl_up_sync(unsigned, T v, int d) {
+  const int src = emu::ctx.lane - d;
+  T r = emu::exchange(v, src < 0 ? emu::ctx.lane : src);
+  return r;
+}
+template <typename T>
+inline T __shfl_down_sync(unsigned, T v, int d) {
+  const int src = emu::ctx.lane + d;
+  return emu::exchange(v, src > 31 ? emu::ctx.lane : src);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  emu::Warp& w = *emu::ctx.warp;
+  w.buf[emu::ctx.lane] = pred ? 1 : 0;
+  w.bar.arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= unsigned(w.buf[i] & 1u) << i;
+  w.bar.arrive_and_wait();
+  return r;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(int(x)); }
+inline long long clock64() { return 1; }
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename K>
+inline cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
+  return bytes > 232448 ? 2 : cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == 0 ? "no error" : e == 1 ? "invalid argument" : "too much shared memory";
+}

@@ -19,6 +19,12 @@ package changes.
   - one torch.profiler trace of three `score_pairs` calls from numpy: the
     device time of the host-to-device copies against the kernel's, and the
     host wall time of each call. The Chrome trace goes to DIR.
+
+--seasonal splits the seasonal path instead (chip_smoke.py's 100,000 rows
+of bucket 16384): one torch.profiler trace of `forecast_band` per
+algorithm, with the device time of each kernel and of PyTorch's own
+operations, and the card's idle share (1 - device busy time / host wall
+time of the call).
 """
 import argparse
 import importlib.util
@@ -127,15 +133,54 @@ def trace_pass(args, out_dir):
             "device_rows": [{"name": k, "ms": m, "calls": n} for k, m, n in device[:8]]}
 
 
+def seasonal_split():
+    """torch.profiler over one forecast_band call per algorithm on the
+    seasonal path's inputs: device time by kernel, idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from foremast_tpu_torch.ops import forecast as fc
+
+    args, _, _ = cs.season_inputs(torch.Generator(device=cs.DEV).manual_seed(cs.SEED))
+    out = {}
+    for algo in cs.SEASON_ALGOS:
+        fc.forecast_band(*args, algorithm=algo, device=cs.DEV)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fc.forecast_band(*args, algorithm=algo, device=cs.DEV)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # the events that ran on the card (kernels, copies, fills); the host
+        # operators that launched them carry the same time and are left out
+        device = sorted(((e.key, _device_us(e) / 1e3, e.count) for e in prof.key_averages()
+                         if getattr(e, "device_type", None) == DeviceType.CUDA),
+                        key=lambda r: -r[1])
+        busy = sum(ms for _, ms, _ in device)
+        print(f"  {algo}: host wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / wall:.4f}", flush=True)
+        for key, ms, n in device[:8]:
+            print(f"    {ms:9.3f} ms  x{n}  {key[:90]}", flush=True)
+        out[algo] = {"wall_ms": wall, "busy_ms": busy,
+                     "device_rows": [{"name": k, "ms": m, "calls": n} for k, m, n in device[:8]]}
+    return out
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true", help="split kernel A and the pass")
+    p.add_argument("--seasonal", action="store_true", help="split the seasonal path instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_torch_kernels: needs a CUDA device")
     from foremast_tpu_torch.ops import forecast as fc
     from foremast_tpu_torch.parallel import fleet as fl
+
+    if opt.seasonal:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "seasonal": seasonal_split()}), flush=True)
+        return
 
     args, _ = cs.pair_path_inputs(np.random.default_rng(cs.SEED))
     t = fl.pair_args_from_numpy(args, cs.DEV)

@@ -218,3 +218,17 @@ def test_three_wide_min_points_keeps_the_friedman_default():
     full = tfl.score_pairs(*args[:11], four, device="cpu")
     for k in three:
         np.testing.assert_array_equal(three[k].numpy(), full[k].numpy(), err_msg=k)
+
+
+def test_score_pairs_matches_reference_at_t_8192():
+    """The 8192 bucket (a canary whose baseline spans more than ~2.8 days at
+    60 s), which kernel A serves from device scratch: two pairs of the
+    random fleet, both sides past the exact-KS bound (Stephens)."""
+    full = _fleet(8192, 8, 8192)
+    rows = np.array([3, 4])
+    args = tuple(a[rows] for a in full)
+    assert (args[1].sum(1) > 256).all() and (args[3].sum(1) > 256).all()
+    ref, got, sure = _compare(args)
+    assert sure.all()
+    for k in ("unhealthy", "pairwise_unhealthy", "band_unhealthy", "band_count"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

@@ -11,6 +11,7 @@ import torch
 
 import foremast_tpu_torch
 from foremast_tpu_torch.ops import forecast as tfc
+from foremast_tpu_torch.ops import seqscan as tsq
 from foremast_tpu_torch.parallel import fleet as tfl
 
 PKG = os.path.dirname(os.path.abspath(foremast_tpu_torch.__file__))
@@ -58,6 +59,7 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "before = set(sys.modules)\n"
         "import foremast_tpu_torch.parallel.fleet, foremast_tpu_torch.ops.forecast\n"
         "import foremast_tpu_torch.ops.windowing, foremast_tpu_torch.kernels\n"
+        "import foremast_tpu_torch.ops.seqscan\n"
         "new = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'foremast_tpu')]\n"
         "print(sorted(new)); sys.exit(1 if new else 0)\n"
@@ -77,6 +79,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     pol = (np.ones(2, np.float32), np.full(2, 3, np.int32), np.zeros(2, np.float32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tfc.moving_average_band(x, m, ~m, 5, *pol)
+    for call in (lambda: tfc.forecast_band(x, m, ~m, *pol, algorithm="holt_winters"),
+                 lambda: tfc.forecast_band(x, m, ~m, *pol),
+                 lambda: tfc.ses_predictions(x, m, 0.3),
+                 lambda: tfc.des_predictions(x, m, 0.5, 0.1),
+                 lambda: tfc.holt_winters_predictions(x, m, 4, 0.3, 0.1, 0.1),
+                 lambda: tfc.detect_period(x, m, (4,), 2, 0.2),
+                 lambda: tfc.fit_holt_winters(x, m, m, 4),
+                 lambda: tfc.band_from_preds(x, m, ~m, x, *pol),
+                 lambda: tsq.ses_predictions_assoc(x, m, 0.3),
+                 lambda: tsq.des_predictions_assoc(x, m, 0.5, 0.1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     out = tfl.score_pairs(*args, device="cpu")
     assert out["unhealthy"].device.type == "cpu"
     out = tfc.moving_average_band(x, m, ~m, 5, *pol, device="cpu")
@@ -94,14 +108,31 @@ def test_launchers_refuse_cpu_tensors():
     from foremast_tpu_torch import kernels
     x = torch.zeros((2, 16))
     m = torch.ones((2, 16), dtype=torch.bool)
+    pol = (torch.ones(2), torch.full((2,), 3, dtype=torch.int32), torch.zeros(2))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.ma_band(x, m, ~m, 5, torch.ones(2), torch.full((2,), 3, dtype=torch.int32),
-                        torch.zeros(2))
-    assert kernels.launches == {"pair_verdict": 0, "ma_band": 0}
+        kernels.ma_band(x, m, ~m, 5, *pol)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.band_from_preds(x, m, ~m, x, *pol)
+    a = torch.full((2,), 0.3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.smooth(kernels.SMOOTH_SES, x, m, a)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.affine_scan(kernels.SMOOTH_DES, x, m, a, a)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.detect_period(x, m, torch.tensor([4], dtype=torch.int32),
+                              torch.full((2,), 2, dtype=torch.int32), 0.2, 0.05, 0.01)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.hw_fit(x, m, m, torch.full((2,), 4, dtype=torch.int32), torch.ones((60, 3)))
+    assert set(kernels.launches) == {"pair_verdict", "ma_band", "band_from_preds", "smooth",
+                                     "hw_fit", "affine_scan", "detect_period"}
+    assert all(n == 0 for n in kernels.launches.values())
 
 
 def test_pair_verdict_refuses_t_beyond_shared_memory():
     from foremast_tpu_torch import kernels
+    # up to SHARED_PAIR_T in shared memory, up to MAX_PAIR_T (the largest
+    # window bucket) in device scratch; beyond it, refused
+    assert (kernels.SHARED_PAIR_T, kernels.MAX_PAIR_T + 1) == (4096, 16385)
     args = [torch.from_numpy(a) for a in tfl.pair_arg_spec(1, kernels.MAX_PAIR_T + 1)]
     with pytest.raises(ValueError, match=str(kernels.MAX_PAIR_T)):
         kernels.pair_verdict(*args, wilcoxon_table=torch.zeros(1), ks_exact_max=256,

@@ -1,9 +1,13 @@
-"""Kernels A and B against their plain twins, on the card.
+"""Kernels A to F against their plain twins, on the card.
 
 These need a CUDA device and nvcc; without them they skip. Run them on the
-card with `python -m pytest tests/test_torch_kernels.py`. The comparisons
-and their tolerances are chip_smoke.py's: p-values to 1e-5, booleans and
-counts exact except rows bracketed at a threshold or a band edge.
+card with `python -m pytest --noconftest tests/test_torch_kernels.py`. The
+comparisons and their tolerances are chip_smoke.py's: p-values to 1e-5,
+booleans and counts exact except rows bracketed at a threshold or a band
+edge; the smoothers to 4 eps32 of a row's scale (the scans to the
+reference's own 1e-5 / 1e-4); the fit's errors to 1e-9 and its choice
+exactly; period scores to 1e-6 and periods exactly except within 1e-5 of a
+margin.
 """
 import numpy as np
 import pytest
@@ -68,9 +72,91 @@ def test_ma_band_matches_twin(card, T):
     assert bool((kern["count"][const] == 0).all())
 
 
+@pytest.mark.parametrize("T", [8192, 16384])
+def test_pair_verdict_from_device_scratch_matches_twin(card, T, monkeypatch):
+    # a small scratch budget makes the CTAs walk the pairs grid-stride
+    monkeypatch.setattr(kernels, "SCRATCH_BYTES", 40 * (1 << 20))
+    args = cs.adversarial_pairs(96, T, np.random.default_rng(T))
+    t = fl.pair_args_from_numpy(args, card)
+    kern = fl.score_pairs(*t)
+    plain = fl.pair_verdict_plain(*t)
+    torch.cuda.synchronize()
+    err, _ = cs.compare_pair_verdict(t, kern, plain)
+    assert err <= cs.P_ATOL
+
+
+def _series(card, T, B=256):
+    gen = torch.Generator(device=card).manual_seed(T)
+    return cs.adversarial_series(B, T, gen)
+
+
+@pytest.mark.parametrize("T", [128, 4096, 16384])
+@pytest.mark.parametrize("kind", [kernels.SMOOTH_SES, kernels.SMOOTH_DES, kernels.SMOOTH_HW])
+def test_smooth_matches_twin(card, T, kind):
+    x, m, region, al, be, ga, period = _series(card, T, 64)[:7]
+    params = ((al,), (al, be), (al, be, ga, period))[kind - 1]
+    before = kernels.launches["smooth"]
+    kern = kernels.smooth(kind, x, m & ~region, *params)
+    assert kernels.launches["smooth"] == before + 1
+    cs.compare_smooth(kind, x, m & ~region, params, kern)
+
+
+@pytest.mark.parametrize("T", [128, 4096, 16384])
+@pytest.mark.parametrize("kind", [kernels.SMOOTH_SES, kernels.SMOOTH_DES])
+def test_affine_scan_matches_twin(card, T, kind):
+    x, m, region, al, be = _series(card, T)[:5]
+    params = (al,) if kind == kernels.SMOOTH_SES else (al, be)
+    kern = kernels.affine_scan(kind, x, m & ~region, *params)
+    cs.compare_scan(kind, x, m & ~region, params, kern)
+
+
+@pytest.mark.parametrize("T", [128, 4096])
+def test_hw_fit_matches_twin(card, T, monkeypatch):
+    monkeypatch.setattr(kernels, "SCRATCH_BYTES", 8 * (1 << 20))  # grid-stride warps
+    x, m, region, _, _, _, period = _series(card, T, 48)[:7]
+    hist = m & ~region
+    fit = hist & (torch.arange(T, device=card) >= 2 * period[:, None])
+    grid = torch.tensor(fc.DEFAULT_GRID, dtype=torch.float32, device=card)
+    before = kernels.launches["hw_fit"]
+    kern = kernels.hw_fit(x, hist, fit, period, grid)
+    assert kernels.launches["hw_fit"] == before + 1
+    cs.compare_hw_fit(x, hist, fit, period, grid, kern)
+
+
+@pytest.mark.parametrize("T", [128, 1024, 16384])
+def test_detect_period_matches_twin(card, T):
+    x, m, region = _series(card, T, 512)[:3]
+    hist = m & ~region
+    cands = (2, 3, 24) + cs.PERIOD_CANDIDATES
+    fb = torch.full((512,), 7, dtype=torch.int32, device=card)
+    kern = kernels.detect_period(x, hist, torch.tensor(cands, dtype=torch.int32, device=card),
+                                 fb, 0.2, 0.05, 0.01)
+    cs.compare_detect_period(x, hist, cands, fb, kern)
+
+
+@pytest.mark.parametrize("T", [128, 16384])
+def test_band_from_preds_matches_twin(card, T):
+    x, m, region, *_, thr, mode, mlb = _series(card, T)
+    preds = torch.where(torch.isfinite(x), x, 30.0) + 1.0
+    kern = kernels.band_from_preds(x, m, region, preds, thr, mode, mlb)
+    cs.compare_band_from_preds(x, m, region, preds, thr, mode, mlb, kern)
+
+
+def test_forecast_band_launches_its_kernels(card):
+    x, m, region, *_, thr, mode, mlb = _series(card, 4096, 64)
+    for algorithm, names in cs.SEASON_KERNELS.items():
+        kernels.reset_launches()
+        out = fc.forecast_band(x, m, region, thr, mode, mlb, algorithm=algorithm)
+        torch.cuda.synchronize()
+        assert {k for k, v in kernels.launches.items() if v} == set(names), algorithm
+        plain = fc.forecast_band(x.cpu(), m.cpu(), region.cpu(), thr.cpu(), mode.cpu(),
+                                 mlb.cpu(), algorithm=algorithm, device="cpu")
+        assert torch.equal(out["checked"].cpu(), plain["checked"])
+
+
 def test_launchers_refuse_what_the_kernels_do_not_take(card):
     args = [torch.from_numpy(a).to(card) for a in fl.pair_arg_spec(2, kernels.MAX_PAIR_T + 1)]
-    with pytest.raises(ValueError, match="4096"):
+    with pytest.raises(ValueError, match="16384"):
         fl.score_pairs(*args)
     x = torch.zeros((4, 64), device=card)[:, ::2]
     m = torch.ones((4, 32), dtype=torch.bool, device=card)
