@@ -18,7 +18,10 @@ package. Phases, each printed as it ends; any failure exits non-zero:
              C (SES, DES, Holt-Winters), D, E (SES, DES), F and B's
              band_from_preds at T in {128, 1024, 4096, 16384} on rows that
              are all-masked, single-point, constant, with leading or
-             trailing gaps, with a period >= T/2 or below 4;
+             trailing gaps, with a period >= T/2 or below 4; kernel G at
+             T in {128, 1024, 4096, 16384} on rows that are all-masked,
+             single-point, constant, +-0, with NaN in a valid slot, with an
+             empty region, quantized or shifted;
   4. pairs   the pair path at full size: 100,000 ErrorGenerator-style
              (baseline, canary) pairs at T = 128 through resample_to_grid ->
              pack_windows -> score_pairs on the card; every bad canary
@@ -36,10 +39,28 @@ package. Phases, each printed as it ends; any failure exits non-zero:
              double_exponential; recall, false positives, planted-period
              recovery, times and launches per algorithm; then each of its
              kernels alone and its twin on the same inputs.
+  7. engine  the engine cycle at fleet size: 10,000 jobs (6,000 canaries
+             with a 128-step baseline and current window of http_errors_5xx,
+             4,000 continuous latency monitors with 1 day of history and 60
+             current steps) as Prometheus query_range bodies made from the
+             seed, through the port's Analyzer on the card under the default
+             EngineConfig for two cycles (the second on windows advanced by
+             one step): claim, fetch and parse, pack, the triage screen
+             (kernel G), the pair family (kernel A), the band family (kernel
+             B), fold. Every bad canary and shifted monitor ends unhealthy,
+             healthy jobs are flagged under 1%, no job fails scoring, kernels
+             A, B and G launch in each cycle and the screen clears rows, the
+             second cycle builds nothing, and the same fleet with triage off
+             (and again under torch.profiler, which gives the card's idle
+             share by host stage) ends with the same verdict digest.
 
-Each path (each algorithm of the seasonal phase) resets the launch counters
-just before it runs and reads them just after: a kernel of the path that did
-not launch fails the run. The second-to-last line is a JSON object with each
+Kernel G (the triage screen) is held against its twin in phase 3, beside
+kernel B's ma_band on the 100,000 rows of phases 5 and 6 (equal counts but at
+band edges, shrunk count >= count) and alone at the engine's shape in phase 7.
+
+Each path (each algorithm of the seasonal phase, each engine cycle) resets
+the launch counters just before it runs and reads them just after: a kernel
+of the path that did not launch fails the run. The second-to-last line is a JSON object with each
 kernel's launches, error against its twin, times on the card and bound; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -94,6 +115,13 @@ def cuda_ms(fn, runs, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / runs
+
+
+def chunked_ms(fn, B, rows=25_000):
+    """Time on the card of fn(rows slice) over every chunk of `rows` rows,
+    summed: one pass of a memory-hungry twin over B rows."""
+    return sum(cuda_ms(lambda s=slice(lo, min(B, lo + rows)): fn(s), 1, warm=False)
+               for lo in range(0, B, rows))
 
 
 def wall_ms(fn, runs):
@@ -232,7 +260,9 @@ def kernel_a_vs_twin(rng):
         scratch = ""
         if T > 4096:
             ms = cuda_ms(lambda: fl.score_pairs(*t, device=DEV), 3)
-            scratch = f"; from device scratch: {ms:.3f} ms for {B} pairs"
+            bd = pair_bound(args)
+            scratch = (f"; from device scratch: {ms:.3f} ms for {B} pairs, bound "
+                       f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         print(f"  pair_verdict T={T}: max |dp| = {err:.3g} (tol {P_ATOL}), "
               f"{bracketed} of {B} rows bracketed, {stephens} in the Stephens regime"
               + scratch, flush=True)
@@ -528,6 +558,198 @@ def kernels_c_to_f_vs_twin(gen):
 
 
 # ---------------------------------------------------------------------------
+# kernel G vs its twin, and beside kernel B
+# ---------------------------------------------------------------------------
+TRIAGE_WINDOW, TRIAGE_MARGIN = 30, 0.25  # EngineConfig.ma_window, triage_margin
+
+
+def adversarial_screen(B, T, gen):
+    """Screen rows on the card, ten kinds: noisy with gaps, all masked, a
+    single point, constant with an identical current, +-0, NaN in a valid
+    history slot, an empty region, quantized, NaN at masked slots, a shifted
+    current. The last quarter is the region; thresholds 2, 3, 10; every
+    bound mode; some rows with a lower clamp. Returns (x, mask, region,
+    threshold, bound_mode, min_lower_bound, margin)."""
+    dev = DEV
+    kind = torch.arange(B, device=dev) % 10
+    t = torch.arange(T, device=dev)
+    x = 50 + 3 * torch.randn((B, T), generator=gen, device=dev)
+    m = torch.rand((B, T), generator=gen, device=dev) > 0.1
+    region = (t >= 3 * T // 4).expand(B, T).clone()
+    m[kind == 1] = False
+    m[kind == 2] = t == T // 3
+    x[kind == 3], m[kind == 3] = 60.42, True
+    zeros = kind == 4
+    x[zeros] = torch.where(torch.rand((int(zeros.sum()), T), generator=gen, device=dev) < 0.5,
+                           0.0, -0.0)
+    nan_row = kind == 5
+    x[nan_row, T // 5], m[nan_row, T // 5] = torch.nan, True
+    region[kind == 6] = False
+    x[kind == 7] = torch.round(x[kind == 7])
+    hole = (kind == 8)[:, None] & (t >= T // 2) & (t < 3 * T // 4)
+    x[hole], m[hole] = torch.nan, False
+    x[kind == 9] += 20.0 * region[kind == 9]
+    thr = torch.tensor([2.0, 3.0, 10.0], device=dev)[torch.arange(B, device=dev) % 3]
+    mode = (torch.arange(B, device=dev) % 4).to(torch.int32)
+    mlb = torch.where(torch.arange(B, device=dev) % 5 == 0, 49.0, 0.0)
+    margin = torch.full((B,), TRIAGE_MARGIN, device=dev)
+    return x.contiguous(), m.contiguous(), region.contiguous(), thr, mode, mlb, margin
+
+
+def close_or_same(got, want, rtol, atol, what):
+    """|got - want| <= rtol |want| + atol, NaN where the other is NaN and
+    equal infinities; returns the largest difference."""
+    check(bool((torch.isnan(got) == torch.isnan(want)).all()), f"{what}: NaN pattern differs")
+    same = torch.isnan(want) | (torch.isinf(want) & (got == want))
+    d = torch.where(same, 0.0, (got.double() - want.double()).abs())
+    lim = rtol * torch.nan_to_num(want.double().abs(), posinf=0.0) + atol.double()
+    check(bool((d <= lim).all()), f"{what}: differs by {float(d.max()):.3g}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def compare_triage(args, kern, plain):
+    """Kernel G against screen_rows_plain: n_hist and checked exact; both
+    counts exact except rows with a point within float noise of a band edge
+    (bracketed as compare_ma_band brackets them, for the policy band and the
+    shrunk one); shrunk_count >= count everywhere; the statistics to 1e-5
+    relative plus float32 noise of the row's scale (the sums run in another
+    order). Returns (largest statistic difference, rows bracketed)."""
+    from foremast_tpu_torch.ops import forecast as fc
+
+    x, m, region, thr, mode, mlb, margin = args
+    for key in ("n_hist", "checked"):
+        check(bool(torch.equal(kern[key], plain[key])), f"triage_screen {key} differs")
+    check(bool((kern["shrunk_count"] >= kern["count"]).all()), "triage_screen shrunk < count")
+    scale = row_scale(x, m)
+    sig = torch.nan_to_num(plain["sigma"], posinf=0.0)
+    exact = torch.ones_like(mode, dtype=torch.bool)
+    for key, width in (("count", thr), ("shrunk_count", thr - margin)):
+        band = fc.moving_average_band_plain(x, m, region, TRIAGE_WINDOW, width, mode, mlb)
+        tol = (4 * EPS32 * (scale + width * sig) + 1e-5 * width * sig)[:, None]
+        lo, hi = band_bracket(x, m, region, band["upper"], band["lower"], mode, tol)
+        check(bool(((lo <= kern[key]) & (kern[key] <= hi)).all()),
+              f"triage_screen {key} outside its bracket")
+        exact &= lo == hi
+        check(bool((kern[key][lo == hi] == plain[key][lo == hi]).all()), f"triage_screen {key} differs")
+    ks, ps = kern["sigma"], plain["sigma"]
+    fs = torch.isfinite(ps)
+    check(bool((torch.isfinite(ks) == fs).all()), "triage_screen sigma finiteness differs")
+    err = close_or_same(ks, ps, 1e-5, 4 * EPS32 * scale, "triage_screen sigma")
+    width = torch.abs(thr) * sig
+    for key in ("upper_mean", "lower_mean"):
+        err = max(err, close_or_same(kern[key], plain[key], 1e-5, 1e-5 * width + 4 * EPS32 * scale,
+                                     f"triage_screen {key}"))
+    for key in ("resid_z", "robust_z"):
+        err = max(err, close_or_same(kern[key], plain[key], 1e-4, torch.full_like(scale, 1e-6),
+                                     f"triage_screen {key}"))
+    return err, int((~exact).sum())
+
+
+def kernel_g_vs_twin(gen):
+    """Kernel G against its twin on adversarial rows at T in {128, 1024,
+    4096, 16384}: ints exact but for bracketed rows, NaN in a valid slot
+    ordered after +inf (the rows agree on robust_z), constant rows at
+    sigma 0."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import triage as tr
+
+    worst = 0.0
+    for T, B in ((128, 1024), (1024, 1024), (4096, 512), (16384, 256)):
+        args = adversarial_screen(B, T, gen)
+        kern = kernels.triage_screen(args[0], args[1], args[2], TRIAGE_WINDOW, *args[3:])
+        plain = tr.screen_rows_plain(*args, TRIAGE_WINDOW)
+        torch.cuda.synchronize()
+        err, bracketed = compare_triage(args, kern, plain)
+        const = torch.arange(B, device=DEV) % 10 == 3
+        check(bool((kern["sigma"][const] == 0).all()), "triage_screen: a constant history's sigma")
+        check(bool((kern["count"][const] == 0).all()), "triage_screen flagged an identical current")
+        worst = max(worst, err)
+        print(f"  triage_screen T={T}: max |err| of its statistics {err:.3g}, {bracketed} of {B} "
+              f"rows bracketed", flush=True)
+    return worst
+
+
+def triage_bound(mask, region):
+    """Least time for kernel G's work on these inputs (ms, bound_by): each
+    input read once (6 B a slot, 16 B a row) and each output written once
+    (36 B a row) over HBM, against the operations at the fp32 instruction
+    rate: ~35 a slot (float64 prefix sums counted twice, two predictions,
+    the residual, both bands, the region sums, the deviations) and the two
+    order statistics of each of the two selections, ~2 compares a valid
+    history value each."""
+    B, T = mask.shape
+    n_hist = float((mask & ~region).sum())
+    t_bytes = (6 * B * T + 52 * B) / HBM_BYTES_PER_S
+    t_ops = (35.0 * B * T + 8.0 * n_hist) / FP32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sort_ms(x, mask, region, chunk_rows):
+    """torch.sort of the history values (masked as +inf) row by row, in
+    row chunks: the one PyTorch call that computes part of the screen (its
+    order statistics), timed for the record; the port never calls it."""
+    B = x.shape[0]
+    total = 0.0
+    for lo in range(0, B, chunk_rows):
+        s = slice(lo, min(B, lo + chunk_rows))
+        v = torch.where(mask[s] & ~region[s], x[s], torch.inf)
+        total += cuda_ms(lambda: torch.sort(v, dim=-1), 1)
+        del v
+    return total
+
+
+def triage_beside_band(args, what, runs):
+    """Kernel G on a band phase's rows with its policy and margin 0.25,
+    beside kernel B's ma_band on the same rows: count equal to B's on every
+    row but those with a point within float noise of a band edge,
+    shrunk_count >= count everywhere; then its time (median of `runs`), its
+    bound, its twin's and torch.sort's."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import triage as tr
+
+    x, mask, region, thr, mode, mlb = args
+    B, T = x.shape
+    margin = torch.full((B,), TRIAGE_MARGIN, device=DEV)
+
+    def run():
+        return kernels.triage_screen(x, mask, region, TRIAGE_WINDOW, thr, mode, mlb, margin)
+
+    g = run()
+    b = kernels.ma_band(x, mask, region, TRIAGE_WINDOW, thr, mode, mlb)
+    torch.cuda.synchronize()
+    check(bool((g["shrunk_count"] >= g["count"]).all()), f"{what}: shrunk_count < count")
+    differ = torch.nonzero(g["count"] != b["count"]).flatten()
+    if differ.numel():
+        rows = differ
+        sig = torch.nan_to_num(b["sigma"][rows], posinf=0.0)
+        tol = (4 * EPS32 * (row_scale(x[rows], mask[rows]) + thr[rows] * sig))[:, None]
+        lo, hi = band_bracket(x[rows], mask[rows], region[rows], b["upper"][rows],
+                              b["lower"][rows], mode[rows], tol)
+        gc = g["count"][rows]
+        check(bool(((lo < hi) & (lo <= gc) & (gc <= hi)).all()),
+              f"{what}: triage_screen count differs from ma_band's away from a band edge")
+    sigma_err = max_abs_err(g["sigma"], b["sigma"])
+    del b
+    times = []
+    for _ in range(runs):
+        times.append(cuda_ms(run, 1, warm=False))
+    ms = float(np.median(times))
+    plain_ms = cuda_ms(lambda: tr.screen_rows_plain(x, mask, region, thr, mode, mlb, margin,
+                                                    TRIAGE_WINDOW), 1, warm=False)
+    s_ms = sort_ms(x, mask, region, max(1, (1 << 27) // T))
+    bound = triage_bound(mask, region)
+    cleared = int((g["shrunk_count"] < torch.clamp(0.1 * g["checked"].float(), min=2.0)).sum())
+    print(f"  triage_screen on these rows: counts equal to ma_band's on {B - differ.numel()} of {B} "
+          f"rows ({differ.numel()} bracketed at a band edge), max |sigma - ma_band sigma| "
+          f"{sigma_err:.3g}; shrunk count under the band gate on {cleared} rows; kernel "
+          f"{ms:.3f} ms (median of {runs}), bound {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}), plain twin {plain_ms:.1f} ms, torch.sort of the history "
+          f"{s_ms:.3f} ms", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "sort_ms": s_ms, **bound}
+
+
+# ---------------------------------------------------------------------------
 # the pair path at full size
 # ---------------------------------------------------------------------------
 def error_generator_windows(rng, n, rates, start, minutes):
@@ -712,9 +934,10 @@ def band_path(gen):
     nbytes = B * T * (4 + 1 + 1) + B * 12 + B * T * (4 * 3 + 1) + B * 16
     ops = 20 * B * T
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    g = triage_beside_band(args, "bands", TIMED_RUNS)
     return {"launches": launches["ma_band"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}, g
 
 
 # ---------------------------------------------------------------------------
@@ -797,6 +1020,8 @@ def season_bounds(B, T, n_fit, G, lags):
 
     return {
         "smooth": bound(BT * 9 + B * 8, 8 * BT),
+        # the Holt-Winters refit: kernel C with each row's winner and period
+        "smooth_hw": bound(BT * 9 + B * 16, 14 * BT),
         "affine_scan": bound(BT * 9 + B * 4, 11 * BT),
         "hw_fit": bound(BT * 6 + B * (4 + 12 + 4 + 8 * G) + G * 12,
                         14 * G * BT + 5 * G * n_fit),
@@ -852,7 +1077,13 @@ def seasonal_path(gen):
             line += (f"; planted period recovered on {rec:.5f} of {int(periodic.sum())} "
                      f"periodic rows; aperiodic rows on the fallback 1440: "
                      f"{float((got[~periodic] == 1440).float().mean()):.5f}")
-        del out
+            # the refit alone: kernel C under each row's fitted parameters
+            prm = out["params"]
+            refit = (x, mask & ~region, prm[:, 0].contiguous(), prm[:, 1].contiguous(),
+                     prm[:, 2].contiguous(), got)
+            hw_refit_ms = cuda_ms(lambda: kernels.smooth(kernels.SMOOTH_HW, *refit,
+                                                         max_period=1440), 3)
+            del prm, refit
         e2e = wall_ms(lambda: fc.forecast_band(*args, algorithm=algo, device=DEV), SEASON_RUNS)
         print(line + f"; forecast_band {SEASON_RUNS} runs: median {np.median(e2e):.3f} ms, "
               f"p99 {np.percentile(e2e, 99):.3f} ms, {B / np.median(e2e) * 1e3:.0f} rows/s; "
@@ -889,13 +1120,15 @@ def seasonal_path(gen):
     al5, be1, al3 = (torch.full((B,), v, **f32) for v in (0.5, 0.1, 0.3))
     err = compare_smooth(2, x[:n], hist[:n], (al5[:n], be1[:n]),
                          kernels.smooth(2, x[:n], hist[:n], al5[:n], be1[:n]))
+    # the step-by-step twins hold several (B, T) int64 temporaries: timed in
+    # row chunks, the same work in bounded memory
     rows["smooth"] = (err, cuda_ms(lambda: kernels.smooth(2, x, hist, al5, be1), 3),
-                      cuda_ms(lambda: fc.smooth_plain(2, x, hist, al5, be1), 1, warm=False))
+                      chunked_ms(lambda s: fc.smooth_plain(2, x[s], hist[s], al5[s], be1[s]), B))
     err = compare_scan(1, x[:c], hist[:c], (al3[:c],), kernels.affine_scan(1, x[:c], hist[:c],
                                                                              al3[:c]))
     rows["affine_scan"] = (err, cuda_ms(lambda: kernels.affine_scan(1, x, hist, al3), 3),
-                           cuda_ms(lambda: sq.ses_predictions_assoc_plain(x, hist, al3), 1,
-                                   warm=False))
+                           chunked_ms(lambda s: sq.ses_predictions_assoc_plain(x[s], hist[s],
+                                                                              al3[s]), B))
     preds = kernels.smooth(2, x, hist, al5, be1)
     pol = (thr, mode, mlb)
     err, _ = compare_band_from_preds(
@@ -907,6 +1140,11 @@ def seasonal_path(gen):
     del preds
     lags = sorted({q for p in PERIOD_CANDIDATES for q in (p, p // 2)})
     bounds = season_bounds(B, T, n_fit, grid.shape[0], lags)
+    hb = bounds["smooth_hw"]
+    print(f"  smooth, the Holt-Winters refit alone: kernel {hw_refit_ms:.3f} ms, bound "
+          f"{hb['bound_ms']:.3f} ms ({hb['bound_by']})", flush=True)
+    # kernel G on the same rows, 7 days of history (bucket 16384)
+    g = triage_beside_band(args, "seasonal", SEASON_RUNS)
     result = {}
     for name, (err, ms, plain_ms) in rows.items():
         result[name] = {"launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -914,7 +1152,313 @@ def seasonal_path(gen):
         print(f"  {name}: kernel {ms:.3f} ms, plain twin {plain_ms:.1f} ms, bound "
               f"{bounds[name]['bound_ms']:.3f} ms ({bounds[name]['bound_by']}), max |err| "
               f"against the twin {err:.3g}, launches on the path {launches[name]}", flush=True)
-    return result
+    return result, g
+
+
+# ---------------------------------------------------------------------------
+# the engine cycle at fleet size
+# ---------------------------------------------------------------------------
+ENGINE_CANARIES, ENGINE_CONTINUOUS = 6_000, 4_000
+ENGINE_PAIR_T, ENGINE_HIST, ENGINE_CUR = 128, 1_440, 60
+ENGINE_CYCLES = 2
+ENGINE_T0 = 1_700_000_040  # a step boundary
+ENGINE_SPANS = ("engine.cycle", "engine.claim", "engine.preprocess", "engine.score")
+
+
+def _prom_points(ts, vals, keep):
+    """Each kept sample as its query_range text, `[ts,"value"]`."""
+    return [f'[{t:.3f},"{v:.4f}"]' if k else None
+            for t, v, k in zip(ts.tolist(), vals.tolist(), keep.tolist())]
+
+
+def _prom_body(points) -> bytes:
+    return ('{"status":"success","data":{"resultType":"matrix","result":[{"metric":{},'
+            '"values":[' + ",".join(p for p in points if p is not None) + "]}]}}").encode()
+
+
+def engine_fleet(rng):
+    """10,000 jobs as Prometheus query_range bodies, one set per cycle, made
+    with numpy from the seed; the second cycle's windows are the first's
+    advanced by one step.
+
+    - 6,000 canaries, one metric http_errors_5xx, baseline and current
+      windows of 128 steps at 60 s: per minute a Poisson count of errors as
+      err/s, ~0.5 err/s, 10% bad canaries at ~5 err/s in the current window;
+    - 4,000 continuous jobs, one metric latency: 1,440 history points (1 day)
+      and 60 current points, level in [20, 100], white noise sigma =
+      level / 20; 10% with a +16 sigma level shift in the current window
+      (the latency policy's band is 10 sigma), 2% with one +30 sigma spike in
+      it (a suspect the screen escalates and the band scorer keeps healthy).
+
+    Every series: scrape offsets of 0-5 s after the step, 5% lost scrapes."""
+    from foremast_tpu_torch.engine import Document, MetricQueries
+    from foremast_tpu_torch.utils.timeutils import to_rfc3339
+
+    nc, nk = ENGINE_CANARIES, ENGINE_CONTINUOUS
+    L = ENGINE_PAIR_T + ENGINE_CYCLES - 1
+    bad = rng.random(nc) < 0.10
+    now = ENGINE_T0 + STEP * (ENGINE_HIST + ENGINE_CUR + ENGINE_CYCLES)
+
+    def series(n, start, rates=None, level=None, sigma=None, extra=None):
+        ts = start + STEP * np.arange(n) + rng.uniform(0, 5, n)
+        if rates is not None:
+            vals = rng.poisson(rates * STEP) / STEP
+        else:
+            vals = level + sigma * rng.standard_normal(n) + extra
+        return ts, vals, rng.random(n) > 0.05
+
+    pages = [{} for _ in range(ENGINE_CYCLES)]
+    docs = []
+    for i in range(nc):
+        jid = f"canary-{i:05d}"
+        urls = {}
+        for role, t0, rate in (("b", ENGINE_T0, 0.5),
+                               ("c", ENGINE_T0 + STEP * L, 5.0 if bad[i] else 0.5)):
+            pts = _prom_points(*series(L, t0, rates=np.full(L, rate)))
+            urls[role] = url = f"http://prometheus/q/{jid}/{role}"
+            for c in range(ENGINE_CYCLES):
+                pages[c][url] = _prom_body(pts[c:c + ENGINE_PAIR_T])
+        docs.append((jid, "canary", "http_errors_5xx",
+                     dict(current=urls["c"], baseline=urls["b"])))
+    kind = rng.random(nk)
+    shifted, spiked = kind < 0.10, (kind >= 0.10) & (kind < 0.12)
+    n = ENGINE_HIST + ENGINE_CUR + ENGINE_CYCLES - 1
+    for i in range(nk):
+        jid = f"continuous-{i:05d}"
+        level = 20 + 80 * rng.random()
+        sigma = level / 20
+        extra = np.zeros(n)
+        if shifted[i]:
+            extra[ENGINE_HIST:] = 16 * sigma
+        if spiked[i]:
+            extra[ENGINE_HIST + ENGINE_CUR // 2] = 30 * sigma
+        pts = _prom_points(*series(n, ENGINE_T0, level=level, sigma=sigma, extra=extra))
+        uh, uc = f"http://prometheus/q/{jid}/h", f"http://prometheus/q/{jid}/c"
+        for c in range(ENGINE_CYCLES):
+            pages[c][uh] = _prom_body(pts[c:c + ENGINE_HIST])
+            pages[c][uc] = _prom_body(pts[c + ENGINE_HIST:c + ENGINE_HIST + ENGINE_CUR])
+        docs.append((jid, "continuous", "latency", dict(current=uc, historical=uh)))
+
+    def make_docs():
+        return [Document(id=jid, app_name=jid, namespace="smoke", strategy=strategy,
+                         start_time=to_rfc3339(now - 3600),
+                         end_time="" if strategy == "continuous" else to_rfc3339(now + 86400),
+                         metrics={metric: MetricQueries(**q)})
+                for jid, strategy, metric, q in docs]
+
+    return {"pages": pages, "docs": make_docs, "now": now,
+            "bad": {f"canary-{i:05d}" for i in np.nonzero(bad)[0]},
+            "shifted": {f"continuous-{i:05d}" for i in np.nonzero(shifted)[0]},
+            "spiked": {f"continuous-{i:05d}" for i in np.nonzero(spiked)[0]}}
+
+
+def idle_split(prof):
+    """The card's idle share over a profiled engine cycle, split into the
+    host stages its record_function spans mark: claim, preprocess (fetch,
+    parse, pack, the streamed launches), score (the last launches, collect,
+    retries) and fold (from the end of score to the end of the cycle).
+    Returns {stage: (host ms, device busy ms, idle share)}, or None when the
+    profiler saw no device event."""
+    from torch.autograd import DeviceType
+
+    host, dev = {}, []
+    for e in prof.events():
+        lo, hi = e.time_range.start, e.time_range.end
+        if e.device_type == DeviceType.CUDA:
+            if e.name not in ENGINE_SPANS:
+                dev.append((lo, hi))
+        elif e.name in ENGINE_SPANS and e.name not in host:
+            host[e.name] = (lo, hi)
+    if not dev or "engine.cycle" not in host:
+        return None
+    merged = []
+    for lo, hi in sorted(dev):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+
+    def busy(lo, hi):
+        return sum(max(0.0, min(hi, b) - max(lo, a)) for a, b in merged)
+
+    cyc = host["engine.cycle"]
+    stages = {"claim": host["engine.claim"], "preprocess": host["engine.preprocess"],
+              "score": host["engine.score"], "fold": (host["engine.score"][1], cyc[1]),
+              "cycle": cyc}
+    out = {}
+    for name, (lo, hi) in stages.items():
+        dur = max(hi - lo, 1e-9)
+        b = busy(lo, hi)
+        out[name] = (dur / 1e3, b / 1e3, 1.0 - b / dur)
+    return out
+
+
+def engine_arm(fleet, triage, profile_cycle=None):
+    """The fleet through the port's Analyzer on the card, ENGINE_CYCLES
+    cycles under the default EngineConfig (triage on or off). Per cycle:
+    wall, stages, kernel launches (counts reset just before the cycle, read
+    just after), the analyzer's launches, triage rows, kernel builds, the
+    verdict digest, and the idle split when profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.dataplane import VerdictExporter
+    from foremast_tpu_torch.dataplane.fetch import RawFixtureDataSource
+    from foremast_tpu_torch.engine import Analyzer, EngineConfig, JobStore
+    from foremast_tpu_torch.engine.jobs import verdict_digest
+    from foremast_tpu_torch.kernels import build
+
+    store = JobStore()
+    for doc in fleet["docs"]():
+        store.create(doc)
+    src = RawFixtureDataSource(keep_urls=False)
+    an = Analyzer(EngineConfig(triage=triage), src, store, VerdictExporter(), device=DEV)
+    cycles = []
+    for c in range(ENGINE_CYCLES):
+        src.pages = fleet["pages"][c]
+        kernels.reset_launches()
+        d0, tl0 = an.device_launches, an.triage_launches_total
+        prof = None
+        builds = build.builds
+        t0 = time.perf_counter()
+        if c == profile_cycle:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                an.run_cycle(worker="smoke", now=fleet["now"] + c * STEP)
+                torch.cuda.synchronize()
+        else:
+            an.run_cycle(worker="smoke", now=fleet["now"] + c * STEP)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = an.last_cycle_stages
+        cycles.append({
+            "wall_s": wall, "jobs": st["jobs"], "stages": st["stage_seconds"],
+            "launches": dict(kernels.launches), "device_launches": an.device_launches - d0,
+            "triage_launches": an.triage_launches_total - tl0, "triage": st["triage"],
+            "builds": build.builds - builds, "digest": verdict_digest(store),
+            "idle": idle_split(prof) if prof is not None else None})
+    return an, store, cycles
+
+
+def engine_band_inputs(fleet):
+    """The first cycle's continuous rows as the engine packs them for the
+    triage screen and the band family: every continuous job's history ++
+    current through the port's parser, the latency policy, zero rows up to
+    the 4096 rung; then the triage margin."""
+    from foremast_tpu_torch.dataplane.fetch import window_from_prometheus_body
+    from foremast_tpu_torch.engine.analyzer import _concat_trimmed
+
+    pages = fleet["pages"][0]
+    R, T = 4096, 2048
+    x = np.zeros((R, T), np.float32)
+    m = np.zeros((R, T), bool)
+    reg = np.zeros((R, T), bool)
+    j = 0
+    for i in range(ENGINE_CONTINUOUS):
+        jid = f"continuous-{i:05d}"
+        h = window_from_prometheus_body(pages[f"http://prometheus/q/{jid}/h"])
+        c = window_from_prometheus_body(pages[f"http://prometheus/q/{jid}/c"])
+        vals, mask, n_h = _concat_trimmed(h, c)
+        x[j, :len(vals)], m[j, :len(vals)], reg[j, n_h:len(vals)] = vals, mask, True
+        j += 1
+    thr = np.zeros(R, np.float32)
+    thr[:j] = 10.0  # the latency policy
+    mode = np.ones(R, np.int32)
+    mode[:j] = 3
+    t = [torch.from_numpy(a).to(DEV) for a in (x, m, reg, thr, mode)]
+    return (*t, torch.zeros(R, device=DEV), torch.full((R,), TRIAGE_MARGIN, device=DEV))
+
+
+def engine_path(rng):
+    """Two cycles of 10,000 jobs through the port's Analyzer on the card
+    (triage on, the default), again with the second cycle under
+    torch.profiler, and with triage off; the truth and contract checks; then
+    kernels G and B against their twins at the shape the engine gave them,
+    and kernel G's time there."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.engine import jobs as J
+    from foremast_tpu_torch.ops import forecast as fc
+    from foremast_tpu_torch.ops import triage as tr
+
+    t0 = time.perf_counter()
+    fleet = engine_fleet(rng)
+    print(f"  {ENGINE_CANARIES} canary and {ENGINE_CONTINUOUS} continuous jobs as query_range "
+          f"bodies for {ENGINE_CYCLES} cycles, made in {time.perf_counter() - t0:.1f} s; "
+          f"{len(fleet['bad'])} bad canaries, {len(fleet['shifted'])} shifted and "
+          f"{len(fleet['spiked'])} spiked continuous jobs", flush=True)
+    an, store, cycles = engine_arm(fleet, triage=True)
+    _, _, prof_cycles = engine_arm(fleet, triage=True, profile_cycle=ENGINE_CYCLES - 1)
+    _, _, off_cycles = engine_arm(fleet, triage=False)
+    for c, rec in enumerate(cycles):
+        tri = rec["triage"] or {}
+        st = rec["stages"]
+        print(f"  cycle {c + 1}: {rec['jobs']} jobs in {rec['wall_s']:.3f} s "
+              f"({rec['jobs'] / rec['wall_s']:.0f} jobs/s); stages preprocess "
+              f"{st['preprocess']:.3f} s, dispatch {st['dispatch']:.3f} s, collect "
+              f"{st['collect']:.3f} s, fold {st['fold']:.3f} s; kernel launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }, analyzer device_launches "
+              f"{rec['device_launches']}; screened {tri.get('screened')}, cleared "
+              f"{tri.get('cleared')}, escalated {tri.get('escalated')}; kernel library builds "
+              f"{rec['builds']}", flush=True)
+        for k in ("pair_verdict", "ma_band", "triage_screen"):
+            check(rec["launches"][k] >= 1, f"engine cycle {c + 1} launched no {k}")
+        check(tri.get("cleared", 0) >= 1, f"engine cycle {c + 1}: the screen cleared no row")
+        check(rec["launches"]["triage_screen"] == rec["triage_launches"],
+              f"engine cycle {c + 1}: triage_screen launches {rec['launches']['triage_screen']} "
+              f"!= the gate's {rec['triage_launches']} (a screen failed and escalated)")
+        check(rec["digest"] == off_cycles[c]["digest"],
+              f"engine cycle {c + 1}: the triage-off verdict digest differs")
+        check(rec["digest"] == prof_cycles[c]["digest"],
+              f"engine cycle {c + 1}: the profiled run's verdict digest differs")
+    check(cycles[-1]["builds"] == 0, "the second engine cycle built the kernel library")
+    rec = prof_cycles[-1]
+    if rec["idle"] is None:
+        print("  idle share: not measured (the profiler saw no device event)", flush=True)
+    else:
+        print(f"  cycle {ENGINE_CYCLES} under torch.profiler ({rec['wall_s']:.3f} s with the "
+              f"profiler's own start and processing): "
+              + "; ".join(f"{k} {h:.1f} ms host, {b:.1f} ms device busy, idle {i:.4f}"
+                          for k, (h, b, i) in rec["idle"].items()), flush=True)
+    docs = store.by_status(*J.OPEN_STATUSES, *J.TERMINAL_STATUSES)
+    status = {d.id: d.status for d in docs}
+    failed = [d.id for d in docs if d.reason.startswith("scoring failed")
+              or d.status in ("abort", "preprocess_failed")]
+    check(not failed, f"{len(failed)} jobs failed scoring, e.g. {failed[:3]}")
+    bad = fleet["bad"] | fleet["shifted"]
+    missed = [j for j in bad if status[j] != "completed_unhealth"]
+    check(not missed, f"{len(missed)} bad canaries or shifted jobs not unhealthy, e.g. {missed[:3]}")
+    healthy = [j for j in status if j not in bad]
+    flagged = [j for j in healthy if status[j] == "completed_unhealth"]
+    share = len(flagged) / len(healthy)
+    canary_fp = sum(j.startswith("canary") for j in flagged)
+    print(f"  verdicts: {len(bad)} bad canaries and shifted jobs all unhealthy; healthy jobs "
+          f"flagged {share:.5f} (limit 0.01): {canary_fp} canaries (Mann-Whitney alone at "
+          f"p < 0.01, the default pairwise test), {len(flagged) - canary_fp} continuous; "
+          f"digests equal with triage on, on under the profiler, and off", flush=True)
+    check(share < 0.01, f"healthy jobs flagged {share:.4f} >= 0.01")
+
+    args = engine_band_inputs(fleet)
+    band = args[:6]
+    b_err, b_bracketed = compare_ma_band(
+        band, TRIAGE_WINDOW, kernels.ma_band(*band[:3], TRIAGE_WINDOW, *band[3:]),
+        fc.moving_average_band_plain(*band[:3], TRIAGE_WINDOW, *band[3:]))
+    print(f"  ma_band at the engine's shape ({band[0].shape[0]} x {band[0].shape[1]}, every "
+          f"continuous row) against its twin: max |d preds| = {b_err:.3g}, {b_bracketed} rows "
+          f"bracketed", flush=True)
+
+    def run():
+        return kernels.triage_screen(args[0], args[1], args[2], TRIAGE_WINDOW, *args[3:])
+
+    err, _ = compare_triage(args, run(), tr.screen_rows_plain(*args, TRIAGE_WINDOW))
+    ms = cuda_ms(run, TIMED_RUNS)
+    plain_ms = cuda_ms(lambda: tr.screen_rows_plain(*args, TRIAGE_WINDOW), 3)
+    s_ms = sort_ms(args[0], args[1], args[2], args[0].shape[0])
+    bound = triage_bound(args[1], args[2])
+    launches = sum(r["launches"]["triage_screen"] for r in cycles)
+    print(f"  triage_screen at the engine's shape ({args[0].shape[0]} x {args[0].shape[1]}): "
+          f"kernel {ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), plain "
+          f"twin {plain_ms:.1f} ms, torch.sort of the history {s_ms:.3f} ms, max |err| against "
+          f"the twin {err:.3g}; {launches} launches in the {ENGINE_CYCLES} cycles", flush=True)
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def main() -> int:
@@ -931,6 +1475,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     print(f"  built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    from foremast_tpu_torch import native
+
+    t0 = time.perf_counter()
+    print(f"  the host's native parser (g++): available {native.available()}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in build.build_log().splitlines():
         if "Compiling entry function" in line:
             print("  ptxas: " + line.split("'")[1], flush=True)
@@ -952,13 +1501,21 @@ def main() -> int:
     kernel_a_vs_twin(rng)
     kernel_b_vs_twin(gen)
     kernels_c_to_f_vs_twin(gen)
+    kernel_g_vs_twin(gen)
 
     phase("pairs")
     a = pair_path(rng)
     phase("bands")
-    b = band_path(gen)
+    b, g_bands = band_path(gen)
     phase("seasonal")
-    s = seasonal_path(gen)
+    s, g_season = seasonal_path(gen)
+    phase("engine")
+    g = engine_path(rng)
+    print(f"  triage_screen, 100,000 rows: {g_bands['ms']:.3f} ms at T = {BAND_T} (bound "
+          f"{g_bands['bound_ms']:.3f} ms, twin {g_bands['plain_ms']:.1f} ms, torch.sort "
+          f"{g_bands['sort_ms']:.3f} ms), {g_season['ms']:.3f} ms at T = {SEASON_T} (bound "
+          f"{g_season['bound_ms']:.3f} ms, twin {g_season['plain_ms']:.1f} ms, torch.sort "
+          f"{g_season['sort_ms']:.3f} ms)", flush=True)
 
     csrc = "foremast_tpu_torch/csrc/"
     rows = [
@@ -976,9 +1533,12 @@ def main() -> int:
          "replaces": "foremast_tpu/ops/forecast.py:225", **s["detect_period"]},
         {"name": "band_from_preds", "source": csrc + "ma_band.cu",
          "replaces": "foremast_tpu/ops/forecast.py:478", **s["band_from_preds"]},
+        {"name": "triage_screen", "source": csrc + "triage.cu",
+         "replaces": "foremast_tpu/ops/triage.py:58", **g},
     ]
     for r in rows:
-        # no single PyTorch call computes any of these functions
+        # no single PyTorch call computes any of these functions (torch.sort,
+        # timed beside kernel G, computes only its order statistics)
         r.update(route="cuda", library_ms=None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

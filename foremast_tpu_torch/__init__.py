@@ -1,11 +1,14 @@
-"""PyTorch / CUDA port of foremast_tpu's scoring core, for one NVIDIA H100.
+"""PyTorch / CUDA port of foremast_tpu, for one NVIDIA H100.
 
 The JAX package ``foremast_tpu`` stays the reference; this package mirrors
-its layout (``ops/``, ``parallel/``, ``utils/``) and imports nothing of it,
-nor JAX. Ported so far: fleet canary-pair scoring
-(``parallel.fleet.score_pairs``), the moving-average band family
-(``ops.forecast.moving_average_band``) and the band family under the other
-univariate algorithms (``ops.forecast.forecast_band``: exponential
+its layout (``engine/``, ``dataplane/``, ``ops/``, ``parallel/``,
+``resilience/``, ``utils/``, ``native/``) and imports nothing of it, nor
+JAX. Ported so far: the engine cycle (``engine.Analyzer.run_cycle``:
+claim, fetch and parse, pack into pinned buffers, the tier-0 triage screen
+``ops.triage.screen_rows``, the pair and band families, fold), fleet
+canary-pair scoring (``parallel.fleet.score_pairs``), the moving-average
+band family (``ops.forecast.moving_average_band``) and the band family under
+the other univariate algorithms (``ops.forecast.forecast_band``: exponential
 smoothing and its long-window scan, double exponential smoothing,
 Holt-Winters with period detection and its grid fit). Each runs on
 hand-written CUDA kernels (``csrc/``, built at first use by ``kernels``),

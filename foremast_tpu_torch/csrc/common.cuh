@@ -177,6 +177,9 @@ __device__ inline GroupStats sorted_group_stats(const uint64_t* keys, int nvalid
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? a + b : fmaxf(a, b);
 }
+struct NanMax {
+  __device__ float operator()(float a, float b) const { return nan_max(a, b); }
+};
 
 // ---------------------------------------------------------------------------
 // Causal time-based moving average (the reference's _moving_average_1d).

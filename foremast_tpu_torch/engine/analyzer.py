@@ -1,0 +1,1061 @@
+"""The analysis engine: jobs -> card batches -> verdicts.
+
+The port's counterpart of the reference's ``engine/analyzer.py``: a batched
+cycle in which every runnable job's windows are fetched, packed into dense
+(B, T) buckets and scored by one kernel launch per bucket rung, then folded
+into job statuses. Verdict semantics are the reference's:
+
+  * two judgment modes: pairwise baseline-vs-current (the pair family,
+    kernel A through ``parallel.fleet.score_pairs``), and the forecast band
+    over history ++ current (the band family, ``ops.forecast.forecast_band``:
+    kernel B under moving_average*, the seasonal kernels under the other
+    univariate algorithms);
+  * fail-fast: completed_unhealth the moment an anomaly is seen; otherwise
+    healthy jobs re-queue each cycle until endTime;
+  * insufficient data by endTime -> completed_unknown;
+  * continuous jobs re-materialize START_TIME/END_TIME windows per cycle.
+
+Entry: ``Analyzer(config, source, store, exporter=None, device=None)`` runs
+on the card ("cuda") unless the caller passes device="cpu", where every
+family runs its plain twin; without a card it raises. A CUDA launch either
+runs its kernel or raises, and a failure goes to the per-job retry path on
+the same device, never to the CPU.
+
+Not in this slice (ROADMAP.md): the bivariate, LSTM and HPA families (a job
+routed to one fails scoring with NotImplementedError, never a healthy
+verdict), provenance, SLOs, the flight recorder and health monitor, load
+shedding, stale-verdict serving, quarantine and sharding.
+"""
+from __future__ import annotations
+
+import hashlib
+import threading
+import time
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..dataplane.exporter import VerdictExporter
+from ..dataplane.fetch import FetchError, grid_from_series
+from ..dataplane.promql import (
+    CONTINUOUS_STRATEGIES,
+    STRATEGY_HPA,
+    materialize_placeholders,
+)
+from ..ops import forecast as fc
+from ..ops.windowing import MAX_WINDOW_STEPS, Window, bucket_length
+from ..parallel import fleet as fl
+from ..resilience.policy import Deadline
+from ..utils import tracing
+from ..utils.locks import make_lock
+from ..utils.timeutils import from_rfc3339
+from . import jobs as J
+from .config import EngineConfig, MetricPolicy
+from .staging import Staging
+
+
+class WatchdogTimeout(Exception):
+    """A card materialization (or its per-job retry) overran WATCHDOG_S.
+
+    Raised by Analyzer._watchdog_call; the pipeline's collect phase treats
+    it like any collect failure — the bucket fails over to the sync
+    per-job path — so one hung launch costs one bucket's timeout, not the
+    whole cycle."""
+
+
+NOT_PORTED = ("the bivariate, LSTM and HPA families are not ported yet "
+              "(ROADMAP queue 1, items 6 and 7)")
+
+
+def _not_ported(*_args, **_kwargs):
+    raise NotImplementedError(NOT_PORTED)
+
+
+@dataclass
+class _PairItem:
+    job_id: str
+    metric: str
+    baseline: Window
+    current: Window
+    policy: MetricPolicy
+
+
+@dataclass
+class _BandItem:
+    job_id: str
+    metric: str
+    historical: Window
+    current: Window
+    policy: MetricPolicy
+
+
+@dataclass
+class _BiItem:
+    """Two-metric joint job (ML_ALGORITHM=bivariate_normal)."""
+
+    job_id: str
+    metrics: tuple  # (name1, name2)
+    hist: tuple  # (Window, Window)
+    cur: tuple  # (Window, Window)
+    policies: tuple  # (MetricPolicy, MetricPolicy)
+
+
+@dataclass
+class _MultiItem:
+    """3+-metric LSTM-autoencoder job."""
+
+    job_id: str
+    cache_key: str  # app/namespace identity for the model cache
+    metrics: list
+    hist: list  # [Window]
+    cur: list  # [Window]
+
+
+@dataclass
+class _HpaItem:
+    job_id: str
+    metric: str
+    historical: Window
+    current: Window
+    is_increase: bool = True
+    priority: int = 0
+    is_absolute: bool = False
+    pod_window: object = None
+
+
+def _fp(*parts) -> bytes:
+    """Order-sensitive fingerprint of scorer inputs (SCORE_MEMO).
+
+    Windows hash their full identity (start, step, length, values, mask);
+    ndarrays their bytes; everything else its repr. blake2b-128 — the memo
+    only ever compares fingerprints of the SAME key, so 128 bits is far
+    past accidental-collision territory."""
+    h = hashlib.blake2b(digest_size=16)
+    for p in parts:
+        if p is None:
+            h.update(b"\xffN")
+        elif isinstance(p, Window):
+            h.update(np.float64(
+                (p.start, p.step, p.values.shape[0])).tobytes())
+            h.update(p.values.tobytes())
+            h.update(p.mask.tobytes())
+        elif isinstance(p, np.ndarray):
+            h.update(np.int64(p.shape).tobytes())
+            h.update(p.tobytes())
+        else:
+            h.update(repr(p).encode())
+        h.update(b"|")
+    return h.digest()
+
+
+def _concat_trimmed(hist: Window, cur: Window):
+    """(values, mask, n_h) of hist+current, hist left-trimmed so the concat
+    fits the largest bucket."""
+    n_c = cur.values.shape[0]
+    max_h = max(MAX_WINDOW_STEPS - n_c, 0)
+    h_vals = hist.values[-max_h:] if max_h else hist.values[:0]
+    h_mask = hist.mask[-max_h:] if max_h else hist.mask[:0]
+    vals = np.concatenate([h_vals, cur.values[: MAX_WINDOW_STEPS]])
+    mask = np.concatenate([h_mask, cur.mask[: MAX_WINDOW_STEPS]])
+    return vals, mask, h_vals.shape[0]
+
+
+def _concat_ts(cur: Window, n_h: int, j: int) -> float:
+    """Translate a concat-grid index onto the CURRENT window's own time grid
+    (history is tail-kept, current head-kept, so concat index n_h + k is
+    current index k)."""
+    return float(cur.start + (j - n_h) * cur.step)
+
+
+def _put_row(vals: np.ndarray, mask: np.ndarray, j: int, v: np.ndarray, m: np.ndarray):
+    """Row j of a packed (R, T) pair of buffers: the window, then zeros and
+    False to the right (pack_windows' padding; buffers are reused)."""
+    L = v.shape[0]
+    vals[j, :L] = v
+    vals[j, L:] = 0.0
+    mask[j, :L] = m
+    mask[j, L:] = False
+
+
+# launch argument layouts: (name, dtype, columns) for Staging.pack
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+PAIR_SPECS = (("baseline", _F32, "T"), ("b_mask", _BOOL, "T"), ("current", _F32, "T"),
+              ("c_mask", _BOOL, "T"), ("pvalue_threshold", _F32, None),
+              ("test_mask", _I32, None), ("combine", _I32, None), ("ma_window", _I32, None),
+              ("band_threshold", _F32, None), ("bound_mode", _I32, None),
+              ("min_lower_bound", _F32, None), ("min_points", _I32, 4))
+BAND_SPECS = (("x", _F32, "T"), ("mask", _BOOL, "T"), ("region", _BOOL, "T"),
+              ("threshold", _F32, None), ("bound_mode", _I32, None),
+              ("min_lower_bound", _F32, None))
+PAIR_OUTPUTS = ("unhealthy", "min_p", "pairwise_unhealthy", "band_unhealthy", "band_count")
+BAND_OUTPUTS = ("count", "first_index", "checked", "upper", "lower", "flags")
+
+
+@dataclass
+class _JobState:
+    doc: J.Document
+    unhealthy: list = field(default_factory=list)  # (metric, detail, anomaly pairs)
+    judged_any: bool = False
+    failed: str = ""
+
+
+class Analyzer:
+    def __init__(self, config: EngineConfig, data_source, store: J.JobStore,
+                 exporter: VerdictExporter | None = None, device=None):
+        self.config = config
+        self.source = data_source
+        self.store = store
+        self.exporter = exporter or VerdictExporter()
+        self.device = resolve_device(device)
+        # pinned host buffers and the one stream the engine's copies and
+        # launches run on (engine/staging.py)
+        self.staging = Staging(self.device)
+        # last cycle's stage/family timing decomposition — empty until the
+        # first cycle
+        self.last_cycle_stages: dict = {}
+        # -- fingerprint score memoization (SCORE_MEMO) --
+        # (family, result_key) -> (fingerprint, result dict). Survives
+        # across cycles on the analyzer; the per-cycle CyclePipeline
+        # consults it so unchanged rows skip their launch entirely.
+        # LRU-bounded at 4x WINDOW_CACHE_MAX (~one entry per job window).
+        self._score_memo: OrderedDict = OrderedDict()
+        self.score_memo_hits: dict[str, int] = {}    # family -> cumulative
+        self.score_memo_misses: dict[str, int] = {}
+        # total kernel launches (chunk launches across every family and the
+        # tier-0 triage screen) — the steady-state no-change gate asserts
+        # this stays flat over a memo-hit cycle
+        self.device_launches = 0
+        # -- single-dispatch mega-batching (MEGABATCH) cumulative counters:
+        # launches through the mega path, real rows carried and padding
+        # rows added. Per-cycle deltas land in last_cycle_stages.
+        self.megabatch_launches_total = 0
+        self.megabatch_real_rows_total = 0
+        self.megabatch_pad_rows_total = 0
+        # -- tier-0 triage (TRIAGE; engine/triage.py) cumulative counters:
+        # rows screened / cleared / escalated per family, and screen
+        # launches. Per-cycle deltas land in last_cycle_stages.
+        self.triage_screened_total: dict[str, int] = {}
+        self.triage_cleared_total: dict[str, int] = {}
+        self.triage_escalated_total: dict[str, int] = {}
+        self.triage_launches_total = 0
+        self._cycle_seq = 0
+        self.current_cycle_id = ""
+        # hung-launch watchdog (WATCHDOG_S): fires counter + the live count
+        # of abandoned sacrificial threads (each still parked on a hung
+        # card call); bounded by _WATCHDOG_MAX_ABANDONED
+        self.watchdog_fires_total = 0
+        self._wd_lock = make_lock("engine.analyzer.watchdog")
+        self._watchdog_abandoned = 0
+
+    def _memo_put(self, table: OrderedDict, key, val):
+        """Insert-and-bound for the memo table (LRU)."""
+        table[key] = val
+        table.move_to_end(key)
+        bound = max(4 * self.config.window_cache_max, 64)
+        while len(table) > bound:
+            table.popitem(last=False)
+
+    def _memo_key_fp(self, family: str, entry, T: int):
+        """(result_key, fingerprint) for one routed accumulator entry.
+
+        The fingerprint covers everything the family's launch+collect reads
+        from the entry: every window's full identity, the policy, and the T
+        bucket. Config is absent — it is frozen for the analyzer's lifetime,
+        and the memo dies with the analyzer."""
+        it = entry
+        if family == "pair":
+            return ((it.job_id, it.metric, "pair"),
+                    _fp(b"pair", T, it.metric, it.baseline, it.current,
+                        it.policy))
+        return ((it.job_id, it.metric, "band"),
+                _fp(b"band", T, it.metric, it.historical, it.current,
+                    it.policy))
+
+    # ------------------------------------------------------------------ fetch
+    def _fetch_window(self, url: str, now: float) -> Window | None:
+        if not url:
+            return None
+        url = materialize_placeholders(url, now)
+        t0 = time.perf_counter()
+        try:
+            # byte-level sources expose fetch_window: body -> grid Window
+            # in one fused native call; series-level sources (fixture
+            # dicts) go through fetch() + grid_from_series
+            fw = getattr(self.source, "fetch_window", None)
+            win = fw(url) if fw is not None else None
+            if win is None:
+                ts, vals = self.source.fetch(url)
+                win = grid_from_series(ts, vals)
+            if win is not None:
+                tracing.tracer.add_note("points", int(win.values.shape[0]))
+            return win
+        finally:
+            dt = time.perf_counter() - t0
+            tracing.tracer.add_note("fetches", 1)
+            tracing.tracer.add_note("fetch_seconds", dt)
+            self.exporter.record_histogram(
+                "foremastbrain:fetch_seconds", {}, dt,
+                help="Per-window metric fetch latency (seconds).")
+
+    def _preprocess(self, doc: J.Document, now: float):
+        """Fetch all windows for a job; returns (pair, band, bi, multi, hpa)
+        item lists. Band candidates route by the configured model family and
+        metric count: bivariate_normal pairs 2-metric jobs, lstm_autoencoder
+        pools 3+-metric jobs; everything else scores univariate bands."""
+        pairs, bands, bis, multis, hpas = [], [], [], [], []
+        candidates = []  # (name, hist, cur, policy) judgeable by history
+        pod_window = None
+        if doc.strategy == STRATEGY_HPA and doc.pod_count_url:
+            try:
+                pod_window = self._fetch_window(doc.pod_count_url, now)
+            except Exception:  # noqa: BLE001 - optional signal, never fatal
+                pod_window = None
+        for name, mq in doc.metrics.items():
+            policy = self.config.policy_for(name)
+            cur = self._fetch_window(mq.current, now)
+            base = self._fetch_window(mq.baseline, now)
+            hist = self._fetch_window(mq.historical, now)
+            if cur is None or cur.n_valid == 0:
+                # no current data -> nothing judgeable for this metric; the
+                # job ends COMPLETED_UNKNOWN at endTime, never "healthy"
+                continue
+            if doc.strategy == STRATEGY_HPA:
+                if hist is not None:
+                    hpas.append(
+                        _HpaItem(doc.id, name, hist, cur, mq.is_increase,
+                                 mq.priority, mq.is_absolute, pod_window)
+                    )
+                continue
+            if base is not None and base.n_valid > 0:
+                pairs.append(_PairItem(doc.id, name, base, cur, policy))
+            if hist is not None and hist.n_valid >= self.config.min_historical_points:
+                candidates.append((name, hist, cur, policy))
+        algo = self.config.algorithm
+        # the reference dispatches the historical model by METRIC COUNT
+        # (one metric -> a univariate forecaster, two -> bivariate normal,
+        # 3+ -> LSTM); multimetric_auto=False routes multivariate families
+        # only when ML_ALGORITHM names them explicitly
+        auto = self.config.multimetric_auto
+        if (auto or algo.startswith("bivariate")) and len(candidates) == 2:
+            (n1, h1, c1, p1), (n2, h2, c2, p2) = candidates
+            bis.append(_BiItem(doc.id, (n1, n2), (h1, h2), (c1, c2), (p1, p2)))
+        elif (auto or algo.startswith("lstm")) and len(candidates) >= 3:
+            multis.append(
+                _MultiItem(
+                    doc.id,
+                    f"{doc.app_name}/{doc.namespace}",
+                    [c[0] for c in candidates],
+                    [c[1] for c in candidates],
+                    [c[2] for c in candidates],
+                )
+            )
+        else:
+            for name, hist, cur, policy in candidates:
+                bands.append(_BandItem(doc.id, name, hist, cur, policy))
+        return pairs, bands, bis, multis, hpas
+
+    # ------------------------------------------------------------- scoring
+    def _isolate(self, score_fn, items):
+        """Run a batch scorer with per-job blast-radius containment: on batch
+        failure, retry per JOB and report {job_id: error} for the offenders
+        only (on the same device: a failure never moves work to the CPU)."""
+        try:
+            return score_fn(items), {}
+        except Exception:  # noqa: BLE001 - fall back to per-job isolation
+            results, bad = {}, {}
+            by_job: dict[str, list] = {}
+            for it in items:
+                by_job.setdefault(it.job_id, []).append(it)
+            for job_id, group in by_job.items():
+                try:
+                    results.update(score_fn(group))
+                except Exception as e:  # noqa: BLE001
+                    bad[job_id] = f"{type(e).__name__}: {e}"
+            return results, bad
+
+    def _watchdog_call(self, fn, *args):
+        """Run a collect-phase materialization bounded by WATCHDOG_S.
+
+        A wait on the card has no timeout parameter, so the bound comes
+        from outside: the call runs on a sacrificial daemon thread and the
+        caller waits at most the budget. On expiry the thread is ABANDONED
+        and WatchdogTimeout raised — the pipeline fails the bucket over to
+        the sync per-job path, which is wrapped too. Disabled (WATCHDOG_S=0)
+        this is a plain call with zero overhead.
+        """
+        timeout = self.config.watchdog_seconds
+        if timeout <= 0:
+            return fn(*args)
+        with self._wd_lock:
+            if self._watchdog_abandoned >= self._WATCHDOG_MAX_ABANDONED:
+                # a persistently wedged card would otherwise accumulate
+                # abandoned threads without bound across cycles; at the cap,
+                # new guarded calls fast-fail as watchdog fires
+                self._record_watchdog_fire()
+                raise WatchdogTimeout(
+                    f"{self._watchdog_abandoned} abandoned watchdog "
+                    "threads (device wedged); call skipped")
+        out: list = []
+        err: list = []
+        done = threading.Event()
+        abandoned = {"flag": False}
+        ctx = tracing.tracer.context()
+
+        def run():
+            try:
+                with tracing.tracer.attach(ctx):
+                    out.append(fn(*args))
+            except BaseException as e:  # noqa: BLE001 - relayed to caller
+                err.append(e)
+            finally:
+                done.set()
+                # flag read UNDER the lock, pairing with the timed-out main
+                # thread's locked {is_set check -> flag set}
+                with self._wd_lock:
+                    if abandoned["flag"]:
+                        # the hung call eventually returned: free its slot
+                        self._watchdog_abandoned -= 1
+
+        t = threading.Thread(target=run, name="collect-watchdog", daemon=True)
+        t.start()
+        if not done.wait(timeout):
+            with self._wd_lock:
+                if not done.is_set():
+                    abandoned["flag"] = True
+                    self._watchdog_abandoned += 1
+            if abandoned["flag"]:
+                self._record_watchdog_fire()
+                raise WatchdogTimeout(
+                    f"device materialization exceeded {timeout:g}s "
+                    "(watchdog)")
+        if err:
+            raise err[0]
+        return out[0]
+
+    # abandoned-thread ceiling: past this many never-returned card calls
+    # the watchdog stops spawning and fast-fails instead
+    _WATCHDOG_MAX_ABANDONED = 8
+
+    def _record_watchdog_fire(self):
+        self.watchdog_fires_total += 1
+        self.exporter.record_counter(
+            "foremastbrain:watchdog_fires_total", {},
+            help="device materializations timed out by the collect "
+                 "watchdog (WATCHDOG_S)")
+
+    # the batch-rung ladder: chunks pad to the smallest rung that fits, so
+    # a launch's shape (and its pinned staging buffers) come from a small
+    # fixed set at any fleet size
+    _BATCH_BUCKETS = (16, 64, 256, 512, 1024, 4096, 16384, 65536)
+
+    @classmethod
+    def _rung_for(cls, n: int, cap: int) -> int:
+        """Smallest batch rung >= n from the ladder, capped at `cap`. The
+        ONE ladder walk — the family chunker and the triage screen both
+        route through it."""
+        for b in cls._BATCH_BUCKETS:
+            if b >= cap:
+                break
+            if n <= b:
+                return b
+        return cap
+
+    def _bucket_rows(self, n: int) -> int:
+        """Smallest batch rung >= n, capped at the configured chunk."""
+        return self._rung_for(n, max(16, self.config.score_batch))
+
+    # mega padding classes (MEGABATCH): below this the classic rung ladder
+    # applies; above it classes are mantissa-quantized so a big fleet pads
+    # by at most 1/16
+    _MEGA_MANTISSA_FLOOR = 512
+
+    @classmethod
+    def _mega_rows(cls, n: int) -> int:
+        """Smallest mega padding class >= n: rung-ladder snapped up to
+        _MEGA_MANTISSA_FLOOR, then ceil to 5-bit-mantissa granularity
+        (m * 2^e with m in [16, 32)) — waste <= 6.25%."""
+        n = max(int(n), 1)
+        if n <= cls._MEGA_MANTISSA_FLOOR:
+            for b in cls._BATCH_BUCKETS:
+                if n <= b:
+                    return b
+        e = max(n.bit_length() - 5, 0)  # keeps the mantissa in [16, 32)
+        return -(-n // (1 << e)) << e
+
+    def _mega_cap(self, T: int) -> int:
+        """Mega-launch row ceiling for a T bucket: MEGABATCH_MAX_ROWS at
+        T <= 1024, scaled ~1/T beyond (floor 1024)."""
+        max_rows = max(int(self.config.megabatch_max_rows), 1024)
+        budget = max_rows * 1024  # row-steps at the base T
+        return int(min(max_rows, max(budget // max(int(T), 1024), 1024)))
+
+    def _launch_chunks(self, family: str, T: int, B: int, specs, pack, launch,
+                       outputs) -> list:
+        """Row-chunk a family's B rows into batch rungs and launch one
+        kernel call per chunk WITHOUT waiting for it.
+
+        For each chunk, `pack(host, lo, hi)` writes rows lo..hi of the
+        family's entries straight into pinned staging buffers (rows 0..n-1);
+        padded rows repeat the last real row (always valid inputs, trimmed
+        at collect). The buffers go to the card without blocking, `launch`
+        queues the kernels on the engine's stream, and the device copies of
+        the inputs are dropped at once. Partial chunks pad to the smallest
+        rung that fits (or, under MEGABATCH, one launch per memory-aware cap
+        padded to its fine mega class). Returns [(staging key, outputs,
+        n_valid_rows)] in row order; nothing blocks until `_collect_chunks`.
+        """
+        mega = self.config.megabatch
+        C = self._mega_cap(T) if mega else self._bucket_rows(B)
+        launches = []
+        for lo in range(0, B, C):
+            n = min(C, B - lo)
+            target = (min(self._mega_rows(n), C) if mega
+                      else self._bucket_rows(n))
+            key = (family, T, target)
+            slot = self.staging.pack(key, specs, target, T)
+            pack(slot.host, lo, lo + n)
+            if n < target:
+                for a in slot.host.values():
+                    a[n:target] = a[n - 1]
+            self.device_launches += 1
+            if mega:
+                self.megabatch_launches_total += 1
+                self.megabatch_real_rows_total += n
+                self.megabatch_pad_rows_total += target - n
+            with self.staging.on_stream():
+                out = launch(self.staging.to_device(slot))
+            launches.append((key, {k: out[k] for k in outputs}, n))
+        return launches
+
+    def _collect_chunks(self, launches: list) -> dict:
+        """Materialize `_launch_chunks` output: copy every chunk's outputs
+        back to pinned host buffers, wait once, trim padded rows and
+        concatenate chunks into one (B, ...) dict. A single chunk's arrays
+        are views of the pinned buffers, valid until the next collect."""
+        st = self.staging
+        st.begin_collect()
+        with st.on_stream():
+            host = [st.fetch(key, outs) for key, outs, _ in launches]
+        st.sync()
+        outs = [{k: v[:n] for k, v in h.items()} for h, (_, _, n) in zip(host, launches)]
+        if len(outs) == 1:
+            return outs[0]
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+    # ------------------------------------------------ family launch/collect
+    # Each batch family is split into a `_launch_*` half (pack + queued
+    # launch; returns an opaque state tuple whose [0] is the claim-ordered
+    # entry list) and a `_collect_*` half (materialize + per-item
+    # postprocess). The synchronous `_score_*` entry points — the barriered
+    # cycle and the per-job retry path of the `_isolate` fallback — are
+    # launch + immediate collect over the same code.
+
+    @staticmethod
+    def _pair_T(it: _PairItem) -> int:
+        return bucket_length(
+            max(it.baseline.values.shape[0], it.current.values.shape[0])
+        )
+
+    @staticmethod
+    def _by_bucket(items, key) -> dict:
+        by: dict[int, list] = {}
+        for it in items:
+            by.setdefault(key(it), []).append(it)
+        return by
+
+    def _launch_pairs(self, group: list, T: int):
+        cfg = self.config
+        combine = fl.COMBINE_ALL if cfg.pairwise_combine_all else fl.COMBINE_ANY
+        tests = cfg.enabled_tests()
+        min_points = (cfg.min_mann_whitney_points, cfg.min_wilcoxon_points,
+                      cfg.min_kruskal_points, cfg.min_friedman_points)
+
+        def pack(h, lo, hi):
+            for j, it in enumerate(group[lo:hi]):
+                _put_row(h["baseline"], h["b_mask"], j, it.baseline.values, it.baseline.mask)
+                _put_row(h["current"], h["c_mask"], j, it.current.values, it.current.mask)
+                h["band_threshold"][j] = it.policy.threshold
+                h["bound_mode"][j] = it.policy.bound
+                h["min_lower_bound"][j] = it.policy.min_lower_bound
+            n = hi - lo
+            h["pvalue_threshold"][:n] = cfg.pairwise_threshold
+            h["test_mask"][:n] = tests
+            h["combine"][:n] = combine
+            h["ma_window"][:n] = cfg.ma_window
+            h["min_points"][:n] = min_points
+
+        def launch(d):
+            return fl.score_pairs(*(d[name] for name, _, _ in PAIR_SPECS), device=self.device)
+
+        launches = self._launch_chunks("pair", T, len(group), PAIR_SPECS, pack, launch,
+                                       PAIR_OUTPUTS)
+        return (group, launches)
+
+    def _collect_pairs(self, state) -> dict:
+        group, launches = state
+        out = self._collect_chunks(launches)
+        results = {}
+        # one bulk .tolist() per field instead of boxed numpy scalar reads
+        unhealthy = out["unhealthy"].tolist()
+        min_p = out["min_p"].tolist()
+        pw = out["pairwise_unhealthy"].tolist()
+        band = out["band_unhealthy"].tolist()
+        band_count = out["band_count"].tolist()
+        for i, it in enumerate(group):
+            results[(it.job_id, it.metric, "pair")] = {
+                "unhealthy": unhealthy[i],
+                "min_p": min_p[i],
+                "pairwise_unhealthy": pw[i],
+                "band_unhealthy": band[i],
+                "band_count": band_count[i],
+            }
+        return results
+
+    def _score_pairs(self, items: list[_PairItem]):
+        """Batch all pairwise items (bucketed by window length)."""
+        results = {}
+        for T, group in self._by_bucket(items, self._pair_T).items():
+            results.update(self._collect_pairs(self._launch_pairs(group, T)))
+        return results
+
+    @staticmethod
+    def _band_T(it: _BandItem) -> int:
+        return bucket_length(
+            min(
+                it.historical.values.shape[0] + it.current.values.shape[0],
+                MAX_WINDOW_STEPS,
+            )
+        )
+
+    def _launch_bands(self, group: list, T: int):
+        """Pack history ++ current per row and queue `forecast_band` for the
+        configured algorithm: one kernel B launch per chunk under
+        moving_average*, the seasonal kernels (with each row's own period
+        under holt_winters) otherwise. The long-window gate and the period
+        fallback are functions of the bucket T, as in the reference, so a
+        row's forecaster never depends on its chunk-mates."""
+        cfg = self.config
+        n_hs, lens = [], []
+
+        def pack(h, lo, hi):
+            for j, it in enumerate(group[lo:hi]):
+                vals, mask, n_h = _concat_trimmed(it.historical, it.current)
+                _put_row(h["x"], h["mask"], j, vals, mask)
+                h["region"][j] = False
+                h["region"][j, n_h:vals.shape[0]] = True
+                h["threshold"][j] = it.policy.threshold
+                h["bound_mode"][j] = it.policy.bound
+                h["min_lower_bound"][j] = it.policy.min_lower_bound
+                n_hs.append(n_h)
+                lens.append(vals.shape[0])
+
+        def launch(d):
+            return fc.forecast_band(
+                d["x"], d["mask"], d["region"], d["threshold"], d["bound_mode"],
+                d["min_lower_bound"], algorithm=cfg.algorithm, ma_window=cfg.ma_window,
+                long_window_steps=cfg.long_window_steps, hw_period=cfg.hw_period,
+                hw_period_auto=cfg.hw_period_auto,
+                hw_period_candidates=cfg.hw_period_candidates,
+                hw_min_seasonal_acf=cfg.hw_min_seasonal_acf,
+                hw_alias_margin=cfg.hw_alias_margin,
+                hw_contrast_margin=cfg.hw_contrast_margin, device=self.device)
+
+        launches = self._launch_chunks("band", T, len(group), BAND_SPECS, pack, launch,
+                                       BAND_OUTPUTS)
+        return (group, launches, n_hs, lens)
+
+    def _collect_bands(self, state) -> dict:
+        group, launches, n_hs, lens = state
+        out = self._collect_chunks(launches)
+        results = {}
+        counts = out["count"].tolist()
+        firsts = out["first_index"].tolist()
+        uppers = out["upper"]
+        lowers = out["lower"]
+        flags = out["flags"]
+        checked = out["checked"].tolist()
+        for i, it in enumerate(group):
+            n_h, L = n_hs[i], lens[i]
+            anomalous_idx = np.nonzero(flags[i])[0]
+            anomaly_pairs = []
+            for j in anomalous_idx[:50]:
+                # a flagged slot lies in the region: concat index j is the
+                # current window's index j - n_h
+                anomaly_pairs += [_concat_ts(it.current, n_h, int(j)),
+                                  float(it.current.values[int(j) - n_h])]
+            first = firsts[i]
+            results[(it.job_id, it.metric, "band")] = {
+                "count": counts[i],
+                "unhealthy": counts[i] >= self._gate(checked[i]),
+                "first_ts": (
+                    _concat_ts(it.current, n_h, first) if first >= 0 else -1.0
+                ),
+                "upper": float(np.mean(uppers[i][n_h:L])),
+                "lower": float(np.mean(lowers[i][n_h:L])),
+                "anomaly_pairs": anomaly_pairs,
+            }
+        return results
+
+    def _score_bands(self, items: list[_BandItem]):
+        results = {}
+        for T, group in self._by_bucket(items, self._band_T).items():
+            results.update(self._collect_bands(self._launch_bands(group, T)))
+        return results
+
+    def _gate(self, checked) -> float:
+        """Unhealthy-verdict gate: min anomalous points for a band-style
+        scorer to condemn a window (see EngineConfig.band_min_points)."""
+        return max(
+            self.config.band_min_points,
+            self.config.band_violation_fraction * float(checked),
+        )
+
+    # the families of later slices: routing stays the reference's, scoring
+    # raises, so such a job fails scoring (per-job retry, then its strategy's
+    # failure status) and is never judged healthy
+    _bi_prep = _hpa_rows = _launch_bivariate = _launch_hpa = staticmethod(_not_ported)
+    _collect_bivariate = _collect_hpa = staticmethod(_not_ported)
+    _score_bivariate = _score_multi = _score_hpa = staticmethod(_not_ported)
+
+    def run_cycle(self, worker: str = "worker-0", now: float | None = None) -> dict:
+        """One engine cycle. Returns {job_id: new_status} for observability."""
+        self._cycle_seq += 1
+        cycle_id = f"{worker}-c{self._cycle_seq}"
+        self.current_cycle_id = cycle_id
+        t_cycle0 = time.perf_counter()
+        with tracing.tracer.bind(cycle_id=cycle_id), \
+                tracing.span(tracing.SPAN_ENGINE_CYCLE, worker=worker):
+            now = time.time() if now is None else now
+            # arm a per-cycle fetch deadline so retry/backoff trains inside
+            # a resilient source can never overrun the cycle budget (plain
+            # sources have no set_cycle_deadline and skip this)
+            sd = getattr(self.source, "set_cycle_deadline", None)
+            budget = self.config.fetch_cycle_deadline_seconds
+            if sd is not None:
+                sd(Deadline.after(budget) if budget > 0 else None)
+            try:
+                outcomes = self._run_cycle(worker, now)
+            finally:
+                if sd is not None:
+                    sd(None)
+            self.exporter.record_histogram(
+                "foremastbrain:cycle_seconds", {},
+                time.perf_counter() - t_cycle0,
+                help="End-to-end engine cycle duration (seconds).")
+            return outcomes
+
+    def _stream_prep(self, claimed: list, now: float):
+        """Yield (doc_id, items, failed) per job, in claim order, as the
+        fetch pool completes chunks.
+
+        Per-job fetches overlap on a bounded pool (fetch is network-bound in
+        production, and the native parser releases the GIL during its scan).
+        Jobs are mapped in CHUNKS in claim order and ex.map preserves
+        submission order, so the yielded stream — and with it bucket packing
+        and verdict folding — stays deterministic; consuming it
+        incrementally is what lets the pipeline launch bucket N while
+        bucket N+1 is still fetching."""
+        ctx = tracing.tracer.context()
+
+        def prep_many(chunk):
+            out = []
+            with tracing.tracer.attach(ctx):
+                for doc in chunk:
+                    with tracing.tracer.bind(job_id=doc.id):
+                        try:
+                            out.append((doc.id, self._preprocess(doc, now), ""))
+                        except FetchError as e:
+                            out.append((doc.id, None, str(e)))
+            return out
+
+        workers = min(max(self.config.fetch_concurrency, 1), len(claimed) or 1)
+        if workers <= 1:
+            yield from prep_many(claimed)
+            return
+        step = max(1, -(-len(claimed) // (workers * 8)))
+        chunks = [claimed[i:i + step]
+                  for i in range(0, len(claimed), step)]
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            for rs in ex.map(prep_many, chunks):
+                yield from rs
+
+    def _run_cycle(self, worker: str, now: float) -> dict:
+        from .pipeline import CyclePipeline
+
+        with tracing.span(tracing.SPAN_ENGINE_CLAIM):
+            claimed = self.store.claim_open_jobs(
+                worker,
+                limit=self.config.max_claim_per_cycle,
+                max_stuck_seconds=self.config.max_stuck_seconds,
+            )
+        outcomes: dict[str, str] = {}
+        states: dict[str, _JobState] = {}
+        all_pairs: list[_PairItem] = []
+        all_bands: list[_BandItem] = []
+        all_bis: list[_BiItem] = []
+        all_multis: list[_MultiItem] = []
+        all_hpas: list[_HpaItem] = []
+        launches0 = self.device_launches
+        mega_l0 = self.megabatch_launches_total
+        mega_r0 = self.megabatch_real_rows_total
+        mega_p0 = self.megabatch_pad_rows_total
+        wd_cycle0 = self.watchdog_fires_total
+        pipe = CyclePipeline(self) if self.config.score_pipeline else None
+        stages = {"preprocess": 0.0, "dispatch": 0.0, "collect": 0.0,
+                  "fold": 0.0}
+        with tracing.span(tracing.SPAN_ENGINE_PREPROCESS, jobs=len(claimed)):
+            for doc in claimed:
+                states[doc.id] = _JobState(doc)
+            t_wait = time.perf_counter()
+            for doc_id, items, failed in self._stream_prep(claimed, now):
+                stages["preprocess"] += time.perf_counter() - t_wait
+                if failed:
+                    states[doc_id].failed = failed
+                else:
+                    pairs, bands, bis, multis, hpas = items
+                    all_pairs += pairs
+                    all_bands += bands
+                    all_bis += bis
+                    all_multis += multis
+                    all_hpas += hpas
+                    if pipe is not None:
+                        # streamed dispatch: full bucket rungs launch here,
+                        # overlapping the remaining fetches (the pipeline
+                        # accounts its own dispatch time)
+                        pipe.feed(pairs, bands, bis, multis, hpas,
+                                  strategy=states[doc_id].doc.strategy)
+                t_wait = time.perf_counter()
+        for doc_id, st in states.items():
+            if not st.failed:
+                self.store.advance(doc_id, J.PREPROCESS_COMPLETED,
+                                   J.POSTPROCESS_INPROGRESS, worker=worker)
+                continue
+            doc = st.doc
+            if doc.strategy in CONTINUOUS_STRATEGIES:
+                # perpetual jobs survive transient fetch errors: requeue
+                # instead of dying terminally on one network blip
+                self.store.transition(
+                    doc_id, J.INITIAL, reason=f"fetch retry: {st.failed}",
+                    worker=worker,
+                )
+                outcomes[doc_id] = J.INITIAL
+            else:
+                self.store.transition(
+                    doc_id, J.PREPROCESS_FAILED, reason=st.failed,
+                    worker=worker)
+                outcomes[doc_id] = J.PREPROCESS_FAILED
+
+        live = {k: v for k, v in states.items() if not v.failed}
+        fam_seconds: dict[str, float] = {}
+        with tracing.span(tracing.SPAN_ENGINE_SCORE, pairs=len(all_pairs),
+                          bands=len(all_bands), bis=len(all_bis),
+                          multis=len(all_multis), hpas=len(all_hpas)):
+            if pipe is not None:
+                (pair_res, band_res, _bi_res, _multi_res, _hpa_res,
+                 scoring_failed) = pipe.finish()
+                for k, v in pipe.stage_seconds.items():
+                    stages[k] += v
+                fam_seconds = pipe.family_seconds
+                for fam in ("pair", "band", "bivariate", "hpa"):
+                    tracing.tracer.add_timing(
+                        tracing.SCORE_SPANS[fam], fam_seconds.get(fam, 0.0))
+            else:
+                # barriered path (SCORE_PIPELINE=0): one child span per
+                # model family, families strictly sequential
+                def timed(fam, score_fn, items):
+                    with tracing.span(tracing.SCORE_SPANS[fam], n=len(items)):
+                        t0 = time.perf_counter()
+                        res = self._isolate(score_fn, items)
+                        fam_seconds[fam] = time.perf_counter() - t0
+                        return res
+
+                pair_res, pair_bad = timed("pair", self._score_pairs, all_pairs)
+                band_res, band_bad = timed("band", self._score_bands, all_bands)
+                _, bi_bad = timed("bivariate", self._score_bivariate, all_bis)
+                _, multi_bad = timed("lstm", self._score_multi, all_multis)
+                _, hpa_bad = timed("hpa", self._score_hpa, all_hpas)
+                scoring_failed = {**pair_bad, **band_bad, **bi_bad,
+                                  **multi_bad, **hpa_bad}
+                stages["collect"] += sum(fam_seconds.values())
+
+        t_fold = time.perf_counter()
+        # fold per-metric results into per-job verdicts
+        for it in all_pairs:
+            r = pair_res.get((it.job_id, it.metric, "pair"))
+            if r is None:
+                continue
+            st = live[it.job_id]
+            st.judged_any = True
+            if r["unhealthy"]:
+                causes = []
+                if r["pairwise_unhealthy"]:
+                    causes.append(f"pairwise rejection p={r['min_p']:.2e}")
+                if r["band_unhealthy"]:
+                    causes.append(
+                        f"{r['band_count']} points outside the baseline band"
+                    )
+                st.unhealthy.append((it.metric, "; ".join(causes), []))
+        for it in all_bands:
+            r = band_res.get((it.job_id, it.metric, "band"))
+            if r is None:
+                continue
+            st = live[it.job_id]
+            st.judged_any = True
+            self.exporter.record_bounds(
+                st.doc.app_name, st.doc.namespace, it.metric,
+                r["upper"], r["lower"], float(r["unhealthy"]),
+            )
+            if r["unhealthy"]:
+                st.unhealthy.append(
+                    (
+                        it.metric,
+                        f"{r['count']} points outside "
+                        f"[{r['lower']:.4g},{r['upper']:.4g}] from ts {r['first_ts']:.0f}",
+                        r["anomaly_pairs"],
+                    )
+                )
+
+        for job_id, st in live.items():
+            doc = st.doc
+            if job_id in scoring_failed:
+                reason = f"scoring failed: {scoring_failed[job_id]}"
+                if (scoring_failed[job_id].startswith("WatchdogTimeout")
+                        or doc.strategy in CONTINUOUS_STRATEGIES):
+                    # watchdog fires are infrastructure evidence (a hung
+                    # card), not job poison, and perpetual jobs retry next
+                    # cycle: requeue
+                    self.store.transition(
+                        job_id, J.INITIAL, reason=reason, worker=worker)
+                    outcomes[job_id] = J.INITIAL
+                else:
+                    self.store.transition(
+                        job_id, J.ABORT, reason=reason, worker=worker)
+                    outcomes[job_id] = J.ABORT
+                continue
+            try:
+                end_time = from_rfc3339(doc.end_time)
+            except (ValueError, TypeError):
+                # continuous jobs carry END_TIME placeholders: never expire
+                end_time = float("inf") if doc.strategy in CONTINUOUS_STRATEGIES else now
+            if st.unhealthy:
+                metrics = ", ".join(dict.fromkeys(m for m, _, _ in st.unhealthy))
+                reason = "; ".join(f"{m}: {d}" for m, d, _ in st.unhealthy)
+                anomaly = {m: pairs for m, _, pairs in st.unhealthy if pairs}
+                reason = f"anomaly detected on {metrics} :: {reason}"
+                self.store.transition(
+                    job_id, J.COMPLETED_UNHEALTH,
+                    reason=reason,
+                    anomaly=anomaly, worker=worker,
+                )
+                outcomes[job_id] = J.COMPLETED_UNHEALTH
+            elif now < end_time:
+                # healthy so far; keep watching until endTime (fail-fast
+                # rule); continuous jobs loop here forever
+                self.store.requeue(job_id, worker=worker)
+                outcomes[job_id] = J.INITIAL
+            elif st.judged_any:
+                self.store.transition(job_id, J.COMPLETED_HEALTH, worker=worker)
+                outcomes[job_id] = J.COMPLETED_HEALTH
+            else:
+                self.store.transition(
+                    job_id, J.COMPLETED_UNKNOWN,
+                    reason="insufficient data points to judge", worker=worker,
+                )
+                outcomes[job_id] = J.COMPLETED_UNKNOWN
+        stages["fold"] = time.perf_counter() - t_fold
+        for name, secs in stages.items():
+            tracing.tracer.add_timing(tracing.STAGE_SPANS[name], secs)
+        self.exporter.record_cycle_stages(stages, fam_seconds)
+        triage_gate = pipe.triage if pipe is not None else None
+        triage_cycle = None
+        if triage_gate is not None and triage_gate.active:
+            tg = triage_gate
+            tracing.tracer.add_timing(tracing.SPAN_ENGINE_TRIAGE, tg.seconds)
+            screened = sum(tg.screened.values())
+            cleared = sum(tg.cleared.values())
+            escalated = sum(tg.escalated.values())
+            for fam in sorted(set(tg.screened) | set(tg.cleared)
+                              | set(tg.escalated)):
+                self.triage_screened_total[fam] = (
+                    self.triage_screened_total.get(fam, 0)
+                    + tg.screened.get(fam, 0))
+                self.triage_cleared_total[fam] = (
+                    self.triage_cleared_total.get(fam, 0)
+                    + tg.cleared.get(fam, 0))
+                self.triage_escalated_total[fam] = (
+                    self.triage_escalated_total.get(fam, 0)
+                    + tg.escalated.get(fam, 0))
+                self.exporter.record_triage(
+                    fam, tg.screened.get(fam, 0), tg.cleared.get(fam, 0),
+                    tg.escalated.get(fam, 0))
+            self.triage_launches_total += tg.launches
+            self.exporter.record_gauge(
+                "foremastbrain:triage_escalation_ratio", {},
+                round(escalated / screened, 6) if screened else 0.0,
+                help="Fraction of screened rows escalated to the "
+                     "full scorers (last cycle).")
+            self.exporter.record_gauge(
+                "foremastbrain:triage_seconds", {},
+                round(tg.seconds, 6),
+                help="Tier-0 triage screen stage seconds (last cycle).")
+            triage_cycle = {
+                "screened": screened,
+                "cleared": cleared,
+                "escalated": escalated,
+                "escalation_ratio": (round(escalated / screened, 6)
+                                     if screened else 0.0),
+                "launches": tg.launches,
+                "seconds": round(tg.seconds, 6),
+            }
+        mega_cycle = None
+        if self.config.megabatch:
+            real = self.megabatch_real_rows_total - mega_r0
+            padded = self.megabatch_pad_rows_total - mega_p0
+            mega_launches = self.megabatch_launches_total - mega_l0
+            waste = round(padded / real, 6) if real else 0.0
+            mega_cycle = {
+                "launches": mega_launches,
+                "real_rows": real,
+                "padded_rows": padded,
+                "padding_waste_ratio": waste,
+            }
+            self.exporter.record_gauge(
+                "foremastbrain:megabatch_padding_waste_ratio", {}, waste,
+                help="Mega-batch padding rows per real row (last cycle).")
+            if mega_launches:
+                self.exporter.record_counter(
+                    "foremastbrain:megabatch_launches_total", {},
+                    inc=mega_launches,
+                    help="device launches through the single-dispatch "
+                         "mega-batch path (MEGABATCH)")
+                self.exporter.record_counter(
+                    "foremastbrain:megabatch_real_rows_total", {},
+                    inc=real,
+                    help="real rows carried by mega-batch launches")
+                self.exporter.record_counter(
+                    "foremastbrain:megabatch_padded_rows_total", {},
+                    inc=padded,
+                    help="padding rows added to reach mega padding "
+                         "classes (waste = padded/real)")
+        self.last_cycle_stages = {
+            "cycle_id": self.current_cycle_id,
+            "jobs": len(claimed),
+            "pipelined": pipe is not None,
+            "stage_seconds": {k: round(v, 6) for k, v in stages.items()},
+            "family_score_seconds": {
+                k: round(v, 6) for k, v in fam_seconds.items()},
+            "device_launches": self.device_launches - launches0,
+            "family_launches": dict(pipe.family_launches)
+            if pipe is not None else {},
+            "score_memo_hits": dict(pipe.memo_hits) if pipe is not None
+            else {},
+            "triage": triage_cycle,
+            "megabatch": mega_cycle,
+            "watchdog_fires": self.watchdog_fires_total - wd_cycle0,
+        }
+        self.store.flush()
+        return outcomes

@@ -11,13 +11,16 @@
   of affine maps (the long-window forms).
 - Kernel F, `detect_period` (``csrc/period.cu``), elects each row's
   seasonal period.
+- Kernel G, `triage_screen` (``csrc/triage.cu``), runs the tier-0 triage
+  screen: band counts under the policy band and a shrunk band, and the
+  robust z of each row's current region.
 
 Each launcher checks device, dtype, shape and contiguity, allocates the
 outputs (and the scratch a kernel needs), launches on PyTorch's current
 stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch. They take CUDA tensors only; the entry
 points (``parallel.fleet.score_pairs``, ``ops.forecast``,
-``ops.seqscan``) send CPU tensors to the plain twins.
+``ops.seqscan``, ``ops.triage``) send CPU tensors to the plain twins.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ import torch
 from . import build
 
 __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_preds",
-           "smooth", "hw_fit", "affine_scan", "detect_period", "MAX_PAIR_T",
-           "SHARED_PAIR_T", "MAX_BAND_T", "MAX_PERIOD_T", "MAX_CANDIDATES",
+           "smooth", "hw_fit", "affine_scan", "detect_period", "triage_screen", "MAX_PAIR_T",
+           "SHARED_PAIR_T", "MAX_BAND_T", "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_CANDIDATES",
            "MAX_GRID", "PAIR_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
@@ -38,6 +41,8 @@ SHARED_PAIR_T = 4096
 MAX_PAIR_T = 16384  # MAX_WINDOW_STEPS
 # kernel B keeps 12 B of prefix sums per slot: MAX_WINDOW_STEPS
 MAX_BAND_T = 16384
+# kernel G keeps the same 12 B per slot, then 4 B order keys in that space
+MAX_SCREEN_T = 16384
 # kernel F keeps 5 B per slot (residual, mask) in shared memory
 MAX_PERIOD_T = 16384
 MAX_CANDIDATES = 16
@@ -45,6 +50,10 @@ MAX_CANDIDATES = 16
 MAX_GRID = 64
 
 SMOOTH_SES, SMOOTH_DES, SMOOTH_HW = 1, 2, 3
+
+# kernel G's outputs, in the order its C entry takes them
+SCREEN_INT_OUTPUTS = ("count", "shrunk_count", "checked", "n_hist")
+SCREEN_FLOAT_OUTPUTS = ("upper_mean", "lower_mean", "resid_z", "robust_z", "sigma")
 
 # device scratch that kernels A (T > SHARED_PAIR_T), C (HW) and D may hold
 # at once; each bounds the CTAs or warps in flight to stay under it
@@ -55,7 +64,7 @@ PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans"
                "mw_kw_ks", "exact_tails", "gates_band")
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
-            "hw_fit": 0, "affine_scan": 0, "detect_period": 0}
+            "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0}
 
 
 def reset_launches() -> None:
@@ -399,3 +408,38 @@ def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: f
     _raise_on(rc, "detect_period", lib)
     launches["detect_period"] += 1
     return period, scores
+
+
+def triage_screen(x, mask, region, window: int, threshold, bound_mode, min_lower_bound, margin):
+    """Launch kernel G: the triage screen of B rows. Returns count,
+    shrunk_count, checked, n_hist (int32) and upper_mean, lower_mean,
+    resid_z, robust_z, sigma (float32), each (B,)."""
+    B, T = x.shape
+    dev = x.device
+    if not 1 <= T <= MAX_SCREEN_T:
+        raise ValueError(f"triage_screen supports 1 <= T <= {MAX_SCREEN_T}; got T = {T}")
+    for t, name, dt, shape in (
+            (x, "x", torch.float32, (B, T)),
+            (mask, "mask", torch.bool, (B, T)),
+            (region, "region", torch.bool, (B, T)),
+            (threshold, "threshold", torch.float32, (B,)),
+            (bound_mode, "bound_mode", torch.int32, (B,)),
+            (min_lower_bound, "min_lower_bound", torch.float32, (B,)),
+            (margin, "margin", torch.float32, (B,))):
+        _check(t, name, dt, shape, dev)
+    out = {k: torch.empty(B, dtype=torch.int32, device=dev) for k in SCREEN_INT_OUTPUTS}
+    out.update({k: torch.empty(B, dtype=torch.float32, device=dev)
+                for k in SCREEN_FLOAT_OUTPUTS})
+    if B == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_triage_screen(
+            _ptr(x), _ptr(mask), _ptr(region), _ptr(threshold), _ptr(bound_mode),
+            _ptr(min_lower_bound), _ptr(margin), int(window), B, T,
+            *(_ptr(out[k]) for k in SCREEN_INT_OUTPUTS + SCREEN_FLOAT_OUTPUTS),
+            ctypes.c_void_p(stream))
+    _raise_on(rc, "triage_screen", lib)
+    launches["triage_screen"] += 1
+    return out

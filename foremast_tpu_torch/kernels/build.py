@@ -27,6 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib = None
+# builds of the library in this process (compile + link; a load of an
+# already-built library does not count)
+builds = 0
 
 
 def nvcc() -> str:
@@ -57,6 +60,7 @@ def build() -> str:
     The compiler's output, ptxas' register and shared-memory report
     included, is kept in build.log beside the library.
     """
+    global builds
     out = library_path()
     if os.path.exists(out):
         return out
@@ -89,6 +93,7 @@ def build() -> str:
     if failed:
         raise RuntimeError("building the CUDA kernels failed:\n" + "\n".join(log))
     os.replace(tmp, out)
+    builds += 1
     return out
 
 
@@ -117,6 +122,8 @@ def _declare(lib):
     lib.fm_affine_scan.restype = I
     lib.fm_detect_period.argtypes = [P, P, P, I, P, F, F, F, I, I, P, P, P]
     lib.fm_detect_period.restype = I
+    lib.fm_triage_screen.argtypes = [P] * 7 + [I, I, I] + [P] * 9 + [P]
+    lib.fm_triage_screen.restype = I
     lib.fm_error_string.argtypes = [I]
     lib.fm_error_string.restype = ctypes.c_char_p
 

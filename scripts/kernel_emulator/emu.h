@@ -6,6 +6,7 @@
 // It checks what a kernel computes, never how fast: see emulate.py.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -102,11 +103,14 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, void*, Args... args) {
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 #define CUDART_INF_F INFINITY
+#define CUDART_NAN_F NAN
 
 template <typename A, typename B>
 inline std::common_type_t<A, B> min(A a, B b) { return a < b ? a : b; }
 template <typename A, typename B>
 inline std::common_type_t<A, B> max(A a, B b) { return a < b ? b : a; }
+
+using std::isfinite;
 
 inline void __syncthreads() { emu::ctx.block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::ctx.warp->bar.arrive_and_wait(); }
@@ -134,6 +138,15 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   w.bar.arrive_and_wait();
   return r;
 }
+inline unsigned __match_any_sync(unsigned, unsigned v) {
+  emu::Warp& w = *emu::ctx.warp;
+  w.buf[emu::ctx.lane] = v;
+  w.bar.arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= unsigned(w.buf[i] == v) << i;
+  w.bar.arrive_and_wait();
+  return r;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(int(x)); }
 inline long long clock64() { return 1; }
@@ -141,6 +154,15 @@ inline unsigned __float_as_uint(float f) {
   unsigned u;
   std::memcpy(&u, &f, 4);
   return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+template <typename T>
+inline T atomicAdd(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_add(v);
 }
 
 typedef int cudaError_t;

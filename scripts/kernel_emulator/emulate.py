@@ -185,6 +185,16 @@ def self_check() -> int:
     expect("ma_band", all(torch.equal(k[q], p[q]) for q in ("count", "checked", "flags", "preds")),
            "counts, flags and predictions")
     import chip_smoke as cs
+    from foremast_tpu_torch.ops import triage as tr
+
+    saved_dev, cs.DEV = cs.DEV, "cpu"
+    for T in (64, 300):
+        a = cs.adversarial_screen(30, T, g)
+        k = kernels.triage_screen(a[0], a[1], a[2], cs.TRIAGE_WINDOW, *a[3:])
+        e, bracketed = cs.compare_triage(a, k, tr.screen_rows_plain(*a, cs.TRIAGE_WINDOW))
+        expect(f"triage_screen T={T}", e <= 1e-4,
+               f"statistics |err| {e:.3g}, {bracketed} rows bracketed at a band edge")
+    cs.DEV = saved_dev
     kernels.SCRATCH_BYTES = 3 * 16384 * 16  # three CTAs walk the pairs
     for T in (64, 4100):
         a = fl.pair_args_from_numpy(cs.adversarial_pairs(8, T, np.random.default_rng(T)), "cpu")

@@ -59,7 +59,12 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "before = set(sys.modules)\n"
         "import foremast_tpu_torch.parallel.fleet, foremast_tpu_torch.ops.forecast\n"
         "import foremast_tpu_torch.ops.windowing, foremast_tpu_torch.kernels\n"
-        "import foremast_tpu_torch.ops.seqscan\n"
+        "import foremast_tpu_torch.ops.seqscan, foremast_tpu_torch.ops.triage\n"
+        "import foremast_tpu_torch.engine, foremast_tpu_torch.engine.triage\n"
+        "import foremast_tpu_torch.engine.pipeline, foremast_tpu_torch.engine.staging\n"
+        "import foremast_tpu_torch.dataplane, foremast_tpu_torch.native\n"
+        "import foremast_tpu_torch.resilience, foremast_tpu_torch.utils.tracing\n"
+        "import foremast_tpu_torch.utils.locks, foremast_tpu_torch.utils.timeutils\n"
         "new = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'foremast_tpu')]\n"
         "print(sorted(new)); sys.exit(1 if new else 0)\n"
@@ -91,6 +96,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
                  lambda: tsq.des_predictions_assoc(x, m, 0.5, 0.1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    from foremast_tpu_torch.ops import triage as ttr
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttr.screen_rows(x, m, ~m, *pol, np.zeros(2, np.float32), 5)
     out = tfl.score_pairs(*args, device="cpu")
     assert out["unhealthy"].device.type == "cpu"
     out = tfc.moving_average_band(x, m, ~m, 5, *pol, device="cpu")
@@ -123,8 +131,10 @@ def test_launchers_refuse_cpu_tensors():
                               torch.full((2,), 2, dtype=torch.int32), 0.2, 0.05, 0.01)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.hw_fit(x, m, m, torch.full((2,), 4, dtype=torch.int32), torch.ones((60, 3)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.triage_screen(x, m, ~m, 5, *pol, torch.zeros(2))
     assert set(kernels.launches) == {"pair_verdict", "ma_band", "band_from_preds", "smooth",
-                                     "hw_fit", "affine_scan", "detect_period"}
+                                     "hw_fit", "affine_scan", "detect_period", "triage_screen"}
     assert all(n == 0 for n in kernels.launches.values())
 
 

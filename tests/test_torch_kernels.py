@@ -1,4 +1,4 @@
-"""Kernels A to F against their plain twins, on the card.
+"""Kernels A to G against their plain twins, on the card.
 
 These need a CUDA device and nvcc; without them they skip. Run them on the
 card with `python -m pytest --noconftest tests/test_torch_kernels.py`. The
@@ -7,7 +7,8 @@ booleans and counts exact except rows bracketed at a threshold or a band
 edge; the smoothers to 4 eps32 of a row's scale (the scans to the
 reference's own 1e-5 / 1e-4); the fit's errors to 1e-9 and its choice
 exactly; period scores to 1e-6 and periods exactly except within 1e-5 of a
-margin.
+margin; the triage screen's counts exact except rows bracketed at a band
+edge, its statistics to 1e-5 (1e-4 for the z scores) relative.
 """
 import numpy as np
 import pytest
@@ -166,3 +167,68 @@ def test_launchers_refuse_what_the_kernels_do_not_take(card):
         kernels.ma_band(x, m, ~m, 5, *pol)
     with pytest.raises(TypeError):
         kernels.ma_band(x.contiguous().double(), m, ~m, 5, *pol)
+
+
+@pytest.mark.parametrize("T", [128, 1024, 4096, 16384])
+def test_triage_screen_matches_twin(card, T):
+    from foremast_tpu_torch.ops import triage as tr
+
+    gen = torch.Generator(device=card).manual_seed(T)
+    args = cs.adversarial_screen(256 if T < 16384 else 64, T, gen)
+    before = kernels.launches["triage_screen"]
+    kern = tr.screen_rows(*args, cs.TRIAGE_WINDOW)
+    assert kernels.launches["triage_screen"] == before + 1
+    plain = tr.screen_rows_plain(*args, cs.TRIAGE_WINDOW)
+    torch.cuda.synchronize()
+    cs.compare_triage(args, kern, plain)
+    kind = torch.arange(args[0].shape[0], device=card) % 10
+    assert bool((kern["sigma"][kind == 3] == 0).all())       # constant history
+    assert bool((kern["n_hist"][kind == 1] == 0).all())      # all masked
+    assert bool((kern["robust_z"][kind == 1] == 0).all())
+    assert bool((kern["checked"][kind == 6] == 0).all())     # empty region
+    assert bool(torch.isfinite(kern["robust_z"][kind == 5]).all())  # NaN in history
+
+
+def test_engine_cycle_on_the_card_keeps_one_verdict_state(card, monkeypatch):
+    """A small chip_smoke engine fleet through the port's Analyzer on the
+    card: the pinned staging and pipelined launches must not change a
+    verdict. Every configuration on the card gives one digest per cycle
+    (triage off, memo off, the barriered path, megabatch, 16-row rungs), and
+    the card's verdicts are the twins': the same status and anomaly for
+    every job, reasons equal but for printed numbers within float noise."""
+    import re
+
+    from foremast_tpu_torch.dataplane.fetch import RawFixtureDataSource
+    from foremast_tpu_torch.engine import Analyzer, EngineConfig, JobStore
+    from foremast_tpu_torch.engine import jobs as J
+
+    monkeypatch.setattr(cs, "ENGINE_CANARIES", 300)
+    monkeypatch.setattr(cs, "ENGINE_CONTINUOUS", 200)
+    fleet = cs.engine_fleet(np.random.default_rng(7))
+
+    def run(device, **cfg):
+        store = JobStore()
+        for d in fleet["docs"]():
+            store.create(d)
+        src = RawFixtureDataSource(keep_urls=False)
+        an = Analyzer(EngineConfig(**cfg), src, store, device=device)
+        digests = []
+        for c in range(cs.ENGINE_CYCLES):
+            src.pages = fleet["pages"][c]
+            an.run_cycle(worker="t", now=fleet["now"] + cs.STEP * c)
+            digests.append(J.verdict_digest(store))
+        return digests, {d.id: d for d in store.by_status(*J.OPEN_STATUSES,
+                                                          *J.TERMINAL_STATUSES)}
+
+    on_card, docs = run(card)
+    for cfg in ({"triage": False}, {"score_memo": False}, {"score_pipeline": False},
+                {"megabatch": True}, {"pipeline_fire_rows": 16}):
+        assert run(card, **cfg)[0] == on_card, cfg
+    _, twin = run("cpu")
+    num = re.compile(r"-?\d+(?:\.\d+)?(?:e[+-]?\d+)?")
+    for jid, d in docs.items():
+        t = twin[jid]
+        assert (d.status, d.anomaly) == (t.status, t.anomaly), jid
+        assert num.split(d.reason) == num.split(t.reason), jid
+        for a, b in zip(num.findall(d.reason), num.findall(t.reason)):
+            assert abs(float(a) - float(b)) <= 2e-3 * max(abs(float(a)), abs(float(b))) + 1e-4
