@@ -21,7 +21,15 @@ package. Phases, each printed as it ends; any failure exits non-zero:
              trailing gaps, with a period >= T/2 or below 4; kernel G at
              T in {128, 1024, 4096, 16384} on rows that are all-masked,
              single-point, constant, +-0, with NaN in a valid slot, with an
-             empty region, quantized or shifted;
+             empty region, quantized or shifted; kernels H and I at
+             T in {128, 1024, 2048, 16384}, the optional arguments given and
+             left out: H on constant, perfectly correlated, one-point,
+             empty-region, broken, shifted, all-masked rows, every bound-mode
+             pair and points planted on the ellipse's edge (bracketed); I on
+             every sla_mode x sla_absolute pair, steady, surging, collapsing
+             and violating rows, the SLA at exactly `safe` and at the limit,
+             base at exactly 50, a third of the region out of band, an empty
+             region and one history point, with sigma given and computed;
   4. pairs   the pair path at full size: 100,000 ErrorGenerator-style
              (baseline, canary) pairs at T = 128 through resample_to_grid ->
              pack_windows -> score_pairs on the card; every bad canary
@@ -39,26 +47,43 @@ package. Phases, each printed as it ends; any failure exits non-zero:
              double_exponential; recall, false positives, planted-period
              recovery, times and launches per algorithm; then each of its
              kernels alone and its twin on the same inputs.
-  7. engine  the engine cycle at fleet size: 10,000 jobs (6,000 canaries
+  7. families the bivariate and hpa families at full size: 100,000 rows
+             made on the card at bucket 2048 (1 day of 60 s history) and
+             16384 (7 days). Kernel H through bivariate_normal_anomalies on
+             correlated latency / cpu pairs, 10% with a correlation break
+             inside both metrics' own bands and 5% with a joint shift: recall
+             1.0 on both, healthy rows flagged under 1% by the engine's
+             gate. The HPA launch (kernel C's SES, then kernel I's
+             hpa_from_preds) on steady, surging, collapsing and
+             SLA-violating rows: each class on its side of 50 on 99% of its
+             rows. Each kernel's time, bound and twin's time.
+  8. engine  the engine cycle at fleet size: 11,500 jobs (6,000 canaries
              with a 128-step baseline and current window of http_errors_5xx,
              4,000 continuous latency monitors with 1 day of history and 60
-             current steps) as Prometheus query_range bodies made from the
+             current steps, 1,000 two-metric monitors, 10% of them with a
+             correlation break, and 500 hpa jobs of four classes, 20% with a
+             podCountURL) as Prometheus query_range bodies made from the
              seed, through the port's Analyzer on the card under the default
              EngineConfig for two cycles (the second on windows advanced by
              one step): claim, fetch and parse, pack, the triage screen
              (kernel G), the pair family (kernel A), the band family (kernel
-             B), fold. Every bad canary and shifted monitor ends unhealthy,
-             healthy jobs are flagged under 1%, no job fails scoring, kernels
-             A, B and G launch in each cycle and the screen clears rows, the
-             second cycle builds nothing, and the same fleet with triage off
-             (and again under torch.profiler, which gives the card's idle
-             share by host stage) ends with the same verdict digest.
+             B), the bivariate family (kernel H), the hpa family (kernels C
+             and I), fold. Every bad canary, shifted monitor and broken pair
+             ends unhealthy, healthy jobs are flagged under 1%, no job fails
+             scoring, every hpa job writes one hpalog and one hpa_score
+             sample a cycle with its raw score on its class's side of 50 and
+             its gated score as the breath rules, kernels A, B, G, H, C and I
+             launch in each cycle and the screen clears rows, the second
+             cycle builds nothing, and the same fleet with triage off (and
+             again under torch.profiler, which gives the card's idle share by
+             host stage) ends with the same verdict digest.
 
 Kernel G (the triage screen) is held against its twin in phase 3, beside
 kernel B's ma_band on the 100,000 rows of phases 5 and 6 (equal counts but at
-band edges, shrunk count >= count) and alone at the engine's shape in phase 7.
+band edges, shrunk count >= count) and alone at the engine's shape in phase 8.
 
-Each path (each algorithm of the seasonal phase, each engine cycle) resets
+Each path (each algorithm of the seasonal phase, each family call, each
+engine cycle) resets
 the launch counters just before it runs and reads them just after: a kernel
 of the path that did not launch fails the run. The second-to-last line is a JSON object with each
 kernel's launches, error against its twin, times on the card and bound; the
@@ -145,6 +170,14 @@ def band_bracket(x, mask, region, upper, lower, mode, tol):
     sure = ((x > upper + tol) & up_on) | ((x < lower - tol) & lo_on)
     maybe = ((x > upper - tol) & up_on) | ((x < lower + tol) & lo_on)
     return (sure & sel).sum(1), (maybe & sel).sum(1)
+
+
+def least_time(nbytes, ops):
+    """The least time (ms) the card could take for work that moves nbytes
+    through HBM and does ops fp32 operations, and which of the two bounds
+    it."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"bound_ms": max(tb, to) * 1e3, "bound_by": "bytes" if tb >= to else "operations"}
 
 
 def max_abs_err(a, b):
@@ -679,10 +712,7 @@ def triage_bound(mask, region):
     history value each."""
     B, T = mask.shape
     n_hist = float((mask & ~region).sum())
-    t_bytes = (6 * B * T + 52 * B) / HBM_BYTES_PER_S
-    t_ops = (35.0 * B * T + 8.0 * n_hist) / FP32_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return least_time(6 * B * T + 52 * B, 35.0 * B * T + 8.0 * n_hist)
 
 
 def sort_ms(x, mask, region, chunk_rows):
@@ -747,6 +777,357 @@ def triage_beside_band(args, what, runs):
           f"({bound['bound_by']}), plain twin {plain_ms:.1f} ms, torch.sort of the history "
           f"{s_ms:.3f} ms", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "sort_ms": s_ms, **bound}
+
+
+# ---------------------------------------------------------------------------
+# kernels H (bivariate) and I (hpa_score) vs their twins
+# ---------------------------------------------------------------------------
+def adversarial_bivariate(B, T, gen):
+    """Metric-pair rows on the card, twelve kinds: correlated noise with
+    gaps; constant history (the ridge alone, det at its 1e-12 floor) with
+    an identical or a shifted current; a perfectly correlated history
+    (x2 = 2 x1 + 3: var1 var2 - cov^2 cancels to the ridge) with some current
+    points off the line; one history point (fail-open); an empty region; a
+    correlation break in the current window; joint shifts up and down;
+    NaN at a masked history slot (it poisons the row, as x * w does in the
+    reference); points planted on the ellipse's edge; all masked; a tiny
+    perfectly correlated history with +inf at a valid current slot. The
+    last quarter is the region; thresholds 2, 3, 5; every pair of bound
+    modes; a lower floor on some rows. Returns kernels.bivariate's ten
+    arguments."""
+    dev = DEV
+    kind = torch.arange(B, device=dev) % 12
+    t = torch.arange(T, device=dev)
+    region = (t >= 3 * T // 4).expand(B, T).clone()
+    rho = (0.5 + 0.45 * torch.rand(B, generator=gen, device=dev))[:, None]
+    z1 = torch.randn((B, T), generator=gen, device=dev)
+    z2 = rho * z1 + torch.sqrt(1 - rho * rho) * torch.randn((B, T), generator=gen, device=dev)
+    x1, x2 = 50 + 5 * z1, 30 + 2 * z2
+    m1 = torch.rand((B, T), generator=gen, device=dev) > 0.1
+    m2 = torch.rand((B, T), generator=gen, device=dev) > 0.1
+    odd = (torch.arange(B, device=dev) % 24 >= 12)[:, None]
+    k = (kind == 1)[:, None]
+    x1 = torch.where(k, torch.where(odd & region, 61.42, 60.42), x1)
+    x2 = torch.where(k, 5.0, x2)
+    m1 |= k
+    m2 |= k
+    k = (kind == 2)[:, None]
+    x2 = torch.where(k, 2 * x1 + 3 + torch.where(region & (t % 2 == 0), 20.0, 0.0), x2)
+    m1[kind == 3] &= region[kind == 3] | (t == T // 3)
+    region[kind == 4] = False
+    k = (kind == 5)[:, None] & region
+    x2 = torch.where(k, 30 - 2 * 2.5 * z1, x2)
+    x1 = torch.where(k, 50 + 5 * 2.5 * z1, x1)
+    x1 = torch.where((kind == 6)[:, None] & region, x1 + 30, x1)
+    x2 = torch.where((kind == 6)[:, None] & region, x2 + 12, x2)
+    x1 = torch.where((kind == 7)[:, None] & region, x1 - 30, x1)
+    x2 = torch.where((kind == 7)[:, None] & region, x2 - 12, x2)
+    hole = (kind == 8)[:, None] & (t == T // 5)
+    x1, m1 = torch.where(hole, torch.nan, x1), m1 & ~hole
+    m1[kind == 10] = False
+    k = (kind == 11)[:, None]
+    x1 = torch.where(k, 1e-5 * z1, x1)
+    x2 = torch.where(k, 2 * x1, x2)
+    m1 |= k & (t == T - 2)
+    m2 |= k & (t == T - 2)
+    x1 = torch.where(k & (t == T - 2), torch.inf, x1)
+    thr = torch.tensor([2.0, 3.0, 5.0], device=dev)[torch.arange(B, device=dev) % 3]
+    # points on the ellipse's edge: along x1 at radius thr from the
+    # history's float64 statistics
+    edge = kind == 9
+    if bool(edge.any()):
+        s = bivariate_stats(x1[edge], m1[edge], x2[edge], m2[edge], region[edge])
+        r = thr[edge].double() * torch.sqrt(s["det"] / s["v2"])
+        cols = region[edge] & (t % 3 == 0)
+        x1[edge] = torch.where(cols, (s["mu1"] + r)[:, None].float(), x1[edge])
+        x2[edge] = torch.where(cols, s["mu2"][:, None].float(), x2[edge])
+        m1[edge] |= cols
+        m2[edge] |= cols
+    mlb = torch.where(torch.arange(B, device=dev) % 5 == 0, 49.0, 0.0)
+    bm1 = (torch.arange(B, device=dev) % 4).to(torch.int32)
+    bm2 = (torch.arange(B, device=dev) // 4 % 4).to(torch.int32)
+    return (x1.contiguous(), m1.contiguous(), x2.contiguous(), m2.contiguous(),
+            region.contiguous(), thr, mlb.contiguous(), (mlb * 0.5).contiguous(), bm1, bm2)
+
+
+def bivariate_stats(x1, m1, x2, m2, region):
+    """The pair's history statistics in float64 (masked slots skipped, not
+    multiplied): n, the means, the ridged variances, cov and det."""
+    w = (m1 & m2 & ~region).double()
+    n = w.sum(1)
+    den = n.clamp(min=1.0)
+    a1 = torch.where(w > 0, x1.double(), 0.0)
+    a2 = torch.where(w > 0, x2.double(), 0.0)
+    mu1, mu2 = a1.sum(1) / den, a2.sum(1) / den
+    d1, d2 = (a1 - mu1[:, None]) * w, (a2 - mu2[:, None]) * w
+    v1, v2 = (d1 * d1).sum(1) / den, (d2 * d2).sum(1) / den
+    cov = (d1 * d2).sum(1) / den
+    ridge = 1e-6 * torch.clamp(torch.maximum(v1, v2), min=1.0)
+    v1, v2 = v1 + ridge, v2 + ridge
+    det = torch.clamp(v1 * v2 - cov * cov, min=1e-12)
+    return {"n": n, "mu1": mu1, "mu2": mu2, "v1": v1, "v2": v2, "cov": cov, "det": det}
+
+
+def bivariate_tolerance(args, d2, sum_eps):
+    """Per slot, how far two float32 evaluations of the reference's d2 may
+    lie apart, when each of their float32 sums may err by sum_eps (relative
+    to the sum of magnitudes; a scalar or (B,)): 1e-4 of d2, plus the error
+    of the terms that cancel in the numerator and in det (relative to det),
+    plus the numerator's response (to second order) to the means moving by
+    sum_eps of their scale. Large where the history is (nearly) perfectly
+    correlated: there det is the ridge left after var1 var2 - cov^2 cancels.
+    Returns (tolerance, float64 statistics, da, db, a, b)."""
+    x1, m1, x2, m2, region = args[:5]
+    s = bivariate_stats(x1, m1, x2, m2, region)
+    se = torch.as_tensor(sum_eps, dtype=torch.float64, device=x1.device)
+    se = (se[:, None] if se.dim() else se) + 16 * EPS32
+    a = x1.double() - s["mu1"][:, None]
+    b = x2.double() - s["mu2"][:, None]
+    v1, v2, cov, det = (s[k][:, None] for k in ("v1", "v2", "cov", "det"))
+    nabs = v2 * a * a + 2 * (cov * a * b).abs() + v1 * b * b
+    da = se * (s["mu1"].abs()[:, None] + v1.sqrt()) + 2 * EPS32 * a.abs()
+    db = se * (s["mu2"].abs()[:, None] + v2.sqrt()) + 2 * EPS32 * b.abs()
+    dn = (2 * (v2 * a.abs() + cov.abs() * b.abs()) * da + 2 * (v1 * b.abs() + cov.abs() * a.abs())
+          * db + v2 * da * da + 2 * cov.abs() * da * db + v1 * db * db)
+    d = torch.nan_to_num(d2.double().abs(), nan=0.0, posinf=0.0)
+    rel = 4 * se + 8 * EPS32
+    tol = 1e-4 * d + (rel * nabs + dn + rel * d * (v1 * v2 + cov * cov)) / det
+    return torch.nan_to_num(tol, nan=math.inf, posinf=math.inf), s, da, db, a, b
+
+
+def compare_bivariate(args, kern, plain, sum_eps=16 * EPS32):
+    """Kernel H against bivariate_normal_anomalies_plain: checked exact;
+    d2 within bivariate_tolerance (NaN where the twin's is NaN); flags,
+    count and first index exact on every row with no candidate slot within
+    that tolerance of threshold^2 (nor an excursion within the means' noise
+    of 0, where a bound mode's direction could flip), and counts inside
+    the bracket elsewhere; the marginal bands to 1e-5 relative plus the
+    means' and variances' float32 noise. sum_eps is the relative error of
+    a float32 sum of the two sides (scalar or per row). Returns (largest
+    band difference, rows bracketed)."""
+    x1, m1, x2, m2, region, thr = args[:6]
+    check(bool(torch.equal(kern["checked"], plain["checked"])), "bivariate checked differs")
+    tol, s, da, db, a, b = bivariate_tolerance(args, plain["d2"], sum_eps)
+    pd, kd = plain["d2"].double(), kern["d2"].double()
+    check(bool((torch.isnan(kd) == torch.isnan(pd)).all()), "bivariate d2 NaN pattern differs")
+    same = torch.isnan(pd) | (torch.isinf(pd) & (kd == pd))
+    dd = torch.where(same, 0.0, (kd - pd).abs())
+    check(bool((dd <= tol).all()), f"bivariate d2 differs beyond its tolerance "
+                                   f"({float((dd - tol).max()):.3g} over)")
+    cand = m1 & m2 & region & (s["n"] >= 2)[:, None]
+    t2 = (thr.double() ** 2)[:, None]
+    near = cand & (((pd - t2).abs() <= tol)
+                   | ((pd > t2 - tol) & ((a.abs() <= da) | (b.abs() <= db))))
+    exact = ~near.any(1)
+    for key in ("count", "first_index"):
+        check(bool((kern[key][exact] == plain[key][exact]).all()), f"bivariate {key} differs")
+    check(bool((kern["flags"][exact] == plain["flags"][exact]).all()), "bivariate flags differ")
+    lo = (plain["flags"] & ~near).sum(1)
+    hi = (plain["flags"] | near).sum(1)
+    check(bool(((lo <= kern["count"]) & (kern["count"] <= hi)).all()),
+          "bivariate counts outside their bracket")
+    se = torch.as_tensor(sum_eps, dtype=torch.float64, device=x1.device) + 16 * EPS32
+    err = 0.0
+    for key, i in (("upper1", "1"), ("lower1", "1"), ("upper2", "2"), ("lower2", "2")):
+        v, mu = s["v" + i], s["mu" + i]
+        dmu = se * (mu.abs() + v.sqrt())
+        dvar = 4 * se * v + dmu ** 2 + 2 * dmu * v.sqrt()
+        atol = (dmu + thr.double().abs() * dvar / (2 * v.sqrt())
+                + 4 * EPS32 * plain[key].double().abs())
+        err = max(err, close_or_same(kern[key], plain[key], 1e-5,
+                                     torch.nan_to_num(atol, nan=math.inf), f"bivariate {key}"))
+    return err, int((~exact).sum())
+
+
+def hpa_rows_layout(T):
+    """(history length, current length) of an hpa row in a bucket of T:
+    1 day (or 7 at T = 16384) of 60 s history and 30 current points, or
+    in a small bucket three quarters of it and a quarter cut to a multiple
+    of 3."""
+    if T >= 2048:
+        hist = 10_080 if T >= 16384 else 1_440
+        return hist, 30
+    return 3 * T // 4 - 8, T // 12 * 3
+
+
+def adversarial_hpa(B, T, gen):
+    """HPA rows on the card: traffic at a level in [50, 500] with 3% noise
+    and its one-step model (the level with 1% noise), latency at ~5 as the
+    SLA metric; every sla_mode x sla_absolute pair; steady, surging (x2),
+    collapsing (x0.3) and SLA-violating (latency x3) rows; and, one in 16
+    each: the SLA at exactly `safe` of a static limit, at exactly the limit,
+    base at exactly 50 (constant traffic), exactly a third of the region out
+    of band, an empty region, one history point (sigma +inf), NaN at a
+    masked slot. Returns a dict of kernel I's arguments and tps_sigma (the
+    twin's residual sigma)."""
+    from foremast_tpu_torch.ops import forecast as fc
+
+    dev = DEV
+    n_h, n_c = hpa_rows_layout(T)
+    r = torch.arange(B, device=dev)
+    t = torch.arange(T, device=dev)
+    region = ((t >= n_h) & (t < n_h + n_c)).expand(B, T).clone()
+    valid = t < n_h + n_c
+    level = (50 + 450 * torch.rand(B, generator=gen, device=dev))[:, None]
+    cls = (r // 6 % 4)[:, None]
+    factor = torch.where(cls == 1, 2.0, torch.where(cls == 2, 0.3, 1.0))
+    tps = level * (1 + 0.03 * torch.randn((B, T), generator=gen, device=dev))
+    tps = torch.where(region, tps * factor, tps)
+    pred = level * (1 + 0.01 * torch.randn((B, T), generator=gen, device=dev))
+    sla = 5 + 0.3 * torch.randn((B, T), generator=gen, device=dev)
+    sla = torch.where(region & (cls == 3), sla * 3, sla)
+    tm = valid & (torch.rand((B, T), generator=gen, device=dev) > 0.05)
+    sm = valid & (torch.rand((B, T), generator=gen, device=dev) > 0.05)
+    mode = (r % 3).to(torch.int32)
+    absolute = r // 3 % 2 == 0
+    limit = torch.where(absolute, torch.tensor([6.0, 50.0], device=dev)[r % 2],
+                        torch.tensor([1.5, 3.0], device=dev)[r % 2])
+    safe = torch.where(r % 7 == 0, 0.5, 0.7)
+    special = r % 16
+    for s_, lim_frac in ((0, 0.7), (1, 1.0)):  # h at safe, h at 1
+        k = special == s_
+        mode[k], absolute[k], limit[k], safe[k] = 0, True, 10.0, 0.7
+        sla[k] = torch.where(region[k], float(np.float32(10.0) * np.float32(lim_frac)), sla[k])
+        sm[k] |= region[k]
+    k = special == 2  # base at 50: constant traffic and model
+    tps[k], pred[k] = 100.0, 100.0
+    tm[k] = valid
+    k = special == 3  # exactly a third of the region out of band
+    rows = torch.nonzero(k).flatten()
+    tps[rows] = torch.where(region[rows], pred[rows], tps[rows])
+    tm[rows] |= region[rows]
+    out_cols = region[0] & ((t - n_h) % 3 == 0)
+    tps[rows[:, None], torch.nonzero(out_cols).flatten()[None, :]] += 1e4
+    region[special == 4] = False
+    k = special == 5  # one history point
+    tm[k] &= region[k] | (t == n_h // 2)
+    hole = (special == 6)[:, None] & (t == n_h // 3)
+    tps = torch.where(hole, torch.nan, torch.where(valid, tps, 0.0))
+    tm &= ~hole
+    a = {"tps": tps.contiguous(), "tps_mask": tm.contiguous(), "region": region.contiguous(),
+         "tps_pred": pred.contiguous(), "sla": sla.contiguous(), "sla_mask": sm.contiguous(),
+         "sla_static_limit": limit.contiguous(), "sla_mode": mode,
+         "threshold": torch.full((B,), 3.0, device=dev), "safe": safe.contiguous(),
+         "pods_now": torch.tensor([1.0, 4.0, 8.0], device=dev)[r % 3],
+         "pods_hist": torch.full((B,), 4.0, device=dev), "sla_absolute": absolute.contiguous()}
+    hist = a["tps_mask"] & ~a["region"]
+    a["tps_sigma"] = fc.residual_sigma(a["tps"], a["tps_pred"], hist, ~a["region"])
+    return a
+
+
+HPA_SERIES = ("tps", "tps_mask", "region", "tps_pred", "sla", "sla_mask", "sla_static_limit",
+              "sla_mode", "threshold")
+HPA_OPTIONAL = ("safe", "pods_now", "pods_hist", "sla_absolute")
+
+
+def hpa_series(a):
+    """kernels.hpa_score's nine positional arguments from an hpa dict."""
+    return tuple(a[k] for k in HPA_SERIES)
+
+
+def hpa_edges(a, plain, with_optional):
+    """Rows whose reason could flip on float32 noise: a checked slot within
+    noise of a band edge where that moves n_out * 3 across max(checked, 1);
+    sla_current within 1e-5 of the limit; base within 1e-4 of 50 or w
+    within 1e-5 of 1 (scale-down suppression)."""
+    tps, tm, region, pred = a["tps"], a["tps_mask"], a["region"], a["tps_pred"]
+    sigma = plain.get("tps_sigma", a["tps_sigma"]).double()
+    w = a["threshold"].double() * sigma
+    sel = tm & region
+    x, p = tps.double(), pred.double()
+    tol = (4 * EPS32 * (x.abs() + p.abs() + torch.nan_to_num(w, posinf=0.0)[:, None])
+           + 1e-5 * torch.nan_to_num(w, posinf=0.0)[:, None])
+    up, lo = p + w[:, None], p - w[:, None]
+    sure = sel & ((x > up + tol) | (x < lo - tol))
+    maybe = sel & ((x > up - tol) | (x < lo + tol))
+    nc = sel.sum(1).clamp(min=1)
+    flip = (sure.sum(1) * 3 >= nc) != (maybe.sum(1) * 3 >= nc)
+    cur, lim = plain["sla_current"].double(), plain["sla_limit"].double()
+    viol = (cur - lim).abs() <= 1e-5 * (cur.abs() + lim.abs()) + 1e-6
+    hist = tm & ~region
+    prov = (torch.where(hist, x, 0.0).sum(1) / hist.sum(1).clamp(min=1))
+    ph = a["pods_hist"].double().clamp(min=1e-6) if with_optional else 1.0
+    base = 50 * plain["demand_per_pod"].double() / (prov / ph).clamp(min=1e-6)
+    safe = a["safe"].double() if with_optional else torch.full_like(cur, 0.7)
+    h = cur / lim.clamp(min=1e-9)
+    ww = (1 - h) / torch.clamp(1 - safe, min=1e-6)
+    supp = ((base - 50).abs() <= 1e-4 * 50) | ((ww - 1).abs() <= 1e-5)
+    return flip | viol | supp
+
+
+def compare_hpa(a, kern, with_sigma, with_optional=True, plain=None):
+    """Kernel I against its twin (hpa_scores_plain with the given sigma, or
+    hpa_from_preds_plain): NaN patterns equal everywhere; reason and score
+    (to 1e-3) exact but on rows hpa_edges brackets; the means (current and
+    predicted traffic, the band means, sla_current, sla_limit, pods_now,
+    sigma) to 1e-5 relative plus 4 eps32 of the row's scale; demand and
+    demand per pod, which carry the slope, to 1e-4 relative. `plain`, when
+    given, stands for the twin (the reference's outputs, in the CPU tests).
+    Returns ({output: largest difference}, rows bracketed)."""
+    from foremast_tpu_torch.ops import hpa as hp
+
+    opt = [a[k] for k in HPA_OPTIONAL] if with_optional else [None] * 4
+    if plain is not None:
+        pass
+    elif with_sigma:
+        s = hpa_series(a)
+        plain = hp.hpa_scores_plain(*s[:4], a["tps_sigma"], *s[4:], *opt)
+    else:
+        plain = hp.hpa_from_preds_plain(*hpa_series(a), *opt)
+    edge = hpa_edges(a, plain, with_optional)
+    ok = ~edge
+    check(bool(torch.equal(kern["reason"][ok], plain["reason"][ok])), "hpa_score reason differs")
+    errs = {"score": close_or_same(kern["score"][ok], plain["score"][ok], 0.0,
+                                   torch.full_like(plain["score"][ok], 1e-3), "hpa_score score")}
+    scale = torch.maximum(row_scale(a["tps"], a["tps_mask"]), row_scale(a["sla"], a["sla_mask"]))
+    for key in ("current_tps", "tps_pred", "tps_upper", "tps_lower", "sla_current", "sla_limit",
+                "pods_now", "tps_sigma"):
+        if key in kern:
+            want = plain[key] if key in plain else a["tps_sigma"]
+            errs[key] = close_or_same(kern[key], want, 1e-5, 4 * EPS32 * scale,
+                                      f"hpa_score {key}")
+    for key in ("demand", "demand_per_pod"):
+        errs[key] = close_or_same(kern[key][ok], plain[key][ok], 1e-4, 1e-4 * scale[ok],
+                                  f"hpa_score {key}")
+    return errs, int(edge.sum())
+
+
+HI_CHECK = ((128, 1536), (1024, 1536), (2048, 1536), (16384, 384))  # (T, rows)
+
+
+def kernels_h_i_vs_twin(gen):
+    """Kernels H and I against their twins on adversarial rows at T in
+    {128, 1024, 2048, 16384}, the optional arguments given and left out."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import bivariate as bv
+
+    for T, B in HI_CHECK:
+        args = adversarial_bivariate(B, T, gen)
+        kern = kernels.bivariate(*args)
+        err, bracketed = compare_bivariate(args, kern, bv.bivariate_normal_anomalies_plain(*args))
+        core = args[:6]
+        err2, bracketed2 = compare_bivariate(core, kernels.bivariate(*core),
+                                             bv.bivariate_normal_anomalies_plain(*core))
+        torch.cuda.synchronize()
+        print(f"  bivariate T={T}: max |d band| {max(err, err2):.3g}; {bracketed} of {B} rows "
+              f"bracketed at the ellipse's edge ({bracketed2} without the optional arguments)",
+              flush=True)
+        a = adversarial_hpa(B, T, gen)
+        worst, brk = {}, []
+        for sigma in (True, False):
+            for optional in (True, False):
+                kw = {k: a[k] for k in HPA_OPTIONAL} if optional else {}
+                if sigma:
+                    kw["tps_sigma"] = a["tps_sigma"]
+                errs, b = compare_hpa(a, kernels.hpa_score(*hpa_series(a), **kw), sigma,
+                                      optional)
+                brk.append(b)
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+        torch.cuda.synchronize()
+        print(f"  hpa_score T={T}: max |d| " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+              + f"; rows bracketed at a decision edge {brk} of {B} (sigma given / computed, "
+              f"optional arguments given / left out)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -864,9 +1245,7 @@ def pair_bound(args):
     wil = np.where(nz <= WILCOXON_EXACT_MAX_N, nz * (nz + 1) / 2 + 1, 0).sum()
     s = np.minimum(((args[2] > args[0]) & both).sum(1), ((args[2] < args[0]) & both).sum(1))
     ops = 7 * cells + sort_ops + 2 * wil + 4 * (s + 1).sum()
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return least_time(nbytes, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -932,12 +1311,9 @@ def band_path(gen):
           f"p99 {np.percentile(e2e, 99):.3f} ms, {B / np.median(e2e) * 1e3:.0f} rows/s; "
           f"kernel {ms:.3f} ms; plain twin {plain_ms:.1f} ms", flush=True)
     nbytes = B * T * (4 + 1 + 1) + B * 12 + B * T * (4 * 3 + 1) + B * 16
-    ops = 20 * B * T
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     g = triage_beside_band(args, "bands", TIMED_RUNS)
     return {"launches": launches["ma_band"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}, g
+            **least_time(nbytes, 20 * B * T)}, g
 
 
 # ---------------------------------------------------------------------------
@@ -1013,21 +1389,16 @@ def season_bounds(B, T, n_fit, G, lags):
     detrend 12 per slot and 13 per pair of slots at each distinct lag;
     the band ~10 per slot."""
     BT = B * T
-
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-        return {"bound_ms": max(tb, to) * 1e3, "bound_by": "bytes" if tb >= to else "operations"}
-
     return {
-        "smooth": bound(BT * 9 + B * 8, 8 * BT),
+        "smooth": least_time(BT * 9 + B * 8, 8 * BT),
         # the Holt-Winters refit: kernel C with each row's winner and period
-        "smooth_hw": bound(BT * 9 + B * 16, 14 * BT),
-        "affine_scan": bound(BT * 9 + B * 4, 11 * BT),
-        "hw_fit": bound(BT * 6 + B * (4 + 12 + 4 + 8 * G) + G * 12,
-                        14 * G * BT + 5 * G * n_fit),
-        "detect_period": bound(BT * 5 + B * (8 + 4 * len(PERIOD_CANDIDATES)),
-                               12 * BT + 13 * B * sum(T - p for p in lags)),
-        "band_from_preds": bound(BT * 19 + B * 28, 10 * BT),
+        "smooth_hw": least_time(BT * 9 + B * 16, 14 * BT),
+        "affine_scan": least_time(BT * 9 + B * 4, 11 * BT),
+        "hw_fit": least_time(BT * 6 + B * (4 + 12 + 4 + 8 * G) + G * 12,
+                             14 * G * BT + 5 * G * n_fit),
+        "detect_period": least_time(BT * 5 + B * (8 + 4 * len(PERIOD_CANDIDATES)),
+                                    12 * BT + 13 * B * sum(T - p for p in lags)),
+        "band_from_preds": least_time(BT * 19 + B * 28, 10 * BT),
     }
 
 
@@ -1156,10 +1527,291 @@ def seasonal_path(gen):
 
 
 # ---------------------------------------------------------------------------
+# the bivariate and hpa families at full size
+# ---------------------------------------------------------------------------
+FAMILY_ROWS = 100_000
+# (bucket, history points): 1 day at 60 s (the engine's bucket) and 7 days
+# (HISTORICAL_DAYS' default)
+FAMILY_SHAPES = ((2048, 1_440), (16384, 10_080))
+BI_CUR, HPA_CUR = 60, 30
+# the pair's policies: latency (threshold 10, both bounds) and cpu (5, upper);
+# the ellipse takes the smaller threshold
+BI_THRESHOLD, BI_MODES = 5.0, (3, 1)
+# the engine's HPA inputs under the default EngineConfig: ML_THRESHOLD, the
+# SES alpha, SLA_HEADROOM_SAFE, dynamic SLA mode with no limit configured
+HPA_THRESHOLD, HPA_ALPHA, HPA_SAFE = 2.0, 0.3, 0.7
+
+
+def _rows(B, T, fn):
+    """fn(slice, t) over row chunks of 8192, for bounded temporaries."""
+    t = torch.arange(T, device=DEV)
+    for lo in range(0, B, 8192):
+        fn(slice(lo, min(B, lo + 8192)), t)
+
+
+def break_radius(rho):
+    """The standardized excursion k of a correlation break (latency +k,
+    cpu -k): d2 = 2 k^2 / (1 - rho), so d = 1.1 x (2 x the threshold) at
+    k = 1.1 sqrt(50 (1 - rho)); at most 5.5, inside latency's own 10-sigma
+    band, and cpu's band is upper-only."""
+    return 1.1 * torch.sqrt((2 * BI_THRESHOLD) ** 2 * (1 - rho) / 2)
+
+
+def bivariate_family_inputs(gen, T, n_h):
+    """B metric pairs made on the card: latency at a level in [20, 100] and
+    cpu in [10, 60], noise level/20 each, correlated at rho in [0.5, 0.95];
+    n_h history + BI_CUR current points, 2% lost; 10% with a correlation
+    break over the whole current window (latency up, cpu down by
+    break_radius: inside each metric's own band, d >= 2 x the threshold),
+    5% with a joint +8 sigma level shift, the rest healthy. Returns
+    (kernels.bivariate's ten arguments, kind (B,): 0 healthy, 1 break, 2
+    shift)."""
+    dev, B = DEV, FAMILY_ROWS
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    r = u(B)
+    kind = torch.where(r < 0.10, 1, torch.where(r < 0.15, 2, 0))
+    rho = 0.5 + 0.45 * u(B)
+    l1, l2 = 20 + 80 * u(B), 10 + 50 * u(B)
+    x1 = torch.empty((B, T), device=dev)
+    x2 = torch.empty((B, T), device=dev)
+    m1 = torch.empty((B, T), dtype=torch.bool, device=dev)
+    m2 = torch.empty((B, T), dtype=torch.bool, device=dev)
+
+    def fill(s, t):
+        n = s.stop - s.start
+        reg = (t >= n_h) & (t < n_h + BI_CUR)
+        rh = rho[s, None]
+        z1 = torch.randn((n, T), generator=gen, device=dev)
+        z2 = rh * z1 + torch.sqrt(1 - rh * rh) * torch.randn((n, T), generator=gen, device=dev)
+        k = kind[s, None]
+        kr = break_radius(rho[s])[:, None]
+        jit = 0.05 * torch.randn((n, T), generator=gen, device=dev)
+        z1 = torch.where((k == 1) & reg, kr + jit, z1)
+        z2 = torch.where((k == 1) & reg, -kr + jit, z2)
+        z1 = torch.where((k == 2) & reg, z1 + 8, z1)
+        z2 = torch.where((k == 2) & reg, z2 + 8, z2)
+        valid = t < n_h + BI_CUR
+        m1[s] = valid & (u(n, T) > 0.02)
+        m2[s] = valid & (u(n, T) > 0.02)
+        x1[s] = torch.where(valid, l1[s, None] * (1 + z1 / 20), 0.0)
+        x2[s] = torch.where(valid, l2[s, None] * (1 + z2 / 20), 0.0)
+
+    _rows(B, T, fill)
+    t = torch.arange(T, device=dev)
+    region = ((t >= n_h) & (t < n_h + BI_CUR)).expand(B, T).contiguous()
+    f32, i32 = dict(device=dev), dict(dtype=torch.int32, device=dev)
+    args = (x1, m1, x2, m2, region, torch.full((B,), BI_THRESHOLD, **f32),
+            torch.zeros(B, **f32), torch.zeros(B, **f32),
+            torch.full((B,), BI_MODES[0], **i32), torch.full((B,), BI_MODES[1], **i32))
+    return args, kind
+
+
+def hpa_family_inputs(gen, T, n_h):
+    """B hpa rows made on the card: traffic at a level in [50, 500] with 3%
+    noise, latency (the SLA metric) at a level in [2, 10] with 6%; n_h
+    history + HPA_CUR current points, 2% lost; a quarter each steady,
+    surging (traffic x 2 over the current window), collapsing (x 0.3) and
+    violating the SLA (latency x 3). The engine's policy: threshold 2,
+    dynamic SLA mode (no limit configured: 1e9), safe 0.7, no pod counts.
+    Returns (a dict of kernel I's arguments and the SES alpha, class (B,))."""
+    dev, B = DEV, FAMILY_ROWS
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    cls = (u(B) * 4).long().clamp(max=3)
+    lt, ls = 50 + 450 * u(B), 2 + 8 * u(B)
+    tps = torch.empty((B, T), device=dev)
+    sla = torch.empty((B, T), device=dev)
+    tm = torch.empty((B, T), dtype=torch.bool, device=dev)
+    sm = torch.empty((B, T), dtype=torch.bool, device=dev)
+
+    def fill(s, t):
+        n = s.stop - s.start
+        reg = (t >= n_h) & (t < n_h + HPA_CUR)
+        valid = t < n_h + HPA_CUR
+        c = cls[s, None]
+        factor = torch.where(c == 1, 2.0, torch.where(c == 2, 0.3, 1.0))
+        x = lt[s, None] * (1 + 0.03 * torch.randn((n, T), generator=gen, device=dev))
+        y = ls[s, None] * (1 + 0.06 * torch.randn((n, T), generator=gen, device=dev))
+        tps[s] = torch.where(valid, torch.where(reg, x * factor, x), 0.0)
+        sla[s] = torch.where(valid, torch.where(reg & (c == 3), y * 3, y), 0.0)
+        tm[s] = valid & (u(n, T) > 0.02)
+        sm[s] = valid & (u(n, T) > 0.02)
+
+    _rows(B, T, fill)
+    t = torch.arange(T, device=dev)
+    region = ((t >= n_h) & (t < n_h + HPA_CUR)).expand(B, T).contiguous()
+    f32 = dict(device=dev)
+    a = {"tps": tps, "tps_mask": tm, "region": region, "sla": sla, "sla_mask": sm,
+         "hist": (tm & ~region).contiguous(),
+         "alpha": torch.full((B,), HPA_ALPHA, **f32),
+         "sla_static_limit": torch.full((B,), 1e9, **f32),
+         "sla_mode": torch.full((B,), 1, dtype=torch.int32, device=dev),
+         "threshold": torch.full((B,), HPA_THRESHOLD, **f32),
+         "safe": torch.full((B,), HPA_SAFE, **f32), "pods_now": torch.ones(B, **f32),
+         "pods_hist": torch.ones(B, **f32),
+         "sla_absolute": torch.ones(B, dtype=torch.bool, device=dev)}
+    return a, cls
+
+
+def median_ms(fn, runs):
+    fn()
+    return float(np.median([cuda_ms(fn, 1, warm=False) for _ in range(runs)]))
+
+
+def bivariate_family(gen, T, n_h):
+    """Kernel H on 100,000 pairs at bucket T through the entry point, the
+    engine's verdict rule, then its time, bound and twin."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import bivariate as bv
+
+    t0 = time.perf_counter()
+    args, kind = bivariate_family_inputs(gen, T, n_h)
+    torch.cuda.synchronize()
+    B = FAMILY_ROWS
+    kernels.reset_launches()
+    out = bv.bivariate_normal_anomalies(*args, device=DEV)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(launches["bivariate"] == 1, f"bivariate launched {launches['bivariate']} times, not 1")
+    gate = torch.clamp(BAND_VIOLATION_FRACTION * out["checked"].float(), min=BAND_MIN_POINTS)
+    flagged = out["count"].float() >= gate
+    # counted in integers: a float32 mean of ones need not be exactly 1
+    missed = {k: int((~flagged & (kind == k)).sum()) for k in (1, 2)}
+    rec_break = 1.0 - missed[1] / int((kind == 1).sum())
+    rec_shift = 1.0 - missed[2] / int((kind == 2).sum())
+    fp = int((flagged & (kind == 0)).sum()) / int((kind == 0).sum())
+    check(missed[1] == 0, f"bivariate T={T}: {missed[1]} correlation breaks missed")
+    check(missed[2] == 0, f"bivariate T={T}: {missed[2]} joint shifts missed")
+    check(fp < 0.01, f"bivariate T={T}: healthy rows flagged {fp:.5f} >= 0.01")
+    # the breaks stay inside each metric's own band (latency 10 sigma both
+    # ways, cpu 5 sigma upward) of the history's mean and sd
+    x1, m1, x2, m2, region = args[:5]
+    brk = (kind == 1)[:, None] & region & m1 & m2
+    hist = m1 & m2 & ~region
+    n = hist.sum(1).clamp(min=1)
+    mu1 = torch.where(hist, x1, 0).sum(1) / n
+    mu2 = torch.where(hist, x2, 0).sum(1) / n
+    sd1 = torch.sqrt(torch.where(hist, (x1 - mu1[:, None]) ** 2, 0).sum(1) / n)
+    sd2 = torch.sqrt(torch.where(hist, (x2 - mu2[:, None]) ** 2, 0).sum(1) / n)
+    inside = (((x1 - mu1[:, None]).abs() <= 10 * sd1[:, None])
+              & (x2 - mu2[:, None] <= 5 * sd2[:, None]))
+    outside = int((~inside & brk).sum())
+    check(outside == 0, f"bivariate T={T}: {outside} break points outside a metric's own band")
+    sub = tuple(a[:CHECK_ROWS] for a in args)
+    err, bracketed = compare_bivariate(sub, kernels.bivariate(*sub),
+                                       bv.bivariate_normal_anomalies_plain(*sub))
+    del out, inside, brk, hist
+    ms = median_ms(lambda: kernels.bivariate(*args), TIMED_RUNS)
+    plain_ms = chunked_ms(lambda s: bv.bivariate_normal_anomalies_plain(
+        *(a[s] for a in args)), B)
+    bound = least_time(B * T * 16 + B * (20 + 28), 27.0 * B * T)
+    print(f"  bivariate, {B} pairs at T = {T} ({n_h} history + {BI_CUR} current) made in "
+          f"{time.perf_counter() - t0:.1f} s: recall {rec_break:.5f} on "
+          f"{int((kind == 1).sum())} correlation breaks (every break point inside both metrics' "
+          f"own bands) and {rec_shift:.5f} on {int((kind == 2).sum())} joint shifts, healthy "
+          f"flagged {fp:.5f} (limit 0.01); kernel {ms:.3f} ms (median of {TIMED_RUNS}), bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, 16 B a slot), plain twin "
+          f"{plain_ms:.1f} ms; {launches['bivariate']} launch per call; vs twin on {CHECK_ROWS} "
+          f"rows: max |d band| {err:.3g}, {bracketed} rows bracketed", flush=True)
+    return {"launches": launches["bivariate"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **bound}
+
+
+def hpa_family(gen, T, n_h):
+    """The engine's HPA launch on 100,000 rows at bucket T through the entry
+    points (kernel C's SES on the history, kernel I from its predictions),
+    the classes' sides of 50, then the times, bounds and twins."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+    from foremast_tpu_torch.ops import hpa as hp
+
+    t0 = time.perf_counter()
+    a, cls = hpa_family_inputs(gen, T, n_h)
+    torch.cuda.synchronize()
+    B = FAMILY_ROWS
+    rest = (a["sla"], a["sla_mask"], a["sla_static_limit"], a["sla_mode"], a["threshold"],
+            a["safe"], a["pods_now"], a["pods_hist"], a["sla_absolute"])
+
+    def launch():
+        preds = fc.ses_predictions(a["tps"], a["hist"], a["alpha"], device=DEV)
+        return preds, hp.hpa_from_preds(a["tps"], a["tps_mask"], a["region"], preds, *rest,
+                                        device=DEV)
+
+    kernels.reset_launches()
+    preds, out = launch()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(launches["smooth"] == 1 and launches["hpa_score"] == 1,
+          f"the HPA launch ran smooth {launches['smooth']} and hpa_score "
+          f"{launches['hpa_score']} times, not once each")
+    score, reason = out["score"], out["reason"]
+    shares = {
+        "steady within [40, 60]": ((score >= 40) & (score <= 60))[cls == 0],
+        "surge > 50": (score > 50)[cls == 1],
+        "collapse < 50": (score < 50)[cls == 2],
+        "violation > 50": (score > 50)[cls == 3],
+        "violation reason 2, >= 75": ((reason == 2) & (score >= 75))[cls == 3],
+    }
+    shares = {k: float(v.float().mean()) for k, v in shares.items()}
+    for k, v in shares.items():
+        check(v >= 0.99, f"hpa T={T}: {k} on {v:.5f} < 0.99 of its rows")
+    c = CHECK_ROWS
+    sub = {k: v[:c] for k, v in a.items()}
+    sub["tps_pred"] = preds[:c].contiguous()
+    sub["tps_sigma"] = out["tps_sigma"][:c]
+    kw = {k: sub[k] for k in HPA_OPTIONAL}
+    errs, bracketed = compare_hpa(sub, kernels.hpa_score(*hpa_series(sub), **kw), False)
+    tp = preds.contiguous()
+    i_ms = median_ms(lambda: kernels.hpa_score(a["tps"], a["tps_mask"], a["region"], tp,
+                                               *rest[:5], safe=a["safe"],
+                                               pods_now=a["pods_now"],
+                                               pods_hist=a["pods_hist"],
+                                               sla_absolute=a["sla_absolute"]), TIMED_RUNS)
+    c_ms = median_ms(lambda: kernels.smooth(kernels.SMOOTH_SES, a["tps"], a["hist"], a["alpha"]),
+                     TIMED_RUNS)
+    launch_ms = median_ms(launch, TIMED_RUNS)
+    plain_ms = chunked_ms(lambda s: hp.hpa_from_preds_plain(
+        a["tps"][s], a["tps_mask"][s], a["region"][s], tp[s], *(r[s] for r in rest)), B)
+    bound = least_time(B * T * 15 + B * (25 + 48), 30.0 * B * T)
+    c_bound = least_time(B * T * 9 + B * 4, 3.0 * B * T)
+    print(f"  hpa, {B} rows at T = {T} ({n_h} history + {HPA_CUR} current) made in "
+          f"{time.perf_counter() - t0:.1f} s: " + ", ".join(f"{k} on {v:.5f}"
+                                                          for k, v in shares.items())
+          + f" (limits 0.99); kernel I {i_ms:.3f} ms (median of {TIMED_RUNS}), bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, 15 B a slot), plain twin "
+          f"{plain_ms:.1f} ms; kernel C's SES {c_ms:.3f} ms, bound {c_bound['bound_ms']:.3f} ms "
+          f"(9 B a slot); the HPA launch (C then I, from the entry points) {launch_ms:.3f} ms; "
+          f"launches per call: smooth {launches['smooth']}, hpa_score {launches['hpa_score']}; "
+          f"vs twin on {c} rows: max |d| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f", {bracketed} rows bracketed", flush=True)
+    return {"launches": launches["hpa_score"], "max_abs_err": errs["score"], "ms": i_ms,
+            "plain_ms": plain_ms, **bound, "smooth_ms": c_ms, "launch_ms": launch_ms}
+
+
+def families_path(gen):
+    """Phase `families`: kernels H and I at both shapes; returns the rows of
+    the engine's bucket (T = 2048) and the 7-day ones."""
+    out = {}
+    for T, n_h in FAMILY_SHAPES:
+        out[("bivariate", T)] = bivariate_family(gen, T, n_h)
+        torch.cuda.empty_cache()
+        out[("hpa", T)] = hpa_family(gen, T, n_h)
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the engine cycle at fleet size
 # ---------------------------------------------------------------------------
 ENGINE_CANARIES, ENGINE_CONTINUOUS = 6_000, 4_000
-ENGINE_PAIR_T, ENGINE_HIST, ENGINE_CUR = 128, 1_440, 60
+# bench_cycle's mix=True shares of a 10,000-job fleet: 10% bivariate, 5% hpa
+ENGINE_BIVARIATE, ENGINE_HPA = 1_000, 500
+ENGINE_PAIR_T, ENGINE_HIST, ENGINE_CUR, ENGINE_HPA_CUR = 128, 1_440, 60, 30
 ENGINE_CYCLES = 2
 ENGINE_T0 = 1_700_000_040  # a step boundary
 ENGINE_SPANS = ("engine.cycle", "engine.claim", "engine.preprocess", "engine.score")
@@ -1177,7 +1829,7 @@ def _prom_body(points) -> bytes:
 
 
 def engine_fleet(rng):
-    """10,000 jobs as Prometheus query_range bodies, one set per cycle, made
+    """11,500 jobs as Prometheus query_range bodies, one set per cycle, made
     with numpy from the seed; the second cycle's windows are the first's
     advanced by one step.
 
@@ -1188,7 +1840,20 @@ def engine_fleet(rng):
       and 60 current points, level in [20, 100], white noise sigma =
       level / 20; 10% with a +16 sigma level shift in the current window
       (the latency policy's band is 10 sigma), 2% with one +30 sigma spike in
-      it (a suspect the screen escalates and the band scorer keeps healthy).
+      it (a suspect the screen escalates and the band scorer keeps healthy);
+    - 1,000 continuous two-metric monitors, latency and cpu (bench_cycle's
+      bi_doc), judged under the bivariate ellipse: 1,440 history and 60
+      current points, levels in [20, 100] and [10, 60], noise level/20,
+      correlated at rho in [0.5, 0.95]; 10% with a correlation break over
+      the whole current window inside each metric's own band
+      (break_radius); a job whose two metrics lose different boundary
+      samples (the history's last, the current window's first) is paired a
+      step apart by the joint grid, as in the reference ("misaligned");
+    - 500 hpa jobs, tps and latency (priority 1, is_increase; bench_cycle's
+      hpa_doc): 1,440 history and 30 current points, traffic at [50, 500]
+      with 3% noise, latency at [2, 10] with 6%; a quarter each steady,
+      surging (x 2), collapsing (x 0.3), violating the SLA (latency x 3);
+      20% with a podCountURL (4 ready pods throughout).
 
     Every series: scrape offsets of 0-5 s after the step, 5% lost scrapes."""
     from foremast_tpu_torch.engine import Document, MetricQueries
@@ -1218,8 +1883,8 @@ def engine_fleet(rng):
             urls[role] = url = f"http://prometheus/q/{jid}/{role}"
             for c in range(ENGINE_CYCLES):
                 pages[c][url] = _prom_body(pts[c:c + ENGINE_PAIR_T])
-        docs.append((jid, "canary", "http_errors_5xx",
-                     dict(current=urls["c"], baseline=urls["b"])))
+        docs.append((jid, "canary",
+                     {"http_errors_5xx": dict(current=urls["c"], baseline=urls["b"])}, ""))
     kind = rng.random(nk)
     shifted, spiked = kind < 0.10, (kind >= 0.10) & (kind < 0.12)
     n = ENGINE_HIST + ENGINE_CUR + ENGINE_CYCLES - 1
@@ -1237,19 +1902,81 @@ def engine_fleet(rng):
         for c in range(ENGINE_CYCLES):
             pages[c][uh] = _prom_body(pts[c:c + ENGINE_HIST])
             pages[c][uc] = _prom_body(pts[c + ENGINE_HIST:c + ENGINE_HIST + ENGINE_CUR])
-        docs.append((jid, "continuous", "latency", dict(current=uc, historical=uh)))
+        docs.append((jid, "continuous", {"latency": dict(current=uc, historical=uh)}, ""))
+    broken = rng.random(ENGINE_BIVARIATE) < 0.10
+    misaligned = set()
+    for i in range(ENGINE_BIVARIATE):
+        jid = f"bivariate-{i:05d}"
+        rho = 0.5 + 0.45 * rng.random()
+        z1 = rng.standard_normal(n)
+        z2 = rho * z1 + np.sqrt(1 - rho * rho) * rng.standard_normal(n)
+        if broken[i]:
+            k = float(break_radius(torch.tensor(rho)))
+            z1[ENGINE_HIST:], z2[ENGINE_HIST:] = k, -k
+        metrics, ends = {}, []
+        for name, z, level in (("latency", z1, 20 + 80 * rng.random()),
+                               ("cpu", z2, 10 + 50 * rng.random())):
+            ts = ENGINE_T0 + STEP * np.arange(n) + rng.uniform(0, 5, n)
+            keep = rng.random(n) > 0.05
+            # the grid ends with the history's last kept sample and starts
+            # with the current window's first: where the two metrics
+            # differ, the joint grid pairs them a step apart
+            ends.append([(np.nonzero(keep[c:c + ENGINE_HIST])[0][-1],
+                          np.nonzero(keep[c + ENGINE_HIST:c + ENGINE_HIST + ENGINE_CUR])[0][0])
+                         for c in range(ENGINE_CYCLES)])
+            pts = _prom_points(ts, level * (1 + z / 20), keep)
+            uh, uc = (f"http://prometheus/q/{jid}/{name}/{r}" for r in ("h", "c"))
+            for c in range(ENGINE_CYCLES):
+                pages[c][uh] = _prom_body(pts[c:c + ENGINE_HIST])
+                pages[c][uc] = _prom_body(pts[c + ENGINE_HIST:c + ENGINE_HIST + ENGINE_CUR])
+            metrics[name] = dict(current=uc, historical=uh)
+        if ends[0] != ends[1]:
+            misaligned.add(jid)
+        docs.append((jid, "continuous", metrics, ""))
+    hpa_class = {}
+    n = ENGINE_HIST + ENGINE_HPA_CUR + ENGINE_CYCLES - 1
+    for i in range(ENGINE_HPA):
+        jid = f"hpa-{i:05d}"
+        cls = hpa_class[jid] = i % 4
+        reg = np.arange(n) >= ENGINE_HIST
+        tps = (50 + 450 * rng.random()) * (1 + 0.03 * rng.standard_normal(n))
+        tps = np.where(reg, tps * (2.0 if cls == 1 else 0.3 if cls == 2 else 1.0), tps)
+        lat = (2 + 8 * rng.random()) * (1 + 0.06 * rng.standard_normal(n))
+        lat = np.where(reg & (cls == 3), lat * 3, lat)
+        metrics = {}
+        for name, vals, extra in (("tps", tps, {}), ("latency", lat, {"priority": 1})):
+            ts = ENGINE_T0 + STEP * np.arange(n) + rng.uniform(0, 5, n)
+            pts = _prom_points(ts, vals, rng.random(n) > 0.05)
+            uh, uc = (f"http://prometheus/q/{jid}/{name}/{r}" for r in ("h", "c"))
+            for c in range(ENGINE_CYCLES):
+                pages[c][uh] = _prom_body(pts[c:c + ENGINE_HIST])
+                pages[c][uc] = _prom_body(
+                    pts[c + ENGINE_HIST:c + ENGINE_HIST + ENGINE_HPA_CUR])
+            metrics[name] = dict(current=uc, historical=uh, **extra)
+        pods = ""
+        if i % 5 == 0:
+            pods = f"http://prometheus/q/{jid}/pods"
+            ts = ENGINE_T0 + STEP * np.arange(n)
+            body = _prom_body(_prom_points(ts, np.full(n, 4.0), np.ones(n, bool)))
+            for c in range(ENGINE_CYCLES):
+                pages[c][pods] = body
+        docs.append((jid, "hpa", metrics, pods))
 
     def make_docs():
         return [Document(id=jid, app_name=jid, namespace="smoke", strategy=strategy,
                          start_time=to_rfc3339(now - 3600),
-                         end_time="" if strategy == "continuous" else to_rfc3339(now + 86400),
-                         metrics={metric: MetricQueries(**q)})
-                for jid, strategy, metric, q in docs]
+                         end_time=("" if strategy in ("continuous", "hpa")
+                                   else to_rfc3339(now + 86400)),
+                         metrics={m: MetricQueries(**q) for m, q in metrics.items()},
+                         pod_count_url=pods)
+                for jid, strategy, metrics, pods in docs]
 
     return {"pages": pages, "docs": make_docs, "now": now,
             "bad": {f"canary-{i:05d}" for i in np.nonzero(bad)[0]},
             "shifted": {f"continuous-{i:05d}" for i in np.nonzero(shifted)[0]},
-            "spiked": {f"continuous-{i:05d}" for i in np.nonzero(spiked)[0]}}
+            "spiked": {f"continuous-{i:05d}" for i in np.nonzero(spiked)[0]},
+            "broken": {f"bivariate-{i:05d}" for i in np.nonzero(broken)[0]},
+            "misaligned": misaligned, "hpa_class": hpa_class}
 
 
 def idle_split(prof):
@@ -1297,8 +2024,9 @@ def engine_arm(fleet, triage, profile_cycle=None):
     """The fleet through the port's Analyzer on the card, ENGINE_CYCLES
     cycles under the default EngineConfig (triage on or off). Per cycle:
     wall, stages, kernel launches (counts reset just before the cycle, read
-    just after), the analyzer's launches, triage rows, kernel builds, the
-    verdict digest, and the idle split when profiled."""
+    just after), the analyzer's launches per family, triage rows, kernel
+    builds, the verdict digest, the hpa_score series by app, and the idle
+    split when profiled."""
     from torch.profiler import ProfilerActivity, profile
 
     from foremast_tpu_torch import kernels
@@ -1335,8 +2063,51 @@ def engine_arm(fleet, triage, profile_cycle=None):
             "launches": dict(kernels.launches), "device_launches": an.device_launches - d0,
             "triage_launches": an.triage_launches_total - tl0, "triage": st["triage"],
             "builds": build.builds - builds, "digest": verdict_digest(store),
-            "idle": idle_split(prof) if prof is not None else None})
+            "idle": idle_split(prof) if prof is not None else None,
+            "hpa_gauges": {labels["app"]: value for name, labels, value in an.exporter.samples()
+                           if name == "foremastbrain:namespace_app_per_pod:hpa_score"},
+            "family_launches": dict(st["family_launches"])})
     return an, store, cycles
+
+
+def hpa_engine_checks(fleet, store, cycles):
+    """Every hpa job: one hpalog and one hpa_score sample a cycle, the raw
+    score on its class's side of 50 (steady within [40, 60], violations
+    >= 75 by the SLA rule), the gated score as a fresh BreathState rules
+    on the same raw scores and times, the series carrying it."""
+    import re
+
+    from foremast_tpu_torch.ops import hpa as hp
+
+    raw_re = re.compile(r"raw (-?[0-9.]+|nan)\) via (.+?) on")
+    breath = hp.BreathState()
+    sides = {0: lambda r: 40 <= r <= 60, 1: lambda r: r > 50, 2: lambda r: r < 50,
+             3: lambda r: r >= 75}
+    wrong, gated_wrong, logs_wrong = [], [], []
+    for jid, cls in fleet["hpa_class"].items():
+        logs = sorted(store.hpalogs_for(jid), key=lambda log: log.timestamp)
+        if len(logs) != ENGINE_CYCLES:
+            logs_wrong.append(jid)
+            continue
+        for c, log in enumerate(logs):
+            raw, why = raw_re.search(log.reason).groups()
+            raw = float(raw)
+            if not sides[cls](raw) or (cls == 3 and why != "SLA violation"):
+                wrong.append((jid, cls, raw, why))
+            if (breath.apply(jid, raw, now=log.timestamp) != log.hpascore
+                    or cycles[c]["hpa_gauges"].get(jid) != log.hpascore):
+                gated_wrong.append(jid)
+    check(not logs_wrong, f"{len(logs_wrong)} hpa jobs without one hpalog a cycle, e.g. "
+                          f"{logs_wrong[:3]}")
+    check(not wrong, f"{len(wrong)} hpa raw scores on the wrong side of 50, e.g. {wrong[:3]}")
+    check(not gated_wrong, f"{len(gated_wrong)} hpa gated scores or series samples not as the "
+                           f"breath rules, e.g. {gated_wrong[:3]}")
+    per_cycle = [len(c["hpa_gauges"]) for c in cycles]
+    check(all(n == ENGINE_HPA for n in per_cycle), f"hpa_score samples per cycle {per_cycle}")
+    print(f"  hpa: {ENGINE_HPA} jobs, one hpalog and one hpa_score sample each a cycle "
+          f"({per_cycle}); raw scores on their class's side of 50 (steady [40, 60], surge "
+          f"> 50, collapse < 50, SLA violation >= 75 with its reason) on every job; gated scores "
+          f"as BreathState rules", flush=True)
 
 
 def engine_band_inputs(fleet):
@@ -1381,10 +2152,11 @@ def engine_path(rng):
 
     t0 = time.perf_counter()
     fleet = engine_fleet(rng)
-    print(f"  {ENGINE_CANARIES} canary and {ENGINE_CONTINUOUS} continuous jobs as query_range "
-          f"bodies for {ENGINE_CYCLES} cycles, made in {time.perf_counter() - t0:.1f} s; "
-          f"{len(fleet['bad'])} bad canaries, {len(fleet['shifted'])} shifted and "
-          f"{len(fleet['spiked'])} spiked continuous jobs", flush=True)
+    print(f"  {ENGINE_CANARIES} canary, {ENGINE_CONTINUOUS} continuous, {ENGINE_BIVARIATE} "
+          f"two-metric and {ENGINE_HPA} hpa jobs as query_range bodies for {ENGINE_CYCLES} "
+          f"cycles, made in {time.perf_counter() - t0:.1f} s; {len(fleet['bad'])} bad canaries, "
+          f"{len(fleet['shifted'])} shifted and {len(fleet['spiked'])} spiked continuous jobs, "
+          f"{len(fleet['broken'])} correlation breaks", flush=True)
     an, store, cycles = engine_arm(fleet, triage=True)
     _, _, prof_cycles = engine_arm(fleet, triage=True, profile_cycle=ENGINE_CYCLES - 1)
     _, _, off_cycles = engine_arm(fleet, triage=False)
@@ -1396,11 +2168,18 @@ def engine_path(rng):
               f"{st['preprocess']:.3f} s, dispatch {st['dispatch']:.3f} s, collect "
               f"{st['collect']:.3f} s, fold {st['fold']:.3f} s; kernel launches "
               f"{ {k: v for k, v in rec['launches'].items() if v} }, analyzer device_launches "
-              f"{rec['device_launches']}; screened {tri.get('screened')}, cleared "
-              f"{tri.get('cleared')}, escalated {tri.get('escalated')}; kernel library builds "
-              f"{rec['builds']}", flush=True)
-        for k in ("pair_verdict", "ma_band", "triage_screen"):
+              f"{rec['device_launches']} by family {rec['family_launches']}; screened "
+              f"{tri.get('screened')}, cleared {tri.get('cleared')}, escalated "
+              f"{tri.get('escalated')}; kernel library builds {rec['builds']}", flush=True)
+        for k in ("pair_verdict", "ma_band", "triage_screen", "bivariate", "smooth",
+                  "hpa_score"):
             check(rec["launches"][k] >= 1, f"engine cycle {c + 1} launched no {k}")
+        # the HPA launch is kernel C then kernel I, once per chunk
+        check(rec["launches"]["smooth"] == rec["launches"]["hpa_score"]
+              == rec["family_launches"].get("hpa"),
+              f"engine cycle {c + 1}: the hpa family's launches are not one C and one I each")
+        check(rec["launches"]["bivariate"] == rec["family_launches"].get("bivariate"),
+              f"engine cycle {c + 1}: the bivariate family's launches are not one H each")
         check(tri.get("cleared", 0) >= 1, f"engine cycle {c + 1}: the screen cleared no row")
         check(rec["launches"]["triage_screen"] == rec["triage_launches"],
               f"engine cycle {c + 1}: triage_screen launches {rec['launches']['triage_screen']} "
@@ -1423,17 +2202,39 @@ def engine_path(rng):
     failed = [d.id for d in docs if d.reason.startswith("scoring failed")
               or d.status in ("abort", "preprocess_failed")]
     check(not failed, f"{len(failed)} jobs failed scoring, e.g. {failed[:3]}")
-    bad = fleet["bad"] | fleet["shifted"]
+    bad = fleet["bad"] | fleet["shifted"] | fleet["broken"]
     missed = [j for j in bad if status[j] != "completed_unhealth"]
-    check(not missed, f"{len(missed)} bad canaries or shifted jobs not unhealthy, e.g. {missed[:3]}")
+    # a correlation break of a misaligned pair may pass: the history paired
+    # a step apart shows no correlation to break (ROADMAP queue 3)
+    excused = [j for j in missed if j in fleet["misaligned"]]
+    missed = [j for j in missed if j not in fleet["misaligned"]]
+    check(not missed, f"{len(missed)} bad canaries, shifted or broken jobs not unhealthy, e.g. "
+                      f"{missed[:3]}")
+    print(f"  two-metric jobs: {len(fleet['misaligned'])} of {ENGINE_BIVARIATE} misaligned by a "
+          f"lost boundary sample in some cycle; {len(excused)} of {len(fleet['broken'])} "
+          f"correlation breaks passed, every one of them misaligned", flush=True)
     healthy = [j for j in status if j not in bad]
     flagged = [j for j in healthy if status[j] == "completed_unhealth"]
     share = len(flagged) / len(healthy)
     canary_fp = sum(j.startswith("canary") for j in flagged)
-    print(f"  verdicts: {len(bad)} bad canaries and shifted jobs all unhealthy; healthy jobs "
-          f"flagged {share:.5f} (limit 0.01): {canary_fp} canaries (Mann-Whitney alone at "
-          f"p < 0.01, the default pairwise test), {len(flagged) - canary_fp} continuous; "
-          f"digests equal with triage on, on under the profiler, and off", flush=True)
+    bi_fp = sum(j.startswith("bivariate") for j in flagged)
+    # a misaligned pair's current window pairs the metrics a step apart: an
+    # uncorrelated cloud, which a tight ellipse flags; held to the limit are
+    # the aligned pairs, the misaligned ones are counted (ROADMAP queue 3)
+    bi_healthy = [j for j in healthy if j.startswith("bivariate")]
+    aligned = [j for j in bi_healthy if j not in fleet["misaligned"]]
+    bi_fp_aligned = sum(status[j] == "completed_unhealth" for j in aligned)
+    bi_share = bi_fp_aligned / len(aligned)
+    print(f"  verdicts: {len(bad) - len(excused)} bad canaries, shifted and broken jobs "
+          f"unhealthy, all but the {len(excused)} misaligned breaks; healthy "
+          f"jobs flagged {share:.5f} (limit 0.01): {canary_fp} canaries (Mann-Whitney alone at "
+          f"p < 0.01, the default pairwise test), {bi_fp} two-metric ({bi_fp_aligned} of "
+          f"{len(aligned)} aligned healthy ones: {bi_share:.5f}, limit 0.01; "
+          f"{bi_fp - bi_fp_aligned} of {len(bi_healthy) - len(aligned)} misaligned ones), "
+          f"{len(flagged) - canary_fp - bi_fp} continuous; digests equal with triage on, on under "
+          f"the profiler, and off", flush=True)
+    check(bi_share < 0.01, f"aligned healthy two-metric jobs flagged {bi_share:.4f} >= 0.01")
+    hpa_engine_checks(fleet, store, cycles)
     check(share < 0.01, f"healthy jobs flagged {share:.4f} >= 0.01")
 
     args = engine_band_inputs(fleet)
@@ -1458,7 +2259,9 @@ def engine_path(rng):
           f"kernel {ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), plain "
           f"twin {plain_ms:.1f} ms, torch.sort of the history {s_ms:.3f} ms, max |err| against "
           f"the twin {err:.3g}; {launches} launches in the {ENGINE_CYCLES} cycles", flush=True)
-    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+    family = {k: sum(r["launches"][k] for r in cycles) for k in ("bivariate", "hpa_score")}
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound}, family
 
 
 def main() -> int:
@@ -1502,6 +2305,7 @@ def main() -> int:
     kernel_b_vs_twin(gen)
     kernels_c_to_f_vs_twin(gen)
     kernel_g_vs_twin(gen)
+    kernels_h_i_vs_twin(gen)
 
     phase("pairs")
     a = pair_path(rng)
@@ -1509,8 +2313,10 @@ def main() -> int:
     b, g_bands = band_path(gen)
     phase("seasonal")
     s, g_season = seasonal_path(gen)
+    phase("families")
+    fam = families_path(gen)
     phase("engine")
-    g = engine_path(rng)
+    g, engine_launches = engine_path(rng)
     print(f"  triage_screen, 100,000 rows: {g_bands['ms']:.3f} ms at T = {BAND_T} (bound "
           f"{g_bands['bound_ms']:.3f} ms, twin {g_bands['plain_ms']:.1f} ms, torch.sort "
           f"{g_bands['sort_ms']:.3f} ms), {g_season['ms']:.3f} ms at T = {SEASON_T} (bound "
@@ -1536,6 +2342,19 @@ def main() -> int:
         {"name": "triage_screen", "source": csrc + "triage.cu",
          "replaces": "foremast_tpu/ops/triage.py:58", **g},
     ]
+    # kernels H and I: times at the engine's bucket (phase families, T =
+    # 2048); launches on the main path, the engine's cycles
+    for name, fam_key, src, ref in (("bivariate", "bivariate", "bivariate.cu",
+                                     "foremast_tpu/ops/bivariate.py:26"),
+                                    ("hpa_score", "hpa", "hpa.cu", "foremast_tpu/ops/hpa.py:74")):
+        row = dict(fam[(fam_key, FAMILY_SHAPES[0][0])])
+        row["launches"] = engine_launches[name]
+        rows.append({"name": name, "source": csrc + src, "replaces": ref, **row})
+    for (fam_key, T), r in fam.items():
+        print(f"  {fam_key} at T = {T}: kernel {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}), plain twin {r['plain_ms']:.1f} ms"
+              + (f"; kernel C's SES {r['smooth_ms']:.3f} ms, the HPA launch "
+                 f"{r['launch_ms']:.3f} ms" if fam_key == "hpa" else ""), flush=True)
     for r in rows:
         # no single PyTorch call computes any of these functions (torch.sort,
         # timed beside kernel G, computes only its order statistics)

@@ -180,6 +180,37 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 struct NanMax {
   __device__ float operator()(float a, float b) const { return nan_max(a, b); }
 };
+// jnp.minimum, likewise.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+
+// Every thread passes K values and gets the block's K totals, with one pair
+// of barriers for all K (K times the warps must fit the Scratch's 256
+// slots). The order of the additions is fixed, so a row sums the same way
+// in every launch.
+template <int K>
+__device__ void block_sum_n(double (&v)[K], Scratch& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = int(blockDim.x >> 5);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_down_sync(0xffffffffu, v[k], o);
+  }
+  double* w = s.as<double>();
+  __syncthreads();  // the previous call's readers are done with the slots
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[warp * K + k] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double r = w[k];
+    for (int i = 1; i < nw; ++i) r += w[i * K + k];
+    v[k] = r;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Causal time-based moving average (the reference's _moving_average_1d).

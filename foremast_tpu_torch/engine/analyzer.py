@@ -9,7 +9,12 @@ into job statuses. Verdict semantics are the reference's:
     kernel A through ``parallel.fleet.score_pairs``), and the forecast band
     over history ++ current (the band family, ``ops.forecast.forecast_band``:
     kernel B under moving_average*, the seasonal kernels under the other
-    univariate algorithms);
+    univariate algorithms; jobs with exactly two judgeable metrics go to the
+    bivariate-normal ellipse, kernel H through ``ops.bivariate``);
+  * hpa jobs are scored, never judged: kernel C's SES predictions of the
+    traffic and kernel I's score (``ops.hpa.hpa_from_preds``), gated by the
+    breath cooldowns, go out as an hpalog and the
+    ``namespace_app_per_pod:hpa_score`` series each cycle;
   * fail-fast: completed_unhealth the moment an anomaly is seen; otherwise
     healthy jobs re-queue each cycle until endTime;
   * insufficient data by endTime -> completed_unknown;
@@ -21,10 +26,10 @@ family runs its plain twin; without a card it raises. A CUDA launch either
 runs its kernel or raises, and a failure goes to the per-job retry path on
 the same device, never to the CPU.
 
-Not in this slice (ROADMAP.md): the bivariate, LSTM and HPA families (a job
-routed to one fails scoring with NotImplementedError, never a healthy
-verdict), provenance, SLOs, the flight recorder and health monitor, load
-shedding, stale-verdict serving, quarantine and sharding.
+Not in this slice (ROADMAP.md): the LSTM family (a job routed to it fails
+scoring with NotImplementedError, never a healthy verdict), provenance,
+SLOs, the flight recorder and health monitor, load shedding, stale-verdict
+serving, quarantine and sharding.
 """
 from __future__ import annotations
 
@@ -46,7 +51,9 @@ from ..dataplane.promql import (
     STRATEGY_HPA,
     materialize_placeholders,
 )
+from ..ops import bivariate as bv
 from ..ops import forecast as fc
+from ..ops import hpa as hpa_ops
 from ..ops.windowing import MAX_WINDOW_STEPS, Window, bucket_length
 from ..parallel import fleet as fl
 from ..resilience.policy import Deadline
@@ -67,8 +74,7 @@ class WatchdogTimeout(Exception):
     whole cycle."""
 
 
-NOT_PORTED = ("the bivariate, LSTM and HPA families are not ported yet "
-              "(ROADMAP queue 1, items 6 and 7)")
+NOT_PORTED = "the LSTM autoencoder family is not ported yet (ROADMAP queue 1, item 7)"
 
 
 def _not_ported(*_args, **_kwargs):
@@ -164,6 +170,47 @@ def _concat_trimmed(hist: Window, cur: Window):
     return vals, mask, h_vals.shape[0]
 
 
+def _joint_grid(hists: list, curs: list):
+    """Stack a job's metrics onto one shared concat grid.
+
+    Residual length skew between the metrics is resolved by trimming every
+    series to the common length: current windows are HEAD-trimmed, so
+    concat index n_h + j maps to each current window's own index j, and
+    history keeps its tail. Returns (values (F, T), masks (F, T), n_h,
+    n_c)."""
+    n_c = min(c.values.shape[0] for c in curs)
+    n_c = min(n_c, MAX_WINDOW_STEPS)
+    n_h = min(h.values.shape[0] for h in hists)
+    n_h = min(n_h, MAX_WINDOW_STEPS - n_c)
+    vals, masks = [], []
+    for h, c in zip(hists, curs):
+        hv = h.values[-n_h:] if n_h else h.values[:0]
+        hm = h.mask[-n_h:] if n_h else h.mask[:0]
+        vals.append(np.concatenate([hv, c.values[:n_c]]))
+        masks.append(np.concatenate([hm, c.mask[:n_c]]))
+    return np.stack(vals), np.stack(masks), n_h, n_c
+
+
+def _pod_count_stats(win, split_ts: float):
+    """(pods_now, pods_hist) from a ready-pod-count Window, or None.
+
+    `split_ts` is the start of the job's current window, so the recent /
+    older split is the region / history split of the score. Single-sided
+    data falls back to the other side."""
+    if win is None or win.n_valid == 0:
+        return None
+    t = win.start + np.arange(win.values.shape[0]) * win.step
+    recent = win.mask & (t >= split_ts)
+    older = win.mask & ~recent
+    n_now = float(win.values[recent].mean()) if recent.any() else None
+    n_hist = float(win.values[older].mean()) if older.any() else None
+    if n_now is None and n_hist is None:
+        return None
+    n_now = n_hist if n_now is None else n_now
+    n_hist = n_now if n_hist is None else n_hist
+    return (max(n_now, 1e-6), max(n_hist, 1e-6))
+
+
 def _concat_ts(cur: Window, n_h: int, j: int) -> float:
     """Translate a concat-grid index onto the CURRENT window's own time grid
     (history is tail-kept, current head-kept, so concat index n_h + k is
@@ -191,8 +238,26 @@ PAIR_SPECS = (("baseline", _F32, "T"), ("b_mask", _BOOL, "T"), ("current", _F32,
 BAND_SPECS = (("x", _F32, "T"), ("mask", _BOOL, "T"), ("region", _BOOL, "T"),
               ("threshold", _F32, None), ("bound_mode", _I32, None),
               ("min_lower_bound", _F32, None))
+BI_SPECS = (("x1", _F32, "T"), ("m1", _BOOL, "T"), ("x2", _F32, "T"), ("m2", _BOOL, "T"),
+            ("region", _BOOL, "T"), ("threshold", _F32, None), ("mlb1", _F32, None),
+            ("mlb2", _F32, None), ("bm1", _I32, None), ("bm2", _I32, None))
+# the HPA launch: kernel C's SES on `hist` (tps_mask & ~region, packed on the
+# host so that no torch op runs between the two kernels), then kernel I
+HPA_SPECS = (("tps", _F32, "T"), ("tps_mask", _BOOL, "T"), ("hist", _BOOL, "T"),
+             ("region", _BOOL, "T"), ("sla", _F32, "T"), ("sla_mask", _BOOL, "T"),
+             ("alpha", _F32, None), ("sla_static_limit", _F32, None), ("sla_mode", _I32, None),
+             ("threshold", _F32, None), ("safe", _F32, None), ("pods_now", _F32, None),
+             ("pods_hist", _F32, None), ("sla_absolute", _BOOL, None))
 PAIR_OUTPUTS = ("unhealthy", "min_p", "pairwise_unhealthy", "band_unhealthy", "band_count")
 BAND_OUTPUTS = ("count", "first_index", "checked", "upper", "lower", "flags")
+BI_OUTPUTS = ("count", "first_index", "checked", "flags", "upper1", "lower1", "upper2",
+              "lower2")
+HPA_OUTPUTS = ("score", "reason", "current_tps", "tps_upper", "tps_lower", "sla_current",
+               "sla_limit", "pods_now", "demand_per_pod")
+HPA_REASONS = {hpa_ops.REASON_PREDICTED_TREND: "predicted trend",
+               hpa_ops.REASON_ANOMALY_TREND: "anomaly trend",
+               hpa_ops.REASON_SLA_VIOLATION: "SLA violation",
+               hpa_ops.REASON_SLA_HEADROOM: "SLA headroom"}
 
 
 @dataclass
@@ -211,6 +276,10 @@ class Analyzer:
         self.store = store
         self.exporter = exporter or VerdictExporter()
         self.device = resolve_device(device)
+        # restart-safe cooldowns: armed breath timers come back from the
+        # store's snapshot, written at every cycle's end
+        self.breath = hpa_ops.BreathState()
+        self.breath.load(store.get_state("breath") or {})
         # pinned host buffers and the one stream the engine's copies and
         # launches run on (engine/staging.py)
         self.staging = Staging(self.device)
@@ -266,14 +335,27 @@ class Analyzer:
         from the entry: every window's full identity, the policy, and the T
         bucket. Config is absent — it is frozen for the analyzer's lifetime,
         and the memo dies with the analyzer."""
-        it = entry
         if family == "pair":
+            it = entry
             return ((it.job_id, it.metric, "pair"),
                     _fp(b"pair", T, it.metric, it.baseline, it.current,
                         it.policy))
-        return ((it.job_id, it.metric, "band"),
-                _fp(b"band", T, it.metric, it.historical, it.current,
-                    it.policy))
+        if family == "band":
+            it = entry
+            return ((it.job_id, it.metric, "band"),
+                    _fp(b"band", T, it.metric, it.historical, it.current,
+                        it.policy))
+        if family == "bivariate":
+            it = entry[0]  # (item, joint-grid prep)
+            return ((it.job_id, "&".join(it.metrics), "bivariate"),
+                    _fp(b"bi", T, it.metrics, *it.hist, *it.cur,
+                        *it.policies))
+        job_id, t, s = entry  # hpa row
+        return (job_id,
+                _fp(b"hpa", T, t.metric, t.historical, t.current,
+                    t.is_increase, t.priority, t.is_absolute, t.pod_window,
+                    s.metric, s.historical, s.current, s.is_increase,
+                    s.priority, s.is_absolute))
 
     # ------------------------------------------------------------------ fetch
     def _fetch_window(self, url: str, now: float) -> Window | None:
@@ -714,12 +796,246 @@ class Analyzer:
             self.config.band_violation_fraction * float(checked),
         )
 
-    # the families of later slices: routing stays the reference's, scoring
+    # ---------------------------------------------------- bivariate family
+    @staticmethod
+    def _bi_prep(it: _BiItem):
+        """((x, m, n_h, n_c) joint grid, T bucket) for one bivariate item."""
+        pre = _joint_grid(list(it.hist), list(it.cur))
+        return pre, bucket_length(pre[0].shape[1])
+
+    def _launch_bivariate(self, entries: list, T: int):
+        """entries: [(item, joint-grid prep)]. Packs each pair's joint grid
+        and queues one kernel H launch per chunk."""
+
+        def pack(h, lo, hi):
+            for j, (it, (x, m, n_h, _n_c)) in enumerate(entries[lo:hi]):
+                _put_row(h["x1"], h["m1"], j, x[0], m[0])
+                _put_row(h["x2"], h["m2"], j, x[1], m[1])
+                h["region"][j] = False
+                h["region"][j, n_h:x.shape[1]] = True
+                p1, p2 = it.policies
+                # the pair shares one ellipse: the stricter (smaller) radius
+                h["threshold"][j] = min(p1.threshold, p2.threshold)
+                h["mlb1"][j], h["mlb2"][j] = p1.min_lower_bound, p2.min_lower_bound
+                h["bm1"][j], h["bm2"][j] = p1.bound, p2.bound
+
+        def launch(d):
+            return bv.bivariate_rows(*(d[name] for name, _, _ in BI_SPECS), device=self.device)
+
+        launches = self._launch_chunks("bivariate", T, len(entries), BI_SPECS, pack, launch,
+                                       BI_OUTPUTS)
+        return (entries, launches)
+
+    def _collect_bivariate(self, state) -> dict:
+        entries, launches = state
+        out = self._collect_chunks(launches)
+        results = {}
+        counts = out["count"].tolist()
+        firsts = out["first_index"].tolist()
+        checked = out["checked"].tolist()
+        flags = out["flags"]
+        bands = {k: out[k] for k in ("upper1", "lower1", "upper2", "lower2")}
+        for i, (it, (x, m, n_h, n_c)) in enumerate(entries):
+            cur0 = it.cur[0]
+            first = firsts[i]
+            anomaly_pairs = []
+            for j in np.nonzero(flags[i])[0][:50]:
+                # values from the job's joint grid, not the packed buffer
+                anomaly_pairs += [_concat_ts(cur0, n_h, int(j)), float(x[0, int(j)])]
+
+            def region_mean(k):
+                # the band is one value per row: its mean over the region,
+                # as the reference averages its (B, T) broadcast there
+                return float(np.mean(np.full(x.shape[1] - n_h, bands[k][i], np.float32)))
+
+            results[(it.job_id, "&".join(it.metrics), "bivariate")] = {
+                "count": counts[i],
+                "unhealthy": counts[i] >= self._gate(checked[i]),
+                "first_ts": _concat_ts(cur0, n_h, first) if first >= 0 else -1.0,
+                "anomaly_pairs": anomaly_pairs,
+                "bounds": {
+                    it.metrics[0]: (region_mean("upper1"), region_mean("lower1")),
+                    it.metrics[1]: (region_mean("upper2"), region_mean("lower2")),
+                },
+            }
+        return results
+
+    def _score_bivariate(self, items: list[_BiItem]):
+        """Joint 2-metric scoring: one kernel H launch per bucket rung."""
+        results = {}
+        by_bucket: dict[int, list] = {}
+        for it in items:
+            pre, T = self._bi_prep(it)
+            by_bucket.setdefault(T, []).append((it, pre))
+        for T, entries in by_bucket.items():
+            results.update(self._collect_bivariate(self._launch_bivariate(entries, T)))
+        return results
+
+    # the LSTM family is a later slice: routing stays the reference's, scoring
     # raises, so such a job fails scoring (per-job retry, then its strategy's
     # failure status) and is never judged healthy
-    _bi_prep = _hpa_rows = _launch_bivariate = _launch_hpa = staticmethod(_not_ported)
-    _collect_bivariate = _collect_hpa = staticmethod(_not_ported)
-    _score_bivariate = _score_multi = _score_hpa = staticmethod(_not_ported)
+    _score_multi = staticmethod(_not_ported)
+
+    # ---------------------------------------------------------- hpa family
+    @staticmethod
+    def _hpa_rows(items: list[_HpaItem]) -> list:
+        """[(job_id, tps_item, sla_item)]: the primary (lowest priority)
+        metric drives the traffic model; an SLA metric (is_increase and
+        priority > 0) the reward, else any secondary, else the primary."""
+        by_job: dict[str, list[_HpaItem]] = {}
+        for it in items:
+            by_job.setdefault(it.job_id, []).append(it)
+        rows = []
+        for job_id, group in by_job.items():
+            group.sort(key=lambda it: it.priority)
+            tps_it = group[0]
+            sla_candidates = [it for it in group[1:] if it.is_increase]
+            if sla_candidates:
+                sla_it = sla_candidates[0]
+            else:
+                sla_it = group[1] if len(group) > 1 else group[0]
+            rows.append((job_id, tps_it, sla_it))
+        return rows
+
+    @staticmethod
+    def _hpa_row_T(row) -> int:
+        """Pack-length bucket of one HPA row: the larger of its own tps and
+        sla concat lengths."""
+        return max(
+            bucket_length(min(it.historical.values.shape[0] + it.current.values.shape[0],
+                              MAX_WINDOW_STEPS))
+            for it in (row[1], row[2])
+        )
+
+    def _score_hpa(self, items: list[_HpaItem]):
+        out = {}
+        by_bucket: dict[int, list] = {}
+        for row in self._hpa_rows(items):
+            by_bucket.setdefault(self._hpa_row_T(row), []).append(row)
+        for T, bucket_rows in by_bucket.items():
+            out.update(self._collect_hpa(self._launch_hpa(bucket_rows, T)))
+        return out
+
+    def _launch_hpa(self, rows, T: int):
+        """Pack one bucket of HPA rows and queue, per chunk, kernel C's SES
+        of the traffic over its history (alpha 0.3) and kernel I's score
+        from those predictions, with no torch op between them."""
+        cfg = self.config
+        # per-job SLA criteria: the mode from ML_SLA_MODE, the limit from the
+        # SLA metric's policy (sla_limit{N}), else ML_SLA_LIMIT; a static or
+        # min mode with no limit configured degrades to dynamic
+        mode_cfg = {"static": hpa_ops.SLA_STATIC, "min": hpa_ops.SLA_MIN}.get(
+            cfg.sla_mode, hpa_ops.SLA_DYNAMIC)
+        n = len(rows)
+        limits, modes = [0.0] * n, [0] * n
+        absolutes, pods = [True] * n, [(1.0, 1.0)] * n
+        had_pods = [False] * n
+        for i, (_job_id, tps_it, sla_it) in enumerate(rows):
+            lim = cfg.policy_for(sla_it.metric).sla_limit
+            if lim <= 0.0:
+                lim = cfg.sla_limit
+            if lim <= 0.0:
+                limits[i], modes[i] = 1e9, hpa_ops.SLA_DYNAMIC
+            else:
+                limits[i], modes[i] = lim, mode_cfg
+            # absolute unless the fleet opts into relative limits; a wire
+            # isAbsolute=true pins the metric absolute either way
+            absolutes[i] = sla_it.is_absolute or not cfg.sla_limit_relative
+            # pod counts split at the job's own current-window start
+            pc = _pod_count_stats(tps_it.pod_window, tps_it.current.start)
+            if pc is not None:
+                pods[i] = pc
+                had_pods[i] = True
+
+        def pack(h, lo, hi):
+            for j, (_job_id, tps_it, sla_it) in enumerate(rows[lo:hi]):
+                tv, tm, n_h = _concat_trimmed(tps_it.historical, tps_it.current)
+                sv, sm, _ = _concat_trimmed(sla_it.historical, sla_it.current)
+                _put_row(h["tps"], h["tps_mask"], j, tv, tm)
+                _put_row(h["sla"], h["sla_mask"], j, sv, sm)
+                # one region for both series: the traffic's current window
+                h["region"][j] = False
+                h["region"][j, n_h:tv.shape[0]] = True
+                np.logical_and(h["tps_mask"][j], ~h["region"][j], out=h["hist"][j])
+                i = lo + j
+                h["sla_static_limit"][j] = limits[i]
+                h["sla_mode"][j] = modes[i]
+                h["sla_absolute"][j] = absolutes[i]
+                h["pods_now"][j], h["pods_hist"][j] = pods[i]
+            m = hi - lo
+            h["alpha"][:m] = 0.3
+            h["threshold"][:m] = cfg.threshold
+            h["safe"][:m] = cfg.sla_headroom_safe
+
+        def launch(d):
+            preds = fc._smooth(fc.ALGO_SES, d["tps"], d["hist"], d["alpha"])
+            return hpa_ops.hpa_from_preds(
+                d["tps"], d["tps_mask"], d["region"], preds, d["sla"], d["sla_mask"],
+                d["sla_static_limit"], d["sla_mode"], d["threshold"], d["safe"],
+                d["pods_now"], d["pods_hist"], d["sla_absolute"], device=self.device)
+
+        launches = self._launch_chunks("hpa", T, n, HPA_SPECS, pack, launch, HPA_OUTPUTS)
+        return (rows, launches, had_pods)
+
+    def _collect_hpa(self, state) -> dict:
+        rows, launches, had_pods = state
+        res = self._collect_chunks(launches)
+        lists = {k: res[k].tolist() for k in HPA_OUTPUTS}
+        out: dict = {}
+        for i, (job_id, tps_it, sla_it) in enumerate(rows):
+            out[job_id] = {
+                "raw_score": float(lists["score"][i]),
+                "reason_code": int(lists["reason"][i]),
+                "tps_metric": tps_it.metric,
+                "sla_metric": sla_it.metric,
+                "current_tps": float(lists["current_tps"][i]),
+                "upper": float(lists["tps_upper"][i]),
+                "lower": float(lists["tps_lower"][i]),
+                "sla_current": float(lists["sla_current"][i]),
+                "sla_limit": float(lists["sla_limit"][i]),
+                "pods_now": float(lists["pods_now"][i]),
+                "demand_per_pod": float(lists["demand_per_pod"][i]),
+                "has_pod_data": had_pods[i],
+            }
+        return out
+
+    def _finish_hpa(self, st: _JobState, res, worker: str, now: float) -> str:
+        """One hpa job's cycle end: the breath-gated score as an hpalog and
+        the hpa_score series, then requeue (hpa jobs never terminate)."""
+        doc = st.doc
+        if res is None:
+            # no scoreable hpa window this cycle
+            self.store.requeue(doc.id, worker=worker)
+            return J.INITIAL
+        gated = self.breath.apply(doc.id, res["raw_score"], now=now)
+        reason = (
+            f"hpa score {gated:.1f} (raw {res['raw_score']:.1f}) via "
+            f"{HPA_REASONS.get(res['reason_code'], '?')} on {res['tps_metric']}"
+        )
+        if res.get("has_pod_data"):
+            # per-pod context rides the free-form reason; details stay
+            # {current, upper, lower} band entries
+            reason += (
+                f" [per-pod: {res['pods_now']:.1f} pods, "
+                f"demand/pod {res['demand_per_pod']:.1f}]"
+            )
+        self.store.add_hpalog(
+            J.HpaLog(
+                job_id=doc.id,
+                hpascore=gated,
+                reason=reason,
+                details=[
+                    {"metricType": res["tps_metric"], "current": res["current_tps"],
+                     "upper": res["upper"], "lower": res["lower"]},
+                    {"metricType": res["sla_metric"], "current": res["sla_current"],
+                     "upper": res["sla_limit"], "lower": 0.0},
+                ],
+                timestamp=now,
+            )
+        )
+        self.exporter.record_hpa_score(doc.app_name, doc.namespace, gated)
+        self.store.requeue(doc.id, worker=worker)
+        return J.INITIAL
 
     def run_cycle(self, worker: str = "worker-0", now: float | None = None) -> dict:
         """One engine cycle. Returns {job_id: new_status} for observability."""
@@ -855,7 +1171,7 @@ class Analyzer:
                           bands=len(all_bands), bis=len(all_bis),
                           multis=len(all_multis), hpas=len(all_hpas)):
             if pipe is not None:
-                (pair_res, band_res, _bi_res, _multi_res, _hpa_res,
+                (pair_res, band_res, bi_res, _multi_res, hpa_res,
                  scoring_failed) = pipe.finish()
                 for k, v in pipe.stage_seconds.items():
                     stages[k] += v
@@ -875,9 +1191,9 @@ class Analyzer:
 
                 pair_res, pair_bad = timed("pair", self._score_pairs, all_pairs)
                 band_res, band_bad = timed("band", self._score_bands, all_bands)
-                _, bi_bad = timed("bivariate", self._score_bivariate, all_bis)
+                bi_res, bi_bad = timed("bivariate", self._score_bivariate, all_bis)
                 _, multi_bad = timed("lstm", self._score_multi, all_multis)
-                _, hpa_bad = timed("hpa", self._score_hpa, all_hpas)
+                hpa_res, hpa_bad = timed("hpa", self._score_hpa, all_hpas)
                 scoring_failed = {**pair_bad, **band_bad, **bi_bad,
                                   **multi_bad, **hpa_bad}
                 stages["collect"] += sum(fam_seconds.values())
@@ -918,6 +1234,26 @@ class Analyzer:
                         r["anomaly_pairs"],
                     )
                 )
+        for it in all_bis:
+            r = bi_res.get((it.job_id, "&".join(it.metrics), "bivariate"))
+            if r is None:
+                continue
+            st = live[it.job_id]
+            st.judged_any = True
+            for metric, (upper, lower) in r["bounds"].items():
+                self.exporter.record_bounds(
+                    st.doc.app_name, st.doc.namespace, metric,
+                    upper, lower, float(r["unhealthy"]),
+                )
+            if r["unhealthy"]:
+                st.unhealthy.append(
+                    (
+                        "&".join(it.metrics),
+                        f"{r['count']} points outside the joint "
+                        f"bivariate-normal ellipse from ts {r['first_ts']:.0f}",
+                        r["anomaly_pairs"],
+                    )
+                )
 
         for job_id, st in live.items():
             doc = st.doc
@@ -935,6 +1271,9 @@ class Analyzer:
                     self.store.transition(
                         job_id, J.ABORT, reason=reason, worker=worker)
                     outcomes[job_id] = J.ABORT
+                continue
+            if doc.strategy == STRATEGY_HPA:
+                outcomes[job_id] = self._finish_hpa(st, hpa_res.get(job_id), worker, now)
                 continue
             try:
                 end_time = from_rfc3339(doc.end_time)
@@ -1057,5 +1396,6 @@ class Analyzer:
             "megabatch": mega_cycle,
             "watchdog_fires": self.watchdog_fires_total - wd_cycle0,
         }
+        self.store.put_state("breath", self.breath.export())
         self.store.flush()
         return outcomes

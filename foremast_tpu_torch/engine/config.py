@@ -10,8 +10,8 @@ A copy of the reference's ``engine/config.py`` cut to the fields the port
 reads, with the same environment variables and defaults. The knobs of
 layers the port has not taken over yet (delta fetch, provenance, SLOs, the
 flight recorder, retries and breakers, load shedding, stale serving,
-quarantine, the compile cache, the seasonal-trend forecaster, the LSTM and
-HPA families) are not fields here: `from_env` raises NotImplementedError,
+quarantine, the compile cache, the seasonal-trend forecaster, the LSTM
+family) are not fields here: `from_env` raises NotImplementedError,
 naming the ROADMAP item, when one of them is set to anything but the
 reference's default, so no deployment silently runs without a layer it
 asked for.
@@ -29,6 +29,11 @@ class MetricPolicy:
     threshold: float = 2.0  # band half-width in sigmas
     bound: int = 1  # bitmask: 1 upper, 2 lower, 3 both
     min_lower_bound: float = 0.0
+    # static SLA limit when this metric plays the HPA reward role; 0 =
+    # unset, inherit ML_SLA_LIMIT. Absolute on the metric's scale or a
+    # multiple of the healthy historical mean, per the wire isAbsolute flag
+    # and ML_SLA_LIMIT_RELATIVE.
+    sla_limit: float = 0.0
 
 
 # deployed defaults (foremast-brain.yaml:34-73)
@@ -202,6 +207,20 @@ class EngineConfig:
     # near-zero-variance error metrics, so noisy metrics need the gate.
     band_min_points: int = 2
     band_violation_fraction: float = 0.1
+    # HPA reward shaping (SLA_HEADROOM_SAFE): below this SLA-budget
+    # utilization scale-down is fully model-driven; between it and 1.0 the
+    # reward ramps scale-down off (ops/hpa.py)
+    sla_headroom_safe: float = 0.7
+    # SLA criteria of the HPA reward (ML_SLA_MODE): "static" fixed limit,
+    # "dynamic" mean + 3 sigma of the healthy history, "min" the smaller.
+    # A static or min mode with no limit configured (ML_SLA_LIMIT or the
+    # metric's sla_limit{N}) degrades to dynamic for that job.
+    sla_mode: str = "dynamic"  # ML_SLA_MODE
+    sla_limit: float = 0.0  # ML_SLA_LIMIT (0 = unset)
+    # False: limits are absolute values on the metric's scale (latency
+    # ms); True: metrics the wire does not flag isAbsolute read the limit
+    # as a multiple of the healthy historical mean (ML_SLA_LIMIT_RELATIVE)
+    sla_limit_relative: bool = False
     # per-cycle fetch deadline: retries (and their backoff sleeps) must
     # finish inside this budget so a flapping backend cannot stretch the
     # cycle past its cadence. 0 disables.
@@ -284,7 +303,6 @@ def _env_str(env, key, default):
 
 
 _NOT_PORTED_WHY = {
-    6: "the HPA family's SLA reward is not ported yet (ROADMAP queue 1, item 6)",
     7: "the LSTM autoencoder family is not ported yet (ROADMAP queue 1, item 7)",
     8: "this layer of the engine is not ported yet (ROADMAP queue 1, item 8)",
     11: "the seasonal-trend forecaster is not ported yet (ROADMAP queue 2, item 11)",
@@ -304,10 +322,6 @@ _NOT_PORTED = {
     "LSTM_LATENT": (_env_int, 16, 7),
     "LSTM_THRESHOLD": (_env_float, 3.0, 7),
     "LSTM_MAX_TRAIN_PER_CYCLE": (_env_int, 8, 7),
-    "SLA_HEADROOM_SAFE": (_env_float, 0.7, 6),
-    "ML_SLA_MODE": (_env_str, "dynamic", 6),
-    "ML_SLA_LIMIT": (_env_float, 0.0, 6),
-    "ML_SLA_LIMIT_RELATIVE": (_env_bool, False, 6),
     "RETRY_MAX_ATTEMPTS": (_env_int, 3, 8),
     "RETRY_BASE_DELAY": (_env_float, 0.2, 8),
     "RETRY_MAX_DELAY": (_env_float, 5.0, 8),
@@ -347,9 +361,8 @@ def from_env(env=None) -> EngineConfig:
             threshold=_env_float(env, f"threshold{i}", base.threshold),
             bound=_env_int(env, f"bound{i}", base.bound),
             min_lower_bound=_env_float(env, f"min_lower_bound{i}", base.min_lower_bound),
+            sla_limit=_env_float(env, f"sla_limit{i}", 0.0),
         )
-        if _env_float(env, f"sla_limit{i}", 0.0) != 0.0:
-            raise NotImplementedError(f"sla_limit{i}: {_NOT_PORTED_WHY[6]}")
     for key, (parse, default, item) in _NOT_PORTED.items():
         if parse(env, key, default) != default:
             raise NotImplementedError(f"{key}: {_NOT_PORTED_WHY[item]}")
@@ -396,6 +409,10 @@ def from_env(env=None) -> EngineConfig:
         hw_alias_margin=_env_float(env, "HW_ALIAS_MARGIN", 0.05),
         hw_contrast_margin=_env_float(env, "HW_CONTRAST_MARGIN", 0.01),
         multimetric_auto=_env_bool(env, "ML_MULTIMETRIC_AUTO", True),
+        sla_headroom_safe=_env_float(env, "SLA_HEADROOM_SAFE", 0.7),
+        sla_mode=env.get("ML_SLA_MODE", "dynamic").strip().lower(),
+        sla_limit=_env_float(env, "ML_SLA_LIMIT", 0.0),
+        sla_limit_relative=_env_bool(env, "ML_SLA_LIMIT_RELATIVE", False),
         fetch_cycle_deadline_seconds=_env_float(env, "FETCH_CYCLE_DEADLINE", 8.0),
         watchdog_seconds=_env_float(env, "WATCHDOG_S", 0.0),
         policies=policies,

@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import time
 
+import torch
+
 from ..kernels import build as kernel_build
 from ..utils import tracing
 
@@ -351,7 +353,8 @@ class CyclePipeline:
 
 
 # ---------------------------------------------------------------- prewarm
-def prewarm(config=None, families=("pair", "band", "triage"), device=None) -> dict:
+def prewarm(config=None, families=("pair", "band", "bivariate", "hpa", "triage"),
+            device=None) -> dict:
     """Build the kernel library and launch each kernel of the enabled
     families once, at a small shape, through the real entry points — so the
     first live cycle neither builds nor pays a first launch. Returns the
@@ -360,7 +363,9 @@ def prewarm(config=None, families=("pair", "band", "triage"), device=None) -> di
     seconds."""
     from .. import kernels
     from .._device import resolve_device
+    from ..ops import bivariate as bv
     from ..ops import forecast as fc
+    from ..ops import hpa as hpa_ops
     from ..ops import triage as triage_ops
     from ..parallel import fleet as fl
     from .config import EngineConfig, from_env
@@ -383,11 +388,17 @@ def prewarm(config=None, families=("pair", "band", "triage"), device=None) -> di
     if "band" in families:
         fc.forecast_band(x, m, region, thr, bnd, mlb, algorithm=cfg.algorithm,
                          ma_window=cfg.ma_window, device=dev)
+    if "bivariate" in families:
+        bv.bivariate_rows(x, m, x, m, region, thr, mlb, mlb, bnd, bnd, device=dev)
+    if "hpa" in families:
+        # the engine's HPA launch: kernel C's SES, then kernel I
+        xt, mt, rt, tt = (torch.from_numpy(a).to(dev) for a in (x, m, region, thr))
+        preds = fc.ses_predictions(xt, mt & ~rt, 0.3, device=dev)
+        mode = torch.full((16,), hpa_ops.SLA_DYNAMIC, dtype=torch.int32, device=dev)
+        hpa_ops.hpa_from_preds(xt, mt, rt, preds, xt, mt, tt, mode, tt, device=dev)
     if "triage" in families:
         triage_ops.screen_rows(x, m, region, thr, bnd, mlb, mg, cfg.ma_window, device=dev)
     if dev.type == "cuda":
-        import torch
-
         torch.cuda.synchronize(dev)
     return {
         "families": list(families),

@@ -14,13 +14,18 @@
 - Kernel G, `triage_screen` (``csrc/triage.cu``), runs the tier-0 triage
   screen: band counts under the policy band and a shrunk band, and the
   robust z of each row's current region.
+- Kernel H, `bivariate` (``csrc/bivariate.cu``), judges B metric pairs
+  under the bivariate-normal ellipse of their joint history.
+- Kernel I, `hpa_score` (``csrc/hpa.cu``), scores B HPA rows from their
+  traffic predictions, with sigma given or computed from the history.
 
 Each launcher checks device, dtype, shape and contiguity, allocates the
 outputs (and the scratch a kernel needs), launches on PyTorch's current
 stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch. They take CUDA tensors only; the entry
 points (``parallel.fleet.score_pairs``, ``ops.forecast``,
-``ops.seqscan``, ``ops.triage``) send CPU tensors to the plain twins.
+``ops.seqscan``, ``ops.triage``, ``ops.bivariate``, ``ops.hpa``) send CPU
+tensors to the plain twins.
 """
 from __future__ import annotations
 
@@ -31,8 +36,9 @@ import torch
 from . import build
 
 __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_preds",
-           "smooth", "hw_fit", "affine_scan", "detect_period", "triage_screen", "MAX_PAIR_T",
-           "SHARED_PAIR_T", "MAX_BAND_T", "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_CANDIDATES",
+           "smooth", "hw_fit", "affine_scan", "detect_period", "triage_screen", "bivariate",
+           "hpa_score", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T", "MAX_PERIOD_T",
+           "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "PAIR_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
@@ -46,6 +52,10 @@ MAX_SCREEN_T = 16384
 # kernel F keeps 5 B per slot (residual, mask) in shared memory
 MAX_PERIOD_T = 16384
 MAX_CANDIDATES = 16
+# kernel H stages 9 B per slot (two floats, a byte of flags) in shared memory
+MAX_BI_T = 16384
+# kernel I stages 13 B per slot (three floats, a byte of masks)
+MAX_HPA_T = 16384
 # kernel D runs two candidates per lane of a warp
 MAX_GRID = 64
 
@@ -54,6 +64,11 @@ SMOOTH_SES, SMOOTH_DES, SMOOTH_HW = 1, 2, 3
 # kernel G's outputs, in the order its C entry takes them
 SCREEN_INT_OUTPUTS = ("count", "shrunk_count", "checked", "n_hist")
 SCREEN_FLOAT_OUTPUTS = ("upper_mean", "lower_mean", "resid_z", "robust_z", "sigma")
+# kernel H's (B,) outputs after flags and d2, and kernel I's, in C order
+BI_INT_OUTPUTS = ("count", "first_index", "checked")
+BI_BAND_OUTPUTS = ("upper1", "lower1", "upper2", "lower2")
+HPA_OUTPUTS = ("score", "reason", "demand", "demand_per_pod", "pods_now", "current_tps",
+               "sla_current", "sla_limit", "tps_pred", "tps_upper", "tps_lower")
 
 # device scratch that kernels A (T > SHARED_PAIR_T), C (HW) and D may hold
 # at once; each bounds the CTAs or warps in flight to stay under it
@@ -64,7 +79,8 @@ PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans"
                "mw_kw_ks", "exact_tails", "gates_band")
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
-            "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0}
+            "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
+            "bivariate": 0, "hpa_score": 0}
 
 
 def reset_launches() -> None:
@@ -442,4 +458,97 @@ def triage_screen(x, mask, region, window: int, threshold, bound_mode, min_lower
             ctypes.c_void_p(stream))
     _raise_on(rc, "triage_screen", lib)
     launches["triage_screen"] += 1
+    return out
+
+
+def _opt(t):
+    return None if t is None else _ptr(t)
+
+
+def bivariate(x1, m1, x2, m2, region, threshold, min_lower_bound1=None,
+              min_lower_bound2=None, bound_mode1=None, bound_mode2=None):
+    """Launch kernel H: the bivariate-normal ellipse of B metric pairs.
+    Returns flags (B, T) bool, d2 (B, T) float32, count, first_index,
+    checked (B,) int32 and the marginal bands upper1, lower1, upper2,
+    lower2 as (B,) float32 (constant in t). A bound floor or bound mode
+    left out is absent, as in the reference."""
+    B, T = x1.shape
+    dev = x1.device
+    if not 1 <= T <= MAX_BI_T:
+        raise ValueError(f"bivariate supports 1 <= T <= {MAX_BI_T}; got T = {T}")
+    named = [(x1, "x1", torch.float32, (B, T)), (m1, "m1", torch.bool, (B, T)),
+             (x2, "x2", torch.float32, (B, T)), (m2, "m2", torch.bool, (B, T)),
+             (region, "region", torch.bool, (B, T)), (threshold, "threshold", torch.float32, (B,))]
+    for t, name, dt in ((min_lower_bound1, "min_lower_bound1", torch.float32),
+                        (min_lower_bound2, "min_lower_bound2", torch.float32),
+                        (bound_mode1, "bound_mode1", torch.int32),
+                        (bound_mode2, "bound_mode2", torch.int32)):
+        if t is not None:
+            named.append((t, name, dt, (B,)))
+    for t, name, dt, shape in named:
+        _check(t, name, dt, shape, dev)
+    out = {"flags": torch.empty((B, T), dtype=torch.bool, device=dev),
+           "d2": torch.empty((B, T), dtype=torch.float32, device=dev)}
+    out.update({k: torch.empty(B, dtype=torch.int32, device=dev) for k in BI_INT_OUTPUTS})
+    out.update({k: torch.empty(B, dtype=torch.float32, device=dev) for k in BI_BAND_OUTPUTS})
+    if B == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_bivariate(
+            _ptr(x1), _ptr(m1), _ptr(x2), _ptr(m2), _ptr(region), _ptr(threshold),
+            _opt(min_lower_bound1), _opt(min_lower_bound2), _opt(bound_mode1),
+            _opt(bound_mode2), B, T, _ptr(out["flags"]), _ptr(out["d2"]),
+            *(_ptr(out[k]) for k in BI_INT_OUTPUTS + BI_BAND_OUTPUTS), ctypes.c_void_p(stream))
+    _raise_on(rc, "bivariate", lib)
+    launches["bivariate"] += 1
+    return out
+
+
+def hpa_score(tps, tps_mask, region, tps_pred, sla, sla_mask, sla_static_limit, sla_mode,
+              threshold, *, tps_sigma=None, safe=None, pods_now=None, pods_hist=None,
+              sla_absolute=None):
+    """Launch kernel I: the HPA scores of B rows. With tps_sigma ((B,)
+    float32) it is the reference's hpa_scores; without it, it first takes
+    sigma as the RMS residual of tps_pred over tps_mask & ~region (+inf
+    below 2 points) and returns it too, as "tps_sigma". Returns the (B,)
+    outputs of HPA_OUTPUTS (reason int32, the rest float32)."""
+    B, T = tps.shape
+    dev = tps.device
+    if not 1 <= T <= MAX_HPA_T:
+        raise ValueError(f"hpa_score supports 1 <= T <= {MAX_HPA_T}; got T = {T}")
+    named = [(tps, "tps", torch.float32, (B, T)), (tps_mask, "tps_mask", torch.bool, (B, T)),
+             (region, "region", torch.bool, (B, T)), (tps_pred, "tps_pred", torch.float32, (B, T)),
+             (sla, "sla", torch.float32, (B, T)), (sla_mask, "sla_mask", torch.bool, (B, T)),
+             (sla_static_limit, "sla_static_limit", torch.float32, (B,)),
+             (sla_mode, "sla_mode", torch.int32, (B,)),
+             (threshold, "threshold", torch.float32, (B,))]
+    for t, name, dt in ((tps_sigma, "tps_sigma", torch.float32), (safe, "safe", torch.float32),
+                        (pods_now, "pods_now", torch.float32),
+                        (pods_hist, "pods_hist", torch.float32),
+                        (sla_absolute, "sla_absolute", torch.bool)):
+        if t is not None:
+            named.append((t, name, dt, (B,)))
+    for t, name, dt, shape in named:
+        _check(t, name, dt, shape, dev)
+    out = {k: torch.empty(B, dtype=torch.int32 if k == "reason" else torch.float32, device=dev)
+           for k in HPA_OUTPUTS}
+    if tps_sigma is None:
+        out["tps_sigma"] = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    lib = build.library()
+    common = (_ptr(tps), _ptr(tps_mask), _ptr(region), _ptr(tps_pred))
+    rest = (_ptr(sla), _ptr(sla_mask), _ptr(sla_static_limit), _ptr(sla_mode), _ptr(threshold),
+            _opt(safe), _opt(pods_now), _opt(pods_hist), _opt(sla_absolute), B, T,
+            *(_ptr(out[k]) for k in HPA_OUTPUTS))
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if tps_sigma is None:
+            rc = lib.fm_hpa_from_preds(*common, *rest, _ptr(out["tps_sigma"]), stream)
+        else:
+            rc = lib.fm_hpa_scores(*common, _ptr(tps_sigma), *rest, stream)
+    _raise_on(rc, "hpa_score", lib)
+    launches["hpa_score"] += 1
     return out

@@ -124,6 +124,12 @@ def _declare(lib):
     lib.fm_detect_period.restype = I
     lib.fm_triage_screen.argtypes = [P] * 7 + [I, I, I] + [P] * 9 + [P]
     lib.fm_triage_screen.restype = I
+    lib.fm_bivariate.argtypes = [P] * 10 + [I, I] + [P] * 9 + [P]
+    lib.fm_bivariate.restype = I
+    lib.fm_hpa_scores.argtypes = [P] * 14 + [I, I] + [P] * 11 + [P]
+    lib.fm_hpa_scores.restype = I
+    lib.fm_hpa_from_preds.argtypes = [P] * 13 + [I, I] + [P] * 12 + [P]
+    lib.fm_hpa_from_preds.restype = I
     lib.fm_error_string.argtypes = [I]
     lib.fm_error_string.restype = ctypes.c_char_p
 

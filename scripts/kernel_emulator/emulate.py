@@ -185,6 +185,7 @@ def self_check() -> int:
     expect("ma_band", all(torch.equal(k[q], p[q]) for q in ("count", "checked", "flags", "preds")),
            "counts, flags and predictions")
     import chip_smoke as cs
+    from foremast_tpu_torch.ops import bivariate as bv
     from foremast_tpu_torch.ops import triage as tr
 
     saved_dev, cs.DEV = cs.DEV, "cpu"
@@ -194,6 +195,30 @@ def self_check() -> int:
         e, bracketed = cs.compare_triage(a, k, tr.screen_rows_plain(*a, cs.TRIAGE_WINDOW))
         expect(f"triage_screen T={T}", e <= 1e-4,
                f"statistics |err| {e:.3g}, {bracketed} rows bracketed at a band edge")
+    for T in (64, 300):
+        a = cs.adversarial_bivariate(48, T, g)
+        try:
+            e, bracketed = cs.compare_bivariate(a, kernels.bivariate(*a),
+                                                bv.bivariate_normal_anomalies_plain(*a))
+            expect(f"bivariate T={T}", True,
+                   f"bands |err| {e:.3g}, {bracketed} rows bracketed at the ellipse's edge")
+        except AssertionError as e:
+            expect(f"bivariate T={T}", False, str(e))
+        a = cs.adversarial_hpa(48, T, g)
+        for sigma in (True, False):
+            for optional in (True, False):
+                kw = {k: a[k] for k in cs.HPA_OPTIONAL} if optional else {}
+                if sigma:
+                    kw["tps_sigma"] = a["tps_sigma"]
+                name = (f"hpa_score T={T} sigma {'given' if sigma else 'computed'}, optional "
+                        f"arguments {'given' if optional else 'left out'}")
+                try:
+                    errs, bracketed = cs.compare_hpa(a, kernels.hpa_score(*cs.hpa_series(a), **kw),
+                                                     sigma, optional)
+                    expect(name, True, f"score |err| {errs['score']:.3g}, {bracketed} rows "
+                                       f"bracketed at a decision edge")
+                except AssertionError as e:
+                    expect(name, False, str(e))
     cs.DEV = saved_dev
     kernels.SCRATCH_BYTES = 3 * 16384 * 16  # three CTAs walk the pairs
     for T in (64, 4100):

@@ -25,6 +25,13 @@ of bucket 16384): one torch.profiler trace of `forecast_band` per
 algorithm, with the device time of each kernel and of PyTorch's own
 operations, and the card's idle share (1 - device busy time / host wall
 time of the call).
+
+--families times the bivariate and hpa families on chip_smoke.py's
+100,000-row inputs at each of its buckets (2048 and 16384): kernel H and
+kernel I alone (median of 20 by CUDA events), and one torch.profiler trace
+of the engine's HPA launch (kernel C's SES on the history, then kernel I's
+hpa_from_preds): the device time of each kernel and of anything else on the
+card between them, and the card's idle share over the launch.
 """
 import argparse
 import importlib.util
@@ -166,10 +173,66 @@ def seasonal_split():
     return out
 
 
+def families_split():
+    """Kernels H and I alone, and the HPA launch under torch.profiler, on
+    chip_smoke's family inputs at each bucket."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+    from foremast_tpu_torch.ops import hpa as hp
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    out = {}
+    for T, n_h in cs.FAMILY_SHAPES:
+        args, _ = cs.bivariate_family_inputs(gen, T, n_h)
+        h_ms = cs.median_ms(lambda: kernels.bivariate(*args), cs.TIMED_RUNS)
+        del args
+        torch.cuda.empty_cache()
+        a, _ = cs.hpa_family_inputs(gen, T, n_h)
+        rest = [a[k] for k in ("sla", "sla_mask", "sla_static_limit", "sla_mode", "threshold",
+                               "safe", "pods_now", "pods_hist", "sla_absolute")]
+
+        def launch():
+            preds = fc.ses_predictions(a["tps"], a["hist"], a["alpha"], device=cs.DEV)
+            return hp.hpa_from_preds(a["tps"], a["tps_mask"], a["region"], preds, *rest,
+                                     device=cs.DEV)
+
+        launch()  # warm
+        tp = fc.ses_predictions(a["tps"], a["hist"], a["alpha"], device=cs.DEV)
+        i_ms = cs.median_ms(lambda: kernels.hpa_score(
+            a["tps"], a["tps_mask"], a["region"], tp, *rest[:5], safe=rest[5],
+            pods_now=rest[6], pods_hist=rest[7], sla_absolute=rest[8]), cs.TIMED_RUNS)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            launch()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        device = sorted(((e.key, _device_us(e) / 1e3, e.count) for e in prof.key_averages()
+                         if getattr(e, "device_type", None) == DeviceType.CUDA),
+                        key=lambda r: -r[1])
+        busy = sum(ms for _, ms, _ in device)
+        print(f"  T = {T}: kernel H {h_ms:.3f} ms, kernel I {i_ms:.3f} ms (medians of "
+              f"{cs.TIMED_RUNS}); the HPA launch under torch.profiler: host wall {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}", flush=True)
+        for key, ms, n in device[:8]:
+            print(f"    {ms:9.3f} ms  x{n}  {key[:90]}", flush=True)
+        out[T] = {"bivariate_ms": h_ms, "hpa_score_ms": i_ms, "launch_wall_ms": wall,
+                  "launch_busy_ms": busy,
+                  "device_rows": [{"name": k, "ms": m, "calls": n} for k, m, n in device[:8]]}
+        del a, rest, tp
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true", help="split kernel A and the pass")
     p.add_argument("--seasonal", action="store_true", help="split the seasonal path instead")
+    p.add_argument("--families", action="store_true",
+                   help="time kernels H and I and profile the HPA launch instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
     if not torch.cuda.is_available():
@@ -177,6 +240,10 @@ def main():
     from foremast_tpu_torch.ops import forecast as fc
     from foremast_tpu_torch.parallel import fleet as fl
 
+    if opt.families:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "families": families_split()}), flush=True)
+        return
     if opt.seasonal:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "seasonal": seasonal_split()}), flush=True)

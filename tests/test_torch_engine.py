@@ -1,21 +1,29 @@
 """The port's engine cycle against the reference's, on the CPU.
 
-One fixture fleet (~48 jobs: canary pairs, bad canaries, continuous band
+One fixture fleet (~60 jobs: canary pairs, bad canaries, continuous band
 monitors, a level shift beyond the latency band, a borderline spike, a
 constant history, canary band jobs, thin and empty histories, expired
-canaries) runs through `foremast_tpu.engine.Analyzer` and the port's
+canaries; two-metric jobs judged under the bivariate ellipse, healthy, with
+a correlation break or a joint level shift; hpa jobs steady, surging,
+collapsing and violating their SLA, with and without a podCountURL, and one
+without history) runs through `foremast_tpu.engine.Analyzer` and the port's
 `Analyzer(device="cpu")` for two cycles with the same `now`, the windows
 advancing one step between them. The verdict digests must be equal, or a
 divergence report must explain every differing job: the constant-history
 job (the reference's float32 moving average gives it a sigma of float
 noise, ROADMAP queue 3), or a job whose status and anomaly agree and whose
-reason differs only in printed numbers within float noise.
+reason differs only in printed numbers within float noise. The hpalogs
+agree job by job: reason codes and gated scores equal, raw scores as
+printed (.1f) equal or one digit apart at a rounding edge, details to 1e-5
+relative.
 
 Port-only arms pin the cycle's contracts: triage on and off (three
-threshold arms), memo on and off, the pipeline and the barriered path,
-megabatch on and off each give one digest; a screen failure escalates its
-whole bucket; a job routed to a family not ported yet fails scoring with
-the named NotImplementedError and is never judged healthy.
+threshold arms, and the bivariate family opted in), memo on and off, the
+pipeline and the barriered path, megabatch on and off each give one
+digest; a screen failure escalates its whole bucket; a three-metric job,
+routed to the LSTM family, fails scoring with the named
+NotImplementedError and is never judged healthy. The reference's engine
+tests of the hpa family run on the port.
 """
 import json
 import re
@@ -23,6 +31,7 @@ import re
 import jax
 import numpy as np
 import pytest
+import torch
 
 from foremast_tpu import engine as jax_engine
 from foremast_tpu.dataplane.fetch import RawFixtureDataSource as JaxRawSource
@@ -30,7 +39,7 @@ from foremast_tpu.dataplane import VerdictExporter as JaxExporter
 from foremast_tpu.engine.jobs import verdict_digest as jax_digest
 from foremast_tpu_torch import engine as E
 from foremast_tpu_torch.dataplane import VerdictExporter
-from foremast_tpu_torch.dataplane.fetch import RawFixtureDataSource
+from foremast_tpu_torch.dataplane.fetch import FixtureDataSource, RawFixtureDataSource
 from foremast_tpu_torch.engine.analyzer import NOT_PORTED
 from foremast_tpu_torch.engine.jobs import verdict_digest
 from foremast_tpu_torch.engine.triage import TriageGate
@@ -61,6 +70,7 @@ class Fleet:
         self.series: dict = {}
         self.jobs: list = []
         self.shift: dict = {}
+        self.pairs: dict = {}  # first URL of a correlated pair -> its spec
         t0 = NOW - 400 * STEP
         rng = self.rng
 
@@ -76,8 +86,25 @@ class Fleet:
             return url
 
         def job(jid, strategy, metric, expired=False, **urls):
-            end = "" if strategy == "continuous" else to_rfc3339(NOW - 60 if expired else NOW + 3600)
-            self.jobs.append((jid, strategy, metric, end, urls))
+            end = ("" if strategy in ("continuous", "hpa")
+                   else to_rfc3339(NOW - 60 if expired else NOW + 3600))
+            metrics = metric if isinstance(metric, dict) else {metric: urls}
+            self.jobs.append((jid, strategy, metrics, end, self.pods.pop(jid, "")))
+
+        def add_pair(u1, u2, n, start, rho, shift=0.0, amp=1.0):
+            """Latency (level 50, sigma 5) and cpu (level 30, sigma 2),
+            correlated at rho, amplitude amp and a joint shift in sigmas:
+            the spec `advance` extends."""
+            z1 = rng.standard_normal(n)
+            z2 = rho * z1 + np.sqrt(1 - rho * rho) * rng.standard_normal(n)
+            ts = start + STEP * np.arange(n) + rng.uniform(0, 5, n)
+            for url, z, (mu, sig) in ((u1, z1, (50.0, 5.0)), (u2, z2, (30.0, 2.0))):
+                keep = rng.random(n) > 0.05
+                vals = mu + sig * (amp * z + shift)
+                self.series[url] = [ts[keep].tolist(), vals[keep].tolist()]
+            self.pairs[u1] = (u2, rho, shift, amp)
+
+        self.pods = {}
 
         for i in range(16):  # canary pairs, two bad
             rate = 5.0 if i < 2 else 0.5
@@ -109,6 +136,33 @@ class Fleet:
         h = add("u/thin/h", 12, t0, 20.0, 1.0)
         c = add("u/thin/c", 20, t0 + 12 * STEP, 20.0, 1.0)
         job("thin", "continuous", "latency", historical=h, current=c)
+        for i in range(6):  # two-metric jobs: the bivariate-normal family
+            rho = 0.8 + 0.03 * i
+            jid = f"bi-{i}"
+            h1, h2, c1, c2 = (f"u/{jid}/{m}/{r}" for r in ("h", "c") for m in ("lat", "cpu"))
+            add_pair(h1, h2, 200, t0, rho)
+            # a correlation break at 2.5 sigma stays inside each metric's own
+            # band (latency 10 sigma, cpu 5): only the ellipse sees it
+            add_pair(c1, c2, 32, t0 + 200 * STEP, -rho if i < 2 else rho,
+                     shift=4.0 if i == 2 else 0.0, amp=2.5 if i < 2 else 1.0)
+            job(jid, "canary" if i == 5 else "continuous",
+                {"latency": dict(historical=h1, current=c1),
+                 "cpu": dict(historical=h2, current=c2)})
+        for i, (tps, lat) in enumerate(((100, 5), (240, 5), (30, 5), (100, 15), (240, 5))):
+            jid = f"hpa-{i}"
+            th = add(f"u/{jid}/tps/h", 150, t0, 100.0, 3.0)
+            tc = add(f"u/{jid}/tps/c", 30, t0 + 150 * STEP, float(tps), 3.0)
+            lh = add(f"u/{jid}/lat/h", 150, t0, 5.0, 0.3)
+            lc = add(f"u/{jid}/lat/c", 30, t0 + 150 * STEP, float(lat), 0.3)
+            if i == 4:  # replicas already scaled 4 -> 9.6 for the surge
+                url = f"u/{jid}/pods"
+                self.series[url] = [(t0 + STEP * np.arange(180)).tolist(),
+                                    [4.0] * 150 + [9.6] * 30]
+                self.pods[jid] = url
+            job(jid, "hpa", {"tps": dict(historical=th, current=tc, priority=0),
+                             "latency": dict(historical=lh, current=lc, priority=1)})
+        c = add("u/hpa-nohist/c", 30, t0, 100.0, 3.0)
+        job("hpa-nohist", "hpa", "tps", current=c)  # no scoreable window
         c = add("u/expired/c", 30, t0, 0.5, 0, poisson=True)
         b = add("u/expired/b", 30, t0, 0.5, 0, poisson=True)
         job("expired", "canary", "http_errors_5xx", expired=True, baseline=b, current=c)
@@ -120,16 +174,26 @@ class Fleet:
     def docs(self, pkg):
         return [pkg.Document(id=jid, app_name=f"app-{jid}", namespace="parity",
                              strategy=strategy, start_time=to_rfc3339(NOW - 3600), end_time=end,
-                             metrics={metric: pkg.MetricQueries(**urls)})
-                for jid, strategy, metric, end, urls in self.jobs]
+                             metrics={m: pkg.MetricQueries(**q) for m, q in metrics.items()},
+                             pod_count_url=pods)
+                for jid, strategy, metrics, end, pods in self.jobs]
 
     def pages(self) -> dict:
         return {url: _body(ts, vals) for url, (ts, vals) in self.series.items()}
 
     def advance(self, cycle: int):
         rng = np.random.default_rng(SEED + 1000 * cycle)
+        for u1, (u2, rho, shift, amp) in self.pairs.items():
+            if not u1.endswith("/c"):
+                continue
+            z1 = rng.standard_normal()
+            z2 = rho * z1 + np.sqrt(1 - rho * rho) * rng.standard_normal()
+            for url, z, (mu, sig) in ((u1, z1, (50.0, 5.0)), (u2, z2, (30.0, 2.0))):
+                ts, vals = self.series[url]
+                ts.append(ts[-1] + STEP)
+                vals.append(float(mu + sig * (amp * z + shift)))
         for url, (ts, vals) in self.series.items():
-            if not url.endswith("/c") or not ts:
+            if not url.endswith("/c") or not ts or url not in self.shift:
                 continue
             level, sigma, shift, poisson = self.shift[url]
             v = (rng.poisson(level * STEP) / STEP if poisson
@@ -320,38 +384,37 @@ def test_cycle_records_and_exporter_surface_the_triage_counters():
 
 
 def test_families_not_ported_fail_scoring_by_name_and_are_never_judged_healthy():
+    """A three-metric job routes to the LSTM family (ROADMAP queue 1, item
+    7): it fails scoring with the named NotImplementedError, a canary is
+    aborted, a continuous job requeued, and neither is ever judged."""
     rng = np.random.default_rng(5)
     series = {}
-    for url, n in (("u/hpa/tps/h", 200), ("u/hpa/tps/c", 30), ("u/hpa/lat/h", 200),
-                   ("u/hpa/lat/c", 30), ("u/bi/a/h", 200), ("u/bi/a/c", 30),
-                   ("u/bi/b/h", 200), ("u/bi/b/c", 30)):
-        ts = NOW - 300 * STEP + STEP * np.arange(n)
-        series[url] = _body(ts, 20 + rng.standard_normal(n))
+    names = ("cpu", "memory", "latency")
+    for m in names:
+        for role, n in (("h", 200), ("c", 30)):
+            ts = NOW - 300 * STEP + STEP * np.arange(n)
+            series[f"u/lstm/{m}/{role}"] = _body(ts, 20 + rng.standard_normal(n))
+    metrics = {m: E.MetricQueries(current=f"u/lstm/{m}/c", historical=f"u/lstm/{m}/h")
+               for m in names}
     store = E.JobStore()
-    store.create(E.Document(id="hpa", app_name="a", strategy="hpa", start_time="", end_time="",
-                            metrics={"tps": E.MetricQueries(current="u/hpa/tps/c",
-                                                            historical="u/hpa/tps/h"),
-                                     "latency": E.MetricQueries(current="u/hpa/lat/c",
-                                                                historical="u/hpa/lat/h")}))
-    for jid, strategy in (("bi-canary", "canary"), ("bi-continuous", "continuous")):
+    for jid, strategy in (("lstm-canary", "canary"), ("lstm-continuous", "continuous")):
         store.create(E.Document(
             id=jid, app_name=jid, strategy=strategy, start_time="",
             end_time="" if strategy == "continuous" else to_rfc3339(NOW + 3600),
-            metrics={"cpu": E.MetricQueries(current="u/bi/a/c", historical="u/bi/a/h"),
-                     "memory": E.MetricQueries(current="u/bi/b/c", historical="u/bi/b/h")}))
+            metrics=metrics))
     for pipeline in (True, False):
         an = E.Analyzer(E.EngineConfig(score_pipeline=pipeline), RawFixtureDataSource(series),
                         store, device="cpu")
         an.run_cycle(worker="w", now=NOW)
-        for jid in ("hpa", "bi-canary", "bi-continuous"):
+        for jid in ("lstm-canary", "lstm-continuous"):
             doc = store.get(jid)
             assert doc.status not in (E.jobs.COMPLETED_HEALTH, E.jobs.COMPLETED_UNHEALTH), jid
             assert "NotImplementedError" in doc.reason and NOT_PORTED in doc.reason, jid
-        assert store.get("bi-canary").status == E.jobs.ABORT
-        assert store.get("hpa").status == E.jobs.INITIAL
-        store.create(E.Document(id="bi-canary", app_name="bi-canary", strategy="canary",
+        assert store.get("lstm-canary").status == E.jobs.ABORT
+        assert store.get("lstm-continuous").status == E.jobs.INITIAL
+        store.create(E.Document(id="lstm-canary", app_name="lstm-canary", strategy="canary",
                                 start_time="", end_time=to_rfc3339(NOW + 3600),
-                                metrics=store.get("bi-continuous").metrics))
+                                metrics=metrics))
 
 
 def test_the_analyzer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
@@ -366,7 +429,9 @@ def test_the_analyzer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 _OVERRIDES = {"ML_ALGORITHM": "holt_winters", "TRIAGE_MARGIN": "0.5", "MEGABATCH": "on",
               "HW_PERIOD_CANDIDATES": "60,1440", "metric_type_threshold_count": "1",
-              "metric_type0": "latency", "threshold0": "4", "bound0": "2"}
+              "metric_type0": "latency", "threshold0": "4", "bound0": "2",
+              "sla_limit0": "250", "ML_SLA_LIMIT": "3.5", "ML_SLA_LIMIT_RELATIVE": "1",
+              "SLA_HEADROOM_SAFE": "0.6"}
 
 
 @pytest.mark.parametrize("env", [{}, _OVERRIDES], ids=["defaults", "overrides"])
@@ -386,16 +451,357 @@ def test_from_env_reads_the_reference_s_variables_and_defaults(env):
     assert port.policies.keys() == ref.policies.keys()
     for k, pol in port.policies.items():
         ref_pol = ref.policies[k]
-        assert (pol.threshold, pol.bound, pol.min_lower_bound) == (
-            ref_pol.threshold, ref_pol.bound, ref_pol.min_lower_bound), k
+        assert (pol.threshold, pol.bound, pol.min_lower_bound, pol.sla_limit) == (
+            ref_pol.threshold, ref_pol.bound, ref_pol.min_lower_bound, ref_pol.sla_limit), k
 
 
 @pytest.mark.parametrize("key,value,item", [
     ("PROVENANCE", "0", "queue 1, item 8"), ("QUARANTINE_AFTER", "1", "queue 1, item 8"),
     ("DELTA_FETCH", "false", "queue 1, item 8"), ("CYCLE_DEADLINE_S", "5", "queue 1, item 8"),
-    ("LSTM_EPOCHS", "5", "queue 1, item 7"), ("ML_SLA_MODE", "static", "queue 1, item 6"),
-    ("sla_limit0", "250", "queue 1, item 6"), ("ST_ORDER", "2", "queue 2, item 11")])
+    ("LSTM_EPOCHS", "5", "queue 1, item 7"), ("SLO_HPA_S", "30", "queue 1, item 8"),
+    ("LSTM_WINDOW", "64", "queue 1, item 7"), ("ST_ORDER", "2", "queue 2, item 11")])
 def test_from_env_refuses_the_knobs_of_layers_not_ported(key, value, item):
     env = {key: value, "metric_type_threshold_count": "1", "metric_type0": "latency"}
     with pytest.raises(NotImplementedError, match=f"{key}: .*ROADMAP {item}"):
         E.from_env(env)
+
+
+# ------------------------------------------------- bivariate and hpa families
+_RAW = re.compile(r"raw (-?[0-9.]+|nan)\) via (.+?) on")
+
+
+def _hpa_logs(store, jid):
+    """(gated score, raw score, reason name, details) of each of a job's
+    hpalogs, oldest first."""
+    out = []
+    for log in reversed(store.hpalogs_for(jid)):
+        raw, why = _RAW.search(log.reason).groups()
+        out.append((log.hpascore, float(raw), why, log.details, log.reason))
+    return out
+
+
+def test_hpalogs_agree_with_the_reference_job_by_job(reference_run):
+    """Every hpa job writes one hpalog a cycle on both engines: gated
+    scores and reason codes equal, raw scores as printed (.1f) equal or one
+    digit apart at a rounding edge, details within 1e-5 relative, the
+    per-pod suffix on the same jobs."""
+    _, ref_store, _, _ = reference_run
+    _, store, _ = run_port(cycles=CYCLES)
+    hpa_jobs = [f"hpa-{i}" for i in range(5)]
+    for jid in hpa_jobs:
+        mine, theirs = _hpa_logs(store, jid), _hpa_logs(ref_store, jid)
+        assert len(mine) == len(theirs) == CYCLES, jid
+        for (g, raw, why, det, text), (g2, raw2, why2, det2, text2) in zip(mine, theirs):
+            assert g == g2 and why == why2, (jid, text, text2)
+            assert abs(raw - raw2) <= 0.1 + 1e-9, (jid, raw, raw2)
+            assert ("per-pod" in text) == ("per-pod" in text2) == (jid == "hpa-4")
+            for a, b in zip(det, det2):
+                assert a["metricType"] == b["metricType"]
+                for k in ("current", "upper", "lower"):
+                    assert abs(a[k] - b[k]) <= 1e-5 * max(abs(b[k]), 1.0), (jid, k, a, b)
+    assert not store.hpalogs_for("hpa-nohist")  # requeued without a log
+    assert store.get("hpa-nohist").status == E.jobs.INITIAL
+    assert store.get_state("breath") == ref_store.get_state("breath")
+    raws = {jid: _hpa_logs(store, jid)[-1][1] for jid in hpa_jobs}
+    assert 40 <= raws["hpa-0"] <= 60 and raws["hpa-1"] > 65 and raws["hpa-2"] < 50
+    assert raws["hpa-3"] >= 75 and 35 <= raws["hpa-4"] <= 65
+    assert _hpa_logs(store, "hpa-3")[-1][2] == "SLA violation"
+
+
+def test_two_metric_jobs_are_judged_under_the_ellipse():
+    """Under the default EngineConfig a two-metric job is judged by the
+    bivariate family: the correlation breaks and the joint shift are
+    unhealthy with the ellipse's reason, the healthy ones requeue, and the
+    exporter carries both metrics' bounds."""
+    an, store, _ = run_port(cycles=1)
+    for jid in ("bi-0", "bi-1", "bi-2"):
+        doc = store.get(jid)
+        assert doc.status == E.jobs.COMPLETED_UNHEALTH, (jid, doc.reason)
+        assert "joint bivariate-normal ellipse" in doc.reason
+        assert doc.anomaly["latency&cpu"]
+    for jid in ("bi-3", "bi-4", "bi-5"):
+        assert store.get(jid).status == E.jobs.INITIAL, store.get(jid).reason
+    text = an.exporter.render()
+    assert 'foremastbrain:cpu_upper{app="app-bi-3"' in text
+    assert "foremastbrain:namespace_app_per_pod:hpa_score" in text
+
+
+def test_triage_with_the_bivariate_family_opted_in_keeps_the_digest():
+    """TRIAGE_FAMILIES=band,bivariate gives the reference's digest under the
+    same opt-in, cycle for cycle. Against triage off it differs exactly on
+    the jobs whose anomaly stays inside both marginal bands (the two
+    correlation breaks and the 4-sigma joint shift): the reference
+    documents the opt-in as not verdict-safe for that reason
+    (engine/triage.py), and both engines clear them alike. Every other job
+    keeps its triage-off verdict."""
+    cfg = dict(triage=True, triage_families=("band", "bivariate"))
+    fleet = Fleet()
+    ref_store = jax_engine.JobStore()
+    for d in fleet.docs(jax_engine):
+        ref_store.create(d)
+    src = JaxRawSource()
+    ref = jax_engine.Analyzer(jax_engine.EngineConfig(**cfg), src, ref_store, JaxExporter())
+    ref_digests = []
+    for c in range(CYCLES):
+        src.pages = fleet.pages()
+        ref.run_cycle(worker="w", now=NOW + STEP * c)
+        ref_digests.append(jax_digest(ref_store))
+        fleet.advance(c)
+    _, off_store, _ = run_port(triage=False)
+    an, store, on = run_port(**cfg)
+    assert on == ref_digests
+    assert an.triage_cleared_total == ref.triage_cleared_total
+    assert an.triage_cleared_total.get("bivariate", 0) > 0
+    differ = {d.id for d in store.by_status(*E.jobs.OPEN_STATUSES, *E.jobs.TERMINAL_STATUSES)
+              if (d.status, d.reason) != (off_store.get(d.id).status, off_store.get(d.id).reason)}
+    assert differ == {"bi-0", "bi-1", "bi-2"}
+
+
+def test_static_sla_mode_and_limit_reach_the_hpa_launch(monkeypatch):
+    """ML_SLA_MODE=static with ML_SLA_LIMIT puts the limit and the static
+    mode into kernel I's inputs for every hpa row."""
+    from foremast_tpu_torch.ops import hpa as hpa_ops
+
+    seen = []
+    real = hpa_ops.hpa_from_preds
+
+    def spy(*args, **kwargs):
+        seen.append((args[6].clone(), args[7].clone()))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(hpa_ops, "hpa_from_preds", spy)
+    cfg = E.from_env({"ML_SLA_MODE": "static", "ML_SLA_LIMIT": "7.5"})
+    assert (cfg.sla_mode, cfg.sla_limit) == ("static", 7.5)
+    _, store, _ = run_port(cycles=1, **{f: getattr(cfg, f) for f in ("sla_mode", "sla_limit")})
+    limits = torch.cat([lim for lim, _ in seen])
+    modes = torch.cat([mode for _, mode in seen])
+    assert bool((limits == 7.5).all()) and bool((modes == hpa_ops.SLA_STATIC).all())
+    # hpa-3's latency ~15 is over a static 7.5, hpa-0's ~5 is not
+    assert _hpa_logs(store, "hpa-3")[-1][2] == "SLA violation"
+    assert _hpa_logs(store, "hpa-0")[-1][2] != "SLA violation"
+
+
+# The reference's engine tests of the hpa family (tests/test_engine.py and
+# tests/test_pipeline.py), on the port's Analyzer on the CPU.
+def _series(rng, level, n, spread=None):
+    spread = level * 0.1 + 0.01 if spread is None else spread
+    ts = np.arange(n) * STEP
+    return ts.tolist(), np.clip(rng.normal(level, spread, n), 0, None).tolist()
+
+
+def _mk_hpa_job(store, fixtures, job_id, *, tps_current=240.0, sla_current=5.0, pods=None,
+                sla_absolute=True):
+    """The reference's hpa job: history ~100 tps / ~5 latency over 90
+    steps, a 30-step current window, an optional pod-count series."""
+    rng = np.random.default_rng(5)
+    hist_ts, hist_v = _series(rng, 100.0, 90, spread=3.0)
+    cur_ts = [hist_ts[-1] + STEP + t for t in np.arange(30) * STEP]
+    cur_url, hist_url = f"http://prom/{job_id}/tps_cur", f"http://prom/{job_id}/tps_hist"
+    fixtures[hist_url] = (hist_ts, hist_v)
+    fixtures[cur_url] = (cur_ts, rng.normal(tps_current, 5, 30).tolist())
+    s_ts, s_v = _series(rng, 5.0, 90, spread=0.3)
+    sla_cur_url, sla_hist_url = f"http://prom/{job_id}/sla_cur", f"http://prom/{job_id}/sla_hist"
+    fixtures[sla_hist_url] = (s_ts, s_v)
+    fixtures[sla_cur_url] = (cur_ts, rng.normal(sla_current, 0.3, 30).tolist())
+    pod_url = ""
+    if pods is not None:
+        pod_url = f"http://prom/{job_id}/pods"
+        fixtures[pod_url] = (hist_ts + cur_ts, [pods[0]] * 90 + [pods[1]] * 30)
+    store.create(E.Document(
+        id=job_id, app_name=job_id, namespace="demo", strategy="hpa",
+        start_time="START_TIME", end_time="END_TIME", pod_count_url=pod_url,
+        metrics={"tps": E.MetricQueries(historical=hist_url, current=cur_url, priority=0),
+                 "latency": E.MetricQueries(historical=sla_hist_url, current=sla_cur_url,
+                                            priority=1, is_absolute=sla_absolute)}))
+    return float(cur_ts[-1] + STEP)
+
+
+def _port(cfg, fixtures, store, exporter=None):
+    return E.Analyzer(cfg, FixtureDataSource(fixtures), store, exporter, device="cpu")
+
+
+def test_hpa_job_emits_logs_and_requeues():
+    rng = np.random.default_rng(5)
+    fixtures, store, exporter = {}, E.JobStore(), VerdictExporter()
+    tps_url, sla_url = "http://prom/tps", "http://prom/sla"
+    hist_ts, hist_v = _series(rng, 100.0, 90, spread=3.0)
+    cur_ts = [t + hist_ts[-1] + STEP for t in np.arange(30) * STEP]
+    fixtures[tps_url] = (hist_ts + list(cur_ts),
+                         hist_v + np.random.default_rng(1).normal(240, 5, 30).tolist())
+    fixtures[sla_url] = _series(rng, 5.0, 120, spread=0.3)
+    store.create(E.Document(
+        id="app:demo:hpa", app_name="app", namespace="demo", strategy="hpa",
+        start_time="START_TIME", end_time="END_TIME",
+        metrics={"tps": E.MetricQueries(historical=tps_url, current=tps_url, priority=0),
+                 "latency": E.MetricQueries(historical=sla_url, current=sla_url, priority=1)}))
+    out = _port(E.EngineConfig(), fixtures, store, exporter).run_cycle(now=0.0)
+    assert out["app:demo:hpa"] == E.jobs.INITIAL  # hpa jobs never terminate
+    logs = store.hpalogs_for("app:demo:hpa")
+    assert logs and logs[0].details[0]["metricType"] == "tps"
+    assert "foremastbrain:namespace_app_per_pod:hpa_score" in exporter.render()
+    assert logs[0].hpascore == 50.0  # the first cycle is breath-gated to 50
+
+
+def _raw_score(store, job_id):
+    return _hpa_logs(store, job_id)[0][1]
+
+
+def test_hpa_per_pod_score_absorbs_taken_scaleups():
+    fixtures, store = {}, E.JobStore()
+    now = _mk_hpa_job(store, fixtures, "nopods:demo:hpa")
+    _mk_hpa_job(store, fixtures, "pods:demo:hpa", pods=(4.0, 9.6))
+    _port(E.EngineConfig(), fixtures, store).run_cycle(now=now)
+    assert _raw_score(store, "nopods:demo:hpa") > 65
+    assert 35 <= _raw_score(store, "pods:demo:hpa") <= 65
+    podded = store.hpalogs_for("pods:demo:hpa")[0]
+    assert "[per-pod: 9.6 pods" in podded.reason
+    assert {d["metricType"] for d in podded.details} == {"tps", "latency"}
+    assert "per-pod" not in store.hpalogs_for("nopods:demo:hpa")[0].reason
+
+
+def test_hpa_sla_mode_static_env_plumbed():
+    fixtures, store = {}, E.JobStore()
+    now = _mk_hpa_job(store, fixtures, "app:demo:hpa", tps_current=100.0)
+    cfg = E.from_env({"ML_SLA_MODE": "static", "ML_SLA_LIMIT": "3.0"})
+    assert cfg.sla_mode == "static" and cfg.sla_limit == 3.0
+    _port(cfg, fixtures, store).run_cycle(now=now)
+    assert "SLA violation" in store.hpalogs_for("app:demo:hpa")[0].reason
+    fixtures2, store2 = {}, E.JobStore()
+    now2 = _mk_hpa_job(store2, fixtures2, "app:demo:hpa", tps_current=100.0)
+    _port(E.EngineConfig(), fixtures2, store2).run_cycle(now=now2)
+    assert "SLA violation" not in store2.hpalogs_for("app:demo:hpa")[0].reason
+
+
+def test_hpa_static_mode_without_limit_degrades_to_dynamic():
+    fixtures, store = {}, E.JobStore()
+    now = _mk_hpa_job(store, fixtures, "app:demo:hpa", tps_current=100.0)
+    _port(E.EngineConfig(sla_mode="static"), fixtures, store).run_cycle(now=now)
+    logs = store.hpalogs_for("app:demo:hpa")
+    assert logs and "SLA violation" not in logs[0].reason
+    sla_detail = [d for d in logs[0].details if d["metricType"] == "latency"]
+    assert sla_detail and sla_detail[0]["upper"] < 100
+
+
+def test_per_metric_sla_limit_env_override():
+    cfg = E.from_env({"metric_type_threshold_count": "1", "metric_type0": "latency",
+                      "sla_limit0": "250", "ML_SLA_MODE": "min"})
+    assert cfg.policy_for("namespace_app_pod_latency").sla_limit == 250.0
+    assert cfg.policy_for("error5xx").sla_limit == 0.0
+
+
+def test_relative_sla_limit_requires_explicit_opt_in():
+    fixtures, store = {}, E.JobStore()
+    now = _mk_hpa_job(store, fixtures, "app:demo:hpa", tps_current=100.0)
+    cfg = E.from_env({"ML_SLA_MODE": "static", "ML_SLA_LIMIT": "250"})
+    _port(cfg, fixtures, store).run_cycle(now=now)
+    sla_detail = [d for d in store.hpalogs_for("app:demo:hpa")[0].details
+                  if d["metricType"] == "latency"]
+    assert abs(sla_detail[0]["upper"] - 250.0) < 1e-3  # absolute, not 250 * mean
+    fixtures2, store2 = {}, E.JobStore()
+    now2 = _mk_hpa_job(store2, fixtures2, "app:demo:hpa", tps_current=100.0,
+                       sla_absolute=False)
+    cfg = E.from_env({"ML_SLA_MODE": "static", "ML_SLA_LIMIT": "3.0",
+                      "ML_SLA_LIMIT_RELATIVE": "1"})
+    _port(cfg, fixtures2, store2).run_cycle(now=now2)
+    logs = store2.hpalogs_for("app:demo:hpa")
+    assert "SLA violation" not in logs[0].reason  # 3x mean ~15 > current ~5
+    sla_detail = [d for d in logs[0].details if d["metricType"] == "latency"]
+    assert 10 < sla_detail[0]["upper"] < 20
+
+
+def test_garbage_pod_count_body_never_fails_the_job():
+    fixtures, store = {}, E.JobStore()
+    now = _mk_hpa_job(store, fixtures, "app:demo:hpa", pods=(4.0, 9.6))
+    fixtures["http://prom/app:demo:hpa/pods"] = (["<html>"], ["oops"])
+    out = _port(E.EngineConfig(), fixtures, store).run_cycle(now=now)
+    assert out["app:demo:hpa"] == E.jobs.INITIAL
+    logs = store.hpalogs_for("app:demo:hpa")
+    assert logs and "per-pod" not in logs[0].reason
+
+
+def test_hpa_fleet_with_heterogeneous_history_lengths():
+    fixtures, store = {}, E.JobStore()
+    now = _mk_hpa_job(store, fixtures, "short:demo:hpa")
+    rng = np.random.default_rng(9)
+    hist_ts, hist_v = _series(rng, 100.0, 700, spread=3.0)
+    cur_ts = [hist_ts[-1] + STEP + t for t in np.arange(30) * STEP]
+    fixtures["u/long/th"], fixtures["u/long/tc"] = (hist_ts, hist_v), (
+        cur_ts, rng.normal(240, 5, 30).tolist())
+    fixtures["u/long/sh"] = _series(rng, 5.0, 700, spread=0.3)
+    fixtures["u/long/sc"] = (cur_ts, rng.normal(5, 0.3, 30).tolist())
+    store.create(E.Document(
+        id="long:demo:hpa", app_name="long", namespace="demo", strategy="hpa",
+        start_time="START_TIME", end_time="END_TIME",
+        metrics={"tps": E.MetricQueries(historical="u/long/th", current="u/long/tc"),
+                 "latency": E.MetricQueries(historical="u/long/sh", current="u/long/sc",
+                                            priority=1)}))
+    an = _port(E.EngineConfig(), fixtures, store)
+    assert an.run_cycle(now=now) == {"short:demo:hpa": E.jobs.INITIAL,
+                                     "long:demo:hpa": E.jobs.INITIAL}
+    for job in ("short:demo:hpa", "long:demo:hpa"):
+        logs = store.hpalogs_for(job)
+        assert logs and 0.0 <= logs[0].hpascore <= 100.0
+    assert an.last_cycle_stages["family_launches"]["hpa"] == 2  # one bucket each
+
+
+def _win(rng, level, n, start, step=30):
+    from foremast_tpu_torch.ops.windowing import Window
+
+    return Window(rng.normal(level, level * 0.03, n).astype(np.float32), np.ones(n, bool),
+                  start, step)
+
+
+def test_hpa_bucket_scores_a_30s_step_job():
+    """A 30 s-step hpa job scores through _score_hpa (the reference pins its
+    step through pack_windows; the port packs the windows' values
+    directly, and the job's score comes out)."""
+    from foremast_tpu_torch.engine import analyzer as A
+
+    rng = np.random.default_rng(0)
+    an = _port(E.EngineConfig(), {}, E.JobStore())
+    items = [A._HpaItem("j30", "tps", _win(rng, 100.0, 90, 0), _win(rng, 100.0, 30, 2700),
+                        True, 0),
+             A._HpaItem("j30", "latency", _win(rng, 5.0, 90, 0), _win(rng, 5.0, 30, 2700),
+                        True, 1)]
+    out = an._score_hpa(items)
+    assert "j30" in out and 0.0 <= out["j30"]["raw_score"] <= 100.0
+
+
+class _WindowSource:
+    """Serves prebuilt grid Windows through the fetch_window fast path."""
+
+    def __init__(self, windows):
+        self.windows = windows
+
+    def fetch_window(self, url):
+        return self.windows[url]
+
+
+def test_hpa_e2e_30s_step_job_scores():
+    rng = np.random.default_rng(4)
+    windows = {"u/t/c": _win(rng, 100.0, 30, 9000), "u/t/h": _win(rng, 100.0, 300, 0),
+               "u/l/c": _win(rng, 5.0, 30, 9000), "u/l/h": _win(rng, 5.0, 300, 0)}
+    store = E.JobStore()
+    store.create(E.Document(
+        id="h30", app_name="a", namespace="n", strategy="hpa",
+        start_time=to_rfc3339(0.0), end_time=to_rfc3339(5_000_000.0),
+        metrics={"tps": E.MetricQueries(current="u/t/c", historical="u/t/h"),
+                 "latency": E.MetricQueries(current="u/l/c", historical="u/l/h", priority=1)}))
+    out = E.Analyzer(E.EngineConfig(), _WindowSource(windows), store,
+                     device="cpu").run_cycle(now=10_000.0)
+    assert out["h30"] == E.jobs.INITIAL
+    assert store.hpalogs_for("h30")
+
+
+def test_exporter_renders_bounds_and_hpa_scores_as_the_reference():
+    """record_bounds (per metric of a two-metric job) and record_hpa_score
+    render the same exposition lines in the port and the reference."""
+    def lines(exp):
+        exp.record_bounds("app-bi", "ns", "latency", 61.25, 38.5, 1.0)
+        exp.record_bounds("app-bi", "ns", "namespace_app_pod_cpu-usage", 33.0, 27.0, 0.0)
+        exp.record_hpa_score("app-hpa", "ns", 72.5)
+        return sorted(line for line in exp.render().splitlines()
+                      if "_upper" in line or "_lower" in line or "_anomaly" in line
+                      or "hpa_score" in line)
+
+    assert lines(VerdictExporter()) == lines(JaxExporter())

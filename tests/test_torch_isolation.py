@@ -60,6 +60,7 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "import foremast_tpu_torch.parallel.fleet, foremast_tpu_torch.ops.forecast\n"
         "import foremast_tpu_torch.ops.windowing, foremast_tpu_torch.kernels\n"
         "import foremast_tpu_torch.ops.seqscan, foremast_tpu_torch.ops.triage\n"
+        "import foremast_tpu_torch.ops.bivariate, foremast_tpu_torch.ops.hpa\n"
         "import foremast_tpu_torch.engine, foremast_tpu_torch.engine.triage\n"
         "import foremast_tpu_torch.engine.pipeline, foremast_tpu_torch.engine.staging\n"
         "import foremast_tpu_torch.dataplane, foremast_tpu_torch.native\n"
@@ -96,9 +97,22 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
                  lambda: tsq.des_predictions_assoc(x, m, 0.5, 0.1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    from foremast_tpu_torch.ops import bivariate as tbv
+    from foremast_tpu_torch.ops import hpa as thp
     from foremast_tpu_torch.ops import triage as ttr
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttr.screen_rows(x, m, ~m, *pol, np.zeros(2, np.float32), 5)
+    row = np.ones(2, np.float32)
+    mode = np.ones(2, np.int32)
+    for call in (lambda: tbv.bivariate_normal_anomalies(x, m, x, m, ~m, row),
+                 lambda: thp.hpa_scores(x, m, ~m, x, row, x, m, row, mode, row),
+                 lambda: thp.hpa_from_preds(x, m, ~m, x, x, m, row, mode, row)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    out = tbv.bivariate_normal_anomalies(x, m, x, m, ~m, row, device="cpu")
+    assert out["flags"].device.type == "cpu" and out["upper1"].shape == (2, 16)
+    out = thp.hpa_from_preds(x, m, ~m, x, x, m, row, mode, row, device="cpu")
+    assert out["score"].device.type == "cpu"
     out = tfl.score_pairs(*args, device="cpu")
     assert out["unhealthy"].device.type == "cpu"
     out = tfc.moving_average_band(x, m, ~m, 5, *pol, device="cpu")
@@ -133,8 +147,15 @@ def test_launchers_refuse_cpu_tensors():
         kernels.hw_fit(x, m, m, torch.full((2,), 4, dtype=torch.int32), torch.ones((60, 3)))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.triage_screen(x, m, ~m, 5, *pol, torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.bivariate(x, m, x, m, ~m, pol[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.hpa_score(x, m, ~m, x, x, m, pol[0], pol[1], pol[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.hpa_score(x, m, ~m, x, x, m, pol[0], pol[1], pol[0], tps_sigma=pol[0])
     assert set(kernels.launches) == {"pair_verdict", "ma_band", "band_from_preds", "smooth",
-                                     "hw_fit", "affine_scan", "detect_period", "triage_screen"}
+                                     "hw_fit", "affine_scan", "detect_period", "triage_screen",
+                                     "bivariate", "hpa_score"}
     assert all(n == 0 for n in kernels.launches.values())
 
 

@@ -1,4 +1,4 @@
-"""Kernels A to G against their plain twins, on the card.
+"""Kernels A to I against their plain twins, on the card.
 
 These need a CUDA device and nvcc; without them they skip. Run them on the
 card with `python -m pytest --noconftest tests/test_torch_kernels.py`. The
@@ -8,7 +8,12 @@ edge; the smoothers to 4 eps32 of a row's scale (the scans to the
 reference's own 1e-5 / 1e-4); the fit's errors to 1e-9 and its choice
 exactly; period scores to 1e-6 and periods exactly except within 1e-5 of a
 margin; the triage screen's counts exact except rows bracketed at a band
-edge, its statistics to 1e-5 (1e-4 for the z scores) relative.
+edge, its statistics to 1e-5 (1e-4 for the z scores) relative; kernel H's
+d2 to chip_smoke's bivariate_tolerance, its flags and counts exact but on
+rows bracketed at the ellipse's edge, its bands to 1e-5 relative plus the
+statistics' float32 noise; kernel I's reason codes exact and scores to
+1e-3 but on rows bracketed at a decision edge, its means to 1e-5 relative,
+the demand to 1e-4.
 """
 import numpy as np
 import pytest
@@ -189,13 +194,56 @@ def test_triage_screen_matches_twin(card, T):
     assert bool(torch.isfinite(kern["robust_z"][kind == 5]).all())  # NaN in history
 
 
+@pytest.mark.parametrize("optional", [True, False], ids=["optional", "core"])
+@pytest.mark.parametrize("T", [128, 1024, 2048, 16384])
+def test_bivariate_matches_twin(card, T, optional):
+    from foremast_tpu_torch.ops import bivariate as bv
+
+    gen = torch.Generator(device=card).manual_seed(T)
+    args = cs.adversarial_bivariate(384 if T < 16384 else 96, T, gen)
+    if not optional:
+        args = args[:6]
+    before = kernels.launches["bivariate"]
+    kern = bv.bivariate_normal_anomalies(*args)
+    assert kernels.launches["bivariate"] == before + 1
+    assert kern["upper1"].shape == (args[0].shape[0], T)
+    rows = {k: (v[:, 0].contiguous() if k in ("upper1", "lower1", "upper2", "lower2") else v)
+            for k, v in kern.items()}
+    plain = bv.bivariate_normal_anomalies_plain(*args)
+    torch.cuda.synchronize()
+    cs.compare_bivariate(args, rows, plain)
+
+
+@pytest.mark.parametrize("sigma", [True, False], ids=["sigma-given", "sigma-computed"])
+@pytest.mark.parametrize("T", [128, 1024, 2048, 16384])
+def test_hpa_score_matches_twin(card, T, sigma):
+    from foremast_tpu_torch.ops import hpa as hp
+
+    gen = torch.Generator(device=card).manual_seed(T)
+    a = cs.adversarial_hpa(384 if T < 16384 else 96, T, gen)
+    before = kernels.launches["hpa_score"]
+    s = cs.hpa_series(a)
+    opt = [a[k] for k in cs.HPA_OPTIONAL]
+    if sigma:
+        kern = hp.hpa_scores(*s[:4], a["tps_sigma"], *s[4:], *opt)
+    else:
+        kern = hp.hpa_from_preds(*s, *opt)
+    assert kernels.launches["hpa_score"] == before + 1
+    torch.cuda.synchronize()
+    errs, _ = cs.compare_hpa(a, kern, sigma)
+    assert errs["score"] <= 1e-3
+
+
 def test_engine_cycle_on_the_card_keeps_one_verdict_state(card, monkeypatch):
-    """A small chip_smoke engine fleet through the port's Analyzer on the
-    card: the pinned staging and pipelined launches must not change a
-    verdict. Every configuration on the card gives one digest per cycle
-    (triage off, memo off, the barriered path, megabatch, 16-row rungs), and
-    the card's verdicts are the twins': the same status and anomaly for
-    every job, reasons equal but for printed numbers within float noise."""
+    """A small chip_smoke engine fleet (canaries, band monitors, two-metric
+    monitors and hpa jobs) through the port's Analyzer on the card: the
+    pinned staging and pipelined launches must not change a verdict. Every
+    configuration on the card gives one digest per cycle (triage off, memo
+    off, the barriered path, megabatch, 16-row rungs), and the card's
+    verdicts are the twins': the same status and anomaly for every job,
+    reasons equal but for printed numbers within float noise; the hpalogs
+    the same gated scores and reason codes, raw scores as printed (.1f)
+    equal or one digit apart at a rounding edge."""
     import re
 
     from foremast_tpu_torch.dataplane.fetch import RawFixtureDataSource
@@ -204,6 +252,8 @@ def test_engine_cycle_on_the_card_keeps_one_verdict_state(card, monkeypatch):
 
     monkeypatch.setattr(cs, "ENGINE_CANARIES", 300)
     monkeypatch.setattr(cs, "ENGINE_CONTINUOUS", 200)
+    monkeypatch.setattr(cs, "ENGINE_BIVARIATE", 100)
+    monkeypatch.setattr(cs, "ENGINE_HPA", 60)
     fleet = cs.engine_fleet(np.random.default_rng(7))
 
     def run(device, **cfg):
@@ -217,14 +267,25 @@ def test_engine_cycle_on_the_card_keeps_one_verdict_state(card, monkeypatch):
             src.pages = fleet["pages"][c]
             an.run_cycle(worker="t", now=fleet["now"] + cs.STEP * c)
             digests.append(J.verdict_digest(store))
+        logs = {jid: sorted(store.hpalogs_for(jid), key=lambda log: log.timestamp)
+                for jid in fleet["hpa_class"]}
         return digests, {d.id: d for d in store.by_status(*J.OPEN_STATUSES,
-                                                          *J.TERMINAL_STATUSES)}
+                                                          *J.TERMINAL_STATUSES)}, logs
 
-    on_card, docs = run(card)
+    on_card, docs, logs = run(card)
     for cfg in ({"triage": False}, {"score_memo": False}, {"score_pipeline": False},
                 {"megabatch": True}, {"pipeline_fire_rows": 16}):
         assert run(card, **cfg)[0] == on_card, cfg
-    _, twin = run("cpu")
+    _, twin, twin_logs = run("cpu")
+    raw = re.compile(r"raw (-?[0-9.]+|nan)\) via (.+?) on")
+    for jid, mine in logs.items():
+        theirs = twin_logs[jid]
+        assert len(mine) == len(theirs) == cs.ENGINE_CYCLES, jid
+        for a, b in zip(mine, theirs):
+            (ra, wa), (rb, wb) = raw.search(a.reason).groups(), raw.search(b.reason).groups()
+            assert a.hpascore == b.hpascore and wa == wb, (jid, a.reason, b.reason)
+            # printed to .1f: equal, or one digit apart at a rounding edge
+            assert abs(float(ra) - float(rb)) <= 0.1 + 1e-9, (jid, a.reason, b.reason)
     num = re.compile(r"-?\d+(?:\.\d+)?(?:e[+-]?\d+)?")
     for jid, d in docs.items():
         t = twin[jid]

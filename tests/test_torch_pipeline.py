@@ -26,7 +26,7 @@ def test_rung_ladder_matches_the_reference(cap):
 def test_mega_classes_and_caps_match_the_reference():
     for n in list(range(1, 600, 7)) + [1000, 1500, 4096, 5000, 33333, 100_000]:
         assert Analyzer._mega_rows(n) == JaxAnalyzer._mega_rows(n), n
-    an = Analyzer(E.EngineConfig(megabatch_max_rows=40000), None, None, device="cpu")
+    an = Analyzer(E.EngineConfig(megabatch_max_rows=40000), None, E.JobStore(), device="cpu")
     ref = JaxAnalyzer.__new__(JaxAnalyzer)
     ref.config = an.config
     for T in (16, 128, 1024, 2048, 4096, 16384):
@@ -34,7 +34,7 @@ def test_mega_classes_and_caps_match_the_reference():
 
 
 def test_launch_chunks_pad_to_the_rung_with_the_last_row():
-    an = Analyzer(E.EngineConfig(score_batch=64), None, None, device="cpu")
+    an = Analyzer(E.EngineConfig(score_batch=64), None, E.JobStore(), device="cpu")
     seen = []
 
     def pack(h, lo, hi):
@@ -105,7 +105,7 @@ def test_build_counter_counts_builds_only(monkeypatch, tmp_path):
 
 def test_prewarm_on_the_cpu_runs_each_family_once_and_builds_nothing():
     out = prewarm(E.EngineConfig(), device="cpu")
-    assert out["families"] == ["pair", "band", "triage"]
+    assert out["families"] == ["pair", "band", "bivariate", "hpa", "triage"]
     assert out["builds"] == 0 and out["launches"] == {}  # twins: no kernel launched
     with pytest.raises(TypeError):
         prewarm(object(), device="cpu")
