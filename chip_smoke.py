@@ -5,7 +5,8 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
 nvcc and PyTorch built for CUDA. It imports nothing of JAX or of the JAX
-package. Phases, each printed as it ends; any failure exits non-zero:
+package. Phases, each printed as it starts with its wall time when it
+ends; any failure exits non-zero:
 
   1. build   compile csrc/*.cu for sm_90a (one nvcc per source, in parallel)
              and load the library;
@@ -30,6 +31,13 @@ package. Phases, each printed as it ends; any failure exits non-zero:
              and violating rows, the SLA at exactly `safe` and at the limit,
              base at exactly 50, a third of the region out of band, an empty
              region and one history point, with sigma given and computed;
+             kernel J at T in {128, 2048, 16384}, without and with the
+             engine's 12 hinges, on rows with no, one or a constant history,
+             a kink, a long gap, history shorter than one period, NaN / inf
+             at masked slots and periods from the candidates, the fallback
+             and 2; kernel K at (F, H, Z) in {(3, 32, 16), (4, 32, 16),
+             (8, 32, 16), (4, 128, 64)}, W = 32, on windows with gaps, fully
+             masked and with a masked head;
   4. pairs   the pair path at full size: 100,000 ErrorGenerator-style
              (baseline, canary) pairs at T = 128 through resample_to_grid ->
              pack_windows -> score_pairs on the card; every bad canary
@@ -43,10 +51,12 @@ package. Phases, each printed as it ends; any failure exits non-zero:
              bucket 16384, made on the card (40% daily cycle, 30% 8-hour
              shift cycle, 30% aperiodic with a trend, 5% lost scrapes, a
              +8 sigma level shift in 10% of the current windows), through
-             forecast_band under holt_winters, exponential_smoothing and
-             double_exponential; recall, false positives, planted-period
-             recovery, times and launches per algorithm; then each of its
-             kernels alone and its twin on the same inputs.
+             forecast_band under holt_winters, exponential_smoothing,
+             double_exponential and seasonal_trend (kernels F, J, B); recall,
+             false positives, planted-period recovery, times and launches per
+             algorithm; then each of its kernels alone and its twin on the
+             same inputs, and beside kernel J a Cholesky solve of the same
+             systems.
   7. families the bivariate and hpa families at full size: 100,000 rows
              made on the card at bucket 2048 (1 day of 60 s history) and
              16384 (7 days). Kernel H through bivariate_normal_anomalies on
@@ -57,7 +67,14 @@ package. Phases, each printed as it ends; any failure exits non-zero:
              hpa_from_preds) on steady, surging, collapsing and
              SLA-violating rows: each class on its side of 50 on 99% of its
              rows. Each kernel's time, bound and twin's time.
-  8. engine  the engine cycle at fleet size: 11,500 jobs (6,000 canaries
+  8. lstm    kernel K through the LSTM autoencoder's scoring entry
+             points: the reference-trained fixture (tests/data/lstm_ae_ref.npz)
+             against the reference's recorded z; the scoring pass of 100,000
+             jobs (the fixture's parameters, 4.87 GB) x 2 windows of 32 steps
+             x 4 metrics through anomaly_scores_fleet; the normalizer pass of
+             10,000 jobs x 45 windows (a day); the module's default width,
+             H = 128, Z = 64, on 10,000 jobs of seeded parameters (7.1 GB).
+  9. engine  the engine cycle at fleet size: 11,500 jobs (6,000 canaries
              with a 128-step baseline and current window of http_errors_5xx,
              4,000 continuous latency monitors with 1 day of history and 60
              current steps, 1,000 two-metric monitors, 10% of them with a
@@ -76,14 +93,17 @@ package. Phases, each printed as it ends; any failure exits non-zero:
              launch in each cycle and the screen clears rows, the second
              cycle builds nothing, and the same fleet with triage off (and
              again under torch.profiler, which gives the card's idle share by
-             host stage) ends with the same verdict digest.
+             host stage) ends with the same verdict digest. Then one cycle
+             under ML_ALGORITHM=seasonal_trend (kernels F, J, B in the band
+             family): every shifted monitor unhealthy, healthy ones flagged
+             under 1%, kernel J against its twin on the engine's rows.
 
 Kernel G (the triage screen) is held against its twin in phase 3, beside
 kernel B's ma_band on the 100,000 rows of phases 5 and 6 (equal counts but at
 band edges, shrunk count >= count) and alone at the engine's shape in phase 8.
 
-Each path (each algorithm of the seasonal phase, each family call, each
-engine cycle) resets
+Each path (each algorithm of the seasonal phase, each family call, the
+LSTM scoring pass, each engine cycle) resets
 the launch counters just before it runs and reads them just after: a kernel
 of the path that did not launch fails the run. The second-to-last line is a JSON object with each
 kernel's launches, error against its twin, times on the card and bound; the
@@ -93,6 +113,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -111,15 +132,25 @@ STEP = 60
 PAIRS, PAIR_T = 100_000, 128
 BAND_ROWS, BAND_HIST, BAND_CUR, BAND_T = 100_000, 512, 128, 1024
 SEASON_ROWS, SEASON_HIST, SEASON_CUR, SEASON_T = 100_000, 10_080, 60, 16384
-SEASON_ALGOS = ("holt_winters", "exponential_smoothing", "double_exponential")
+SEASON_ALGOS = ("holt_winters", "exponential_smoothing", "double_exponential", "seasonal_trend")
 TIMED_RUNS = 20
 SEASON_RUNS = 5
 CHECK_ROWS = 2048  # rows per kernel-vs-twin comparison
 SERIES_CHECK_ROWS = 256  # rows per smoother / fit comparison (the twins step in Python)
 
 
-def phase(name):
-    print(f"[{name}]", flush=True)
+_PHASE = {}
+
+
+def phase(name=None):
+    """Print the wall time of the phase that ends, then the name of the one
+    that starts (None: the last phase ends)."""
+    now = time.perf_counter()
+    if _PHASE:
+        print(f"  phase {_PHASE['name']}: {now - _PHASE['t0']:.1f} s wall", flush=True)
+    if name is not None:
+        print(f"[{name}]", flush=True)
+        _PHASE.update(name=name, t0=now)
 
 
 def check(ok, what):
@@ -1131,6 +1162,172 @@ def kernels_h_i_vs_twin(gen):
 
 
 # ---------------------------------------------------------------------------
+# kernels J and K vs their twins
+# ---------------------------------------------------------------------------
+ST_ORDER, ST_CHANGEPOINTS = 3, 12  # EngineConfig.st_order, st_changepoints
+ST_CHECK = ((128, 1024), (2048, 1024), (16384, 256))  # (T, rows)
+LSTM_W = 32  # EngineConfig.lstm_window
+LSTM_WIDTHS = ((3, 32, 16), (4, 32, 16), (8, 32, 16), (4, 128, 64))  # (F, H, Z)
+LSTM_CHECK_JOBS = 256
+LSTM_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                            "lstm_ae_ref.npz")
+
+
+def adversarial_st(B, T, gen):
+    """Seasonal-trend rows on the card, nine kinds: a cycle with a trend and
+    gaps, no valid point, one point, constant, a kinked trend, a long gap,
+    history shorter than one period, NaN and +inf at masked slots, a 2-step
+    cycle. Periods from the engine's candidates, the fallback
+    min(1440, T // 2) and 2; the fit (the history) is the first 7/8 of the
+    slots. Returns (x, mask, fit, period)."""
+    dev = DEV
+    kind = torch.arange(B, device=dev) % 9
+    t = torch.arange(T, device=dev, dtype=torch.float32)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    choices = torch.tensor(PERIOD_CANDIDATES + (min(1440, T // 2), 2), dtype=torch.int32,
+                           device=dev)
+    period = choices[torch.randint(0, len(choices), (B,), generator=gen, device=dev)]
+    period = torch.where(kind == 8, 2, period).to(torch.int32)
+    level = 20 + 80 * u(B, 1)
+    sigma = level / 20
+    x = (level + sigma * torch.randn((B, T), generator=gen, device=dev)
+         + 3 * sigma * torch.sin(2 * math.pi * t / period[:, None] + 6 * u(B, 1))
+         + (u(B, 1) - 0.5) * 4 * sigma * t / T)
+    x = x + torch.where((kind == 4)[:, None] & (t > T / 2), 8 * sigma * (t - T / 2) / T, 0.0)
+    m = u(B, T) > 0.05
+    m[kind == 1] = False
+    m[kind == 2] = t == T // 3
+    x[kind == 3] = 42.5
+    m[kind == 5] &= (t < T / 4) | (t > T / 2)
+    m &= ~((kind == 6)[:, None] & (t >= torch.clamp(period[:, None] // 2, min=2)))
+    hole = ~m & (kind == 7)[:, None]
+    x = torch.where(hole, torch.where(u(B, T) < 0.5, torch.nan, torch.inf), x)
+    fit = (t < T - T // 8).expand(B, T).contiguous()
+    return x.contiguous(), m.contiguous(), fit, period.contiguous()
+
+
+def st_ill_posed(sel, period, D):
+    """Rows whose fit rests on the ridge alone: fewer fitted points than
+    columns, or fitted points spanning less than one period."""
+    T = sel.shape[1]
+    t = torch.arange(T, device=sel.device)
+    first = torch.where(sel, t, T).amin(1)
+    last = torch.where(sel, t, -1).amax(1)
+    return (sel.sum(1) < D) | (last - first + 1 < period)
+
+
+def compare_st_fit(args, kern, plain, D):
+    """Kernel J against its twin: both sum the normal equations in float64
+    from the same float32 columns and solve them by float64 Cholesky, in
+    other orders. preds within 1e-5 of the row's scale, beta within 1e-4
+    of the row's largest |beta| (+1), on well-posed rows; preds within 1e-3
+    of the scale on ill-posed ones (st_ill_posed: condition numbers up to
+    ~1e9 turn float64 rounding, or an ulp of a sine where two math
+    libraries differ, into that). Returns (largest preds difference,
+    ill-posed rows)."""
+    x, m, fit, period = args
+    (kb, kp), (pb, pp) = kern, plain
+    check(bool(torch.isfinite(kp).all()), "st_fit preds not finite")
+    ill = st_ill_posed(m & fit, period, D)
+    scale = row_scale(x, m)
+    d = (kp.double() - pp.double()).abs().amax(1) / scale
+    check(bool((d[~ill] <= 1e-5).all()), f"st_fit preds differ by {float(d[~ill].max()):.3g} "
+                                         f"of the row's scale")
+    if bool(ill.any()):
+        check(bool((d[ill] <= 1e-3).all()), f"st_fit preds differ by {float(d[ill].max()):.3g} "
+                                            f"of the scale on an ill-posed row")
+    db = (kb.double() - pb.double()).abs().amax(1) / (pb.double().abs().amax(1) + 1.0)
+    check(bool((db[~ill] <= 1e-4).all()), f"st_fit beta differs by {float(db[~ill].max()):.3g}")
+    return max_abs_err(kp, pp), int(ill.sum())
+
+
+def kernel_j_vs_twin(gen):
+    """Kernel J against its twin on adversarial rows at T in {128, 2048,
+    16384}, without and with the engine's 12 hinge columns."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    for T, B in ST_CHECK:
+        args = adversarial_st(B, T, gen)
+        line = []
+        for C in (0, ST_CHANGEPOINTS):
+            D = 2 + C + 2 * ST_ORDER
+            kern = kernels.st_fit(*args, ST_ORDER, C, 1e-4, 3e-3, 3)
+            plain = fc.fit_seasonal_trend_plain(*args, ST_ORDER, 1e-4, C, 3e-3, 3)
+            err, ill = compare_st_fit(args, kern, plain, D)
+            line.append(f"C={C}: max |d preds| {err:.3g}, {ill} of {B} rows ill-posed")
+        torch.cuda.synchronize()
+        print(f"  st_fit T={T}: " + "; ".join(line), flush=True)
+
+
+def lstm_params(J, F, H, Z, gen):
+    """(J, P) parameters at flax's initial scales: input kernels N(0, 1 /
+    fan_in), recurrent kernels N(0, 1 / H) (flax: orthogonal), biases
+    N(0, 0.1^2) (flax: zeros), in the flat layout."""
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    parts = []
+    for name, shape in tl.param_shapes(F, H, Z).items():
+        fan = shape[0] if len(shape) == 2 else 100.0
+        parts.append(torch.randn((J, math.prod(shape)), generator=gen, device=DEV)
+                     / math.sqrt(fan))
+    return torch.cat(parts, 1).contiguous()
+
+
+def adversarial_lstm(J, K, F, H, Z, gen):
+    """J jobs of K windows (W = 32) on the card: values N(0, 1), 10% gaps,
+    every fifth job's first window fully masked, every job's second window
+    with a masked head (the engine's tail window); mu in [0, 0.5], sigma in
+    [0.05, 1.05]. Returns (params, x, mask, mu, sigma)."""
+    dev = DEV
+    x = torch.randn((J, K, LSTM_W, F), generator=gen, device=dev)
+    m = torch.rand((J, K, LSTM_W, F), generator=gen, device=dev) > 0.1
+    m[::5, 0] = False
+    m[:, 1, :LSTM_W // 4] = False
+    mu = 0.5 * torch.rand(J, generator=gen, device=dev)
+    sigma = 0.05 + torch.rand(J, generator=gen, device=dev)
+    return lstm_params(J, F, H, Z, gen), x.contiguous(), m.contiguous(), mu, sigma
+
+
+def compare_lstm(kern, plain, sigma):
+    """Kernel K against its twin: float32 products summed in other orders
+    through 2W recurrent steps, the error sums in float64 (the twin's in
+    float32). err within 1e-4 relative (+1e-7), z within that over sigma
+    plus 1e-5 relative. Returns the largest |d err|."""
+    (ke, kz), (pe, pz) = kern, plain
+    check(bool(torch.isfinite(ke).all() and torch.isfinite(kz).all()), "lstm_ae not finite")
+    de = (ke.double() - pe.double()).abs()
+    lim = 1e-4 * pe.double().abs() + 1e-7
+    check(bool((de <= lim).all()), f"lstm_ae errors differ by {float(de.max()):.3g}")
+    dz = (kz.double() - pz.double()).abs()
+    check(bool((dz <= lim / sigma.double()[:, None] + 1e-5 * (pz.double().abs() + 1)).all()),
+          f"lstm_ae z differs by {float(dz.max()):.3g}")
+    return float(de.max())
+
+
+def kernel_k_vs_twin(gen):
+    """Kernel K against its twin at (F, H, Z) in LSTM_WIDTHS, W = 32, on
+    adversarial windows (gaps, a fully masked window, a masked head)."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    for F, H, Z in LSTM_WIDTHS:
+        J, K = LSTM_CHECK_JOBS, 6
+        p, x, m, mu, sigma = adversarial_lstm(J, K, F, H, Z, gen)
+        err = compare_lstm(kernels.lstm_ae(p, x, m, H, Z, mu, sigma),
+                           tl.reconstruction_errors_plain(p, x, m, H, Z, mu, sigma), sigma)
+        empty = m[::5, 0].flatten(1).any(1).logical_not()
+        check(bool((kernels.lstm_ae(p, x, m, H, Z)[::5, 0][empty] == 0).all()),
+              "a fully masked window did not score 0")
+        torch.cuda.synchronize()
+        print(f"  lstm_ae F={F} H={H} Z={Z} ({tl.param_count(F, H, Z)} parameters a job): {J} "
+              f"jobs x {K} windows, max |d err| {err:.3g}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # the pair path at full size
 # ---------------------------------------------------------------------------
 def error_generator_windows(rng, n, rates, start, minutes):
@@ -1325,17 +1522,22 @@ BAND_MIN_POINTS, BAND_VIOLATION_FRACTION = 2, 0.1
 # The kernels each algorithm's forecast_band must launch.
 SEASON_KERNELS = {"holt_winters": ("detect_period", "hw_fit", "smooth", "band_from_preds"),
                   "exponential_smoothing": ("affine_scan", "band_from_preds"),
-                  "double_exponential": ("smooth", "band_from_preds")}
+                  "double_exponential": ("smooth", "band_from_preds"),
+                  "seasonal_trend": ("detect_period", "st_fit", "band_from_preds")}
 # Detection limits. DES is held to sanity bounds only: the reference's own
 # DES (the engine's fixed alpha 0.5, beta 0.1) extrapolates its trend
 # across the 60-point window, and on this data flags ~6% of healthy rows
 # and ~98.7% of shifted ones (the JAX reference on the CPU, 1,500 rows of
 # this generator); the port's DES counts equal the reference's there.
+# seasonal_trend is held to the full limits: on rows of this generator the
+# JAX reference's verdicts equal the port's twin's on every row, with
+# recall >= 0.99 and <= 1% of the healthy rows flagged (tests/
+# test_torch_seasonal_trend.py, on the CPU).
 SEASON_LIMITS = {"holt_winters": (0.99, 0.01), "exponential_smoothing": (0.99, 0.01),
-                 "double_exponential": (0.95, 0.15)}
+                 "double_exponential": (0.95, 0.15), "seasonal_trend": (0.99, 0.01)}
 
 
-def season_inputs(gen):
+def season_inputs(gen, rows=SEASON_ROWS, dev=None):
     """The seasonal path's rows on the card and their truth: 7 days of
     60 s history (10,080 points) + 60 current points in bucket 16384; a
     level in [20, 100], white noise of sigma = level / 20; 40% a daily
@@ -1344,9 +1546,10 @@ def season_inputs(gen):
     +-2 sigma over the history; 5% lost scrapes; a +8 sigma level shift in
     the current window of 10% of the rows. The band policy is the
     reference's cpu / memory one (ML_THRESHOLD 5, ML_BOUND upper). Made in
-    chunks of rows to bound the temporaries."""
-    dev = DEV
-    B, T, n = SEASON_ROWS, SEASON_T, SEASON_HIST + SEASON_CUR
+    chunks of rows to bound the temporaries. `rows` and `dev` let the
+    tests make a few rows on the CPU."""
+    dev = dev or DEV
+    B, T, n = rows, SEASON_T, SEASON_HIST + SEASON_CUR
 
     def u(*shape):
         return torch.rand(shape, generator=gen, device=dev)
@@ -1402,6 +1605,44 @@ def season_bounds(B, T, n_fit, G, lags):
     }
 
 
+ST_D = 2 + ST_CHANGEPOINTS + 2 * ST_ORDER
+
+
+def st_bound(B, T, n_fit):
+    """Least time of kernel J's work: each input read once (value, mask,
+    fit mask, period) and each output written once (preds, beta), against
+    its multiply-adds, (D + 1)(D + 2) / 2 - 1 per fitted slot for the
+    gram [G rhs] and D per slot for preds, one instruction slot each. The
+    gram is a float64 matrix product, which the tensor cores run at 67
+    TFLOP/s, the fp32 rate outside them; preds are float32 in the
+    reference."""
+    ne = (ST_D + 1) * (ST_D + 2) // 2 - 1
+    return least_time(B * T * 10 + B * (4 + 4 * ST_D), ne * n_fit + ST_D * B * T)
+
+
+def cholesky_ms(x, mask, fit, period):
+    """Time of torch.linalg.cholesky + cholesky_solve on the first solve's
+    (D, D) float64 systems of these rows (built here as kernel J's twin
+    builds them)."""
+    from foremast_tpu_torch.ops import forecast as fc
+
+    B, T = x.shape
+    A = torch.empty((B, ST_D, ST_D), dtype=torch.float64, device=DEV)
+    rhs = torch.empty((B, ST_D, 1), dtype=torch.float64, device=DEV)
+    pen = torch.full((ST_D,), 1e-4, dtype=torch.float64, device=DEV)
+    pen[2:2 + ST_CHANGEPOINTS] += 3e-3
+    sel = mask & fit
+    for p in torch.unique(period).tolist():
+        X = fc.st_columns(T, p, ST_ORDER, ST_CHANGEPOINTS, DEV).double()
+        rows = torch.nonzero(period == p)[:, 0]
+        for lo in range(0, rows.numel(), 256):
+            r = rows[lo:lo + 256]
+            s = sel[r].double()
+            A[r] = (s[:, :, None] * X).transpose(1, 2) @ X + torch.diag(pen)
+            rhs[r] = (torch.where(sel[r], x[r].double(), 0.0) @ X)[:, :, None]
+    return cuda_ms(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(A)), 3)
+
+
 def seasonal_path(gen):
     """Drive forecast_band under each algorithm at full size, then time
     each of its kernels alone and its twin on the path's inputs."""
@@ -1441,13 +1682,17 @@ def seasonal_path(gen):
         check(fp < max_fp, f"{algo}: false-positive share {fp:.5f} >= {max_fp}")
         line = (f"  {algo}: recall {recall:.5f} on {int(shifted.sum())} shifted rows, false "
                 f"positives {fp:.5f} (limits {min_recall}, {max_fp})")
-        if algo == "holt_winters":
+        if "period" in out:
             got = out["period"]
             rec = float((got[periodic] == planted[periodic]).float().mean())
             check(rec >= 0.99, f"planted period recovered on {rec:.4f} < 0.99 of periodic rows")
             line += (f"; planted period recovered on {rec:.5f} of {int(periodic.sum())} "
                      f"periodic rows; aperiodic rows on the fallback 1440: "
                      f"{float((got[~periodic] == 1440).float().mean()):.5f}")
+        if algo == "seasonal_trend":
+            check(bool(torch.isfinite(out["beta"]).all()), "seasonal_trend: beta not finite")
+            st_period = out["period"]
+        if algo == "holt_winters":
             # the refit alone: kernel C under each row's fitted parameters
             prm = out["params"]
             refit = (x, mask & ~region, prm[:, 0].contiguous(), prm[:, 1].contiguous(),
@@ -1509,8 +1754,23 @@ def seasonal_path(gen):
         err, cuda_ms(lambda: kernels.band_from_preds(x, mask, region, preds, *pol), 5),
         cuda_ms(lambda: fc.band_from_preds_plain(x, mask, region, preds, *pol), 1))
     del preds
+    # kernel J on the path's rows, each with the period kernel F gave it
+    st = (x, hist, hist, st_period)
+    cfg = (ST_ORDER, ST_CHANGEPOINTS, 1e-4, 3e-3, 3)
+    sub = tuple(a[:c] for a in st)
+    err, ill = compare_st_fit(sub, kernels.st_fit(*sub, *cfg), fc.fit_seasonal_trend_plain(
+        *sub, ST_ORDER, 1e-4, ST_CHANGEPOINTS, 3e-3, 3), 2 + ST_CHANGEPOINTS + 2 * ST_ORDER)
+    rows["st_fit"] = (err, cuda_ms(lambda: kernels.st_fit(*st, *cfg), 3),
+                      cuda_ms(lambda: fc.fit_seasonal_trend_plain(
+                          *st, ST_ORDER, 1e-4, ST_CHANGEPOINTS, 3e-3, 3), 1, warm=False))
+    chol_ms = cholesky_ms(*st)
+    n_st = int(hist.sum())
     lags = sorted({q for p in PERIOD_CANDIDATES for q in (p, p // 2)})
     bounds = season_bounds(B, T, n_fit, grid.shape[0], lags)
+    bounds["st_fit"] = st_bound(B, T, n_st)
+    print(f"  st_fit: vs twin on {c} rows, {ill} ill-posed; torch.linalg.cholesky + "
+          f"cholesky_solve of the same {B} ({ST_D} x {ST_D}) float64 systems {chol_ms:.3f} ms "
+          f"(for the record: the solve alone, not the fit)", flush=True)
     hb = bounds["smooth_hw"]
     print(f"  smooth, the Holt-Winters refit alone: kernel {hw_refit_ms:.3f} ms, bound "
           f"{hb['bound_ms']:.3f} ms ({hb['bound_by']})", flush=True)
@@ -1806,6 +2066,185 @@ def families_path(gen):
 
 
 # ---------------------------------------------------------------------------
+# the LSTM autoencoder's scoring at fleet size
+# ---------------------------------------------------------------------------
+LSTM_JOBS, LSTM_WINDOWS = 100_000, 2  # the scoring pass: the last hour's windows
+LSTM_NORM_JOBS, LSTM_DAY = 10_000, 1_440  # the normalizer pass: a day, 45 windows
+LSTM_WIDE_JOBS = 10_000  # the module's default width, H = 128, Z = 64
+LSTM_RUNS = 5
+
+
+def lstm_bound(J, K, F, H, Z):
+    """Least time of kernel K's work: each job's parameters and windows
+    (values and mask) read once, err and z written once, mu and sigma read
+    once, against one fp32 multiply-add per weight use: per step 4H (2F + H)
+    in the encoder and 4H H in the decoder, H F in the head, and H Z + Z 4H
+    once per window."""
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    G = 4 * H
+    macs = LSTM_W * (G * (2 * F + H) + G * H + H * F) + H * Z + Z * G
+    return least_time(J * tl.param_count(F, H, Z) * 4 + J * K * LSTM_W * F * 5 + J * K * 8
+                      + J * 8, float(J * K * macs))
+
+
+def lstm_day_windows(J, gen):
+    """Each job's day of four standardized metrics (latency, error rate,
+    cpu, tps: a shared daily load cycle, correlated noise, 3% lost samples;
+    the fixture's generator) cut into 45 windows of 32 steps, made on the
+    card. Returns x, mask (J, 45, 32, 4)."""
+    dev = DEV
+    t = torch.arange(LSTM_DAY, device=dev, dtype=torch.float32)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def noise(s):
+        return 1 + s * torch.randn((J, LSTM_DAY), generator=gen, device=dev)
+
+    load = 1 + 0.5 * torch.sin(2 * math.pi * t / LSTM_DAY + 2 * math.pi * u(J, 1))
+    raw = torch.stack([(20 + 60 * u(J, 1)) * (1 + 0.3 * (load - 1)) * noise(0.06),
+                       ((0.1 + 0.9 * u(J, 1)) * load + 0.1 * torch.randn(
+                           (J, LSTM_DAY), generator=gen, device=dev)).abs(),
+                       (10 + 30 * u(J, 1)) * load * noise(0.05),
+                       (100 + 400 * u(J, 1)) * load * noise(0.03)], -1)
+    m = u(J, LSTM_DAY, 4) > 0.03
+    n = m.sum(1, keepdim=True).clamp(min=1)
+    mu = torch.where(m, raw, 0).sum(1, keepdim=True) / n
+    sd = torch.sqrt(torch.where(m, (raw - mu) ** 2, 0).sum(1, keepdim=True) / n).clamp(min=1e-6)
+    x = ((raw - mu) / sd).reshape(J, LSTM_DAY // LSTM_W, LSTM_W, 4)
+    return x.contiguous(), m.reshape(J, LSTM_DAY // LSTM_W, LSTM_W, 4).contiguous()
+
+
+def lstm_path(gen):
+    """Phase `lstm`: the reference-trained fixture scored by kernel K against
+    the reference's recorded z; the fleet's scoring pass (100,000 jobs of
+    the fixture's parameters x 2 windows) through anomaly_scores_fleet;
+    the normalizer pass (10,000 jobs x 45 windows); the module's default
+    width (10,000 jobs at H = 128) on seeded parameters. Returns kernel K's
+    row for the kernels line."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    with np.load(LSTM_FIXTURE) as d:
+        fx = {k: torch.from_numpy(d[k]).to(DEV) for k in d.files}
+    F, H, Z, W = (int(v) for v in fx["dims"])
+    check(W == LSTM_W, f"the fixture's windows are {W} steps, not {LSTM_W}")
+    J8, K12 = fx["z"].shape
+
+    def against(z, want, what):
+        """z within 1e-3 of the reference's, verdicts (z > 3) equal but
+        within 1e-3 of the threshold."""
+        dz = float((z - want).abs().max())
+        check(dz <= 1e-3, f"{what}: z differs from the reference's by {dz:.3g}")
+        edge = (want - 3.0).abs() <= 1e-3
+        wrong = int((((z > 3) != (want > 3)) & ~edge).sum())
+        check(wrong == 0, f"{what}: {wrong} verdicts differ from the reference's")
+        return dz, int(edge.sum())
+
+    z = tl.anomaly_scores_fleet(fx["params"], fx["x"], fx["mask"], fx["mu"], fx["sigma"],
+                                hidden=H, latent=Z, device=DEV)
+    dz, edge = against(z, fx["z"], "the fixture")
+    anom = fx["anomalous"]
+    print(f"  the reference-trained fixture ({J8} jobs x {K12} windows, F={F} H={H} Z={Z} "
+          f"W={W}): max |d z| against the reference's {dz:.3g}, {edge} windows at the edge; "
+          f"flagged: healthy {int((z[:, ~anom] > 3).sum())} of {int((~anom).sum()) * J8}, "
+          f"anomalous {int((z[:, anom] > 3).sum())} of {int(anom.sum()) * J8} (the "
+          f"reference: {int((fx['z'][:, anom] > 3).sum())})", flush=True)
+
+    # the scoring pass: job j runs the fixture's job j % 8 on its healthy
+    # window j % 6 and its anomalous window 6 + j % 6
+    t0 = time.perf_counter()
+    J, K = LSTM_JOBS, LSTM_WINDOWS
+    jobs = torch.arange(J, device=DEV) % J8
+    pick = torch.stack([torch.arange(J, device=DEV) % 6, 6 + torch.arange(J, device=DEV) % 6], 1)
+    params = fx["params"][jobs].contiguous()
+    x = fx["x"][jobs[:, None], pick].contiguous()
+    m = fx["mask"][jobs[:, None], pick].contiguous()
+    mu, sigma = fx["mu"][jobs].contiguous(), fx["sigma"][jobs].contiguous()
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    kernels.reset_launches()
+    z = tl.anomaly_scores_fleet(params, x, m, mu, sigma, hidden=H, latent=Z, device=DEV)
+    torch.cuda.synchronize()
+    launches = kernels.launches["lstm_ae"]
+    check(launches == 1, f"anomaly_scores_fleet launched lstm_ae {launches} times, not 1")
+    dz, edge = against(z, fx["z"][jobs[:, None], pick], "the scoring pass")
+    e2e = wall_ms(lambda: tl.anomaly_scores_fleet(params, x, m, mu, sigma, hidden=H, latent=Z,
+                                                  device=DEV), LSTM_RUNS)
+    ms = cuda_ms(lambda: kernels.lstm_ae(params, x, m, H, Z, mu, sigma), TIMED_RUNS)
+    n = LSTM_CHECK_JOBS
+    sub = (params[:n], x[:n], m[:n])
+    err = compare_lstm(kernels.lstm_ae(*sub, H, Z, mu[:n], sigma[:n]),
+                       tl.reconstruction_errors_plain(*sub, H, Z, mu[:n], sigma[:n]), sigma[:n])
+    plain_ms = chunked_ms(lambda s: tl.reconstruction_errors_plain(
+        params[s], x[s], m[s], H, Z, mu[s], sigma[s]), J)
+    bound = lstm_bound(J, K, F, H, Z)
+    print(f"  scoring pass: {J} jobs x {K} windows x {W} steps x {F} metrics, their parameters "
+          f"{params.numel() * 4 / 1e9:.2f} GB, made in {made:.1f} s: max |d z| against the "
+          f"reference {dz:.3g} ({edge} at the edge), healthy windows flagged "
+          f"{float((z[:, 0] > 3).float().mean()):.5f}, anomalous "
+          f"{float((z[:, 1] > 3).float().mean()):.5f}; anomaly_scores_fleet {LSTM_RUNS} runs: "
+          f"median {np.median(e2e):.3f} ms, {J / np.median(e2e) * 1e3:.0f} jobs/s; kernel "
+          f"{ms:.3f} ms (mean of {TIMED_RUNS}), bound {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}), plain twin {plain_ms:.1f} ms; {launches} launch; vs twin on "
+          f"{n} jobs: max |d err| {err:.3g}", flush=True)
+    row = {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+    del params, x, m, z
+    torch.cuda.empty_cache()
+
+    # the normalizer pass over a day of healthy windows
+    t0 = time.perf_counter()
+    Jn = LSTM_NORM_JOBS
+    params = fx["params"][torch.arange(Jn, device=DEV) % J8].contiguous()
+    x, m = lstm_day_windows(Jn, gen)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+
+    def normalizer():
+        """Each job's fit_score_normalizer over its day: kernel K's errors,
+        their mean and max(population std, 1e-6)."""
+        e = kernels.lstm_ae(params, x, m, H, Z)
+        return e.mean(1), e.std(1, unbiased=False).clamp(min=1e-6)
+
+    mu, sd = normalizer()
+    errs = tl.reconstruction_errors_plain(params[:n], x[:n], m[:n], H, Z)
+    pmu, psd = errs.mean(1), errs.std(1, unbiased=False).clamp(min=1e-6)
+    dmu = float(((mu[:n] - pmu).abs() / pmu.abs().clamp(min=1e-6)).max())
+    dsd = float(((sd[:n] - psd).abs() / psd).max())
+    check(dmu <= 1e-4 and dsd <= 1e-3, f"the normalizer differs from the twin's: mu {dmu:.3g}, "
+                                       f"sigma {dsd:.3g} relative")
+    norm = wall_ms(normalizer, 3)
+    k_ms = cuda_ms(lambda: kernels.lstm_ae(params, x, m, H, Z), 3)
+    nb = lstm_bound(Jn, x.shape[1], F, H, Z)
+    print(f"  normalizer pass: {Jn} jobs x {x.shape[1]} windows (a day) made on the card in "
+          f"{made:.1f} s: the normalizer median {np.median(norm):.3f} ms (kernel "
+          f"{k_ms:.3f} ms, bound {nb['bound_ms']:.3f} ms, {nb['bound_by']}); mu "
+          f"{float(mu.mean()):.4f}, sigma {float(sd.mean()):.4f} on average; vs twin on {n} jobs: mu {dmu:.3g}, "
+          f"sigma {dsd:.3g} relative", flush=True)
+    del params, x, m
+    torch.cuda.empty_cache()
+
+    # the module's default width, parameters read from device memory
+    Fw, Hw, Zw = 4, 128, 64
+    p, x, m, mu, sigma = adversarial_lstm(LSTM_WIDE_JOBS, 2, Fw, Hw, Zw, gen)
+    err_w = compare_lstm(kernels.lstm_ae(p[:n], x[:n], m[:n], Hw, Zw, mu[:n], sigma[:n]),
+                         tl.reconstruction_errors_plain(p[:n], x[:n], m[:n], Hw, Zw, mu[:n],
+                                                        sigma[:n]), sigma[:n])
+    w_ms = cuda_ms(lambda: kernels.lstm_ae(p, x, m, Hw, Zw, mu, sigma), 3)
+    w_plain = chunked_ms(lambda s: tl.reconstruction_errors_plain(
+        p[s], x[s], m[s], Hw, Zw, mu[s], sigma[s]), LSTM_WIDE_JOBS, rows=5_000)
+    wb = lstm_bound(LSTM_WIDE_JOBS, 2, Fw, Hw, Zw)
+    print(f"  default width H={Hw} Z={Zw}: {LSTM_WIDE_JOBS} jobs x 2 windows, parameters "
+          f"{p.numel() * 4 / 1e9:.2f} GB: kernel {w_ms:.3f} ms, bound {wb['bound_ms']:.3f} ms "
+          f"({wb['bound_by']}), plain twin {w_plain:.1f} ms; vs twin on {n} jobs: max |d err| "
+          f"{err_w:.3g}", flush=True)
+    del p, x, m
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
 # the engine cycle at fleet size
 # ---------------------------------------------------------------------------
 ENGINE_CANARIES, ENGINE_CONTINUOUS = 6_000, 4_000
@@ -2020,9 +2459,11 @@ def idle_split(prof):
     return out
 
 
-def engine_arm(fleet, triage, profile_cycle=None):
-    """The fleet through the port's Analyzer on the card, ENGINE_CYCLES
-    cycles under the default EngineConfig (triage on or off). Per cycle:
+def engine_arm(fleet, triage, profile_cycle=None, algorithm="moving_average_all",
+               cycles=ENGINE_CYCLES):
+    """The fleet through the port's Analyzer on the card, `cycles` cycles
+    under the default EngineConfig (triage on or off; ML_ALGORITHM
+    `algorithm`). Per cycle:
     wall, stages, kernel launches (counts reset just before the cycle, read
     just after), the analyzer's launches per family, triage rows, kernel
     builds, the verdict digest, the hpa_score series by app, and the idle
@@ -2040,9 +2481,10 @@ def engine_arm(fleet, triage, profile_cycle=None):
     for doc in fleet["docs"]():
         store.create(doc)
     src = RawFixtureDataSource(keep_urls=False)
-    an = Analyzer(EngineConfig(triage=triage), src, store, VerdictExporter(), device=DEV)
-    cycles = []
-    for c in range(ENGINE_CYCLES):
+    an = Analyzer(EngineConfig(triage=triage, algorithm=algorithm), src, store,
+                  VerdictExporter(), device=DEV)
+    n_cycles, cycles = cycles, []
+    for c in range(n_cycles):
         src.pages = fleet["pages"][c]
         kernels.reset_launches()
         d0, tl0 = an.device_launches, an.triage_launches_total
@@ -2260,8 +2702,53 @@ def engine_path(rng):
           f"twin {plain_ms:.1f} ms, torch.sort of the history {s_ms:.3f} ms, max |err| against "
           f"the twin {err:.3g}; {launches} launches in the {ENGINE_CYCLES} cycles", flush=True)
     family = {k: sum(r["launches"][k] for r in cycles) for k in ("bivariate", "hpa_score")}
+    engine_seasonal_trend(fleet, args)
     return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **bound}, family
+
+
+def engine_seasonal_trend(fleet, band_args):
+    """One cycle of the fleet under ML_ALGORITHM=seasonal_trend: the band
+    family runs kernels F, J and B's band_from_preds. Every shifted monitor
+    unhealthy, healthy monitors flagged under 1%, no job failing scoring;
+    then kernel J against its twin on the rows the engine packs, each with
+    the period kernel F gives it."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.engine import jobs as J
+    from foremast_tpu_torch.ops import forecast as fc
+
+    _, store, cycles = engine_arm(fleet, triage=True, algorithm="seasonal_trend", cycles=1)
+    rec = cycles[0]
+    for k in ("detect_period", "st_fit", "band_from_preds"):
+        check(rec["launches"][k] >= 1, f"the seasonal_trend cycle launched no {k}")
+    docs = store.by_status(*J.OPEN_STATUSES, *J.TERMINAL_STATUSES)
+    status = {d.id: d.status for d in docs}
+    failed = [d.id for d in docs if d.reason.startswith("scoring failed")
+              or d.status in ("abort", "preprocess_failed")]
+    check(not failed, f"seasonal_trend: {len(failed)} jobs failed scoring, e.g. {failed[:3]}")
+    monitors = [f"continuous-{i:05d}" for i in range(ENGINE_CONTINUOUS)]
+    missed = [j for j in monitors if j in fleet["shifted"] and status[j] != "completed_unhealth"]
+    healthy = [j for j in monitors if j not in fleet["shifted"]]
+    flagged = sum(status[j] == "completed_unhealth" for j in healthy)
+    share = flagged / len(healthy)
+    check(not missed, f"seasonal_trend: {len(missed)} shifted monitors not unhealthy")
+    check(share < 0.01, f"seasonal_trend: healthy monitors flagged {share:.4f} >= 0.01")
+    x, m, reg = band_args[:3]
+    hist = m & ~reg
+    T = x.shape[1]
+    fb = torch.full((x.shape[0],), min(1440, T // 2), dtype=torch.int32, device=DEV)
+    cand = torch.tensor(PERIOD_CANDIDATES, dtype=torch.int32, device=DEV)
+    period, _ = kernels.detect_period(x, hist, cand, fb, 0.2, 0.05, 0.01)
+    st = (x, hist, hist, period)
+    err, ill = compare_st_fit(st, kernels.st_fit(*st, ST_ORDER, ST_CHANGEPOINTS, 1e-4, 3e-3, 3),
+                              fc.fit_seasonal_trend_plain(*st, ST_ORDER, 1e-4, ST_CHANGEPOINTS,
+                                                          3e-3, 3), ST_D)
+    print(f"  seasonal_trend cycle: {rec['jobs']} jobs in {rec['wall_s']:.3f} s; kernel "
+          f"launches { {k: v for k, v in rec['launches'].items() if v} }; "
+          f"{len(fleet['shifted'])} shifted monitors unhealthy, healthy monitors flagged "
+          f"{flagged} of {len(healthy)} ({share:.5f}, limit 0.01); st_fit at the engine's shape "
+          f"({x.shape[0]} x {T}) against its twin: max |d preds| {err:.3g}, {ill} rows "
+          f"ill-posed (the empty padding rows among them)", flush=True)
 
 
 def main() -> int:
@@ -2306,6 +2793,8 @@ def main() -> int:
     kernels_c_to_f_vs_twin(gen)
     kernel_g_vs_twin(gen)
     kernels_h_i_vs_twin(gen)
+    kernel_j_vs_twin(gen)
+    kernel_k_vs_twin(gen)
 
     phase("pairs")
     a = pair_path(rng)
@@ -2315,8 +2804,11 @@ def main() -> int:
     s, g_season = seasonal_path(gen)
     phase("families")
     fam = families_path(gen)
+    phase("lstm")
+    k = lstm_path(gen)
     phase("engine")
     g, engine_launches = engine_path(rng)
+    phase()
     print(f"  triage_screen, 100,000 rows: {g_bands['ms']:.3f} ms at T = {BAND_T} (bound "
           f"{g_bands['bound_ms']:.3f} ms, twin {g_bands['plain_ms']:.1f} ms, torch.sort "
           f"{g_bands['sort_ms']:.3f} ms), {g_season['ms']:.3f} ms at T = {SEASON_T} (bound "
@@ -2341,6 +2833,10 @@ def main() -> int:
          "replaces": "foremast_tpu/ops/forecast.py:478", **s["band_from_preds"]},
         {"name": "triage_screen", "source": csrc + "triage.cu",
          "replaces": "foremast_tpu/ops/triage.py:58", **g},
+        {"name": "st_fit", "source": csrc + "seasonal_trend.cu",
+         "replaces": "foremast_tpu/ops/forecast.py:400", **s["st_fit"]},
+        {"name": "lstm_ae", "source": csrc + "lstm_ae.cu",
+         "replaces": "foremast_tpu/models/lstm_ae.py:240", **k},
     ]
     # kernels H and I: times at the engine's bucket (phase families, T =
     # 2048); launches on the main path, the engine's cycles
@@ -2357,7 +2853,8 @@ def main() -> int:
                  f"{r['launch_ms']:.3f} ms" if fam_key == "hpa" else ""), flush=True)
     for r in rows:
         # no single PyTorch call computes any of these functions (torch.sort,
-        # timed beside kernel G, computes only its order statistics)
+        # timed beside kernel G, computes only its order statistics; the
+        # Cholesky solve beside kernel J only its solve)
         r.update(route="cuda", library_ms=None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

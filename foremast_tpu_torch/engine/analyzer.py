@@ -9,8 +9,9 @@ into job statuses. Verdict semantics are the reference's:
     kernel A through ``parallel.fleet.score_pairs``), and the forecast band
     over history ++ current (the band family, ``ops.forecast.forecast_band``:
     kernel B under moving_average*, the seasonal kernels under the other
-    univariate algorithms; jobs with exactly two judgeable metrics go to the
-    bivariate-normal ellipse, kernel H through ``ops.bivariate``);
+    univariate algorithms, kernel J under seasonal_trend* / prophet*; jobs
+    with exactly two judgeable metrics go to the bivariate-normal ellipse,
+    kernel H through ``ops.bivariate``);
   * hpa jobs are scored, never judged: kernel C's SES predictions of the
     traffic and kernel I's score (``ops.hpa.hpa_from_preds``), gated by the
     breath cooldowns, go out as an hpalog and the
@@ -74,7 +75,9 @@ class WatchdogTimeout(Exception):
     whole cycle."""
 
 
-NOT_PORTED = "the LSTM autoencoder family is not ported yet (ROADMAP queue 1, item 7)"
+NOT_PORTED = ("the LSTM autoencoder family is not ported yet: its scoring is "
+              "(models.lstm_ae, kernel K), its training and the engine's family are the "
+              "next slice (ROADMAP queue 1, item 7)")
 
 
 def _not_ported(*_args, **_kwargs):
@@ -717,9 +720,10 @@ class Analyzer:
         """Pack history ++ current per row and queue `forecast_band` for the
         configured algorithm: one kernel B launch per chunk under
         moving_average*, the seasonal kernels (with each row's own period
-        under holt_winters) otherwise. The long-window gate and the period
-        fallback are functions of the bucket T, as in the reference, so a
-        row's forecaster never depends on its chunk-mates."""
+        under holt_winters and seasonal_trend) otherwise. The long-window
+        gate and the period fallback are functions of the bucket T, as in
+        the reference, so a row's forecaster never depends on its
+        chunk-mates."""
         cfg = self.config
         n_hs, lens = [], []
 
@@ -744,7 +748,8 @@ class Analyzer:
                 hw_period_candidates=cfg.hw_period_candidates,
                 hw_min_seasonal_acf=cfg.hw_min_seasonal_acf,
                 hw_alias_margin=cfg.hw_alias_margin,
-                hw_contrast_margin=cfg.hw_contrast_margin, device=self.device)
+                hw_contrast_margin=cfg.hw_contrast_margin, st_order=cfg.st_order,
+                st_changepoints=cfg.st_changepoints, device=self.device)
 
         launches = self._launch_chunks("band", T, len(group), BAND_SPECS, pack, launch,
                                        BAND_OUTPUTS)
@@ -871,9 +876,9 @@ class Analyzer:
             results.update(self._collect_bivariate(self._launch_bivariate(entries, T)))
         return results
 
-    # the LSTM family is a later slice: routing stays the reference's, scoring
-    # raises, so such a job fails scoring (per-job retry, then its strategy's
-    # failure status) and is never judged healthy
+    # the LSTM family waits for the training slice: routing stays the
+    # reference's, scoring raises, so such a job fails scoring (per-job
+    # retry, then its strategy's failure status) and is never judged healthy
     _score_multi = staticmethod(_not_ported)
 
     # ---------------------------------------------------------- hpa family

@@ -10,11 +10,10 @@ A copy of the reference's ``engine/config.py`` cut to the fields the port
 reads, with the same environment variables and defaults. The knobs of
 layers the port has not taken over yet (delta fetch, provenance, SLOs, the
 flight recorder, retries and breakers, load shedding, stale serving,
-quarantine, the compile cache, the seasonal-trend forecaster, the LSTM
-family) are not fields here: `from_env` raises NotImplementedError,
-naming the ROADMAP item, when one of them is set to anything but the
-reference's default, so no deployment silently runs without a layer it
-asked for.
+quarantine, the compile cache, the LSTM family) are not fields here:
+`from_env` raises NotImplementedError, naming the ROADMAP item, when one of
+them is set to anything but the reference's default, so no deployment
+silently runs without a layer it asked for.
 """
 from __future__ import annotations
 
@@ -195,6 +194,12 @@ class EngineConfig:
     # ACF beats its lag-p ACF by MORE than this (ties within noise are
     # harmonically valid picks — see ops/forecast.py:detect_period)
     hw_contrast_margin: float = 0.01  # HW_CONTRAST_MARGIN
+    st_order: int = 3  # seasonal-trend (prophet) Fourier order, ST_ORDER
+    # Prophet piecewise-linear trend: hinge changepoints on a uniform grid
+    # over the first 80% of the window, L1-ish shrunk (iterated ridge) so
+    # the trend stays piecewise-sparse (ops/forecast.py:fit_seasonal_trend).
+    # 0 restores the single linear trend.
+    st_changepoints: int = 12  # ST_CHANGEPOINTS
     # reference model dispatch by metric count (design.md:53-88): 2-metric
     # jobs -> bivariate normal, 3+ -> LSTM-AE, regardless of ML_ALGORITHM
     # (which names the univariate forecaster). False = route multivariate
@@ -305,7 +310,6 @@ def _env_str(env, key, default):
 _NOT_PORTED_WHY = {
     7: "the LSTM autoencoder family is not ported yet (ROADMAP queue 1, item 7)",
     8: "this layer of the engine is not ported yet (ROADMAP queue 1, item 8)",
-    11: "the seasonal-trend forecaster is not ported yet (ROADMAP queue 2, item 11)",
 }
 # The reference's knobs of layers the port has not taken over: variable ->
 # (parse, the reference's default, the item of _NOT_PORTED_WHY).
@@ -314,8 +318,6 @@ _NOT_PORTED = {
     "DELTA_FETCH": (_env_bool, True, 8),
     "COMPILE_CACHE_PATH": (_env_str, "", 8),
     "PREWARM_ON_START": (_env_bool, False, 8),
-    "ST_ORDER": (_env_int, 3, 11),
-    "ST_CHANGEPOINTS": (_env_int, 12, 11),
     "LSTM_WINDOW": (_env_int, 32, 7),
     "LSTM_EPOCHS": (_env_int, 30, 7),
     "LSTM_HIDDEN": (_env_int, 32, 7),
@@ -408,6 +410,8 @@ def from_env(env=None) -> EngineConfig:
         hw_min_seasonal_acf=_env_float(env, "HW_MIN_SEASONAL_ACF", 0.2),
         hw_alias_margin=_env_float(env, "HW_ALIAS_MARGIN", 0.05),
         hw_contrast_margin=_env_float(env, "HW_CONTRAST_MARGIN", 0.01),
+        st_order=_env_int(env, "ST_ORDER", 3),
+        st_changepoints=_env_int(env, "ST_CHANGEPOINTS", 12),
         multimetric_auto=_env_bool(env, "ML_MULTIMETRIC_AUTO", True),
         sla_headroom_safe=_env_float(env, "SLA_HEADROOM_SAFE", 0.7),
         sla_mode=env.get("ML_SLA_MODE", "dynamic").strip().lower(),

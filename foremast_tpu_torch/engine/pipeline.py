@@ -387,7 +387,8 @@ def prewarm(config=None, families=("pair", "band", "bivariate", "hpa", "triage")
     region[:, T // 2:] = True
     if "band" in families:
         fc.forecast_band(x, m, region, thr, bnd, mlb, algorithm=cfg.algorithm,
-                         ma_window=cfg.ma_window, device=dev)
+                         ma_window=cfg.ma_window, st_order=cfg.st_order,
+                         st_changepoints=cfg.st_changepoints, device=dev)
     if "bivariate" in families:
         bv.bivariate_rows(x, m, x, m, region, thr, mlb, mlb, bnd, bnd, device=dev)
     if "hpa" in families:

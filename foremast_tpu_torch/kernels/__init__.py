@@ -18,14 +18,19 @@
   under the bivariate-normal ellipse of their joint history.
 - Kernel I, `hpa_score` (``csrc/hpa.cu``), scores B HPA rows from their
   traffic predictions, with sigma given or computed from the history.
+- Kernel J, `st_fit` (``csrc/seasonal_trend.cu``), fits the seasonal-trend
+  (Prophet-core) ridge model of B rows, each with its own period.
+- Kernel K, `lstm_ae` (``csrc/lstm_ae.cu``), runs the LSTM autoencoder of
+  J jobs, each with its own parameters, over K windows a job and writes
+  each window's masked reconstruction error (and its z-score).
 
 Each launcher checks device, dtype, shape and contiguity, allocates the
 outputs (and the scratch a kernel needs), launches on PyTorch's current
 stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch. They take CUDA tensors only; the entry
 points (``parallel.fleet.score_pairs``, ``ops.forecast``,
-``ops.seqscan``, ``ops.triage``, ``ops.bivariate``, ``ops.hpa``) send CPU
-tensors to the plain twins.
+``ops.seqscan``, ``ops.triage``, ``ops.bivariate``, ``ops.hpa``,
+``models.lstm_ae``) send CPU tensors to the plain twins.
 """
 from __future__ import annotations
 
@@ -37,9 +42,11 @@ from . import build
 
 __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_preds",
            "smooth", "hw_fit", "affine_scan", "detect_period", "triage_screen", "bivariate",
-           "hpa_score", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T", "MAX_PERIOD_T",
-           "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
-           "MAX_GRID", "PAIR_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
+           "hpa_score", "st_fit", "lstm_ae", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
+           "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
+           "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
+           "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "PAIR_PHASES", "SMOOTH_SES",
+           "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
 # shared memory; above it, in device scratch
@@ -58,6 +65,16 @@ MAX_BI_T = 16384
 MAX_HPA_T = 16384
 # kernel D runs two candidates per lane of a warp
 MAX_GRID = 64
+# kernel J solves with one lane of a warp per column; t is exact in float32
+MAX_ST_D = 32
+MAX_ST_T = 1 << 24
+# kernel K: a CTA's gate products, states and per-window partial sums live
+# in shared memory; its parameters join them there up to this many bytes,
+# above it they are read through the caches (L1, L2)
+MAX_LSTM_HIDDEN = 256
+MAX_LSTM_LATENT = 256
+MAX_LSTM_FEATURES = 32
+LSTM_SMEM_PARAMS_BYTES = 96 * 1024
 
 SMOOTH_SES, SMOOTH_DES, SMOOTH_HW = 1, 2, 3
 
@@ -80,7 +97,7 @@ PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans"
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
-            "bivariate": 0, "hpa_score": 0}
+            "bivariate": 0, "hpa_score": 0, "st_fit": 0, "lstm_ae": 0}
 
 
 def reset_launches() -> None:
@@ -552,3 +569,79 @@ def hpa_score(tps, tps_mask, region, tps_pred, sla, sla_mask, sla_static_limit, 
     _raise_on(rc, "hpa_score", lib)
     launches["hpa_score"] += 1
     return out
+
+
+def st_fit(x, mask, fit_mask, period, order: int, n_changepoints: int, ridge: float,
+           cp_shrink: float, l1_iters: int):
+    """Launch kernel J: the seasonal-trend fit of B rows over fit_mask &
+    mask, each row with its (B,) int32 period. Returns beta (B, D) and
+    preds (B, T) float32, D = 2 + n_changepoints + 2 order <= MAX_ST_D."""
+    B, T = x.shape
+    dev = x.device
+    D = 2 + int(n_changepoints) + 2 * int(order)
+    if order < 0 or n_changepoints < 0 or D > MAX_ST_D:
+        raise ValueError(f"st_fit takes order >= 0, n_changepoints >= 0 and at most "
+                         f"{MAX_ST_D} columns (2 + n_changepoints + 2 order); got {D}")
+    if not 1 <= T <= MAX_ST_T:
+        raise ValueError(f"st_fit supports 1 <= T <= {MAX_ST_T}; got T = {T}")
+    for t, name, dt, shape in (
+            (x, "x", torch.float32, (B, T)),
+            (mask, "mask", torch.bool, (B, T)),
+            (fit_mask, "fit_mask", torch.bool, (B, T)),
+            (period, "period", torch.int32, (B,))):
+        _check(t, name, dt, shape, dev)
+    beta = torch.empty((B, D), dtype=torch.float32, device=dev)
+    preds = torch.empty((B, T), dtype=torch.float32, device=dev)
+    if B == 0:
+        return beta, preds
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_st_fit(_ptr(x), _ptr(mask), _ptr(fit_mask), _ptr(period), int(order),
+                           int(n_changepoints), float(ridge), float(cp_shrink), int(l1_iters),
+                           B, T, _ptr(beta), _ptr(preds), ctypes.c_void_p(stream))
+    _raise_on(rc, "st_fit", lib)
+    launches["st_fit"] += 1
+    return beta, preds
+
+
+def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None):
+    """Launch kernel K: the LSTM autoencoder's masked reconstruction error
+    of K windows for each of J jobs. params is (J, P) float32 in the flat
+    layout of models.lstm_ae.flat_params, x (J, K, W, F) float32, mask
+    (J, K, W, F) bool. Returns err (J, K); with mu and sigma ((J,) float32)
+    also z = (err - mu) / sigma, as (err, z)."""
+    J, K, W, F = x.shape
+    dev = x.device
+    H, Z = int(hidden), int(latent)
+    if not (1 <= H <= MAX_LSTM_HIDDEN and 1 <= Z <= MAX_LSTM_LATENT
+            and 1 <= F <= MAX_LSTM_FEATURES):
+        raise ValueError(f"lstm_ae supports hidden <= {MAX_LSTM_HIDDEN}, latent <= "
+                         f"{MAX_LSTM_LATENT} and features <= {MAX_LSTM_FEATURES}; got "
+                         f"{H}, {Z}, {F}")
+    if (mu is None) != (sigma is None):
+        raise ValueError("lstm_ae takes mu and sigma together")
+    named = [(x, "x", torch.float32, (J, K, W, F)), (mask, "mask", torch.bool, (J, K, W, F))]
+    if mu is not None:
+        named += [(mu, "mu", torch.float32, (J,)), (sigma, "sigma", torch.float32, (J,))]
+    for t, name, dt, shape in named:
+        _check(t, name, dt, shape, dev)
+    lib = build.library()
+    P = lib.fm_lstm_ae_param_count(F, H, Z)
+    _check(params, "params", torch.float32, (J, P), dev)
+    err = torch.empty((J, K), dtype=torch.float32, device=dev)
+    z = None if mu is None else torch.empty((J, K), dtype=torch.float32, device=dev)
+    if J == 0 or K == 0:
+        return err if z is None else (err, z)
+    if W < 1:
+        raise ValueError("lstm_ae needs windows of W >= 1 steps")
+    KB = max(1, min(K, 8, 256 // F))
+    smem_params = int(lib.fm_lstm_ae_smem_bytes(F, H, Z, KB, 1) <= LSTM_SMEM_PARAMS_BYTES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_lstm_ae(_ptr(params), P, _ptr(x), _ptr(mask), _opt(mu), _opt(sigma), J, K,
+                            W, F, H, Z, KB, smem_params, _ptr(err), _opt(z),
+                            ctypes.c_void_p(stream))
+    _raise_on(rc, "lstm_ae", lib)
+    launches["lstm_ae"] += 1
+    return err if z is None else (err, z)

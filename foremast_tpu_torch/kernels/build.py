@@ -130,6 +130,15 @@ def _declare(lib):
     lib.fm_hpa_scores.restype = I
     lib.fm_hpa_from_preds.argtypes = [P] * 13 + [I, I] + [P] * 12 + [P]
     lib.fm_hpa_from_preds.restype = I
+    D = ctypes.c_double
+    lib.fm_st_fit.argtypes = [P] * 4 + [I, I, D, D, I, I, I, P, P, P]
+    lib.fm_st_fit.restype = I
+    lib.fm_lstm_ae.argtypes = [P, LL, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P]
+    lib.fm_lstm_ae.restype = I
+    lib.fm_lstm_ae_smem_bytes.argtypes = [I, I, I, I, I]
+    lib.fm_lstm_ae_smem_bytes.restype = LL
+    lib.fm_lstm_ae_param_count.argtypes = [I, I, I]
+    lib.fm_lstm_ae_param_count.restype = LL
     lib.fm_error_string.argtypes = [I]
     lib.fm_error_string.restype = ctypes.c_char_p
 

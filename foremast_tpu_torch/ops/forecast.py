@@ -14,6 +14,8 @@ twins:
   kernel C; the long-window SES/DES scans are in ``ops.seqscan`` (kernel E);
 - `detect_period`: kernel F; `fit_holt_winters`: kernel D, then kernel C
   for the winner's predictions;
+- `fit_seasonal_trend`: the Prophet-core trend + Fourier seasonality ridge
+  fit, kernel J;
 - `band_from_preds`: residual sigma + band from given predictions, kernel
   B's second entry;
 - `forecast_band`: the engine's band launch for any univariate algorithm
@@ -28,10 +30,12 @@ reference documents; its float32 cancellation leaves sigma ~1e-5 on a
 constant row at a high level); period detection sums in float64 and
 solves the trend from centred sums, so a constant row detrends to exactly
 0 and keeps its fallback; the Holt-Winters fit sums squared errors in
-float64.
+float64. The seasonal-trend fit sums its normal equations and solves
+them in float64 (the reference: float32 sums and a float32 LU solve).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -60,6 +64,9 @@ __all__ = [
     "detect_period_plain",
     "fit_holt_winters",
     "fit_holt_winters_plain",
+    "st_columns",
+    "fit_seasonal_trend",
+    "fit_seasonal_trend_plain",
     "band_from_preds",
     "band_from_preds_plain",
     "forecast_band",
@@ -516,6 +523,127 @@ def detect_period(x, mask, candidates: tuple, fallback, min_acf, alias_margin=0.
 
 
 # ---------------------------------------------------------------------------
+# The seasonal-trend (Prophet-core) fit (kernel J)
+# ---------------------------------------------------------------------------
+_F32 = np.float32
+
+
+def st_columns(T: int, period: int, order: int = 3, n_changepoints: int = 0,
+               device=None) -> torch.Tensor:
+    """The (T, D) float32 design of one period: [1, tn, relu(tn - s_j) for
+    the C knots, sin and cos of k w for k = 1..order].
+
+    Rounded as the reference's compiled program rounds it (XLA folds its
+    divisions by constants into products with float32 reciprocals and its
+    chain of constant factors into one): tn = t * fl(1 / max(T - 1, 1)),
+    s_j = fl(fl(j * fl(1 / (C + 1))) * 0.8), and the k-th Fourier argument
+    t * c_k with c_k = fl(fl(fl(2 pi) * fl(1 / period)) * k). Kernel J
+    computes every column from the same float32 steps.
+    """
+    t = torch.arange(T, dtype=_F, device=device)
+    one = _F32(1.0)
+    tn = t * torch.tensor(one / _F32(max(T - 1, 1)), device=device)
+    cols = [torch.ones(T, dtype=_F, device=device), tn]
+    C = int(n_changepoints)
+    inv_c = one / _F32(C + 1)
+    for j in range(1, C + 1):
+        knot = _F32(_F32(_F32(j) * inv_c) * _F32(0.8))
+        cols.append(torch.clamp(tn - torch.tensor(knot, device=device), min=0.0))
+    c1 = _F32(_F32(2 * np.pi) * _F32(one / _F32(period)))
+    for k in range(1, int(order) + 1):
+        arg = t * torch.tensor(_F32(c1 * _F32(k)), device=device)
+        cols += [torch.sin(arg), torch.cos(arg)]
+    return torch.stack(cols, dim=-1)
+
+
+def _st_penalty(is_cp, beta, ridge: float, cp_shrink: float):
+    """The reference's per-column ridge weights, float64: ridge +
+    cp_shrink on the hinge columns for the first solve (beta None), ridge +
+    cp_shrink / (|beta| + 1e-3) on them for each IRLS round."""
+    if beta is None:
+        return ridge + cp_shrink * is_cp
+    return ridge + cp_shrink * is_cp / (torch.abs(beta) + 1e-3)
+
+
+def _st_solve(G, rhs, pen):
+    """Cholesky solve of (G + diag(pen)) beta = rhs, float64; a row whose
+    matrix is not positive definite (or not finite) gets NaN."""
+    A = G + torch.diag_embed(pen)
+    L, info = torch.linalg.cholesky_ex(A)
+    beta = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+    bad = (info != 0) | ~torch.isfinite(A).all(-1).all(-1)
+    return torch.where(bad[:, None], torch.nan, beta)
+
+
+def fit_seasonal_trend_plain(x, mask, fit_mask, period, order: int = 3, ridge: float = 1e-4,
+                             n_changepoints: int = 0, cp_shrink: float = 3e-3,
+                             l1_iters: int = 3):
+    """Plain twin of kernel J: the reference's fit_seasonal_trend with a
+    (B,) int32 period per row. The gram X^T diag(sel) X and the rhs
+    X^T (sel x) over sel = mask & fit_mask (masked slots skipped, as the
+    reference's compiled select does) are float64 sums of the float32
+    columns; the ridge solve (penalty ridge + cp_shrink on the hinge
+    columns), then l1_iters - 1 reweighted solves when n_changepoints > 0,
+    are float64 Cholesky solves; preds = X beta at every slot, summed in
+    float64 and rounded once. Returns (beta (B, D) float32, preds (B, T)
+    float32)."""
+    B, T = x.shape
+    C = int(n_changepoints)
+    D = 2 + C + 2 * int(order)
+    dev = x.device
+    beta = torch.empty((B, D), dtype=_F, device=dev)
+    preds = torch.empty((B, T), dtype=_F, device=dev)
+    sel = mask & fit_mask
+    is_cp = torch.zeros(D, dtype=torch.float64, device=dev)
+    is_cp[2:2 + C] = 1.0
+    step = max(1, _PLAIN_CHUNK_SLOTS // max(T * D, 1))
+    for p in torch.unique(period).tolist():
+        X = st_columns(T, p, order, C, dev).double()
+        rows = torch.nonzero(period == p)[:, 0]
+        for lo in range(0, rows.numel(), step):
+            r = rows[lo:lo + step]
+            s = sel[r].double()
+            xw = s[:, :, None] * X  # (n, T, D)
+            G = xw.transpose(1, 2) @ X
+            rhs = torch.where(sel[r], x[r].double(), 0.0) @ X
+            b = _st_solve(G, rhs, _st_penalty(is_cp, None, ridge, cp_shrink).expand(
+                r.numel(), D))
+            for _ in range(max(l1_iters - 1, 0) if C > 0 else 0):
+                b = _st_solve(G, rhs, _st_penalty(is_cp, b, ridge, cp_shrink))
+            beta[r] = b.to(_F)
+            preds[r] = (b @ X.T).to(_F)
+    return beta, preds
+
+
+def _fit_st(x, mask, fit_mask, period, order, ridge=1e-4, n_changepoints=0, cp_shrink=3e-3,
+            l1_iters=3):
+    """Kernel J on the card, its twin on the CPU (tensors already placed)."""
+    if x.device.type == "cpu":
+        return fit_seasonal_trend_plain(x, mask, fit_mask, period, order, ridge,
+                                        n_changepoints, cp_shrink, l1_iters)
+    return kernels.st_fit(x, mask, fit_mask, period, int(order), int(n_changepoints),
+                          float(ridge), float(cp_shrink), int(l1_iters))
+
+
+def fit_seasonal_trend(x, mask, fit_mask, period, order: int = 3, ridge: float = 1e-4,
+                       n_changepoints: int = 0, cp_shrink: float = 3e-3, l1_iters: int = 3,
+                       *, device=None):
+    """Fit a linear trend with n_changepoints hinges and a Fourier
+    seasonality of `order` harmonics per row by masked ridge least squares
+    over fit_mask & mask, the hinge slopes shrunk by l1_iters - 1 IRLS
+    rounds; the reference's fit_seasonal_trend (the Prophet core). period
+    is an int or a (B,) int32, one period per row, where the reference
+    takes one static period per call. Returns (beta (B, D), preds (B, T)),
+    D = 2 + n_changepoints + 2 order, preds = X beta at every slot."""
+    dev, x, mask = _placed(x, mask, device)
+    B, T = x.shape
+    fit_mask = as_tensor(fit_mask, torch.bool, dev, "fit_mask", (B, T))
+    period = _row_vector(period, B, torch.int32, dev, "period")
+    return _fit_st(x, mask, fit_mask, period, order, ridge, n_changepoints, cp_shrink,
+                   l1_iters)
+
+
+# ---------------------------------------------------------------------------
 # The band from given predictions (kernel B's second entry) and the path
 # ---------------------------------------------------------------------------
 def band_from_preds_plain(x, mask, region, preds, threshold, bound_mode, min_lower_bound):
@@ -561,7 +689,8 @@ def forecast_band(x, mask, region, threshold, bound_mode, min_lower_bound, *,
                   hw_period_auto: bool = True,
                   hw_period_candidates: tuple = (60, 480, 720, 1440),
                   hw_min_seasonal_acf: float = 0.2, hw_alias_margin: float = 0.05,
-                  hw_contrast_margin: float = 0.01, device=None):
+                  hw_contrast_margin: float = 0.01, st_order: int = 3,
+                  st_changepoints: int = 12, device=None):
     """The engine's band launch for one bucket: forecast the history
     (mask & ~region), then judge the region against the band.
 
@@ -576,21 +705,24 @@ def forecast_band(x, mask, region, threshold, bound_mode, min_lower_bound, *,
       min(hw_period, max(T // 2, 2)); without auto detection or candidates,
       the fallback for every row), the grid fit (kernel D) over the history
       past each row's first 2 periods, the winner's predictions (kernel C);
+    - seasonal_trend* and prophet*: the period per row as for holt_winters,
+      then the seasonal-trend fit (kernel J) of order st_order with
+      st_changepoints hinges over the whole history;
     - anything else: the moving average over ma_window steps (kernel B).
     Every algorithm but the moving average then runs band_from_preds.
 
     Returns preds, sigma, upper, lower, flags, count, first_index and
-    checked; holt_winters adds period (B,) and params (B, 3).
+    checked; holt_winters adds period (B,) and params (B, 3),
+    seasonal_trend period (B,) and beta (B, D).
     """
     dev, x, mask = _placed(x, mask, device)
     B, T = x.shape
     region = as_tensor(region, torch.bool, dev, "region", (B, T))
     policy = _policy(B, dev, threshold, bound_mode, min_lower_bound)
-    if algorithm.startswith(("seasonal_trend", "prophet")):
-        raise NotImplementedError(
-            f"{algorithm}: fit_seasonal_trend is not ported yet (ROADMAP queue 2, item 11)")
-    if not algorithm.startswith(("exponential_smoothing", "double_exponential",
-                                 "holt_winters")):
+    seasonal_trend = algorithm.startswith(("seasonal_trend", "prophet"))
+    if not seasonal_trend and not algorithm.startswith(("exponential_smoothing",
+                                                        "double_exponential",
+                                                        "holt_winters")):
         if dev.type == "cpu":
             return moving_average_band_plain(x, mask, region, int(ma_window), *policy)
         return kernels.ma_band(x, mask, region, int(ma_window), *policy)
@@ -617,6 +749,11 @@ def forecast_band(x, mask, region, threshold, bound_mode, min_lower_bound, *,
             max_period = max(cands + (fallback,))
         else:
             period, max_period = fb, fallback
+    if seasonal_trend:
+        # the whole history fits, with no skip of the first periods
+        beta, preds = _fit_st(x, hist, hist, period, st_order, n_changepoints=st_changepoints)
+        extra = {"period": period, "beta": beta}
+    elif algorithm.startswith("holt_winters"):
         fit = hist & (torch.arange(T, device=dev) >= 2 * period[:, None])
         grid = torch.tensor(DEFAULT_GRID, dtype=_F).to(dev)
         hw = _fit_hw(x, hist, fit, period, grid, max_period)

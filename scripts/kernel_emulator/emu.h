@@ -104,6 +104,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, void*, Args... args) {
 #define __align__(n) __attribute__((aligned(n)))
 #define CUDART_INF_F INFINITY
 #define CUDART_NAN_F NAN
+#define CUDART_NAN NAN
 
 template <typename A, typename B>
 inline std::common_type_t<A, B> min(A a, B b) { return a < b ? a : b; }

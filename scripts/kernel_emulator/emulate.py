@@ -219,6 +219,29 @@ def self_check() -> int:
                                        f"bracketed at a decision edge")
                 except AssertionError as e:
                     expect(name, False, str(e))
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    for T in (128, 300):
+        a = cs.adversarial_st(27, T, g)
+        for C in (0, cs.ST_CHANGEPOINTS):
+            name = f"st_fit T={T} C={C}"
+            try:
+                e, ill = cs.compare_st_fit(a, kernels.st_fit(*a, cs.ST_ORDER, C, 1e-4, 3e-3, 3),
+                                           fc.fit_seasonal_trend_plain(*a, cs.ST_ORDER, 1e-4, C,
+                                                                       3e-3, 3),
+                                           2 + C + 2 * cs.ST_ORDER)
+                expect(name, True, f"preds |err| {e:.3g}, {ill} rows ill-posed")
+            except AssertionError as e:
+                expect(name, False, str(e))
+    for F, H, Z in cs.LSTM_WIDTHS:
+        name = f"lstm_ae F={F} H={H} Z={Z}"
+        p, x, m, mu, sigma = cs.adversarial_lstm(3, 10, F, H, Z, g)  # two CTAs a job
+        try:
+            e = cs.compare_lstm(kernels.lstm_ae(p, x, m, H, Z, mu, sigma),
+                                tl.reconstruction_errors_plain(p, x, m, H, Z, mu, sigma), sigma)
+            expect(name, True, f"err |err| {e:.3g}")
+        except AssertionError as e:
+            expect(name, False, str(e))
     cs.DEV = saved_dev
     kernels.SCRATCH_BYTES = 3 * 16384 * 16  # three CTAs walk the pairs
     for T in (64, 4100):

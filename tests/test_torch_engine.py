@@ -459,11 +459,60 @@ def test_from_env_reads_the_reference_s_variables_and_defaults(env):
     ("PROVENANCE", "0", "queue 1, item 8"), ("QUARANTINE_AFTER", "1", "queue 1, item 8"),
     ("DELTA_FETCH", "false", "queue 1, item 8"), ("CYCLE_DEADLINE_S", "5", "queue 1, item 8"),
     ("LSTM_EPOCHS", "5", "queue 1, item 7"), ("SLO_HPA_S", "30", "queue 1, item 8"),
-    ("LSTM_WINDOW", "64", "queue 1, item 7"), ("ST_ORDER", "2", "queue 2, item 11")])
+    ("LSTM_WINDOW", "64", "queue 1, item 7"), ("LSTM_HIDDEN", "64", "queue 1, item 7")])
 def test_from_env_refuses_the_knobs_of_layers_not_ported(key, value, item):
     env = {key: value, "metric_type_threshold_count": "1", "metric_type0": "latency"}
     with pytest.raises(NotImplementedError, match=f"{key}: .*ROADMAP {item}"):
         E.from_env(env)
+
+
+@pytest.mark.parametrize("env", [{}, {"ST_ORDER": "2", "ST_CHANGEPOINTS": "0"},
+                                 {"ST_ORDER": "five", "ST_CHANGEPOINTS": "20"}],
+                         ids=["defaults", "set", "garbage"])
+def test_from_env_reads_the_seasonal_trend_knobs_as_the_reference(env):
+    from foremast_tpu.engine import config as jax_config
+
+    env = {**env, "ML_ALGORITHM": "prophet_daily"}
+    port, ref = E.from_env(env), jax_config.from_env(env)
+    assert (port.algorithm, port.st_order, port.st_changepoints) == (
+        ref.algorithm, ref.st_order, ref.st_changepoints)
+
+
+def _reference_cycles(cfg, cycles=CYCLES):
+    fleet = Fleet()
+    store = jax_engine.JobStore()
+    for d in fleet.docs(jax_engine):
+        store.create(d)
+    src = JaxRawSource()
+    an = jax_engine.Analyzer(jax_engine.EngineConfig(**cfg), src, store, JaxExporter())
+    digests = []
+    for c in range(cycles):
+        src.pages = fleet.pages()
+        an.run_cycle(worker="w", now=NOW + STEP * c)
+        digests.append(jax_digest(store))
+        fleet.advance(c)
+    return store, digests
+
+
+def test_seasonal_trend_digest_equals_the_reference():
+    """ML_ALGORITHM=seasonal_trend on both engines: the band family runs
+    period detection, the seasonal-trend fit (kernel J's twin) and the band;
+    the digests are equal, or every differing job is explained as in the
+    default fleet's test."""
+    cfg = dict(algorithm="seasonal_trend")
+    ref_store, ref_digests = _reference_cycles(cfg)
+    _, store, digests = run_port(**cfg)
+    report = {}
+    if digests != ref_digests:
+        for d in store.by_status(*E.jobs.OPEN_STATUSES, *E.jobs.TERMINAL_STATUSES):
+            theirs = ref_store.get(d.id)
+            if (d.status, d.reason, d.anomaly) != (theirs.status, theirs.reason, theirs.anomaly):
+                why = _explained(d.id, d, theirs)
+                assert why is not None, (d.id, d.status, d.reason, theirs.status, theirs.reason)
+                report[d.id] = why
+    assert len(report) <= 3, report
+    assert store.get("band-0").status == E.jobs.COMPLETED_UNHEALTH
+    assert store.get("band-1").status == E.jobs.COMPLETED_UNHEALTH
 
 
 # ------------------------------------------------- bivariate and hpa families

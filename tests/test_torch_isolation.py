@@ -61,6 +61,7 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "import foremast_tpu_torch.ops.windowing, foremast_tpu_torch.kernels\n"
         "import foremast_tpu_torch.ops.seqscan, foremast_tpu_torch.ops.triage\n"
         "import foremast_tpu_torch.ops.bivariate, foremast_tpu_torch.ops.hpa\n"
+        "import foremast_tpu_torch.models, foremast_tpu_torch.models.lstm_ae\n"
         "import foremast_tpu_torch.engine, foremast_tpu_torch.engine.triage\n"
         "import foremast_tpu_torch.engine.pipeline, foremast_tpu_torch.engine.staging\n"
         "import foremast_tpu_torch.dataplane, foremast_tpu_torch.native\n"
@@ -93,6 +94,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
                  lambda: tfc.detect_period(x, m, (4,), 2, 0.2),
                  lambda: tfc.fit_holt_winters(x, m, m, 4),
                  lambda: tfc.band_from_preds(x, m, ~m, x, *pol),
+                 lambda: tfc.fit_seasonal_trend(x, m, m, 4),
+                 lambda: tfc.forecast_band(x, m, ~m, *pol, algorithm="seasonal_trend"),
+                 lambda: tfc.forecast_band(x, m, ~m, *pol, algorithm="prophet_daily"),
                  lambda: tsq.ses_predictions_assoc(x, m, 0.3),
                  lambda: tsq.des_predictions_assoc(x, m, 0.5, 0.1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -113,6 +117,21 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert out["flags"].device.type == "cpu" and out["upper1"].shape == (2, 16)
     out = thp.hpa_from_preds(x, m, ~m, x, x, m, row, mode, row, device="cpu")
     assert out["score"].device.type == "cpu"
+    from foremast_tpu_torch.models import lstm_ae as tla
+    params = tla.LstmAutoencoder(hidden=8, latent=4, features=2).state_dict()
+    win = np.zeros((3, 5, 2), np.float32)
+    wmask = np.ones((3, 5, 2), bool)
+    stack = tla.stack_params([params])
+    for call in (lambda: tla.reconstruction_errors(params, win, wmask),
+                 lambda: tla.fit_score_normalizer(params, win, wmask),
+                 lambda: tla.anomaly_scores(params, win, wmask, 0.0, 1.0),
+                 lambda: tla.anomaly_scores_fleet(stack, win[None], wmask[None], [0.0], [1.0],
+                                                  hidden=8, latent=4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert tla.reconstruction_errors(params, win, wmask, device="cpu").device.type == "cpu"
+    out = tfc.forecast_band(x, m, ~m, *pol, algorithm="seasonal_trend", device="cpu")
+    assert out["beta"].device.type == "cpu"
     out = tfl.score_pairs(*args, device="cpu")
     assert out["unhealthy"].device.type == "cpu"
     out = tfc.moving_average_band(x, m, ~m, 5, *pol, device="cpu")
@@ -153,9 +172,20 @@ def test_launchers_refuse_cpu_tensors():
         kernels.hpa_score(x, m, ~m, x, x, m, pol[0], pol[1], pol[0])
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.hpa_score(x, m, ~m, x, x, m, pol[0], pol[1], pol[0], tps_sigma=pol[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.st_fit(x, m, m, torch.full((2,), 4, dtype=torch.int32), 3, 12, 1e-4, 3e-3, 3)
+    with pytest.raises(ValueError, match="at most 32 columns"):
+        kernels.st_fit(x, m, m, torch.full((2,), 4, dtype=torch.int32), 8, 16, 1e-4, 3e-3, 3)
+    P = 2 * 2 * 32 + 8 * 32 + 32 + 8 * 4 + 4 + 4 * 32 + 8 * 32 + 32 + 8 * 2 + 2
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.lstm_ae(torch.zeros((1, P)), torch.zeros((1, 3, 5, 2)),
+                        torch.ones((1, 3, 5, 2), dtype=torch.bool), 8, 4)
+    with pytest.raises(ValueError, match="hidden <= 256"):
+        kernels.lstm_ae(torch.zeros((1, P)), torch.zeros((1, 3, 5, 2)),
+                        torch.ones((1, 3, 5, 2), dtype=torch.bool), 512, 4)
     assert set(kernels.launches) == {"pair_verdict", "ma_band", "band_from_preds", "smooth",
                                      "hw_fit", "affine_scan", "detect_period", "triage_screen",
-                                     "bivariate", "hpa_score"}
+                                     "bivariate", "hpa_score", "st_fit", "lstm_ae"}
     assert all(n == 0 for n in kernels.launches.values())
 
 

@@ -1,4 +1,4 @@
-"""Kernels A to I against their plain twins, on the card.
+"""Kernels A to K against their plain twins, on the card.
 
 These need a CUDA device and nvcc; without them they skip. Run them on the
 card with `python -m pytest --noconftest tests/test_torch_kernels.py`. The
@@ -13,7 +13,9 @@ d2 to chip_smoke's bivariate_tolerance, its flags and counts exact but on
 rows bracketed at the ellipse's edge, its bands to 1e-5 relative plus the
 statistics' float32 noise; kernel I's reason codes exact and scores to
 1e-3 but on rows bracketed at a decision edge, its means to 1e-5 relative,
-the demand to 1e-4.
+the demand to 1e-4; kernel J's preds to 1e-5 of a row's scale (1e-3 on
+ill-posed rows) and beta to 1e-4 of its largest entry; kernel K's errors to
+1e-4 relative and its z-scores on the reference-trained fixture to 1e-3.
 """
 import numpy as np
 import pytest
@@ -234,6 +236,53 @@ def test_hpa_score_matches_twin(card, T, sigma):
     assert errs["score"] <= 1e-3
 
 
+def _card_fleet(monkeypatch):
+    """A small chip_smoke engine fleet: 300 canaries, 200 band monitors, 100
+    two-metric monitors and 60 hpa jobs."""
+    monkeypatch.setattr(cs, "ENGINE_CANARIES", 300)
+    monkeypatch.setattr(cs, "ENGINE_CONTINUOUS", 200)
+    monkeypatch.setattr(cs, "ENGINE_BIVARIATE", 100)
+    monkeypatch.setattr(cs, "ENGINE_HPA", 60)
+    return cs.engine_fleet(np.random.default_rng(7))
+
+
+def _run_fleet(fleet, device, **cfg):
+    """The fleet through the port's Analyzer for chip_smoke's cycles: the
+    digest of each cycle, the documents and the hpalogs."""
+    from foremast_tpu_torch.dataplane.fetch import RawFixtureDataSource
+    from foremast_tpu_torch.engine import Analyzer, EngineConfig, JobStore
+    from foremast_tpu_torch.engine import jobs as J
+
+    store = JobStore()
+    for d in fleet["docs"]():
+        store.create(d)
+    src = RawFixtureDataSource(keep_urls=False)
+    an = Analyzer(EngineConfig(**cfg), src, store, device=device)
+    digests = []
+    for c in range(cs.ENGINE_CYCLES):
+        src.pages = fleet["pages"][c]
+        an.run_cycle(worker="t", now=fleet["now"] + cs.STEP * c)
+        digests.append(J.verdict_digest(store))
+    logs = {jid: sorted(store.hpalogs_for(jid), key=lambda log: log.timestamp)
+            for jid in fleet["hpa_class"]}
+    return digests, {d.id: d for d in store.by_status(*J.OPEN_STATUSES,
+                                                      *J.TERMINAL_STATUSES)}, logs
+
+
+def _same_verdicts(docs, twin):
+    """The same status and anomaly for every job, reasons equal but for
+    printed numbers within float noise."""
+    import re
+
+    num = re.compile(r"-?\d+(?:\.\d+)?(?:e[+-]?\d+)?")
+    for jid, d in docs.items():
+        t = twin[jid]
+        assert (d.status, d.anomaly) == (t.status, t.anomaly), jid
+        assert num.split(d.reason) == num.split(t.reason), jid
+        for a, b in zip(num.findall(d.reason), num.findall(t.reason)):
+            assert abs(float(a) - float(b)) <= 2e-3 * max(abs(float(a)), abs(float(b))) + 1e-4
+
+
 def test_engine_cycle_on_the_card_keeps_one_verdict_state(card, monkeypatch):
     """A small chip_smoke engine fleet (canaries, band monitors, two-metric
     monitors and hpa jobs) through the port's Analyzer on the card: the
@@ -246,37 +295,12 @@ def test_engine_cycle_on_the_card_keeps_one_verdict_state(card, monkeypatch):
     equal or one digit apart at a rounding edge."""
     import re
 
-    from foremast_tpu_torch.dataplane.fetch import RawFixtureDataSource
-    from foremast_tpu_torch.engine import Analyzer, EngineConfig, JobStore
-    from foremast_tpu_torch.engine import jobs as J
-
-    monkeypatch.setattr(cs, "ENGINE_CANARIES", 300)
-    monkeypatch.setattr(cs, "ENGINE_CONTINUOUS", 200)
-    monkeypatch.setattr(cs, "ENGINE_BIVARIATE", 100)
-    monkeypatch.setattr(cs, "ENGINE_HPA", 60)
-    fleet = cs.engine_fleet(np.random.default_rng(7))
-
-    def run(device, **cfg):
-        store = JobStore()
-        for d in fleet["docs"]():
-            store.create(d)
-        src = RawFixtureDataSource(keep_urls=False)
-        an = Analyzer(EngineConfig(**cfg), src, store, device=device)
-        digests = []
-        for c in range(cs.ENGINE_CYCLES):
-            src.pages = fleet["pages"][c]
-            an.run_cycle(worker="t", now=fleet["now"] + cs.STEP * c)
-            digests.append(J.verdict_digest(store))
-        logs = {jid: sorted(store.hpalogs_for(jid), key=lambda log: log.timestamp)
-                for jid in fleet["hpa_class"]}
-        return digests, {d.id: d for d in store.by_status(*J.OPEN_STATUSES,
-                                                          *J.TERMINAL_STATUSES)}, logs
-
-    on_card, docs, logs = run(card)
+    fleet = _card_fleet(monkeypatch)
+    on_card, docs, logs = _run_fleet(fleet, card)
     for cfg in ({"triage": False}, {"score_memo": False}, {"score_pipeline": False},
                 {"megabatch": True}, {"pipeline_fire_rows": 16}):
-        assert run(card, **cfg)[0] == on_card, cfg
-    _, twin, twin_logs = run("cpu")
+        assert _run_fleet(fleet, card, **cfg)[0] == on_card, cfg
+    _, twin, twin_logs = _run_fleet(fleet, "cpu")
     raw = re.compile(r"raw (-?[0-9.]+|nan)\) via (.+?) on")
     for jid, mine in logs.items():
         theirs = twin_logs[jid]
@@ -286,10 +310,60 @@ def test_engine_cycle_on_the_card_keeps_one_verdict_state(card, monkeypatch):
             assert a.hpascore == b.hpascore and wa == wb, (jid, a.reason, b.reason)
             # printed to .1f: equal, or one digit apart at a rounding edge
             assert abs(float(ra) - float(rb)) <= 0.1 + 1e-9, (jid, a.reason, b.reason)
-    num = re.compile(r"-?\d+(?:\.\d+)?(?:e[+-]?\d+)?")
-    for jid, d in docs.items():
-        t = twin[jid]
-        assert (d.status, d.anomaly) == (t.status, t.anomaly), jid
-        assert num.split(d.reason) == num.split(t.reason), jid
-        for a, b in zip(num.findall(d.reason), num.findall(t.reason)):
-            assert abs(float(a) - float(b)) <= 2e-3 * max(abs(float(a)), abs(float(b))) + 1e-4
+    _same_verdicts(docs, twin)
+
+
+def test_engine_cycle_on_the_card_under_seasonal_trend(card, monkeypatch):
+    """The same fleet under ML_ALGORITHM=seasonal_trend: the band family
+    runs kernels F, J and band_from_preds on the card, one digest with the
+    pipeline on and off, and the card's verdicts are the twins'."""
+    fleet = _card_fleet(monkeypatch)
+    before = dict(kernels.launches)
+    on_card, docs, _ = _run_fleet(fleet, card, algorithm="seasonal_trend")
+    for k in ("detect_period", "st_fit", "band_from_preds"):
+        assert kernels.launches[k] > before[k], k
+    assert _run_fleet(fleet, card, algorithm="seasonal_trend", score_pipeline=False)[0] == on_card
+    _, twin, _ = _run_fleet(fleet, "cpu", algorithm="seasonal_trend")
+    _same_verdicts(docs, twin)
+    assert all(docs[j].status == "completed_unhealth" for j in fleet["shifted"])
+
+
+@pytest.mark.parametrize("C", [0, cs.ST_CHANGEPOINTS])
+@pytest.mark.parametrize("T", [128, 2048, 16384])
+def test_st_fit_matches_twin(card, T, C):
+    from foremast_tpu_torch.ops import forecast as fcast
+
+    gen = torch.Generator(device=card).manual_seed(T + C)
+    args = cs.adversarial_st(256 if T == 16384 else 1024, T, gen)
+    before = kernels.launches["st_fit"]
+    kern = fcast.fit_seasonal_trend(*args, cs.ST_ORDER, n_changepoints=C)
+    assert kernels.launches["st_fit"] == before + 1
+    plain = fcast.fit_seasonal_trend_plain(*args, cs.ST_ORDER, 1e-4, C, 3e-3, 3)
+    torch.cuda.synchronize()
+    cs.compare_st_fit(args, kern, plain, 2 + C + 2 * cs.ST_ORDER)
+
+
+@pytest.mark.parametrize("F,H,Z", cs.LSTM_WIDTHS)
+def test_lstm_ae_matches_twin(card, F, H, Z):
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=card).manual_seed(F * H + Z)
+    p, x, m, mu, sigma = cs.adversarial_lstm(128, 11, F, H, Z, gen)
+    before = kernels.launches["lstm_ae"]
+    z = tl.anomaly_scores_fleet(p, x, m, mu, sigma, hidden=H, latent=Z)
+    assert kernels.launches["lstm_ae"] == before + 1
+    kern = kernels.lstm_ae(p, x, m, H, Z, mu, sigma)
+    assert torch.equal(kern[1], z)
+    cs.compare_lstm(kern, tl.reconstruction_errors_plain(p, x, m, H, Z, mu, sigma), sigma)
+
+
+def test_lstm_ae_scores_the_reference_trained_fixture_as_the_reference(card):
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    d = np.load(cs.LSTM_FIXTURE)
+    F, H, Z, W = (int(v) for v in d["dims"])
+    z = tl.anomaly_scores_fleet(d["params"], d["x"], d["mask"], d["mu"], d["sigma"],
+                                hidden=H, latent=Z).cpu().numpy()
+    np.testing.assert_allclose(z, d["z"], rtol=0, atol=1e-3)
+    edge = np.abs(d["z"] - 3.0) <= 1e-3
+    np.testing.assert_array_equal((z > 3)[~edge], (d["z"] > 3)[~edge])
