@@ -37,7 +37,12 @@ ends; any failure exits non-zero:
              at masked slots and periods from the candidates, the fallback
              and 2; kernel K at (F, H, Z) in {(3, 32, 16), (4, 32, 16),
              (8, 32, 16), (4, 128, 64)}, W = 32, on windows with gaps, fully
-             masked and with a masked head;
+             masked and with a masked head; kernel L (loss and gradient)
+             against torch autograd through the twin at the same widths and
+             W in {8, 32}, on windows with gaps, fully masked, with a masked
+             head and NaN at a masked slot; kernel M against the written-out
+             Adam bit for bit on L's partials; kernel F also with 40
+             candidates at T in {1024, 16384};
   4. pairs   the pair path at full size: 100,000 ErrorGenerator-style
              (baseline, canary) pairs at T = 128 through resample_to_grid ->
              pack_windows -> score_pairs on the card; every bad canary
@@ -74,6 +79,13 @@ ends; any failure exits non-zero:
              x 4 metrics through anomaly_scores_fleet; the normalizer pass of
              10,000 jobs x 45 windows (a day); the module's default width,
              H = 128, Z = 64, on 10,000 jobs of seeded parameters (7.1 GB).
+             Then training (kernels L and M): train_fleet from the
+             reference's fixture (tests/data/lstm_ae_train_ref.npz) against
+             its initial row, per-epoch losses, stop epoch, mu, sigma and z;
+             train_fleet over 1,024 jobs (MAX_CACHE_SIZE) x a day of 45
+             windows at the engine's width, with one epoch's L forward, L
+             backward and M timed alone beside their bounds, their twins and,
+             beside M, torch.optim.Adam(fused=True).
   9. engine  the engine cycle at fleet size: 11,500 jobs (6,000 canaries
              with a 128-step baseline and current window of http_errors_5xx,
              4,000 continuous latency monitors with 1 day of history and 60
@@ -96,14 +108,20 @@ ends; any failure exits non-zero:
              host stage) ends with the same verdict digest. Then one cycle
              under ML_ALGORITHM=seasonal_trend (kernels F, J, B in the band
              family): every shifted monitor unhealthy, healthy ones flagged
-             under 1%, kernel J against its twin on the engine's rows.
+             under 1%, kernel J against its twin on the engine's rows. Then
+             the arm engine_lstm: 575 continuous three-metric jobs over 32
+             apps (10% with a joint anomaly) under the default EngineConfig,
+             on the card and with device="cpu", cycles until one trains no
+             model: no job fails scoring, every job judged, kernels L, M and
+             K launch, verdicts equal to the twins' but within 0.01 of the
+             threshold in z.
 
 Kernel G (the triage screen) is held against its twin in phase 3, beside
 kernel B's ma_band on the 100,000 rows of phases 5 and 6 (equal counts but at
 band edges, shrunk count >= count) and alone at the engine's shape in phase 8.
 
 Each path (each algorithm of the seasonal phase, each family call, the
-LSTM scoring pass, each engine cycle) resets
+LSTM scoring and training passes, each engine cycle) resets
 the launch counters just before it runs and reads them just after: a kernel
 of the path that did not launch fails the run. The second-to-last line is a JSON object with each
 kernel's launches, error against its twin, times on the card and bound; the
@@ -415,6 +433,8 @@ def kernel_b_vs_twin(gen):
 # ---------------------------------------------------------------------------
 EPS32 = float(np.finfo(np.float32).eps)
 PERIOD_CANDIDATES = (60, 480, 720, 1440)  # EngineConfig.hw_period_candidates
+# 40 candidates: every multiple of 12 steps up to 8 hours, and a day
+MANY_CANDIDATES = tuple(range(12, 480, 12)) + (1440,)
 
 
 def adversarial_series(B, T, gen):
@@ -607,6 +627,14 @@ def kernels_c_to_f_vs_twin(gen):
         candt = torch.tensor(cands, dtype=torch.int32, device=DEV)
         errs["detect_period"], near = compare_detect_period(
             x, hist, cands, fb, kernels.detect_period(x, hist, candt, fb, 0.2, 0.05, 0.01))
+        if T in (1024, 16384):
+            # past the 16 candidates kernel F once took, and past its cache
+            # of 32 lags (each computed again there)
+            many = MANY_CANDIDATES
+            manyt = torch.tensor(many, dtype=torch.int32, device=DEV)
+            errs["detect_period_40"], near40 = compare_detect_period(
+                x[:n], hist[:n], many, fb[:n],
+                kernels.detect_period(x[:n], hist[:n], manyt, fb[:n], 0.2, 0.05, 0.01))
         preds = torch.where(torch.isfinite(x), x, 30.0) + torch.randn((B, T), generator=gen,
                                                                        device=DEV)
         errs["band_from_preds"], bracketed = compare_band_from_preds(
@@ -1325,6 +1353,106 @@ def kernel_k_vs_twin(gen):
         torch.cuda.synchronize()
         print(f"  lstm_ae F={F} H={H} Z={Z} ({tl.param_count(F, H, Z)} parameters a job): {J} "
               f"jobs x {K} windows, max |d err| {err:.3g}", flush=True)
+
+
+LSTM_TRAIN_WS = (8, 32)  # window lengths of kernel L's check
+LSTM_TRAIN_CHECK_JOBS = 64
+LSTM_TRAIN_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                                  "lstm_ae_train_ref.npz")
+
+
+def adversarial_lstm_train(J, K, W, F, H, Z, gen):
+    """J jobs of K >= 2 windows of W steps on the card: values N(0, 1), 10%
+    gaps, job 0's first window fully masked, every job's second window with
+    a masked head (the engine's tail window), job 1's first slot masked and
+    NaN (the encoder reads x as given, so its loss and gradient are NaN on
+    both sides, and only its own); parameters at flax's initial scales.
+    Returns (params, x, mask)."""
+    x = torch.randn((J, K, W, F), generator=gen, device=DEV)
+    m = torch.rand((J, K, W, F), generator=gen, device=DEV) > 0.1
+    m[0, 0] = False
+    m[:, 1, :max(W // 4, 1)] = False
+    m[1, 0, 0, 0] = False
+    x[1, 0, 0, 0] = float("nan")
+    return lstm_params(J, F, H, Z, gen), x.contiguous(), m.contiguous()
+
+
+def compare_lstm_train(kern, plain):
+    """Kernel L's (loss, gradient) against torch autograd through the twin:
+    float32 products summed in other orders through 2W recurrent steps
+    forward and back, the loss's sums in float64 (the twin's in float32).
+    A job whose loss is NaN on one side is NaN on the other; elsewhere the
+    loss within 1e-5 relative and each job's gradient within 1e-4 of its
+    largest entry. Returns the largest |d grad|."""
+    (kl, kg), (pl, pg) = kern, plain
+    nan = torch.isnan(pl)
+    check(bool((torch.isnan(kl) == nan).all()), "lstm_train loss: NaN jobs differ")
+    ok = ~nan
+    check(bool(torch.isfinite(kg[ok]).all()), "lstm_train gradient not finite")
+    dl = (kl[ok].double() - pl[ok].double()).abs()
+    check(bool((dl <= 1e-5 * pl[ok].double().abs() + 1e-7).all()),
+          f"lstm_train loss differs by {float(dl.max()):.3g}")
+    dg = (kg[ok].double() - pg[ok].double()).abs()
+    lim = 1e-4 * pg[ok].double().abs().amax(1, keepdim=True) + 1e-9
+    check(bool((dg <= lim).all()), f"lstm_train gradient differs by {float(dg.max()):.3g} "
+                                   f"(relative {float((dg / lim).max() * 1e-4):.3g})")
+    return float(dg.max())
+
+
+def same_or_both_nan(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def compare_adam(params, mu, nu, step, gpart, num, cnt):
+    """Kernel M against the written-out Adam (reduce_partials_plain, then
+    adam_plain) on the same partials: bit for bit (NaN where the other is
+    NaN). Both sum the partials in block order and round every operation
+    once in float32 (IEEE division, a correctly rounded square root, b^t in
+    float64); nothing is contracted. Returns the largest |d| (0)."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    k = [t.clone() for t in (params, mu, nu)]
+    loss = kernels.adam(*k, step, gpart, num, cnt, tl.LEARNING_RATE, tl.ADAM_B1, tl.ADAM_B2,
+                        tl.ADAM_EPS)
+    p = [t.clone() for t in (params, mu, nu)]
+    tl.adam_plain(*p[:1], tl.reduce_partials_plain(gpart, cnt), *p[1:], step)
+    want = num.sum(1).float() / cnt.sum(1).float().clamp(min=1.0)
+    for name, a, b in (("params", k[0], p[0]), ("mu", k[1], p[1]), ("nu", k[2], p[2]),
+                       ("loss", loss, want)):
+        check(same_or_both_nan(a, b), f"adam: {name} differs from the written-out Adam by "
+                                      f"{max_abs_err(a, b):.3g}")
+    return max(max_abs_err(a, b) for a, b in zip(k, p))
+
+
+def kernels_l_m_vs_twin(gen):
+    """Kernel L against torch autograd through the twin at (F, H, Z) in
+    LSTM_WIDTHS and W in LSTM_TRAIN_WS on adversarial windows (two window
+    blocks a job; at H = 128 the backward's gradient sums in device memory),
+    and kernel M against the written-out Adam on L's partials."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    for F, H, Z in LSTM_WIDTHS:
+        for W in LSTM_TRAIN_WS:
+            J, K = LSTM_TRAIN_CHECK_JOBS, 11
+            p, x, m = adversarial_lstm_train(J, K, W, F, H, Z, gen)
+            kern = tl.loss_and_grad(p, x, m, hidden=H, latent=Z, device=DEV)
+            with torch.enable_grad():
+                q = p.clone().requires_grad_(True)
+                pl = tl.loss_plain(q, x, m, H, Z)
+                pg, = torch.autograd.grad(pl.sum(), q)
+            g_err = compare_lstm_train(kern, (pl.detach(), pg))
+            num, cnt, act = kernels.lstm_train_forward(p, x, m, H, Z)
+            gpart = kernels.lstm_train_backward(p, x, m, act, H, Z)
+            step = torch.randint(1, 40, (J,), generator=gen, device=DEV, dtype=torch.int32)
+            mu = 1e-3 * torch.randn(p.shape, generator=gen, device=DEV)
+            nu = 1e-6 * torch.rand(p.shape, generator=gen, device=DEV)
+            compare_adam(p, mu, nu, step, gpart, num, cnt)
+            torch.cuda.synchronize()
+            print(f"  lstm_train F={F} H={H} Z={Z} W={W}: {J} jobs x {K} windows, max |d grad| "
+                  f"{g_err:.3g}, loss NaN on the NaN job on both sides; adam bit for bit",
+                  flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2244,6 +2372,191 @@ def lstm_path(gen):
     return row
 
 
+LSTM_TRAIN_JOBS = 1_024  # MAX_CACHE_SIZE: a cold restart's training at once
+LSTM_TRAIN_RUNS = 5
+
+
+def lstm_train_bounds(J, K, W, F, H, Z, nkb):
+    """Least times of one training epoch's kernels on these shapes:
+    L's forward (kernel K's multiply-adds; parameters and windows read once,
+    the activations (J K 2 W 5H floats) and the block sums written once);
+    L's backward (a step's products with the transposed weights and the
+    weight gradients: W (3 H F + 2 H 4H) in the decoder and head, W (2F 4H +
+    2 H 4H) in the encoder, 3 H Z + 2 Z 4H for the latent; parameters,
+    windows and activations read once, the partial gradients (J nkb P
+    floats) written once); M (the partials read once, parameters and both
+    moments read and written once, ~(nkb + 12) operations an entry)."""
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    G, P = 4 * H, tl.param_count(F, H, Z)
+    win = J * K
+    fwd_macs = W * (G * (2 * F + H) + G * H + H * F) + H * Z + Z * G
+    bwd_macs = W * (3 * H * F + 2 * H * G) + W * (2 * F * G + 2 * H * G) + 3 * H * Z + 2 * Z * G
+    inputs = J * P * 4 + win * W * F * 5
+    act = win * 2 * W * 5 * H * 4
+    return (least_time(inputs + act + J * nkb * 16, float(win * fwd_macs)),
+            least_time(inputs + act + J * nkb * P * 4, float(win * bwd_macs)),
+            least_time(J * nkb * P * 4 + 6 * J * P * 4 + J * (4 + nkb * 16),
+                       float(J * P * (nkb + 12))))
+
+
+def lstm_train_reference(tl):
+    """train_fleet on the card from the reference's fixture
+    (tests/data/lstm_ae_train_ref.npz, 8 jobs x 45 windows, F = 4, H = 32,
+    Z = 16, W = 32, 30 epochs): the initial row equal to the reference's
+    (its truncated-normal groups bit for bit, the orthogonal recurrent
+    kernels within 3e-6: the reference's float32 QR against ours in
+    float64), each epoch's fleet-mean loss within 1e-5 relative, the same
+    stop epoch, mu and sigma within 1e-4 relative, and the z of the scoring
+    fixture's windows within 1e-3 of the reference's with equal verdicts
+    outside 1e-3 of the threshold."""
+    from foremast_tpu_torch.models import lstm_init as li
+
+    with np.load(LSTM_TRAIN_FIXTURE) as d:
+        tr = {k: d[k] for k in d.files}
+    with np.load(LSTM_FIXTURE) as d:
+        ev = {k: torch.from_numpy(d[k]).to(DEV) for k in d.files}
+    F, H, Z, W, E = (int(v) for v in tr["dims"])
+    init = li.init_params(F, H, Z).numpy()
+    shapes = tl.param_shapes(F, H, Z)
+    ortho = np.concatenate([np.full(math.prod(s), k.endswith(".wh")) for k, s in shapes.items()])
+    d_init = np.abs(init - tr["init"])
+    check(bool((d_init[~ortho] == 0).all()), "the initial row's truncated-normal groups differ "
+                                             "from the reference's")
+    check(float(d_init[ortho].max()) <= 3e-6, f"the initial orthogonal kernels differ by "
+                                              f"{float(d_init[ortho].max()):.3g}")
+    hist = []
+    params, mu, sd = tl.train_fleet(tr["x_train"], tr["m_train"], hidden=H, latent=Z, epochs=E,
+                                    device=DEV, history=hist)
+    losses = torch.stack(hist).double().cpu().numpy()
+    check(len(losses) == len(tr["losses"]), f"train_fleet stopped after {len(losses)} epochs, "
+                                            f"the reference after {len(tr['losses'])}")
+    d_loss = float((np.abs(losses - tr["losses"]) / tr["losses"]).max())
+    check(d_loss <= 1e-5, f"the fleet-mean losses differ from the reference's by {d_loss:.3g}")
+    d_mu = float(np.abs(mu.cpu().numpy() / tr["mu"] - 1).max())
+    d_sd = float(np.abs(sd.cpu().numpy() / tr["sigma"] - 1).max())
+    check(d_mu <= 1e-4 and d_sd <= 1e-4, f"mu / sigma differ from the reference's by {d_mu:.3g} "
+                                         f"/ {d_sd:.3g}")
+    z = tl.anomaly_scores_fleet(params, ev["x"], ev["mask"], mu, sd, hidden=H, latent=Z,
+                                device=DEV)
+    dz = float((z - ev["z"]).abs().max())
+    check(dz <= 1e-3, f"the trained models' z differ from the reference's by {dz:.3g}")
+    edge = (ev["z"] - 3.0).abs() <= 1e-3
+    wrong = int((((z > 3) != (ev["z"] > 3)) & ~edge).sum())
+    check(wrong == 0, f"{wrong} verdicts of the trained models differ from the reference's")
+    d_par = float(np.abs(params.cpu().numpy() - tr["params"]).max())
+    print(f"  training from the reference's fixture ({tr['x_train'].shape[0]} jobs x "
+          f"{tr['x_train'].shape[1]} windows, F={F} H={H} Z={Z} W={W}): initial row equal to the "
+          f"reference's (orthogonal kernels within {float(d_init[ortho].max()):.3g}); "
+          f"{len(losses)} of {E} epochs as the reference; fleet-mean loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}, max relative difference {d_loss:.3g}; mu {d_mu:.3g}, sigma "
+          f"{d_sd:.3g} relative; parameters within {d_par:.3g}; z of the scoring fixture within "
+          f"{dz:.3g}, {int(edge.sum())} at the edge, verdicts equal", flush=True)
+
+
+def lstm_train_path(gen):
+    """Phase `lstm`, training: the reference check, then train_fleet over
+    LSTM_TRAIN_JOBS jobs of a day of standardized metrics (45 windows of 32
+    steps x 4 at H = 32, Z = 16: the engine's width) on the card: epochs
+    run, the whole call, and one epoch's kernels L (forward, backward) and M
+    timed alone with their bounds, the twins' times, and beside M one
+    torch.optim.Adam(fused=True).step() over the same rows. Returns the
+    kernels line's rows for L's two entries and M."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    lstm_train_reference(tl)
+    F, H, Z, W = 4, 32, 16, LSTM_W
+    J = LSTM_TRAIN_JOBS
+    x, m = lstm_day_windows(J, gen)
+    K = x.shape[1]
+    KB, nkb = kernels.lstm_train_blocks(K, F)
+    hist = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params, mu, sd = tl.train_fleet(x, m, hidden=H, latent=Z, epochs=30, device=DEV,
+                                    history=hist)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    E = len(hist)
+    for k in ("lstm_train_forward", "lstm_train_backward", "adam"):
+        check(launches[k] == E, f"train_fleet ran {E} epochs but launched {k} {launches[k]} "
+                                f"times")
+    check(launches["lstm_ae"] == 1, "train_fleet's normalizer did not launch lstm_ae once")
+    check(bool(torch.isfinite(mu).all() and torch.isfinite(sd).all() and (sd > 0).all()),
+          "train_fleet's normalizers are not finite and positive")
+    losses = [float(h) for h in hist]
+    # one epoch's kernels alone, from the trained rows
+    step = torch.full((J,), E + 1, dtype=torch.int32, device=DEV)
+    mom = [torch.zeros_like(params), torch.zeros_like(params)]
+    num, cnt, act = kernels.lstm_train_forward(params, x, m, H, Z)
+    fwd_ms = cuda_ms(lambda: kernels.lstm_train_forward(params, x, m, H, Z), LSTM_TRAIN_RUNS)
+    gpart = kernels.lstm_train_backward(params, x, m, act, H, Z)
+    bwd_ms = cuda_ms(lambda: kernels.lstm_train_backward(params, x, m, act, H, Z),
+                     LSTM_TRAIN_RUNS)
+    del act
+    work = [params.clone(), *mom]
+    adam_ms = cuda_ms(lambda: kernels.adam(*work, step, gpart, num, cnt, tl.LEARNING_RATE,
+                                           tl.ADAM_B1, tl.ADAM_B2, tl.ADAM_EPS), TIMED_RUNS)
+    adam_err = compare_adam(params, *mom, step, gpart, num, cnt)
+    grad = tl.reduce_partials_plain(gpart, cnt)
+    plain_adam = cuda_ms(lambda: tl.adam_plain(work[0], tl.reduce_partials_plain(gpart, cnt),
+                                               work[1], work[2], step), 3)
+    # the yardstick: PyTorch's fused Adam over the same rows and gradient
+    lib_p = torch.nn.Parameter(params.clone())
+    lib_p.grad = grad
+    opt = torch.optim.Adam([lib_p], lr=tl.LEARNING_RATE, betas=(tl.ADAM_B1, tl.ADAM_B2),
+                           eps=tl.ADAM_EPS, fused=True)
+    lib_ms = cuda_ms(opt.step, TIMED_RUNS)
+    del lib_p, opt, work, grad
+    # the twins, and kernel L against autograd on a slice
+    n = 64
+    sub = (params[:n].contiguous(), x[:n].contiguous(), m[:n].contiguous())
+    kern = tl.loss_and_grad(*sub, hidden=H, latent=Z, device=DEV)
+    with torch.enable_grad():
+        q = sub[0].clone().requires_grad_(True)
+        pl = tl.loss_plain(q, *sub[1:], H, Z)
+        pg, = torch.autograd.grad(pl.sum(), q)
+    l_err = compare_lstm_train(kern, (pl.detach(), pg))
+    plain_fwd = cuda_ms(lambda: tl.loss_plain(params, x, m, H, Z), 2)
+    with torch.enable_grad():
+        q = params.clone().requires_grad_(True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        pl = tl.loss_plain(q, x, m, H, Z)
+        torch.cuda.synchronize()
+        start.record()
+        torch.autograd.grad(pl.sum(), q)
+        end.record()
+        torch.cuda.synchronize()
+        plain_bwd = start.elapsed_time(end)
+        del pl, q
+    torch.cuda.empty_cache()
+    fb, bb, mb = lstm_train_bounds(J, K, W, F, H, Z, nkb)
+    print(f"  training pass: {J} jobs x {K} windows x {W} steps x {F} metrics (windows "
+          f"{x.numel() * 5 / 1e6:.1f} MB, activations {J * K * 2 * W * 5 * H * 4 / 1e9:.2f} GB, "
+          f"partial gradients {gpart.numel() * 4 / 1e9:.2f} GB): train_fleet {wall:.3f} s for "
+          f"{E} epochs ({wall / E * 1e3:.1f} ms an epoch with the plateau's host reads and the "
+          f"normalizer), fleet-mean loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; one epoch: lstm_train_forward "
+          f"{fwd_ms:.3f} ms (bound {fb['bound_ms']:.3f} ms, {fb['bound_by']}; twin "
+          f"{plain_fwd:.1f} ms), lstm_train_backward {bwd_ms:.3f} ms (bound {bb['bound_ms']:.3f} "
+          f"ms, {bb['bound_by']}; autograd's backward {plain_bwd:.1f} ms), adam {adam_ms:.3f} ms "
+          f"(bound {mb['bound_ms']:.3f} ms, {mb['bound_by']}; written-out twin "
+          f"{plain_adam:.3f} ms; torch.optim.Adam(fused=True).step() {lib_ms:.3f} ms); L "
+          f"against autograd on {n} jobs: max |d grad| {l_err:.3g}; M bit for bit", flush=True)
+    del x, m, gpart, params
+    torch.cuda.empty_cache()
+    return [
+        {"name": "lstm_train_forward", "launches": launches["lstm_train_forward"],
+         "max_abs_err": l_err, "ms": fwd_ms, "plain_ms": plain_fwd, "library_ms": None, **fb},
+        {"name": "lstm_train_backward", "launches": launches["lstm_train_backward"],
+         "max_abs_err": l_err, "ms": bwd_ms, "plain_ms": plain_bwd, "library_ms": None, **bb},
+        {"name": "adam", "launches": launches["adam"], "max_abs_err": adam_err, "ms": adam_ms,
+         "plain_ms": plain_adam, "library_ms": lib_ms, **mb}]
+
+
 # ---------------------------------------------------------------------------
 # the engine cycle at fleet size
 # ---------------------------------------------------------------------------
@@ -2751,6 +3064,175 @@ def engine_seasonal_trend(fleet, band_args):
           f"ill-posed (the empty padding rows among them)", flush=True)
 
 
+ENGINE_LSTM_JOBS, ENGINE_LSTM_APPS = 575, 32  # bench_cycle's 5% of 11,500, lstm_doc's apps
+ENGINE_LSTM_METRICS = ("latency", "cpu", "tps")
+# how far a job's z may move between the card and the twins (kernels L, M
+# and K against autograd and the twin's sums in other orders, through 30
+# epochs of training): a verdict may differ only within this of
+# LSTM_THRESHOLD
+ENGINE_LSTM_DRIFT = 1e-2
+
+
+def engine_lstm_fleet(rng):
+    """575 continuous three-metric jobs (latency, cpu, tps; bench_cycle's
+    lstm_doc) over 32 app identities, as query_range bodies: 1,440 history
+    and 60 current points at 60 s; per app a daily load cycle (its phase),
+    per job its levels (latency [20, 80] ms rising 30% with load, cpu
+    [10, 40]% and tps [100, 500]/s with load) and noise (6%, 5%, 3%); 10% of
+    the jobs with a joint anomaly over the current window (latency up 4 and
+    tps down 3 history standard deviations); scrape offsets of 0-5 s, 5%
+    lost scrapes."""
+    from foremast_tpu_torch.engine import Document, MetricQueries
+
+    n, nh = ENGINE_HIST + ENGINE_CUR, ENGINE_HIST
+    t = np.arange(n)
+    phase = rng.uniform(0, 2 * np.pi, ENGINE_LSTM_APPS)
+    anomalous = rng.random(ENGINE_LSTM_JOBS) < 0.10
+    pages, docs = {}, []
+    for i in range(ENGINE_LSTM_JOBS):
+        jid = f"lstm-{i:04d}"
+        load = 1 + 0.5 * np.sin(2 * np.pi * t / 1440 + phase[i % ENGINE_LSTM_APPS])
+        vals = {"latency": rng.uniform(20, 80) * (1 + 0.3 * (load - 1))
+                * (1 + 0.06 * rng.standard_normal(n)),
+                "cpu": rng.uniform(10, 40) * load * (1 + 0.05 * rng.standard_normal(n)),
+                "tps": rng.uniform(100, 500) * load * (1 + 0.03 * rng.standard_normal(n))}
+        if anomalous[i]:
+            vals["latency"][nh:] += 4 * vals["latency"][:nh].std()
+            vals["tps"][nh:] -= 3 * vals["tps"][:nh].std()
+        metrics = {}
+        for name in ENGINE_LSTM_METRICS:
+            ts = ENGINE_T0 + STEP * t + rng.uniform(0, 5, n)
+            pts = _prom_points(ts, vals[name], rng.random(n) > 0.05)
+            uh, uc = (f"http://prometheus/q/{jid}/{name}/{r}" for r in ("h", "c"))
+            pages[uh], pages[uc] = _prom_body(pts[:nh]), _prom_body(pts[nh:])
+            metrics[name] = MetricQueries(current=uc, historical=uh)
+        docs.append((jid, f"lstm-app-{i % ENGINE_LSTM_APPS}", metrics))
+
+    def make_docs():
+        return [Document(id=jid, app_name=app, namespace="smoke", strategy="continuous",
+                         start_time="", end_time="", metrics=dict(metrics))
+                for jid, app, metrics in docs]
+
+    return {"pages": pages, "docs": make_docs, "now": ENGINE_T0 + STEP * n,
+            "anomalous": {f"lstm-{i:04d}" for i in np.nonzero(anomalous)[0]}}
+
+
+def engine_lstm_arm(fleet, device):
+    """The LSTM fleet through the port's Analyzer (default EngineConfig) on
+    `device`: cycles until one trains no model (the budget of 8 a cycle at
+    32 identities: four training cycles), that last one the scored cycle.
+    Per cycle: wall, the models trained, engine.lstm_train's seconds, the
+    kernel launches (counts reset just before the cycle, read just after).
+    Returns (store, cycles, {job: last z}, judged ids per cycle)."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.dataplane.fetch import RawFixtureDataSource
+    from foremast_tpu_torch.engine import Analyzer, EngineConfig, JobStore
+    from foremast_tpu_torch.utils import tracing
+
+    store = JobStore()
+    for doc in fleet["docs"]():
+        store.create(doc)
+    an = Analyzer(EngineConfig(), RawFixtureDataSource(fleet["pages"], keep_urls=False), store,
+                  device=device)
+    zs, judged = {}, []
+    score_multi = an._score_multi
+
+    def record(items):
+        res = score_multi(items)
+        for (jid, _m, _f), r in res.items():
+            zs[jid] = r["z"]
+            judged[-1].add(jid)
+        return res
+
+    an._score_multi = record
+    cycles = []
+    for c in range(8):
+        judged.append(set())
+        kernels.reset_launches()
+        tr0 = tracing.tracer.stats().get("engine.lstm_train", {}).get("total_seconds", 0.0)
+        t0 = time.perf_counter()
+        an.run_cycle(worker="smoke", now=fleet["now"])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr1 = tracing.tracer.stats().get("engine.lstm_train", {}).get("total_seconds", 0.0)
+        cycles.append({"wall_s": wall, "trained": an._lstm_trained_this_cycle,
+                       "train_s": tr1 - tr0, "jobs": an.last_cycle_stages["jobs"],
+                       "skips": len(an._lstm_budget_skipped_ids),
+                       "launches": {k: v for k, v in kernels.launches.items() if v}})
+        if an._lstm_trained_this_cycle == 0:
+            break
+    return store, cycles, zs, judged
+
+
+def engine_lstm(rng):
+    """Phase `engine`, arm engine_lstm: the LSTM fleet on the card and again
+    with device="cpu" (the twins). No job fails scoring, every job is judged
+    by the scored cycle (unhealthy before it, or judged in it), kernels L, M
+    and K launch in the card's arm, and the verdicts equal the twins' job by
+    job but where a job's z lies within ENGINE_LSTM_DRIFT of LSTM_THRESHOLD
+    (those jobs are printed). Reports recall, healthy jobs flagged,
+    engine.lstm_train seconds and wall time per cycle."""
+    from foremast_tpu_torch.engine import EngineConfig
+    from foremast_tpu_torch.engine import jobs as J
+
+    t0 = time.perf_counter()
+    fleet = engine_lstm_fleet(rng)
+    print(f"  engine_lstm: {ENGINE_LSTM_JOBS} three-metric jobs over {ENGINE_LSTM_APPS} apps as "
+          f"query_range bodies, made in {time.perf_counter() - t0:.1f} s; "
+          f"{len(fleet['anomalous'])} with a joint anomaly", flush=True)
+    thr = EngineConfig().lstm_threshold
+    runs = {}
+    for dev in (DEV, "cpu"):
+        store, cycles, zs, judged = engine_lstm_arm(fleet, dev)
+        docs = store.by_status(*J.OPEN_STATUSES, *J.TERMINAL_STATUSES)
+        status = {d.id: d.status for d in docs}
+        failed = [d.id for d in docs if d.reason.startswith("scoring failed")
+                  or d.status in ("abort", "preprocess_failed")]
+        check(not failed, f"engine_lstm on {dev}: {len(failed)} jobs failed scoring, e.g. "
+                          f"{failed[:3]}")
+        last = cycles[-1]
+        check(last["trained"] == 0 and last["skips"] == 0,
+              f"engine_lstm on {dev}: no cycle of 8 judged every job")
+        open_jobs = {j for j, st in status.items() if st != J.COMPLETED_UNHEALTH}
+        check(open_jobs <= judged[-1], f"engine_lstm on {dev}: {len(open_jobs - judged[-1])} "
+                                       f"open jobs not judged by the scored cycle")
+        check(set(zs) == set(status), f"engine_lstm on {dev}: {len(set(status) - set(zs))} jobs "
+                                      f"never judged")
+        runs[dev] = (status, zs)
+        anom = fleet["anomalous"]
+        recall = sum(status[j] == J.COMPLETED_UNHEALTH for j in anom) / max(len(anom), 1)
+        healthy = [j for j in status if j not in anom]
+        flagged = sum(status[j] == J.COMPLETED_UNHEALTH for j in healthy) / len(healthy)
+        for c, rec in enumerate(cycles):
+            print(f"  engine_lstm on {dev}, cycle {c + 1}: {rec['jobs']} jobs in "
+                  f"{rec['wall_s']:.3f} s, {rec['trained']} models trained "
+                  f"(engine.lstm_train {rec['train_s']:.3f} s), {rec['skips']} jobs left for a "
+                  f"later budget; kernel launches {rec['launches']}", flush=True)
+        print(f"  engine_lstm on {dev}: recall {recall:.4f} ({len(anom)} anomalous jobs), "
+              f"healthy jobs flagged {flagged:.4f}", flush=True)
+        if dev == DEV:
+            total = {}
+            for rec in cycles:
+                for k, v in rec["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            for k in ("lstm_train_forward", "lstm_train_backward", "adam", "lstm_ae"):
+                check(total.get(k, 0) >= 1, f"engine_lstm on the card launched no {k}")
+            card_launches = total
+    (st_k, z_k), (st_c, z_c) = runs[DEV], runs["cpu"]
+    edge = {j for j in z_k if min(abs(z_k[j] - thr), abs(z_c[j] - thr)) <= ENGINE_LSTM_DRIFT}
+    differ = {j for j in st_k if st_k[j] != st_c[j]}
+    check(differ <= edge, f"engine_lstm: {len(differ - edge)} verdicts differ between the card "
+                          f"and the twins away from the threshold, e.g. "
+                          f"{[(j, z_k[j], z_c[j]) for j in sorted(differ - edge)[:3]]}")
+    dz = max(abs(z_k[j] - z_c[j]) for j in z_k)
+    print(f"  engine_lstm: card against twins: verdicts equal on {len(st_k) - len(differ)} of "
+          f"{len(st_k)} jobs; max |d z| {dz:.3g}; boundary jobs (z within {ENGINE_LSTM_DRIFT} of "
+          f"{thr}): {[(j, round(z_k[j], 4), round(z_c[j], 4)) for j in sorted(edge)]}",
+          flush=True)
+    return card_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2795,6 +3277,7 @@ def main() -> int:
     kernels_h_i_vs_twin(gen)
     kernel_j_vs_twin(gen)
     kernel_k_vs_twin(gen)
+    kernels_l_m_vs_twin(gen)
 
     phase("pairs")
     a = pair_path(rng)
@@ -2806,8 +3289,10 @@ def main() -> int:
     fam = families_path(gen)
     phase("lstm")
     k = lstm_path(gen)
+    lm = lstm_train_path(gen)
     phase("engine")
     g, engine_launches = engine_path(rng)
+    lstm_launches = engine_lstm(rng)
     phase()
     print(f"  triage_screen, 100,000 rows: {g_bands['ms']:.3f} ms at T = {BAND_T} (bound "
           f"{g_bands['bound_ms']:.3f} ms, twin {g_bands['plain_ms']:.1f} ms, torch.sort "
@@ -2837,7 +3322,13 @@ def main() -> int:
          "replaces": "foremast_tpu/ops/forecast.py:400", **s["st_fit"]},
         {"name": "lstm_ae", "source": csrc + "lstm_ae.cu",
          "replaces": "foremast_tpu/models/lstm_ae.py:240", **k},
+        {"source": csrc + "lstm_train.cu", "replaces": "foremast_tpu/models/lstm_ae.py:88",
+         **lm[0]},
+        {"source": csrc + "lstm_train.cu", "replaces": "foremast_tpu/models/lstm_ae.py:88",
+         **lm[1]},
+        {"source": csrc + "adam.cu", "replaces": "foremast_tpu/models/lstm_ae.py:144", **lm[2]},
     ]
+    print(f"  engine_lstm arm's launches on the card: {lstm_launches}", flush=True)
     # kernels H and I: times at the engine's bucket (phase families, T =
     # 2048); launches on the main path, the engine's cycles
     for name, fam_key, src, ref in (("bivariate", "bivariate", "bivariate.cu",
@@ -2852,10 +3343,11 @@ def main() -> int:
               + (f"; kernel C's SES {r['smooth_ms']:.3f} ms, the HPA launch "
                  f"{r['launch_ms']:.3f} ms" if fam_key == "hpa" else ""), flush=True)
     for r in rows:
-        # no single PyTorch call computes any of these functions (torch.sort,
-        # timed beside kernel G, computes only its order statistics; the
-        # Cholesky solve beside kernel J only its solve)
-        r.update(route="cuda", library_ms=None)
+        # no single PyTorch call computes any of these functions but M's
+        # Adam (torch.sort, timed beside kernel G, computes only its order
+        # statistics; the Cholesky solve beside kernel J only its solve)
+        r["route"] = "cuda"
+        r.setdefault("library_ms", None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)

@@ -14,9 +14,7 @@
 // carry starting at zeros.
 //
 // Parameters: one row of P floats per job in the port's flat layout
-// (models/lstm_ae.py:flat_params): encoder Wi (2F, 4H), Wh (H, 4H), b (4H),
-// gates in the order i, f, g, o along the columns; Dense_0 W (H, Z), b (Z);
-// decoder Wi (Z, 4H), Wh (H, 4H), b (4H); Dense_1 W (H, F), b (F).
+// (lstm.cuh, shared with kernel L).
 //
 // Design: a CTA of kLstmThreads threads runs up to KB windows of one job
 // (grid J x ceil(K / KB)), their steps in lock step.
@@ -40,7 +38,7 @@
 // (48.7 KB a job) and windows (~0.6 KB) of traffic. This first version
 // keeps every product in fp32 CUDA cores and waits on two barriers a step;
 // making it fast (tensor cores, more windows per CTA) is later work.
-#include "common.cuh"
+#include "lstm.cuh"
 
 namespace fm {
 
@@ -58,72 +56,11 @@ struct LstmArgs {
   float* z;
 };
 
-struct LstmLayout {
-  const float *wi_e, *wh_e, *b_e, *w0, *b0, *wi_d, *wh_d, *b_d, *w1, *b1;
-};
-
-__host__ __device__ inline long long lstm_param_count(int F, int H, int Z) {
-  const long long G = 4LL * H;
-  return 2LL * F * G + H * G + G + 1LL * H * Z + Z + 1LL * Z * G + H * G + G + 1LL * H * F + F;
-}
-
 // floats of per-window state: input (2F), h and c (H each), gates and the
 // decoder's input projection (4H each), latent (Z), head partials (2F,
 // kept as float64 pairs: 4F floats)
 __host__ __device__ inline int lstm_window_floats(int F, int H, int Z) {
   return 2 * F + 2 * H + 8 * H + Z + 4 * F;
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-__device__ __forceinline__ LstmLayout lstm_layout(const float* p, int F, int H, int Z) {
-  const int G = 4 * H;
-  LstmLayout l;
-  l.wi_e = p;
-  l.wh_e = l.wi_e + 2 * F * G;
-  l.b_e = l.wh_e + H * G;
-  l.w0 = l.b_e + G;
-  l.b0 = l.w0 + H * Z;
-  l.wi_d = l.b0 + Z;
-  l.wh_d = l.wi_d + Z * G;
-  l.b_d = l.wh_d + H * G;
-  l.w1 = l.b_d + G;
-  l.b1 = l.w1 + H * F;
-  return l;
-}
-
-// One LSTM step for nk windows: gates from the input projection (ax, or the
-// decoder's precomputed dz when ax is null) and h, then the state update.
-__device__ __forceinline__ void lstm_step(const float* inp, int in_dim, const float* wi,
-                                          const float* dz, const float* wh, const float* b,
-                                          float* h, float* c, float* gates, int nk, int H) {
-  const int G = 4 * H;
-  for (int i = threadIdx.x; i < nk * G; i += blockDim.x) {
-    const int k = i / G, col = i - k * G;
-    float ax;
-    if (dz != nullptr) {
-      ax = dz[i];
-    } else {
-      ax = 0.0f;
-      const float* in = inp + k * in_dim;
-      for (int q = 0; q < in_dim; ++q) ax += in[q] * wi[q * G + col];
-    }
-    float ah = 0.0f;
-    const float* hk = h + k * H;
-    for (int j = 0; j < H; ++j) ah += hk[j] * wh[j * G + col];
-    gates[i] = ax + (ah + b[col]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nk * H; i += blockDim.x) {
-    const int k = i / H, j = i - k * H;
-    const float* g = gates + k * G;
-    const float ig = sigmoid(g[j]), fg = sigmoid(g[H + j]);
-    const float gg = tanhf(g[2 * H + j]), og = sigmoid(g[3 * H + j]);
-    const float cn = fg * c[i] + ig * gg;
-    c[i] = cn;
-    h[i] = og * tanhf(cn);
-  }
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kLstmThreads) lstm_ae_kernel(LstmArgs a, int smem_params) {

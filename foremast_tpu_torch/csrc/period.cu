@@ -26,7 +26,8 @@
 //
 // What bounds it on an H100: the operations, narrowly. A row reads 5 B per
 // slot once; the residuals (4 B) and the mask (1 B) stay in shared memory
-// (80 KB at T = 16384, two CTAs per SM), and each distinct lag costs ~8
+// (80 KB at T = 16384, two CTAs per SM; each candidate's score and
+// eligibility, 5 B, beside them), and each distinct lag costs ~8
 // operations per slot, seven lags for the engine's four candidates. At
 // B = 100k, T = 16384 that is ~8.2 GB (2.4 ms at 3.35 TB/s) against ~100 G
 // operations (~3 ms at the fp32 instruction rate).
@@ -37,7 +38,11 @@
 namespace fm {
 
 constexpr int kPeriodThreads = 256;
-constexpr int kMaxCandidates = 16;
+// candidates' scores and eligibility live in shared memory beside the row
+constexpr int kMaxCandidates = 1024;
+// lags whose autocorrelation a thread remembers; a lag past the cache is
+// computed again (the same sums in the same order: the same value)
+constexpr int kLagCache = 32;
 
 struct PeriodArgs {
   const float* x;
@@ -83,7 +88,9 @@ __global__ void __launch_bounds__(kPeriodThreads) detect_period_kernel(PeriodArg
   const int row = blockIdx.x, T = a.T, tid = threadIdx.x;
   const size_t off = size_t(row) * T;
   float* d = reinterpret_cast<float*>(smem);
-  uint8_t* m = reinterpret_cast<uint8_t*>(d + T);
+  float* S = d + T;  // (C,) scores
+  uint8_t* m = reinterpret_cast<uint8_t*>(S + a.C);
+  uint8_t* ok = m + T;  // (C,) contrast-eligible
 
   // 1. the detrend
   long long n = 0, st = 0, stt = 0;
@@ -116,29 +123,34 @@ __global__ void __launch_bounds__(kPeriodThreads) detect_period_kernel(PeriodArg
   __syncthreads();
 
   // 2. scores and contrasts; lags already computed are looked up
-  int lag_p[2 * kMaxCandidates];
-  float lag_r[2 * kMaxCandidates];
+  int lag_p[kLagCache];
+  float lag_r[kLagCache];
   int n_lags = 0;
   auto acf = [&](int p) {
     for (int i = 0; i < n_lags; ++i)
       if (lag_p[i] == p) return lag_r[i];
     const float r = acf_at(d, m, T, p, scr);
-    lag_p[n_lags] = p;
-    lag_r[n_lags] = r;
-    ++n_lags;
+    if (n_lags < kLagCache) {
+      lag_p[n_lags] = p;
+      lag_r[n_lags] = r;
+      ++n_lags;
+    }
     return r;
   };
-  float S[kMaxCandidates];
-  bool ok[kMaxCandidates];
+  // every thread computes every score (acf_at is block-wide); thread 0
+  // keeps them
   for (int c = 0; c < a.C; ++c) {
     const int p = a.cands[c];
-    if (p < 2 || p >= T) {
-      S[c] = -CUDART_INF_F;
-      ok[c] = false;
-      continue;
+    float sc = -CUDART_INF_F;
+    bool good = false;
+    if (p >= 2 && p < T) {
+      sc = acf(p);
+      good = p >= 4 ? sc + a.contrast_margin >= acf(p / 2) : true;
     }
-    S[c] = acf(p);
-    ok[c] = p >= 4 ? S[c] + a.contrast_margin >= acf(p / 2) : true;
+    if (tid == 0) {
+      S[c] = sc;
+      ok[c] = good;
+    }
   }
 
   // 3. the pick
@@ -164,7 +176,7 @@ extern "C" int fm_detect_period(const float* x, const uint8_t* mask, const int* 
   if (C < 0 || C > fm::kMaxCandidates) return int(cudaErrorInvalidValue);
   fm::PeriodArgs a{x, mask, cands, C, fallback, min_acf, alias_margin, contrast_margin, T,
                    period, scores};
-  const size_t smem = size_t(T) * 5;
+  const size_t smem = (size_t(T) + C) * 5;
   cudaError_t e = cudaFuncSetAttribute(fm::detect_period_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);

@@ -12,6 +12,12 @@ into job statuses. Verdict semantics are the reference's:
     univariate algorithms, kernel J under seasonal_trend* / prophet*; jobs
     with exactly two judgeable metrics go to the bivariate-normal ellipse,
     kernel H through ``ops.bivariate``);
+  * jobs with three or more judgeable metrics go to the LSTM autoencoder:
+    each app's model is trained on its standardized history the first time
+    the engine sees it (kernels L and M through ``models.lstm_ae``, under a
+    per-cycle budget, same-shape jobs as one fleet), kept in an LRU of
+    MAX_CACHE_SIZE models, and the current windows are z-scored against the
+    healthy errors (kernel K);
   * hpa jobs are scored, never judged: kernel C's SES predictions of the
     traffic and kernel I's score (``ops.hpa.hpa_from_preds``), gated by the
     breath cooldowns, go out as an hpalog and the
@@ -27,14 +33,15 @@ family runs its plain twin; without a card it raises. A CUDA launch either
 runs its kernel or raises, and a failure goes to the per-job retry path on
 the same device, never to the CPU.
 
-Not in this slice (ROADMAP.md): the LSTM family (a job routed to it fails
-scoring with NotImplementedError, never a healthy verdict), provenance,
-SLOs, the flight recorder and health monitor, load shedding, stale-verdict
-serving, quarantine and sharding.
+Not in this slice (ROADMAP.md): provenance, SLOs, the flight recorder and
+health monitor, load shedding, stale-verdict serving, quarantine and
+sharding.
 """
 from __future__ import annotations
 
 import hashlib
+import json
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -44,6 +51,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import kernels
 from .._device import resolve_device
 from ..dataplane.exporter import VerdictExporter
 from ..dataplane.fetch import FetchError, grid_from_series
@@ -52,6 +60,7 @@ from ..dataplane.promql import (
     STRATEGY_HPA,
     materialize_placeholders,
 )
+from ..models import lstm_ae
 from ..ops import bivariate as bv
 from ..ops import forecast as fc
 from ..ops import hpa as hpa_ops
@@ -73,15 +82,6 @@ class WatchdogTimeout(Exception):
     it like any collect failure — the bucket fails over to the sync
     per-job path — so one hung launch costs one bucket's timeout, not the
     whole cycle."""
-
-
-NOT_PORTED = ("the LSTM autoencoder family is not ported yet: its scoring is "
-              "(models.lstm_ae, kernel K), its training and the engine's family are the "
-              "next slice (ROADMAP queue 1, item 7)")
-
-
-def _not_ported(*_args, **_kwargs):
-    raise NotImplementedError(NOT_PORTED)
 
 
 @dataclass
@@ -316,6 +316,26 @@ class Analyzer:
         self.triage_launches_total = 0
         self._cycle_seq = 0
         self.current_cycle_id = ""
+        # LSTM-AE model cache (MAX_CACHE_SIZE semantics): (app key, metrics,
+        # W) -> (params (P,) on the device, err_mu, err_sigma, version); the
+        # insertion-ordered dict is the LRU eviction queue
+        self._lstm_cache: dict = {}
+        # fleet scoring: every trained entry gets a version, and stacked
+        # parameter rows are kept per (shape, members) while they hold
+        self._lstm_param_version = 0
+        self._lstm_stack_cache: dict = {}
+        # per-CYCLE train-on-miss counter (reset in _run_cycle); on the
+        # instance so the _isolate per-job retry path cannot reset it
+        self._lstm_trained_this_cycle = 0
+        # jobs left unjudged because the cycle's train budget was spent, as
+        # a per-cycle id set (a retry must not count a job twice)
+        self.lstm_budget_skips = 0
+        self._lstm_budget_skipped_ids: set = set()
+        # deterministic-training reuse (train-window fingerprint -> trained
+        # entry) and verdict reuse ((job, metrics) -> (score fp, z))
+        self._lstm_train_memo: OrderedDict = OrderedDict()
+        self._lstm_z_memo: OrderedDict = OrderedDict()
+        self.lstm_rescore_skips = 0
         # hung-launch watchdog (WATCHDOG_S): fires counter + the live count
         # of abandoned sacrificial threads (each still parked on a hung
         # card call); bounded by _WATCHDOG_MAX_ABANDONED
@@ -876,10 +896,311 @@ class Analyzer:
             results.update(self._collect_bivariate(self._launch_bivariate(entries, T)))
         return results
 
-    # the LSTM family waits for the training slice: routing stays the
-    # reference's, scoring raises, so such a job fails scoring (per-job
-    # retry, then its strategy's failure status) and is never judged healthy
-    _score_multi = staticmethod(_not_ported)
+    # ------------------------------------------------------ lstm family
+    def _score_multi(self, items: list[_MultiItem]):
+        """LSTM-autoencoder scoring for 3+-metric jobs (faq.md:8-10).
+
+        Per job: standardize each metric on its history, train the AE on
+        non-overlapping historical subwindows (cached per app, LRU-bounded by
+        MAX_CACHE_SIZE), then z-score the current window's reconstruction
+        error against the healthy-error distribution. A job with more
+        metrics than the kernels take (MAX_LSTM_FEATURES) fails scoring by
+        name: the check comes before any counter moves, so the per-job
+        retry fails that job alone."""
+        cfg = self.config
+        for it in items:
+            if len(it.metrics) > kernels.MAX_LSTM_FEATURES:
+                raise ValueError(
+                    f"{len(it.metrics)} metrics: the LSTM kernels take at most "
+                    f"{kernels.MAX_LSTM_FEATURES} (MAX_LSTM_FEATURES)")
+        results = {}
+        memo_on = cfg.score_memo
+        memo_zs: list = []   # (item, z) reused without a launch
+        zfp_by_job: dict = {}  # (job_id, metrics) -> score-input fp
+        # (item, params, err_mu, err_sd, version, cwin, cmask)
+        scoreable: list = []
+        # (item, cache_key, hwin, hmask, cwin, cmask, train_fp): budgeted
+        # misses
+        pending: list = []
+        pending_keys: set = set()
+        # same-cycle duplicates of a pending cache_key ride the leader's
+        # training (one budget slot, one model) and resolve from the cache
+        followers: list = []
+        budget = cfg.lstm_max_train_per_cycle
+        for it in items:
+            x, m, n_h, n_c = _joint_grid(it.hist, it.cur)
+            F, T = x.shape
+            W = min(cfg.lstm_window, max(n_h // 2, 1))
+            if W < 4 or n_h < 2 * W:
+                # not enough history to learn from: the job stays unjudged
+                continue
+            hist_m = m[:, :n_h]
+            hw = hist_m.astype(np.float64)
+            n = np.maximum(hw.sum(axis=1), 1.0)
+            # float64 reductions: any float32-finite history squares and
+            # sums without overflow
+            xh = x[:, :n_h].astype(np.float64)
+            mu = (xh * hw).sum(axis=1) / n
+            sd = np.sqrt((((xh - mu[:, None]) * hw) ** 2).sum(axis=1) / n)
+            sd = np.maximum(sd, 1e-6)
+            xs = ((x - mu[:, None]) / sd[:, None]).T.astype(np.float32)  # (T, F)
+            ms = m.T  # (T, F)
+
+            k = n_h // W
+            h0 = n_h - k * W
+            hwin = xs[h0:n_h].reshape(k, W, F)
+            hmask = ms[h0:n_h].reshape(k, W, F)
+            # score windows tile the WHOLE current region; a final tail
+            # window may dip into history, its history steps masked out so
+            # they add no error and cannot dilute the z-score
+            starts = list(range(n_h, T - W + 1, W))
+            if not starts or starts[-1] + W < T:
+                starts.append(max(T - W, 0))
+            cwin = np.stack([xs[s:s + W] for s in starts])
+            cmask = np.stack([ms[s:s + W] for s in starts])
+            for k_i, s in enumerate(starts):
+                if s < n_h:
+                    cmask[k_i, :n_h - s] = False
+
+            cache_key = (it.cache_key, tuple(it.metrics), W)
+            entry = self._lstm_cache.pop(cache_key, None)
+            train_fp = _fp(b"lstm-train", hwin, hmask, cfg.lstm_epochs,
+                           cfg.lstm_hidden, cfg.lstm_latent) if memo_on else None
+            if entry is None and memo_on:
+                # training is deterministic (the reference's initial
+                # parameters, fixed epochs, no float atomics in kernels L
+                # and M), so identical train windows give identical params
+                entry = self._lstm_train_memo.get(train_fp)
+                if entry is not None:
+                    self._lstm_train_memo.move_to_end(train_fp)
+            if entry is None:
+                if cache_key in pending_keys:
+                    followers.append((it, cache_key, cwin, cmask))
+                    continue
+                if budget > 0 and self._lstm_trained_this_cycle >= budget:
+                    # the cycle's train budget is spent: the job stays in
+                    # progress and warms up on a later cycle
+                    self._lstm_budget_skipped_ids.add(it.job_id)
+                    continue
+                self._lstm_trained_this_cycle += 1
+                pending.append((it, cache_key, hwin, hmask, cwin, cmask, train_fp))
+                pending_keys.add(cache_key)
+                continue
+            self._lstm_cache[cache_key] = entry  # re-insert = mark recent
+            while len(self._lstm_cache) > cfg.max_cache_size:
+                self._lstm_cache.pop(next(iter(self._lstm_cache)))
+            params, err_mu, err_sd, version = entry
+            if memo_on:
+                # unchanged score windows against unchanged params (the
+                # version pins them) reuse the previous z without a launch
+                jkey = (it.job_id, tuple(it.metrics))
+                zfp = _fp(b"lstm-z", cwin, cmask, err_mu, err_sd, version)
+                prev = self._lstm_z_memo.get(jkey)
+                if prev is not None and prev[0] == zfp:
+                    self._lstm_z_memo.move_to_end(jkey)
+                    self.lstm_rescore_skips += 1
+                    memo_zs.append((it, prev[1]))
+                    continue
+                zfp_by_job[jkey] = zfp
+            scoreable.append((it, params, err_mu, err_sd, version, cwin, cmask))
+
+        scoreable.extend(self._train_pending(pending))
+        for it, cache_key, cwin, cmask in followers:
+            entry = self._lstm_cache.get(cache_key)
+            if entry is None:
+                continue  # the leader's training failed: the follower waits too
+            params, err_mu, err_sd, version = entry
+            scoreable.append((it, params, err_mu, err_sd, version, cwin, cmask))
+        if memo_on:
+            for it, _p, mu_, sd_, version, cwin, cmask in scoreable:
+                jkey = (it.job_id, tuple(it.metrics))
+                zfp_by_job.setdefault(jkey, _fp(b"lstm-z", cwin, cmask, mu_, sd_, version))
+        for it, z in [*memo_zs, *self._score_multi_fleet(scoreable)]:
+            results[(it.job_id, "+".join(it.metrics), "lstm")] = {
+                "unhealthy": z > cfg.lstm_threshold,
+                "z": z,
+            }
+            if memo_on:
+                jkey = (it.job_id, tuple(it.metrics))
+                zfp = zfp_by_job.get(jkey)
+                if zfp is not None:
+                    self._memo_put(self._lstm_z_memo, jkey, (zfp, z))
+        return results
+
+    def _cache_trained(self, cache_key, params, mu_: float, sd_: float, train_fp):
+        """Put a trained model in the LRU (and the train memo); returns its
+        entry."""
+        cfg = self.config
+        self._lstm_param_version += 1
+        entry = (params, mu_, sd_, self._lstm_param_version)
+        self._lstm_cache[cache_key] = entry
+        while len(self._lstm_cache) > cfg.max_cache_size:
+            self._lstm_cache.pop(next(iter(self._lstm_cache)))
+        if train_fp is not None:
+            # params are shared with the LRU cache, so this index adds no
+            # parameter memory; bounded like the cache
+            self._lstm_train_memo[train_fp] = entry
+            self._lstm_train_memo.move_to_end(train_fp)
+            while len(self._lstm_train_memo) > cfg.max_cache_size:
+                self._lstm_train_memo.popitem(last=False)
+        return entry
+
+    def _train_pending(self, pending):
+        """Train this cycle's budgeted cache misses, jobs of one (K, W, F)
+        shape as one fleet (lstm_ae.train_fleet: kernels L and M every
+        epoch, the plateau on the group's mean loss, the normalizer by
+        kernel K). A group that fails retries job by job, so the healthy
+        majority still trains; a job that fails alone is skipped (its budget
+        slot is spent, it retries on a later cycle). Yields scoreable
+        tuples."""
+        cfg = self.config
+        groups: dict[tuple, list] = {}
+        for rec in pending:
+            groups.setdefault(rec[2].shape, []).append(rec)
+
+        def train(recs):
+            self.device_launches += 1
+            params, mus, sds = lstm_ae.train_fleet(
+                np.stack([r[2] for r in recs]), np.stack([r[3] for r in recs]),
+                hidden=cfg.lstm_hidden, latent=cfg.lstm_latent, epochs=cfg.lstm_epochs,
+                device=self.device)
+            return [(params[j], mu_, sd_)
+                    for j, (mu_, sd_) in enumerate(zip(mus.tolist(), sds.tolist()))]
+
+        def train_alone(rec):
+            try:
+                return train([rec])[0]
+            except Exception:  # noqa: BLE001 - this job alone waits
+                return None
+
+        for (_k, W, F), recs in groups.items():
+            with tracing.span(tracing.SPAN_ENGINE_LSTM_TRAIN, jobs=len(recs), features=F,
+                              window=W):
+                try:
+                    trained = train(recs)
+                except Exception:  # noqa: BLE001 - blast radius per job
+                    trained = [None] if len(recs) == 1 else [train_alone(r) for r in recs]
+            for rec, result in zip(recs, trained):
+                if result is None:
+                    continue
+                it, cache_key, _hw, _hm, cwin, cmask, train_fp = rec
+                entry = self._cache_trained(cache_key, *result, train_fp)
+                yield (it, entry[0], entry[1], entry[2], entry[3], cwin, cmask)
+
+    # fleet scoring engages from this group size; smaller groups score job
+    # by job, as the reference counts its launches
+    _LSTM_FLEET_MIN = 4
+
+    def _score_multi_fleet(self, scoreable):
+        """Score the collected multi-metric jobs: jobs whose score windows
+        share an (F, W, K) shape run as one kernel K launch per chunk of
+        SCORE_BATCH jobs over their stacked parameter rows (kept while the
+        members and versions hold); z is the max over a job's windows.
+        Returns [(item, z)]."""
+        cfg = self.config
+        H, Z = cfg.lstm_hidden, cfg.lstm_latent
+        groups: dict[tuple, list] = {}
+        for rec in scoreable:
+            cwin = rec[5]
+            groups.setdefault((cwin.shape[2], cwin.shape[1], cwin.shape[0]), []).append(rec)
+        chunk_cap = self._bucket_rows(cfg.score_batch)
+        out = []
+        for (F, W, K), recs in groups.items():
+            single = len(recs) < self._LSTM_FLEET_MIN
+            chunks = ([[r] for r in recs] if single
+                      else [recs[lo:lo + chunk_cap] for lo in range(0, len(recs), chunk_cap)])
+            for chunk in chunks:
+                stack_key = (F, W, K, tuple(r[4] for r in chunk))
+                pstack = self._lstm_stack_cache.pop(stack_key, None)
+                if pstack is None:
+                    pstack = torch.stack([r[1] for r in chunk]).to(self.device).contiguous()
+                self._lstm_stack_cache[stack_key] = pstack  # mark recent
+                while len(self._lstm_stack_cache) > 32:
+                    self._lstm_stack_cache.pop(next(iter(self._lstm_stack_cache)))
+                self.device_launches += 1
+                zs = lstm_ae.anomaly_scores_fleet(
+                    pstack, np.stack([r[5] for r in chunk]), np.stack([r[6] for r in chunk]),
+                    np.asarray([r[2] for r in chunk], np.float32),
+                    np.asarray([r[3] for r in chunk], np.float32), hidden=H, latent=Z,
+                    device=self.device)
+                for (it, *_), z in zip(chunk, zs.max(dim=1).values.tolist()):
+                    out.append((it, float(z)))
+        return out
+
+    # ------------------------------------------- LSTM model-cache persistence
+    _LSTM_CACHE_FORMAT = "foremast_tpu_torch.lstm_cache/1"
+
+    def save_lstm_cache(self, path: str, max_entries: int | None = None) -> int:
+        """Persist the trained LSTM models (parameter rows and normalizers)
+        so a restarted engine warm-starts instead of training every known
+        app again. One numpy .npz (the flat rows as one float32 (N, P)
+        array, the keys as JSON, the architecture beside them), written to
+        a temporary file and renamed over `path`. max_entries keeps the most
+        recent entries (LRU order); None keeps the whole cache. Returns the
+        number of entries written. The reference's flax msgpack files are
+        another format: this engine loads none of them."""
+        items = list(self._lstm_cache.items())
+        if max_entries is not None and len(items) > max_entries:
+            items = items[-max_entries:]
+        cfg = self.config
+        rows = [e[0].detach().to("cpu", torch.float32).reshape(-1).numpy() for _, e in items]
+        sizes = {r.shape[0] for r in rows}
+        payload = {
+            "format": np.array(self._LSTM_CACHE_FORMAT),
+            # architecture fingerprint: rows of another geometry must never
+            # reach this engine's kernels
+            "arch": np.array(json.dumps({"hidden": cfg.lstm_hidden, "latent": cfg.lstm_latent,
+                                         "lstm_window": cfg.lstm_window})),
+            "keys": np.array(json.dumps([[k[0], list(k[1]), int(k[2])] for k, _ in items])),
+            "mu": np.asarray([e[1] for _, e in items], np.float64),
+            "sd": np.asarray([e[2] for _, e in items], np.float64),
+        }
+        # one array a row length (the feature count sets P)
+        for n in sorted(sizes):
+            payload[f"params_{n}"] = np.stack([r for r in rows if r.shape[0] == n])
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)
+        return len(items)
+
+    def load_lstm_cache(self, path: str) -> int:
+        """Load a save_lstm_cache file into the warm cache. An absent,
+        corrupt or architecture-mismatched file (the reference's msgpack
+        files among them) loads 0 entries and never raises. Returns the
+        entries loaded."""
+        cfg = self.config
+        try:
+            with np.load(path, allow_pickle=False) as d:
+                if str(d["format"]) != self._LSTM_CACHE_FORMAT:
+                    return 0
+                arch = json.loads(str(d["arch"]))
+                if (int(arch.get("hidden", -1)) != cfg.lstm_hidden
+                        or int(arch.get("latent", -1)) != cfg.lstm_latent
+                        or int(arch.get("lstm_window", -1)) != cfg.lstm_window):
+                    return 0
+                keys = json.loads(str(d["keys"]))
+                mu, sd = d["mu"], d["sd"]
+                stacks = {int(k.split("_")[1]): d[k] for k in d.files
+                          if k.startswith("params_")}
+            at = {n: 0 for n in stacks}
+            loaded = []
+            for idx, k in enumerate(keys):
+                metrics = tuple(str(m) for m in k[1])
+                n = lstm_ae.param_count(len(metrics), cfg.lstm_hidden, cfg.lstm_latent)
+                row = stacks[n][at[n]]
+                at[n] += 1
+                loaded.append(((str(k[0]), metrics, int(k[2])),
+                               torch.from_numpy(np.array(row, np.float32)).to(self.device),
+                               float(mu[idx]), float(sd[idx])))
+        except Exception:  # noqa: BLE001 - a bad cache file means a cold start
+            return 0
+        for key, row, mu_, sd_ in loaded:
+            self._lstm_param_version += 1
+            self._lstm_cache[key] = (row, mu_, sd_, self._lstm_param_version)
+        while len(self._lstm_cache) > cfg.max_cache_size:
+            self._lstm_cache.pop(next(iter(self._lstm_cache)))
+        return len(loaded)
 
     # ---------------------------------------------------------- hpa family
     @staticmethod
@@ -1120,7 +1441,10 @@ class Analyzer:
         all_bis: list[_BiItem] = []
         all_multis: list[_MultiItem] = []
         all_hpas: list[_HpaItem] = []
+        self._lstm_trained_this_cycle = 0
+        self._lstm_budget_skipped_ids = set()
         launches0 = self.device_launches
+        rescore_skips0 = self.lstm_rescore_skips
         mega_l0 = self.megabatch_launches_total
         mega_r0 = self.megabatch_real_rows_total
         mega_p0 = self.megabatch_pad_rows_total
@@ -1176,7 +1500,7 @@ class Analyzer:
                           bands=len(all_bands), bis=len(all_bis),
                           multis=len(all_multis), hpas=len(all_hpas)):
             if pipe is not None:
-                (pair_res, band_res, bi_res, _multi_res, hpa_res,
+                (pair_res, band_res, bi_res, multi_res, hpa_res,
                  scoring_failed) = pipe.finish()
                 for k, v in pipe.stage_seconds.items():
                     stages[k] += v
@@ -1187,21 +1511,27 @@ class Analyzer:
             else:
                 # barriered path (SCORE_PIPELINE=0): one child span per
                 # model family, families strictly sequential
-                def timed(fam, score_fn, items):
-                    with tracing.span(tracing.SCORE_SPANS[fam], n=len(items)):
+                def timed(fam, score_fn, items, attrs_fn=None):
+                    with tracing.span(tracing.SCORE_SPANS[fam], n=len(items)) as sp:
                         t0 = time.perf_counter()
                         res = self._isolate(score_fn, items)
                         fam_seconds[fam] = time.perf_counter() - t0
+                        if attrs_fn is not None:
+                            attrs_fn(sp)
                         return res
 
                 pair_res, pair_bad = timed("pair", self._score_pairs, all_pairs)
                 band_res, band_bad = timed("band", self._score_bands, all_bands)
                 bi_res, bi_bad = timed("bivariate", self._score_bivariate, all_bis)
-                _, multi_bad = timed("lstm", self._score_multi, all_multis)
+                multi_res, multi_bad = timed(
+                    "lstm", self._score_multi, all_multis,
+                    attrs_fn=lambda sp: sp.attrs.__setitem__(
+                        "budget_skips", len(self._lstm_budget_skipped_ids)))
                 hpa_res, hpa_bad = timed("hpa", self._score_hpa, all_hpas)
                 scoring_failed = {**pair_bad, **band_bad, **bi_bad,
                                   **multi_bad, **hpa_bad}
                 stages["collect"] += sum(fam_seconds.values())
+            self.lstm_budget_skips += len(self._lstm_budget_skipped_ids)
 
         t_fold = time.perf_counter()
         # fold per-metric results into per-job verdicts
@@ -1257,6 +1587,22 @@ class Analyzer:
                         f"{r['count']} points outside the joint "
                         f"bivariate-normal ellipse from ts {r['first_ts']:.0f}",
                         r["anomaly_pairs"],
+                    )
+                )
+
+        for it in all_multis:
+            r = multi_res.get((it.job_id, "+".join(it.metrics), "lstm"))
+            if r is None:
+                continue
+            st = live[it.job_id]
+            st.judged_any = True
+            if r["unhealthy"]:
+                st.unhealthy.append(
+                    (
+                        "+".join(it.metrics),
+                        f"LSTM-AE reconstruction z={r['z']:.2f} exceeds "
+                        f"{self.config.lstm_threshold:.1f}",
+                        [],
                     )
                 )
 
@@ -1399,6 +1745,7 @@ class Analyzer:
             else {},
             "triage": triage_cycle,
             "megabatch": mega_cycle,
+            "lstm_rescore_skips": self.lstm_rescore_skips - rescore_skips0,
             "watchdog_fires": self.watchdog_fires_total - wd_cycle0,
         }
         self.store.put_state("breath", self.breath.export())

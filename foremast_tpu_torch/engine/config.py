@@ -10,15 +10,25 @@ A copy of the reference's ``engine/config.py`` cut to the fields the port
 reads, with the same environment variables and defaults. The knobs of
 layers the port has not taken over yet (delta fetch, provenance, SLOs, the
 flight recorder, retries and breakers, load shedding, stale serving,
-quarantine, the compile cache, the LSTM family) are not fields here:
-`from_env` raises NotImplementedError, naming the ROADMAP item, when one of
-them is set to anything but the reference's default, so no deployment
-silently runs without a layer it asked for.
+quarantine, the compile cache) are not fields here: `from_env` raises
+NotImplementedError, naming the ROADMAP item, when one of them is set to
+anything but the reference's default, so no deployment silently runs
+without a layer it asked for.
+
+Values the card's kernels cannot take are refused when the config is
+built (`EngineConfig` and so `from_env` raise ValueError naming the knob):
+more than MAX_ST_D seasonal-trend columns (2 + ST_CHANGEPOINTS + 2
+ST_ORDER, kernel J), more than MAX_CANDIDATES entries in
+HW_PERIOD_CANDIDATES (kernel F), LSTM_HIDDEN or LSTM_LATENT outside
+[1, MAX_LSTM_HIDDEN] / [1, MAX_LSTM_LATENT] (kernels K and L); the
+constants are those of ``kernels``.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+
+from .. import kernels
 
 
 @dataclass(frozen=True)
@@ -69,8 +79,8 @@ class EngineConfig:
     # device-launch row chunk: the fleet-batched scorers (pairs, bands,
     # bivariate, hpa) split their packed batches into fixed rungs so XLA
     # compiles ONE program per (rung, T) bucket instead of re-specializing
-    # on every fleet size (analyzer._score_chunks; the LSTM path scores
-    # per job and has no fleet batch dimension to chunk)
+    # on every fleet size (analyzer._launch_chunks; the LSTM family's
+    # fleet scoring chunks its jobs at it too)
     score_batch: int = 8192
     # per-job window fetches run on a bounded thread pool
     # (FETCH_CONCURRENCY; 1 = serial). In production the fetch stage is
@@ -200,6 +210,18 @@ class EngineConfig:
     # the trend stays piecewise-sparse (ops/forecast.py:fit_seasonal_trend).
     # 0 restores the single linear trend.
     st_changepoints: int = 12  # ST_CHANGEPOINTS
+    # LSTM-autoencoder multivariate mode (3+ metrics; faq.md:8-10)
+    lstm_window: int = 32  # subwindow length (steps) per training sample
+    lstm_epochs: int = 30
+    lstm_hidden: int = 32
+    lstm_latent: int = 16
+    lstm_threshold: float = 3.0  # recon-error z-score gate
+    # train-on-miss budget per cycle: a cold multi-metric fleet must warm
+    # up across cycles instead of blowing one cycle's budget on unbounded
+    # AE training (jobs beyond the budget stay in progress and train on a
+    # later cycle). <= 0 removes the cap.
+    lstm_max_train_per_cycle: int = 8  # LSTM_MAX_TRAIN_PER_CYCLE
+    max_cache_size: int = 1024  # MAX_CACHE_SIZE (trained LSTM models kept)
     # reference model dispatch by metric count (design.md:53-88): 2-metric
     # jobs -> bivariate normal, 3+ -> LSTM-AE, regardless of ML_ALGORITHM
     # (which names the univariate forecaster). False = route multivariate
@@ -238,6 +260,23 @@ class EngineConfig:
     # it once the fleet's shapes are prewarmed/compile-cached).
     watchdog_seconds: float = 0.0  # WATCHDOG_S
     policies: dict = field(default_factory=lambda: dict(DEFAULT_POLICIES))
+
+    def __post_init__(self):
+        """Refuse, by knob, a value the card's kernels cannot take."""
+        D = 2 + self.st_changepoints + 2 * self.st_order
+        if self.st_order < 0 or self.st_changepoints < 0 or D > kernels.MAX_ST_D:
+            raise ValueError(
+                f"ST_ORDER={self.st_order}, ST_CHANGEPOINTS={self.st_changepoints}: the "
+                f"seasonal-trend fit on the card takes order >= 0, changepoints >= 0 and at "
+                f"most {kernels.MAX_ST_D} columns (2 + ST_CHANGEPOINTS + 2 ST_ORDER = {D})")
+        if len(self.hw_period_candidates) > kernels.MAX_CANDIDATES:
+            raise ValueError(
+                f"HW_PERIOD_CANDIDATES: period detection on the card takes at most "
+                f"{kernels.MAX_CANDIDATES} candidates, got {len(self.hw_period_candidates)}")
+        for knob, v, top in (("LSTM_HIDDEN", self.lstm_hidden, kernels.MAX_LSTM_HIDDEN),
+                             ("LSTM_LATENT", self.lstm_latent, kernels.MAX_LSTM_LATENT)):
+            if not 1 <= v <= top:
+                raise ValueError(f"{knob}={v}: the LSTM kernels on the card take 1 to {top}")
 
     def policy_for(self, metric_name: str) -> MetricPolicy:
         """Longest-substring match of configured metric types in the name
@@ -308,22 +347,14 @@ def _env_str(env, key, default):
 
 
 _NOT_PORTED_WHY = {
-    7: "the LSTM autoencoder family is not ported yet (ROADMAP queue 1, item 7)",
     8: "this layer of the engine is not ported yet (ROADMAP queue 1, item 8)",
 }
 # The reference's knobs of layers the port has not taken over: variable ->
 # (parse, the reference's default, the item of _NOT_PORTED_WHY).
 _NOT_PORTED = {
-    "MAX_CACHE_SIZE": (_env_int, 1024, 7),
     "DELTA_FETCH": (_env_bool, True, 8),
     "COMPILE_CACHE_PATH": (_env_str, "", 8),
     "PREWARM_ON_START": (_env_bool, False, 8),
-    "LSTM_WINDOW": (_env_int, 32, 7),
-    "LSTM_EPOCHS": (_env_int, 30, 7),
-    "LSTM_HIDDEN": (_env_int, 32, 7),
-    "LSTM_LATENT": (_env_int, 16, 7),
-    "LSTM_THRESHOLD": (_env_float, 3.0, 7),
-    "LSTM_MAX_TRAIN_PER_CYCLE": (_env_int, 8, 7),
     "RETRY_MAX_ATTEMPTS": (_env_int, 3, 8),
     "RETRY_BASE_DELAY": (_env_float, 0.2, 8),
     "RETRY_MAX_DELAY": (_env_float, 5.0, 8),
@@ -346,7 +377,8 @@ _NOT_PORTED = {
 def from_env(env=None) -> EngineConfig:
     """Build an EngineConfig from the ML_* env-var family. A knob of a
     layer the port has not taken over, set to anything but the reference's
-    default, raises NotImplementedError naming its ROADMAP item."""
+    default, raises NotImplementedError naming its ROADMAP item; a value the
+    card's kernels cannot take raises ValueError naming the knob."""
     env = dict(os.environ) if env is None else env
     policies = dict(DEFAULT_POLICIES)
     base = MetricPolicy(
@@ -412,6 +444,13 @@ def from_env(env=None) -> EngineConfig:
         hw_contrast_margin=_env_float(env, "HW_CONTRAST_MARGIN", 0.01),
         st_order=_env_int(env, "ST_ORDER", 3),
         st_changepoints=_env_int(env, "ST_CHANGEPOINTS", 12),
+        lstm_window=_env_int(env, "LSTM_WINDOW", 32),
+        lstm_epochs=_env_int(env, "LSTM_EPOCHS", 30),
+        lstm_hidden=_env_int(env, "LSTM_HIDDEN", 32),
+        lstm_latent=_env_int(env, "LSTM_LATENT", 16),
+        lstm_threshold=_env_float(env, "LSTM_THRESHOLD", 3.0),
+        lstm_max_train_per_cycle=_env_int(env, "LSTM_MAX_TRAIN_PER_CYCLE", 8),
+        max_cache_size=_env_int(env, "MAX_CACHE_SIZE", 1024),
         multimetric_auto=_env_bool(env, "ML_MULTIMETRIC_AUTO", True),
         sla_headroom_safe=_env_float(env, "SLA_HEADROOM_SAFE", 0.7),
         sla_mode=env.get("ML_SLA_MODE", "dynamic").strip().lower(),

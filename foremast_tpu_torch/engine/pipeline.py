@@ -337,11 +337,12 @@ class CyclePipeline:
                     if fp is not None:
                         an._memo_put(self.memo, (family, key), (fp, res))
                 results[family].update(self.memo_results[family])
-        # lstm scores here, not in the stream (its family is not ported:
-        # each of its jobs fails scoring)
-        with tracing.span(tracing.SCORE_SPANS["lstm"], n=len(self.multis)):
+        # lstm scores here, not in the stream: training mutates the model
+        # cache under a per-cycle budget whose order must match claim order
+        with tracing.span(tracing.SCORE_SPANS["lstm"], n=len(self.multis)) as lsp:
             t1 = time.perf_counter()
             multi_res, multi_bad = an._isolate(an._score_multi, self.multis)
+            lsp.attrs["budget_skips"] = len(an._lstm_budget_skipped_ids)
             self.family_seconds["lstm"] = time.perf_counter() - t1
         # collect = everything after the stream: device wait + merge +
         # retries + the lstm family — the same work the barriered mode

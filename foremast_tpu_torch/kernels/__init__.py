@@ -23,6 +23,12 @@
 - Kernel K, `lstm_ae` (``csrc/lstm_ae.cu``), runs the LSTM autoencoder of
   J jobs, each with its own parameters, over K windows a job and writes
   each window's masked reconstruction error (and its z-score).
+- Kernel L (``csrc/lstm_train.cu``) trains it: `lstm_train_forward` runs
+  the recurrences, stores the activations and sums each window block's
+  squared errors; `lstm_train_backward` backpropagates through time into
+  per-(job, window block) partial gradients.
+- Kernel M, `adam` (``csrc/adam.cu``), sums L's partials in block order and
+  applies optax's Adam to the J parameter rows in place.
 
 Each launcher checks device, dtype, shape and contiguity, allocates the
 outputs (and the scratch a kernel needs), launches on PyTorch's current
@@ -36,16 +42,18 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import build
 
 __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_preds",
            "smooth", "hw_fit", "affine_scan", "detect_period", "triage_screen", "bivariate",
-           "hpa_score", "st_fit", "lstm_ae", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
+           "hpa_score", "st_fit", "lstm_ae", "lstm_train_forward", "lstm_train_backward",
+           "adam", "lstm_train_blocks", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
-           "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "PAIR_PHASES", "SMOOTH_SES",
+           "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES", "PAIR_PHASES", "SMOOTH_SES",
            "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
@@ -56,9 +64,10 @@ MAX_PAIR_T = 16384  # MAX_WINDOW_STEPS
 MAX_BAND_T = 16384
 # kernel G keeps the same 12 B per slot, then 4 B order keys in that space
 MAX_SCREEN_T = 16384
-# kernel F keeps 5 B per slot (residual, mask) in shared memory
+# kernel F keeps 5 B per slot (residual, mask) and 5 B per candidate (score,
+# eligibility) in shared memory
 MAX_PERIOD_T = 16384
-MAX_CANDIDATES = 16
+MAX_CANDIDATES = 1024
 # kernel H stages 9 B per slot (two floats, a byte of flags) in shared memory
 MAX_BI_T = 16384
 # kernel I stages 13 B per slot (three floats, a byte of masks)
@@ -75,6 +84,11 @@ MAX_LSTM_HIDDEN = 256
 MAX_LSTM_LATENT = 256
 MAX_LSTM_FEATURES = 32
 LSTM_SMEM_PARAMS_BYTES = 96 * 1024
+# kernel L keeps K's limits (a thread per window and feature of the head:
+# KB F <= 256); its backward holds the parameters and the CTA's gradient
+# sums in shared memory up to this many bytes (two CTAs an SM at the
+# engine's width), in device memory above it
+LSTM_TRAIN_SMEM_BYTES = 113 * 1024
 
 SMOOTH_SES, SMOOTH_DES, SMOOTH_HW = 1, 2, 3
 
@@ -97,7 +111,8 @@ PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans"
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
-            "bivariate": 0, "hpa_score": 0, "st_fit": 0, "lstm_ae": 0}
+            "bivariate": 0, "hpa_score": 0, "st_fit": 0, "lstm_ae": 0,
+            "lstm_train_forward": 0, "lstm_train_backward": 0, "adam": 0}
 
 
 def reset_launches() -> None:
@@ -635,7 +650,7 @@ def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None):
         return err if z is None else (err, z)
     if W < 1:
         raise ValueError("lstm_ae needs windows of W >= 1 steps")
-    KB = max(1, min(K, 8, 256 // F))
+    KB = lstm_train_blocks(K, F)[0]
     smem_params = int(lib.fm_lstm_ae_smem_bytes(F, H, Z, KB, 1) <= LSTM_SMEM_PARAMS_BYTES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -645,3 +660,113 @@ def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None):
     _raise_on(rc, "lstm_ae", lib)
     launches["lstm_ae"] += 1
     return err if z is None else (err, z)
+
+
+def lstm_train_blocks(K: int, F: int) -> tuple:
+    """(KB, nkb): the windows a CTA of kernels K and L runs and the window
+    blocks of a job (nkb = ceil(K / KB))."""
+    KB = max(1, min(int(K), 8, 256 // max(int(F), 1)))
+    return KB, -(-int(K) // KB)
+
+
+def _lstm_train_check(params, x, mask, hidden: int, latent: int, what: str):
+    J, K, W, F = x.shape
+    dev = x.device
+    H, Z = int(hidden), int(latent)
+    if not (1 <= H <= MAX_LSTM_HIDDEN and 1 <= Z <= MAX_LSTM_LATENT
+            and 1 <= F <= MAX_LSTM_FEATURES):
+        raise ValueError(f"{what} supports hidden <= {MAX_LSTM_HIDDEN}, latent <= "
+                         f"{MAX_LSTM_LATENT} and features <= {MAX_LSTM_FEATURES}; got "
+                         f"{H}, {Z}, {F}")
+    if W < 1 or K < 1:
+        raise ValueError(f"{what} needs K >= 1 windows of W >= 1 steps")
+    _check(x, "x", torch.float32, (J, K, W, F), dev)
+    _check(mask, "mask", torch.bool, (J, K, W, F), dev)
+    lib = build.library()
+    P = lib.fm_lstm_ae_param_count(F, H, Z)
+    _check(params, "params", torch.float32, (J, P), dev)
+    return lib, J, K, W, F, H, Z, P, dev
+
+
+def _lstm_train_launch(lib, backward: int, params, x, mask, dims, act, num, cnt, gpart):
+    J, K, W, F, H, Z, P = dims
+    KB, _ = lstm_train_blocks(K, F)
+    budget = LSTM_TRAIN_SMEM_BYTES if backward else LSTM_SMEM_PARAMS_BYTES
+    smem_params = int(lib.fm_lstm_train_smem_bytes(F, H, Z, KB, 1, backward) <= budget)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        return lib.fm_lstm_train(backward, _ptr(params), P, _ptr(x), _ptr(mask), J, K, W, F, H,
+                                 Z, KB, smem_params, _ptr(act), _opt(num), _opt(cnt),
+                                 _opt(gpart), ctypes.c_void_p(stream))
+
+
+def lstm_train_forward(params, x, mask, hidden: int, latent: int):
+    """Launch kernel L's forward entry on J jobs' (J, P) parameter rows and
+    their windows x (J, K, W, F) float32, mask bool. Returns num and cnt
+    (J, nkb) float64, each window block's sum of squared errors over the
+    mask and its count of valid slots, and act (J, K, 2, W, 5H) float32, the
+    activations the backward entry reads."""
+    lib, J, K, W, F, H, Z, P, dev = _lstm_train_check(params, x, mask, hidden, latent,
+                                                      "lstm_train_forward")
+    nkb = lstm_train_blocks(K, F)[1]
+    num = torch.empty((J, nkb), dtype=torch.float64, device=dev)
+    cnt = torch.empty((J, nkb), dtype=torch.float64, device=dev)
+    act = torch.empty((J, K, 2, W, 5 * H), dtype=torch.float32, device=dev)
+    if J == 0:
+        return num, cnt, act
+    rc = _lstm_train_launch(lib, 0, params, x, mask, (J, K, W, F, H, Z, P), act, num, cnt, None)
+    _raise_on(rc, "lstm_train_forward", lib)
+    launches["lstm_train_forward"] += 1
+    return num, cnt, act
+
+
+def lstm_train_backward(params, x, mask, act, hidden: int, latent: int):
+    """Launch kernel L's backward entry: from the forward's activations, the
+    gradient of each window block's sum of squared errors in the job's
+    parameters. Returns gpart (J, nkb, P) float32 (kernel M sums and
+    scales it)."""
+    lib, J, K, W, F, H, Z, P, dev = _lstm_train_check(params, x, mask, hidden, latent,
+                                                      "lstm_train_backward")
+    _check(act, "act", torch.float32, (J, K, 2, W, 5 * H), dev)
+    nkb = lstm_train_blocks(K, F)[1]
+    gpart = torch.empty((J, nkb, P), dtype=torch.float32, device=dev)
+    if J == 0:
+        return gpart
+    rc = _lstm_train_launch(lib, 1, params, x, mask, (J, K, W, F, H, Z, P), act, None, None,
+                            gpart)
+    _raise_on(rc, "lstm_train_backward", lib)
+    launches["lstm_train_backward"] += 1
+    return gpart
+
+
+def adam(params, mu, nu, step, gpart, num, cnt, lr: float, b1: float, b2: float, eps: float):
+    """Launch kernel M: the gradient of each job from kernel L's partials
+    (gpart (J, nkb, P) summed in block order, times 1 / max(sum cnt, 1)),
+    then optax's Adam on params, mu, nu (J, P) float32 in place, at each
+    job's step (J,) int32 (after the increment). Returns each job's loss
+    (J,) float32 from num and cnt (J, nkb) float64."""
+    J, P = params.shape
+    dev = params.device
+    nkb = gpart.shape[1] if gpart.dim() == 3 else -1
+    for t, name, dt, shape in (
+            (params, "params", torch.float32, (J, P)), (mu, "mu", torch.float32, (J, P)),
+            (nu, "nu", torch.float32, (J, P)), (step, "step", torch.int32, (J,)),
+            (gpart, "gpart", torch.float32, (J, nkb, P)), (num, "num", torch.float64, (J, nkb)),
+            (cnt, "cnt", torch.float64, (J, nkb))):
+        _check(t, name, dt, shape, dev)
+    if nkb < 1:
+        raise ValueError("adam needs at least one block of partial gradients")
+    loss = torch.empty(J, dtype=torch.float32, device=dev)
+    if J == 0:
+        return loss
+    lib = build.library()
+    f32 = np.float32
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_adam(_ptr(params), _ptr(mu), _ptr(nu), _ptr(step), _ptr(gpart), _ptr(num),
+                         _ptr(cnt), _ptr(loss), P, J, nkb, float(f32(lr)), float(f32(b1)),
+                         float(f32(b2)), float(f32(1 - b1)), float(f32(1 - b2)),
+                         float(f32(eps)), ctypes.c_void_p(stream))
+    _raise_on(rc, "adam", lib)
+    launches["adam"] += 1
+    return loss

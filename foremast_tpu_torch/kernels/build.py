@@ -139,6 +139,12 @@ def _declare(lib):
     lib.fm_lstm_ae_smem_bytes.restype = LL
     lib.fm_lstm_ae_param_count.argtypes = [I, I, I]
     lib.fm_lstm_ae_param_count.restype = LL
+    lib.fm_lstm_train.argtypes = [I, P, LL, P, P] + [I] * 8 + [P] * 5
+    lib.fm_lstm_train.restype = I
+    lib.fm_lstm_train_smem_bytes.argtypes = [I] * 6
+    lib.fm_lstm_train_smem_bytes.restype = LL
+    lib.fm_adam.argtypes = [P] * 8 + [LL, I, I] + [F] * 6 + [P]
+    lib.fm_adam.restype = I
     lib.fm_error_string.argtypes = [I]
     lib.fm_error_string.restype = ctypes.c_char_p
 

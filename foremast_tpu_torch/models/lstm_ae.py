@@ -27,10 +27,15 @@ the layout of PARAM_NAMES (each tensor row-major):
 P = 12,180 floats at F = 4, H = 32, Z = 16 (the engine's LSTM_HIDDEN and
 LSTM_LATENT); 177,732 at the module's default H = 128, Z = 64.
 
-Entry points run on the card (kernel K) or, for device="cpu", the twin:
-`reconstruction_errors`, `fit_score_normalizer`, `anomaly_scores`,
-`anomaly_scores_fleet`. Training (the reference's
-init_state, train_step, train, train_fleet) is not ported yet.
+Entry points run on the card or, for device="cpu", the twins: scoring
+(kernel K) by `reconstruction_errors`, `fit_score_normalizer`,
+`anomaly_scores`, `anomaly_scores_fleet`; training by `train_step`,
+`train` and `train_fleet`, from the reference's initial parameters
+(`init_state`, models/lstm_init.py). A training step is the masked MSE's
+value and gradient (kernel L, `LstmAeLoss`; the twin is torch autograd
+through the same recurrences) and optax's Adam (kernel M; the twin,
+`adam_plain`, is Adam written out in optax's order of operations).
+`adam_state_from_optax` carries the reference's Adam state across.
 """
 from __future__ import annotations
 
@@ -44,7 +49,10 @@ from .._device import as_tensor, resolve_device
 __all__ = ["PARAM_NAMES", "LstmAutoencoder", "param_shapes", "param_count", "params_from_flax",
            "flat_params", "stack_params", "unflatten_params", "reconstruction_errors_plain",
            "reconstruction_errors", "fit_score_normalizer", "anomaly_scores",
-           "anomaly_scores_fleet"]
+           "anomaly_scores_fleet", "LEARNING_RATE", "ADAM_B1", "ADAM_B2", "ADAM_EPS",
+           "init_state", "adam_state_from_optax", "loss_plain", "LstmAeLoss", "loss_and_grad",
+           "bias_corrections", "reduce_partials_plain", "adam_plain", "train_step_plain",
+           "train_step", "train", "train_fleet"]
 
 _F = torch.float32
 
@@ -284,3 +292,238 @@ def anomaly_scores_fleet(params_stack, x, mask, mu, sigma, *, hidden: int, laten
     mu = torch.as_tensor(mu, dtype=_F).reshape(J).to(dev).contiguous()
     sigma = torch.as_tensor(sigma, dtype=_F).reshape(J).to(dev).contiguous()
     return _errors(stack, x, mask, H, Z, mu, sigma)[1]
+
+
+# ---------------------------------------------------------------------------
+# training: the twins of kernels L and M, and the entry points
+# ---------------------------------------------------------------------------
+# optax.adam(1e-3)'s constants (the reference's init_state)
+LEARNING_RATE = 1e-3
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def init_state(features: int, hidden: int, latent: int, jobs: int = 1, seed: int = 0):
+    """The reference's init_state at PRNGKey(seed), broadcast to `jobs` rows:
+    parameters (J, P) float32, Adam's step count (J,) int32 and moments
+    (J, P), all on the CPU."""
+    from .lstm_init import init_params
+
+    row = init_params(features, hidden, latent, seed)
+    params = row[None].repeat(int(jobs), 1).contiguous()
+    return (params, torch.zeros(int(jobs), dtype=torch.int32), torch.zeros_like(params),
+            torch.zeros_like(params))
+
+
+def adam_state_from_optax(opt_state) -> tuple:
+    """(count, mu (P,), nu (P,)) from the reference's optax.adam state (the
+    chain's ScaleByAdamState, after jax.device_get), moments in the flat
+    layout."""
+    adam = opt_state[0] if isinstance(opt_state, (tuple, list)) else opt_state
+    return (int(np.asarray(adam.count)), flat_params(params_from_flax(adam.mu)),
+            flat_params(params_from_flax(adam.nu)))
+
+
+def loss_plain(stack, x, mask, hidden: int, latent: int):
+    """Twin of kernel L's value: each job's masked MSE over all its windows,
+    sum((recon - x)^2 over mask) / max(sum mask, 1), as (J,). Differentiable
+    in stack (J, P) by torch autograd."""
+    F = x.shape[-1]
+    recon = _recon(unflatten_params(stack, F, hidden, latent), x, mask, int(hidden))
+    se = torch.where(mask, (recon - x) ** 2, 0.0)
+    return se.sum(dim=(1, 2, 3)) / torch.clamp(mask.sum(dim=(1, 2, 3)).to(_F), min=1.0)
+
+
+class LstmAeLoss(torch.autograd.Function):
+    """Each job's masked MSE (J,) and, backward, its gradient in the (J, P)
+    parameters: kernel L's two entries on the card (the reference's
+    jax.value_and_grad of _loss_fn, vmapped over jobs). The backward sums
+    L's per-(job, window block) partial gradients in block order and
+    scales them by grad_out / max(sum mask, 1)."""
+
+    @staticmethod
+    def forward(ctx, stack, x, mask, hidden: int, latent: int):
+        num, cnt, act = kernels.lstm_train_forward(stack, x, mask, hidden, latent)
+        ctx.save_for_backward(stack, x, mask, act, cnt)
+        ctx.dims = (int(hidden), int(latent))
+        return num.sum(1).to(_F) / cnt.sum(1).to(_F).clamp(min=1.0)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        stack, x, mask, act, cnt = ctx.saved_tensors
+        gpart = kernels.lstm_train_backward(stack, x, mask, act, *ctx.dims)
+        scale = grad_out / cnt.sum(1).to(_F).clamp(min=1.0)
+        return gpart.sum(1) * scale[:, None], None, None, None, None
+
+
+def loss_and_grad(stack, x, mask, *, hidden: int, latent: int, device=None):
+    """(loss (J,), grad (J, P)) of each job's masked MSE: kernel L on the
+    card, torch autograd through the twin for device="cpu"."""
+    dev, stack, x, mask, H, Z = _fleet(stack, x, mask, hidden, latent, device)
+    p = stack.detach().clone().requires_grad_(True)
+    loss = (LstmAeLoss.apply(p, x, mask, H, Z) if dev.type == "cuda"
+            else loss_plain(p, x, mask, H, Z))
+    grad, = torch.autograd.grad(loss.sum(), p)
+    return loss.detach(), grad
+
+
+def bias_corrections(step):
+    """optax's bias corrections 1 - b1^t and 1 - b2^t (float32, (J,)) at
+    each job's step t (after the increment): b^t in float64 from float32 b,
+    rounded, then 1 - b^t in float32 (XLA's float32 power rounds as this
+    does up to t ~ 2,900 for b2)."""
+    t = step.to(torch.float64)
+    out = []
+    for b in (ADAM_B1, ADAM_B2):
+        bt = torch.pow(torch.tensor(float(np.float32(b)), dtype=torch.float64), t).to(_F)
+        out.append(torch.ones_like(bt) - bt)
+    return out
+
+
+def reduce_partials_plain(gpart, cnt):
+    """Kernel M's gradient: kernel L's partials (J, NB, P) summed in block
+    order in float32, times 1 / max(sum mask, 1) (cnt (J, NB) float64)."""
+    g = gpart[:, 0].clone()
+    for b in range(1, gpart.shape[1]):
+        g += gpart[:, b]
+    inv = torch.ones(cnt.shape[0], dtype=_F, device=cnt.device) / torch.clamp(
+        cnt.sum(1).to(_F), min=1.0)
+    return g * inv[:, None]
+
+
+def adam_plain(params, grad, mu, nu, step, lr: float = LEARNING_RATE):
+    """Twin of kernel M's update, in place: optax.adam in its order of
+    operations, in float32 with one rounding an operation. mu = (1 - b1) g
+    + b1 mu, nu = (1 - b2) g^2 + b2 nu, u = -lr (mu / bc1) / (sqrt(nu /
+    bc2) + eps), params + u; step (J,) is each job's count after the
+    increment."""
+    f32 = np.float32
+    c1, c2 = float(f32(1 - ADAM_B1)), float(f32(1 - ADAM_B2))
+    b1, b2, eps, nlr = float(f32(ADAM_B1)), float(f32(ADAM_B2)), float(f32(ADAM_EPS)), \
+        float(f32(-lr))
+    bc1, bc2 = bias_corrections(step.to(grad.device))
+    mu.copy_(c1 * grad + b1 * mu)
+    nu.copy_(c2 * (grad * grad) + b2 * nu)
+    # the square root in float64, rounded: correctly rounded as the card's
+    # sqrtf (torch's float32 sqrt on the CPU can be one ulp off)
+    root = torch.sqrt((nu / bc2[:, None]).double()).to(_F)
+    u = (mu / bc1[:, None]) / (root + eps)
+    params.copy_(params + u * nlr)
+
+
+def train_step_plain(params, step, mu, nu, x, mask, hidden: int, latent: int,
+                     lr: float = LEARNING_RATE):
+    """Twin of one training step of J jobs, in place: each job's loss and
+    gradient by torch autograd, step + 1, then adam_plain. Returns the
+    per-job loss (J,) before the update."""
+    p = params.detach().clone().requires_grad_(True)
+    loss = loss_plain(p, x, mask, hidden, latent)
+    grad, = torch.autograd.grad(loss.sum(), p)
+    step += 1
+    with torch.no_grad():
+        adam_plain(params, grad, mu, nu, step, lr)
+    return loss.detach()
+
+
+def train_step(params, step, mu, nu, x, mask, *, hidden: int, latent: int,
+               lr: float = LEARNING_RATE):
+    """One training step of J jobs, in place on their rows: params, mu, nu
+    (J, P) float32 and step (J,) int32 on one device, x and mask (J, K, W,
+    F). On the card kernel L's forward and backward, then kernel M (the
+    partials' reduction and Adam); on the CPU train_step_plain. Returns the
+    per-job loss (J,), on the device."""
+    if x.device.type == "cpu":
+        return train_step_plain(params, step, mu, nu, x, mask, hidden, latent, lr)
+    num, cnt, act = kernels.lstm_train_forward(params, x, mask, hidden, latent)
+    gpart = kernels.lstm_train_backward(params, x, mask, act, hidden, latent)
+    del act
+    step += 1
+    return kernels.adam(params, mu, nu, step, gpart, num, cnt, lr, ADAM_B1, ADAM_B2, ADAM_EPS)
+
+
+# plateau early stop, the reference's constants and rule (models/lstm_ae.py
+# :161-175): checked every 5 epochs from the 10th, stop once the loss
+# improves by less than 2% (relative) between consecutive checks
+_ES_CHECK_EVERY = 5
+_ES_MIN_EPOCHS = 10
+_ES_REL_TOL = 0.02
+
+
+class _Plateau:
+    """The reference's stateful plateau check: `stop(done, loss)` is True
+    once the loss improves by less than _ES_REL_TOL relatively between
+    consecutive checks. `due(done)` says whether `stop` would look at the
+    loss at all (so a caller syncs to the host only then)."""
+
+    def __init__(self):
+        self._prev = None
+
+    @staticmethod
+    def due(done: int) -> bool:
+        return done >= _ES_MIN_EPOCHS and done % _ES_CHECK_EVERY == 0
+
+    def stop(self, done: int, loss_scalar: float) -> bool:
+        if not self.due(done):
+            return False
+        prev, self._prev = self._prev, loss_scalar
+        return (prev is not None
+                and prev - loss_scalar < _ES_REL_TOL * max(prev, 1e-12))
+
+
+def _train_loop(params, step, mu, nu, x, mask, hidden, latent, epochs, lr, history):
+    """Run train_step up to `epochs` times, early-stopped by _Plateau on the
+    jobs' mean loss; the mean is read on the host only at the epochs the
+    rule looks. history, a list, receives each epoch's mean loss (a 0-d
+    tensor on the device)."""
+    plateau = _Plateau()
+    for e in range(int(epochs)):
+        loss = train_step(params, step, mu, nu, x, mask, hidden=hidden, latent=latent, lr=lr)
+        mean = loss.mean()
+        if history is not None:
+            history.append(mean)
+        if plateau.due(e + 1) and plateau.stop(e + 1, float(mean)):
+            break
+
+
+def train(x, mask, *, hidden: int, latent: int, epochs: int = 50, lr: float = LEARNING_RATE,
+          state=None, device=None):
+    """One job's full-batch training on its windows x, mask (K, W, F), from
+    state (params (P,), step, mu, nu; init_state's by default), early
+    stopped on its loss. Returns ((params, step, mu, nu), loss (0-d)) on the
+    device, as the reference's train returns its TrainState and last loss."""
+    dev = resolve_device(device)
+    x, mask = _windows(x, mask, dev)
+    if x.dim() != 3:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected (K, W, F)")
+    if state is None:
+        p, s, m, v = init_state(x.shape[-1], hidden, latent)
+    else:
+        p, s, m, v = (torch.as_tensor(t)[None].clone() for t in state)
+    p, m, v = (t.to(dev, _F).contiguous() for t in (p, m, v))
+    s = s.to(dev, torch.int32).contiguous()
+    hist = []
+    _train_loop(p, s, m, v, x[None], mask[None], int(hidden), int(latent), epochs, lr, hist)
+    return (p[0], s[0], m[0], v[0]), (hist[-1] if hist else None)
+
+
+def train_fleet(x, mask, *, hidden: int, latent: int, epochs: int = 50,
+                lr: float = LEARNING_RATE, device=None, history=None):
+    """Train J same-shape jobs' autoencoders in one loop, as the reference's
+    train_fleet: every job starts from init_state's row (PRNGKey(0)), each
+    epoch is one train_step of all J jobs, the plateau rule reads the
+    jobs' mean loss (so a job's trained parameters depend on the others in
+    its group), then each job's normalizer over its own windows: (mu,
+    max(population std, 1e-6)) of its reconstruction errors (kernel K).
+
+    x, mask: (J, K, W, F) training windows. Returns (params (J, P), mu (J,),
+    sigma (J,)) on the device. history, a list, receives each epoch's mean
+    loss (0-d device tensors)."""
+    H, Z = int(hidden), int(latent)
+    dev = resolve_device(device)
+    x, mask = _windows(x, mask, dev)
+    if x.dim() != 4:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected (J, K, W, F)")
+    J, F = x.shape[0], x.shape[-1]
+    params, step, mu, nu = (t.to(dev) for t in init_state(F, H, Z, J))
+    _train_loop(params, step, mu, nu, x, mask, H, Z, epochs, lr, history)
+    err = _errors(params, x, mask, H, Z)
+    return params, err.mean(1), torch.clamp(err.std(1, unbiased=False), min=1e-6)

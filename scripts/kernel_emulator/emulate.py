@@ -166,6 +166,9 @@ def self_check() -> int:
            f"best equal {torch.equal(k['best'], p['best'])}, mse |err| {_err(k['mse'], p['mse']):.3g}")
     cands = (2, 3, 12, 24, 48, 99, 150)
     fb = torch.full((B,), 5, dtype=torch.int32)
+    t_long = torch.arange(600)
+    x_series = 10 + 3 * torch.sin(2 * np.pi * t_long / 48) + torch.randn((B, 600), generator=g)
+    m_series = torch.rand((B, 600), generator=g) > 0.1
     kp, ks = kernels.detect_period(x, m, torch.tensor(cands, dtype=torch.int32), fb, 0.2, 0.05, 0.01)
     pp, ps = fc.detect_period_plain(x, m, cands, fb, 0.2, 0.05, 0.01)
     expect("detect_period", torch.equal(kp, pp) and _err(ks, ps) <= 1e-6,
@@ -242,7 +245,30 @@ def self_check() -> int:
             expect(name, True, f"err |err| {e:.3g}")
         except AssertionError as e:
             expect(name, False, str(e))
+    for F, H, Z in ((3, 8, 4), (4, 16, 8)):
+        name = f"lstm_train and adam F={F} H={H} Z={Z}"
+        p, x, m = cs.adversarial_lstm_train(4, 11, 8, F, H, Z, g)  # two window blocks a job
+        try:
+            kern = tl.LstmAeLoss.apply(p.clone().requires_grad_(True), x, m, H, Z)
+            q = p.clone().requires_grad_(True)
+            pl = tl.loss_plain(q, x, m, H, Z)
+            pg, = torch.autograd.grad(pl.sum(), q)
+            kg, = torch.autograd.grad(tl.LstmAeLoss.apply(q, x, m, H, Z).sum(), q)
+            e = cs.compare_lstm_train((kern.detach(), kg), (pl.detach(), pg))
+            num, cnt, act = kernels.lstm_train_forward(p, x, m, H, Z)
+            gpart = kernels.lstm_train_backward(p, x, m, act, H, Z)
+            step = torch.tensor([1, 2, 30, 400], dtype=torch.int32)
+            cs.compare_adam(p, 1e-3 * torch.randn(p.shape, generator=g),
+                            1e-6 * torch.rand(p.shape, generator=g), step, gpart, num, cnt)
+            expect(name, True, f"grad |err| {e:.3g}, adam bit for bit")
+        except AssertionError as e:
+            expect(name, False, str(e))
     cs.DEV = saved_dev
+    many = torch.tensor(cs.MANY_CANDIDATES, dtype=torch.int32)
+    kp, ks = kernels.detect_period(x_series, m_series, many, fb, 0.2, 0.05, 0.01)
+    pp, ps = fc.detect_period_plain(x_series, m_series, cs.MANY_CANDIDATES, fb, 0.2, 0.05, 0.01)
+    expect("detect_period 40 candidates", torch.equal(kp, pp) and _err(ks, ps) <= 1e-6,
+           f"periods equal {torch.equal(kp, pp)}, scores |err| {_err(ks, ps):.3g}")
     kernels.SCRATCH_BYTES = 3 * 16384 * 16  # three CTAs walk the pairs
     for T in (64, 4100):
         a = fl.pair_args_from_numpy(cs.adversarial_pairs(8, T, np.random.default_rng(T)), "cpu")

@@ -1,8 +1,13 @@
 #!/usr/bin/env python3
-"""Write tests/data/lstm_ae_ref.npz: LSTM-autoencoder parameters trained by
-the JAX reference, and the reference's z-scores on evaluation windows.
+"""Write tests/data/lstm_ae_ref.npz (LSTM-autoencoder parameters trained by
+the JAX reference, and the reference's z-scores on evaluation windows) and
+tests/data/lstm_ae_train_ref.npz (the same training, recorded: the
+reference's initial parameters, the training windows, each epoch's loss).
 
-    JAX_PLATFORMS=cpu python scripts/make_lstm_ae_fixture.py
+    JAX_PLATFORMS=cpu python scripts/make_lstm_ae_fixture.py [--train-only]
+
+--train-only leaves lstm_ae_ref.npz as it is and writes the training file
+alone (both come from the same seeded data and the same training run).
 
 Runs the reference (foremast_tpu) on the CPU; never on the card. Eight
 jobs, each a seeded synthetic service of four metrics (latency, error rate,
@@ -22,6 +27,15 @@ foremast_tpu_torch.models.lstm_ae's flat layout (P = 12,180), mu and sigma
 z (J, K) float32 (the reference's anomaly_scores_fleet) and err (J, K)
 (its reconstruction_errors). The port's tests and chip_smoke.py read it
 with numpy alone.
+
+The training file holds init (P,) float32, the reference's init_state
+parameters at PRNGKey(0) in the flat layout; x_train, m_train (J, 45, W,
+F), the training windows; losses (E,) float64, the fleet-mean loss of each
+epoch train_fleet ran (its plateau stop included: E is the stop epoch); and
+params (J, P), mu, sigma (J,), what it returned (equal to lstm_ae_ref.npz's).
+The loop is the reference's train_fleet written out with its own
+_train_step_fleet and _Plateau, so that each epoch's loss can be kept; the
+script checks that it ends with train_fleet's parameters, bit for bit.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 OUT = os.path.join(REPO, "tests", "data", "lstm_ae_ref.npz")
+TRAIN_OUT = os.path.join(REPO, "tests", "data", "lstm_ae_train_ref.npz")
 
 SEED = 20261017
 J, F, H, Z, W, EPOCHS = 8, 4, 32, 16, 32, 30
@@ -79,6 +94,31 @@ def anomalies(rng, x, m, sd):
     return out
 
 
+def train_recorded(jl, model, x, m, epochs):
+    """The reference's train_fleet, written out with its own pieces so that
+    each epoch's fleet-mean loss is kept. Returns (params, mu, sigma,
+    losses)."""
+    import jax
+    import jax.numpy as jnp
+
+    n_jobs, _, w, _ = x.shape
+    state, tx = jl.init_state(model, jax.random.PRNGKey(0), T=w)
+    params = jax.tree.map(lambda a: jnp.array(jnp.broadcast_to(a[None], (n_jobs,) + a.shape)),
+                          state.params)
+    opt_state = jax.tree.map(
+        lambda a: jnp.array(jnp.broadcast_to(a[None], (n_jobs,) + a.shape)), state.opt_state)
+    plateau = jl._Plateau()
+    losses = []
+    for e in range(epochs):
+        params, opt_state, loss = jl._train_step_fleet(params, opt_state, x, m, model.apply, tx)
+        losses.append(float(jnp.mean(loss)))
+        if plateau.stop(e + 1, losses[-1]):
+            break
+    mus, sds = jax.vmap(lambda p, xx, mm: jl.fit_score_normalizer(p, xx, mm, model.apply))(
+        params, x, m)
+    return params, mus, sds, losses
+
+
 def main() -> int:
     import jax
 
@@ -122,6 +162,14 @@ def main() -> int:
     model = jl.LstmAutoencoder(hidden=H, latent=Z, features=F)
     params, mu, sigma = jl.train_fleet(model, jax.random.PRNGKey(0), jnp.asarray(x_train),
                                        jnp.asarray(m_train), epochs=EPOCHS)
+    rec_params, rec_mu, rec_sigma, losses = train_recorded(
+        jl, model, jnp.asarray(x_train), jnp.asarray(m_train), EPOCHS)
+    for a, b in zip(jax.tree.leaves((params, mu, sigma)),
+                    jax.tree.leaves((rec_params, rec_mu, rec_sigma))):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise SystemExit("the recorded loop did not reproduce train_fleet")
+    state, _ = jl.init_state(model, jax.random.PRNGKey(0), T=W)
+    init = flat_params(params_from_flax(jax.device_get(state.params))).numpy()
     z = np.asarray(jl.anomaly_scores_fleet(params, x_eval, m_eval, mu, sigma, model.apply))
     err = np.asarray(jax.vmap(lambda p, xx, mm: jl.reconstruction_errors(
         p, xx, mm, model.apply))(params, x_eval, m_eval))
@@ -130,12 +178,20 @@ def main() -> int:
                      for j in range(J)])
     anomalous = np.array([False] * K_HEALTHY + [True] * K_ANOMALOUS)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, params=flat, mu=np.asarray(mu, np.float32),
-                        sigma=np.asarray(sigma, np.float32), x=x_eval, mask=m_eval,
-                        anomalous=anomalous, z=z.astype(np.float32),
-                        err=err.astype(np.float32), dims=np.array([F, H, Z, W]))
-    print(f"wrote {OUT}: {J} jobs, {x_eval.shape[1]} windows each; healthy z "
-          f"max {z[:, ~anomalous].max():.2f}, anomalous z min {z[:, anomalous].min():.2f}")
+    if "--train-only" not in sys.argv[1:]:
+        np.savez_compressed(OUT, params=flat, mu=np.asarray(mu, np.float32),
+                            sigma=np.asarray(sigma, np.float32), x=x_eval, mask=m_eval,
+                            anomalous=anomalous, z=z.astype(np.float32),
+                            err=err.astype(np.float32), dims=np.array([F, H, Z, W]))
+        print(f"wrote {OUT}: {J} jobs, {x_eval.shape[1]} windows each; healthy z "
+              f"max {z[:, ~anomalous].max():.2f}, anomalous z min "
+              f"{z[:, anomalous].min():.2f}")
+    np.savez_compressed(TRAIN_OUT, init=init, x_train=x_train.astype(np.float32),
+                        m_train=m_train, losses=np.asarray(losses, np.float64), params=flat,
+                        mu=np.asarray(mu, np.float32), sigma=np.asarray(sigma, np.float32),
+                        dims=np.array([F, H, Z, W, EPOCHS]))
+    print(f"wrote {TRAIN_OUT}: {J} jobs x {k_train} windows; stopped after {len(losses)} of "
+          f"{EPOCHS} epochs, fleet-mean loss {losses[0]:.5f} -> {losses[-1]:.5f}")
     return 0
 
 

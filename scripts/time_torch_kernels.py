@@ -32,6 +32,11 @@ kernel I alone (median of 20 by CUDA events), and one torch.profiler trace
 of the engine's HPA launch (kernel C's SES on the history, then kernel I's
 hpa_from_preds): the device time of each kernel and of anything else on the
 card between them, and the card's idle share over the launch.
+
+--lstm-train times one training epoch's kernels on chip_smoke.py's training
+pass (1,024 jobs x a day of 45 windows of 32 steps x 4 metrics, H = 32,
+Z = 16, from the reference's initial rows): kernel L's forward and backward
+entries and kernel M alone, each the median of 5 by CUDA events.
 """
 import argparse
 import importlib.util
@@ -227,12 +232,37 @@ def families_split():
     return out
 
 
+def lstm_train_split():
+    """One training epoch's kernels L (forward, backward) and M alone on
+    chip_smoke's training-pass inputs."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    x, m = cs.lstm_day_windows(cs.LSTM_TRAIN_JOBS, gen)
+    H, Z = 32, 16
+    params, step, mu, nu = (t.to(cs.DEV) for t in tl.init_state(4, H, Z, x.shape[0]))
+    step += 1
+    num, cnt, act = kernels.lstm_train_forward(params, x, m, H, Z)
+    fwd = cs.median_ms(lambda: kernels.lstm_train_forward(params, x, m, H, Z), 5)
+    gpart = kernels.lstm_train_backward(params, x, m, act, H, Z)
+    bwd = cs.median_ms(lambda: kernels.lstm_train_backward(params, x, m, act, H, Z), 5)
+    adam = cs.median_ms(lambda: kernels.adam(params, mu, nu, step, gpart, num, cnt,
+                                             tl.LEARNING_RATE, tl.ADAM_B1, tl.ADAM_B2,
+                                             tl.ADAM_EPS), 5)
+    print(f"  lstm_train_forward {fwd:.3f} ms, lstm_train_backward {bwd:.3f} ms, adam "
+          f"{adam:.3f} ms (medians of 5)", flush=True)
+    return {"lstm_train_forward_ms": fwd, "lstm_train_backward_ms": bwd, "adam_ms": adam}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true", help="split kernel A and the pass")
     p.add_argument("--seasonal", action="store_true", help="split the seasonal path instead")
     p.add_argument("--families", action="store_true",
                    help="time kernels H and I and profile the HPA launch instead")
+    p.add_argument("--lstm-train", action="store_true",
+                   help="time one training epoch's kernels L and M instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
     if not torch.cuda.is_available():
@@ -243,6 +273,10 @@ def main():
     if opt.families:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "families": families_split()}), flush=True)
+        return
+    if opt.lstm_train:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "lstm_train": lstm_train_split()}), flush=True)
         return
     if opt.seasonal:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

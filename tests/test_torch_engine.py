@@ -20,12 +20,23 @@ relative.
 Port-only arms pin the cycle's contracts: triage on and off (three
 threshold arms, and the bivariate family opted in), memo on and off, the
 pipeline and the barriered path, megabatch on and off each give one
-digest; a screen failure escalates its whole bucket; a three-metric job,
-routed to the LSTM family, fails scoring with the named
-NotImplementedError and is never judged healthy. The reference's engine
+digest; a screen failure escalates its whole bucket. The reference's engine
 tests of the hpa family run on the port.
+
+The LSTM family (jobs with three or more metrics) has its own fleet: its
+verdict digest equals the reference's, or every differing job is listed
+with its z on both sides and lies within 0.05 of LSTM_THRESHOLD (float
+noise of training: the port's initial recurrent kernels differ from the
+reference's by float32 ulps and it sums in another order, and the plateau
+reads a fleet mean); the reference's LSTM engine tests (an anomaly flagged,
+a healthy job cached, the train budget spread over cycles, the fleet
+scoring path, one training slot for the jobs of one app) run on the port;
+a job of more metrics than the kernels take fails scoring by name; the
+model cache round-trips through its file, and other files (the
+reference's among them) load nothing.
 """
 import json
+import os
 import re
 
 import jax
@@ -35,12 +46,12 @@ import torch
 
 from foremast_tpu import engine as jax_engine
 from foremast_tpu.dataplane.fetch import RawFixtureDataSource as JaxRawSource
+from foremast_tpu.dataplane import FixtureDataSource as JaxFixtureSource
 from foremast_tpu.dataplane import VerdictExporter as JaxExporter
 from foremast_tpu.engine.jobs import verdict_digest as jax_digest
 from foremast_tpu_torch import engine as E
 from foremast_tpu_torch.dataplane import VerdictExporter
 from foremast_tpu_torch.dataplane.fetch import FixtureDataSource, RawFixtureDataSource
-from foremast_tpu_torch.engine.analyzer import NOT_PORTED
 from foremast_tpu_torch.engine.jobs import verdict_digest
 from foremast_tpu_torch.engine.triage import TriageGate
 from foremast_tpu_torch.utils.timeutils import to_rfc3339
@@ -383,38 +394,31 @@ def test_cycle_records_and_exporter_surface_the_triage_counters():
     assert "foremastbrain:latency_upper" in text
 
 
-def test_families_not_ported_fail_scoring_by_name_and_are_never_judged_healthy():
-    """A three-metric job routes to the LSTM family (ROADMAP queue 1, item
-    7): it fails scoring with the named NotImplementedError, a canary is
-    aborted, a continuous job requeued, and neither is ever judged."""
-    rng = np.random.default_rng(5)
-    series = {}
-    names = ("cpu", "memory", "latency")
-    for m in names:
-        for role, n in (("h", 200), ("c", 30)):
-            ts = NOW - 300 * STEP + STEP * np.arange(n)
-            series[f"u/lstm/{m}/{role}"] = _body(ts, 20 + rng.standard_normal(n))
-    metrics = {m: E.MetricQueries(current=f"u/lstm/{m}/c", historical=f"u/lstm/{m}/h")
-               for m in names}
-    store = E.JobStore()
-    for jid, strategy in (("lstm-canary", "canary"), ("lstm-continuous", "continuous")):
-        store.create(E.Document(
-            id=jid, app_name=jid, strategy=strategy, start_time="",
-            end_time="" if strategy == "continuous" else to_rfc3339(NOW + 3600),
-            metrics=metrics))
-    for pipeline in (True, False):
-        an = E.Analyzer(E.EngineConfig(score_pipeline=pipeline), RawFixtureDataSource(series),
-                        store, device="cpu")
-        an.run_cycle(worker="w", now=NOW)
-        for jid in ("lstm-canary", "lstm-continuous"):
-            doc = store.get(jid)
-            assert doc.status not in (E.jobs.COMPLETED_HEALTH, E.jobs.COMPLETED_UNHEALTH), jid
-            assert "NotImplementedError" in doc.reason and NOT_PORTED in doc.reason, jid
-        assert store.get("lstm-canary").status == E.jobs.ABORT
-        assert store.get("lstm-continuous").status == E.jobs.INITIAL
-        store.create(E.Document(id="lstm-canary", app_name="lstm-canary", strategy="canary",
-                                start_time="", end_time=to_rfc3339(NOW + 3600),
-                                metrics=metrics))
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("pipeline", [True, False], ids=["pipelined", "barriered"])
+def test_three_metric_jobs_are_judged_under_the_lstm_family(pipeline):
+    """A three-metric canary (healthy, expired) and a continuous job (a
+    decorrelated level shift) route to the LSTM family: each trains its
+    model, scores and is judged, on the pipelined and the barriered path,
+    as the reference judges them."""
+    statuses = []
+    for mod, src_cls, kw in ((E, FixtureDataSource, {"device": "cpu"}),
+                             (jax_engine, JaxFixtureSource, {})):
+        fixtures = {}
+        store = mod.JobStore()
+        store.create(_multi_job(mod, fixtures, bad=False, jid="lstm-canary", app="a1",
+                                end=NOW - 60))
+        store.create(_multi_job(mod, fixtures, bad=True, jid="lstm-continuous", app="a2",
+                                strategy="continuous"))
+        an = mod.Analyzer(_lstm_cfg(mod, score_pipeline=pipeline), src_cls(fixtures), store,
+                          **kw)
+        out = an.run_cycle(worker="w", now=NOW)
+        statuses.append(out)
+        assert out == {"lstm-canary": E.jobs.COMPLETED_HEALTH,
+                       "lstm-continuous": E.jobs.COMPLETED_UNHEALTH}, (mod.__name__, out)
+        assert "LSTM-AE reconstruction" in store.get("lstm-continuous").reason
+        assert len(an._lstm_cache) == 2
+    assert statuses[0] == statuses[1]
 
 
 def test_the_analyzer_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
@@ -458,8 +462,7 @@ def test_from_env_reads_the_reference_s_variables_and_defaults(env):
 @pytest.mark.parametrize("key,value,item", [
     ("PROVENANCE", "0", "queue 1, item 8"), ("QUARANTINE_AFTER", "1", "queue 1, item 8"),
     ("DELTA_FETCH", "false", "queue 1, item 8"), ("CYCLE_DEADLINE_S", "5", "queue 1, item 8"),
-    ("LSTM_EPOCHS", "5", "queue 1, item 7"), ("SLO_HPA_S", "30", "queue 1, item 8"),
-    ("LSTM_WINDOW", "64", "queue 1, item 7"), ("LSTM_HIDDEN", "64", "queue 1, item 7")])
+    ("SLO_HPA_S", "30", "queue 1, item 8")])
 def test_from_env_refuses_the_knobs_of_layers_not_ported(key, value, item):
     env = {key: value, "metric_type_threshold_count": "1", "metric_type0": "latency"}
     with pytest.raises(NotImplementedError, match=f"{key}: .*ROADMAP {item}"):
@@ -854,3 +857,365 @@ def test_exporter_renders_bounds_and_hpa_scores_as_the_reference():
                       or "hpa_score" in line)
 
     assert lines(VerdictExporter()) == lines(JaxExporter())
+
+
+# ------------------------------------------------------------- LSTM family
+LSTM_METRICS = ("latency", "cpu", "tps")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The LSTM twins' training is thousands of small operations: one torch
+    thread runs it faster than a pool, and keeps it fast when test workers
+    share the CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _lstm_cfg(mod, **kw):
+    """The reference's small LSTM config (tests/test_engine.py: window 16,
+    hidden 8, latent 4)."""
+    return mod.EngineConfig(**{"algorithm": "lstm_autoencoder", "lstm_window": 16,
+                               "lstm_epochs": 60, "lstm_hidden": 8, "lstm_latent": 4,
+                               "policies": {}, **kw})
+
+
+def _multi_job(mod, fixtures, *, bad, jid="multi", app="app", seed=11, n_h=256, n_c=16,
+               strategy="canary", end=0.0, shift=6.0):
+    """A three-metric job (the reference's _multi_job): phase-shifted waves
+    with a little noise; `bad` adds a decorrelated level shift to tps in the
+    current window."""
+    t_h = np.arange(n_h)
+    t_c = n_h + np.arange(n_c)
+    rng = np.random.default_rng(seed)
+    metrics = {}
+    for i, name in enumerate(LSTM_METRICS):
+        wave_h = np.sin(2 * np.pi * t_h / 32 + i) + rng.normal(0, 0.05, n_h)
+        wave_c = np.sin(2 * np.pi * t_c / 32 + i) + rng.normal(0, 0.05, n_c)
+        if bad and name == "tps":
+            wave_c = wave_c + shift
+        fixtures[f"{jid}/h{i}"] = ((t_h * STEP).tolist(), wave_h.tolist())
+        fixtures[f"{jid}/c{i}"] = ((t_c * STEP).tolist(), wave_c.tolist())
+        metrics[name] = mod.MetricQueries(current=f"{jid}/c{i}", historical=f"{jid}/h{i}")
+    return mod.Document(id=jid, app_name=app, namespace="d", strategy=strategy,
+                        start_time=to_rfc3339(0),
+                        end_time="" if strategy == "continuous" else to_rfc3339(end),
+                        metrics=metrics)
+
+
+def _noise_jobs(mod, n, *, app=None, n_h=128, n_c=16, seed0=20):
+    """The reference's budget / fleet-path jobs: n canaries of three noisy
+    metrics, one app each unless `app` names one for all."""
+    fixtures, docs = {}, []
+    for j in range(n):
+        rng = np.random.default_rng(seed0 + j)
+        for i, name in enumerate(LSTM_METRICS):
+            fixtures[f"h{j}{i}"] = ((np.arange(n_h) * STEP).tolist(),
+                                    rng.normal(10, 1, n_h).tolist())
+            fixtures[f"c{j}{i}"] = (((n_h + np.arange(n_c)) * STEP).tolist(),
+                                    rng.normal(10, 1, n_c).tolist())
+        docs.append(mod.Document(
+            id=f"m{j}", app_name=app or f"app{j}", namespace="d", strategy="canary",
+            start_time=to_rfc3339(0), end_time=to_rfc3339(1e9),
+            metrics={name: mod.MetricQueries(current=f"c{j}{i}", historical=f"h{j}{i}")
+                     for i, name in enumerate(LSTM_METRICS)}))
+    return fixtures, docs
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_engine_lstm_mode_flags_multivariate_anomaly():
+    fixtures = {}
+    store = E.JobStore()
+    store.create(_multi_job(E, fixtures, bad=True))
+    an = E.Analyzer(_lstm_cfg(E), FixtureDataSource(fixtures), store, device="cpu")
+    out = an.run_cycle(now=1_000_000.0)
+    assert out["multi"] == E.jobs.COMPLETED_UNHEALTH
+    assert "LSTM-AE" in store.get("multi").reason
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_engine_lstm_mode_passes_healthy_and_caches_model():
+    fixtures = {}
+    store = E.JobStore()
+    store.create(_multi_job(E, fixtures, bad=False))
+    an = E.Analyzer(_lstm_cfg(E), FixtureDataSource(fixtures), store, device="cpu")
+    out = an.run_cycle(now=1_000_000.0)
+    assert out["multi"] == E.jobs.COMPLETED_HEALTH
+    assert len(an._lstm_cache) == 1
+    (row, mu, sd, _version), = an._lstm_cache.values()
+    assert row.shape == (E.analyzer.lstm_ae.param_count(3, 8, 4),) and sd > 0
+    # a second job for the same app reuses the cached model (no retrain)
+    store.create(_multi_job(E, fixtures, bad=False))
+    trained = an.device_launches
+    an.run_cycle(now=1_000_001.0)
+    assert len(an._lstm_cache) == 1 and an._lstm_trained_this_cycle == 0
+    assert an.device_launches == trained  # the z memo: unchanged windows, no launch
+    assert an.last_cycle_stages["lstm_rescore_skips"] == 1
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lstm_train_budget_amortizes_across_cycles():
+    """A cold multi-metric fleet warms up under LSTM_MAX_TRAIN_PER_CYCLE:
+    capped-out jobs stay in progress (requeued) and train later; the
+    engine.score.lstm span carries the cycle's budget skips."""
+    from foremast_tpu_torch.utils import tracing
+
+    fixtures, docs = _noise_jobs(E, 3)
+    store = E.JobStore()
+    for d in docs:
+        store.create(d)
+    cfg = _lstm_cfg(E, lstm_epochs=3, lstm_max_train_per_cycle=1, lstm_threshold=1e9)
+    an = E.Analyzer(cfg, FixtureDataSource(fixtures), store, device="cpu")
+    for cycle, expected_models in ((1, 1), (2, 2), (3, 3)):
+        out = an.run_cycle(now=100.0)
+        assert len(an._lstm_cache) == expected_models, (cycle, out)
+        assert all(s == E.jobs.INITIAL for s in out.values()), out
+        spans = [sp for t in tracing.tracer.snapshot(limit=1) for sp in _walk(t)
+                 if sp["name"] == "engine.score.lstm"]
+        assert spans and spans[-1]["attrs"]["budget_skips"] == 3 - expected_models
+    assert an.lstm_budget_skips == 2 + 1
+
+
+def _walk(span):
+    yield span
+    for c in span.get("children", []):
+        yield from _walk(c)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("n,calls", [(5, 1), (3, 3)])
+def test_lstm_fleet_scoring_path_engages(monkeypatch, n, calls):
+    """From four same-shape jobs on, the family scores them in one
+    anomaly_scores_fleet call (one kernel K launch on the card); below that,
+    job by job, as the reference counts its launches."""
+    lstm_ae = E.analyzer.lstm_ae
+    seen = []
+    real = lstm_ae.anomaly_scores_fleet
+
+    def spy(stack, *a, **k):
+        seen.append(stack.shape[0])
+        return real(stack, *a, **k)
+
+    monkeypatch.setattr(lstm_ae, "anomaly_scores_fleet", spy)
+    fixtures, docs = _noise_jobs(E, n, seed0=40)
+    store = E.JobStore()
+    for d in docs:
+        store.create(d)
+    an = E.Analyzer(_lstm_cfg(E, lstm_epochs=3, lstm_threshold=1e9), FixtureDataSource(fixtures),
+                    store, device="cpu")
+    d0 = an.device_launches
+    out = an.run_cycle(now=100.0)
+    assert all(s == E.jobs.INITIAL for s in out.values()), out
+    assert len(seen) == calls and sum(seen) == n
+    # one training launch for the group of n, one per scoring call
+    assert an.device_launches - d0 == 1 + calls
+    assert an.last_cycle_stages["device_launches"] == 1 + calls
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lstm_same_app_jobs_share_one_training_slot():
+    """N jobs of one app share a cache key: a cold cycle trains ONE model
+    for them (one budget slot) and all N score from it."""
+    fixtures, docs = _noise_jobs(E, 1, seed0=50)
+    docs = [E.Document(id=f"dup{j}", app_name="one-app", namespace="d", strategy="canary",
+                       start_time=to_rfc3339(0), end_time=to_rfc3339(1e9),
+                       metrics=dict(docs[0].metrics)) for j in range(3)]
+    store = E.JobStore()
+    for d in docs:
+        store.create(d)
+    cfg = _lstm_cfg(E, lstm_epochs=3, lstm_threshold=1e9, lstm_max_train_per_cycle=1)
+    an = E.Analyzer(cfg, FixtureDataSource(fixtures), store, device="cpu")
+    out = an.run_cycle(now=100.0)
+    assert len(an._lstm_cache) == 1
+    assert an._lstm_trained_this_cycle == 1
+    assert all(s == E.jobs.INITIAL for s in out.values()), out
+
+
+class _LstmFleet:
+    """Twelve three-metric jobs over five apps, for both engines: healthy
+    waves, decorrelated level shifts of 6, 1.5 and 0.6 (the last near the
+    threshold's reach), canaries and continuous jobs, histories of 256 and
+    200 steps (two training shapes)."""
+
+    SPECS = [  # (jid, app, bad, shift, seed, n_h, strategy)
+        ("l0", "a0", False, 0.0, 1, 256, "canary"), ("l1", "a0", True, 6.0, 2, 256, "canary"),
+        ("l2", "a1", False, 0.0, 3, 256, "continuous"), ("l3", "a1", True, 1.5, 4, 256,
+                                                         "continuous"),
+        ("l4", "a2", False, 0.0, 5, 200, "continuous"), ("l5", "a2", True, 0.6, 6, 200,
+                                                         "continuous"),
+        ("l6", "a3", True, 6.0, 7, 256, "continuous"), ("l7", "a3", False, 0.0, 8, 256,
+                                                        "canary"),
+        ("l8", "a4", False, 0.0, 9, 200, "canary"), ("l9", "a4", True, 1.5, 10, 200, "canary"),
+        ("l10", "a0", False, 0.0, 11, 256, "continuous"), ("l11", "a2", True, 0.6, 12, 200,
+                                                           "canary")]
+
+    def run(self, mod, src_cls, **kw):
+        fixtures = {}
+        store = mod.JobStore()
+        for jid, app, bad, shift, seed, n_h, strategy in self.SPECS:
+            store.create(_multi_job(mod, fixtures, bad=bad, jid=jid, app=app, seed=seed,
+                                    n_h=n_h, strategy=strategy, end=NOW + 3600, shift=shift))
+        an = mod.Analyzer(_lstm_cfg(mod, lstm_epochs=30, lstm_max_train_per_cycle=3),
+                          src_cls(fixtures), store, **kw)
+        zs = {}
+        score = an._score_multi
+
+        def record(items):
+            res = score(items)
+            zs.update({k[0]: float(r["z"]) for k, r in res.items()})
+            return res
+
+        an._score_multi = record
+        digests = []
+        for c in range(3):
+            an.run_cycle(worker="w", now=NOW + c)
+            digests.append((jax_digest if mod is jax_engine else verdict_digest)(store))
+        return store, digests, zs
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lstm_fleet_digest_equals_the_reference_or_differences_are_boundary_cases():
+    fleet = _LstmFleet()
+    ref_store, ref_digests, ref_z = fleet.run(jax_engine, JaxFixtureSource)
+    store, digests, zs = fleet.run(E, FixtureDataSource, device="cpu")
+    assert set(zs) == set(ref_z) == {s[0] for s in _LstmFleet.SPECS}
+    report = {}
+    if digests != ref_digests:
+        for jid, *_ in _LstmFleet.SPECS:
+            mine, theirs = store.get(jid), ref_store.get(jid)
+            if (mine.status, mine.anomaly) != (theirs.status, theirs.anomaly):
+                report[jid] = (zs[jid], ref_z[jid])
+    thr = E.EngineConfig().lstm_threshold
+    assert all(min(abs(a - thr), abs(b - thr)) <= 0.05 for a, b in report.values()), report
+    for jid in zs:  # z itself: float noise of training
+        assert abs(zs[jid] - ref_z[jid]) <= 1e-2 * max(1.0, abs(ref_z[jid])), (jid, zs[jid],
+                                                                                 ref_z[jid])
+    assert store.get("l1").status == E.jobs.COMPLETED_UNHEALTH
+    assert store.get("l6").status == E.jobs.COMPLETED_UNHEALTH
+    assert store.get("l2").status == E.jobs.INITIAL
+
+
+@pytest.mark.parametrize("key,value", [
+    ("LSTM_WINDOW", "64"), ("LSTM_EPOCHS", "5"), ("LSTM_HIDDEN", "64"), ("LSTM_LATENT", "8"),
+    ("LSTM_THRESHOLD", "2.5"), ("LSTM_MAX_TRAIN_PER_CYCLE", "0"), ("MAX_CACHE_SIZE", "16")])
+def test_from_env_reads_the_lstm_knobs_as_the_reference(key, value):
+    from foremast_tpu.engine import config as jax_config
+
+    field = {"MAX_CACHE_SIZE": "max_cache_size"}.get(key, key.lower())
+    for env in ({key: value}, {key: "garbage"}, {}):
+        port, ref = E.from_env(env), jax_config.from_env(env)
+        assert getattr(port, field) == getattr(ref, field), (env, field)
+    assert str(getattr(E.from_env({key: value}), field)) in (value, str(float(value)))
+
+
+@pytest.mark.parametrize("env,knob", [
+    ({"ST_CHANGEPOINTS": "30"}, "ST_CHANGEPOINTS"),
+    ({"ST_ORDER": "14", "ST_CHANGEPOINTS": "3"}, "ST_ORDER"),
+    ({"ST_ORDER": "-1"}, "ST_ORDER"),
+    ({"HW_PERIOD_CANDIDATES": ",".join(str(p) for p in range(2, 2 + 1025))},
+     "HW_PERIOD_CANDIDATES"),
+    ({"LSTM_HIDDEN": "257"}, "LSTM_HIDDEN"), ({"LSTM_HIDDEN": "0"}, "LSTM_HIDDEN"),
+    ({"LSTM_LATENT": "300"}, "LSTM_LATENT")])
+def test_config_refuses_at_startup_what_the_card_cannot_take(env, knob):
+    """Values past the kernels' limits (kernels.MAX_ST_D, MAX_CANDIDATES,
+    MAX_LSTM_HIDDEN, MAX_LSTM_LATENT) are refused by name when the config is
+    built, from the environment or directly."""
+    from foremast_tpu_torch import kernels
+
+    assert (kernels.MAX_ST_D, kernels.MAX_CANDIDATES, kernels.MAX_LSTM_HIDDEN,
+            kernels.MAX_LSTM_LATENT, kernels.MAX_LSTM_FEATURES) == (32, 1024, 256, 256, 32)
+    with pytest.raises(ValueError, match=knob):
+        E.from_env(env)
+    cfg = E.from_env({})
+    fields = {"ST_CHANGEPOINTS": "st_changepoints", "ST_ORDER": "st_order",
+              "LSTM_HIDDEN": "lstm_hidden", "LSTM_LATENT": "lstm_latent"}
+    kw = {fields[k]: int(v) for k, v in env.items() if k in fields}
+    if "HW_PERIOD_CANDIDATES" in env:
+        kw["hw_period_candidates"] = tuple(range(2, 2 + 1025))
+    with pytest.raises(ValueError, match=knob):
+        E.EngineConfig(**{**{f: getattr(cfg, f) for f in ("st_order", "st_changepoints")}, **kw})
+
+
+def test_config_takes_the_kernels_limits_themselves():
+    from foremast_tpu_torch import kernels
+
+    cfg = E.from_env({"ST_ORDER": "3", "ST_CHANGEPOINTS": str(kernels.MAX_ST_D - 8),
+                      "HW_PERIOD_CANDIDATES": ",".join(
+                          str(p) for p in range(2, 2 + kernels.MAX_CANDIDATES)),
+                      "LSTM_HIDDEN": str(kernels.MAX_LSTM_HIDDEN),
+                      "LSTM_LATENT": str(kernels.MAX_LSTM_LATENT)})
+    assert 2 + cfg.st_changepoints + 2 * cfg.st_order == kernels.MAX_ST_D
+    assert len(cfg.hw_period_candidates) == kernels.MAX_CANDIDATES
+    assert (cfg.lstm_hidden, cfg.lstm_latent) == (256, 256)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_a_job_of_more_metrics_than_the_kernels_take_fails_scoring_by_name():
+    """A job of MAX_LSTM_FEATURES + 1 metrics fails scoring, naming the
+    limit (a canary aborts); a three-metric job in the same cycle is judged."""
+    from foremast_tpu_torch import kernels
+
+    fixtures = {}
+    store = E.JobStore()
+    store.create(_multi_job(E, fixtures, bad=False, jid="ok", app="a", end=NOW - 60))
+    n = kernels.MAX_LSTM_FEATURES + 1
+    rng = np.random.default_rng(3)
+    metrics = {}
+    for i in range(n):
+        fixtures[f"w/h{i}"] = ((np.arange(64) * STEP).tolist(), rng.normal(5, 1, 64).tolist())
+        fixtures[f"w/c{i}"] = (((64 + np.arange(16)) * STEP).tolist(),
+                               rng.normal(5, 1, 16).tolist())
+        metrics[f"metric{i}"] = E.MetricQueries(current=f"w/c{i}", historical=f"w/h{i}")
+    store.create(E.Document(id="wide", app_name="w", namespace="d", strategy="canary",
+                            start_time=to_rfc3339(0), end_time=to_rfc3339(NOW - 60),
+                            metrics=metrics))
+    an = E.Analyzer(_lstm_cfg(E, lstm_epochs=3), FixtureDataSource(fixtures), store,
+                    device="cpu")
+    out = an.run_cycle(worker="w", now=NOW)
+    assert out == {"ok": E.jobs.COMPLETED_HEALTH, "wide": E.jobs.ABORT}, out
+    assert "MAX_LSTM_FEATURES" in store.get("wide").reason
+    assert "scoring failed" in store.get("wide").reason
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lstm_cache_round_trips_and_other_files_load_nothing(tmp_path):
+    fixtures = {}
+    store = E.JobStore()
+    for j, app in enumerate(("a1", "a2")):
+        store.create(_multi_job(E, fixtures, bad=False, jid=f"j{j}", app=app, seed=j))
+    cfg = _lstm_cfg(E, lstm_epochs=5)
+    an = E.Analyzer(cfg, FixtureDataSource(fixtures), store, device="cpu")
+    an.run_cycle(now=1_000_000.0)
+    path = str(tmp_path / "lstm.npz")
+    assert an.save_lstm_cache(path) == 2
+    assert not os.path.exists(path + ".tmp")
+    fresh = E.Analyzer(cfg, FixtureDataSource(fixtures), E.JobStore(), device="cpu")
+    assert fresh.load_lstm_cache(path) == 2
+    assert list(fresh._lstm_cache) == list(an._lstm_cache)
+    for k, (row, mu, sd, _v) in an._lstm_cache.items():
+        row2, mu2, sd2, _ = fresh._lstm_cache[k]
+        assert torch.equal(row2, row) and (mu2, sd2) == (mu, sd)
+    assert an.save_lstm_cache(path, max_entries=1) == 1
+    assert E.Analyzer(cfg, FixtureDataSource(fixtures), E.JobStore(),
+                      device="cpu").load_lstm_cache(path) == 1
+    # another architecture, an absent file, a corrupt one: 0, never an error
+    other = E.Analyzer(_lstm_cfg(E, lstm_hidden=16), FixtureDataSource(fixtures), E.JobStore(),
+                       device="cpu")
+    assert other.load_lstm_cache(path) == 0 and not other._lstm_cache
+    assert fresh.load_lstm_cache(str(tmp_path / "absent.npz")) == 0
+    (tmp_path / "corrupt.npz").write_bytes(b"PK\x03\x04 not a zip")
+    assert fresh.load_lstm_cache(str(tmp_path / "corrupt.npz")) == 0
+    # the reference's flax msgpack file of the same models
+    ref_fixtures = {}
+    ref_store = jax_engine.JobStore()
+    ref_store.create(_multi_job(jax_engine, ref_fixtures, bad=False, jid="r", app="a1"))
+    ref_an = jax_engine.Analyzer(_lstm_cfg(jax_engine, lstm_epochs=5),
+                                 JaxFixtureSource(ref_fixtures), ref_store)
+    ref_an.run_cycle(now=1_000_000.0)
+    ref_path = str(tmp_path / "reference.msgpack")
+    assert ref_an.save_lstm_cache(ref_path) == 1
+    before = dict(fresh._lstm_cache)
+    assert fresh.load_lstm_cache(ref_path) == 0
+    assert fresh._lstm_cache == before

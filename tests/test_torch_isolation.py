@@ -62,6 +62,7 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "import foremast_tpu_torch.ops.seqscan, foremast_tpu_torch.ops.triage\n"
         "import foremast_tpu_torch.ops.bivariate, foremast_tpu_torch.ops.hpa\n"
         "import foremast_tpu_torch.models, foremast_tpu_torch.models.lstm_ae\n"
+        "import foremast_tpu_torch.models.lstm_init, foremast_tpu_torch.engine.config\n"
         "import foremast_tpu_torch.engine, foremast_tpu_torch.engine.triage\n"
         "import foremast_tpu_torch.engine.pipeline, foremast_tpu_torch.engine.staging\n"
         "import foremast_tpu_torch.dataplane, foremast_tpu_torch.native\n"
@@ -126,10 +127,16 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
                  lambda: tla.fit_score_normalizer(params, win, wmask),
                  lambda: tla.anomaly_scores(params, win, wmask, 0.0, 1.0),
                  lambda: tla.anomaly_scores_fleet(stack, win[None], wmask[None], [0.0], [1.0],
-                                                  hidden=8, latent=4)):
+                                                  hidden=8, latent=4),
+                 lambda: tla.loss_and_grad(stack, win[None], wmask[None], hidden=8, latent=4),
+                 lambda: tla.train(win, wmask, hidden=8, latent=4, epochs=1),
+                 lambda: tla.train_fleet(win[None], wmask[None], hidden=8, latent=4, epochs=1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert tla.reconstruction_errors(params, win, wmask, device="cpu").device.type == "cpu"
+    trained, mu, sd = tla.train_fleet(win[None], wmask[None], hidden=8, latent=4, epochs=1,
+                                      device="cpu")
+    assert trained.device.type == mu.device.type == "cpu"
     out = tfc.forecast_band(x, m, ~m, *pol, algorithm="seasonal_trend", device="cpu")
     assert out["beta"].device.type == "cpu"
     out = tfl.score_pairs(*args, device="cpu")
@@ -183,9 +190,24 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="hidden <= 256"):
         kernels.lstm_ae(torch.zeros((1, P)), torch.zeros((1, 3, 5, 2)),
                         torch.ones((1, 3, 5, 2), dtype=torch.bool), 512, 4)
+    win, wmask = torch.zeros((1, 3, 5, 2)), torch.ones((1, 3, 5, 2), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.lstm_train_forward(torch.zeros((1, P)), win, wmask, 8, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.lstm_train_backward(torch.zeros((1, P)), win, wmask,
+                                    torch.zeros((1, 3, 2, 5, 40)), 8, 4)
+    with pytest.raises(ValueError, match="features <= 32"):
+        kernels.lstm_train_forward(torch.zeros((1, P)), torch.zeros((1, 3, 5, 33)),
+                                   torch.ones((1, 3, 5, 33), dtype=torch.bool), 8, 4)
+    row = torch.zeros((1, P))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.adam(row, row, row, torch.ones(1, dtype=torch.int32), torch.zeros((1, 1, P)),
+                     torch.zeros((1, 1), dtype=torch.float64),
+                     torch.zeros((1, 1), dtype=torch.float64), 1e-3, 0.9, 0.999, 1e-8)
     assert set(kernels.launches) == {"pair_verdict", "ma_band", "band_from_preds", "smooth",
                                      "hw_fit", "affine_scan", "detect_period", "triage_screen",
-                                     "bivariate", "hpa_score", "st_fit", "lstm_ae"}
+                                     "bivariate", "hpa_score", "st_fit", "lstm_ae",
+                                     "lstm_train_forward", "lstm_train_backward", "adam"}
     assert all(n == 0 for n in kernels.launches.values())
 
 

@@ -1,4 +1,4 @@
-"""Kernels A to K against their plain twins, on the card.
+"""Kernels A to M against their plain twins, on the card.
 
 These need a CUDA device and nvcc; without them they skip. Run them on the
 card with `python -m pytest --noconftest tests/test_torch_kernels.py`. The
@@ -15,7 +15,13 @@ statistics' float32 noise; kernel I's reason codes exact and scores to
 1e-3 but on rows bracketed at a decision edge, its means to 1e-5 relative,
 the demand to 1e-4; kernel J's preds to 1e-5 of a row's scale (1e-3 on
 ill-posed rows) and beta to 1e-4 of its largest entry; kernel K's errors to
-1e-4 relative and its z-scores on the reference-trained fixture to 1e-3.
+1e-4 relative and its z-scores on the reference-trained fixture to 1e-3;
+kernel L's loss to 1e-5 relative and its gradient to 1e-4 of a job's
+largest entry against torch autograd, NaN jobs alike; kernel M bit for bit
+against the written-out Adam; five training steps on the card within 1e-5
+relative (losses) and 1e-4 (rows: Adam's step is lr times the sign of a
+gradient near 0, so float noise there moves a row by up to lr) of the twin's;
+the reference's training fixture as chip_smoke.py holds it.
 """
 import numpy as np
 import pytest
@@ -367,3 +373,70 @@ def test_lstm_ae_scores_the_reference_trained_fixture_as_the_reference(card):
     np.testing.assert_allclose(z, d["z"], rtol=0, atol=1e-3)
     edge = np.abs(d["z"] - 3.0) <= 1e-3
     np.testing.assert_array_equal((z > 3)[~edge], (d["z"] > 3)[~edge])
+
+
+@pytest.mark.parametrize("W", cs.LSTM_TRAIN_WS)
+@pytest.mark.parametrize("F,H,Z", cs.LSTM_WIDTHS)
+def test_lstm_train_matches_autograd_through_the_twin(card, F, H, Z, W):
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=card).manual_seed(F * H + Z + W)
+    p, x, m = cs.adversarial_lstm_train(32, 11, W, F, H, Z, gen)
+    before = (kernels.launches["lstm_train_forward"], kernels.launches["lstm_train_backward"])
+    kern = tl.loss_and_grad(p, x, m, hidden=H, latent=Z)
+    assert (kernels.launches["lstm_train_forward"],
+            kernels.launches["lstm_train_backward"]) == (before[0] + 1, before[1] + 1)
+    q = p.clone().requires_grad_(True)
+    loss = tl.loss_plain(q, x, m, H, Z)
+    grad, = torch.autograd.grad(loss.sum(), q)
+    cs.compare_lstm_train(kern, (loss.detach(), grad))
+
+
+def test_adam_equals_the_written_out_adam_bit_for_bit(card):
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=card).manual_seed(11)
+    p, x, m = cs.adversarial_lstm_train(48, 19, 32, 4, 32, 16, gen)
+    num, cnt, act = kernels.lstm_train_forward(p, x, m, 32, 16)
+    gpart = kernels.lstm_train_backward(p, x, m, act, 32, 16)
+    step = torch.randint(1, 3000, (48,), generator=gen, device=card, dtype=torch.int32)
+    mu = 1e-3 * torch.randn(p.shape, generator=gen, device=card)
+    nu = 1e-6 * torch.rand(p.shape, generator=gen, device=card)
+    before = kernels.launches["adam"]
+    assert cs.compare_adam(p, mu, nu, step, gpart, num, cnt) == 0.0
+    assert kernels.launches["adam"] == before + 1
+
+
+def test_train_step_on_the_card_follows_the_twin(card):
+    """Five steps from the reference's initial rows: the card's train_step
+    (L, then M) against train_step_plain on the card, the losses within
+    1e-5 relative and the rows within 1e-4."""
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    _, x, m = cs.adversarial_lstm_train(16, 9, 32, 4, 32, 16, gen)
+    x[1, 0, 0, 0] = 0.0
+    states = [[t.to(card) for t in tl.init_state(4, 32, 16, 16)] for _ in range(2)]
+    for _ in range(5):
+        lk = tl.train_step(*states[0], x, m, hidden=32, latent=16)
+        lp = tl.train_step_plain(*states[1], x, m, 32, 16)
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-7)
+    assert torch.equal(states[0][1], states[1][1])
+    torch.testing.assert_close(states[0][0], states[1][0], rtol=0, atol=1e-4)
+
+
+def test_train_fleet_on_the_card_reproduces_the_reference_s_training(card):
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    cs.lstm_train_reference(tl)
+
+
+def test_detect_period_takes_forty_candidates(card):
+    gen = torch.Generator(device=card).manual_seed(40)
+    x, m, region = cs.adversarial_series(256, 4096, gen)[:3]
+    hist = m & ~region
+    fb = torch.full((256,), 7, dtype=torch.int32, device=card)
+    cand = torch.tensor(cs.MANY_CANDIDATES, dtype=torch.int32, device=card)
+    kern = kernels.detect_period(x, hist, cand, fb, 0.2, 0.05, 0.01)
+    torch.cuda.synchronize()
+    cs.compare_detect_period(x, hist, cs.MANY_CANDIDATES, fb, kern)
