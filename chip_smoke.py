@@ -42,11 +42,37 @@ ends; any failure exits non-zero:
              W in {8, 32}, on windows with gaps, fully masked, with a masked
              head and NaN at a masked slot; kernel M against the written-out
              Adam bit for bit on L's partials; kernel F also with 40
-             candidates at T in {1024, 16384};
+             candidates at T in {1024, 16384}; kernel N (all four tests in
+             one launch, and each alone) against two_sample_tests at T from
+             8 to 16384 (device scratch above 4096) on kernel A's
+             adversarial rows plus one-point and all-tied rows; kernel O's
+             ranks at T in {8, 256, 4096, 16384}, Kruskal-Wallis at k in
+             {2, 3, 5} (k T = 49,152 in scratch) and Friedman at (n, k) in
+             {(128, 3), (20, 6), (7, 200)} on ties, +-0, NaN, +inf,
+             all-masked, one-point and all-tied rows and masked blocks;
+             kernel P against its twin bit for bit at n in {5, 4096,
+             100,000}, k in {1, 8, 64, 3000, n + 5}, with ties, +-NaN, +-0
+             and +-inf;
   4. pairs   the pair path at full size: 100,000 ErrorGenerator-style
              (baseline, canary) pairs at T = 128 through resample_to_grid ->
              pack_windows -> score_pairs on the card; every bad canary
              flagged, healthy false positives under 1%;
+ 4b. tests   the public test battery at the same width on those windows:
+             all_pairwise_tests and each *_batch (kernel N), kruskal_batch
+             at k = 3 (baseline, current, the previous row's current),
+             friedman_batch over 128 blocks x those 3 windows and
+             rank_and_ties at T = 256 (kernel O); every bad canary rejected
+             at 0.01 by Mann-Whitney, Kruskal-Wallis and KS, each kernel
+             against its twin on 2,048 rows, times beside the twins;
+ 4c. fleet   make_fleet_scorer at B = 100,000, T = 128, k = 8 in a world of
+             one process over NCCL (kernel A, then kernel P, all_gathers
+             of the counts and candidates, kernel P again): per-pair
+             outputs equal to score_pairs', total and top-k equal to kernel
+             P's twin, the tie order and the -inf tail on built batches,
+             fleet_summary alone;
+             the scorer's wall time, canary_pairs_scored_per_sec_per_chip
+             and the reduction's time beside the scoring's; a hung
+             collective ends the run after 300 s;
   5. bands   the band path at full size: 100,000 rows of 512 history + 128
              current slots (bucket 1024), 10% with a level shift;
              moving_average_band on the card; recall 1.0, false positives
@@ -120,8 +146,9 @@ Kernel G (the triage screen) is held against its twin in phase 3, beside
 kernel B's ma_band on the 100,000 rows of phases 5 and 6 (equal counts but at
 band edges, shrunk count >= count) and alone at the engine's shape in phase 8.
 
-Each path (each algorithm of the seasonal phase, each family call, the
-LSTM scoring and training passes, each engine cycle) resets
+Each path (the tests battery, the fleet scorer, each algorithm of the
+seasonal phase, each family call, the LSTM scoring and training passes, each
+engine cycle) resets
 the launch counters just before it runs and reads them just after: a kernel
 of the path that did not launch fails the run. The second-to-last line is a JSON object with each
 kernel's launches, error against its twin, times on the card and bound; the
@@ -1456,6 +1483,257 @@ def kernels_l_m_vs_twin(gen):
 
 
 # ---------------------------------------------------------------------------
+# kernels N, O and P vs their twins
+# ---------------------------------------------------------------------------
+TESTS_CHECK = ((8, 512), (16, 512), (128, 2048), (1024, 512), (4096, 128), (8192, 64),
+               (16384, 32))  # (T, rows) of kernel N's check
+STAT_RTOL = 1e-6  # kernel vs twin statistics: the same expressions of exact integers
+KRUSKAL_CHECK = ((2, 64), (3, 128), (5, 64), (3, 16384))  # (k, T)
+FRIEDMAN_CHECK = ((128, 3), (20, 6), (7, 200))  # (n, k)
+TOPK_CHECK_K = (1, 8, 64, 500, 3000)  # 500: passes over kept keys; 3000: one sort in device memory
+
+
+def adversarial_tests(B, T, rng):
+    """Kernel N's (x, x_mask, y, y_mask) as numpy: adversarial_pairs' eight
+    kinds (ties with +-0, NaN and +inf, sparse rows in the exact KS and
+    Wilcoxon regimes, all-masked sides, shifted, constant), then every
+    tenth row with one valid point a side and every tenth + 4 all tied
+    across both sides."""
+    x, xm, y, ym = adversarial_pairs(B, T, rng)[:4]
+    r = np.arange(B)
+    one = r % 10 == 9
+    xm[one], ym[one] = False, False
+    xm[one, 0], ym[one, T // 2] = True, True
+    tied = r % 10 == 4
+    x[tied], y[tied] = np.float32(3.5), np.float32(3.5)
+    return x, xm, y, ym
+
+
+def close(a, b, rtol, atol, what):
+    """|a - b| <= rtol |b| + atol (NaN where the other is NaN); returns the
+    largest |a - b|."""
+    d = (a.double() - b.double()).abs()
+    same = (torch.isnan(a) & torch.isnan(b)) | (a == b)
+    ok = same | (d <= rtol * b.double().abs() + atol)
+    check(bool(ok.all()), f"{what}: differs by {max_abs_err(a, b):.3g}")
+    return max_abs_err(a, b)
+
+
+def compare_pair_tests(kern, plain, names):
+    """Kernel N's (stat, p), (B, 5) in PAIR_TEST_BITS' order, against the
+    twin's {name: (stat, p)} for the tests `names`: p within P_ATOL, each
+    statistic (U1, H, W, D: the same float32 or float64 expression of the
+    same exact integers on both sides) within STAT_RTOL. Returns the
+    largest |dp|."""
+    from foremast_tpu_torch import kernels
+
+    stat, p = kern
+    cols = list(kernels.PAIR_TEST_BITS)
+    worst = 0.0
+    for name in names:
+        j = cols.index(name)
+        ts, tp = plain[name]
+        worst = max(worst, close(p[:, j], tp, 0.0, P_ATOL, f"pair_tests {name} p"))
+        close(stat[:, j], ts, STAT_RTOL, 1e-6, f"pair_tests {name} statistic")
+    return worst
+
+
+def kernel_n_vs_twin(rng):
+    """Kernel N against two_sample_tests_plain and sign_test_exact_plain at T
+    from 8 to 16384 (device scratch above 4096): the four tests in one
+    launch and each alone, as all_pairwise_tests and the *_batch entry
+    points ask for them, the sign test alone, and the reference's single
+    forms on one pair."""
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    worst = 0.0
+    for T, B in TESTS_CHECK:
+        x, xm, y, ym = (torch.from_numpy(a).to(DEV) for a in adversarial_tests(B, T, rng))
+        plain = pw.two_sample_tests_plain(x, xm, y, ym)
+        names = pw.TWO_SAMPLE_TESTS
+        kern = pw.all_pairwise_tests(x, xm, y, ym, device=DEV)
+        stack = (torch.stack([kern[n][0] for n in names], 1),
+                 torch.stack([kern[n][1] for n in names], 1))
+        err = compare_pair_tests(stack, plain, names)
+        for name, fn in (("mann_whitney", pw.mann_whitney_u_batch), ("wilcoxon", pw.wilcoxon_batch),
+                         ("ks", pw.ks_2samp_batch)):
+            st, pv = fn(x, xm, y, ym, device=DEV)
+            close(pv, plain[name][1], 0.0, P_ATOL, f"{name} batch p")
+            close(st, plain[name][0], STAT_RTOL, 1e-6, f"{name} batch statistic")
+        ns, ps = pw.sign_test_batch(x, y, xm & ym, device=DEV)
+        pns, pps = pw.sign_test_exact_plain(x, y, xm & ym)
+        err = max(err, close(ps, pps, 0.0, P_ATOL, "sign test p"))
+        check(torch.equal(ns, pns), "sign test: untied counts differ")
+        one = (x[0], xm[0], y[0], ym[0])
+        singles = {"mann_whitney": pw.mann_whitney_u(*one, device=DEV),
+                   "kruskal": pw.two_sample_tests(*one, device=DEV)["kruskal"],
+                   "wilcoxon": pw.wilcoxon_signed_rank(*one, device=DEV),
+                   "ks": pw.ks_2samp(*one, device=DEV),
+                   "sign": pw.sign_test_exact(x[0], y[0], xm[0] & ym[0], device=DEV)}
+        for name, (st, pv) in singles.items():
+            st_b, pv_b = (ns, ps) if name == "sign" else kern[name]
+            check(st.shape == () and same_or_both_nan(st, st_b[0])
+                  and same_or_both_nan(pv, pv_b[0]),
+                  f"the single form of {name} differs from its batch")
+        n1, n2 = xm.sum(1), ym.sum(1)
+        stephens = int(((n1 > pw.KS_EXACT_MAX_T) | (n2 > pw.KS_EXACT_MAX_T)).sum())
+        torch.cuda.synchronize()
+        worst = max(worst, err)
+        print(f"  pair_tests T={T}: {B} rows, max |dp| {err:.3g} (tol {P_ATOL}), {stephens} in "
+              f"the Stephens regime; each *_batch and the sign test alone equal, the single "
+              f"forms equal their batch of one", flush=True)
+    return worst
+
+
+def adversarial_ranks(B, T, rng):
+    """(values, mask) numpy rows of six kinds: ties with +-0, NaN and +inf
+    in valid slots, all masked, all tied, one valid point, plain."""
+    x = rng.normal(0, 1, (B, T)).astype(np.float32)
+    m = rng.random((B, T)) > 0.1
+    kind = np.arange(B) % 6
+    k = kind == 0
+    x[k] = np.round(x[k] * 2) / 2
+    z = k[:, None] & (x == 0)
+    x[z] = np.where(rng.random(int(z.sum())) < 0.5, 0.0, -0.0)
+    k = (kind == 1)[:, None]
+    x[k & (rng.random((B, T)) < 0.05)] = np.nan
+    x[k & (rng.random((B, T)) < 0.05)] = np.inf
+    m[kind == 2] = False
+    x[kind == 3] = np.float32(1.25)
+    one = kind == 4
+    m[one] = False
+    m[one, T // 3] = True
+    return x, m
+
+
+def compare_ranks(kern, plain):
+    """Kernel O's ranks, tie term and count against the twin's: equal
+    (half-integer ranks and integer sums, exact on both sides). Returns the
+    largest |difference| over the three."""
+    worst = 0.0
+    for name, a, b in zip(("ranks", "tie", "n_valid"), kern, plain):
+        err = max_abs_err(a, b)
+        check(torch.equal(a, b), f"rank_and_ties {name} differs by {err:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def adversarial_groups(B, k, T, rng):
+    """(groups, masks) numpy (B, k, T) from adversarial_ranks' rows, the
+    first group shifted by 1 in every third row."""
+    x, m = adversarial_ranks(B * k, T, rng)
+    g, gm = x.reshape(B, k, T), m.reshape(B, k, T)
+    g[::3, 0] += 1.0
+    return g, gm
+
+
+def adversarial_friedman(B, n, k, rng):
+    """(data (B, n, k), block_mask (B, n)) numpy: values on a grid of 0.5
+    (ties, +-0), NaN in 2% of entries, a treatment effect in every second
+    row, 80% of blocks masked in, every seventh row none, every fifth one
+    block."""
+    d = np.round(rng.normal(0, 1, (B, n, k)) * 2).astype(np.float32) / 2
+    d[::2] += np.linspace(0, 1, k, dtype=np.float32)
+    z = d == 0
+    d[z] = np.where(rng.random(int(z.sum())) < 0.5, 0.0, -0.0)
+    d[rng.random((B, n, k)) < 0.02] = np.nan
+    bm = rng.random((B, n)) < 0.8
+    bm[::7] = False
+    bm[::5] = False
+    bm[::5, 0] = True
+    return d, bm
+
+
+def kernel_o_vs_twin(rng):
+    """Kernel O's three entries against their twins: ranks at T from 8 to
+    16384 (device scratch above 8192), Kruskal-Wallis at k in {2, 3, 5}
+    (and k T = 49,152 in scratch), Friedman at (n, k) in FRIEDMAN_CHECK."""
+    from foremast_tpu_torch.ops import pairwise as pw
+    from foremast_tpu_torch.ops import ranks as rk
+
+    worst = {"rank_and_ties": 0.0, "kruskal_groups": 0.0, "friedman": 0.0}
+    for T, B in ((8, 512), (256, 2048), (4096, 128), (16384, 32)):
+        v, m = (torch.from_numpy(a).to(DEV) for a in adversarial_ranks(B, T, rng))
+        worst["rank_and_ties"] = max(worst["rank_and_ties"], compare_ranks(
+            rk.rank_and_ties(v, m, device=DEV), rk.rank_and_ties_plain(v, m)))
+    for k, T in KRUSKAL_CHECK:
+        B = 32 if k * T > 8192 else 512
+        g, gm = (torch.from_numpy(a).to(DEV) for a in adversarial_groups(B, k, T, rng))
+        H, p = pw.kruskal_batch(g, gm, device=DEV)
+        pH, pp = pw.kruskal_plain(g, gm)
+        H0, p0 = pw.kruskal_wallis(g[0], gm[0], device=DEV)
+        check(same_or_both_nan(H0, H[0]) and same_or_both_nan(p0, p[0]),
+              "kruskal_wallis differs from kruskal_batch's row")
+        close(H, pH, STAT_RTOL, 1e-6, f"kruskal_groups k={k} H")
+        worst["kruskal_groups"] = max(worst["kruskal_groups"],
+                                      close(p, pp, 0.0, P_ATOL, f"kruskal_groups k={k} p"))
+        check(bool((p[gm.flatten(1).any(1).logical_not()] == 1.0).all()),
+              "kruskal_groups: a fully masked row has p != 1")
+    for n, k in FRIEDMAN_CHECK:
+        d, bm = (torch.from_numpy(a).to(DEV) for a in adversarial_friedman(256, n, k, rng))
+        chi, p = pw.friedman_batch(d, bm, device=DEV)
+        pc, pp = pw.friedman_plain(d, bm)
+        c0, p0 = pw.friedman_chi_square(d[1], bm[1], device=DEV)
+        check(same_or_both_nan(c0, chi[1]) and same_or_both_nan(p0, p[1]),
+              "friedman_chi_square differs from friedman_batch's row")
+        close(chi, pc, STAT_RTOL, 1e-5, f"friedman n={n} k={k} chi2")
+        worst["friedman"] = max(worst["friedman"],
+                                close(p, pp, 0.0, P_ATOL, f"friedman n={n} k={k} p"))
+    torch.cuda.synchronize()
+    print(f"  rank_and_ties T in (8, 256, 4096, 16384): ranks, tie terms and counts equal; "
+          f"kruskal_groups (k, T) in {KRUSKAL_CHECK}: max |dp| {worst['kruskal_groups']:.3g}; "
+          f"friedman (n, k) in {FRIEDMAN_CHECK}: max |dp| {worst['friedman']:.3g}", flush=True)
+    return worst
+
+
+def adversarial_topk(n, rng):
+    """(unhealthy, severity) numpy: 10% unhealthy; severities with ties (a
+    third at 12 plus a band fraction of 0 or 0.5, as p clamped at 1e-12
+    gives), +NaN and -NaN, +-0 and +-inf."""
+    u = rng.random(n) < 0.10
+    s = rng.uniform(0, 14, n).astype(np.float32)
+    tie = rng.random(n) < 0.33
+    s[tie] = np.float32(12.0) + np.where(rng.random(int(tie.sum())) < 0.5, 0.0, 0.5)
+    odd = rng.choice(n, min(n, 12), replace=False)
+    s[odd] = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf] * 2, np.float32)[:len(odd)]
+    return u, s
+
+
+def compare_topk(kern, plain, what):
+    """Kernel P against its twin: the count, the values' bits and the
+    indices equal. Returns the largest |difference| over the three."""
+    (kc, kv, ki), (pc, pv, pi) = kern, plain
+    check((kc is None) == (pc is None), f"{what}: count")
+    counts = 0.0 if kc is None else abs(float(kc) - float(pc))
+    check(counts == 0.0, f"{what}: count {kc} against {pc}")
+    check(torch.equal(kv.view(torch.int32), pv.view(torch.int32)), f"{what}: values differ")
+    check(torch.equal(ki, pi), f"{what}: indices differ")
+    return max(counts, max_abs_err(kv, pv), max_abs_err(ki.double(), pi.double()))
+
+
+def kernel_p_vs_twin(rng):
+    """Kernel P against fleet_topk_plain at n in {5, 4096, 100,000}, k in
+    TOPK_CHECK_K and k > n, with the unhealthy mask and a base, and
+    without either. Returns the largest |difference|."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    worst = 0.0
+    for n in (5, 4096, 100_000):
+        u, s = (torch.from_numpy(a).to(DEV) for a in adversarial_topk(n, rng))
+        for k in TOPK_CHECK_K + (n + 5,):
+            worst = max(worst, compare_topk(kernels.fleet_topk(s, k, u, base=7),
+                                            fl.fleet_topk_plain(s, k, u, base=7),
+                                            f"fleet_topk n={n} k={k}"),
+                        compare_topk(kernels.fleet_topk(s, k), fl.fleet_topk_plain(s, k),
+                                     f"fleet_topk n={n} k={k} unmasked"))
+    torch.cuda.synchronize()
+    print(f"  fleet_topk n in (5, 4096, 100000), k in {TOPK_CHECK_K} and n + 5: counts, values "
+          f"(bit for bit) and indices equal, max |err| {worst:.3g}", flush=True)
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # the pair path at full size
 # ---------------------------------------------------------------------------
 def error_generator_windows(rng, n, rates, start, minutes):
@@ -1536,8 +1814,8 @@ def pair_path(rng):
           f"(pair_args_from_numpy), median {np.median(copy):.3f} ms", flush=True)
     print(f"  pair_verdict kernel on device tensors: {ms:.3f} ms "
           f"({PAIRS / ms * 1e3:.0f} pairs/s); plain twin {plain_ms:.1f} ms", flush=True)
-    return {"launches": launches["pair_verdict"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **pair_bound(args)}
+    return ({"launches": launches["pair_verdict"], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, **pair_bound(args)}, args, bad)
 
 
 def pair_bound(args):
@@ -1571,6 +1849,235 @@ def pair_bound(args):
     s = np.minimum(((args[2] > args[0]) & both).sum(1), ((args[2] < args[0]) & both).sum(1))
     ops = 7 * cells + sort_ops + 2 * wil + 4 * (s + 1).sum()
     return least_time(nbytes, ops)
+
+
+# ---------------------------------------------------------------------------
+# the public test battery at full width (kernels N and O)
+# ---------------------------------------------------------------------------
+FRIEDMAN_N = 128  # blocks: the window's 128 steps, three windows as treatments
+RANK_T = 256  # rank_and_ties over baseline ++ current
+
+
+def tests_inputs(pair_args):
+    """The phase's inputs on the card, from the pair path's windows: the
+    (baseline, current) pairs; three groups a row (baseline, current and the
+    previous row's current) for Kruskal-Wallis; the same three windows as
+    treatments over the 128 steps as blocks for Friedman, a block counted
+    where all three are valid; baseline ++ current (T = 256) for the ranks."""
+    bv, bm, cv, cm = (torch.from_numpy(np.ascontiguousarray(a)).to(DEV) for a in pair_args[:4])
+    groups = torch.stack([bv, cv, torch.roll(cv, 1, 0)], 1).contiguous()
+    gmask = torch.stack([bm, cm, torch.roll(cm, 1, 0)], 1).contiguous()
+    fr = groups[:, :, :FRIEDMAN_N].transpose(1, 2).contiguous()
+    frm = gmask[:, :, :FRIEDMAN_N].all(1).contiguous()
+    rv, rm = torch.cat([bv, cv], 1).contiguous(), torch.cat([bm, cm], 1).contiguous()
+    return (bv, bm, cv, cm), (groups, gmask), (fr, frm), (rv, rm)
+
+
+def tests_bounds(pairs, groups, fr, ranks):
+    """Least time (ms, bound_by) of each kernel's work on these inputs:
+    bytes each input read and each output written once, against the
+    operations at the fp32 instruction rate. N: as kernel A's tests (7 a
+    cell of each exact KS lattice, n log2 n compares a sort of n valid
+    entries, 2 an exact Wilcoxon pmf entry); O's ranks and Kruskal: n log2 n
+    compares a row of n valid entries; Friedman: 2 compares for each pair
+    of treatments in a counted block."""
+    from foremast_tpu_torch.ops.pairwise import KS_EXACT_MAX_T, WILCOXON_EXACT_MAX_N
+
+    def nlogn(n):
+        n = n.double()
+        return float((n * torch.log2(n.clamp(min=1.0))).sum())
+
+    x, xm, y, ym = pairs
+    B, T = x.shape
+    n1, n2 = xm.sum(1).double(), ym.sum(1).double()
+    exact = (n1 > 0) & (n2 > 0) & (n1 <= KS_EXACT_MAX_T) & (n2 <= KS_EXACT_MAX_T)
+    cells = float(torch.where(exact, (n1 + 1) * (n2 + 1), 0.0).sum())
+    nz = (xm & ym & (x != y)).sum(1)
+    wil = float(torch.where(nz <= WILCOXON_EXACT_MAX_N, nz * (nz + 1) / 2 + 1, 0).sum())
+    table = WILCOXON_EXACT_MAX_N * (WILCOXON_EXACT_MAX_N * (WILCOXON_EXACT_MAX_N + 1) // 2 + 1)
+    out = {"pair_tests": least_time(B * T * 10 + table * 4 + B * 32,
+                                    7 * cells + nlogn(n1 + n2) + nlogn(nz) + 2 * wil)}
+    g, gm = groups
+    out["kruskal_groups"] = least_time(g.numel() * 5 + B * 8, nlogn(gm.flatten(1).sum(1)))
+    d, bm = fr
+    k = d.shape[2]
+    out["friedman"] = least_time(d.numel() * 4 + bm.numel() + B * 8,
+                                 2 * k * k * float(bm.sum()))
+    v, m = ranks
+    out["rank_and_ties"] = least_time(v.numel() * 9 + B * 8, nlogn(m.sum(1)))
+    return out
+
+
+def tests_path(pair_args, bad):
+    """Drive the public test battery at the north-star width (kernels N and
+    O), then hold each kernel against its twin on the first CHECK_ROWS rows
+    and time it beside its twin."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import pairwise as pw
+    from foremast_tpu_torch.ops import ranks as rk
+
+    pairs, groups, fr, ranks = tests_inputs(pair_args)
+    B, T = pairs[0].shape
+
+    def battery():
+        return {"all": pw.all_pairwise_tests(*pairs, device=DEV),
+                "mann_whitney": pw.mann_whitney_u_batch(*pairs, device=DEV),
+                "wilcoxon": pw.wilcoxon_batch(*pairs, device=DEV),
+                "ks": pw.ks_2samp_batch(*pairs, device=DEV),
+                "kruskal": pw.kruskal_batch(*groups, device=DEV),
+                "friedman": pw.friedman_batch(*fr, device=DEV),
+                "ranks": rk.rank_and_ties(*ranks, device=DEV)}
+
+    kernels.reset_launches()
+    out = battery()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in ("pair_tests", "rank_and_ties", "kruskal_groups", "friedman"):
+        check(launches[name] >= 1, f"the tests phase did not launch {name}")
+    for name, (st, p) in list(out["all"].items()) + [(k, out[k]) for k in (
+            "mann_whitney", "wilcoxon", "ks", "kruskal", "friedman")]:
+        check(st.shape == (B,) and p.shape == (B,) and bool(torch.isfinite(st).all())
+              and bool(((p >= 0) & (p <= 1)).all()), f"{name}: statistics or p out of range")
+    bad_t = torch.from_numpy(bad).to(DEV)
+    recall = {n: float((out["all"][n][1][bad_t] < 0.01).float().mean())
+              for n in ("mann_whitney", "kruskal", "ks")}
+    check(min(recall.values()) >= 0.99, f"bad canaries rejected at 0.01 on {recall}")
+    check(torch.equal(out["ranks"][2], ranks[1].sum(1).float()), "rank_and_ties: counts differ")
+
+    c = CHECK_ROWS
+    sub = tuple(a[:c] for a in pairs)
+    plain = pw.two_sample_tests_plain(*sub)
+    names = pw.TWO_SAMPLE_TESTS
+    err_n = compare_pair_tests((torch.stack([out["all"][n][0][:c] for n in names], 1),
+                                torch.stack([out["all"][n][1][:c] for n in names], 1)),
+                               plain, names)
+    err_r = compare_ranks(tuple(o[:c] for o in out["ranks"]),
+                          rk.rank_and_ties_plain(ranks[0][:c], ranks[1][:c]))
+    kp = pw.kruskal_plain(groups[0][:c], groups[1][:c])
+    close(out["kruskal"][0][:c], kp[0], STAT_RTOL, 1e-6, "kruskal_batch H")
+    err_k = close(out["kruskal"][1][:c], kp[1], 0.0, P_ATOL, "kruskal_batch p")
+    fp = pw.friedman_plain(fr[0][:c], fr[1][:c])
+    close(out["friedman"][0][:c], fp[0], STAT_RTOL, 1e-5, "friedman_batch chi2")
+    err_f = close(out["friedman"][1][:c], fp[1], 0.0, P_ATOL, "friedman_batch p")
+
+    bounds = tests_bounds(pairs, groups, fr, ranks)
+    rows = {
+        "pair_tests": (err_n, cuda_ms(lambda: pw.all_pairwise_tests(*pairs, device=DEV),
+                                      TIMED_RUNS),
+                       cuda_ms(lambda: pw.two_sample_tests_plain(*pairs), 1, warm=False)),
+        "rank_and_ties": (err_r,
+                          cuda_ms(lambda: rk.rank_and_ties(*ranks, device=DEV), TIMED_RUNS),
+                          cuda_ms(lambda: rk.rank_and_ties_plain(*ranks), 3)),
+        "kruskal_groups": (err_k, cuda_ms(lambda: pw.kruskal_batch(*groups, device=DEV),
+                                          TIMED_RUNS),
+                           cuda_ms(lambda: pw.kruskal_plain(*groups), 3)),
+        "friedman": (err_f, cuda_ms(lambda: pw.friedman_batch(*fr, device=DEV), TIMED_RUNS),
+                     cuda_ms(lambda: pw.friedman_plain(*fr), 3)),
+    }
+    print(f"  {B} pairs at T = {T}: all_pairwise_tests, the three *_batch, kruskal_batch "
+          f"(k = 3), friedman_batch ({FRIEDMAN_N} blocks x 3), rank_and_ties (T = {RANK_T}); "
+          f"bad canaries rejected at 0.01: {recall}; launches {launches}", flush=True)
+    result = {}
+    for name, (err, ms, plain_ms) in rows.items():
+        result[name] = {"launches": launches[name], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, **bounds[name]}
+        print(f"  {name}: kernel {ms:.3f} ms, plain twin {plain_ms:.1f} ms, bound "
+              f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}), max |err| "
+              f"against the twin on {c} rows {err:.3g}, launches {launches[name]}", flush=True)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# the fleet scorer on torch.distributed (kernel P)
+# ---------------------------------------------------------------------------
+FLEET_K = 8
+FLEET_TIMEOUT_S = 300  # a hung collective ends the run
+CFG_KEYS = ("pvalue_threshold", "test_mask", "combine", "ma_window", "band_threshold",
+            "bound_mode", "min_lower_bound", "min_points")
+
+
+def fleet_path(pair_args):
+    """make_fleet_scorer at the north-star shape in a world of one over
+    NCCL, then fleet_summary alone and on built ties; kernel P against its
+    twin and beside torch.topk."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+    from foremast_tpu_torch.parallel import mesh as pm
+
+    faulthandler.dump_traceback_later(FLEET_TIMEOUT_S, exit=True)
+    started = pm.world_of_one(DEV)
+    try:
+        mesh = pm.fleet_mesh(device=DEV)
+        check(dist.get_backend() == "nccl", f"the fleet world runs {dist.get_backend()}")
+        t = fl.pair_args_from_numpy(pair_args, DEV)
+        cfg = dict(zip(CFG_KEYS, t[4:]))
+        B = t[0].shape[0]
+        run = fl.make_fleet_scorer(mesh, k=FLEET_K)
+        kernels.reset_launches()
+        out, total, top_v, top_idx = run(*t[:4], cfg)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        for name in ("pair_verdict", "fleet_topk"):
+            check(launches[name] >= 1, f"make_fleet_scorer did not launch {name}")
+        ref = fl.score_pairs(*t, device=DEV)
+        for key, v in ref.items():
+            check(torch.equal(out[key], v), f"make_fleet_scorer's {key} differs from score_pairs'")
+        want = fl.fleet_topk_plain(ref["severity"], FLEET_K, ref["unhealthy"])
+        err = compare_topk((torch.tensor(total), top_v, top_idx), want,
+                           "make_fleet_scorer's summary")
+        summary = fl.fleet_summary(ref["unhealthy"], ref["severity"], mesh, k=FLEET_K)
+        err = max(err, compare_topk((torch.tensor(summary[0]),) + tuple(summary[1:]), want,
+                                    "fleet_summary"))
+        # ties: equal severities come lower index first; with three unhealthy
+        # rows the -inf tail carries the lowest healthy indices
+        u = torch.ones(B, dtype=torch.bool, device=DEV)
+        sev = torch.full((B,), 12.0, device=DEV)
+        sev[B // 2] = 13.0
+        _, tv, ti = fl.fleet_summary(u, sev, mesh, k=FLEET_K)
+        check(ti.tolist() == [B // 2] + list(range(FLEET_K - 1)), f"tie order {ti.tolist()}")
+        u[:] = False
+        u[[10, 20, 30]] = True
+        tot, tv, ti = fl.fleet_summary(u, sev, mesh, k=FLEET_K)
+        check(tot == 3 and ti.tolist() == [10, 20, 30] + list(range(FLEET_K - 3))
+              and bool(torch.isinf(tv[3:]).all()), f"-inf tail {tot} {ti.tolist()}")
+        for k in TOPK_CHECK_K:
+            err = max(err, compare_topk(kernels.fleet_topk(ref["severity"], k, ref["unhealthy"]),
+                                        fl.fleet_topk_plain(ref["severity"], k, ref["unhealthy"]),
+                                        f"fleet_topk k={k} on the scored fleet"))
+
+        e2e = wall_ms(lambda: run(*t[:4], cfg), TIMED_RUNS)
+        score = wall_ms(lambda: fl.score_pairs(*t, device=DEV), TIMED_RUNS)
+        reduce = wall_ms(lambda: fl.fleet_summary(ref["unhealthy"], ref["severity"], mesh,
+                                                  k=FLEET_K), TIMED_RUNS)
+        u, s = ref["unhealthy"], ref["severity"]
+        ms = cuda_ms(lambda: kernels.fleet_topk(s, FLEET_K, u), TIMED_RUNS)
+        plain_ms = cuda_ms(lambda: fl.fleet_topk_plain(s, FLEET_K, u), TIMED_RUNS)
+        library_ms = cuda_ms(lambda: (torch.topk(torch.where(u, s, -torch.inf), FLEET_K),
+                                      u.sum()), TIMED_RUNS)
+        med = float(np.median(e2e))
+        print(f"  make_fleet_scorer, {B} pairs at T = {PAIR_T}, k = {FLEET_K}, a world of one "
+              f"over {dist.get_backend()}: total {total}, top_idx {top_idx.tolist()}; "
+              f"launches {launches}", flush=True)
+        print(f"  make_fleet_scorer wall, {TIMED_RUNS} runs: median {med:.3f} ms, p99 "
+              f"{np.percentile(e2e, 99):.3f} ms", flush=True)
+        print(f"  canary_pairs_scored_per_sec_per_chip: {B / med * 1e3:.0f}", flush=True)
+        print(f"  the reduction (fleet_summary: kernel P twice, two all_gathers) median "
+              f"{np.median(reduce):.3f} ms beside the scoring (score_pairs) median "
+              f"{np.median(score):.3f} ms", flush=True)
+        bound = least_time(B * 5 + FLEET_K * 12 + 8, B)
+        print(f"  fleet_topk: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, torch.topk + sum "
+              f"{library_ms:.4f} ms, bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})",
+              flush=True)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        if started:
+            dist.destroy_process_group()
+    return {"launches": launches["fleet_topk"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, **bound}
 
 
 # ---------------------------------------------------------------------------
@@ -3278,9 +3785,16 @@ def main() -> int:
     kernel_j_vs_twin(gen)
     kernel_k_vs_twin(gen)
     kernels_l_m_vs_twin(gen)
+    kernel_n_vs_twin(rng)
+    kernel_o_vs_twin(rng)
+    kernel_p_vs_twin(rng)
 
     phase("pairs")
-    a = pair_path(rng)
+    a, pair_args, bad = pair_path(rng)
+    phase("tests")
+    n_o = tests_path(pair_args, bad)
+    phase("fleet")
+    p_row = fleet_path(pair_args)
     phase("bands")
     b, g_bands = band_path(gen)
     phase("seasonal")
@@ -3327,6 +3841,16 @@ def main() -> int:
         {"source": csrc + "lstm_train.cu", "replaces": "foremast_tpu/models/lstm_ae.py:88",
          **lm[1]},
         {"source": csrc + "adam.cu", "replaces": "foremast_tpu/models/lstm_ae.py:144", **lm[2]},
+        {"name": "pair_tests", "source": csrc + "pair_tests.cu",
+         "replaces": "foremast_tpu/ops/pairwise.py:533", **n_o["pair_tests"]},
+        {"name": "rank_and_ties", "source": csrc + "rank_groups.cu",
+         "replaces": "foremast_tpu/ops/ranks.py:164", **n_o["rank_and_ties"]},
+        {"name": "kruskal_groups", "source": csrc + "rank_groups.cu",
+         "replaces": "foremast_tpu/ops/pairwise.py:527", **n_o["kruskal_groups"]},
+        {"name": "friedman", "source": csrc + "rank_groups.cu",
+         "replaces": "foremast_tpu/ops/pairwise.py:528", **n_o["friedman"]},
+        {"name": "fleet_topk", "source": csrc + "fleet_topk.cu",
+         "replaces": "foremast_tpu/parallel/fleet.py:209", **p_row},
     ]
     print(f"  engine_lstm arm's launches on the card: {lstm_launches}", flush=True)
     # kernels H and I: times at the engine's bucket (phase families, T =
@@ -3344,8 +3868,9 @@ def main() -> int:
                  f"{r['launch_ms']:.3f} ms" if fam_key == "hpa" else ""), flush=True)
     for r in rows:
         # no single PyTorch call computes any of these functions but M's
-        # Adam (torch.sort, timed beside kernel G, computes only its order
-        # statistics; the Cholesky solve beside kernel J only its solve)
+        # Adam and P's top-k (torch.sort, timed beside kernel G, computes only
+        # its order statistics; the Cholesky solve beside kernel J only its
+        # solve; torch.sort gives N and O an order, not tie-averaged ranks)
         r["route"] = "cuda"
         r.setdefault("library_ms", None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -10,7 +10,11 @@ canary-pair scoring (``parallel.fleet.score_pairs``), the moving-average
 band family (``ops.forecast.moving_average_band``) and the band family under
 the other univariate algorithms (``ops.forecast.forecast_band``: exponential
 smoothing and its long-window scan, double exponential smoothing,
-Holt-Winters with period detection and its grid fit). Each runs on
+Holt-Winters with period detection and its grid fit, seasonal-trend), the
+bivariate, HPA and LSTM-autoencoder families, the public test battery
+(``ops``: ``all_pairwise_tests``, the ``*_batch`` tests, ``rank_and_ties``)
+and the multi-GPU fleet scorer on torch.distributed
+(``parallel.make_fleet_scorer``, ``fleet_summary``). Each runs on
 hand-written CUDA kernels (``csrc/``, built at first use by ``kernels``),
 each with a plain PyTorch twin that the CPU tests hold against the
 reference.

@@ -173,6 +173,43 @@ __device__ inline GroupStats sorted_group_stats(const uint64_t* keys, int nvalid
   return g;
 }
 
+// Regularized upper incomplete gamma Q(a, x) in float64, a > 0: the series
+// of P(a, x) below x = a + 1 (Q = 1 - P), Lentz's continued fraction of Q
+// above it (Numerical Recipes, 6.2). Both stop at a relative term of 1e-16,
+// within 1000 steps for the a of any chi-square df a launch takes. Q = 1
+// at x <= 0, 0 at x = +inf; NaN stays NaN.
+__device__ inline double gammaincc(double a, double x) {
+  if (x != x) return x;
+  if (x <= 0.0) return 1.0;
+  if (x > 1.0e300) return 0.0;
+  const double front = exp(a * log(x) - x - lgamma(a));
+  if (x < a + 1.0) {
+    double ap = a, del = 1.0 / a, sum = del;
+    for (int n = 0; n < 1000; ++n) {
+      ap += 1.0;
+      del *= x / ap;
+      sum += del;
+      if (fabs(del) < fabs(sum) * 1e-16) break;
+    }
+    return 1.0 - sum * front;
+  }
+  const double tiny = 1e-300;
+  double b = x + 1.0 - a, c = 1.0 / tiny, d = 1.0 / b, h = d;
+  for (int i = 1; i < 1000; ++i) {
+    const double an = -double(i) * (double(i) - a);
+    b += 2.0;
+    d = an * d + b;
+    if (fabs(d) < tiny) d = tiny;
+    c = b + an / c;
+    if (fabs(c) < tiny) c = tiny;
+    d = 1.0 / d;
+    const double del = d * c;
+    h *= del;
+    if (fabs(del - 1.0) < 1e-16) break;
+  }
+  return front * h;
+}
+
 // jnp.maximum: NaN in either operand gives NaN (fmaxf would drop it).
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? a + b : fmaxf(a, b);

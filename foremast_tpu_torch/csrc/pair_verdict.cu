@@ -44,7 +44,7 @@
 //
 // Built with -fmad=false so each float32 expression rounds as the plain
 // twin's PyTorch operations do.
-#include "common.cuh"
+#include "pair_common.cuh"
 
 namespace fm {
 
@@ -96,55 +96,6 @@ __device__ __forceinline__ void stamp(long long* clocks, int row, int k) {
   if (clocks != nullptr && threadIdx.x == 0) clocks[size_t(row) * kPairStamps + k] = clock64();
 }
 
-template <typename T>
-__device__ __forceinline__ T safe_div(T a, T b) { return a / (b == T(0) ? T(1) : b); }
-__device__ __forceinline__ float clamp01(float p) { return fminf(fmaxf(p, 0.0f), 1.0f); }
-__device__ __forceinline__ float norm_sf(float z) { return 0.5f * erfcf(z / 1.4142135623730951f); }
-
-__device__ inline float kolmogorov_sf(float x) {
-  if (x < 0.2f) return 1.0f;
-  float s = 0.0f;
-  for (int k = 1; k <= 64; ++k) {
-    const float e = expf(-2.0f * float(k * k) * (x * x));
-    s += (k & 1) ? e : -e;
-  }
-  return clamp01(2.0f * s);
-}
-
-// Exact two-sample KS survival P(D >= t/(n1 n2)) by the reference's
-// probability-space lattice DP along anti-diagonals d = i + j:
-//   B[i][j] = inside(i,j) * (B[i-1][j] * i + B[i][j-1] * j) / d,
-// inside iff |i*n2 - j*n1| < t - 0.5. Only the (n1 + 1)(n2 + 1) lattice
-// feeds B[n1][n2]: each diagonal runs i over [max(0, d - n2), min(d, n1)],
-// and the sweep stops at d = n1 + n2. buf: 2 (n1 + 1) floats.
-__device__ float ks_exact_sf(long long t, int n1, int n2, float* buf) {
-  float* prev = buf;
-  float* cur = buf + (n1 + 1);
-  for (int i = threadIdx.x; i <= n1; i += blockDim.x) {
-    prev[i] = (i == 0 && t > 0) ? 1.0f : 0.0f;
-    cur[i] = 0.0f;
-  }
-  __syncthreads();
-  const float fn1 = float(n1), fn2 = float(n2), lim = float(t) - 0.5f;
-  for (int d = 1; d <= n1 + n2; ++d) {
-    const int imin = max(0, d - n2), imax = min(d, n1);
-    const float fd = float(d);
-    for (int i = imin + int(threadIdx.x); i <= imax; i += blockDim.x) {
-      const float fi = float(i), fj = float(d - i);
-      const bool inside = fabsf(fi * fn2 - fj * fn1) < lim;
-      const float up = i > 0 ? prev[i - 1] : 0.0f;
-      cur[i] = inside ? (up * fi + prev[i] * fj) / fd : 0.0f;
-    }
-    __syncthreads();
-    float* tmp = prev;
-    prev = cur;
-    cur = tmp;
-  }
-  const float inside_prob = prev[n1];
-  __syncthreads();
-  return clamp01(1.0f - inside_prob);
-}
-
 // One pair's verdict, by the whole CTA. work holds the sort entries and the
 // band's prefix sums, dp the KS DP's two diagonals (shared memory).
 __device__ __forceinline__ void pair_row(const PairArgs& a, int row, unsigned char* work,
@@ -185,12 +136,7 @@ __device__ __forceinline__ void pair_row(const PairArgs& a, int row, unsigned ch
   uint64_t* keys = reinterpret_cast<uint64_t*>(work);
   int* cnt = reinterpret_cast<int*>(keys + n_sort);
   int* start = cnt + n_sort;
-  for (int i = tid; i < n_sort; i += blockDim.x) {
-    uint64_t k = kPadKey;
-    if (i < T) k = rank_key(xb[i], mb[i], mb[i]);
-    else if (i < 2 * T) k = rank_key(xc[i - T], mc[i - T], false);
-    keys[i] = k;
-  }
+  fill_pair_keys(keys, n_sort, xb, mb, xc, mc, T);
   bitonic_sort(keys, n_sort);
   stamp(a.clocks, row, 2);
   const GroupStats g = sorted_group_stats(keys, n1 + n2, n1, n2, cnt, start, scr);
@@ -199,98 +145,21 @@ __device__ __forceinline__ void pair_row(const PairArgs& a, int row, unsigned ch
   // 2. Wilcoxon: sort |x - y| over the nonzero paired differences
   const int n_w = next_pow2(T);
   __syncthreads();
-  for (int i = tid; i < n_w; i += blockDim.x) {
-    uint64_t k = kPadKey;
-    if (i < T) {
-      const bool both = mb[i] && mc[i];
-      const float d = both ? xb[i] - xc[i] : 0.0f;
-      const bool nonzero = both && d != 0.0f;
-      k = rank_key(fabsf(d), nonzero, nonzero && d > 0.0f);
-    }
-    keys[i] = k;
-  }
+  fill_wilcoxon_keys(keys, n_w, xb, mb, xc, mc, T);
   bitonic_sort(keys, n_w);
   stamp(a.clocks, row, 4);
   const GroupStats gw = sorted_group_stats(keys, nz, 0, 0, cnt, start, scr);
   stamp(a.clocks, row, 5);
 
   // 3. p-values (block-uniform scalars)
-  const float f1 = float(n1), f2 = float(n2), N = f1 + f2;
-  const float R1 = float(g.twice_wsum) * 0.5f, tie = float(g.tie);
-
-  float p_mw;
-  {
-    const float U1 = R1 - f1 * (f1 + 1.0f) / 2.0f;
-    const float U = fmaxf(U1, f1 * f2 - U1);
-    const float mu = f1 * f2 / 2.0f;
-    const float s2 = f1 * f2 / 12.0f * ((N + 1.0f) - safe_div(tie, N * (N - 1.0f)));
-    const float sd = sqrtf(fmaxf(s2, 0.0f));
-    const float z = safe_div(U - mu - 0.5f, sd);
-    p_mw = sd > 0.0f ? clamp01(2.0f * norm_sf(z)) : 1.0f;
-  }
-  float p_kw;
-  {
-    // float64, as the twin: H is a small difference of large terms
-    const double d1 = n1, d2 = n2, dN = d1 + d2, dR1 = double(g.twice_wsum) * 0.5;
-    const double dR2 = dN * (dN + 1.0) / 2.0 - dR1, dt = double(g.tie);
-    double H = safe_div(12.0, dN * (dN + 1.0)) * (safe_div(dR1 * dR1, d1) + safe_div(dR2 * dR2, d2))
-               - 3.0 * (dN + 1.0);
-    const double corr = 1.0 - safe_div(dt, dN * dN * dN - dN);
-    H = safe_div(H, corr);
-    const bool ok = corr > 0.0 && dN > 0.0;
-    p_kw = ok ? erfcf(sqrtf(fmaxf(float(H), 0.0f) / 2.0f)) : 1.0f;
-  }
-
-  float p_ks = 1.0f;
-  if (n1 > 0 && n2 > 0) {
-    if (n1 <= a.ks_exact_max && n2 <= a.ks_exact_max) {
-      __syncthreads();  // the DP may reuse the sort's shared memory
-      p_ks = ks_exact_sf(g.ks_t, n1, n2, dp);
-    } else {
-      const float D = float(g.ks_t) / (f1 * f2);
-      const float en = sqrtf(f1 * f2 / (f1 + f2));
-      p_ks = kolmogorov_sf((en + 0.12f + 0.11f / en) * D);
-    }
-  }
+  const float f1 = float(n1), f2 = float(n2);
+  const float p_mw = mann_whitney_p(g, n1, n2, nullptr);
+  const float p_kw = kruskal2_p(g, n1, n2, nullptr);
+  const float p_ks = ks_p(g, n1, n2, a.ks_exact_max, dp);
   stamp(a.clocks, row, 6);
+  const float p_w = wilcoxon_p(gw, nz, nblk, a.wilcoxon_table, a.wilcoxon_max_n, scr, nullptr);
 
-  float p_w;
-  {
-    const float n = float(nz), r_plus = float(gw.twice_wsum) * 0.5f, tw = float(gw.tie);
-    const float mn = n * (n + 1.0f) / 4.0f;
-    const float var = n * (n + 1.0f) * (2.0f * n + 1.0f) / 24.0f - tw / 48.0f;
-    const float se = sqrtf(fmaxf(var, 0.0f));
-    const float z = safe_div(r_plus - mn, se);
-    p_w = se > 0.0f ? clamp01(2.0f * norm_sf(fabsf(z))) : 1.0f;
-    const bool has_zero = nblk > nz;
-    if (gw.tie == 0 && !has_zero && nz >= 1 && nz <= a.wilcoxon_max_n) {
-      const int W = a.wilcoxon_max_n * (a.wilcoxon_max_n + 1) / 2 + 1;
-      const float* P = a.wilcoxon_table + size_t(nz - 1) * W;
-      float cdf = 0.0f, sf = 0.0f;
-      for (int w = tid; w <= nz * (nz + 1) / 2; w += blockDim.x) {
-        const float fw = float(w);
-        if (fw <= r_plus + 0.5f) cdf += P[w];
-        if (fw >= r_plus - 0.5f) sf += P[w];
-      }
-      cdf = block_sum(cdf, scr);
-      sf = block_sum(sf, scr);
-      p_w = clamp01(2.0f * fminf(cdf, sf));
-    }
-  }
-
-  float p_sign = 1.0f;
-  {
-    const int ns = pos + neg, s = min(pos, neg);
-    double cdf = 0.0;
-    const double nd = double(ns);
-    for (int k = tid; k <= s; k += blockDim.x) {
-      const double kd = double(k);
-      cdf += exp(lgamma(nd + 1.0) - lgamma(kd + 1.0) - lgamma(fmax(nd - kd + 1.0, 1.0))
-                 - nd * 0.6931471805599453);
-    }
-    cdf = block_sum(cdf, scr);
-    if (ns > 0) p_sign = clamp01(2.0f * float(cdf));
-  }
+  const float p_sign = sign_test_p(pos, neg, scr);
   stamp(a.clocks, row, 7);
 
   // 4. gates and combinator

@@ -29,6 +29,15 @@
   per-(job, window block) partial gradients.
 - Kernel M, `adam` (``csrc/adam.cu``), sums L's partials in block order and
   applies optax's Adam to the J parameter rows in place.
+- Kernel N, `pair_tests` (``csrc/pair_tests.cu``), runs the public
+  two-sample test battery (Mann-Whitney, two-group Kruskal-Wallis,
+  Wilcoxon, KS) and the exact sign test on B window pairs, on kernel A's
+  device code (``csrc/pair_common.cuh``).
+- Kernel O (``csrc/rank_groups.cu``): `rank_and_ties` ranks B masked rows,
+  `kruskal_groups` gives the Kruskal-Wallis H of B sets of k groups and
+  `friedman` the Friedman chi-square of B (n blocks x k treatments) tables.
+- Kernel P, `fleet_topk` (``csrc/fleet_topk.cu``), counts a fleet's
+  unhealthy rows and finds its k worst severities with their global indices.
 
 Each launcher checks device, dtype, shape and contiguity, allocates the
 outputs (and the scratch a kernel needs), launches on PyTorch's current
@@ -36,7 +45,8 @@ stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch. They take CUDA tensors only; the entry
 points (``parallel.fleet.score_pairs``, ``ops.forecast``,
 ``ops.seqscan``, ``ops.triage``, ``ops.bivariate``, ``ops.hpa``,
-``models.lstm_ae``) send CPU tensors to the plain twins.
+``ops.pairwise``, ``ops.ranks``, ``models.lstm_ae``, ``parallel.fleet``'s
+scorer) send CPU tensors to the plain twins.
 """
 from __future__ import annotations
 
@@ -50,11 +60,13 @@ from . import build
 __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_preds",
            "smooth", "hw_fit", "affine_scan", "detect_period", "triage_screen", "bivariate",
            "hpa_score", "st_fit", "lstm_ae", "lstm_train_forward", "lstm_train_backward",
-           "adam", "lstm_train_blocks", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
+           "adam", "pair_tests", "rank_and_ties", "kruskal_groups", "friedman", "fleet_topk",
+           "lstm_train_blocks", "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS",
+           "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
-           "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES", "PAIR_PHASES", "SMOOTH_SES",
-           "SMOOTH_DES", "SMOOTH_HW"]
+           "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
+           "PAIR_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
 # shared memory; above it, in device scratch
@@ -90,6 +102,20 @@ LSTM_SMEM_PARAMS_BYTES = 96 * 1024
 # engine's width), in device memory above it
 LSTM_TRAIN_SMEM_BYTES = 113 * 1024
 
+# kernel N: each test's bit in its `tests` mask, in the column order of its
+# outputs (the first four are all_pairwise_tests' family)
+PAIR_TEST_BITS = {"mann_whitney": 1, "kruskal": 2, "wilcoxon": 4, "ks": 8, "sign": 16}
+# kernel O: a row's sort keys (T for the ranks, k T for Kruskal-Wallis, 16 B
+# each with the scan arrays) live in shared memory up to this many, in
+# device scratch above it, up to MAX_RANK_KEYS (16 MB of scratch a CTA)
+SHARED_RANK_KEYS = 8192
+MAX_RANK_KEYS = 1 << 20
+# kernel P keys a row by its global index in 32 bits, and takes at most
+# MAX_FLEET_SLICE rows a launch (its C entry counts rows and kept keys in
+# int)
+MAX_FLEET_ROWS = (1 << 32) - 1
+MAX_FLEET_SLICE = 1 << 30
+
 SMOOTH_SES, SMOOTH_DES, SMOOTH_HW = 1, 2, 3
 
 # kernel G's outputs, in the order its C entry takes them
@@ -112,7 +138,8 @@ PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans"
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
             "bivariate": 0, "hpa_score": 0, "st_fit": 0, "lstm_ae": 0,
-            "lstm_train_forward": 0, "lstm_train_backward": 0, "adam": 0}
+            "lstm_train_forward": 0, "lstm_train_backward": 0, "adam": 0, "pair_tests": 0,
+            "rank_and_ties": 0, "kruskal_groups": 0, "friedman": 0, "fleet_topk": 0}
 
 
 def reset_launches() -> None:
@@ -770,3 +797,164 @@ def adam(params, mu, nu, step, gpart, num, cnt, lr: float, b1: float, b2: float,
     _raise_on(rc, "adam", lib)
     launches["adam"] += 1
     return loss
+
+
+def pair_tests(x, x_mask, y, y_mask, tests: int, *, wilcoxon_table, ks_exact_max: int,
+               wilcoxon_exact_max_n: int):
+    """Launch kernel N on B window pairs ((B, T) float32 values, bool
+    masks): the tests whose bits (PAIR_TEST_BITS) are set in `tests`.
+    Returns stat and p, (B, 5) float32 in PAIR_TEST_BITS' order: U1, H, W,
+    D and the sign test's untied count (0 and p = 1 for a test not
+    asked). The sign test counts the slots where both masks hold."""
+    B, T = x.shape
+    dev = x.device
+    if not 1 <= T <= MAX_PAIR_T:
+        raise ValueError(f"pair_tests supports 1 <= T <= {MAX_PAIR_T} (kernel A's window "
+                         f"buckets); got T = {T}")
+    if not 0 < tests < 1 << len(PAIR_TEST_BITS):
+        raise ValueError(f"pair_tests takes a mask of PAIR_TEST_BITS, got {tests}")
+    W = wilcoxon_exact_max_n * (wilcoxon_exact_max_n + 1) // 2 + 1
+    for t, name, dt, shape in (
+            (x, "x", torch.float32, (B, T)), (x_mask, "x_mask", torch.bool, (B, T)),
+            (y, "y", torch.float32, (B, T)), (y_mask, "y_mask", torch.bool, (B, T)),
+            (wilcoxon_table, "wilcoxon_table", torch.float32, (wilcoxon_exact_max_n, W))):
+        _check(t, name, dt, shape, dev)
+    stat = torch.empty((B, len(PAIR_TEST_BITS)), dtype=torch.float32, device=dev)
+    p = torch.empty((B, len(PAIR_TEST_BITS)), dtype=torch.float32, device=dev)
+    if B == 0:
+        return stat, p
+    lib = build.library()
+    scratch, stride, grid = None, 0, B
+    if T > SHARED_PAIR_T:
+        stride = lib.fm_pair_tests_scratch_stride(T)
+        grid = max(1, min(B, SCRATCH_BYTES // stride))
+        scratch = torch.empty(grid * stride, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_pair_tests(_ptr(x), _ptr(x_mask), _ptr(y), _ptr(y_mask), B, T, int(tests),
+                               _ptr(wilcoxon_table), wilcoxon_exact_max_n, ks_exact_max,
+                               _ptr(stat), _ptr(p), _opt(scratch), stride, grid,
+                               ctypes.c_void_p(stream))
+    _raise_on(rc, "pair_tests", lib)
+    launches["pair_tests"] += 1
+    return stat, p
+
+
+def _rank_scratch(lib, B: int, n_keys: int, what: str, dev):
+    """(scratch, stride, grid) for kernel O's sorting entries: none up to
+    SHARED_RANK_KEYS keys a row, else one device slot per CTA."""
+    if n_keys > MAX_RANK_KEYS:
+        raise ValueError(f"{what} sorts at most {MAX_RANK_KEYS} keys a row; got {n_keys}")
+    if n_keys <= SHARED_RANK_KEYS:
+        return None, 0, B
+    stride = lib.fm_rank_work_bytes(n_keys)
+    grid = max(1, min(B, SCRATCH_BYTES // stride))
+    return torch.empty(grid * stride, dtype=torch.uint8, device=dev), stride, grid
+
+
+def rank_and_ties(values, mask):
+    """Launch kernel O's rank entry on B rows ((B, T) float32, bool mask).
+    Returns ranks (B, T) float32 in input order (0 at masked slots), the
+    tie term and the valid count, (B,) float32 each."""
+    B, T = values.shape
+    dev = values.device
+    _check(values, "values", torch.float32, (B, T), dev)
+    _check(mask, "mask", torch.bool, (B, T), dev)
+    ranks = torch.empty((B, T), dtype=torch.float32, device=dev)
+    tie = torch.empty(B, dtype=torch.float32, device=dev)
+    n = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0 or T == 0:
+        return ranks, tie.zero_(), n.zero_()
+    lib = build.library()
+    scratch, stride, grid = _rank_scratch(lib, B, T, "rank_and_ties", dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_rank_and_ties(_ptr(values), _ptr(mask), B, T, _ptr(ranks), _ptr(tie),
+                                  _ptr(n), _opt(scratch), stride, grid, ctypes.c_void_p(stream))
+    _raise_on(rc, "rank_and_ties", lib)
+    launches["rank_and_ties"] += 1
+    return ranks, tie, n
+
+
+def kruskal_groups(groups, masks):
+    """Launch kernel O's Kruskal-Wallis entry on B sets of k masked groups
+    ((B, k, T) float32, bool masks). Returns H and p, (B,) float32."""
+    B, k, T = groups.shape
+    dev = groups.device
+    _check(groups, "groups", torch.float32, (B, k, T), dev)
+    _check(masks, "masks", torch.bool, (B, k, T), dev)
+    H = torch.empty(B, dtype=torch.float32, device=dev)
+    p = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return H, p
+    if k * T == 0:
+        return H.zero_(), p.fill_(1.0)
+    lib = build.library()
+    scratch, stride, grid = _rank_scratch(lib, B, k * T, "kruskal_groups", dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_kruskal_groups(_ptr(groups), _ptr(masks), B, k, T, _ptr(H), _ptr(p),
+                                   _opt(scratch), stride, grid, ctypes.c_void_p(stream))
+    _raise_on(rc, "kruskal_groups", lib)
+    launches["kruskal_groups"] += 1
+    return H, p
+
+
+def friedman(data, block_mask):
+    """Launch kernel O's Friedman entry on B tables of n blocks x k
+    treatments ((B, n, k) float32, block_mask (B, n) bool). Returns chi2
+    and p, (B,) float32."""
+    B, n, k = data.shape
+    dev = data.device
+    _check(data, "data", torch.float32, (B, n, k), dev)
+    _check(block_mask, "block_mask", torch.bool, (B, n), dev)
+    chi2 = torch.empty(B, dtype=torch.float32, device=dev)
+    p = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return chi2, p
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_friedman(_ptr(data), _ptr(block_mask), B, n, k, _ptr(chi2), _ptr(p),
+                             ctypes.c_void_p(stream))
+    _raise_on(rc, "friedman", lib)
+    launches["friedman"] += 1
+    return chi2, p
+
+
+def fleet_topk(values, k: int, valid=None, base: int = 0):
+    """Launch kernel P on n rows' (n,) float32 values: the min(k, n) largest
+    in lax.top_k's order (IEEE total order descending, lower index first),
+    a row's value taken as -inf where `valid` ((n,) bool) is False, row i
+    keyed by the index base + i. Returns count (a 0-d int64 tensor, the
+    valid rows; None without `valid`), top_v (min(k, n),) float32 and top_i
+    (min(k, n),) int64. Indices past MAX_FLEET_ROWS and more than
+    MAX_FLEET_SLICE rows are refused."""
+    n = values.shape[0] if values.dim() == 1 else -1
+    if n > MAX_FLEET_SLICE:
+        raise ValueError(f"fleet_topk takes at most {MAX_FLEET_SLICE} rows a launch; got {n}")
+    if base < 0 or base + n - 1 > MAX_FLEET_ROWS:
+        raise ValueError(f"fleet_topk keys rows by a 32-bit index; got base {base}, n {n}")
+    if k < 0:
+        raise ValueError(f"fleet_topk takes k >= 0, got {k}")
+    dev = values.device
+    _check(values, "values", torch.float32, (n,), dev)
+    if valid is not None:
+        _check(valid, "valid", torch.bool, (n,), dev)
+    kk = min(int(k), n)
+    top_v = torch.empty(kk, dtype=torch.float32, device=dev)
+    top_i = torch.empty(kk, dtype=torch.int64, device=dev)
+    count = None if valid is None else torch.zeros((), dtype=torch.int64, device=dev)
+    if n == 0 or kk == 0 and valid is None:
+        return count, top_v, top_i
+    lib = build.library()
+    scratch = torch.empty(lib.fm_fleet_topk_scratch_bytes(n, max(kk, 1)), dtype=torch.uint8,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_fleet_topk(_ptr(values), _opt(valid), int(base), n, kk,
+                               _ptr(top_v), _ptr(top_i), _opt(count), _ptr(scratch),
+                               ctypes.c_void_p(stream))
+    _raise_on(rc, "fleet_topk", lib)
+    launches["fleet_topk"] += 1
+    return count, top_v, top_i

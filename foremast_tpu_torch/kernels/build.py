@@ -145,6 +145,22 @@ def _declare(lib):
     lib.fm_lstm_train_smem_bytes.restype = LL
     lib.fm_adam.argtypes = [P] * 8 + [LL, I, I] + [F] * 6 + [P]
     lib.fm_adam.restype = I
+    lib.fm_pair_tests.argtypes = [P] * 4 + [I, I, I, P, I, I, P, P, P, LL, I, P]
+    lib.fm_pair_tests.restype = I
+    lib.fm_pair_tests_scratch_stride.argtypes = [I]
+    lib.fm_pair_tests_scratch_stride.restype = LL
+    lib.fm_rank_work_bytes.argtypes = [LL]
+    lib.fm_rank_work_bytes.restype = LL
+    lib.fm_rank_and_ties.argtypes = [P, P, I, I, P, P, P, P, LL, I, P]
+    lib.fm_rank_and_ties.restype = I
+    lib.fm_kruskal_groups.argtypes = [P, P, I, I, I, P, P, P, LL, I, P]
+    lib.fm_kruskal_groups.restype = I
+    lib.fm_friedman.argtypes = [P, P, I, I, I, P, P, P]
+    lib.fm_friedman.restype = I
+    lib.fm_fleet_topk_scratch_bytes.argtypes = [LL, LL]
+    lib.fm_fleet_topk_scratch_bytes.restype = LL
+    lib.fm_fleet_topk.argtypes = [P, P, LL, I, I, P, P, P, P, P]
+    lib.fm_fleet_topk.restype = I
     lib.fm_error_string.argtypes = [I]
     lib.fm_error_string.restype = ctypes.c_char_p
 

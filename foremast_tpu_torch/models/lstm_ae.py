@@ -36,6 +36,8 @@ value and gradient (kernel L, `LstmAeLoss`; the twin is torch autograd
 through the same recurrences) and optax's Adam (kernel M; the twin,
 `adam_plain`, is Adam written out in optax's order of operations).
 `adam_state_from_optax` carries the reference's Adam state across.
+`param_shardings` gives the parameters' placements on a (fleet, model)
+mesh, the reference's tensor-parallel rule.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from .. import kernels
 from .._device import as_tensor, resolve_device
 
 __all__ = ["PARAM_NAMES", "LstmAutoencoder", "param_shapes", "param_count", "params_from_flax",
+           "param_shardings",
            "flat_params", "stack_params", "unflatten_params", "reconstruction_errors_plain",
            "reconstruction_errors", "fit_score_normalizer", "anomaly_scores",
            "anomaly_scores_fleet", "LEARNING_RATE", "ADAM_B1", "ADAM_B2", "ADAM_EPS",
@@ -160,6 +163,37 @@ def params_from_flax(tree) -> dict:
         out[f"{dense}.kernel"] = tree[dense]["kernel"]
         out[f"{dense}.bias"] = tree[dense]["bias"]
     return {k: torch.from_numpy(np.array(out[k], dtype=np.float32)) for k in PARAM_NAMES}
+
+
+def param_shardings(params, mesh, model_axis: str | None = None, min_shard_width: int = 8):
+    """Tensor-parallel placements of the scorer's parameters on a (fleet,
+    model) DeviceMesh (``parallel.mesh.fleet_mesh``): name -> a tuple of
+    one placement per mesh axis, Replicate() on every axis but the model
+    axis.
+
+    The reference's rule (its models/lstm_ae.py:96-128), a Megatron-style
+    column split: a kernel (2-D or more) whose output (last) dim is a
+    multiple of the model axis' size and at least `min_shard_width` wide
+    is Shard on that dim along the model axis; biases, indivisible kernels
+    and narrow heads replicate. A cell's wi and wh keep the four gates'
+    (in, H) kernels side by side, so the width the rule reads is one gate's
+    H, as it reads each of the reference's per-gate kernels. With a model
+    axis of 1 (the fleet mesh's default) nothing is split.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..parallel.mesh import MODEL_AXIS
+
+    model_axis = MODEL_AXIS if model_axis is None else model_axis
+    names = mesh.mesh_dim_names
+    axis_size = mesh.size(names.index(model_axis))
+    out = {}
+    for name, x in _as_dict(params).items():
+        width = x.shape[-1] // 4 if name.split(".")[-1] in ("wi", "wh") else x.shape[-1]
+        split = x.dim() >= 2 and width % axis_size == 0 and width >= min_shard_width
+        out[name] = tuple(Shard(x.dim() - 1) if split and ax == model_axis else Replicate()
+                          for ax in names)
+    return out
 
 
 def _as_dict(params) -> dict:

@@ -1,12 +1,27 @@
-"""Batched, mask-aware two-sample tests (plain PyTorch).
+"""Batched, mask-aware rank and distribution tests.
 
-Counterpart of the reference's ``ops/pairwise.py`` on the scoring path:
-Mann-Whitney U, two-group Kruskal-Wallis, two-sample KS and Wilcoxon
-signed-rank, fused in `two_sample_tests`, plus the exact paired sign test.
-Every function takes (B, T) value tensors and bool masks, one window pair
-per row, and returns (B,) float32 tensors on the inputs' device. These are
-the plain twins: kernel A (``csrc/pair_verdict.cu``) computes the same
-p-values inside one launch, and ``parallel.fleet`` holds the two together.
+Counterpart of the reference's ``ops/pairwise.py``: Mann-Whitney U,
+two-group Kruskal-Wallis, two-sample KS and Wilcoxon signed-rank, fused in
+`two_sample_tests`, the exact paired sign test, the k-group Kruskal-Wallis
+and the Friedman chi-square.
+
+- The plain twins (`mann_whitney_u_plain`, `wilcoxon_signed_rank_plain`,
+  `ks_2samp_plain`, `two_sample_tests_plain`, `sign_test_exact_plain`,
+  `kruskal_plain`, `friedman_plain`) take (B, T) value tensors and bool
+  masks, one window pair per row, and return (B,) float32 tensors on the
+  inputs' device. Kernel A (``csrc/pair_verdict.cu``) computes the same
+  p-values inside one launch, and ``parallel.fleet`` holds the two
+  together.
+- The batch entry points (`mann_whitney_u_batch`, `wilcoxon_batch`,
+  `ks_2samp_batch`, `kruskal_batch`, `friedman_batch`,
+  `all_pairwise_tests`) take numpy or tensors and run kernel N
+  (``csrc/pair_tests.cu``) or kernel O (``csrc/rank_groups.cu``) on the
+  card, or the twins for device="cpu".
+- The reference's single forms (`mann_whitney_u`, `wilcoxon_signed_rank`,
+  `ks_2samp`, `two_sample_tests`, `sign_test_exact`, `kruskal_wallis`,
+  `friedman_chi_square`) run one pair or table as a batch of one through
+  those entry points (the sign test through kernel N's sign entry) and
+  return 0-d tensors.
 
 Numerics follow the reference in float32, with deliberate differences
 where the reference's float32 drifts from the exact value: rank sums and
@@ -20,19 +35,38 @@ from __future__ import annotations
 import math
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from . import ranks as rk
 from .stats import chi2_sf, kolmogorov_sf, norm_sf
+from .. import kernels
+from .._device import as_tensor, resolve_device
 from ..utils import knobs
 
 __all__ = [
     "mann_whitney_u",
     "two_sample_tests",
     "wilcoxon_signed_rank",
+    "kruskal_wallis",
+    "friedman_chi_square",
     "sign_test_exact",
     "ks_2samp",
+    "mann_whitney_u_batch",
+    "wilcoxon_batch",
+    "kruskal_batch",
+    "friedman_batch",
+    "ks_2samp_batch",
     "all_pairwise_tests",
+    "sign_test_batch",
+    "TWO_SAMPLE_TESTS",
+    "mann_whitney_u_plain",
+    "wilcoxon_signed_rank_plain",
+    "ks_2samp_plain",
+    "two_sample_tests_plain",
+    "sign_test_exact_plain",
+    "kruskal_plain",
+    "friedman_plain",
     "wilcoxon_pmf_table",
 ]
 
@@ -41,6 +75,22 @@ _F = torch.float32
 
 def _safe_div(a, b):
     return a / torch.where(b == 0, 1.0, b)
+
+
+def _squeeze(out):
+    if isinstance(out, dict):
+        return {k: _squeeze(v) for k, v in out.items()}
+    if isinstance(out, tuple):
+        return tuple(_squeeze(v) for v in out)
+    return out[0]
+
+
+def _one(batch_fn, *args, device):
+    """The reference's single form of a batch entry point: each argument
+    (numpy or a tensor) gains a leading batch axis of one, and each output
+    loses it."""
+    batch = [a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None] for a in args]
+    return _squeeze(batch_fn(*batch, device=device))
 
 
 # Pairs whose valid counts both fit this bound get the exact finite-n KS
@@ -76,6 +126,16 @@ def _ks_exact_sf(t, n1, n2, Ti: int):
         pick = torch.sum(diag * isel, dim=-1)
         inside_prob = torch.where(n1 + n2 == d, pick, inside_prob)
     return torch.clamp(1.0 - inside_prob, 0.0, 1.0)
+
+
+def _ks_sup(cx, cy, n1, n2, valid):
+    """The integer KS statistic t = max |cx n2 - cy n1| over valid points,
+    exact (float64 products of integer counts) and rounded once to float32,
+    as kernels A and N round their exact integer. The reference's float32
+    products round once n1 n2 passes 2^24 (T > 4096 a side); at T = 16384
+    that moved a Stephens p by 1.07e-5 against kernel N on the card."""
+    stat = torch.abs(cx.double() * n2.double()[:, None] - cy.double() * n1.double()[:, None])
+    return torch.amax(torch.where(valid, stat, 0.0), dim=-1).to(_F)
 
 
 def _ks_pvalue(t, n1, n2, Ti: int, Tj: int):
@@ -138,7 +198,7 @@ def _kruskal_h(R1, tie, n1, n2):
     return torch.where(ok, H, 0.0).to(_F), ok
 
 
-def mann_whitney_u(x, x_mask, y, y_mask):
+def mann_whitney_u_plain(x, x_mask, y, y_mask):
     """Two-sided Mann-Whitney U (scipy method="asymptotic"): (U1, p)."""
     comb, cmask, from_x = _concat_pair(x, x_mask, y, y_mask)
     R1, tie, _ = rk.rank_sum_stats(comb, cmask, from_x)
@@ -191,7 +251,7 @@ def _wilcoxon_exact_p(r_plus, n):
     return torch.clamp(2.0 * torch.minimum(cdf, sf), 0.0, 1.0)
 
 
-def wilcoxon_signed_rank(x, x_mask, y, y_mask):
+def wilcoxon_signed_rank_plain(x, x_mask, y, y_mask):
     """Paired two-sided Wilcoxon signed-rank: (W = min(T+, T-), p).
 
     Pairs count where both masks hold; zero differences are dropped. The
@@ -218,7 +278,7 @@ def wilcoxon_signed_rank(x, x_mask, y, y_mask):
     return W, p
 
 
-def sign_test_exact(x, y, pair_mask):
+def sign_test_exact_plain(x, y, pair_mask):
     """Exact two-sided paired sign test: (n_untied, p).
 
     p = min(1, 2 P(X <= min(wins, losses))), X ~ Binom(n, 1/2), summed
@@ -241,7 +301,19 @@ def sign_test_exact(x, y, pair_mask):
     return n, torch.where(n > 0, p, 1.0)
 
 
-def ks_2samp(x, x_mask, y, y_mask):
+def _le_counts(v, w, pts):
+    """(B, P) float32: the weight w (0/1) of the entries of v that are <=
+    each point, by direct comparison as the reference counts them, P points
+    at a time so that the (B, P, T) comparison stays near 2^24 entries."""
+    B, T = v.shape
+    if pts.shape[1] == 0:
+        return pts.new_zeros(pts.shape)
+    step = max(1, (1 << 24) // max(1, B * T))
+    return torch.cat([torch.sum((v[:, None, :] <= c[:, :, None]).to(_F) * w[:, None, :], dim=-1)
+                      for c in torch.split(pts, step, dim=1)], dim=1)
+
+
+def ks_2samp_plain(x, x_mask, y, y_mask):
     """Two-sided two-sample KS: (D, p), D = t / (n1 n2) with the integer sup
     statistic t = max |cx n2 - cy n1| over valid points (<= counts)."""
     xv, yv = x.to(_F), y.to(_F)
@@ -249,14 +321,11 @@ def ks_2samp(x, x_mask, y, y_mask):
     n1, n2 = xm.sum(-1), ym.sum(-1)
     pts = torch.cat([xv, yv], dim=1)
     pts_valid = torch.cat([x_mask, y_mask], dim=1)
-    cx = torch.sum((xv[:, None, :] <= pts[:, :, None]).to(_F) * xm[:, None, :], dim=-1)
-    cy = torch.sum((yv[:, None, :] <= pts[:, :, None]).to(_F) * ym[:, None, :], dim=-1)
-    stat = torch.abs(cx * n2[:, None] - cy * n1[:, None])
-    t = torch.amax(torch.where(pts_valid, stat, 0.0), dim=-1)
+    t = _ks_sup(_le_counts(xv, xm, pts), _le_counts(yv, ym, pts), n1, n2, pts_valid)
     return _safe_div(t, n1 * n2), _ks_pvalue(t, n1, n2, x.shape[-1], y.shape[-1])
 
 
-def two_sample_tests(x, x_mask, y, y_mask):
+def two_sample_tests_plain(x, x_mask, y, y_mask):
     """Mann-Whitney + 2-group Kruskal + Wilcoxon + KS from one sorted view.
 
     Returns {test: (stat (B,), p (B,))}, as the reference's fused family.
@@ -278,12 +347,11 @@ def two_sample_tests(x, x_mask, y, y_mask):
     cx_inc = torch.cumsum(sw, dim=-1)
     cx_end = rk._cummin_rev(torch.where(view.group_end, cx_inc, torch.inf))
     cy_end = view.g1 - cx_end
-    stat = torch.abs(cx_end * n2[:, None] - cy_end * n1[:, None])
-    t_ks = torch.amax(torch.where(view.sv > 0.0, stat, 0.0), dim=-1)
+    t_ks = _ks_sup(cx_end, cy_end, n1, n2, view.sv > 0.0)
     D = _safe_div(t_ks, n1 * n2)
     p_ks = _ks_pvalue(t_ks, n1, n2, Tx, y.shape[-1])
 
-    W, p_w = wilcoxon_signed_rank(x, x_mask, y, y_mask)
+    W, p_w = wilcoxon_signed_rank_plain(x, x_mask, y, y_mask)
     return {
         "mann_whitney": (U1, p_mw),
         "kruskal": (H, p_k),
@@ -292,7 +360,174 @@ def two_sample_tests(x, x_mask, y, y_mask):
     }
 
 
-def all_pairwise_tests(x, x_mask, y, y_mask):
-    """The full two-sample family on a batch of window pairs (see
-    `two_sample_tests`)."""
-    return two_sample_tests(x, x_mask, y, y_mask)
+def kruskal_plain(groups, masks):
+    """Kruskal-Wallis H over k masked groups, tie-corrected, and its
+    chi-square p at df = k - 1: (B, k, T) values and bool masks, one set
+    of groups per row; (H, p) as (B,) float32. The rank sums and the tie
+    term are exact and H is evaluated in float64 (the reference's float32
+    H drifts, R2); an undefined H (no valid point, or every point tied) is
+    0 with p = 1."""
+    B, k, T = groups.shape
+    ranks, tie, N = rk.rank_and_ties_exact(groups.reshape(B, k * T).to(_F),
+                                           masks.reshape(B, k * T))
+    R = ranks.reshape(B, k, T).double().sum(-1)
+    n_i = masks.double().sum(-1)
+    N = N.double()
+    H = (_safe_div(torch.full_like(N, 12.0), N * (N + 1.0))
+         * torch.sum(_safe_div(R**2, n_i), dim=-1) - 3.0 * (N + 1.0))
+    correction = 1.0 - _safe_div(tie, N**3 - N)
+    H = _safe_div(H, correction)
+    ok = (correction > 0.0) & (N > 0.0)
+    p = torch.where(ok, chi2_sf(H, k - 1.0), 1.0)
+    return torch.where(ok, H, 0.0).to(_F), p.to(_F)
+
+
+def friedman_plain(data, block_mask):
+    """Friedman chi-square over n blocks x k treatments, tie-corrected, and
+    its p at df = k - 1: (B, n, k) data and (B, n) bool block masks; (chi2,
+    p) as (B,) float32. Each block is ranked across its k treatments as
+    rank_and_ties ranks a fully valid row (NaN highest, -0.0 == +0.0); only
+    the blocks the mask holds count. Sums exact, chi2 in float64."""
+    B, n, k = data.shape
+    full = torch.ones((B * n, k), dtype=torch.bool, device=data.device)
+    ranks, ties, _ = rk.rank_and_ties_exact(data.reshape(B * n, k).to(_F), full)
+    bm = block_mask.double()
+    Rj = torch.sum(ranks.reshape(B, n, k).double() * bm[..., None], dim=1)
+    nb = bm.sum(-1)
+    c = 1.0 - _safe_div(torch.sum(ties.reshape(B, n) * bm, dim=-1), nb * k * (k * k - 1.0))
+    chisq = (_safe_div(torch.full_like(nb, 12.0), nb * k * (k + 1.0)) * torch.sum(Rj**2, dim=-1)
+             - 3.0 * nb * (k + 1.0))
+    chisq = _safe_div(chisq, c)
+    ok = (c > 0.0) & (nb > 0.0)
+    p = torch.where(ok, chi2_sf(chisq, k - 1.0), 1.0)
+    return torch.where(ok, chisq, 0.0).to(_F), p.to(_F)
+
+
+# all_pairwise_tests' family, in kernel N's column order
+TWO_SAMPLE_TESTS = ("mann_whitney", "kruskal", "wilcoxon", "ks")
+
+
+def _pair_batch(x, x_mask, y, y_mask, dev):
+    xt = as_tensor(x, _F, dev, "x")
+    B, T = xt.shape
+    return (xt, as_tensor(x_mask, torch.bool, dev, "x_mask", (B, T)),
+            as_tensor(y, _F, dev, "y", (B, T)),
+            as_tensor(y_mask, torch.bool, dev, "y_mask", (B, T)))
+
+
+def _pair_tests(names, x, x_mask, y, y_mask, device):
+    """{name: (stat, p)} of the tests `names` on a batch of window pairs:
+    kernel N on the card, None for device="cpu" (the caller's twin)."""
+    dev = resolve_device(device)
+    t = _pair_batch(x, x_mask, y, y_mask, dev)
+    if dev.type == "cpu":
+        return None, t
+    bits = sum(kernels.PAIR_TEST_BITS[n] for n in names)
+    stat, p = kernels.pair_tests(*t, bits, wilcoxon_table=wilcoxon_pmf_table(dev),
+                                 ks_exact_max=KS_EXACT_MAX_T,
+                                 wilcoxon_exact_max_n=WILCOXON_EXACT_MAX_N)
+    cols = list(kernels.PAIR_TEST_BITS)
+    return {n: (stat[:, cols.index(n)], p[:, cols.index(n)]) for n in names}, t
+
+
+def mann_whitney_u_batch(x, x_mask, y, y_mask, device=None):
+    """Two-sided Mann-Whitney U of B window pairs ((B, T) values, bool
+    masks; numpy or tensors): (U1, p), (B,) float32. Kernel N on `device`
+    (default "cuda"), the twin for device="cpu"."""
+    out, t = _pair_tests(("mann_whitney",), x, x_mask, y, y_mask, device)
+    return mann_whitney_u_plain(*t) if out is None else out["mann_whitney"]
+
+
+def wilcoxon_batch(x, x_mask, y, y_mask, device=None):
+    """Paired two-sided Wilcoxon signed-rank of B window pairs: (W, p)."""
+    out, t = _pair_tests(("wilcoxon",), x, x_mask, y, y_mask, device)
+    return wilcoxon_signed_rank_plain(*t) if out is None else out["wilcoxon"]
+
+
+def ks_2samp_batch(x, x_mask, y, y_mask, device=None):
+    """Two-sided two-sample KS of B window pairs: (D, p)."""
+    out, t = _pair_tests(("ks",), x, x_mask, y, y_mask, device)
+    return ks_2samp_plain(*t) if out is None else out["ks"]
+
+
+def all_pairwise_tests(x, x_mask, y, y_mask, device=None):
+    """The full two-sample family on B window pairs ((B, T) values, bool
+    masks; numpy or tensors): {"mann_whitney", "kruskal", "wilcoxon",
+    "ks"} -> (stat, p), (B,) float32 each, Kruskal-Wallis on the two-group
+    arrangement (see `two_sample_tests_plain`). Kernel N on `device`
+    (default "cuda"), the twin for device="cpu"."""
+    out, t = _pair_tests(TWO_SAMPLE_TESTS, x, x_mask, y, y_mask, device)
+    return two_sample_tests_plain(*t) if out is None else out
+
+
+def sign_test_batch(x, y, pair_mask, device=None):
+    """Exact paired sign test of B window pairs: (n_untied, p). Kernel N's
+    sign entry on `device` (default "cuda"), the twin for device="cpu"."""
+    out, t = _pair_tests(("sign",), x, pair_mask, y, pair_mask, device)
+    return sign_test_exact_plain(t[0], t[2], t[1]) if out is None else out["sign"]
+
+
+def kruskal_batch(groups, masks, device=None):
+    """Kruskal-Wallis of B sets of k masked groups ((B, k, T) values, bool
+    masks; numpy or tensors): (H, p), (B,) float32, df = k - 1. Kernel O on
+    `device` (default "cuda"), the twin for device="cpu"."""
+    dev = resolve_device(device)
+    g = as_tensor(groups, _F, dev, "groups", tuple(np.shape(groups)))
+    if g.dim() != 3:
+        raise ValueError(f"groups must be (B, k, T), got shape {tuple(g.shape)}")
+    m = as_tensor(masks, torch.bool, dev, "masks", tuple(g.shape))
+    return kruskal_plain(g, m) if dev.type == "cpu" else kernels.kruskal_groups(g, m)
+
+
+def friedman_batch(data, block_mask, device=None):
+    """Friedman chi-square of B tables of n blocks x k treatments ((B, n, k)
+    values, (B, n) bool block masks; numpy or tensors): (chi2, p), (B,)
+    float32, df = k - 1. Kernel O on `device` (default "cuda"), the twin
+    for device="cpu"."""
+    dev = resolve_device(device)
+    d = as_tensor(data, _F, dev, "data", tuple(np.shape(data)))
+    if d.dim() != 3:
+        raise ValueError(f"data must be (B, n, k), got shape {tuple(d.shape)}")
+    m = as_tensor(block_mask, torch.bool, dev, "block_mask", tuple(d.shape[:2]))
+    return friedman_plain(d, m) if dev.type == "cpu" else kernels.friedman(d, m)
+
+
+def mann_whitney_u(x, x_mask, y, y_mask, device=None):
+    """The reference's single form: one pair of (T,) windows and bool masks
+    (numpy or tensors) -> (U1, p), 0-d float32 tensors. Kernel N on
+    `device` (default "cuda"), the twin for device="cpu"."""
+    return _one(mann_whitney_u_batch, x, x_mask, y, y_mask, device=device)
+
+
+def wilcoxon_signed_rank(x, x_mask, y, y_mask, device=None):
+    """The reference's single form of `wilcoxon_batch`: (W, p), 0-d."""
+    return _one(wilcoxon_batch, x, x_mask, y, y_mask, device=device)
+
+
+def ks_2samp(x, x_mask, y, y_mask, device=None):
+    """The reference's single form of `ks_2samp_batch`: (D, p), 0-d."""
+    return _one(ks_2samp_batch, x, x_mask, y, y_mask, device=device)
+
+
+def two_sample_tests(x, x_mask, y, y_mask, device=None):
+    """The reference's single form of `all_pairwise_tests`: {test: (stat,
+    p)}, 0-d each."""
+    return _one(all_pairwise_tests, x, x_mask, y, y_mask, device=device)
+
+
+def sign_test_exact(x, y, pair_mask, device=None):
+    """The reference's exact paired sign test on one pair of (T,) windows
+    and a (T,) bool pair mask: (n_untied, p), 0-d float32 tensors."""
+    return _one(sign_test_batch, x, y, pair_mask, device=device)
+
+
+def kruskal_wallis(groups, masks, device=None):
+    """The reference's single form of `kruskal_batch`: (k, T) groups and
+    masks -> (H, p), 0-d float32 tensors."""
+    return _one(kruskal_batch, groups, masks, device=device)
+
+
+def friedman_chi_square(data, block_mask, device=None):
+    """The reference's single form of `friedman_batch`: (n, k) data and (n,)
+    block mask -> (chi2, p), 0-d float32 tensors."""
+    return _one(friedman_batch, data, block_mask, device=device)

@@ -1,7 +1,11 @@
-"""Masked, tie-averaged ranking in sorted space (plain PyTorch, batched).
+"""Masked, tie-averaged ranking in sorted space.
 
-Counterpart of the reference's ``ops/ranks.py``. Every function takes (B, T)
-tensors, one series per row, and works on the tensors' own device. Masked
+Counterpart of the reference's ``ops/ranks.py``. The public `rank_and_ties`
+and `masked_rankdata` take the reference's shapes, one row (T,) or a batch
+(B, T), as numpy or tensors, and run kernel O's rank entry
+(``csrc/rank_groups.cu``) on the card, or the plain twin for
+device="cpu". Every other function is plain PyTorch on (B, T) tensors, one
+series per row, on the tensors' own device. Masked
 slots sort last and get rank 0; valid slots get scipy.rankdata's average
 ranks. A valid NaN ranks highest, tied with the other NaNs; a valid +inf
 ranks just below the NaNs; neither shares a tie group with a masked slot.
@@ -18,7 +22,10 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["masked_rankdata", "rank_and_ties", "rank_sum_stats"]
+from .. import kernels
+from .._device import as_tensor, resolve_device
+
+__all__ = ["masked_rankdata", "rank_and_ties", "rank_and_ties_plain", "rank_sum_stats"]
 
 _F = torch.float32
 
@@ -119,17 +126,44 @@ def rank_sum_stats(values, mask, weight):
     return _exact_sum(view.avg * sw).to(_F), _tie_term(view).to(_F), view.n_valid
 
 
-def rank_and_ties(values, mask):
-    """Ranks in input order (0 at masked slots), tie term and valid count."""
+def rank_and_ties_exact(values, mask):
+    """Ranks in input order (0 at masked slots), the exact float64 tie term
+    and the valid count, (B, T) rows."""
     B, T = values.shape
     idx = torch.arange(T, device=values.device).expand(B, T).contiguous()
     view = _sorted_rank_view(values, mask, extras=(idx,))
     (si,) = view.extras
     ranks = torch.empty_like(view.avg).scatter_(1, si, view.avg)
     ranks = torch.where(mask, ranks, 0.0)
-    return ranks, _tie_term(view).to(_F), view.n_valid
+    return ranks, _tie_term(view), view.n_valid
 
 
-def masked_rankdata(values, mask):
+def rank_and_ties_plain(values, mask):
+    """Plain twin of kernel O's rank entry on (B, T) tensors: ranks in input
+    order (0 at masked slots), tie term and valid count, float32."""
+    ranks, tie, n = rank_and_ties_exact(values, mask)
+    return ranks, tie.to(_F), n
+
+
+def rank_and_ties(values, mask, device=None):
+    """Rank `values` where `mask` holds, averaging ties (the reference's
+    rank_and_ties): one row (T,) or a batch (B, T), numpy or tensors.
+
+    Returns ranks (1-based average ranks among the valid entries, 0.0 at
+    masked ones), the tie term sum(t^3 - t) over tie groups of valid
+    entries and the valid count, float32: (T,), (), () for one row, (B, T),
+    (B,), (B,) for a batch. Kernel O on `device` (default "cuda"), the plain
+    twin for device="cpu".
+    """
+    dev = resolve_device(device)
+    one = getattr(values, "ndim", None) == 1
+    shape = None if not one else (1, values.shape[0])
+    v = as_tensor(values[None] if one else values, torch.float32, dev, "values", shape)
+    m = as_tensor(mask[None] if one else mask, torch.bool, dev, "mask", tuple(v.shape))
+    out = rank_and_ties_plain(v, m) if dev.type == "cpu" else kernels.rank_and_ties(v, m)
+    return tuple(o[0] for o in out) if one else out
+
+
+def masked_rankdata(values, mask, device=None):
     """scipy.stats.rankdata over the masked subset; 0 at masked positions."""
-    return rank_and_ties(values, mask)[0]
+    return rank_and_ties(values, mask, device=device)[0]

@@ -276,8 +276,77 @@ def self_check() -> int:
                                  ks_exact_max=KS_EXACT_MAX_T, wilcoxon_exact_max_n=WILCOXON_EXACT_MAX_N)
         e = _err(k["pvalues"], fl.pair_verdict_plain(*a)["pvalues"])
         expect(f"pair_verdict T={T}", e <= cs.P_ATOL, f"max |dp| {e:.3g}")
+    new_kernels_check(cs, expect)
     kernels.SCRATCH_BYTES = saved
     return len(failures)
+
+
+def new_kernels_check(cs, expect) -> None:
+    """Kernels N, O and P against their twins, with chip_smoke's adversarial
+    rows and comparisons, device scratch and grid-stride walks included."""
+    from foremast_tpu_torch.ops import pairwise as pw
+    from foremast_tpu_torch.ops import ranks as rk
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    saved_dev, cs.DEV = cs.DEV, "cpu"
+    rng = np.random.default_rng(7)
+    names = pw.TWO_SAMPLE_TESTS
+    kw = dict(wilcoxon_table=pw.wilcoxon_pmf_table("cpu"), ks_exact_max=pw.KS_EXACT_MAX_T,
+              wilcoxon_exact_max_n=pw.WILCOXON_EXACT_MAX_N)
+    kernels.SCRATCH_BYTES = 3 * 16384 * 16  # three CTAs walk the pairs
+    for T, B in ((8, 20), (64, 20), (4100, 6)):
+        x, xm, y, ym = (torch.from_numpy(a) for a in cs.adversarial_tests(B, T, rng))
+        plain = pw.two_sample_tests_plain(x, xm, y, ym)
+        plain["sign"] = pw.sign_test_exact_plain(x, y, xm & ym)
+        try:
+            e = cs.compare_pair_tests(kernels.pair_tests(x, xm, y, ym, 15, **kw), plain, names)
+            for name in names + ("sign",):
+                cs.compare_pair_tests(kernels.pair_tests(x, xm, y, ym,
+                                                         kernels.PAIR_TEST_BITS[name], **kw),
+                                      plain, (name,))
+            expect(f"pair_tests T={T}", True, f"max |dp| {e:.3g}, each test alone equal")
+        except AssertionError as err:
+            expect(f"pair_tests T={T}", False, str(err))
+    kernels.SCRATCH_BYTES = 3 * 16384 * 16
+    for T, B in ((8, 12), (300, 12), (9000, 7)):
+        v, m = (torch.from_numpy(a) for a in cs.adversarial_ranks(B, T, rng))
+        try:
+            cs.compare_ranks(kernels.rank_and_ties(v, m), rk.rank_and_ties_plain(v, m))
+            expect(f"rank_and_ties T={T}", True, "ranks, tie terms and counts equal")
+        except AssertionError as err:
+            expect(f"rank_and_ties T={T}", False, str(err))
+    for k, T in ((2, 20), (3, 20), (5, 7), (3, 3000)):
+        g, gm = (torch.from_numpy(a) for a in cs.adversarial_groups(7, k, T, rng))
+        try:
+            H, p = kernels.kruskal_groups(g, gm)
+            pH, pp = pw.kruskal_plain(g, gm)
+            cs.close(H, pH, cs.STAT_RTOL, 1e-6, "H")
+            e = cs.close(p, pp, 0.0, cs.P_ATOL, "p")
+            expect(f"kruskal_groups k={k} T={T}", True, f"max |dp| {e:.3g}")
+        except AssertionError as err:
+            expect(f"kruskal_groups k={k} T={T}", False, str(err))
+    for n, k in ((12, 3), (5, 200), (30, 6)):
+        d, bm = (torch.from_numpy(a) for a in cs.adversarial_friedman(10, n, k, rng))
+        try:
+            chi, p = kernels.friedman(d, bm)
+            pc, pp = pw.friedman_plain(d, bm)
+            cs.close(chi, pc, cs.STAT_RTOL, 1e-5, "chi2")
+            e = cs.close(p, pp, 0.0, cs.P_ATOL, "p")
+            expect(f"friedman n={n} k={k}", True, f"max |dp| {e:.3g}")
+        except AssertionError as err:
+            expect(f"friedman n={n} k={k}", False, str(err))
+    for n in (5, 5000):
+        u, sev = (torch.from_numpy(a) for a in cs.adversarial_topk(n, rng))
+        for k in (1, 8, 500, 3000, n + 5):
+            try:
+                cs.compare_topk(kernels.fleet_topk(sev, k, u, base=7),
+                                fl.fleet_topk_plain(sev, k, u, base=7), "masked")
+                cs.compare_topk(kernels.fleet_topk(sev, k), fl.fleet_topk_plain(sev, k),
+                                "unmasked")
+                expect(f"fleet_topk n={n} k={k}", True, "counts, values and indices equal")
+            except AssertionError as err:
+                expect(f"fleet_topk n={n} k={k}", False, str(err))
+    cs.DEV = saved_dev
 
 
 if __name__ == "__main__":

@@ -37,7 +37,18 @@ card between them, and the card's idle share over the launch.
 pass (1,024 jobs x a day of 45 windows of 32 steps x 4 metrics, H = 32,
 Z = 16, from the reference's initial rows): kernel L's forward and backward
 entries and kernel M alone, each the median of 5 by CUDA events.
+
+--fleet times kernel P (`kernels.fleet_topk`, k = chip_smoke.FLEET_K) on
+the fleet that `score_pairs` scores from the 100,000-pair pass, and beside
+it `torch.topk` over the masked severities, each the mean of 20 launches by
+CUDA events.
+
+--a-digest prints a SHA-256 of every output of kernel A (`score_pairs` on
+the card) on chip_smoke.py's adversarial pairs at each T of its kernel
+check and on the 100,000-pair pass: run from two checkouts in one call, equal
+digests show that kernel A's outputs did not change, bit for bit.
 """
+import hashlib
 import argparse
 import importlib.util
 import json
@@ -255,6 +266,38 @@ def lstm_train_split():
     return {"lstm_train_forward_ms": fwd, "lstm_train_backward_ms": bwd, "adam_ms": adam}
 
 
+def fleet_split():
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    args, _ = cs.pair_path_inputs(np.random.default_rng(cs.SEED))
+    out = fl.score_pairs(*fl.pair_args_from_numpy(args, cs.DEV), device=cs.DEV)
+    u, s = out["unhealthy"], out["severity"]
+    return {"fleet_topk_ms": cs.cuda_ms(lambda: kernels.fleet_topk(s, cs.FLEET_K, u),
+                                        cs.TIMED_RUNS),
+            "torch_topk_ms": cs.cuda_ms(lambda: torch.topk(torch.where(u, s, -torch.inf),
+                                                           cs.FLEET_K), cs.TIMED_RUNS)}
+
+
+def a_digest():
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    def digest(args):
+        out = fl.score_pairs(*args, device=cs.DEV)
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for k in sorted(out):
+            h.update(k.encode() + out[k].cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    res = {}
+    for T in (16, 128, 1024, 4096, 8192, 16384):
+        B = cs.CHECK_ROWS if T <= 4096 else 512
+        res[f"T={T}"] = digest(cs.adversarial_pairs(B, T, np.random.default_rng(cs.SEED + T)))
+    res["pass"] = digest(cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0])
+    return res
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true", help="split kernel A and the pass")
@@ -263,6 +306,9 @@ def main():
                    help="time kernels H and I and profile the HPA launch instead")
     p.add_argument("--lstm-train", action="store_true",
                    help="time one training epoch's kernels L and M instead")
+    p.add_argument("--fleet", action="store_true", help="time kernel P instead")
+    p.add_argument("--a-digest", action="store_true",
+                   help="print a digest of kernel A's outputs instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
     if not torch.cuda.is_available():
@@ -270,6 +316,14 @@ def main():
     from foremast_tpu_torch.ops import forecast as fc
     from foremast_tpu_torch.parallel import fleet as fl
 
+    if opt.fleet:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "fleet": fleet_split()}), flush=True)
+        return
+    if opt.a_digest:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "a_digest": a_digest()}), flush=True)
+        return
     if opt.families:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "families": families_split()}), flush=True)

@@ -68,6 +68,8 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
         "import foremast_tpu_torch.dataplane, foremast_tpu_torch.native\n"
         "import foremast_tpu_torch.resilience, foremast_tpu_torch.utils.tracing\n"
         "import foremast_tpu_torch.utils.locks, foremast_tpu_torch.utils.timeutils\n"
+        "import foremast_tpu_torch.ops, foremast_tpu_torch.parallel\n"
+        "import foremast_tpu_torch.parallel.mesh, foremast_tpu_torch.parallel.distributed\n"
         "new = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'foremast_tpu')]\n"
         "print(sorted(new)); sys.exit(1 if new else 0)\n"
@@ -143,6 +145,34 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert out["unhealthy"].device.type == "cpu"
     out = tfc.moving_average_band(x, m, ~m, 5, *pol, device="cpu")
     assert out["preds"].device.type == "cpu"
+    from foremast_tpu_torch.ops import pairwise as tpw
+    from foremast_tpu_torch.ops import ranks as trk
+    from foremast_tpu_torch.parallel import mesh as tpm
+    g3, m3 = np.zeros((2, 3, 16), np.float32), np.ones((2, 3, 16), bool)
+    for call in (lambda d: tpw.all_pairwise_tests(x, m, x, m, device=d),
+                 lambda d: tpw.mann_whitney_u_batch(x, m, x, m, device=d),
+                 lambda d: tpw.wilcoxon_batch(x, m, x, m, device=d),
+                 lambda d: tpw.ks_2samp_batch(x, m, x, m, device=d),
+                 lambda d: tpw.kruskal_batch(g3, m3, device=d),
+                 lambda d: tpw.friedman_batch(g3, m3[:, :, 0], device=d),
+                 lambda d: trk.rank_and_ties(x, m, device=d),
+                 lambda d: trk.masked_rankdata(x[0], m[0], device=d),
+                 lambda d: tpw.mann_whitney_u(x[0], m[0], x[0], m[0], device=d),
+                 lambda d: tpw.wilcoxon_signed_rank(x[0], m[0], x[0], m[0], device=d),
+                 lambda d: tpw.ks_2samp(x[0], m[0], x[0], m[0], device=d),
+                 lambda d: tpw.two_sample_tests(x[0], m[0], x[0], m[0], device=d),
+                 lambda d: tpw.sign_test_exact(x[0], x[0], m[0], device=d),
+                 lambda d: tpw.sign_test_batch(x, x, m, device=d),
+                 lambda d: tpw.kruskal_wallis(g3[0], m3[0], device=d),
+                 lambda d: tpw.friedman_chi_square(g3[0], m3[0, :, 0], device=d)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(None)
+        out = call("cpu")
+        first = out[0] if isinstance(out, tuple) else (
+            out if isinstance(out, torch.Tensor) else out["ks"][0])
+        assert first.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpm.fleet_mesh()
 
 
 def test_tensor_on_another_device_is_an_error():
@@ -204,10 +234,36 @@ def test_launchers_refuse_cpu_tensors():
         kernels.adam(row, row, row, torch.ones(1, dtype=torch.int32), torch.zeros((1, 1, P)),
                      torch.zeros((1, 1), dtype=torch.float64),
                      torch.zeros((1, 1), dtype=torch.float64), 1e-3, 0.9, 0.999, 1e-8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.pair_tests(x, m, x, m, 15, wilcoxon_table=torch.zeros((50, 1276)),
+                           ks_exact_max=256, wilcoxon_exact_max_n=50)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.rank_and_ties(x, m)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.kruskal_groups(x[None], m[None])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.friedman(x[None], m)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.fleet_topk(x[0], 8, m[0])
+    with pytest.raises(ValueError, match="32-bit index"):
+        kernels.fleet_topk(x[0], 8, m[0], base=kernels.MAX_FLEET_ROWS)
+    with pytest.raises(ValueError, match="32-bit index"):
+        kernels.fleet_topk(x[0], 8, m[0], base=-1)
+    with pytest.raises(ValueError, match=str(kernels.MAX_FLEET_SLICE)):
+        kernels.fleet_topk(torch.empty(kernels.MAX_FLEET_SLICE + 1, device="meta"), 8)
+    with pytest.raises(ValueError, match=str(kernels.MAX_PAIR_T)):
+        kernels.pair_tests(torch.zeros((1, kernels.MAX_PAIR_T + 1)),
+                           torch.ones((1, kernels.MAX_PAIR_T + 1), dtype=torch.bool),
+                           torch.zeros((1, kernels.MAX_PAIR_T + 1)),
+                           torch.ones((1, kernels.MAX_PAIR_T + 1), dtype=torch.bool), 15,
+                           wilcoxon_table=torch.zeros((50, 1276)), ks_exact_max=256,
+                           wilcoxon_exact_max_n=50)
     assert set(kernels.launches) == {"pair_verdict", "ma_band", "band_from_preds", "smooth",
                                      "hw_fit", "affine_scan", "detect_period", "triage_screen",
                                      "bivariate", "hpa_score", "st_fit", "lstm_ae",
-                                     "lstm_train_forward", "lstm_train_backward", "adam"}
+                                     "lstm_train_forward", "lstm_train_backward", "adam",
+                                     "pair_tests", "rank_and_ties", "kruskal_groups", "friedman",
+                                     "fleet_topk"}
     assert all(n == 0 for n in kernels.launches.values())
 
 

@@ -1,4 +1,4 @@
-"""Kernels A to M against their plain twins, on the card.
+"""Kernels A to P against their plain twins, on the card.
 
 These need a CUDA device and nvcc; without them they skip. Run them on the
 card with `python -m pytest --noconftest tests/test_torch_kernels.py`. The
@@ -21,7 +21,11 @@ largest entry against torch autograd, NaN jobs alike; kernel M bit for bit
 against the written-out Adam; five training steps on the card within 1e-5
 relative (losses) and 1e-4 (rows: Adam's step is lr times the sign of a
 gradient near 0, so float noise there moves a row by up to lr) of the twin's;
-the reference's training fixture as chip_smoke.py holds it.
+the reference's training fixture as chip_smoke.py holds it; kernel N's
+p-values to 1e-5 and its statistics to 1e-6 relative; kernel O's ranks, tie
+terms and counts exactly, its H and chi2 to 1e-6 relative and p to 1e-5;
+kernel P's count, values (bit for bit) and indices exactly; the fleet
+scorer in a world of one over NCCL as score_pairs and P's twin.
 """
 import numpy as np
 import pytest
@@ -440,3 +444,95 @@ def test_detect_period_takes_forty_candidates(card):
     kern = kernels.detect_period(x, hist, cand, fb, 0.2, 0.05, 0.01)
     torch.cuda.synchronize()
     cs.compare_detect_period(x, hist, cs.MANY_CANDIDATES, fb, kern)
+
+
+@pytest.mark.parametrize("T", [8, 128, 1024, 8192])
+def test_pair_tests_match_twin(card, T):
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    B = 256 if T <= 1024 else 32
+    x, xm, y, ym = (torch.from_numpy(a).to(card)
+                    for a in cs.adversarial_tests(B, T, np.random.default_rng(T)))
+    plain = pw.two_sample_tests_plain(x, xm, y, ym)
+    names = pw.TWO_SAMPLE_TESTS
+    before = kernels.launches["pair_tests"]
+    kern = kernels.pair_tests(x, xm, y, ym, 15, wilcoxon_table=pw.wilcoxon_pmf_table(card),
+                              ks_exact_max=pw.KS_EXACT_MAX_T,
+                              wilcoxon_exact_max_n=pw.WILCOXON_EXACT_MAX_N)
+    cs.compare_pair_tests(kern, plain, names)
+    for name, fn in (("mann_whitney", pw.mann_whitney_u_batch), ("wilcoxon", pw.wilcoxon_batch),
+                     ("ks", pw.ks_2samp_batch)):
+        st, p = fn(x, xm, y, ym, device=card)
+        cs.close(p, plain[name][1], 0.0, cs.P_ATOL, name)
+        cs.close(st, plain[name][0], cs.STAT_RTOL, 1e-6, name)
+    n, p = pw.sign_test_batch(x, y, xm & ym, device=card)
+    pn, pp = pw.sign_test_exact_plain(x, y, xm & ym)
+    cs.close(p, pp, 0.0, cs.P_ATOL, "sign")
+    assert torch.equal(n, pn)
+    assert kernels.launches["pair_tests"] == before + 5
+
+
+@pytest.mark.parametrize("T", [8, 256, 16384])
+def test_rank_and_ties_matches_twin(card, T):
+    from foremast_tpu_torch.ops import ranks as rk
+
+    v, m = (torch.from_numpy(a).to(card)
+            for a in cs.adversarial_ranks(24, T, np.random.default_rng(T)))
+    cs.compare_ranks(rk.rank_and_ties(v, m, device=card), rk.rank_and_ties_plain(v, m))
+    r, tie, n = rk.rank_and_ties(v[0], m[0], device=card)
+    assert r.shape == (T,) and tie.shape == () and n.shape == ()
+
+
+@pytest.mark.parametrize("k,T", [(2, 64), (3, 128), (5, 64), (3, 16384)])
+def test_kruskal_groups_match_twin(card, k, T):
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    g, gm = (torch.from_numpy(a).to(card)
+             for a in cs.adversarial_groups(16, k, T, np.random.default_rng(k * T)))
+    H, p = pw.kruskal_batch(g, gm, device=card)
+    pH, pp = pw.kruskal_plain(g, gm)
+    cs.close(H, pH, cs.STAT_RTOL, 1e-6, "H")
+    cs.close(p, pp, 0.0, cs.P_ATOL, "p")
+
+
+@pytest.mark.parametrize("n,k", cs.FRIEDMAN_CHECK)
+def test_friedman_matches_twin(card, n, k):
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    d, bm = (torch.from_numpy(a).to(card)
+             for a in cs.adversarial_friedman(64, n, k, np.random.default_rng(n * k)))
+    chi, p = pw.friedman_batch(d, bm, device=card)
+    pc, pp = pw.friedman_plain(d, bm)
+    cs.close(chi, pc, cs.STAT_RTOL, 1e-5, "chi2")
+    cs.close(p, pp, 0.0, cs.P_ATOL, "p")
+
+
+@pytest.mark.parametrize("n", [5, 4096, 20_000])
+def test_fleet_topk_matches_twin(card, n):
+    rng = np.random.default_rng(n)
+    u, s = (torch.from_numpy(a).to(card) for a in cs.adversarial_topk(n, rng))
+    for k in cs.TOPK_CHECK_K + (n + 5,):
+        cs.compare_topk(kernels.fleet_topk(s, k, u, base=11),
+                        fl.fleet_topk_plain(s, k, u, base=11), f"k={k}")
+        cs.compare_topk(kernels.fleet_topk(s, k), fl.fleet_topk_plain(s, k), f"k={k} unmasked")
+
+
+def test_fleet_scorer_in_a_world_of_one_over_nccl(card):
+    import torch.distributed as dist
+
+    from foremast_tpu_torch.parallel import mesh as pm
+
+    args = cs.adversarial_pairs(2048, 128, np.random.default_rng(5))
+    t = fl.pair_args_from_numpy(args, card)
+    started = pm.world_of_one(card)
+    try:
+        mesh = pm.fleet_mesh(device=card)
+        out, total, v, i = fl.make_fleet_scorer(mesh, k=8)(*t[:4], dict(zip(cs.CFG_KEYS, t[4:])))
+        ref = fl.score_pairs(*t, device=card)
+        for key in ref:
+            assert torch.equal(out[key], ref[key]), key
+        cs.compare_topk((torch.tensor(total), v, i),
+                        fl.fleet_topk_plain(ref["severity"], 8, ref["unhealthy"]), "scorer")
+    finally:
+        if started:
+            dist.destroy_process_group()

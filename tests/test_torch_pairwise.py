@@ -55,7 +55,7 @@ def family():
         x, xm, y, ym = _windows(seed, ties=ties, shift=shift)
         ref = jpw.all_pairwise_tests(x, xm, y, ym)
         ref = {k: (np.asarray(s), np.asarray(p)) for k, (s, p) in ref.items()}
-        got = tpw.all_pairwise_tests(*_t(x, xm, y, ym))
+        got = tpw.all_pairwise_tests(*_t(x, xm, y, ym), device="cpu")
         got = {k: (s.numpy(), p.numpy()) for k, (s, p) in got.items()}
         out[case] = ((x, xm, y, ym), ref, got)
     return out
@@ -103,7 +103,7 @@ def test_wilcoxon_both_regimes_vs_scipy(seed, ties):
     """Untied, zero-free samples with n <= 50 take the exact null; tied
     samples the tie-corrected approximation (scipy method="approx")."""
     x, xm, y, ym = _windows(seed, ties=ties, shift=0.6)
-    W, p = tpw.wilcoxon_signed_rank(*_t(x, xm, y, ym))
+    W, p = tpw.wilcoxon_signed_rank_plain(*_t(x, xm, y, ym))
     jW, jp = jpw.wilcoxon_batch(x, xm, y, ym)
     np.testing.assert_allclose(W.numpy(), np.asarray(jW), rtol=S_RTOL)
     np.testing.assert_allclose(p.numpy(), np.asarray(jp), atol=P_ATOL)
@@ -130,7 +130,7 @@ def test_sign_test_exact_binomial(seed, T):
     y = (np.round(rng.normal(size=(B, T)), 1) + rng.normal(0, 0.4, (B, 1))).astype(np.float32)
     pm = rng.random((B, T)) > 0.3
     pm[0] = False
-    n, p = tpw.sign_test_exact(*_t(x, y, pm))
+    n, p = tpw.sign_test_exact_plain(*_t(x, y, pm))
     jn, jp = _sign_test_batch(x, y, pm)
     np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
     for i in range(B):
@@ -148,12 +148,12 @@ def test_ks_stephens_regime_beyond_exact_bound():
     """n > KS_EXACT_MAX_T per side selects Stephens, by sample count."""
     x, xm, y, ym = _windows(5, B=6, T=512, shift=0.15, keep=400)
     assert (xm.sum(1) > tpw.KS_EXACT_MAX_T).all() and (ym.sum(1) > tpw.KS_EXACT_MAX_T).all()
-    D, p = tpw.ks_2samp(*_t(x, xm, y, ym))
+    D, p = tpw.ks_2samp_plain(*_t(x, xm, y, ym))
     jD, jp = jpw.ks_2samp_batch(x, xm, y, ym)
     np.testing.assert_allclose(D.numpy(), np.asarray(jD), rtol=S_RTOL)
     np.testing.assert_allclose(p.numpy(), np.asarray(jp), atol=P_ATOL)
     # the fused family gives the same statistic and p from its sorted view
-    fam = tpw.two_sample_tests(*_t(x, xm, y, ym))
+    fam = tpw.two_sample_tests_plain(*_t(x, xm, y, ym))
     np.testing.assert_allclose(fam["ks"][0].numpy(), D.numpy(), rtol=S_RTOL)
     np.testing.assert_allclose(fam["ks"][1].numpy(), p.numpy(), atol=P_ATOL)
 
@@ -165,7 +165,7 @@ def test_ks_sparse_long_bucket_stays_exact():
     ym[:] = False
     xm[:, :40] = True
     ym[:, 100:150] = True
-    D, p = tpw.ks_2samp(*_t(x, xm, y, ym))
+    D, p = tpw.ks_2samp_plain(*_t(x, xm, y, ym))
     for i in range(4):
         ref = sps.ks_2samp(x[i][xm[i]].astype(np.float64), y[i][ym[i]].astype(np.float64),
                            method="exact")
@@ -178,7 +178,7 @@ def test_degenerate_rows_give_p_one():
     ym[1] = False  # all-masked current
     x[2] = 1.0     # all tied
     y[2] = 1.0
-    out = tpw.all_pairwise_tests(*_t(x, xm, y, ym))
+    out = tpw.all_pairwise_tests(*_t(x, xm, y, ym), device="cpu")
     for test in ("mann_whitney", "kruskal", "wilcoxon", "ks"):
         np.testing.assert_array_equal(out[test][1].numpy(), [1.0, 1.0, 1.0], err_msg=test)
 
@@ -198,6 +198,6 @@ def test_all_tied_long_rows_keep_p_one():
     x = np.full((2, T), 60.42, np.float32)
     m = np.ones((2, T), bool)
     m[1, ::7] = False
-    out = tpw.two_sample_tests(*_t(x, m, x.copy(), m.copy()))
+    out = tpw.two_sample_tests_plain(*_t(x, m, x.copy(), m.copy()))
     for test in ("mann_whitney", "kruskal"):
         np.testing.assert_array_equal(out[test][1].numpy(), [1.0, 1.0], err_msg=test)

@@ -1,5 +1,6 @@
 """Port parity: foremast_tpu_torch.ops.ranks against the JAX reference and
-scipy.stats.rankdata.
+scipy.stats.rankdata, the public entry points run with device="cpu" (the
+plain twin of kernel O's rank entry).
 
 Ranks are half-integers and the tie term an integer sum, both exact in
 float32 at these sizes, so every comparison is exact.
@@ -37,7 +38,7 @@ def _jax_rank_and_ties(v, m):
 @pytest.mark.parametrize("seed", range(4))
 def test_rank_and_ties_matches_reference(seed):
     v, m = _rows(seed)
-    r, tie, n = tranks.rank_and_ties(torch.from_numpy(v), torch.from_numpy(m))
+    r, tie, n = tranks.rank_and_ties(torch.from_numpy(v), torch.from_numpy(m), device="cpu")
     jr, jtie, jn = _jax_rank_and_ties(v, m)
     np.testing.assert_array_equal(r.numpy(), jr)
     np.testing.assert_array_equal(tie.numpy(), jtie)
@@ -48,7 +49,7 @@ def test_rank_and_ties_matches_reference(seed):
 def test_rank_and_ties_matches_scipy_on_valid_subset(seed):
     v, m = _rows(seed)
     v = np.where(np.isnan(v), 7.0, v).astype(np.float32)  # scipy propagates NaN
-    r, tie, n = tranks.rank_and_ties(torch.from_numpy(v), torch.from_numpy(m))
+    r, tie, n = tranks.rank_and_ties(torch.from_numpy(v), torch.from_numpy(m), device="cpu")
     for i in range(v.shape[0]):
         sel = m[i]
         assert n[i].item() == sel.sum()
@@ -63,7 +64,7 @@ def test_rank_and_ties_matches_scipy_on_valid_subset(seed):
 
 def test_signed_zeros_share_one_tie_group():
     v = torch.tensor([[0.0, -0.0, 1.0, -0.0, 0.0]])
-    r, tie, n = tranks.rank_and_ties(v, torch.ones_like(v, dtype=torch.bool))
+    r, tie, n = tranks.rank_and_ties(v, torch.ones_like(v, dtype=torch.bool), device="cpu")
     np.testing.assert_array_equal(r.numpy()[0], [2.5, 2.5, 5.0, 2.5, 2.5])
     assert tie.item() == 4**3 - 4 and n.item() == 5
 
@@ -71,7 +72,7 @@ def test_signed_zeros_share_one_tie_group():
 def test_nan_ranks_highest_and_inf_below_it_clear_of_masked():
     v = torch.tensor([[np.nan, np.inf, 1.0, np.nan, np.inf, 5.0]])
     m = torch.tensor([[True, True, True, True, True, False]])
-    r, tie, n = tranks.rank_and_ties(v, m)
+    r, tie, n = tranks.rank_and_ties(v, m, device="cpu")
     # 1.0 -> 1, +inf x2 -> 2.5, NaN x2 -> 4.5; the masked slot gets 0
     np.testing.assert_array_equal(r.numpy()[0], [4.5, 2.5, 1.0, 4.5, 2.5, 0.0])
     assert tie.item() == 12.0 and n.item() == 5
@@ -90,5 +91,5 @@ def test_rank_sum_stats_matches_reference(seed):
 def test_masked_rankdata_is_rank_and_ties_ranks():
     v, m = _rows(11)
     tv, tm = torch.from_numpy(v), torch.from_numpy(m)
-    np.testing.assert_array_equal(tranks.masked_rankdata(tv, tm).numpy(),
-                                  tranks.rank_and_ties(tv, tm)[0].numpy())
+    np.testing.assert_array_equal(tranks.masked_rankdata(tv, tm, device="cpu").numpy(),
+                                  tranks.rank_and_ties(tv, tm, device="cpu")[0].numpy())
