@@ -38,10 +38,11 @@ ends; any failure exits non-zero:
              and 2; kernel K at (F, H, Z) in {(3, 32, 16), (4, 32, 16),
              (8, 32, 16), (4, 128, 64)}, W = 32, on windows with gaps, fully
              masked and with a masked head; kernel L (loss and gradient)
-             against torch autograd through the twin at the same widths and
-             W in {8, 32}, on windows with gaps, fully masked, with a masked
-             head and NaN at a masked slot; kernel M against the written-out
-             Adam bit for bit on L's partials; kernel F also with 40
+             against torch autograd through the twin at the same widths,
+             (2, 10, 6) and H = Z = 256, W in {8, 32}, on windows with gaps, fully masked,
+             with a masked head and NaN at a masked slot, its backward twice
+             and equal bit for bit; kernel M against the written-out Adam
+             bit for bit on L's gradient rows; kernel F also with 40
              candidates at T in {1024, 16384}; kernel N (all four tests in
              one launch, and each alone) against two_sample_tests at T from
              8 to 16384 (device scratch above 4096) on kernel A's
@@ -110,8 +111,11 @@ ends; any failure exits non-zero:
              its initial row, per-epoch losses, stop epoch, mu, sigma and z;
              train_fleet over 1,024 jobs (MAX_CACHE_SIZE) x a day of 45
              windows at the engine's width, with one epoch's L forward, L
-             backward and M timed alone beside their bounds, their twins and,
-             beside M, torch.optim.Adam(fused=True).
+             backward (its recurrence and weight-gradient entries apart, the
+             latter against its twin, two runs equal bit for bit) and M
+             timed alone beside their bounds, their twins and, beside M,
+             torch.optim.Adam(fused=True); for the record cuDNN's
+             torch.nn.LSTM over the same recurrences.
   9. engine  the engine cycle at fleet size: 11,500 jobs (6,000 canaries
              with a 128-step baseline and current window of http_errors_5xx,
              4,000 continuous latency monitors with 1 day of history and 60
@@ -1383,6 +1387,9 @@ def kernel_k_vs_twin(gen):
 
 
 LSTM_TRAIN_WS = (8, 32)  # window lengths of kernel L's check
+# kernel L's widths: K's, one whose slots are not whole float4s (H = 10:
+# the GEMM's scalar staging) and the widest its launchers take (H = Z = 256)
+LSTM_TRAIN_WIDTHS = LSTM_WIDTHS + ((2, 10, 6), (4, 256, 256))
 LSTM_TRAIN_CHECK_JOBS = 64
 LSTM_TRAIN_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                                   "lstm_ae_train_ref.npz")
@@ -1432,10 +1439,11 @@ def same_or_both_nan(a, b):
 
 def compare_adam(params, mu, nu, step, gpart, num, cnt):
     """Kernel M against the written-out Adam (reduce_partials_plain, then
-    adam_plain) on the same partials: bit for bit (NaN where the other is
-    NaN). Both sum the partials in block order and round every operation
-    once in float32 (IEEE division, a correctly rounded square root, b^t in
-    float64); nothing is contracted. Returns the largest |d| (0)."""
+    adam_plain) on the same gradient blocks (J, NG, P) and the forward's
+    count blocks (J, NC): bit for bit (NaN where the other is NaN). Both sum
+    the blocks in order and round every operation once in float32 (IEEE
+    division, a correctly rounded square root, b^t in float64); nothing is
+    contracted. Returns the largest |d| (0)."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.models import lstm_ae as tl
 
@@ -1452,15 +1460,56 @@ def compare_adam(params, mu, nu, step, gpart, num, cnt):
     return max(max_abs_err(a, b) for a, b in zip(k, p))
 
 
-def kernels_l_m_vs_twin(gen):
-    """Kernel L against torch autograd through the twin at (F, H, Z) in
-    LSTM_WIDTHS and W in LSTM_TRAIN_WS on adversarial windows (two window
-    blocks a job; at H = 128 the backward's gradient sums in device memory),
-    and kernel M against the written-out Adam on L's partials."""
+def lstm_backward_twice(p, x, m, act, H, Z):
+    """Kernel L's backward run twice on copies of the same activations (the
+    recurrence entry overwrites them): the two gradients, which must be
+    equal bit for bit (no atomics, fixed summation orders)."""
+    from foremast_tpu_torch import kernels
+
+    g1 = kernels.lstm_train_backward(p, x, m, act.clone(), H, Z)
+    g2 = kernels.lstm_train_backward(p, x, m, act.clone(), H, Z)
+    check(torch.equal(g1.view(torch.int32), g2.view(torch.int32)),
+          "lstm_train_backward: two runs on the same inputs differ")
+    return g1
+
+
+def compare_lstm_wgrad(p, x, m, act, H, Z):
+    """Kernel L's weight-gradient entry against its twin (wgrad_plain) on
+    what the recurrence entry leaves from a copy of act: a job has a NaN on
+    one side if and only if on the other (the adversarial NaN job);
+    elsewhere each job's row within 1e-4 of its largest entry (float32 sums
+    over the K W rows in another order). Returns the largest |d|."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.models import lstm_ae as tl
 
-    for F, H, Z in LSTM_WIDTHS:
+    a = act.clone()
+    rec = kernels.lstm_train_recurrence(p, x, m, a, H, Z)
+    got = kernels.lstm_train_wgrad(p, x, m, a, rec, H, Z)[:, 0]
+    want = tl.wgrad_plain(a, rec, x.shape[-1], H, Z)[:, 0]
+    nan = torch.isnan(want).any(1)
+    check(bool((torch.isnan(got).any(1) == nan).all()), "lstm_train_wgrad: NaN jobs differ "
+                                                         "from its twin's")
+    ok = ~nan
+    d = (got[ok].double() - want[ok].double()).abs()
+    lim = 1e-4 * want[ok].double().abs().amax(1, keepdim=True) + 1e-9
+    check(bool((d <= lim).all()), f"lstm_train_wgrad differs from its twin by "
+                                  f"{float(d.max()):.3g}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def kernels_l_m_vs_twin(gen):
+    """Kernel L against torch autograd through the twin at (F, H, Z) in
+    LSTM_TRAIN_WIDTHS and W in LSTM_TRAIN_WS on adversarial windows (K = 11:
+    two forward window blocks a job, and no whole number of the recurrence
+    entry's window blocks; from H = 128 the recurrent weights are read from
+    device memory; at H = 10 the GEMM stages its rows by 4-byte copies); two
+    backward runs equal bit for bit; L's weight-gradient entry against its
+    twin; kernel M against the written-out Adam on L's one-block gradient
+    and the forward's two count blocks."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    for F, H, Z in LSTM_TRAIN_WIDTHS:
         for W in LSTM_TRAIN_WS:
             J, K = LSTM_TRAIN_CHECK_JOBS, 11
             p, x, m = adversarial_lstm_train(J, K, W, F, H, Z, gen)
@@ -1471,14 +1520,17 @@ def kernels_l_m_vs_twin(gen):
                 pg, = torch.autograd.grad(pl.sum(), q)
             g_err = compare_lstm_train(kern, (pl.detach(), pg))
             num, cnt, act = kernels.lstm_train_forward(p, x, m, H, Z)
-            gpart = kernels.lstm_train_backward(p, x, m, act, H, Z)
+            w_err = compare_lstm_wgrad(p, x, m, act, H, Z)
+            gpart = lstm_backward_twice(p, x, m, act, H, Z)
             step = torch.randint(1, 40, (J,), generator=gen, device=DEV, dtype=torch.int32)
             mu = 1e-3 * torch.randn(p.shape, generator=gen, device=DEV)
             nu = 1e-6 * torch.rand(p.shape, generator=gen, device=DEV)
             compare_adam(p, mu, nu, step, gpart, num, cnt)
             torch.cuda.synchronize()
-            print(f"  lstm_train F={F} H={H} Z={Z} W={W}: {J} jobs x {K} windows, max |d grad| "
-                  f"{g_err:.3g}, loss NaN on the NaN job on both sides; adam bit for bit",
+            print(f"  lstm_train F={F} H={H} Z={Z} W={W}: {J} jobs x {K} windows (recurrence "
+                  f"blocks of {kernels.lstm_bptt_blocks(K, H)[0]}), max |d grad| {g_err:.3g}, "
+                  f"loss NaN on the NaN job on both sides; weight-gradient entry against its "
+                  f"twin {w_err:.3g}; two backward runs equal bit for bit; adam bit for bit",
                   flush=True)
 
 
@@ -2887,24 +2939,89 @@ def lstm_train_bounds(J, K, W, F, H, Z, nkb):
     """Least times of one training epoch's kernels on these shapes:
     L's forward (kernel K's multiply-adds; parameters and windows read once,
     the activations (J K 2 W 5H floats) and the block sums written once);
-    L's backward (a step's products with the transposed weights and the
-    weight gradients: W (3 H F + 2 H 4H) in the decoder and head, W (2F 4H +
-    2 H 4H) in the encoder, 3 H Z + 2 Z 4H for the latent; parameters,
-    windows and activations read once, the partial gradients (J nkb P
-    floats) written once); M (the partials read once, parameters and both
-    moments read and written once, ~(nkb + 12) operations an entry)."""
+    L's backward as one function (a step's products with the transposed
+    weights and the weight gradients: W (3 H F + 2 H 4H) in the decoder and
+    head, W (2F 4H + 2 H 4H) in the encoder, 3 H Z + 2 Z 4H for the latent;
+    parameters, windows and activations read once, the gradient, one row of
+    P floats a job, written once), split between its two entries by their
+    shares of its operations (of its bytes when bytes bound it: the
+    recurrence reads the inputs, the GEMM writes the gradient): the
+    recurrence W (3 H F + H 4H) + W H 4H + 2 H Z + Z 4H multiply-adds a
+    window, the weight gradients W H 4H + W (H + 2F + 1) 4H + (Z + 1) 4H +
+    (H + 1) Z + (H + 1) F; M (the gradient row read once, parameters and
+    both moments read and written once, ~13 operations an entry).
+    Besides, printed only: each entry's bound on the traffic of this design
+    (the recurrence reads and rewrites the activations and writes the
+    records, the GEMM reads both), and the backward's and M's bounds counted
+    with nkb partial gradient rows a job (written by L, read by M), a
+    backward with a gradient row per window block."""
     from foremast_tpu_torch.models import lstm_ae as tl
 
     G, P = 4 * H, tl.param_count(F, H, Z)
     win = J * K
+    S = 2 * Z + G + H + H * F + F + 2 * F * W  # a window's record (lstm_train.cu rec_layout)
     fwd_macs = W * (G * (2 * F + H) + G * H + H * F) + H * Z + Z * G
     bwd_macs = W * (3 * H * F + 2 * H * G) + W * (2 * F * G + 2 * H * G) + 3 * H * Z + 2 * Z * G
+    rec_macs = W * (3 * H * F + H * G) + W * H * G + 2 * H * Z + Z * G
+    wg_macs = (W * H * G + W * (H + 2 * F + 1) * G + (Z + 1) * G + (H + 1) * Z
+               + (H + 1) * F)
     inputs = J * P * 4 + win * W * F * 5
     act = win * 2 * W * 5 * H * 4
-    return (least_time(inputs + act + J * nkb * 16, float(win * fwd_macs)),
-            least_time(inputs + act + J * nkb * P * 4, float(win * bwd_macs)),
-            least_time(J * nkb * P * 4 + 6 * J * P * 4 + J * (4 + nkb * 16),
-                       float(J * P * (nkb + 12))))
+    recs = win * S * 4
+    bwd = least_time(inputs + act + J * P * 4, float(win * bwd_macs))
+    share = (rec_macs / (rec_macs + wg_macs) if bwd["bound_by"] == "operations"
+             else (inputs + act) / (inputs + act + J * P * 4))
+    return {
+        "forward": least_time(inputs + act + J * nkb * 16, float(win * fwd_macs)),
+        "backward": bwd,
+        "recurrence": {"bound_ms": bwd["bound_ms"] * share, "bound_by": bwd["bound_by"]},
+        "wgrad": {"bound_ms": bwd["bound_ms"] * (1 - share), "bound_by": bwd["bound_by"]},
+        "recurrence_traffic": least_time(inputs + 2 * act + recs, float(win * rec_macs)),
+        "wgrad_traffic": least_time(act + recs + J * P * 4, float(win * wg_macs)),
+        "adam": least_time(J * P * 4 + 6 * J * P * 4 + J * (4 + nkb * 16),
+                           float(J * P * 13)),
+        "backward_partials": least_time(inputs + act + J * nkb * P * 4, float(win * bwd_macs)),
+        "adam_partials": least_time(J * nkb * P * 4 + 6 * J * P * 4 + J * (4 + nkb * 16),
+                                    float(J * P * (nkb + 12)))}
+
+
+def cuda_ms_fresh(fn, fresh, runs):
+    """Mean time of fn on the card over `runs` launches, by CUDA events
+    around each launch alone, with fresh() (untimed) before each: for a
+    kernel that consumes its input in place."""
+    fresh()
+    fn()
+    times = []
+    for _ in range(runs):
+        fresh()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in times) / runs
+
+
+def cudnn_lstm_ms(windows, W, F, H, Z, gen):
+    """A yardstick for the record, not the same function: cuDNN's
+    torch.nn.LSTM forward and backward over the encoder's recurrence (2F
+    inputs) and the decoder's (Z inputs) at `windows` windows x W steps x H
+    units, without the head, the latent or the masked loss. Returns the ms
+    of one forward and backward of both, by CUDA events."""
+    enc = torch.nn.LSTM(2 * F, H, batch_first=True).to(DEV)
+    dec = torch.nn.LSTM(Z, H, batch_first=True).to(DEV)
+    xe = torch.randn((windows, W, 2 * F), generator=gen, device=DEV).requires_grad_(True)
+    xd = torch.randn((windows, W, Z), generator=gen, device=DEV).requires_grad_(True)
+
+    def run():
+        with torch.enable_grad():
+            (enc(xe)[0].sum() + dec(xd)[0].sum()).backward()
+
+    ms = cuda_ms(run, 3)
+    del enc, dec, xe, xd
+    torch.cuda.empty_cache()
+    return ms
 
 
 def lstm_train_reference(tl):
@@ -2965,10 +3082,13 @@ def lstm_train_path(gen):
     """Phase `lstm`, training: the reference check, then train_fleet over
     LSTM_TRAIN_JOBS jobs of a day of standardized metrics (45 windows of 32
     steps x 4 at H = 32, Z = 16: the engine's width) on the card: epochs
-    run, the whole call, and one epoch's kernels L (forward, backward) and M
-    timed alone with their bounds, the twins' times, and beside M one
-    torch.optim.Adam(fused=True).step() over the same rows. Returns the
-    kernels line's rows for L's two entries and M."""
+    run, the whole call, and one epoch's kernels L (forward, and the
+    backward's recurrence and weight-gradient entries apart) and M timed
+    alone with their bounds, the twins' times, beside M one
+    torch.optim.Adam(fused=True).step() over the same rows, and for the
+    record cuDNN's LSTM over the same recurrences; two backward runs equal
+    bit for bit. Returns the kernels line's rows for L's three entries and
+    M."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.models import lstm_ae as tl
 
@@ -2988,22 +3108,36 @@ def lstm_train_path(gen):
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
     E = len(hist)
-    for k in ("lstm_train_forward", "lstm_train_backward", "adam"):
+    for k in ("lstm_train_forward", "lstm_train_recurrence", "lstm_train_wgrad", "adam"):
         check(launches[k] == E, f"train_fleet ran {E} epochs but launched {k} {launches[k]} "
                                 f"times")
     check(launches["lstm_ae"] == 1, "train_fleet's normalizer did not launch lstm_ae once")
     check(bool(torch.isfinite(mu).all() and torch.isfinite(sd).all() and (sd > 0).all()),
           "train_fleet's normalizers are not finite and positive")
     losses = [float(h) for h in hist]
-    # one epoch's kernels alone, from the trained rows
+    # one epoch's kernels alone, from the trained rows; the recurrence
+    # consumes its activations, so each of its runs gets a fresh copy
     step = torch.full((J,), E + 1, dtype=torch.int32, device=DEV)
     mom = [torch.zeros_like(params), torch.zeros_like(params)]
-    num, cnt, act = kernels.lstm_train_forward(params, x, m, H, Z)
+    num, cnt, act0 = kernels.lstm_train_forward(params, x, m, H, Z)
     fwd_ms = cuda_ms(lambda: kernels.lstm_train_forward(params, x, m, H, Z), LSTM_TRAIN_RUNS)
-    gpart = kernels.lstm_train_backward(params, x, m, act, H, Z)
-    bwd_ms = cuda_ms(lambda: kernels.lstm_train_backward(params, x, m, act, H, Z),
-                     LSTM_TRAIN_RUNS)
-    del act
+    act = torch.empty_like(act0)
+    rec_ms = cuda_ms_fresh(lambda: kernels.lstm_train_recurrence(params, x, m, act, H, Z),
+                           lambda: act.copy_(act0), LSTM_TRAIN_RUNS)
+    act.copy_(act0)
+    rec = kernels.lstm_train_recurrence(params, x, m, act, H, Z)
+    wg_ms = cuda_ms(lambda: kernels.lstm_train_wgrad(params, x, m, act, rec, H, Z),
+                    LSTM_TRAIN_RUNS)
+    gpart = kernels.lstm_train_wgrad(params, x, m, act, rec, H, Z)
+    plain_wg = cuda_ms(lambda: tl.wgrad_plain(act, rec, F, H, Z), 2)
+    bwd_ms = rec_ms + wg_ms
+    act.copy_(act0)
+    check(torch.equal(gpart.view(torch.int32),
+                      kernels.lstm_train_backward(params, x, m, act, H, Z).view(torch.int32)),
+          "lstm_train_backward: two runs on the fleet's rows differ")
+    del act, rec
+    w_err = compare_lstm_wgrad(params, x, m, act0, H, Z)
+    del act0
     work = [params.clone(), *mom]
     adam_ms = cuda_ms(lambda: kernels.adam(*work, step, gpart, num, cnt, tl.LEARNING_RATE,
                                            tl.ADAM_B1, tl.ADAM_B2, tl.ADAM_EPS), TIMED_RUNS)
@@ -3040,28 +3174,49 @@ def lstm_train_path(gen):
         plain_bwd = start.elapsed_time(end)
         del pl, q
     torch.cuda.empty_cache()
-    fb, bb, mb = lstm_train_bounds(J, K, W, F, H, Z, nkb)
+    cudnn_ms = cudnn_lstm_ms(J * K, W, F, H, Z, gen)
+    b = lstm_train_bounds(J, K, W, F, H, Z, nkb)
+    print(f"  cuDNN yardstick (not the same function: no head, latent or masked loss): "
+          f"torch.nn.LSTM forward and backward over the encoder's and the decoder's "
+          f"recurrences, {J * K} windows x {W} steps x H = {H}: {cudnn_ms:.3f} ms", flush=True)
     print(f"  training pass: {J} jobs x {K} windows x {W} steps x {F} metrics (windows "
           f"{x.numel() * 5 / 1e6:.1f} MB, activations {J * K * 2 * W * 5 * H * 4 / 1e9:.2f} GB, "
-          f"partial gradients {gpart.numel() * 4 / 1e9:.2f} GB): train_fleet {wall:.3f} s for "
+          f"gradient rows {gpart.numel() * 4 / 1e9:.3f} GB): train_fleet {wall:.3f} s for "
           f"{E} epochs ({wall / E * 1e3:.1f} ms an epoch with the plateau's host reads and the "
           f"normalizer), fleet-mean loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches "
           f"{ {k: v for k, v in launches.items() if v} }; one epoch: lstm_train_forward "
-          f"{fwd_ms:.3f} ms (bound {fb['bound_ms']:.3f} ms, {fb['bound_by']}; twin "
-          f"{plain_fwd:.1f} ms), lstm_train_backward {bwd_ms:.3f} ms (bound {bb['bound_ms']:.3f} "
-          f"ms, {bb['bound_by']}; autograd's backward {plain_bwd:.1f} ms), adam {adam_ms:.3f} ms "
-          f"(bound {mb['bound_ms']:.3f} ms, {mb['bound_by']}; written-out twin "
-          f"{plain_adam:.3f} ms; torch.optim.Adam(fused=True).step() {lib_ms:.3f} ms); L "
-          f"against autograd on {n} jobs: max |d grad| {l_err:.3g}; M bit for bit", flush=True)
+          f"{fwd_ms:.3f} ms (bound {b['forward']['bound_ms']:.3f} ms, "
+          f"{b['forward']['bound_by']}; twin {plain_fwd:.1f} ms), lstm_train_backward "
+          f"{bwd_ms:.3f} ms (bound {b['backward']['bound_ms']:.3f} ms, "
+          f"{b['backward']['bound_by']}; {b['backward_partials']['bound_ms']:.3f} ms counted "
+          f"with {nkb} partial rows a job; autograd's backward {plain_bwd:.1f} ms) = "
+          f"lstm_train_recurrence {rec_ms:.3f} ms (its share of the bound "
+          f"{b['recurrence']['bound_ms']:.3f} ms; {b['recurrence_traffic']['bound_ms']:.3f} ms "
+          f"on this design's traffic, {b['recurrence_traffic']['bound_by']}) + "
+          f"lstm_train_wgrad {wg_ms:.3f} ms (its share {b['wgrad']['bound_ms']:.3f} ms; "
+          f"{b['wgrad_traffic']['bound_ms']:.3f} ms on this design's traffic, "
+          f"{b['wgrad_traffic']['bound_by']}; twin {plain_wg:.1f} ms, within {w_err:.3g}); adam "
+          f"{adam_ms:.3f} ms (bound {b['adam']['bound_ms']:.3f} ms, {b['adam']['bound_by']}; "
+          f"{b['adam_partials']['bound_ms']:.3f} ms counted with {nkb} partial rows; written-out "
+          f"twin {plain_adam:.3f} ms; torch.optim.Adam(fused=True).step() {lib_ms:.3f} ms); L "
+          f"against autograd on {n} jobs: max |d grad| {l_err:.3g}; two backward runs equal bit "
+          f"for bit; M bit for bit", flush=True)
     del x, m, gpart, params
     torch.cuda.empty_cache()
     return [
         {"name": "lstm_train_forward", "launches": launches["lstm_train_forward"],
-         "max_abs_err": l_err, "ms": fwd_ms, "plain_ms": plain_fwd, "library_ms": None, **fb},
-        {"name": "lstm_train_backward", "launches": launches["lstm_train_backward"],
-         "max_abs_err": l_err, "ms": bwd_ms, "plain_ms": plain_bwd, "library_ms": None, **bb},
+         "max_abs_err": l_err, "ms": fwd_ms, "plain_ms": plain_fwd, "library_ms": None,
+         **b["forward"]},
+        # the recurrence's outputs (the rewritten slots, the records) exist
+        # only in this design: its twin is the whole backward's, autograd
+        {"name": "lstm_train_recurrence", "launches": launches["lstm_train_recurrence"],
+         "max_abs_err": l_err, "ms": rec_ms, "plain_ms": plain_bwd, "library_ms": None,
+         **b["recurrence"]},
+        {"name": "lstm_train_wgrad", "launches": launches["lstm_train_wgrad"],
+         "max_abs_err": w_err, "ms": wg_ms, "plain_ms": plain_wg, "library_ms": None,
+         **b["wgrad"]},
         {"name": "adam", "launches": launches["adam"], "max_abs_err": adam_err, "ms": adam_ms,
-         "plain_ms": plain_adam, "library_ms": lib_ms, **mb}]
+         "plain_ms": plain_adam, "library_ms": lib_ms, **b["adam"]}]
 
 
 # ---------------------------------------------------------------------------
@@ -3723,7 +3878,8 @@ def engine_lstm(rng):
             for rec in cycles:
                 for k, v in rec["launches"].items():
                     total[k] = total.get(k, 0) + v
-            for k in ("lstm_train_forward", "lstm_train_backward", "adam", "lstm_ae"):
+            for k in ("lstm_train_forward", "lstm_train_recurrence", "lstm_train_wgrad", "adam",
+                      "lstm_ae"):
                 check(total.get(k, 0) >= 1, f"engine_lstm on the card launched no {k}")
             card_launches = total
     (st_k, z_k), (st_c, z_c) = runs[DEV], runs["cpu"]
@@ -3840,7 +3996,9 @@ def main() -> int:
          **lm[0]},
         {"source": csrc + "lstm_train.cu", "replaces": "foremast_tpu/models/lstm_ae.py:88",
          **lm[1]},
-        {"source": csrc + "adam.cu", "replaces": "foremast_tpu/models/lstm_ae.py:144", **lm[2]},
+        {"source": csrc + "lstm_train.cu", "replaces": "foremast_tpu/models/lstm_ae.py:88",
+         **lm[2]},
+        {"source": csrc + "adam.cu", "replaces": "foremast_tpu/models/lstm_ae.py:144", **lm[3]},
         {"name": "pair_tests", "source": csrc + "pair_tests.cu",
          "replaces": "foremast_tpu/ops/pairwise.py:533", **n_o["pair_tests"]},
         {"name": "rank_and_ties", "source": csrc + "rank_groups.cu",

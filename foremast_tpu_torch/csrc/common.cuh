@@ -322,7 +322,8 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Asynchronous 4- and 8-byte copies from device to shared memory (sm_80+):
+// Asynchronous 4-, 8- and 16-byte copies from device to shared memory (sm_80+;
+// the 16-byte one bypasses L1):
 // a warp issues a tile's loads back to back and waits once.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -332,8 +333,21 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// a ring of stages: commit closes the copies issued since the last commit
+// into a group; wait_group<N> waits until at most N groups are in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace fm

@@ -1,54 +1,80 @@
-// Kernel L: `lstm_train_forward` and `lstm_train_backward`, the LSTM
-// autoencoder's training loss and its gradient for J jobs, each with its own
-// parameters: the value and the gradient of the reference's jitted
-// models/lstm_ae.py:_loss_fn (:88) under jax.value_and_grad in train_step
-// (:144), vmapped over jobs by _train_step_fleet (:196). The loss of a job is
-// sum((recon - x)^2 m) / max(sum m, 1) over all its K windows; the model and
-// its layout are kernel K's (lstm.cuh).
+// Kernel L: the LSTM autoencoder's training loss and its gradient for J
+// jobs, each with its own parameters: the value and the gradient of the
+// reference's jitted models/lstm_ae.py:_loss_fn (:88) under
+// jax.value_and_grad in train_step (:144), vmapped over jobs by
+// _train_step_fleet (:196). The loss of a job is sum((recon - x)^2 m) /
+// max(sum m, 1) over all its K windows; the model and its layout are kernel
+// K's (lstm.cuh). Three entries:
 //
-// Forward entry: kernel K's recurrences for a CTA of up to KB windows of one
-// job (grid J x nkb, nkb = ceil(K / KB)). Besides, every step of both LSTMs
-// stores its gate activations i, f, g, o and its c (5H floats) to device
-// scratch `act`, laid out (J K, 2, W, 5H), and each CTA writes its windows'
-// sum of (recon - x)^2 over the mask (float64, in a fixed order) and their
-// count of valid slots to num and cnt (J, nkb).
+// Forward (`lstm_train_fwd_kernel`): kernel K's recurrences for a CTA of up
+// to KB windows of one job (grid J x nkb, nkb = ceil(K / KB)). Besides,
+// every step of both LSTMs stores its gate activations i, f, g, o and its c
+// (5H floats, a "slot") to device scratch `act`, laid out (J K, 2, W, 5H),
+// and each CTA writes its windows' sum of (recon - x)^2 over the mask
+// (float64, in a fixed order) and their count of valid slots to num and cnt
+// (J, nkb).
 //
-// Backward entry: backpropagation through time of the numerator's gradient
-// (kernel M scales it by 1 / max(sum m, 1)), per CTA over the same windows:
-//   - the decoder from t = W - 1 down to 0: the head's error 2 (r - x) at
-//     valid slots, Dense_1's gradient, the cell's, and the latent's input
-//     projection's gradient summed over the steps (the decoder is fed the
-//     same latent at every step);
-//   - the decoder's input kernel, Dense_0, and the gradient of the
-//     encoder's last output;
-//   - the encoder from its last step down to 0.
-// h and the head's output are recomputed from the stored o and c with the
-// forward's own operations, so they equal the forward's bit for bit. Each
-// CTA writes its partial gradient (P floats, the flat layout) to gpart
-// (J, nkb, P): each entry is summed by one thread in a fixed order (steps,
-// then windows), with no atomics, so the same windows give the same
-// gradient on every run (kernel M then sums the blocks in order).
+// Backward, in two entries (kernel M scales the gradient by
+// 1 / max(sum m, 1)):
+//   1. The recurrence (`lstm_bptt_kernel`) carries only the gates'
+//      pre-activation gradient da, dh and dc of each window back through
+//      time: the decoder and its head from t = W - 1 down to 0, the latent,
+//      then the encoder. A group of 32 ceil(H / 32) threads (one warp at
+//      H <= 32, a few warps joined by a named barrier above) runs two
+//      windows side by side, thread u owning unit u and its four gates in
+//      both. Step t overwrites its own slot of act with (da_t, h_{t-1})
+//      (4H + H floats): each thread reads and writes only its own unit's
+//      five floats of a slot, and reads slot t - 1's o and c before step
+//      t - 1 overwrites them, so the weight gradients' rows need no scratch.
+//      h_{t-1} is carried from step to step (one tanhf a step and unit). The
+//      product dh_{t-1} = da_t Wh^T reads unit u's row of Wh from shared
+//      memory (rows padded to 4H + 1 floats: lanes on distinct banks; from
+//      the parameter row when Wh does not fit under the launcher's budget),
+//      once for both windows, and each window's da as a float4 broadcast
+//      from a double buffer: one barrier a step, two in the decoder when the
+//      head sums across warps.
+//      What is summed per window goes to a record (rec, (J K, S)): the
+//      latent z and its gradient, the decoder's per-window sum of da (the
+//      decoder is fed z at every step), the encoder's last h, Dense_1's
+//      gradient summed over the steps, and the encoder's input [x, m] as
+//      floats.
+//   2. The weight gradients (`lstm_wgrad_kernel`): per job and LSTM, a
+//      tiled float32 GEMM over the K W rewritten slots, dWh = sum h_{t-1}^T
+//      da_t, with the encoder's rows extended by [x_t, m_t, 1] for its input
+//      kernel and bias (32 x 128 output tiles a CTA, 4 x 4 a thread, chunks
+//      of 32 rows staged through shared memory by cp.async, a ring of three;
+//      products by explicit fmaf); one more CTA a job sums the records over
+//      the job's K windows in order: the decoder's input kernel z^T ddz and
+//      bias, Dense_0, Dense_1. Each entry of the gradient is summed by one
+//      thread in a fixed order (rows, or windows, ascending), with no
+//      atomics, so the same inputs give the same bits on every run. It
+//      writes one gradient row a job, gpart (J, 1, P).
 //
-// Shared memory: the job's parameters and the CTA's gradient accumulator
-// when both fit (48.7 KB each at the engine's F = 4, H = 32, Z = 16),
-// otherwise each is read / summed in device memory (the accumulator then in
-// the CTA's own gpart row); the windows' state beside them.
+// Full float32 arithmetic, expf / tanhf, no tensor cores (TF32 would not
+// hold the tolerances); the forward's sums without FMA contraction
+// (-fmad=false, as kernel K), the backward's products by explicit fmaf.
 //
-// Full float32 arithmetic without FMA contraction (-fmad=false), expf /
-// tanhf, no tensor cores, as kernel K; the loss's sums in float64.
-//
-// What bounds it on an H100: the operations. A window costs ~301,600
-// multiply-adds forward at the engine's width (W = 32) and about twice that
-// backward (the products with the transposed weights and the weight
-// gradients), against its parameters (once a CTA) and 40 KB of stored
-// activations a window written once and read once. This first version
-// keeps every product in fp32 CUDA cores with three or four barriers a
-// step; making it fast is later work.
+// What bounds it on an H100: the operations, about W (2 H 4H + 2F 4H)
+// multiply-adds a window for the backward (0.791 ms for 1,024 jobs x 45
+// windows at the engine's F = 4, H = 32, Z = 16), against the activations
+// written by the forward, then read, rewritten and read once more by the
+// backward (1.9 GB each time at that size). The recurrence is bound by
+// shared memory: a float4 broadcast of da costs four wavefronts, so a
+// window-step moves about 4H + 4H / 2 floats' worth of wavefronts for its
+// 4H H multiply-adds; the GEMM by its operands' staging.
 #include "lstm.cuh"
 
 namespace fm {
 
 constexpr int kTrainThreads = 256;
+constexpr int kBpttThreads = 256;  // a CTA of the recurrence holds at most this many threads
+// the weight-gradient GEMM: a CTA's output tile (BM x BN), rows a chunk,
+// a thread's tile TM x 4 (a warp: TM rows x 128 columns), chunks in flight
+// (a ring of stages)
+constexpr int kGemmBM = 32, kGemmBN = 128, kGemmBK = 32, kGemmTM = 4, kGemmStages = 3;
+constexpr int kGemmThreads = 32 * kGemmBM / kGemmTM;
+static_assert(kGemmBM == 32 && kGemmBN == 128, "a warp stages a row: 32 A and 128 B columns");
+constexpr int kGemmLdA = kGemmBM + 4;
 
 struct TrainArgs {
   const float* params;
@@ -59,7 +85,6 @@ struct TrainArgs {
   float* act;     // (J K, 2, W, 5H)
   double* num;    // (J, nkb)
   double* cnt;    // (J, nkb)
-  float* gpart;   // (J, nkb, P)
 };
 
 // floats of the forward's per-window state: kernel K's (input, h, c, gates,
@@ -68,20 +93,10 @@ __host__ __device__ inline int train_fwd_window_floats(int F, int H, int Z) {
   return 2 * F + 2 * H + 8 * H + Z + 4 * F;
 }
 
-// floats of the backward's per-window state: h and h_{t-1}, the gradients
-// of h and c, the encoder's last h (H each), the gates' gradient and the
-// latent projection's (4H each), the encoder's input (2F), the head's
-// error (F), the latent and its gradient (Z each)
-__host__ __device__ inline int train_bwd_window_floats(int F, int H, int Z) {
-  return 5 * H + 8 * H + 3 * F + 2 * Z;
-}
-
-__host__ inline long long train_smem_bytes(int F, int H, int Z, int KB, int smem_params,
-                                           int backward) {
+__host__ inline long long train_smem_bytes(int F, int H, int Z, int KB, int smem_params) {
   const long long P4 = (lstm_param_count(F, H, Z) + 3) & ~3LL;
-  long long floats = 1LL * KB * (backward ? train_bwd_window_floats(F, H, Z)
-                                          : train_fwd_window_floats(F, H, Z)) + 2;
-  if (smem_params) floats += (backward ? 2 : 1) * P4;
+  long long floats = 1LL * KB * train_fwd_window_floats(F, H, Z) + 2;
+  if (smem_params) floats += P4;
   return floats * 4;
 }
 
@@ -177,253 +192,652 @@ __global__ void __launch_bounds__(kTrainThreads) lstm_train_fwd_kernel(TrainArgs
   }
 }
 
-// h of window k at step t of LSTM lstm (0 encoder, 1 decoder) into out,
-// from the stored o and c; zeros before the first step
-__device__ __forceinline__ void load_h(const float* act, size_t stride, size_t step, int lstm,
-                                       int W, int t, int nk, int H, float* out) {
-  for (int i = threadIdx.x; i < nk * H; i += blockDim.x) {
-    const int k = i / H, j = i - k * H;
-    if (t < 0) {
-      out[i] = 0.0f;
-    } else {
-      const float* s = act + k * stride + (size_t(lstm) * W + t) * step;
-      out[i] = s[3 * H + j] * tanhf(s[4 * H + j]);
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// Backward, entry 1: the recurrence
+// ---------------------------------------------------------------------------
+// A group of 32 ceil(H / 32) threads runs kBpttWin windows side by side,
+// thread u owning unit u of each: a recurrent weight read from shared memory
+// serves all of them.
+constexpr int kBpttWin = 2;
 
-// One step of the backward through a cell, for nk windows. dh holds the
-// gradient of h_t (head or latent part plus the next step's), dc the next
-// step's gradient of c; both are updated to the ones for step t - 1, after
-// da (the gates' pre-activation gradient, nk x 4H) and the weight gradients
-// have been taken. hprev is h_{t-1}; inp (in_dim floats a window), when
-// given, the step's input for wi's gradient; ddz, when given, sums da.
-struct CellGrads {
-  float *wi, *wh, *b;
+struct BpttArgs {
+  const float* params;
+  long long P;
+  const float* x;
+  const uint8_t* mask;
+  int J, K, W, F, H, Z, KR, nkr, GT;  // KR windows a CTA, GT threads a group
+  float* act;  // (J K, 2, W, 5H): read, then each slot rewritten as (da_t, h_{t-1})
+  float* rec;  // (J K, S): the per-window record
 };
 
-__device__ __forceinline__ void cell_backward(const float* act_t, const float* act_prev,
-                                              size_t stride, const float* wh, const float* hprev,
-                                              const float* inp, int in_dim, float* dh, float* dc,
-                                              float* da, float* ddz, CellGrads g, int nk, int H) {
-  const int G = 4 * H;
-  for (int i = threadIdx.x; i < nk * H; i += blockDim.x) {
-    const int k = i / H, j = i - k * H;
-    const float* s = act_t + k * stride;
-    const float ig = s[j], fg = s[H + j], gg = s[2 * H + j], og = s[3 * H + j], cn = s[4 * H + j];
-    const float cp = act_prev != nullptr ? act_prev[k * stride + 4 * H + j] : 0.0f;
-    const float tc = tanhf(cn);
-    const float dhv = dh[i];
-    const float dcv = dhv * og * (1.0f - tc * tc) + dc[i];
-    float* d = da + k * G;
-    d[j] = (dcv * gg) * (ig * (1.0f - ig));
-    d[H + j] = (dcv * cp) * (fg * (1.0f - fg));
-    d[2 * H + j] = (dcv * ig) * (1.0f - gg * gg);
-    d[3 * H + j] = (dhv * tc) * (og * (1.0f - og));
-    dc[i] = dcv * fg;
-  }
-  __syncthreads();
-  // weight gradients: each entry by one thread, windows in order
-  for (int i = threadIdx.x; i < H * G; i += blockDim.x) {
-    const int j = i / G, col = i - j * G;
-    float acc = g.wh[i];
-    for (int k = 0; k < nk; ++k) acc += hprev[k * H + j] * da[k * G + col];
-    g.wh[i] = acc;
-  }
-  if (inp != nullptr) {
-    for (int i = threadIdx.x; i < in_dim * G; i += blockDim.x) {
-      const int q = i / G, col = i - q * G;
-      float acc = g.wi[i];
-      for (int k = 0; k < nk; ++k) acc += inp[k * in_dim + q] * da[k * G + col];
-      g.wi[i] = acc;
-    }
-  }
-  for (int col = threadIdx.x; col < G; col += blockDim.x) {
-    float acc = g.b[col];
-    for (int k = 0; k < nk; ++k) acc += da[k * G + col];
-    g.b[col] = acc;
-  }
-  if (ddz != nullptr)
-    for (int i = threadIdx.x; i < nk * G; i += blockDim.x) ddz[i] += da[i];
-  // the gradient of h_{t-1} through wh: wh is read across its rows, so
-  // each unit j starts its sum at column j (neighbouring lanes on
-  // neighbouring banks, not all on one bank of shared memory)
-  for (int i = threadIdx.x; i < nk * H; i += blockDim.x) {
-    const int k = i / H, j = i - k * H;
-    float acc = 0.0f;
-    for (int q = 0; q < G; ++q) {
-      const int col = (q + j) % G;
-      acc += da[k * G + col] * wh[j * G + col];
-    }
-    dh[i] = acc;
-  }
-  __syncthreads();
+__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
+// A window's record: z (Z), the decoder's sum of da over its steps (4H),
+// the encoder's last h (H), the latent's gradient (Z), Dense_1's kernel
+// gradient (H x F, its layout) and bias gradient (F), then the encoder's
+// input as floats, [x_t, m_t] a step (W x 2F).
+struct RecLayout {
+  int z, ddz, hlast, dzl, dw1, db1, inp, S;
+};
+
+__host__ __device__ inline RecLayout rec_layout(int F, int H, int Z, int W) {
+  RecLayout r;
+  r.z = 0;
+  r.ddz = Z;
+  r.hlast = r.ddz + 4 * H;
+  r.dzl = r.hlast + H;
+  r.dw1 = r.dzl + Z;
+  r.db1 = r.dw1 + H * F;
+  r.inp = r.db1 + F;
+  r.S = r.inp + 2 * F * W;
+  return r;
 }
 
-__global__ void __launch_bounds__(kTrainThreads) lstm_train_bwd_kernel(TrainArgs a,
-                                                                       int smem_params) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int job = blockIdx.x / a.nkb, kb = blockIdx.x - job * a.nkb;
-  const int k0 = kb * a.KB, nk = min(a.KB, a.K - k0);
-  const int F = a.F, H = a.H, Z = a.Z, G = 4 * H, IN = 2 * F, W = a.W, tid = threadIdx.x;
-  float* sp = reinterpret_cast<float*>(smem);
-  const LstmLayout l = lstm_layout(stage_params(a, job, sp, smem_params), F, H, Z);
-  float* gacc = a.gpart + (size_t(job) * a.nkb + kb) * a.P;
-  if (smem_params) {
-    gacc = sp;
-    sp += (a.P + 3) & ~3LL;
+__host__ __device__ inline int bptt_group_threads(int H) { return 32 * ((H + 31) / 32); }
+
+// windows a CTA of the recurrence runs: kBpttWin a group, as many groups as
+// kBpttThreads threads hold and K needs
+__host__ inline int bptt_windows(int K, int H) {
+  const int groups = kBpttThreads / bptt_group_threads(H), need = (K + kBpttWin - 1) / kBpttWin;
+  return (groups < need ? groups : need) * kBpttWin;
+}
+
+// shared floats of one window of the recurrence: da (double-buffered, 8H),
+// the decoder's sum of da (4H), the encoder's last h (H), the latent's
+// gradient (Z), the head's per-warp partials (F a warp), Dense_1's gradient
+// (F x H)
+__host__ __device__ inline int bptt_window_floats(int F, int H, int Z) {
+  const int nw = (H + 31) / 32;
+  return 12 * H + align4(H) + align4(Z) + align4(nw * F) + align4(H * F);
+}
+
+__host__ inline long long bptt_smem_bytes(int F, int H, int Z, int KR, int wh_smem) {
+  long long floats = align4(F * H) + 1LL * KR * bptt_window_floats(F, H, Z);
+  if (wh_smem) floats += align4(H * (4 * H + 1));
+  return floats * 4;
+}
+
+// a barrier over one group's threads: the warp itself, or the named
+// barrier `id` of n threads
+__device__ __forceinline__ void group_sync(int id, int n) {
+  if (n == 32) {
+    __syncwarp();
+    return;
   }
-  for (long long i = tid; i < a.P; i += blockDim.x) gacc[i] = 0.0f;
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Wh (H, 4H) into shared memory, rows padded to 4H + 1 floats: the thread
+// of unit u reads row u, lanes on distinct banks
+__device__ __forceinline__ void stage_wh(float* dst, const float* wh, int H) {
+  const int G = 4 * H;
+  for (int i = threadIdx.x; i < H * G; i += blockDim.x) dst[i + i / G] = wh[i];
+}
+
+// One thread's view of its group's windows during the recurrence.
+struct BpttLane {
+  int H, F, W, GT, u, bar;
+  bool own;                 // u < H: the thread owns unit u
+  bool live[kBpttWin];      // the window exists
+  bool unit[kBpttWin];      // both
+  const float* wh;          // the LSTM's Wh (H, 4H), rows ldw floats apart
+  int ldw;
+  const float* w1t;         // Dense_1's kernel transposed (F, H), shared
+  const float* b1;
+  float* dab[kBpttWin];     // a window's da, two buffers of 4H
+  float* hps[kBpttWin];     // the head's per-warp partials
+  float* dw1[kBpttWin];     // Dense_1's kernel gradient (F, H)
+  float* inp[kBpttWin];     // the record's encoder input (W, 2F)
+  float db1[kBpttWin];      // Dense_1's bias gradient of feature u (u < F)
+  float ddz[kBpttWin][4];   // the decoder's sum of da over its steps, unit u's gates
+};
+
+// The head's error at feature f of window w, from s = h_t W1[:, f] summed
+// over the window's units: 2 (r - x) at a valid slot (x and the mask on
+// lane f), into dh, Dense_1's gradients
+__device__ __forceinline__ void head_error(BpttLane& L, int w, int f, float s, float xv, int mv,
+                                           float h, float& dh) {
+  const float r = s + L.b1[f];
+  const float xf = __shfl_sync(kFullWarp, xv, f);
+  const int mf = __shfl_sync(kFullWarp, mv, f);
+  const float d = mf ? 2.0f * (r - xf) : 0.0f;
+  if (L.unit[w]) {
+    const int at = f * L.H + L.u;
+    dh = fmaf(d, L.w1t[at], dh);
+    L.dw1[w][at] = fmaf(h, d, L.dw1[w][at]);
+  }
+  if (L.u == f) L.db1[w] += d;
+}
+
+// The steps of one LSTM of the group's windows, last step first: act[w]
+// holds window w's W slots, xw / mw its values and mask (W, F); dh and dc
+// enter as the gradients after the last step and leave as those of the
+// initial state.
+template <bool kDecoder>
+__device__ __forceinline__ void bptt_steps(BpttLane& L, float* const (&act)[kBpttWin],
+                                           const float* const (&xw)[kBpttWin],
+                                           const uint8_t* const (&mw)[kBpttWin],
+                                           float (&dh)[kBpttWin], float (&dc)[kBpttWin]) {
+  constexpr int NWIN = kBpttWin;
+  const int H = L.H, F = L.F, W = L.W, u = L.u, lane = u & 31, warp = u >> 5;
+  const int NW = L.GT >> 5;
+  const size_t step = size_t(5) * H;
+  // slot W - 1's o and c, then the first step's prefetch
+  float o_c[NWIN], c_c[NWIN], tc_c[NWIN], h_c[NWIN];
+  float pi[NWIN], pf[NWIN], pg[NWIN], po[NWIN], pc[NWIN], px[NWIN];
+  int pm[NWIN];
+#pragma unroll
+  for (int w = 0; w < NWIN; ++w) {
+    o_c[w] = c_c[w] = pi[w] = pf[w] = pg[w] = po[w] = pc[w] = px[w] = 0.0f;
+    pm[w] = 0;
+    if (L.unit[w]) {
+      const float* s = act[w] + (W - 1) * step;
+      o_c[w] = s[3 * H + u];
+      c_c[w] = s[4 * H + u];
+      pi[w] = s[u];
+      pf[w] = s[H + u];
+      pg[w] = s[2 * H + u];
+      if (W >= 2) {
+        po[w] = (s - step)[3 * H + u];
+        pc[w] = (s - step)[4 * H + u];
+      }
+    }
+    if (kDecoder && L.live[w] && lane < F) {
+      px[w] = xw[w][(W - 1) * F + lane];
+      pm[w] = mw[w][(W - 1) * F + lane];
+    }
+    tc_c[w] = tanhf(c_c[w]);
+    h_c[w] = o_c[w] * tc_c[w];
+  }
+  for (int t = W - 1; t >= 0; --t) {
+    float ig[NWIN], fg[NWIN], gg[NWIN], cp[NWIN], op[NWIN], xv[NWIN], tcp[NWIN], hp[NWIN];
+    int mv[NWIN];
+#pragma unroll
+    for (int w = 0; w < NWIN; ++w) {
+      ig[w] = pi[w];
+      fg[w] = pf[w];
+      gg[w] = pg[w];
+      cp[w] = pc[w];
+      op[w] = po[w];
+      xv[w] = px[w];
+      mv[w] = pm[w];
+      if (t >= 1) {  // the next step's loads, in flight during this one
+        if (L.unit[w]) {
+          const float* s = act[w] + (t - 1) * step;
+          pi[w] = s[u];
+          pf[w] = s[H + u];
+          pg[w] = s[2 * H + u];
+          po[w] = t >= 2 ? (s - step)[3 * H + u] : 0.0f;
+          pc[w] = t >= 2 ? (s - step)[4 * H + u] : 0.0f;
+        }
+        if (kDecoder && L.live[w] && lane < F) {
+          px[w] = xw[w][(t - 1) * F + lane];
+          pm[w] = mw[w][(t - 1) * F + lane];
+        }
+      }
+      tcp[w] = tanhf(cp[w]);  // h_{t-1}, zero before the first step
+      hp[w] = op[w] * tcp[w];
+      // the encoder's input of step t as floats, for its input kernel's
+      // gradient (the encoder reads the decoder's targets: the same x)
+      if (kDecoder && L.live[w] && u < F) {
+        L.inp[w][t * 2 * F + u] = xv[w];
+        L.inp[w][t * 2 * F + F + u] = mv[w] ? 1.0f : 0.0f;
+      }
+    }
+    if (kDecoder) {
+      // the head: r = h_t W1 + b1 summed over the window's units (the warp,
+      // then the group's warps in order), its error 2 (r - x) at valid slots
+#pragma unroll
+      for (int w = 0; w < NWIN; ++w)
+        for (int f = 0; f < F; ++f) {
+          const float s = warp_sum(L.unit[w] ? h_c[w] * L.w1t[f * H + u] : 0.0f);
+          if (NW == 1)
+            head_error(L, w, f, s, xv[w], mv[w], h_c[w], dh[w]);
+          else if (lane == 0)
+            L.hps[w][warp * F + f] = s;
+        }
+      if (NW > 1) {
+        group_sync(L.bar, L.GT);
+#pragma unroll
+        for (int w = 0; w < NWIN; ++w)
+          for (int f = 0; f < F; ++f) {
+            float s = L.hps[w][f];
+            for (int q = 1; q < NW; ++q) s += L.hps[w][q * F + f];
+            head_error(L, w, f, s, xv[w], mv[w], h_c[w], dh[w]);
+          }
+      }
+    }
+    // the cell: da_t (4H) and h_{t-1} over slot t, da into this step's buffer
+#pragma unroll
+    for (int w = 0; w < NWIN; ++w) {
+      if (!L.unit[w]) continue;
+      const float dcv = dh[w] * o_c[w] * (1.0f - tc_c[w] * tc_c[w]) + dc[w];
+      float da[4];
+      da[0] = (dcv * gg[w]) * (ig[w] * (1.0f - ig[w]));
+      da[1] = (dcv * cp[w]) * (fg[w] * (1.0f - fg[w]));
+      da[2] = (dcv * ig[w]) * (1.0f - gg[w] * gg[w]);
+      da[3] = (dh[w] * tc_c[w]) * (o_c[w] * (1.0f - o_c[w]));
+      dc[w] = dcv * fg[w];
+      float* s = act[w] + t * step;
+      float* d = L.dab[w] + (t & 1) * 4 * H;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        s[q * H + u] = da[q];
+        d[q * H + u] = da[q];
+        if (kDecoder) L.ddz[w][q] += da[q];
+      }
+      s[4 * H + u] = hp[w];
+    }
+    group_sync(L.bar, L.GT);
+    if (t > 0 && L.own) {  // dh_{t-1} = da_t Wh^T: unit u's row of Wh, da broadcast
+      const float* wr = L.wh + size_t(u) * L.ldw;
+      float acc[NWIN];
+#pragma unroll
+      for (int w = 0; w < NWIN; ++w) acc[w] = 0.0f;
+#pragma unroll 4
+      for (int c = 0; c < H; ++c) {
+        const float w0 = wr[4 * c], w1 = wr[4 * c + 1], w2 = wr[4 * c + 2], w3 = wr[4 * c + 3];
+#pragma unroll
+        for (int w = 0; w < NWIN; ++w) {
+          const float4 v = reinterpret_cast<const float4*>(L.dab[w] + (t & 1) * 4 * H)[c];
+          acc[w] = fmaf(v.x, w0, acc[w]);
+          acc[w] = fmaf(v.y, w1, acc[w]);
+          acc[w] = fmaf(v.z, w2, acc[w]);
+          acc[w] = fmaf(v.w, w3, acc[w]);
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < NWIN; ++w) dh[w] = acc[w];
+    }
+#pragma unroll
+    for (int w = 0; w < NWIN; ++w) {
+      o_c[w] = op[w];
+      c_c[w] = cp[w];
+      tc_c[w] = tcp[w];
+      h_c[w] = hp[w];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBpttThreads, 2) lstm_bptt_kernel(BpttArgs a, int wh_smem) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NWIN = kBpttWin;
+  const int job = blockIdx.x / a.nkr, kb = blockIdx.x - job * a.nkr;
+  const int F = a.F, H = a.H, Z = a.Z, G = 4 * H, W = a.W, GT = a.GT, tid = threadIdx.x;
+  const int g = tid / GT, u = tid - g * GT;
+  const int k0 = kb * a.KR + g * NWIN;  // the group's first window in the job
+  const bool any = k0 < a.K;
+  const LstmLayout l = lstm_layout(a.params + size_t(job) * a.P, F, H, Z);
+  float* sp = reinterpret_cast<float*>(smem);
+  float* whs = sp;
+  if (wh_smem) sp += align4(H * (G + 1));
+  float* w1t = sp;
+  sp += align4(F * H);
+  const int wf = bptt_window_floats(F, H, Z);
+  const RecLayout rl = rec_layout(F, H, Z, W);
+  const size_t step = size_t(5) * H;
+  BpttLane L;
+  L.H = H;
+  L.F = F;
+  L.W = W;
+  L.GT = GT;
+  L.u = u;
+  L.bar = 1 + g;
+  L.own = u < H;
+  L.ldw = wh_smem ? G + 1 : G;
+  L.w1t = w1t;
+  L.b1 = l.b1;
+  float *zb[NWIN], *hl[NWIN], *dzs[NWIN], *act_enc[NWIN], *act_dec[NWIN], *rec[NWIN];
+  const float* xw[NWIN];
+  const uint8_t* mw[NWIN];
+  float dh[NWIN], dc[NWIN];  // the decoder's h and c after its last step: no gradient
+#pragma unroll
+  for (int w = 0; w < NWIN; ++w) {
+    float* ws = sp + (g * NWIN + w) * wf;
+    L.dab[w] = ws;
+    zb[w] = ws + 8 * H;
+    hl[w] = zb[w] + 4 * H;
+    dzs[w] = hl[w] + align4(H);
+    L.hps[w] = dzs[w] + align4(Z);
+    L.dw1[w] = L.hps[w] + align4((GT >> 5) * F);
+    L.live[w] = k0 + w < a.K;
+    L.unit[w] = L.live[w] && L.own;
+    L.db1[w] = 0.0f;
+    for (int q = 0; q < 4; ++q) L.ddz[w][q] = 0.0f;
+    const size_t win = size_t(job) * a.K + k0 + w;
+    act_enc[w] = a.act + win * (2 * W * step);
+    act_dec[w] = act_enc[w] + W * step;
+    xw[w] = a.x + win * W * F;
+    mw[w] = a.mask + win * W * F;
+    rec[w] = a.rec + win * rl.S;
+    L.inp[w] = rec[w] + rl.inp;
+    dh[w] = dc[w] = 0.0f;
+    if (any)
+      for (int i = u; i < F * H; i += GT) L.dw1[w][i] = 0.0f;
+  }
+  for (int i = tid; i < H * F; i += blockDim.x) {
+    const int j = i / F, f = i - j * F;
+    w1t[f * H + j] = l.w1[i];
+  }
+  if (wh_smem) stage_wh(whs, l.wh_d, H);
+  __syncthreads();
+  L.wh = wh_smem ? whs : l.wh_d;
+
+  if (any) {
+    // the decoder and its head
+    bptt_steps<true>(L, act_dec, xw, mw, dh, dc);
+    // the latent: z = h_enc,W-1 W0 + b0 (as the forward), its gradient
+    // dzl = ddz Wi_d^T, then the encoder's last dh = dzl W0^T
+#pragma unroll
+    for (int w = 0; w < NWIN; ++w)
+      if (L.unit[w]) {
+        for (int q = 0; q < 4; ++q) zb[w][q * H + u] = L.ddz[w][q];
+        const float* s = act_enc[w] + (W - 1) * step;
+        hl[w][u] = s[3 * H + u] * tanhf(s[4 * H + u]);
+      }
+    group_sync(L.bar, GT);
+#pragma unroll
+    for (int w = 0; w < NWIN; ++w) {
+      if (!L.live[w]) continue;
+      for (int q = u; q < Z; q += GT) {
+        float acc = 0.0f;
+        for (int j = 0; j < H; ++j) acc += hl[w][j] * l.w0[j * Z + q];
+        rec[w][rl.z + q] = acc + l.b0[q];
+        const float* wi = l.wi_d + size_t(q) * G;
+        float d = 0.0f;
+        for (int c = 0; c < G; ++c) d = fmaf(zb[w][c], wi[c], d);
+        dzs[w][q] = d;
+        rec[w][rl.dzl + q] = d;
+      }
+      for (int i = u; i < G; i += GT) rec[w][rl.ddz + i] = zb[w][i];
+      if (L.own) rec[w][rl.hlast + u] = hl[w][u];
+    }
+    group_sync(L.bar, GT);
+#pragma unroll
+    for (int w = 0; w < NWIN; ++w) {
+      dh[w] = 0.0f;
+      dc[w] = 0.0f;
+      if (L.unit[w])
+        for (int q = 0; q < Z; ++q) dh[w] = fmaf(dzs[w][q], l.w0[u * Z + q], dh[w]);
+    }
+  }
+  __syncthreads();
+  if (wh_smem) stage_wh(whs, l.wh_e, H);
+  __syncthreads();
+  L.wh = wh_smem ? whs : l.wh_e;
+  if (any) {
+    bptt_steps<false>(L, act_enc, xw, mw, dh, dc);
+#pragma unroll
+    for (int w = 0; w < NWIN; ++w) {
+      if (L.unit[w])
+        for (int f = 0; f < F; ++f) rec[w][rl.dw1 + u * F + f] = L.dw1[w][f * H + u];
+      if (L.live[w] && u < F) rec[w][rl.db1 + u] = L.db1[w];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, entry 2: the weight gradients
+// ---------------------------------------------------------------------------
+struct WgradArgs {
+  const float* act;  // (J K, 2, W, 5H) as the recurrence left it
+  const float* rec;  // (J K, S)
+  float* gpart;      // (J, P)
+  long long P;
+  int J, K, W, F, H, Z;
+  int mt_enc, mt_dec, nt, per_job, vec;
+};
+
+__host__ __device__ inline void wgrad_tiles(int F, int H, int& mt_enc, int& mt_dec, int& nt) {
+  mt_enc = (H + 2 * F + 1 + kGemmBM - 1) / kGemmBM;
+  mt_dec = (H + kGemmBM - 1) / kGemmBM;
+  nt = (4 * H + kGemmBN - 1) / kGemmBN;
+}
+
+// One output tile (rows m0.., columns n0..) of LSTM lstm's weight
+// gradient, sum over the job's rows r = (window, step) of A_r^T B_r with
+// A_r = [h_{t-1}] (decoder) or [h_{t-1}, x_t, m_t, 1] (encoder; x_t, m_t from
+// the window's record) and B_r = da_t. Both operands reach shared memory
+// by cp.async, kGemmStages chunks of rows in flight.
+__device__ void wgrad_tile(const WgradArgs& a, int job, int lstm, int m0, int n0,
+                           float* smem) {
+  const int H = a.H, G = 4 * H, F = a.F, W = a.W, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int M = lstm == 0 ? H + 2 * F + 1 : H, R = a.K * W;
+  const size_t step = size_t(5) * H;
+  const float* actj = a.act + size_t(job) * a.K * 2 * W * step;
+  const RecLayout rl = rec_layout(F, H, a.Z, W);
+  const float* recj = a.rec + size_t(job) * a.K * rl.S + rl.inp;
+  float* As = smem;                                      // [stages][BK][LdA]
+  float* Bs = smem + kGemmStages * kGemmBK * kGemmLdA;   // [stages][BK][BN]
+  // chunk r0's rows into stage st, a warp a row at a time: B (da, BN
+  // columns from n0) and A (BM columns from m0) by cp.async, ones and zeros
+  // stored
+  auto load = [&](int r0, int st) {
+    float* Ab = As + st * kGemmBK * kGemmLdA;
+    float* Bb = Bs + st * kGemmBK * kGemmBN;
+    for (int rr = warp; rr < kGemmBK; rr += kGemmThreads / 32) {
+      const int r = r0 + rr, k = r / W, t = r - k * W, i = m0 + lane;
+      const float* s = actj + ((size_t(k) * 2 + lstm) * W + t) * step;
+      float* a_dst = Ab + rr * kGemmLdA + lane;
+      float* b_dst = Bb + rr * kGemmBN;
+      if (r >= R || i >= M)
+        *a_dst = 0.0f;
+      else if (i < H)
+        cp_async4(a_dst, s + 4 * H + i);
+      else if (i < H + 2 * F)
+        cp_async4(a_dst, recj + size_t(k) * rl.S + t * 2 * F + i - H);
+      else
+        *a_dst = 1.0f;
+      if (a.vec) {
+        const int c = 4 * lane, n = n0 + c;
+        if (r < R && n < G)
+          cp_async16(b_dst + c, s + n);
+        else
+          *reinterpret_cast<float4*>(b_dst + c) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        for (int c = lane; c < kGemmBN; c += 32) {
+          const int n = n0 + c;
+          if (r < R && n < G)
+            cp_async4(b_dst + c, s + n);
+          else
+            b_dst[c] = 0.0f;
+        }
+      }
+    }
+  };
+
+  float acc[kGemmTM][4];
+#pragma unroll
+  for (int i = 0; i < kGemmTM; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+  const bool on = m0 + warp * kGemmTM < M;  // the warp's rows hold outputs
+  const int chunks = (R + kGemmBK - 1) / kGemmBK;
+  for (int st = 0; st < kGemmStages - 1; ++st) {
+    if (st < chunks) load(st * kGemmBK, st);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait_group<kGemmStages - 2>();  // chunk ch has landed
+    __syncthreads();
+    const int next = ch + kGemmStages - 1;  // into the stage chunk ch - 1 used
+    if (next < chunks) load(next * kGemmBK, next % kGemmStages);
+    cp_async_commit();
+    if (on) {
+      const float* Ab = As + (ch % kGemmStages) * kGemmBK * kGemmLdA + warp * kGemmTM;
+      const float* Bb = Bs + (ch % kGemmStages) * kGemmBK * kGemmBN + lane * 4;
+#pragma unroll 4
+      for (int rr = 0; rr < kGemmBK; ++rr) {
+        float ar[kGemmTM];
+#pragma unroll
+        for (int i = 0; i < kGemmTM; i += 4) {
+          const float4 av = *reinterpret_cast<const float4*>(Ab + rr * kGemmLdA + i);
+          ar[i] = av.x;
+          ar[i + 1] = av.y;
+          ar[i + 2] = av.z;
+          ar[i + 3] = av.w;
+        }
+        const float4 bv = *reinterpret_cast<const float4*>(Bb + rr * kGemmBN);
+        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int i = 0; i < kGemmTM; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(ar[i], br[c], acc[i][c]);
+      }
+    }
+  }
+  if (!on) return;
+  long long o[10];
+  lstm_offsets(F, H, a.Z, o);
+  float* out = a.gpart + size_t(job) * a.P;
+#pragma unroll
+  for (int ii = 0; ii < kGemmTM; ++ii) {
+    const int i = m0 + warp * kGemmTM + ii;
+    if (i >= M) break;
+    float* row;
+    if (lstm == 1)
+      row = out + o[6] + size_t(i) * G;  // decoder Wh
+    else if (i < H)
+      row = out + o[1] + size_t(i) * G;  // encoder Wh
+    else if (i < H + 2 * F)
+      row = out + o[0] + size_t(i - H) * G;  // encoder Wi: x, then mask
+    else
+      row = out + o[2];  // encoder bias
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = n0 + lane * 4 + c;
+      if (n < G) row[n] = acc[ii][c];
+    }
+  }
+}
+
+// The gradients summed from the job's K window records, each entry by one
+// thread over the windows in order: the decoder's input kernel (z^T ddz)
+// and bias (sum ddz), Dense_0 (hlast^T dzl, sum dzl), Dense_1 (sums).
+__device__ void wgrad_records(const WgradArgs& a, int job) {
+  const int F = a.F, H = a.H, Z = a.Z, G = 4 * H, K = a.K;
+  const RecLayout rl = rec_layout(F, H, Z, a.W);
+  const float* rj = a.rec + size_t(job) * K * rl.S;
+  float* out = a.gpart + size_t(job) * a.P;
   long long o[10];
   lstm_offsets(F, H, Z, o);
-  const CellGrads genc{gacc + o[0], gacc + o[1], gacc + o[2]};
-  const CellGrads gdec{gacc + o[5], gacc + o[6], gacc + o[7]};
-  float *gw0 = gacc + o[3], *gb0 = gacc + o[4], *gw1 = gacc + o[8], *gb1 = gacc + o[9];
-  const int KB = a.KB;
-  float* hcur = sp;
-  float* hprev = hcur + KB * H;
-  float* dh = hprev + KB * H;
-  float* dc = dh + KB * H;
-  float* hlast = dc + KB * H;
-  float* da = hlast + KB * H;
-  float* ddz = da + KB * G;
-  float* inp = ddz + KB * G;
-  float* dr = inp + KB * IN;
-  float* zl = dr + KB * F;
-  float* dzl = zl + KB * Z;
-  const size_t win0 = size_t(job) * a.K + k0;
-  const size_t step = size_t(5) * H, stride = size_t(2) * W * step;
-  const float* act = a.act + win0 * stride;
-  for (int i = tid; i < nk * H; i += blockDim.x) dh[i] = dc[i] = 0.0f;
-  for (int i = tid; i < nk * G; i += blockDim.x) ddz[i] = 0.0f;
-  __syncthreads();
-
-  // the decoder and the head, last step first
-  for (int t = W - 1; t >= 0; --t) {
-    load_h(act, stride, step, 1, W, t, nk, H, hcur);
-    load_h(act, stride, step, 1, W, t - 1, nk, H, hprev);
-    __syncthreads();
-    for (int i = tid; i < nk * F; i += blockDim.x) {
-      const int k = i / F, f = i - k * F;
-      float acc = 0.0f;
-      for (int j = 0; j < H; ++j) acc += hcur[k * H + j] * l.w1[j * F + f];
-      const float r = acc + l.b1[f];
-      const size_t at = ((win0 + size_t(k)) * W + t) * F + f;
-      dr[i] = a.mask[at] ? 2.0f * (r - a.x[at]) : 0.0f;
-    }
-    __syncthreads();
-    for (int i = tid; i < H * F; i += blockDim.x) {
-      const int j = i / F, f = i - j * F;
-      float acc = gw1[i];
-      for (int k = 0; k < nk; ++k) acc += hcur[k * H + j] * dr[k * F + f];
-      gw1[i] = acc;
-    }
-    for (int f = tid; f < F; f += blockDim.x) {
-      float acc = gb1[f];
-      for (int k = 0; k < nk; ++k) acc += dr[k * F + f];
-      gb1[f] = acc;
-    }
-    for (int i = tid; i < nk * H; i += blockDim.x) {
-      const int k = i / H, j = i - k * H;
-      float acc = 0.0f;
-      for (int f = 0; f < F; ++f) acc += dr[k * F + f] * l.w1[j * F + f];
-      dh[i] += acc;
-    }
-    __syncthreads();
-    cell_backward(act + (W + t) * step, t > 0 ? act + (W + t - 1) * step : nullptr, stride,
-                  l.wh_d, hprev, nullptr, 0, dh, dc, da, ddz, gdec, nk, H);
-  }
-
-  // the decoder's input kernel, the latent and Dense_0
-  load_h(act, stride, step, 0, W, W - 1, nk, H, hlast);
-  __syncthreads();
-  for (int i = tid; i < nk * Z; i += blockDim.x) {
-    const int k = i / Z, q = i - k * Z;
+  for (int i = threadIdx.x; i < (Z + 1) * G; i += blockDim.x) {
+    const int q = i / G, c = i - q * G;
     float acc = 0.0f;
-    for (int j = 0; j < H; ++j) acc += hlast[k * H + j] * l.w0[j * Z + q];
-    zl[i] = acc + l.b0[q];
+    if (q < Z) {
+#pragma unroll 8
+      for (int k = 0; k < K; ++k)
+        acc = fmaf(rj[size_t(k) * rl.S + rl.z + q], rj[size_t(k) * rl.S + rl.ddz + c], acc);
+      out[o[5] + i] = acc;
+    } else {
+#pragma unroll 8
+      for (int k = 0; k < K; ++k) acc += rj[size_t(k) * rl.S + rl.ddz + c];
+      out[o[7] + c] = acc;
+    }
   }
-  __syncthreads();
-  for (int i = tid; i < Z * G; i += blockDim.x) {
-    const int q = i / G, col = i - q * G;
-    float acc = gdec.wi[i];
-    for (int k = 0; k < nk; ++k) acc += zl[k * Z + q] * ddz[k * G + col];
-    gdec.wi[i] = acc;
-  }
-  for (int i = tid; i < nk * Z; i += blockDim.x) {
-    const int k = i / Z, q = i - k * Z;
-    float acc = 0.0f;
-    for (int col = 0; col < G; ++col) acc += ddz[k * G + col] * l.wi_d[q * G + col];
-    dzl[i] = acc;
-  }
-  __syncthreads();
-  for (int i = tid; i < H * Z; i += blockDim.x) {
+  for (int i = threadIdx.x; i < (H + 1) * Z; i += blockDim.x) {
     const int j = i / Z, q = i - j * Z;
-    float acc = gw0[i];
-    for (int k = 0; k < nk; ++k) acc += hlast[k * H + j] * dzl[k * Z + q];
-    gw0[i] = acc;
-  }
-  for (int q = tid; q < Z; q += blockDim.x) {
-    float acc = gb0[q];
-    for (int k = 0; k < nk; ++k) acc += dzl[k * Z + q];
-    gb0[q] = acc;
-  }
-  for (int i = tid; i < nk * H; i += blockDim.x) {
-    const int k = i / H, j = i - k * H;
     float acc = 0.0f;
-    for (int q = 0; q < Z; ++q) acc += dzl[k * Z + q] * l.w0[j * Z + q];
-    dh[i] = acc;
-    dc[i] = 0.0f;
-  }
-  __syncthreads();
-
-  // the encoder, last step first
-  for (int t = W - 1; t >= 0; --t) {
-    load_h(act, stride, step, 0, W, t - 1, nk, H, hprev);
-    for (int i = tid; i < nk * F; i += blockDim.x) {
-      const int k = i / F, f = i - k * F;
-      const size_t at = ((win0 + size_t(k)) * W + t) * F + f;
-      inp[k * IN + f] = a.x[at];
-      inp[k * IN + F + f] = a.mask[at] ? 1.0f : 0.0f;
+    if (j < H) {
+#pragma unroll 8
+      for (int k = 0; k < K; ++k)
+        acc = fmaf(rj[size_t(k) * rl.S + rl.hlast + j], rj[size_t(k) * rl.S + rl.dzl + q], acc);
+      out[o[3] + i] = acc;
+    } else {
+#pragma unroll 8
+      for (int k = 0; k < K; ++k) acc += rj[size_t(k) * rl.S + rl.dzl + q];
+      out[o[4] + q] = acc;
     }
-    __syncthreads();
-    cell_backward(act + t * step, t > 0 ? act + (t - 1) * step : nullptr, stride, l.wh_e, hprev,
-                  inp, IN, dh, dc, da, nullptr, genc, nk, H);
   }
-  if (smem_params) {
-    float* out = a.gpart + (size_t(job) * a.nkb + kb) * a.P;
-    for (long long i = tid; i < a.P; i += blockDim.x) out[i] = gacc[i];
+  // Dense_1's kernel and bias lie side by side in both layouts
+  for (int i = threadIdx.x; i < H * F + F; i += blockDim.x) {
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) acc += rj[size_t(k) * rl.S + rl.dw1 + i];
+    out[o[8] + i] = acc;
   }
 }
+
+__global__ void __launch_bounds__(kGemmThreads, 3) lstm_wgrad_kernel(WgradArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int job = blockIdx.x / a.per_job, t = blockIdx.x - job * a.per_job;
+  const int enc = a.mt_enc * a.nt, dec = a.mt_dec * a.nt;
+  if (t < enc)
+    wgrad_tile(a, job, 0, (t / a.nt) * kGemmBM, (t % a.nt) * kGemmBN,
+               reinterpret_cast<float*>(smem));
+  else if (t < enc + dec)
+    wgrad_tile(a, job, 1, ((t - enc) / a.nt) * kGemmBM, ((t - enc) % a.nt) * kGemmBN,
+               reinterpret_cast<float*>(smem));
+  else
+    wgrad_records(a, job);
+}
+
+constexpr int kGemmSmemBytes = kGemmStages * (kGemmBK * kGemmLdA + kGemmBK * kGemmBN) * 4;
 
 }  // namespace fm
 
-extern "C" long long fm_lstm_train_smem_bytes(int F, int H, int Z, int KB, int smem_params,
-                                             int backward) {
-  return fm::train_smem_bytes(F, H, Z, KB, smem_params, backward);
+extern "C" long long fm_lstm_train_smem_bytes(int F, int H, int Z, int KB, int smem_params) {
+  return fm::train_smem_bytes(F, H, Z, KB, smem_params);
 }
 
-extern "C" int fm_lstm_train(int backward, const float* params, long long P, const float* x,
-                             const uint8_t* mask, int J, int K, int W, int F, int H, int Z,
-                             int KB, int smem_params, float* act, double* num, double* cnt,
-                             float* gpart, void* stream) {
+extern "C" int fm_lstm_train_forward(const float* params, long long P, const float* x,
+                                     const uint8_t* mask, int J, int K, int W, int F, int H,
+                                     int Z, int KB, int smem_params, float* act, double* num,
+                                     double* cnt, void* stream) {
   if (P != fm::lstm_param_count(F, H, Z) || KB < 1 || KB * F > fm::kTrainThreads || W < 1)
     return int(cudaErrorInvalidValue);
   const int nkb = (K + KB - 1) / KB;
-  fm::TrainArgs a{params, P, x, mask, J, K, W, F, H, Z, KB, nkb, act, num, cnt, gpart};
-  const size_t smem = size_t(fm::train_smem_bytes(F, H, Z, KB, smem_params, backward));
+  fm::TrainArgs a{params, P, x, mask, J, K, W, F, H, Z, KB, nkb, act, num, cnt};
+  const size_t smem = size_t(fm::train_smem_bytes(F, H, Z, KB, smem_params));
+  const cudaError_t e = cudaFuncSetAttribute(fm::lstm_train_fwd_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             int(smem));
+  if (e != cudaSuccess) return int(e);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (backward) {
-    e = cudaFuncSetAttribute(fm::lstm_train_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-    fm::lstm_train_bwd_kernel<<<J * nkb, fm::kTrainThreads, smem, s>>>(a, smem_params);
-  } else {
-    e = cudaFuncSetAttribute(fm::lstm_train_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-    fm::lstm_train_fwd_kernel<<<J * nkb, fm::kTrainThreads, smem, s>>>(a, smem_params);
-  }
+  fm::lstm_train_fwd_kernel<<<J * nkb, fm::kTrainThreads, smem, s>>>(a, smem_params);
+  return int(cudaGetLastError());
+}
+
+extern "C" int fm_lstm_rec_floats(int F, int H, int Z, int W) {
+  return fm::rec_layout(F, H, Z, W).S;
+}
+
+extern "C" int fm_lstm_bptt_windows(int K, int H) { return fm::bptt_windows(K, H); }
+
+extern "C" int fm_lstm_bptt(const float* params, long long P, const float* x, const uint8_t* mask,
+                            int J, int K, int W, int F, int H, int Z, long long smem_budget,
+                            float* act, float* rec, void* stream) {
+  if (P != fm::lstm_param_count(F, H, Z) || W < 1 || K < 1 || F > 32)
+    return int(cudaErrorInvalidValue);
+  const int GT = fm::bptt_group_threads(H), KR = fm::bptt_windows(K, H);
+  const int nkr = (K + KR - 1) / KR;
+  fm::BpttArgs a{params, P, x, mask, J, K, W, F, H, Z, KR, nkr, GT, act, rec};
+  const int wh_smem = fm::bptt_smem_bytes(F, H, Z, KR, 1) <= smem_budget;
+  const size_t smem = size_t(fm::bptt_smem_bytes(F, H, Z, KR, wh_smem));
+  const cudaError_t e = cudaFuncSetAttribute(fm::lstm_bptt_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             int(smem));
+  if (e != cudaSuccess) return int(e);
+  const int threads = KR / fm::kBpttWin * GT;
+  fm::lstm_bptt_kernel<<<J * nkr, threads, smem, static_cast<cudaStream_t>(stream)>>>(a,
+                                                                                     wh_smem);
+  return int(cudaGetLastError());
+}
+
+extern "C" int fm_lstm_wgrad(const float* act, const float* rec, float* gpart, long long P, int J,
+                             int K, int W, int F, int H, int Z, int vec, void* stream) {
+  if (P != fm::lstm_param_count(F, H, Z) || W < 1 || K < 1 || (vec && H % 4 != 0))
+    return int(cudaErrorInvalidValue);
+  int mt_enc, mt_dec, nt;
+  fm::wgrad_tiles(F, H, mt_enc, mt_dec, nt);
+  const int per_job = (mt_enc + mt_dec) * nt + 1;
+  fm::WgradArgs a{act, rec, gpart, P, J, K, W, F, H, Z, mt_enc, mt_dec, nt, per_job, vec};
+  const cudaError_t e = cudaFuncSetAttribute(fm::lstm_wgrad_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             fm::kGemmSmemBytes);
+  if (e != cudaSuccess) return int(e);
+  fm::lstm_wgrad_kernel<<<J * per_job, fm::kGemmThreads, fm::kGemmSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }

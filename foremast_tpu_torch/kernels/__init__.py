@@ -25,10 +25,13 @@
   each window's masked reconstruction error (and its z-score).
 - Kernel L (``csrc/lstm_train.cu``) trains it: `lstm_train_forward` runs
   the recurrences, stores the activations and sums each window block's
-  squared errors; `lstm_train_backward` backpropagates through time into
-  per-(job, window block) partial gradients.
-- Kernel M, `adam` (``csrc/adam.cu``), sums L's partials in block order and
-  applies optax's Adam to the J parameter rows in place.
+  squared errors; `lstm_train_backward` runs its two backward entries,
+  `lstm_train_recurrence` (backpropagation through time of each window,
+  rewriting the activations as the weight gradients' rows) and
+  `lstm_train_wgrad` (those rows' GEMMs and the per-window records' sums
+  into one gradient row a job).
+- Kernel M, `adam` (``csrc/adam.cu``), scales L's gradient and applies
+  optax's Adam to the J parameter rows in place.
 - Kernel N, `pair_tests` (``csrc/pair_tests.cu``), runs the public
   two-sample test battery (Mann-Whitney, two-group Kruskal-Wallis,
   Wilcoxon, KS) and the exact sign test on B window pairs, on kernel A's
@@ -42,11 +45,14 @@
 Each launcher checks device, dtype, shape and contiguity, allocates the
 outputs (and the scratch a kernel needs), launches on PyTorch's current
 stream without synchronising, raises if the launch failed, and adds one to
-its entry of `launches` per launch. They take CUDA tensors only; the entry
-points (``parallel.fleet.score_pairs``, ``ops.forecast``,
-``ops.seqscan``, ``ops.triage``, ``ops.bivariate``, ``ops.hpa``,
-``ops.pairwise``, ``ops.ranks``, ``models.lstm_ae``, ``parallel.fleet``'s
-scorer) send CPU tensors to the plain twins.
+its entry of `launches` per launch (`lstm_train_backward` launches kernel
+L's two backward entries, counted as `lstm_train_recurrence` and
+`lstm_train_wgrad`).
+They take CUDA tensors only; the entry points
+(``parallel.fleet.score_pairs``, ``ops.forecast``, ``ops.seqscan``,
+``ops.triage``, ``ops.bivariate``, ``ops.hpa``, ``ops.pairwise``,
+``ops.ranks``, ``models.lstm_ae``, ``parallel.fleet``'s scorer) send CPU
+tensors to the plain twins.
 """
 from __future__ import annotations
 
@@ -60,8 +66,9 @@ from . import build
 __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_preds",
            "smooth", "hw_fit", "affine_scan", "detect_period", "triage_screen", "bivariate",
            "hpa_score", "st_fit", "lstm_ae", "lstm_train_forward", "lstm_train_backward",
-           "adam", "pair_tests", "rank_and_ties", "kruskal_groups", "friedman", "fleet_topk",
-           "lstm_train_blocks", "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS",
+           "lstm_train_recurrence", "lstm_train_wgrad", "adam", "pair_tests", "rank_and_ties",
+           "kruskal_groups", "friedman", "fleet_topk", "lstm_train_blocks", "lstm_bptt_blocks",
+           "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
@@ -97,9 +104,10 @@ MAX_LSTM_LATENT = 256
 MAX_LSTM_FEATURES = 32
 LSTM_SMEM_PARAMS_BYTES = 96 * 1024
 # kernel L keeps K's limits (a thread per window and feature of the head:
-# KB F <= 256); its backward holds the parameters and the CTA's gradient
-# sums in shared memory up to this many bytes (two CTAs an SM at the
-# engine's width), in device memory above it
+# KB F <= 256); its recurrence entry holds the recurrent weights (rows of
+# 4H + 1 floats) in shared memory beside its windows' state while the CTA
+# needs at most this many bytes (two CTAs an SM), in device memory above it
+# (H above about 80)
 LSTM_TRAIN_SMEM_BYTES = 113 * 1024
 
 # kernel N: each test's bit in its `tests` mask, in the column order of its
@@ -137,8 +145,8 @@ PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans"
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
-            "bivariate": 0, "hpa_score": 0, "st_fit": 0, "lstm_ae": 0,
-            "lstm_train_forward": 0, "lstm_train_backward": 0, "adam": 0, "pair_tests": 0,
+            "bivariate": 0, "hpa_score": 0, "st_fit": 0, "lstm_ae": 0, "lstm_train_forward": 0,
+            "lstm_train_recurrence": 0, "lstm_train_wgrad": 0, "adam": 0, "pair_tests": 0,
             "rank_and_ties": 0, "kruskal_groups": 0, "friedman": 0, "fleet_topk": 0}
 
 
@@ -690,8 +698,8 @@ def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None):
 
 
 def lstm_train_blocks(K: int, F: int) -> tuple:
-    """(KB, nkb): the windows a CTA of kernels K and L runs and the window
-    blocks of a job (nkb = ceil(K / KB))."""
+    """(KB, nkb): the windows a CTA of kernel K and of kernel L's forward
+    runs and the window blocks of a job (nkb = ceil(K / KB))."""
     KB = max(1, min(int(K), 8, 256 // max(int(F), 1)))
     return KB, -(-int(K) // KB)
 
@@ -715,84 +723,125 @@ def _lstm_train_check(params, x, mask, hidden: int, latent: int, what: str):
     return lib, J, K, W, F, H, Z, P, dev
 
 
-def _lstm_train_launch(lib, backward: int, params, x, mask, dims, act, num, cnt, gpart):
-    J, K, W, F, H, Z, P = dims
-    KB, _ = lstm_train_blocks(K, F)
-    budget = LSTM_TRAIN_SMEM_BYTES if backward else LSTM_SMEM_PARAMS_BYTES
-    smem_params = int(lib.fm_lstm_train_smem_bytes(F, H, Z, KB, 1, backward) <= budget)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        return lib.fm_lstm_train(backward, _ptr(params), P, _ptr(x), _ptr(mask), J, K, W, F, H,
-                                 Z, KB, smem_params, _ptr(act), _opt(num), _opt(cnt),
-                                 _opt(gpart), ctypes.c_void_p(stream))
-
-
 def lstm_train_forward(params, x, mask, hidden: int, latent: int):
     """Launch kernel L's forward entry on J jobs' (J, P) parameter rows and
     their windows x (J, K, W, F) float32, mask bool. Returns num and cnt
     (J, nkb) float64, each window block's sum of squared errors over the
     mask and its count of valid slots, and act (J, K, 2, W, 5H) float32, the
-    activations the backward entry reads."""
+    activations the backward entries read."""
     lib, J, K, W, F, H, Z, P, dev = _lstm_train_check(params, x, mask, hidden, latent,
                                                       "lstm_train_forward")
-    nkb = lstm_train_blocks(K, F)[1]
+    KB, nkb = lstm_train_blocks(K, F)
     num = torch.empty((J, nkb), dtype=torch.float64, device=dev)
     cnt = torch.empty((J, nkb), dtype=torch.float64, device=dev)
     act = torch.empty((J, K, 2, W, 5 * H), dtype=torch.float32, device=dev)
     if J == 0:
         return num, cnt, act
-    rc = _lstm_train_launch(lib, 0, params, x, mask, (J, K, W, F, H, Z, P), act, num, cnt, None)
+    smem_params = int(lib.fm_lstm_train_smem_bytes(F, H, Z, KB, 1) <= LSTM_SMEM_PARAMS_BYTES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_lstm_train_forward(_ptr(params), P, _ptr(x), _ptr(mask), J, K, W, F, H, Z,
+                                       KB, smem_params, _ptr(act), _ptr(num), _ptr(cnt),
+                                       ctypes.c_void_p(stream))
     _raise_on(rc, "lstm_train_forward", lib)
     launches["lstm_train_forward"] += 1
     return num, cnt, act
 
 
-def lstm_train_backward(params, x, mask, act, hidden: int, latent: int):
-    """Launch kernel L's backward entry: from the forward's activations, the
-    gradient of each window block's sum of squared errors in the job's
-    parameters. Returns gpart (J, nkb, P) float32 (kernel M sums and
-    scales it)."""
+def lstm_bptt_blocks(K: int, H: int) -> tuple:
+    """(KR, nkr): the windows a CTA of kernel L's recurrence entry runs
+    (groups of 32 ceil(H / 32) threads, each over a few windows side by
+    side, at most 256 threads a CTA) and the window blocks of a job
+    (nkr = ceil(K / KR))."""
+    KR = build.library().fm_lstm_bptt_windows(int(K), int(H))
+    return KR, -(-int(K) // KR)
+
+
+def lstm_train_recurrence(params, x, mask, act, hidden: int, latent: int):
+    """Launch kernel L's recurrence entry: backpropagation through time of
+    each window's squared error from the forward's activations act (J, K, 2,
+    W, 5H), which it overwrites in place, each step's slot with the gates'
+    pre-activation gradient and the previous h (da_t, h_{t-1}). Returns the
+    per-window record (J, K, S) float32 that lstm_train_wgrad reads (the
+    latent, its gradient, the decoder's sum of da, Dense_1's gradient
+    summed over the window's steps, the encoder's input as floats)."""
     lib, J, K, W, F, H, Z, P, dev = _lstm_train_check(params, x, mask, hidden, latent,
-                                                      "lstm_train_backward")
+                                                      "lstm_train_recurrence")
     _check(act, "act", torch.float32, (J, K, 2, W, 5 * H), dev)
-    nkb = lstm_train_blocks(K, F)[1]
-    gpart = torch.empty((J, nkb, P), dtype=torch.float32, device=dev)
+    rec = torch.empty((J, K, lib.fm_lstm_rec_floats(F, H, Z, W)), dtype=torch.float32,
+                      device=dev)
+    if J == 0:
+        return rec
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_lstm_bptt(_ptr(params), P, _ptr(x), _ptr(mask), J, K, W, F, H, Z,
+                              LSTM_TRAIN_SMEM_BYTES, _ptr(act), _ptr(rec),
+                              ctypes.c_void_p(stream))
+    _raise_on(rc, "lstm_train_recurrence", lib)
+    launches["lstm_train_recurrence"] += 1
+    return rec
+
+
+def lstm_train_wgrad(params, x, mask, act, rec, hidden: int, latent: int):
+    """Launch kernel L's weight-gradient entry on the recurrence's rewritten
+    act and its records rec: the gradient of each job's sum of squared
+    errors in its parameters, one row a job, gpart (J, 1, P) float32
+    (kernel M scales it)."""
+    lib, J, K, W, F, H, Z, P, dev = _lstm_train_check(params, x, mask, hidden, latent,
+                                                      "lstm_train_wgrad")
+    _check(act, "act", torch.float32, (J, K, 2, W, 5 * H), dev)
+    _check(rec, "rec", torch.float32, (J, K, lib.fm_lstm_rec_floats(F, H, Z, W)), dev)
+    gpart = torch.empty((J, 1, P), dtype=torch.float32, device=dev)
     if J == 0:
         return gpart
-    rc = _lstm_train_launch(lib, 1, params, x, mask, (J, K, W, F, H, Z, P), act, None, None,
-                            gpart)
-    _raise_on(rc, "lstm_train_backward", lib)
-    launches["lstm_train_backward"] += 1
+    vec = int(H % 4 == 0 and act.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fm_lstm_wgrad(_ptr(act), _ptr(rec), _ptr(gpart), P, J, K, W, F, H, Z, vec,
+                               ctypes.c_void_p(stream))
+    _raise_on(rc, "lstm_train_wgrad", lib)
+    launches["lstm_train_wgrad"] += 1
     return gpart
 
 
+def lstm_train_backward(params, x, mask, act, hidden: int, latent: int):
+    """Kernel L's backward: the recurrence entry (which overwrites act),
+    then the weight-gradient entry. Returns gpart (J, 1, P) float32, the
+    gradient of each job's sum of squared errors (kernel M scales it)."""
+    rec = lstm_train_recurrence(params, x, mask, act, hidden, latent)
+    return lstm_train_wgrad(params, x, mask, act, rec, hidden, latent)
+
+
 def adam(params, mu, nu, step, gpart, num, cnt, lr: float, b1: float, b2: float, eps: float):
-    """Launch kernel M: the gradient of each job from kernel L's partials
-    (gpart (J, nkb, P) summed in block order, times 1 / max(sum cnt, 1)),
-    then optax's Adam on params, mu, nu (J, P) float32 in place, at each
+    """Launch kernel M: the gradient of each job from kernel L's gradient
+    blocks (gpart (J, NG, P), summed in block order, times 1 / max(sum cnt,
+    1)), then optax's Adam on params, mu, nu (J, P) float32 in place, at each
     job's step (J,) int32 (after the increment). Returns each job's loss
-    (J,) float32 from num and cnt (J, nkb) float64."""
+    (J,) float32 from num and cnt (J, NC) float64, the forward's window
+    blocks."""
     J, P = params.shape
     dev = params.device
-    nkb = gpart.shape[1] if gpart.dim() == 3 else -1
+    NG = gpart.shape[1] if gpart.dim() == 3 else -1
+    NC = num.shape[1] if num.dim() == 2 else -1
     for t, name, dt, shape in (
             (params, "params", torch.float32, (J, P)), (mu, "mu", torch.float32, (J, P)),
             (nu, "nu", torch.float32, (J, P)), (step, "step", torch.int32, (J,)),
-            (gpart, "gpart", torch.float32, (J, nkb, P)), (num, "num", torch.float64, (J, nkb)),
-            (cnt, "cnt", torch.float64, (J, nkb))):
+            (gpart, "gpart", torch.float32, (J, NG, P)), (num, "num", torch.float64, (J, NC)),
+            (cnt, "cnt", torch.float64, (J, NC))):
         _check(t, name, dt, shape, dev)
-    if nkb < 1:
-        raise ValueError("adam needs at least one block of partial gradients")
+    if NG < 1 or NC < 1:
+        raise ValueError("adam needs at least one gradient block and one count block")
     loss = torch.empty(J, dtype=torch.float32, device=dev)
     if J == 0:
         return loss
     lib = build.library()
+    vec = int(P % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (params, mu, nu, gpart)))
     f32 = np.float32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fm_adam(_ptr(params), _ptr(mu), _ptr(nu), _ptr(step), _ptr(gpart), _ptr(num),
-                         _ptr(cnt), _ptr(loss), P, J, nkb, float(f32(lr)), float(f32(b1)),
-                         float(f32(b2)), float(f32(1 - b1)), float(f32(1 - b2)),
+                         _ptr(cnt), _ptr(loss), P, J, NG, NC, vec, float(f32(lr)),
+                         float(f32(b1)), float(f32(b2)), float(f32(1 - b1)), float(f32(1 - b2)),
                          float(f32(eps)), ctypes.c_void_p(stream))
     _raise_on(rc, "adam", lib)
     launches["adam"] += 1

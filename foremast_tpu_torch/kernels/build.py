@@ -139,11 +139,19 @@ def _declare(lib):
     lib.fm_lstm_ae_smem_bytes.restype = LL
     lib.fm_lstm_ae_param_count.argtypes = [I, I, I]
     lib.fm_lstm_ae_param_count.restype = LL
-    lib.fm_lstm_train.argtypes = [I, P, LL, P, P] + [I] * 8 + [P] * 5
-    lib.fm_lstm_train.restype = I
-    lib.fm_lstm_train_smem_bytes.argtypes = [I] * 6
+    lib.fm_lstm_train_forward.argtypes = [P, LL, P, P] + [I] * 8 + [P] * 4
+    lib.fm_lstm_train_forward.restype = I
+    lib.fm_lstm_train_smem_bytes.argtypes = [I] * 5
     lib.fm_lstm_train_smem_bytes.restype = LL
-    lib.fm_adam.argtypes = [P] * 8 + [LL, I, I] + [F] * 6 + [P]
+    lib.fm_lstm_rec_floats.argtypes = [I] * 4
+    lib.fm_lstm_rec_floats.restype = I
+    lib.fm_lstm_bptt_windows.argtypes = [I, I]
+    lib.fm_lstm_bptt_windows.restype = I
+    lib.fm_lstm_bptt.argtypes = [P, LL, P, P] + [I] * 6 + [LL] + [P] * 3
+    lib.fm_lstm_bptt.restype = I
+    lib.fm_lstm_wgrad.argtypes = [P] * 3 + [LL] + [I] * 7 + [P]
+    lib.fm_lstm_wgrad.restype = I
+    lib.fm_adam.argtypes = [P] * 8 + [LL] + [I] * 4 + [F] * 6 + [P]
     lib.fm_adam.restype = I
     lib.fm_pair_tests.argtypes = [P] * 4 + [I, I, I, P, I, I, P, P, P, LL, I, P]
     lib.fm_pair_tests.restype = I

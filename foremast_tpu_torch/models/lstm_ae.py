@@ -54,8 +54,8 @@ __all__ = ["PARAM_NAMES", "LstmAutoencoder", "param_shapes", "param_count", "par
            "reconstruction_errors", "fit_score_normalizer", "anomaly_scores",
            "anomaly_scores_fleet", "LEARNING_RATE", "ADAM_B1", "ADAM_B2", "ADAM_EPS",
            "init_state", "adam_state_from_optax", "loss_plain", "LstmAeLoss", "loss_and_grad",
-           "bias_corrections", "reduce_partials_plain", "adam_plain", "train_step_plain",
-           "train_step", "train", "train_fleet"]
+           "wgrad_plain", "bias_corrections", "reduce_partials_plain", "adam_plain",
+           "train_step_plain", "train_step", "train", "train_fleet"]
 
 _F = torch.float32
 
@@ -369,24 +369,30 @@ def loss_plain(stack, x, mask, hidden: int, latent: int):
 
 class LstmAeLoss(torch.autograd.Function):
     """Each job's masked MSE (J,) and, backward, its gradient in the (J, P)
-    parameters: kernel L's two entries on the card (the reference's
-    jax.value_and_grad of _loss_fn, vmapped over jobs). The backward sums
-    L's per-(job, window block) partial gradients in block order and
-    scales them by grad_out / max(sum mask, 1)."""
+    parameters: kernel L's forward and backward on the card (the
+    reference's jax.value_and_grad of _loss_fn, vmapped over jobs). The
+    backward scales L's gradient row (the numerator's) by grad_out /
+    max(sum mask, 1). L's backward overwrites the saved activations, so a
+    graph's backward runs once (a second, under retain_graph, raises)."""
 
     @staticmethod
     def forward(ctx, stack, x, mask, hidden: int, latent: int):
         num, cnt, act = kernels.lstm_train_forward(stack, x, mask, hidden, latent)
         ctx.save_for_backward(stack, x, mask, act, cnt)
         ctx.dims = (int(hidden), int(latent))
+        ctx.consumed = False
         return num.sum(1).to(_F) / cnt.sum(1).to(_F).clamp(min=1.0)
 
     @staticmethod
     def backward(ctx, grad_out):
+        if ctx.consumed:
+            raise RuntimeError("LstmAeLoss: kernel L's backward consumed the activations; "
+                               "run the forward again")
+        ctx.consumed = True
         stack, x, mask, act, cnt = ctx.saved_tensors
         gpart = kernels.lstm_train_backward(stack, x, mask, act, *ctx.dims)
         scale = grad_out / cnt.sum(1).to(_F).clamp(min=1.0)
-        return gpart.sum(1) * scale[:, None], None, None, None, None
+        return gpart[:, 0] * scale[:, None], None, None, None, None
 
 
 def loss_and_grad(stack, x, mask, *, hidden: int, latent: int, device=None):
@@ -398,6 +404,33 @@ def loss_and_grad(stack, x, mask, *, hidden: int, latent: int, device=None):
             else loss_plain(p, x, mask, H, Z))
     grad, = torch.autograd.grad(loss.sum(), p)
     return loss.detach(), grad
+
+
+def wgrad_plain(act, rec, features: int, hidden: int, latent: int):
+    """Twin of kernel L's weight-gradient entry (kernels.lstm_train_wgrad):
+    from the activations as its recurrence entry rewrites them, act (J, K,
+    2, W, 5H) with each step's slot (da_t, h_{t-1}), and its window records
+    rec (J, K, S), each job's gradient row (J, 1, P) in float32. Per LSTM,
+    the recurrent kernel sum h_{t-1}^T da_t over the job's (window, step)
+    rows and the bias sum da_t; the encoder's input kernel from its rows'
+    [x_t, m_t]; the decoder's from each window's z and its da summed over
+    the steps; Dense_0 from the encoder's last h and the latent's gradient;
+    Dense_1's gradients summed over the windows. A record holds z (Z), the
+    decoder's sum of da (4H), the encoder's last h (H), the latent's
+    gradient (Z), Dense_1's kernel (H F) and bias (F) gradients and the
+    encoder's input (W 2F)."""
+    F, H, Z = int(features), int(hidden), int(latent)
+    G = 4 * H
+    J, K, _, W, _ = act.shape
+    da, hp = act[..., :G], act[..., G:]
+    z, ddz, hlast, dzl, d1, inp = torch.split(rec, [Z, G, H, Z, H * F + F, 2 * F * W], dim=-1)
+    rows = "jkwa,jkwg->jag"
+    parts = [torch.einsum(rows, inp.reshape(J, K, W, 2 * F), da[:, :, 0]),
+             torch.einsum(rows, hp[:, :, 0], da[:, :, 0]), da[:, :, 0].sum((1, 2)),
+             torch.einsum("jkh,jkz->jhz", hlast, dzl), dzl.sum(1),
+             torch.einsum("jkz,jkg->jzg", z, ddz),
+             torch.einsum(rows, hp[:, :, 1], da[:, :, 1]), ddz.sum(1), d1.sum(1)]
+    return torch.cat([t.reshape(J, -1) for t in parts], 1)[:, None]
 
 
 def bias_corrections(step):
@@ -414,8 +447,9 @@ def bias_corrections(step):
 
 
 def reduce_partials_plain(gpart, cnt):
-    """Kernel M's gradient: kernel L's partials (J, NB, P) summed in block
-    order in float32, times 1 / max(sum mask, 1) (cnt (J, NB) float64)."""
+    """Kernel M's gradient: kernel L's gradient blocks (J, NG, P; one since
+    L writes a row a job) summed in block order in float32, times 1 /
+    max(sum mask, 1) (cnt (J, NC) float64, the forward's window blocks)."""
     g = gpart[:, 0].clone()
     for b in range(1, gpart.shape[1]):
         g += gpart[:, b]
@@ -462,9 +496,10 @@ def train_step(params, step, mu, nu, x, mask, *, hidden: int, latent: int,
                lr: float = LEARNING_RATE):
     """One training step of J jobs, in place on their rows: params, mu, nu
     (J, P) float32 and step (J,) int32 on one device, x and mask (J, K, W,
-    F). On the card kernel L's forward and backward, then kernel M (the
-    partials' reduction and Adam); on the CPU train_step_plain. Returns the
-    per-job loss (J,), on the device."""
+    F). On the card kernel L's forward and backward (which consumes the
+    forward's activations), then kernel M (the gradient's scale and Adam);
+    on the CPU train_step_plain. Returns the per-job loss (J,), on the
+    device."""
     if x.device.type == "cpu":
         return train_step_plain(params, step, mu, nu, x, mask, hidden, latent, lr)
     num, cnt, act = kernels.lstm_train_forward(params, x, mask, hidden, latent)

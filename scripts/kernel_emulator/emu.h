@@ -1,6 +1,7 @@
 // Host emulation of the CUDA subset the port's kernels use, for g++ (C++20):
 // one OS thread per CUDA thread, the blocks of a launch one after another,
-// __syncthreads as a std::barrier over the block, warp shuffles and ballots
+// __syncthreads as a std::barrier over the block (named barriers, bar.sync
+// id, n, as one std::barrier each), warp shuffles and ballots
 // through a per-warp exchange buffer and barrier, __shared__ variables as
 // function statics (one block runs at a time), cp.async as a plain copy.
 // It checks what a kernel computes, never how fast: see emulate.py.
@@ -13,6 +14,7 @@
 #include <cstdio>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <type_traits>
 #include <vector>
@@ -40,15 +42,31 @@ struct Warp {
   std::barrier<> bar{32};
   uint64_t buf[32];
 };
+// a block's named barriers (bar.sync id, n), made at their first use
+struct Named {
+  std::mutex mu;
+  std::unique_ptr<std::barrier<>> bar[16];
+};
 struct Ctx {
   uint3 tid, bid;
   dim3 bdim, gdim;
   unsigned char* smem;
   std::barrier<>* block_bar;
+  Named* named;
   Warp* warp;
   int lane;
 };
 inline thread_local Ctx ctx;
+
+inline void bar_sync(int id, int n) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> g(ctx.named->mu);
+    if (!ctx.named->bar[id]) ctx.named->bar[id].reset(new std::barrier<>(n));
+    b = ctx.named->bar[id].get();
+  }
+  b->arrive_and_wait();
+}
 
 template <typename T>
 inline T exchange(T v, int src) {
@@ -70,6 +88,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, void*, Args... args) {
   for (unsigned b = 0; b < grid.x; ++b) {
     std::vector<unsigned char> sm(smem + 64, 0xcd);
     std::barrier<> bar(nt);
+    Named named;
     std::vector<std::unique_ptr<Warp>> warps;
     for (unsigned w = 0; w < (nt + 31) / 32; ++w) warps.emplace_back(new Warp());
     std::vector<std::thread> th;
@@ -81,6 +100,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, void*, Args... args) {
         ctx.gdim = grid;
         ctx.smem = sm.data();
         ctx.block_bar = &bar;
+        ctx.named = &named;
         ctx.warp = warps[t / 32].get();
         ctx.lane = int(t % 32);
         kernel(args...);

@@ -6,7 +6,7 @@
 For a machine without nvcc or a card. `build()` compiles
 ``foremast_tpu_torch/csrc/*.cu`` with g++ against ``emu.h`` (after three
 textual rewrites: the dynamic shared-memory declaration, the ``<<<...>>>``
-launches and the cp.async helpers) into
+launches, the named barrier and the cp.async helpers) into
 ``build/kernel_emulator/<hash>/libemu.so``. `install()` points
 ``foremast_tpu_torch.kernels`` at that library and lets its launchers take
 CPU tensors, so the real launchers run the real kernel sources: index
@@ -48,13 +48,18 @@ def _rewrite(text: str) -> str:
     text = text.replace("extern __shared__ __align__(16) unsigned char smem[];",
                         "unsigned char* smem = emu::ctx.smem;")
     text = _LAUNCH.sub(r"emu::launch(\1, \2, \3);", text)
+    text = text.replace('asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(n) : "memory");',
+                        "emu::bar_sync(id, n);")
     start = text.find("__device__ __forceinline__ void cp_async4")
     if start >= 0:
         end = text.find("}  // namespace fm", start)
         text = text[:start] + (
             "inline void cp_async4(void* d, const void* s) { std::memcpy(d, s, 4); }\n"
             "inline void cp_async8(void* d, const void* s) { std::memcpy(d, s, 8); }\n"
-            "inline void cp_async_wait_all() {}\n\n") + text[end:]
+            "inline void cp_async16(void* d, const void* s) { std::memcpy(d, s, 16); }\n"
+            "inline void cp_async_wait_all() {}\n"
+            "inline void cp_async_commit() {}\n"
+            "template <int N>\ninline void cp_async_wait_group() {}\n\n") + text[end:]
     return text
 
 
@@ -245,9 +250,19 @@ def self_check() -> int:
             expect(name, True, f"err |err| {e:.3g}")
         except AssertionError as e:
             expect(name, False, str(e))
-    for F, H, Z in ((3, 8, 4), (4, 16, 8)):
-        name = f"lstm_train and adam F={F} H={H} Z={Z}"
-        p, x, m = cs.adversarial_lstm_train(4, 11, 8, F, H, Z, g)  # two window blocks a job
+    # kernel L: two forward window blocks a job; K = 11 is no whole number
+    # of the recurrence's window blocks (16 at H <= 32, 8 at H = 40, whose
+    # groups are two warps joined by a named barrier); the recurrent weights
+    # in shared memory and, under a 1 KB budget, read from device memory; at
+    # H = 10 the GEMM stages its rows by 4-byte copies
+    saved_budget = kernels.LSTM_TRAIN_SMEM_BYTES
+    for (F, H, Z, K, W), budget in (((3, 8, 4, 11, 8), saved_budget),
+                                    ((4, 16, 8, 11, 8), 1024), ((4, 40, 8, 11, 5), saved_budget),
+                                    ((4, 40, 8, 6, 5), 1024), ((2, 8, 4, 3, 1), saved_budget),
+                                    ((2, 10, 6, 5, 4), saved_budget)):
+        name = f"lstm_train and adam F={F} H={H} Z={Z} K={K} W={W} budget {budget}"
+        kernels.LSTM_TRAIN_SMEM_BYTES = budget
+        p, x, m = cs.adversarial_lstm_train(4, K, W, F, H, Z, g)
         try:
             kern = tl.LstmAeLoss.apply(p.clone().requires_grad_(True), x, m, H, Z)
             q = p.clone().requires_grad_(True)
@@ -256,13 +271,29 @@ def self_check() -> int:
             kg, = torch.autograd.grad(tl.LstmAeLoss.apply(q, x, m, H, Z).sum(), q)
             e = cs.compare_lstm_train((kern.detach(), kg), (pl.detach(), pg))
             num, cnt, act = kernels.lstm_train_forward(p, x, m, H, Z)
-            gpart = kernels.lstm_train_backward(p, x, m, act, H, Z)
+            gpart = cs.lstm_backward_twice(p, x, m, act, H, Z)
             step = torch.tensor([1, 2, 30, 400], dtype=torch.int32)
             cs.compare_adam(p, 1e-3 * torch.randn(p.shape, generator=g),
                             1e-6 * torch.rand(p.shape, generator=g), step, gpart, num, cnt)
-            expect(name, True, f"grad |err| {e:.3g}, adam bit for bit")
+            expect(name, True, f"grad |err| {e:.3g}, backward twice equal, adam bit for bit")
         except AssertionError as e:
             expect(name, False, str(e))
+    kernels.LSTM_TRAIN_SMEM_BYTES = saved_budget
+    # kernel M on one gradient block and six count blocks, rows of P = 959
+    # (scalar entries) and 1,032 floats (four a thread)
+    for F, H, Z in ((3, 8, 4), (4, 8, 4)):
+        P, J = tl.param_count(F, H, Z), 5
+        cnt = torch.randint(0, 40, (J, 6), generator=g).double()
+        cnt[0] = 0
+        try:
+            cs.compare_adam(torch.randn(J, P, generator=g), 1e-3 * torch.randn(J, P, generator=g),
+                            1e-6 * torch.rand(J, P, generator=g),
+                            torch.tensor([1, 2, 30, 400, 2900], dtype=torch.int32),
+                            torch.randn(J, 1, P, generator=g),
+                            10 * torch.rand(J, 6, dtype=torch.float64, generator=g), cnt)
+            expect(f"adam P={P}", True, "bit for bit")
+        except AssertionError as e:
+            expect(f"adam P={P}", False, str(e))
     cs.DEV = saved_dev
     many = torch.tensor(cs.MANY_CANDIDATES, dtype=torch.int32)
     kp, ks = kernels.detect_period(x_series, m_series, many, fb, 0.2, 0.05, 0.01)

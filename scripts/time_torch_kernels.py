@@ -35,8 +35,29 @@ card between them, and the card's idle share over the launch.
 
 --lstm-train times one training epoch's kernels on chip_smoke.py's training
 pass (1,024 jobs x a day of 45 windows of 32 steps x 4 metrics, H = 32,
-Z = 16, from the reference's initial rows): kernel L's forward and backward
-entries and kernel M alone, each the median of 5 by CUDA events.
+Z = 16, from the reference's initial rows): kernel L's forward, its
+backward's recurrence and weight-gradient entries and kernel M alone, with
+torch.optim.Adam(fused=True) on the same rows and cuDNN's LSTM over the same
+recurrences beside them, by CUDA events: L's entries the median of 5 (the
+recurrence, which consumes its input, a mean of 5 on fresh copies), M and
+the fused Adam the mean of chip_smoke.TIMED_RUNS launches back to back, as
+chip_smoke.py times them.
+
+--lstm-backward times kernel L's backward alone (`lstm_train_backward`,
+both its entries where the checkout has two) at the widths above the
+engine's, F = 4: H = 128, Z = 64 on the training pass's 1,024 jobs x 45
+windows and H = 256, Z = 64 on its first 256 jobs, from seeded rows at
+flax's initial scales (chip_smoke.lstm_params); each the mean of 5 launches
+by CUDA events, on a fresh copy of the forward's activations each (the
+backward may consume them). It calls only entry points that every checkout
+since kernel L's first has, so parent and change run the same code.
+
+--engine-lstm-epochs runs chip_smoke.py's engine_lstm arm on one fixed
+fleet (engine_lstm_fleet from numpy's default_rng(SEED)) on the card and on
+the CPU twins, and records each train_fleet call the engine makes: its
+jobs, the epochs it ran (the plateau's stop) and each epoch's fleet-mean
+loss; with the kernel launches per cycle and the verdicts. Run from two
+checkouts, it shows whether training stops at the same epochs on both.
 
 --fleet times kernel P (`kernels.fleet_topk`, k = chip_smoke.FLEET_K) on
 the fleet that `score_pairs` scores from the 100,000-pair pass, and beside
@@ -244,8 +265,11 @@ def families_split():
 
 
 def lstm_train_split():
-    """One training epoch's kernels L (forward, backward) and M alone on
-    chip_smoke's training-pass inputs."""
+    """One training epoch's kernels alone on chip_smoke's training-pass
+    inputs: L's forward, its backward's recurrence entry (on a fresh copy
+    of the activations each run: it overwrites them) and weight-gradient
+    entry, M, torch.optim.Adam(fused=True).step() on the same rows, and
+    cuDNN's LSTM over the same recurrences (chip_smoke.cudnn_lstm_ms)."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.models import lstm_ae as tl
 
@@ -254,16 +278,100 @@ def lstm_train_split():
     H, Z = 32, 16
     params, step, mu, nu = (t.to(cs.DEV) for t in tl.init_state(4, H, Z, x.shape[0]))
     step += 1
-    num, cnt, act = kernels.lstm_train_forward(params, x, m, H, Z)
+    num, cnt, act0 = kernels.lstm_train_forward(params, x, m, H, Z)
     fwd = cs.median_ms(lambda: kernels.lstm_train_forward(params, x, m, H, Z), 5)
-    gpart = kernels.lstm_train_backward(params, x, m, act, H, Z)
-    bwd = cs.median_ms(lambda: kernels.lstm_train_backward(params, x, m, act, H, Z), 5)
-    adam = cs.median_ms(lambda: kernels.adam(params, mu, nu, step, gpart, num, cnt,
-                                             tl.LEARNING_RATE, tl.ADAM_B1, tl.ADAM_B2,
-                                             tl.ADAM_EPS), 5)
-    print(f"  lstm_train_forward {fwd:.3f} ms, lstm_train_backward {bwd:.3f} ms, adam "
-          f"{adam:.3f} ms (medians of 5)", flush=True)
-    return {"lstm_train_forward_ms": fwd, "lstm_train_backward_ms": bwd, "adam_ms": adam}
+    act = torch.empty_like(act0)
+    rec_ms = cs.cuda_ms_fresh(lambda: kernels.lstm_train_recurrence(params, x, m, act, H, Z),
+                              lambda: act.copy_(act0), 5)
+    act.copy_(act0)
+    rec = kernels.lstm_train_recurrence(params, x, m, act, H, Z)
+    wg_ms = cs.median_ms(lambda: kernels.lstm_train_wgrad(params, x, m, act, rec, H, Z), 5)
+    gpart = kernels.lstm_train_wgrad(params, x, m, act, rec, H, Z)
+    del act, act0, rec
+    adam = cs.cuda_ms(lambda: kernels.adam(params, mu, nu, step, gpart, num, cnt,
+                                           tl.LEARNING_RATE, tl.ADAM_B1, tl.ADAM_B2,
+                                           tl.ADAM_EPS), cs.TIMED_RUNS)
+    lib_p = torch.nn.Parameter(params.clone())
+    lib_p.grad = tl.reduce_partials_plain(gpart, cnt)
+    opt = torch.optim.Adam([lib_p], lr=tl.LEARNING_RATE, betas=(tl.ADAM_B1, tl.ADAM_B2),
+                           eps=tl.ADAM_EPS, fused=True)
+    fused = cs.cuda_ms(opt.step, cs.TIMED_RUNS)
+    del lib_p, opt, gpart
+    torch.cuda.empty_cache()
+    cudnn = cs.cudnn_lstm_ms(x.shape[0] * x.shape[1], x.shape[2], x.shape[3], H, Z, gen)
+    print(f"  lstm_train_forward {fwd:.3f} ms, backward {rec_ms + wg_ms:.3f} ms (recurrence "
+          f"{rec_ms:.3f} ms, weight gradients {wg_ms:.3f} ms), adam {adam:.3f} ms, "
+          f"torch.optim.Adam(fused=True).step() {fused:.3f} ms, cuDNN LSTM forward and "
+          f"backward {cudnn:.3f} ms (L: medians of 5, the recurrence a mean of 5; M and the "
+          f"fused Adam: means of {cs.TIMED_RUNS} back to back)", flush=True)
+    return {"lstm_train_forward_ms": fwd, "lstm_train_recurrence_ms": rec_ms,
+            "lstm_train_wgrad_ms": wg_ms, "lstm_train_backward_ms": rec_ms + wg_ms,
+            "adam_ms": adam, "fused_adam_ms": fused, "cudnn_lstm_ms": cudnn}
+
+
+LSTM_BACKWARD_WIDTHS = ((128, 64, 1_024), (256, 64, 256))  # (H, Z, jobs), F = 4
+
+
+def lstm_backward_widths():
+    from foremast_tpu_torch import kernels
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    x, m = cs.lstm_day_windows(cs.LSTM_TRAIN_JOBS, gen)
+    out = {}
+    for H, Z, J in LSTM_BACKWARD_WIDTHS:
+        xj, mj = x[:J].contiguous(), m[:J].contiguous()
+        p = cs.lstm_params(J, 4, H, Z, gen)
+        act0 = kernels.lstm_train_forward(p, xj, mj, H, Z)[2]
+        act = torch.empty_like(act0)
+        t = cs.cuda_ms_fresh(lambda: kernels.lstm_train_backward(p, xj, mj, act, H, Z),
+                             lambda: act.copy_(act0), 5)
+        out[f"H={H} Z={Z} jobs={J}"] = t
+        print(f"  lstm_train_backward at F=4 H={H} Z={Z}, {J} jobs x {x.shape[1]} windows: "
+              f"{t:.3f} ms", flush=True)
+        del p, act, act0
+        torch.cuda.empty_cache()
+    return out
+
+
+def engine_lstm_epochs():
+    from foremast_tpu_torch.engine import jobs as J
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    fleet = cs.engine_lstm_fleet(np.random.default_rng(cs.SEED))
+    train_fleet = tl.train_fleet
+    out = {}
+    for dev in (cs.DEV, "cpu"):
+        calls = []
+
+        def recorded(x, mask, **kw):
+            hist = []
+            res = train_fleet(x, mask, **kw, history=hist)
+            calls.append({"jobs": int(len(x)), "epochs": len(hist),
+                          "losses": [float(h) for h in hist]})
+            return res
+
+        tl.train_fleet = recorded
+        try:
+            store, cycles, zs, _judged = cs.engine_lstm_arm(fleet, dev)
+        finally:
+            tl.train_fleet = train_fleet
+        unhealthy = " ".join(sorted(d.id for d in store.by_status(J.COMPLETED_UNHEALTH)))
+        out[dev] = {"calls": calls, "launches": [c["launches"] for c in cycles],
+                    "unhealthy": len(unhealthy.split()),
+                    "unhealthy_digest": hashlib.sha256(unhealthy.encode()).hexdigest()[:16],
+                    "z": {j: zs[j] for j in sorted(zs)}}
+        print(f"  engine_lstm on {dev}: train_fleet calls (jobs, epochs) "
+              f"{[(c['jobs'], c['epochs']) for c in calls]}; {out[dev]['unhealthy']} jobs "
+              f"unhealthy ({out[dev]['unhealthy_digest']})", flush=True)
+    card, cpu = out[cs.DEV], out["cpu"]
+    d_loss = max((abs(a - b) / abs(b) for c, t in zip(card["calls"], cpu["calls"])
+                  for a, b in zip(c["losses"], t["losses"])), default=0.0)
+    out["card_vs_cpu"] = {
+        "same_epochs": [c["epochs"] for c in card["calls"]] == [c["epochs"] for c in cpu["calls"]],
+        "max_rel_d_loss": d_loss,
+        "max_d_z": max(abs(card["z"][j] - cpu["z"][j]) for j in card["z"])}
+    print(f"  card against the CPU twins: {out['card_vs_cpu']}", flush=True)
+    return out
 
 
 def fleet_split():
@@ -306,6 +414,10 @@ def main():
                    help="time kernels H and I and profile the HPA launch instead")
     p.add_argument("--lstm-train", action="store_true",
                    help="time one training epoch's kernels L and M instead")
+    p.add_argument("--lstm-backward", action="store_true",
+                   help="time kernel L's backward at H = 128 and 256 instead")
+    p.add_argument("--engine-lstm-epochs", action="store_true",
+                   help="record the engine_lstm arm's training epochs instead")
     p.add_argument("--fleet", action="store_true", help="time kernel P instead")
     p.add_argument("--a-digest", action="store_true",
                    help="print a digest of kernel A's outputs instead")
@@ -327,6 +439,24 @@ def main():
     if opt.families:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "families": families_split()}), flush=True)
+        return
+    if opt.lstm_backward:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "lstm_backward": lstm_backward_widths()}), flush=True)
+        return
+    if opt.engine_lstm_epochs:
+        res = engine_lstm_epochs()
+        os.makedirs(opt.out, exist_ok=True)
+        path = os.path.join(opt.out, "engine_lstm_epochs_%s.json" % os.path.basename(os.getcwd()))
+        with open(path, "w") as fh:
+            json.dump(res, fh)
+        brief = {dev: {"epochs": [c["epochs"] for c in res[dev]["calls"]],
+                       "launches": res[dev]["launches"], "unhealthy": res[dev]["unhealthy"],
+                       "unhealthy_digest": res[dev]["unhealthy_digest"]}
+                 for dev in (cs.DEV, "cpu")}
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "engine_lstm_epochs": brief, "card_vs_cpu": res["card_vs_cpu"],
+                          "written": path}), flush=True)
         return
     if opt.lstm_train:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

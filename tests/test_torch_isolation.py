@@ -261,7 +261,8 @@ def test_launchers_refuse_cpu_tensors():
     assert set(kernels.launches) == {"pair_verdict", "ma_band", "band_from_preds", "smooth",
                                      "hw_fit", "affine_scan", "detect_period", "triage_screen",
                                      "bivariate", "hpa_score", "st_fit", "lstm_ae",
-                                     "lstm_train_forward", "lstm_train_backward", "adam",
+                                     "lstm_train_forward", "lstm_train_recurrence",
+                                     "lstm_train_wgrad", "adam",
                                      "pair_tests", "rank_and_ties", "kruskal_groups", "friedman",
                                      "fleet_topk"}
     assert all(n == 0 for n in kernels.launches.values())

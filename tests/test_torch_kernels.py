@@ -17,8 +17,10 @@ the demand to 1e-4; kernel J's preds to 1e-5 of a row's scale (1e-3 on
 ill-posed rows) and beta to 1e-4 of its largest entry; kernel K's errors to
 1e-4 relative and its z-scores on the reference-trained fixture to 1e-3;
 kernel L's loss to 1e-5 relative and its gradient to 1e-4 of a job's
-largest entry against torch autograd, NaN jobs alike; kernel M bit for bit
-against the written-out Adam; five training steps on the card within 1e-5
+largest entry against torch autograd, NaN jobs alike, its backward equal
+bit for bit on a second run, its weight-gradient entry to 1e-4 of a job's
+largest entry against its twin; kernel M bit for bit against the written-out
+Adam; five training steps on the card within 1e-5
 relative (losses) and 1e-4 (rows: Adam's step is lr times the sign of a
 gradient near 0, so float noise there moves a row by up to lr) of the twin's;
 the reference's training fixture as chip_smoke.py holds it; kernel N's
@@ -380,20 +382,43 @@ def test_lstm_ae_scores_the_reference_trained_fixture_as_the_reference(card):
 
 
 @pytest.mark.parametrize("W", cs.LSTM_TRAIN_WS)
-@pytest.mark.parametrize("F,H,Z", cs.LSTM_WIDTHS)
+@pytest.mark.parametrize("F,H,Z", cs.LSTM_TRAIN_WIDTHS)
 def test_lstm_train_matches_autograd_through_the_twin(card, F, H, Z, W):
+    """From kernel K's widths to the widest the launchers take (H = Z =
+    256), on K = 11 windows a job: no whole number of the recurrence
+    entry's window blocks."""
     from foremast_tpu_torch.models import lstm_ae as tl
 
+    K = 11
+    assert K % kernels.lstm_bptt_blocks(K, H)[0] != 0
     gen = torch.Generator(device=card).manual_seed(F * H + Z + W)
-    p, x, m = cs.adversarial_lstm_train(32, 11, W, F, H, Z, gen)
-    before = (kernels.launches["lstm_train_forward"], kernels.launches["lstm_train_backward"])
+    p, x, m = cs.adversarial_lstm_train(32, K, W, F, H, Z, gen)
+    names = ("lstm_train_forward", "lstm_train_recurrence", "lstm_train_wgrad")
+    before = [kernels.launches[k] for k in names]
     kern = tl.loss_and_grad(p, x, m, hidden=H, latent=Z)
-    assert (kernels.launches["lstm_train_forward"],
-            kernels.launches["lstm_train_backward"]) == (before[0] + 1, before[1] + 1)
+    assert [kernels.launches[k] for k in names] == [n + 1 for n in before]
     q = p.clone().requires_grad_(True)
     loss = tl.loss_plain(q, x, m, H, Z)
     grad, = torch.autograd.grad(loss.sum(), q)
     cs.compare_lstm_train(kern, (loss.detach(), grad))
+
+
+@pytest.mark.parametrize("F,H,Z", [(4, 32, 16), (4, 128, 64)])
+def test_lstm_train_backward_gives_the_same_bits_twice(card, F, H, Z):
+    gen = torch.Generator(device=card).manual_seed(H + 1)
+    p, x, m = cs.adversarial_lstm_train(24, 19, 32, F, H, Z, gen)
+    act = kernels.lstm_train_forward(p, x, m, H, Z)[2]
+    cs.lstm_backward_twice(p, x, m, act, H, Z)
+
+
+@pytest.mark.parametrize("F,H,Z", cs.LSTM_TRAIN_WIDTHS)
+def test_lstm_train_wgrad_matches_its_twin(card, F, H, Z):
+    """The weight-gradient entry against wgrad_plain on what the recurrence
+    entry leaves, on K = 11 windows a job."""
+    gen = torch.Generator(device=card).manual_seed(F * H + Z)
+    p, x, m = cs.adversarial_lstm_train(32, 11, 32, F, H, Z, gen)
+    act = kernels.lstm_train_forward(p, x, m, H, Z)[2]
+    cs.compare_lstm_wgrad(p, x, m, act, H, Z)
 
 
 def test_adam_equals_the_written_out_adam_bit_for_bit(card):
@@ -409,6 +434,31 @@ def test_adam_equals_the_written_out_adam_bit_for_bit(card):
     before = kernels.launches["adam"]
     assert cs.compare_adam(p, mu, nu, step, gpart, num, cnt) == 0.0
     assert kernels.launches["adam"] == before + 1
+
+
+def test_lstm_ae_loss_refuses_a_second_backward_over_consumed_activations(card):
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=card).manual_seed(2)
+    p, x, m = cs.adversarial_lstm_train(4, 3, 8, 4, 32, 16, gen)
+    loss = tl.LstmAeLoss.apply(p.clone().requires_grad_(True), x, m, 32, 16).sum()
+    loss.backward(retain_graph=True)
+    with pytest.raises(RuntimeError, match="consumed"):
+        loss.backward()
+
+
+def test_adam_is_bit_for_bit_on_one_gradient_block_and_six_count_blocks(card):
+    """The engine's shape: K = 45 windows give the forward six count blocks
+    (num, cnt (J, 6)), the backward one gradient row a job (J, 1, P)."""
+    gen = torch.Generator(device=card).manual_seed(45)
+    p, x, m = cs.adversarial_lstm_train(40, 45, 32, 4, 32, 16, gen)
+    num, cnt, act = kernels.lstm_train_forward(p, x, m, 32, 16)
+    gpart = kernels.lstm_train_backward(p, x, m, act, 32, 16)
+    assert gpart.shape[1] == 1 and cnt.shape[1] == 6
+    step = torch.randint(1, 3000, (40,), generator=gen, device=card, dtype=torch.int32)
+    mu = 1e-3 * torch.randn(p.shape, generator=gen, device=card)
+    nu = 1e-6 * torch.rand(p.shape, generator=gen, device=card)
+    assert cs.compare_adam(p, mu, nu, step, gpart, num, cnt) == 0.0
 
 
 def test_train_step_on_the_card_follows_the_twin(card):

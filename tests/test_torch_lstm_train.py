@@ -17,6 +17,8 @@ Tolerances:
     sums in another order through 2W recurrent steps; ~1e-7 measured), the
     moments within 1e-5 of their largest entry, the parameters within
     1e-6 (a step moves an entry by at most lr = 1e-3);
+  * wgrad_plain (kernel L's weight-gradient twin) on slots built by
+    autograd: the reference's gradient within 1e-5 of its largest entry;
   * adam_plain against optax's update on the same gradient: within 2
     float32 ulps (XLA may fuse a multiply-add of the moment updates);
   * training: each epoch's fleet-mean loss within 1e-5 relative of the
@@ -161,6 +163,72 @@ def test_one_train_step_from_carried_state_matches_the_reference(F, H, Z):
                                atol=1e-5 * float(mu2.abs().max()))
     np.testing.assert_allclose(nu[0].numpy(), nu2.numpy(), rtol=1e-4,
                                atol=1e-5 * float(nu2.abs().max()))
+
+
+def _rewritten_slots(stack, x, m, H, Z):
+    """What kernel L's recurrence entry leaves for its weight-gradient
+    entry, built by torch autograd through the recurrences written out on
+    the CPU: act (J, K, 2, W, 5H), each step's slot (da_t, h_{t-1}) with
+    da_t the gradient of the job's sum of squared errors in the gates'
+    pre-activations, and the window records rec (J, K, S)."""
+    J, K, W, F = x.shape
+    stack = stack.clone().requires_grad_(True)
+    p = tl.unflatten_params(stack, F, H, Z)
+    inp = torch.cat([x, m.to(x.dtype)], dim=-1)
+    pre, prev = ([], []), ([], [])
+
+    def run(lstm, proj):
+        h = c = torch.zeros((J, K, H))
+        hs = []
+        for t in range(W):
+            g = proj(t) + torch.bmm(h, p[f"LSTMCell_{lstm}.wh"]) + p[f"LSTMCell_{lstm}.b"][:, None]
+            g.retain_grad()
+            pre[lstm].append(g)
+            prev[lstm].append(h)
+            i, f, gg, o = g.split(H, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            hs.append(h)
+        return hs
+
+    enc = run(0, lambda t: torch.bmm(inp[:, :, t], p["LSTMCell_0.wi"]))
+    z = torch.bmm(enc[-1], p["Dense_0.kernel"]) + p["Dense_0.bias"][:, None]
+    z.retain_grad()
+    dz = torch.bmm(z, p["LSTMCell_1.wi"])
+    hd = torch.stack(run(1, lambda t: dz), dim=2)
+    recon = torch.einsum("jkwh,jhf->jkwf", hd, p["Dense_1.kernel"]) + p["Dense_1.bias"][:, None,
+                                                                                      None]
+    recon.retain_grad()
+    torch.where(m, (recon - x) ** 2, 0.0).sum().backward()
+    act = torch.stack([torch.cat([torch.stack([g.grad for g in pre[n]], 2),
+                                  torch.stack(prev[n], 2)], -1) for n in (0, 1)], 2)
+    dy = recon.grad
+    rec = torch.cat([z, act[:, :, 1, :, :4 * H].sum(2), enc[-1], z.grad,
+                     torch.einsum("jkwh,jkwf->jkhf", hd, dy).reshape(J, K, H * F), dy.sum(2),
+                     inp.reshape(J, K, W * 2 * F)], -1)
+    return act.detach(), rec.detach(), stack.grad
+
+
+@pytest.mark.parametrize("F,H,Z", [(3, 8, 4), (4, 32, 16)])
+def test_wgrad_plain_sums_the_rewritten_slots_into_the_reference_s_gradient(F, H, Z):
+    """Kernel L's weight-gradient twin on the slots and records its
+    recurrence entry leaves (built by autograd here): the reference's
+    gradient of the job's sum of squared errors (value_and_grad of _loss_fn
+    times max(sum m, 1)), within 1e-5 of its largest entry."""
+    W = 16
+    model, params, _opt, _tx = _carried(F, H, Z, W)
+    x, m = _windows(2, 1, 5, W, F)
+    loss_fn = lambda p: jl._loss_fn(p, None, jnp.asarray(x[0]), jnp.asarray(m[0]),  # noqa: E731
+                                    model.apply)
+    _loss, ref_grad = jax.value_and_grad(loss_fn)(params)
+    g_ref = _flat(ref_grad) * max(int(m.sum()), 1)
+    stack = torch.from_numpy(_flat(params))[None]
+    act, rec, autograd = _rewritten_slots(stack, torch.from_numpy(x), torch.from_numpy(m), H, Z)
+    got = tl.wgrad_plain(act, rec, F, H, Z)
+    assert got.shape == (1, 1, tl.param_count(F, H, Z))
+    lim = 1e-5 * np.abs(g_ref).max()
+    np.testing.assert_allclose(got[0, 0].numpy(), g_ref, rtol=0, atol=lim)
+    np.testing.assert_allclose(autograd[0].numpy(), g_ref, rtol=0, atol=lim)
 
 
 def test_adam_plain_is_optax_adam_written_out():
