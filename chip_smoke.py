@@ -20,7 +20,7 @@ ends; any failure exits non-zero:
              band_from_preds at T in {128, 1024, 4096, 16384} on rows that
              are all-masked, single-point, constant, with leading or
              trailing gaps, with a period >= T/2 or below 4; kernel G at
-             T in {128, 1024, 4096, 16384} on rows that are all-masked,
+             T in {128, 1000, 1024, 4096, 16384} on rows that are all-masked,
              single-point, constant, +-0, with NaN in a valid slot, with an
              empty region, quantized or shifted; kernels H and I at
              T in {128, 1024, 2048, 16384}, the optional arguments given and
@@ -147,8 +147,10 @@ ends; any failure exits non-zero:
              threshold in z.
 
 Kernel G (the triage screen) is held against its twin in phase 3, beside
-kernel B's ma_band on the 100,000 rows of phases 5 and 6 (equal counts but at
-band edges, shrunk count >= count) and alone at the engine's shape in phase 8.
+kernel B's ma_band there, on the 100,000 rows of phases 5 and 6 and at the
+engine's shape in phase 9 (sigma equal to B's bit for bit on every row, equal
+counts but at band edges, shrunk count >= count), and timed alone at the
+engine's shape.
 
 Each path (the tests battery, the fleet scorer, each algorithm of the
 seasonal phase, each family call, the LSTM scoring and training passes, each
@@ -689,8 +691,8 @@ TRIAGE_WINDOW, TRIAGE_MARGIN = 30, 0.25  # EngineConfig.ma_window, triage_margin
 def adversarial_screen(B, T, gen):
     """Screen rows on the card, ten kinds: noisy with gaps, all masked, a
     single point, constant with an identical current, +-0, NaN in a valid
-    history slot, an empty region, quantized, NaN at masked slots, a shifted
-    current. The last quarter is the region; thresholds 2, 3, 10; every
+    history slot, an empty region, quantized around 0, NaN at masked slots,
+    a shifted current. The last quarter is the region; thresholds 2, 3, 10; every
     bound mode; some rows with a lower clamp. Returns (x, mask, region,
     threshold, bound_mode, min_lower_bound, margin)."""
     dev = DEV
@@ -708,7 +710,7 @@ def adversarial_screen(B, T, gen):
     nan_row = kind == 5
     x[nan_row, T // 5], m[nan_row, T // 5] = torch.nan, True
     region[kind == 6] = False
-    x[kind == 7] = torch.round(x[kind == 7])
+    x[kind == 7] = torch.round(x[kind == 7]) - 50.0  # ties of both signs
     hole = (kind == 8)[:, None] & (t >= T // 2) & (t < 3 * T // 4)
     x[hole], m[hole] = torch.nan, False
     x[kind == 9] += 20.0 * region[kind == 9]
@@ -768,20 +770,32 @@ def compare_triage(args, kern, plain):
     return err, int((~exact).sum())
 
 
+def check_band_sigma(g_sigma, b_sigma, what):
+    """Kernel G's sigma against kernel B's on the same rows: equal bit for
+    bit on every row (the same prefix sums and the same order of sums), inf
+    where both are inf."""
+    same = g_sigma.view(torch.int32) == b_sigma.view(torch.int32)
+    check(bool(same.all()), f"{what}: triage_screen sigma differs from ma_band's on "
+          f"{int((~same).sum())} rows")
+
+
 def kernel_g_vs_twin(gen):
-    """Kernel G against its twin on adversarial rows at T in {128, 1024,
-    4096, 16384}: ints exact but for bracketed rows, NaN in a valid slot
-    ordered after +inf (the rows agree on robust_z), constant rows at
-    sigma 0."""
+    """Kernel G against its twin on adversarial rows at T in {128, 1000,
+    1024, 4096, 16384} (1000: not a multiple of 256): ints exact but for
+    bracketed rows, NaN in a valid slot ordered after +inf (the rows agree on
+    robust_z), constant rows at sigma 0, sigma equal to kernel B's bit for
+    bit."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.ops import triage as tr
 
     worst = 0.0
-    for T, B in ((128, 1024), (1024, 1024), (4096, 512), (16384, 256)):
+    for T, B in ((128, 1024), (1000, 1024), (1024, 1024), (4096, 512), (16384, 256)):
         args = adversarial_screen(B, T, gen)
         kern = kernels.triage_screen(args[0], args[1], args[2], TRIAGE_WINDOW, *args[3:])
         plain = tr.screen_rows_plain(*args, TRIAGE_WINDOW)
+        band = kernels.ma_band(args[0], args[1], args[2], TRIAGE_WINDOW, *args[3:6])
         torch.cuda.synchronize()
+        check_band_sigma(kern["sigma"], band["sigma"], f"adversarial rows at T={T}")
         err, bracketed = compare_triage(args, kern, plain)
         const = torch.arange(B, device=DEV) % 10 == 3
         check(bool((kern["sigma"][const] == 0).all()), "triage_screen: a constant history's sigma")
@@ -821,10 +835,11 @@ def sort_ms(x, mask, region, chunk_rows):
 
 def triage_beside_band(args, what, runs):
     """Kernel G on a band phase's rows with its policy and margin 0.25,
-    beside kernel B's ma_band on the same rows: count equal to B's on every
-    row but those with a point within float noise of a band edge,
-    shrunk_count >= count everywhere; then its time (median of `runs`), its
-    bound, its twin's and torch.sort's."""
+    beside kernel B's ma_band on the same rows: sigma equal to B's bit for
+    bit on every row, count equal to B's on every row but those with a point
+    within float noise of a band edge, shrunk_count >= count everywhere;
+    then its time (median of `runs`), its bound, its twin's and
+    torch.sort's."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.ops import triage as tr
 
@@ -838,6 +853,7 @@ def triage_beside_band(args, what, runs):
     g = run()
     b = kernels.ma_band(x, mask, region, TRIAGE_WINDOW, thr, mode, mlb)
     torch.cuda.synchronize()
+    check_band_sigma(g["sigma"], b["sigma"], what)
     check(bool((g["shrunk_count"] >= g["count"]).all()), f"{what}: shrunk_count < count")
     differ = torch.nonzero(g["count"] != b["count"]).flatten()
     if differ.numel():
@@ -861,8 +877,8 @@ def triage_beside_band(args, what, runs):
     bound = triage_bound(mask, region)
     cleared = int((g["shrunk_count"] < torch.clamp(0.1 * g["checked"].float(), min=2.0)).sum())
     print(f"  triage_screen on these rows: counts equal to ma_band's on {B - differ.numel()} of {B} "
-          f"rows ({differ.numel()} bracketed at a band edge), max |sigma - ma_band sigma| "
-          f"{sigma_err:.3g}; shrunk count under the band gate on {cleared} rows; kernel "
+          f"rows ({differ.numel()} bracketed at a band edge), sigma equal to ma_band's bit for "
+          f"bit on every row (max |d| {sigma_err:.3g}); shrunk count under the band gate on {cleared} rows; kernel "
           f"{ms:.3f} ms (median of {runs}), bound {bound['bound_ms']:.3f} ms "
           f"({bound['bound_by']}), plain twin {plain_ms:.1f} ms, torch.sort of the history "
           f"{s_ms:.3f} ms", flush=True)
@@ -2270,14 +2286,15 @@ def season_inputs(gen, rows=SEASON_ROWS, dev=None):
     return (x, mask, region) + policy, kind, shifted
 
 
-def season_bounds(B, T, n_fit, G, lags):
+def season_bounds(B, T, n_fit, G, lags, walked):
     """Least time (ms, bound_by) for each seasonal kernel's work on these
     inputs: bytes each input read and each output written once over HBM,
     against the operations at the fp32 instruction rate (a float64 add
     counted as two). Per step: SES 3 operations (its scan form ~11), DES 8,
     Holt-Winters 14 per candidate plus 5 per fitted point; the period
     detrend 12 per slot and 13 per pair of slots at each distinct lag;
-    the band ~10 per slot."""
+    the band ~10 per slot. The Holt-Winters fit needs its steps only up to
+    each row's last fitted slot (mask & fit): `walked` of them."""
     BT = B * T
     return {
         "smooth": least_time(BT * 9 + B * 8, 8 * BT),
@@ -2285,7 +2302,7 @@ def season_bounds(B, T, n_fit, G, lags):
         "smooth_hw": least_time(BT * 9 + B * 16, 14 * BT),
         "affine_scan": least_time(BT * 9 + B * 4, 11 * BT),
         "hw_fit": least_time(BT * 6 + B * (4 + 12 + 4 + 8 * G) + G * 12,
-                             14 * G * BT + 5 * G * n_fit),
+                             14 * G * walked + 5 * G * n_fit),
         "detect_period": least_time(BT * 5 + B * (8 + 4 * len(PERIOD_CANDIDATES)),
                                     12 * BT + 13 * B * sum(T - p for p in lags)),
         "band_from_preds": least_time(BT * 19 + B * 28, 10 * BT),
@@ -2418,8 +2435,11 @@ def seasonal_path(gen):
                                                           max_period=1440), 2),
                       cuda_ms(lambda: fc.fit_holt_winters_plain(x, hist, fit, period, grid), 1,
                               warm=False))
-    n_fit = int((fit & hist).sum())
-    del fit
+    fitted = fit & hist
+    n_fit = int(fitted.sum())
+    # steps up to each row's last fitted slot: all the fit needs
+    walked = int((torch.where(fitted, torch.arange(T, device=DEV), -1).amax(1) + 1).sum())
+    del fit, fitted
     al5, be1, al3 = (torch.full((B,), v, **f32) for v in (0.5, 0.1, 0.3))
     err = compare_smooth(2, x[:n], hist[:n], (al5[:n], be1[:n]),
                          kernels.smooth(2, x[:n], hist[:n], al5[:n], be1[:n]))
@@ -2453,11 +2473,19 @@ def seasonal_path(gen):
     chol_ms = cholesky_ms(*st)
     n_st = int(hist.sum())
     lags = sorted({q for p in PERIOD_CANDIDATES for q in (p, p // 2)})
-    bounds = season_bounds(B, T, n_fit, grid.shape[0], lags)
+    bounds = season_bounds(B, T, n_fit, grid.shape[0], lags, walked)
     bounds["st_fit"] = st_bound(B, T, n_st)
     print(f"  st_fit: vs twin on {c} rows, {ill} ill-posed; torch.linalg.cholesky + "
           f"cholesky_solve of the same {B} ({ST_D} x {ST_D}) float64 systems {chol_ms:.3f} ms "
           f"(for the record: the solve alone, not the fit)", flush=True)
+    # kernel D's own floor: its season rings live in device memory, each
+    # walked step reading and writing one slot of every candidate's ring
+    ring_b = 2 * 4 * kernels.build.library().fm_hw_fit_ring_row(grid.shape[0])
+    fb_ = bounds["hw_fit"]
+    print(f"  hw_fit: bound {fb_['bound_ms']:.3f} ms ({fb_['bound_by']}) over {walked} walked "
+          f"steps of {B * T} (each row to its last fitted slot); this design's own floor, its "
+          f"season rings' traffic of {ring_b} B a walked step ({walked * ring_b / 1e9:.1f} GB): "
+          f"{walked * ring_b / HBM_BYTES_PER_S * 1e3:.3f} ms", flush=True)
     hb = bounds["smooth_hw"]
     print(f"  smooth, the Holt-Winters refit alone: kernel {hw_refit_ms:.3f} ms, bound "
           f"{hb['bound_ms']:.3f} ms ({hb['bound_by']})", flush=True)
@@ -3656,9 +3684,10 @@ def engine_path(rng):
 
     args = engine_band_inputs(fleet)
     band = args[:6]
+    b_kern = kernels.ma_band(*band[:3], TRIAGE_WINDOW, *band[3:])
     b_err, b_bracketed = compare_ma_band(
-        band, TRIAGE_WINDOW, kernels.ma_band(*band[:3], TRIAGE_WINDOW, *band[3:]),
-        fc.moving_average_band_plain(*band[:3], TRIAGE_WINDOW, *band[3:]))
+        band, TRIAGE_WINDOW, b_kern, fc.moving_average_band_plain(*band[:3], TRIAGE_WINDOW,
+                                                                  *band[3:]))
     print(f"  ma_band at the engine's shape ({band[0].shape[0]} x {band[0].shape[1]}, every "
           f"continuous row) against its twin: max |d preds| = {b_err:.3g}, {b_bracketed} rows "
           f"bracketed", flush=True)
@@ -3666,7 +3695,10 @@ def engine_path(rng):
     def run():
         return kernels.triage_screen(args[0], args[1], args[2], TRIAGE_WINDOW, *args[3:])
 
-    err, _ = compare_triage(args, run(), tr.screen_rows_plain(*args, TRIAGE_WINDOW))
+    g_kern = run()
+    check_band_sigma(g_kern["sigma"], b_kern["sigma"], "the engine's rows")
+    err, _ = compare_triage(args, g_kern, tr.screen_rows_plain(*args, TRIAGE_WINDOW))
+    del b_kern, g_kern
     ms = cuda_ms(run, TIMED_RUNS)
     plain_ms = cuda_ms(lambda: tr.screen_rows_plain(*args, TRIAGE_WINDOW), 3)
     s_ms = sort_ms(args[0], args[1], args[2], args[0].shape[0])

@@ -39,10 +39,21 @@
 //   takes one row, two candidates per lane, and shares the row's value and
 //   mask through shuffles. The 60 rings of a row (346 KB at period 1440)
 //   cannot live in shared memory, so they too live in device scratch,
-//   (period, 64) floats per warp, read and written 256 B per step per warp;
-//   the launcher bounds the warps in flight so that the scratch stays under
-//   its budget, and each warp walks rows grid-stride. The ring traffic
-//   (8 B x 60 per slot) makes D bound by bytes in practice.
+//   (period, G rounded up to even) floats per warp: each step reads and
+//   writes one slot of each, 480 B a step at G = 60. Fewer warps in flight
+//   (rings nearer to L2) measured slower on an H100: the card needs its
+//   warps more than L2 hits, so the ring traffic sets D's time, and the
+//   design cuts it and hides its latency:
+//   - a row's walk stops after its last (mask & fit) slot, found by a
+//     ballot scan from the row's end (no later step enters an error, and
+//     the float64 sums keep their order: the outputs are the full walk's);
+//   - for period >= 2 kTile the ring reads of the next tile are in flight
+//     (cp.async into a second buffer) while a tile is walked, and x, mask
+//     and fit come a tile ahead through registers;
+//   - a slot is written back only when its value changed (a set mask, or
+//     the first visit's s0): a masked step carries s;
+//   - the launcher bounds the warps by the scratch budget, the C entry by
+//     what the card holds at once, and each warp walks rows grid-stride.
 // - D sums each candidate's squared error in float64 (the reference sums in
 //   float32), so a close race between two candidates is decided by the
 //   exact error rather than by rounding.
@@ -57,7 +68,7 @@ enum : int { kSES = 1, kDES = 2, kHW = 3 };
 
 constexpr int kTile = 32;        // steps per staged tile
 constexpr int kSmoothWarps = 4;  // warps per CTA (kernel C)
-constexpr int kFitWarps = 4;     // warps per CTA (kernel D)
+constexpr int kFitWarps = 2;     // warps per CTA (kernel D): two tiles each, 32 KB
 constexpr int kFitLanes = 64;    // candidate slots per row in kernel D
 
 // One step of the reference's recurrences on (l, b, s). Returns pred_t, the
@@ -259,12 +270,20 @@ struct HwFitArgs {
   int G;
   int B;
   int T;
-  float* ring;        // (warps in flight, ring_stride, kFitLanes)
+  bool vec;           // mask and fit rows 16-byte aligned: fit_end reads them 16 B a lane
+  float* ring;        // (warps in flight, ring_stride, ring_row)
   int ring_stride;
+  int ring_row;       // floats a ring slot: G rounded up to even
   float* params;      // (B, 3)
   int* best;          // (B,)
   double* mse;        // (B, G)
+  long long* clocks;  // null, or (B, kFitPhases) SM cycles a row's warp spent per phase
 };
+
+// kernels.HW_FIT_PHASES: the initial level and the row's end, staging (the
+// ring reads issued and waited for, the x and mask loads), the walk, the
+// ring's write-back
+constexpr int kFitPhases = 4;
 
 // argmin order: NaN before any number (jnp.argmin returns the first NaN),
 // then the smaller value, then the smaller index
@@ -275,15 +294,62 @@ __device__ __forceinline__ bool fit_better(double av, int ai, double bv, int bi)
   return ai < bi;
 }
 
+// 1 + the row's last slot with mask & fit, 0 if none: a warp reads from the
+// end, 16 slots a lane (four 512-slot blocks in flight) when the rows are
+// 16-byte aligned, else 32 a ballot. No step from there on enters an error.
+__device__ int fit_end(const uint8_t* mask, const uint8_t* fit, int T, bool vec) {
+  const int lane = threadIdx.x & 31;
+  if (vec) {
+    const uint4* m4 = reinterpret_cast<const uint4*>(mask);
+    const uint4* f4 = reinterpret_cast<const uint4*>(fit);
+    const int nv = T / 16;
+    for (int v0 = ((nv - 1) / 32) * 32; v0 >= 0; v0 -= 4 * 32) {
+      uint4 m[4], f[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int v = v0 - 32 * u + lane;
+        const bool in = v >= 0 && v < nv;
+        m[u] = in ? m4[v] : make_uint4(0u, 0u, 0u, 0u);
+        f[u] = in ? f4[v] : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t w[4] = {m[u].x & f[u].x, m[u].y & f[u].y, m[u].z & f[u].z,
+                               m[u].w & f[u].w};
+        int last = -1;  // the lane's last slot with both bytes set, of its 16
+        for (int k = 3; k >= 0 && last < 0; --k) {
+          if (w[k]) last = 4 * k + (31 - __clz(w[k])) / 8;
+        }
+        const unsigned any = __ballot_sync(kFullWarp, last >= 0);
+        if (any) {
+          const int src = 31 - __clz(any);
+          return 16 * (v0 - 32 * u + src) + __shfl_sync(kFullWarp, last, src) + 1;
+        }
+      }
+    }
+    return 0;
+  }
+  for (int t0 = ((T - 1) / 32) * 32; t0 >= 0; t0 -= 32) {
+    const int t = t0 + lane;
+    const unsigned bits = __ballot_sync(kFullWarp, t < T && mask[t] && fit[t]);
+    if (bits) return t0 + 32 - __clz(bits);
+  }
+  return 0;
+}
+
 __global__ void __launch_bounds__(kFitWarps * 32) hw_fit_kernel(HwFitArgs a) {
-  __shared__ __align__(8) float rs[kFitWarps][kTile][kFitLanes];  // season tile
+  // season tiles: the one walked and, for P >= 2 kTile, the next one's
+  // ring reads in flight
+  __shared__ __align__(16) float rs[kFitWarps][2][kTile][kFitLanes];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int T = a.T, G = a.G;
+  const int T = a.T, G = a.G, R = a.ring_row;
   const int warp_id = blockIdx.x * kFitWarps + w;
   const int n_warps = gridDim.x * kFitWarps;
-  float* ring = a.ring + size_t(warp_id) * a.ring_stride * kFitLanes;
-  // lane holds candidates c0 = 2 lane and c0 + 1
+  float* ring = a.ring + size_t(warp_id) * a.ring_stride * R;
+  // lane holds candidates c0 = 2 lane and c0 + 1; lanes past the grid
+  // repeat its last candidate and keep no ring
   const int c0 = 2 * lane;
+  const bool ring_lane = c0 < R;
   float al[2], be[2], ga[2], oma[2], omb[2], omg[2];
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
@@ -301,60 +367,150 @@ __global__ void __launch_bounds__(kFitWarps * 32) hw_fit_kernel(HwFitArgs a) {
     const float* x = a.x + off;
     const uint8_t* mask = a.mask + off;
     const uint8_t* fit = a.fit + off;
+    long long cyc[kFitPhases] = {0, 0, 0, 0};
+    long long c_prev = clock64();
+    const bool timed = a.clocks != nullptr;
+    auto lap = [&](int k) {
+      if (timed) {
+        const long long c = clock64();
+        cyc[k] += c - c_prev;
+        c_prev = c;
+      }
+    };
     const int P = clamp_period(a.period[row], T);
+    // the walk stops after the last fitted step: the errors, and so mse,
+    // best and params, are the full walk's to the bit
+    const int t_end = fit_end(mask, fit, T, a.vec);
     const float l0 = hw_level0(x, mask, P);
     float l[2] = {l0, l0}, b[2] = {0.0f, 0.0f};
     double sse[2] = {0.0, 0.0};
     int n_fit = 0;
+    lap(0);
 
-    for (int t0 = 0; t0 < T; t0 += kTile) {
-      const int L = min(kTile, T - t0);
-      const bool in = lane < L;
-      const float xv = in ? x[t0 + lane] : 0.0f;
-      const unsigned mbits = __ballot_sync(kFullWarp, in && mask[t0 + lane]);
-      const unsigned fbits = __ballot_sync(kFullWarp, in && fit[t0 + lane]);
-      n_fit += __popc(mbits & fbits);
-      const int need = min(P, L);
-      const int base = t0 % P;
-      for (int j = 0; j < need; ++j) {
-        const float xj = __shfl_sync(kFullWarp, xv, j);
-        if (t0 + j < P) {
-          const float s0 = ((mbits >> j) & 1u) ? xj - l0 : 0.0f;
-          rs[w][j][c0] = s0;
-          rs[w][j][c0 + 1] = s0;
-        } else {
-          int k = base + j;
-          if (k >= P) k -= P;
-          cp_async8(&rs[w][j][c0], ring + size_t(k) * kFitLanes + c0);
-        }
-      }
-      cp_async_wait_all();
-      __syncwarp();
-      for (int j = 0; j < L; ++j) {
-        const float xt = __shfl_sync(kFullWarp, xv, j);
-        const bool mt = (mbits >> j) & 1u;
-        const bool ft = (fbits >> j) & 1u;
-        const int js = j >= P ? j - P : j;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          float s = rs[w][js][c0 + q];
-          const float pred = smooth_step<kHW>(xt, mt, al[q], oma[q], be[q], omb[q], ga[q],
-                                              omg[q], l[q], b[q], s);
-          rs[w][j][c0 + q] = s;
-          if (mt && ft) {
-            const double r = double(xt - pred);
-            sse[q] += r * r;
+    if (P >= 2 * kTile) {
+      // Each step reads its season slot once (slots t mod P, j < kTile apart
+      // within a tile, all written before the tile began), so the reads of
+      // tile t0 + kTile are issued while tile t0 is walked; a first visit
+      // (t < P) takes s0 = x - l0 where the mask is set. x, mask and fit come
+      // one tile ahead through registers.
+      float xn = lane < t_end ? x[lane] : 0.0f;
+      bool mn = lane < t_end && mask[lane], fn = lane < t_end && fit[lane];
+      int buf = 0;
+      for (int t0 = 0; t0 < t_end; t0 += kTile, buf ^= 1) {
+        const int L = min(kTile, t_end - t0);
+        const float xv = xn;
+        const unsigned mbits = __ballot_sync(kFullWarp, mn);
+        const unsigned fbits = __ballot_sync(kFullWarp, fn);
+        n_fit += __popc(mbits & fbits);
+        const int t1 = t0 + kTile;
+        const bool next = t1 + lane < t_end;
+        xn = next ? x[t1 + lane] : 0.0f;
+        mn = next && mask[t1 + lane];
+        fn = next && fit[t1 + lane];
+        if (ring_lane) {
+          const int L1 = min(kTile, t_end - t1);
+          int k = t1 % P;
+          for (int j = 0; j < L1; ++j, k = k + 1 == P ? 0 : k + 1) {
+            if (t1 + j >= P) cp_async8(&rs[w][buf ^ 1][j][c0], ring + size_t(k) * R + c0);
           }
         }
+        cp_async_commit();
+        cp_async_wait_group<1>();  // this tile's reads, issued a tile ago
+        __syncwarp();
+        lap(1);
+        for (int j = 0; j < L; ++j) {
+          const float xt = __shfl_sync(kFullWarp, xv, j);
+          const bool mt = (mbits >> j) & 1u;
+          const bool ft = (fbits >> j) & 1u;
+          const bool fresh = t0 + j < P;
+          const float s0 = mt ? xt - l0 : 0.0f;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float s = fresh ? s0 : rs[w][buf][j][c0 + q];
+            const float pred = smooth_step<kHW>(xt, mt, al[q], oma[q], be[q], omb[q], ga[q],
+                                                omg[q], l[q], b[q], s);
+            rs[w][buf][j][c0 + q] = s;
+            if (mt && ft) {
+              const double r = double(xt - pred);
+              sse[q] += r * r;
+            }
+          }
+        }
+        __syncwarp();
+        lap(2);
+        // write back the slots whose value changed: a masked step carries
+        // s, so only a set mask or a first visit (s0) writes
+        if (ring_lane) {
+          int k = t0 % P;
+          for (int j = 0; j < L; ++j, k = k + 1 == P ? 0 : k + 1) {
+            if (((mbits >> j) & 1u) || t0 + j < P) {
+              *reinterpret_cast<float2*>(ring + size_t(k) * R + c0) =
+                  *reinterpret_cast<const float2*>(&rs[w][buf][j][c0]);
+            }
+          }
+        }
+        __syncwarp();
+        lap(3);
       }
-      __syncwarp();
-      for (int j = L - need; j < L; ++j) {
-        int k = base + j;
-        k = k >= P ? (P >= kTile ? k - P : k % P) : k;
-        *reinterpret_cast<float2*>(ring + size_t(k) * kFitLanes + c0) =
-            *reinterpret_cast<const float2*>(&rs[w][j][c0]);
+      cp_async_wait_all();
+    } else {
+      // P < 2 kTile: a tile may read slots the tile before it wrote (and,
+      // for P < kTile, its own), so it stages its slots after the last
+      // write-back and walks them from one buffer
+      for (int t0 = 0; t0 < t_end; t0 += kTile) {
+        const int L = min(kTile, t_end - t0);
+        const bool in = lane < L;
+        const float xv = in ? x[t0 + lane] : 0.0f;
+        const unsigned mbits = __ballot_sync(kFullWarp, in && mask[t0 + lane]);
+        const unsigned fbits = __ballot_sync(kFullWarp, in && fit[t0 + lane]);
+        n_fit += __popc(mbits & fbits);
+        const int need = min(P, L);
+        const int base = t0 % P;
+        for (int j = 0; j < need; ++j) {
+          const float xj = __shfl_sync(kFullWarp, xv, j);
+          if (t0 + j < P) {
+            const float s0 = ((mbits >> j) & 1u) ? xj - l0 : 0.0f;
+            rs[w][0][j][c0] = s0;
+            rs[w][0][j][c0 + 1] = s0;
+          } else if (ring_lane) {
+            int k = base + j;
+            if (k >= P) k -= P;
+            cp_async8(&rs[w][0][j][c0], ring + size_t(k) * R + c0);
+          }
+        }
+        cp_async_wait_all();
+        __syncwarp();
+        lap(1);
+        for (int j = 0; j < L; ++j) {
+          const float xt = __shfl_sync(kFullWarp, xv, j);
+          const bool mt = (mbits >> j) & 1u;
+          const bool ft = (fbits >> j) & 1u;
+          const int js = j >= P ? j - P : j;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float s = rs[w][0][js][c0 + q];
+            const float pred = smooth_step<kHW>(xt, mt, al[q], oma[q], be[q], omb[q], ga[q],
+                                                omg[q], l[q], b[q], s);
+            rs[w][0][j][c0 + q] = s;
+            if (mt && ft) {
+              const double r = double(xt - pred);
+              sse[q] += r * r;
+            }
+          }
+        }
+        __syncwarp();
+        lap(2);
+        if (ring_lane) {
+          for (int j = L - need; j < L; ++j) {
+            int k = base + j;
+            k = k >= P ? (P >= kTile ? k - P : k % P) : k;
+            *reinterpret_cast<float2*>(ring + size_t(k) * R + c0) =
+                *reinterpret_cast<const float2*>(&rs[w][0][j][c0]);
+          }
+        }
+        __syncwarp();
+        lap(3);
       }
-      __syncwarp();
     }
 
     // mean squared error per candidate, then the warp's argmin
@@ -385,6 +541,9 @@ __global__ void __launch_bounds__(kFitWarps * 32) hw_fit_kernel(HwFitArgs a) {
     if (lane == 0) {
       a.best[row] = bi;
       for (int k = 0; k < 3; ++k) a.params[size_t(row) * 3 + k] = a.grid[3 * bi + k];
+      if (timed) {
+        for (int k = 0; k < kFitPhases; ++k) a.clocks[size_t(row) * kFitPhases + k] = cyc[k];
+      }
     }
   }
 }
@@ -409,13 +568,28 @@ extern "C" int fm_smooth(int kind, const float* x, const uint8_t* mask, const fl
   return int(cudaGetLastError());
 }
 
+extern "C" int fm_hw_fit_ring_row(int G) { return (G + 1) & ~1; }
+
 extern "C" int fm_hw_fit(const float* x, const uint8_t* mask, const uint8_t* fit,
                          const int* period, const float* grid, int G, int B, int T, float* ring,
                          int ring_stride, int n_warps, float* params, int* best, double* mse,
-                         void* stream) {
+                         long long* clocks, void* stream) {
   if (G < 1 || G > fm::kFitLanes) return int(cudaErrorInvalidValue);
-  fm::HwFitArgs a{x, mask, fit, period, grid, G, B, T, ring, ring_stride, params, best, mse};
-  const int blocks = (n_warps + fm::kFitWarps - 1) / fm::kFitWarps;
+  const bool vec = T % 16 == 0 && (reinterpret_cast<uintptr_t>(mask) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(fit) % 16 == 0);
+  fm::HwFitArgs a{x, mask, fit, period, grid, G, B, T, vec, ring, ring_stride,
+                  fm_hw_fit_ring_row(G), params, best, mse, clocks};
+  // no more warps than the card holds at once: every warp in flight from
+  // the start, rows grid-stride
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fm::hw_fit_kernel,
+                                                      fm::kFitWarps * 32, 0);
+  }
+  if (e != cudaSuccess) return int(e);
+  const int blocks = min((n_warps + fm::kFitWarps - 1) / fm::kFitWarps, max(1, sms * per_sm));
   fm::hw_fit_kernel<<<blocks, fm::kFitWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }

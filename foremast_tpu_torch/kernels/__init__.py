@@ -73,7 +73,7 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
            "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
-           "PAIR_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
+           "PAIR_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
 # shared memory; above it, in device scratch
@@ -81,7 +81,8 @@ SHARED_PAIR_T = 4096
 MAX_PAIR_T = 16384  # MAX_WINDOW_STEPS
 # kernel B keeps 12 B of prefix sums per slot: MAX_WINDOW_STEPS
 MAX_BAND_T = 16384
-# kernel G keeps the same 12 B per slot, then 4 B order keys in that space
+# kernel G keeps 12 B a slot (x and the prefix sums) and bit words in shared
+# memory, and a select thread's keys (T / 256) in registers
 MAX_SCREEN_T = 16384
 # kernel F keeps 5 B per slot (residual, mask) and 5 B per candidate (score,
 # eligibility) in shared memory
@@ -138,6 +139,14 @@ HPA_OUTPUTS = ("score", "reason", "demand", "demand_per_pod", "pods_now", "curre
 # device scratch that kernels A (T > SHARED_PAIR_T), C (HW) and D may hold
 # at once; each bounds the CTAs or warps in flight to stay under it
 SCRATCH_BYTES = 1 << 30
+
+# kernel G's phases, as its optional per-row cycle counts split it (stage,
+# then the predictor group's scan, sigma and bands beside the select group's
+# key loads, both selections' parts and the MAD's keys, then the row's
+# total); kernel D's, as its optional per-row cycle sums split it
+TRIAGE_PHASES = ("stage", "scan", "sigma", "bands", "keys", "minmax", "passes", "pair",
+                 "mad_keys", "total")
+HW_FIT_PHASES = ("level0", "stage", "walk", "store")  # level0 includes the row's end
 
 # kernel A's phases, in order, as its optional clock stamps split it
 PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans",
@@ -389,11 +398,15 @@ def smooth(kind: int, x, mask, alpha, beta=None, gamma=None, period=None,
     return preds
 
 
-def hw_fit(x, mask, fit_mask, period, grid, max_period: int | None = None):
+def hw_fit(x, mask, fit_mask, period, grid, max_period: int | None = None,
+           phase_clocks=None):
     """Launch kernel D: each row's mean squared one-step Holt-Winters error
     over fit_mask & mask for every (alpha, beta, gamma) row of grid (G <=
     MAX_GRID), and the argmin. Returns params (B, 3), best (B,) int32 and
-    mse (B, G) float64."""
+    mse (B, G) float64.
+
+    phase_clocks, an int64 (B, len(HW_FIT_PHASES)) tensor, receives the SM
+    cycles each row's warp spent in each phase of HW_FIT_PHASES."""
     B, T = x.shape
     dev = x.device
     G = grid.shape[0] if grid.dim() == 2 else 0
@@ -406,6 +419,8 @@ def hw_fit(x, mask, fit_mask, period, grid, max_period: int | None = None):
             (period, "period", torch.int32, (B,)),
             (grid, "grid", torch.float32, (G, 3))):
         _check(t, name, dt, shape, dev)
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (B, len(HW_FIT_PHASES)), dev)
     out = {
         "params": torch.empty((B, 3), dtype=torch.float32, device=dev),
         "best": torch.empty(B, dtype=torch.int32, device=dev),
@@ -415,18 +430,19 @@ def hw_fit(x, mask, fit_mask, period, grid, max_period: int | None = None):
         return out
     if max_period is None:
         max_period = int(period.max())
+    lib = build.library()
     stride = max(1, min(int(max_period), T))
-    slot = stride * 64 * 4  # (period, 64 candidates) floats per warp
+    row = lib.fm_hw_fit_ring_row(G)  # floats a ring slot: the candidates, rounded up to even
+    slot = stride * row * 4  # (period, row) floats per warp
     n_warps = max(1, min(B, SCRATCH_BYTES // slot))
     n_warps = -(-n_warps // 4) * 4
-    ring = torch.empty(n_warps * stride * 64, dtype=torch.float32, device=dev)
-    lib = build.library()
+    ring = torch.empty(n_warps * stride * row, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fm_hw_fit(
             _ptr(x), _ptr(mask), _ptr(fit_mask), _ptr(period), _ptr(grid), G, B, T,
             _ptr(ring), stride, n_warps, _ptr(out["params"]), _ptr(out["best"]),
-            _ptr(out["mse"]), ctypes.c_void_p(stream))
+            _ptr(out["mse"]), _opt(phase_clocks), ctypes.c_void_p(stream))
     _raise_on(rc, "hw_fit", lib)
     launches["hw_fit"] += 1
     return out
@@ -493,10 +509,14 @@ def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: f
     return period, scores
 
 
-def triage_screen(x, mask, region, window: int, threshold, bound_mode, min_lower_bound, margin):
+def triage_screen(x, mask, region, window: int, threshold, bound_mode, min_lower_bound, margin,
+                  phase_clocks=None):
     """Launch kernel G: the triage screen of B rows. Returns count,
     shrunk_count, checked, n_hist (int32) and upper_mean, lower_mean,
-    resid_z, robust_z, sigma (float32), each (B,)."""
+    resid_z, robust_z, sigma (float32), each (B,).
+
+    phase_clocks, an int64 (B, len(TRIAGE_PHASES)) tensor, receives the SM
+    cycles each row spent in each phase of TRIAGE_PHASES."""
     B, T = x.shape
     dev = x.device
     if not 1 <= T <= MAX_SCREEN_T:
@@ -510,6 +530,8 @@ def triage_screen(x, mask, region, window: int, threshold, bound_mode, min_lower
             (min_lower_bound, "min_lower_bound", torch.float32, (B,)),
             (margin, "margin", torch.float32, (B,))):
         _check(t, name, dt, shape, dev)
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (B, len(TRIAGE_PHASES)), dev)
     out = {k: torch.empty(B, dtype=torch.int32, device=dev) for k in SCREEN_INT_OUTPUTS}
     out.update({k: torch.empty(B, dtype=torch.float32, device=dev)
                 for k in SCREEN_FLOAT_OUTPUTS})
@@ -522,7 +544,7 @@ def triage_screen(x, mask, region, window: int, threshold, bound_mode, min_lower
             _ptr(x), _ptr(mask), _ptr(region), _ptr(threshold), _ptr(bound_mode),
             _ptr(min_lower_bound), _ptr(margin), int(window), B, T,
             *(_ptr(out[k]) for k in SCREEN_INT_OUTPUTS + SCREEN_FLOAT_OUTPUTS),
-            ctypes.c_void_p(stream))
+            _opt(phase_clocks), ctypes.c_void_p(stream))
     _raise_on(rc, "triage_screen", lib)
     launches["triage_screen"] += 1
     return out

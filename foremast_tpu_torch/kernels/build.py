@@ -116,13 +116,15 @@ def _declare(lib):
     lib.fm_band_from_preds.restype = I
     lib.fm_smooth.argtypes = [I] + [P] * 6 + [I, I, P, I, I, P, P]
     lib.fm_smooth.restype = I
-    lib.fm_hw_fit.argtypes = [P] * 5 + [I, I, I, P, I, I, P, P, P, P]
+    lib.fm_hw_fit.argtypes = [P] * 5 + [I, I, I, P, I, I, P, P, P, P, P]
     lib.fm_hw_fit.restype = I
+    lib.fm_hw_fit_ring_row.argtypes = [I]
+    lib.fm_hw_fit_ring_row.restype = I
     lib.fm_affine_scan.argtypes = [I, P, P, P, P, I, I, P, P]
     lib.fm_affine_scan.restype = I
     lib.fm_detect_period.argtypes = [P, P, P, I, P, F, F, F, I, I, P, P, P]
     lib.fm_detect_period.restype = I
-    lib.fm_triage_screen.argtypes = [P] * 7 + [I, I, I] + [P] * 9 + [P]
+    lib.fm_triage_screen.argtypes = [P] * 7 + [I, I, I] + [P] * 10 + [P]
     lib.fm_triage_screen.restype = I
     lib.fm_bivariate.argtypes = [P] * 10 + [I, I] + [P] * 9 + [P]
     lib.fm_bivariate.restype = I

@@ -35,6 +35,14 @@ struct float4 {
 struct uint2 {
   unsigned x, y;
 };
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
 namespace emu {
@@ -168,8 +176,24 @@ inline unsigned __match_any_sync(unsigned, unsigned v) {
   w.bar.arrive_and_wait();
   return r;
 }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r += __shfl_sync(0xffffffffu, v, i);
+  return r;
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  unsigned r = 0xffffffffu;
+  for (int i = 0; i < 32; ++i) r = std::min(r, __shfl_sync(0xffffffffu, v, i));
+  return r;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r = std::max(r, __shfl_sync(0xffffffffu, v, i));
+  return r;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(int(x)); }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline long long clock64() { return 1; }
 inline unsigned __float_as_uint(float f) {
   unsigned u;
@@ -195,6 +219,20 @@ inline cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
   return bytes > 232448 ? 2 : cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 2;  // two SMs of two CTAs: few warps, rows grid-stride
+  return cudaSuccess;
+}
+template <typename K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 2;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == 0 ? "no error" : e == 1 ? "invalid argument" : "too much shared memory";
 }

@@ -64,6 +64,23 @@ the fleet that `score_pairs` scores from the 100,000-pair pass, and beside
 it `torch.topk` over the masked severities, each the mean of 20 launches by
 CUDA events.
 
+--triage-hw times kernel G (`kernels.triage_screen`) at the engine's shape
+(4096 x 2048: chip_smoke.engine_band_inputs on engine_fleet from numpy's
+default_rng(SEED)) and on the seasonal phase's 100,000 rows of bucket
+16384 (chip_smoke.season_inputs), and kernel D (`kernels.hw_fit`) on those
+rows with the periods kernel F elects and the seasonal path's fit mask
+(t >= 2 period): each the median of 20 launches back to back by CUDA
+events (`median_back_to_back_ms`). It prints a digest of
+every output of G (at both shapes) and of D and writes G's outputs to
+DIR/triage_hw_<checkout>.pt; `--compare A.pt B.pt` (no card needed) holds two
+such files against each other, key by key. It calls only entry points that
+every checkout since kernel G's first has, so run it from the parent's
+checkout and this one in one call (parent, change, change, parent).
+With --profile it also splits both kernels by phase from their optional
+per-row cycle counts (`phase_clocks=`, phases kernels.TRIAGE_PHASES and
+kernels.HW_FIT_PHASES; this checkout only) and times D under smaller
+device-scratch budgets (fewer warps in flight, rings nearer to L2).
+
 --a-digest prints a SHA-256 of every output of kernel A (`score_pairs` on
 the card) on chip_smoke.py's adversarial pairs at each T of its kernel
 check and on the 100,000-pair pass: run from two checkouts in one call, equal
@@ -71,6 +88,7 @@ digests show that kernel A's outputs did not change, bit for bit.
 """
 import hashlib
 import argparse
+import math
 import importlib.util
 import json
 import os
@@ -406,6 +424,156 @@ def a_digest():
     return res
 
 
+def median_back_to_back_ms(fn, runs):
+    """Median of `runs` launches of fn by CUDA events recorded between
+    launches enqueued back to back after a warm-up one: the host stays
+    ahead of the card, so each interval is the card's time alone (a single
+    timed launch would also count the launcher's host time, which rivals a
+    small kernel's)."""
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(runs + 1)]
+    ev[0].record()
+    for e in ev[1:]:
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in zip(ev, ev[1:])]))
+
+
+def _digest(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def triage_hw_inputs():
+    """Kernel G's two shapes and kernel D's rows, from chip_smoke's generators."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    season, _, _ = cs.season_inputs(gen)
+    x, mask, region = season[:3]
+    B, T = x.shape
+    margin = torch.full((B,), cs.TRIAGE_MARGIN, device=cs.DEV)
+    engine = cs.engine_band_inputs(cs.engine_fleet(np.random.default_rng(cs.SEED)))
+    hist = mask & ~region
+    fb = torch.full((B,), 1440, dtype=torch.int32, device=cs.DEV)
+    candt = torch.tensor(cs.PERIOD_CANDIDATES, dtype=torch.int32, device=cs.DEV)
+    period, _ = kernels.detect_period(x, hist, candt, fb, 0.2, 0.05, 0.01)
+    fit = hist & (torch.arange(T, device=cs.DEV) >= 2 * period[:, None])
+    grid = torch.tensor(fc.DEFAULT_GRID, dtype=torch.float32, device=cs.DEV)
+    return {"engine": engine, "season": (*season, margin), "hw": (x, hist, fit, period, grid)}
+
+
+def _screen(args, **kw):
+    from foremast_tpu_torch import kernels
+
+    return kernels.triage_screen(args[0], args[1], args[2], cs.TRIAGE_WINDOW, *args[3:], **kw)
+
+
+def screen_phases(args, what):
+    """Kernel G's split by phase, from its per-row cycle counts: staging,
+    then the predictor group's phases beside the select group's, each
+    beside the row's total."""
+    from foremast_tpu_torch import kernels
+
+    B = args[0].shape[0]
+    names = kernels.TRIAGE_PHASES
+    clocks = torch.zeros((B, len(names)), dtype=torch.int64, device=cs.DEV)
+    on = cs.median_ms(lambda: _screen(args, phase_clocks=clocks), 5)
+    mean = clocks.double().mean(0).tolist()
+    total = mean[names.index("total")]
+    print(f"  kernel G phases at {what}: {on:.3f} ms with the cycle counts", flush=True)
+    for name, m in zip(names, mean):
+        print(f"    {name:10s} {m:10.1f} cycles per row, {100 * m / total:6.2f}% of the row's",
+              flush=True)
+    return {"ms_counts_on": on, "cycles_per_row": dict(zip(names, mean))}
+
+
+def hw_fit_phases(args):
+    """Kernel D's split: the SM cycles each row's warp spent in each phase,
+    then D's time under smaller device-scratch budgets."""
+    from foremast_tpu_torch import kernels
+
+    B = args[0].shape[0]
+    clocks = torch.zeros((B, len(kernels.HW_FIT_PHASES)), dtype=torch.int64, device=cs.DEV)
+    on = cs.median_ms(lambda: kernels.hw_fit(*args, max_period=1440, phase_clocks=clocks), 3)
+    total = clocks.double().sum(0)
+    share = (total / total.sum()).tolist()
+    mean = clocks.double().mean(0).tolist()
+    print(f"  kernel D phases: {on:.3f} ms with the cycle counts", flush=True)
+    for name, sh, m in zip(kernels.HW_FIT_PHASES, share, mean):
+        print(f"    {name:10s} {100 * sh:6.2f}% of warp cycles, {m:12.1f} cycles per row",
+              flush=True)
+    budgets = {}
+    saved = kernels.SCRATCH_BYTES
+    try:
+        for mb in (1024, 256, 64, 32):
+            kernels.SCRATCH_BYTES = mb << 20
+            budgets[mb] = cs.median_ms(lambda: kernels.hw_fit(*args, max_period=1440), 3)
+            print(f"    device scratch {mb} MiB: {budgets[mb]:.3f} ms", flush=True)
+    finally:
+        kernels.SCRATCH_BYTES = saved
+    return {"ms_counts_on": on, "share": dict(zip(kernels.HW_FIT_PHASES, share)),
+            "cycles_per_row": dict(zip(kernels.HW_FIT_PHASES, mean)),
+            "scratch_mib_ms": budgets}
+
+
+def triage_hw(out_dir, profile):
+    """Kernels G and D alone on chip_smoke's inputs: times, digests, and
+    G's outputs to out_dir."""
+    from foremast_tpu_torch import kernels
+
+    inp = triage_hw_inputs()
+    res, outs = {"ms": {}, "digest": {}}, {}
+    for shape in ("engine", "season"):
+        args = inp[shape]
+        what = f"{shape} {args[0].shape[0]} x {args[0].shape[1]}"
+        res["ms"][f"triage_screen {what}"] = median_back_to_back_ms(lambda: _screen(args),
+                                                                     cs.TIMED_RUNS)
+        g = _screen(args)
+        outs[shape] = {k: v.cpu() for k, v in g.items()}
+        for k in sorted(g):
+            res["digest"][f"triage_screen {shape} {k}"] = _digest(g[k])
+        del g
+    hw = inp["hw"]
+    res["ms"]["hw_fit season"] = median_back_to_back_ms(
+        lambda: kernels.hw_fit(*hw, max_period=1440), cs.TIMED_RUNS)
+    d = kernels.hw_fit(*hw, max_period=1440)
+    for k in sorted(d):
+        res["digest"][f"hw_fit {k}"] = _digest(d[k])
+    del d
+    for k, v in res["ms"].items():
+        print(f"  {k}: {v:.3f} ms (median of {cs.TIMED_RUNS})", flush=True)
+    if profile:
+        res["profile"] = {"triage_screen": {s: screen_phases(inp[s], s)
+                                            for s in ("engine", "season")},
+                          "hw_fit": hw_fit_phases(hw)}
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "triage_hw_%s.pt" % os.path.basename(os.getcwd()))
+    torch.save(outs, path)
+    res["written"] = path
+    return res
+
+
+def compare_outputs(a_path, b_path):
+    """Kernel G's outputs of two --triage-hw runs, key by key: equal bit for
+    bit, else the largest relative difference."""
+    a, b = torch.load(a_path), torch.load(b_path)
+    out = {}
+    for shape in a:
+        for k in a[shape]:
+            x, y = a[shape][k], b[shape][k]
+            same = bool(torch.equal(x, y) or (x.is_floating_point()
+                                              and torch.equal(torch.isnan(x), torch.isnan(y))
+                                              and torch.equal(x[~torch.isnan(x)],
+                                                              y[~torch.isnan(y)])))
+            d = (x.double() - y.double()).abs() / y.double().abs().clamp(min=1e-30)
+            both = (x == y) | (torch.isnan(x) & torch.isnan(y))
+            d = torch.where(both, 0.0, torch.nan_to_num(d, nan=math.inf))
+            out[f"{shape} {k}"] = {"equal": same, "max_rel": float(d.max())}
+    return out
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true", help="split kernel A and the pass")
@@ -419,10 +587,17 @@ def main():
     p.add_argument("--engine-lstm-epochs", action="store_true",
                    help="record the engine_lstm arm's training epochs instead")
     p.add_argument("--fleet", action="store_true", help="time kernel P instead")
+    p.add_argument("--triage-hw", action="store_true",
+                   help="time kernels G and D and print their outputs' digests instead")
+    p.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                   help="hold two --triage-hw output files against each other (CPU)")
     p.add_argument("--a-digest", action="store_true",
                    help="print a digest of kernel A's outputs instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
+    if opt.compare:
+        print(json.dumps(compare_outputs(*opt.compare)), flush=True)
+        return
     if not torch.cuda.is_available():
         sys.exit("time_torch_kernels: needs a CUDA device")
     from foremast_tpu_torch.ops import forecast as fc
@@ -431,6 +606,10 @@ def main():
     if opt.fleet:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "fleet": fleet_split()}), flush=True)
+        return
+    if opt.triage_hw:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "triage_hw": triage_hw(opt.out, opt.profile)}), flush=True)
         return
     if opt.a_digest:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

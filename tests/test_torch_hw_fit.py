@@ -155,3 +155,124 @@ def test_plain_twin_in_row_chunks_equals_one_pass(monkeypatch):
     parts = tfc.fit_holt_winters_plain(*args)
     for k in whole:
         assert torch.equal(whole[k], parts[k]), k
+
+
+# Kernel D walks each row only up to its last (mask & fit) slot. What rests
+# on that: no slot after it enters any candidate's error, in the reference
+# or in the twin, so changing x and mask there (fit stays unset) leaves every
+# error and the argmin as they were, bit for bit. The first period is read
+# whole whatever the fit (the initial level is its masked mean), so a row
+# whose last fit slot lies inside it changes only after it.
+CUT_T = 160
+CUT_PERIODS = np.array([12, 24, 5, 12, 7, 12, 24], np.int32)
+
+
+def _cut_rows(seed):
+    """Rows of three periods, each fitted from 2 periods on up to a last
+    slot of its own: the row's end, mid-row, a row whose last (and only)
+    fit slot is its first slot, one with no fit slot at all."""
+    x, m = _fleet(seed, B=len(CUT_PERIODS), T=CUT_T, period=12)
+    m[1] = True  # _fleet masks row 1 out; keep it observed here
+    t = np.arange(CUT_T)
+    fit = m & (t[None] >= 2 * CUT_PERIODS[:, None])
+    last = np.array([CUT_T - 1, 120, 97, 0, -1, 75, 150])
+    fit &= t[None] <= last[:, None]
+    fit[3] = False
+    fit[3, 0] = m[3, 0] = True
+    fit[4] = False
+    got = np.where((fit & m).any(1), CUT_T - 1 - np.argmax((fit & m)[:, ::-1], axis=1), -1)
+    np.testing.assert_array_equal(got, last)
+    return x, m, fit, last
+
+
+def _cut_end(last):
+    """Each row's slots from here on enter nothing: after its last fit slot
+    and after its first period."""
+    return np.maximum(last + 1, CUT_PERIODS)
+
+
+def _perturb_after(x, m, last, seed):
+    """x and mask changed at random after each row's last fit slot (and
+    its first period): NaN, +-inf, large values, mask set and cleared."""
+    rng = np.random.default_rng(seed)
+    x2, m2 = x.copy(), m.copy()
+    for r, lt in enumerate(_cut_end(last) - 1):
+        n = CUT_T - lt - 1
+        if n == 0:
+            continue
+        v = rng.normal(0, 1e4, n).astype(np.float32)
+        v[rng.random(n) < 0.1] = np.nan
+        v[rng.random(n) < 0.05] = np.inf
+        v[rng.random(n) < 0.05] = -np.inf
+        x2[r, lt + 1:] = v
+        m2[r, lt + 1:] = rng.random(n) < 0.5
+    return x2, m2
+
+
+def _reference_fit(x, m, fit):
+    """The reference's per-candidate float32 errors and its chosen grid
+    point, row by row under each row's period."""
+    mse = np.zeros((x.shape[0], len(tfc.DEFAULT_GRID)), np.float32)
+    params = np.zeros((x.shape[0], 3), np.float32)
+    for p in np.unique(CUT_PERIODS):
+        rows = CUT_PERIODS == p
+        with np.errstate(invalid="ignore"):  # inf - inf at the scrambled, masked-out slots
+            mse[rows] = _reference_mse(x[rows], m[rows], fit[rows], int(p))
+        params[rows] = np.asarray(jfc.fit_holt_winters(x[rows], m[rows], fit[rows], int(p))[0])
+    return mse, params
+
+
+def _twin_fit(x, m, fit):
+    return tfc.fit_holt_winters_plain(*map(torch.from_numpy, (x, m, fit)),
+                                      torch.from_numpy(CUT_PERIODS),
+                                      torch.tensor(tfc.DEFAULT_GRID, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_slots_after_the_last_fit_slot_change_no_error_in_the_reference(seed):
+    x, m, fit, last = _cut_rows(seed)
+    x2, m2 = _perturb_after(x, m, last, seed + 100)
+    assert not np.array_equal(np.nan_to_num(x2), np.nan_to_num(x))
+    mse, params = _reference_fit(x, m, fit)
+    mse2, params2 = _reference_fit(x2, m2, fit)
+    np.testing.assert_array_equal(mse2.view(np.int32), mse.view(np.int32))
+    np.testing.assert_array_equal(params2, params)
+    # no fit slot: every error 0 and the first candidate
+    assert not mse[4].any()
+    np.testing.assert_array_equal(params[4], np.float32(tfc.DEFAULT_GRID[0]))
+    # the row cut at its end: the same errors but for the float32 sum's
+    # order (XLA reduces a shorter row in another tree)
+    for r, n in enumerate(_cut_end(last)):
+        cut = _reference_mse(x[r:r + 1, :n], m[r:r + 1, :n], fit[r:r + 1, :n],
+                             int(CUT_PERIODS[r]))
+        k = (fit[r] & m[r]).sum() * np.finfo(np.float32).eps
+        assert np.all(np.abs(cut[0] - mse[r]) <= k * np.abs(mse[r])), r
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_slots_after_the_last_fit_slot_change_no_error_in_the_twin(seed):
+    x, m, fit, last = _cut_rows(seed)
+    x2, m2 = _perturb_after(x, m, last, seed + 200)
+    base, moved = _twin_fit(x, m, fit), _twin_fit(x2, m2, fit)
+    for k in base:
+        assert torch.equal(moved[k], base[k]), k
+    assert not base["mse"][4].any() and int(base["best"][4]) == 0
+    # the twin cut at each row's end gives the same errors
+    for r, n in enumerate(_cut_end(last)):
+        part = tfc.fit_holt_winters_plain(
+            *(torch.from_numpy(a[r:r + 1, :n].copy()) for a in (x, m, fit)),
+            torch.from_numpy(CUT_PERIODS[r:r + 1]),
+            torch.tensor(tfc.DEFAULT_GRID, dtype=torch.float32))
+        assert torch.equal(part["mse"][0], base["mse"][r]), r
+
+
+def test_the_twin_agrees_with_the_reference_on_rows_that_end_early():
+    x, m, fit, _ = _cut_rows(3)
+    mse, params = _reference_fit(x, m, fit)
+    out = _twin_fit(x, m, fit)
+    scale = _scale(x, m)
+    n = (fit & m).sum(-1)[:, None] * np.finfo(np.float32).eps
+    got = out["mse"].numpy()
+    assert np.all(np.abs(got - mse) <= (REL + n) * np.abs(mse) + (1e-6 * scale[:, None]) ** 2)
+    tied = _tied(mse, scale)
+    np.testing.assert_array_equal(out["params"].numpy()[~tied], params[~tied])

@@ -143,6 +143,73 @@ def test_hw_fit_matches_twin(card, T, monkeypatch):
     cs.compare_hw_fit(x, hist, fit, period, grid, kern)
 
 
+def _fit_rows(card, T, B=52):
+    """Kernel D's rows with their last fit slots all over the row: none at
+    all, the first slot, mid-row, the row's end; periods below and above
+    2 kTile = 64 (each path of the walk) and past T."""
+    x, m, region = _series(card, T, B)[:3]
+    hist = m & ~region
+    periods = torch.tensor([2, 3, 24, 31, 32, 33, 60, 63, 64, 65, 100, 480, T + 5],
+                           dtype=torch.int32, device=card)
+    period = periods[torch.arange(B, device=card) % len(periods)]
+    t = torch.arange(T, device=card)
+    gen = torch.Generator(device=card).manual_seed(T + 1)
+    ends = torch.randint(0, T + 1, (B,), generator=gen, device=card)
+    ends[-4:] = T
+    fit = hist & (t >= 2 * period[:, None]) & (t < ends[:, None])
+    fit[0] = False
+    fit[1] = False
+    fit[1, 0] = hist[1, 0] = True
+    return x, hist, fit.contiguous(), period
+
+
+@pytest.mark.parametrize("T", [1000, 4096])
+def test_hw_fit_stops_each_row_after_its_last_fit_slot(card, T, monkeypatch):
+    monkeypatch.setattr(kernels, "SCRATCH_BYTES", 8 * (1 << 20))  # grid-stride warps
+    x, hist, fit, period = _fit_rows(card, T)
+    grid = torch.tensor(fc.DEFAULT_GRID, dtype=torch.float32, device=card)
+    kern = kernels.hw_fit(x, hist, fit, period, grid)
+    cs.compare_hw_fit(x, hist, fit, period, grid, kern)
+    assert not kern["mse"][0].any() and int(kern["best"][0]) == 0  # no fit slot
+    # slots after each row's last fit slot and its first period enter
+    # nothing: scrambled, the outputs keep their bits
+    t = torch.arange(T, device=card)
+    last = torch.where(fit & hist, t, -1).amax(1)
+    after = t[None] > torch.maximum(last, period.clamp(max=T) - 1)[:, None]
+    gen = torch.Generator(device=card).manual_seed(T + 2)
+    noise = torch.randn(x.shape, generator=gen, device=card) * 1e4
+    x2 = torch.where(after, torch.where(noise > 1.5e4, torch.inf, noise), x).contiguous()
+    h2 = torch.where(after, noise > 0, hist).contiguous()
+    moved = kernels.hw_fit(x2, h2, fit, period, grid)
+    for k in kern:
+        assert torch.equal(moved[k], kern[k]), k
+
+
+@pytest.mark.parametrize("T", [1000, 2048, 16384])
+def test_triage_screen_sigma_is_ma_band_sigma(card, T):
+    gen = torch.Generator(device=card).manual_seed(T + 3)
+    x, m, region, thr, mode, mlb, margin = cs.adversarial_screen(256 if T < 16384 else 64, T, gen)
+    kind = torch.arange(x.shape[0], device=card) % 10
+    inf_row = kind == 0  # +-inf in a valid history slot
+    x[inf_row, T // 7], m[inf_row, T // 7] = torch.inf, True
+    x[inf_row, T // 9], m[inf_row, T // 9] = -torch.inf, True
+    args = (x, m, region, thr, mode, mlb, margin)
+    kern = kernels.triage_screen(x, m, region, cs.TRIAGE_WINDOW, thr, mode, mlb, margin)
+    band = kernels.ma_band(x, m, region, cs.TRIAGE_WINDOW, thr, mode, mlb)
+    torch.cuda.synchronize()
+    cs.check_band_sigma(kern["sigma"], band["sigma"], f"T={T}")
+    # the same predictions and sigma: the same counts
+    assert torch.equal(kern["count"], band["count"])
+    assert torch.equal(kern["checked"], band["checked"])
+    assert bool((kern["n_hist"][kind == 1] == 0).all())  # an empty history
+    assert bool((kern["sigma"][kind == 3] == 0).all())  # a constant one
+    assert not bool(torch.isfinite(kern["sigma"][inf_row]).any())  # NaN: +inf - inf in S
+    from foremast_tpu_torch.ops import triage as tr
+    finite = ~inf_row
+    cs.compare_triage(tuple(a[finite] for a in args), {k: v[finite] for k, v in kern.items()},
+                      tr.screen_rows_plain(*(a[finite] for a in args), cs.TRIAGE_WINDOW))
+
+
 @pytest.mark.parametrize("T", [128, 1024, 16384])
 def test_detect_period_matches_twin(card, T):
     x, m, region = _series(card, T, 512)[:3]
