@@ -1319,23 +1319,37 @@ def compare_st_fit(args, kern, plain, D):
     return max_abs_err(kp, pp), int(ill.sum())
 
 
+ST_WIDEST_C = 24  # with ST_ORDER, D = 32 = kernels.MAX_ST_D
+
+
 def kernel_j_vs_twin(gen):
     """Kernel J against its twin on adversarial rows at T in {128, 2048,
-    16384}, without and with the engine's 12 hinge columns."""
+    16384}, without and with the engine's 12 hinge columns and at the
+    widest D (24 hinges); two runs equal bit for bit. First, the premise of
+    its Fourier columns: the card's sincosf gives sinf's and cosf's bits on
+    every float32 argument."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.ops import forecast as fc
 
+    bad = kernels.st_sincos_check()
+    check(bad == 0, f"sincosf differs from sinf / cosf at {bad} float32 arguments")
+    print(f"  sincosf against sinf and cosf on all 2^32 float32 arguments: {bad} differ "
+          f"(the premise of kernel J's Fourier pairs)", flush=True)
     for T, B in ST_CHECK:
         args = adversarial_st(B, T, gen)
         line = []
-        for C in (0, ST_CHANGEPOINTS):
+        for C in (0, ST_CHANGEPOINTS, ST_WIDEST_C):
             D = 2 + C + 2 * ST_ORDER
             kern = kernels.st_fit(*args, ST_ORDER, C, 1e-4, 3e-3, 3)
             plain = fc.fit_seasonal_trend_plain(*args, ST_ORDER, 1e-4, C, 3e-3, 3)
             err, ill = compare_st_fit(args, kern, plain, D)
-            line.append(f"C={C}: max |d preds| {err:.3g}, {ill} of {B} rows ill-posed")
+            again = kernels.st_fit(*args, ST_ORDER, C, 1e-4, 3e-3, 3)
+            check(torch.equal(kern[0], again[0]) and torch.equal(kern[1], again[1]),
+                  f"st_fit T={T} C={C}: two runs differ")
+            line.append(f"C={C} (D={D}): max |d preds| {err:.3g}, {ill} of {B} rows ill-posed")
         torch.cuda.synchronize()
-        print(f"  st_fit T={T}: " + "; ".join(line), flush=True)
+        print(f"  st_fit T={T}: " + "; ".join(line) + "; two runs equal bit for bit",
+              flush=True)
 
 
 def lstm_params(J, F, H, Z, gen):
@@ -1431,17 +1445,21 @@ def compare_lstm_train(kern, plain):
     """Kernel L's (loss, gradient) against torch autograd through the twin:
     float32 products summed in other orders through 2W recurrent steps
     forward and back, the loss's sums in float64 (the twin's in float32).
-    A job whose loss is NaN on one side is NaN on the other; elsewhere the
-    loss within 1e-5 relative and each job's gradient within 1e-4 of its
-    largest entry. Returns the largest |d grad|."""
+    A job whose loss is NaN on one side is NaN on the other, and a job whose
+    gradient is not finite on one side is not on the other (a NaN input
+    under the mask leaves the loss finite but, 0 x NaN, not the gradient);
+    elsewhere the loss within 1e-5 relative and each job's gradient within
+    1e-4 of its largest entry. Returns the largest |d grad|."""
     (kl, kg), (pl, pg) = kern, plain
     nan = torch.isnan(pl)
     check(bool((torch.isnan(kl) == nan).all()), "lstm_train loss: NaN jobs differ")
-    ok = ~nan
-    check(bool(torch.isfinite(kg[ok]).all()), "lstm_train gradient not finite")
-    dl = (kl[ok].double() - pl[ok].double()).abs()
-    check(bool((dl <= 1e-5 * pl[ok].double().abs() + 1e-7).all()),
+    bad = ~torch.isfinite(pg).all(1)
+    check(bool(((~torch.isfinite(kg).all(1)) == bad).all()),
+          "lstm_train gradient: the jobs that are not finite differ from the twin's")
+    dl = (kl[~nan].double() - pl[~nan].double()).abs()
+    check(bool((dl <= 1e-5 * pl[~nan].double().abs() + 1e-7).all()),
           f"lstm_train loss differs by {float(dl.max()):.3g}")
+    ok = ~(nan | bad)
     dg = (kg[ok].double() - pg[ok].double()).abs()
     lim = 1e-4 * pg[ok].double().abs().amax(1, keepdim=True) + 1e-9
     check(bool((dg <= lim).all()), f"lstm_train gradient differs by {float(dg.max()):.3g} "
@@ -1513,6 +1531,25 @@ def compare_lstm_wgrad(p, x, m, act, H, Z):
     return float(d.max()) if d.numel() else 0.0
 
 
+def lstm_forward_paths_agree(p, x, m, H, Z, out):
+    """Kernel L's forward `out` (num, cnt, act) against its wide path's (8
+    windows a CTA) on the same inputs, bit for bit. Says which path `out`
+    came from."""
+    from foremast_tpu_torch import kernels
+
+    saved = kernels.LSTM_FORWARD_SMEM_BYTES
+    kernels.LSTM_FORWARD_SMEM_BYTES = 0
+    try:
+        wide = kernels.lstm_train_forward(p, x, m, H, Z)
+    finally:
+        kernels.LSTM_FORWARD_SMEM_BYTES = saved
+    for name, a, b in zip(("num", "cnt", "act"), out, wide):
+        check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+              f"lstm_train_forward: {name} differs from the wide path's")
+    path = kernels.lstm_train_forward_path(x.shape[1], x.shape[3], H, Z)
+    return "tile path, equal to the wide path bit for bit" if path == "tile" else "wide path"
+
+
 def kernels_l_m_vs_twin(gen):
     """Kernel L against torch autograd through the twin at (F, H, Z) in
     LSTM_TRAIN_WIDTHS and W in LSTM_TRAIN_WS on adversarial windows (K = 11:
@@ -1536,6 +1573,7 @@ def kernels_l_m_vs_twin(gen):
                 pg, = torch.autograd.grad(pl.sum(), q)
             g_err = compare_lstm_train(kern, (pl.detach(), pg))
             num, cnt, act = kernels.lstm_train_forward(p, x, m, H, Z)
+            path = lstm_forward_paths_agree(p, x, m, H, Z, (num, cnt, act))
             w_err = compare_lstm_wgrad(p, x, m, act, H, Z)
             gpart = lstm_backward_twice(p, x, m, act, H, Z)
             step = torch.randint(1, 40, (J,), generator=gen, device=DEV, dtype=torch.int32)
@@ -1544,8 +1582,8 @@ def kernels_l_m_vs_twin(gen):
             compare_adam(p, mu, nu, step, gpart, num, cnt)
             torch.cuda.synchronize()
             print(f"  lstm_train F={F} H={H} Z={Z} W={W}: {J} jobs x {K} windows (recurrence "
-                  f"blocks of {kernels.lstm_bptt_blocks(K, H)[0]}), max |d grad| {g_err:.3g}, "
-                  f"loss NaN on the NaN job on both sides; weight-gradient entry against its "
+                  f"blocks of {kernels.lstm_bptt_blocks(K, H)[0]}; forward {path}), max |d "
+                  f"grad| {g_err:.3g}, loss NaN on the NaN job on both sides; weight-gradient entry against its "
                   f"twin {w_err:.3g}; two backward runs equal bit for bit; adam bit for bit",
                   flush=True)
 
@@ -3013,6 +3051,16 @@ def lstm_train_bounds(J, K, W, F, H, Z, nkb):
                                     float(J * P * (nkb + 12)))}
 
 
+def lstm_forward_floor_ms(J, K, W, F, H, Z):
+    """Kernel L's forward's arithmetic floor: its multiply-adds (the count
+    lstm_train_bounds takes for the forward) as two fp32 instructions each,
+    since -fmad=false keeps every product and sum apart, at the fp32
+    instruction rate. Printed beside the bound, which it does not replace."""
+    G = 4 * H
+    macs = J * K * (W * (G * (2 * F + H) + G * H + H * F) + H * Z + Z * G)
+    return 2 * macs / FP32_OPS_PER_S * 1e3
+
+
 def cuda_ms_fresh(fn, fresh, runs):
     """Mean time of fn on the card over `runs` launches, by CUDA events
     around each launch alone, with fresh() (untimed) before each: for a
@@ -3213,8 +3261,10 @@ def lstm_train_path(gen):
           f"{E} epochs ({wall / E * 1e3:.1f} ms an epoch with the plateau's host reads and the "
           f"normalizer), fleet-mean loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches "
           f"{ {k: v for k, v in launches.items() if v} }; one epoch: lstm_train_forward "
-          f"{fwd_ms:.3f} ms (bound {b['forward']['bound_ms']:.3f} ms, "
-          f"{b['forward']['bound_by']}; twin {plain_fwd:.1f} ms), lstm_train_backward "
+          f"{fwd_ms:.3f} ms ({kernels.lstm_train_forward_path(K, F, H, Z)} path; bound "
+          f"{b['forward']['bound_ms']:.3f} ms, {b['forward']['bound_by']}; arithmetic floor "
+          f"{lstm_forward_floor_ms(J, K, W, F, H, Z):.3f} ms, its multiply-adds unfused; twin "
+          f"{plain_fwd:.1f} ms), lstm_train_backward "
           f"{bwd_ms:.3f} ms (bound {b['backward']['bound_ms']:.3f} ms, "
           f"{b['backward']['bound_by']}; {b['backward_partials']['bound_ms']:.3f} ms counted "
           f"with {nkb} partial rows a job; autograd's backward {plain_bwd:.1f} ms) = "

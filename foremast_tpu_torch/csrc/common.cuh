@@ -322,6 +322,25 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// Float64 tensor-core products of one warp (DMMA; m16n8k4 on sm_90),
+// accumulating in place, D = A B + D. The fragments are PTX's, with
+// g = lane >> 2 and t = lane & 3:
+//   m8n8k4:  a[0] = A[g][t]; b[0] = B[t][g]; d[i] = D[g][2t + i]
+//   m16n8k4: a[0] = A[g][t], a[1] = A[g + 8][t]; b[0] = B[t][g];
+//            d[i] = D[g][2t + i], d[2 + i] = D[g + 8][2t + i]
+__device__ __forceinline__ void mma_f64_m8n8k4(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
+               "{%0, %1};\n"
+               : "+d"(d[0]), "+d"(d[1])
+               : "d"(a[0]), "d"(b[0]));
+}
+__device__ __forceinline__ void mma_f64_m16n8k4(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, "
+               "{%6}, {%0, %1, %2, %3};\n"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+}
+
 // Asynchronous 4-, 8- and 16-byte copies from device to shared memory (sm_80+;
 // the 16-byte one bypasses L1):
 // a warp issues a tile's loads back to back and waits once.

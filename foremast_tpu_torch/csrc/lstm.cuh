@@ -1,6 +1,8 @@
 // The LSTM autoencoder's pieces shared by kernel K (lstm_ae.cu, scoring)
 // and kernel L (lstm_train.cu, training): the flat parameter layout and one
-// recurrent step of flax's LSTMCell for a block of windows in lock step.
+// recurrent step of flax's LSTMCell for a block of windows in lock step
+// (lstm_step), or for a register tile of a unit's gates over a few windows
+// (lstm_tile_step, kernel L's forward; the same bits).
 // Built with -fmad=false, expf / tanhf (never the fast intrinsics), so a
 // step rounds the same in both kernels and in a recomputation.
 #pragma once
@@ -86,6 +88,89 @@ __device__ __forceinline__ void lstm_step(const float* inp, int in_dim, const fl
     }
   }
   __syncthreads();
+}
+
+// One LSTM step of a register tile: the calling thread owns hidden unit u
+// and its four gate columns (i, f, g, o) for NW windows. The input
+// projection is inp (in_dim rows of ld floats, a window a column) times wi,
+// or the decoder's precomputed one (dz, with kDz); the recurrence is h (H
+// rows of ld floats) times wh. The weights are unit-major float4s (wi[q H +
+// u], wh[j H + u] = the four gates' entries), each read once a step for all
+// NW windows; inp and h are read as broadcasts, four windows a float4. The
+// sums keep lstm_step's order (the input terms from 0, then j ascending from
+// 0, multiply then add; gate = ax + (ah + b)), so the tile's gates, c and h
+// are lstm_step's bit for bit. c is updated in place; act receives i, f, g,
+// o and c, and hn the new h.
+template <int NW, bool kDz>
+__device__ __forceinline__ void lstm_tile_step(const float* inp, int in_dim, const float4* wi,
+                                               const float (&dz)[4][NW], const float* h, int ld,
+                                               const float4* wh, float4 b, int H, int u,
+                                               float (&c)[NW], float (&act)[5][NW],
+                                               float (&hn)[NW]) {
+  static_assert(NW % 4 == 0, "windows come in float4s");
+  float ax[4][NW], ah[4][NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      ax[g][w] = kDz ? dz[g][w] : 0.0f;
+      ah[g][w] = 0.0f;
+    }
+  if (!kDz) {
+    for (int q = 0; q < in_dim; ++q) {
+      const float4 wq = wi[q * H + u];
+      float v[NW];
+#pragma unroll
+      for (int w = 0; w < NW; w += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(inp + q * ld + w);
+        v[w] = t.x;
+        v[w + 1] = t.y;
+        v[w + 2] = t.z;
+        v[w + 3] = t.w;
+      }
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        ax[0][w] += v[w] * wq.x;
+        ax[1][w] += v[w] * wq.y;
+        ax[2][w] += v[w] * wq.z;
+        ax[3][w] += v[w] * wq.w;
+      }
+    }
+  }
+  for (int j = 0; j < H; ++j) {
+    const float4 wj = wh[j * H + u];
+    float v[NW];
+#pragma unroll
+    for (int w = 0; w < NW; w += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(h + j * ld + w);
+      v[w] = t.x;
+      v[w + 1] = t.y;
+      v[w + 2] = t.z;
+      v[w + 3] = t.w;
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      ah[0][w] += v[w] * wj.x;
+      ah[1][w] += v[w] * wj.y;
+      ah[2][w] += v[w] * wj.z;
+      ah[3][w] += v[w] * wj.w;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const float ig = sigmoid(ax[0][w] + (ah[0][w] + b.x));
+    const float fg = sigmoid(ax[1][w] + (ah[1][w] + b.y));
+    const float gg = tanhf(ax[2][w] + (ah[2][w] + b.z));
+    const float og = sigmoid(ax[3][w] + (ah[3][w] + b.w));
+    const float cn = fg * c[w] + ig * gg;
+    c[w] = cn;
+    hn[w] = og * tanhf(cn);
+    act[0][w] = ig;
+    act[1][w] = fg;
+    act[2][w] = gg;
+    act[3][w] = og;
+    act[4][w] = cn;
+  }
 }
 
 }  // namespace fm

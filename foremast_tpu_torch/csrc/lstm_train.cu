@@ -6,13 +6,22 @@
 // max(sum m, 1) over all its K windows; the model and its layout are kernel
 // K's (lstm.cuh). Three entries:
 //
-// Forward (`lstm_train_fwd_kernel`): kernel K's recurrences for a CTA of up
-// to KB windows of one job (grid J x nkb, nkb = ceil(K / KB)). Besides,
-// every step of both LSTMs stores its gate activations i, f, g, o and its c
-// (5H floats, a "slot") to device scratch `act`, laid out (J K, 2, W, 5H),
-// and each CTA writes its windows' sum of (recon - x)^2 over the mask
-// (float64, in a fixed order) and their count of valid slots to num and cnt
-// (J, nkb).
+// Forward: kernel K's recurrences; every step of both LSTMs stores its gate
+// activations i, f, g, o and its c (5H floats, a "slot") to device scratch
+// `act`, laid out (J K, 2, W, 5H), and each block of KB windows gets its sum
+// of (recon - x)^2 over the mask (float64, in a fixed order) and its count
+// of valid slots in num and cnt (J, nkb), nkb = ceil(K / KB). Two paths,
+// chosen by width, with the same bits:
+//   - the tile path (`lstm_train_fwd_tile_kernel`), where a job's parameter
+//     row and windows fit a CTA's shared memory (the engine's widths): a
+//     CTA for a job's windows (KC of them), thread (u, group) owning unit u
+//     and its four gates for a group of 8 windows in registers
+//     (lstm_tile_step), h double-buffered, one barrier a step, each weight
+//     read once a step for 8 windows;
+//   - the wide path (`lstm_train_fwd_kernel`): a CTA of KB
+//     windows (grid J x nkb) stepping with kernel K's lstm_step, the
+//     parameters in shared memory while they fit, else read from device
+//     memory (H = 128 and above).
 //
 // Backward, in two entries (kernel M scales the gradient by
 // 1 / max(sum m, 1)):
@@ -54,9 +63,12 @@
 // hold the tolerances); the forward's sums without FMA contraction
 // (-fmad=false, as kernel K), the backward's products by explicit fmaf.
 //
-// What bounds it on an H100: the operations, about W (2 H 4H + 2F 4H)
-// multiply-adds a window for the backward (0.791 ms for 1,024 jobs x 45
-// windows at the engine's F = 4, H = 32, Z = 16), against the activations
+// What bounds it on an H100: the forward, the 1.9 GB of activations it
+// writes at the engine's shape (0.587 ms); its 1.39e10 multiply-adds,
+// unfused (-fmad=false), need 0.83 ms of the fp32 pipes, the tile path's
+// floor. The backward, the operations, about W (2 H 4H + 2F 4H)
+// multiply-adds a window (0.791 ms for 1,024 jobs x 45 windows at the
+// engine's F = 4, H = 32, Z = 16), against the activations
 // written by the forward, then read, rewritten and read once more by the
 // backward (1.9 GB each time at that size). The recurrence is bound by
 // shared memory: a float4 broadcast of da costs four wavefronts, so a
@@ -76,16 +88,32 @@ constexpr int kGemmThreads = 32 * kGemmBM / kGemmTM;
 static_assert(kGemmBM == 32 && kGemmBN == 128, "a warp stages a row: 32 A and 128 B columns");
 constexpr int kGemmLdA = kGemmBM + 4;
 
+__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
 struct TrainArgs {
   const float* params;
   long long P;
   const float* x;
   const uint8_t* mask;
   int J, K, W, F, H, Z, KB, nkb;
+  int KC, nkc;    // the tile path: windows a CTA (a multiple of KB) and CTAs a job
   float* act;     // (J K, 2, W, 5H)
   double* num;    // (J, nkb)
   double* cnt;    // (J, nkb)
+  long long* clocks;  // null, or (J, kFwdPhases) SM cycles a job's CTAs spent per phase
 };
+
+// phases of the forward's optional cycle counts: parameters staged, the
+// encoder, the latent and the decoder's input projection, the decoder and
+// its head, the block sums
+constexpr int kFwdPhases = 5;
+
+// adds a CTA's cycles per phase (stamps c[0..kFwdPhases]) to its job's row
+__device__ __forceinline__ void add_fwd_clocks(long long* clocks, int job, const long long* c) {
+  for (int k = 0; k < kFwdPhases; ++k)
+    atomicAdd(reinterpret_cast<unsigned long long*>(clocks) + size_t(job) * kFwdPhases + k,
+              static_cast<unsigned long long>(c[k + 1] - c[k]));
+}
 
 // floats of the forward's per-window state: kernel K's (input, h, c, gates,
 // the decoder's input projection, latent, head partials as float64 pairs)
@@ -116,7 +144,13 @@ __global__ void __launch_bounds__(kTrainThreads) lstm_train_fwd_kernel(TrainArgs
   const int k0 = kb * a.KB, nk = min(a.KB, a.K - k0);
   const int F = a.F, H = a.H, Z = a.Z, G = 4 * H, IN = 2 * F, W = a.W, tid = threadIdx.x;
   float* sp = reinterpret_cast<float*>(smem);
+  long long cyc[kFwdPhases + 1];
+  cyc[0] = clock64();
   const LstmLayout l = lstm_layout(stage_params(a, job, sp, smem_params), F, H, Z);
+  if (a.clocks != nullptr) {
+    __syncthreads();
+    cyc[1] = clock64();
+  }
   const int KB = a.KB;
   float* inp = sp;
   float* h = inp + KB * IN;
@@ -141,6 +175,7 @@ __global__ void __launch_bounds__(kTrainThreads) lstm_train_fwd_kernel(TrainArgs
     lstm_step(inp, IN, l.wi_e, nullptr, l.wh_e, l.b_e, h, c, gates, nk, H, act + t * step,
               stride);
   }
+  cyc[2] = clock64();
   for (int i = tid; i < nk * Z; i += blockDim.x) {
     const int k = i / Z, q = i - k * Z;
     float acc = 0.0f;
@@ -156,6 +191,7 @@ __global__ void __launch_bounds__(kTrainThreads) lstm_train_fwd_kernel(TrainArgs
   }
   for (int i = tid; i < nk * H; i += blockDim.x) h[i] = c[i] = 0.0f;
   __syncthreads();
+  cyc[3] = clock64();
 
   // thread i < nk F keeps window i / F, feature i % F (nk F <= blockDim)
   const int kf = tid < nk * F ? tid : -1;
@@ -181,6 +217,7 @@ __global__ void __launch_bounds__(kTrainThreads) lstm_train_fwd_kernel(TrainArgs
     part[2 * kf + 1] = n;
   }
   __syncthreads();
+  cyc[4] = clock64();
   if (tid == 0) {
     double s = 0.0, m = 0.0;
     for (int i = 0; i < nk * F; ++i) {
@@ -189,6 +226,297 @@ __global__ void __launch_bounds__(kTrainThreads) lstm_train_fwd_kernel(TrainArgs
     }
     a.num[size_t(job) * a.nkb + kb] = s;
     a.cnt[size_t(job) * a.nkb + kb] = m;
+    if (a.clocks != nullptr) {
+      cyc[5] = clock64();
+      add_fwd_clocks(a.clocks, job, cyc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward, the tile path: a CTA for a job's windows
+// ---------------------------------------------------------------------------
+// A CTA runs KC windows of one job (all K of them where they fit), kFwdWin
+// windows a thread group of H threads: thread (u, group) owns hidden unit u
+// and its four gates for its group's windows (lstm_tile_step), the state in
+// registers, h double-buffered in shared memory, one barrier a step. Each
+// weight is read from shared memory once a step for kFwdWin windows; the
+// parameter row is staged once a CTA, gate weights unit-major as float4s.
+// (window, feature) pairs, at most kFwdMaxPairs a thread, load the next
+// step's encoder input and the decoder's targets a step ahead and sum the
+// head's squared errors in step order; the block sums (KB windows, as the
+// wide path's CTAs) keep the wide path's order, so num and cnt are its bits.
+// windows a thread, a CTA's most threads (registers for two CTAs an SM: at
+// the engine's shape on an H100, 4 windows a thread at two CTAs an SM took
+// 2.283 ms, 8 at one CTA of the same 12 warps 2.374 ms)
+constexpr int kFwdWin = 4;
+constexpr int kFwdMaxThreads = 384;
+constexpr int kFwdMaxPairs = 4;
+
+// The tile path's shared memory, in floats: the parameter row restaged,
+// then h (two buffers of H rows of ld floats, a window a column), the
+// encoder's input (two buffers of 2F rows), the latent (Z rows), and each
+// pair's squared-error sum and count (float64).
+struct FwdLayout {
+  int wi, wh, b, w0, b0, wd, whd, bd, w1, b1, h, inp, zl, se, floats;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int F, int H, int Z, int ld) {
+  FwdLayout l;
+  int at = 0;
+  l.wi = at, at += 8 * F * H;
+  l.wh = at, at += 4 * H * H;
+  l.b = at, at += 4 * H;
+  l.w0 = at, at += align4(H * Z);
+  l.b0 = at, at += align4(Z);
+  l.wd = at, at += 4 * Z * H;
+  l.whd = at, at += 4 * H * H;
+  l.bd = at, at += 4 * H;
+  l.w1 = at, at += align4(H * F);
+  l.b1 = at, at += align4(F);
+  l.h = at, at += 2 * H * ld;
+  l.inp = at, at += 4 * F * ld;
+  l.zl = at, at += Z * ld;
+  l.se = at, at += 4 * ld * F;  // ld F pairs of two doubles
+  l.floats = at;
+  return l;
+}
+
+// the row stride of h, the input and the latent for KC windows: whole
+// groups, plus 4 floats so that a warp's float4 stores of h fall on
+// distinct banks
+__host__ __device__ inline int fwd_ld(int KC) {
+  return (KC + kFwdWin - 1) / kFwdWin * kFwdWin + 4;
+}
+
+__host__ inline long long fwd_tile_smem_bytes(int F, int H, int Z, int KC) {
+  return 4LL * fwd_layout(F, H, Z, fwd_ld(KC)).floats;
+}
+
+// KC for the tile path, or 0 where it does not serve: at most
+// kFwdMaxThreads threads and kFwdMaxPairs pairs a thread, a multiple of
+// KB, and the CTAs of a job as even as KB allows
+__host__ inline int fwd_tile_windows(int K, int F, int H, int KB) {
+  const int groups = kFwdMaxThreads / H;
+  if (groups < 1) return 0;
+  const int most = groups * kFwdWin / KB * KB;
+  if (most < 1) return 0;
+  const int nkc = (K + most - 1) / most;
+  const int KC = ((K + nkc - 1) / nkc + KB - 1) / KB * KB;
+  const int threads = H * ((KC + kFwdWin - 1) / kFwdWin);
+  if (KC * F > kFwdMaxPairs * threads) return 0;
+  return KC;
+}
+
+// (window, feature) pair r of this thread: its window and feature, or false
+__device__ __forceinline__ bool fwd_pair(int r, int nk, int F, int& k, int& f) {
+  const int i = threadIdx.x + r * blockDim.x;
+  k = i / F;
+  f = i - k * F;
+  return i < nk * F;
+}
+
+__global__ void __launch_bounds__(kFwdMaxThreads, 2) lstm_train_fwd_tile_kernel(TrainArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  const int job = blockIdx.x / a.nkc, kc = blockIdx.x - job * a.nkc;
+  const int F = a.F, H = a.H, Z = a.Z, W = a.W, G = 4 * H, IN = 2 * F;
+  const int k0 = kc * a.KC, nk = min(a.KC, a.K - k0), ld = fwd_ld(a.KC);
+  const int tid = threadIdx.x, nt = blockDim.x, u = tid % H, kw = tid / H * kFwdWin;
+  const FwdLayout L = fwd_layout(F, H, Z, ld);
+  long long cyc[kFwdPhases + 1];
+  cyc[0] = clock64();
+
+  // the parameter row, gate weights unit-major
+  const float* p = a.params + size_t(job) * a.P;
+  long long o[10];
+  lstm_offsets(F, H, Z, o);
+  float4* wi = reinterpret_cast<float4*>(sm + L.wi);
+  float4* wh = reinterpret_cast<float4*>(sm + L.wh);
+  float4* bb = reinterpret_cast<float4*>(sm + L.b);
+  float4* wd = reinterpret_cast<float4*>(sm + L.wd);
+  float4* whd = reinterpret_cast<float4*>(sm + L.whd);
+  float4* bd = reinterpret_cast<float4*>(sm + L.bd);
+  float* w0 = sm + L.w0;
+  float* b0 = sm + L.b0;
+  float* w1 = sm + L.w1;
+  float* b1 = sm + L.b1;
+  const struct {
+    float4* dst;
+    long long src;
+    int rows;
+  } gates[6] = {{wi, o[0], IN}, {wh, o[1], H}, {bb, o[2], 1},
+                {wd, o[5], Z},  {whd, o[6], H}, {bd, o[7], 1}};
+  for (int m = 0; m < 6; ++m)
+    for (int i = tid; i < gates[m].rows * H; i += nt) {
+      const int r = i / H, c = i - r * H;
+      const float* q = p + gates[m].src + size_t(r) * G + c;
+      gates[m].dst[i] = make_float4(q[0], q[H], q[2 * H], q[3 * H]);
+    }
+  for (int i = tid; i < H * Z; i += nt) w0[i] = p[o[3] + i];
+  for (int i = tid; i < Z; i += nt) b0[i] = p[o[4] + i];
+  for (int i = tid; i < H * F; i += nt) w1[i] = p[o[8] + i];
+  for (int i = tid; i < F; i += nt) b1[i] = p[o[9] + i];
+  float* h = sm + L.h;
+  float* inp = sm + L.inp;
+  float* zl = sm + L.zl;
+  double* se = reinterpret_cast<double*>(sm + L.se);
+  double* nn = se + ld * F;
+  for (int i = tid; i < 2 * H * ld; i += nt) h[i] = 0.0f;
+  for (int i = tid; i < 2 * IN * ld; i += nt) inp[i] = 0.0f;
+  for (int i = tid; i < ld * F; i += nt) se[i] = nn[i] = 0.0;
+  const size_t win0 = size_t(job) * a.K + k0;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kFwdMaxPairs; ++r) {
+    int k, f;
+    if (!fwd_pair(r, nk, F, k, f)) break;
+    const size_t at = (win0 + k) * W * F + f;
+    inp[f * ld + k] = a.x[at];
+    inp[(F + f) * ld + k] = a.mask[at] ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  cyc[1] = clock64();
+
+  const size_t step = size_t(5) * H, stride = size_t(2) * W * step;  // per step, per window
+  float* act = a.act + (win0 + kw) * stride + u;
+  const int mine = max(0, min(kFwdWin, nk - kw));  // this thread's windows that exist
+  float c[kFwdWin], hn[kFwdWin], out[5][kFwdWin], dz[4][kFwdWin];
+#pragma unroll
+  for (int w = 0; w < kFwdWin; ++w) c[w] = 0.0f;
+
+  for (int t = 0; t < W; ++t) {
+    const float* hc = h + (t & 1) * H * ld;
+    float* hx = h + ((t + 1) & 1) * H * ld;
+    float xr[kFwdMaxPairs];
+    bool mr[kFwdMaxPairs];
+#pragma unroll
+    for (int r = 0; r < kFwdMaxPairs; ++r) {
+      int k, f;
+      if (t + 1 < W && fwd_pair(r, nk, F, k, f)) {
+        const size_t at = ((win0 + k) * W + t + 1) * F + f;
+        xr[r] = a.x[at];
+        mr[r] = a.mask[at];
+      }
+    }
+    lstm_tile_step<kFwdWin, false>(inp + (t & 1) * IN * ld + kw, IN, wi, dz, hc + kw, ld, wh,
+                                   bb[u], H, u, c, out, hn);
+#pragma unroll
+    for (int w = 0; w < kFwdWin; w += 4)
+      *reinterpret_cast<float4*>(hx + u * ld + kw + w) =
+          make_float4(hn[w], hn[w + 1], hn[w + 2], hn[w + 3]);
+#pragma unroll
+    for (int w = 0; w < kFwdWin; ++w)
+      if (w < mine)
+#pragma unroll
+        for (int g = 0; g < 5; ++g) act[w * stride + t * step + g * H] = out[g][w];
+    float* in_next = inp + ((t + 1) & 1) * IN * ld;
+#pragma unroll
+    for (int r = 0; r < kFwdMaxPairs; ++r) {
+      int k, f;
+      if (t + 1 < W && fwd_pair(r, nk, F, k, f)) {
+        in_next[f * ld + k] = xr[r];
+        in_next[(F + f) * ld + k] = mr[r] ? 1.0f : 0.0f;
+      }
+    }
+    __syncthreads();
+  }
+  cyc[2] = clock64();
+
+  // the latent, then the decoder's input projection into registers
+  const float* he = h + (W & 1) * H * ld;
+  for (int i = tid; i < Z * ld; i += nt) {
+    const int q = i / ld, k = i - q * ld;
+    float acc = 0.0f;
+    for (int j = 0; j < H; ++j) acc += he[j * ld + k] * w0[j * Z + q];
+    zl[i] = acc + b0[q];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kFwdWin; ++w) {
+    c[w] = 0.0f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) dz[g][w] = 0.0f;
+  }
+  for (int q = 0; q < Z; ++q) {
+    const float4 wq = wd[q * H + u];
+#pragma unroll
+    for (int w = 0; w < kFwdWin; ++w) {
+      const float v = zl[q * ld + kw + w];
+      dz[0][w] += v * wq.x;
+      dz[1][w] += v * wq.y;
+      dz[2][w] += v * wq.z;
+      dz[3][w] += v * wq.w;
+    }
+  }
+  for (int i = tid; i < H * ld; i += nt) h[i] = 0.0f;
+  __syncthreads();
+  cyc[3] = clock64();
+
+  // the decoder; in step t, the head of step t - 1 (h of step t - 1 is what
+  // step t reads); after the last step, the last head
+  for (int t = 0; t <= W; ++t) {
+    const float* hc = h + (t & 1) * H * ld;
+    float xr[kFwdMaxPairs];
+    bool mr[kFwdMaxPairs];
+#pragma unroll
+    for (int r = 0; r < kFwdMaxPairs; ++r) {
+      int k, f;
+      if (t > 0 && fwd_pair(r, nk, F, k, f)) {
+        const size_t at = ((win0 + k) * W + t - 1) * F + f;
+        xr[r] = a.x[at];
+        mr[r] = a.mask[at];
+      }
+    }
+    if (t < W) {
+      float* hx = h + ((t + 1) & 1) * H * ld;
+      lstm_tile_step<kFwdWin, true>(nullptr, 0, nullptr, dz, hc + kw, ld, whd, bd[u], H, u, c,
+                                    out, hn);
+#pragma unroll
+      for (int w = 0; w < kFwdWin; w += 4)
+        *reinterpret_cast<float4*>(hx + u * ld + kw + w) =
+            make_float4(hn[w], hn[w + 1], hn[w + 2], hn[w + 3]);
+#pragma unroll
+      for (int w = 0; w < kFwdWin; ++w)
+        if (w < mine)
+#pragma unroll
+          for (int g = 0; g < 5; ++g) act[w * stride + (W + t) * step + g * H] = out[g][w];
+    }
+#pragma unroll
+    for (int r = 0; r < kFwdMaxPairs; ++r) {
+      int k, f;
+      if (t > 0 && fwd_pair(r, nk, F, k, f)) {
+        float acc = 0.0f;
+        for (int j = 0; j < H; ++j) acc += hc[j * ld + k] * w1[j * F + f];
+        const float rr = acc + b1[f];
+        if (mr[r]) {
+          const float d = rr - xr[r];
+          se[k * F + f] += double(d * d);
+          nn[k * F + f] += 1.0;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cyc[4] = clock64();
+
+  // each block of KB windows: its pairs' sums in (window, feature) order
+  const int nb = (nk + a.KB - 1) / a.KB, kb0 = k0 / a.KB;
+  for (int b = tid; b < nb; b += nt) {
+    double s = 0.0, m = 0.0;
+    for (int i = b * a.KB * F; i < min((b + 1) * a.KB, nk) * F; ++i) {
+      s += se[i];
+      m += nn[i];
+    }
+    a.num[size_t(job) * a.nkb + kb0 + b] = s;
+    a.cnt[size_t(job) * a.nkb + kb0 + b] = m;
+  }
+  if (a.clocks != nullptr) {
+    __syncthreads();
+    if (tid == 0) {
+      cyc[5] = clock64();
+      add_fwd_clocks(a.clocks, job, cyc);
+    }
   }
 }
 
@@ -209,8 +537,6 @@ struct BpttArgs {
   float* act;  // (J K, 2, W, 5H): read, then each slot rewritten as (da_t, h_{t-1})
   float* rec;  // (J K, S): the per-window record
 };
-
-__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
 // A window's record: z (Z), the decoder's sum of da over its steps (4H),
 // the encoder's last h (H), the latent's gradient (Z), Dense_1's kernel
@@ -783,20 +1109,43 @@ extern "C" long long fm_lstm_train_smem_bytes(int F, int H, int Z, int KB, int s
 
 extern "C" int fm_lstm_train_forward(const float* params, long long P, const float* x,
                                      const uint8_t* mask, int J, int K, int W, int F, int H,
-                                     int Z, int KB, int smem_params, float* act, double* num,
-                                     double* cnt, void* stream) {
+                                     int Z, int KB, int smem_params, long long tile_budget,
+                                     float* act, double* num, double* cnt, long long* clocks,
+                                     void* stream) {
   if (P != fm::lstm_param_count(F, H, Z) || KB < 1 || KB * F > fm::kTrainThreads || W < 1)
     return int(cudaErrorInvalidValue);
   const int nkb = (K + KB - 1) / KB;
-  fm::TrainArgs a{params, P, x, mask, J, K, W, F, H, Z, KB, nkb, act, num, cnt};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the tile path where a job's parameters and windows fit its budget
+  const int KC = fm::fwd_tile_windows(K, F, H, KB);
+  if (KC > 0 && fm::fwd_tile_smem_bytes(F, H, Z, KC) <= tile_budget) {
+    const int nkc = (K + KC - 1) / KC;
+    fm::TrainArgs a{params, P, x, mask, J, K, W, F, H, Z, KB, nkb, KC, nkc, act, num, cnt,
+                    clocks};
+    const int smem = int(fm::fwd_tile_smem_bytes(F, H, Z, KC));
+    const cudaError_t e = cudaFuncSetAttribute(fm::lstm_train_fwd_tile_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return int(e);
+    const int threads = H * ((KC + fm::kFwdWin - 1) / fm::kFwdWin);
+    fm::lstm_train_fwd_tile_kernel<<<J * nkc, threads, smem, s>>>(a);
+    return int(cudaGetLastError());
+  }
+  fm::TrainArgs a{params, P, x, mask, J, K, W, F, H, Z, KB, nkb, 0, 0, act, num, cnt, clocks};
   const size_t smem = size_t(fm::train_smem_bytes(F, H, Z, KB, smem_params));
   const cudaError_t e = cudaFuncSetAttribute(fm::lstm_train_fwd_kernel,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              int(smem));
   if (e != cudaSuccess) return int(e);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   fm::lstm_train_fwd_kernel<<<J * nkb, fm::kTrainThreads, smem, s>>>(a, smem_params);
   return int(cudaGetLastError());
+}
+
+extern "C" int fm_lstm_forward_tile_windows(int K, int F, int H, int KB) {
+  return fm::fwd_tile_windows(K, F, H, KB);
+}
+
+extern "C" long long fm_lstm_forward_tile_smem_bytes(int F, int H, int Z, int KC) {
+  return fm::fwd_tile_smem_bytes(F, H, Z, KC);
 }
 
 extern "C" int fm_lstm_rec_floats(int F, int H, int Z, int W) {

@@ -68,12 +68,15 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "hpa_score", "st_fit", "lstm_ae", "lstm_train_forward", "lstm_train_backward",
            "lstm_train_recurrence", "lstm_train_wgrad", "adam", "pair_tests", "rank_and_ties",
            "kruskal_groups", "friedman", "fleet_topk", "lstm_train_blocks", "lstm_bptt_blocks",
+           "lstm_train_forward_path",
            "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
            "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
-           "PAIR_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
+           "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check",
+           "PAIR_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES", "ST_FIT_PHASES",
+           "LSTM_FORWARD_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
 # shared memory; above it, in device scratch
@@ -110,6 +113,11 @@ LSTM_SMEM_PARAMS_BYTES = 96 * 1024
 # needs at most this many bytes (two CTAs an SM), in device memory above it
 # (H above about 80)
 LSTM_TRAIN_SMEM_BYTES = 113 * 1024
+# kernel L's forward runs its tile path (a job's windows a CTA, the
+# parameter row in shared memory) where that CTA's shared memory fits this
+# budget (two CTAs an SM), else the wide path (8 windows a CTA, parameters
+# read from device memory above LSTM_SMEM_PARAMS_BYTES)
+LSTM_FORWARD_SMEM_BYTES = 113 * 1024
 
 # kernel N: each test's bit in its `tests` mask, in the column order of its
 # outputs (the first four are all_pairwise_tests' family)
@@ -147,6 +155,10 @@ SCRATCH_BYTES = 1 << 30
 TRIAGE_PHASES = ("stage", "scan", "sigma", "bands", "keys", "minmax", "passes", "pair",
                  "mad_keys", "total")
 HW_FIT_PHASES = ("level0", "stage", "walk", "store")  # level0 includes the row's end
+# kernel J's phases, as its optional per-row cycle counts split it; kernel L's
+# forward's, as its optional per-job cycle sums split it
+ST_FIT_PHASES = ("gram", "solve", "preds")
+LSTM_FORWARD_PHASES = ("stage", "encoder", "latent", "decoder", "sums")
 
 # kernel A's phases, in order, as its optional clock stamps split it
 PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans",
@@ -644,10 +656,13 @@ def hpa_score(tps, tps_mask, region, tps_pred, sla, sla_mask, sla_static_limit, 
 
 
 def st_fit(x, mask, fit_mask, period, order: int, n_changepoints: int, ridge: float,
-           cp_shrink: float, l1_iters: int):
+           cp_shrink: float, l1_iters: int, phase_clocks=None):
     """Launch kernel J: the seasonal-trend fit of B rows over fit_mask &
     mask, each row with its (B,) int32 period. Returns beta (B, D) and
-    preds (B, T) float32, D = 2 + n_changepoints + 2 order <= MAX_ST_D."""
+    preds (B, T) float32, D = 2 + n_changepoints + 2 order <= MAX_ST_D.
+
+    phase_clocks, an int64 (B, len(ST_FIT_PHASES)) tensor, receives the SM
+    cycles each row spent in each phase of ST_FIT_PHASES."""
     B, T = x.shape
     dev = x.device
     D = 2 + int(n_changepoints) + 2 * int(order)
@@ -662,6 +677,8 @@ def st_fit(x, mask, fit_mask, period, order: int, n_changepoints: int, ridge: fl
             (fit_mask, "fit_mask", torch.bool, (B, T)),
             (period, "period", torch.int32, (B,))):
         _check(t, name, dt, shape, dev)
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (B, len(ST_FIT_PHASES)), dev)
     beta = torch.empty((B, D), dtype=torch.float32, device=dev)
     preds = torch.empty((B, T), dtype=torch.float32, device=dev)
     if B == 0:
@@ -671,10 +688,25 @@ def st_fit(x, mask, fit_mask, period, order: int, n_changepoints: int, ridge: fl
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fm_st_fit(_ptr(x), _ptr(mask), _ptr(fit_mask), _ptr(period), int(order),
                            int(n_changepoints), float(ridge), float(cp_shrink), int(l1_iters),
-                           B, T, _ptr(beta), _ptr(preds), ctypes.c_void_p(stream))
+                           B, T, _ptr(beta), _ptr(preds), _opt(phase_clocks),
+                           ctypes.c_void_p(stream))
     _raise_on(rc, "st_fit", lib)
     launches["st_fit"] += 1
     return beta, preds
+
+
+def st_sincos_check(device="cuda") -> int:
+    """The float32 arguments (of all 2^32 bit patterns) at which the card's
+    sincosf differs in its bits from its sinf or cosf: kernel J takes both
+    Fourier columns of a pair from one sincosf, which rounds as the twin's
+    columns only while this is 0. Not a kernel of any path."""
+    lib = build.library()
+    out = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        rc = lib.fm_st_sincos_check(_ptr(out),
+                                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(rc, "st_sincos_check", lib)
+    return int(out.item())
 
 
 def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None):
@@ -726,6 +758,17 @@ def lstm_train_blocks(K: int, F: int) -> tuple:
     return KB, -(-int(K) // KB)
 
 
+def lstm_train_forward_path(K: int, F: int, H: int, Z: int) -> str:
+    """Which path kernel L's forward takes for K windows a job at these
+    widths under LSTM_FORWARD_SMEM_BYTES: "tile" (a CTA for a job's
+    windows) or "wide" (lstm_train_blocks' 8 windows a CTA)."""
+    lib = build.library()
+    KC = lib.fm_lstm_forward_tile_windows(int(K), int(F), int(H), lstm_train_blocks(K, F)[0])
+    fits = KC > 0 and lib.fm_lstm_forward_tile_smem_bytes(int(F), int(H), int(Z), KC) \
+        <= LSTM_FORWARD_SMEM_BYTES
+    return "tile" if fits else "wide"
+
+
 def _lstm_train_check(params, x, mask, hidden: int, latent: int, what: str):
     J, K, W, F = x.shape
     dev = x.device
@@ -745,14 +788,20 @@ def _lstm_train_check(params, x, mask, hidden: int, latent: int, what: str):
     return lib, J, K, W, F, H, Z, P, dev
 
 
-def lstm_train_forward(params, x, mask, hidden: int, latent: int):
+def lstm_train_forward(params, x, mask, hidden: int, latent: int, phase_clocks=None):
     """Launch kernel L's forward entry on J jobs' (J, P) parameter rows and
     their windows x (J, K, W, F) float32, mask bool. Returns num and cnt
     (J, nkb) float64, each window block's sum of squared errors over the
     mask and its count of valid slots, and act (J, K, 2, W, 5H) float32, the
-    activations the backward entries read."""
+    activations the backward entries read.
+
+    phase_clocks, an int64 (J, len(LSTM_FORWARD_PHASES)) tensor of zeros,
+    receives the SM cycles each job's CTAs spent in each phase of
+    LSTM_FORWARD_PHASES, summed over its CTAs."""
     lib, J, K, W, F, H, Z, P, dev = _lstm_train_check(params, x, mask, hidden, latent,
                                                       "lstm_train_forward")
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (J, len(LSTM_FORWARD_PHASES)), dev)
     KB, nkb = lstm_train_blocks(K, F)
     num = torch.empty((J, nkb), dtype=torch.float64, device=dev)
     cnt = torch.empty((J, nkb), dtype=torch.float64, device=dev)
@@ -763,7 +812,8 @@ def lstm_train_forward(params, x, mask, hidden: int, latent: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fm_lstm_train_forward(_ptr(params), P, _ptr(x), _ptr(mask), J, K, W, F, H, Z,
-                                       KB, smem_params, _ptr(act), _ptr(num), _ptr(cnt),
+                                       KB, smem_params, LSTM_FORWARD_SMEM_BYTES, _ptr(act),
+                                       _ptr(num), _ptr(cnt), _opt(phase_clocks),
                                        ctypes.c_void_p(stream))
     _raise_on(rc, "lstm_train_forward", lib)
     launches["lstm_train_forward"] += 1

@@ -133,18 +133,24 @@ def _declare(lib):
     lib.fm_hpa_from_preds.argtypes = [P] * 13 + [I, I] + [P] * 12 + [P]
     lib.fm_hpa_from_preds.restype = I
     D = ctypes.c_double
-    lib.fm_st_fit.argtypes = [P] * 4 + [I, I, D, D, I, I, I, P, P, P]
+    lib.fm_st_fit.argtypes = [P] * 4 + [I, I, D, D, I, I, I, P, P, P, P]
     lib.fm_st_fit.restype = I
+    lib.fm_st_sincos_check.argtypes = [P, P]
+    lib.fm_st_sincos_check.restype = I
     lib.fm_lstm_ae.argtypes = [P, LL, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P]
     lib.fm_lstm_ae.restype = I
     lib.fm_lstm_ae_smem_bytes.argtypes = [I, I, I, I, I]
     lib.fm_lstm_ae_smem_bytes.restype = LL
     lib.fm_lstm_ae_param_count.argtypes = [I, I, I]
     lib.fm_lstm_ae_param_count.restype = LL
-    lib.fm_lstm_train_forward.argtypes = [P, LL, P, P] + [I] * 8 + [P] * 4
+    lib.fm_lstm_train_forward.argtypes = [P, LL, P, P] + [I] * 8 + [LL] + [P] * 5
     lib.fm_lstm_train_forward.restype = I
     lib.fm_lstm_train_smem_bytes.argtypes = [I] * 5
     lib.fm_lstm_train_smem_bytes.restype = LL
+    lib.fm_lstm_forward_tile_windows.argtypes = [I] * 4
+    lib.fm_lstm_forward_tile_windows.restype = I
+    lib.fm_lstm_forward_tile_smem_bytes.argtypes = [I] * 4
+    lib.fm_lstm_forward_tile_smem_bytes.restype = LL
     lib.fm_lstm_rec_floats.argtypes = [I] * 4
     lib.fm_lstm_rec_floats.restype = I
     lib.fm_lstm_bptt_windows.argtypes = [I, I]

@@ -90,6 +90,37 @@ inline T exchange(T v, int src) {
   return out;
 }
 
+// Every lane's N doubles, gathered over the warp.
+template <int N>
+inline void gather(const double* mine, double (*all)[N]) {
+  Warp& w = *ctx.warp;
+  for (int i = 0; i < N; ++i) {
+    std::memcpy(&w.buf[ctx.lane], &mine[i], 8);
+    w.bar.arrive_and_wait();
+    for (int l = 0; l < 32; ++l) std::memcpy(&all[l][i], &w.buf[l], 8);
+    w.bar.arrive_and_wait();
+  }
+}
+
+// A warp's float64 MMA D = A B + D of shape M x 8 x 4 (M = 8 or 16), the
+// fragments as common.cuh lays them out (g = lane >> 2, t = lane & 3):
+// A[m][k] in lane 4 (m & 7) + k, register m >> 3; B[k][n] in lane 4 n + k;
+// the lane's d[2h + i] = D[g + 8h][2t + i]. Each entry sums its 4 products
+// in order.
+template <int M>
+inline void mma_f64(double* d, const double* a, const double* b) {
+  double A[32][M / 8], B[32][1];
+  gather<M / 8>(a, A);
+  gather<1>(b, B);
+  const int g = ctx.lane >> 2, t = ctx.lane & 3;
+  for (int r = 0; r < M / 4; ++r) {
+    const int m = g + 8 * (r >> 1), n = 2 * t + (r & 1);
+    double s = d[r];
+    for (int k = 0; k < 4; ++k) s += A[4 * (m & 7) + k][m >> 3] * B[4 * n + k][0];
+    d[r] = s;
+  }
+}
+
 template <typename K, typename... Args>
 void launch(K kernel, dim3 grid, dim3 block, size_t smem, void*, Args... args) {
   const unsigned nt = block.x;

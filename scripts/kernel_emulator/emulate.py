@@ -2,11 +2,12 @@
 """Run the port's CUDA kernels on the CPU, under a host emulation of CUDA.
 
     python scripts/kernel_emulator/emulate.py     # every kernel vs its twin
+    python scripts/kernel_emulator/emulate.py --parent DIR   # and L's forward, J vs DIR's
 
 For a machine without nvcc or a card. `build()` compiles
-``foremast_tpu_torch/csrc/*.cu`` with g++ against ``emu.h`` (after three
-textual rewrites: the dynamic shared-memory declaration, the ``<<<...>>>``
-launches, the named barrier and the cp.async helpers) into
+``foremast_tpu_torch/csrc/*.cu`` with g++ against ``emu.h`` (after textual
+rewrites of the dynamic shared-memory declaration, the ``<<<...>>>``
+launches, the named barrier, the float64 MMA and the cp.async helpers) into
 ``build/kernel_emulator/<hash>/libemu.so``. `install()` points
 ``foremast_tpu_torch.kernels`` at that library and lets its launchers take
 CPU tensors, so the real launchers run the real kernel sources: index
@@ -50,6 +51,12 @@ def _rewrite(text: str) -> str:
     text = _LAUNCH.sub(r"emu::launch(\1, \2, \3);", text)
     text = text.replace('asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(n) : "memory");',
                         "emu::bar_sync(id, n);")
+    start = text.find("__device__ __forceinline__ void mma_f64_m8n8k4")
+    if start >= 0:
+        end = text.find("// Asynchronous 4-, 8- and 16-byte copies", start)
+        text = text[:start] + "".join(
+            f"inline void mma_f64_m{m}n8k4(double* d, const double* a, const double* b) {{\n"
+            f"  emu::mma_f64<{m}>(d, a, b);\n}}\n" for m in (8, 16)) + "\n" + text[end:]
     start = text.find("__device__ __forceinline__ void cp_async4")
     if start >= 0:
         end = text.find("}  // namespace fm", start)
@@ -63,9 +70,9 @@ def _rewrite(text: str) -> str:
     return text
 
 
-def build() -> str:
-    """Compile the kernels for the host; returns the library's path."""
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
+def build(csrc: str = CSRC) -> str:
+    """Compile the kernels in csrc for the host; returns the library's path."""
+    sources = sorted(glob.glob(os.path.join(csrc, "*.cu")) + glob.glob(os.path.join(csrc, "*.cuh")))
     h = hashlib.sha256()
     for p in sources + [os.path.join(HERE, "emu.h"), __file__]:
         with open(p, "rb") as f:
@@ -126,6 +133,66 @@ def install() -> None:
 def _err(a, b) -> float:
     same = (torch.isnan(a) & torch.isnan(b)) | (torch.isinf(a) & (a == b))
     return float(torch.where(same, 0.0, (a.double() - b.double()).abs()).max())
+
+
+def _bits(t):
+    return t.view(torch.int64) if t.element_size() == 8 else t.view(torch.int32)
+
+
+def parent_check(parent: str) -> int:
+    """Kernel L's forward and kernel J of the checkout at `parent` (its own
+    C entries, called directly) against this tree's: L's act, num and cnt
+    bit for bit, J within compare_st_fit's tolerances. Returns the failures."""
+    import chip_smoke as cs
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    lib = ctypes.CDLL(build(os.path.join(parent, "foremast_tpu_torch", "csrc")))
+    P_, I_, D_, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
+    lib.fm_st_fit.argtypes = [P_] * 4 + [I_, I_, D_, D_, I_, I_, I_, P_, P_, P_]
+    lib.fm_lstm_train_forward.argtypes = [P_, LL, P_, P_] + [I_] * 8 + [P_] * 4
+    lib.fm_lstm_train_smem_bytes.argtypes = [I_] * 5
+    lib.fm_lstm_train_smem_bytes.restype = LL
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    saved_dev, cs.DEV = cs.DEV, "cpu"
+    g = torch.Generator().manual_seed(3)
+    failures = 0
+    for F, H, Z, K, W in ((4, 32, 16, 45, 3), (3, 8, 4, 11, 8), (4, 40, 8, 11, 5),
+                          (2, 10, 6, 5, 4)):
+        p, x, m = cs.adversarial_lstm_train(3, K, W, F, H, Z, g)
+        KB, nkb = kernels.lstm_train_blocks(K, F)
+        num, cnt = torch.empty(3, nkb, dtype=torch.float64), torch.empty(3, nkb, dtype=torch.float64)
+        act = torch.empty(3, K, 2, W, 5 * H)
+        sp = int(lib.fm_lstm_train_smem_bytes(F, H, Z, KB, 1) <= kernels.LSTM_SMEM_PARAMS_BYTES)
+        rc = lib.fm_lstm_train_forward(ptr(p), p.shape[1], ptr(x), ptr(m), 3, K, W, F, H, Z, KB,
+                                       sp, ptr(act), ptr(num), ptr(cnt), None)
+        ours = kernels.lstm_train_forward(p, x, m, H, Z)
+        ok = rc == 0 and all(torch.equal(_bits(u), _bits(v))
+                             for u, v in zip(ours, (num, cnt, act)))
+        print(f"{'ok  ' if ok else 'FAIL'} lstm_train_forward F={F} H={H} Z={Z} K={K} W={W} "
+              f"against the parent's: num, cnt, act bit for bit", flush=True)
+        failures += not ok
+    for T in (128, 301):
+        a = cs.adversarial_st(27, T, g)
+        for C, order in ((0, cs.ST_ORDER), (cs.ST_CHANGEPOINTS, cs.ST_ORDER), (24, 3)):
+            D = 2 + C + 2 * order
+            beta, preds = torch.empty(27, D), torch.empty(27, T)
+            rc = lib.fm_st_fit(*(ptr(t) for t in a), order, C, 1e-4, 3e-3, 3, 27, T, ptr(beta),
+                               ptr(preds), None)
+            try:
+                cs.check(rc == 0, f"the parent's st_fit returned {rc}")
+                e, _ = cs.compare_st_fit(a, kernels.st_fit(*a, order, C, 1e-4, 3e-3, 3),
+                                         (beta, preds), D)
+                print(f"ok   st_fit T={T} C={C} order={order} against the parent's: preds "
+                      f"|err| {e:.3g}", flush=True)
+            except AssertionError as err:
+                print(f"FAIL st_fit T={T} C={C} order={order} against the parent's: {err}",
+                      flush=True)
+                failures += 1
+    cs.DEV = saved_dev
+    return failures
 
 
 def self_check() -> int:
@@ -229,16 +296,20 @@ def self_check() -> int:
                     expect(name, False, str(e))
     from foremast_tpu_torch.models import lstm_ae as tl
 
-    for T in (128, 300):
+    # kernel J at each float64 MMA shape; T = 301 is no multiple of 4 or of
+    # a warp's 32 slots; D = 32 (C = 24) and D = 2 (C = 0, order 0); the
+    # adversarial rows include one with no selected slot
+    for T in (128, 301):
         a = cs.adversarial_st(27, T, g)
-        for C in (0, cs.ST_CHANGEPOINTS):
-            name = f"st_fit T={T} C={C}"
+        for C, order in ((0, cs.ST_ORDER), (cs.ST_CHANGEPOINTS, cs.ST_ORDER), (24, 3), (0, 0)):
+            name = f"st_fit T={T} C={C} order={order}"
             try:
-                e, ill = cs.compare_st_fit(a, kernels.st_fit(*a, cs.ST_ORDER, C, 1e-4, 3e-3, 3),
-                                           fc.fit_seasonal_trend_plain(*a, cs.ST_ORDER, 1e-4, C,
-                                                                       3e-3, 3),
-                                           2 + C + 2 * cs.ST_ORDER)
-                expect(name, True, f"preds |err| {e:.3g}, {ill} rows ill-posed")
+                kern = kernels.st_fit(*a, order, C, 1e-4, 3e-3, 3)
+                e, ill = cs.compare_st_fit(a, kern, fc.fit_seasonal_trend_plain(
+                    *a, order, 1e-4, C, 3e-3, 3), 2 + C + 2 * order)
+                again = kernels.st_fit(*a, order, C, 1e-4, 3e-3, 3)
+                cs.check(all(torch.equal(u, v) for u, v in zip(kern, again)), "two runs differ")
+                expect(name, True, f"preds |err| {e:.3g}, {ill} rows ill-posed, two runs equal")
             except AssertionError as e:
                 expect(name, False, str(e))
     for F, H, Z in cs.LSTM_WIDTHS:
@@ -279,6 +350,21 @@ def self_check() -> int:
         except AssertionError as e:
             expect(name, False, str(e))
     kernels.LSTM_TRAIN_SMEM_BYTES = saved_budget
+    # kernel L's forward: the tile path (a job's windows a CTA) against the
+    # wide path (8 windows a CTA, the parent design), bit for bit; K = 1,
+    # K = 45 (the engine's) and F = 8
+    for F, H, Z, K, W in ((4, 32, 16, 45, 3), (4, 32, 16, 1, 4), (8, 32, 16, 9, 4),
+                          (2, 10, 6, 5, 4), (4, 40, 8, 11, 5)):
+        p, x, m = cs.adversarial_lstm_train(3, max(K, 2), W, F, H, Z, g)
+        x, m = x[:, :K].contiguous(), m[:, :K].contiguous()
+        name = f"lstm_train_forward tile path F={F} H={H} Z={Z} K={K} W={W}"
+        saved_fwd = kernels.LSTM_FORWARD_SMEM_BYTES
+        tile = kernels.lstm_train_forward(p, x, m, H, Z)
+        kernels.LSTM_FORWARD_SMEM_BYTES = 0
+        wide = kernels.lstm_train_forward(p, x, m, H, Z)
+        kernels.LSTM_FORWARD_SMEM_BYTES = saved_fwd
+        same = all(torch.equal(_bits(u), _bits(v)) for u, v in zip(tile, wide))
+        expect(name, same, "num, cnt and act equal to the wide path's bit for bit")
     # kernel M on one gradient block and six count blocks, rows of P = 959
     # (scalar entries) and 1,032 floats (four a thread)
     for F, H, Z in ((3, 8, 4), (4, 8, 4)):
@@ -381,5 +467,15 @@ def new_kernels_check(cs, expect) -> None:
 
 
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also hold kernel L's forward and kernel J against those of the "
+                         "checkout in DIR (e.g. a git archive of the parent commit)")
+    opt = ap.parse_args()
     install()
-    sys.exit(1 if self_check() else 0)
+    bad = self_check()
+    if opt.parent:
+        bad += parent_check(opt.parent)
+    sys.exit(1 if bad else 0)

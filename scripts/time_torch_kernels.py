@@ -81,6 +81,26 @@ per-row cycle counts (`phase_clocks=`, phases kernels.TRIAGE_PHASES and
 kernels.HW_FIT_PHASES; this checkout only) and times D under smaller
 device-scratch budgets (fewer warps in flight, rings nearer to L2).
 
+--lstm-st times kernel L's forward (`kernels.lstm_train_forward`) on
+--lstm-train's inputs (1,024 jobs x 45 windows of 32 steps x 4 metrics from
+the reference's initial rows at H = 32, Z = 16; seeded rows at H = 128,
+Z = 64 on the 1,024 jobs and at H = 256, Z = 64 on the first 256), and
+kernel J (`kernels.st_fit`) on the seasonal phase's 100,000 rows of bucket
+16384 (chip_smoke.season_inputs) with the periods kernel F elects and at
+the engine's seasonal_trend shape (4096 x 2048: chip_smoke.engine_band_inputs,
+fallback period min(1440, T // 2)), the history as the fit: each the median
+of 20 launches back to back (`median_back_to_back_ms`), beside each
+kernel's bound (and L's arithmetic floor: its multiply-adds as two fp32
+instructions each). It prints a SHA-256 of L's act, num and cnt at each
+width and of J's beta and preds, and writes J's beta (every row) and preds
+(the first 128 rows) to DIR/lstm_st_<checkout>.pt for `--compare`. It calls
+only entry points every checkout since kernel L's first has: run it from
+the parent's checkout and this one in one call (parent, change, change,
+parent). With --profile it also splits both kernels by phase from their
+optional cycle counts (`phase_clocks=`, phases kernels.LSTM_FORWARD_PHASES,
+summed over a job's CTAs, and kernels.ST_FIT_PHASES per row; checkouts that
+have them).
+
 --a-digest prints a SHA-256 of every output of kernel A (`score_pairs` on
 the card) on chip_smoke.py's adversarial pairs at each T of its kernel
 check and on the 100,000-pair pass: run from two checkouts in one call, equal
@@ -441,7 +461,12 @@ def median_back_to_back_ms(fn, runs):
 
 
 def _digest(t):
-    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+    """SHA-256 of a tensor's bytes, copied to the host in chunks."""
+    h = hashlib.sha256()
+    flat = t.contiguous().view(-1)
+    for lo in range(0, flat.numel(), 1 << 26):
+        h.update(flat[lo:lo + (1 << 26)].cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def triage_hw_inputs():
@@ -555,9 +580,120 @@ def triage_hw(out_dir, profile):
     return res
 
 
+LSTM_ST_WIDTHS = ((32, 16, 1_024),) + LSTM_BACKWARD_WIDTHS  # (H, Z, jobs), F = 4
+ST_CFG = (cs.ST_ORDER, cs.ST_CHANGEPOINTS, 1e-4, 3e-3, 3)
+
+
+def _phase_table(kernel, names, clocks, what):
+    """Mean cycles per row of each phase and its share of the row's."""
+    mean = clocks.double().mean(0).tolist()
+    total = sum(mean)
+    print(f"  {kernel} phases at {what}:", flush=True)
+    for name, m in zip(names, mean):
+        print(f"    {name:10s} {m:12.1f} cycles, {100 * m / max(total, 1):6.2f}%", flush=True)
+    return dict(zip(names, mean))
+
+
+def lstm_forward_ab(profile):
+    """Kernel L's forward at each width of LSTM_ST_WIDTHS: time, bound,
+    floor, digests, and with profile its phases."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    x, m = cs.lstm_day_windows(cs.LSTM_TRAIN_JOBS, gen)
+    K, W, F = x.shape[1], x.shape[2], x.shape[3]
+    res = {}
+    for H, Z, J in LSTM_ST_WIDTHS:
+        xj, mj = x[:J].contiguous(), m[:J].contiguous()
+        p = (tl.init_state(F, H, Z, J)[0].to(cs.DEV) if H == 32
+             else cs.lstm_params(J, F, H, Z, gen))
+        what = f"H={H} Z={Z} jobs={J}"
+        ms = median_back_to_back_ms(lambda: kernels.lstm_train_forward(p, xj, mj, H, Z),
+                                    cs.TIMED_RUNS)
+        num, cnt, act = kernels.lstm_train_forward(p, xj, mj, H, Z)
+        b = cs.lstm_train_bounds(J, K, W, F, H, Z, num.shape[1])["forward"]
+        floor = cs.lstm_forward_floor_ms(J, K, W, F, H, Z)
+        path = (kernels.lstm_train_forward_path(K, F, H, Z)
+                if hasattr(kernels, "lstm_train_forward_path") else "wide")
+        r = {"ms": ms, "path": path, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "floor_ms": floor,
+             "sha256": {"act": _digest(act), "num": _digest(num), "cnt": _digest(cnt)}}
+        print(f"  lstm_train_forward {what} ({path} path): {ms:.3f} ms (median of "
+              f"{cs.TIMED_RUNS}); bound {b['bound_ms']:.3f} ms ({b['bound_by']}), arithmetic "
+              f"floor {floor:.3f} ms; sha256 {r['sha256']}", flush=True)
+        del num, cnt, act
+        if profile and hasattr(kernels, "LSTM_FORWARD_PHASES"):
+            names = kernels.LSTM_FORWARD_PHASES
+            clocks = torch.zeros((J, len(names)), dtype=torch.int64, device=cs.DEV)
+            kernels.lstm_train_forward(p, xj, mj, H, Z, phase_clocks=clocks)
+            r["cycles_per_job"] = _phase_table("lstm_train_forward", names, clocks, what)
+        res[what] = r
+        del p, xj, mj
+        torch.cuda.empty_cache()
+    return res
+
+
+def st_ab_inputs():
+    """Kernel J's two shapes: the seasonal phase's rows and the engine's,
+    each with the periods kernel F elects and its history as the fit."""
+    from foremast_tpu_torch import kernels
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    season, _, _ = cs.season_inputs(gen)
+    engine = cs.engine_band_inputs(cs.engine_fleet(np.random.default_rng(cs.SEED)))
+    cand = torch.tensor(cs.PERIOD_CANDIDATES, dtype=torch.int32, device=cs.DEV)
+    out = {}
+    for shape, (x, mask, region) in (("season", season[:3]), ("engine", engine[:3])):
+        B, T = x.shape
+        hist = mask & ~region
+        fb = torch.full((B,), min(1440, T // 2), dtype=torch.int32, device=cs.DEV)
+        period, _ = kernels.detect_period(x, hist, cand, fb, 0.2, 0.05, 0.01)
+        out[shape] = (x, hist, hist, period)
+    return out
+
+
+def st_fit_ab(out_dir, profile):
+    """Kernel J at both shapes: time, bound, digests; beta and the first
+    rows' preds to out_dir; with profile its phases."""
+    from foremast_tpu_torch import kernels
+
+    res, outs = {}, {}
+    for shape, args in st_ab_inputs().items():
+        B, T = args[0].shape
+        what = f"{shape} {B} x {T}"
+        ms = median_back_to_back_ms(lambda: kernels.st_fit(*args, *ST_CFG), cs.TIMED_RUNS)
+        beta, preds = kernels.st_fit(*args, *ST_CFG)
+        b = cs.st_bound(B, T, int((args[1] & args[2]).sum()))
+        r = {"ms": ms, **b, "sha256": {"beta": _digest(beta), "preds": _digest(preds)},
+             "finite": bool(torch.isfinite(preds).all())}
+        print(f"  st_fit {what}: {ms:.3f} ms (median of {cs.TIMED_RUNS}); bound "
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']}); sha256 {r['sha256']}", flush=True)
+        outs[shape] = {"beta": beta.cpu(), "preds": preds[:128].cpu()}
+        del beta, preds
+        if profile and hasattr(kernels, "ST_FIT_PHASES"):
+            names = kernels.ST_FIT_PHASES
+            clocks = torch.zeros((B, len(names)), dtype=torch.int64, device=cs.DEV)
+            kernels.st_fit(*args, *ST_CFG, phase_clocks=clocks)
+            r["cycles_per_row"] = _phase_table("st_fit", names, clocks, what)
+        res[what] = r
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "lstm_st_%s.pt" % os.path.basename(os.getcwd()))
+    torch.save(outs, path)
+    return res, path
+
+
+def lstm_st(out_dir, profile):
+    lstm = lstm_forward_ab(profile)
+    torch.cuda.empty_cache()
+    st, path = st_fit_ab(out_dir, profile)
+    return {"lstm_train_forward": lstm, "st_fit": st, "written": path}
+
+
 def compare_outputs(a_path, b_path):
-    """Kernel G's outputs of two --triage-hw runs, key by key: equal bit for
-    bit, else the largest relative difference."""
+    """The outputs of two --triage-hw (kernel G) or --lstm-st (kernel J)
+    runs, key by key: equal bit for bit, else the largest relative
+    difference."""
     a, b = torch.load(a_path), torch.load(b_path)
     out = {}
     for shape in a:
@@ -589,8 +725,11 @@ def main():
     p.add_argument("--fleet", action="store_true", help="time kernel P instead")
     p.add_argument("--triage-hw", action="store_true",
                    help="time kernels G and D and print their outputs' digests instead")
+    p.add_argument("--lstm-st", action="store_true",
+                   help="time kernel L's forward and kernel J and print their digests instead")
     p.add_argument("--compare", nargs=2, metavar=("A", "B"),
-                   help="hold two --triage-hw output files against each other (CPU)")
+                   help="hold two --triage-hw or --lstm-st output files against each other "
+                        "(CPU)")
     p.add_argument("--a-digest", action="store_true",
                    help="print a digest of kernel A's outputs instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
@@ -610,6 +749,10 @@ def main():
     if opt.triage_hw:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "triage_hw": triage_hw(opt.out, opt.profile)}), flush=True)
+        return
+    if opt.lstm_st:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "lstm_st": lstm_st(opt.out, opt.profile)}), flush=True)
         return
     if opt.a_digest:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

@@ -422,6 +422,67 @@ def test_st_fit_matches_twin(card, T, C):
     cs.compare_st_fit(args, kern, plain, 2 + C + 2 * cs.ST_ORDER)
 
 
+@pytest.mark.parametrize("T,C,order", [(301, 24, 3), (1027, 0, 0), (301, 0, 3), (4099, 12, 3)])
+def test_st_fit_matches_twin_at_its_edges(card, T, C, order):
+    """D = 32 (24 hinges), D = 2 (no hinge, no Fourier order), T no multiple
+    of 4 or of a warp's 32 slots, a row with no selected slot; two runs
+    equal bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(T + C)
+    x, m, fit, period = cs.adversarial_st(288, T, gen)
+    fit[5] = False
+    args = (x, m, fit, period)
+    kern = kernels.st_fit(*args, order, C, 1e-4, 3e-3, 3)
+    again = kernels.st_fit(*args, order, C, 1e-4, 3e-3, 3)
+    plain = fc.fit_seasonal_trend_plain(*args, order, 1e-4, C, 3e-3, 3)
+    torch.cuda.synchronize()
+    cs.compare_st_fit(args, kern, plain, 2 + C + 2 * order)
+    assert torch.equal(kern[0], again[0]) and torch.equal(kern[1], again[1])
+
+
+def test_st_fit_sincosf_rounds_as_sinf_and_cosf(card):
+    """Kernel J takes a Fourier pair's sine and cosine from one sincosf: on
+    every float32 argument it must give sinf's and cosf's bits."""
+    assert kernels.st_sincos_check() == 0
+
+
+@pytest.mark.parametrize("F,H,Z,K", [(4, 32, 16, 1), (4, 32, 16, 11), (3, 32, 16, 45),
+                                     (32, 256, 256, 3)])
+def test_lstm_train_forward_matches_the_twin(card, F, H, Z, K):
+    """K = 1, K no whole number of a CTA's windows, the engine's 45 and the
+    widest the launcher takes: the loss from num and cnt within 1e-5
+    relative of the twin's, NaN jobs alike; two runs equal bit for bit."""
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=card).manual_seed(F + H + K)
+    p, x, m = cs.adversarial_lstm_train(16, max(K, 2), 16, F, H, Z, gen)
+    x, m = x[:, :K].contiguous(), m[:, :K].contiguous()
+    out = kernels.lstm_train_forward(p, x, m, H, Z)
+    again = kernels.lstm_train_forward(p, x, m, H, Z)
+    loss = out[0].sum(1).float() / out[1].sum(1).float().clamp(min=1.0)
+    want = tl.loss_plain(p, x, m, H, Z)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(loss), nan)
+    torch.testing.assert_close(loss[~nan], want[~nan], rtol=1e-5, atol=1e-7)
+    for a, b in zip(out, again):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("K", [1, 11, 45])
+def test_lstm_train_forward_tile_path_equals_the_wide_path(card, K, monkeypatch):
+    """The tile path (a job's windows a CTA) gives the wide path's (eight
+    windows a CTA) act, num and cnt bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(K)
+    p, x, m = cs.adversarial_lstm_train(24, max(K, 2), 32, 4, 32, 16, gen)
+    x, m = x[:, :K].contiguous(), m[:, :K].contiguous()
+    assert kernels.lstm_train_forward_path(K, 4, 32, 16) == "tile"
+    tile = kernels.lstm_train_forward(p, x, m, 32, 16)
+    monkeypatch.setattr(kernels, "LSTM_FORWARD_SMEM_BYTES", 0)
+    wide = kernels.lstm_train_forward(p, x, m, 32, 16)
+    for a, b in zip(tile, wide):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
 @pytest.mark.parametrize("F,H,Z", cs.LSTM_WIDTHS)
 def test_lstm_ae_matches_twin(card, F, H, Z):
     from foremast_tpu_torch.models import lstm_ae as tl
