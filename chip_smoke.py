@@ -1397,9 +1397,56 @@ def compare_lstm(kern, plain, sigma):
     return float(de.max())
 
 
+def lstm_ae_paths_agree(p, x, m, H, Z, mu, sigma):
+    """Kernel K on every path that serves the shape (kernels.LSTM_AE_FORCE),
+    each against the twin (compare_lstm) and all equal to the wide path's
+    (the first design) bit for bit; a fully masked window scores 0. Returns
+    (the largest |d err| against the twin, the paths that ran)."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    K, W, F = x.shape[1], x.shape[2], x.shape[3]
+    plain = tl.reconstruction_errors_plain(p, x, m, H, Z, mu, sigma)
+    empty = ~m.flatten(2).any(2)
+    outs, err = {}, 0.0
+    for path in kernels.LSTM_AE_PATHS:
+        if not kernels.lstm_ae_serves(path, K, F, H, Z, W):
+            continue
+        saved, kernels.LSTM_AE_FORCE = kernels.LSTM_AE_FORCE, path
+        try:
+            out = kernels.lstm_ae(p, x, m, H, Z, mu, sigma)
+        finally:
+            kernels.LSTM_AE_FORCE = saved
+        err = max(err, compare_lstm(out, plain, sigma))
+        check(bool((out[0][empty] == 0).all()), f"lstm_ae {path} path: a fully masked window "
+                                                f"did not score 0")
+        outs[path] = out
+    for path, out in outs.items():
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(out, outs["wide"])),
+              f"lstm_ae: the {path} path differs from the wide path's bits at K={K} W={W} "
+              f"F={F} H={H} Z={Z}")
+    return err, tuple(outs)
+
+
+# kernel K's path checks beyond LSTM_WIDTHS at K = 6: a job of many windows
+# (J = 1, the warp path's chunks), the scoring pass's K = 2 and K = 1, the
+# normalizer's K = 45, a width whose slots are not whole float4s (H = 10),
+# one that takes two windows a warp group (F = 9), one the warp path cannot
+# take (F = 17), the widest (H = Z = 256: a cluster of eight CTAs) and
+# clusters of three CTAs with rows past a column's 64 in registers (H = 72;
+# H = 65, an odd one)
+LSTM_AE_PATH_CASES = ((1, 3000, 4, 32, 16), (64, 2, 4, 32, 16), (64, 1, 4, 32, 16),
+                      (32, 45, 4, 32, 16), (64, 5, 2, 10, 6), (32, 3, 9, 32, 16),
+                      (32, 3, 17, 32, 16), (16, 2, 4, 256, 256), (16, 7, 3, 72, 8),
+                      (16, 3, 3, 65, 8))  # (J, K, F, H, Z)
+
+
 def kernel_k_vs_twin(gen):
     """Kernel K against its twin at (F, H, Z) in LSTM_WIDTHS, W = 32, on
-    adversarial windows (gaps, a fully masked window, a masked head)."""
+    adversarial windows (gaps, a fully masked window, a masked head), each
+    path that serves a shape against the twin and the paths against one
+    another bit for bit, at those widths and at LSTM_AE_PATH_CASES."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.models import lstm_ae as tl
 
@@ -1411,9 +1458,18 @@ def kernel_k_vs_twin(gen):
         empty = m[::5, 0].flatten(1).any(1).logical_not()
         check(bool((kernels.lstm_ae(p, x, m, H, Z)[::5, 0][empty] == 0).all()),
               "a fully masked window did not score 0")
+        e, paths = lstm_ae_paths_agree(p, x, m, H, Z, mu, sigma)
         torch.cuda.synchronize()
         print(f"  lstm_ae F={F} H={H} Z={Z} ({tl.param_count(F, H, Z)} parameters a job): {J} "
-              f"jobs x {K} windows, max |d err| {err:.3g}", flush=True)
+              f"jobs x {K} windows, max |d err| {max(err, e):.3g}; {kernels.lstm_ae_path(K, F, H, Z)} "
+              f"path; paths {', '.join(paths)} equal bit for bit", flush=True)
+    for J, K, F, H, Z in LSTM_AE_PATH_CASES:
+        p, x, m, mu, sigma = adversarial_lstm(J, max(K, 2), F, H, Z, gen)
+        x, m = x[:, :K].contiguous(), m[:, :K].contiguous()
+        e, paths = lstm_ae_paths_agree(p, x, m, H, Z, mu, sigma)
+        torch.cuda.synchronize()
+        print(f"  lstm_ae J={J} K={K} F={F} H={H} Z={Z}: max |d err| {e:.3g}; paths "
+              f"{', '.join(paths)} equal bit for bit", flush=True)
 
 
 LSTM_TRAIN_WS = (8, 32)  # window lengths of kernel L's check
@@ -2869,18 +2925,57 @@ def lstm_day_windows(J, gen):
     return x.contiguous(), m.reshape(J, LSTM_DAY // LSTM_W, LSTM_W, 4).contiguous()
 
 
+def lstm_fixture():
+    """The reference-trained fixture (LSTM_FIXTURE) on the card."""
+    with np.load(LSTM_FIXTURE) as d:
+        return {k: torch.from_numpy(d[k]).to(DEV) for k in d.files}
+
+
+def lstm_scoring_inputs(fx, J):
+    """The fleet's scoring pass: job j runs the fixture's job j % 8 on its
+    healthy window j % 6 and its anomalous window 6 + j % 6. Returns
+    (params, x, mask, mu, sigma) of J jobs x 2 windows."""
+    J8 = fx["z"].shape[0]
+    jobs = torch.arange(J, device=DEV) % J8
+    pick = torch.stack([torch.arange(J, device=DEV) % 6, 6 + torch.arange(J, device=DEV) % 6], 1)
+    return (fx["params"][jobs].contiguous(), fx["x"][jobs[:, None], pick].contiguous(),
+            fx["mask"][jobs[:, None], pick].contiguous(), fx["mu"][jobs].contiguous(),
+            fx["sigma"][jobs].contiguous())
+
+
+def lstm_normalizer_inputs(fx, J, gen):
+    """The normalizer pass: the fixture's rows (job j the fixture's j % 8)
+    over each job's day of healthy windows (lstm_day_windows). Returns
+    (params, x, mask)."""
+    params = fx["params"][torch.arange(J, device=DEV) % fx["z"].shape[0]].contiguous()
+    return (params, *lstm_day_windows(J, gen))
+
+
+def lstm_path_launches(K, F, H, Z, what):
+    """The path kernel K took for this shape, and its launches since the
+    counts were reset: exactly one, on that path."""
+    from foremast_tpu_torch import kernels
+
+    path = kernels.lstm_ae_path(K, F, H, Z, LSTM_W)
+    got = {k: v for k, v in kernels.lstm_ae_path_launches.items() if v}
+    check(got == {path: 1}, f"{what}: kernel K's launches by path {got}, not one on the {path} "
+                            f"path")
+    return {"path": path, "launches": 1}
+
+
 def lstm_path(gen):
     """Phase `lstm`: the reference-trained fixture scored by kernel K against
     the reference's recorded z; the fleet's scoring pass (100,000 jobs of
     the fixture's parameters x 2 windows) through anomaly_scores_fleet;
     the normalizer pass (10,000 jobs x 45 windows); the module's default
-    width (10,000 jobs at H = 128) on seeded parameters. Returns kernel K's
-    row for the kernels line."""
+    width (10,000 jobs at H = 128) on seeded parameters; each leg checks
+    that kernel K launched once, on the path kernels.lstm_ae_path names.
+    Returns kernel K's row for the kernels line, with each leg's path,
+    launches, ms, bound and twin's ms under "paths"."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.models import lstm_ae as tl
 
-    with np.load(LSTM_FIXTURE) as d:
-        fx = {k: torch.from_numpy(d[k]).to(DEV) for k in d.files}
+    fx = lstm_fixture()
     F, H, Z, W = (int(v) for v in fx["dims"])
     check(W == LSTM_W, f"the fixture's windows are {W} steps, not {LSTM_W}")
     J8, K12 = fx["z"].shape
@@ -2909,12 +3004,9 @@ def lstm_path(gen):
     # window j % 6 and its anomalous window 6 + j % 6
     t0 = time.perf_counter()
     J, K = LSTM_JOBS, LSTM_WINDOWS
+    params, x, m, mu, sigma = lstm_scoring_inputs(fx, J)
     jobs = torch.arange(J, device=DEV) % J8
     pick = torch.stack([torch.arange(J, device=DEV) % 6, 6 + torch.arange(J, device=DEV) % 6], 1)
-    params = fx["params"][jobs].contiguous()
-    x = fx["x"][jobs[:, None], pick].contiguous()
-    m = fx["mask"][jobs[:, None], pick].contiguous()
-    mu, sigma = fx["mu"][jobs].contiguous(), fx["sigma"][jobs].contiguous()
     torch.cuda.synchronize()
     made = time.perf_counter() - t0
     kernels.reset_launches()
@@ -2922,6 +3014,7 @@ def lstm_path(gen):
     torch.cuda.synchronize()
     launches = kernels.launches["lstm_ae"]
     check(launches == 1, f"anomaly_scores_fleet launched lstm_ae {launches} times, not 1")
+    by_path = lstm_path_launches(K, F, H, Z, "the scoring pass")
     dz, edge = against(z, fx["z"][jobs[:, None], pick], "the scoring pass")
     e2e = wall_ms(lambda: tl.anomaly_scores_fleet(params, x, m, mu, sigma, hidden=H, latent=Z,
                                                   device=DEV), LSTM_RUNS)
@@ -2942,15 +3035,16 @@ def lstm_path(gen):
           f"{ms:.3f} ms (mean of {TIMED_RUNS}), bound {bound['bound_ms']:.3f} ms "
           f"({bound['bound_by']}), plain twin {plain_ms:.1f} ms; {launches} launch; vs twin on "
           f"{n} jobs: max |d err| {err:.3g}", flush=True)
-    row = {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+    row = {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+           "paths": [{"shape": f"{J} x {K}, H={H}", **by_path, "ms": ms, **bound,
+                      "plain_ms": plain_ms}]}
     del params, x, m, z
     torch.cuda.empty_cache()
 
     # the normalizer pass over a day of healthy windows
     t0 = time.perf_counter()
     Jn = LSTM_NORM_JOBS
-    params = fx["params"][torch.arange(Jn, device=DEV) % J8].contiguous()
-    x, m = lstm_day_windows(Jn, gen)
+    params, x, m = lstm_normalizer_inputs(fx, Jn, gen)
     torch.cuda.synchronize()
     made = time.perf_counter() - t0
 
@@ -2960,7 +3054,10 @@ def lstm_path(gen):
         e = kernels.lstm_ae(params, x, m, H, Z)
         return e.mean(1), e.std(1, unbiased=False).clamp(min=1e-6)
 
+    kernels.reset_launches()
     mu, sd = normalizer()
+    torch.cuda.synchronize()
+    by_path = lstm_path_launches(x.shape[1], F, H, Z, "the normalizer pass")
     errs = tl.reconstruction_errors_plain(params[:n], x[:n], m[:n], H, Z)
     pmu, psd = errs.mean(1), errs.std(1, unbiased=False).clamp(min=1e-6)
     dmu = float(((mu[:n] - pmu).abs() / pmu.abs().clamp(min=1e-6)).max())
@@ -2970,9 +3067,14 @@ def lstm_path(gen):
     norm = wall_ms(normalizer, 3)
     k_ms = cuda_ms(lambda: kernels.lstm_ae(params, x, m, H, Z), 3)
     nb = lstm_bound(Jn, x.shape[1], F, H, Z)
+    n_plain = chunked_ms(lambda s: tl.reconstruction_errors_plain(params[s], x[s], m[s], H, Z), Jn,
+                         rows=2_500)
+    row["paths"].append({"shape": f"{Jn} x {x.shape[1]}, H={H}", **by_path, "ms": k_ms, **nb,
+                         "plain_ms": n_plain})
     print(f"  normalizer pass: {Jn} jobs x {x.shape[1]} windows (a day) made on the card in "
           f"{made:.1f} s: the normalizer median {np.median(norm):.3f} ms (kernel "
-          f"{k_ms:.3f} ms, bound {nb['bound_ms']:.3f} ms, {nb['bound_by']}); mu "
+          f"{k_ms:.3f} ms, {by_path['path']} path, bound {nb['bound_ms']:.3f} ms, "
+          f"{nb['bound_by']}; plain twin {n_plain:.1f} ms); mu "
           f"{float(mu.mean()):.4f}, sigma {float(sd.mean()):.4f} on average; vs twin on {n} jobs: mu {dmu:.3g}, "
           f"sigma {dsd:.3g} relative", flush=True)
     del params, x, m
@@ -2981,6 +3083,10 @@ def lstm_path(gen):
     # the module's default width, parameters read from device memory
     Fw, Hw, Zw = 4, 128, 64
     p, x, m, mu, sigma = adversarial_lstm(LSTM_WIDE_JOBS, 2, Fw, Hw, Zw, gen)
+    kernels.reset_launches()
+    kernels.lstm_ae(p, x, m, Hw, Zw, mu, sigma)
+    torch.cuda.synchronize()
+    by_path = lstm_path_launches(2, Fw, Hw, Zw, "the default width")
     err_w = compare_lstm(kernels.lstm_ae(p[:n], x[:n], m[:n], Hw, Zw, mu[:n], sigma[:n]),
                          tl.reconstruction_errors_plain(p[:n], x[:n], m[:n], Hw, Zw, mu[:n],
                                                         sigma[:n]), sigma[:n])
@@ -2988,8 +3094,11 @@ def lstm_path(gen):
     w_plain = chunked_ms(lambda s: tl.reconstruction_errors_plain(
         p[s], x[s], m[s], Hw, Zw, mu[s], sigma[s]), LSTM_WIDE_JOBS, rows=5_000)
     wb = lstm_bound(LSTM_WIDE_JOBS, 2, Fw, Hw, Zw)
+    row["paths"].append({"shape": f"{LSTM_WIDE_JOBS} x 2, H={Hw}", **by_path, "ms": w_ms, **wb,
+                         "plain_ms": w_plain})
     print(f"  default width H={Hw} Z={Zw}: {LSTM_WIDE_JOBS} jobs x 2 windows, parameters "
-          f"{p.numel() * 4 / 1e9:.2f} GB: kernel {w_ms:.3f} ms, bound {wb['bound_ms']:.3f} ms "
+          f"{p.numel() * 4 / 1e9:.2f} GB: kernel {w_ms:.3f} ms ({by_path['path']} path), bound "
+          f"{wb['bound_ms']:.3f} ms "
           f"({wb['bound_by']}), plain twin {w_plain:.1f} ms; vs twin on {n} jobs: max |d err| "
           f"{err_w:.3g}", flush=True)
     del p, x, m
@@ -4115,7 +4224,10 @@ def main() -> int:
         r.setdefault("library_ms", None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
+    # kernel K's row also gives each path's run on the main path: its shape,
+    # launches, ms and bound
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + (("paths",) if "paths" in r else ())}
+                                  for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -322,6 +322,55 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// ---------------------------------------------------------------------------
+// Thread block clusters (sm_90): a CTA's rank in its cluster; a barrier over
+// every thread of the cluster (release, then acquire: shared-memory writes
+// before the arrival, local or remote, are seen after the wait), whole or
+// split so that work between arrive and wait overlaps it; the address of the same
+// shared-memory location in another CTA of the cluster (distributed shared
+// memory, written through the generic pointer mapa gives); and a launch
+// with clusters of cl CTAs along x.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+template <typename T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  T* q;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(q) : "l"(p), "r"(rank));
+  return q;
+}
+template <typename... Args>
+__host__ inline cudaError_t launch_cluster(void (*kernel)(Args...), int grid, int block,
+                                           size_t smem, cudaStream_t stream, int cl,
+                                           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // Float64 tensor-core products of one warp (DMMA; m16n8k4 on sm_90),
 // accumulating in place, D = A B + D. The fragments are PTX's, with
 // g = lane >> 2 and t = lane & 3:

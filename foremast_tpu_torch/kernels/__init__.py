@@ -22,7 +22,9 @@
   (Prophet-core) ridge model of B rows, each with its own period.
 - Kernel K, `lstm_ae` (``csrc/lstm_ae.cu``), runs the LSTM autoencoder of
   J jobs, each with its own parameters, over K windows a job and writes
-  each window's masked reconstruction error (and its z-score).
+  each window's masked reconstruction error (and its z-score), on the
+  path `lstm_ae_path` picks: a warp, a thread block cluster or a CTA a
+  chunk of a job's windows, with the same bits.
 - Kernel L (``csrc/lstm_train.cu``) trains it: `lstm_train_forward` runs
   the recurrences, stores the activations and sums each window block's
   squared errors; `lstm_train_backward` runs its two backward entries,
@@ -47,7 +49,8 @@ outputs (and the scratch a kernel needs), launches on PyTorch's current
 stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch (`lstm_train_backward` launches kernel
 L's two backward entries, counted as `lstm_train_recurrence` and
-`lstm_train_wgrad`).
+`lstm_train_wgrad`; `lstm_ae` also counts by path, in
+`lstm_ae_path_launches`).
 They take CUDA tensors only; the entry points
 (``parallel.fleet.score_pairs``, ``ops.forecast``, ``ops.seqscan``,
 ``ops.triage``, ``ops.bivariate``, ``ops.hpa``, ``ops.pairwise``,
@@ -68,7 +71,9 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "hpa_score", "st_fit", "lstm_ae", "lstm_train_forward", "lstm_train_backward",
            "lstm_train_recurrence", "lstm_train_wgrad", "adam", "pair_tests", "rank_and_ties",
            "kruskal_groups", "friedman", "fleet_topk", "lstm_train_blocks", "lstm_bptt_blocks",
-           "lstm_train_forward_path",
+           "lstm_train_forward_path", "lstm_ae_path", "lstm_ae_serves", "lstm_ae_path_launches",
+           "lstm_ae_chunk_windows", "lstm_ae_warp_smem_bytes", "lstm_ae_cluster_smem_bytes",
+           "LSTM_AE_PATHS", "LSTM_AE_SMEM_BYTES",
            "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
@@ -76,7 +81,7 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
            "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check",
            "PAIR_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES", "ST_FIT_PHASES",
-           "LSTM_FORWARD_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
+           "LSTM_FORWARD_PHASES", "LSTM_AE_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
 # shared memory; above it, in device scratch
@@ -100,9 +105,9 @@ MAX_GRID = 64
 # kernel J solves with one lane of a warp per column; t is exact in float32
 MAX_ST_D = 32
 MAX_ST_T = 1 << 24
-# kernel K: a CTA's gate products, states and per-window partial sums live
-# in shared memory; its parameters join them there up to this many bytes,
-# above it they are read through the caches (L1, L2)
+# kernel K's wide path: a CTA's gate products, states and per-window
+# partial sums live in shared memory; its parameters join them there up to
+# this many bytes, above it they are read through the caches (L1, L2)
 MAX_LSTM_HIDDEN = 256
 MAX_LSTM_LATENT = 256
 MAX_LSTM_FEATURES = 32
@@ -118,6 +123,18 @@ LSTM_TRAIN_SMEM_BYTES = 113 * 1024
 # budget (two CTAs an SM), else the wide path (8 windows a CTA, parameters
 # read from device memory above LSTM_SMEM_PARAMS_BYTES)
 LSTM_FORWARD_SMEM_BYTES = 113 * 1024
+# kernel K's paths (lstm_ae_path), in the order they are tried: "warp" (H <=
+# 32, the engine's width: a warp a chunk of a job's windows, each lane's
+# recurrent weights in registers and the warp's shared memory), "cluster"
+# (32 < H <= 256: a cluster of ceil(H / 32) CTAs a chunk, Wh split over
+# them), "wide" (the first design: a CTA of up to eight windows; every
+# width). A path serves a shape while its CTA's shared memory fits
+# LSTM_AE_SMEM_BYTES (an H100 CTA's most). LSTM_AE_FORCE, a path's name,
+# makes lstm_ae take that path (raising where it does not serve): tests
+# hold the paths against one another.
+LSTM_AE_PATHS = ("warp", "cluster", "wide")
+LSTM_AE_FORCE = None
+LSTM_AE_SMEM_BYTES = 232_448
 
 # kernel N: each test's bit in its `tests` mask, in the column order of its
 # outputs (the first four are all_pairwise_tests' family)
@@ -159,10 +176,14 @@ HW_FIT_PHASES = ("level0", "stage", "walk", "store")  # level0 includes the row'
 # forward's, as its optional per-job cycle sums split it
 ST_FIT_PHASES = ("gram", "solve", "preds")
 LSTM_FORWARD_PHASES = ("stage", "encoder", "latent", "decoder", "sums")
+LSTM_AE_PHASES = LSTM_FORWARD_PHASES  # kernel K's split is its forward's
 
 # kernel A's phases, in order, as its optional clock stamps split it
 PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans",
                "mw_kw_ks", "exact_tails", "gates_band")
+
+# kernel K's launches by path (each also counts in launches["lstm_ae"])
+lstm_ae_path_launches = {"warp": 0, "cluster": 0, "wide": 0}
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
@@ -174,6 +195,8 @@ launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for k in lstm_ae_path_launches:
+        lstm_ae_path_launches[k] = 0
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device):
@@ -709,12 +732,16 @@ def st_sincos_check(device="cuda") -> int:
     return int(out.item())
 
 
-def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None):
+def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None, phase_clocks=None):
     """Launch kernel K: the LSTM autoencoder's masked reconstruction error
     of K windows for each of J jobs. params is (J, P) float32 in the flat
     layout of models.lstm_ae.flat_params, x (J, K, W, F) float32, mask
     (J, K, W, F) bool. Returns err (J, K); with mu and sigma ((J,) float32)
-    also z = (err - mu) / sigma, as (err, z)."""
+    also z = (err - mu) / sigma, as (err, z).
+
+    phase_clocks, an int64 (J, len(LSTM_AE_PHASES)) tensor of zeros,
+    receives the SM cycles each job's CTAs spent in each phase of
+    LSTM_AE_PHASES, summed over its CTAs."""
     J, K, W, F = x.shape
     dev = x.device
     H, Z = int(hidden), int(latent)
@@ -728,6 +755,8 @@ def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None):
     named = [(x, "x", torch.float32, (J, K, W, F)), (mask, "mask", torch.bool, (J, K, W, F))]
     if mu is not None:
         named += [(mu, "mu", torch.float32, (J,)), (sigma, "sigma", torch.float32, (J,))]
+    if phase_clocks is not None:
+        named.append((phase_clocks, "phase_clocks", torch.int64, (J, len(LSTM_AE_PHASES))))
     for t, name, dt, shape in named:
         _check(t, name, dt, shape, dev)
     lib = build.library()
@@ -739,16 +768,87 @@ def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None):
         return err if z is None else (err, z)
     if W < 1:
         raise ValueError("lstm_ae needs windows of W >= 1 steps")
+    path = lstm_ae_path(K, F, H, Z, W)
     KB = lstm_train_blocks(K, F)[0]
     smem_params = int(lib.fm_lstm_ae_smem_bytes(F, H, Z, KB, 1) <= LSTM_SMEM_PARAMS_BYTES)
+    NW = _lstm_ae_windows(path, K, W, F, H, Z)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fm_lstm_ae(_ptr(params), P, _ptr(x), _ptr(mask), _opt(mu), _opt(sigma), J, K,
-                            W, F, H, Z, KB, smem_params, _ptr(err), _opt(z),
+                            W, F, H, Z, {"wide": 0, "warp": 1, "cluster": 2}[path], KB,
+                            smem_params, NW, _ptr(err), _opt(z), _opt(phase_clocks),
                             ctypes.c_void_p(stream))
     _raise_on(rc, "lstm_ae", lib)
     launches["lstm_ae"] += 1
+    lstm_ae_path_launches[path] += 1
     return err if z is None else (err, z)
+
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def lstm_ae_chunk_windows(J: int, K: int, NW: int) -> int:
+    """Windows a chunk of kernel K's warp and cluster paths (a warp's or a
+    cluster's share of a job): groups of NW windows, at most four a chunk,
+    fewer where the jobs alone give fewer than 16,384 groups' worth of work
+    (csrc/lstm_ae.cu: chunk_windows)."""
+    groups = -(-int(K) // NW)
+    per = min(max(-(-int(J) * groups // 16384), 1), 4)
+    return min(per, groups) * NW
+
+
+def lstm_ae_warp_smem_bytes(F: int, H: int, Z: int, NW: int, KW: int) -> int:
+    """Shared memory of a CTA (four warps) of kernel K's warp path
+    (csrc/lstm_ae.cu: warp_layout, with kWarpRegRows = 16)."""
+    floats = (2 * F * 32 * 4 + (32 - 16) * 32 * 4 + 2 * 32 * NW + _align4(4 * F * NW)
+              + _align4(Z * KW) + _align4(H * F) + _align4(F) + 4 * NW * F)
+    return 4 * 4 * floats
+
+
+def lstm_ae_cluster_smem_bytes(W: int, F: int, H: int, Z: int, NW: int, KW: int) -> int:
+    """Shared memory of a CTA of kernel K's cluster path (csrc/lstm_ae.cu:
+    cluster_layout)."""
+    hs = ((H + 1) & ~1) * NW
+    floats = (max(H - 64, 0) * 128 + 2 * F * 128 + _align4((W + 1) * hs) + _align4(W * 2 * F * NW)
+              + 4 * NW * 32 + _align4(Z * KW) + _align4(W * NW * F) + 4 * NW * F)
+    return 4 * floats
+
+
+def _lstm_ae_windows(path: str, K: int, W: int, F: int, H: int, Z: int) -> int:
+    """The windows a group (NW) of kernel K's path at this shape, or 0
+    where the path does not serve it (the wide path: always, NW unused)."""
+    if path == "wide":
+        return 2
+    if path == "warp" and H > 32 or path == "cluster" and not 32 < H <= MAX_LSTM_HIDDEN:
+        return 0
+    for NW in ((4, 2) if K > 2 else (2,)):
+        KW = min(-(-K // NW), 4) * NW  # the largest chunk the launch may take
+        smem = (lstm_ae_warp_smem_bytes(F, H, Z, NW, KW) if path == "warp" else
+                lstm_ae_cluster_smem_bytes(W, F, H, Z, NW, KW))
+        if (path == "cluster" or NW * F <= 32) and smem <= LSTM_AE_SMEM_BYTES:
+            return NW
+    return 0
+
+
+def lstm_ae_serves(path: str, K: int, F: int, H: int, Z: int, W: int = 32) -> bool:
+    """Whether kernel K's `path` takes K windows of W steps a job at these
+    widths."""
+    if path not in LSTM_AE_PATHS:
+        raise ValueError(f"kernel K has no path {path!r}; its paths are {LSTM_AE_PATHS}")
+    return _lstm_ae_windows(path, int(K), int(W), int(F), int(H), int(Z)) > 0
+
+
+def lstm_ae_path(K: int, F: int, H: int, Z: int, W: int = 32) -> str:
+    """Which path kernel K takes for K windows of W steps a job at these
+    widths: LSTM_AE_FORCE where set (it raises where that path does not
+    serve), else the first of LSTM_AE_PATHS that serves."""
+    if LSTM_AE_FORCE is not None:
+        if not lstm_ae_serves(LSTM_AE_FORCE, K, F, H, Z, W):
+            raise ValueError(f"lstm_ae: the {LSTM_AE_FORCE} path does not take K={K}, W={W}, "
+                             f"F={F}, H={H}, Z={Z}")
+        return LSTM_AE_FORCE
+    return next(p for p in LSTM_AE_PATHS if lstm_ae_serves(p, K, F, H, Z, W))
 
 
 def lstm_train_blocks(K: int, F: int) -> tuple:

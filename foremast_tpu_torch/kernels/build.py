@@ -137,7 +137,13 @@ def _declare(lib):
     lib.fm_st_fit.restype = I
     lib.fm_st_sincos_check.argtypes = [P, P]
     lib.fm_st_sincos_check.restype = I
-    lib.fm_lstm_ae.argtypes = [P, LL, P, P, P, P, I, I, I, I, I, I, I, I, P, P, P]
+    lib.fm_lstm_ae.argtypes = [P, LL, P, P, P, P] + [I] * 10 + [P] * 4
+    lib.fm_lstm_ae_warp_smem_bytes.argtypes = [I] * 5
+    lib.fm_lstm_ae_warp_smem_bytes.restype = LL
+    lib.fm_lstm_ae_cluster_smem_bytes.argtypes = [I] * 6
+    lib.fm_lstm_ae_cluster_smem_bytes.restype = LL
+    lib.fm_lstm_ae_chunk_windows.argtypes = [I] * 3
+    lib.fm_lstm_ae_chunk_windows.restype = I
     lib.fm_lstm_ae.restype = I
     lib.fm_lstm_ae_smem_bytes.argtypes = [I, I, I, I, I]
     lib.fm_lstm_ae_smem_bytes.restype = LL

@@ -15,6 +15,7 @@
 #include <cstring>
 #include <memory>
 #include <mutex>
+#include <optional>
 #include <thread>
 #include <type_traits>
 #include <vector>
@@ -44,6 +45,7 @@ struct int4 {
 };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
 
 namespace emu {
 struct Warp {
@@ -63,8 +65,15 @@ struct Ctx {
   Named* named;
   Warp* warp;
   int lane;
+  // a cluster's launch: this block's rank, every block's shared memory, and
+  // the barrier over all the cluster's threads
+  unsigned crank;
+  unsigned char** cluster_smem;
+  std::barrier<>* cluster_bar;
 };
 inline thread_local Ctx ctx;
+// a thread's arrival at its cluster's barrier, until its wait
+inline thread_local std::optional<std::barrier<>::arrival_token> cluster_token;
 
 inline void bar_sync(int id, int n) {
   std::barrier<>* b;
@@ -118,6 +127,48 @@ inline void mma_f64(double* d, const double* a, const double* b) {
     double s = d[r];
     for (int k = 0; k < 4; ++k) s += A[4 * (m & 7) + k][m >> 3] * B[4 * n + k][0];
     d[r] = s;
+  }
+}
+
+// A launch in clusters of cl blocks: a cluster's blocks run together (one
+// OS thread per CUDA thread of all of them), the clusters one after another.
+template <typename K, typename... Args>
+void launch_cluster(K kernel, unsigned grid, unsigned nt, size_t smem, unsigned cl,
+                    Args... args) {
+  for (unsigned c0 = 0; c0 < grid; c0 += cl) {
+    std::vector<std::vector<unsigned char>> sm(cl, std::vector<unsigned char>(smem + 64, 0xcd));
+    std::vector<unsigned char*> bases(cl);
+    for (unsigned r = 0; r < cl; ++r) bases[r] = sm[r].data();
+    std::barrier<> cbar(cl * nt);
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::unique_ptr<Named>> named;
+    std::vector<std::unique_ptr<Warp>> warps;
+    for (unsigned r = 0; r < cl; ++r) {
+      bars.emplace_back(new std::barrier<>(nt));
+      named.emplace_back(new Named());
+      for (unsigned w = 0; w < (nt + 31) / 32; ++w) warps.emplace_back(new Warp());
+    }
+    std::vector<std::thread> th;
+    const unsigned wpb = (nt + 31) / 32;
+    for (unsigned r = 0; r < cl; ++r)
+      for (unsigned t = 0; t < nt; ++t) {
+        th.emplace_back([&, r, t]() {
+          ctx.tid = {t, 0, 0};
+          ctx.bid = {c0 + r, 0, 0};
+          ctx.bdim = dim3(nt);
+          ctx.gdim = dim3(grid);
+          ctx.smem = bases[r];
+          ctx.block_bar = bars[r].get();
+          ctx.named = named[r].get();
+          ctx.warp = warps[r * wpb + t / 32].get();
+          ctx.lane = int(t % 32);
+          ctx.crank = r;
+          ctx.cluster_smem = bases.data();
+          ctx.cluster_bar = &cbar;
+          kernel(args...);
+        });
+      }
+    for (auto& x : th) x.join();
   }
 }
 

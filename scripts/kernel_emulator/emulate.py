@@ -2,12 +2,13 @@
 """Run the port's CUDA kernels on the CPU, under a host emulation of CUDA.
 
     python scripts/kernel_emulator/emulate.py     # every kernel vs its twin
-    python scripts/kernel_emulator/emulate.py --parent DIR   # and L's forward, J vs DIR's
+    python scripts/kernel_emulator/emulate.py --parent DIR   # and K, L's forward, J vs DIR's
 
 For a machine without nvcc or a card. `build()` compiles
 ``foremast_tpu_torch/csrc/*.cu`` with g++ against ``emu.h`` (after textual
 rewrites of the dynamic shared-memory declaration, the ``<<<...>>>``
-launches, the named barrier, the float64 MMA and the cp.async helpers) into
+launches, the named barrier, the float64 MMA, the cp.async helpers and the
+thread block clusters' helpers and launch) into
 ``build/kernel_emulator/<hash>/libemu.so``. `install()` points
 ``foremast_tpu_torch.kernels`` at that library and lets its launchers take
 CPU tensors, so the real launchers run the real kernel sources: index
@@ -51,6 +52,24 @@ def _rewrite(text: str) -> str:
     text = _LAUNCH.sub(r"emu::launch(\1, \2, \3);", text)
     text = text.replace('asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(n) : "memory");',
                         "emu::bar_sync(id, n);")
+    start = text.find("__device__ __forceinline__ unsigned cluster_ctarank()")
+    if start >= 0:
+        end = text.find("// Float64 tensor-core products", start)
+        text = text[:start] + (
+            "inline unsigned cluster_ctarank() { return emu::ctx.crank; }\n"
+            "inline void cluster_arrive() { emu::cluster_token = emu::ctx.cluster_bar->arrive(); }\n"
+            "inline void cluster_wait() { emu::ctx.cluster_bar->wait(std::move(*emu::cluster_token)); }\n"
+            "inline void cluster_sync() { emu::ctx.cluster_bar->arrive_and_wait(); }\n"
+            "template <typename T>\ninline T* cluster_map(T* p, unsigned rank) {\n"
+            "  return reinterpret_cast<T*>(emu::ctx.cluster_smem[rank] +\n"
+            "                              (reinterpret_cast<unsigned char*>(p) - emu::ctx.smem));\n"
+            "}\n"
+            "template <typename... Args>\n"
+            "inline cudaError_t launch_cluster(void (*kernel)(Args...), int grid, int block,\n"
+            "                                  size_t smem, cudaStream_t, int cl, Args... args) {\n"
+            "  emu::launch_cluster(kernel, unsigned(grid), unsigned(block), smem, unsigned(cl),\n"
+            "                      args...);\n"
+            "  return cudaSuccess;\n}\n\n") + text[end:]
     start = text.find("__device__ __forceinline__ void mma_f64_m8n8k4")
     if start >= 0:
         end = text.find("// Asynchronous 4-, 8- and 16-byte copies", start)
@@ -140,16 +159,17 @@ def _bits(t):
 
 
 def parent_check(parent: str) -> int:
-    """Kernel L's forward and kernel J of the checkout at `parent` (its own
-    C entries, called directly) against this tree's: L's act, num and cnt
-    bit for bit, J within compare_st_fit's tolerances. Returns the failures."""
+    """Kernel L's forward, kernel J and kernel K of the checkout at `parent`
+    (its own C entries, called directly) against this tree's: L's act, num
+    and cnt bit for bit, J within compare_st_fit's tolerances, K's err and z
+    bit for bit. Returns the failures."""
     import chip_smoke as cs
     from foremast_tpu_torch.models import lstm_ae as tl
 
     lib = ctypes.CDLL(build(os.path.join(parent, "foremast_tpu_torch", "csrc")))
     P_, I_, D_, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
-    lib.fm_st_fit.argtypes = [P_] * 4 + [I_, I_, D_, D_, I_, I_, I_, P_, P_, P_]
-    lib.fm_lstm_train_forward.argtypes = [P_, LL, P_, P_] + [I_] * 8 + [P_] * 4
+    lib.fm_st_fit.argtypes = [P_] * 4 + [I_, I_, D_, D_, I_, I_, I_, P_, P_, P_, P_]
+    lib.fm_lstm_train_forward.argtypes = [P_, LL, P_, P_] + [I_] * 8 + [LL] + [P_] * 5
     lib.fm_lstm_train_smem_bytes.argtypes = [I_] * 5
     lib.fm_lstm_train_smem_bytes.restype = LL
 
@@ -167,7 +187,8 @@ def parent_check(parent: str) -> int:
         act = torch.empty(3, K, 2, W, 5 * H)
         sp = int(lib.fm_lstm_train_smem_bytes(F, H, Z, KB, 1) <= kernels.LSTM_SMEM_PARAMS_BYTES)
         rc = lib.fm_lstm_train_forward(ptr(p), p.shape[1], ptr(x), ptr(m), 3, K, W, F, H, Z, KB,
-                                       sp, ptr(act), ptr(num), ptr(cnt), None)
+                                       sp, kernels.LSTM_FORWARD_SMEM_BYTES, ptr(act), ptr(num),
+                                       ptr(cnt), None, None)
         ours = kernels.lstm_train_forward(p, x, m, H, Z)
         ok = rc == 0 and all(torch.equal(_bits(u), _bits(v))
                              for u, v in zip(ours, (num, cnt, act)))
@@ -180,7 +201,7 @@ def parent_check(parent: str) -> int:
             D = 2 + C + 2 * order
             beta, preds = torch.empty(27, D), torch.empty(27, T)
             rc = lib.fm_st_fit(*(ptr(t) for t in a), order, C, 1e-4, 3e-3, 3, 27, T, ptr(beta),
-                               ptr(preds), None)
+                               ptr(preds), None, None)
             try:
                 cs.check(rc == 0, f"the parent's st_fit returned {rc}")
                 e, _ = cs.compare_st_fit(a, kernels.st_fit(*a, order, C, 1e-4, 3e-3, 3),
@@ -191,6 +212,26 @@ def parent_check(parent: str) -> int:
                 print(f"FAIL st_fit T={T} C={C} order={order} against the parent's: {err}",
                       flush=True)
                 failures += 1
+    # kernel K, the parent's entry (its first design) against this tree's
+    # paths: err and z bit for bit
+    lib.fm_lstm_ae.argtypes = [P_, LL, P_, P_, P_, P_] + [I_] * 8 + [P_] * 3
+    lib.fm_lstm_ae_smem_bytes.argtypes = [I_] * 5
+    lib.fm_lstm_ae_smem_bytes.restype = LL
+    for J, K, W, F, H, Z in ((3, 10, 32, 4, 32, 16), (4, 2, 6, 4, 32, 16), (2, 7, 6, 3, 72, 8),
+                             (3, 3, 6, 17, 32, 16)):
+        p, x, m, mu, sigma = cs.adversarial_lstm(J, max(K, 2), F, H, Z, g)
+        x, m = x[:, :K, :W].contiguous(), m[:, :K, :W].contiguous()
+        KB = kernels.lstm_train_blocks(K, F)[0]
+        sp = int(lib.fm_lstm_ae_smem_bytes(F, H, Z, KB, 1) <= kernels.LSTM_SMEM_PARAMS_BYTES)
+        err, z = torch.empty(J, K), torch.empty(J, K)
+        rc = lib.fm_lstm_ae(ptr(p), p.shape[1], ptr(x), ptr(m), ptr(mu), ptr(sigma), J, K, W, F,
+                            H, Z, KB, sp, ptr(err), ptr(z), None)
+        ours = kernels.lstm_ae(p, x, m, H, Z, mu, sigma)
+        ok = rc == 0 and all(torch.equal(_bits(u), _bits(v)) for u, v in zip(ours, (err, z)))
+        print(f"{'ok  ' if ok else 'FAIL'} lstm_ae J={J} K={K} W={W} F={F} H={H} Z={Z} "
+              f"({kernels.lstm_ae_path(K, F, H, Z, W)} path) against the parent's: err, z bit "
+              f"for bit", flush=True)
+        failures += not ok
     cs.DEV = saved_dev
     return failures
 
@@ -312,13 +353,25 @@ def self_check() -> int:
                 expect(name, True, f"preds |err| {e:.3g}, {ill} rows ill-posed, two runs equal")
             except AssertionError as e:
                 expect(name, False, str(e))
-    for F, H, Z in cs.LSTM_WIDTHS:
-        name = f"lstm_ae F={F} H={H} Z={Z}"
-        p, x, m, mu, sigma = cs.adversarial_lstm(3, 10, F, H, Z, g)  # two CTAs a job
+    # kernel K: each path that serves a shape against the twin, the paths
+    # equal to the wide path's bits (cs.lstm_ae_paths_agree); K = 10 is two
+    # of the wide path's CTAs a job and no whole number of warp groups; then
+    # shorter windows: one job of many windows (chunks of four groups), two
+    # windows a group (F = 9), none on the warp path (F = 17), clusters of
+    # three CTAs with rows past the registers' 64 (H = 72, and H = 65: one
+    # odd row) and of eight (H = 256)
+    for (J, K, W, F, H, Z) in ([(3, 10, 32) + w for w in cs.LSTM_WIDTHS]
+                               + [(1, 40, 6, 4, 32, 16), (4, 2, 6, 4, 32, 16),
+                                  (4, 1, 6, 4, 32, 16), (4, 5, 6, 2, 10, 6),
+                                  (3, 3, 6, 9, 32, 16), (3, 3, 6, 17, 32, 16),
+                                  (2, 7, 6, 3, 72, 8), (2, 3, 5, 3, 65, 8),
+                                  (2, 2, 3, 4, 256, 16)]):
+        p, x, m, mu, sigma = cs.adversarial_lstm(J, max(K, 2), F, H, Z, g)
+        x, m = x[:, :K, :W].contiguous(), m[:, :K, :W].contiguous()
+        name = f"lstm_ae J={J} K={K} W={W} F={F} H={H} Z={Z}"
         try:
-            e = cs.compare_lstm(kernels.lstm_ae(p, x, m, H, Z, mu, sigma),
-                                tl.reconstruction_errors_plain(p, x, m, H, Z, mu, sigma), sigma)
-            expect(name, True, f"err |err| {e:.3g}")
+            e, paths = cs.lstm_ae_paths_agree(p, x, m, H, Z, mu, sigma)
+            expect(name, True, f"err |err| {e:.3g}; paths {', '.join(paths)} equal bit for bit")
         except AssertionError as e:
             expect(name, False, str(e))
     # kernel L: two forward window blocks a job; K = 11 is no whole number
@@ -471,7 +524,7 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold kernel L's forward and kernel J against those of the "
+                    help="also hold kernels K, L's forward and J against those of the "
                          "checkout in DIR (e.g. a git archive of the parent commit)")
     opt = ap.parse_args()
     install()

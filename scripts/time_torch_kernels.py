@@ -101,6 +101,24 @@ optional cycle counts (`phase_clocks=`, phases kernels.LSTM_FORWARD_PHASES,
 summed over a job's CTAs, and kernels.ST_FIT_PHASES per row; checkouts that
 have them).
 
+--lstm-ae times kernel K (`kernels.lstm_ae`) at the three shapes it runs
+on chip_smoke.py's own inputs: the scoring pass (100,000 jobs x 2 windows of
+the reference-trained fixture's rows, H = 32, Z = 16, with mu and sigma:
+chip_smoke.lstm_scoring_inputs), the normalizer pass (10,000 jobs x a day
+of 45 windows, errors only: chip_smoke.lstm_normalizer_inputs) and the
+module's default width (10,000 jobs x 2 windows at H = 128, Z = 64 on
+seeded rows: chip_smoke.adversarial_lstm), each the median of 20 launches
+back to back, beside its bound and its arithmetic floor (its multiply-adds
+as two fp32 instructions each, -fmad=false). It prints which path ran
+(`kernels.lstm_ae_path`, in checkouts that have one) and a SHA-256 of err
+(and z) at each shape; with --lstm-ae-paths also each path that serves a
+shape, forced by `kernels.LSTM_AE_FORCE` (checkouts that have one). It calls
+only entry points that every checkout since kernel K's first has: run it
+from the parent's checkout and this one in one call (parent, change,
+change, parent). With --profile it also splits K by phase from its
+optional cycle counts (`phase_clocks=`, phases kernels.LSTM_AE_PHASES,
+summed over a job's CTAs or warps; checkouts that have them).
+
 --a-digest prints a SHA-256 of every output of kernel A (`score_pairs` on
 the card) on chip_smoke.py's adversarial pairs at each T of its kernel
 check and on the 100,000-pair pass: run from two checkouts in one call, equal
@@ -690,6 +708,73 @@ def lstm_st(out_dir, profile):
     return {"lstm_train_forward": lstm, "st_fit": st, "written": path}
 
 
+def lstm_ae_shapes():
+    """Kernel K's three shapes on chip_smoke.py's inputs, as (name, (H, Z,
+    params, x, mask, mu, sigma)); mu and sigma None for the normalizer."""
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    fx = cs.lstm_fixture()
+    H, Z = int(fx["dims"][1]), int(fx["dims"][2])
+    yield "scoring 100000 x 2, H=32", (H, Z, *cs.lstm_scoring_inputs(fx, cs.LSTM_JOBS))
+    yield "normalizer 10000 x 45, H=32", (H, Z, *cs.lstm_normalizer_inputs(
+        fx, cs.LSTM_NORM_JOBS, gen), None, None)
+    yield "default width 10000 x 2, H=128", (128, 64, *cs.adversarial_lstm(
+        cs.LSTM_WIDE_JOBS, 2, 4, 128, 64, gen))
+
+
+def lstm_ae_ab(profile, paths):
+    """Kernel K at each of its shapes: time, path, bound, floor, digests;
+    with paths each path that serves the shape, forced; with profile its
+    phases."""
+    from foremast_tpu_torch import kernels
+
+    res = {}
+    for what, (H, Z, p, x, m, mu, sigma) in lstm_ae_shapes():
+        J, K, W, F = x.shape
+        extra = () if mu is None else (mu, sigma)
+        b = cs.lstm_bound(J, K, F, H, Z)
+        floor = cs.lstm_forward_floor_ms(J, K, W, F, H, Z)
+        chosen = (kernels.lstm_ae_path(K, F, H, Z) if hasattr(kernels, "lstm_ae_path")
+                  else "parent")
+        forced = [None]
+        if paths and hasattr(kernels, "LSTM_AE_FORCE"):
+            forced += [q for q in kernels.LSTM_AE_PATHS
+                       if q != chosen and kernels.lstm_ae_serves(q, K, F, H, Z)]
+        r = {"path": chosen, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+             "floor_ms": floor}
+        for force in forced:
+            if force is not None:
+                kernels.LSTM_AE_FORCE = force
+            try:
+                ms = median_back_to_back_ms(lambda: kernels.lstm_ae(p, x, m, H, Z, *extra),
+                                            cs.TIMED_RUNS)
+                out = kernels.lstm_ae(p, x, m, H, Z, *extra)
+            finally:
+                if force is not None:
+                    kernels.LSTM_AE_FORCE = None
+            out = out if isinstance(out, tuple) else (out,)
+            sha = {k: _digest(t) for k, t in zip(("err", "z"), out)}
+            name = force or chosen
+            r[name] = {"ms": ms, "sha256": sha,
+                       "finite": bool(all(torch.isfinite(t).all() for t in out))}
+            print(f"  lstm_ae {what} ({name} path{'' if force is None else ', forced'}): "
+                  f"{ms:.3f} ms (median of {cs.TIMED_RUNS}); bound {b['bound_ms']:.3f} ms "
+                  f"({b['bound_by']}), arithmetic floor {floor:.3f} ms; sha256 {sha}",
+                  flush=True)
+            del out
+        if profile and hasattr(kernels, "LSTM_AE_PHASES"):
+            names = kernels.LSTM_AE_PHASES
+            clocks = torch.zeros((J, len(names)), dtype=torch.int64, device=cs.DEV)
+            kernels.lstm_ae(p, x, m, H, Z, *extra, phase_clocks=clocks)
+            r["cycles_per_job"] = _phase_table("lstm_ae", names, clocks, what)
+            r["stamped_ms"] = median_back_to_back_ms(
+                lambda: kernels.lstm_ae(p, x, m, H, Z, *extra, phase_clocks=clocks), 5)
+            print(f"  lstm_ae {what} with its clock stamps: {r['stamped_ms']:.3f} ms", flush=True)
+        res[what] = r
+        del p, x, m, mu, sigma
+        torch.cuda.empty_cache()
+    return res
+
+
 def compare_outputs(a_path, b_path):
     """The outputs of two --triage-hw (kernel G) or --lstm-st (kernel J)
     runs, key by key: equal bit for bit, else the largest relative
@@ -727,6 +812,10 @@ def main():
                    help="time kernels G and D and print their outputs' digests instead")
     p.add_argument("--lstm-st", action="store_true",
                    help="time kernel L's forward and kernel J and print their digests instead")
+    p.add_argument("--lstm-ae", action="store_true",
+                   help="time kernel K at its three shapes and print its digests instead")
+    p.add_argument("--lstm-ae-paths", action="store_true",
+                   help="with --lstm-ae, also time each path that serves a shape")
     p.add_argument("--compare", nargs=2, metavar=("A", "B"),
                    help="hold two --triage-hw or --lstm-st output files against each other "
                         "(CPU)")
@@ -753,6 +842,10 @@ def main():
     if opt.lstm_st:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "lstm_st": lstm_st(opt.out, opt.profile)}), flush=True)
+        return
+    if opt.lstm_ae:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "lstm_ae": lstm_ae_ab(opt.profile, opt.lstm_ae_paths)}), flush=True)
         return
     if opt.a_digest:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

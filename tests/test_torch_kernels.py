@@ -497,6 +497,47 @@ def test_lstm_ae_matches_twin(card, F, H, Z):
     cs.compare_lstm(kern, tl.reconstruction_errors_plain(p, x, m, H, Z, mu, sigma), sigma)
 
 
+@pytest.mark.parametrize("J,K,F,H,Z", cs.LSTM_AE_PATH_CASES + ((96, 6, 4, 128, 64),
+                                                          (48, 3, 4, 40, 8)))
+def test_lstm_ae_paths_match_the_twin_and_one_another(card, J, K, F, H, Z):
+    """Each of kernel K's paths that serves a shape (forced by
+    kernels.LSTM_AE_FORCE) against the twin, and the paths equal to the wide
+    path's bits; J = 1 over 3,000 windows; fully masked windows score 0."""
+    gen = torch.Generator(device=card).manual_seed(J * K + F * H + Z)
+    p, x, m, mu, sigma = cs.adversarial_lstm(J, max(K, 2), F, H, Z, gen)
+    x, m = x[:, :K].contiguous(), m[:, :K].contiguous()
+    _, paths = cs.lstm_ae_paths_agree(p, x, m, H, Z, mu, sigma)
+    chosen = "wide" if H <= 32 and F > 16 else "warp" if H <= 32 else "cluster"
+    assert kernels.lstm_ae_path(K, F, H, Z) == chosen
+    assert paths == ((chosen, "wide") if chosen != "wide" else ("wide",))
+
+
+def test_lstm_ae_counts_its_launches_by_path(card, monkeypatch):
+    """One launch a call, counted under lstm_ae and under the path taken."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    for F, H, Z, path in ((4, 32, 16, "warp"), (4, 128, 64, "cluster"), (4, 32, 16, "wide")):
+        monkeypatch.setattr(kernels, "LSTM_AE_FORCE", path if path == "wide" else None)
+        p, x, m, mu, sigma = cs.adversarial_lstm(8, 2, F, H, Z, gen)
+        before, by_path = kernels.launches["lstm_ae"], dict(kernels.lstm_ae_path_launches)
+        kernels.lstm_ae(p, x, m, H, Z, mu, sigma)
+        assert kernels.launches["lstm_ae"] == before + 1
+        assert kernels.lstm_ae_path_launches[path] == by_path[path] + 1
+
+
+def test_lstm_ae_size_functions_mirror_the_library(card):
+    """The path chooser's pure-Python sizes equal the library's."""
+    lib = kernels.build.library()
+    for J, K, NW in ((1, 3000, 4), (100_000, 2, 2), (10_000, 45, 4), (3, 7, 2)):
+        assert kernels.lstm_ae_chunk_windows(J, K, NW) == lib.fm_lstm_ae_chunk_windows(J, K, NW)
+    for F, H, Z, NW, KW in ((4, 32, 16, 4, 16), (9, 10, 6, 2, 8), (32, 32, 256, 2, 2)):
+        assert kernels.lstm_ae_warp_smem_bytes(F, H, Z, NW, KW) == \
+            lib.fm_lstm_ae_warp_smem_bytes(F, H, Z, NW, KW)
+    for W, F, H, Z, NW, KW in ((32, 4, 128, 64, 2, 2), (7, 3, 33, 5, 4, 16),
+                               (32, 4, 256, 256, 2, 4)):
+        assert kernels.lstm_ae_cluster_smem_bytes(W, F, H, Z, NW, KW) == \
+            lib.fm_lstm_ae_cluster_smem_bytes(W, F, H, Z, NW, KW)
+
+
 def test_lstm_ae_scores_the_reference_trained_fixture_as_the_reference(card):
     from foremast_tpu_torch.models import lstm_ae as tl
 

@@ -171,3 +171,48 @@ def test_entry_points_check_their_inputs_and_need_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tl.anomaly_scores_fleet(tl.flat_params(p)[None], x[None], m[None], [0.0], [1.0],
                                     hidden=32, latent=16)
+
+
+# kernel K's path chooser (kernels.lstm_ae_path): plain Python on the
+# library's own size formulas, so these need no card
+@pytest.mark.parametrize("K,F,H,Z,W,path", [
+    (2, 4, 32, 16, 32, "warp"),  # the engine's scoring pass (100,000 jobs x 2)
+    (45, 4, 32, 16, 32, "warp"),  # the normalizer (10,000 jobs x a day of 45)
+    (2, 4, 128, 64, 32, "cluster"),  # the module's default width (10,000 x 2)
+    (1, 1, 1, 1, 1, "warp"),
+    (3000, 4, 32, 16, 32, "warp"),  # one job of many windows
+    (3, 16, 32, 16, 32, "warp"),  # two windows a group: 16 (window, feature) pairs each
+    (3, 17, 32, 16, 32, "wide"),  # more pairs than a warp's lanes
+    (2, 4, 33, 16, 32, "cluster"),  # the first width past a warp's 32 units
+    (2, 32, 256, 256, 32, "cluster"),  # the widest: a cluster of eight CTAs
+    (45, 32, 256, 256, 32, "wide"),  # its chunk's latents past a CTA's shared memory
+    (2, 4, 128, 64, 172, "cluster"),  # the longest window whose history fits
+    (2, 4, 128, 64, 173, "wide"),
+])
+def test_kernel_k_path_chooser_at_its_shapes_and_edges(K, F, H, Z, W, path):
+    from foremast_tpu_torch import kernels
+
+    assert kernels.lstm_ae_path(K, F, H, Z, W) == path
+    assert kernels.lstm_ae_serves("wide", K, F, H, Z, W)
+    assert all(kernels.lstm_ae_serves(p, K, F, H, Z, W) == (p in (path, "wide"))
+               for p in kernels.LSTM_AE_PATHS)
+
+
+def test_kernel_k_chunks_and_forced_paths(monkeypatch):
+    """A chunk is at most four groups a warp or cluster, fewer when the jobs
+    alone fill the card; a forced path is taken where it serves and refused
+    by name where it does not."""
+    from foremast_tpu_torch import kernels
+
+    assert kernels.lstm_ae_chunk_windows(100_000, 2, 2) == 2
+    assert kernels.lstm_ae_chunk_windows(10_000, 45, 4) == 16
+    assert kernels.lstm_ae_chunk_windows(1, 3000, 4) == 4
+    assert kernels.lstm_ae_chunk_windows(8, 3, 4) == 4
+    monkeypatch.setattr(kernels, "LSTM_AE_FORCE", "wide")
+    assert kernels.lstm_ae_path(2, 4, 32, 16) == "wide"
+    monkeypatch.setattr(kernels, "LSTM_AE_FORCE", "warp")
+    with pytest.raises(ValueError, match="the warp path does not take"):
+        kernels.lstm_ae_path(2, 4, 128, 64)
+    monkeypatch.setattr(kernels, "LSTM_AE_FORCE", "tile")
+    with pytest.raises(ValueError, match="no path 'tile'"):
+        kernels.lstm_ae_path(2, 4, 32, 16)
