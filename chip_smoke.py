@@ -562,6 +562,42 @@ def compare_hw_fit(x, hist, fit, period, grid, kern):
     return err
 
 
+def period_edge_rows(B, T, gen):
+    """Kernel F's edge rows on the card: a cycle of T // 8 steps (at least
+    4) with noise and 10% lost slots, each row's valid span ending at a
+    random slot from 0.3 T on (so the last valid slot lies before T - p for
+    the longer lags), and one row in eight each: all padding, a valid span
+    of three slots (every lag at or beyond it), NaN at a masked slot, NaN at
+    a valid slot, +inf at the span's last valid slot, a constant span, a
+    span ending at T // 2. Returns (x, hist) and candidates that reach past
+    the spans: 2, 3, the cycle, twice it, T // 2 - 1, T - 1, T + 3."""
+    dev = DEV
+    kind = torch.arange(B, device=dev) % 8
+    t = torch.arange(T, device=dev)
+    cyc = max(T // 8, 4)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    x = (50 + 5 * torch.sin(2 * math.pi * t / cyc)
+         + torch.randn((B, T), generator=gen, device=dev))
+    end = (T * (0.3 + 0.7 * u(B))).long()
+    end[kind == 7] = T // 2
+    m = (u(B, T) > 0.1) & (t < end[:, None])
+    m[kind == 1] = False
+    m[kind == 2] &= t < 3
+    m[kind == 2, :3] = True
+    last = torch.where(m, t, -1).amax(1)
+    x = torch.where((kind == 3)[:, None] & ~m & (t < end[:, None]), torch.nan, x)
+    nan_at = (kind == 4)[:, None] & (t == last[:, None] // 2)
+    m |= nan_at
+    x = torch.where(nan_at, torch.nan, x)
+    x = torch.where((kind == 5)[:, None] & (t == last[:, None]), torch.inf, x)
+    x[kind == 6] = 42.5
+    cands = (2, 3, cyc, 2 * cyc, T // 2 - 1, T - 1, T + 3)
+    return x.contiguous(), m.contiguous(), cands
+
+
 def near_decision(S, H, cands, T, alias_margin=0.05, contrast_margin=0.01, min_acf=0.2):
     """Rows whose period choice sits within 1e-5 of a margin, from scores S
     (B, C) and the scores H (B, C) at each candidate's half lag."""
@@ -633,7 +669,8 @@ def compare_band_from_preds(x, m, region, preds, thr, mode, mlb, kern):
 
 def kernels_c_to_f_vs_twin(gen):
     """Kernels C, D, E, F and band_from_preds against their twins on
-    adversarial rows at T in {128, 1024, 4096, 16384}."""
+    adversarial rows at T in {128, 1024, 4096, 16384}; F also on
+    period_edge_rows at each T and with MAX_CANDIDATES candidates at 4096."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.ops import forecast as fc
 
@@ -668,6 +705,24 @@ def kernels_c_to_f_vs_twin(gen):
             errs["detect_period_40"], near40 = compare_detect_period(
                 x[:n], hist[:n], many, fb[:n],
                 kernels.detect_period(x[:n], hist[:n], manyt, fb[:n], 0.2, 0.05, 0.01))
+        # spans ending before T - p, all padding, non-finite values under
+        # and outside the mask, lags past the spans: the rows that take the
+        # parent's full sweep and the early stop
+        xe, he, ce = period_edge_rows(256 if T < 16384 else 64, T, gen)
+        Be = xe.shape[0]
+        ke = kernels.detect_period(xe, he, torch.tensor(ce, dtype=torch.int32, device=DEV),
+                                   fb[:Be], 0.2, 0.05, 0.01)
+        errs["detect_period_edge"], near_e = compare_detect_period(xe, he, ce, fb[:Be], ke)
+        check(bool((ke[0][torch.arange(Be, device=DEV) % 8 == 6] == 7).all()),
+              "a constant span did not keep its fallback")
+        if T == 4096:
+            # MAX_CANDIDATES candidates, 2 to 1025: 1,536 distinct lags
+            allc = tuple(range(2, 2 + kernels.MAX_CANDIDATES))
+            errs["detect_period_max"], _ = compare_detect_period(
+                x[:64], hist[:64], allc, fb[:64],
+                kernels.detect_period(x[:64], hist[:64],
+                                      torch.tensor(allc, dtype=torch.int32, device=DEV), fb[:64],
+                                      0.2, 0.05, 0.01))
         preds = torch.where(torch.isfinite(x), x, 30.0) + torch.randn((B, T), generator=gen,
                                                                        device=DEV)
         errs["band_from_preds"], bracketed = compare_band_from_preds(
@@ -678,7 +733,7 @@ def kernels_c_to_f_vs_twin(gen):
                     == 7).all()), "a constant row did not keep its fallback")
         torch.cuda.synchronize()
         print(f"  T={T}: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-              + f"; periods: {near} of {B} rows bracketed; band: {bracketed} of {B} rows "
+              + f"; periods: {near} of {B} rows bracketed ({near_e} of {Be} edge rows); band: {bracketed} of {B} rows "
               f"bracketed", flush=True)
 
 
@@ -1121,6 +1176,35 @@ def adversarial_hpa(B, T, gen):
     return a
 
 
+def hpa_edge_rows(B, T, gen):
+    """adversarial_hpa's rows with non-finite and extreme values where
+    kernel I's passes treat slots apart, one row in 16 each: NaN at a valid
+    history slot, +inf at a valid region slot, tps of -1e36 over the region
+    with 3.4e38 at the first history slot (x - xm overflows outside the
+    selection: the slope, and the anomaly trend's demand, are NaN), NaN at a
+    padding slot after the current window. tps_sigma is the twin's residual
+    sigma of the edited rows, 1 on the overflowing ones (theirs is +inf,
+    which would leave every point in band)."""
+    from foremast_tpu_torch.ops import forecast as fc
+
+    a = adversarial_hpa(B, T, gen)
+    n_h, n_c = hpa_rows_layout(T)
+    r = torch.arange(B, device=a["tps"].device)
+    tps, tm, region = a["tps"], a["tps_mask"], a["region"]
+    for k, (slot, value) in ((7, (n_h // 2, math.nan)), (8, (n_h + 1, math.inf))):
+        rows = r[r % 16 == k]
+        tps[rows, slot], tm[rows, slot] = value, True
+    rows = r[r % 16 == 9]
+    tps[rows] = torch.where(region[rows], -1e36, tps[rows])
+    tps[rows, 0], tm[rows, 0] = 3.4e38, True
+    if n_h + n_c < T:
+        tps[r[r % 16 == 10], T - 1] = math.nan
+        tm[r[r % 16 == 10], T - 1] = False
+    sigma = fc.residual_sigma(tps, a["tps_pred"], tm & ~region, ~region)
+    a["tps_sigma"] = torch.where(r % 16 == 9, 1.0, sigma)
+    return a
+
+
 HPA_SERIES = ("tps", "tps_mask", "region", "tps_pred", "sla", "sla_mask", "sla_static_limit",
               "sla_mode", "threshold")
 HPA_OPTIONAL = ("safe", "pods_now", "pods_hist", "sla_absolute")
@@ -1203,7 +1287,8 @@ HI_CHECK = ((128, 1536), (1024, 1536), (2048, 1536), (16384, 384))  # (T, rows)
 
 def kernels_h_i_vs_twin(gen):
     """Kernels H and I against their twins on adversarial rows at T in
-    {128, 1024, 2048, 16384}, the optional arguments given and left out."""
+    {128, 1024, 2048, 16384}, the optional arguments given and left out;
+    I also on hpa_edge_rows at each T, both entries."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.ops import bivariate as bv
 
@@ -1230,10 +1315,20 @@ def kernels_h_i_vs_twin(gen):
                 brk.append(b)
                 for k, v in errs.items():
                     worst[k] = max(worst.get(k, 0.0), v)
+        e = hpa_edge_rows(256 if T < 16384 else 64, T, gen)
+        for sigma in (True, False):
+            kw = {k: e[k] for k in HPA_OPTIONAL}
+            if sigma:
+                kw["tps_sigma"] = e["tps_sigma"]
+            errs, b = compare_hpa(e, kernels.hpa_score(*hpa_series(e), **kw), sigma)
+            brk.append(b)
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
         torch.cuda.synchronize()
         print(f"  hpa_score T={T}: max |d| " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
               + f"; rows bracketed at a decision edge {brk} of {B} (sigma given / computed, "
-              f"optional arguments given / left out)", flush=True)
+              f"optional arguments given / left out; then of {e['tps'].shape[0]} edge rows, sigma "
+              f"given / computed)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2380,15 +2475,15 @@ def season_inputs(gen, rows=SEASON_ROWS, dev=None):
     return (x, mask, region) + policy, kind, shifted
 
 
-def season_bounds(B, T, n_fit, G, lags, walked):
+def season_bounds(B, T, n_fit, G, walked):
     """Least time (ms, bound_by) for each seasonal kernel's work on these
     inputs: bytes each input read and each output written once over HBM,
     against the operations at the fp32 instruction rate (a float64 add
     counted as two). Per step: SES 3 operations (its scan form ~11), DES 8,
-    Holt-Winters 14 per candidate plus 5 per fitted point; the period
-    detrend 12 per slot and 13 per pair of slots at each distinct lag;
-    the band ~10 per slot. The Holt-Winters fit needs its steps only up to
-    each row's last fitted slot (mask & fit): `walked` of them."""
+    Holt-Winters 14 per candidate plus 5 per fitted point; the band ~10
+    per slot. The Holt-Winters fit needs its steps only up to each row's
+    last fitted slot (mask & fit): `walked` of them. Kernel F's bound is
+    period_bound's."""
     BT = B * T
     return {
         "smooth": least_time(BT * 9 + B * 8, 8 * BT),
@@ -2397,10 +2492,40 @@ def season_bounds(B, T, n_fit, G, lags, walked):
         "affine_scan": least_time(BT * 9 + B * 4, 11 * BT),
         "hw_fit": least_time(BT * 6 + B * (4 + 12 + 4 + 8 * G) + G * 12,
                              14 * G * walked + 5 * G * n_fit),
-        "detect_period": least_time(BT * 5 + B * (8 + 4 * len(PERIOD_CANDIDATES)),
-                                    12 * BT + 13 * B * sum(T - p for p in lags)),
         "band_from_preds": least_time(BT * 19 + B * 28, 10 * BT),
     }
+
+
+def period_bound(hist, cands):
+    """Least time of kernel F's work on these rows: the mask read once, x
+    at its valid slots, the fallback, the period and the scores; the
+    detrend, 12 operations a slot, and 13 a pair of slots at each distinct
+    lag (a float64 add counted as two), both up to each row's last valid
+    slot, the slots after it holding exact zeros. The distinct lags are each
+    candidate 2 <= p < T and, from 4 on, its half. `bound_all_ms` counts
+    every slot, as the first design's bound did."""
+    B, T = hist.shape
+    lags = {q for p in cands if 2 <= p < T for q in ((p, p // 2) if p >= 4 else (p,))}
+    t = torch.arange(T, device=hist.device)
+    ends = (torch.where(hist, t, -1).amax(1) + 1).double()
+    pairs = sum(float((ends - p).clamp(min=0).sum()) for p in lags)
+    out_b = B * (8 + 4 * len(cands))
+    need = least_time(B * T + 4 * int(hist.sum()) + out_b, 12 * float(ends.sum()) + 13 * pairs)
+    every = least_time(B * T * 5 + out_b, 12 * B * T + 13 * B * sum(T - p for p in lags))
+    return {**need, "bound_all_ms": every["bound_ms"]}
+
+
+def hpa_bound(tps_mask, region, sla_mask, sigma_given=False):
+    """Least time of kernel I's work on these rows: tps and the three
+    masks read at every slot, tps_pred where the region or (hpa_from_preds)
+    the traffic history needs it, sla where its mask holds, the per-row
+    parameters and the outputs; ~30 operations a slot. `bound_all_ms`
+    counts every slot's 15 B, as the first design's bound did."""
+    B, T = tps_mask.shape
+    need_p = region if sigma_given else region | tps_mask
+    nbytes = B * T * 7 + 4 * int(need_p.sum()) + 4 * int(sla_mask.sum()) + B * (25 + 48)
+    every = least_time(B * T * 15 + B * (25 + 48), 30.0 * B * T)
+    return {**least_time(nbytes, 30.0 * B * T), "bound_all_ms": every["bound_ms"]}
 
 
 ST_D = 2 + ST_CHANGEPOINTS + 2 * ST_ORDER
@@ -2566,8 +2691,11 @@ def seasonal_path(gen):
                           *st, ST_ORDER, 1e-4, ST_CHANGEPOINTS, 3e-3, 3), 1, warm=False))
     chol_ms = cholesky_ms(*st)
     n_st = int(hist.sum())
-    lags = sorted({q for p in PERIOD_CANDIDATES for q in (p, p // 2)})
-    bounds = season_bounds(B, T, n_fit, grid.shape[0], lags, walked)
+    bounds = season_bounds(B, T, n_fit, grid.shape[0], walked)
+    bounds["detect_period"] = period_bound(hist, PERIOD_CANDIDATES)
+    print(f"  detect_period: bound {bounds['detect_period']['bound_ms']:.3f} ms "
+          f"({bounds['detect_period']['bound_by']}, each row's sweeps to its last valid slot); "
+          f"counted over every slot: {bounds['detect_period']['bound_all_ms']:.3f} ms", flush=True)
     bounds["st_fit"] = st_bound(B, T, n_st)
     print(f"  st_fit: vs twin on {c} rows, {ill} ill-posed; torch.linalg.cholesky + "
           f"cholesky_solve of the same {B} ({ST_D} x {ST_D}) float64 systems {chol_ms:.3f} ms "
@@ -2846,13 +2974,14 @@ def hpa_family(gen, T, n_h):
     launch_ms = median_ms(launch, TIMED_RUNS)
     plain_ms = chunked_ms(lambda s: hp.hpa_from_preds_plain(
         a["tps"][s], a["tps_mask"][s], a["region"][s], tp[s], *(r[s] for r in rest)), B)
-    bound = least_time(B * T * 15 + B * (25 + 48), 30.0 * B * T)
+    bound = hpa_bound(a["tps_mask"], a["region"], a["sla_mask"])
     c_bound = least_time(B * T * 9 + B * 4, 3.0 * B * T)
     print(f"  hpa, {B} rows at T = {T} ({n_h} history + {HPA_CUR} current) made in "
           f"{time.perf_counter() - t0:.1f} s: " + ", ".join(f"{k} on {v:.5f}"
                                                           for k, v in shares.items())
           + f" (limits 0.99); kernel I {i_ms:.3f} ms (median of {TIMED_RUNS}), bound "
-          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, 15 B a slot), plain twin "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']} these rows need; 15 B at every "
+          f"slot: {bound['bound_all_ms']:.3f} ms), plain twin "
           f"{plain_ms:.1f} ms; kernel C's SES {c_ms:.3f} ms, bound {c_bound['bound_ms']:.3f} ms "
           f"(9 B a slot); the HPA launch (C then I, from the entry points) {launch_ms:.3f} ms; "
           f"launches per call: smooth {launches['smooth']}, hpa_score {launches['hpa_score']}; "

@@ -249,6 +249,39 @@ __device__ void block_sum_n(double (&v)[K], Scratch& s) {
   }
 }
 
+// One step of warp_sum_scatter, at lane offset 16 >> STEP, and the rest.
+template <int K, int STEP>
+__device__ __forceinline__ void warp_sum_scatter_step(double (&v)[K], int lane) {
+  constexpr int o = 16 >> STEP, h = (K >> STEP) / 2;
+  if constexpr (h >= 1) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+      const double recv = __shfl_xor_sync(0xffffffffu, upper ? v[j] : v[h + j], o);
+      v[j] = (upper ? v[h + j] : v[j]) + recv;
+    }
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  }
+  if constexpr (STEP < 4) warp_sum_scatter_step<K, STEP + 1>(v, lane);
+}
+
+// A warp's totals of K float64 values a lane (K a power of two, at most
+// 32), each by block_sum's tree: a butterfly over the lanes at offsets 16
+// down to 1 (the pairs shfl_down's tree adds), whose first log2(K) steps
+// each send a partner the half of the values it keeps, so a lane shuffles
+// K - 1 values in all where block_sum_n shuffles 5 K. Returns in each lane
+// the warp's total of value lane >> (5 - log2 K). A block's total of value
+// k is then the warps' totals added in warp order, as block_sum_n adds
+// them. Each step is its own instance, so every index is a constant and v
+// stays in registers.
+template <int K>
+__device__ __forceinline__ double warp_sum_scatter(double (&v)[K]) {
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K is a power of two up to 32");
+  warp_sum_scatter_step<K, 0>(v, threadIdx.x & 31);
+  return v[0];
+}
+
 // ---------------------------------------------------------------------------
 // Causal time-based moving average (the reference's _moving_average_1d).
 //

@@ -81,7 +81,7 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
            "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check",
            "PAIR_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES", "ST_FIT_PHASES",
-           "LSTM_FORWARD_PHASES", "LSTM_AE_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
+           "PERIOD_PHASES", "HPA_PHASES", "LSTM_FORWARD_PHASES", "LSTM_AE_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
 # shared memory; above it, in device scratch
@@ -92,13 +92,15 @@ MAX_BAND_T = 16384
 # kernel G keeps 12 B a slot (x and the prefix sums) and bit words in shared
 # memory, and a select thread's keys (T / 256) in registers
 MAX_SCREEN_T = 16384
-# kernel F keeps 5 B per slot (residual, mask) and 5 B per candidate (score,
-# eligibility) in shared memory
+# kernel F keeps 4.1 B per slot (the residual, the mask as bits) and up to
+# 29 B per candidate (its lag and half-lag indices, its score and
+# eligibility, two distinct lags and their scores) in shared memory
 MAX_PERIOD_T = 16384
 MAX_CANDIDATES = 1024
 # kernel H stages 9 B per slot (two floats, a byte of flags) in shared memory
 MAX_BI_T = 16384
-# kernel I stages 13 B per slot (three floats, a byte of masks)
+# kernel I keeps 4.4 B per slot in shared memory (the SLA history, three bit
+# planes)
 MAX_HPA_T = 16384
 # kernel D runs two candidates per lane of a warp
 MAX_GRID = 64
@@ -175,6 +177,10 @@ HW_FIT_PHASES = ("level0", "stage", "walk", "store")  # level0 includes the row'
 # kernel J's phases, as its optional per-row cycle counts split it; kernel L's
 # forward's, as its optional per-job cycle sums split it
 ST_FIT_PHASES = ("gram", "solve", "preds")
+# kernel F's and kernel I's phases, as their optional per-row cycle counts
+# split them
+PERIOD_PHASES = ("stage", "detrend", "sweeps", "reductions", "pick")
+HPA_PHASES = ("pass_a", "reduce_a", "pass_b", "tail")
 LSTM_FORWARD_PHASES = ("stage", "encoder", "latent", "decoder", "sums")
 LSTM_AE_PHASES = LSTM_FORWARD_PHASES  # kernel K's split is its forward's
 
@@ -511,10 +517,13 @@ def affine_scan(kind: int, x, mask, alpha, beta=None):
 
 
 def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: float,
-                  contrast_margin: float):
+                  contrast_margin: float, phase_clocks=None):
     """Launch kernel F: each row's period among `candidates` ((C,) int32,
     C <= MAX_CANDIDATES) or its `fallback` ((B,) int32). Returns period
-    (B,) int32 and scores (B, C) float32."""
+    (B,) int32 and scores (B, C) float32.
+
+    phase_clocks, an int64 (B, len(PERIOD_PHASES)) tensor, receives the SM
+    cycles each row spent in each phase of PERIOD_PHASES."""
     B, T = x.shape
     dev = x.device
     if not 1 <= T <= MAX_PERIOD_T:
@@ -528,6 +537,8 @@ def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: f
             (candidates, "candidates", torch.int32, (C,)),
             (fallback, "fallback", torch.int32, (B,))):
         _check(t, name, dt, shape, dev)
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (B, len(PERIOD_PHASES)), dev)
     period = torch.empty(B, dtype=torch.int32, device=dev)
     scores = torch.empty((B, C), dtype=torch.float32, device=dev)
     if B == 0:
@@ -538,7 +549,7 @@ def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: f
         rc = lib.fm_detect_period(
             _ptr(x), _ptr(mask), _ptr(candidates), C, _ptr(fallback), float(min_acf),
             float(alias_margin), float(contrast_margin), B, T, _ptr(period), _ptr(scores),
-            ctypes.c_void_p(stream))
+            _opt(phase_clocks), ctypes.c_void_p(stream))
     _raise_on(rc, "detect_period", lib)
     launches["detect_period"] += 1
     return period, scores
@@ -632,12 +643,15 @@ def bivariate(x1, m1, x2, m2, region, threshold, min_lower_bound1=None,
 
 def hpa_score(tps, tps_mask, region, tps_pred, sla, sla_mask, sla_static_limit, sla_mode,
               threshold, *, tps_sigma=None, safe=None, pods_now=None, pods_hist=None,
-              sla_absolute=None):
+              sla_absolute=None, phase_clocks=None):
     """Launch kernel I: the HPA scores of B rows. With tps_sigma ((B,)
     float32) it is the reference's hpa_scores; without it, it first takes
     sigma as the RMS residual of tps_pred over tps_mask & ~region (+inf
     below 2 points) and returns it too, as "tps_sigma". Returns the (B,)
-    outputs of HPA_OUTPUTS (reason int32, the rest float32)."""
+    outputs of HPA_OUTPUTS (reason int32, the rest float32).
+
+    phase_clocks, an int64 (B, len(HPA_PHASES)) tensor, receives the SM
+    cycles each row spent in each phase of HPA_PHASES."""
     B, T = tps.shape
     dev = tps.device
     if not 1 <= T <= MAX_HPA_T:
@@ -654,6 +668,8 @@ def hpa_score(tps, tps_mask, region, tps_pred, sla, sla_mask, sla_static_limit, 
                         (sla_absolute, "sla_absolute", torch.bool)):
         if t is not None:
             named.append((t, name, dt, (B,)))
+    if phase_clocks is not None:
+        named.append((phase_clocks, "phase_clocks", torch.int64, (B, len(HPA_PHASES))))
     for t, name, dt, shape in named:
         _check(t, name, dt, shape, dev)
     out = {k: torch.empty(B, dtype=torch.int32 if k == "reason" else torch.float32, device=dev)
@@ -670,9 +686,10 @@ def hpa_score(tps, tps_mask, region, tps_pred, sla, sla_mask, sla_static_limit, 
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if tps_sigma is None:
-            rc = lib.fm_hpa_from_preds(*common, *rest, _ptr(out["tps_sigma"]), stream)
+            rc = lib.fm_hpa_from_preds(*common, *rest, _ptr(out["tps_sigma"]),
+                                       _opt(phase_clocks), stream)
         else:
-            rc = lib.fm_hpa_scores(*common, _ptr(tps_sigma), *rest, stream)
+            rc = lib.fm_hpa_scores(*common, _ptr(tps_sigma), *rest, _opt(phase_clocks), stream)
     _raise_on(rc, "hpa_score", lib)
     launches["hpa_score"] += 1
     return out

@@ -122,15 +122,15 @@ def _declare(lib):
     lib.fm_hw_fit_ring_row.restype = I
     lib.fm_affine_scan.argtypes = [I, P, P, P, P, I, I, P, P]
     lib.fm_affine_scan.restype = I
-    lib.fm_detect_period.argtypes = [P, P, P, I, P, F, F, F, I, I, P, P, P]
+    lib.fm_detect_period.argtypes = [P, P, P, I, P, F, F, F, I, I, P, P, P, P]
     lib.fm_detect_period.restype = I
     lib.fm_triage_screen.argtypes = [P] * 7 + [I, I, I] + [P] * 10 + [P]
     lib.fm_triage_screen.restype = I
     lib.fm_bivariate.argtypes = [P] * 10 + [I, I] + [P] * 9 + [P]
     lib.fm_bivariate.restype = I
-    lib.fm_hpa_scores.argtypes = [P] * 14 + [I, I] + [P] * 11 + [P]
+    lib.fm_hpa_scores.argtypes = [P] * 14 + [I, I] + [P] * 11 + [P, P]
     lib.fm_hpa_scores.restype = I
-    lib.fm_hpa_from_preds.argtypes = [P] * 13 + [I, I] + [P] * 12 + [P]
+    lib.fm_hpa_from_preds.argtypes = [P] * 13 + [I, I] + [P] * 12 + [P, P]
     lib.fm_hpa_from_preds.restype = I
     D = ctypes.c_double
     lib.fm_st_fit.argtypes = [P] * 4 + [I, I, D, D, I, I, I, P, P, P, P]

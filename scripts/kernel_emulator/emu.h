@@ -56,6 +56,7 @@ struct Warp {
 struct Named {
   std::mutex mu;
   std::unique_ptr<std::barrier<>> bar[16];
+  std::atomic<int> votes{0};  // __syncthreads_and
 };
 struct Ctx {
   uint3 tid, bid;
@@ -224,6 +225,18 @@ inline std::common_type_t<A, B> max(A a, B b) { return a < b ? b : a; }
 using std::isfinite;
 
 inline void __syncthreads() { emu::ctx.block_bar->arrive_and_wait(); }
+// every thread's predicate, ANDed over the block, at a barrier: the failing
+// votes counted, read after one barrier, cleared after another
+inline int __syncthreads_and(int pred) {
+  emu::Named& n = *emu::ctx.named;
+  if (!pred) n.votes.fetch_add(1);
+  emu::ctx.block_bar->arrive_and_wait();
+  const int all = n.votes.load() == 0;
+  emu::ctx.block_bar->arrive_and_wait();
+  if (emu::ctx.tid.x == 0) n.votes.store(0);
+  emu::ctx.block_bar->arrive_and_wait();
+  return all;
+}
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::ctx.warp->bar.arrive_and_wait(); }
 template <typename T>
 inline T __shfl_sync(unsigned, T v, int src) { return emu::exchange(v, src); }
@@ -290,6 +303,13 @@ inline float __uint_as_float(unsigned u) {
 template <typename T>
 inline T atomicAdd(T* p, T v) {
   return std::atomic_ref<T>(*p).fetch_add(v);
+}
+template <typename T>
+inline T atomicOr(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_or(v);
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
+  return unsigned(((static_cast<unsigned long long>(hi) << 32) | lo) >> (sh & 31));
 }
 
 typedef int cudaError_t;

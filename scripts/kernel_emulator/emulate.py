@@ -2,7 +2,7 @@
 """Run the port's CUDA kernels on the CPU, under a host emulation of CUDA.
 
     python scripts/kernel_emulator/emulate.py     # every kernel vs its twin
-    python scripts/kernel_emulator/emulate.py --parent DIR   # and K, L's forward, J vs DIR's
+    python scripts/kernel_emulator/emulate.py --parent DIR   # and K, L's forward, J, F, I vs DIR's
 
 For a machine without nvcc or a card. `build()` compiles
 ``foremast_tpu_torch/csrc/*.cu`` with g++ against ``emu.h`` (after textual
@@ -159,10 +159,11 @@ def _bits(t):
 
 
 def parent_check(parent: str) -> int:
-    """Kernel L's forward, kernel J and kernel K of the checkout at `parent`
-    (its own C entries, called directly) against this tree's: L's act, num
-    and cnt bit for bit, J within compare_st_fit's tolerances, K's err and z
-    bit for bit. Returns the failures."""
+    """Kernel L's forward, kernel J, kernel K, kernel F and kernel I of the
+    checkout at `parent` (its own C entries, called directly, K's through
+    this tree's launcher) against this tree's: L's act, num and cnt bit for bit, J within compare_st_fit's
+    tolerances, K's err and z, F's periods and scores and I's outputs bit
+    for bit. Returns the failures."""
     import chip_smoke as cs
     from foremast_tpu_torch.models import lstm_ae as tl
 
@@ -212,27 +213,106 @@ def parent_check(parent: str) -> int:
                 print(f"FAIL st_fit T={T} C={C} order={order} against the parent's: {err}",
                       flush=True)
                 failures += 1
-    # kernel K, the parent's entry (its first design) against this tree's
-    # paths: err and z bit for bit
-    lib.fm_lstm_ae.argtypes = [P_, LL, P_, P_, P_, P_] + [I_] * 8 + [P_] * 3
-    lib.fm_lstm_ae_smem_bytes.argtypes = [I_] * 5
-    lib.fm_lstm_ae_smem_bytes.restype = LL
+    # kernel K, the parent's against this tree's paths: err and z bit for
+    # bit, the parent's library run through this tree's launcher
+    kbuild._declare(lib)
     for J, K, W, F, H, Z in ((3, 10, 32, 4, 32, 16), (4, 2, 6, 4, 32, 16), (2, 7, 6, 3, 72, 8),
                              (3, 3, 6, 17, 32, 16)):
         p, x, m, mu, sigma = cs.adversarial_lstm(J, max(K, 2), F, H, Z, g)
         x, m = x[:, :K, :W].contiguous(), m[:, :K, :W].contiguous()
-        KB = kernels.lstm_train_blocks(K, F)[0]
-        sp = int(lib.fm_lstm_ae_smem_bytes(F, H, Z, KB, 1) <= kernels.LSTM_SMEM_PARAMS_BYTES)
-        err, z = torch.empty(J, K), torch.empty(J, K)
-        rc = lib.fm_lstm_ae(ptr(p), p.shape[1], ptr(x), ptr(m), ptr(mu), ptr(sigma), J, K, W, F,
-                            H, Z, KB, sp, ptr(err), ptr(z), None)
+        mine = kbuild.library
+        kbuild.library = lambda: lib
+        try:
+            err, z = kernels.lstm_ae(p, x, m, H, Z, mu, sigma)
+        finally:
+            kbuild.library = mine
         ours = kernels.lstm_ae(p, x, m, H, Z, mu, sigma)
-        ok = rc == 0 and all(torch.equal(_bits(u), _bits(v)) for u, v in zip(ours, (err, z)))
+        ok = all(torch.equal(_bits(u), _bits(v)) for u, v in zip(ours, (err, z)))
         print(f"{'ok  ' if ok else 'FAIL'} lstm_ae J={J} K={K} W={W} F={F} H={H} Z={Z} "
               f"({kernels.lstm_ae_path(K, F, H, Z, W)} path) against the parent's: err, z bit "
               f"for bit", flush=True)
         failures += not ok
+    failures += parent_check_f_i(lib, parent, g)
     cs.DEV = saved_dev
+    return failures
+
+
+def _same(a, b) -> bool:
+    """Equal bit for bit, NaN payloads aside (the card's NaN is canonical)."""
+    nan = torch.isnan(a.float()) & torch.isnan(b.float())
+    return bool(torch.equal(_bits(a)[~nan], _bits(b)[~nan]))
+
+
+def parent_check_f_i(lib, parent, g) -> int:
+    """Kernels F and I of the parent's library `lib` (their C entries as
+    the parent declares them, without the clock stamps) against this
+    tree's: F's periods and scores on adversarial and edge rows with the
+    engine's and forty candidates, I's outputs at each T of its depths
+    with both entries, on rows with non-finite and overflowing values,
+    all bit for bit. Returns the failures."""
+    import chip_smoke as cs
+
+    P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # a parent with the clock stamps takes one more pointer before the stream
+    csrc = os.path.join(parent, "foremast_tpu_torch", "csrc")
+    stamped = {k: "long long* clocks" in open(os.path.join(csrc, k + ".cu")).read()
+               for k in ("period", "hpa")}
+    clk = {k: [None] if v else [] for k, v in stamped.items()}
+    lib.fm_detect_period.argtypes = ([P_, P_, P_, I_, P_, F_, F_, F_, I_, I_, P_, P_]
+                                     + [P_] * len(clk["period"]) + [P_])
+    lib.fm_hpa_scores.argtypes = [P_] * 14 + [I_, I_] + [P_] * (11 + len(clk["hpa"])) + [P_]
+    lib.fm_hpa_from_preds.argtypes = [P_] * 13 + [I_, I_] + [P_] * (12 + len(clk["hpa"])) + [P_]
+
+    def ptr(t):
+        return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+    failures = 0
+    for T, B, edge in ((301, 24, False), (300, 24, True), (2000, 9, True)):
+        if edge:
+            x, hist, cands = cs.period_edge_rows(B, T, g)
+            sets = (cands, (2, 3, 24) + cs.PERIOD_CANDIDATES)
+        else:
+            x, m, region = cs.adversarial_series(B, T, g)[:3]
+            hist = (m & ~region).contiguous()
+            sets = ((2, 3, 24) + cs.PERIOD_CANDIDATES, cs.MANY_CANDIDATES)
+        for cands in sets:
+            C = len(cands)
+            candt = torch.tensor(cands, dtype=torch.int32)
+            fb = torch.full((B,), 7, dtype=torch.int32)
+            per, sc = torch.empty(B, dtype=torch.int32), torch.empty(B, C)
+            rc = lib.fm_detect_period(ptr(x), ptr(hist), ptr(candt), C, ptr(fb), 0.2, 0.05, 0.01,
+                                      B, T, ptr(per), ptr(sc), *clk["period"], None)
+            kp, ks = kernels.detect_period(x, hist, candt, fb, 0.2, 0.05, 0.01)
+            ok = rc == 0 and torch.equal(kp, per) and _same(ks, sc)
+            print(f"{'ok  ' if ok else 'FAIL'} detect_period T={T} C={C}{' edge rows' if edge else ''} "
+                  f"against the parent's: periods and scores bit for bit", flush=True)
+            failures += not ok
+    for T, B in ((100, 32), (2048, 16), (16384, 5)):
+        a = cs.hpa_edge_rows(B, T, g)
+        s = [ptr(a[k]) for k in ("tps", "tps_mask", "region", "tps_pred")]
+        rest = [ptr(a[k]) for k in ("sla", "sla_mask", "sla_static_limit", "sla_mode", "threshold")]
+        for sigma in (True, False):
+            for optional in (True, False):
+                kw = {k: a[k] for k in cs.HPA_OPTIONAL} if optional else {}
+                opt = [ptr(kw.get(k)) for k in cs.HPA_OPTIONAL]
+                ref = {k: torch.empty(B, dtype=torch.int32 if k == "reason" else torch.float32)
+                       for k in kernels.HPA_OUTPUTS}
+                outs = [ptr(ref[k]) for k in kernels.HPA_OUTPUTS]
+                if sigma:
+                    kw["tps_sigma"] = a["tps_sigma"]
+                    rc = lib.fm_hpa_scores(*s, ptr(a["tps_sigma"]), *rest, *opt, B, T, *outs,
+                                           *clk["hpa"], None)
+                else:
+                    ref["tps_sigma"] = torch.empty(B)
+                    rc = lib.fm_hpa_from_preds(*s, *rest, *opt, B, T, *outs, ptr(ref["tps_sigma"]),
+                                               *clk["hpa"], None)
+                ours = kernels.hpa_score(*cs.hpa_series(a), **kw)
+                ok = rc == 0 and all(_same(ours[k], ref[k]) for k in ref)
+                print(f"{'ok  ' if ok else 'FAIL'} hpa_score T={T} sigma "
+                      f"{'given' if sigma else 'computed'}, optional arguments "
+                      f"{'given' if optional else 'left out'} against the parent's: every output "
+                      f"bit for bit", flush=True)
+                failures += not ok
     return failures
 
 
@@ -434,6 +514,44 @@ def self_check() -> int:
         except AssertionError as e:
             expect(f"adam P={P}", False, str(e))
     cs.DEV = saved_dev
+    # kernel F's edge rows (spans ending early, all padding, non-finite
+    # values, constant spans), rows of 2,100 slots with MAX_CANDIDATES
+    # candidates (1,536 lags in batches), T = 100 (part of a warp past T)
+    cs.DEV = "cpu"
+    for T, B in ((100, 16), (300, 24)):
+        x_e, h_e, c_e = cs.period_edge_rows(B, T, g)
+        fb_e = torch.full((B,), 7, dtype=torch.int32)
+        try:
+            e, near = cs.compare_detect_period(x_e, h_e, c_e, fb_e, kernels.detect_period(
+                x_e, h_e, torch.tensor(c_e, dtype=torch.int32), fb_e, 0.2, 0.05, 0.01))
+            expect(f"detect_period edge rows T={T}", True, f"scores |err| {e:.3g}, {near} bracketed")
+        except AssertionError as err:
+            expect(f"detect_period edge rows T={T}", False, str(err))
+    x_l, m_l, r_l = cs.adversarial_series(2, 2100, g)[:3]
+    m_l = (m_l & ~r_l).contiguous()
+    c_l = tuple(range(2, 2 + kernels.MAX_CANDIDATES))
+    try:
+        e, near = cs.compare_detect_period(x_l, m_l, c_l, fb[:2], kernels.detect_period(
+            x_l, m_l, torch.tensor(c_l, dtype=torch.int32), fb[:2], 0.2, 0.05, 0.01))
+        expect("detect_period MAX_CANDIDATES", True, f"scores |err| {e:.3g}")
+    except AssertionError as err:
+        expect("detect_period MAX_CANDIDATES", False, str(err))
+    # kernel I's edge rows at each depth of its loads (T = 100, 2048: two
+    # slots a thread; 16384: four)
+    for T, B in ((100, 32), (2048, 16), (16384, 5)):
+        a_e = cs.hpa_edge_rows(B, T, g)
+        for sigma in (True, False):
+            kw = {k: a_e[k] for k in cs.HPA_OPTIONAL}
+            if sigma:
+                kw["tps_sigma"] = a_e["tps_sigma"]
+            name = f"hpa_score edge rows T={T} sigma {'given' if sigma else 'computed'}"
+            try:
+                errs, bracketed = cs.compare_hpa(a_e, kernels.hpa_score(*cs.hpa_series(a_e), **kw),
+                                                 sigma)
+                expect(name, True, f"score |err| {errs['score']:.3g}, {bracketed} bracketed")
+            except AssertionError as err:
+                expect(name, False, str(err))
+    cs.DEV = saved_dev
     many = torch.tensor(cs.MANY_CANDIDATES, dtype=torch.int32)
     kp, ks = kernels.detect_period(x_series, m_series, many, fb, 0.2, 0.05, 0.01)
     pp, ps = fc.detect_period_plain(x_series, m_series, cs.MANY_CANDIDATES, fb, 0.2, 0.05, 0.01)
@@ -524,7 +642,7 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold kernels K, L's forward and J against those of the "
+                    help="also hold kernels K, L's forward, J, F and I against those of the "
                          "checkout in DIR (e.g. a git archive of the parent commit)")
     opt = ap.parse_args()
     install()

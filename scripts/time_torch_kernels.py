@@ -119,6 +119,23 @@ change, parent). With --profile it also splits K by phase from its
 optional cycle counts (`phase_clocks=`, phases kernels.LSTM_AE_PHASES,
 summed over a job's CTAs or warps; checkouts that have them).
 
+--period-hpa times kernel F (`kernels.detect_period`) on the seasonal
+phase's 100,000 rows of bucket 16384 (chip_smoke.season_inputs: 10,080
+history slots, the history as the mask) with the engine's four candidates
+and with chip_smoke.MANY_CANDIDATES (40), and kernel I (`kernels.hpa_score`,
+both entries: hpa_from_preds, then hpa_scores with the sigma it returned) on
+the hpa family's 100,000 rows at each bucket (chip_smoke.hpa_family_inputs,
+2048 and 16384, tps_pred from kernel C's SES as the engine's launch makes
+it): each the median of 20 launches back to back, beside its bound. It
+prints a SHA-256 of every output and writes them all (F's forty-candidate
+scores excepted) to DIR/period_hpa_<checkout>.pt for `--compare`. It calls
+only entry points every checkout since kernels F and I's first has: run it
+from the parent's checkout and this one in one call (parent, change,
+change, parent). With --profile each shape is timed unstamped, then with
+the optional per-row cycle counts (`phase_clocks=`, phases
+kernels.PERIOD_PHASES and kernels.HPA_PHASES; checkouts that have them),
+then unstamped again, and the phase split is printed.
+
 --a-digest prints a SHA-256 of every output of kernel A (`score_pairs` on
 the card) on chip_smoke.py's adversarial pairs at each T of its kernel
 check and on the 100,000-pair pass: run from two checkouts in one call, equal
@@ -775,10 +792,119 @@ def lstm_ae_ab(profile, paths):
     return res
 
 
+def _takes_clocks(fn):
+    import inspect
+
+    return "phase_clocks" in inspect.signature(fn).parameters
+
+
+def stamped_split(kernel, run, names, B, what, profile):
+    """run() timed unstamped, then (profile, a checkout with the stamps)
+    with its per-row cycle counts and their split, then unstamped again."""
+    r = {"ms": median_back_to_back_ms(run, cs.TIMED_RUNS)}
+    if profile and names is not None:
+        clocks = torch.zeros((B, len(names)), dtype=torch.int64, device=cs.DEV)
+        r["stamped_ms"] = median_back_to_back_ms(lambda: run(phase_clocks=clocks), 5)
+        r["cycles_per_row"] = _phase_table(kernel, names, clocks, what)
+        r["monotone"] = bool((clocks >= 0).all())
+        r["ms_after"] = median_back_to_back_ms(run, cs.TIMED_RUNS)
+    print(f"  {kernel} {what}: {r['ms']:.3f} ms (median of {cs.TIMED_RUNS})"
+          + (f"; stamped {r['stamped_ms']:.3f} ms, unstamped again {r['ms_after']:.3f} ms"
+             if "stamped_ms" in r else ""), flush=True)
+    return r
+
+
+def period_ab(profile, outs):
+    """Kernel F on the seasonal phase's rows with the engine's and forty
+    candidates: times, bounds, digests, the split."""
+    from foremast_tpu_torch import kernels
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    season, _, _ = cs.season_inputs(gen)
+    x, mask, region = season[:3]
+    hist = (mask & ~region).contiguous()
+    del season, mask, region
+    B, T = x.shape
+    fb = torch.full((B,), 1440, dtype=torch.int32, device=cs.DEV)
+    names = getattr(kernels, "PERIOD_PHASES", None)
+    if not _takes_clocks(kernels.detect_period):
+        names = None
+    res = {}
+    for name, cands in (("engine", cs.PERIOD_CANDIDATES), ("forty", cs.MANY_CANDIDATES)):
+        candt = torch.tensor(cands, dtype=torch.int32, device=cs.DEV)
+
+        def run(**kw):
+            return kernels.detect_period(x, hist, candt, fb, 0.2, 0.05, 0.01, **kw)
+
+        what = f"{B} x {T}, {len(cands)} candidates"
+        r = stamped_split("detect_period", run, names, B, what, profile)
+        period, scores = run()
+        r.update(cs.period_bound(hist, cands))
+        r["sha256"] = {"period": _digest(period), "scores": _digest(scores)}
+        print(f"    bound {r['bound_ms']:.3f} ms ({r['bound_by']}; counted over every slot "
+              f"{r['bound_all_ms']:.3f} ms); sha256 {r['sha256']}", flush=True)
+        if name == "engine":
+            outs[f"period {name}"] = {"period": period.cpu(), "scores": scores.cpu()}
+        res[name] = r
+        del period, scores
+    return res
+
+
+def hpa_ab(profile, outs):
+    """Kernel I's two entries on the hpa family's rows at each bucket:
+    times, bounds, digests, the split."""
+    from foremast_tpu_torch import kernels
+
+    names = getattr(kernels, "HPA_PHASES", None)
+    if not _takes_clocks(kernels.hpa_score):
+        names = None
+    res = {}
+    for T, n_h in cs.FAMILY_SHAPES:
+        gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED + T)
+        a, _ = cs.hpa_family_inputs(gen, T, n_h)
+        B = a["tps"].shape[0]
+        preds = kernels.smooth(kernels.SMOOTH_SES, a["tps"], a["hist"], a["alpha"])
+        series = (a["tps"], a["tps_mask"], a["region"], preds, a["sla"], a["sla_mask"],
+                  a["sla_static_limit"], a["sla_mode"], a["threshold"])
+        opt = {k: a[k] for k in cs.HPA_OPTIONAL}
+        sigma = kernels.hpa_score(*series, **opt)["tps_sigma"]
+        for entry, extra in (("hpa_from_preds", {}), ("hpa_scores", {"tps_sigma": sigma})):
+            bound = cs.hpa_bound(a["tps_mask"], a["region"], a["sla_mask"], bool(extra))
+
+            def run(**kw):
+                return kernels.hpa_score(*series, **opt, **extra, **kw)
+
+            what = f"{entry} {B} x {T}"
+            r = stamped_split("hpa_score", run, names, B, what, profile)
+            out = run()
+            r.update(bound)
+            r["sha256"] = {k: _digest(v) for k, v in sorted(out.items())}
+            print(f"    bound {r['bound_ms']:.3f} ms ({r['bound_by']}; every slot's bytes "
+                  f"{r['bound_all_ms']:.3f} ms); sha256 {r['sha256']}", flush=True)
+            outs[f"hpa {entry} T={T}"] = {k: v.cpu() for k, v in out.items()}
+            res[what] = r
+            del out
+        del a, preds, series, opt, sigma
+        torch.cuda.empty_cache()
+    return res
+
+
+def period_hpa(out_dir, profile):
+    outs = {}
+    res = {"detect_period": period_ab(profile, outs)}
+    torch.cuda.empty_cache()
+    res["hpa_score"] = hpa_ab(profile, outs)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "period_hpa_%s.pt" % os.path.basename(os.getcwd()))
+    torch.save(outs, path)
+    res["written"] = path
+    return res
+
+
 def compare_outputs(a_path, b_path):
-    """The outputs of two --triage-hw (kernel G) or --lstm-st (kernel J)
-    runs, key by key: equal bit for bit, else the largest relative
-    difference."""
+    """The outputs of two --triage-hw (kernel G), --lstm-st (kernel J) or
+    --period-hpa (kernels F and I) runs, key by key: equal bit for bit,
+    else the largest relative difference and the rows that differ."""
     a, b = torch.load(a_path), torch.load(b_path)
     out = {}
     for shape in a:
@@ -791,7 +917,9 @@ def compare_outputs(a_path, b_path):
             d = (x.double() - y.double()).abs() / y.double().abs().clamp(min=1e-30)
             both = (x == y) | (torch.isnan(x) & torch.isnan(y))
             d = torch.where(both, 0.0, torch.nan_to_num(d, nan=math.inf))
-            out[f"{shape} {k}"] = {"equal": same, "max_rel": float(d.max())}
+            rows = (~both).reshape(both.shape[0], -1).any(1) if both.dim() else ~both
+            out[f"{shape} {k}"] = {"equal": same, "max_rel": float(d.max()),
+                                   "rows_differ": int(rows.sum())}
     return out
 
 
@@ -816,9 +944,11 @@ def main():
                    help="time kernel K at its three shapes and print its digests instead")
     p.add_argument("--lstm-ae-paths", action="store_true",
                    help="with --lstm-ae, also time each path that serves a shape")
+    p.add_argument("--period-hpa", action="store_true",
+                   help="time kernels F and I and print their outputs' digests instead")
     p.add_argument("--compare", nargs=2, metavar=("A", "B"),
-                   help="hold two --triage-hw or --lstm-st output files against each other "
-                        "(CPU)")
+                   help="hold two --triage-hw, --lstm-st or --period-hpa output files against "
+                        "each other (CPU)")
     p.add_argument("--a-digest", action="store_true",
                    help="print a digest of kernel A's outputs instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
@@ -842,6 +972,10 @@ def main():
     if opt.lstm_st:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "lstm_st": lstm_st(opt.out, opt.profile)}), flush=True)
+        return
+    if opt.period_hpa:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "period_hpa": period_hpa(opt.out, opt.profile)}), flush=True)
         return
     if opt.lstm_ae:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

@@ -241,3 +241,50 @@ def test_no_history_fails_open():
     assert np.isinf(out["sigma"].numpy()).all()
     np.testing.assert_array_equal(out["count"].numpy(), [0, 0])
     np.testing.assert_array_equal(out["first_index"].numpy(), [-1, -1])
+
+
+# ----------------------------------------- detect_period's edge rows (kernel F)
+def _edge_rows(B, T, seed):
+    """chip_smoke's period_edge_rows made on the CPU, as numpy."""
+    import chip_smoke as cs
+
+    saved, cs.DEV = cs.DEV, "cpu"
+    try:
+        x, hist, cands = cs.period_edge_rows(B, T, torch.Generator().manual_seed(seed))
+    finally:
+        cs.DEV = saved
+    return x.numpy(), hist.numpy(), cands
+
+
+@pytest.mark.parametrize("T", [300, 2048, 16384])
+def test_detect_period_edge_rows_match_the_reference(T):
+    """The rows kernel F's sweeps treat apart, the twin against the
+    reference: valid spans ending early (the last valid slot before T - p
+    for the longer lags), all padding, a span of three slots (every lag at
+    or past it), NaN at a masked and at a valid slot, +inf at a span's last
+    valid slot, a constant span; candidates past the spans and past T.
+    Scores to 1e-5 with the same -inf pattern and no NaN; periods equal but
+    within 1e-5 of a margin (chip_smoke.near_decision). Constant rows are
+    not compared: the port keeps their fallback (see
+    tests/test_torch_period.py)."""
+    import chip_smoke as cs
+
+    B = 24 if T < 16384 else 8
+    x, hist, cands = _edge_rows(B, T, seed=T)
+    jp, js = jfc.detect_period(x, hist, cands, np.int32(7), np.float32(0.2))
+    tp, ts = tfc.detect_period(x, hist, cands, 7, 0.2, device="cpu")
+    jp, js, tp, ts = np.asarray(jp), np.asarray(js), tp.numpy(), ts.numpy()
+    kind = np.arange(B) % 8
+    keep = kind != 6
+    assert not np.isnan(ts).any() and not np.isnan(js).any()
+    np.testing.assert_array_equal(np.isneginf(ts[keep]), np.isneginf(js[keep]))
+    fin = np.isfinite(js) & keep[:, None]
+    assert np.all(np.abs(ts[fin] - js[fin]) <= 1e-5)
+    # every candidate of an all-padding row, of the three-slot span and of
+    # the non-finite rows scores -inf; those rows keep their fallback
+    assert np.isneginf(ts[np.isin(kind, (1, 2, 4, 5))]).all()
+    assert (tp[np.isin(kind, (1, 2, 4, 5, 6))] == 7).all()
+    halves = tuple(p // 2 if p >= 4 else 2 for p in cands)
+    _, hs = tfc.detect_period(x, hist, halves, 7, 0.2, device="cpu")
+    near = cs.near_decision(torch.as_tensor(js), hs, cands, T).numpy()
+    np.testing.assert_array_equal(tp[keep & ~near], jp[keep & ~near])

@@ -120,6 +120,40 @@ def test_non_finite_values_follow_the_reference():
     assert port["tps_upper"][2] == math.inf and port["tps_lower"][2] == -math.inf
 
 
+@pytest.mark.parametrize("T", [64, 2048, 16384])
+def test_edge_rows_match_the_reference(T):
+    """The rows kernel I's passes treat apart (chip_smoke.hpa_edge_rows),
+    both entries against the reference: NaN at a valid history slot, +inf
+    at a valid region slot, x - xm overflowing outside the selection (the
+    slope NaN), NaN at a masked slot and at a padding slot, and at T = 16384
+    the engine's layout of 10,080 history and 30 current slots."""
+    saved, cs.DEV = cs.DEV, "cpu"
+    try:
+        ta = cs.hpa_edge_rows(32 if T < 16384 else 16, T, torch.Generator().manual_seed(T))
+    finally:
+        cs.DEV = saved
+    a = {k: v.numpy() for k, v in ta.items()}
+    kw = dict(pods_now=a["pods_now"], pods_hist=a["pods_hist"], sla_absolute=a["sla_absolute"])
+    series = (a["sla"], a["sla_mask"], a["sla_static_limit"], a["sla_mode"], a["threshold"],
+              a["safe"])
+    ref = jhpa.hpa_scores(a["tps"], a["tps_mask"], a["region"], a["tps_pred"], a["tps_sigma"],
+                          *series, **kw)
+    port = hpa.hpa_scores(a["tps"], a["tps_mask"], a["region"], a["tps_pred"], a["tps_sigma"],
+                          *series, **kw, device="cpu")
+    cs.compare_hpa(ta, port, True, True, plain=_as_torch(ref))
+    r = np.arange(len(a["tps"]))
+    assert np.isnan(port["score"].numpy()[r % 16 == 9]).all()  # the slope's overflow
+    sigma = np.asarray(jfc.residual_sigma(a["tps"], a["tps_pred"], a["tps_mask"] & ~a["region"],
+                                          ~a["region"]))
+    ref = _as_torch(jhpa.hpa_scores(a["tps"], a["tps_mask"], a["region"], a["tps_pred"], sigma,
+                                    *series, **kw))
+    ref["tps_sigma"] = torch.as_tensor(sigma)
+    port = hpa.hpa_from_preds(a["tps"], a["tps_mask"], a["region"], a["tps_pred"], *series,
+                              **kw, device="cpu")
+    ta["tps_sigma"] = ref["tps_sigma"]
+    cs.compare_hpa(ta, port, False, True, plain=ref)
+
+
 # -------------------------------------- the reference's scenarios on the port
 def _setup(tps_current_level, sla_current=5.0, T=96, region_len=30):
     """History at ~100 tps, current window at tps_current_level; the model

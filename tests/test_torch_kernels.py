@@ -665,6 +665,92 @@ def test_detect_period_takes_forty_candidates(card):
     cs.compare_detect_period(x, hist, cs.MANY_CANDIDATES, fb, kern)
 
 
+@pytest.mark.parametrize("T", [100, 2048, 16384])
+def test_detect_period_edge_rows_match_twin(card, T):
+    """Kernel F on chip_smoke.period_edge_rows: spans ending early, all
+    padding, a span shorter than every lag, NaN and +inf under and outside
+    the mask, constant spans, candidates past the spans and past T."""
+    gen = torch.Generator(device=card).manual_seed(T)
+    x, hist, cands = cs.period_edge_rows(256 if T < 16384 else 64, T, gen)
+    B = x.shape[0]
+    fb = torch.full((B,), 7, dtype=torch.int32, device=card)
+    kern = kernels.detect_period(x, hist, torch.tensor(cands, dtype=torch.int32, device=card),
+                                 fb, 0.2, 0.05, 0.01)
+    torch.cuda.synchronize()
+    cs.compare_detect_period(x, hist, cands, fb, kern)
+    kind = torch.arange(B, device=card) % 8
+    assert bool((kern[0][kind == 6] == 7).all())  # constant spans keep their fallback
+
+
+def test_detect_period_takes_max_candidates(card):
+    """MAX_CANDIDATES candidates, 2 to 1025: 1,536 distinct lags, in batches."""
+    gen = torch.Generator(device=card).manual_seed(1024)
+    x, m, region = cs.adversarial_series(64, 4096, gen)[:3]
+    hist = m & ~region
+    cands = tuple(range(2, 2 + kernels.MAX_CANDIDATES))
+    fb = torch.full((64,), 7, dtype=torch.int32, device=card)
+    kern = kernels.detect_period(x, hist, torch.tensor(cands, dtype=torch.int32, device=card),
+                                 fb, 0.2, 0.05, 0.01)
+    torch.cuda.synchronize()
+    cs.compare_detect_period(x, hist, cands, fb, kern)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and bool((a.view(torch.int32) == b.view(torch.int32)).all())
+
+
+def test_detect_period_phase_clocks(card):
+    """Kernel F's per-row cycle counts: non-negative, some cycles in every
+    row, and the outputs of a stamped launch equal the unstamped ones."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    args, _, _ = cs.season_inputs(gen, rows=512, dev=card)
+    x, mask, region = args[:3]
+    hist = mask & ~region
+    B = x.shape[0]
+    cand = torch.tensor(cs.PERIOD_CANDIDATES, dtype=torch.int32, device=card)
+    fb = torch.full((B,), 1440, dtype=torch.int32, device=card)
+    clocks = torch.full((B, len(kernels.PERIOD_PHASES)), -1, dtype=torch.int64, device=card)
+    plain = kernels.detect_period(x, hist, cand, fb, 0.2, 0.05, 0.01)
+    timed = kernels.detect_period(x, hist, cand, fb, 0.2, 0.05, 0.01, phase_clocks=clocks)
+    torch.cuda.synchronize()
+    assert torch.equal(plain[0], timed[0]) and _same_bits(plain[1], timed[1])
+    assert bool((clocks >= 0).all()) and bool((clocks.sum(1) > 0).all())
+
+
+@pytest.mark.parametrize("sigma", [True, False], ids=["sigma-given", "sigma-computed"])
+@pytest.mark.parametrize("T", [100, 2048, 16384])
+def test_hpa_score_edge_rows_match_twin(card, T, sigma):
+    """Kernel I on chip_smoke.hpa_edge_rows: NaN at a valid history slot,
+    +inf at a region slot, x - xm overflowing outside the selection, NaN at
+    masked and padding slots; at 16384 the engine's 10,080 + 30 layout."""
+    gen = torch.Generator(device=card).manual_seed(T + sigma)
+    a = cs.hpa_edge_rows(256 if T < 16384 else 64, T, gen)
+    kw = {k: a[k] for k in cs.HPA_OPTIONAL}
+    if sigma:
+        kw["tps_sigma"] = a["tps_sigma"]
+    kern = kernels.hpa_score(*cs.hpa_series(a), **kw)
+    torch.cuda.synchronize()
+    cs.compare_hpa(a, kern, sigma)
+
+
+def test_hpa_score_phase_clocks(card):
+    """Kernel I's per-row cycle counts, both entries: non-negative, some
+    cycles in every row, the outputs of a stamped launch equal the
+    unstamped ones (NaN where they are NaN)."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    a = cs.adversarial_hpa(256, 16384, gen)
+    B = a["tps"].shape[0]
+    for extra in ({}, {"tps_sigma": a["tps_sigma"]}):
+        clocks = torch.full((B, len(kernels.HPA_PHASES)), -1, dtype=torch.int64, device=card)
+        plain = kernels.hpa_score(*cs.hpa_series(a), **extra)
+        timed = kernels.hpa_score(*cs.hpa_series(a), **extra, phase_clocks=clocks)
+        torch.cuda.synchronize()
+        for k in plain:
+            nan = torch.isnan(plain[k].float()) & torch.isnan(timed[k].float())
+            assert torch.equal(plain[k][~nan], timed[k][~nan]), k
+        assert bool((clocks >= 0).all()) and bool((clocks.sum(1) > 0).all())
+
+
 @pytest.mark.parametrize("T", [8, 128, 1024, 8192])
 def test_pair_tests_match_twin(card, T):
     from foremast_tpu_torch.ops import pairwise as pw
