@@ -16,7 +16,9 @@ ends; any failure exits non-zero:
              slots, both KS and both Wilcoxon regimes): kernel A at
              T in {16, 128, 1024, 4096, 8192, 16384} (the last two from
              device scratch); kernel B at T in {128, 1024, 16384}; kernels
-             C (SES, DES, Holt-Winters), D, E (SES, DES), F and B's
+             C (SES, DES, Holt-Winters on each of its paths, shared and
+             device, held equal bit for bit, at the rows' periods and cut to
+             1440), D, E (SES, DES), F and B's
              band_from_preds at T in {128, 1024, 4096, 16384} on rows that
              are all-masked, single-point, constant, with leading or
              trailing gaps, with a period >= T/2 or below 4; kernel G at
@@ -24,9 +26,11 @@ ends; any failure exits non-zero:
              single-point, constant, +-0, with NaN in a valid slot, with an
              empty region, quantized or shifted; kernels H and I at
              T in {128, 1024, 2048, 16384}, the optional arguments given and
-             left out: H on constant, perfectly correlated, one-point,
-             empty-region, broken, shifted, all-masked rows, every bound-mode
-             pair and points planted on the ellipse's edge (bracketed); I on
+             left out (H on each of its paths, cta and cluster, forced, also
+             at T in {4096, 4112, 4100} across its path boundary): H on
+             constant, perfectly correlated, one-point, empty-region,
+             broken, shifted, all-masked rows, every bound-mode pair and
+             points planted on the ellipse's edge (bracketed); I on
              every sla_mode x sla_absolute pair, steady, surging, collapsing
              and violating rows, the SLA at exactly `safe` and at the limit,
              base at exactly 50, a third of the region out of band, an empty
@@ -87,8 +91,10 @@ ends; any failure exits non-zero:
              double_exponential and seasonal_trend (kernels F, J, B); recall,
              false positives, planted-period recovery, times and launches per
              algorithm; then each of its kernels alone and its twin on the
-             same inputs, and beside kernel J a Cholesky solve of the same
-             systems.
+             same inputs (kernel C's Holt-Winters refit with each row's
+             fitted parameters and period on the path it took, equal bit
+             for bit to the other path), and beside kernel J a Cholesky
+             solve of the same systems.
   7. families the bivariate and hpa families at full size: 100,000 rows
              made on the card at bucket 2048 (1 day of 60 s history) and
              16384 (7 days). Kernel H through bivariate_normal_anomalies on
@@ -537,6 +543,27 @@ def compare_smooth(kind, x, hist, params, kern):
     return close_rows(kern, plain, 4 * EPS32, 4 * EPS32 * row_scale(x, hist), f"smooth {kind}")
 
 
+def smooth_hw_agrees(x, hist, al, be, ga, period):
+    """Kernel C's Holt-Winters kind at these rows' periods and again with
+    them cut to 1440, each against the twin, and each with rings as long as
+    the row (max_period = T) equal bit for bit to the launch sized by the
+    largest period. Returns the largest difference from the twin."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    T = x.shape[1]
+    errs = {}
+    for what, per in (("", period), ("_p1440", period.clamp(max=1440))):
+        plain = fc.smooth_plain(3, x, hist, al, be, ga, per)
+        got = kernels.smooth(kernels.SMOOTH_HW, x, hist, al, be, ga, per)
+        errs[f"smooth3{what}"] = close_rows(got, plain, 4 * EPS32,
+                                            4 * EPS32 * row_scale(x, hist), f"smooth 3{what}")
+        longer = kernels.smooth(kernels.SMOOTH_HW, x, hist, al, be, ga, per, max_period=T)
+        check(bool(torch.equal(got.view(torch.int32), longer.view(torch.int32))),
+              f"smooth HW at T={T}{what}: rings of {T} floats change the predictions")
+    return errs
+
+
 def compare_scan(kind, x, hist, params, kern):
     """Kernel E against its twin, which applies the same maps one step at a
     time: the combine order differs, so the reference's own tolerances for
@@ -683,10 +710,11 @@ def kernels_c_to_f_vs_twin(gen):
         n = SERIES_CHECK_ROWS
         xs, hs = x[:n], hist[:n]
         errs = {}
-        for kind, params in ((1, (al,)), (2, (al, be)), (3, (al, be, ga, period))):
+        for kind, params in ((1, (al,)), (2, (al, be))):
             sub = tuple(p[:n].contiguous() for p in params)
             errs[f"smooth{kind}"] = compare_smooth(kind, xs, hs, sub,
                                                    kernels.smooth(kind, xs, hs, *sub))
+        errs.update(smooth_hw_agrees(xs, hs, al[:n], be[:n], ga[:n], period[:n]))
         for kind, params in ((1, (al,)), (2, (al, be))):
             errs[f"scan{kind}"] = compare_scan(kind, x, hist, params,
                                                kernels.affine_scan(kind, x, hist, *params))
@@ -1285,24 +1313,52 @@ def compare_hpa(a, kern, with_sigma, with_optional=True, plain=None):
 HI_CHECK = ((128, 1536), (1024, 1536), (2048, 1536), (16384, 384))  # (T, rows)
 
 
-def kernels_h_i_vs_twin(gen):
-    """Kernels H and I against their twins on adversarial rows at T in
-    {128, 1024, 2048, 16384}, the optional arguments given and left out;
-    I also on hpa_edge_rows at each T, both entries."""
+# kernel H's path boundary (BI_SLICE_T = 4096: one CTA, then a cluster of
+# two), and a T that is no multiple of 16 (a slot at a time)
+BI_PATH_CHECK = ((4096, 512), (4112, 512), (4100, 256))
+
+
+def bivariate_paths_vs_twin(B, T, gen):
+    """Kernel H on each path forced (the cta path where one CTA holds the
+    row, the cluster path always), each against the twin, the optional
+    arguments given and left out. Returns (largest band difference, rows
+    bracketed on each path)."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.ops import bivariate as bv
 
-    for T, B in HI_CHECK:
-        args = adversarial_bivariate(B, T, gen)
-        kern = kernels.bivariate(*args)
-        err, bracketed = compare_bivariate(args, kern, bv.bivariate_normal_anomalies_plain(*args))
-        core = args[:6]
-        err2, bracketed2 = compare_bivariate(core, kernels.bivariate(*core),
-                                             bv.bivariate_normal_anomalies_plain(*core))
+    args = adversarial_bivariate(B, T, gen)
+    err, brk = 0.0, {}
+    for path in kernels.BIVARIATE_PATHS:
+        if path == "cta" and kernels.bivariate_smem_bytes(T, 1) > kernels.CTA_SMEM_BYTES:
+            continue
+        kernels.BIVARIATE_FORCE = path
+        try:
+            for a in (args, args[:6]):
+                e, b = compare_bivariate(a, kernels.bivariate(*a),
+                                         bv.bivariate_normal_anomalies_plain(*a))
+                err = max(err, e)
+                brk.setdefault(path, []).append(b)
+        finally:
+            kernels.BIVARIATE_FORCE = None
+    return err, brk
+
+
+def kernels_h_i_vs_twin(gen):
+    """Kernels H and I against their twins on adversarial rows at T in
+    {128, 1024, 2048, 16384}, the optional arguments given and left out, H
+    on each of its paths (and at BI_PATH_CHECK's T); I also on
+    hpa_edge_rows at each T, both entries."""
+    from foremast_tpu_torch import kernels
+
+    for T, B in HI_CHECK + BI_PATH_CHECK:
+        err, brk = bivariate_paths_vs_twin(B, T, gen)
         torch.cuda.synchronize()
-        print(f"  bivariate T={T}: max |d band| {max(err, err2):.3g}; {bracketed} of {B} rows "
-              f"bracketed at the ellipse's edge ({bracketed2} without the optional arguments)",
-              flush=True)
+        print(f"  bivariate T={T} (path {kernels.bivariate_path(T)}, "
+              f"{kernels.bivariate_cluster(T)} CTA a row): max |d band| {err:.3g}; rows of {B} "
+              f"bracketed at the ellipse's edge on each path forced (optional arguments given, "
+              f"left out): {brk}", flush=True)
+        if (T, B) not in HI_CHECK:
+            continue
         a = adversarial_hpa(B, T, gen)
         worst, brk = {}, []
         for sigma in (True, False):
@@ -2617,11 +2673,11 @@ def seasonal_path(gen):
             st_period = out["period"]
         if algo == "holt_winters":
             # the refit alone: kernel C under each row's fitted parameters
+            check(ran["smooth"] == 1, f"holt_winters ran the refit {ran['smooth']} times")
             prm = out["params"]
             refit = (x, mask & ~region, prm[:, 0].contiguous(), prm[:, 1].contiguous(),
                      prm[:, 2].contiguous(), got)
-            hw_refit_ms = cuda_ms(lambda: kernels.smooth(kernels.SMOOTH_HW, *refit,
-                                                         max_period=1440), 3)
+            hw_row = smooth_hw_row(refit, ran["smooth"])
             del prm, refit
         e2e = wall_ms(lambda: fc.forecast_band(*args, algorithm=algo, device=DEV), SEASON_RUNS)
         print(line + f"; forecast_band {SEASON_RUNS} runs: median {np.median(e2e):.3f} ms, "
@@ -2708,9 +2764,11 @@ def seasonal_path(gen):
           f"steps of {B * T} (each row to its last fitted slot); this design's own floor, its "
           f"season rings' traffic of {ring_b} B a walked step ({walked * ring_b / 1e9:.1f} GB): "
           f"{walked * ring_b / HBM_BYTES_PER_S * 1e3:.3f} ms", flush=True)
-    hb = bounds["smooth_hw"]
-    print(f"  smooth, the Holt-Winters refit alone: kernel {hw_refit_ms:.3f} ms, bound "
-          f"{hb['bound_ms']:.3f} ms ({hb['bound_by']})", flush=True)
+    hw_row.update(bounds["smooth_hw"])
+    print(f"  smooth_hw, the Holt-Winters refit alone: kernel "
+          f"{hw_row['ms']:.3f} ms, bound {hw_row['bound_ms']:.3f} ms ({hw_row['bound_by']}, 9 B a "
+          f"slot), plain twin {hw_row['plain_ms']:.1f} ms, max |err| against the twin "
+          f"{hw_row['max_abs_err']:.3g}", flush=True)
     # kernel G on the same rows, 7 days of history (bucket 16384)
     g = triage_beside_band(args, "seasonal", SEASON_RUNS)
     result = {}
@@ -2720,7 +2778,36 @@ def seasonal_path(gen):
         print(f"  {name}: kernel {ms:.3f} ms, plain twin {plain_ms:.1f} ms, bound "
               f"{bounds[name]['bound_ms']:.3f} ms ({bounds[name]['bound_by']}), max |err| "
               f"against the twin {err:.3g}, launches on the path {launches[name]}", flush=True)
+    result["smooth_hw"] = hw_row
     return result, g
+
+
+def smooth_hw_row(refit, launches):
+    """Kernel C's Holt-Winters refit on the seasonal path's rows: its time
+    (median of SEASON_RUNS) with max_period 1440, equal bit for bit to the
+    launch that reads the largest period from the card, its first rows
+    against the twin, the twin's time over every row in chunks. Returns its
+    kernels-line row but the bound."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    x, hist, al, be, ga, period = refit
+    B = x.shape[0]
+    n = SERIES_CHECK_ROWS
+
+    def run():
+        return kernels.smooth(kernels.SMOOTH_HW, *refit, max_period=1440)
+
+    ms = median_ms(run, SEASON_RUNS)
+    got = run()
+    read = kernels.smooth(kernels.SMOOTH_HW, *refit)
+    check(bool(torch.equal(got.view(torch.int32), read.view(torch.int32))),
+          "the Holt-Winters refit differs with the largest period read from the card")
+    del got, read
+    sub = tuple(a[:n].contiguous() for a in refit)
+    err = compare_smooth(3, sub[0], sub[1], sub[2:], kernels.smooth(3, *sub, max_period=1440))
+    plain_ms = chunked_ms(lambda s: fc.smooth_plain(3, *(a[s] for a in refit)), B)
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -2874,7 +2961,9 @@ def bivariate_family(gen, T, n_h):
     out = bv.bivariate_normal_anomalies(*args, device=DEV)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
+    paths = dict(kernels.bivariate_path_launches)
     check(launches["bivariate"] == 1, f"bivariate launched {launches['bivariate']} times, not 1")
+    check(paths[kernels.bivariate_path(T)] == 1, f"bivariate at T={T} took the paths {paths}")
     gate = torch.clamp(BAND_VIOLATION_FRACTION * out["checked"].float(), min=BAND_MIN_POINTS)
     flagged = out["count"].float() >= gate
     # counted in integers: a float32 mean of ones need not be exactly 1
@@ -2913,10 +3002,11 @@ def bivariate_family(gen, T, n_h):
           f"own bands) and {rec_shift:.5f} on {int((kind == 2).sum())} joint shifts, healthy "
           f"flagged {fp:.5f} (limit 0.01); kernel {ms:.3f} ms (median of {TIMED_RUNS}), bound "
           f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, 16 B a slot), plain twin "
-          f"{plain_ms:.1f} ms; {launches['bivariate']} launch per call; vs twin on {CHECK_ROWS} "
-          f"rows: max |d band| {err:.3g}, {bracketed} rows bracketed", flush=True)
+          f"{plain_ms:.1f} ms; {launches['bivariate']} launch per call on the "
+          f"{kernels.bivariate_path(T)} path ({kernels.bivariate_cluster(T)} CTA a row); vs twin "
+          f"on {CHECK_ROWS} rows: max |d band| {err:.3g}, {bracketed} rows bracketed", flush=True)
     return {"launches": launches["bivariate"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **bound}
+            "plain_ms": plain_ms, "T": T, "path": kernels.bivariate_path(T), **bound}
 
 
 def hpa_family(gen, T, n_h):
@@ -4298,6 +4388,10 @@ def main() -> int:
          "replaces": "foremast_tpu/ops/forecast.py:110", **b},
         {"name": "smooth", "source": csrc + "smoothers.cu",
          "replaces": "foremast_tpu/ops/forecast.py:156", **s["smooth"]},
+        # kernel C's Holt-Winters refit, a row of its own: launches on the
+        # seasonal path's holt_winters call
+        {"name": "smooth_hw", "source": csrc + "smoothers.cu",
+         "replaces": "foremast_tpu/ops/forecast.py:186", **s["smooth_hw"]},
         {"name": "hw_fit", "source": csrc + "smoothers.cu",
          "replaces": "foremast_tpu/ops/forecast.py:358", **s["hw_fit"]},
         {"name": "affine_scan", "source": csrc + "seqscan.cu",
@@ -4338,6 +4432,12 @@ def main() -> int:
                                     ("hpa_score", "hpa", "hpa.cu", "foremast_tpu/ops/hpa.py:74")):
         row = dict(fam[(fam_key, FAMILY_SHAPES[0][0])])
         row["launches"] = engine_launches[name]
+        if name == "bivariate":
+            # kernel H at 7 days of history beside its engine-bucket row:
+            # its family call's time, bound, twin and launch
+            long_t = fam[("bivariate", FAMILY_SHAPES[1][0])]
+            row["t16384"] = {k: long_t[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                    "launches", "path")}
         rows.append({"name": name, "source": csrc + src, "replaces": ref, **row})
     for (fam_key, T), r in fam.items():
         print(f"  {fam_key} at T = {T}: kernel {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
@@ -4353,9 +4453,10 @@ def main() -> int:
         r.setdefault("library_ms", None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # kernel K's row also gives each path's run on the main path: its shape,
-    # launches, ms and bound
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + (("paths",) if "paths" in r else ())}
+    # kernel K's row also gives each path's run on the main path; kernel
+    # H's its time at T = 16384
+    extra = ("paths", "path", "T", "t16384")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(e for e in extra if e in r)}
                                   for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

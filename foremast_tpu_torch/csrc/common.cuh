@@ -372,6 +372,11 @@ __device__ __forceinline__ unsigned cluster_ctarank() {
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
+// an arrival that orders no memory: the wait that pairs with it only says
+// that every thread of the cluster has started
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }

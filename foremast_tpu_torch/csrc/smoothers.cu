@@ -27,13 +27,13 @@
 //   32 rows x 32 steps through shared memory (cp.async for the values, a
 //   ballot per row for the mask) and writes its predictions back the same
 //   way, transposed.
-// - HW's season ring is `period` floats per row (5.76 KB at 1440): too much
-//   for registers or, across the thousands of rows a card needs in flight,
-//   for shared memory. It lives in device scratch that the launcher
-//   allocates, one ring per row in flight, and is staged tile by tile: a
-//   tile of 32 steps reads at most 32 ring slots, written at least `period`
-//   steps earlier, and writes back the last min(period, 32) of them. That
-//   adds 8 B per slot of traffic to C.
+// - HW's season ring is `period` floats per row (5.76 KB at 1440). It
+//   lives in device scratch (smooth_hw_kernel: 24 warps an SM, every group
+//   in flight, the ring's tile of slots read with x and the mask and written
+//   back where the tile set one: up to ~6 B a slot more than the 9 B). The
+//   32 rings of a group in a CTA's shared memory (184 KB at 1440) leave one
+//   walking warp an SM, whose chain of dependent steps then sets the pace:
+//   that design measured 26 ms against 11.4 at 100k x 16384, period 1440.
 // - D runs 60 candidates per row: 60 x B x T steps, ~14 operations each,
 //   which bounds it by operations (~40 ms at B = 100k, T = 16384). One warp
 //   takes one row, two candidates per lane, and shares the row's value and
@@ -127,64 +127,49 @@ struct SmoothArgs {
   const float* x;
   const uint8_t* mask;
   const float* alpha;
-  const float* beta;    // DES, HW
-  const float* gamma;   // HW
-  const int* period;    // HW
+  const float* beta;    // DES
   int B;
   int T;
-  float* ring;          // HW: (warps in flight, 32, ring_stride)
-  int ring_stride;
   float* preds;
 };
 
+// SES and DES; Holt-Winters runs smooth_hw_kernel (below)
 template <int KIND>
 __global__ void __launch_bounds__(kSmoothWarps * 32) smooth_kernel(SmoothArgs a) {
+  static_assert(KIND == kSES || KIND == kDES, "smooth_kernel runs SES and DES");
   __shared__ float xs[kSmoothWarps][32][kTile + 1];  // values, then predictions
-  __shared__ float rs[KIND == kHW ? kSmoothWarps : 1][32][kTile + 1];  // season tile
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int T = a.T;
   const int warp_id = blockIdx.x * kSmoothWarps + w;
   const int n_warps = gridDim.x * kSmoothWarps;
   const int n_groups = (a.B + 31) / 32;
-  float* ring = KIND == kHW ? a.ring + size_t(warp_id) * 32 * a.ring_stride : nullptr;
 
   for (int g = warp_id; g < n_groups; g += n_warps) {
     const int row0 = g * 32;
     const int row = row0 + lane;
     const bool live = row < a.B;
-    float al = 0.0f, be = 0.0f, ga = 0.0f;
-    int P = 1;
+    float al = 0.0f, be = 0.0f;
     if (live) {
       al = a.alpha[row];
       if constexpr (KIND != kSES) be = a.beta[row];
-      if constexpr (KIND == kHW) {
-        ga = a.gamma[row];
-        P = clamp_period(a.period[row], T);
-      }
     }
-    const float oma = 1.0f - al, omb = 1.0f - be, omg = 1.0f - ga;
+    const float oma = 1.0f - al, omb = 1.0f - be;
 
-    // initial state: the first valid value, or HW's masked mean of the
-    // first period (rows in turn, the whole warp on each)
+    // initial state: the first valid value (rows in turn, the whole warp on
+    // each)
     float l = 0.0f, b = 0.0f, s = 0.0f;
     for (int r = 0; r < 32 && row0 + r < a.B; ++r) {
       const size_t off = size_t(row0 + r) * T;
-      if constexpr (KIND == kHW) {
-        const float l0 = hw_level0(a.x + off, a.mask + off, __shfl_sync(kFullWarp, P, r));
-        if (lane == r) l = l0;
-      } else {
-        for (int t0 = 0; t0 < T; t0 += 32) {
-          const bool m = t0 + lane < T && a.mask[off + t0 + lane];
-          const unsigned bits = __ballot_sync(kFullWarp, m);
-          if (bits != 0u) {
-            const float v = a.x[off + t0 + __ffs(bits) - 1];
-            if (lane == r) l = v;
-            break;
-          }
+      for (int t0 = 0; t0 < T; t0 += 32) {
+        const bool m = t0 + lane < T && a.mask[off + t0 + lane];
+        const unsigned bits = __ballot_sync(kFullWarp, m);
+        if (bits != 0u) {
+          const float v = a.x[off + t0 + __ffs(bits) - 1];
+          if (lane == r) l = v;
+          break;
         }
       }
     }
-    const float l0 = l;
 
     for (int t0 = 0; t0 < T; t0 += kTile) {
       const int L = min(kTile, T - t0);
@@ -200,39 +185,12 @@ __global__ void __launch_bounds__(kSmoothWarps * 32) smooth_kernel(SmoothArgs a)
       }
       cp_async_wait_all();
       __syncwarp();
-      int base = 0;
-      if constexpr (KIND == kHW) {
-        // season slots (t0 + j) mod P for j < min(P, L): a slot's first
-        // visit (t < P) takes s0 = x - l0 where the mask is set, a later
-        // one the ring
-        base = t0 % P;
-        for (int r = 0; r < 32; ++r) {
-          const int Pr = __shfl_sync(kFullWarp, P, r);
-          const int br = __shfl_sync(kFullWarp, base, r);
-          const float l0r = __shfl_sync(kFullWarp, l0, r);
-          const unsigned mr = __shfl_sync(kFullWarp, mbits, r);
-          if (row0 + r < a.B && lane < min(Pr, L)) {
-            const int t = t0 + lane;
-            int k = br + lane;
-            if (k >= Pr) k -= Pr;
-            if (t < Pr) {
-              rs[w][r][lane] = ((mr >> lane) & 1u) ? xs[w][r][lane] - l0r : 0.0f;
-            } else {
-              cp_async4(&rs[w][r][lane], ring + size_t(r) * a.ring_stride + k);
-            }
-          }
-        }
-        cp_async_wait_all();
-        __syncwarp();
-      }
       // walk: lane = row, sequential over the tile's steps
       if (live) {
         for (int j = 0; j < L; ++j) {
           const float xt = xs[w][lane][j];
           const bool mt = (mbits >> j) & 1u;
-          if constexpr (KIND == kHW) s = j >= P ? rs[w][lane][j - P] : rs[w][lane][j];
-          xs[w][lane][j] = smooth_step<KIND>(xt, mt, al, oma, be, omb, ga, omg, l, b, s);
-          if constexpr (KIND == kHW) rs[w][lane][j] = s;
+          xs[w][lane][j] = smooth_step<KIND>(xt, mt, al, oma, be, omb, 0.0f, 1.0f, l, b, s);
         }
       }
       __syncwarp();
@@ -240,20 +198,200 @@ __global__ void __launch_bounds__(kSmoothWarps * 32) smooth_kernel(SmoothArgs a)
       for (int r = 0; r < 32; ++r) {
         if (row0 + r < a.B && lane < L) a.preds[size_t(row0 + r) * T + t0 + lane] = xs[w][r][lane];
       }
-      if constexpr (KIND == kHW) {
-        // the last min(P, L) steps of the tile hold the newest value of
-        // every slot they touched
+      __syncwarp();
+    }
+  }
+}
+
+// kernels.SMOOTH_HW_PHASES, a group of 32 rows' warp's cycles: the initial
+// levels, issuing the copies of x and the mask, issuing the season slots'
+// copies and waiting for all of them (and the mask as bits), the walk, the
+// stores of the predictions and of the ring
+constexpr int kSmoothHwPhases = 5;
+
+struct HwArgs {
+  const float* x;
+  const uint8_t* mask;
+  const float* alpha;
+  const float* beta;
+  const float* gamma;
+  const int* period;
+  int B;
+  int T;
+  int stride;         // the launch's largest period (clamped to T): the rings' length
+  bool vec;           // rows 16-byte aligned (T a multiple of 16): 16-byte mask copies
+  float* ring;        // the rings: (warps in flight, 32, stride)
+  float* preds;
+  long long* clocks;  // null, or (groups, kSmoothHwPhases) SM cycles of the walking warp
+};
+
+// ---------------------------------------------------------------------------
+// Kernel C, Holt-Winters: the season rings in device scratch
+// ---------------------------------------------------------------------------
+// A warp walks groups of 32 rows grid-stride (a lane a row); each row's
+// season ring, `stride` floats, lives in device scratch that the launcher
+// allocates for the warps in flight. Four warps a CTA at 37 KB of shared
+// memory and few registers: six CTAs, 24 warps an SM, so every group of
+// the engine's 100k rows is in flight at once and the card's memory
+// parallelism comes from its warps. A tile of 32 steps is one round trip:
+// x, the mask (16 B a copy where the rows allow it) and the tile's season
+// slots are all issued before one wait (a slot's first visit, t < P, takes
+// s0 in the walk, so nothing waits for x first). A slot is written back only
+// for a row whose tile set one (a set mask or a first visit): its tile's
+// 32 slots, as they stand (periods below kTile, where a slot repeats within
+// a tile: the last min(P, L) steps', which hold each slot's newest value).
+// A tile masked on every row advances l += b. (The first design staged the
+// mask one row a ballot, each waiting for its global load, and the slots
+// after x: 65% and 14% of a warp's cycles at 100k x 16384.)
+constexpr int kDevWarps = 4;  // warps a CTA
+struct HwDevTiles {           // a warp's tile
+  float xs[32][kTile + 1];    // x, then the predictions
+  uint8_t ms[32][kTile];      // the mask
+  float rs[32][kTile + 1];    // the tile's season slots, then their new values
+};
+
+// Copies of the season slots of tile t0 of group g (steps t >= P of each
+// row, each its own kr: the slot of the tile's first step) into rs.
+__device__ __forceinline__ void hw_stage_ring(const HwArgs& a, int g, int t0, int kr, int P,
+                                              const float* ring, float (*rs)[kTile + 1]) {
+  const int lane = threadIdx.x & 31;
+  const int L = min(kTile, a.T - t0);
+  for (int r = 0; r < 32; ++r) {
+    const int Pr = __shfl_sync(kFullWarp, P, r);
+    const int kr_r = __shfl_sync(kFullWarp, kr, r);
+    if (g * 32 + r < a.B && lane < min(Pr, L) && t0 + lane >= Pr) {
+      int k = kr_r + lane;
+      if (k >= Pr) k = Pr >= kTile ? k - Pr : k % Pr;
+      cp_async4(&rs[r][lane], ring + size_t(r) * a.stride + k);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDevWarps * 32, 6) smooth_hw_kernel(HwArgs a) {
+  __shared__ HwDevTiles tiles[kDevWarps];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  HwDevTiles& tl = tiles[w];
+  const int T = a.T, n_groups = (a.B + 31) / 32;
+  const int warp_id = blockIdx.x * kDevWarps + w, n_warps = gridDim.x * kDevWarps;
+  float* ring = a.ring + size_t(warp_id) * 32 * a.stride;
+  for (int g = warp_id; g < n_groups; g += n_warps) {
+    const int row0 = g * 32, row = row0 + lane;
+    const bool live = row < a.B;
+    long long cyc[kSmoothHwPhases] = {0, 0, 0, 0, 0};
+    long long c_prev = clock64();
+    const bool timed = a.clocks != nullptr;
+    auto lap = [&](int k) {
+      if (timed) {
+        const long long c = clock64();
+        cyc[k] += c - c_prev;
+        c_prev = c;
+      }
+    };
+    float al = 0.0f, be = 0.0f, ga = 0.0f;
+    int P = 1;  // a lane past the rows walks, and writes nothing out
+    if (live) {
+      al = a.alpha[row];
+      be = a.beta[row];
+      ga = a.gamma[row];
+      P = clamp_period(a.period[row], T);
+    }
+    const float oma = 1.0f - al, omb = 1.0f - be, omg = 1.0f - ga;
+    // the initial levels, rows in turn, the whole warp on each
+    float l0 = 0.0f;
+    for (int r = 0; r < 32 && row0 + r < a.B; ++r) {
+      const size_t off = size_t(row0 + r) * T;
+      const float v = hw_level0(a.x + off, a.mask + off, __shfl_sync(kFullWarp, P, r));
+      if (lane == r) l0 = v;
+    }
+    lap(0);
+    float l = l0, b = 0.0f;
+    int kr = 0;  // the ring slot of the tile's first step: t0 mod P
+    for (int t0 = 0; t0 < T; t0 += kTile) {
+      const int L = min(kTile, T - t0);
+      // x and the mask of the tile
+      for (int r = 0; r < 32; ++r) {
+        if (row0 + r < a.B && lane < L) {
+          cp_async4(&tl.xs[r][lane], a.x + size_t(row0 + r) * T + t0 + lane);
+        }
+      }
+      if (a.vec) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = lane + 32 * i, r = c >> 1, h = c & 1;
+          if (row0 + r < a.B && 16 * h < L) {
+            cp_async16(&tl.ms[r][16 * h], a.mask + size_t(row0 + r) * T + t0 + 16 * h);
+          }
+        }
+      } else {
         for (int r = 0; r < 32; ++r) {
-          const int Pr = __shfl_sync(kFullWarp, P, r);
-          const int br = __shfl_sync(kFullWarp, base, r);
-          if (row0 + r < a.B && lane < L && lane >= L - min(Pr, L)) {
-            int k = br + lane;
-            k = k >= Pr ? (Pr >= kTile ? k - Pr : k % Pr) : k;
-            ring[size_t(r) * a.ring_stride + k] = rs[w][r][lane];
+          if (row0 + r < a.B && lane < L) {
+            tl.ms[r][lane] = a.mask[size_t(row0 + r) * T + t0 + lane];
           }
         }
       }
+      lap(1);
+      hw_stage_ring(a, g, t0, kr, P, ring, tl.rs);
+      cp_async_wait_all();
       __syncwarp();
+      unsigned mbits = 0u;
+#pragma unroll 8
+      for (int r = 0; r < 32; ++r) {
+        const unsigned bits =
+            __ballot_sync(kFullWarp, row0 + r < a.B && lane < L && tl.ms[r][lane]);
+        if (lane == r) mbits = bits;
+      }
+      const bool masked = !__any_sync(kFullWarp, mbits != 0u);
+      lap(2);
+      // walk: lane = row; a slot's first visit takes s0 = x - l0 where the
+      // mask is set, a later one its ring slot (within the tile for P < j)
+      bool changed = false;
+      float* xr = tl.xs[lane];
+      float* rr = tl.rs[lane];
+      if (masked) {
+        for (int j = 0; j < L; ++j) {
+          const bool fresh = t0 + j < P;
+          const float st = fresh ? 0.0f : (j >= P ? rr[j - P] : rr[j]);
+          const float lb = l + b;
+          xr[j] = lb + st;
+          l = lb;
+          rr[j] = st;
+          changed |= fresh;
+        }
+      } else {
+        for (int j = 0; j < L; ++j) {
+          const float xt = xr[j];
+          const bool mt = (mbits >> j) & 1u;
+          const bool fresh = t0 + j < P;
+          float s = fresh ? (mt ? xt - l0 : 0.0f) : (j >= P ? rr[j - P] : rr[j]);
+          xr[j] = smooth_step<kHW>(xt, mt, al, oma, be, omb, ga, omg, l, b, s);
+          rr[j] = s;
+          changed |= mt || fresh;
+        }
+      }
+      __syncwarp();
+      lap(3);
+#pragma unroll 8
+      for (int r = 0; r < 32; ++r) {
+        if (row0 + r < a.B && lane < L) a.preds[size_t(row0 + r) * T + t0 + lane] = tl.xs[r][lane];
+      }
+      // write back the tiles of the rows that set a slot (periods below
+      // kTile: the last min(P, L) steps, each slot's newest value)
+      const unsigned wrote = __ballot_sync(kFullWarp, live && changed);
+      for (int r = 0; r < 32; ++r) {
+        const int Pr = __shfl_sync(kFullWarp, P, r);
+        const int kr_r = __shfl_sync(kFullWarp, kr, r);
+        if (((wrote >> r) & 1u) && lane < L && (Pr >= kTile || lane >= L - min(Pr, L))) {
+          int k = kr_r + lane;
+          if (k >= Pr) k = Pr >= kTile ? k - Pr : k % Pr;
+          ring[size_t(r) * a.stride + k] = tl.rs[r][lane];
+        }
+      }
+      __syncwarp();
+      kr = (kr + L) % P;
+      lap(4);
+    }
+    if (timed && lane == 0) {
+      for (int k = 0; k < kSmoothHwPhases; ++k) a.clocks[size_t(g) * kSmoothHwPhases + k] = cyc[k];
     }
   }
 }
@@ -551,20 +689,58 @@ __global__ void __launch_bounds__(kFitWarps * 32) hw_fit_kernel(HwFitArgs a) {
 }  // namespace fm
 
 extern "C" int fm_smooth(int kind, const float* x, const uint8_t* mask, const float* alpha,
-                         const float* beta, const float* gamma, const int* period, int B, int T,
-                         float* ring, int ring_stride, int n_warps, float* preds, void* stream) {
-  fm::SmoothArgs a{x, mask, alpha, beta, gamma, period, B, T, ring, ring_stride, preds};
+                         const float* beta, int B, int T, int n_warps, float* preds,
+                         void* stream) {
+  fm::SmoothArgs a{x, mask, alpha, beta, B, T, preds};
   const int grid = (n_warps + fm::kSmoothWarps - 1) / fm::kSmoothWarps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == fm::kSES) {
     fm::smooth_kernel<fm::kSES><<<grid, fm::kSmoothWarps * 32, 0, st>>>(a);
   } else if (kind == fm::kDES) {
     fm::smooth_kernel<fm::kDES><<<grid, fm::kSmoothWarps * 32, 0, st>>>(a);
-  } else if (kind == fm::kHW) {
-    fm::smooth_kernel<fm::kHW><<<grid, fm::kSmoothWarps * 32, 0, st>>>(a);
   } else {
     return int(cudaErrorInvalidValue);
   }
+  return int(cudaGetLastError());
+}
+
+
+// CTAs of `kernel` (threads, smem) the card holds at once
+template <typename K>
+static cudaError_t resident_ctas(K kernel, int threads, size_t smem, int* n) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem));
+  // the SM's whole shared memory: six CTAs of the Holt-Winters kind take 228 KB
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             int(cudaSharedmemCarveoutMaxShared));
+  }
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  *n = sms * per_sm;
+  return e != cudaSuccess ? e : (per_sm < 1 ? cudaErrorInvalidValue : cudaSuccess);
+}
+
+// Kernel C's Holt-Winters kind: `ring` holds (n_warps,
+// 32, stride) floats; the launch takes at most n_warps warps (a multiple of
+// kDevWarps), and no more than the card holds at once
+extern "C" int fm_smooth_hw(const float* x, const uint8_t* mask, const float* alpha,
+                                   const float* beta, const float* gamma, const int* period,
+                                   int B, int T, int stride, float* ring, int n_warps,
+                                   float* preds, long long* clocks, void* stream) {
+  if (stride < 1 || n_warps < fm::kDevWarps) return int(cudaErrorInvalidValue);
+  const bool vec = T % 16 == 0 && reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  fm::HwArgs a{x, mask, alpha, beta, gamma, period, B, T, stride, vec, ring, preds, clocks};
+  int resident = 0;
+  cudaError_t e = resident_ctas(fm::smooth_hw_kernel, fm::kDevWarps * 32, 0, &resident);
+  if (e != cudaSuccess) return int(e);
+  const int grid = min(n_warps / fm::kDevWarps, resident);
+  fm::smooth_hw_kernel<<<grid, fm::kDevWarps * 32, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 

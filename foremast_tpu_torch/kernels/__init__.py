@@ -73,7 +73,9 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "kruskal_groups", "friedman", "fleet_topk", "lstm_train_blocks", "lstm_bptt_blocks",
            "lstm_train_forward_path", "lstm_ae_path", "lstm_ae_serves", "lstm_ae_path_launches",
            "lstm_ae_chunk_windows", "lstm_ae_warp_smem_bytes", "lstm_ae_cluster_smem_bytes",
-           "LSTM_AE_PATHS", "LSTM_AE_SMEM_BYTES",
+           "LSTM_AE_PATHS", "LSTM_AE_SMEM_BYTES", "bivariate_path", "bivariate_cluster",
+           "bivariate_slice", "bivariate_smem_bytes", "bivariate_path_launches",
+           "BIVARIATE_PATHS", "BI_SLICE_T", "BI_MAX_CLUSTER", "CTA_SMEM_BYTES", "smooth_hw_warps",
            "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
@@ -81,7 +83,8 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
            "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check",
            "PAIR_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES", "ST_FIT_PHASES",
-           "PERIOD_PHASES", "HPA_PHASES", "LSTM_FORWARD_PHASES", "LSTM_AE_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
+           "PERIOD_PHASES", "HPA_PHASES", "BI_PHASES", "SMOOTH_HW_PHASES",
+           "LSTM_FORWARD_PHASES", "LSTM_AE_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernel A: up to this T a pair's 2T sort entries (16 B each) live in
 # shared memory; above it, in device scratch
@@ -97,8 +100,22 @@ MAX_SCREEN_T = 16384
 # eligibility, two distinct lags and their scores) in shared memory
 MAX_PERIOD_T = 16384
 MAX_CANDIDATES = 1024
-# kernel H stages 9 B per slot (two floats, a byte of flags) in shared memory
+# kernel H stages 11 B a slot (two floats, three mask bytes) in shared
+# memory, a CTA a slice of at most BI_SLICE_T slots: a row up to BI_SLICE_T
+# is one CTA ("cta" path), a longer one a thread block cluster of
+# ceil(T / BI_SLICE_T) CTAs ("cluster" path). The choice is made here
+# alone: the launch passes the CTAs a row (bivariate_cluster) to the C
+# entry, which stages ceil(T / cl) slots a CTA, rounded up to 16.
+# BIVARIATE_FORCE, a path's name, makes bivariate take that path where it
+# serves the shape (the cta path while one CTA's shared memory holds the
+# row; the cluster path as at least two CTAs): tests hold the paths against
+# each other.
 MAX_BI_T = 16384
+BI_SLICE_T = 4096
+CTA_SMEM_BYTES = 232_448  # the most shared memory an H100 CTA may take
+BI_MAX_CLUSTER = 8
+BIVARIATE_PATHS = ("cta", "cluster")
+BIVARIATE_FORCE = None
 # kernel I keeps 4.4 B per slot in shared memory (the SLA history, three bit
 # planes)
 MAX_HPA_T = 16384
@@ -181,6 +198,11 @@ ST_FIT_PHASES = ("gram", "solve", "preds")
 # split them
 PERIOD_PHASES = ("stage", "detrend", "sweeps", "reductions", "pick")
 HPA_PHASES = ("pass_a", "reduce_a", "pass_b", "tail")
+# kernel H's phases, as its optional per-row cycle counts split them; kernel
+# C's Holt-Winters kind's, as its optional cycle counts a group of 32 rows
+# split them
+BI_PHASES = ("stage", "moments", "flags", "reductions")
+SMOOTH_HW_PHASES = ("level0", "stage", "ring", "walk", "store")
 LSTM_FORWARD_PHASES = ("stage", "encoder", "latent", "decoder", "sums")
 LSTM_AE_PHASES = LSTM_FORWARD_PHASES  # kernel K's split is its forward's
 
@@ -188,8 +210,10 @@ LSTM_AE_PHASES = LSTM_FORWARD_PHASES  # kernel K's split is its forward's
 PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans",
                "mw_kw_ks", "exact_tails", "gates_band")
 
-# kernel K's launches by path (each also counts in launches["lstm_ae"])
+# kernel K's launches by path (each also counts in launches["lstm_ae"]);
+# kernel H's likewise
 lstm_ae_path_launches = {"warp": 0, "cluster": 0, "wide": 0}
+bivariate_path_launches = {"cta": 0, "cluster": 0}
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
@@ -201,8 +225,9 @@ launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-    for k in lstm_ae_path_launches:
-        lstm_ae_path_launches[k] = 0
+    for counts in (lstm_ae_path_launches, bivariate_path_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device):
@@ -391,13 +416,29 @@ def _row_params(B: int, dev, named) -> None:
         _check(t, name, dt, (B,), dev)
 
 
+def smooth_hw_warps(B: int, stride: int) -> int:
+    """Warps of a launch of kernel C's Holt-Winters kind over B rows with
+    season rings of `stride` floats: a warp a group of 32 rows, in whole
+    CTAs of four, as many as the rings (32 stride floats a warp) fit in
+    SCRATCH_BYTES, and at least one CTA. The C entry takes no more than the
+    card holds at once; the groups go grid-stride over them."""
+    groups = -(-int(B) // 32)
+    budget = SCRATCH_BYTES // (32 * int(stride) * 4)
+    return max(4, min(-(-groups // 4) * 4, budget // 4 * 4))
+
+
 def smooth(kind: int, x, mask, alpha, beta=None, gamma=None, period=None,
-           max_period: int | None = None):
+           max_period: int | None = None, phase_clocks=None):
     """Launch kernel C: one-step predictions (B, T) of SES (kind
     SMOOTH_SES), DES (SMOOTH_DES, with beta) or additive Holt-Winters
     (SMOOTH_HW, with beta, gamma and a (B,) int32 period). max_period, an
-    upper bound on the periods, sizes HW's ring scratch; without it the
-    launcher reads the largest period from the card."""
+    upper bound on the periods, sizes HW's season rings (device scratch
+    for the warps in flight); without it the launcher reads the largest
+    period from the card.
+
+    phase_clocks (SMOOTH_HW only), an int64 (ceil(B / 32),
+    len(SMOOTH_HW_PHASES)) tensor, receives the SM cycles each group of 32
+    rows' warp spent in each phase of SMOOTH_HW_PHASES."""
     B, T = x.shape
     dev = x.device
     _check(x, "x", torch.float32, (B, T), dev)
@@ -410,30 +451,35 @@ def smooth(kind: int, x, mask, alpha, beta=None, gamma=None, period=None,
     elif kind != SMOOTH_SES and kind != SMOOTH_DES:
         raise ValueError(f"unknown smoother kind {kind}")
     _row_params(B, dev, named)
+    groups = (B + 31) // 32
+    if phase_clocks is not None:
+        if kind != SMOOTH_HW:
+            raise ValueError("phase_clocks are kept for the Holt-Winters kind only")
+        _check(phase_clocks, "phase_clocks", torch.int64, (groups, len(SMOOTH_HW_PHASES)), dev)
     preds = torch.empty((B, T), dtype=torch.float32, device=dev)
     if B == 0 or T == 0:
         return preds
-    groups = (B + 31) // 32
-    ring, stride = None, 0
-    n_warps = groups
-    if kind == SMOOTH_HW:
-        if max_period is None:
-            max_period = int(period.max())
-        stride = max(1, min(int(max_period), T))
-        n_warps = max(1, min(groups, SCRATCH_BYTES // (32 * stride * 4)))
-    n_warps = -(-n_warps // 4) * 4  # whole CTAs of 4 warps
-    if kind == SMOOTH_HW:
-        ring = torch.empty(n_warps * 32 * stride, dtype=torch.float32, device=dev)
     lib = build.library()
+    if kind != SMOOTH_HW:
+        n_warps = -(-groups // 4) * 4  # whole CTAs of 4 warps
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.fm_smooth(kind, _ptr(x), _ptr(mask), _ptr(alpha),
+                               None if kind == SMOOTH_SES else _ptr(beta), B, T, n_warps,
+                               _ptr(preds), ctypes.c_void_p(stream))
+        _raise_on(rc, "smooth", lib)
+        launches["smooth"] += 1
+        return preds
+    if max_period is None:
+        max_period = int(period.max())
+    stride = max(1, min(int(max_period), T))
+    n_warps = smooth_hw_warps(B, stride)
+    ring = torch.empty(n_warps * 32 * stride, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_smooth(
-            kind, _ptr(x), _ptr(mask), _ptr(alpha),
-            None if beta is None or kind == SMOOTH_SES else _ptr(beta),
-            None if kind != SMOOTH_HW else _ptr(gamma),
-            None if kind != SMOOTH_HW else _ptr(period), B, T,
-            None if ring is None else _ptr(ring), stride, n_warps, _ptr(preds),
-            ctypes.c_void_p(stream))
+        rc = lib.fm_smooth_hw(_ptr(x), _ptr(mask), _ptr(alpha), _ptr(beta), _ptr(gamma),
+                              _ptr(period), B, T, stride, _ptr(ring), n_warps, _ptr(preds),
+                              _opt(phase_clocks), ctypes.c_void_p(stream))
     _raise_on(rc, "smooth", lib)
     launches["smooth"] += 1
     return preds
@@ -600,13 +646,51 @@ def _opt(t):
     return None if t is None else _ptr(t)
 
 
+def bivariate_slice(T: int, cl: int) -> int:
+    """Slots a CTA of kernel H stages when a row of T slots is cl CTAs: a
+    share rounded up to 16 (csrc/bivariate.cu: bi_slice)."""
+    return (-(-int(T) // int(cl)) + 15) & ~15
+
+
+def bivariate_smem_bytes(T: int, cl: int) -> int:
+    """Dynamic shared memory of a CTA of kernel H (csrc/bivariate.cu:
+    bi_smem_bytes): the reductions' scratch and 11 B a staged slot."""
+    return 896 + 11 * bivariate_slice(T, cl)
+
+
+def bivariate_path(T: int) -> str:
+    """Kernel H's path for rows of T slots: "cta" up to BI_SLICE_T, else
+    "cluster"."""
+    return "cta" if T <= BI_SLICE_T else "cluster"
+
+
+def bivariate_cluster(T: int, path: str | None = None) -> int:
+    """CTAs a row of T slots on kernel H's path (bivariate_path's when None):
+    1 on the cta path, ceil(T / BI_SLICE_T) and at least 2 on the cluster
+    path. Raises ValueError where the path does not serve T."""
+    path = path or bivariate_path(T)
+    if path == "cta":
+        if bivariate_smem_bytes(T, 1) > CTA_SMEM_BYTES:
+            raise ValueError(f"kernel H's cta path does not hold a row of T = {T}")
+        return 1
+    if path != "cluster":
+        raise ValueError(f"kernel H has no path {path!r}; its paths are {BIVARIATE_PATHS}")
+    cl = max(2, -(-int(T) // BI_SLICE_T))
+    if cl > BI_MAX_CLUSTER:
+        raise ValueError(f"kernel H's cluster path takes at most {BI_MAX_CLUSTER} CTAs a row")
+    return cl
+
+
 def bivariate(x1, m1, x2, m2, region, threshold, min_lower_bound1=None,
-              min_lower_bound2=None, bound_mode1=None, bound_mode2=None):
+              min_lower_bound2=None, bound_mode1=None, bound_mode2=None, phase_clocks=None):
     """Launch kernel H: the bivariate-normal ellipse of B metric pairs.
     Returns flags (B, T) bool, d2 (B, T) float32, count, first_index,
     checked (B,) int32 and the marginal bands upper1, lower1, upper2,
     lower2 as (B,) float32 (constant in t). A bound floor or bound mode
-    left out is absent, as in the reference."""
+    left out is absent, as in the reference.
+
+    phase_clocks, an int64 (B, len(BI_PHASES)) tensor, receives the SM
+    cycles each row's first thread spent in each phase of BI_PHASES."""
     B, T = x1.shape
     dev = x1.device
     if not 1 <= T <= MAX_BI_T:
@@ -620,6 +704,8 @@ def bivariate(x1, m1, x2, m2, region, threshold, min_lower_bound1=None,
                         (bound_mode2, "bound_mode2", torch.int32)):
         if t is not None:
             named.append((t, name, dt, (B,)))
+    if phase_clocks is not None:
+        named.append((phase_clocks, "phase_clocks", torch.int64, (B, len(BI_PHASES))))
     for t, name, dt, shape in named:
         _check(t, name, dt, shape, dev)
     out = {"flags": torch.empty((B, T), dtype=torch.bool, device=dev),
@@ -628,16 +714,20 @@ def bivariate(x1, m1, x2, m2, region, threshold, min_lower_bound1=None,
     out.update({k: torch.empty(B, dtype=torch.float32, device=dev) for k in BI_BAND_OUTPUTS})
     if B == 0:
         return out
+    path = BIVARIATE_FORCE or bivariate_path(T)
+    cl = bivariate_cluster(T, path)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fm_bivariate(
             _ptr(x1), _ptr(m1), _ptr(x2), _ptr(m2), _ptr(region), _ptr(threshold),
             _opt(min_lower_bound1), _opt(min_lower_bound2), _opt(bound_mode1),
-            _opt(bound_mode2), B, T, _ptr(out["flags"]), _ptr(out["d2"]),
-            *(_ptr(out[k]) for k in BI_INT_OUTPUTS + BI_BAND_OUTPUTS), ctypes.c_void_p(stream))
+            _opt(bound_mode2), B, T, cl, _ptr(out["flags"]), _ptr(out["d2"]),
+            *(_ptr(out[k]) for k in BI_INT_OUTPUTS + BI_BAND_OUTPUTS), _opt(phase_clocks),
+            ctypes.c_void_p(stream))
     _raise_on(rc, "bivariate", lib)
     launches["bivariate"] += 1
+    bivariate_path_launches[path] += 1
     return out
 
 

@@ -114,8 +114,10 @@ def _declare(lib):
     lib.fm_ma_band.restype = I
     lib.fm_band_from_preds.argtypes = [P] * 7 + [I, I] + [P] * 7 + [P]
     lib.fm_band_from_preds.restype = I
-    lib.fm_smooth.argtypes = [I] + [P] * 6 + [I, I, P, I, I, P, P]
+    lib.fm_smooth.argtypes = [I] + [P] * 4 + [I, I, I, P, P]
     lib.fm_smooth.restype = I
+    lib.fm_smooth_hw.argtypes = [P] * 6 + [I, I, I, P, I, P, P, P]
+    lib.fm_smooth_hw.restype = I
     lib.fm_hw_fit.argtypes = [P] * 5 + [I, I, I, P, I, I, P, P, P, P, P]
     lib.fm_hw_fit.restype = I
     lib.fm_hw_fit_ring_row.argtypes = [I]
@@ -126,8 +128,10 @@ def _declare(lib):
     lib.fm_detect_period.restype = I
     lib.fm_triage_screen.argtypes = [P] * 7 + [I, I, I] + [P] * 10 + [P]
     lib.fm_triage_screen.restype = I
-    lib.fm_bivariate.argtypes = [P] * 10 + [I, I] + [P] * 9 + [P]
+    lib.fm_bivariate.argtypes = [P] * 10 + [I, I, I] + [P] * 9 + [P, P]
     lib.fm_bivariate.restype = I
+    lib.fm_bivariate_smem_bytes.argtypes = [I, I]
+    lib.fm_bivariate_smem_bytes.restype = LL
     lib.fm_hpa_scores.argtypes = [P] * 14 + [I, I] + [P] * 11 + [P, P]
     lib.fm_hpa_scores.restype = I
     lib.fm_hpa_from_preds.argtypes = [P] * 13 + [I, I] + [P] * 12 + [P, P]

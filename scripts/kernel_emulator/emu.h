@@ -262,6 +262,7 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   w.bar.arrive_and_wait();
   return r;
 }
+inline int __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0u; }
 inline unsigned __match_any_sync(unsigned, unsigned v) {
   emu::Warp& w = *emu::ctx.warp;
   w.buf[emu::ctx.lane] = v;
@@ -315,7 +316,9 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+enum { cudaSharedmemCarveoutMaxShared = 100 };
 template <typename K>
 inline cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
   return bytes > 232448 ? 2 : cudaSuccess;

@@ -58,6 +58,7 @@ def _rewrite(text: str) -> str:
         text = text[:start] + (
             "inline unsigned cluster_ctarank() { return emu::ctx.crank; }\n"
             "inline void cluster_arrive() { emu::cluster_token = emu::ctx.cluster_bar->arrive(); }\n"
+            "inline void cluster_arrive_relaxed() { cluster_arrive(); }\n"
             "inline void cluster_wait() { emu::ctx.cluster_bar->wait(std::move(*emu::cluster_token)); }\n"
             "inline void cluster_sync() { emu::ctx.cluster_bar->arrive_and_wait(); }\n"
             "template <typename T>\ninline T* cluster_map(T* p, unsigned rank) {\n"
@@ -342,9 +343,21 @@ def self_check() -> int:
     al = 0.1 + 0.8 * torch.rand(B, generator=g)
     be, ga = 0.3 * torch.rand(B, generator=g), 0.05 + 0.45 * torch.rand(B, generator=g)
     per = torch.tensor([1, 2, 3, 24, 31, 32, 33, 60, 200], dtype=torch.int32)[torch.arange(B) % 9]
-    for kind, params in ((1, (al,)), (2, (al, be)), (3, (al, be, ga, per))):
+    for kind, params in ((1, (al,)), (2, (al, be))):
         e = _err(kernels.smooth(kind, x, m, *params), fc.smooth_plain(kind, x, m, *params))
         expect(f"smooth {kind}", e == 0.0, f"max |err| {e:.3g} (same float32 steps)")
+    # Holt-Winters against the twin, with rings of the largest period and of
+    # T (the same bits); the last 40 steps masked on every row (the
+    # all-masked tiles' walk)
+    mt = m.clone()
+    mt[:, T - 40:] = False
+    for mm, what in ((m, ""), (mt, ", trailing gap")):
+        hw = kernels.smooth(3, x, mm, al, be, ga, per)
+        e = _err(hw, fc.smooth_plain(3, x, mm, al, be, ga, per))
+        expect(f"smooth 3{what}", e == 0.0, f"max |err| {e:.3g} (same float32 steps)")
+        longer = kernels.smooth(3, x, mm, al, be, ga, per, max_period=T)
+        expect(f"smooth 3{what}, rings of T", torch.equal(_bits(hw), _bits(longer)),
+               "bit for bit")
     for kind, params in ((1, (al,)), (2, (al, be))):
         twin = sq.ses_predictions_assoc_plain if kind == 1 else sq.des_predictions_assoc_plain
         e = _err(kernels.affine_scan(kind, x, m, *params), twin(x, m, *params))
@@ -392,14 +405,22 @@ def self_check() -> int:
         expect(f"triage_screen T={T}", e <= 1e-4,
                f"statistics |err| {e:.3g}, {bracketed} rows bracketed at a band edge")
     for T in (64, 300):
-        a = cs.adversarial_bivariate(48, T, g)
-        try:
-            e, bracketed = cs.compare_bivariate(a, kernels.bivariate(*a),
-                                                bv.bivariate_normal_anomalies_plain(*a))
-            expect(f"bivariate T={T}", True,
-                   f"bands |err| {e:.3g}, {bracketed} rows bracketed at the ellipse's edge")
-        except AssertionError as e:
-            expect(f"bivariate T={T}", False, str(e))
+        # the cta path, and clusters of two and (slices of a quarter row) of four
+        for path, slice_t in (("cta", kernels.BI_SLICE_T), ("cluster", kernels.BI_SLICE_T),
+                              ("cluster", -(-T // 4))):
+            a = cs.adversarial_bivariate(48, T, g)
+            saved_slice = kernels.BI_SLICE_T
+            kernels.BIVARIATE_FORCE, kernels.BI_SLICE_T = path, slice_t
+            name = f"bivariate T={T}, {kernels.bivariate_cluster(T, path)} CTA a row"
+            try:
+                e, bracketed = cs.compare_bivariate(a, kernels.bivariate(*a),
+                                                    bv.bivariate_normal_anomalies_plain(*a))
+                expect(name, True,
+                       f"bands |err| {e:.3g}, {bracketed} rows bracketed at the ellipse's edge")
+            except AssertionError as e:
+                expect(name, False, str(e))
+            finally:
+                kernels.BIVARIATE_FORCE, kernels.BI_SLICE_T = None, saved_slice
         a = cs.adversarial_hpa(48, T, g)
         for sigma in (True, False):
             for optional in (True, False):

@@ -136,6 +136,26 @@ the optional per-row cycle counts (`phase_clocks=`, phases
 kernels.PERIOD_PHASES and kernels.HPA_PHASES; checkouts that have them),
 then unstamped again, and the phase split is printed.
 
+--bivariate-hw times kernel H (`kernels.bivariate`) on the families
+phase's 100,000 rows at each bucket (chip_smoke.bivariate_family_inputs,
+2048 and 16384) and kernel C (`kernels.smooth`) on the seasonal phase's
+100,000 rows of bucket 16384: the Holt-Winters refit with each row's
+fitted parameters and period (forecast_band under holt_winters gives them,
+as chip_smoke.py's seasonal phase does), then SES (alpha 0.3) and DES
+(0.5, 0.1) on the history: each the median of 20 launches back to back,
+beside its bound. It prints a SHA-256 of every output and writes H's and
+C's outputs to DIR/bivariate_hw_<checkout>.pt for `--compare` (the (B,)
+outputs whole, each (B, T) output as a hash a row and its first 8 rows).
+In checkouts with kernel H's two paths (`kernels.BIVARIATE_PATHS`) it also
+times each path forced. It calls only
+entry points every checkout since kernels H and C's first has: run it from
+the parent's checkout and this one in one call (parent, change, change,
+parent). `--only bivariate` or `--only smooth` times one of the two. With
+--profile each shape is timed unstamped, then with the optional cycle
+counts (`phase_clocks=`, phases kernels.BI_PHASES a row
+and kernels.SMOOTH_HW_PHASES a group of 32 rows; checkouts that have
+them), then unstamped again, and the split is printed.
+
 --a-digest prints a SHA-256 of every output of kernel A (`score_pairs` on
 the card) on chip_smoke.py's adversarial pairs at each T of its kernel
 check and on the 100,000-pair pass: run from two checkouts in one call, equal
@@ -901,10 +921,165 @@ def period_hpa(out_dir, profile):
     return res
 
 
+def _row_hash(t):
+    """A 64-bit hash of each row's bytes (B, ...), on the card in chunks of
+    rows: rows with equal hashes hold equal bits (NaN payloads aside: the
+    card's NaN is canonical)."""
+    v = t.reshape(t.shape[0], -1)
+    v = v.to(torch.int32) if v.dtype == torch.bool else v.view(torch.int32)
+    g = torch.Generator(device=v.device).manual_seed(17)
+    w = torch.randint(1, 1 << 62, (v.shape[1],), generator=g, device=v.device)
+    out = torch.empty(v.shape[0], dtype=torch.int64, device=v.device)
+    for lo in range(0, v.shape[0], 4096):
+        out[lo:lo + 4096] = (v[lo:lo + 4096].long() * w).sum(1)
+    return out.cpu()
+
+
+def _kept(out, keys, rows):
+    """What --bivariate-hw writes for --compare: the (B,) outputs whole,
+    the (B, T) ones as row hashes and their first `rows` rows."""
+    kept = {}
+    for k in keys:
+        v = out[k]
+        if v.dim() == 1:
+            kept[k] = v.cpu()
+        else:
+            kept[k + " rows"] = _row_hash(v)
+            kept[k + " head"] = v[:rows].cpu()
+    return kept
+
+
+def _forced(knob, paths, run, what):
+    """Each path of a kernel that has a FORCE knob (this design's
+    checkouts), forced in turn: its time and digests."""
+    from foremast_tpu_torch import kernels
+
+    res = {}
+    for path in paths:
+        setattr(kernels, knob, path)
+        try:
+            ms = median_back_to_back_ms(run, cs.TIMED_RUNS)
+            out = run()
+            out = out if isinstance(out, dict) else {"preds": out}
+            res[path] = {"ms": ms, "sha256": {k: _digest(v) for k, v in sorted(out.items())}}
+            print(f"    {what}, {path} path forced: {ms:.3f} ms; sha256 {res[path]['sha256']}",
+                  flush=True)
+            del out
+        finally:
+            setattr(kernels, knob, None)
+    return res
+
+
+def bivariate_ab(profile, outs):
+    """Kernel H on the families phase's rows at each bucket: times, bound,
+    digests, the split, each path forced where the checkout has them."""
+    from foremast_tpu_torch import kernels
+
+    names = getattr(kernels, "BI_PHASES", None)
+    if not _takes_clocks(kernels.bivariate):
+        names = None
+    res = {}
+    for T, n_h in cs.FAMILY_SHAPES:
+        gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED + T)
+        args, _ = cs.bivariate_family_inputs(gen, T, n_h)
+        B = args[0].shape[0]
+
+        def run(**kw):
+            return kernels.bivariate(*args, **kw)
+
+        what = f"{B} x {T}"
+        r = stamped_split("bivariate", run, names, B, what, profile)
+        if hasattr(kernels, "bivariate_path"):
+            r["path"] = kernels.bivariate_path(T)
+            r["paths"] = _forced("BIVARIATE_FORCE", kernels.BIVARIATE_PATHS, run, what)
+        out = run()
+        r.update(cs.least_time(B * T * 16 + B * (20 + 28), 27.0 * B * T))
+        r["sha256"] = {k: _digest(v) for k, v in sorted(out.items())}
+        print(f"    bound {r['bound_ms']:.3f} ms ({r['bound_by']}); sha256 {r['sha256']}",
+              flush=True)
+        outs[f"bivariate T={T}"] = _kept(out, sorted(out), 8)
+        res[what] = r
+        del args, out
+        torch.cuda.empty_cache()
+    return res
+
+
+def smooth_ab(profile, outs):
+    """Kernel C on the seasonal phase's rows: the Holt-Winters refit with
+    each row's fitted parameters and period (forecast_band's), then SES and
+    DES at the seasonal phase's parameters: times, bounds, digests and the
+    refit's split."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    args, _, _ = cs.season_inputs(gen)
+    x, mask, region = args[:3]
+    B, T = x.shape
+    fit = fc.forecast_band(*args, algorithm="holt_winters", device=cs.DEV)
+    prm, period = fit["params"], fit["period"]
+    del fit
+    hist = (mask & ~region).contiguous()
+    del args, mask, region
+    refit = (x, hist, prm[:, 0].contiguous(), prm[:, 1].contiguous(), prm[:, 2].contiguous(),
+             period)
+    names = getattr(kernels, "SMOOTH_HW_PHASES", None)
+    if not _takes_clocks(kernels.smooth):
+        names = None
+
+    def run(**kw):
+        return kernels.smooth(kernels.SMOOTH_HW, *refit, max_period=1440, **kw)
+
+    what = f"Holt-Winters refit {B} x {T}"
+    r = stamped_split("smooth", run, names, (B + 31) // 32, what, profile)
+    preds = run()
+    walked = cs.season_bounds(B, T, 0, 1, 0)
+    r.update(walked["smooth_hw"])
+    r["sha256"] = {"preds": _digest(preds)}
+    r["periods"] = {str(int(p)): int(c) for p, c in zip(*torch.unique(period, return_counts=True))}
+    print(f"    bound {r['bound_ms']:.3f} ms ({r['bound_by']}, 9 B a slot); periods "
+          f"{r['periods']}; sha256 {r['sha256']}", flush=True)
+    outs["smooth hw"] = _kept({"preds": preds}, ["preds"], 8)
+    res = {"hw": r}
+    del preds
+    f32 = dict(dtype=torch.float32, device=cs.DEV)
+    al5, be1, al3 = (torch.full((B,), v, **f32) for v in (0.5, 0.1, 0.3))
+    for kind, name, params in ((kernels.SMOOTH_SES, "ses", (al3,)),
+                               (kernels.SMOOTH_DES, "des", (al5, be1))):
+        def run_k():
+            return kernels.smooth(kind, x, hist, *params)
+
+        q = {"ms": median_back_to_back_ms(run_k, cs.TIMED_RUNS)}
+        out = run_k()
+        q.update(walked["smooth"])
+        q["sha256"] = {"preds": _digest(out)}
+        print(f"  smooth {name} {B} x {T}: {q['ms']:.3f} ms (median of {cs.TIMED_RUNS}); bound "
+              f"{q['bound_ms']:.3f} ms; sha256 {q['sha256']}", flush=True)
+        outs[f"smooth {name}"] = _kept({"preds": out}, ["preds"], 8)
+        res[name] = q
+        del out
+    return res
+
+
+def bivariate_hw(out_dir, profile, only=None):
+    outs, res = {}, {}
+    if only in (None, "bivariate"):
+        res["bivariate"] = bivariate_ab(profile, outs)
+        torch.cuda.empty_cache()
+    if only in (None, "smooth"):
+        res["smooth"] = smooth_ab(profile, outs)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "bivariate_hw_%s.pt" % os.path.basename(os.getcwd()))
+    torch.save(outs, path)
+    res["written"] = path
+    return res
+
+
 def compare_outputs(a_path, b_path):
-    """The outputs of two --triage-hw (kernel G), --lstm-st (kernel J) or
-    --period-hpa (kernels F and I) runs, key by key: equal bit for bit,
-    else the largest relative difference and the rows that differ."""
+    """The outputs of two --triage-hw (kernel G), --lstm-st (kernel J),
+    --period-hpa (kernels F and I) or --bivariate-hw (kernels H and C) runs,
+    key by key: equal bit for bit, else the largest relative difference and
+    the rows that differ (for a row hash, the rows whose hashes differ)."""
     a, b = torch.load(a_path), torch.load(b_path)
     out = {}
     for shape in a:
@@ -946,9 +1121,14 @@ def main():
                    help="with --lstm-ae, also time each path that serves a shape")
     p.add_argument("--period-hpa", action="store_true",
                    help="time kernels F and I and print their outputs' digests instead")
+    p.add_argument("--bivariate-hw", action="store_true",
+                   help="time kernel H and kernel C (the Holt-Winters refit, SES, DES) and print "
+                        "their outputs' digests instead")
+    p.add_argument("--only", choices=("bivariate", "smooth"),
+                   help="with --bivariate-hw, time one of the two kernels")
     p.add_argument("--compare", nargs=2, metavar=("A", "B"),
-                   help="hold two --triage-hw, --lstm-st or --period-hpa output files against "
-                        "each other (CPU)")
+                   help="hold two --triage-hw, --lstm-st, --period-hpa or --bivariate-hw output "
+                        "files against each other (CPU)")
     p.add_argument("--a-digest", action="store_true",
                    help="print a digest of kernel A's outputs instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
@@ -976,6 +1156,11 @@ def main():
     if opt.period_hpa:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "period_hpa": period_hpa(opt.out, opt.profile)}), flush=True)
+        return
+    if opt.bivariate_hw:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "bivariate_hw": bivariate_hw(opt.out, opt.profile, opt.only)}),
+              flush=True)
         return
     if opt.lstm_ae:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

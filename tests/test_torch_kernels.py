@@ -4,13 +4,15 @@ These need a CUDA device and nvcc; without them they skip. Run them on the
 card with `python -m pytest --noconftest tests/test_torch_kernels.py`. The
 comparisons and their tolerances are chip_smoke.py's: p-values to 1e-5,
 booleans and counts exact except rows bracketed at a threshold or a band
-edge; the smoothers to 4 eps32 of a row's scale (the scans to the
+edge; the smoothers to 4 eps32 of a row's scale, and kernel C's two
+Holt-Winters paths to each other bit for bit (the scans to the
 reference's own 1e-5 / 1e-4); the fit's errors to 1e-9 and its choice
 exactly; period scores to 1e-6 and periods exactly except within 1e-5 of a
 margin; the triage screen's counts exact except rows bracketed at a band
 edge, its statistics to 1e-5 (1e-4 for the z scores) relative; kernel H's
-d2 to chip_smoke's bivariate_tolerance, its flags and counts exact but on
-rows bracketed at the ellipse's edge, its bands to 1e-5 relative plus the
+d2 to chip_smoke's bivariate_tolerance on each of its paths, its flags and
+counts exact but on rows bracketed at the ellipse's edge, its bands to 1e-5
+relative plus the
 statistics' float32 noise; kernel I's reason codes exact and scores to
 1e-3 but on rows bracketed at a decision edge, its means to 1e-5 relative,
 the demand to 1e-4; kernel J's preds to 1e-5 of a row's scale (1e-3 on
@@ -119,6 +121,58 @@ def test_smooth_matches_twin(card, T, kind):
     kern = kernels.smooth(kind, x, m & ~region, *params)
     assert kernels.launches["smooth"] == before + 1
     cs.compare_smooth(kind, x, m & ~region, params, kern)
+
+
+@pytest.mark.parametrize("cap", [None, 1440], ids=["periods", "periods-to-1440"])
+@pytest.mark.parametrize("T", [128, 1024, 4096, 16384])
+def test_smooth_hw_matches_twin_at_every_ring_length(card, T, cap):
+    """Kernel C's Holt-Winters kind at the rows' periods (up to T + 5) and
+    cut to 1440, against the twin, one launch each; rings longer than the
+    largest period (max_period = T) give the same bits."""
+    x, m, region, al, be, ga, period = _series(card, T, 96)[:7]
+    if cap is not None:
+        period = period.clamp(max=cap)
+    hist = m & ~region
+    args = (x, hist, al, be, ga, period)
+    before = kernels.launches["smooth"]
+    got = kernels.smooth(kernels.SMOOTH_HW, *args)
+    assert kernels.launches["smooth"] == before + 1
+    cs.compare_smooth(kernels.SMOOTH_HW, x, hist, args[2:], got)
+    longer = kernels.smooth(kernels.SMOOTH_HW, *args, max_period=T)
+    assert torch.equal(got.view(torch.int32), longer.view(torch.int32))
+
+
+def test_smooth_hw_on_the_seasonal_rows(card):
+    """The refit's inputs of the seasonal path (7 days of history in bucket
+    16384, periods 480 and 1440, the trailing padding masked): against the
+    twin, and with max_period given (1440) or read from the card, the same
+    bits."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    args, _, _ = cs.season_inputs(gen, rows=640, dev=card)
+    x, mask, region = args[:3]
+    B = x.shape[0]
+    g = torch.Generator(device=card).manual_seed(12)
+    al, be, ga = (torch.rand(B, generator=g, device=card) * s for s in (0.9, 0.3, 0.5))
+    period = torch.where(torch.arange(B, device=card) % 3 == 0, 480, 1440).to(torch.int32)
+    hist = mask & ~region
+    got = kernels.smooth(kernels.SMOOTH_HW, x, hist, al, be, ga, period, max_period=1440)
+    cs.compare_smooth(kernels.SMOOTH_HW, x, hist, (al, be, ga, period), got)
+    read = kernels.smooth(kernels.SMOOTH_HW, x, hist, al, be, ga, period)
+    assert torch.equal(got.view(torch.int32), read.view(torch.int32))
+
+
+def test_smooth_hw_phase_clocks(card):
+    """Kernel C's Holt-Winters cycle counts a group: every phase
+    non-negative (the stamps monotone), some cycles in every group, and the
+    stamped launch's predictions equal the unstamped ones."""
+    x, m, region, al, be, ga, period = _series(card, 4096, 100)[:7]
+    args = (x, m & ~region, al, be, ga, period.clamp(max=1440))
+    clocks = torch.full((4, len(kernels.SMOOTH_HW_PHASES)), -1, dtype=torch.int64, device=card)
+    plain = kernels.smooth(kernels.SMOOTH_HW, *args)
+    timed = kernels.smooth(kernels.SMOOTH_HW, *args, phase_clocks=clocks)
+    torch.cuda.synchronize()
+    assert torch.equal(plain.view(torch.int32), timed.view(torch.int32))
+    assert bool((clocks >= 0).all()) and bool((clocks.sum(1) > 0).all())
 
 
 @pytest.mark.parametrize("T", [128, 4096, 16384])
@@ -293,6 +347,60 @@ def test_bivariate_matches_twin(card, T, optional):
     plain = bv.bivariate_normal_anomalies_plain(*args)
     torch.cuda.synchronize()
     cs.compare_bivariate(args, rows, plain)
+
+
+@pytest.mark.parametrize("path", ["cta", "cluster"])
+@pytest.mark.parametrize("T", [128, 2048, 4096, 4100, 4112, 16384])
+def test_bivariate_paths_match_twin(card, T, path, monkeypatch):
+    """Kernel H on each path forced, across its boundary (4096: one CTA;
+    4112: a cluster of two; 4100, no multiple of 16: a slot at a time),
+    against the twin with the optional arguments given and left out."""
+    from foremast_tpu_torch.ops import bivariate as bv
+
+    monkeypatch.setattr(kernels, "BIVARIATE_FORCE", path)
+    gen = torch.Generator(device=card).manual_seed(T + 1)
+    args = cs.adversarial_bivariate(192 if T < 16384 else 96, T, gen)
+    for a in (args, args[:6]):
+        before = kernels.bivariate_path_launches[path]
+        kern = kernels.bivariate(*a)
+        assert kernels.bivariate_path_launches[path] == before + 1
+        cs.compare_bivariate(a, kern, bv.bivariate_normal_anomalies_plain(*a))
+
+
+def test_bivariate_takes_its_path_by_shape(card):
+    from foremast_tpu_torch.ops import bivariate as bv
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    for T, path in ((4096, "cta"), (4112, "cluster")):
+        args = cs.adversarial_bivariate(24, T, gen)
+        kernels.reset_launches()
+        bv.bivariate_normal_anomalies(*args)
+        assert kernels.bivariate_path_launches == {p: int(p == path) for p in
+                                                   kernels.BIVARIATE_PATHS}
+
+
+def test_bivariate_size_functions_mirror_the_library(card):
+    lib = kernels.build.library()
+    for T in (1, 15, 16, 100, 2048, 4095, 4096, 4097, 4112, 8192, 8193, 16384):
+        for cl in (1, 2, 3, 4, 8):
+            assert lib.fm_bivariate_smem_bytes(T, cl) == kernels.bivariate_smem_bytes(T, cl)
+
+
+@pytest.mark.parametrize("T", [2048, 16384])
+def test_bivariate_phase_clocks(card, T):
+    """Kernel H's cycle counts a row (rank 0's first thread on the cluster
+    path): every phase non-negative (the stamps monotone), some cycles in
+    every row, and the stamped launch's outputs equal the unstamped ones."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    args = cs.adversarial_bivariate(96, T, gen)
+    clocks = torch.full((96, len(kernels.BI_PHASES)), -1, dtype=torch.int64, device=card)
+    plain = kernels.bivariate(*args)
+    timed = kernels.bivariate(*args, phase_clocks=clocks)
+    torch.cuda.synchronize()
+    for k in plain:
+        nan = torch.isnan(plain[k].float()) & torch.isnan(timed[k].float())
+        assert torch.equal(plain[k][~nan], timed[k][~nan]), k
+    assert bool((clocks >= 0).all()) and bool((clocks.sum(1) > 0).all())
 
 
 @pytest.mark.parametrize("sigma", [True, False], ids=["sigma-given", "sigma-computed"])
