@@ -14,8 +14,13 @@ ends; any failure exits non-zero:
   3. kernels each kernel against its plain PyTorch twin on the card, on
              adversarial rows (ties, +-0, NaN, +inf, masked and all-masked
              slots, both KS and both Wilcoxon regimes): kernel A at
-             T in {16, 128, 1024, 4096, 8192, 16384} (the last two from
-             device scratch); kernel B at T in {128, 1024, 16384}; kernels
+             T in {16, 128, 1024, 4096, 8192, 16384} (a warp a pair up to
+             256, the last two from device scratch), and forced onto each
+             of its paths (warp, cta, scratch) at T in {16, 128, 256}, the
+             warp and scratch paths' outputs equal to the cta path's bit for
+             bit, after kernels.ks_division_check (the warp path's lattice
+             division equal to IEEE division on every float32 in [2^-100,
+             512] and divisor 1-512); kernel B at T in {128, 1024, 16384}; kernels
              C (SES, DES, Holt-Winters on each of its paths, shared and
              device, held equal bit for bit, at the rows' periods and cut to
              1440), D, E (SES, DES), F and B's
@@ -60,17 +65,23 @@ ends; any failure exits non-zero:
              and +-inf;
   4. pairs   the pair path at full size: 100,000 ErrorGenerator-style
              (baseline, canary) pairs at T = 128 through resample_to_grid ->
-             pack_windows -> score_pairs on the card; every bad canary
-             flagged, healthy false positives under 1%;
+             pack_windows -> score_pairs on the card (kernel A's warp path,
+             which its path counter shows); every bad canary flagged,
+             healthy false positives under 1%;
  4b. tests   the public test battery at the same width on those windows:
              all_pairwise_tests and each *_batch (kernel N), kruskal_batch
              at k = 3 (baseline, current, the previous row's current),
              friedman_batch over 128 blocks x those 3 windows and
              rank_and_ties at T = 256 (kernel O); every bad canary rejected
              at 0.01 by Mann-Whitney, Kruskal-Wallis and KS, each kernel
-             against its twin on 2,048 rows, times beside the twins;
+             against its twin on 2,048 rows, times beside the twins, kernel
+             N's four launches on its warp path (its path counter) and each
+             timed alone; then kernel N forced onto each of its paths at
+             T in {16, 128, 256}, stat and p of every test mask on the warp
+             and scratch paths equal to the cta path's bit for bit;
  4c. fleet   make_fleet_scorer at B = 100,000, T = 128, k = 8 in a world of
-             one process over NCCL (kernel A, then kernel P, all_gathers
+             one process over NCCL (kernel A on its warp path, then kernel
+             P, all_gathers
              of the counts and candidates, kernel P again): per-pair
              outputs equal to score_pairs', total and top-k equal to kernel
              P's twin, the tie order and the -inf tail on built batches,
@@ -387,6 +398,51 @@ def kernel_a_vs_twin(rng):
         print(f"  pair_verdict T={T}: max |dp| = {err:.3g} (tol {P_ATOL}), "
               f"{bracketed} of {B} rows bracketed, {stephens} in the Stephens regime"
               + scratch, flush=True)
+    return max(worst, pair_verdict_paths(rng))
+
+
+PAIR_PATH_T = (16, 128, 256)  # kernels A and N's three paths forced at each
+
+
+def same_bits(a, b):
+    """Equal bit for bit (float32 compared as its bits)."""
+    view = (lambda t: t.view(torch.int32)) if a.dtype == torch.float32 else (lambda t: t)
+    return a.dtype == b.dtype and torch.equal(view(a), view(b))
+
+
+def pair_verdict_paths(rng):
+    """Kernel A forced onto each of its paths at PAIR_PATH_T (all three
+    serve these windows), on CHECK_ROWS - 1 adversarial rows (the warp
+    path's last CTA part full): each against the twin, and every output of
+    the warp and scratch paths equal to the cta path's bit for bit. First
+    the premise of the warp path's KS lattice: its division by a shared
+    reciprocal equals IEEE division wherever it is used."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    t0 = time.perf_counter()
+    div = kernels.ks_division_check()
+    check(div["above"] == 0, f"the warp path's KS division differs from IEEE division: {div}")
+    print(f"  the warp path's KS division (a reciprocal, one correction) against IEEE a / d "
+          f"for every float32 a in [0, 512], d in 1-512: {div['above']} differ at a >= 2^-100 "
+          f"(where it is used), {div['below']} below (largest {div['largest']:.3g}), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    worst = 0.0
+    for T in PAIR_PATH_T:
+        t = fl.pair_args_from_numpy(adversarial_pairs(CHECK_ROWS - 1, T, rng), DEV)
+        kw = dict(wilcoxon_table=fl.wilcoxon_pmf_table(DEV), ks_exact_max=fl.KS_EXACT_MAX_T,
+                  wilcoxon_exact_max_n=fl.WILCOXON_EXACT_MAX_N)
+        out = {path: kernels.pair_verdict(*t, **kw, path=path) for path in kernels.PAIR_PATHS}
+        plain = fl.pair_verdict_plain(*t)
+        torch.cuda.synchronize()
+        for path in kernels.PAIR_PATHS:
+            worst = max(worst, compare_pair_verdict(t, out[path], plain)[0])
+            for key, v in out["cta"].items():
+                check(same_bits(out[path][key], v),
+                      f"pair_verdict T={T}: the {path} path's {key} differs from the cta path's")
+        print(f"  pair_verdict T={T}, each path forced ({', '.join(kernels.PAIR_PATHS)}) on "
+              f"{CHECK_ROWS - 1} rows: each within the twin's tolerance, all 7 outputs equal to "
+              f"the cta path's bit for bit", flush=True)
     return worst
 
 
@@ -1810,8 +1866,10 @@ def adversarial_tests(B, T, rng):
     """Kernel N's (x, x_mask, y, y_mask) as numpy: adversarial_pairs' eight
     kinds (ties with +-0, NaN and +inf, sparse rows in the exact KS and
     Wilcoxon regimes, all-masked sides, shifted, constant), then every
-    tenth row with one valid point a side and every tenth + 4 all tied
-    across both sides."""
+    tenth row with one valid point a side, every tenth + 4 all tied across
+    both sides, and every tenth + 7 the two samples interleaved in runs of
+    two (a KS band of one or two cells a diagonal, whose lattice values
+    fall through the subnormal range)."""
     x, xm, y, ym = adversarial_pairs(B, T, rng)[:4]
     r = np.arange(B)
     one = r % 10 == 9
@@ -1819,6 +1877,10 @@ def adversarial_tests(B, T, rng):
     xm[one, 0], ym[one, T // 2] = True, True
     tied = r % 10 == 4
     x[tied], y[tied] = np.float32(3.5), np.float32(3.5)
+    runs = r % 10 == 7
+    slot = np.arange(T)
+    x[runs], y[runs] = 4 * (slot // 2) + slot % 2, 4 * (slot // 2) + slot % 2 + 2
+    xm[runs], ym[runs] = True, True
     return x, xm, y, ym
 
 
@@ -2099,7 +2161,10 @@ def pair_path(rng):
     out = fl.score_pairs(*args, device=DEV)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
+    paths = dict(kernels.pair_path_launches)
     check(launches["pair_verdict"] >= 1, "the pair path did not launch pair_verdict")
+    check(paths["warp"] == launches["pair_verdict"],
+          f"the pair path at T = {PAIR_T} ran pair_verdict's paths {paths}, not the warp path")
     unhealthy = out["unhealthy"].cpu().numpy()
     check(out["pvalues"].shape == (PAIRS, 5) and bool(torch.isfinite(out["pvalues"]).all()),
           "pair path p-values not finite")
@@ -2108,7 +2173,8 @@ def pair_path(rng):
     check(recall == 1.0, f"only {recall:.4f} of bad canaries flagged")
     check(fp < 0.01, f"healthy false-positive share {fp:.4f} >= 0.01")
     print(f"  verdicts: recall {recall:.4f} on {int(bad.sum())} bad canaries, healthy "
-          f"false positives {fp:.5f} (limit 0.01); launches {launches}", flush=True)
+          f"false positives {fp:.5f} (limit 0.01); launches {launches}; pair_verdict by path "
+          f"{paths}", flush=True)
 
     t = fl.pair_args_from_numpy(args, DEV)
     sub = tuple(a[:CHECK_ROWS] for a in t)
@@ -2127,7 +2193,7 @@ def pair_path(rng):
           f"(pair_args_from_numpy), median {np.median(copy):.3f} ms", flush=True)
     print(f"  pair_verdict kernel on device tensors: {ms:.3f} ms "
           f"({PAIRS / ms * 1e3:.0f} pairs/s); plain twin {plain_ms:.1f} ms", flush=True)
-    return ({"launches": launches["pair_verdict"], "max_abs_err": err, "ms": ms,
+    return ({"launches": launches["pair_verdict"], "paths": paths, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, **pair_bound(args)}, args, bad)
 
 
@@ -2245,8 +2311,11 @@ def tests_path(pair_args, bad):
     out = battery()
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
+    paths = dict(kernels.pair_tests_path_launches)
     for name in ("pair_tests", "rank_and_ties", "kruskal_groups", "friedman"):
         check(launches[name] >= 1, f"the tests phase did not launch {name}")
+    check(paths["warp"] == launches["pair_tests"],
+          f"the battery at T = {T} ran pair_tests' paths {paths}, not the warp path")
     for name, (st, p) in list(out["all"].items()) + [(k, out[k]) for k in (
             "mann_whitney", "wilcoxon", "ks", "kruskal", "friedman")]:
         check(st.shape == (B,) and p.shape == (B,) and bool(torch.isfinite(st).all())
@@ -2287,9 +2356,18 @@ def tests_path(pair_args, bad):
         "friedman": (err_f, cuda_ms(lambda: pw.friedman_batch(*fr, device=DEV), TIMED_RUNS),
                      cuda_ms(lambda: pw.friedman_plain(*fr), 3)),
     }
+    # each of kernel N's four battery launches alone
+    battery_ms = {name: cuda_ms(lambda: fn(*pairs, device=DEV), TIMED_RUNS)
+                  for name, fn in (("all_pairwise_tests", pw.all_pairwise_tests),
+                                   ("mann_whitney_u_batch", pw.mann_whitney_u_batch),
+                                   ("wilcoxon_batch", pw.wilcoxon_batch),
+                                   ("ks_2samp_batch", pw.ks_2samp_batch))}
     print(f"  {B} pairs at T = {T}: all_pairwise_tests, the three *_batch, kruskal_batch "
           f"(k = 3), friedman_batch ({FRIEDMAN_N} blocks x 3), rank_and_ties (T = {RANK_T}); "
-          f"bad canaries rejected at 0.01: {recall}; launches {launches}", flush=True)
+          f"bad canaries rejected at 0.01: {recall}; launches {launches}; pair_tests by path "
+          f"{paths}", flush=True)
+    print(f"  pair_tests, each battery launch (ms): "
+          f"{ {k: round(v, 4) for k, v in battery_ms.items()} }", flush=True)
     result = {}
     for name, (err, ms, plain_ms) in rows.items():
         result[name] = {"launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -2297,7 +2375,40 @@ def tests_path(pair_args, bad):
         print(f"  {name}: kernel {ms:.3f} ms, plain twin {plain_ms:.1f} ms, bound "
               f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}), max |err| "
               f"against the twin on {c} rows {err:.3g}, launches {launches[name]}", flush=True)
+    result["pair_tests"].update(paths=paths, battery_ms=battery_ms)
+    pair_tests_paths()
     return result
+
+
+def pair_tests_paths():
+    """Kernel N forced onto each of its paths at PAIR_PATH_T on CHECK_ROWS -
+    1 adversarial rows: the five tests against the twins, and stat and p of
+    every test mask (1-31) on the warp and scratch paths equal to the cta
+    path's bit for bit."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    kw = dict(wilcoxon_table=pw.wilcoxon_pmf_table(DEV), ks_exact_max=pw.KS_EXACT_MAX_T,
+              wilcoxon_exact_max_n=pw.WILCOXON_EXACT_MAX_N)
+    for T in PAIR_PATH_T:
+        n = [torch.from_numpy(a).to(DEV)
+             for a in adversarial_tests(CHECK_ROWS - 1, T, np.random.default_rng(SEED + T))]
+        plain = pw.two_sample_tests_plain(*n)
+        plain["sign"] = pw.sign_test_exact_plain(n[0], n[2], n[1] & n[3])
+        err = 0.0
+        for path in kernels.PAIR_PATHS:
+            err = max(err, compare_pair_tests(kernels.pair_tests(*n, 31, **kw, path=path), plain,
+                                              pw.TWO_SAMPLE_TESTS + ("sign",)))
+        for mask in range(1, 1 << len(kernels.PAIR_TEST_BITS)):
+            cta = kernels.pair_tests(*n, mask, **kw, path="cta")
+            for path in ("warp", "scratch"):
+                got = kernels.pair_tests(*n, mask, **kw, path=path)
+                check(same_bits(got[0], cta[0]) and same_bits(got[1], cta[1]),
+                      f"pair_tests T={T} mask {mask}: the {path} path differs from the cta path")
+        torch.cuda.synchronize()
+        print(f"  pair_tests T={T}, each path forced on {CHECK_ROWS - 1} rows: max |dp| "
+              f"{err:.3g} against the twins; stat and p of masks 1-31 on the warp and scratch "
+              f"paths equal to the cta path's bit for bit", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2334,8 +2445,11 @@ def fleet_path(pair_args):
         out, total, top_v, top_idx = run(*t[:4], cfg)
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
+        paths = dict(kernels.pair_path_launches)
         for name in ("pair_verdict", "fleet_topk"):
             check(launches[name] >= 1, f"make_fleet_scorer did not launch {name}")
+        check(paths["warp"] == launches["pair_verdict"],
+              f"make_fleet_scorer at T = {PAIR_T} ran pair_verdict's paths {paths}")
         ref = fl.score_pairs(*t, device=DEV)
         for key, v in ref.items():
             check(torch.equal(out[key], v), f"make_fleet_scorer's {key} differs from score_pairs'")
@@ -2374,7 +2488,7 @@ def fleet_path(pair_args):
         med = float(np.median(e2e))
         print(f"  make_fleet_scorer, {B} pairs at T = {PAIR_T}, k = {FLEET_K}, a world of one "
               f"over {dist.get_backend()}: total {total}, top_idx {top_idx.tolist()}; "
-              f"launches {launches}", flush=True)
+              f"launches {launches}; pair_verdict by path {paths}", flush=True)
         print(f"  make_fleet_scorer wall, {TIMED_RUNS} runs: median {med:.3f} ms, p99 "
               f"{np.percentile(e2e, 99):.3f} ms", flush=True)
         print(f"  canary_pairs_scored_per_sec_per_chip: {B / med * 1e3:.0f}", flush=True)
@@ -4453,9 +4567,10 @@ def main() -> int:
         r.setdefault("library_ms", None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # kernel K's row also gives each path's run on the main path; kernel
-    # H's its time at T = 16384
-    extra = ("paths", "path", "T", "t16384")
+    # kernel K's row also gives each path's run on the main path, and so do
+    # kernels A and N's; kernel H's its time at T = 16384; kernel N's the
+    # time of each of its four battery launches
+    extra = ("paths", "path", "T", "t16384", "battery_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(e for e in extra if e in r)}
                                   for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

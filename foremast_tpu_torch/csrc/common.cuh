@@ -5,8 +5,10 @@
 // device memory), a bitonic sort of 64-bit keys, the rank-key encoding and
 // the causal moving average (ma_predict), which pair_verdict.cu and
 // ma_band.cu both use so that their moving-average semantics cannot drift
-// apart. The warp-level helpers at the end (shuffle reductions, cp.async
-// copies) serve the kernels that run a warp per row group (smoothers.cu).
+// apart. The warp-level helpers at the end (shuffle reductions and scans,
+// a register bitonic sort, a warp standing in for a block of 128 threads,
+// cp.async copies) serve the kernels that run a warp per row or row group
+// (smoothers.cu; kernels A and N's warp path).
 #pragma once
 
 #include <cstdint>
@@ -348,11 +350,209 @@ __device__ inline float ma_prefix(const float* x, const uint8_t* hist_a, const u
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Every lane passes a value and gets the warp's total (xor butterfly).
+// Every lane's float total has the bits lane 0 of block_reduce's
+// shfl_down tree gets: lane 0 adds the same pairs, and at each level the
+// lanes of a group add the same two halves in either order.
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullWarp, v, o);
   return v;
+}
+
+template <typename T, typename Op>
+__device__ __forceinline__ T warp_reduce(T v, Op op) {
+#pragma unroll 1
+  for (int s = 4; s >= 0; --s) v = op(v, __shfl_xor_sync(kFullWarp, v, 1 << s));
+  return v;
+}
+
+// warp_sum as a loop of one body: the same additions, less code where it
+// is called many times.
+template <typename T>
+__device__ __forceinline__ T warp_sum_rolled(T v) {
+#pragma unroll 1
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullWarp, v, o);
+  return v;
+}
+
+// Inclusive scan over the lanes (Hillis-Steele by shfl_up).
+template <typename T, typename Op>
+__device__ __forceinline__ T warp_scan(T v, Op op) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int s = 0; s < 5; ++s) {
+    const T u = __shfl_up_sync(kFullWarp, v, 1 << s);
+    if (lane >= (1 << s)) v = op(v, u);
+  }
+  return v;
+}
+
+// p[q] = v for a q known only at run time, by selects: p stays in
+// registers, and a loop over q need not be unrolled.
+template <typename T>
+__device__ __forceinline__ void put4(T (&p)[4], int q, T v) {
+  p[0] = q == 0 ? v : p[0];
+  p[1] = q == 1 ? v : p[1];
+  p[2] = q == 2 ? v : p[2];
+  p[3] = q == 3 ? v : p[3];
+}
+
+// One warp standing in for a block of 128 threads (kernels A and N at
+// T <= 256): virtual thread v = lane + 32 q, q < 4, is lane `lane`'s q-th.
+//
+// block_sum's total of the virtual threads' values p[q]: each virtual
+// warp's shfl_down tree (warp_sum gives its bits), then the four totals
+// added in warp order. p[q] for q >= live must be +0.0, whose trees are
+// skipped (a tree of zeros is +0.0).
+template <typename T>
+__device__ __forceinline__ T block128_sum(T (&p)[4], int live) {
+  T w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) w[q] = q < live ? warp_sum_rolled(p[q]) : T(0);
+  return ((w[0] + w[1]) + w[2]) + w[3];
+}
+
+// block_scan(a, n, Add<T>(), 0, s) as a block of 128 threads computes it,
+// in place on a[0, n) in the warp's shared memory: virtual thread v scans
+// its chunk [v per, v per + per), per = ceil(n / 128), from 0; a
+// Hillis-Steele scan over the 128 chunk totals, each step from the last
+// step's values (adding 0 below the offset, as the block does); each chunk
+// then adds the total before it. The same additions in the same order, so
+// the same bits. Called by the whole warp after a[] is written; ends with
+// __syncwarp.
+template <typename T>
+__device__ void block128_scan(T* a, int n) {
+  const int lane = threadIdx.x & 31, per = (n + 127) / 128;
+  T tot[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int beg = min((lane + 32 * q) * per, n), end = min(beg + per, n);
+    T acc = T(0);
+    for (int i = beg; i < end; ++i) {
+      acc = acc + a[i];
+      a[i] = acc;
+    }
+    tot[q] = acc;
+  }
+  // offsets 1-16: from lane - off of the same q, or of q - 1 below the offset
+#pragma unroll 1
+  for (int s = 0; s < 5; ++s) {
+    const int off = 1 << s;
+    T r[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) r[q] = __shfl_sync(kFullWarp, tot[q], (lane - off) & 31);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) tot[q] = tot[q] + (lane >= off ? r[q] : q > 0 ? r[q - 1] : T(0));
+  }
+  // offsets 32 and 64: the same lane, q - 1 and q - 2 (q descending: old values)
+  tot[3] = tot[3] + tot[2];
+  tot[2] = tot[2] + tot[1];
+  tot[1] = tot[1] + tot[0];
+  tot[0] = tot[0] + T(0);
+  tot[3] = tot[3] + tot[1];
+  tot[2] = tot[2] + tot[0];
+  tot[1] = tot[1] + T(0);
+  tot[0] = tot[0] + T(0);
+  T r[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) r[q] = __shfl_sync(kFullWarp, tot[q], (lane - 1) & 31);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const T pre = lane >= 1 ? r[q] : q > 0 ? r[q - 1] : T(0);
+    const int beg = min((lane + 32 * q) * per, n), end = min(beg + per, n);
+    for (int i = beg; i < end; ++i) a[i] = pre + a[i];
+  }
+  __syncwarp();
+}
+
+// ma_prefix(x, hist, nullptr, n, S, C, s) by one warp standing in for a
+// block of 128 threads, from the history in registers (slot lane + 32 r in
+// x[r], bit r of hist where it is history, n <= 32 R): the same S bit for
+// bit (block128_scan), the same C and the same first history value
+// (read from xg, the history in device memory). S and C are the warp's own
+// shared memory.
+template <int R>
+__device__ inline float warp_ma_prefix(const float (&x)[R], unsigned hist, const float* xg,
+                                       int n, double* S, int* C) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    if (i < n) {
+      const bool h = hist >> r & 1u;
+      S[i + 1] = h ? double(x[r]) : 0.0;
+      C[i + 1] = h ? 1 : 0;
+    }
+  }
+  if (lane == 0) {
+    S[0] = 0.0;
+    C[0] = 0;
+  }
+  __syncwarp();
+  block128_scan(S + 1, n);
+  block128_scan(C + 1, n);
+  if (C[n] == 0) return 0.0f;
+  int a = 0, b = n;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (C[mid] >= 1) b = mid; else a = mid + 1;
+  }
+  return xg[a - 1];
+}
+
+// One in-lane compare-exchange of a bitonic step: keys a (the lower
+// position) and b, ascending where up.
+__device__ __forceinline__ void bitonic_ce(uint64_t& a, uint64_t& b, bool up) {
+  const uint64_t x = a, y = b;
+  const bool sw = (x > y) == up;
+  a = sw ? y : x;
+  b = sw ? x : y;
+}
+
+// Ascending bitonic sort of a warp's 32 M 64-bit keys in registers: key r
+// of lane l sits at network position l M + r, so compare-exchanges at a
+// stride below M stay in the lane and those at M and above pair lanes by
+// shfl_xor. M is a power of two. The runs up to M are sorted in the lane,
+// every index a constant; each longer run then takes its cross-lane strides
+// in a loop over one body and its in-lane strides unrolled, so the code
+// stays short (a kernel's warps run different parts of it at once) and k
+// stays in registers. The sorted keys end in the same order of positions.
+template <int M>
+__device__ __forceinline__ void warp_bitonic_sort(uint64_t (&k)[M]) {
+  constexpr int kLogM = M >= 16 ? 4 : M >= 8 ? 3 : M >= 4 ? 2 : M >= 2 ? 1 : 0;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ls = 1; ls <= kLogM; ++ls) {
+#pragma unroll
+    for (int lj = ls - 1; lj >= 0; --lj) {
+#pragma unroll
+      for (int r = 0; r < M; ++r)
+        if ((r & (1 << lj)) == 0)
+          bitonic_ce(k[r], k[r | (1 << lj)], ((lane * M + r) & (1 << ls)) == 0);
+    }
+  }
+#pragma unroll 1
+  for (int size = 2 * M; size <= 32 * M; size <<= 1) {
+    const bool up = ((lane * M) & size) == 0;  // r < M never reaches size's bit
+#pragma unroll 1
+    for (int lm = size / (2 * M); lm >= 1; lm >>= 1) {
+      // the partner lane is lane ^ lm; the lower position keeps the smaller
+      // key in an ascending run
+      const bool keep_min = ((lane & lm) == 0) == up;
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        const uint64_t o = __shfl_xor_sync(kFullWarp, k[r], lm);
+        k[r] = (keep_min ? o < k[r] : o > k[r]) ? o : k[r];
+      }
+    }
+#pragma unroll
+    for (int lj = kLogM - 1; lj >= 0; --lj) {
+#pragma unroll
+      for (int r = 0; r < M; ++r)
+        if ((r & (1 << lj)) == 0) bitonic_ce(k[r], k[r | (1 << lj)], up);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Launchers of the port's hand-written CUDA kernels.
 
 - Kernel A, `pair_verdict` (``csrc/pair_verdict.cu``), judges B canary
-  pairs in one launch.
+  pairs in one launch, on the path `pair_path` picks by T: a warp a pair
+  (T <= WARP_PAIR_T), a CTA a pair, or a CTA a pair from device scratch.
 - Kernel B (``csrc/ma_band.cu``) runs the band chain for B rows: `ma_band`
   under moving_average_all, `band_from_preds` from given predictions.
 - Kernel C, `smooth` (``csrc/smoothers.cu``), runs SES, DES or additive
@@ -37,7 +38,7 @@
 - Kernel N, `pair_tests` (``csrc/pair_tests.cu``), runs the public
   two-sample test battery (Mann-Whitney, two-group Kruskal-Wallis,
   Wilcoxon, KS) and the exact sign test on B window pairs, on kernel A's
-  device code (``csrc/pair_common.cuh``).
+  device code (``csrc/pair_common.cuh``) and its paths.
 - Kernel O (``csrc/rank_groups.cu``): `rank_and_ties` ranks B masked rows,
   `kruskal_groups` gives the Kruskal-Wallis H of B sets of k groups and
   `friedman` the Friedman chi-square of B (n blocks x k treatments) tables.
@@ -49,8 +50,10 @@ outputs (and the scratch a kernel needs), launches on PyTorch's current
 stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch (`lstm_train_backward` launches kernel
 L's two backward entries, counted as `lstm_train_recurrence` and
-`lstm_train_wgrad`; `lstm_ae` also counts by path, in
-`lstm_ae_path_launches`).
+`lstm_train_wgrad`; `lstm_ae`, `bivariate`, `pair_verdict` and
+`pair_tests` also count by path, in `lstm_ae_path_launches`,
+`bivariate_path_launches`, `pair_path_launches` and
+`pair_tests_path_launches`).
 They take CUDA tensors only; the entry points
 (``parallel.fleet.score_pairs``, ``ops.forecast``, ``ops.seqscan``,
 ``ops.triage``, ``ops.bivariate``, ``ops.hpa``, ``ops.pairwise``,
@@ -76,20 +79,28 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "LSTM_AE_PATHS", "LSTM_AE_SMEM_BYTES", "bivariate_path", "bivariate_cluster",
            "bivariate_slice", "bivariate_smem_bytes", "bivariate_path_launches",
            "BIVARIATE_PATHS", "BI_SLICE_T", "BI_MAX_CLUSTER", "CTA_SMEM_BYTES", "smooth_hw_warps",
+           "pair_path", "pair_warp_grid", "pair_path_launches", "pair_tests_path_launches",
+           "PAIR_PATHS", "WARP_PAIR_T", "PAIR_WARPS", "TESTS_PHASES",
            "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
            "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
-           "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check",
+           "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check", "ks_division_check",
            "PAIR_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES", "ST_FIT_PHASES",
            "PERIOD_PHASES", "HPA_PHASES", "BI_PHASES", "SMOOTH_HW_PHASES",
            "LSTM_FORWARD_PHASES", "LSTM_AE_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
-# kernel A: up to this T a pair's 2T sort entries (16 B each) live in
-# shared memory; above it, in device scratch
+# kernels A and N run one of three paths (pair_path): up to WARP_PAIR_T a
+# warp a pair, PAIR_WARPS pairs a CTA, the 2T rank keys in registers; up to
+# SHARED_PAIR_T a CTA a pair, its 2T sort entries (16 B each) in shared
+# memory; above it a CTA a pair from device scratch. All three give the same
+# bits. A launcher's path= forces one where it serves T (tests, timing).
+WARP_PAIR_T = 256
 SHARED_PAIR_T = 4096
 MAX_PAIR_T = 16384  # MAX_WINDOW_STEPS
+PAIR_PATHS = ("warp", "cta", "scratch")
+PAIR_WARPS = 4  # the warp path's pairs a CTA (fm_pair_warps)
 # kernel B keeps 12 B of prefix sums per slot: MAX_WINDOW_STEPS
 MAX_BAND_T = 16384
 # kernel G keeps 12 B a slot (x and the prefix sums) and bit words in shared
@@ -206,14 +217,19 @@ SMOOTH_HW_PHASES = ("level0", "stage", "ring", "walk", "store")
 LSTM_FORWARD_PHASES = ("stage", "encoder", "latent", "decoder", "sums")
 LSTM_AE_PHASES = LSTM_FORWARD_PHASES  # kernel K's split is its forward's
 
-# kernel A's phases, in order, as its optional clock stamps split it
+# kernel A's phases, in order, as its optional clock stamps split it; kernel
+# N's (its warp path's stamps), A's without the gates and band
 PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans",
                "mw_kw_ks", "exact_tails", "gates_band")
+TESTS_PHASES = PAIR_PHASES[:-1]
 
 # kernel K's launches by path (each also counts in launches["lstm_ae"]);
 # kernel H's likewise
 lstm_ae_path_launches = {"warp": 0, "cluster": 0, "wide": 0}
 bivariate_path_launches = {"cta": 0, "cluster": 0}
+# kernels A and N's launches by path (each also counts in launches)
+pair_path_launches = {path: 0 for path in PAIR_PATHS}
+pair_tests_path_launches = {path: 0 for path in PAIR_PATHS}
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
@@ -225,7 +241,8 @@ launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-    for counts in (lstm_ae_path_launches, bivariate_path_launches):
+    for counts in (lstm_ae_path_launches, bivariate_path_launches, pair_path_launches,
+                   pair_tests_path_launches):
         for k in counts:
             counts[k] = 0
 
@@ -252,14 +269,63 @@ def _raise_on(rc: int, kernel: str, lib) -> None:
         raise RuntimeError(f"{kernel} launch failed: {lib.fm_error_string(rc).decode()}")
 
 
+def pair_path(T: int) -> str:
+    """Kernels A and N's path for windows of T slots."""
+    if T <= WARP_PAIR_T:
+        return "warp"
+    return "cta" if T <= SHARED_PAIR_T else "scratch"
+
+
+def pair_warp_grid(B: int) -> int:
+    """CTAs of the warp path for B pairs: a warp a pair, PAIR_WARPS a CTA."""
+    return -(-B // PAIR_WARPS)
+
+
+def _pair_launch_path(T: int, path, kernel: str) -> str:
+    """The path a launch of kernel A or N takes: pair_path's, or the one
+    forced, which must serve T."""
+    if path is None:
+        return pair_path(T)
+    if path not in PAIR_PATHS:
+        raise ValueError(f"{kernel} has the paths {PAIR_PATHS}; got {path!r}")
+    if path == "warp" and T > WARP_PAIR_T:
+        raise ValueError(f"{kernel}'s warp path serves T <= WARP_PAIR_T = {WARP_PAIR_T}; "
+                         f"got T = {T}")
+    if path == "cta" and T > SHARED_PAIR_T:
+        raise ValueError(f"{kernel}'s cta path serves T <= SHARED_PAIR_T = {SHARED_PAIR_T}; "
+                         f"got T = {T}")
+    return path
+
+
+_LGAMMA_TABLES = {}
+
+
+def _lgamma_table(lib, dev) -> torch.Tensor:
+    """lgamma(m) for m below the library's table size (float64, on dev),
+    built by the library's own lgamma once a process a card (and waited
+    for, so that launches on any stream may read it): the warp path's sign
+    test reads its terms from it."""
+    table = _LGAMMA_TABLES.get(dev)
+    if table is None:
+        table = torch.empty(lib.fm_lgamma_table_size(), dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            rc = lib.fm_lgamma_table(_ptr(table), ctypes.c_void_p(stream.cuda_stream))
+            _raise_on(rc, "lgamma_table", lib)
+            stream.synchronize()
+        _LGAMMA_TABLES[dev] = table
+    return table
+
+
 def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
                  combine, ma_window, band_threshold, bound_mode, min_lower_bound,
                  min_points, *, wilcoxon_table, ks_exact_max: int,
-                 wilcoxon_exact_max_n: int, phase_clocks=None):
+                 wilcoxon_exact_max_n: int, phase_clocks=None, path=None):
     """Launch kernel A on score_pairs' 12 tensors; returns its 7 outputs.
 
     phase_clocks, an int64 (B, len(PAIR_PHASES) + 1) tensor, receives each
-    pair's SM clock at the start and after each phase of PAIR_PHASES.
+    pair's SM clock at the start and after each phase of PAIR_PHASES. path
+    forces one of PAIR_PATHS (ValueError where it does not serve T).
     """
     B, T = baseline.shape
     dev = baseline.device
@@ -267,6 +333,7 @@ def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
         raise ValueError(
             f"pair_verdict supports 1 <= T <= {MAX_PAIR_T} (the largest window "
             f"bucket); got T = {T}")
+    path = _pair_launch_path(T, path, "pair_verdict")
     mpw = min_points.shape[-1] if min_points.dim() == 2 else 0
     if mpw not in (3, 4):
         raise ValueError(f"min_points must be (B, 3) or (B, 4), got {tuple(min_points.shape)}")
@@ -301,26 +368,29 @@ def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
         return out
     lib = build.library()
     scratch, stride, grid = None, 0, B
-    if T > SHARED_PAIR_T:
+    if path == "scratch":
         # one slot of device scratch per CTA; the CTAs walk pairs grid-stride
         stride = lib.fm_pair_verdict_scratch_stride(T)
         grid = max(1, min(B, SCRATCH_BYTES // stride))
         scratch = torch.empty(grid * stride, dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_pair_verdict(
-            _ptr(baseline), _ptr(b_mask), _ptr(current), _ptr(c_mask),
+    args = (_ptr(baseline), _ptr(b_mask), _ptr(current), _ptr(c_mask),
             _ptr(pvalue_threshold), _ptr(test_mask), _ptr(combine), _ptr(ma_window),
             _ptr(band_threshold), _ptr(bound_mode), _ptr(min_lower_bound),
             _ptr(min_points), mpw, _ptr(wilcoxon_table), wilcoxon_exact_max_n,
             ks_exact_max, B, T,
             _ptr(out["unhealthy"]), _ptr(out["severity"]), _ptr(out["pvalues"]),
             _ptr(out["band_count"]), _ptr(out["min_p"]),
-            _ptr(out["pairwise_unhealthy"]), _ptr(out["band_unhealthy"]),
-            None if phase_clocks is None else _ptr(phase_clocks),
-            None if scratch is None else _ptr(scratch), stride, grid, ctypes.c_void_p(stream))
+            _ptr(out["pairwise_unhealthy"]), _ptr(out["band_unhealthy"]), _opt(phase_clocks))
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if path == "warp":
+            rc = lib.fm_pair_verdict_warp(*args, _ptr(_lgamma_table(lib, dev)),
+                                          pair_warp_grid(B), stream)
+        else:
+            rc = lib.fm_pair_verdict(*args, _opt(scratch), stride, grid, stream)
     _raise_on(rc, "pair_verdict", lib)
     launches["pair_verdict"] += 1
+    pair_path_launches[path] += 1
     return out
 
 
@@ -839,6 +909,26 @@ def st_sincos_check(device="cuda") -> int:
     return int(out.item())
 
 
+def ks_division_check(device="cuda") -> dict:
+    """Every float32 a in [0, 512] against every integer d in [1, 512]:
+    where the warp path's KS lattice division (a times the correctly
+    rounded 1 / d, corrected once by the exact remainder) differs in its
+    bits from IEEE a / d. `above`, the count at a >= 2^-100, must be 0 for
+    the warp path's lattice to equal the CTA path's bit for bit (below it
+    the lattice divides); `below` and `largest` (the largest such a) say
+    where the shortcut fails. Not a kernel of any path; about 1 s on the
+    card."""
+    lib = build.library()
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        rc = lib.fm_ks_division_check(_ptr(out),
+                                      ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(rc, "ks_division_check", lib)
+    above, below, largest = out.tolist()
+    return {"above": above, "below": below,
+            "largest": float(np.array([largest], np.uint32).view(np.float32)[0])}
+
+
 def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None, phase_clocks=None):
     """Launch kernel K: the LSTM autoencoder's masked reconstruction error
     of K windows for each of J jobs. params is (J, P) float32 in the flat
@@ -1128,12 +1218,18 @@ def adam(params, mu, nu, step, gpart, num, cnt, lr: float, b1: float, b2: float,
 
 
 def pair_tests(x, x_mask, y, y_mask, tests: int, *, wilcoxon_table, ks_exact_max: int,
-               wilcoxon_exact_max_n: int):
+               wilcoxon_exact_max_n: int, phase_clocks=None, path=None):
     """Launch kernel N on B window pairs ((B, T) float32 values, bool
     masks): the tests whose bits (PAIR_TEST_BITS) are set in `tests`.
     Returns stat and p, (B, 5) float32 in PAIR_TEST_BITS' order: U1, H, W,
     D and the sign test's untied count (0 and p = 1 for a test not
-    asked). The sign test counts the slots where both masks hold."""
+    asked). The sign test counts the slots where both masks hold.
+
+    path forces one of PAIR_PATHS (ValueError where it does not serve T).
+    phase_clocks, an int64 (B, len(TESTS_PHASES) + 1) tensor, receives each
+    pair's SM clock at the start and after each phase of TESTS_PHASES; the
+    warp path alone has the stamps.
+    """
     B, T = x.shape
     dev = x.device
     if not 1 <= T <= MAX_PAIR_T:
@@ -1141,30 +1237,40 @@ def pair_tests(x, x_mask, y, y_mask, tests: int, *, wilcoxon_table, ks_exact_max
                          f"buckets); got T = {T}")
     if not 0 < tests < 1 << len(PAIR_TEST_BITS):
         raise ValueError(f"pair_tests takes a mask of PAIR_TEST_BITS, got {tests}")
+    path = _pair_launch_path(T, path, "pair_tests")
+    if phase_clocks is not None and path != "warp":
+        raise ValueError(f"pair_tests' phase stamps are on its warp path (T <= {WARP_PAIR_T}); "
+                         f"this launch takes the {path} path")
     W = wilcoxon_exact_max_n * (wilcoxon_exact_max_n + 1) // 2 + 1
     for t, name, dt, shape in (
             (x, "x", torch.float32, (B, T)), (x_mask, "x_mask", torch.bool, (B, T)),
             (y, "y", torch.float32, (B, T)), (y_mask, "y_mask", torch.bool, (B, T)),
             (wilcoxon_table, "wilcoxon_table", torch.float32, (wilcoxon_exact_max_n, W))):
         _check(t, name, dt, shape, dev)
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (B, len(TESTS_PHASES) + 1), dev)
     stat = torch.empty((B, len(PAIR_TEST_BITS)), dtype=torch.float32, device=dev)
     p = torch.empty((B, len(PAIR_TEST_BITS)), dtype=torch.float32, device=dev)
     if B == 0:
         return stat, p
     lib = build.library()
     scratch, stride, grid = None, 0, B
-    if T > SHARED_PAIR_T:
+    if path == "scratch":
         stride = lib.fm_pair_tests_scratch_stride(T)
         grid = max(1, min(B, SCRATCH_BYTES // stride))
         scratch = torch.empty(grid * stride, dtype=torch.uint8, device=dev)
+    args = (_ptr(x), _ptr(x_mask), _ptr(y), _ptr(y_mask), B, T, int(tests),
+            _ptr(wilcoxon_table), wilcoxon_exact_max_n, ks_exact_max, _ptr(stat), _ptr(p))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_pair_tests(_ptr(x), _ptr(x_mask), _ptr(y), _ptr(y_mask), B, T, int(tests),
-                               _ptr(wilcoxon_table), wilcoxon_exact_max_n, ks_exact_max,
-                               _ptr(stat), _ptr(p), _opt(scratch), stride, grid,
-                               ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if path == "warp":
+            rc = lib.fm_pair_tests_warp(*args, _opt(phase_clocks), _ptr(_lgamma_table(lib, dev)),
+                                        pair_warp_grid(B), stream)
+        else:
+            rc = lib.fm_pair_tests(*args, _opt(scratch), stride, grid, stream)
     _raise_on(rc, "pair_tests", lib)
     launches["pair_tests"] += 1
+    pair_tests_path_launches[path] += 1
     return stat, p
 
 

@@ -110,6 +110,17 @@ def _declare(lib):
     lib.fm_pair_verdict.restype = I
     lib.fm_pair_verdict_scratch_stride.argtypes = [I]
     lib.fm_pair_verdict_scratch_stride.restype = LL
+    lib.fm_pair_verdict_warp.argtypes = ([P] * 12 + [I, P, I, I, I, I] + [P] * 7
+                                         + [P, P, I, P])
+    lib.fm_lgamma_table.argtypes = [P, P]
+    lib.fm_lgamma_table.restype = I
+    lib.fm_lgamma_table_size.argtypes = []
+    lib.fm_lgamma_table_size.restype = I
+    lib.fm_pair_verdict_warp.restype = I
+    lib.fm_pair_warps.argtypes = []
+    lib.fm_pair_warps.restype = I
+    lib.fm_ks_division_check.argtypes = [P, P]
+    lib.fm_ks_division_check.restype = I
     lib.fm_ma_band.argtypes = [P, P, P, I, P, P, P, I, I] + [P] * 8 + [P]
     lib.fm_ma_band.restype = I
     lib.fm_band_from_preds.argtypes = [P] * 7 + [I, I] + [P] * 7 + [P]
@@ -175,6 +186,8 @@ def _declare(lib):
     lib.fm_pair_tests.restype = I
     lib.fm_pair_tests_scratch_stride.argtypes = [I]
     lib.fm_pair_tests_scratch_stride.restype = LL
+    lib.fm_pair_tests_warp.argtypes = [P] * 4 + [I, I, I, P, I, I, P, P, P, P, I, P]
+    lib.fm_pair_tests_warp.restype = I
     lib.fm_rank_work_bytes.argtypes = [LL]
     lib.fm_rank_work_bytes.restype = LL
     lib.fm_rank_and_ties.argtypes = [P, P, I, I, P, P, P, P, LL, I, P]

@@ -36,6 +36,10 @@ struct float4 {
 struct uint2 {
   unsigned x, y;
 };
+struct int2 {
+  int x, y;
+};
+inline int2 make_int2(int a, int b) { return {a, b}; }
 struct uint4 {
   unsigned x, y, z, w;
 };
@@ -210,6 +214,7 @@ void launch(K kernel, dim3 grid, dim3 block, size_t smem, void*, Args... args) {
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
@@ -296,6 +301,16 @@ inline unsigned __float_as_uint(float f) {
   std::memcpy(&u, &f, 4);
   return u;
 }
+inline int __float_as_int(float f) {
+  int u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline float __int_as_float(int u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 inline float __uint_as_float(unsigned u) {
   float f;
   std::memcpy(&f, &u, 4);
@@ -309,6 +324,18 @@ template <typename T>
 inline T atomicOr(T* p, T v) {
   return std::atomic_ref<T>(*p).fetch_or(v);
 }
+template <typename T>
+inline T atomicMax(T* p, T v) {
+  std::atomic_ref<T> a(*p);
+  T old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+// the correctly rounded float intrinsics, as the host's IEEE arithmetic rounds
+inline float __frcp_rn(float x) { return 1.0f / x; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
   return unsigned(((static_cast<unsigned long long>(hi) << 32) | lo) >> (sh & 31));
 }

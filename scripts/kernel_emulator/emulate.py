@@ -2,7 +2,7 @@
 """Run the port's CUDA kernels on the CPU, under a host emulation of CUDA.
 
     python scripts/kernel_emulator/emulate.py     # every kernel vs its twin
-    python scripts/kernel_emulator/emulate.py --parent DIR   # and K, L's forward, J, F, I vs DIR's
+    python scripts/kernel_emulator/emulate.py --parent DIR   # and A, N, K, L's forward, J, F, I vs DIR's
 
 For a machine without nvcc or a card. `build()` compiles
 ``foremast_tpu_torch/csrc/*.cu`` with g++ against ``emu.h`` (after textual
@@ -159,12 +159,27 @@ def _bits(t):
     return t.view(torch.int64) if t.element_size() == 8 else t.view(torch.int32)
 
 
+class _Present:
+    """A library whose entries missing from it (a parent's, older than
+    this tree's launchers) take their declarations and are never called."""
+
+    def __init__(self, lib):
+        self.__dict__["_lib"] = lib
+
+    def __getattr__(self, name):
+        try:
+            return getattr(self._lib, name)
+        except AttributeError:
+            return types.SimpleNamespace()
+
+
 def parent_check(parent: str) -> int:
-    """Kernel L's forward, kernel J, kernel K, kernel F and kernel I of the
-    checkout at `parent` (its own C entries, called directly, K's through
-    this tree's launcher) against this tree's: L's act, num and cnt bit for bit, J within compare_st_fit's
-    tolerances, K's err and z, F's periods and scores and I's outputs bit
-    for bit. Returns the failures."""
+    """Kernel L's forward, kernel J, kernel K, kernel F, kernel I, kernel A
+    and kernel N of the checkout at `parent` (its own C entries, called
+    directly; K's, A's and N's through this tree's launchers) against this
+    tree's: L's act, num and cnt bit for bit, J within compare_st_fit's
+    tolerances, K's err and z, F's periods and scores, I's outputs and A's
+    and N's outputs bit for bit. Returns the failures."""
     import chip_smoke as cs
     from foremast_tpu_torch.models import lstm_ae as tl
 
@@ -216,7 +231,7 @@ def parent_check(parent: str) -> int:
                 failures += 1
     # kernel K, the parent's against this tree's paths: err and z bit for
     # bit, the parent's library run through this tree's launcher
-    kbuild._declare(lib)
+    kbuild._declare(_Present(lib))
     for J, K, W, F, H, Z in ((3, 10, 32, 4, 32, 16), (4, 2, 6, 4, 32, 16), (2, 7, 6, 3, 72, 8),
                              (3, 3, 6, 17, 32, 16)):
         p, x, m, mu, sigma = cs.adversarial_lstm(J, max(K, 2), F, H, Z, g)
@@ -234,7 +249,45 @@ def parent_check(parent: str) -> int:
               f"for bit", flush=True)
         failures += not ok
     failures += parent_check_f_i(lib, parent, g)
+    failures += parent_check_a_n(lib)
     cs.DEV = saved_dev
+    return failures
+
+
+def parent_check_a_n(lib) -> int:
+    """Kernels A and N of the parent's library `lib` (its CTA entries,
+    through this tree's launchers with path="cta" where T allows, else its
+    scratch path) against this tree's path for T: every output bit for bit,
+    at T across the warp path's range (and its key and register counts) and
+    beyond it. Returns the failures."""
+    import chip_smoke as cs
+    from foremast_tpu_torch.ops import pairwise as pw
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    kw = dict(wilcoxon_table=pw.wilcoxon_pmf_table("cpu"), ks_exact_max=pw.KS_EXACT_MAX_T,
+              wilcoxon_exact_max_n=pw.WILCOXON_EXACT_MAX_N)
+    failures = 0
+    for T, B in ((7, 17), (16, 17), (33, 17), (100, 17), (128, 17), (256, 9), (300, 9)):
+        rng = np.random.default_rng(100 + T)
+        a = fl.pair_args_from_numpy(cs.adversarial_pairs(B, T, rng), "cpu")
+        n = [torch.from_numpy(v) for v in cs.adversarial_tests(B, T, rng)]
+        ours = kernels.pair_verdict(*a, **kw)
+        ours_n = {m: kernels.pair_tests(*n, m, **kw) for m in (15, 1, 4, 8, 31)}
+        mine = kbuild.library
+        kbuild.library = lambda: lib
+        try:
+            theirs = kernels.pair_verdict(*a, **kw, path="cta")
+            theirs_n = {m: kernels.pair_tests(*n, m, **kw, path="cta") for m in ours_n}
+        finally:
+            kbuild.library = mine
+        ok = all(cs.same_bits(ours[k], theirs[k]) for k in ours)
+        print(f"{'ok  ' if ok else 'FAIL'} pair_verdict T={T} ({kernels.pair_path(T)} path) "
+              f"against the parent's: every output bit for bit", flush=True)
+        failures += not ok
+        ok = all(cs.same_bits(u, v) for m in ours_n for u, v in zip(ours_n[m], theirs_n[m]))
+        print(f"{'ok  ' if ok else 'FAIL'} pair_tests T={T} masks {sorted(ours_n)} against the "
+              f"parent's: stat and p bit for bit", flush=True)
+        failures += not ok
     return failures
 
 
@@ -585,9 +638,52 @@ def self_check() -> int:
                                  ks_exact_max=KS_EXACT_MAX_T, wilcoxon_exact_max_n=WILCOXON_EXACT_MAX_N)
         e = _err(k["pvalues"], fl.pair_verdict_plain(*a)["pvalues"])
         expect(f"pair_verdict T={T}", e <= cs.P_ATOL, f"max |dp| {e:.3g}")
+    pair_paths_check(cs, expect)
     new_kernels_check(cs, expect)
     kernels.SCRATCH_BYTES = saved
     return len(failures)
+
+
+def pair_paths_check(cs, expect) -> None:
+    """Kernels A and N's warp path (a warp a pair, the last CTA's tail
+    warps idle) against their twins and against the cta path bit for bit,
+    at T on each side of its key and register counts."""
+    from foremast_tpu_torch.ops import pairwise as pw
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    kw = dict(wilcoxon_table=pw.wilcoxon_pmf_table("cpu"), ks_exact_max=pw.KS_EXACT_MAX_T,
+              wilcoxon_exact_max_n=pw.WILCOXON_EXACT_MAX_N)
+    saved_dev, cs.DEV = cs.DEV, "cpu"
+    for T in (5, 16, 17, 64, 100, 128, 256):
+        B = 17  # every kind of adversarial row twice, and one CTA of a single pair
+        rng = np.random.default_rng(T)
+        a = fl.pair_args_from_numpy(cs.adversarial_pairs(B, T, rng), "cpu")
+        try:
+            warp = kernels.pair_verdict(*a, **kw, path="warp")
+            e, _ = cs.compare_pair_verdict(a, warp, fl.pair_verdict_plain(*a))
+            cta = kernels.pair_verdict(*a, **kw, path="cta")
+            cs.check(all(cs.same_bits(warp[k], cta[k]) for k in cta),
+                     "the warp path's outputs differ from the cta path's")
+            expect(f"pair_verdict warp path T={T}", True,
+                   f"max |dp| {e:.3g} against the twin, all 7 outputs equal to the cta path's")
+        except AssertionError as err:
+            expect(f"pair_verdict warp path T={T}", False, str(err))
+        x, xm, y, ym = (torch.from_numpy(v) for v in cs.adversarial_tests(B, T, rng))
+        plain = pw.two_sample_tests_plain(x, xm, y, ym)
+        plain["sign"] = pw.sign_test_exact_plain(x, y, xm & ym)
+        try:
+            e = cs.compare_pair_tests(kernels.pair_tests(x, xm, y, ym, 31, **kw, path="warp"),
+                                      plain, pw.TWO_SAMPLE_TESTS + ("sign",))
+            for mask in (1, 2, 4, 8, 16, 5, 15, 26, 31):
+                w = kernels.pair_tests(x, xm, y, ym, mask, **kw, path="warp")
+                c = kernels.pair_tests(x, xm, y, ym, mask, **kw, path="cta")
+                cs.check(all(cs.same_bits(u, v) for u, v in zip(w, c)),
+                         f"mask {mask}: the warp path's stat or p differ from the cta path's")
+            expect(f"pair_tests warp path T={T}", True,
+                   f"max |dp| {e:.3g} against the twin, 9 masks equal to the cta path's")
+        except AssertionError as err:
+            expect(f"pair_tests warp path T={T}", False, str(err))
+    cs.DEV = saved_dev
 
 
 def new_kernels_check(cs, expect) -> None:
@@ -663,8 +759,8 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold kernels K, L's forward, J, F and I against those of the "
-                         "checkout in DIR (e.g. a git archive of the parent commit)")
+                    help="also hold kernels A, N, K, L's forward, J, F and I against those of "
+                         "the checkout in DIR (e.g. a git archive of the parent commit)")
     opt = ap.parse_args()
     install()
     bad = self_check()

@@ -157,9 +157,26 @@ and kernels.SMOOTH_HW_PHASES a group of 32 rows; checkouts that have
 them), then unstamped again, and the split is printed.
 
 --a-digest prints a SHA-256 of every output of kernel A (`score_pairs` on
-the card) on chip_smoke.py's adversarial pairs at each T of its kernel
-check and on the 100,000-pair pass: run from two checkouts in one call, equal
-digests show that kernel A's outputs did not change, bit for bit.
+the card) and of kernel N (`kernels.pair_tests`, stat and p, at each mask of
+the battery: 15, 1, 4, 8) on chip_smoke.py's adversarial rows at each T of
+DIGEST_T (16 to 16384) and on the 100,000-pair pass: run from two checkouts
+in one call, equal digests show that the outputs did not change, bit for
+bit.
+
+--pairs times kernels A and N on the 100,000-pair pass at T = 128 (A on
+score_pairs' tensors; N as the four-test launch of all_pairwise_tests and as
+each single-test launch of the battery's *_batch calls), then both at
+T = 1024, 4096 (the CTA path) and 16384 (device scratch) on chip_smoke.py's
+adversarial rows: each the median of 20 launches back to back, with a
+SHA-256 of the outputs, and make_fleet_scorer's wall time and
+canary_pairs_scored_per_sec_per_chip on the same pairs in a world of one
+over NCCL. In checkouts whose launchers take `path=`, each path that serves
+T = 128 is also forced, and the launches by path are printed.
+With --profile it also splits A (kernels.PAIR_PHASES) and N (mask 15,
+kernels.TESTS_PHASES, checkouts that have them) by their clock stamps. It
+calls only entry points every checkout since kernel N's first has: run it
+from the parent's checkout and this one in one call (parent, change,
+change, parent).
 """
 import hashlib
 import argparse
@@ -189,22 +206,13 @@ def _chip_smoke():
 cs = _chip_smoke()
 
 
-def phase_split(t):
-    """Kernel A's phases on device tensors t, from its clock stamps."""
-    from foremast_tpu_torch import kernels
-    from foremast_tpu_torch.parallel import fleet as fl
-
-    B = t[0].shape[0]
-    clocks = torch.zeros((B, len(kernels.PAIR_PHASES) + 1), dtype=torch.int64, device=cs.DEV)
-
-    def run():
-        return kernels.pair_verdict(
-            *t, wilcoxon_table=fl.wilcoxon_pmf_table(t[0].device),
-            ks_exact_max=fl.KS_EXACT_MAX_T, wilcoxon_exact_max_n=fl.WILCOXON_EXACT_MAX_N,
-            phase_clocks=clocks)
-
-    on_ms = cs.cuda_ms(run, cs.TIMED_RUNS)
-    off_ms = cs.cuda_ms(lambda: fl.score_pairs(*t, device=cs.DEV), cs.TIMED_RUNS)
+def stamp_split(kernel, run, B, names, off_ms=None):
+    """A kernel's phases from its clock stamps: run(phase_clocks=clocks)
+    fills clocks (B, len(names) + 1) with each row's SM clock at its start
+    and after each phase. Prints each phase's share of the rows' cycles,
+    the mean cycles a row and the rows resident an SM on average."""
+    clocks = torch.zeros((B, len(names) + 1), dtype=torch.int64, device=cs.DEV)
+    on_ms = cs.cuda_ms(lambda: run(phase_clocks=clocks), cs.TIMED_RUNS)
     cyc = clocks.diff(dim=1).double()
     check_ok = bool((cyc >= 0).all())
     total = cyc.sum(0)
@@ -214,19 +222,32 @@ def phase_split(t):
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-    # CTA-cycles over SM-cycles of the kernel: how many pairs an SM held at once
+    # row-cycles over SM-cycles of the kernel: how many rows an SM held at once
     resident = float(total.sum()) / (on_ms * 1e-3 * mhz * 1e6 * sms)
-    print(f"  kernel A phases (B = {B}), stamps monotone: {check_ok}; "
-          f"{on_ms:.3f} ms with stamps, {off_ms:.3f} ms without", flush=True)
-    for name, sh, m in zip(kernels.PAIR_PHASES, share, mean):
-        print(f"    {name:15s} {100 * sh:6.2f}% of CTA cycles, {m:10.1f} cycles per pair",
+    print(f"  {kernel} phases (B = {B}), stamps monotone: {check_ok}; {on_ms:.3f} ms with "
+          f"stamps" + ("" if off_ms is None else f", {off_ms:.3f} ms without"), flush=True)
+    for name, sh, m in zip(names, share, mean):
+        print(f"    {name:15s} {100 * sh:6.2f}% of the rows' cycles, {m:10.1f} cycles a row",
               flush=True)
-    print(f"    mean {sum(mean):.1f} cycles per pair; {resident:.2f} pairs resident per SM "
-          f"on average (at the {mhz:.0f} MHz max SM clock, {sms} SMs)", flush=True)
+    print(f"    mean {sum(mean):.1f} cycles a row; {resident:.2f} rows resident an SM on "
+          f"average (at the {mhz:.0f} MHz max SM clock, {sms} SMs)", flush=True)
     return {"ms_stamps_on": on_ms, "ms_stamps_off": off_ms,
-            "share": dict(zip(kernels.PAIR_PHASES, share)),
-            "cycles_per_pair": dict(zip(kernels.PAIR_PHASES, mean)),
+            "share": dict(zip(names, share)), "cycles_per_row": dict(zip(names, mean)),
             "resident_per_sm": resident, "monotone": check_ok}
+
+
+def phase_split(t):
+    """Kernel A's phases on device tensors t, from its clock stamps."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    def run(**kw):
+        return kernels.pair_verdict(
+            *t, wilcoxon_table=fl.wilcoxon_pmf_table(t[0].device),
+            ks_exact_max=fl.KS_EXACT_MAX_T, wilcoxon_exact_max_n=fl.WILCOXON_EXACT_MAX_N, **kw)
+
+    off_ms = cs.cuda_ms(lambda: fl.score_pairs(*t, device=cs.DEV), cs.TIMED_RUNS)
+    return stamp_split("kernel A", run, t[0].shape[0], kernels.PAIR_PHASES, off_ms)
 
 
 def _device_us(e):
@@ -480,22 +501,224 @@ def fleet_split():
                                                            cs.FLEET_K), cs.TIMED_RUNS)}
 
 
+PAIR_TEST_MASKS = (15, 1, 4, 8)  # all_pairwise_tests, mann_whitney_u_batch, wilcoxon_batch, ks_2samp_batch
+DIGEST_T = (16, 128, 256, 1024, 4096, 8192, 16384)
+
+
+def _out_digest(out):
+    """SHA-256 of a dict of outputs (kernel A's) or a tuple (kernel N's)."""
+    h = hashlib.sha256()
+    items = sorted(out.items()) if isinstance(out, dict) else enumerate(out)
+    for k, v in items:
+        h.update(str(k).encode() + v.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _n_kw():
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    return dict(wilcoxon_table=pw.wilcoxon_pmf_table(cs.DEV), ks_exact_max=pw.KS_EXACT_MAX_T,
+                wilcoxon_exact_max_n=pw.WILCOXON_EXACT_MAX_N)
+
+
+def _rows(T):
+    return cs.CHECK_ROWS if T <= 4096 else 512
+
+
 def a_digest():
+    """SHA-256 of kernel A's outputs (score_pairs) and of kernel N's (stat
+    and p for each of PAIR_TEST_MASKS) on chip_smoke.py's adversarial rows at
+    each T of DIGEST_T and on the 100,000-pair pass."""
+    from foremast_tpu_torch import kernels
     from foremast_tpu_torch.parallel import fleet as fl
 
-    def digest(args):
-        out = fl.score_pairs(*args, device=cs.DEV)
-        torch.cuda.synchronize()
-        h = hashlib.sha256()
-        for k in sorted(out):
-            h.update(k.encode() + out[k].cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
-
     res = {}
-    for T in (16, 128, 1024, 4096, 8192, 16384):
-        B = cs.CHECK_ROWS if T <= 4096 else 512
-        res[f"T={T}"] = digest(cs.adversarial_pairs(B, T, np.random.default_rng(cs.SEED + T)))
-    res["pass"] = digest(cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0])
+    for T in DIGEST_T:
+        a = cs.adversarial_pairs(_rows(T), T, np.random.default_rng(cs.SEED + T))
+        res[f"A T={T}"] = _out_digest(fl.score_pairs(*a, device=cs.DEV))
+        n = [torch.from_numpy(v).to(cs.DEV)
+             for v in cs.adversarial_tests(_rows(T), T, np.random.default_rng(cs.SEED - T))]
+        for mask in PAIR_TEST_MASKS:
+            res[f"N T={T} mask {mask}"] = _out_digest(kernels.pair_tests(*n, mask, **_n_kw()))
+    args = cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0]
+    res["A pass"] = _out_digest(fl.score_pairs(*args, device=cs.DEV))
+    pairs = fl.pair_args_from_numpy(args, cs.DEV)[:4]
+    for mask in PAIR_TEST_MASKS:
+        res[f"N pass mask {mask}"] = _out_digest(kernels.pair_tests(*pairs, mask, **_n_kw()))
+    return res
+
+
+def _takes_path(fn):
+    import inspect
+
+    return "path" in inspect.signature(fn).parameters
+
+
+PAIRS_LONG = ((1024, 20_000), (4096, 5_000), (16384, 512))  # (T, B): the cta and scratch paths
+
+
+def fleet_scorer_rate(t):
+    """make_fleet_scorer on the pass's pairs (score_pairs' tensors t) in a
+    world of one over NCCL, as chip_smoke.py's fleet phase runs it: the
+    median wall time of TIMED_RUNS calls and canary_pairs_scored_per_sec_per_chip."""
+    import torch.distributed as dist
+
+    from foremast_tpu_torch.parallel import fleet as fl
+    from foremast_tpu_torch.parallel import mesh as pm
+
+    started = pm.world_of_one(cs.DEV)
+    try:
+        run = fl.make_fleet_scorer(pm.fleet_mesh(device=cs.DEV), k=cs.FLEET_K)
+        cfg = dict(zip(cs.CFG_KEYS, t[4:]))
+        med = float(np.median(cs.wall_ms(lambda: run(*t[:4], cfg), cs.TIMED_RUNS)))
+    finally:
+        if started:
+            dist.destroy_process_group()
+    B = t[0].shape[0]
+    print(f"  make_fleet_scorer, {B} pairs, a world of one: median {med:.3f} ms, "
+          f"canary_pairs_scored_per_sec_per_chip {B / med * 1e3:.0f}", flush=True)
+    return {"ms": med, "pairs_per_s": B / med * 1e3}
+
+
+def ks_window_work(n1, n2, t, ks_exact_max):
+    """The warp path's exact KS work on pairs of n1, n2 valid points and
+    integer statistic t (int64 numpy arrays), by warp_ks_exact_sf's own
+    window rule: each pair's lattice steps, of them the one-register steps,
+    and the wider steps' registers with the window kept and moved up."""
+    n1, n2, t = (np.asarray(v, dtype=np.int64) for v in (n1, n2, t))
+    N = n1 + n2
+    alive = (n1 > 0) & (n2 > 0) & (n1 <= ks_exact_max) & (n2 <= ks_exact_max) & (t > 0)
+    tm1 = np.maximum(t - 1, 0)
+    Nd = np.maximum(N, 1)
+    a_lo, a_hi = -tm1, tm1.copy()
+    blo, bhi = -(tm1 // Nd), tm1 // Nd
+    lo, hi = np.zeros_like(N), np.zeros_like(N)
+    steps, one, kept, moved = (np.zeros_like(N) for _ in range(4))
+    for d in range(1, int(N.max(initial=0)) + 1):
+        act = alive & (d <= N)
+        if not act.any():
+            break
+        a_lo += n1
+        a_hi += n1
+        blo += blo * Nd < a_lo
+        bhi += (bhi + 1) * Nd <= a_hi
+        nlo = np.maximum(np.maximum(0, d - n2), blo)
+        nhi = np.minimum(np.minimum(d, n1), bhi)
+        steps += act
+        empty = nlo > nhi
+        alive &= ~(act & empty)
+        act &= ~empty
+        span = np.maximum(hi - lo, nhi - nlo)
+        regs = np.where(span < 32, 0, span // 32 + 1)
+        one += act & (span < 32)
+        kept += np.where(act & (nlo == lo), regs, 0)
+        moved += np.where(act & (nlo != lo), regs, 0)
+        lo, hi = np.where(act, nlo, lo), np.where(act, nhi, hi)
+    return steps, one, kept, moved
+
+
+def ks_floor(t):
+    """The warp path's own floor for its KS lattice on the pass's pairs:
+    the SASS instructions of each lattice step and of each register of
+    cells it computes (scripts/sass_lines.py: the IEEE division included)
+    over the steps and registers these pairs need (ks_window_work), at the
+    issue rate (4 warp instructions a clock an SM at the max SM clock)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import sass_lines
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    T = t[0].shape[1]
+    stat, _ = kernels.pair_tests(*t[:4], 8, **_n_kw())
+    n1 = t[1].sum(1).cpu().numpy()
+    n2 = t[3].sum(1).cpu().numpy()
+    ks_t = np.rint(stat[:, 3].double().cpu().numpy() * n1 * n2).astype(np.int64)
+    steps, one, kept, moved = ks_window_work(n1, n2, ks_t, pw.KS_EXACT_MAX_T)
+    M = max(1, (1 << (2 * T - 1).bit_length()) // 32)
+    src = os.path.join(os.getcwd(), "foremast_tpu_torch", "csrc", "pair_verdict.cu")
+    ins = sass_lines.ks_step_instructions(src, f"pair_verdict_warp_kernelILi{M}E", M // 2 + 1)
+    total = (steps.sum() * ins["step"] + one.sum() * ins["one_register"]
+             + kept.sum() * ins["kept_register"] + moved.sum() * ins["moved_register"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    ms = float(total) / (4 * sms * mhz * 1e6) * 1e3
+    res = {"sass": ins, "steps": int(steps.sum()), "one_register_steps": int(one.sum()),
+           "kept_registers": int(kept.sum()), "moved_registers": int(moved.sum()),
+           "warp_instructions": float(total), "floor_ms": ms,
+           "pairs_exact": int((steps > 0).sum())}
+    print(f"  the KS lattice's own floor on the warp path: {ins} SASS instructions (a step; "
+          f"the one-register step's cells; a register of a wider step, window kept / moved; "
+          f"of them a cell's own); {res['steps']} steps, {res['one_register_steps']} of one "
+          f"register, {res['kept_registers']} + {res['moved_registers']} registers of wider "
+          f"ones over {res['pairs_exact']} exact pairs: {total:.4g} warp instructions, "
+          f"{ms:.4f} ms at 4 a clock an SM ({sms} SMs, {mhz:.0f} MHz)", flush=True)
+    return res
+
+
+def pairs_ab(profile):
+    """Kernels A and N at 100,000 x 128 on the pair pass's windows (A on
+    score_pairs' 12 tensors, N on its four for each mask of PAIR_TEST_MASKS),
+    then both at PAIRS_LONG on chip_smoke.py's adversarial rows: each the
+    median of TIMED_RUNS launches back to back and a SHA-256 of the outputs.
+    In checkouts whose launchers take a path, also each path forced at
+    T = 128. With --profile, the split of A and N by their clock stamps
+    (N's where the checkout has them)."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    args = cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0]
+    t = fl.pair_args_from_numpy(args, cs.DEV)
+    a_kw = dict(wilcoxon_table=fl.wilcoxon_pmf_table(cs.DEV), ks_exact_max=fl.KS_EXACT_MAX_T,
+                wilcoxon_exact_max_n=fl.WILCOXON_EXACT_MAX_N)
+    paths = getattr(kernels, "PAIR_PATHS", ()) if _takes_path(kernels.pair_verdict) else ()
+
+    def timed(what, run):
+        ms = median_back_to_back_ms(run, cs.TIMED_RUNS)
+        sha = _out_digest(run())
+        print(f"  {what}: {ms:.3f} ms (median of {cs.TIMED_RUNS}), sha256 {sha}", flush=True)
+        return {"ms": ms, "sha256": sha}
+
+    res = {"A 128": timed("kernel A at 100000 x 128", lambda: kernels.pair_verdict(*t, **a_kw))}
+    for path in paths[:2]:  # warp and cta serve T = 128
+        res[f"A 128 {path}"] = timed(f"kernel A at 100000 x 128, {path} path forced",
+                                     lambda: kernels.pair_verdict(*t, **a_kw, path=path))
+    for mask in PAIR_TEST_MASKS:
+        res[f"N 128 mask {mask}"] = timed(f"kernel N mask {mask} at 100000 x 128",
+                                          lambda: kernels.pair_tests(*t[:4], mask, **_n_kw()))
+        for path in paths[:2]:
+            res[f"N 128 mask {mask} {path}"] = timed(
+                f"kernel N mask {mask} at 100000 x 128, {path} path forced",
+                lambda: kernels.pair_tests(*t[:4], mask, **_n_kw(), path=path))
+    res["fleet"] = fleet_scorer_rate(t)
+    if hasattr(kernels, "pair_path_launches"):
+        kernels.reset_launches()
+        kernels.pair_verdict(*t, **a_kw)
+        kernels.pair_tests(*t[:4], 15, **_n_kw())
+        res["paths at 128"] = {"pair_verdict": dict(kernels.pair_path_launches),
+                               "pair_tests": dict(kernels.pair_tests_path_launches)}
+        print(f"  paths at T = 128: {res['paths at 128']}", flush=True)
+    if profile and hasattr(kernels, "WARP_PAIR_T"):
+        res["ks floor"] = ks_floor(t)
+    if profile:
+        res["A split"] = phase_split(t)
+        if hasattr(kernels, "TESTS_PHASES"):
+            res["N split"] = stamp_split(
+                "kernel N (mask 15)",
+                lambda **kw: kernels.pair_tests(*t[:4], 15, **_n_kw(), **kw),
+                t[0].shape[0], kernels.TESTS_PHASES,
+                res["N 128 mask 15"]["ms"])
+    del t
+    torch.cuda.empty_cache()
+    for T, B in PAIRS_LONG:
+        a = fl.pair_args_from_numpy(
+            cs.adversarial_pairs(B, T, np.random.default_rng(cs.SEED + T)), cs.DEV)
+        res[f"A {T}"] = timed(f"kernel A at {B} x {T}", lambda: kernels.pair_verdict(*a, **a_kw))
+        res[f"N {T} mask 15"] = timed(f"kernel N mask 15 at {B} x {T}",
+                                      lambda: kernels.pair_tests(*a[:4], 15, **_n_kw()))
+        del a
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1130,7 +1353,10 @@ def main():
                    help="hold two --triage-hw, --lstm-st, --period-hpa or --bivariate-hw output "
                         "files against each other (CPU)")
     p.add_argument("--a-digest", action="store_true",
-                   help="print a digest of kernel A's outputs instead")
+                   help="print a digest of kernel A's and kernel N's outputs instead")
+    p.add_argument("--pairs", action="store_true",
+                   help="time kernels A and N at 100,000 x 128 (N at each mask of the battery) "
+                        "and at the CTA and scratch paths' T, with digests, instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
     if opt.compare:
@@ -1165,6 +1391,10 @@ def main():
     if opt.lstm_ae:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "lstm_ae": lstm_ae_ab(opt.profile, opt.lstm_ae_paths)}), flush=True)
+        return
+    if opt.pairs:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "pairs": pairs_ab(opt.profile)}), flush=True)
         return
     if opt.a_digest:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

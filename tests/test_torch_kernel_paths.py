@@ -1,8 +1,9 @@
-"""Kernel H's path choice and kernel C's Holt-Winters launch size, at their
-boundaries. Plain Python on the library's size formulas (the shared-memory
-mirror is held to its C function by a card test in test_torch_kernels.py),
-so these run on the CPU."""
+"""Kernel H's path choice, kernels A and N's path choice and warp-path grid,
+and kernel C's Holt-Winters launch size, at their boundaries. Plain Python
+on the library's size formulas (the mirrors are held to their C functions
+by card tests in test_torch_kernels.py), so these run on the CPU."""
 import pytest
+import torch
 
 from foremast_tpu_torch import kernels
 
@@ -61,3 +62,70 @@ def test_reset_launches_clears_the_path_counts():
     kernels.reset_launches()
     assert set(kernels.bivariate_path_launches) == set(kernels.BIVARIATE_PATHS)
     assert not any(kernels.bivariate_path_launches.values())
+
+
+@pytest.mark.parametrize("T, path", [
+    (1, "warp"), (16, "warp"), (128, "warp"), (256, "warp"), (257, "cta"), (4096, "cta"),
+    (4097, "scratch"), (16384, "scratch")])
+def test_pair_path_by_window(T, path):
+    assert kernels.pair_path(T) == path
+
+
+def _pair_verdict_args(B, T):
+    f, b, i = torch.float32, torch.bool, torch.int32
+    return ([torch.zeros(B, T, dtype=f), torch.ones(B, T, dtype=b),
+             torch.zeros(B, T, dtype=f), torch.ones(B, T, dtype=b)]
+            + [torch.zeros(B, dtype=d) for d in (f, i, i, i, f, i, f)]
+            + [torch.zeros(B, 4, dtype=i)])
+
+
+def _pair_tests_args(B, T):
+    return (torch.zeros(B, T), torch.ones(B, T, dtype=torch.bool), torch.zeros(B, T),
+            torch.ones(B, T, dtype=torch.bool))
+
+
+_KW = dict(wilcoxon_table=torch.zeros(1, 2), ks_exact_max=256, wilcoxon_exact_max_n=1)
+
+
+@pytest.mark.parametrize("T, path, limit", [
+    (257, "warp", "WARP_PAIR_T = 256"), (16384, "warp", "WARP_PAIR_T = 256"),
+    (4097, "cta", "SHARED_PAIR_T = 4096"), (16384, "cta", "SHARED_PAIR_T = 4096"),
+    (128, "block", "paths")])
+def test_forced_pair_paths_refuse_a_window_they_do_not_serve(T, path, limit):
+    """Kernels A and N refuse a forced path that does not serve T, naming
+    the limit, before they look at a tensor (these are CPU tensors)."""
+    with pytest.raises(ValueError, match=limit):
+        kernels.pair_verdict(*_pair_verdict_args(2, T), **_KW, path=path)
+    with pytest.raises(ValueError, match=limit):
+        kernels.pair_tests(*_pair_tests_args(2, T), 15, **_KW, path=path)
+
+
+@pytest.mark.parametrize("path", ["cta", "scratch"])
+def test_pair_tests_phase_stamps_are_the_warp_path_s(path):
+    clocks = torch.zeros(2, len(kernels.TESTS_PHASES) + 1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="warp path"):
+        kernels.pair_tests(*_pair_tests_args(2, 128), 15, **_KW, path=path, phase_clocks=clocks)
+
+
+def test_tests_phases_are_kernel_a_s_without_its_band():
+    assert kernels.TESTS_PHASES == kernels.PAIR_PHASES[:-1]
+    assert kernels.PAIR_PHASES[-1] == "gates_band"
+
+
+_W = kernels.PAIR_WARPS
+
+
+@pytest.mark.parametrize("B, grid", [(1, 1), (_W - 1, 1), (_W, 1), (_W + 1, 2),
+                                     (100_000, -(-100_000 // _W))])
+def test_pair_warp_grid_holds_a_warp_a_pair(B, grid):
+    assert kernels.pair_warp_grid(B) == grid
+    assert (grid - 1) * _W < B <= grid * _W
+
+
+def test_reset_launches_clears_the_pair_path_counts():
+    kernels.pair_path_launches["warp"] += 2
+    kernels.pair_tests_path_launches["scratch"] += 1
+    kernels.reset_launches()
+    for counts in (kernels.pair_path_launches, kernels.pair_tests_path_launches):
+        assert set(counts) == set(kernels.PAIR_PATHS)
+        assert not any(counts.values())

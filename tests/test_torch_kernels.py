@@ -885,6 +885,101 @@ def test_pair_tests_match_twin(card, T):
     assert kernels.launches["pair_tests"] == before + 5
 
 
+def _a_kw(card):
+    return dict(wilcoxon_table=fl.wilcoxon_pmf_table(card), ks_exact_max=fl.KS_EXACT_MAX_T,
+                wilcoxon_exact_max_n=fl.WILCOXON_EXACT_MAX_N)
+
+
+@pytest.mark.parametrize("path", kernels.PAIR_PATHS)
+@pytest.mark.parametrize("T", [16, 128, 256])
+def test_pair_verdict_paths_match_twin(card, T, path):
+    t = fl.pair_args_from_numpy(cs.adversarial_pairs(512, T, np.random.default_rng(T + 1)), card)
+    kernels.reset_launches()
+    kern = kernels.pair_verdict(*t, **_a_kw(card), path=path)
+    assert kernels.pair_path_launches[path] == 1 and kernels.launches["pair_verdict"] == 1
+    plain = fl.pair_verdict_plain(*t)
+    torch.cuda.synchronize()
+    err, _ = cs.compare_pair_verdict(t, kern, plain)
+    assert err <= cs.P_ATOL
+
+
+@pytest.mark.parametrize("path", kernels.PAIR_PATHS)
+@pytest.mark.parametrize("T", [16, 128, 256])
+def test_pair_tests_paths_match_twin(card, T, path):
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    x, xm, y, ym = (torch.from_numpy(a).to(card)
+                    for a in cs.adversarial_tests(512, T, np.random.default_rng(T + 2)))
+    plain = pw.two_sample_tests_plain(x, xm, y, ym)
+    plain["sign"] = pw.sign_test_exact_plain(x, y, xm & ym)
+    kernels.reset_launches()
+    kern = kernels.pair_tests(x, xm, y, ym, 31, **_a_kw(card), path=path)
+    assert kernels.pair_tests_path_launches[path] == 1
+    cs.compare_pair_tests(kern, plain, pw.TWO_SAMPLE_TESTS + ("sign",))
+
+
+@pytest.mark.parametrize("T", [16, 128, 256])
+def test_pair_verdict_warp_path_equals_cta_path_bit_for_bit(card, T):
+    # 2,047 pairs: the last of the warp path's CTAs holds three
+    t = fl.pair_args_from_numpy(cs.adversarial_pairs(2047, T, np.random.default_rng(T + 3)),
+                                card)
+    warp = kernels.pair_verdict(*t, **_a_kw(card), path="warp")
+    cta = kernels.pair_verdict(*t, **_a_kw(card), path="cta")
+    torch.cuda.synchronize()
+    assert set(warp) == set(cta) and len(warp) == 7
+    for key in cta:
+        assert cs.same_bits(warp[key], cta[key]), key
+
+
+@pytest.mark.parametrize("T", [16, 128, 256])
+def test_pair_tests_warp_path_equals_cta_path_bit_for_bit(card, T):
+    x, xm, y, ym = (torch.from_numpy(a).to(card)
+                    for a in cs.adversarial_tests(1023, T, np.random.default_rng(T + 4)))
+    for mask in range(1, 32):
+        ws, wp = kernels.pair_tests(x, xm, y, ym, mask, **_a_kw(card), path="warp")
+        cs_, cp = kernels.pair_tests(x, xm, y, ym, mask, **_a_kw(card), path="cta")
+        assert cs.same_bits(ws, cs_) and cs.same_bits(wp, cp), mask
+
+
+@pytest.mark.parametrize("B", [1, kernels.PAIR_WARPS - 1, kernels.PAIR_WARPS + 1, 1001])
+def test_pair_warp_path_takes_any_number_of_pairs(card, B):
+    t = fl.pair_args_from_numpy(cs.adversarial_pairs(B, 128, np.random.default_rng(B)), card)
+    warp = kernels.pair_verdict(*t, **_a_kw(card), path="warp")
+    cta = kernels.pair_verdict(*t, **_a_kw(card), path="cta")
+    ws, wp = kernels.pair_tests(*t[:4], 31, **_a_kw(card), path="warp")
+    cs_, cp = kernels.pair_tests(*t[:4], 31, **_a_kw(card), path="cta")
+    torch.cuda.synchronize()
+    for key in cta:
+        assert cs.same_bits(warp[key], cta[key]), key
+    assert cs.same_bits(ws, cs_) and cs.same_bits(wp, cp)
+
+
+def test_ks_division_equals_ieee_division_where_the_lattice_takes_it(card):
+    res = kernels.ks_division_check()
+    assert res["above"] == 0, res
+
+
+def test_pair_warp_path_phase_clocks(card):
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    B = 257
+    t = fl.pair_args_from_numpy(cs.adversarial_pairs(B, 128, np.random.default_rng(8)), card)
+    clocks = torch.zeros((B, len(kernels.PAIR_PHASES) + 1), dtype=torch.int64, device=card)
+    stamped = kernels.pair_verdict(*t, **_a_kw(card), phase_clocks=clocks, path="warp")
+    plain = kernels.pair_verdict(*t, **_a_kw(card), path="warp")
+    tclocks = torch.zeros((B, len(kernels.TESTS_PHASES) + 1), dtype=torch.int64, device=card)
+    n_stamped = kernels.pair_tests(*t[:4], 31, **_a_kw(card), phase_clocks=tclocks)
+    n_plain = kernels.pair_tests(*t[:4], 31, **_a_kw(card))
+    torch.cuda.synchronize()
+    for c in (clocks, tclocks):
+        assert bool((c[:, 0] > 0).all())
+        assert bool((c.diff(dim=1) >= 0).all())
+    for key in plain:
+        assert cs.same_bits(stamped[key], plain[key]), key
+    assert all(cs.same_bits(u, v) for u, v in zip(n_stamped, n_plain))
+    assert kernels.PAIR_WARPS == kernels.build.library().fm_pair_warps()
+
+
 @pytest.mark.parametrize("T", [8, 256, 16384])
 def test_rank_and_ties_matches_twin(card, T):
     from foremast_tpu_torch.ops import ranks as rk
