@@ -20,7 +20,9 @@ ends; any failure exits non-zero:
              warp and scratch paths' outputs equal to the cta path's bit for
              bit, after kernels.ks_division_check (the warp path's lattice
              division equal to IEEE division on every float32 in [2^-100,
-             512] and divisor 1-512); kernel B at T in {128, 1024, 16384}; kernels
+             512] and divisor 1-512); kernel B at T in {128, 1024, 16384} (its
+             staged path's outputs equal to the unstaged path's bit for
+             bit where it serves T); kernels
              C (SES, DES, Holt-Winters on each of its paths, shared and
              device, held equal bit for bit, at the rows' periods and cut to
              1440), D, E (SES, DES), F and B's
@@ -57,7 +59,9 @@ ends; any failure exits non-zero:
              8 to 16384 (device scratch above 4096) on kernel A's
              adversarial rows plus one-point and all-tied rows; kernel O's
              ranks at T in {8, 256, 4096, 16384}, Kruskal-Wallis at k in
-             {2, 3, 5} (k T = 49,152 in scratch) and Friedman at (n, k) in
+             {2, 3, 5} (k T = 49,152 in scratch; each path that serves a
+             shape forced, the warp path equal to the cta path bit for bit)
+             and Friedman at (n, k) in
              {(128, 3), (20, 6), (7, 200)} on ties, +-0, NaN, +inf,
              all-masked, one-point and all-tied rows and masked blocks;
              kernel P against its twin bit for bit at n in {5, 4096,
@@ -75,7 +79,8 @@ ends; any failure exits non-zero:
              rank_and_ties at T = 256 (kernel O); every bad canary rejected
              at 0.01 by Mann-Whitney, Kruskal-Wallis and KS, each kernel
              against its twin on 2,048 rows, times beside the twins, kernel
-             N's four launches on its warp path (its path counter) and each
+             N's four launches on its warp path and kernel O's Kruskal
+             launch on its warp path (their path counters), each of N's
              timed alone; then kernel N forced onto each of its paths at
              T in {16, 128, 256}, stat and p of every test mask on the warp
              and scratch paths equal to the cta path's bit for bit;
@@ -91,7 +96,9 @@ ends; any failure exits non-zero:
              collective ends the run after 300 s;
   5. bands   the band path at full size: 100,000 rows of 512 history + 128
              current slots (bucket 1024), 10% with a level shift;
-             moving_average_band on the card; recall 1.0, false positives
+             moving_average_band on the card (kernel B's ma_band on its
+             staged path, its path counter; every output equal to the
+             unstaged path's bit for bit); recall 1.0, false positives
              under 1%;
   6. seasonal the seasonal band path at full size: 100,000 rows of 7 days
              of history at 60 s (10,080 points) + 60 current points in
@@ -518,9 +525,27 @@ def kernel_b_vs_twin(gen):
         check(bool((kern["sigma"][const] == 0).all()), "constant history must keep sigma 0")
         check(bool((kern["count"][const] == 0).all()), "an identical constant current was flagged")
         worst = max(worst, err)
-        print(f"  ma_band T={T}: max |d preds| = {err:.3g}, {bracketed} of {B} rows bracketed",
-              flush=True)
+        same = band_paths_agree(args, 30)
+        print(f"  ma_band T={T}: max |d preds| = {err:.3g}, {bracketed} of {B} rows bracketed; "
+              f"{same}", flush=True)
     return worst
+
+
+def band_paths_agree(args, window):
+    """ma_band on every path that serves T: all 8 outputs equal to the
+    unstaged path's (the first design's) bit for bit."""
+    from foremast_tpu_torch import kernels
+
+    T = args[0].shape[1]
+    first = kernels.ma_band(*args[:3], window, *args[3:6], path="unstaged")
+    for path in kernels.BAND_PATHS:
+        if path != "unstaged" and kernels.band_serves(path, T):
+            got = kernels.ma_band(*args[:3], window, *args[3:6], path=path)
+            for key in first:
+                check(same_bits(got[key], first[key]),
+                      f"ma_band T={T}: the {path} path's {key} differs from the unstaged path's")
+    return (f"paths {[p for p in kernels.BAND_PATHS if kernels.band_serves(p, T)]} equal bit for "
+            f"bit")
 
 
 # ---------------------------------------------------------------------------
@@ -2019,6 +2044,27 @@ def adversarial_friedman(B, n, k, rng):
     return d, bm
 
 
+def kruskal_paths_agree(g, gm, default, pH, pp):
+    """kruskal_groups forced onto each path that serves the rows: H and p
+    against the twin's (pH, pp), and equal bit for bit to the default
+    path's and, where the cta path serves, to the cta path's."""
+    from foremast_tpu_torch import kernels
+
+    _, k, T = g.shape
+    served = [path for path in kernels.KRUSKAL_PATHS if kernels.kruskal_serves(path, k, T)]
+    out = {path: kernels.kruskal_groups(g, gm, path=path) for path in served}
+    ref = out.get("cta", default)
+    for path, (H, p) in out.items():
+        close(H, pH, STAT_RTOL, 1e-6, f"kruskal_groups k={k} T={T} {path} path H")
+        close(p, pp, 0.0, P_ATOL, f"kruskal_groups k={k} T={T} {path} path p")
+        check(same_bits(H, ref[0]) and same_bits(p, ref[1]),
+              f"kruskal_groups k={k} T={T}: the {path} path differs from the "
+              f"{'cta' if 'cta' in out else 'default'} path")
+    check(same_bits(default[0], ref[0]) and same_bits(default[1], ref[1]),
+          f"kruskal_groups k={k} T={T}: the default path differs")
+    return served
+
+
 def kernel_o_vs_twin(rng):
     """Kernel O's three entries against their twins: ranks at T from 8 to
     16384 (device scratch above 8192), Kruskal-Wallis at k in {2, 3, 5}
@@ -2044,6 +2090,7 @@ def kernel_o_vs_twin(rng):
                                       close(p, pp, 0.0, P_ATOL, f"kruskal_groups k={k} p"))
         check(bool((p[gm.flatten(1).any(1).logical_not()] == 1.0).all()),
               "kruskal_groups: a fully masked row has p != 1")
+        kruskal_paths_agree(g, gm, (H, p), pH, pp)
     for n, k in FRIEDMAN_CHECK:
         d, bm = (torch.from_numpy(a).to(DEV) for a in adversarial_friedman(256, n, k, rng))
         chi, p = pw.friedman_batch(d, bm, device=DEV)
@@ -2056,7 +2103,9 @@ def kernel_o_vs_twin(rng):
                                 close(p, pp, 0.0, P_ATOL, f"friedman n={n} k={k} p"))
     torch.cuda.synchronize()
     print(f"  rank_and_ties T in (8, 256, 4096, 16384): ranks, tie terms and counts equal; "
-          f"kruskal_groups (k, T) in {KRUSKAL_CHECK}: max |dp| {worst['kruskal_groups']:.3g}; "
+          f"kruskal_groups (k, T) in {KRUSKAL_CHECK}: max |dp| {worst['kruskal_groups']:.3g}, "
+          f"each path that serves a shape forced, the warp path equal to the cta path bit for "
+          f"bit; "
           f"friedman (n, k) in {FRIEDMAN_CHECK}: max |dp| {worst['friedman']:.3g}", flush=True)
     return worst
 
@@ -2312,10 +2361,14 @@ def tests_path(pair_args, bad):
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     paths = dict(kernels.pair_tests_path_launches)
+    k_paths = dict(kernels.kruskal_path_launches)
     for name in ("pair_tests", "rank_and_ties", "kruskal_groups", "friedman"):
         check(launches[name] >= 1, f"the tests phase did not launch {name}")
     check(paths["warp"] == launches["pair_tests"],
           f"the battery at T = {T} ran pair_tests' paths {paths}, not the warp path")
+    check(k_paths["warp"] == launches["kruskal_groups"],
+          f"the battery's kruskal_batch (k = 3, T = {T}) ran kruskal_groups' paths {k_paths}, "
+          f"not the warp path")
     for name, (st, p) in list(out["all"].items()) + [(k, out[k]) for k in (
             "mann_whitney", "wilcoxon", "ks", "kruskal", "friedman")]:
         check(st.shape == (B,) and p.shape == (B,) and bool(torch.isfinite(st).all())
@@ -2365,7 +2418,7 @@ def tests_path(pair_args, bad):
     print(f"  {B} pairs at T = {T}: all_pairwise_tests, the three *_batch, kruskal_batch "
           f"(k = 3), friedman_batch ({FRIEDMAN_N} blocks x 3), rank_and_ties (T = {RANK_T}); "
           f"bad canaries rejected at 0.01: {recall}; launches {launches}; pair_tests by path "
-          f"{paths}", flush=True)
+          f"{paths}; kruskal_groups by path {k_paths}", flush=True)
     print(f"  pair_tests, each battery launch (ms): "
           f"{ {k: round(v, 4) for k, v in battery_ms.items()} }", flush=True)
     result = {}
@@ -2376,6 +2429,7 @@ def tests_path(pair_args, bad):
               f"{bounds[name]['bound_ms']:.4f} ms ({bounds[name]['bound_by']}), max |err| "
               f"against the twin on {c} rows {err:.3g}, launches {launches[name]}", flush=True)
     result["pair_tests"].update(paths=paths, battery_ms=battery_ms)
+    result["kruskal_groups"].update(paths=k_paths)
     pair_tests_paths()
     return result
 
@@ -2542,7 +2596,11 @@ def band_path(gen):
     out = fc.moving_average_band(x, mask, region, 30, thr, mode, mlb, device=DEV)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
+    paths = dict(kernels.band_path_launches)
     check(launches["ma_band"] >= 1, "the band path did not launch ma_band")
+    check(paths[kernels.band_path(T)] == launches["ma_band"] == 1,
+          f"the band path at T = {T} ran ma_band's paths {paths}, not the "
+          f"{kernels.band_path(T)} path once")
     frac = out["count"].float() / out["checked"].clamp(min=1).float()
     flagged = (frac > 0.3).cpu().numpy()
     sh = shifted.cpu().numpy()
@@ -2551,14 +2609,14 @@ def band_path(gen):
     check(recall == 1.0, f"band recall {recall:.4f} < 1")
     check(fp < 0.01, f"band false-positive share {fp:.4f} >= 0.01")
     print(f"  verdicts: recall {recall:.4f} on {int(sh.sum())} shifted rows, false positives "
-          f"{fp:.5f} (limit 0.01); launches {launches}", flush=True)
+          f"{fp:.5f} (limit 0.01); launches {launches}; ma_band by path {paths}", flush=True)
 
     sub = tuple(a[:CHECK_ROWS] for a in args)
     err, bracketed = compare_ma_band(sub, 30, fc.moving_average_band(*sub[:3], 30, *sub[3:],
                                                                       device=DEV),
                                      fc.moving_average_band_plain(*sub[:3], 30, *sub[3:]))
     print(f"  kernel vs twin on {CHECK_ROWS} of these rows: max |d preds| = {err:.3g}, "
-          f"{bracketed} rows bracketed", flush=True)
+          f"{bracketed} rows bracketed; ma_band's {band_paths_agree(sub, 30)}", flush=True)
 
     def run():
         return fc.moving_average_band(x, mask, region, 30, thr, mode, mlb, device=DEV)
@@ -2572,7 +2630,7 @@ def band_path(gen):
     nbytes = B * T * (4 + 1 + 1) + B * 12 + B * T * (4 * 3 + 1) + B * 16
     g = triage_beside_band(args, "bands", TIMED_RUNS)
     return {"launches": launches["ma_band"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **least_time(nbytes, 20 * B * T)}, g
+            "paths": paths, **least_time(nbytes, 20 * B * T)}, g
 
 
 # ---------------------------------------------------------------------------

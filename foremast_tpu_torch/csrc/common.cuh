@@ -503,14 +503,23 @@ __device__ inline float warp_ma_prefix(const float (&x)[R], unsigned hist, const
 
 // One in-lane compare-exchange of a bitonic step: keys a (the lower
 // position) and b, ascending where up.
-__device__ __forceinline__ void bitonic_ce(uint64_t& a, uint64_t& b, bool up) {
-  const uint64_t x = a, y = b;
-  const bool sw = (x > y) == up;
-  a = sw ? y : x;
-  b = sw ? x : y;
+template <typename K>
+__device__ __forceinline__ void bitonic_ce(K& a, K& b, bool up) {
+  const K x = a, y = b;
+  if constexpr (sizeof(K) == 4) {
+    // 32-bit keys: the pair's minimum and maximum, then their places
+    const bool lt = x < y;
+    const K lo = lt ? x : y, hi = lt ? y : x;
+    a = up ? lo : hi;
+    b = up ? hi : lo;
+  } else {
+    const bool sw = (x > y) == up;
+    a = sw ? y : x;
+    b = sw ? x : y;
+  }
 }
 
-// Ascending bitonic sort of a warp's 32 M 64-bit keys in registers: key r
+// Ascending bitonic sort of a warp's 32 M keys (64- or 32-bit) in registers: key r
 // of lane l sits at network position l M + r, so compare-exchanges at a
 // stride below M stay in the lane and those at M and above pair lanes by
 // shfl_xor. M is a power of two. The runs up to M are sorted in the lane,
@@ -518,8 +527,8 @@ __device__ __forceinline__ void bitonic_ce(uint64_t& a, uint64_t& b, bool up) {
 // in a loop over one body and its in-lane strides unrolled, so the code
 // stays short (a kernel's warps run different parts of it at once) and k
 // stays in registers. The sorted keys end in the same order of positions.
-template <int M>
-__device__ __forceinline__ void warp_bitonic_sort(uint64_t (&k)[M]) {
+template <int M, typename K>
+__device__ __forceinline__ void warp_bitonic_sort(K (&k)[M]) {
   constexpr int kLogM = M >= 16 ? 4 : M >= 8 ? 3 : M >= 4 ? 2 : M >= 2 ? 1 : 0;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -542,8 +551,11 @@ __device__ __forceinline__ void warp_bitonic_sort(uint64_t (&k)[M]) {
       const bool keep_min = ((lane & lm) == 0) == up;
 #pragma unroll
       for (int r = 0; r < M; ++r) {
-        const uint64_t o = __shfl_xor_sync(kFullWarp, k[r], lm);
-        k[r] = (keep_min ? o < k[r] : o > k[r]) ? o : k[r];
+        const K o = __shfl_xor_sync(kFullWarp, k[r], lm);
+        if constexpr (sizeof(K) == 4)
+          k[r] = (o < k[r]) == keep_min ? o : k[r];
+        else
+          k[r] = (keep_min ? o < k[r] : o > k[r]) ? o : k[r];
       }
     }
 #pragma unroll

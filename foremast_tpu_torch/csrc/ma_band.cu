@@ -10,7 +10,10 @@
 // Holt-Winters fit) and replaces residual_sigma + band_anomalies alone.
 // History is mask & ~region; the band judges mask & region.
 //
-// Design: one CTA of kBandThreads threads per row.
+// Design: one CTA of kBandThreads threads per row. ma_band has two paths
+// with the same bits (kernels.band_path): up to T = 4096 the staged path
+// (band_staged_kernel below: the row read once, seven block barriers a
+// row); above it, and for band_from_preds, the first design:
 //   1. (ma_band) Block scans build the float64 prefix sums and counts of
 //      the history in shared memory (12 B per slot: 196 KB at T = 16384,
 //      the largest bucket, under the 227 KB a CTA may use); the first
@@ -58,7 +61,19 @@ struct BandArgs {
   int* count;
   int* first_index;
   int* checked;
+  long long* clocks;       // ma_band: null, or (B, kBandStamps) clock64() stamps a row
 };
+
+// With a.clocks set (ma_band), thread 0 stamps the SM clock at a row's
+// start and after each phase, past a block barrier: the loads into the
+// prefix arrays, the two scans and the first-value search, the
+// predictions and sigma, the band, the three reductions. The phase names
+// are kernels.BAND_PHASES; null costs one uniform branch a stamp.
+constexpr int kBandStamps = 6;
+
+__device__ __forceinline__ void bstamp(long long* clocks, int row, int k) {
+  if (clocks != nullptr && threadIdx.x == 0) clocks[size_t(row) * kBandStamps + k] = clock64();
+}
 
 template <bool kPredict>
 __global__ void __launch_bounds__(kBandThreads) band_kernel(BandArgs a) {
@@ -74,7 +89,37 @@ __global__ void __launch_bounds__(kBandThreads) band_kernel(BandArgs a) {
   double* S = reinterpret_cast<double*>(smem);
   int* C = reinterpret_cast<int*>(S + T + 1);
   float first = 0.0f;
-  if constexpr (kPredict) first = ma_prefix(x, mask, region, T, S, C, scr);
+  if constexpr (kPredict) {
+    bstamp(a.clocks, row, 0);
+    if (a.clocks != nullptr) {
+      // the stamped split: ma_prefix's loads, a barrier, then its scans and
+      // its search
+      for (int i = tid; i < T; i += blockDim.x) {
+        const bool h = mask[i] && !region[i];
+        S[i + 1] = h ? double(x[i]) : 0.0;
+        C[i + 1] = h ? 1 : 0;
+      }
+      if (tid == 0) {
+        S[0] = 0.0;
+        C[0] = 0;
+      }
+      __syncthreads();
+      bstamp(a.clocks, row, 1);
+      block_scan(S + 1, T, Add<double>(), 0.0, scr);
+      block_scan(C + 1, T, Add<int>(), 0, scr);
+      if (C[T] > 0) {
+        int lo = 0, hi = T;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (C[mid] >= 1) hi = mid; else lo = mid + 1;
+        }
+        first = x[lo - 1];
+      }
+    } else {
+      first = ma_prefix(x, mask, region, T, S, C, scr);
+    }
+    bstamp(a.clocks, row, 2);
+  }
 
   float ss = 0.0f;
   int nh = 0;  // history points: the prefix counts hold them for ma_band
@@ -95,6 +140,7 @@ __global__ void __launch_bounds__(kBandThreads) band_kernel(BandArgs a) {
   }
   ss = block_sum(ss, scr);
   if constexpr (!kPredict) nh = block_sum(nh, scr);
+  if constexpr (kPredict) bstamp(a.clocks, row, 3);
   const float sigma = nh >= 2 ? sqrtf(ss / fmaxf(float(nh), 1.0f)) : CUDART_INF_F;
 
   const float thr = a.threshold[row] * sigma;
@@ -116,15 +162,390 @@ __global__ void __launch_bounds__(kBandThreads) band_kernel(BandArgs a) {
     checked += chk;
     if (flag) first_flag = min(first_flag, t);
   }
+  if constexpr (kPredict) {
+    if (a.clocks != nullptr) {
+      __syncthreads();
+      bstamp(a.clocks, row, 4);
+    }
+  }
   count = block_sum(count, scr);
   checked = block_sum(checked, scr);
   first_flag = block_reduce(first_flag, Min<int>(), scr);
+  if constexpr (kPredict) bstamp(a.clocks, row, 5);
   if (tid == 0) {
     a.sigma[row] = sigma;
     a.count[row] = count;
     a.first_index[row] = count > 0 ? first_flag : -1;
     a.checked[row] = checked;
   }
+}
+
+// ---------------------------------------------------------------------------
+// ma_band's staged path (T <= kStagedBandT): the row read from device
+// memory once, seven block barriers a row, and the first design's bits.
+//
+//   1. stage: each thread loads its scan chunk of x (block_scan's
+//      contiguous ceil(T / 256) slots, as float4 where T % 4 == 0 and the
+//      chunk is a multiple of 4) into registers and shared memory; each
+//      warp ballots mask and region, 32 slots at a time, into history and
+//      checked bit words.
+//   2. scan: each thread sums its chunk's history into S from 0.0 in turn,
+//      as block_scan does; warp 1 counts the history before each word (C
+//      is those counts plus a popcount) and finds the first history value.
+//      Then warp 0 runs block_scan's Hillis-Steele scan of the 256 chunk
+//      totals in registers (lane l holds totals l + 32 q, q < 8: offsets
+//      1-16 by shuffles, 32-128 within the lane; the same additions in the
+//      same order), and each thread adds its chunk's offset.
+//   3. predict_sigma: each thread predicts its chunk's slots as the first
+//      design does (ma_predict's reads and divisions: S and C at the slot
+//      from its registers, at the window's start from shared memory), keeps
+//      them in registers and writes the history's squared residuals (+0.0
+//      elsewhere) in place of x; then thread tid sums slots tid + 256 j in
+//      j's order, the first design's partial sums, and the warps'
+//      shfl_down trees and the eight totals in order give block_sum's bits.
+//   4. band: the chunk's slots from registers, its outputs written as
+//      float4 (the flags four to a word) where the chunk allows; count,
+//      checked and first index by warp reductions and one barrier.
+// ---------------------------------------------------------------------------
+constexpr int kStagedBandT = 4096;  // kernels.STAGED_BAND_T: 16 slots a thread
+constexpr int kBandWarps = kBandThreads / 32;
+// resident CTAs an SM: 6 (40 registers) up to 4 slots a thread, 4 (64
+// registers) above, where 40 spilled (an H100: 1.275 against 1.486 ms at
+// 100k x 1024, 0.147 against 0.128 ms at 4096 x 2048)
+constexpr int band_staged_blocks(int per) { return per <= 4 ? 6 : 4; }
+
+// The staged row in shared memory: x, S (S[0] = 0, S[j] the float64 sum
+// of the history in [0, j)), the history and checked bits of each word of
+// 32 slots, and the history count before each word (nw + 1 entries each).
+__host__ __device__ inline size_t staged_x_bytes(int T) { return (size_t(T) * 4 + 15) / 16 * 16; }
+__host__ __device__ inline size_t staged_band_bytes(int T) {
+  const size_t nw = size_t(T + 31) / 32 + 1;
+  return staged_x_bytes(T) + size_t(T + 1) * 8 + nw * 12;
+}
+
+// The staged row's prefix sums and history bits: C[j], the history slots
+// in [0, j) for 0 <= j <= T, and ma_mean of common.cuh on them.
+struct StagedPrefix {
+  const double* S;
+  const uint32_t* hb;
+  const int* cw;
+
+  __device__ __forceinline__ int count(int j) const {
+    return cw[j >> 5] + __popc(hb[j >> 5] & ((1u << (j & 31)) - 1u));
+  }
+  __device__ __forceinline__ float mean(int lo, int hi) const {
+    const int c = count(hi) - count(lo);
+    return c > 0 ? float((S[hi] - S[lo]) / double(c)) : 0.0f;
+  }
+};
+
+// ma_predict's value at a slot whose window holds no history, k the
+// history count before the slot: `first` before any history, else the
+// freeze fill, the mean of the window ending just after the k-th history
+// value (the smallest j with C[j] >= k, by bisection as ma_predict finds
+// it). It depends on k alone, so a thread keeps the last one it found.
+__device__ __noinline__ float band_fill(StagedPrefix r, int T, int w, float first, int k) {
+  if (k == 0) return first;
+  int a = 0, b = T;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (r.count(mid) >= k) b = mid; else a = mid + 1;
+  }
+  return r.mean(min(max(a - w, 0), a), a);
+}
+
+// A thread's chunk of len <= PER floats to dst: as float4 where vec (the
+// chunk and the row are whole float4s), else one at a time.
+template <int PER>
+__device__ __forceinline__ void put_chunk(float* dst, const float (&v)[PER], int len, bool vec) {
+  if constexpr (PER >= 4) {
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < PER; q += 4) {
+        if (q < len)
+          *reinterpret_cast<float4*>(dst + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    if (q < len) dst[q] = v[q];
+  }
+}
+
+template <int PER>
+__global__ void __launch_bounds__(kBandThreads, band_staged_blocks(PER))
+    band_staged_kernel(BandArgs a, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double tot[kBandThreads];
+  __shared__ float wss[kBandWarps];
+  __shared__ int wint[3][kBandWarps];
+  __shared__ float first_s;
+  const int row = blockIdx.x, T = a.T, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (T + kBandThreads - 1) / kBandThreads, nw = (T + 31) >> 5;
+  const size_t off = size_t(row) * T;
+  float* xs = reinterpret_cast<float*>(smem);
+  double* S = reinterpret_cast<double*>(smem + staged_x_bytes(T));
+  uint32_t* hb = reinterpret_cast<uint32_t*>(S + T + 1);
+  uint32_t* cb = hb + nw + 1;
+  int* cw = reinterpret_cast<int*>(cb + nw + 1);
+  bstamp(a.clocks, row, 0);
+
+  // 1. stage
+  const int beg = min(tid * per, T), len = min(beg + per, T) - beg;
+  float xr[PER];
+  // every load of the row issued before any is used or stored: no branch
+  // between them (an index past the row reads its last slot, and is
+  // dropped). x: the chunk; mask and region: slots warp 32 + 256 j + lane.
+  const float* xg = a.x + off;
+  uint8_t mg[PER], gg[PER];
+  bool vec4 = false;
+  if constexpr (PER >= 4) vec4 = vec;
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(xg);
+#pragma unroll
+    for (int q = 0; q < PER; q += 4) {
+      const float4 v = __ldg(x4 + min(beg + q, T - 4) / 4);
+      xr[q] = v.x;
+      xr[(q + 1) % PER] = v.y;
+      xr[(q + 2) % PER] = v.z;
+      xr[(q + 3) % PER] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) xr[q] = __ldg(xg + min(beg + q, T - 1));
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int t = min(warp * 32 + kBandThreads * j + lane, T - 1);
+    mg[j] = __ldg(a.mask + off + t);
+    gg[j] = __ldg(a.region + off + t);
+  }
+  put_chunk(xs + beg, xr, len, vec4);
+  uint32_t mbits = 0u, gbits = 0u;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const bool in = warp * 32 + kBandThreads * j + lane < T;
+    mbits |= uint32_t(in && mg[j] != 0) << j;
+    gbits |= uint32_t(in && gg[j] != 0) << j;
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int t0 = warp * 32 + kBandThreads * j;
+    const bool m = (mbits >> j) & 1u, g = (gbits >> j) & 1u;
+    const unsigned h = __ballot_sync(kFullWarp, m && !g), c = __ballot_sync(kFullWarp, m && g);
+    if (lane == 0 && t0 < T) {
+      hb[t0 >> 5] = h;
+      cb[t0 >> 5] = c;
+    }
+  }
+  if (tid == 0) {
+    hb[nw] = cb[nw] = 0u;
+    S[0] = 0.0;
+  }
+  __syncthreads();
+  bstamp(a.clocks, row, 1);
+
+  // 2. scan: the chunk from 0.0 in turn (block_scan's first pass), its
+  // sums kept in registers ...
+  double loc[PER];
+  uint32_t hq = 0u;  // bit q: slot beg + q is history
+  double acc = 0.0;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int i = beg + q;
+    const bool h = q < len && ((hb[min(i, T - 1) >> 5] >> (i & 31)) & 1u);
+    hq |= uint32_t(h) << q;
+    acc = q < len ? acc + (h ? double(xr[q]) : 0.0) : acc;
+    loc[q] = acc;
+  }
+  tot[tid] = acc;
+  if (warp == 1) {
+    // the history count before each word, and the first history value
+    const int per_lane = (nw + 32) / 32;  // words 0..nw, nw + 1 of them
+    int c = 0;
+    for (int u = 0; u < per_lane; ++u) {
+      const int wd = lane * per_lane + u;
+      c += wd < nw ? __popc(hb[wd]) : 0;
+    }
+    const int incl = warp_scan(c, Add<int>());
+    int run = incl - c;
+    for (int u = 0; u < per_lane; ++u) {
+      const int wd = lane * per_lane + u;
+      if (wd <= nw) {
+        cw[wd] = run;
+        const int pc = wd < nw ? __popc(hb[wd]) : 0;
+        if (pc > 0 && run == 0) first_s = xs[32 * wd + __ffs(hb[wd]) - 1];
+        run += pc;
+      }
+    }
+    if (__shfl_sync(kFullWarp, incl, 31) == 0 && lane == 0) first_s = 0.0f;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // ... block_scan's Hillis-Steele scan of the 256 chunk totals, by one
+    // warp: lane l holds totals l + 32 q, q < 8
+    double v[kBandWarps];
+#pragma unroll
+    for (int q = 0; q < kBandWarps; ++q) v[q] = tot[lane + 32 * q];
+#pragma unroll 1
+    for (int sh = 0; sh < 5; ++sh) {
+      const int o = 1 << sh;
+      // from lane - o of the same q, or of q - 1 below the offset (both the
+      // last step's values: q ascending, each shuffled before it changes)
+      double below = 0.0;
+#pragma unroll
+      for (int q = 0; q < kBandWarps; ++q) {
+        const double u = __shfl_sync(kFullWarp, v[q], (lane - o) & 31);
+        v[q] = v[q] + (lane >= o ? u : below);
+        below = u;
+      }
+    }
+#pragma unroll
+    for (int d = 1; d < kBandWarps; d <<= 1) {
+#pragma unroll
+      for (int q = kBandWarps - 1; q >= 0; --q) v[q] = v[q] + (q >= d ? v[q - d] : 0.0);
+    }
+    // each chunk's offset, the scan at the chunk before it, in tot
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < kBandWarps; ++q) {
+      const double mine = lane == 31 ? (q > 0 ? v[q - 1] : 0.0) : v[q];
+      const double got = __shfl_sync(kFullWarp, mine, (lane - 1) & 31);
+      tot[lane + 32 * q] = lane + 32 * q > 0 ? got : 0.0;
+    }
+  }
+  __syncthreads();
+  // ... and each chunk adds its offset: S[i + 1] = pre + its sum to i
+  const double pre = tot[tid];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    if (q < len) S[beg + q + 1] = pre + loc[q];
+  }
+  __syncthreads();
+  bstamp(a.clocks, row, 2);
+
+  // 3. predictions of the chunk's slots: C at the slot from the chunk's
+  // history bits, S at it and both at the window's start from shared
+  // memory; the windowed means side by side, dividing only where the
+  // window holds history (as ma_predict: a warp whose slots all lie past
+  // the history skips the float64 divisions), then the slots whose window
+  // is empty (band_fill)
+  const StagedPrefix r{S, hb, cw};
+  const int w = a.window, c_beg = r.count(beg);
+  float pr[PER];
+  uint32_t empty = 0u;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int t = min(beg + q, T - 1);
+    const int lo = min(max(t - w, 0), t);
+    const int chi = c_beg + __popc(hq & ((1u << q) - 1u)), clo = r.count(lo);
+    pr[q] = 0.0f;
+    if (chi > clo) pr[q] = float((S[t] - S[lo]) / double(chi - clo));
+    empty |= uint32_t(chi <= clo && q < len) << q;
+  }
+  int k_kept = -1;
+  float p_kept = 0.0f;
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    if ((empty >> q) & 1u) {
+      const int k = c_beg + __popc(hq & ((1u << q) - 1u));
+      if (k != k_kept) {
+        p_kept = band_fill(r, T, w, first_s, k);
+        k_kept = k;
+      }
+      pr[q] = p_kept;
+    }
+  }
+  // the squared residuals of the history slots (0 elsewhere) in place of
+  // x, for sigma's sums in the first design's order
+  float rs[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const float e = xr[q] - pr[q];
+    rs[q] = ((hq >> q) & 1u) ? e * e : 0.0f;
+  }
+  put_chunk(xs + beg, rs, len, vec4);
+  __syncthreads();
+  // sigma: thread tid adds slots tid + 256 j in j's order (a slot outside
+  // the history adds +0.0, which leaves a sum of squares as it is), then
+  // block_sum's shfl_down tree in each warp and the warps in order
+  float ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int t = tid + kBandThreads * j;
+    if (t < T) ss = ss + xs[t];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_down_sync(kFullWarp, ss, o);
+  if (lane == 0) wss[warp] = ss;
+  __syncthreads();
+  ss = wss[0];
+  for (int i = 1; i < kBandWarps; ++i) ss = ss + wss[i];
+  const int nh = cw[nw];
+  const float sigma = nh >= 2 ? sqrtf(ss / fmaxf(float(nh), 1.0f)) : CUDART_INF_F;
+  bstamp(a.clocks, row, 3);
+
+  // 4. the band over the chunk
+  const float thr = a.threshold[row] * sigma;
+  const float mlb = a.min_lower_bound[row];
+  int mode = a.bound_mode[row];
+  mode = mode == 0 ? 3 : mode;
+  float up[PER], lw[PER];
+  uint32_t fl = 0u, ck = 0u;  // bit q: slot beg + q flagged, checked
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    up[q] = pr[q] + thr;
+    lw[q] = nan_max(pr[q] - thr, mlb);
+    const int t = min(beg + q, T - 1);
+    const bool chk = q < len && ((cb[t >> 5] >> (t & 31)) & 1u);
+    const bool flag = chk && (((xr[q] > up[q]) && (mode & 1)) || ((xr[q] < lw[q]) && (mode & 2)));
+    fl |= uint32_t(flag) << q;
+    ck |= uint32_t(chk) << q;
+  }
+  put_chunk(a.preds + off + beg, pr, len, vec4);
+  put_chunk(a.upper + off + beg, up, len, vec4);
+  put_chunk(a.lower + off + beg, lw, len, vec4);
+  uint8_t* fo = a.flags + off + beg;
+  if (vec4) {
+#pragma unroll
+    for (int q = 0; q < PER; q += 4) {
+      if (q < len) {
+        const uint32_t f4 = (fl >> q) & 0xFu;
+        *reinterpret_cast<uint32_t*>(fo + q) =
+            (f4 & 1u) | ((f4 & 2u) << 7) | ((f4 & 4u) << 14) | ((f4 & 8u) << 21);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      if (q < len) fo[q] = (fl >> q) & 1u;
+    }
+  }
+  unsigned count = __reduce_add_sync(kFullWarp, unsigned(__popc(fl)));
+  unsigned checked = __reduce_add_sync(kFullWarp, unsigned(__popc(ck)));
+  unsigned first_flag = __reduce_min_sync(kFullWarp, fl ? unsigned(beg + __ffs(fl) - 1) : T);
+  if (lane == 0) {
+    wint[0][warp] = int(count);
+    wint[1][warp] = int(checked);
+    wint[2][warp] = int(first_flag);
+  }
+  bstamp(a.clocks, row, 4);
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0, c = 0, f = T;
+    for (int i = 0; i < kBandWarps; ++i) {
+      n += wint[0][i];
+      c += wint[1][i];
+      f = min(f, wint[2][i]);
+    }
+    a.sigma[row] = sigma;
+    a.count[row] = n;
+    a.first_index[row] = n > 0 ? f : -1;
+    a.checked[row] = c;
+  }
+  bstamp(a.clocks, row, 5);
 }
 
 }  // namespace fm
@@ -135,9 +556,9 @@ extern "C" int fm_ma_band(const float* x, const uint8_t* mask, const uint8_t* re
                           const float* threshold, const int* bound_mode,
                           const float* min_lower_bound, int B, int T, float* preds, float* sigma,
                           float* upper, float* lower, uint8_t* flags, int* count,
-                          int* first_index, int* checked, void* stream) {
+                          int* first_index, int* checked, long long* clocks, void* stream) {
   fm::BandArgs a{x, mask, region, window, nullptr, threshold, bound_mode, min_lower_bound, T,
-                 preds, sigma, upper, lower, flags, count, first_index, checked};
+                 preds, sigma, upper, lower, flags, count, first_index, checked, clocks};
   const size_t smem = ma_band_smem(T);
   cudaError_t e = cudaFuncSetAttribute(fm::band_kernel<true>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -152,7 +573,42 @@ extern "C" int fm_band_from_preds(const float* x, const uint8_t* mask, const uin
                                   int T, float* sigma, float* upper, float* lower, uint8_t* flags,
                                   int* count, int* first_index, int* checked, void* stream) {
   fm::BandArgs a{x, mask, region, 0, preds, threshold, bound_mode, min_lower_bound, T,
-                 nullptr, sigma, upper, lower, flags, count, first_index, checked};
+                 nullptr, sigma, upper, lower, flags, count, first_index, checked, nullptr};
   fm::band_kernel<false><<<B, fm::kBandThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
+}
+
+template <int PER>
+static int launch_band_staged(const fm::BandArgs& a, int B, bool vec, cudaStream_t st) {
+  const size_t smem = fm::staged_band_bytes(a.T);
+  cudaError_t e = cudaFuncSetAttribute(fm::band_staged_kernel<PER>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  fm::band_staged_kernel<PER><<<B, fm::kBandThreads, smem, st>>>(a, vec);
+  return int(cudaGetLastError());
+}
+
+extern "C" int fm_staged_band_t() { return fm::kStagedBandT; }
+
+// ma_band's staged path (T <= 4096), the same arguments as fm_ma_band.
+extern "C" int fm_ma_band_staged(const float* x, const uint8_t* mask, const uint8_t* region,
+                                 int window, const float* threshold, const int* bound_mode,
+                                 const float* min_lower_bound, int B, int T, float* preds,
+                                 float* sigma, float* upper, float* lower, uint8_t* flags,
+                                 int* count, int* first_index, int* checked, long long* clocks,
+                                 void* stream) {
+  if (T < 1 || T > fm::kStagedBandT) return int(cudaErrorInvalidValue);
+  fm::BandArgs a{x, mask, region, window, nullptr, threshold, bound_mode, min_lower_bound, T,
+                 preds, sigma, upper, lower, flags, count, first_index, checked, clocks};
+  const int per = (T + fm::kBandThreads - 1) / fm::kBandThreads;
+  // float4 loads: whole rows of whole float4s, chunks of whole float4s
+  const bool vec = T % 4 == 0 && per % 4 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (fm::next_pow2(per)) {
+    case 1: return launch_band_staged<1>(a, B, vec, st);
+    case 2: return launch_band_staged<2>(a, B, vec, st);
+    case 4: return launch_band_staged<4>(a, B, vec, st);
+    case 8: return launch_band_staged<8>(a, B, vec, st);
+    default: return launch_band_staged<16>(a, B, vec, st);
+  }
 }

@@ -31,6 +31,14 @@
 //     group, a block sum each (k passes of k T positions; k is small). H and
 //     its tie correction in float64, p = gammaincc((k - 1) / 2, H / 2) in
 //     float64 (common.cuh).
+//   - kruskal_groups' warp path (k T <= 512, the battery's k = 3 groups of
+//     T = 128): a warp a row, four rows a CTA, no block barrier on a row's
+//     path. 32-bit keys (the tie group alone: no class bits, no tag) sorted
+//     in registers, 16 a lane at most; each sorted position's doubled rank
+//     from bit masks of run starts and ends and two warp scans; each valid
+//     element's rank found by a binary search of the sorted keys. The same
+//     integers as the CTA path, so H and p have its bits (kruskal_row_warp
+//     below).
 //   - friedman needs no sort: an entry's rank within its block is
 //     #less + (#equal + 1) / 2 under the same key order (ties and NaN as the
 //     reference's rank_and_ties orders them), and the block's tie term is
@@ -39,10 +47,12 @@
 //     treatment and their partial sums meet in shared memory; above it a
 //     thread owns treatments. No limit on k or n.
 //
-// What bounds it on an H100: the sorts' chains of block barriers
-// (log2(n)^2 / 2 steps over n keys), not the bytes (a row's values and
-// masks are read once); friedman's O(n k^2) compares at the fp32 issue
-// rate. Many CTAs per SM at the north-star widths hide the barriers.
+// What bounds it on an H100: on the CTA paths the sorts' chains of block
+// barriers (log2(n)^2 / 2 steps over n keys; at k = 3, T = 128 the sort was
+// 69% of a row's cycles), not the bytes (a row's values and masks are read
+// once); on the warp path the instructions of the register sort and the
+// searches, issued by ~30 warps an SM; friedman's O(n k^2) compares at the
+// fp32 issue rate.
 #include "common.cuh"
 
 namespace fm {
@@ -127,9 +137,35 @@ struct KruskalArgs {
   int B, k, T;
   float* H;
   float* p;
+  long long* clocks;  // null, or (B, kKruskalStamps) clock64() stamps a row
   unsigned char* scratch;
   size_t scratch_stride;
 };
+
+// With a.clocks set, thread 0 stamps the SM clock at a row's start and
+// after each phase, past the phase's last block barrier: the keys' loads
+// and the valid count, the sort, the group bounds' scans, the tie term and
+// the group sums, the tail (H, p and the writes). The phase names are
+// kernels.KRUSKAL_PHASES; null costs one uniform branch a stamp.
+constexpr int kKruskalStamps = 6;
+
+__device__ __forceinline__ void kstamp(long long* clocks, int row, int k) {
+  if (clocks != nullptr && threadIdx.x == 0) clocks[size_t(row) * kKruskalStamps + k] = clock64();
+}
+
+// H and its p from a row's integers, on every path: nvalid values, ssq the
+// sum over groups of R_g^2 / n_g, the tie term sum(t^3 - t).
+__device__ __forceinline__ void kruskal_write(const KruskalArgs& a, int row, int nvalid,
+                                              double ssq, long long tie) {
+  const double N = nvalid;
+  double H = (N * (N + 1.0) == 0.0 ? 12.0 : 12.0 / (N * (N + 1.0))) * ssq - 3.0 * (N + 1.0);
+  const double denom = N * N * N - N;
+  const double corr = 1.0 - double(tie) / (denom == 0.0 ? 1.0 : denom);
+  H = H / (corr == 0.0 ? 1.0 : corr);
+  const bool ok = corr > 0.0 && N > 0.0;
+  a.H[row] = ok ? float(H) : 0.0f;
+  a.p[row] = ok ? float(gammaincc(0.5 * double(a.k - 1), 0.5 * fmax(H, 0.0))) : 1.0f;
+}
 
 __device__ void kruskal_row(const KruskalArgs& a, int row, unsigned char* work, Scratch& scr) {
   const int k = a.k, T = a.T, n = k * T, n_sort = next_pow2(n);
@@ -138,14 +174,18 @@ __device__ void kruskal_row(const KruskalArgs& a, int row, unsigned char* work, 
   uint64_t* keys = reinterpret_cast<uint64_t*>(work);
   int* first = reinterpret_cast<int*>(keys + n_sort);
   int* rev = first + n_sort;
+  kstamp(a.clocks, row, 0);
   int nv = 0;
   for (int i = threadIdx.x; i < n_sort; i += blockDim.x) {
     keys[i] = i < n ? tagged_key(v[i], m[i], uint32_t(i / T)) : kPadKey;
     nv += i < n && m[i];
   }
   const int nvalid = block_sum(nv, scr);
+  kstamp(a.clocks, row, 1);
   bitonic_sort(keys, n_sort);
+  kstamp(a.clocks, row, 2);
   group_bounds(keys, nvalid, first, rev, scr);
+  kstamp(a.clocks, row, 3);
   long long tie = 0;
   for (int p = threadIdx.x; p < nvalid; p += blockDim.x) {
     const int b = first[p], e = rev[nvalid - 1 - p];
@@ -170,17 +210,212 @@ __device__ void kruskal_row(const KruskalArgs& a, int row, unsigned char* work, 
     const double R = double(r2) * 0.5;
     ssq += R * R / (cnt == 0 ? 1.0 : double(cnt));
   }
-  if (threadIdx.x == 0) {
-    const double N = nvalid;
-    double H = (N * (N + 1.0) == 0.0 ? 12.0 : 12.0 / (N * (N + 1.0))) * ssq - 3.0 * (N + 1.0);
-    const double denom = N * N * N - N;
-    const double corr = 1.0 - double(tie) / (denom == 0.0 ? 1.0 : denom);
-    H = H / (corr == 0.0 ? 1.0 : corr);
-    const bool ok = corr > 0.0 && N > 0.0;
-    a.H[row] = ok ? float(H) : 0.0f;
-    a.p[row] = ok ? float(gammaincc(0.5 * double(k - 1), 0.5 * fmax(H, 0.0))) : 1.0f;
-  }
+  kstamp(a.clocks, row, 4);
+  if (threadIdx.x == 0) kruskal_write(a, row, nvalid, ssq, tie);
+  kstamp(a.clocks, row, 5);
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// kruskal_groups' warp path (k T <= kWarpRankKeys): a warp a row,
+// kKruskalWarps rows a CTA, no block barrier on a row's path.
+//
+// The key is 32 bits, the tie group's own: the value as an order-preserving
+// unsigned (-0.0 folded into +0.0), a valid NaN one above +inf's (one group
+// after every valid non-NaN, as class 1 sorts on the CTA path), a masked
+// slot or padding 0xFFFFFFFF, after every valid key. The warp sorts its
+// 32 M keys in registers (M = next_pow2(k T) / 32, at least 1), writes them
+// to its shared memory, and from each sorted position's group bounds (run
+// starts and ends as bit masks a lane, their carries by warp scans) writes
+// the position's doubled rank, first + last + 2. Each valid element then
+// finds the first position of its key by a binary search of the sorted
+// keys, and its doubled rank there. The group sums, counts, the tie term
+// sum(t^3 - t) and the valid count are integers, so H and p, from them by
+// kruskal_write as on the CTA path, have its bits.
+// ---------------------------------------------------------------------------
+constexpr int kKruskalWarps = 4;       // rows a CTA (kernels.KRUSKAL_WARPS)
+constexpr int kKruskalWarpBlocks = 8;  // resident CTAs an SM: 64 registers
+constexpr int kWarpRankKeys = 512;     // kernels.WARP_RANK_KEYS
+constexpr uint32_t kNanKey = 0xFF800001u;
+constexpr uint32_t kMaskedKey = 0xFFFFFFFFu;
+
+__device__ __forceinline__ uint32_t value_key(float v, bool valid) {
+  if (!valid) return kMaskedKey;
+  if (v != v) return kNanKey;
+  const uint32_t b = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// the warp path's stamps, by lane 0 of the row's warp
+__device__ __forceinline__ void kwstamp(long long* clocks, int row, int k) {
+  if (clocks != nullptr && (threadIdx.x & 31) == 0)
+    clocks[size_t(row) * kKruskalStamps + k] = clock64();
+}
+
+// One row by one warp. sorted and twice_rank hold 32 M entries, in_key k T:
+// the warp's own shared memory.
+template <int M>
+__device__ void kruskal_row_warp(const KruskalArgs& a, int row, uint32_t* sorted,
+                                 uint32_t* twice_rank, uint32_t* in_key, bool vec) {
+  constexpr int N = 32 * M;
+  const int k = a.k, T = a.T, n = k * T, lane = threadIdx.x & 31;
+  const float* v = a.groups + size_t(row) * n;
+  const uint8_t* m = a.masks + size_t(row) * n;
+  kwstamp(a.clocks, row, 0);
+  // every load issued before any is used: no branch between them (an index
+  // past the row reads its last element, and is dropped). Where the row is
+  // whole float4s (vec), key 4 u + c of the lane is element
+  // 4 (lane + 32 u) + c, loaded as a float4 and the masks' four bytes as a
+  // word; else key r is element lane + 32 r.
+  uint32_t key[M];
+  uint32_t valid = 0u;  // bit r: key r's element is valid
+  bool vec4 = false;
+  if constexpr (M >= 4) vec4 = vec;
+  if (vec4) {
+    constexpr int V = M >= 4 ? M / 4 : 1;
+    float4 xv[V];
+    uint32_t mw[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int e = min(4 * (lane + 32 * u), n - 4);
+      xv[u] = __ldg(reinterpret_cast<const float4*>(v + e));
+      mw[u] = __ldg(reinterpret_cast<const uint32_t*>(m + e));
+    }
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int e = 4 * (lane + 32 * u);
+      const float x4[4] = {xv[u].x, xv[u].y, xv[u].z, xv[u].w};
+      uint32_t k4[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool ok = e < n && ((mw[u] >> (8 * c)) & 0xFFu) != 0;
+        k4[c] = value_key(x4[c], ok);
+        valid |= uint32_t(ok) << (4 * u + c);
+        key[(4 * u + c) % M] = k4[c];
+      }
+      if (e < n) *reinterpret_cast<uint4*>(in_key + e) = make_uint4(k4[0], k4[1], k4[2], k4[3]);
+    }
+  } else {
+    float xv[M];
+    uint8_t mv[M];
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      const int i = min(lane + 32 * r, n - 1);
+      xv[r] = __ldg(v + i);
+      mv[r] = __ldg(m + i);
+    }
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      const int i = lane + 32 * r;
+      const bool ok = i < n && mv[r] != 0;
+      valid |= uint32_t(ok) << r;
+      key[r] = value_key(xv[r], ok);
+      if (i < n) in_key[i] = key[r];
+    }
+  }
+  const int nv = __popc(valid);
+  const int nvalid = warp_sum(nv);
+  kwstamp(a.clocks, row, 1);
+
+  warp_bitonic_sort(key);
+#pragma unroll
+  for (int r = 0; r < M; ++r) sorted[lane * M + r] = key[r];
+  kwstamp(a.clocks, row, 2);
+
+  // runs of equal keys: bit r of start (end) where position lane M + r
+  // begins (ends) one; a position's group runs from the last start at or
+  // before it to the first end at or after it
+  const uint32_t before = __shfl_up_sync(kFullWarp, key[M - 1], 1);
+  const uint32_t after = __shfl_down_sync(kFullWarp, key[0], 1);
+  uint32_t start = 0u, end = 0u;
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    const bool s = r > 0 ? key[r] != key[r - 1] : (lane == 0 || key[0] != before);
+    const bool e = r < M - 1 ? key[r] != key[r + 1] : (lane == 31 || key[M - 1] != after);
+    start |= uint32_t(s) << r;
+    end |= uint32_t(e) << r;
+  }
+  const int base = lane * M;
+  // the last start below this lane's positions, the first end above them
+  int first_in = warp_scan(start ? base + 31 - __clz(start) : -1, Max<int>());
+  int last_in = end ? base + __ffs(end) - 1 : N;
+#pragma unroll 1
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_down_sync(kFullWarp, last_in, o);
+    if (lane + o < 32) last_in = min(last_in, u);
+  }
+  first_in = __shfl_up_sync(kFullWarp, first_in, 1);
+  last_in = __shfl_down_sync(kFullWarp, last_in, 1);
+  int tie = 0;
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    const int p = base + r;
+    const uint32_t s = start & ((2u << r) - 1u), e = end >> r;
+    const int first = s ? base + 31 - __clz(s) : first_in;
+    const int last = e ? p + __ffs(e) - 1 : last_in;
+    twice_rank[p] = uint32_t(first + last + 2);
+    if ((e & 1u) && p < nvalid) {
+      const int t = p - first + 1;
+      tie += t * t * t - t;
+    }
+  }
+  tie = warp_sum(tie);
+  __syncwarp();
+  kwstamp(a.clocks, row, 3);
+
+  // each of the lane's elements: the first sorted position of its key by a
+  // binary search (U searches side by side), its doubled rank there (below
+  // bit 20) and a count of one (above it), or 0 where masked, written in
+  // place of its key
+  constexpr int U = M < 8 ? M : 8;
+#pragma unroll 1
+  for (int r0 = 0; r0 < M; r0 += U) {
+    uint32_t kk[U];
+    int pos[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = lane + 32 * (r0 + u);
+      kk[u] = i < n ? in_key[i] : kMaskedKey;
+      pos[u] = 0;  // ends as the count of keys below kk[u]
+    }
+#pragma unroll 1
+    for (int step = N >> 1; step > 0; step >>= 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) pos[u] += sorted[pos[u] + step - 1] < kk[u] ? step : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = lane + 32 * (r0 + u);
+      if (i < n) in_key[i] = kk[u] == kMaskedKey ? 0u : twice_rank[pos[u]] + (1u << 20);
+    }
+  }
+  __syncwarp();
+  // sum over groups of R_g^2 / n_g, in group order
+  double ssq = 0.0;
+#pragma unroll 1
+  for (int grp = 0; grp < k; ++grp) {
+    int acc = 0;
+#pragma unroll 1
+    for (int j = lane; j < T; j += 32) acc += int(in_key[grp * T + j]);
+    acc = warp_sum_rolled(acc);
+    const int cnt = acc >> 20;
+    const double R = double(acc & 0xFFFFF) * 0.5;
+    ssq += R * R / (cnt == 0 ? 1.0 : double(cnt));
+  }
+  kwstamp(a.clocks, row, 4);
+  if (lane == 0) kruskal_write(a, row, nvalid, ssq, tie);
+  kwstamp(a.clocks, row, 5);
+}
+
+// A warp a row, kKruskalWarps rows a CTA. A tail warp with no row returns
+// at once: nothing on this path waits for another warp.
+template <int M>
+__global__ void __launch_bounds__(32 * kKruskalWarps, kKruskalWarpBlocks)
+    kruskal_warp_kernel(KruskalArgs a, bool vec) {
+  __shared__ __align__(16) uint32_t work[kKruskalWarps][3][32 * M];
+  const int warp = threadIdx.x >> 5, row = blockIdx.x * kKruskalWarps + warp;
+  if (row >= a.B) return;
+  kruskal_row_warp<M>(a, row, work[warp][0], work[warp][1], work[warp][2], vec);
 }
 
 struct FriedmanArgs {
@@ -325,11 +560,42 @@ extern "C" int fm_rank_and_ties(const float* values, const uint8_t* mask, int B,
 }
 
 extern "C" int fm_kruskal_groups(const float* groups, const uint8_t* masks, int B, int k, int T,
-                                 float* H, float* p, unsigned char* scratch,
+                                 float* H, float* p, long long* clocks, unsigned char* scratch,
                                  long long scratch_stride, int grid, void* stream) {
-  fm::KruskalArgs a{groups, masks, B, k, T, H, p, scratch, size_t(scratch_stride)};
+  fm::KruskalArgs a{groups, masks, B, k, T, H, p, clocks, scratch, size_t(scratch_stride)};
   return launch_sorted(fm::kruskal_kernel<false>, fm::kruskal_kernel<true>, a,
                        (long long)k * T, grid, stream);
+}
+
+extern "C" int fm_kruskal_warps() { return fm::kKruskalWarps; }
+extern "C" int fm_warp_rank_keys() { return fm::kWarpRankKeys; }
+
+template <int M>
+static cudaError_t launch_kruskal_warp(const fm::KruskalArgs& a, int grid, bool vec,
+                                       cudaStream_t st) {
+  fm::kruskal_warp_kernel<M><<<grid, 32 * fm::kKruskalWarps, 0, st>>>(a, vec);
+  return cudaGetLastError();
+}
+
+// kruskal_groups' warp path (k T <= 512): grid CTAs of fm_kruskal_warps() rows.
+extern "C" int fm_kruskal_groups_warp(const float* groups, const uint8_t* masks, int B, int k,
+                                      int T, float* H, float* p, long long* clocks, int grid,
+                                      void* stream) {
+  const long long n = (long long)k * T;
+  if (n < 1 || n > fm::kWarpRankKeys || (long long)grid * fm::kKruskalWarps < B)
+    return int(cudaErrorInvalidValue);
+  fm::KruskalArgs a{groups, masks, B, k, T, H, p, clocks, nullptr, 0};
+  // rows of whole float4s: the values' and masks' loads four elements wide
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(groups) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(masks) % 4 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (fm::next_pow2(int(n) < 32 ? 32 : int(n)) / 32) {
+    case 1: return int(launch_kruskal_warp<1>(a, grid, vec, st));
+    case 2: return int(launch_kruskal_warp<2>(a, grid, vec, st));
+    case 4: return int(launch_kruskal_warp<4>(a, grid, vec, st));
+    case 8: return int(launch_kruskal_warp<8>(a, grid, vec, st));
+    default: return int(launch_kruskal_warp<16>(a, grid, vec, st));
+  }
 }
 
 extern "C" int fm_friedman(const float* data, const uint8_t* block_mask, int B, int n, int k,

@@ -4,7 +4,9 @@
   pairs in one launch, on the path `pair_path` picks by T: a warp a pair
   (T <= WARP_PAIR_T), a CTA a pair, or a CTA a pair from device scratch.
 - Kernel B (``csrc/ma_band.cu``) runs the band chain for B rows: `ma_band`
-  under moving_average_all, `band_from_preds` from given predictions.
+  under moving_average_all, on the path `band_path` picks by T (the row
+  staged once up to STAGED_BAND_T, the first design above it, with the same
+  bits), `band_from_preds` from given predictions.
 - Kernel C, `smooth` (``csrc/smoothers.cu``), runs SES, DES or additive
   Holt-Winters one-step predictions; kernel D, `hw_fit` (same file), the
   Holt-Winters grid fit.
@@ -40,8 +42,10 @@
   Wilcoxon, KS) and the exact sign test on B window pairs, on kernel A's
   device code (``csrc/pair_common.cuh``) and its paths.
 - Kernel O (``csrc/rank_groups.cu``): `rank_and_ties` ranks B masked rows,
-  `kruskal_groups` gives the Kruskal-Wallis H of B sets of k groups and
-  `friedman` the Friedman chi-square of B (n blocks x k treatments) tables.
+  `kruskal_groups` gives the Kruskal-Wallis H of B sets of k groups (on the
+  path `kruskal_path` picks by k T: a warp, a CTA or a CTA from device
+  scratch a row, with the same bits) and `friedman` the Friedman chi-square
+  of B (n blocks x k treatments) tables.
 - Kernel P, `fleet_topk` (``csrc/fleet_topk.cu``), counts a fleet's
   unhealthy rows and finds its k worst severities with their global indices.
 
@@ -50,10 +54,11 @@ outputs (and the scratch a kernel needs), launches on PyTorch's current
 stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch (`lstm_train_backward` launches kernel
 L's two backward entries, counted as `lstm_train_recurrence` and
-`lstm_train_wgrad`; `lstm_ae`, `bivariate`, `pair_verdict` and
-`pair_tests` also count by path, in `lstm_ae_path_launches`,
-`bivariate_path_launches`, `pair_path_launches` and
-`pair_tests_path_launches`).
+`lstm_train_wgrad`; `lstm_ae`, `bivariate`, `pair_verdict`,
+`pair_tests`, `kruskal_groups` and `ma_band` also count by path, in
+`lstm_ae_path_launches`, `bivariate_path_launches`, `pair_path_launches`,
+`pair_tests_path_launches`, `kruskal_path_launches` and
+`band_path_launches`).
 They take CUDA tensors only; the entry points
 (``parallel.fleet.score_pairs``, ``ops.forecast``, ``ops.seqscan``,
 ``ops.triage``, ``ops.bivariate``, ``ops.hpa``, ``ops.pairwise``,
@@ -81,14 +86,17 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "BIVARIATE_PATHS", "BI_SLICE_T", "BI_MAX_CLUSTER", "CTA_SMEM_BYTES", "smooth_hw_warps",
            "pair_path", "pair_warp_grid", "pair_path_launches", "pair_tests_path_launches",
            "PAIR_PATHS", "WARP_PAIR_T", "PAIR_WARPS", "TESTS_PHASES",
-           "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS",
+           "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS", "WARP_RANK_KEYS",
+           "KRUSKAL_PATHS", "KRUSKAL_WARPS", "kruskal_path", "kruskal_serves",
+           "kruskal_warp_grid", "kruskal_path_launches", "STAGED_BAND_T", "BAND_PATHS",
+           "band_path", "band_serves", "band_path_launches",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
            "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
            "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check", "ks_division_check",
-           "PAIR_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES", "ST_FIT_PHASES",
-           "PERIOD_PHASES", "HPA_PHASES", "BI_PHASES", "SMOOTH_HW_PHASES",
+           "PAIR_PHASES", "KRUSKAL_PHASES", "BAND_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES",
+           "ST_FIT_PHASES", "PERIOD_PHASES", "HPA_PHASES", "BI_PHASES", "SMOOTH_HW_PHASES",
            "LSTM_FORWARD_PHASES", "LSTM_AE_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernels A and N run one of three paths (pair_path): up to WARP_PAIR_T a
@@ -101,8 +109,15 @@ SHARED_PAIR_T = 4096
 MAX_PAIR_T = 16384  # MAX_WINDOW_STEPS
 PAIR_PATHS = ("warp", "cta", "scratch")
 PAIR_WARPS = 4  # the warp path's pairs a CTA (fm_pair_warps)
-# kernel B keeps 12 B of prefix sums per slot: MAX_WINDOW_STEPS
+# kernel B keeps 12 B of prefix sums per slot: MAX_WINDOW_STEPS. ma_band runs
+# one of two paths (band_path), with the same bits: up to STAGED_BAND_T the
+# row staged once (x in registers and shared memory, mask and region as bit
+# words, up to 16 slots a thread), above it the first design, which reads
+# its inputs from device memory in each pass. Its path= forces one where it
+# serves T (tests, timing).
 MAX_BAND_T = 16384
+STAGED_BAND_T = 4096
+BAND_PATHS = ("staged", "unstaged")
 # kernel G keeps 12 B a slot (x and the prefix sums) and bit words in shared
 # memory, and a select thread's keys (T / 256) in registers
 MAX_SCREEN_T = 16384
@@ -171,9 +186,17 @@ LSTM_AE_SMEM_BYTES = 232_448
 PAIR_TEST_BITS = {"mann_whitney": 1, "kruskal": 2, "wilcoxon": 4, "ks": 8, "sign": 16}
 # kernel O: a row's sort keys (T for the ranks, k T for Kruskal-Wallis, 16 B
 # each with the scan arrays) live in shared memory up to this many, in
-# device scratch above it, up to MAX_RANK_KEYS (16 MB of scratch a CTA)
+# device scratch above it, up to MAX_RANK_KEYS (16 MB of scratch a CTA).
+# kruskal_groups runs one of three paths (kruskal_path): up to
+# WARP_RANK_KEYS keys a row a warp a row, KRUSKAL_WARPS rows a CTA, the
+# 32-bit keys in registers; up to SHARED_RANK_KEYS a CTA a row in shared
+# memory; above it a CTA a row from device scratch. All three give the same
+# bits. Its path= forces one where it serves the row (tests, timing).
 SHARED_RANK_KEYS = 8192
 MAX_RANK_KEYS = 1 << 20
+WARP_RANK_KEYS = 512
+KRUSKAL_PATHS = ("warp", "cta", "scratch")
+KRUSKAL_WARPS = 4  # the warp path's rows a CTA (fm_kruskal_warps)
 # kernel P keys a row by its global index in 32 bits, and takes at most
 # MAX_FLEET_SLICE rows a launch (its C entry counts rows and kept keys in
 # int)
@@ -222,6 +245,10 @@ LSTM_AE_PHASES = LSTM_FORWARD_PHASES  # kernel K's split is its forward's
 PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans",
                "mw_kw_ks", "exact_tails", "gates_band")
 TESTS_PHASES = PAIR_PHASES[:-1]
+# kernel O's Kruskal-Wallis entry's phases and kernel B's ma_band's, as their
+# optional clock stamps split them
+KRUSKAL_PHASES = ("load", "sort", "bounds", "group_sums", "tail")
+BAND_PHASES = ("load", "scan", "predict_sigma", "band", "reduce")
 
 # kernel K's launches by path (each also counts in launches["lstm_ae"]);
 # kernel H's likewise
@@ -230,6 +257,10 @@ bivariate_path_launches = {"cta": 0, "cluster": 0}
 # kernels A and N's launches by path (each also counts in launches)
 pair_path_launches = {path: 0 for path in PAIR_PATHS}
 pair_tests_path_launches = {path: 0 for path in PAIR_PATHS}
+# kernel O's kruskal_groups launches by path and kernel B's ma_band's (each
+# also counts in launches)
+kruskal_path_launches = {path: 0 for path in KRUSKAL_PATHS}
+band_path_launches = {path: 0 for path in BAND_PATHS}
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
@@ -242,7 +273,7 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     for counts in (lstm_ae_path_launches, bivariate_path_launches, pair_path_launches,
-                   pair_tests_path_launches):
+                   pair_tests_path_launches, kruskal_path_launches, band_path_launches):
         for k in counts:
             counts[k] = 0
 
@@ -394,12 +425,35 @@ def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
     return out
 
 
-def ma_band(x, mask, region, window: int, threshold, bound_mode, min_lower_bound):
-    """Launch kernel B: moving average -> residual sigma -> band, B rows."""
+def band_path(T: int) -> str:
+    """ma_band's path for rows of T slots."""
+    return "staged" if T <= STAGED_BAND_T else "unstaged"
+
+
+def band_serves(path: str, T: int) -> bool:
+    """Whether an ma_band path serves rows of T slots."""
+    return T <= {"staged": STAGED_BAND_T, "unstaged": MAX_BAND_T}[path]
+
+
+def ma_band(x, mask, region, window: int, threshold, bound_mode, min_lower_bound,
+            phase_clocks=None, path=None):
+    """Launch kernel B: moving average -> residual sigma -> band, B rows.
+
+    phase_clocks, an int64 (B, len(BAND_PHASES) + 1) tensor, receives each
+    row's SM clock at its start and after each phase of BAND_PHASES. path
+    forces one of BAND_PATHS (ValueError where it does not serve T).
+    """
     B, T = x.shape
     dev = x.device
     if not 1 <= T <= MAX_BAND_T:
         raise ValueError(f"ma_band supports 1 <= T <= {MAX_BAND_T}; got T = {T}")
+    if path is not None:
+        if path not in BAND_PATHS:
+            raise ValueError(f"ma_band has the paths {BAND_PATHS}; got {path!r}")
+        if not band_serves(path, T):
+            raise ValueError(f"ma_band's staged path serves T <= STAGED_BAND_T = "
+                             f"{STAGED_BAND_T}; got T = {T}")
+    path = path or band_path(T)
     for t, name, dt, shape in (
             (x, "x", torch.float32, (B, T)),
             (mask, "mask", torch.bool, (B, T)),
@@ -408,6 +462,8 @@ def ma_band(x, mask, region, window: int, threshold, bound_mode, min_lower_bound
             (bound_mode, "bound_mode", torch.int32, (B,)),
             (min_lower_bound, "min_lower_bound", torch.float32, (B,))):
         _check(t, name, dt, shape, dev)
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (B, len(BAND_PHASES) + 1), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     out = {
@@ -425,14 +481,16 @@ def ma_band(x, mask, region, window: int, threshold, bound_mode, min_lower_bound
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_ma_band(
+        launch = lib.fm_ma_band_staged if path == "staged" else lib.fm_ma_band
+        rc = launch(
             _ptr(x), _ptr(mask), _ptr(region), int(window), _ptr(threshold),
             _ptr(bound_mode), _ptr(min_lower_bound), B, T,
             _ptr(out["preds"]), _ptr(out["sigma"]), _ptr(out["upper"]), _ptr(out["lower"]),
             _ptr(out["flags"]), _ptr(out["count"]), _ptr(out["first_index"]),
-            _ptr(out["checked"]), ctypes.c_void_p(stream))
+            _ptr(out["checked"]), _opt(phase_clocks), ctypes.c_void_p(stream))
     _raise_on(rc, "ma_band", lib)
     launches["ma_band"] += 1
+    band_path_launches[path] += 1
     return out
 
 
@@ -1310,27 +1368,74 @@ def rank_and_ties(values, mask):
     return ranks, tie, n
 
 
-def kruskal_groups(groups, masks):
+def kruskal_path(k: int, T: int) -> str:
+    """kruskal_groups' path for rows of k groups of T slots."""
+    n = k * T
+    if n <= WARP_RANK_KEYS:
+        return "warp"
+    return "cta" if n <= SHARED_RANK_KEYS else "scratch"
+
+
+def kruskal_serves(path: str, k: int, T: int) -> bool:
+    """Whether a kruskal_groups path serves rows of k groups of T slots."""
+    limit = {"warp": WARP_RANK_KEYS, "cta": SHARED_RANK_KEYS, "scratch": MAX_RANK_KEYS}[path]
+    return k * T <= limit
+
+
+def kruskal_warp_grid(B: int) -> int:
+    """CTAs of kruskal_groups' warp path for B rows: a warp a row,
+    KRUSKAL_WARPS a CTA."""
+    return -(-B // KRUSKAL_WARPS)
+
+
+def kruskal_groups(groups, masks, phase_clocks=None, path=None):
     """Launch kernel O's Kruskal-Wallis entry on B sets of k masked groups
-    ((B, k, T) float32, bool masks). Returns H and p, (B,) float32."""
+    ((B, k, T) float32, bool masks). Returns H and p, (B,) float32.
+
+    phase_clocks, an int64 (B, len(KRUSKAL_PHASES) + 1) tensor, receives
+    each row's SM clock at its start and after each phase of KRUSKAL_PHASES.
+    path forces one of KRUSKAL_PATHS (ValueError where it does not serve k T).
+    """
     B, k, T = groups.shape
+    if k * T > MAX_RANK_KEYS:
+        raise ValueError(f"kruskal_groups sorts at most {MAX_RANK_KEYS} keys a row; got {k * T}")
+    if path is not None:
+        if path not in KRUSKAL_PATHS:
+            raise ValueError(f"kruskal_groups has the paths {KRUSKAL_PATHS}; got {path!r}")
+        if not kruskal_serves(path, k, T):
+            limit = {"warp": "WARP_RANK_KEYS", "cta": "SHARED_RANK_KEYS",
+                     "scratch": "MAX_RANK_KEYS"}[path]
+            raise ValueError(f"kruskal_groups' {path} path serves k T <= {limit} = "
+                             f"{globals()[limit]}; got k T = {k * T}")
     dev = groups.device
     _check(groups, "groups", torch.float32, (B, k, T), dev)
     _check(masks, "masks", torch.bool, (B, k, T), dev)
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (B, len(KRUSKAL_PHASES) + 1), dev)
     H = torch.empty(B, dtype=torch.float32, device=dev)
     p = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return H, p
     if k * T == 0:
         return H.zero_(), p.fill_(1.0)
+    path = path or kruskal_path(k, T)
     lib = build.library()
-    scratch, stride, grid = _rank_scratch(lib, B, k * T, "kruskal_groups", dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_kruskal_groups(_ptr(groups), _ptr(masks), B, k, T, _ptr(H), _ptr(p),
-                                   _opt(scratch), stride, grid, ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if path == "warp":
+            rc = lib.fm_kruskal_groups_warp(_ptr(groups), _ptr(masks), B, k, T, _ptr(H), _ptr(p),
+                                            _opt(phase_clocks), kruskal_warp_grid(B), stream)
+        else:
+            scratch, stride, grid = None, 0, B
+            if path == "scratch":
+                stride = lib.fm_rank_work_bytes(k * T)
+                grid = max(1, min(B, SCRATCH_BYTES // stride))
+                scratch = torch.empty(grid * stride, dtype=torch.uint8, device=dev)
+            rc = lib.fm_kruskal_groups(_ptr(groups), _ptr(masks), B, k, T, _ptr(H), _ptr(p),
+                                       _opt(phase_clocks), _opt(scratch), stride, grid, stream)
     _raise_on(rc, "kruskal_groups", lib)
     launches["kruskal_groups"] += 1
+    kruskal_path_launches[path] += 1
     return H, p
 
 

@@ -121,8 +121,10 @@ def _declare(lib):
     lib.fm_pair_warps.restype = I
     lib.fm_ks_division_check.argtypes = [P, P]
     lib.fm_ks_division_check.restype = I
-    lib.fm_ma_band.argtypes = [P, P, P, I, P, P, P, I, I] + [P] * 8 + [P]
+    lib.fm_ma_band.argtypes = [P, P, P, I, P, P, P, I, I] + [P] * 8 + [P, P]
     lib.fm_ma_band.restype = I
+    lib.fm_ma_band_staged.argtypes = [P, P, P, I, P, P, P, I, I] + [P] * 8 + [P, P]
+    lib.fm_ma_band_staged.restype = I
     lib.fm_band_from_preds.argtypes = [P] * 7 + [I, I] + [P] * 7 + [P]
     lib.fm_band_from_preds.restype = I
     lib.fm_smooth.argtypes = [I] + [P] * 4 + [I, I, I, P, P]
@@ -192,8 +194,16 @@ def _declare(lib):
     lib.fm_rank_work_bytes.restype = LL
     lib.fm_rank_and_ties.argtypes = [P, P, I, I, P, P, P, P, LL, I, P]
     lib.fm_rank_and_ties.restype = I
-    lib.fm_kruskal_groups.argtypes = [P, P, I, I, I, P, P, P, LL, I, P]
+    lib.fm_kruskal_groups.argtypes = [P, P, I, I, I, P, P, P, P, LL, I, P]
     lib.fm_kruskal_groups.restype = I
+    lib.fm_kruskal_groups_warp.argtypes = [P, P, I, I, I, P, P, P, I, P]
+    lib.fm_kruskal_groups_warp.restype = I
+    lib.fm_kruskal_warps.argtypes = []
+    lib.fm_kruskal_warps.restype = I
+    lib.fm_warp_rank_keys.argtypes = []
+    lib.fm_warp_rank_keys.restype = I
+    lib.fm_staged_band_t.argtypes = []
+    lib.fm_staged_band_t.restype = I
     lib.fm_friedman.argtypes = [P, P, I, I, I, P, P, P]
     lib.fm_friedman.restype = I
     lib.fm_fleet_topk_scratch_bytes.argtypes = [LL, LL]

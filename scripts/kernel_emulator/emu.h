@@ -296,6 +296,8 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(int(x)); }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline long long clock64() { return 1; }
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 inline unsigned __float_as_uint(float f) {
   unsigned u;
   std::memcpy(&u, &f, 4);

@@ -2,7 +2,7 @@
 """Run the port's CUDA kernels on the CPU, under a host emulation of CUDA.
 
     python scripts/kernel_emulator/emulate.py     # every kernel vs its twin
-    python scripts/kernel_emulator/emulate.py --parent DIR   # and A, N, K, L's forward, J, F, I vs DIR's
+    python scripts/kernel_emulator/emulate.py --parent DIR   # and A-B, F, I-L, N, O vs DIR's
 
 For a machine without nvcc or a card. `build()` compiles
 ``foremast_tpu_torch/csrc/*.cu`` with g++ against ``emu.h`` (after textual
@@ -147,7 +147,8 @@ def install() -> None:
     kbuild.library = lambda: lib
     kernels._check = _check
     torch.cuda.device = lambda dev: contextlib.nullcontext()
-    torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(cuda_stream=0)
+    torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(
+        cuda_stream=0, synchronize=lambda: None)
 
 
 def _err(a, b) -> float:
@@ -250,7 +251,111 @@ def parent_check(parent: str) -> int:
         failures += not ok
     failures += parent_check_f_i(lib, parent, g)
     failures += parent_check_a_n(lib)
+    failures += parent_check_o_b(lib, parent, g)
     cs.DEV = saved_dev
+    return failures
+
+
+def _takes_clocks(csrc, name, entry):
+    """Whether the C entry `entry` in csrc/name takes the clock pointer."""
+    text = open(os.path.join(csrc, name)).read()
+    start = text.index(f'extern "C" int {entry}(')
+    return "clocks" in text[start:text.index(")", start)]
+
+
+def parent_check_o_b(lib, parent, g) -> int:
+    """Kernel O's kruskal_groups and kernel B's ma_band of the parent's
+    library `lib` (their C entries as the parent declares them) against this
+    tree's paths, H and p and all 8 band outputs bit for bit; then kernel O's
+    rank_and_ties and friedman, kernel B's band_from_preds and kernel G's
+    triage_screen, which this tree leaves as they were, through this tree's
+    launchers on the parent's library. NaN payloads aside. Returns the
+    failures."""
+    import chip_smoke as cs
+    from foremast_tpu_torch.ops import forecast as fc
+
+    P_, I_, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    csrc = os.path.join(parent, "foremast_tpu_torch", "csrc")
+    k_clk = [None] if _takes_clocks(csrc, "rank_groups.cu", "fm_kruskal_groups") else []
+    b_clk = [None] if _takes_clocks(csrc, "ma_band.cu", "fm_ma_band") else []
+    lib.fm_kruskal_groups.argtypes = [P_, P_, I_, I_, I_, P_, P_] + [P_] * len(k_clk) + [P_, LL,
+                                                                                         I_, P_]
+    lib.fm_ma_band.argtypes = [P_, P_, P_, I_, P_, P_, P_, I_, I_] + [P_] * (8 + len(b_clk)) + [P_]
+    lib.fm_rank_work_bytes.argtypes = [LL]
+    lib.fm_rank_work_bytes.restype = LL
+
+    def ptr(t):
+        return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+    failures = 0
+    rng = np.random.default_rng(15)
+    for k, T, B in ((2, 20, 9), (3, 50, 9), (5, 7, 6), (3, 128, 9), (4, 128, 6), (16, 32, 5),
+                    (512, 1, 4), (3, 171, 5), (3, 3000, 4)):
+        gr, gm = (torch.from_numpy(a) for a in cs.adversarial_groups(B, k, T, rng))
+        H, p = torch.empty(B), torch.empty(B)
+        n = k * T
+        scratch, stride, grid = None, 0, B
+        if n > kernels.SHARED_RANK_KEYS:
+            stride = lib.fm_rank_work_bytes(n)
+            scratch = torch.empty(B * stride, dtype=torch.uint8)
+        rc = lib.fm_kruskal_groups(ptr(gr), ptr(gm), B, k, T, ptr(H), ptr(p), *k_clk,
+                                   ptr(scratch), stride, grid, None)
+        ours = kernels.kruskal_groups(gr, gm)
+        ok = rc == 0 and _same(ours[0], H) and _same(ours[1], p)
+        print(f"{'ok  ' if ok else 'FAIL'} kruskal_groups k={k} T={T} "
+              f"({kernels.kruskal_path(k, T)} path) against the parent's: H and p bit for bit",
+              flush=True)
+        failures += not ok
+    for T, B, w in ((64, 9, 30), (100, 9, 7), (1000, 6, 30), (1024, 6, 30), (3000, 3, 50),
+                    (4096, 2, 30), (4100, 2, 30)):
+        a = cs.adversarial_bands(B, T, g)
+        ref = {k: torch.empty(B, T) for k in ("preds", "upper", "lower")}
+        ref["flags"] = torch.empty(B, T, dtype=torch.bool)
+        ref["sigma"] = torch.empty(B)
+        for k in ("count", "first_index", "checked"):
+            ref[k] = torch.empty(B, dtype=torch.int32)
+        rc = lib.fm_ma_band(*(ptr(t) for t in a[:3]), w, *(ptr(t) for t in a[3:6]), B, T,
+                            *(ptr(ref[k]) for k in ("preds", "sigma", "upper", "lower", "flags",
+                                                     "count", "first_index", "checked")),
+                            *b_clk, None)
+        ours = kernels.ma_band(*a[:3], w, *a[3:6])
+        ok = rc == 0 and all(_same(ours[k], ref[k]) for k in ref)
+        print(f"{'ok  ' if ok else 'FAIL'} ma_band T={T} window {w} ({kernels.band_path(T)} "
+              f"path) against the parent's: all 8 outputs bit for bit", flush=True)
+        failures += not ok
+    # the entries this tree leaves as they were, on the parent's library
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    v8 = {T: [torch.from_numpy(a) for a in cs.adversarial_ranks(7, T, rng)] for T in (8, 300, 9000)}
+    fr = [torch.from_numpy(a) for a in cs.adversarial_friedman(9, 12, 3, rng)]
+    x, m, region, *_, thr, mode, mlb = cs.adversarial_series(9, 300, g)
+    preds = torch.where(torch.isfinite(x), x, 30.0) + 1.0
+    scr = cs.adversarial_screen(9, 300, g)
+
+    def run():
+        return ([kernels.rank_and_ties(*v) for v in v8.values()], kernels.friedman(*fr),
+                kernels.band_from_preds(x, m, region, preds, thr, mode, mlb),
+                kernels.triage_screen(scr[0], scr[1], scr[2], cs.TRIAGE_WINDOW, *scr[3:]))
+
+    ours = run()
+    mine = kbuild.library
+    kbuild.library = lambda: lib
+    try:
+        theirs = run()
+    finally:
+        kbuild.library = mine
+    names = ("rank_and_ties", "friedman", "band_from_preds", "triage_screen")
+    for name, u, t in zip(names, ours, theirs):
+        if isinstance(u, dict):
+            ok = all(_same(u[k], t[k]) for k in u)
+        elif name == "rank_and_ties":
+            ok = all(_same(a, b) for uu, tt in zip(u, t) for a, b in zip(uu, tt))
+        else:
+            ok = all(_same(a, b) for a, b in zip(u, t))
+        print(f"{'ok  ' if ok else 'FAIL'} {name} against the parent's: every output bit for bit",
+              flush=True)
+        failures += not ok
+    del fc, pw
     return failures
 
 
@@ -293,6 +398,8 @@ def parent_check_a_n(lib) -> int:
 
 def _same(a, b) -> bool:
     """Equal bit for bit, NaN payloads aside (the card's NaN is canonical)."""
+    if a.element_size() not in (4, 8):
+        return a.dtype == b.dtype and torch.equal(a, b)
     nan = torch.isnan(a.float()) & torch.isnan(b.float())
     return bool(torch.equal(_bits(a)[~nan], _bits(b)[~nan]))
 
@@ -687,8 +794,11 @@ def pair_paths_check(cs, expect) -> None:
 
 
 def new_kernels_check(cs, expect) -> None:
-    """Kernels N, O and P against their twins, with chip_smoke's adversarial
-    rows and comparisons, device scratch and grid-stride walks included."""
+    """Kernels N, O, B's ma_band and P against their twins, with chip_smoke's
+    adversarial rows and comparisons, device scratch and grid-stride walks
+    included, and each path of O's Kruskal-Wallis entry and of ma_band
+    against the others bit for bit."""
+    from foremast_tpu_torch.ops import forecast as fc
     from foremast_tpu_torch.ops import pairwise as pw
     from foremast_tpu_torch.ops import ranks as rk
     from foremast_tpu_torch.parallel import fleet as fl
@@ -720,16 +830,40 @@ def new_kernels_check(cs, expect) -> None:
             expect(f"rank_and_ties T={T}", True, "ranks, tie terms and counts equal")
         except AssertionError as err:
             expect(f"rank_and_ties T={T}", False, str(err))
-    for k, T in ((2, 20), (3, 20), (5, 7), (3, 3000)):
+    # kernel O's Kruskal-Wallis entry on each path that serves k T (the warp
+    # path's M = 1 to 16 keys a lane, a row of 512 groups of one slot, the
+    # last CTA's tail warps idle), the paths equal to the cta path's bits
+    for k, T in ((2, 20), (3, 20), (5, 7), (3, 3000), (2, 64), (3, 128), (4, 128), (16, 32),
+                 (512, 1), (7, 73), (3, 171)):
         g, gm = (torch.from_numpy(a) for a in cs.adversarial_groups(7, k, T, rng))
         try:
-            H, p = kernels.kruskal_groups(g, gm)
             pH, pp = pw.kruskal_plain(g, gm)
-            cs.close(H, pH, cs.STAT_RTOL, 1e-6, "H")
-            e = cs.close(p, pp, 0.0, cs.P_ATOL, "p")
-            expect(f"kruskal_groups k={k} T={T}", True, f"max |dp| {e:.3g}")
+            e = 0.0
+            served = [q for q in kernels.KRUSKAL_PATHS if kernels.kruskal_serves(q, k, T)]
+            out = {q: kernels.kruskal_groups(g, gm, path=q) for q in served}
+            ref = out.get("cta", out["scratch"])
+            for q, (H, p) in out.items():
+                cs.close(H, pH, cs.STAT_RTOL, 1e-6, f"{q} H")
+                e = max(e, cs.close(p, pp, 0.0, cs.P_ATOL, f"{q} p"))
+                cs.check(cs.same_bits(H, ref[0]) and cs.same_bits(p, ref[1]),
+                         f"the {q} path differs from the cta path")
+            expect(f"kruskal_groups k={k} T={T}", True,
+                   f"max |dp| {e:.3g}; paths {served} equal bit for bit")
         except AssertionError as err:
             expect(f"kruskal_groups k={k} T={T}", False, str(err))
+    # kernel B's ma_band on each path that serves T, equal bit for bit; T =
+    # 1000 and 3000: chunks of 4 and 12 slots, 1 and 33: part of a warp
+    g = torch.Generator().manual_seed(15)
+    for T, B, w in ((1, 3, 30), (33, 9, 5), (128, 17, 30), (300, 9, 7), (600, 9, 1),
+                    (1000, 8, 30), (1024, 8, 30), (3000, 3, 50), (4096, 2, 30)):
+        a = cs.adversarial_bands(B, T, g)
+        try:
+            cs.compare_ma_band(a, w, kernels.ma_band(*a[:3], w, *a[3:6]),
+                               fc.moving_average_band_plain(*a[:3], w, *a[3:6]))
+            expect(f"ma_band T={T} window {w}", True,
+                   f"against the twin; {cs.band_paths_agree(a, w)}")
+        except AssertionError as err:
+            expect(f"ma_band T={T} window {w}", False, str(err))
     for n, k in ((12, 3), (5, 200), (30, 6)):
         d, bm = (torch.from_numpy(a) for a in cs.adversarial_friedman(10, n, k, rng))
         try:
@@ -759,8 +893,9 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold kernels A, N, K, L's forward, J, F and I against those of "
-                         "the checkout in DIR (e.g. a git archive of the parent commit)")
+                    help="also hold kernels A, N, K, L's forward, J, F, I, O and B (and G) "
+                         "against those of the checkout in DIR (e.g. a git archive of the parent "
+                         "commit)")
     opt = ap.parse_args()
     install()
     bad = self_check()

@@ -96,6 +96,43 @@ def ks_step_instructions(src, kernel, registers):
             "registers": registers}
 
 
+def _find(lines, text, after=0):
+    return next(i + 1 for i in range(after, len(lines)) if text in lines[i])
+
+
+def kruskal_row_instructions(src, kernel, M):
+    """SASS instructions a row of kernel O's Kruskal-Wallis warp path runs
+    in its register sort and in its lookups, in the instance `kernel` of M
+    keys a lane: the compare-exchanges' code (bitonic_ce, common.cuh) over
+    the network's in-lane exchanges (M/2 log M (log M + 1) / 2 in the runs
+    up to M, M/2 log M after each of the 5 longer merges), the cross-lane
+    step's (one shuffle and the exchange a key) over its 15 steps, and the
+    binary search's step over its log2(32 M) steps for each of the M keys
+    a lane. The sort's in-lane exchanges are one body inlined at two
+    places (the first runs, and once inside the merges' loop), so their
+    instructions are split by the exchanges each place holds."""
+    counts = line_counts(src, kernel)
+    common = os.path.join(os.path.dirname(os.path.abspath(src)), "common.cuh")
+    with open(common) as f:
+        lc = f.read().splitlines()
+    with open(src) as f:
+        lr = f.read().splitlines()
+    ce = _find(lc, "void bitonic_ce(")
+    ce_end = _find(lc, "}", _find(lc, "} else {", ce))  # the 64-bit branch's end
+    cross = _find(lc, "const K o = __shfl_xor_sync(kFullWarp, k[r], lm);")
+    search = _find(lr, "pos[u] += sorted[pos[u] + step - 1]")
+    log_m = M.bit_length() - 1
+    first, after = M // 2 * log_m * (log_m + 1) // 2, M // 2 * log_m
+    ce_ins = sum(counts[("common.cuh", n)] for n in range(ce + 1, ce_end))
+    x_ins = sum(counts[("common.cuh", n)] for n in range(cross + 1, cross + 5)) + M
+    s_ins = counts[(os.path.basename(src), search)]
+    unroll = min(M, 8)
+    sort = ce_ins / max(first + after, 1) * (first + 5 * after) + 15 * x_ins
+    lookups = s_ins * (5 + log_m) * (M // unroll)
+    return {"sort": sort, "lookups": lookups, "compare_exchange": ce_ins / max(first + after, 1),
+            "cross_step": x_ins, "search_step": s_ins}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("src")

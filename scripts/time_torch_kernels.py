@@ -722,6 +722,178 @@ def pairs_ab(profile):
     return res
 
 
+KRUSKAL_KT = ((2, 64), (5, 64), (4, 128))  # k T = 128, 320, 512 at 100,000 rows
+KRUSKAL_LONG = ((3, 1024, 20_000), (3, 16384, 512))  # (k, T, B): the CTA and scratch paths
+BAND_DIGEST_T = (128, 1000, 1024, 2048, 16384)
+
+
+def _ptxas(names):
+    """ptxas' lines of the kernels whose mangled names hold one of names."""
+    from foremast_tpu_torch.kernels import build
+
+    lines, keep = [], False
+    for line in build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            keep = any(n in line for n in names)
+        if keep and ("Compiling entry" in line or "registers" in line or "spill" in line):
+            lines.append(line.split("ptxas info")[-1].strip())
+    for line in lines:
+        print("  ptxas: " + line, flush=True)
+    return lines
+
+
+def _split(kernel, run, B, names, what, off_ms):
+    """stamp_split, then the time unstamped again, where the checkout's
+    launcher takes the stamps."""
+    r = stamp_split(f"{kernel} {what}", run, B, names, off_ms)
+    r["ms_after"] = cs.cuda_ms(run, cs.TIMED_RUNS)
+    print(f"    unstamped again: {r['ms_after']:.3f} ms", flush=True)
+    return r
+
+
+def kruskal_band(profile, only=None):
+    """Kernel O's kruskal_groups and kernel B's ma_band at the shapes above
+    (only: "kruskal" or "band", one of them): times, digests, paths and
+    (profile) their splits."""
+    from foremast_tpu_torch import kernels
+
+    paths_k = getattr(kernels, "KRUSKAL_PATHS", ()) if _takes_path(kernels.kruskal_groups) else ()
+    paths_b = getattr(kernels, "BAND_PATHS", ()) if _takes_path(kernels.ma_band) else ()
+    clocks_k = profile and _takes_clocks(kernels.kruskal_groups)
+    clocks_b = profile and _takes_clocks(kernels.ma_band)
+    res = {}
+
+    def timed(what, run):
+        ms = median_back_to_back_ms(run, cs.TIMED_RUNS)
+        out = run()
+        sha = _out_digest(out if isinstance(out, dict) else tuple(out))
+        print(f"  {what}: {ms:.3f} ms (median of {cs.TIMED_RUNS}), sha256 {sha}", flush=True)
+        res[what] = {"ms": ms, "sha256": sha}
+        return ms
+
+    def kruskal_shape(what, g, gm):
+        B, k, T = g.shape
+        ms = timed(f"kruskal_groups {what}", lambda: kernels.kruskal_groups(g, gm))
+        for path in paths_k:
+            if kernels.kruskal_serves(path, k, T):
+                timed(f"kruskal_groups {what}, {path} path forced",
+                      lambda: kernels.kruskal_groups(g, gm, path=path))
+        if clocks_k:
+            res[f"kruskal_groups {what} split"] = _split(
+                "kruskal_groups", lambda **kw: kernels.kruskal_groups(g, gm, **kw), B,
+                kernels.KRUSKAL_PHASES, what, ms)
+
+    if only != "band":
+        kruskal_all(res, timed, kruskal_shape, profile)
+    if only != "kruskal":
+        band_all(res, timed, paths_b, clocks_b)
+    if profile:
+        res["ptxas"] = _ptxas(("kruskal", "band_kernel", "band_staged"))
+    return res
+
+
+def kruskal_floor(B, M=16):
+    """The warp path's own floor at B rows of M keys a lane: the SASS
+    instructions of its register sort and lookups a row
+    (scripts/sass_lines.py) at the issue rate (4 warp instructions a clock
+    an SM at the max SM clock)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import sass_lines
+
+    src = os.path.join(os.getcwd(), "foremast_tpu_torch", "csrc", "rank_groups.cu")
+    ins = sass_lines.kruskal_row_instructions(src, f"kruskal_warp_kernelILi{M}E", M)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    per_row = ins["sort"] + ins["lookups"]
+    ms = per_row * B / (4 * sms * mhz * 1e6) * 1e3
+    print(f"  kruskal_groups' warp path, its own floor: {ins} SASS instructions a row (sort, "
+          f"lookups; a compare-exchange, a cross-lane step, a search step), {per_row:.0f} a "
+          f"row over {B} rows: {ms:.4f} ms at 4 a clock an SM ({sms} SMs, {mhz:.0f} MHz)",
+          flush=True)
+    return {**ins, "floor_ms": ms}
+
+
+def kruskal_all(res, timed, kruskal_shape, profile=False):
+    """--kruskal-band's Kruskal-Wallis shapes and digests."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    args = cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0]
+    _, (g, gm), _, _ = cs.tests_inputs(args)
+    kruskal_shape("pass 100000 x 3 x 128", g, gm)
+    timed("kruskal_batch pass 100000 x 3 x 128", lambda: pw.kruskal_batch(g, gm, device=cs.DEV))
+    if profile and hasattr(kernels, "WARP_RANK_KEYS"):
+        res["kruskal floor"] = kruskal_floor(g.shape[0])
+    if hasattr(kernels, "kruskal_path_launches"):
+        kernels.reset_launches()
+        pw.kruskal_batch(g, gm, device=cs.DEV)
+        res["kruskal paths at the pass"] = dict(kernels.kruskal_path_launches)
+        print(f"  kruskal_groups paths on the pass: {res['kruskal paths at the pass']}",
+              flush=True)
+    del g, gm
+    for k, T in KRUSKAL_KT:
+        g, gm = (torch.from_numpy(a).to(cs.DEV) for a in cs.adversarial_groups(
+            100_000, k, T, np.random.default_rng(cs.SEED + k * T)))
+        kruskal_shape(f"adversarial 100000 x {k} x {T}", g, gm)
+        del g, gm
+    for k, T, B in KRUSKAL_LONG:
+        g, gm = (torch.from_numpy(a).to(cs.DEV) for a in cs.adversarial_groups(
+            B, k, T, np.random.default_rng(cs.SEED + k * T)))
+        kruskal_shape(f"adversarial {B} x {k} x {T}", g, gm)
+        del g, gm
+    for k, T in cs.KRUSKAL_CHECK + ((4, 128),):
+        B = 32 if k * T > 8192 else 512
+        g, gm = (torch.from_numpy(a).to(cs.DEV) for a in cs.adversarial_groups(
+            B, k, T, np.random.default_rng(cs.SEED - k * T)))
+        sha = _out_digest(tuple(kernels.kruskal_groups(g, gm)))
+        res[f"kruskal_groups check {B} x {k} x {T}"] = {"sha256": sha}
+        print(f"  kruskal_groups on adversarial rows {B} x {k} x {T}: sha256 {sha}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def band_all(res, timed, paths_b, clocks_b):
+    """--kruskal-band's ma_band shapes and digests, band_from_preds beside."""
+    from foremast_tpu_torch import kernels
+
+    def band_shape(what, a, window):
+        B = a[0].shape[0]
+        ms = timed(f"ma_band {what}", lambda: kernels.ma_band(*a[:3], window, *a[3:6]))
+        # the yardstick of bytes: kernel B's other entry moves 19 B a slot
+        # too (x, mask, region and preds in; upper, lower and flags out)
+        preds = kernels.ma_band(*a[:3], window, *a[3:6])["preds"]
+        timed(f"band_from_preds {what}", lambda: kernels.band_from_preds(*a[:3], preds, *a[3:6]))
+        del preds
+        for path in paths_b:
+            if kernels.band_serves(path, a[0].shape[1]):
+                timed(f"ma_band {what}, {path} path forced",
+                      lambda: kernels.ma_band(*a[:3], window, *a[3:6], path=path))
+        if clocks_b:
+            res[f"ma_band {what} split"] = _split(
+                "ma_band", lambda **kw: kernels.ma_band(*a[:3], window, *a[3:6], **kw), B,
+                kernels.BAND_PHASES, what, ms)
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    band_shape("band pass 100000 x 1024", cs.band_path_inputs(gen)[0], 30)
+    engine = cs.engine_band_inputs(cs.engine_fleet(np.random.default_rng(cs.SEED)))
+    band_shape("engine 4096 x 2048", engine, cs.TRIAGE_WINDOW)
+    del engine
+    torch.cuda.empty_cache()
+    season = cs.season_inputs(gen)[0]
+    band_shape("seasonal 100000 x 16384", season, 30)
+    del season
+    torch.cuda.empty_cache()
+    for T in BAND_DIGEST_T:
+        B = 2048 if T <= 2048 else 512
+        a = cs.adversarial_bands(B, T, torch.Generator(device=cs.DEV).manual_seed(cs.SEED + T))
+        sha = _out_digest(kernels.ma_band(*a[:3], 30, *a[3:6]))
+        res[f"ma_band check {B} x {T}"] = {"sha256": sha}
+        print(f"  ma_band on adversarial rows {B} x {T}: sha256 {sha}", flush=True)
+    if hasattr(kernels, "band_path_launches"):
+        res["band paths"] = dict(kernels.band_path_launches)
+
+
 def median_back_to_back_ms(fn, runs):
     """Median of `runs` launches of fn by CUDA events recorded between
     launches enqueued back to back after a warm-up one: the host stays
@@ -1347,8 +1519,8 @@ def main():
     p.add_argument("--bivariate-hw", action="store_true",
                    help="time kernel H and kernel C (the Holt-Winters refit, SES, DES) and print "
                         "their outputs' digests instead")
-    p.add_argument("--only", choices=("bivariate", "smooth"),
-                   help="with --bivariate-hw, time one of the two kernels")
+    p.add_argument("--only", choices=("bivariate", "smooth", "kruskal", "band"),
+                   help="with --bivariate-hw or --kruskal-band, time one of the two kernels")
     p.add_argument("--compare", nargs=2, metavar=("A", "B"),
                    help="hold two --triage-hw, --lstm-st, --period-hpa or --bivariate-hw output "
                         "files against each other (CPU)")
@@ -1357,6 +1529,9 @@ def main():
     p.add_argument("--pairs", action="store_true",
                    help="time kernels A and N at 100,000 x 128 (N at each mask of the battery) "
                         "and at the CTA and scratch paths' T, with digests, instead")
+    p.add_argument("--kruskal-band", action="store_true",
+                   help="time kernel O's kruskal_groups and kernel B's ma_band, with digests, "
+                        "instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
     if opt.compare:
@@ -1395,6 +1570,10 @@ def main():
     if opt.pairs:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "pairs": pairs_ab(opt.profile)}), flush=True)
+        return
+    if opt.kruskal_band:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "kruskal_band": kruskal_band(opt.profile, opt.only)}), flush=True)
         return
     if opt.a_digest:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

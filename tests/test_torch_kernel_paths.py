@@ -1,5 +1,6 @@
 """Kernel H's path choice, kernels A and N's path choice and warp-path grid,
-and kernel C's Holt-Winters launch size, at their boundaries. Plain Python
+kernel O's Kruskal-Wallis paths and warp-path grid, kernel B's ma_band
+paths, and kernel C's Holt-Winters launch size, at their boundaries. Plain Python
 on the library's size formulas (the mirrors are held to their C functions
 by card tests in test_torch_kernels.py), so these run on the CPU."""
 import pytest
@@ -129,3 +130,74 @@ def test_reset_launches_clears_the_pair_path_counts():
     for counts in (kernels.pair_path_launches, kernels.pair_tests_path_launches):
         assert set(counts) == set(kernels.PAIR_PATHS)
         assert not any(counts.values())
+
+
+@pytest.mark.parametrize("k, T, path", [
+    (2, 64, "warp"), (3, 128, "warp"), (5, 64, "warp"), (4, 128, "warp"), (512, 1, "warp"),
+    (1, 512, "warp"), (1, 1, "warp"), (513, 1, "cta"), (3, 171, "cta"), (8192, 1, "cta"),
+    (2, 4096, "cta"), (8193, 1, "scratch"), (3, 16384, "scratch")])
+def test_kruskal_path_by_shape(k, T, path):
+    assert kernels.WARP_RANK_KEYS == 512
+    assert kernels.kruskal_path(k, T) == path
+    assert kernels.kruskal_serves(path, k, T)
+    for other in kernels.KRUSKAL_PATHS[kernels.KRUSKAL_PATHS.index(path):]:
+        assert kernels.kruskal_serves(other, k, T)
+
+
+def _groups(B, k, T):
+    return torch.zeros(B, k, T), torch.ones(B, k, T, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("k, T, path, limit", [
+    (3, 171, "warp", "WARP_RANK_KEYS = 512"), (3, 16384, "warp", "WARP_RANK_KEYS = 512"),
+    (8193, 1, "cta", "SHARED_RANK_KEYS = 8192"), (3, 16384, "cta", "SHARED_RANK_KEYS = 8192"),
+    (3, 128, "block", "paths")])
+def test_forced_kruskal_paths_refuse_a_row_they_do_not_serve(k, T, path, limit):
+    """kruskal_groups refuses a forced path that does not serve k T, naming
+    the limit, before it looks at a tensor (these are CPU tensors)."""
+    with pytest.raises(ValueError, match=limit):
+        kernels.kruskal_groups(*_groups(2, k, T), path=path)
+
+
+_KW_W = kernels.KRUSKAL_WARPS
+
+
+@pytest.mark.parametrize("B, grid", [(1, 1), (_KW_W - 1, 1), (_KW_W, 1), (_KW_W + 1, 2),
+                                     (100_000, -(-100_000 // _KW_W))])
+def test_kruskal_warp_grid_holds_a_warp_a_row(B, grid):
+    assert kernels.kruskal_warp_grid(B) == grid
+    assert (grid - 1) * _KW_W < B <= grid * _KW_W
+
+
+@pytest.mark.parametrize("T, path", [
+    (1, "staged"), (128, "staged"), (1000, "staged"), (1024, "staged"), (2048, "staged"),
+    (4095, "staged"), (4096, "staged"), (4097, "unstaged"), (8192, "unstaged"),
+    (16384, "unstaged")])
+def test_band_path_by_window(T, path):
+    assert kernels.STAGED_BAND_T == 4096
+    assert kernels.band_path(T) == path
+    assert kernels.band_serves(path, T) and kernels.band_serves("unstaged", T)
+
+
+def _band_args(B, T):
+    return (torch.zeros(B, T), torch.ones(B, T, dtype=torch.bool),
+            torch.zeros(B, T, dtype=torch.bool), 30, torch.ones(B),
+            torch.zeros(B, dtype=torch.int32), torch.zeros(B))
+
+
+@pytest.mark.parametrize("T, path, limit", [
+    (4097, "staged", "STAGED_BAND_T = 4096"), (16384, "staged", "STAGED_BAND_T = 4096"),
+    (1024, "warp", "paths"), (16385, "unstaged", "16384")])
+def test_forced_band_paths_refuse_a_window_they_do_not_serve(T, path, limit):
+    with pytest.raises(ValueError, match=limit):
+        kernels.ma_band(*_band_args(2, T), path=path)
+
+
+def test_reset_launches_clears_the_kruskal_and_band_path_counts():
+    kernels.kruskal_path_launches["warp"] += 2
+    kernels.band_path_launches["staged"] += 1
+    kernels.reset_launches()
+    assert set(kernels.kruskal_path_launches) == set(kernels.KRUSKAL_PATHS)
+    assert set(kernels.band_path_launches) == set(kernels.BAND_PATHS)
+    assert not any(kernels.kruskal_path_launches.values())
+    assert not any(kernels.band_path_launches.values())

@@ -27,7 +27,9 @@ relative (losses) and 1e-4 (rows: Adam's step is lr times the sign of a
 gradient near 0, so float noise there moves a row by up to lr) of the twin's;
 the reference's training fixture as chip_smoke.py holds it; kernel N's
 p-values to 1e-5 and its statistics to 1e-6 relative; kernel O's ranks, tie
-terms and counts exactly, its H and chi2 to 1e-6 relative and p to 1e-5;
+terms and counts exactly, its H and chi2 to 1e-6 relative and p to 1e-5
+(kruskal_groups' paths to one another bit for bit; ma_band's two paths
+likewise);
 kernel P's count, values (bit for bit) and indices exactly; the fleet
 scorer in a world of one over NCCL as score_pairs and P's twin.
 """
@@ -1001,6 +1003,106 @@ def test_kruskal_groups_match_twin(card, k, T):
     pH, pp = pw.kruskal_plain(g, gm)
     cs.close(H, pH, cs.STAT_RTOL, 1e-6, "H")
     cs.close(p, pp, 0.0, cs.P_ATOL, "p")
+
+
+KRUSKAL_WARP_SHAPES = [(k, T) for k, T in cs.KRUSKAL_CHECK if k * T <= 512] + [(4, 128)]
+
+
+@pytest.mark.parametrize("path", kernels.KRUSKAL_PATHS)
+@pytest.mark.parametrize("k,T", cs.KRUSKAL_CHECK + ((4, 128),))
+def test_kruskal_groups_paths_match_twin(card, k, T, path):
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    if not kernels.kruskal_serves(path, k, T):
+        with pytest.raises(ValueError, match="k T <="):
+            kernels.kruskal_groups(torch.zeros(2, k, T, device=card),
+                                   torch.ones(2, k, T, dtype=torch.bool, device=card), path=path)
+        return
+    g, gm = (torch.from_numpy(a).to(card)
+             for a in cs.adversarial_groups(48, k, T, np.random.default_rng(k * T + 1)))
+    kernels.reset_launches()
+    H, p = kernels.kruskal_groups(g, gm, path=path)
+    assert kernels.kruskal_path_launches[path] == 1 and kernels.launches["kruskal_groups"] == 1
+    pH, pp = pw.kruskal_plain(g, gm)
+    cs.close(H, pH, cs.STAT_RTOL, 1e-6, "H")
+    cs.close(p, pp, 0.0, cs.P_ATOL, "p")
+
+
+@pytest.mark.parametrize("k,T", KRUSKAL_WARP_SHAPES)
+def test_kruskal_warp_path_equals_cta_path_bit_for_bit(card, k, T):
+    # adversarial_groups' rows: ties with +-0, NaN and +inf in valid slots,
+    # fully masked groups and rows; 1,023 rows: the last CTA holds three
+    g, gm = (torch.from_numpy(a).to(card)
+             for a in cs.adversarial_groups(1023, k, T, np.random.default_rng(k * T + 2)))
+    gm[5] = False  # a fully masked row
+    gm[7, 1] = False  # a fully masked group
+    warp = kernels.kruskal_groups(g, gm, path="warp")
+    cta = kernels.kruskal_groups(g, gm, path="cta")
+    torch.cuda.synchronize()
+    assert cs.same_bits(warp[0], cta[0]) and cs.same_bits(warp[1], cta[1])
+    assert float(warp[1][5]) == 1.0 and float(warp[0][5]) == 0.0
+
+
+@pytest.mark.parametrize("B", [1, kernels.KRUSKAL_WARPS - 1, kernels.KRUSKAL_WARPS + 1, 1001])
+def test_kruskal_warp_path_takes_any_number_of_rows(card, B):
+    g, gm = (torch.from_numpy(a).to(card)
+             for a in cs.adversarial_groups(B, 3, 128, np.random.default_rng(B)))
+    warp = kernels.kruskal_groups(g, gm, path="warp")
+    cta = kernels.kruskal_groups(g, gm, path="cta")
+    torch.cuda.synchronize()
+    assert cs.same_bits(warp[0], cta[0]) and cs.same_bits(warp[1], cta[1])
+
+
+@pytest.mark.parametrize("path", kernels.KRUSKAL_PATHS)
+def test_kruskal_groups_phase_clocks(card, path):
+    B, k, T = 257, 3, 128
+    g, gm = (torch.from_numpy(a).to(card)
+             for a in cs.adversarial_groups(B, k, T, np.random.default_rng(9)))
+    clocks = torch.zeros((B, len(kernels.KRUSKAL_PHASES) + 1), dtype=torch.int64, device=card)
+    stamped = kernels.kruskal_groups(g, gm, phase_clocks=clocks, path=path)
+    plain = kernels.kruskal_groups(g, gm, path=path)
+    torch.cuda.synchronize()
+    assert bool((clocks[:, 0] > 0).all())
+    assert bool((clocks.diff(dim=1) >= 0).all())
+    assert all(cs.same_bits(u, v) for u, v in zip(stamped, plain))
+    lib = kernels.build.library()
+    assert kernels.KRUSKAL_WARPS == lib.fm_kruskal_warps()
+    assert kernels.WARP_RANK_KEYS == lib.fm_warp_rank_keys()
+
+
+@pytest.mark.parametrize("T", [128, 1000, 1024, 2048, 4096, 16384])
+def test_ma_band_paths_give_the_first_design_s_bits(card, T):
+    """ma_band's path for T against the first design (the unstaged path)
+    bit for bit on adversarial rows, and against the twin."""
+    gen = torch.Generator(device=card).manual_seed(T + 11)
+    args = cs.adversarial_bands(512 if T <= 4096 else 128, T, gen)
+    kernels.reset_launches()
+    got = kernels.ma_band(*args[:3], 30, *args[3:])
+    assert kernels.band_path_launches[kernels.band_path(T)] == 1
+    first = kernels.ma_band(*args[:3], 30, *args[3:], path="unstaged")
+    torch.cuda.synchronize()
+    assert set(got) == set(first) and len(got) == 8
+    for key in first:
+        assert cs.same_bits(got[key], first[key]), key
+    cs.compare_ma_band(args, 30, got, fc.moving_average_band_plain(*args[:3], 30, *args[3:]))
+    for window in (0, 1, 7, 5000):
+        a = kernels.ma_band(*args[:3], window, *args[3:])
+        b = kernels.ma_band(*args[:3], window, *args[3:], path="unstaged")
+        assert all(cs.same_bits(a[key], b[key]) for key in b), window
+
+
+@pytest.mark.parametrize("path", kernels.BAND_PATHS)
+def test_ma_band_phase_clocks(card, path):
+    gen = torch.Generator(device=card).manual_seed(5)
+    args = cs.adversarial_bands(257, 1024, gen)
+    clocks = torch.zeros((257, len(kernels.BAND_PHASES) + 1), dtype=torch.int64, device=card)
+    stamped = kernels.ma_band(*args[:3], 30, *args[3:], phase_clocks=clocks, path=path)
+    plain = kernels.ma_band(*args[:3], 30, *args[3:], path=path)
+    torch.cuda.synchronize()
+    assert bool((clocks[:, 0] > 0).all())
+    assert bool((clocks.diff(dim=1) >= 0).all())
+    assert all(cs.same_bits(stamped[k], plain[k]) for k in plain)
+    assert kernels.STAGED_BAND_T == kernels.build.library().fm_staged_band_t()
 
 
 @pytest.mark.parametrize("n,k", cs.FRIEDMAN_CHECK)
