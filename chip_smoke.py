@@ -20,9 +20,9 @@ ends; any failure exits non-zero:
              warp and scratch paths' outputs equal to the cta path's bit for
              bit, after kernels.ks_division_check (the warp path's lattice
              division equal to IEEE division on every float32 in [2^-100,
-             512] and divisor 1-512); kernel B at T in {128, 1024, 16384} (its
-             staged path's outputs equal to the unstaged path's bit for
-             bit where it serves T); kernels
+             512] and divisor 1-512); kernel B at T in {128, 1024, 5000,
+             8192, 16384} (its staged and long paths' outputs equal to the
+             unstaged path's bit for bit where they serve T); kernels
              C (SES, DES, Holt-Winters on each of its paths, shared and
              device, held equal bit for bit, at the rows' periods and cut to
              1440), D, E (SES, DES), F and B's
@@ -58,7 +58,8 @@ ends; any failure exits non-zero:
              one launch, and each alone) against two_sample_tests at T from
              8 to 16384 (device scratch above 4096) on kernel A's
              adversarial rows plus one-point and all-tied rows; kernel O's
-             ranks at T in {8, 256, 4096, 16384}, Kruskal-Wallis at k in
+             ranks at T in {8, 100, 256, 512, 513, 4096, 16384} (each path
+             that serves T forced, equal bit for bit), Kruskal-Wallis at k in
              {2, 3, 5} (k T = 49,152 in scratch; each path that serves a
              shape forced, the warp path equal to the cta path bit for bit)
              and Friedman at (n, k) in
@@ -79,8 +80,8 @@ ends; any failure exits non-zero:
              rank_and_ties at T = 256 (kernel O); every bad canary rejected
              at 0.01 by Mann-Whitney, Kruskal-Wallis and KS, each kernel
              against its twin on 2,048 rows, times beside the twins, kernel
-             N's four launches on its warp path and kernel O's Kruskal
-             launch on its warp path (their path counters), each of N's
+             N's four launches on its warp path and kernel O's Kruskal and
+             rank launches on their warp paths (their path counters), each of N's
              timed alone; then kernel N forced onto each of its paths at
              T in {16, 128, 256}, stat and p of every test mask on the warp
              and scratch paths equal to the cta path's bit for bit;
@@ -105,7 +106,10 @@ ends; any failure exits non-zero:
              bucket 16384, made on the card (40% daily cycle, 30% 8-hour
              shift cycle, 30% aperiodic with a trend, 5% lost scrapes, a
              +8 sigma level shift in 10% of the current windows), through
-             forecast_band under holt_winters, exponential_smoothing,
+             forecast_band under moving_average_all (kernel B's ma_band on
+             its long path, its path counter; every output equal to the
+             unstaged path's bit for bit on every row; timed alone beside
+             its bound and twin), holt_winters, exponential_smoothing,
              double_exponential and seasonal_trend (kernels F, J, B); recall,
              false positives, planted-period recovery, times and launches per
              algorithm; then each of its kernels alone and its twin on the
@@ -515,8 +519,13 @@ def kernel_b_vs_twin(gen):
     from foremast_tpu_torch.ops import forecast as fc
 
     worst = 0.0
-    for T, B in ((128, CHECK_ROWS), (1024, CHECK_ROWS), (16384, CHECK_ROWS // 2)):
-        args = adversarial_bands(B, T, gen)
+    for T, B in ((128, CHECK_ROWS), (1024, CHECK_ROWS), (5000, CHECK_ROWS // 4),
+                 (8192, CHECK_ROWS // 2), (16384, CHECK_ROWS // 2)):
+        # the long path's two added shapes draw from a generator of their
+        # own: the later checks' rows do not depend on them
+        own = T in (5000, 8192)
+        args = adversarial_bands(B, T, torch.Generator(device=DEV).manual_seed(SEED + T)
+                                 if own else gen)
         kern = fc.moving_average_band(*args[:3], 30, *args[3:], device=DEV)
         plain = fc.moving_average_band_plain(*args[:3], 30, *args[3:])
         torch.cuda.synchronize()
@@ -1883,6 +1892,8 @@ TESTS_CHECK = ((8, 512), (16, 512), (128, 2048), (1024, 512), (4096, 128), (8192
                (16384, 32))  # (T, rows) of kernel N's check
 STAT_RTOL = 1e-6  # kernel vs twin statistics: the same expressions of exact integers
 KRUSKAL_CHECK = ((2, 64), (3, 128), (5, 64), (3, 16384))  # (k, T)
+RANK_CHECK = ((8, 512), (256, 2048), (4096, 128), (16384, 32))  # (T, rows)
+RANK_WARP_CHECK = ((100, 512), (512, 512), (513, 256))  # the warp path's edges
 FRIEDMAN_CHECK = ((128, 3), (20, 6), (7, 200))  # (n, k)
 TOPK_CHECK_K = (1, 8, 64, 500, 3000)  # 500: passes over kept keys; 3000: one sort in device memory
 
@@ -2065,18 +2076,43 @@ def kruskal_paths_agree(g, gm, default, pH, pp):
     return served
 
 
+def rank_paths_agree(v, m, default):
+    """rank_and_ties forced onto each path that serves the rows: ranks, tie
+    terms and counts equal bit for bit to the cta path's (the scratch
+    path's where the cta path does not serve) and to the default path's."""
+    from foremast_tpu_torch import kernels
+
+    T = v.shape[1]
+    served = [path for path in kernels.RANK_PATHS if kernels.rank_serves(path, T)]
+    out = {path: kernels.rank_and_ties(v, m, path=path) for path in served}
+    ref = out.get("cta", out["scratch"])
+    for path, got in list(out.items()) + [("default", default)]:
+        check(all(same_bits(a, b) for a, b in zip(got, ref)),
+              f"rank_and_ties T={T}: the {path} path differs from the "
+              f"{'cta' if 'cta' in out else 'scratch'} path")
+    return served
+
+
 def kernel_o_vs_twin(rng):
     """Kernel O's three entries against their twins: ranks at T from 8 to
-    16384 (device scratch above 8192), Kruskal-Wallis at k in {2, 3, 5}
-    (and k T = 49,152 in scratch), Friedman at (n, k) in FRIEDMAN_CHECK."""
+    16384 (the warp path up to 512, device scratch above 8192; each path
+    that serves T forced, equal bit for bit), Kruskal-Wallis at k in
+    {2, 3, 5} (and k T = 49,152 in scratch), Friedman at (n, k) in
+    FRIEDMAN_CHECK."""
     from foremast_tpu_torch.ops import pairwise as pw
     from foremast_tpu_torch.ops import ranks as rk
 
     worst = {"rank_and_ties": 0.0, "kruskal_groups": 0.0, "friedman": 0.0}
-    for T, B in ((8, 512), (256, 2048), (4096, 128), (16384, 32)):
-        v, m = (torch.from_numpy(a).to(DEV) for a in adversarial_ranks(B, T, rng))
+    for T, B in RANK_CHECK + RANK_WARP_CHECK:
+        # the warp path's added shapes draw from a generator of their own:
+        # the later phases' rows do not depend on them
+        own = (T, B) in RANK_WARP_CHECK
+        v, m = (torch.from_numpy(a).to(DEV) for a in adversarial_ranks(
+            B, T, np.random.default_rng(SEED + T) if own else rng))
+        out = rk.rank_and_ties(v, m, device=DEV)
         worst["rank_and_ties"] = max(worst["rank_and_ties"], compare_ranks(
-            rk.rank_and_ties(v, m, device=DEV), rk.rank_and_ties_plain(v, m)))
+            out, rk.rank_and_ties_plain(v, m)))
+        rank_paths_agree(v, m, out)
     for k, T in KRUSKAL_CHECK:
         B = 32 if k * T > 8192 else 512
         g, gm = (torch.from_numpy(a).to(DEV) for a in adversarial_groups(B, k, T, rng))
@@ -2102,7 +2138,9 @@ def kernel_o_vs_twin(rng):
         worst["friedman"] = max(worst["friedman"],
                                 close(p, pp, 0.0, P_ATOL, f"friedman n={n} k={k} p"))
     torch.cuda.synchronize()
-    print(f"  rank_and_ties T in (8, 256, 4096, 16384): ranks, tie terms and counts equal; "
+    print(f"  rank_and_ties T in {tuple(T for T, _ in RANK_CHECK + RANK_WARP_CHECK)}: ranks, tie "
+          f"terms and counts "
+          f"equal to the twin's, each path that serves T equal bit for bit; "
           f"kruskal_groups (k, T) in {KRUSKAL_CHECK}: max |dp| {worst['kruskal_groups']:.3g}, "
           f"each path that serves a shape forced, the warp path equal to the cta path bit for "
           f"bit; "
@@ -2362,6 +2400,7 @@ def tests_path(pair_args, bad):
     launches = dict(kernels.launches)
     paths = dict(kernels.pair_tests_path_launches)
     k_paths = dict(kernels.kruskal_path_launches)
+    r_paths = dict(kernels.rank_path_launches)
     for name in ("pair_tests", "rank_and_ties", "kruskal_groups", "friedman"):
         check(launches[name] >= 1, f"the tests phase did not launch {name}")
     check(paths["warp"] == launches["pair_tests"],
@@ -2369,6 +2408,8 @@ def tests_path(pair_args, bad):
     check(k_paths["warp"] == launches["kruskal_groups"],
           f"the battery's kruskal_batch (k = 3, T = {T}) ran kruskal_groups' paths {k_paths}, "
           f"not the warp path")
+    check(r_paths["warp"] == launches["rank_and_ties"],
+          f"the battery's rank_and_ties (T = {RANK_T}) ran its paths {r_paths}, not the warp path")
     for name, (st, p) in list(out["all"].items()) + [(k, out[k]) for k in (
             "mann_whitney", "wilcoxon", "ks", "kruskal", "friedman")]:
         check(st.shape == (B,) and p.shape == (B,) and bool(torch.isfinite(st).all())
@@ -2418,7 +2459,8 @@ def tests_path(pair_args, bad):
     print(f"  {B} pairs at T = {T}: all_pairwise_tests, the three *_batch, kruskal_batch "
           f"(k = 3), friedman_batch ({FRIEDMAN_N} blocks x 3), rank_and_ties (T = {RANK_T}); "
           f"bad canaries rejected at 0.01: {recall}; launches {launches}; pair_tests by path "
-          f"{paths}; kruskal_groups by path {k_paths}", flush=True)
+          f"{paths}; kruskal_groups by path {k_paths}; rank_and_ties by path {r_paths}",
+          flush=True)
     print(f"  pair_tests, each battery launch (ms): "
           f"{ {k: round(v, 4) for k, v in battery_ms.items()} }", flush=True)
     result = {}
@@ -2430,6 +2472,7 @@ def tests_path(pair_args, bad):
               f"against the twin on {c} rows {err:.3g}, launches {launches[name]}", flush=True)
     result["pair_tests"].update(paths=paths, battery_ms=battery_ms)
     result["kruskal_groups"].update(paths=k_paths)
+    result["rank_and_ties"].update(paths=r_paths)
     pair_tests_paths()
     return result
 
@@ -2654,12 +2697,14 @@ SEASON_KERNELS = {"holt_winters": ("detect_period", "hw_fit", "smooth", "band_fr
 # recall >= 0.99 and <= 1% of the healthy rows flagged (tests/
 # test_torch_seasonal_trend.py, on the CPU).
 SEASON_LIMITS = {"holt_winters": (0.99, 0.01), "exponential_smoothing": (0.99, 0.01),
-                 "double_exponential": (0.95, 0.15), "seasonal_trend": (0.99, 0.01)}
+                 "double_exponential": (0.95, 0.15), "seasonal_trend": (0.99, 0.01),
+                 "moving_average_all": (0.99, 0.01)}
 
 
-def season_inputs(gen, rows=SEASON_ROWS, dev=None):
+def season_inputs(gen, rows=SEASON_ROWS, dev=None, T=SEASON_T, hist=SEASON_HIST):
     """The seasonal path's rows on the card and their truth: 7 days of
-    60 s history (10,080 points) + 60 current points in bucket 16384; a
+    60 s history (10,080 points; `hist`) + 60 current points in bucket 16384
+    (`T`); a
     level in [20, 100], white noise of sigma = level / 20; 40% a daily
     cycle (1440 steps), 30% an 8-hour shift cycle (480), each of amplitude
     2-4 sigma and random phase, 30% aperiodic with a trend of up to
@@ -2669,7 +2714,7 @@ def season_inputs(gen, rows=SEASON_ROWS, dev=None):
     chunks of rows to bound the temporaries. `rows` and `dev` let the
     tests make a few rows on the CPU."""
     dev = dev or DEV
-    B, T, n = rows, SEASON_T, SEASON_HIST + SEASON_CUR
+    B, n = rows, hist + SEASON_CUR
 
     def u(*shape):
         return torch.rand(shape, generator=gen, device=dev)
@@ -2679,10 +2724,10 @@ def season_inputs(gen, rows=SEASON_ROWS, dev=None):
     level = 20 + 80 * u(B)
     sigma = level / 20
     amp, phase = sigma * (2 + 2 * u(B)), 2 * math.pi * u(B)
-    slope = (u(B) - 0.5) * 4 * sigma / SEASON_HIST
+    slope = (u(B) - 0.5) * 4 * sigma / hist
     cycle = torch.where(kind == 0, 1440.0, 480.0)
     t = torch.arange(T, device=dev, dtype=torch.float32)
-    region_row = (t >= SEASON_HIST) & (t < n)
+    region_row = (t >= hist) & (t < n)
     x = torch.empty((B, T), device=dev)
     mask = torch.empty((B, T), dtype=torch.bool, device=dev)
     for lo in range(0, B, 8192):
@@ -2794,6 +2839,61 @@ def cholesky_ms(x, mask, fit, period):
     return cuda_ms(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(A)), 3)
 
 
+def season_moving_average(args, shifted):
+    """forecast_band under moving_average_all on the seasonal phase's rows
+    (7 days of history in bucket 16384): kernel B's ma_band on its long
+    path, recall and false positives against the planted shifts at the
+    engine's band verdict, the path counter, and every path that serves T
+    equal to the unstaged path's bits on every row; then ma_band alone
+    (mean of SEASON_RUNS), its bound, its twin (in row chunks) and the twin's
+    comparison on the first CHECK_ROWS rows."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    x, mask, region, thr, mode, mlb = args
+    B, T = x.shape
+    kernels.reset_launches()
+    out = fc.forecast_band(*args, algorithm="moving_average_all", device=DEV)
+    torch.cuda.synchronize()
+    ran = dict(kernels.launches)
+    paths = dict(kernels.band_path_launches)
+    check(kernels.band_path(T) == "long" and paths["long"] == ran["ma_band"] == 1,
+          f"moving_average_all at T = {T} ran ma_band's paths {paths}, not the long path once")
+    gate = torch.clamp(BAND_VIOLATION_FRACTION * out["checked"].float(), min=BAND_MIN_POINTS)
+    flagged = out["count"].float() >= gate
+    recall = float(flagged[shifted].float().mean())
+    fp = float(flagged[~shifted].float().mean())
+    check(bool(torch.isfinite(out["sigma"]).all()), "moving_average_all: sigma not finite")
+    check(bool((out["checked"] == (mask & region).sum(1)).all()),
+          "moving_average_all: checked differs")
+    min_recall, max_fp = SEASON_LIMITS["moving_average_all"]
+    check(recall >= min_recall, f"moving_average_all: recall {recall:.4f} < {min_recall}")
+    check(fp < max_fp, f"moving_average_all: false-positive share {fp:.5f} >= {max_fp}")
+    del out, flagged
+    e2e = wall_ms(lambda: fc.forecast_band(*args, algorithm="moving_average_all", device=DEV),
+                  SEASON_RUNS)
+    print(f"  moving_average_all: recall {recall:.5f} on {int(shifted.sum())} shifted rows, "
+          f"false positives {fp:.5f} (limits {min_recall}, {max_fp}); forecast_band "
+          f"{SEASON_RUNS} runs: median {np.median(e2e):.3f} ms, p99 "
+          f"{np.percentile(e2e, 99):.3f} ms, {B / np.median(e2e) * 1e3:.0f} rows/s; launches "
+          f"{ {k: v for k, v in ran.items() if v} }; ma_band by path {paths}", flush=True)
+    same = band_paths_agree(args, 30)
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: kernels.ma_band(x, mask, region, 30, thr, mode, mlb), SEASON_RUNS)
+    plain_ms = chunked_ms(lambda s: fc.moving_average_band_plain(
+        x[s], mask[s], region[s], 30, thr[s], mode[s], mlb[s]), B)
+    sub = tuple(a[:CHECK_ROWS] for a in args)
+    err, bracketed = compare_ma_band(sub, 30, kernels.ma_band(*sub[:3], 30, *sub[3:]),
+                                     fc.moving_average_band_plain(*sub[:3], 30, *sub[3:]))
+    bound = least_time(B * T * 19 + B * 28, 20 * B * T)
+    print(f"  ma_band on these rows ({B} x {T}): {same} on every row; kernel {ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), plain twin {plain_ms:.1f} ms; "
+          f"against the twin on {CHECK_ROWS} rows: max |d preds| {err:.3g}, {bracketed} rows "
+          f"bracketed", flush=True)
+    return {"launches": ran["ma_band"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "path": kernels.band_path(T), "paths": paths, **bound}
+
+
 def seasonal_path(gen):
     """Drive forecast_band under each algorithm at full size, then time
     each of its kernels alone and its twin on the path's inputs."""
@@ -2811,6 +2911,7 @@ def seasonal_path(gen):
           f"{int((kind == 2).sum())} aperiodic, {int(shifted.sum())} shifted", flush=True)
     periodic = kind < 2
     planted = torch.where(kind == 0, 1440, 480).to(torch.int32)
+    ma_row = season_moving_average(args, shifted)
     launches = {k: 0 for k in kernels.launches}
     for algo in SEASON_ALGOS:
         kernels.reset_launches()
@@ -2951,6 +3052,7 @@ def seasonal_path(gen):
               f"{bounds[name]['bound_ms']:.3f} ms ({bounds[name]['bound_by']}), max |err| "
               f"against the twin {err:.3g}, launches on the path {launches[name]}", flush=True)
     result["smooth_hw"] = hw_row
+    result["ma_band"] = ma_row
     return result, g
 
 
@@ -4616,6 +4718,11 @@ def main() -> int:
               f"({r['bound_by']}), plain twin {r['plain_ms']:.1f} ms"
               + (f"; kernel C's SES {r['smooth_ms']:.3f} ms, the HPA launch "
                  f"{r['launch_ms']:.3f} ms" if fam_key == "hpa" else ""), flush=True)
+    # kernel B's ma_band at the engine's 7-day bucket (seasonal phase, the
+    # long path) beside its band-pass row
+    b_row = next(r for r in rows if r.get("name") == "ma_band")
+    b_row["t16384"] = {k: s["ma_band"][k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                     "launches", "path", "paths", "max_abs_err")}
     for r in rows:
         # no single PyTorch call computes any of these functions but M's
         # Adam and P's top-k (torch.sort, timed beside kernel G, computes only

@@ -13,8 +13,9 @@
 //     treatments over the masked-in blocks, and its p at df = k - 1.
 //
 // Design.
-//   - rank_and_ties and kruskal_groups: one CTA per row sorts the row's keys
-//     (T, or k T for the groups) with kernel A's bitonic sort. The key is
+//   - the CTA paths of rank_and_ties and kruskal_groups: one CTA per row
+//     sorts the row's keys (T, or k T for the groups) with kernel A's
+//     bitonic sort. The key is
 //     kernel A's rank key with its payload bit replaced by a 30-bit tag:
 //     bits 63..32 the value as an order-preserving unsigned (masked slots and
 //     NaN as +inf, -0.0 folded into +0.0), bits 31..30 the class (valid 0 <
@@ -31,14 +32,15 @@
 //     group, a block sum each (k passes of k T positions; k is small). H and
 //     its tie correction in float64, p = gammaincc((k - 1) / 2, H / 2) in
 //     float64 (common.cuh).
-//   - kruskal_groups' warp path (k T <= 512, the battery's k = 3 groups of
-//     T = 128): a warp a row, four rows a CTA, no block barrier on a row's
+//   - the warp path of kruskal_groups (k T <= 512, the battery's k = 3
+//     groups of T = 128) and of rank_and_ties (T <= 512, the battery's
+//     T = 256): a warp a row, four rows a CTA, no block barrier on a row's
 //     path. 32-bit keys (the tie group alone: no class bits, no tag) sorted
 //     in registers, 16 a lane at most; each sorted position's doubled rank
 //     from bit masks of run starts and ends and two warp scans; each valid
-//     element's rank found by a binary search of the sorted keys. The same
-//     integers as the CTA path, so H and p have its bits (kruskal_row_warp
-//     below).
+//     element's rank found by a binary search of the sorted keys
+//     (warp_rank_row below). The same integers as the CTA path, so the
+//     ranks, tie terms, counts, H and p have its bits.
 //   - friedman needs no sort: an entry's rank within its block is
 //     #less + (#equal + 1) / 2 under the same key order (ties and NaN as the
 //     reference's rank_and_ties orders them), and the block's tie term is
@@ -89,10 +91,13 @@ struct RankArgs {
   float* ranks;  // (B, T)
   float* tie;    // (B,)
   float* n_valid;
+  long long* clocks;  // the warp path's: null, or (B, kKruskalStamps) clock64() stamps a row
   unsigned char* scratch;
   size_t scratch_stride;
 };
 
+// One row by one CTA (the cta and scratch paths; no stamps: six of them
+// cost this path 4% at T = 256 on an H100).
 __device__ void rank_row(const RankArgs& a, int row, unsigned char* work, Scratch& scr) {
   const int T = a.T, n_sort = next_pow2(T);
   const float* v = a.values + size_t(row) * T;
@@ -252,16 +257,20 @@ __device__ __forceinline__ void kwstamp(long long* clocks, int row, int k) {
     clocks[size_t(row) * kKruskalStamps + k] = clock64();
 }
 
-// One row by one warp. sorted and twice_rank hold 32 M entries, in_key k T:
-// the warp's own shared memory.
+// One row of n <= 32 M masked values (v, m) by one warp: the warp path's
+// ranks, shared by kruskal_groups and rank_and_ties. sorted and twice_rank
+// hold 32 M entries, in_key n: the warp's own shared memory. On return
+// in_key[i] holds element i's doubled rank (below bit 20) and a count of
+// one (above it), or 0 where masked; *nvalid the valid count, *tie the tie
+// term sum(t^3 - t). Stamps 0-3 of the row (the caller's phases' first
+// four) where clocks is set.
 template <int M>
-__device__ void kruskal_row_warp(const KruskalArgs& a, int row, uint32_t* sorted,
-                                 uint32_t* twice_rank, uint32_t* in_key, bool vec) {
+__device__ void warp_rank_row(const float* v, const uint8_t* m, int n, uint32_t* sorted,
+                              uint32_t* twice_rank, uint32_t* in_key, bool vec,
+                              long long* clocks, int row, int* nvalid_out, int* tie_out) {
   constexpr int N = 32 * M;
-  const int k = a.k, T = a.T, n = k * T, lane = threadIdx.x & 31;
-  const float* v = a.groups + size_t(row) * n;
-  const uint8_t* m = a.masks + size_t(row) * n;
-  kwstamp(a.clocks, row, 0);
+  const int lane = threadIdx.x & 31;
+  kwstamp(clocks, row, 0);
   // every load issued before any is used: no branch between them (an index
   // past the row reads its last element, and is dropped). Where the row is
   // whole float4s (vec), key 4 u + c of the lane is element
@@ -315,12 +324,12 @@ __device__ void kruskal_row_warp(const KruskalArgs& a, int row, uint32_t* sorted
   }
   const int nv = __popc(valid);
   const int nvalid = warp_sum(nv);
-  kwstamp(a.clocks, row, 1);
+  kwstamp(clocks, row, 1);
 
   warp_bitonic_sort(key);
 #pragma unroll
   for (int r = 0; r < M; ++r) sorted[lane * M + r] = key[r];
-  kwstamp(a.clocks, row, 2);
+  kwstamp(clocks, row, 2);
 
   // runs of equal keys: bit r of start (end) where position lane M + r
   // begins (ends) one; a position's group runs from the last start at or
@@ -361,7 +370,7 @@ __device__ void kruskal_row_warp(const KruskalArgs& a, int row, uint32_t* sorted
   }
   tie = warp_sum(tie);
   __syncwarp();
-  kwstamp(a.clocks, row, 3);
+  kwstamp(clocks, row, 3);
 
   // each of the lane's elements: the first sorted position of its key by a
   // binary search (U searches side by side), its doubled rank there (below
@@ -390,6 +399,19 @@ __device__ void kruskal_row_warp(const KruskalArgs& a, int row, uint32_t* sorted
     }
   }
   __syncwarp();
+  *nvalid_out = nvalid;
+  *tie_out = tie;
+}
+
+// One Kruskal-Wallis row by one warp: warp_rank_row over its k T values,
+// then each group's doubled rank sum and count from in_key.
+template <int M>
+__device__ void kruskal_row_warp(const KruskalArgs& a, int row, uint32_t* sorted,
+                                 uint32_t* twice_rank, uint32_t* in_key, bool vec) {
+  const int k = a.k, T = a.T, n = k * T, lane = threadIdx.x & 31;
+  int nvalid, tie;
+  warp_rank_row<M>(a.groups + size_t(row) * n, a.masks + size_t(row) * n, n, sorted, twice_rank,
+                   in_key, vec, a.clocks, row, &nvalid, &tie);
   // sum over groups of R_g^2 / n_g, in group order
   double ssq = 0.0;
 #pragma unroll 1
@@ -416,6 +438,40 @@ __global__ void __launch_bounds__(32 * kKruskalWarps, kKruskalWarpBlocks)
   const int warp = threadIdx.x >> 5, row = blockIdx.x * kKruskalWarps + warp;
   if (row >= a.B) return;
   kruskal_row_warp<M>(a, row, work[warp][0], work[warp][1], work[warp][2], vec);
+}
+
+// rank_and_ties' warp path (T <= kWarpRankKeys): warp_rank_row a row,
+// then each element's rank in input order, its doubled rank / 2 (0 where
+// masked), the integers of the CTA path's ranks, tie term and count.
+template <int M>
+__global__ void __launch_bounds__(32 * kKruskalWarps, kKruskalWarpBlocks)
+    rank_warp_kernel(RankArgs a, bool vec) {
+  __shared__ __align__(16) uint32_t work[kKruskalWarps][3][32 * M];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kKruskalWarps + warp;
+  if (row >= a.B) return;
+  const int T = a.T;
+  uint32_t* in_key = work[warp][2];
+  int nvalid, tie;
+  warp_rank_row<M>(a.values + size_t(row) * T, a.mask + size_t(row) * T, T, work[warp][0],
+                   work[warp][1], in_key, vec, a.clocks, row, &nvalid, &tie);
+  kwstamp(a.clocks, row, 4);
+  float* out = a.ranks + size_t(row) * T;
+  if (vec) {
+    for (int i = 4 * lane; i < T; i += 128) {
+      const uint4 k4 = *reinterpret_cast<const uint4*>(in_key + i);
+      *reinterpret_cast<float4*>(out + i) =
+          make_float4(float(k4.x & 0xFFFFFu) * 0.5f, float(k4.y & 0xFFFFFu) * 0.5f,
+                      float(k4.z & 0xFFFFFu) * 0.5f, float(k4.w & 0xFFFFFu) * 0.5f);
+    }
+  } else {
+    for (int i = lane; i < T; i += 32) out[i] = float(in_key[i] & 0xFFFFFu) * 0.5f;
+  }
+  if (lane == 0) {
+    a.tie[row] = float(tie);
+    a.n_valid[row] = float(nvalid);
+  }
+  kwstamp(a.clocks, row, 5);
 }
 
 struct FriedmanArgs {
@@ -555,7 +611,8 @@ static int launch_sorted(KS shared_kernel, KD scratch_kernel, const Args& a, lon
 extern "C" int fm_rank_and_ties(const float* values, const uint8_t* mask, int B, int T,
                                 float* ranks, float* tie, float* n_valid, unsigned char* scratch,
                                 long long scratch_stride, int grid, void* stream) {
-  fm::RankArgs a{values, mask, B, T, ranks, tie, n_valid, scratch, size_t(scratch_stride)};
+  fm::RankArgs a{values, mask, B, T, ranks, tie, n_valid, nullptr, scratch,
+                 size_t(scratch_stride)};
   return launch_sorted(fm::rank_kernel<false>, fm::rank_kernel<true>, a, T, grid, stream);
 }
 
@@ -595,6 +652,33 @@ extern "C" int fm_kruskal_groups_warp(const float* groups, const uint8_t* masks,
     case 4: return int(launch_kruskal_warp<4>(a, grid, vec, st));
     case 8: return int(launch_kruskal_warp<8>(a, grid, vec, st));
     default: return int(launch_kruskal_warp<16>(a, grid, vec, st));
+  }
+}
+
+template <int M>
+static cudaError_t launch_rank_warp(const fm::RankArgs& a, int grid, bool vec, cudaStream_t st) {
+  fm::rank_warp_kernel<M><<<grid, 32 * fm::kKruskalWarps, 0, st>>>(a, vec);
+  return cudaGetLastError();
+}
+
+// rank_and_ties' warp path (T <= 512): grid CTAs of fm_kruskal_warps() rows.
+extern "C" int fm_rank_and_ties_warp(const float* values, const uint8_t* mask, int B, int T,
+                                     float* ranks, float* tie, float* n_valid, long long* clocks,
+                                     int grid, void* stream) {
+  if (T < 1 || T > fm::kWarpRankKeys || (long long)grid * fm::kKruskalWarps < B)
+    return int(cudaErrorInvalidValue);
+  fm::RankArgs a{values, mask, B, T, ranks, tie, n_valid, clocks, nullptr, 0};
+  // rows of whole float4s: the loads and the ranks' stores four elements wide
+  const bool vec = T % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(ranks) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (fm::next_pow2(T < 32 ? 32 : T) / 32) {
+    case 1: return int(launch_rank_warp<1>(a, grid, vec, st));
+    case 2: return int(launch_rank_warp<2>(a, grid, vec, st));
+    case 4: return int(launch_rank_warp<4>(a, grid, vec, st));
+    case 8: return int(launch_rank_warp<8>(a, grid, vec, st));
+    default: return int(launch_rank_warp<16>(a, grid, vec, st));
   }
 }
 

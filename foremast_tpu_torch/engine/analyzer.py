@@ -42,6 +42,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import tempfile
 import threading
 import time
 from collections import OrderedDict
@@ -1135,7 +1136,8 @@ class Analyzer:
         so a restarted engine warm-starts instead of training every known
         app again. One numpy .npz (the flat rows as one float32 (N, P)
         array, the keys as JSON, the architecture beside them), written to
-        a temporary file and renamed over `path`. max_entries keeps the most
+        a temporary file of its own in `path`'s directory, synced to the
+        disk and renamed over `path`. max_entries keeps the most
         recent entries (LRU order); None keeps the whole cache. Returns the
         number of entries written. The reference's flax msgpack files are
         another format: this engine loads none of them."""
@@ -1158,10 +1160,21 @@ class Analyzer:
         # one array a row length (the feature count sets P)
         for n in sorted(sizes):
             payload[f"params_{n}"] = np.stack([r for r in rows if r.shape[0] == n])
-        tmp = f"{path}.tmp"
-        with open(tmp, "wb") as f:
-            np.savez(f, **payload)
-        os.replace(tmp, path)
+        # a temporary file of this writer's own beside `path`, flushed to the
+        # disk before the rename: two engines saving to one path at once
+        # each rename a whole file into place, never the other's half
+        fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".",
+                                   suffix=".tmp", dir=os.path.dirname(path) or ".")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **payload)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
         return len(items)
 
     def load_lstm_cache(self, path: str) -> int:

@@ -5,8 +5,9 @@
   (T <= WARP_PAIR_T), a CTA a pair, or a CTA a pair from device scratch.
 - Kernel B (``csrc/ma_band.cu``) runs the band chain for B rows: `ma_band`
   under moving_average_all, on the path `band_path` picks by T (the row
-  staged once up to STAGED_BAND_T, the first design above it, with the same
-  bits), `band_from_preds` from given predictions.
+  staged once in registers up to STAGED_BAND_T, in shared memory above it;
+  the first design when forced; all with the same bits), `band_from_preds`
+  from given predictions.
 - Kernel C, `smooth` (``csrc/smoothers.cu``), runs SES, DES or additive
   Holt-Winters one-step predictions; kernel D, `hw_fit` (same file), the
   Holt-Winters grid fit.
@@ -41,11 +42,12 @@
   two-sample test battery (Mann-Whitney, two-group Kruskal-Wallis,
   Wilcoxon, KS) and the exact sign test on B window pairs, on kernel A's
   device code (``csrc/pair_common.cuh``) and its paths.
-- Kernel O (``csrc/rank_groups.cu``): `rank_and_ties` ranks B masked rows,
-  `kruskal_groups` gives the Kruskal-Wallis H of B sets of k groups (on the
-  path `kruskal_path` picks by k T: a warp, a CTA or a CTA from device
-  scratch a row, with the same bits) and `friedman` the Friedman chi-square
-  of B (n blocks x k treatments) tables.
+- Kernel O (``csrc/rank_groups.cu``): `rank_and_ties` ranks B masked rows
+  (on the path `rank_path` picks by T) and `kruskal_groups` gives the
+  Kruskal-Wallis H of B sets of k groups (on the path `kruskal_path` picks
+  by k T): each a warp, a CTA or a CTA from device scratch a row, with the
+  same bits; `friedman` gives the Friedman chi-square of B (n blocks x k
+  treatments) tables.
 - Kernel P, `fleet_topk` (``csrc/fleet_topk.cu``), counts a fleet's
   unhealthy rows and finds its k worst severities with their global indices.
 
@@ -55,10 +57,10 @@ stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch (`lstm_train_backward` launches kernel
 L's two backward entries, counted as `lstm_train_recurrence` and
 `lstm_train_wgrad`; `lstm_ae`, `bivariate`, `pair_verdict`,
-`pair_tests`, `kruskal_groups` and `ma_band` also count by path, in
-`lstm_ae_path_launches`, `bivariate_path_launches`, `pair_path_launches`,
-`pair_tests_path_launches`, `kruskal_path_launches` and
-`band_path_launches`).
+`pair_tests`, `kruskal_groups`, `rank_and_ties` and `ma_band` also count
+by path, in `lstm_ae_path_launches`, `bivariate_path_launches`,
+`pair_path_launches`, `pair_tests_path_launches`, `kruskal_path_launches`,
+`rank_path_launches` and `band_path_launches`).
 They take CUDA tensors only; the entry points
 (``parallel.fleet.score_pairs``, ``ops.forecast``, ``ops.seqscan``,
 ``ops.triage``, ``ops.bivariate``, ``ops.hpa``, ``ops.pairwise``,
@@ -88,15 +90,16 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "PAIR_PATHS", "WARP_PAIR_T", "PAIR_WARPS", "TESTS_PHASES",
            "PAIR_TEST_BITS", "MAX_RANK_KEYS", "SHARED_RANK_KEYS", "WARP_RANK_KEYS",
            "KRUSKAL_PATHS", "KRUSKAL_WARPS", "kruskal_path", "kruskal_serves",
-           "kruskal_warp_grid", "kruskal_path_launches", "STAGED_BAND_T", "BAND_PATHS",
+           "kruskal_warp_grid", "kruskal_path_launches", "RANK_PATHS", "rank_path",
+           "rank_serves", "rank_path_launches", "STAGED_BAND_T", "BAND_PATHS",
            "band_path", "band_serves", "band_path_launches",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
            "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
            "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check", "ks_division_check",
-           "PAIR_PHASES", "KRUSKAL_PHASES", "BAND_PHASES", "TRIAGE_PHASES", "HW_FIT_PHASES",
-           "ST_FIT_PHASES", "PERIOD_PHASES", "HPA_PHASES", "BI_PHASES", "SMOOTH_HW_PHASES",
+           "PAIR_PHASES", "KRUSKAL_PHASES", "RANK_PHASES", "BAND_PHASES", "TRIAGE_PHASES",
+           "HW_FIT_PHASES", "ST_FIT_PHASES", "PERIOD_PHASES", "HPA_PHASES", "BI_PHASES", "SMOOTH_HW_PHASES",
            "LSTM_FORWARD_PHASES", "LSTM_AE_PHASES", "SMOOTH_SES", "SMOOTH_DES", "SMOOTH_HW"]
 
 # kernels A and N run one of three paths (pair_path): up to WARP_PAIR_T a
@@ -109,15 +112,18 @@ SHARED_PAIR_T = 4096
 MAX_PAIR_T = 16384  # MAX_WINDOW_STEPS
 PAIR_PATHS = ("warp", "cta", "scratch")
 PAIR_WARPS = 4  # the warp path's pairs a CTA (fm_pair_warps)
-# kernel B keeps 12 B of prefix sums per slot: MAX_WINDOW_STEPS. ma_band runs
-# one of two paths (band_path), with the same bits: up to STAGED_BAND_T the
-# row staged once (x in registers and shared memory, mask and region as bit
-# words, up to 16 slots a thread), above it the first design, which reads
-# its inputs from device memory in each pass. Its path= forces one where it
-# serves T (tests, timing).
+# kernel B serves rows up to MAX_WINDOW_STEPS. ma_band runs one of three
+# paths (band_path), with the same bits: up to STAGED_BAND_T the row staged
+# once (x in registers and shared memory, mask and region as bit words, up
+# to 16 slots a thread); above it, up to MAX_BAND_T, the long path (the row
+# staged once, x in shared memory, S rebuilt from each chunk's offset, three
+# CTAs an SM); the unstaged path, the first design (12 B of prefix sums a
+# slot, its inputs read from device memory in each pass), serves every T
+# and is taken only when forced. Its path= forces one where it serves T
+# (tests, timing).
 MAX_BAND_T = 16384
 STAGED_BAND_T = 4096
-BAND_PATHS = ("staged", "unstaged")
+BAND_PATHS = ("staged", "long", "unstaged")
 # kernel G keeps 12 B a slot (x and the prefix sums) and bit words in shared
 # memory, and a select thread's keys (T / 256) in registers
 MAX_SCREEN_T = 16384
@@ -192,11 +198,14 @@ PAIR_TEST_BITS = {"mann_whitney": 1, "kruskal": 2, "wilcoxon": 4, "ks": 8, "sign
 # 32-bit keys in registers; up to SHARED_RANK_KEYS a CTA a row in shared
 # memory; above it a CTA a row from device scratch. All three give the same
 # bits. Its path= forces one where it serves the row (tests, timing).
+# rank_and_ties likewise (rank_path, by T): the same three paths and
+# limits, the warp path on Kruskal's machinery with one group.
 SHARED_RANK_KEYS = 8192
 MAX_RANK_KEYS = 1 << 20
 WARP_RANK_KEYS = 512
 KRUSKAL_PATHS = ("warp", "cta", "scratch")
-KRUSKAL_WARPS = 4  # the warp path's rows a CTA (fm_kruskal_warps)
+RANK_PATHS = KRUSKAL_PATHS
+KRUSKAL_WARPS = 4  # the warp path's rows a CTA (fm_kruskal_warps), for both entries
 # kernel P keys a row by its global index in 32 bits, and takes at most
 # MAX_FLEET_SLICE rows a launch (its C entry counts rows and kept keys in
 # int)
@@ -245,9 +254,10 @@ LSTM_AE_PHASES = LSTM_FORWARD_PHASES  # kernel K's split is its forward's
 PAIR_PHASES = ("counts", "sort", "rank_scans", "wilcoxon_sort", "wilcoxon_scans",
                "mw_kw_ks", "exact_tails", "gates_band")
 TESTS_PHASES = PAIR_PHASES[:-1]
-# kernel O's Kruskal-Wallis entry's phases and kernel B's ma_band's, as their
-# optional clock stamps split them
+# kernel O's Kruskal-Wallis and rank entries' phases and kernel B's
+# ma_band's, as their optional clock stamps split them
 KRUSKAL_PHASES = ("load", "sort", "bounds", "group_sums", "tail")
+RANK_PHASES = ("load", "sort", "bounds", "ranks", "tail")  # the warp path's stamps
 BAND_PHASES = ("load", "scan", "predict_sigma", "band", "reduce")
 
 # kernel K's launches by path (each also counts in launches["lstm_ae"]);
@@ -257,9 +267,10 @@ bivariate_path_launches = {"cta": 0, "cluster": 0}
 # kernels A and N's launches by path (each also counts in launches)
 pair_path_launches = {path: 0 for path in PAIR_PATHS}
 pair_tests_path_launches = {path: 0 for path in PAIR_PATHS}
-# kernel O's kruskal_groups launches by path and kernel B's ma_band's (each
-# also counts in launches)
+# kernel O's kruskal_groups and rank_and_ties launches by path and kernel
+# B's ma_band's (each also counts in launches)
 kruskal_path_launches = {path: 0 for path in KRUSKAL_PATHS}
+rank_path_launches = {path: 0 for path in RANK_PATHS}
 band_path_launches = {path: 0 for path in BAND_PATHS}
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
@@ -273,7 +284,8 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     for counts in (lstm_ae_path_launches, bivariate_path_launches, pair_path_launches,
-                   pair_tests_path_launches, kruskal_path_launches, band_path_launches):
+                   pair_tests_path_launches, kruskal_path_launches, rank_path_launches,
+                   band_path_launches):
         for k in counts:
             counts[k] = 0
 
@@ -427,11 +439,13 @@ def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
 
 def band_path(T: int) -> str:
     """ma_band's path for rows of T slots."""
-    return "staged" if T <= STAGED_BAND_T else "unstaged"
+    return "staged" if T <= STAGED_BAND_T else "long"
 
 
 def band_serves(path: str, T: int) -> bool:
     """Whether an ma_band path serves rows of T slots."""
+    if path == "long":
+        return STAGED_BAND_T < T <= MAX_BAND_T
     return T <= {"staged": STAGED_BAND_T, "unstaged": MAX_BAND_T}[path]
 
 
@@ -451,8 +465,10 @@ def ma_band(x, mask, region, window: int, threshold, bound_mode, min_lower_bound
         if path not in BAND_PATHS:
             raise ValueError(f"ma_band has the paths {BAND_PATHS}; got {path!r}")
         if not band_serves(path, T):
-            raise ValueError(f"ma_band's staged path serves T <= STAGED_BAND_T = "
-                             f"{STAGED_BAND_T}; got T = {T}")
+            serves = {"staged": f"T <= STAGED_BAND_T = {STAGED_BAND_T}",
+                      "long": f"STAGED_BAND_T = {STAGED_BAND_T} < T <= MAX_BAND_T = "
+                              f"{MAX_BAND_T}"}[path]
+            raise ValueError(f"ma_band's {path} path serves {serves}; got T = {T}")
     path = path or band_path(T)
     for t, name, dt, shape in (
             (x, "x", torch.float32, (B, T)),
@@ -481,7 +497,8 @@ def ma_band(x, mask, region, window: int, threshold, bound_mode, min_lower_bound
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launch = lib.fm_ma_band_staged if path == "staged" else lib.fm_ma_band
+        launch = {"staged": lib.fm_ma_band_staged, "long": lib.fm_ma_band_long,
+                  "unstaged": lib.fm_ma_band}[path]
         rc = launch(
             _ptr(x), _ptr(mask), _ptr(region), int(window), _ptr(threshold),
             _ptr(bound_mode), _ptr(min_lower_bound), B, T,
@@ -1332,59 +1349,110 @@ def pair_tests(x, x_mask, y, y_mask, tests: int, *, wilcoxon_table, ks_exact_max
     return stat, p
 
 
-def _rank_scratch(lib, B: int, n_keys: int, what: str, dev):
-    """(scratch, stride, grid) for kernel O's sorting entries: none up to
-    SHARED_RANK_KEYS keys a row, else one device slot per CTA."""
-    if n_keys > MAX_RANK_KEYS:
-        raise ValueError(f"{what} sorts at most {MAX_RANK_KEYS} keys a row; got {n_keys}")
-    if n_keys <= SHARED_RANK_KEYS:
+# kernel O's sorting entries: each path's limit on a row's keys
+_KEY_LIMITS = {"warp": "WARP_RANK_KEYS", "cta": "SHARED_RANK_KEYS", "scratch": "MAX_RANK_KEYS"}
+
+
+def _keys_path(n: int) -> str:
+    if n <= WARP_RANK_KEYS:
+        return "warp"
+    return "cta" if n <= SHARED_RANK_KEYS else "scratch"
+
+
+def _keys_serve(path: str, n: int) -> bool:
+    return n <= globals()[_KEY_LIMITS[path]]
+
+
+def _check_keys(what: str, path, n: int, of: str) -> None:
+    """Refuse a row of more than MAX_RANK_KEYS keys, and a forced path
+    that does not serve n keys (naming its limit)."""
+    if n > MAX_RANK_KEYS:
+        raise ValueError(f"{what} sorts at most {MAX_RANK_KEYS} keys a row; got {n}")
+    if path is None:
+        return
+    if path not in KRUSKAL_PATHS:
+        raise ValueError(f"{what} has the paths {KRUSKAL_PATHS}; got {path!r}")
+    if not _keys_serve(path, n):
+        limit = _KEY_LIMITS[path]
+        raise ValueError(f"{what}' {path} path serves {of} <= {limit} = {globals()[limit]}; "
+                         f"got {of} = {n}")
+
+
+def _rank_scratch(lib, path: str, B: int, n: int, dev):
+    """(scratch, stride, grid) of kernel O's CTA entries: on the scratch path
+    one device slot a CTA, as many CTAs as SCRATCH_BYTES holds (B at most)."""
+    if path != "scratch":
         return None, 0, B
-    stride = lib.fm_rank_work_bytes(n_keys)
+    stride = lib.fm_rank_work_bytes(n)
     grid = max(1, min(B, SCRATCH_BYTES // stride))
     return torch.empty(grid * stride, dtype=torch.uint8, device=dev), stride, grid
 
 
-def rank_and_ties(values, mask):
+def rank_path(T: int) -> str:
+    """rank_and_ties' path for rows of T slots."""
+    return _keys_path(T)
+
+
+def rank_serves(path: str, T: int) -> bool:
+    """Whether a rank_and_ties path serves rows of T slots."""
+    return _keys_serve(path, T)
+
+
+def rank_and_ties(values, mask, phase_clocks=None, path=None):
     """Launch kernel O's rank entry on B rows ((B, T) float32, bool mask).
     Returns ranks (B, T) float32 in input order (0 at masked slots), the
-    tie term and the valid count, (B,) float32 each."""
+    tie term and the valid count, (B,) float32 each.
+
+    phase_clocks, an int64 (B, len(RANK_PHASES) + 1) tensor, receives each
+    row's SM clock at its start and after each phase of RANK_PHASES (the
+    warp path's stamps; ValueError on the others). path forces one of
+    RANK_PATHS (ValueError where it does not serve T).
+    """
     B, T = values.shape
+    _check_keys("rank_and_ties", path, T, "T")
+    path = path or rank_path(T)
+    if phase_clocks is not None and path != "warp":
+        raise ValueError(f"rank_and_ties stamps its warp path alone; got the {path} path")
     dev = values.device
     _check(values, "values", torch.float32, (B, T), dev)
     _check(mask, "mask", torch.bool, (B, T), dev)
+    if phase_clocks is not None:
+        _check(phase_clocks, "phase_clocks", torch.int64, (B, len(RANK_PHASES) + 1), dev)
     ranks = torch.empty((B, T), dtype=torch.float32, device=dev)
     tie = torch.empty(B, dtype=torch.float32, device=dev)
     n = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0 or T == 0:
         return ranks, tie.zero_(), n.zero_()
     lib = build.library()
-    scratch, stride, grid = _rank_scratch(lib, B, T, "rank_and_ties", dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_rank_and_ties(_ptr(values), _ptr(mask), B, T, _ptr(ranks), _ptr(tie),
-                                  _ptr(n), _opt(scratch), stride, grid, ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if path == "warp":
+            rc = lib.fm_rank_and_ties_warp(_ptr(values), _ptr(mask), B, T, _ptr(ranks),
+                                           _ptr(tie), _ptr(n), _opt(phase_clocks),
+                                           kruskal_warp_grid(B), stream)
+        else:
+            scratch, stride, grid = _rank_scratch(lib, path, B, T, dev)
+            rc = lib.fm_rank_and_ties(_ptr(values), _ptr(mask), B, T, _ptr(ranks), _ptr(tie),
+                                      _ptr(n), _opt(scratch), stride, grid, stream)
     _raise_on(rc, "rank_and_ties", lib)
     launches["rank_and_ties"] += 1
+    rank_path_launches[path] += 1
     return ranks, tie, n
 
 
 def kruskal_path(k: int, T: int) -> str:
     """kruskal_groups' path for rows of k groups of T slots."""
-    n = k * T
-    if n <= WARP_RANK_KEYS:
-        return "warp"
-    return "cta" if n <= SHARED_RANK_KEYS else "scratch"
+    return _keys_path(k * T)
 
 
 def kruskal_serves(path: str, k: int, T: int) -> bool:
     """Whether a kruskal_groups path serves rows of k groups of T slots."""
-    limit = {"warp": WARP_RANK_KEYS, "cta": SHARED_RANK_KEYS, "scratch": MAX_RANK_KEYS}[path]
-    return k * T <= limit
+    return _keys_serve(path, k * T)
 
 
 def kruskal_warp_grid(B: int) -> int:
-    """CTAs of kruskal_groups' warp path for B rows: a warp a row,
-    KRUSKAL_WARPS a CTA."""
+    """CTAs of kernel O's warp paths for B rows: a warp a row, KRUSKAL_WARPS
+    a CTA."""
     return -(-B // KRUSKAL_WARPS)
 
 
@@ -1397,16 +1465,7 @@ def kruskal_groups(groups, masks, phase_clocks=None, path=None):
     path forces one of KRUSKAL_PATHS (ValueError where it does not serve k T).
     """
     B, k, T = groups.shape
-    if k * T > MAX_RANK_KEYS:
-        raise ValueError(f"kruskal_groups sorts at most {MAX_RANK_KEYS} keys a row; got {k * T}")
-    if path is not None:
-        if path not in KRUSKAL_PATHS:
-            raise ValueError(f"kruskal_groups has the paths {KRUSKAL_PATHS}; got {path!r}")
-        if not kruskal_serves(path, k, T):
-            limit = {"warp": "WARP_RANK_KEYS", "cta": "SHARED_RANK_KEYS",
-                     "scratch": "MAX_RANK_KEYS"}[path]
-            raise ValueError(f"kruskal_groups' {path} path serves k T <= {limit} = "
-                             f"{globals()[limit]}; got k T = {k * T}")
+    _check_keys("kruskal_groups", path, k * T, "k T")
     dev = groups.device
     _check(groups, "groups", torch.float32, (B, k, T), dev)
     _check(masks, "masks", torch.bool, (B, k, T), dev)
@@ -1426,11 +1485,7 @@ def kruskal_groups(groups, masks, phase_clocks=None, path=None):
             rc = lib.fm_kruskal_groups_warp(_ptr(groups), _ptr(masks), B, k, T, _ptr(H), _ptr(p),
                                             _opt(phase_clocks), kruskal_warp_grid(B), stream)
         else:
-            scratch, stride, grid = None, 0, B
-            if path == "scratch":
-                stride = lib.fm_rank_work_bytes(k * T)
-                grid = max(1, min(B, SCRATCH_BYTES // stride))
-                scratch = torch.empty(grid * stride, dtype=torch.uint8, device=dev)
+            scratch, stride, grid = _rank_scratch(lib, path, B, k * T, dev)
             rc = lib.fm_kruskal_groups(_ptr(groups), _ptr(masks), B, k, T, _ptr(H), _ptr(p),
                                        _opt(phase_clocks), _opt(scratch), stride, grid, stream)
     _raise_on(rc, "kruskal_groups", lib)

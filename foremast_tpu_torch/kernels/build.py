@@ -125,6 +125,10 @@ def _declare(lib):
     lib.fm_ma_band.restype = I
     lib.fm_ma_band_staged.argtypes = [P, P, P, I, P, P, P, I, I] + [P] * 8 + [P, P]
     lib.fm_ma_band_staged.restype = I
+    lib.fm_ma_band_long.argtypes = [P, P, P, I, P, P, P, I, I] + [P] * 8 + [P, P]
+    lib.fm_ma_band_long.restype = I
+    lib.fm_long_band_bytes.argtypes = [I]
+    lib.fm_long_band_bytes.restype = LL
     lib.fm_band_from_preds.argtypes = [P] * 7 + [I, I] + [P] * 7 + [P]
     lib.fm_band_from_preds.restype = I
     lib.fm_smooth.argtypes = [I] + [P] * 4 + [I, I, I, P, P]
@@ -194,6 +198,8 @@ def _declare(lib):
     lib.fm_rank_work_bytes.restype = LL
     lib.fm_rank_and_ties.argtypes = [P, P, I, I, P, P, P, P, LL, I, P]
     lib.fm_rank_and_ties.restype = I
+    lib.fm_rank_and_ties_warp.argtypes = [P, P, I, I, P, P, P, P, I, P]
+    lib.fm_rank_and_ties_warp.restype = I
     lib.fm_kruskal_groups.argtypes = [P, P, I, I, I, P, P, P, P, LL, I, P]
     lib.fm_kruskal_groups.restype = I
     lib.fm_kruskal_groups_warp.argtypes = [P, P, I, I, I, P, P, P, I, P]

@@ -303,6 +303,12 @@ int fm_parse_series(const char* buf, long len, int flavor,
     return 0;
 }
 
+// a / b rounded toward -inf (b > 0), as Python's //
+static long floor_div(long a, long b) {
+    const long q = a / b;
+    return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
 long fm_parse_grid(const char* buf, long len, int flavor,
                    long step, long max_steps,
                    float* out_vals, unsigned char* out_mask,
@@ -314,8 +320,9 @@ long fm_parse_grid(const char* buf, long len, int flavor,
     if (!sc.value()) return -1;
     long m = merge_pairs(pairs);
 
-    // grid span from the finite timestamps (truncating align matches
-    // align_step's int(t)//step*step for the positive unix times in play)
+    // grid span from the finite timestamps, aligned as align_step aligns:
+    // int(t) (truncation toward zero) then a floor division by step, so a
+    // negative timestamp lands on the slot the Python path gives it
     double tmin = 0.0, tmax = 0.0;
     bool any = false;
     for (long i = 0; i < m; ++i) {
@@ -336,8 +343,8 @@ long fm_parse_grid(const char* buf, long len, int flavor,
     const double kTsCap = 4.0e18;
     tmax = std::clamp(tmax, -kTsCap, kTsCap);
     tmin = std::clamp(tmin, -kTsCap, kTsCap);
-    long end = (long)tmax / step * step + step;
-    long start = (long)tmin / step * step;
+    long end = floor_div((long)tmax, step) * step + step;
+    long start = floor_div((long)tmin, step) * step;
     if (start < end - max_steps * step) start = end - max_steps * step;
     long T = (end - start) / step;
     if (T < 1) T = 1;

@@ -264,23 +264,26 @@ def _takes_clocks(csrc, name, entry):
 
 
 def parent_check_o_b(lib, parent, g) -> int:
-    """Kernel O's kruskal_groups and kernel B's ma_band of the parent's
-    library `lib` (their C entries as the parent declares them) against this
-    tree's paths, H and p and all 8 band outputs bit for bit; then kernel O's
-    rank_and_ties and friedman, kernel B's band_from_preds and kernel G's
-    triage_screen, which this tree leaves as they were, through this tree's
-    launchers on the parent's library. NaN payloads aside. Returns the
-    failures."""
+    """Kernel O's kruskal_groups and rank_and_ties and kernel B's ma_band of
+    the parent's library `lib` (their C entries as the parent declares them)
+    against this tree's paths: H and p, the ranks, tie terms and counts, and
+    all 8 band outputs bit for bit; then kernel O's friedman, kernel B's
+    band_from_preds and kernel G's triage_screen, which this tree leaves as
+    they were, through this tree's launchers on the parent's library. NaN
+    payloads aside. Returns the failures."""
     import chip_smoke as cs
     from foremast_tpu_torch.ops import forecast as fc
 
     P_, I_, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     csrc = os.path.join(parent, "foremast_tpu_torch", "csrc")
     k_clk = [None] if _takes_clocks(csrc, "rank_groups.cu", "fm_kruskal_groups") else []
+    r_clk = [None] if _takes_clocks(csrc, "rank_groups.cu", "fm_rank_and_ties") else []
     b_clk = [None] if _takes_clocks(csrc, "ma_band.cu", "fm_ma_band") else []
     lib.fm_kruskal_groups.argtypes = [P_, P_, I_, I_, I_, P_, P_] + [P_] * len(k_clk) + [P_, LL,
                                                                                          I_, P_]
     lib.fm_ma_band.argtypes = [P_, P_, P_, I_, P_, P_, P_, I_, I_] + [P_] * (8 + len(b_clk)) + [P_]
+    lib.fm_rank_and_ties.argtypes = [P_, P_, I_, I_, P_, P_, P_] + [P_] * len(r_clk) + [P_, LL,
+                                                                                        I_, P_]
     lib.fm_rank_work_bytes.argtypes = [LL]
     lib.fm_rank_work_bytes.restype = LL
 
@@ -307,7 +310,8 @@ def parent_check_o_b(lib, parent, g) -> int:
               flush=True)
         failures += not ok
     for T, B, w in ((64, 9, 30), (100, 9, 7), (1000, 6, 30), (1024, 6, 30), (3000, 3, 50),
-                    (4096, 2, 30), (4100, 2, 30)):
+                    (4096, 2, 30), (4100, 2, 30), (5000, 3, 300), (8192, 8, 1),
+                    (16384, 8, 30)):
         a = cs.adversarial_bands(B, T, g)
         ref = {k: torch.empty(B, T) for k in ("preds", "upper", "lower")}
         ref["flags"] = torch.empty(B, T, dtype=torch.bool)
@@ -323,17 +327,32 @@ def parent_check_o_b(lib, parent, g) -> int:
         print(f"{'ok  ' if ok else 'FAIL'} ma_band T={T} window {w} ({kernels.band_path(T)} "
               f"path) against the parent's: all 8 outputs bit for bit", flush=True)
         failures += not ok
+    # rank_and_ties: the parent's entry (its CTA and scratch paths) against
+    # this tree's path for T, every output bit for bit
+    for T, B in ((8, 9), (100, 9), (256, 9), (300, 7), (512, 6), (513, 5), (9000, 3)):
+        v, m = (torch.from_numpy(a) for a in cs.adversarial_ranks(B, T, rng))
+        ref = (torch.empty(B, T), torch.empty(B), torch.empty(B))
+        scratch, stride = None, 0
+        if T > kernels.SHARED_RANK_KEYS:
+            stride = lib.fm_rank_work_bytes(T)
+            scratch = torch.empty(B * stride, dtype=torch.uint8)
+        rc = lib.fm_rank_and_ties(ptr(v), ptr(m), B, T, *(ptr(t) for t in ref), *r_clk,
+                                  ptr(scratch), stride, B, None)
+        ours = kernels.rank_and_ties(v, m)
+        ok = rc == 0 and all(_same(a, b) for a, b in zip(ours, ref))
+        print(f"{'ok  ' if ok else 'FAIL'} rank_and_ties T={T} ({kernels.rank_path(T)} path) "
+              f"against the parent's: ranks, tie terms and counts bit for bit", flush=True)
+        failures += not ok
     # the entries this tree leaves as they were, on the parent's library
     from foremast_tpu_torch.ops import pairwise as pw
 
-    v8 = {T: [torch.from_numpy(a) for a in cs.adversarial_ranks(7, T, rng)] for T in (8, 300, 9000)}
     fr = [torch.from_numpy(a) for a in cs.adversarial_friedman(9, 12, 3, rng)]
     x, m, region, *_, thr, mode, mlb = cs.adversarial_series(9, 300, g)
     preds = torch.where(torch.isfinite(x), x, 30.0) + 1.0
     scr = cs.adversarial_screen(9, 300, g)
 
     def run():
-        return ([kernels.rank_and_ties(*v) for v in v8.values()], kernels.friedman(*fr),
+        return (kernels.friedman(*fr),
                 kernels.band_from_preds(x, m, region, preds, thr, mode, mlb),
                 kernels.triage_screen(scr[0], scr[1], scr[2], cs.TRIAGE_WINDOW, *scr[3:]))
 
@@ -344,12 +363,10 @@ def parent_check_o_b(lib, parent, g) -> int:
         theirs = run()
     finally:
         kbuild.library = mine
-    names = ("rank_and_ties", "friedman", "band_from_preds", "triage_screen")
+    names = ("friedman", "band_from_preds", "triage_screen")
     for name, u, t in zip(names, ours, theirs):
         if isinstance(u, dict):
             ok = all(_same(u[k], t[k]) for k in u)
-        elif name == "rank_and_ties":
-            ok = all(_same(a, b) for uu, tt in zip(u, t) for a, b in zip(uu, tt))
         else:
             ok = all(_same(a, b) for a, b in zip(u, t))
         print(f"{'ok  ' if ok else 'FAIL'} {name} against the parent's: every output bit for bit",
@@ -796,8 +813,8 @@ def pair_paths_check(cs, expect) -> None:
 def new_kernels_check(cs, expect) -> None:
     """Kernels N, O, B's ma_band and P against their twins, with chip_smoke's
     adversarial rows and comparisons, device scratch and grid-stride walks
-    included, and each path of O's Kruskal-Wallis entry and of ma_band
-    against the others bit for bit."""
+    included, and each path of O's Kruskal-Wallis and rank entries and of
+    ma_band against the others bit for bit."""
     from foremast_tpu_torch.ops import forecast as fc
     from foremast_tpu_torch.ops import pairwise as pw
     from foremast_tpu_torch.ops import ranks as rk
@@ -823,11 +840,18 @@ def new_kernels_check(cs, expect) -> None:
         except AssertionError as err:
             expect(f"pair_tests T={T}", False, str(err))
     kernels.SCRATCH_BYTES = 3 * 16384 * 16
-    for T, B in ((8, 12), (300, 12), (9000, 7)):
+    # kernel O's rank entry on each path that serves T (the warp path's
+    # M = 1 to 16 keys a lane, scalar and float4 loads, a ragged last CTA),
+    # the paths equal to the cta path's bits (the scratch path's above it)
+    for T, B in ((1, 9), (8, 12), (33, 9), (100, 9), (256, 13), (300, 12), (512, 6), (513, 5),
+                 (9000, 7)):
         v, m = (torch.from_numpy(a) for a in cs.adversarial_ranks(B, T, rng))
         try:
-            cs.compare_ranks(kernels.rank_and_ties(v, m), rk.rank_and_ties_plain(v, m))
-            expect(f"rank_and_ties T={T}", True, "ranks, tie terms and counts equal")
+            out = kernels.rank_and_ties(v, m)
+            cs.compare_ranks(out, rk.rank_and_ties_plain(v, m))
+            served = cs.rank_paths_agree(v, m, out)
+            expect(f"rank_and_ties T={T}", True,
+                   f"ranks, tie terms and counts equal; paths {served} equal bit for bit")
         except AssertionError as err:
             expect(f"rank_and_ties T={T}", False, str(err))
     # kernel O's Kruskal-Wallis entry on each path that serves k T (the warp
@@ -852,10 +876,13 @@ def new_kernels_check(cs, expect) -> None:
         except AssertionError as err:
             expect(f"kruskal_groups k={k} T={T}", False, str(err))
     # kernel B's ma_band on each path that serves T, equal bit for bit; T =
-    # 1000 and 3000: chunks of 4 and 12 slots, 1 and 33: part of a warp
+    # 1000 and 3000: chunks of 4 and 12 slots, 1 and 33: part of a warp;
+    # above 4096 the long path: 4097 and 5000 chunks of 17 and 20 slots
+    # (scalar loads), 8192 and 16384 of 32 and 64 (vector loads)
     g = torch.Generator().manual_seed(15)
     for T, B, w in ((1, 3, 30), (33, 9, 5), (128, 17, 30), (300, 9, 7), (600, 9, 1),
-                    (1000, 8, 30), (1024, 8, 30), (3000, 3, 50), (4096, 2, 30)):
+                    (1000, 8, 30), (1024, 8, 30), (3000, 3, 50), (4096, 2, 30), (4097, 8, 300),
+                    (5000, 8, 1), (8192, 8, 30), (16384, 8, 300)):
         a = cs.adversarial_bands(B, T, g)
         try:
             cs.compare_ma_band(a, w, kernels.ma_band(*a[:3], w, *a[3:6]),

@@ -177,6 +177,25 @@ kernels.TESTS_PHASES, checkouts that have them) by their clock stamps. It
 calls only entry points every checkout since kernel N's first has: run it
 from the parent's checkout and this one in one call (parent, change,
 change, parent).
+
+--band-rank times kernel B's ma_band on the seasonal generator's 100,000
+rows at the engine's two buckets above T = 4096 (16384: 7 days of history
+at 60 s, chip_smoke.py's seasonal phase; 8192: 5 days), band_from_preds on
+the same rows (the same 19 B a slot) beside it, and, as controls, on the
+band pass (100,000 x 1024) and the engine's 4096 x 2048; and kernel O's
+rank_and_ties on the tests phase's 100,000 rows of T = 256 (baseline ++
+current) and, on adversarial rows, at (20,000 x 1024) and (512 x 16384)
+(the cta and scratch paths): each the median of 20 launches back to back,
+beside its bound, with a SHA-256 of the outputs, and on adversarial rows at
+the card tests' T (ma_band at windows 1, 30 and 300). In checkouts whose launchers take
+`path=`, each other path that serves a shape is also forced. With
+--profile each shape is timed unstamped, then with the optional per-row
+cycle counts (`phase_clocks=`, kernels.BAND_PHASES and kernels.RANK_PHASES;
+checkouts that have them), then unstamped again, and the split is printed, with ptxas' registers and
+spills. It calls
+only entry points every checkout since kernels B and O's first has: run it
+from the parent's checkout and this one in one call (parent, change,
+change, parent); `--only band` or `--only rank` times one of the two.
 """
 import hashlib
 import argparse
@@ -894,6 +913,125 @@ def band_all(res, timed, paths_b, clocks_b):
         res["band paths"] = dict(kernels.band_path_launches)
 
 
+# --band-rank: ma_band above T = 4096 (the engine's 8192 and 16384 buckets:
+# 5 days = 7,200 and 7 days = 10,080 history points at 60 s, + 60 current)
+# and the staged path's shapes as controls; rank_and_ties on the tests
+# phase's rows; adversarial digests at the card tests' T
+BAND_LONG = ((16384, cs.SEASON_HIST), (8192, 7_200))
+BAND_LONG_DIGEST_T = (4097, 5000, 8192, 16384)
+RANK_DIGEST_T = (8, 100, 256, 512)
+RANK_LONG = ((1024, 20_000), (16384, 512))  # (T, B): the cta and scratch paths
+
+
+def band_bound(B, T):
+    """Least time of ma_band's work: 19 B a slot (x, mask and region read,
+    preds, upper, lower and flags written once) and 28 B a row, against
+    ~20 operations a slot at the fp32 rate."""
+    return cs.least_time(B * T * 19 + B * 28, 20 * B * T)
+
+
+def band_rank(profile, only=None):
+    """Kernel B's ma_band at BAND_LONG and at the staged path's two shapes,
+    and kernel O's rank_and_ties at 100,000 x 256 (only: "band" or "rank"):
+    times, bounds, digests, paths and (profile) their splits."""
+    from foremast_tpu_torch import kernels
+
+    paths_b = getattr(kernels, "BAND_PATHS", ()) if _takes_path(kernels.ma_band) else ()
+    paths_r = getattr(kernels, "RANK_PATHS", ()) if _takes_path(kernels.rank_and_ties) else ()
+    clocks_b = profile and _takes_clocks(kernels.ma_band)
+    clocks_r = profile and _takes_clocks(kernels.rank_and_ties)
+    res = {}
+
+    def timed(what, run):
+        ms = median_back_to_back_ms(run, cs.TIMED_RUNS)
+        out = run()
+        sha = _out_digest(out if isinstance(out, dict) else tuple(out))
+        print(f"  {what}: {ms:.3f} ms (median of {cs.TIMED_RUNS}), sha256 {sha}", flush=True)
+        res[what] = {"ms": ms, "sha256": sha}
+        return ms
+
+    def band_shape(what, a, window):
+        B, T = a[0].shape
+        bound = band_bound(B, T)
+        print(f"  ma_band {what}: bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})",
+              flush=True)
+        res[f"ma_band {what} bound"] = bound
+        ms = timed(f"ma_band {what}", lambda: kernels.ma_band(*a[:3], window, *a[3:6]))
+        if hasattr(kernels, "band_path"):
+            res[f"ma_band {what} path"] = kernels.band_path(T)
+        for path in paths_b:
+            if kernels.band_serves(path, T) and path != kernels.band_path(T):
+                timed(f"ma_band {what}, {path} path forced",
+                      lambda: kernels.ma_band(*a[:3], window, *a[3:6], path=path))
+        if clocks_b:
+            res[f"ma_band {what} split"] = _split(
+                "ma_band", lambda **kw: kernels.ma_band(*a[:3], window, *a[3:6], **kw), B,
+                kernels.BAND_PHASES, what, ms)
+
+    if only != "rank":
+        gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+        # the staged path's shapes first, before the long rows' allocations
+        band_shape("band pass 100000 x 1024", cs.band_path_inputs(gen)[0], 30)
+        engine = cs.engine_band_inputs(cs.engine_fleet(np.random.default_rng(cs.SEED)))
+        band_shape("engine 4096 x 2048", engine, cs.TRIAGE_WINDOW)
+        del engine
+        torch.cuda.empty_cache()
+        for T, hist in BAND_LONG:
+            a = cs.season_inputs(gen, T=T, hist=hist)[0]
+            band_shape(f"seasonal 100000 x {T}", a, 30)
+            # the yardstick of bytes: kernel B's other entry moves 19 B a
+            # slot too
+            preds = kernels.ma_band(*a[:3], 30, *a[3:6])["preds"]
+            timed(f"band_from_preds seasonal 100000 x {T}",
+                  lambda: kernels.band_from_preds(*a[:3], preds, *a[3:6]))
+            del a, preds
+            torch.cuda.empty_cache()
+        for T in BAND_LONG_DIGEST_T:
+            a = cs.adversarial_bands(512, T, torch.Generator(device=cs.DEV).manual_seed(cs.SEED + T))
+            for w in (1, 30, 300):
+                sha = _out_digest(kernels.ma_band(*a[:3], w, *a[3:6]))
+                res[f"ma_band check 512 x {T} window {w}"] = {"sha256": sha}
+                print(f"  ma_band on adversarial rows 512 x {T}, window {w}: sha256 {sha}",
+                      flush=True)
+    if only != "band":
+        args = cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0]
+        v, m = cs.tests_inputs(args)[3]
+        B, T = v.shape
+        bound = cs.tests_bounds(*cs.tests_inputs(args))["rank_and_ties"]
+        print(f"  rank_and_ties tests {B} x {T}: bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})", flush=True)
+        res[f"rank_and_ties tests {B} x {T} bound"] = bound
+        ms = timed(f"rank_and_ties tests {B} x {T}", lambda: kernels.rank_and_ties(v, m))
+        for path in paths_r:
+            if kernels.rank_serves(path, T) and path != kernels.rank_path(T):
+                timed(f"rank_and_ties tests {B} x {T}, {path} path forced",
+                      lambda: kernels.rank_and_ties(v, m, path=path))
+        if clocks_r:
+            res[f"rank_and_ties tests {B} x {T} split"] = _split(
+                "rank_and_ties", lambda **kw: kernels.rank_and_ties(v, m, **kw), B,
+                kernels.RANK_PHASES, f"tests {B} x {T}", ms)
+        del v, m
+        # the cta and scratch paths, where they are the default
+        for T, B in RANK_LONG:
+            vv, mm = (torch.from_numpy(x).to(cs.DEV) for x in cs.adversarial_ranks(
+                B, T, np.random.default_rng(cs.SEED - T)))
+            timed(f"rank_and_ties adversarial {B} x {T}", lambda: kernels.rank_and_ties(vv, mm))
+            del vv, mm
+        for T in RANK_DIGEST_T:
+            vv, mm = (torch.from_numpy(x).to(cs.DEV) for x in cs.adversarial_ranks(
+                2048, T, np.random.default_rng(cs.SEED + T)))
+            sha = _out_digest(tuple(kernels.rank_and_ties(vv, mm)))
+            res[f"rank_and_ties check 2048 x {T}"] = {"sha256": sha}
+            print(f"  rank_and_ties on adversarial rows 2048 x {T}: sha256 {sha}", flush=True)
+    for name in ("band_path_launches", "rank_path_launches"):
+        if hasattr(kernels, name):
+            res[name] = dict(getattr(kernels, name))
+    if profile:
+        res["ptxas"] = _ptxas(("band_long", "band_kernel", "band_staged", "rank_kernel",
+                               "rank_warp"))
+    return res
+
+
 def median_back_to_back_ms(fn, runs):
     """Median of `runs` launches of fn by CUDA events recorded between
     launches enqueued back to back after a warm-up one: the host stays
@@ -1519,8 +1657,9 @@ def main():
     p.add_argument("--bivariate-hw", action="store_true",
                    help="time kernel H and kernel C (the Holt-Winters refit, SES, DES) and print "
                         "their outputs' digests instead")
-    p.add_argument("--only", choices=("bivariate", "smooth", "kruskal", "band"),
-                   help="with --bivariate-hw or --kruskal-band, time one of the two kernels")
+    p.add_argument("--only", choices=("bivariate", "smooth", "kruskal", "band", "rank"),
+                   help="with --bivariate-hw, --kruskal-band or --band-rank, time one of the "
+                        "two kernels")
     p.add_argument("--compare", nargs=2, metavar=("A", "B"),
                    help="hold two --triage-hw, --lstm-st, --period-hpa or --bivariate-hw output "
                         "files against each other (CPU)")
@@ -1532,6 +1671,9 @@ def main():
     p.add_argument("--kruskal-band", action="store_true",
                    help="time kernel O's kruskal_groups and kernel B's ma_band, with digests, "
                         "instead")
+    p.add_argument("--band-rank", action="store_true",
+                   help="time kernel B's ma_band above T = 4096 (and its staged shapes) and "
+                        "kernel O's rank_and_ties, with digests, instead")
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
     if opt.compare:
@@ -1574,6 +1716,10 @@ def main():
     if opt.kruskal_band:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "kruskal_band": kruskal_band(opt.profile, opt.only)}), flush=True)
+        return
+    if opt.band_rank:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "band_rank": band_rank(opt.profile, opt.only)}), flush=True)
         return
     if opt.a_digest:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

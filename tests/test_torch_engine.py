@@ -1180,6 +1180,60 @@ def test_a_job_of_more_metrics_than_the_kernels_take_fails_scoring_by_name():
 
 
 @pytest.mark.usefixtures("one_torch_thread")
+def test_two_lstm_cache_writers_on_one_path_leave_a_whole_file(tmp_path, monkeypatch):
+    """Two engines saving to one LSTM_CACHE_PATH at once: each writes a
+    temporary file of its own (both held open together), and the file left
+    behind is one writer's whole file."""
+    import tempfile
+    import threading
+
+    fixtures = {}
+    store = E.JobStore()
+    for j, app in enumerate(("a1", "a2")):
+        store.create(_multi_job(E, fixtures, bad=False, jid=f"j{j}", app=app, seed=j))
+    cfg = _lstm_cfg(E, lstm_epochs=5)
+    an = E.Analyzer(cfg, FixtureDataSource(fixtures), store, device="cpu")
+    an.run_cycle(now=1_000_000.0)
+    path = str(tmp_path / "lstm.npz")
+    made, both_writing = [], threading.Barrier(2, timeout=60)
+    mkstemp, savez = tempfile.mkstemp, np.savez
+
+    def recorded_mkstemp(*a, **kw):
+        fd, name = mkstemp(*a, **kw)
+        made.append(name)
+        return fd, name
+
+    def savez_side_by_side(f, **payload):
+        both_writing.wait()  # the other writer has its file open too
+        savez(f, **payload)
+
+    monkeypatch.setattr(tempfile, "mkstemp", recorded_mkstemp)
+    monkeypatch.setattr(np, "savez", savez_side_by_side)
+    wrote, errors = [], []
+
+    def writer(n):
+        try:
+            wrote.append(an.save_lstm_cache(path, max_entries=n))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=writer, args=(n,)) for n in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errors, errors
+    assert sorted(wrote) == [1, 2]
+    assert len(made) == 2 and made[0] != made[1]
+    assert all(os.path.dirname(m) == str(tmp_path) for m in made)
+    assert sorted(os.listdir(tmp_path)) == ["lstm.npz"]
+    fresh = E.Analyzer(cfg, FixtureDataSource(fixtures), E.JobStore(), device="cpu")
+    n = fresh.load_lstm_cache(path)
+    assert n in (1, 2)
+    assert list(fresh._lstm_cache) == list(an._lstm_cache)[-n:]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 def test_lstm_cache_round_trips_and_other_files_load_nothing(tmp_path):
     fixtures = {}
     store = E.JobStore()

@@ -76,6 +76,23 @@ def test_native_parse_grid_equals_the_python_pipeline(built, name, max_steps):
     np.testing.assert_array_equal(vals, want.values)
 
 
+@pytest.mark.parametrize("samples", [
+    [(-90.5, 1.0), (-30.2, 2.0), (10.0, 3.0)],   # the start below zero
+    [(-200.7, 1.0), (-61.0, 2.0)],               # the whole span below zero
+    [(-3600.0, 4.0), (-1.0, 5.0), (59.0, 6.0)]])  # on and beside step boundaries
+def test_native_parse_grid_floors_a_negative_timestamp(built, samples):
+    """The native grid aligns its span as align_step does (int(t), then a
+    floor division by the step), so a negative timestamp gives the Python
+    path's start, end and slots."""
+    raw = _prom_payload([samples])
+    vals, mask, start = native.parse_grid(raw, native.FLAVOR_PROMETHEUS, 60, 16384)
+    want = F.grid_from_series(*_py_prom(raw), 60, 16384)
+    assert start == want.start
+    assert len(vals) == len(want.values)
+    np.testing.assert_array_equal(mask, want.mask)
+    np.testing.assert_array_equal(vals, want.values)
+
+
 def test_native_refuses_malformed_bodies(built):
     assert native.parse_series(b'{"data": {"result": [', 0) is None
     assert native.parse_series(b"", 0) is None

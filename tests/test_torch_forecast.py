@@ -173,11 +173,21 @@ def _bracket(x, m, region, upper, lower, mode, tol):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_moving_average_band_matches_reference_chain(seed):
-    x, m = _series(seed)
+    _band_chain_parity(seed, *_series(seed))
+
+
+@pytest.mark.parametrize("T", [8192, 16384])
+def test_moving_average_band_matches_reference_chain_above_4096(T):
+    """At the engine's buckets of 5 and 7 days of 60 s history, where
+    kernel B runs its long path on the card."""
+    _band_chain_parity(T, *_series(T, B=6, T=T))
+
+
+def _band_chain_parity(seed, x, m):
     B, T = x.shape
     region = np.zeros_like(m)
-    region[:, 72:] = True
-    x[::3, 80:] += np.float32(8.0)  # a level shift in a third of the current windows
+    region[:, T - 24:] = True
+    x[::3, T - 16:] += np.float32(8.0)  # a level shift in a third of the current windows
     thr, mode, mlb = _policy(B, seed)
     got = tfc.moving_average_band(x, m, region, 20, thr, mode, mlb, device="cpu")
     got = {k: v.numpy() for k, v in got.items()}

@@ -1,6 +1,6 @@
 """Kernel H's path choice, kernels A and N's path choice and warp-path grid,
-kernel O's Kruskal-Wallis paths and warp-path grid, kernel B's ma_band
-paths, and kernel C's Holt-Winters launch size, at their boundaries. Plain Python
+kernel O's Kruskal-Wallis and rank paths and warp-path grid, kernel B's
+ma_band paths, and kernel C's Holt-Winters launch size, at their boundaries. Plain Python
 on the library's size formulas (the mirrors are held to their C functions
 by card tests in test_torch_kernels.py), so these run on the CPU."""
 import pytest
@@ -171,12 +171,15 @@ def test_kruskal_warp_grid_holds_a_warp_a_row(B, grid):
 
 @pytest.mark.parametrize("T, path", [
     (1, "staged"), (128, "staged"), (1000, "staged"), (1024, "staged"), (2048, "staged"),
-    (4095, "staged"), (4096, "staged"), (4097, "unstaged"), (8192, "unstaged"),
-    (16384, "unstaged")])
+    (4095, "staged"), (4096, "staged"), (4097, "long"), (5000, "long"), (8192, "long"),
+    (16383, "long"), (16384, "long")])
 def test_band_path_by_window(T, path):
     assert kernels.STAGED_BAND_T == 4096
     assert kernels.band_path(T) == path
     assert kernels.band_serves(path, T) and kernels.band_serves("unstaged", T)
+    # each of the two staging paths serves its own side of STAGED_BAND_T alone
+    other = {"staged": "long", "long": "staged"}[path]
+    assert not kernels.band_serves(other, T)
 
 
 def _band_args(B, T):
@@ -186,7 +189,8 @@ def _band_args(B, T):
 
 
 @pytest.mark.parametrize("T, path, limit", [
-    (4097, "staged", "STAGED_BAND_T = 4096"), (16384, "staged", "STAGED_BAND_T = 4096"),
+    (4097, "staged", "STAGED_BAND_T = 4096"), (4096, "long", "STAGED_BAND_T = 4096 < T"),
+    (100, "long", "MAX_BAND_T = 16384"), (16385, "long", "16384"),
     (1024, "warp", "paths"), (16385, "unstaged", "16384")])
 def test_forced_band_paths_refuse_a_window_they_do_not_serve(T, path, limit):
     with pytest.raises(ValueError, match=limit):
@@ -201,3 +205,51 @@ def test_reset_launches_clears_the_kruskal_and_band_path_counts():
     assert set(kernels.band_path_launches) == set(kernels.BAND_PATHS)
     assert not any(kernels.kruskal_path_launches.values())
     assert not any(kernels.band_path_launches.values())
+
+
+@pytest.mark.parametrize("T, path", [
+    (1, "warp"), (8, "warp"), (100, "warp"), (256, "warp"), (511, "warp"), (512, "warp"),
+    (513, "cta"), (4096, "cta"), (8192, "cta"), (8193, "scratch"), (1 << 20, "scratch")])
+def test_rank_path_by_window(T, path):
+    """rank_and_ties' path: a warp a row up to WARP_RANK_KEYS (Kruskal's
+    limit), then a CTA a row in shared memory, then device scratch; every
+    path serves what a shorter-limit path serves."""
+    assert kernels.WARP_RANK_KEYS == 512 and kernels.RANK_PATHS == kernels.KRUSKAL_PATHS
+    assert kernels.rank_path(T) == path
+    served = [p for p in kernels.RANK_PATHS if kernels.rank_serves(p, T)]
+    assert served == list(kernels.RANK_PATHS[kernels.RANK_PATHS.index(path):])
+
+
+def _rank_args(B, T):
+    return torch.zeros(B, T), torch.ones(B, T, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("T, path, limit", [
+    (513, "warp", "WARP_RANK_KEYS = 512"), (8193, "cta", "SHARED_RANK_KEYS = 8192"),
+    (256, "block", "paths"), ((1 << 20) + 1, "scratch", "at most")])
+def test_forced_rank_paths_refuse_a_row_they_do_not_serve(T, path, limit):
+    """rank_and_ties refuses a forced path that does not serve T, naming
+    the limit, before it looks at a tensor (these are CPU tensors)."""
+    with pytest.raises(ValueError, match=limit):
+        kernels.rank_and_ties(*_rank_args(1, T), path=path)
+
+
+@pytest.mark.parametrize("T, path", [(600, None), (256, "cta"), (256, "scratch")])
+def test_rank_phase_clocks_are_the_warp_path_s_alone(T, path):
+    clocks = torch.zeros(1, len(kernels.RANK_PHASES) + 1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="warp path alone"):
+        kernels.rank_and_ties(*_rank_args(1, T), phase_clocks=clocks, path=path)
+
+
+def test_rank_phases_name_the_stamps_between_six_clocks():
+    assert kernels.RANK_PHASES == ("load", "sort", "bounds", "ranks", "tail")
+    assert len(kernels.RANK_PHASES) == len(kernels.KRUSKAL_PHASES)
+
+
+def test_reset_launches_clears_the_rank_path_counts():
+    kernels.rank_path_launches["warp"] += 3
+    kernels.launches["rank_and_ties"] += 3
+    kernels.reset_launches()
+    assert set(kernels.rank_path_launches) == set(kernels.RANK_PATHS)
+    assert not any(kernels.rank_path_launches.values())
+    assert kernels.launches["rank_and_ties"] == 0

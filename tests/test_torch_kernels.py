@@ -28,8 +28,8 @@ gradient near 0, so float noise there moves a row by up to lr) of the twin's;
 the reference's training fixture as chip_smoke.py holds it; kernel N's
 p-values to 1e-5 and its statistics to 1e-6 relative; kernel O's ranks, tie
 terms and counts exactly, its H and chi2 to 1e-6 relative and p to 1e-5
-(kruskal_groups' paths to one another bit for bit; ma_band's two paths
-likewise);
+(kruskal_groups' and rank_and_ties' paths to one another bit for bit;
+ma_band's three paths likewise);
 kernel P's count, values (bit for bit) and indices exactly; the fleet
 scorer in a world of one over NCCL as score_pairs and P's twin.
 """
@@ -993,6 +993,51 @@ def test_rank_and_ties_matches_twin(card, T):
     assert r.shape == (T,) and tie.shape == () and n.shape == ()
 
 
+@pytest.mark.parametrize("T", [8, 100, 256, 512])
+def test_rank_and_ties_warp_path_gives_the_cta_path_s_bits(card, T):
+    """rank_and_ties' warp path (its default up to WARP_RANK_KEYS) against
+    the CTA path and the scratch path bit for bit, and against the twin, on
+    adversarial rows (ties, +-0, NaN and +inf, all masked, all tied, one
+    valid point), in whole CTAs of rows and a ragged last one."""
+    from foremast_tpu_torch.ops import ranks as rk
+
+    B = 8 * kernels.KRUSKAL_WARPS + 3
+    v, m = (torch.from_numpy(a).to(card)
+            for a in cs.adversarial_ranks(B, T, np.random.default_rng(T + 5)))
+    kernels.reset_launches()
+    got = kernels.rank_and_ties(v, m)
+    assert kernels.rank_path(T) == "warp" and kernels.rank_path_launches["warp"] == 1
+    for path in ("cta", "scratch"):
+        other = kernels.rank_and_ties(v, m, path=path)
+        torch.cuda.synchronize()
+        assert all(cs.same_bits(a, b) for a, b in zip(got, other)), path
+    cs.compare_ranks(got, rk.rank_and_ties_plain(v, m))
+    # rows of T - 1 slots, not whole float4s: the warp path's scalar loads
+    v1, m1 = v[:, 1:].contiguous(), m[:, 1:].contiguous()
+    warp1, cta1 = kernels.rank_and_ties(v1, m1), kernels.rank_and_ties(v1, m1, path="cta")
+    torch.cuda.synchronize()
+    assert all(cs.same_bits(a, b) for a, b in zip(warp1, cta1))
+
+
+@pytest.mark.parametrize("path", kernels.RANK_PATHS)
+def test_rank_and_ties_phase_clocks(card, path):
+    """The warp path's stamps; the cta and scratch paths refuse them."""
+    B, T = 257, 256
+    v, m = (torch.from_numpy(a).to(card)
+            for a in cs.adversarial_ranks(B, T, np.random.default_rng(12)))
+    clocks = torch.zeros((B, len(kernels.RANK_PHASES) + 1), dtype=torch.int64, device=card)
+    if path != "warp":
+        with pytest.raises(ValueError, match="warp path alone"):
+            kernels.rank_and_ties(v, m, phase_clocks=clocks, path=path)
+        return
+    stamped = kernels.rank_and_ties(v, m, phase_clocks=clocks, path=path)
+    plain = kernels.rank_and_ties(v, m, path=path)
+    torch.cuda.synchronize()
+    assert bool((clocks[:, 0] > 0).all())
+    assert bool((clocks.diff(dim=1) >= 0).all())
+    assert all(cs.same_bits(u, w) for u, w in zip(stamped, plain))
+
+
 @pytest.mark.parametrize("k,T", [(2, 64), (3, 128), (5, 64), (3, 16384)])
 def test_kruskal_groups_match_twin(card, k, T):
     from foremast_tpu_torch.ops import pairwise as pw
@@ -1091,10 +1136,32 @@ def test_ma_band_paths_give_the_first_design_s_bits(card, T):
         assert all(cs.same_bits(a[key], b[key]) for key in b), window
 
 
+@pytest.mark.parametrize("T", [4097, 5000, 8192, 16384])
+@pytest.mark.parametrize("window", [1, 30, 300])
+def test_ma_band_long_path_gives_the_first_design_s_bits(card, T, window):
+    """ma_band's long path (its default above STAGED_BAND_T) against the
+    first design (the unstaged path) bit for bit on adversarial rows
+    (all-masked, a leading gap, gaps longer than the window, one point,
+    constant, NaN and +inf, shifted), all 8 outputs, and against the twin."""
+    gen = torch.Generator(device=card).manual_seed(T + window)
+    args = cs.adversarial_bands(96, T, gen)
+    kernels.reset_launches()
+    got = kernels.ma_band(*args[:3], window, *args[3:])
+    assert kernels.band_path(T) == "long" and kernels.band_path_launches["long"] == 1
+    first = kernels.ma_band(*args[:3], window, *args[3:], path="unstaged")
+    torch.cuda.synchronize()
+    assert set(got) == set(first) and len(got) == 8
+    for key in first:
+        assert cs.same_bits(got[key], first[key]), key
+    cs.compare_ma_band(args, window, got,
+                       fc.moving_average_band_plain(*args[:3], window, *args[3:]))
+
+
 @pytest.mark.parametrize("path", kernels.BAND_PATHS)
 def test_ma_band_phase_clocks(card, path):
     gen = torch.Generator(device=card).manual_seed(5)
-    args = cs.adversarial_bands(257, 1024, gen)
+    # each path at a T it serves
+    args = cs.adversarial_bands(257, 8192 if path == "long" else 1024, gen)
     clocks = torch.zeros((257, len(kernels.BAND_PHASES) + 1), dtype=torch.int64, device=card)
     stamped = kernels.ma_band(*args[:3], 30, *args[3:], phase_clocks=clocks, path=path)
     plain = kernels.ma_band(*args[:3], 30, *args[3:], path=path)
@@ -1103,6 +1170,7 @@ def test_ma_band_phase_clocks(card, path):
     assert bool((clocks.diff(dim=1) >= 0).all())
     assert all(cs.same_bits(stamped[k], plain[k]) for k in plain)
     assert kernels.STAGED_BAND_T == kernels.build.library().fm_staged_band_t()
+    assert kernels.build.library().fm_long_band_bytes(kernels.MAX_BAND_T) <= 76_800
 
 
 @pytest.mark.parametrize("n,k", cs.FRIEDMAN_CHECK)

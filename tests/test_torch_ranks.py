@@ -37,7 +37,17 @@ def _jax_rank_and_ties(v, m):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_rank_and_ties_matches_reference(seed):
-    v, m = _rows(seed)
+    _rank_parity(*_rows(seed))
+
+
+@pytest.mark.parametrize("T", [256, 512, 513])
+def test_rank_and_ties_matches_reference_at_the_warp_path_widths(T):
+    """At the widths of kernel O's warp path (T <= 512; the battery's
+    baseline ++ current is 256) and one past it."""
+    _rank_parity(*_rows(T, T=T))
+
+
+def _rank_parity(v, m):
     r, tie, n = tranks.rank_and_ties(torch.from_numpy(v), torch.from_numpy(m), device="cpu")
     jr, jtie, jn = _jax_rank_and_ties(v, m)
     np.testing.assert_array_equal(r.numpy(), jr)
