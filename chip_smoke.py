@@ -252,6 +252,26 @@ def cuda_ms(fn, runs, warm=True):
     return start.elapsed_time(end) / runs
 
 
+SPIN_CYCLES = 20_000_000  # ~11 ms of an H100's SM clock
+
+
+def queued_ms(fn, runs):
+    """Mean device time of fn over `runs` calls enqueued behind a spin
+    kernel (torch.cuda._sleep), so that the card reaches them only after
+    the host has launched them all: the time of kernels shorter than their
+    launcher's host work, which cuda_ms would measure instead."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
 def chunked_ms(fn, B, rows=25_000):
     """Time on the card of fn(rows slice) over every chunk of `rows` rows,
     summed: one pass of a memory-hungry twin over B rows."""
@@ -664,6 +684,44 @@ def compare_scan(kind, x, hist, params, kern):
         x, hist, *params)
     tol = 1e-5 if kind == 1 else 1e-4
     return close_rows(kern, plain, tol, tol * row_scale(x, hist), f"affine_scan {kind}")
+
+
+def scan_limit_share(got, want, x, hist, tol=1e-4):
+    """Each row's largest |got - want| as a share of compare_scan's limit
+    for DES (tol |want| + tol of the row's scale), NaN and equal infinities
+    matching; (B,) float64."""
+    same = torch.isnan(want) | (torch.isinf(want) & (got == want))
+    d = torch.where(same, 0.0, (got.double() - want.double()).abs())
+    lim = (tol * torch.nan_to_num(want.double().abs(), posinf=0.0)
+           + tol * row_scale(x, hist).double()[:, None])
+    return (d / lim).amax(1)
+
+
+def des_walk(x, hist, alpha, beta, dtype):
+    """Kernel E's DES maps stepped one at a time in `dtype`, predictions
+    rounded to float32: in float64 the twin's arithmetic
+    (ops.seqscan.des_predictions_assoc_plain), in float32 the first twin's.
+    For the record of P4 (how far a float32 walk drifts) from checkouts of
+    either."""
+    B, T = x.shape
+    first = torch.where(hist.any(1), torch.where(hist, x, 0.0).gather(
+        1, hist.to(torch.int8).argmax(1, keepdim=True))[:, 0], 0.0)
+    x, m = x.to(dtype), hist.to(dtype)
+    alpha, beta = alpha.to(dtype), beta.to(dtype)
+    oma = 1.0 - alpha
+    o10, o11 = -beta * alpha, beta * oma + (1.0 - beta)
+    ba = beta * alpha
+    lvl, trend = first.to(dtype), torch.zeros(B, dtype=dtype, device=x.device)
+    preds = torch.empty((B, T), dtype=dtype, device=x.device)
+    for t in range(T):
+        mt = m[:, t]
+        g = 1.0 - mt
+        a00 = mt * oma + g * 1.0
+        a10, a11 = mt * o10 + g * 0.0, mt * o11 + g * 1.0
+        c0, c1 = (alpha * mt) * x[:, t], (ba * mt) * x[:, t]
+        preds[:, t] = lvl + trend
+        lvl, trend = (a00 * lvl + a00 * trend) + c0, (a10 * lvl + a11 * trend) + c1
+    return preds.to(torch.float32)
 
 
 def compare_hw_fit(x, hist, fit, period, grid, kern):
@@ -1895,7 +1953,10 @@ KRUSKAL_CHECK = ((2, 64), (3, 128), (5, 64), (3, 16384))  # (k, T)
 RANK_CHECK = ((8, 512), (256, 2048), (4096, 128), (16384, 32))  # (T, rows)
 RANK_WARP_CHECK = ((100, 512), (512, 512), (513, 256))  # the warp path's edges
 FRIEDMAN_CHECK = ((128, 3), (20, 6), (7, 200))  # (n, k)
-TOPK_CHECK_K = (1, 8, 64, 500, 3000)  # 500: passes over kept keys; 3000: one sort in device memory
+FRIEDMAN_WARP_CHECK = ((7, 16), (7, 17), (300, 2))  # the warp path's edges, (n, k)
+# 32 / 33: the select path's edge; 500: passes over kept keys; 3000: one
+# sort in device memory
+TOPK_CHECK_K = (1, 8, 32, 33, 64, 500, 3000)
 
 
 def adversarial_tests(B, T, rng):
@@ -2093,12 +2154,30 @@ def rank_paths_agree(v, m, default):
     return served
 
 
+def friedman_paths_agree(d, bm, pc, pp, what):
+    """friedman forced onto each path that serves the tables: chi2 and p
+    against the twin's (pc, pp) and equal bit for bit to the cta path's.
+    Returns (the paths, the largest |dp|)."""
+    from foremast_tpu_torch import kernels
+
+    _, n, k = d.shape
+    served = [path for path in kernels.FRIEDMAN_PATHS if kernels.friedman_serves(path, n, k)]
+    out = {path: kernels.friedman(d, bm, path=path) for path in served}
+    err = 0.0
+    for path, (chi, p) in out.items():
+        close(chi, pc, STAT_RTOL, 1e-5, f"{what} {path} path chi2")
+        err = max(err, close(p, pp, 0.0, P_ATOL, f"{what} {path} path p"))
+        check(same_bits(chi, out["cta"][0]) and same_bits(p, out["cta"][1]),
+              f"{what}: the {path} path differs from the cta path")
+    return served, err
+
+
 def kernel_o_vs_twin(rng):
     """Kernel O's three entries against their twins: ranks at T from 8 to
     16384 (the warp path up to 512, device scratch above 8192; each path
     that serves T forced, equal bit for bit), Kruskal-Wallis at k in
     {2, 3, 5} (and k T = 49,152 in scratch), Friedman at (n, k) in
-    FRIEDMAN_CHECK."""
+    FRIEDMAN_CHECK and FRIEDMAN_WARP_CHECK, each path that serves a shape."""
     from foremast_tpu_torch.ops import pairwise as pw
     from foremast_tpu_torch.ops import ranks as rk
 
@@ -2127,8 +2206,11 @@ def kernel_o_vs_twin(rng):
         check(bool((p[gm.flatten(1).any(1).logical_not()] == 1.0).all()),
               "kruskal_groups: a fully masked row has p != 1")
         kruskal_paths_agree(g, gm, (H, p), pH, pp)
-    for n, k in FRIEDMAN_CHECK:
-        d, bm = (torch.from_numpy(a).to(DEV) for a in adversarial_friedman(256, n, k, rng))
+    for n, k in FRIEDMAN_CHECK + FRIEDMAN_WARP_CHECK:
+        # the warp path's added shapes draw from a generator of their own
+        own = (n, k) in FRIEDMAN_WARP_CHECK
+        d, bm = (torch.from_numpy(a).to(DEV) for a in adversarial_friedman(
+            257 if own else 256, n, k, np.random.default_rng(SEED + n * k) if own else rng))
         chi, p = pw.friedman_batch(d, bm, device=DEV)
         pc, pp = pw.friedman_plain(d, bm)
         c0, p0 = pw.friedman_chi_square(d[1], bm[1], device=DEV)
@@ -2137,6 +2219,8 @@ def kernel_o_vs_twin(rng):
         close(chi, pc, STAT_RTOL, 1e-5, f"friedman n={n} k={k} chi2")
         worst["friedman"] = max(worst["friedman"],
                                 close(p, pp, 0.0, P_ATOL, f"friedman n={n} k={k} p"))
+        worst["friedman"] = max(worst["friedman"], friedman_paths_agree(
+            d, bm, pc, pp, f"friedman n={n} k={k}")[1])
     torch.cuda.synchronize()
     print(f"  rank_and_ties T in {tuple(T for T, _ in RANK_CHECK + RANK_WARP_CHECK)}: ranks, tie "
           f"terms and counts "
@@ -2144,7 +2228,9 @@ def kernel_o_vs_twin(rng):
           f"kruskal_groups (k, T) in {KRUSKAL_CHECK}: max |dp| {worst['kruskal_groups']:.3g}, "
           f"each path that serves a shape forced, the warp path equal to the cta path bit for "
           f"bit; "
-          f"friedman (n, k) in {FRIEDMAN_CHECK}: max |dp| {worst['friedman']:.3g}", flush=True)
+          f"friedman (n, k) in {FRIEDMAN_CHECK + FRIEDMAN_WARP_CHECK}: max |dp| "
+          f"{worst['friedman']:.3g}, each path that serves k forced, equal bit for bit",
+          flush=True)
     return worst
 
 
@@ -2173,6 +2259,24 @@ def compare_topk(kern, plain, what):
     return max(counts, max_abs_err(kv, pv), max_abs_err(ki.double(), pi.double()))
 
 
+def topk_paths_agree(s, k, u, base):
+    """fleet_topk forced onto each path that serves k, with the unhealthy
+    mask u and base and without either: each against the twin, and so each
+    equal to the others. Returns the paths."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    n = s.shape[0]
+    served = [path for path in kernels.FLEET_TOPK_PATHS if kernels.fleet_topk_serves(path, n, k)]
+    want, want_all = fl.fleet_topk_plain(s, k, u, base=base), fl.fleet_topk_plain(s, k)
+    for path in served:
+        compare_topk(kernels.fleet_topk(s, k, u, base=base, path=path), want,
+                     f"fleet_topk n={n} k={k} {path} path")
+        compare_topk(kernels.fleet_topk(s, k, path=path), want_all,
+                     f"fleet_topk n={n} k={k} {path} path unmasked")
+    return served
+
+
 def kernel_p_vs_twin(rng):
     """Kernel P against fleet_topk_plain at n in {5, 4096, 100,000}, k in
     TOPK_CHECK_K and k > n, with the unhealthy mask and a base, and
@@ -2189,9 +2293,11 @@ def kernel_p_vs_twin(rng):
                                             f"fleet_topk n={n} k={k}"),
                         compare_topk(kernels.fleet_topk(s, k), fl.fleet_topk_plain(s, k),
                                      f"fleet_topk n={n} k={k} unmasked"))
+            topk_paths_agree(s, k, u, 7)
     torch.cuda.synchronize()
     print(f"  fleet_topk n in (5, 4096, 100000), k in {TOPK_CHECK_K} and n + 5: counts, values "
-          f"(bit for bit) and indices equal, max |err| {worst:.3g}", flush=True)
+          f"(bit for bit) and indices equal, on each path that serves k, max |err| "
+          f"{worst:.3g}", flush=True)
     return worst
 
 
@@ -2401,6 +2507,7 @@ def tests_path(pair_args, bad):
     paths = dict(kernels.pair_tests_path_launches)
     k_paths = dict(kernels.kruskal_path_launches)
     r_paths = dict(kernels.rank_path_launches)
+    f_paths = dict(kernels.friedman_path_launches)
     for name in ("pair_tests", "rank_and_ties", "kruskal_groups", "friedman"):
         check(launches[name] >= 1, f"the tests phase did not launch {name}")
     check(paths["warp"] == launches["pair_tests"],
@@ -2410,6 +2517,9 @@ def tests_path(pair_args, bad):
           f"not the warp path")
     check(r_paths["warp"] == launches["rank_and_ties"],
           f"the battery's rank_and_ties (T = {RANK_T}) ran its paths {r_paths}, not the warp path")
+    check(f_paths["warp"] == launches["friedman"],
+          f"the battery's friedman_batch ({FRIEDMAN_N} blocks x 3) ran its paths {f_paths}, not "
+          f"the warp path")
     for name, (st, p) in list(out["all"].items()) + [(k, out[k]) for k in (
             "mann_whitney", "wilcoxon", "ks", "kruskal", "friedman")]:
         check(st.shape == (B,) and p.shape == (B,) and bool(torch.isfinite(st).all())
@@ -2435,6 +2545,9 @@ def tests_path(pair_args, bad):
     fp = pw.friedman_plain(fr[0][:c], fr[1][:c])
     close(out["friedman"][0][:c], fp[0], STAT_RTOL, 1e-5, "friedman_batch chi2")
     err_f = close(out["friedman"][1][:c], fp[1], 0.0, P_ATOL, "friedman_batch p")
+    f_cta = kernels.friedman(*fr, path="cta")
+    check(same_bits(out["friedman"][0], f_cta[0]) and same_bits(out["friedman"][1], f_cta[1]),
+          "friedman_batch: its warp path differs from the cta path on the battery's rows")
 
     bounds = tests_bounds(pairs, groups, fr, ranks)
     rows = {
@@ -2459,8 +2572,8 @@ def tests_path(pair_args, bad):
     print(f"  {B} pairs at T = {T}: all_pairwise_tests, the three *_batch, kruskal_batch "
           f"(k = 3), friedman_batch ({FRIEDMAN_N} blocks x 3), rank_and_ties (T = {RANK_T}); "
           f"bad canaries rejected at 0.01: {recall}; launches {launches}; pair_tests by path "
-          f"{paths}; kruskal_groups by path {k_paths}; rank_and_ties by path {r_paths}",
-          flush=True)
+          f"{paths}; kruskal_groups by path {k_paths}; rank_and_ties by path {r_paths}; "
+          f"friedman by path {f_paths}", flush=True)
     print(f"  pair_tests, each battery launch (ms): "
           f"{ {k: round(v, 4) for k, v in battery_ms.items()} }", flush=True)
     result = {}
@@ -2473,6 +2586,7 @@ def tests_path(pair_args, bad):
     result["pair_tests"].update(paths=paths, battery_ms=battery_ms)
     result["kruskal_groups"].update(paths=k_paths)
     result["rank_and_ties"].update(paths=r_paths)
+    result["friedman"].update(paths=f_paths)
     pair_tests_paths()
     return result
 
@@ -2543,10 +2657,13 @@ def fleet_path(pair_args):
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
         paths = dict(kernels.pair_path_launches)
+        p_paths = dict(kernels.fleet_topk_path_launches)
         for name in ("pair_verdict", "fleet_topk"):
             check(launches[name] >= 1, f"make_fleet_scorer did not launch {name}")
         check(paths["warp"] == launches["pair_verdict"],
               f"make_fleet_scorer at T = {PAIR_T} ran pair_verdict's paths {paths}")
+        check(p_paths["select"] == launches["fleet_topk"],
+              f"make_fleet_scorer at k = {FLEET_K} ran fleet_topk's paths {p_paths}")
         ref = fl.score_pairs(*t, device=DEV)
         for key, v in ref.items():
             check(torch.equal(out[key], v), f"make_fleet_scorer's {key} differs from score_pairs'")
@@ -2572,20 +2689,29 @@ def fleet_path(pair_args):
             err = max(err, compare_topk(kernels.fleet_topk(ref["severity"], k, ref["unhealthy"]),
                                         fl.fleet_topk_plain(ref["severity"], k, ref["unhealthy"]),
                                         f"fleet_topk k={k} on the scored fleet"))
+            topk_paths_agree(ref["severity"], k, ref["unhealthy"], 0)
 
         e2e = wall_ms(lambda: run(*t[:4], cfg), TIMED_RUNS)
         score = wall_ms(lambda: fl.score_pairs(*t, device=DEV), TIMED_RUNS)
         reduce = wall_ms(lambda: fl.fleet_summary(ref["unhealthy"], ref["severity"], mesh,
                                                   k=FLEET_K), TIMED_RUNS)
         u, s = ref["unhealthy"], ref["severity"]
-        ms = cuda_ms(lambda: kernels.fleet_topk(s, FLEET_K, u), TIMED_RUNS)
+        # kernel P is shorter than its launcher's host work: its device time
+        # with the launches queued, and the time a call takes from the host
+        ms = queued_ms(lambda: kernels.fleet_topk(s, FLEET_K, u), TIMED_RUNS)
+        host_ms = cuda_ms(lambda: kernels.fleet_topk(s, FLEET_K, u), TIMED_RUNS)
         plain_ms = cuda_ms(lambda: fl.fleet_topk_plain(s, FLEET_K, u), TIMED_RUNS)
-        library_ms = cuda_ms(lambda: (torch.topk(torch.where(u, s, -torch.inf), FLEET_K),
-                                      u.sum()), TIMED_RUNS)
+        chunked_ms = queued_ms(lambda: kernels.fleet_topk(s, FLEET_K, u, path="chunked"),
+                               TIMED_RUNS)
+        library_ms = queued_ms(lambda: (torch.topk(torch.where(u, s, -torch.inf), FLEET_K),
+                                        u.sum()), TIMED_RUNS)
+        # the select path's floor: its two launches with nothing in them
+        floor_ms = queued_ms(lambda: kernels.empty_launches(2, s.device), TIMED_RUNS)
         med = float(np.median(e2e))
         print(f"  make_fleet_scorer, {B} pairs at T = {PAIR_T}, k = {FLEET_K}, a world of one "
               f"over {dist.get_backend()}: total {total}, top_idx {top_idx.tolist()}; "
-              f"launches {launches}; pair_verdict by path {paths}", flush=True)
+              f"launches {launches}; pair_verdict by path {paths}; fleet_topk by path "
+              f"{p_paths}", flush=True)
         print(f"  make_fleet_scorer wall, {TIMED_RUNS} runs: median {med:.3f} ms, p99 "
               f"{np.percentile(e2e, 99):.3f} ms", flush=True)
         print(f"  canary_pairs_scored_per_sec_per_chip: {B / med * 1e3:.0f}", flush=True)
@@ -2593,15 +2719,18 @@ def fleet_path(pair_args):
               f"{np.median(reduce):.3f} ms beside the scoring (score_pairs) median "
               f"{np.median(score):.3f} ms", flush=True)
         bound = least_time(B * 5 + FLEET_K * 12 + 8, B)
-        print(f"  fleet_topk: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, torch.topk + sum "
-              f"{library_ms:.4f} ms, bound {bound['bound_ms']:.5f} ms ({bound['bound_by']})",
-              flush=True)
+        print(f"  fleet_topk, device time with the launches queued: kernel {ms:.4f} ms (the "
+              f"chunked path forced {chunked_ms:.4f} ms), torch.topk + sum {library_ms:.4f} ms, "
+              f"two empty launches {floor_ms:.4f} ms; bound {bound['bound_ms']:.5f} ms "
+              f"({bound['bound_by']}); a call from the host {host_ms:.4f} ms, plain twin "
+              f"{plain_ms:.4f} ms", flush=True)
     finally:
         faulthandler.cancel_dump_traceback_later()
         if started:
             dist.destroy_process_group()
     return {"launches": launches["fleet_topk"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, **bound}
+            "plain_ms": plain_ms, "library_ms": library_ms, **bound, "paths": p_paths,
+            "chunked_ms": chunked_ms, "launch_floor_ms": floor_ms, "host_ms": host_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -4733,9 +4862,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # kernel K's row also gives each path's run on the main path, and so do
-    # kernels A and N's; kernel H's its time at T = 16384; kernel N's the
-    # time of each of its four battery launches
-    extra = ("paths", "path", "T", "t16384", "battery_ms")
+    # kernels A, N, O and P's; kernel H's its time at T = 16384; kernel N's
+    # the time of each of its four battery launches; kernel P's its first
+    # design's time, its two launches' floor and a call's time from the host
+    extra = ("paths", "path", "T", "t16384", "battery_ms", "chunked_ms", "launch_floor_ms",
+             "host_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(e for e in extra if e in r)}
                                   for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

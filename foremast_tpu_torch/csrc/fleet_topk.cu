@@ -18,21 +18,36 @@
 // smallest keys; the -inf tail carries the lowest healthy indices, as
 // lax.top_k gives it across any mesh.
 //
-// Design: pass 1, a CTA of 256 threads per chunk of 1024 rows, builds its
-// keys in shared memory, counts its unhealthy rows, sorts them (kernel A's
-// bitonic sort) and keeps the first min(k, 1024); passes over the kept
-// keys repeat until one chunk holds them, which one CTA sorts (only as
-// many keys as there are, rounded up to a power of two) and decodes. For
-// k > 512 a chunk would keep more than half of itself, so pass 1 keeps
-// whole sorted chunks and one CTA sorts them all in device memory. No k
-// that the reference takes (k <= B) is refused.
+// Design, two paths with the same outputs (the keys are unique, so the k
+// smallest and their order are one answer):
+//   - select (k <= kSelectK, the scorer's k = 8): pass 1, a CTA of 256
+//     threads per chunk of 1024 rows, builds its keys in registers (four a
+//     thread, sorted there), counts its unhealthy rows and selects its k
+//     smallest keys without sorting the chunk: each warp draws its k
+//     smallest by k rounds of a warp minimum over the lanes' next keys (the
+//     lane that held it moves on), then warp 0 draws the CTA's k from the
+//     eight warps' lists the same way. Passes over the kept keys repeat
+//     while they fill more than a chunk; then one CTA selects the global k
+//     the same way, decodes them and writes the sum of the chunks' counts
+//     (written, not accumulated: nothing is zeroed first). Two launches at
+//     B = 100,000, k = 8, no block-wide sort.
+//   - chunked (every k, the first design): pass 1 builds a chunk's keys in
+//     shared memory, counts its unhealthy rows, sorts them (kernel A's
+//     bitonic sort) and keeps the first min(k, 1024); passes over the kept
+//     keys repeat until one chunk holds them, which one CTA sorts (only as
+//     many keys as there are, rounded up to a power of two) and decodes.
+//     For k > 512 a chunk would keep more than half of itself, so pass 1
+//     keeps whole sorted chunks and one CTA sorts them all in device
+//     memory.
+// No k that the reference takes (k <= B) is refused.
 //
 // What bounds it on an H100: at B = 100,000 and k = 8 the 500 KB of inputs
-// are read once in ~0.15 us of HBM time; the time is the launches' latency
-// and two chains of bitonic stages (55 over a chunk, then 55 over the 784
-// kept keys), far from any bound. Chunks of 1024 rows put 98 CTAs on the
-// card and cut each chain from 78 stages of 16 compares a thread (chunks
-// of 4096: 0.192 ms on an H100, PERF.md) to 55 of 4.
+// are read once in ~0.15 us of HBM time. The chunked path's time is its
+// launches' latency and two chains of bitonic stages (55 over a chunk,
+// then 55 over the 784 kept keys), far from any bound (chunks of 4096: 0.192
+// ms on an H100, PERF.md); the select path's floor is its two launches on
+// the stream (fm_empty_launches times them) and 2 k rounds of two warp
+// reductions.
 #include "common.cuh"
 
 namespace fm {
@@ -90,6 +105,128 @@ __global__ void __launch_bounds__(kTopkThreads) topk_chunk_kernel(TopkIn a) {
   for (int i = threadIdx.x; i < a.keep; i += blockDim.x)
     a.out[size_t(blockIdx.x) * a.keep + i] = sk[i];
 }
+
+// ---------------------------------------------------------------------------
+// the select path (k <= kSelectK)
+// ---------------------------------------------------------------------------
+constexpr int kSelectK = 32;  // kernels.FLEET_SELECT_K
+constexpr int kSelectPer = kTopkChunk / kTopkThreads;  // keys a thread
+constexpr int kTopkWarps = kTopkThreads / 32;
+
+__device__ __forceinline__ void ordered_pair(uint64_t& a, uint64_t& b) {
+  const uint64_t lo = a < b ? a : b;
+  b = a < b ? b : a;
+  a = lo;
+}
+
+// The warp's smallest 64-bit key: the smallest high word, then the
+// smallest low word among the lanes that hold it (two warp reductions).
+__device__ __forceinline__ uint64_t warp_min_key(uint64_t key) {
+  const uint32_t hi = __reduce_min_sync(kFullWarp, uint32_t(key >> 32));
+  const uint32_t lo =
+      __reduce_min_sync(kFullWarp, uint32_t(key >> 32) == hi ? uint32_t(key) : 0xFFFFFFFFu);
+  return (uint64_t(hi) << 32) | lo;
+}
+
+// The k (<= 32) smallest of the CTA's keys, kSelectPer a thread in any
+// order: returned in ascending order to warp 0's lanes 0..k-1 (kPadKey
+// where the keys run out). lists: kTopkThreads keys of shared memory.
+__device__ uint64_t cta_select(uint64_t (&key)[kSelectPer], int k, uint64_t* lists) {
+  static_assert(kSelectPer == 4, "a thread's keys sort as four");
+  ordered_pair(key[0], key[1]);
+  ordered_pair(key[2], key[3]);
+  ordered_pair(key[0], key[2]);
+  ordered_pair(key[1], key[3]);
+  ordered_pair(key[1], key[2]);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint64_t mine = kPadKey;
+#pragma unroll 1
+  for (int r = 0; r < k; ++r) {
+    const uint64_t m = warp_min_key(key[0]);
+    if (key[0] == m) {
+      key[0] = key[1];
+      key[1] = key[2];
+      key[2] = key[3];
+      key[3] = kPadKey;
+    }
+    mine = lane == r ? m : mine;
+  }
+  lists[warp * 32 + lane] = mine;
+  __syncthreads();
+  mine = kPadKey;
+  if (warp == 0) {
+    // lane w < kTopkWarps walks warp w's list
+    int at = 0;
+    uint64_t head = lane < kTopkWarps ? lists[lane * 32] : kPadKey;
+#pragma unroll 1
+    for (int r = 0; r < k; ++r) {
+      const uint64_t m = warp_min_key(head);
+      if (lane < kTopkWarps && head == m) {
+        ++at;
+        head = at < k ? lists[lane * 32 + at] : kPadKey;
+      }
+      mine = lane == r ? m : mine;
+    }
+  }
+  return mine;
+}
+
+template <bool kFromValues>
+__global__ void __launch_bounds__(kTopkThreads) select_chunk_kernel(TopkIn a) {
+  __shared__ uint64_t lists[kTopkThreads];
+  __shared__ Scratch scr;
+  const int lo = blockIdx.x * kTopkChunk;
+  uint64_t key[kSelectPer];
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < kSelectPer; ++j) {
+    const int r = lo + j * kTopkThreads + threadIdx.x;
+    key[j] = kPadKey;
+    if (r < a.n) {
+      if constexpr (kFromValues) {
+        const bool ok = a.valid == nullptr || a.valid[r];
+        cnt += ok;
+        key[j] = topk_key(ok ? a.values[r] : -CUDART_INF_F, uint32_t(a.base + r));
+      } else {
+        key[j] = a.keys[r];
+      }
+    }
+  }
+  if (kFromValues && a.counts != nullptr) {
+    cnt = block_sum(cnt, scr);
+    if (threadIdx.x == 0) a.counts[blockIdx.x] = cnt;
+  }
+  const uint64_t got = cta_select(key, a.keep, lists);
+  if (threadIdx.x < a.keep) a.out[size_t(blockIdx.x) * a.keep + threadIdx.x] = got;
+}
+
+// One CTA: the kk smallest of n <= kTopkChunk keys, decoded; the sum of the
+// chunks' counts.
+__global__ void __launch_bounds__(kTopkThreads) select_emit_kernel(
+    const uint64_t* keys, int n, int kk, const int* counts, int n_counts, float* out_v,
+    long long* out_i, long long* count) {
+  __shared__ uint64_t lists[kTopkThreads];
+  __shared__ Scratch scr;
+  uint64_t key[kSelectPer];
+#pragma unroll
+  for (int j = 0; j < kSelectPer; ++j) {
+    const int i = j * kTopkThreads + threadIdx.x;
+    key[j] = i < n ? keys[i] : kPadKey;
+  }
+  const uint64_t got = cta_select(key, kk, lists);
+  if (threadIdx.x < kk) {
+    out_v[threadIdx.x] = from_total_order(~uint32_t(got >> 32));
+    out_i[threadIdx.x] = (long long)(got & 0xffffffffull);
+  }
+  if (count != nullptr) {
+    long long c = 0;
+    for (int i = threadIdx.x; i < n_counts; i += blockDim.x) c += counts[i];
+    c = block_sum(c, scr);
+    if (threadIdx.x == 0) *count = c;
+  }
+}
+
+__global__ void empty_kernel() {}
 
 // One CTA sorts n_pow2 keys in device memory, the tail [n, n_pow2) padded.
 __global__ void __launch_bounds__(1024) topk_global_sort_kernel(uint64_t* keys, int n,
@@ -176,5 +313,45 @@ extern "C" int fm_fleet_topk(const float* values, const uint8_t* valid, long lon
   fm::topk_emit_kernel<<<1, fm::kTopkThreads, 0, st>>>(
       buf[at], cur, global ? 1 : 0, kk, counts, valid != nullptr ? nb : 0, out_v, out_i,
       valid != nullptr ? count : nullptr);
+  return int(cudaGetLastError());
+}
+
+extern "C" int fm_fleet_select_k() { return fm::kSelectK; }
+
+// The select path (0 <= k <= kSelectK, k <= n): the scratch of
+// fm_fleet_topk_scratch_bytes(n, max(k, 1)).
+extern "C" int fm_fleet_topk_select(const float* values, const uint8_t* valid, long long base,
+                                    int n, int k, float* out_v, long long* out_i,
+                                    long long* count, unsigned char* scratch, void* stream) {
+  if (k < 0 || k > fm::kSelectK || k > n) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nb = chunks_of(n);
+  int* counts = reinterpret_cast<int*>(scratch);
+  uint64_t* buf[2] = {reinterpret_cast<uint64_t*>(scratch + ((nb * 4 + 7) / 8) * 8), nullptr};
+  buf[1] = buf[0] + (long long)nb * (k > 1 ? k : 1);
+  fm::TopkIn a{values, valid, base, nullptr, n, k, buf[0], valid != nullptr ? counts : nullptr};
+  fm::select_chunk_kernel<true><<<nb, fm::kTopkThreads, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  int cur = nb * k, at = 0;
+  while (cur > fm::kTopkChunk) {
+    const int nbk = chunks_of(cur);
+    fm::TopkIn r{nullptr, nullptr, 0, buf[at], cur, k, buf[at ^ 1], nullptr};
+    fm::select_chunk_kernel<false><<<nbk, fm::kTopkThreads, 0, st>>>(r);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+    cur = nbk * k;
+    at ^= 1;
+  }
+  fm::select_emit_kernel<<<1, fm::kTopkThreads, 0, st>>>(
+      buf[at], cur, k, counts, valid != nullptr ? nb : 0, out_v, out_i,
+      valid != nullptr ? count : nullptr);
+  return int(cudaGetLastError());
+}
+
+// `launches` empty one-warp kernels on the stream: the select path's floor.
+extern "C" int fm_empty_launches(int launches, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < launches; ++i) fm::empty_kernel<<<1, 32, 0, st>>>();
   return int(cudaGetLastError());
 }

@@ -45,16 +45,33 @@
 //     #less + (#equal + 1) / 2 under the same key order (ties and NaN as the
 //     reference's rank_and_ties orders them), and the block's tie term is
 //     the sum over its entries of #equal^2 - 1 (= sum over its tie groups of
-//     t^3 - t). A CTA per row; up to 128 treatments, 128 / k threads share a
-//     treatment and their partial sums meet in shared memory; above it a
-//     thread owns treatments. No limit on k or n.
+//     t^3 - t). Two paths with the same bits:
+//       - warp (k <= kWarpFriedmanK, the battery's k = 3; n <= 2^20): a
+//         warp takes kFriedmanRows rows, one after another, the next row's
+//         loads in flight while a row's sums meet; its lanes stride a row's
+//         blocks, each lane loading its blocks' k entries once as 32-bit
+//         keys in registers and keeping its k doubled rank sums, tie term
+//         and block count there; warp reductions add them, with no block
+//         barrier. Lane r keeps row r's integers, and after the warp's last
+//         row each lane finishes its own row's chi2 and p: the tail's
+//         float64 series runs once a warp for 32 rows, not once a row;
+//       - cta (every k, the first design): a CTA per row; up to 128
+//         treatments, 128 / k threads share a treatment and their partial
+//         sums meet in shared memory; above it a thread owns treatments.
+//     Every sum is of integers, or of exact squares of multiples of 0.25
+//     (R = R2 / 2, R2 < 2^26) in float64, so no order of summation moves
+//     chi2 or p, and friedman_write is the one tail of both.
 //
 // What bounds it on an H100: on the CTA paths the sorts' chains of block
 // barriers (log2(n)^2 / 2 steps over n keys; at k = 3, T = 128 the sort was
 // 69% of a row's cycles), not the bytes (a row's values and masks are read
 // once); on the warp path the instructions of the register sort and the
-// searches, issued by ~30 warps an SM; friedman's O(n k^2) compares at the
-// fp32 issue rate.
+// searches, issued by ~30 warps an SM. friedman: not its O(n k^2)
+// compares (2 k^2 a block) but, on its cta path, three chains of block
+// barriers (the sums) and a one-thread float64 tail a row; on its warp
+// path its loads' latency (a warp reads a row at a time, ~1.6 KB at the
+// battery's 128 blocks x 3) and its instructions, at about twice its bytes
+// bound on an H100.
 #include "common.cuh"
 
 namespace fm {
@@ -499,6 +516,21 @@ __device__ __forceinline__ void block_rank(const float* blk, int k, int j, long 
   *eq = same;
 }
 
+// chi2 and its p from a row's integers, on both paths: nb counted blocks,
+// ssq the sum over treatments of R_j^2, the tie term sum(#equal^2 - 1).
+__device__ __forceinline__ void friedman_write(const FriedmanArgs& a, int row, int nb,
+                                               double ssq, long long tie) {
+  const double N = nb, K = a.k;
+  const double denom = N * K * (K * K - 1.0);
+  const double c = 1.0 - double(tie) / (denom == 0.0 ? 1.0 : denom);
+  const double scale = N * K * (K + 1.0);
+  double chi = (scale == 0.0 ? 12.0 : 12.0 / scale) * ssq - 3.0 * N * (K + 1.0);
+  chi = chi / (c == 0.0 ? 1.0 : c);
+  const bool ok = c > 0.0 && N > 0.0;
+  a.chi2[row] = ok ? float(chi) : 0.0f;
+  a.p[row] = ok ? float(gammaincc(0.5 * (K - 1.0), 0.5 * fmax(chi, 0.0))) : 1.0f;
+}
+
 __global__ void __launch_bounds__(kRankThreads) friedman_kernel(FriedmanArgs a) {
   __shared__ Scratch scr;
   __shared__ long long part[kRankThreads];
@@ -548,17 +580,137 @@ __global__ void __launch_bounds__(kRankThreads) friedman_kernel(FriedmanArgs a) 
   tie = block_sum(tie, scr);
   nb = block_sum(nb, scr);
   ssq = block_sum(ssq, scr);
-  if (tid == 0) {
-    const double N = nb, K = k;
-    const double denom = N * K * (K * K - 1.0);
-    const double c = 1.0 - double(tie) / (denom == 0.0 ? 1.0 : denom);
-    const double scale = N * K * (K + 1.0);
-    double chi = (scale == 0.0 ? 12.0 : 12.0 / scale) * ssq - 3.0 * N * (K + 1.0);
-    chi = chi / (c == 0.0 ? 1.0 : c);
-    const bool ok = c > 0.0 && N > 0.0;
-    a.chi2[row] = ok ? float(chi) : 0.0f;
-    a.p[row] = ok ? float(gammaincc(0.5 * (K - 1.0), 0.5 * fmax(chi, 0.0))) : 1.0f;
+  if (tid == 0) friedman_write(a, row, nb, ssq, tie);
+}
+
+// ---------------------------------------------------------------------------
+// friedman's warp path (k <= kWarpFriedmanK, n <= kWarpFriedmanN):
+// kFriedmanWarps warps a CTA, kFriedmanRows rows a warp. A row's blocks go
+// to the lanes in turn (lane l takes blocks l, l + 32, ...), G of them a
+// batch: the lane loads a batch's entries and mask bytes at once (a warp's
+// loads of 32 blocks cover 128 k contiguous bytes) and ranks each block in
+// registers by its pairs of entries: K entries (K = k for k <= 4), those
+// past k padded with a key above every value's (so they are never less
+// than, nor equal to, an entry), and kept out of the sums. The next row's
+// first batch is loaded before this row's sums meet, so its loads wait
+// beside them. The sums meet by warp reductions of 32-bit integers (the
+// tie term in two 16-bit halves); lane r of the warp keeps its r-th row's,
+// and the tail (chi2, p) runs once, a lane a row.
+// ---------------------------------------------------------------------------
+constexpr int kFriedmanWarps = 4;    // warps a CTA (kernels.FRIEDMAN_WARPS)
+constexpr int kFriedmanRows = 32;    // rows a warp, a lane each for the tail
+constexpr int kWarpFriedmanK = 16;   // kernels.WARP_FRIEDMAN_K
+// kernels.WARP_FRIEDMAN_N: a lane's tie term, sum(#equal^2 - 1) over at
+// most 2^15 blocks of 16, and a row's doubled rank sums (2 k n) fit 31 bits
+constexpr int kWarpFriedmanN = 1 << 20;
+constexpr uint32_t kPadEntryKey = 0xFFFFFFFFu;  // above kNanKey
+
+template <int K, int G>
+__device__ __forceinline__ void friedman_load(const FriedmanArgs& a, size_t row, int i0,
+                                              float (&v)[G][K], int (&on)[G]) {
+  const int n = a.n, k = a.k;
+  const float* d = a.data + row * size_t(n) * k;
+  const uint8_t* bm = a.block_mask + row * size_t(n);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int i = i0 + 32 * g;
+    const bool in = i < n;
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[g][j] = in && j < k ? __ldg(d + size_t(i) * k + j) : 0.0f;
+    on[g] = in ? __ldg(bm + i) : 0;
   }
+}
+
+// Each entry's #less and #equal among its block's K (itself counted equal)
+// from the K (K - 1) / 2 pairs; a masked-out block adds nothing.
+template <int K, int G>
+__device__ __forceinline__ void friedman_rank(const float (&v)[G][K], const int (&on)[G],
+                                              int k, int (&R2)[K], int* tie, int* nb) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int w = on[g] != 0;
+    uint32_t key[K];
+    int less[K], same[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      key[j] = j < k ? value_key(v[g][j], true) : kPadEntryKey;
+      less[j] = 0;
+      same[j] = 1;
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+#pragma unroll
+      for (int q = j + 1; q < K; ++q) {
+        const bool lt = key[j] < key[q], eq = key[j] == key[q];
+        less[q] += lt;
+        less[j] += !lt && !eq;
+        same[j] += eq;
+        same[q] += eq;
+      }
+    }
+    *nb += w;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      R2[j] += w * (2 * less[j] + same[j] + 1);
+      *tie += (w && j < k) ? same[j] * same[j] - 1 : 0;
+    }
+  }
+}
+
+// Up to K = 4, 64 registers a thread: every warp of the battery's 100,000
+// rows (~24 an SM) resident at once.
+template <int K>
+__global__ void __launch_bounds__(32 * kFriedmanWarps, K <= 4 ? 8 : 4)
+    friedman_warp_kernel(FriedmanArgs a) {
+  // the blocks a lane loads at once, 12 entries of registers a batch (the
+  // battery's 128 blocks x 3 in one)
+  constexpr int G = K >= 12 ? 1 : 12 / K;
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      (long long)(blockIdx.x * kFriedmanWarps + (threadIdx.x >> 5)) * kFriedmanRows;
+  if (row0 >= a.B) return;
+  const int rows = int(min((long long)kFriedmanRows, a.B - row0));
+  const int n = a.n, k = a.k;
+  int my_nb = 0;
+  long long my_tie = 0;
+  double my_ssq = 0.0;
+  float v[G][K];
+  int on[G];
+  friedman_load<K, G>(a, size_t(row0), lane, v, on);
+#pragma unroll 1
+  for (int r = 0; r < rows; ++r) {
+    const size_t row = size_t(row0) + r;
+    int R2[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) R2[j] = 0;
+    int tie = 0, nb = 0;
+#pragma unroll 1
+    for (int i0 = 0;;) {
+      friedman_rank<K, G>(v, on, k, R2, &tie, &nb);
+      i0 += 32 * G;
+      if (i0 >= n) break;
+      friedman_load<K, G>(a, row, i0 + lane, v, on);
+    }
+    if (r + 1 < rows) friedman_load<K, G>(a, row + 1, lane, v, on);
+    nb = int(__reduce_add_sync(kFullWarp, unsigned(nb)));
+    const long long tie_sum =
+        (long long)__reduce_add_sync(kFullWarp, unsigned(tie) & 0xFFFFu) +
+        ((long long)__reduce_add_sync(kFullWarp, unsigned(tie) >> 16) << 16);
+    double ssq = 0.0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (j < k) {
+        const double R = double(__reduce_add_sync(kFullWarp, unsigned(R2[j]))) * 0.5;
+        ssq += R * R;
+      }
+    }
+    if (lane == r) {
+      my_nb = nb;
+      my_tie = tie_sum;
+      my_ssq = ssq;
+    }
+  }
+  if (lane < rows) friedman_write(a, int(row0 + lane), my_nb, my_ssq, my_tie);
 }
 
 template <bool kScratch>
@@ -687,4 +839,32 @@ extern "C" int fm_friedman(const float* data, const uint8_t* block_mask, int B, 
   fm::FriedmanArgs a{data, block_mask, B, n, k, chi2, p};
   fm::friedman_kernel<<<B, fm::kRankThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
+}
+
+extern "C" int fm_friedman_warps() { return fm::kFriedmanWarps; }
+extern "C" int fm_friedman_rows() { return fm::kFriedmanRows; }
+extern "C" int fm_warp_friedman_k() { return fm::kWarpFriedmanK; }
+extern "C" int fm_warp_friedman_n() { return fm::kWarpFriedmanN; }
+
+template <int K>
+static cudaError_t launch_friedman_warp(const fm::FriedmanArgs& a, cudaStream_t st) {
+  const long long per = (long long)fm::kFriedmanWarps * fm::kFriedmanRows;
+  const int grid = int((a.B + per - 1) / per);
+  fm::friedman_warp_kernel<K><<<grid, 32 * fm::kFriedmanWarps, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// friedman's warp path (1 <= k <= kWarpFriedmanK, 1 <= n <= kWarpFriedmanN):
+// K the next of 2, 3, 4, 8, 16.
+extern "C" int fm_friedman_warp(const float* data, const uint8_t* block_mask, int B, int n,
+                                int k, float* chi2, float* p, void* stream) {
+  if (k < 1 || k > fm::kWarpFriedmanK || n < 1 || n > fm::kWarpFriedmanN || B < 1)
+    return int(cudaErrorInvalidValue);
+  fm::FriedmanArgs a{data, block_mask, B, n, k, chi2, p};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 2) return int(launch_friedman_warp<2>(a, st));
+  if (k == 3) return int(launch_friedman_warp<3>(a, st));
+  if (k == 4) return int(launch_friedman_warp<4>(a, st));
+  if (k <= 8) return int(launch_friedman_warp<8>(a, st));
+  return int(launch_friedman_warp<16>(a, st));
 }

@@ -19,11 +19,19 @@
 // so the results agree with the reference within a tolerance, not to the
 // bit.
 //
+// Precision: SES composes its scalar maps in float32. DES composes, carries
+// and applies its 2 x 2 maps in float64 and rounds only the predictions to
+// float32: over a masked stretch the maps are shears ([[1, 1], [0, 1]]),
+// and in float32 their composed products let the trend's rounding grow with
+// the stretch's length (0.12 against a limit of ~0.006 on a row of
+// T = 16384 on an H100). Its twin steps the same maps in float64.
+//
 // What bounds it on an H100: bytes. Per step it reads 5 B (value, mask) and
-// writes 4 B (prediction) against ~10 operations for SES, ~40 for DES,
-// below the card's balance point; at B = 100k rows of T = 16384 that is
-// ~14.7 GB, ~4.4 ms at 3.35 TB/s. Nothing but the row's inputs and outputs
-// crosses device memory.
+// writes 4 B (prediction) against ~10 float32 operations for SES and ~60
+// float64 ones for DES (a compose a step, about one more for the scans);
+// at B = 100k rows of T = 16384 that is ~14.7 GB, ~4.4 ms at 3.35 TB/s,
+// and DES's ~1e11 float64 operations ~3 ms at the card's 34 TFLOP/s.
+// Nothing but the row's inputs and outputs crosses device memory.
 //
 // Built with -fmad=false, as the rest of the library.
 #include "common.cuh"
@@ -38,13 +46,13 @@ constexpr int kScanWarps = kScanThreads / 32;
 struct Map1 {
   float A, c;
 };
-// (l, b) -> A (l, b) + c (DES)
+// (l, b) -> A (l, b) + c (DES), in float64
 struct Map2 {
-  float a00, a01, a10, a11, c0, c1;
+  double a00, a01, a10, a11, c0, c1;
 };
 
 __device__ __forceinline__ Map1 identity(Map1) { return {1.0f, 0.0f}; }
-__device__ __forceinline__ Map2 identity(Map2) { return {1.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f}; }
+__device__ __forceinline__ Map2 identity(Map2) { return {1.0, 0.0, 0.0, 1.0, 0.0, 0.0}; }
 
 // later o earlier, as the reference's combine (A2 A1, A2 c1 + c2)
 __device__ __forceinline__ Map1 compose(const Map1& e, const Map1& l) {
@@ -60,16 +68,16 @@ struct State1 {
   float s;
 };
 struct State2 {
-  float l, b;
+  double l, b;
 };
 __device__ __forceinline__ State1 apply(const Map1& m, State1 v) { return {m.A * v.s + m.c}; }
 __device__ __forceinline__ State2 apply(const Map2& m, State2 v) {
   return {(m.a00 * v.l + m.a01 * v.b) + m.c0, (m.a10 * v.l + m.a11 * v.b) + m.c1};
 }
 __device__ __forceinline__ State1 first_state(State1, float v0) { return {v0}; }
-__device__ __forceinline__ State2 first_state(State2, float v0) { return {v0, 0.0f}; }
+__device__ __forceinline__ State2 first_state(State2, float v0) { return {double(v0), 0.0}; }
 __device__ __forceinline__ float predict(State1 v) { return v.s; }
-__device__ __forceinline__ float predict(State2 v) { return v.l + v.b; }
+__device__ __forceinline__ float predict(State2 v) { return float(v.l + v.b); }
 
 // The step's map, as the reference builds it from m in {0, 1}:
 // SES  A = 1 - alpha m, c = alpha m x;
@@ -81,20 +89,22 @@ __device__ __forceinline__ Map1 step_map(Map1, float x, float m, Coef k) {
   return {1.0f - k.al * m, (k.al * m) * x};
 }
 __device__ __forceinline__ Map2 step_map(Map2, float x, float m, Coef k) {
-  const float g = 1.0f - m;
-  const float oma = 1.0f - k.al;
-  const float o00 = oma, o01 = oma, o10 = -k.be * k.al, o11 = k.be * oma + (1.0f - k.be);
-  return {m * o00 + g * 1.0f, m * o01 + g * 1.0f, m * o10 + g * 0.0f, m * o11 + g * 1.0f,
-          (k.al * m) * x, ((k.be * k.al) * m) * x};
+  const double al = k.al, be = k.be, md = m, xd = x;
+  const double g = 1.0 - md;
+  const double oma = 1.0 - al;
+  const double o00 = oma, o01 = oma, o10 = -be * al, o11 = be * oma + (1.0 - be);
+  return {md * o00 + g * 1.0, md * o01 + g * 1.0, md * o10 + g * 0.0, md * o11 + g * 1.0,
+          (al * md) * xd, ((be * al) * md) * xd};
 }
 
+// a map's words (float32 or float64 halves) shuffled up by o lanes
 template <typename M>
 __device__ __forceinline__ M shfl_up_map(const M& m, int o) {
   M r;
-  const float* src = reinterpret_cast<const float*>(&m);
-  float* dst = reinterpret_cast<float*>(&r);
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(&m);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(&r);
 #pragma unroll
-  for (int i = 0; i < int(sizeof(M) / sizeof(float)); ++i)
+  for (int i = 0; i < int(sizeof(M) / sizeof(uint32_t)); ++i)
     dst[i] = __shfl_up_sync(kFullWarp, src[i], o);
   return r;
 }

@@ -47,9 +47,12 @@
   Kruskal-Wallis H of B sets of k groups (on the path `kruskal_path` picks
   by k T): each a warp, a CTA or a CTA from device scratch a row, with the
   same bits; `friedman` gives the Friedman chi-square of B (n blocks x k
-  treatments) tables.
+  treatments) tables, on the path `friedman_path` picks by k (a warp for
+  32 rows, or a CTA a row), with the same bits.
 - Kernel P, `fleet_topk` (``csrc/fleet_topk.cu``), counts a fleet's
-  unhealthy rows and finds its k worst severities with their global indices.
+  unhealthy rows and finds its k worst severities with their global
+  indices, on the path `fleet_topk_path` picks by k (a selection by warp
+  minima, or chunk sorts), with the same outputs.
 
 Each launcher checks device, dtype, shape and contiguity, allocates the
 outputs (and the scratch a kernel needs), launches on PyTorch's current
@@ -57,10 +60,11 @@ stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch (`lstm_train_backward` launches kernel
 L's two backward entries, counted as `lstm_train_recurrence` and
 `lstm_train_wgrad`; `lstm_ae`, `bivariate`, `pair_verdict`,
-`pair_tests`, `kruskal_groups`, `rank_and_ties` and `ma_band` also count
-by path, in `lstm_ae_path_launches`, `bivariate_path_launches`,
-`pair_path_launches`, `pair_tests_path_launches`, `kruskal_path_launches`,
-`rank_path_launches` and `band_path_launches`).
+`pair_tests`, `kruskal_groups`, `rank_and_ties`, `ma_band`, `friedman` and
+`fleet_topk` also count by path, in `lstm_ae_path_launches`,
+`bivariate_path_launches`, `pair_path_launches`, `pair_tests_path_launches`,
+`kruskal_path_launches`, `rank_path_launches`, `band_path_launches`,
+`friedman_path_launches` and `fleet_topk_path_launches`).
 They take CUDA tensors only; the entry points
 (``parallel.fleet.score_pairs``, ``ops.forecast``, ``ops.seqscan``,
 ``ops.triage``, ``ops.bivariate``, ``ops.hpa``, ``ops.pairwise``,
@@ -92,7 +96,10 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "KRUSKAL_PATHS", "KRUSKAL_WARPS", "kruskal_path", "kruskal_serves",
            "kruskal_warp_grid", "kruskal_path_launches", "RANK_PATHS", "rank_path",
            "rank_serves", "rank_path_launches", "STAGED_BAND_T", "BAND_PATHS",
-           "band_path", "band_serves", "band_path_launches",
+           "band_path", "band_serves", "band_path_launches", "FRIEDMAN_PATHS",
+           "WARP_FRIEDMAN_K", "WARP_FRIEDMAN_N", "FRIEDMAN_WARPS", "FRIEDMAN_ROWS", "friedman_path",
+           "friedman_serves", "friedman_path_launches", "FLEET_TOPK_PATHS", "FLEET_SELECT_K",
+           "fleet_topk_path", "fleet_topk_serves", "fleet_topk_path_launches", "empty_launches",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
            "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
@@ -206,11 +213,27 @@ WARP_RANK_KEYS = 512
 KRUSKAL_PATHS = ("warp", "cta", "scratch")
 RANK_PATHS = KRUSKAL_PATHS
 KRUSKAL_WARPS = 4  # the warp path's rows a CTA (fm_kruskal_warps), for both entries
+# friedman runs one of two paths (friedman_path), with the same bits: up to
+# WARP_FRIEDMAN_K treatments and WARP_FRIEDMAN_N blocks (its sums in 32-bit
+# integers) a warp for FRIEDMAN_ROWS rows (FRIEDMAN_WARPS warps a CTA), a
+# block's k keys in a lane's registers, each lane finishing one row's chi2
+# and p; the cta path (the first design, a CTA a row) at any shape. Its
+# path= forces one where it serves the shape (tests, timing).
+WARP_FRIEDMAN_K = 16
+WARP_FRIEDMAN_N = 1 << 20
+FRIEDMAN_WARPS = 4
+FRIEDMAN_ROWS = 32
+FRIEDMAN_PATHS = ("warp", "cta")
 # kernel P keys a row by its global index in 32 bits, and takes at most
 # MAX_FLEET_SLICE rows a launch (its C entry counts rows and kept keys in
-# int)
+# int). It runs one of two paths (fleet_topk_path), with the same outputs:
+# up to FLEET_SELECT_K kept keys a selection by rounds of warp minima;
+# the chunked path (the first design: chunk sorts) at any k. Its path=
+# forces one where it serves k (tests, timing).
 MAX_FLEET_ROWS = (1 << 32) - 1
 MAX_FLEET_SLICE = 1 << 30
+FLEET_SELECT_K = 32
+FLEET_TOPK_PATHS = ("select", "chunked")
 
 SMOOTH_SES, SMOOTH_DES, SMOOTH_HW = 1, 2, 3
 
@@ -272,6 +295,10 @@ pair_tests_path_launches = {path: 0 for path in PAIR_PATHS}
 kruskal_path_launches = {path: 0 for path in KRUSKAL_PATHS}
 rank_path_launches = {path: 0 for path in RANK_PATHS}
 band_path_launches = {path: 0 for path in BAND_PATHS}
+# kernel O's friedman and kernel P's launches by path (each also counts in
+# launches)
+friedman_path_launches = {path: 0 for path in FRIEDMAN_PATHS}
+fleet_topk_path_launches = {path: 0 for path in FLEET_TOPK_PATHS}
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
@@ -285,7 +312,7 @@ def reset_launches() -> None:
         launches[k] = 0
     for counts in (lstm_ae_path_launches, bivariate_path_launches, pair_path_launches,
                    pair_tests_path_launches, kruskal_path_launches, rank_path_launches,
-                   band_path_launches):
+                   band_path_launches, friedman_path_launches, fleet_topk_path_launches):
         for k in counts:
             counts[k] = 0
 
@@ -1494,11 +1521,29 @@ def kruskal_groups(groups, masks, phase_clocks=None, path=None):
     return H, p
 
 
-def friedman(data, block_mask):
+def friedman_path(n: int, k: int) -> str:
+    """friedman's path for tables of n blocks x k treatments."""
+    return "warp" if friedman_serves("warp", n, k) else "cta"
+
+
+def friedman_serves(path: str, n: int, k: int) -> bool:
+    """Whether a friedman path serves tables of n blocks x k treatments."""
+    return path == "cta" or (path == "warp" and 1 <= k <= WARP_FRIEDMAN_K
+                             and 1 <= n <= WARP_FRIEDMAN_N)
+
+
+def friedman(data, block_mask, path=None):
     """Launch kernel O's Friedman entry on B tables of n blocks x k
     treatments ((B, n, k) float32, block_mask (B, n) bool). Returns chi2
-    and p, (B,) float32."""
+    and p, (B,) float32. path forces one of FRIEDMAN_PATHS (ValueError
+    where it does not serve the shape)."""
     B, n, k = data.shape
+    if path is not None and path not in FRIEDMAN_PATHS:
+        raise ValueError(f"friedman has the paths {FRIEDMAN_PATHS}; got {path!r}")
+    if path is not None and not friedman_serves(path, n, k):
+        raise ValueError(f"friedman's {path} path serves 1 <= k <= WARP_FRIEDMAN_K = "
+                         f"{WARP_FRIEDMAN_K} and 1 <= n <= WARP_FRIEDMAN_N = {WARP_FRIEDMAN_N}; "
+                         f"got n = {n}, k = {k}")
     dev = data.device
     _check(data, "data", torch.float32, (B, n, k), dev)
     _check(block_mask, "block_mask", torch.bool, (B, n), dev)
@@ -1506,24 +1551,37 @@ def friedman(data, block_mask):
     p = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return chi2, p
+    path = path or friedman_path(n, k)
     lib = build.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_friedman(_ptr(data), _ptr(block_mask), B, n, k, _ptr(chi2), _ptr(p),
-                             ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        entry = lib.fm_friedman_warp if path == "warp" else lib.fm_friedman
+        rc = entry(_ptr(data), _ptr(block_mask), B, n, k, _ptr(chi2), _ptr(p), stream)
     _raise_on(rc, "friedman", lib)
     launches["friedman"] += 1
+    friedman_path_launches[path] += 1
     return chi2, p
 
 
-def fleet_topk(values, k: int, valid=None, base: int = 0):
+def fleet_topk_path(n: int, k: int) -> str:
+    """fleet_topk's path for the min(k, n) largest of n rows."""
+    return "select" if min(k, n) <= FLEET_SELECT_K else "chunked"
+
+
+def fleet_topk_serves(path: str, n: int, k: int) -> bool:
+    """Whether a fleet_topk path serves the min(k, n) largest of n rows."""
+    return path == "chunked" or (path == "select" and min(k, n) <= FLEET_SELECT_K)
+
+
+def fleet_topk(values, k: int, valid=None, base: int = 0, path=None):
     """Launch kernel P on n rows' (n,) float32 values: the min(k, n) largest
     in lax.top_k's order (IEEE total order descending, lower index first),
     a row's value taken as -inf where `valid` ((n,) bool) is False, row i
     keyed by the index base + i. Returns count (a 0-d int64 tensor, the
     valid rows; None without `valid`), top_v (min(k, n),) float32 and top_i
     (min(k, n),) int64. Indices past MAX_FLEET_ROWS and more than
-    MAX_FLEET_SLICE rows are refused."""
+    MAX_FLEET_SLICE rows are refused. path forces one of FLEET_TOPK_PATHS
+    (ValueError where it does not serve min(k, n))."""
     n = values.shape[0] if values.dim() == 1 else -1
     if n > MAX_FLEET_SLICE:
         raise ValueError(f"fleet_topk takes at most {MAX_FLEET_SLICE} rows a launch; got {n}")
@@ -1531,6 +1589,11 @@ def fleet_topk(values, k: int, valid=None, base: int = 0):
         raise ValueError(f"fleet_topk keys rows by a 32-bit index; got base {base}, n {n}")
     if k < 0:
         raise ValueError(f"fleet_topk takes k >= 0, got {k}")
+    if path is not None and path not in FLEET_TOPK_PATHS:
+        raise ValueError(f"fleet_topk has the paths {FLEET_TOPK_PATHS}; got {path!r}")
+    if path is not None and not fleet_topk_serves(path, n, k):
+        raise ValueError(f"fleet_topk's {path} path serves min(k, n) <= FLEET_SELECT_K = "
+                         f"{FLEET_SELECT_K}; got {min(k, n)}")
     dev = values.device
     _check(values, "values", torch.float32, (n,), dev)
     if valid is not None:
@@ -1538,17 +1601,34 @@ def fleet_topk(values, k: int, valid=None, base: int = 0):
     kk = min(int(k), n)
     top_v = torch.empty(kk, dtype=torch.float32, device=dev)
     top_i = torch.empty(kk, dtype=torch.int64, device=dev)
-    count = None if valid is None else torch.zeros((), dtype=torch.int64, device=dev)
-    if n == 0 or kk == 0 and valid is None:
+    if n == 0:
+        count = None if valid is None else torch.zeros((), dtype=torch.int64, device=dev)
         return count, top_v, top_i
+    # both paths write the count (a sum, not an accumulation)
+    count = None if valid is None else torch.empty((), dtype=torch.int64, device=dev)
+    if kk == 0 and valid is None:
+        return count, top_v, top_i
+    path = path or fleet_topk_path(n, k)
     lib = build.library()
     scratch = torch.empty(lib.fm_fleet_topk_scratch_bytes(n, max(kk, 1)), dtype=torch.uint8,
                           device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_fleet_topk(_ptr(values), _opt(valid), int(base), n, kk,
-                               _ptr(top_v), _ptr(top_i), _opt(count), _ptr(scratch),
-                               ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        entry = lib.fm_fleet_topk_select if path == "select" else lib.fm_fleet_topk
+        rc = entry(_ptr(values), _opt(valid), int(base), n, kk, _ptr(top_v), _ptr(top_i),
+                   _opt(count), _ptr(scratch), stream)
     _raise_on(rc, "fleet_topk", lib)
     launches["fleet_topk"] += 1
+    fleet_topk_path_launches[path] += 1
     return count, top_v, top_i
+
+
+def empty_launches(count: int, device) -> None:
+    """Launch `count` empty one-warp kernels on `device`'s current stream:
+    the launch floor a short kernel's time is read against (not counted in
+    `launches`)."""
+    lib = build.library()
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        rc = lib.fm_empty_launches(int(count), stream)
+    _raise_on(rc, "empty_launches", lib)

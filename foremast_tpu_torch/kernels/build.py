@@ -212,10 +212,20 @@ def _declare(lib):
     lib.fm_staged_band_t.restype = I
     lib.fm_friedman.argtypes = [P, P, I, I, I, P, P, P]
     lib.fm_friedman.restype = I
+    lib.fm_friedman_warp.argtypes = [P, P, I, I, I, P, P, P]
+    lib.fm_friedman_warp.restype = I
+    for name in ("fm_friedman_warps", "fm_friedman_rows", "fm_warp_friedman_k",
+                 "fm_warp_friedman_n", "fm_fleet_select_k"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = I
     lib.fm_fleet_topk_scratch_bytes.argtypes = [LL, LL]
     lib.fm_fleet_topk_scratch_bytes.restype = LL
     lib.fm_fleet_topk.argtypes = [P, P, LL, I, I, P, P, P, P, P]
     lib.fm_fleet_topk.restype = I
+    lib.fm_fleet_topk_select.argtypes = [P, P, LL, I, I, P, P, P, P, P]
+    lib.fm_fleet_topk_select.restype = I
+    lib.fm_empty_launches.argtypes = [I, P]
+    lib.fm_empty_launches.restype = I
     lib.fm_error_string.argtypes = [I]
     lib.fm_error_string.restype = ctypes.c_char_p
 

@@ -5,8 +5,12 @@ is an affine map of the state, state_t = A_t state_{t-1} + c_t, scalar for
 SES and 2 x 2 for DES, built from the mask exactly as the reference builds
 them (a gap step is the identity for SES and (l, b) -> (l + b, b) for DES);
 pred_t = h . state_{t-1}. The engine runs the SES form for buckets of
-LONG_WINDOW_STEPS and more; DES stays sequential there (its 2 x 2 products
-compound float32 rounding), and its scan form serves time-split callers.
+LONG_WINDOW_STEPS and more; DES stays sequential there, and its scan form
+serves time-split callers. The DES form steps its maps in float64 and
+rounds only the predictions to float32: in float32 the 2 x 2 products
+compound rounding over long masked stretches (kernel E's composed shears
+drifted past the scan check's 1e-4 of a row's scale at T = 16384, and a
+float32 walk of the same steps drifts by up to the same order there).
 
 `ses_predictions_assoc` and `des_predictions_assoc` run kernel E
 (``csrc/seqscan.cu``) on the card: a block-wide scan of the maps per row,
@@ -45,17 +49,20 @@ def ses_predictions_assoc_plain(x, mask, alpha):
 def des_predictions_assoc_plain(x, mask, alpha, beta):
     """Plain twin of kernel E for DES: (l, b)_t = A_t (l, b)_{t-1} + c_t with
     A_t = m A_obs + (1 - m) A_gap, c_t = (alpha m x, beta alpha m x), from
-    (first valid value, 0); pred_t = l_{t-1} + b_{t-1}."""
+    (first valid value, 0), in float64 as the kernel composes them;
+    pred_t = l_{t-1} + b_{t-1}, rounded to float32."""
     B, T = x.shape
-    x = x.to(_F)
-    m = mask.to(_F)
+    first = _first_valid(x.to(_F), mask).double()
+    x = x.double()
+    m = mask.double()
+    alpha, beta = alpha.double(), beta.double()
     oma = 1.0 - alpha
     o00, o01 = oma, oma
     o10, o11 = -beta * alpha, beta * oma + (1.0 - beta)
     ba = beta * alpha
-    lvl = _first_valid(x, mask)
+    lvl = first
     trend = torch.zeros_like(lvl)
-    preds = torch.empty((B, T), dtype=_F, device=x.device)
+    preds = torch.empty((B, T), dtype=torch.float64, device=x.device)
     for t in range(T):
         mt = m[:, t]
         g = 1.0 - mt
@@ -64,7 +71,7 @@ def des_predictions_assoc_plain(x, mask, alpha, beta):
         c0, c1 = (alpha * mt) * x[:, t], (ba * mt) * x[:, t]
         preds[:, t] = lvl + trend
         lvl, trend = (a00 * lvl + a01 * trend) + c0, (a10 * lvl + a11 * trend) + c1
-    return preds
+    return preds.to(_F)
 
 
 def _ses_assoc(x, mask, alpha):

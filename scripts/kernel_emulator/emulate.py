@@ -49,7 +49,8 @@ _LAUNCH = re.compile(r"([\w:]+(?:<[\w:, ]+>)?)<<<([^;]*?)>>>\(([^;]*)\);")
 def _rewrite(text: str) -> str:
     text = text.replace("extern __shared__ __align__(16) unsigned char smem[];",
                         "unsigned char* smem = emu::ctx.smem;")
-    text = _LAUNCH.sub(r"emu::launch(\1, \2, \3);", text)
+    text = _LAUNCH.sub(lambda m: f"emu::launch({m[1]}, {m[2]}{', ' + m[3] if m[3] else ''});",
+                       text)
     text = text.replace('asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(n) : "memory");',
                         "emu::bar_sync(id, n);")
     start = text.find("__device__ __forceinline__ unsigned cluster_ctarank()")
@@ -351,16 +352,16 @@ def parent_check_o_b(lib, parent, g) -> int:
     preds = torch.where(torch.isfinite(x), x, 30.0) + 1.0
     scr = cs.adversarial_screen(9, 300, g)
 
-    def run():
-        return (kernels.friedman(*fr),
+    def run(parent):
+        return (kernels.friedman(*fr, path="cta" if parent else None),
                 kernels.band_from_preds(x, m, region, preds, thr, mode, mlb),
                 kernels.triage_screen(scr[0], scr[1], scr[2], cs.TRIAGE_WINDOW, *scr[3:]))
 
-    ours = run()
+    ours = run(False)
     mine = kbuild.library
     kbuild.library = lambda: lib
     try:
-        theirs = run()
+        theirs = run(True)
     finally:
         kbuild.library = mine
     names = ("friedman", "band_from_preds", "triage_screen")
@@ -372,7 +373,102 @@ def parent_check_o_b(lib, parent, g) -> int:
         print(f"{'ok  ' if ok else 'FAIL'} {name} against the parent's: every output bit for bit",
               flush=True)
         failures += not ok
+    failures += parent_check_friedman_topk(lib, rng)
+    failures += parent_check_p4(lib)
     del fc, pw
+    return failures
+
+
+P4_DRAWS, P4_ROWS = 16, 64
+
+
+def parent_check_p4(lib) -> int:
+    """P4, kernel E's DES margin at T = 16384: the first P4_ROWS rows of 16
+    draws of time_torch_kernels.py's P4 rows (1,024 adversarial rows a draw,
+    seeds SEED + 1000 + d), each row's largest difference as a share of
+    compare_scan's limit, for the parent's kernel and this tree's against
+    the float64 walk of the same steps (this tree's twin) and the float32
+    walk (the parent's twin), and for the float32 walk against the float64
+    one; the worst row of each draw. This tree's kernel must stay within
+    half of the limit. Returns the failures."""
+    import chip_smoke as cs
+
+    rows = [cs.adversarial_series(1024, 16384, torch.Generator().manual_seed(
+        cs.SEED + 1000 + d))[:5] for d in range(P4_DRAWS)]
+    x = torch.cat([a[0][:P4_ROWS] for a in rows])
+    hist = torch.cat([(a[1] & ~a[2])[:P4_ROWS] for a in rows])
+    al = torch.cat([a[3][:P4_ROWS] for a in rows])
+    be = torch.cat([a[4][:P4_ROWS] for a in rows])
+    del rows
+    ours = kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be)
+    mine = kbuild.library
+    kbuild.library = lambda: lib
+    try:
+        theirs = kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be)
+    finally:
+        kbuild.library = mine
+    w64 = cs.des_walk(x, hist, al, be, torch.float64)
+    w32 = cs.des_walk(x, hist, al, be, torch.float32)
+    worst = {}
+    for what, got, want in (("this tree's kernel vs the float64 walk", ours, w64),
+                            ("the parent's kernel vs the float64 walk", theirs, w64),
+                            ("the parent's kernel vs the float32 walk", theirs, w32),
+                            ("the float32 walk vs the float64 walk", w32, w64)):
+        sh = cs.scan_limit_share(got, want, x, hist).view(P4_DRAWS, P4_ROWS).amax(1).tolist()
+        worst[what] = max(sh)
+        print(f"     P4, {what}: worst row of each of {P4_DRAWS} draws ({P4_ROWS} rows at "
+              f"T = 16384) as a share of compare_scan's limit: "
+              + " ".join(f"{v:.3g}" for v in sh), flush=True)
+    share = worst["this tree's kernel vs the float64 walk"]
+    ok = share <= 0.5
+    print(f"{'ok  ' if ok else 'FAIL'} affine_scan DES at T = 16384 (P4): this tree's kernel "
+          f"within {share:.3g} of the limit", flush=True)
+    return int(not ok)
+
+
+def parent_check_friedman_topk(lib, rng) -> int:
+    """Kernel O's friedman and kernel P of the parent's library `lib` (their
+    first designs, through this tree's launchers forced onto the cta and
+    chunked paths) against this tree's default paths: chi2 and p, and the
+    count, values and indices, bit for bit. Returns the failures."""
+    import chip_smoke as cs
+
+    failures = 0
+    for n, k, B in ((128, 3, 70), (20, 6, 33), (7, 16, 40), (9, 17, 9), (40, 1, 5),
+                    (300, 3, 5)):
+        d, bm = (torch.from_numpy(a) for a in cs.adversarial_friedman(B, n, k, rng))
+        ours = kernels.friedman(d, bm)
+        mine = kbuild.library
+        kbuild.library = lambda: lib
+        try:
+            theirs = kernels.friedman(d, bm, path="cta")
+        finally:
+            kbuild.library = mine
+        ok = all(_same(a, b) for a, b in zip(ours, theirs))
+        print(f"{'ok  ' if ok else 'FAIL'} friedman n={n} k={k} ({kernels.friedman_path(n, k)} "
+              f"path) against the parent's: chi2 and p bit for bit", flush=True)
+        failures += not ok
+    for n in (5, 5000, 70_000):
+        u, sev = (torch.from_numpy(a) for a in cs.adversarial_topk(n, rng))
+        for k in (0, 1, 8, 32, 33):
+            for valid, base in ((u, 7), (None, 0)):
+                ours = kernels.fleet_topk(sev, k, valid, base)
+                mine = kbuild.library
+                kbuild.library = lambda: lib
+                try:
+                    theirs = kernels.fleet_topk(sev, k, valid, base, path="chunked")
+                finally:
+                    kbuild.library = mine
+                try:
+                    cs.compare_topk(ours, theirs, "")
+                    ok = True
+                except AssertionError:
+                    ok = False
+                print(f"{'ok  ' if ok else 'FAIL'} fleet_topk n={n} k={k}"
+                      f"{'' if valid is not None else ' unmasked'} "
+                      f"({kernels.fleet_topk_path(n, k)} path) against the parent's: count, "
+                      f"values and indices bit for bit", flush=True)
+                failures += not ok
     return failures
 
 
@@ -891,25 +987,40 @@ def new_kernels_check(cs, expect) -> None:
                    f"against the twin; {cs.band_paths_agree(a, w)}")
         except AssertionError as err:
             expect(f"ma_band T={T} window {w}", False, str(err))
-    for n, k in ((12, 3), (5, 200), (30, 6)):
-        d, bm = (torch.from_numpy(a) for a in cs.adversarial_friedman(10, n, k, rng))
+    # kernel O's friedman on each path that serves k (the warp path's K = 2,
+    # 4, 8, 16 instances, rows of a warp's 32 and a ragged last warp, rows
+    # of two and three batches of blocks, k = 16 and 17 about its limit),
+    # the paths equal bit for bit
+    for n, k, B in ((12, 3, 10), (5, 200, 10), (30, 6, 10), (37, 2, 33), (40, 2, 70),
+                    (33, 4, 9), (9, 8, 40), (20, 16, 35), (20, 17, 12), (300, 2, 5),
+                    (200, 3, 6), (70, 16, 4), (65, 8, 3)):
+        d, bm = (torch.from_numpy(a) for a in cs.adversarial_friedman(B, n, k, rng))
         try:
-            chi, p = kernels.friedman(d, bm)
             pc, pp = pw.friedman_plain(d, bm)
-            cs.close(chi, pc, cs.STAT_RTOL, 1e-5, "chi2")
-            e = cs.close(p, pp, 0.0, cs.P_ATOL, "p")
-            expect(f"friedman n={n} k={k}", True, f"max |dp| {e:.3g}")
+            e = 0.0
+            served = [q for q in kernels.FRIEDMAN_PATHS if kernels.friedman_serves(q, n, k)]
+            out = {q: kernels.friedman(d, bm, path=q) for q in served}
+            for q, (chi, p) in out.items():
+                cs.close(chi, pc, cs.STAT_RTOL, 1e-5, f"{q} chi2")
+                e = max(e, cs.close(p, pp, 0.0, cs.P_ATOL, f"{q} p"))
+                cs.check(cs.same_bits(chi, out["cta"][0]) and cs.same_bits(p, out["cta"][1]),
+                         f"the {q} path differs from the cta path")
+            expect(f"friedman n={n} k={k} B={B}", True,
+                   f"max |dp| {e:.3g}; paths {served} equal bit for bit")
         except AssertionError as err:
-            expect(f"friedman n={n} k={k}", False, str(err))
-    for n in (5, 5000):
+            expect(f"friedman n={n} k={k} B={B}", False, str(err))
+    # kernel P on each path that serves k: the select path's passes over kept
+    # keys (n = 70,000 at k = 32: 69 chunks' 2,208 keys), k = 32 and 33
+    # about its limit, k = 0 (the count alone)
+    for n in (5, 5000, 70_000):
         u, sev = (torch.from_numpy(a) for a in cs.adversarial_topk(n, rng))
-        for k in (1, 8, 500, 3000, n + 5):
+        for k in (0, 1, 8, 32, 33, 500, 3000, n + 5):
+            if n == 70_000 and k not in (8, 32, 33):
+                continue
             try:
-                cs.compare_topk(kernels.fleet_topk(sev, k, u, base=7),
-                                fl.fleet_topk_plain(sev, k, u, base=7), "masked")
-                cs.compare_topk(kernels.fleet_topk(sev, k), fl.fleet_topk_plain(sev, k),
-                                "unmasked")
-                expect(f"fleet_topk n={n} k={k}", True, "counts, values and indices equal")
+                served = cs.topk_paths_agree(sev, k, u, 7)
+                expect(f"fleet_topk n={n} k={k}", True,
+                       f"counts, values and indices equal on paths {served}")
             except AssertionError as err:
                 expect(f"fleet_topk n={n} k={k}", False, str(err))
     cs.DEV = saved_dev

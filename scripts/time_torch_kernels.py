@@ -196,9 +196,39 @@ spills. It calls
 only entry points every checkout since kernels B and O's first has: run it
 from the parent's checkout and this one in one call (parent, change,
 change, parent); `--only band` or `--only rank` times one of the two.
+
+--friedman-topk times kernel O's friedman on the tests phase's 100,000
+tables of 128 blocks x 3 and on adversarial tables of (20 blocks x 6) x
+100,000 and (7 x 200) x 20,000; kernel P (`kernels.fleet_topk`) on the
+fleet that `score_pairs` scores from the 100,000-pair pass at k = 1, 8, 32
+and 33, beside one and two empty launches (the select path's floor) and
+`torch.topk` + `sum`; and kernel E's DES (`kernels.affine_scan`, kind 2) on
+the seasonal phase's 100,000 rows of T = 16384 at the engine's alpha 0.5,
+beta 0.1: each the median of 20 launches back to back and the mean of 20
+queued behind a spin kernel (chip_smoke.queued_ms: the device time where
+a launcher's host work outlasts its kernel, as kernel P's does), with a
+SHA-256 of the outputs, each other path forced where the checkout has
+paths. It then
+records P4, kernel E's DES margin: 16 draws of 1,024 adversarial rows at
+T = 16384 (chip_smoke.adversarial_series, seeds SEED + 1000 + d), each
+row's largest difference as a share of compare_scan's DES limit, for the
+kernel against the float64 walk of the same steps (the twin's arithmetic)
+and against the float32 walk (the first twin's), and for the float32 walk
+against the float64 one; the worst of each draw. It calls only entry
+points every checkout since kernels O and P's first has: run it from the
+parent's checkout and this one in one call (parent, change, change,
+parent); `--only friedman`, `--only topk` or `--only des` times one of the
+three. With --profile, three copies of this checkout's package under
+build/variants/ (each built by its own nvcc, from text edits made here) are
+timed on the 100,000 tables as well: `stamps`, clock stamps in friedman's
+cta kernel (thread 0's cycles a row, FRIEDMAN_CTA_PHASES), which split the
+first design; `rows1`, the warp path with one row a warp (its tail on
+lane 0); `notail`, the warp path without its tail (chi2 and p not
+computed).
 """
 import hashlib
 import argparse
+import ctypes
 import math
 import importlib.util
 import json
@@ -1032,6 +1062,237 @@ def band_rank(profile, only=None):
     return res
 
 
+# --friedman-topk: friedman's shapes (n, k, rows) besides the tests phase's
+# tables; kernel P's k; P4's draws
+FRIEDMAN_SHAPES = ((20, 6, 100_000), (7, 200, 20_000))
+TOPK_K = (1, 8, 32, 33)
+P4_DRAWS, P4_ROWS, P4_T = 16, 1024, 16384
+# the first design's phases, as the `stamps` variant's clock stamps split it
+FRIEDMAN_CTA_PHASES = ("ranks", "combine", "count", "tie_sum", "nb_sum", "ssq_sum", "tail")
+_STAMP = ("if (g_friedman_clocks != nullptr && threadIdx.x == 0) "
+          "g_friedman_clocks[size_t(blockIdx.x) * 8 + {i}] = clock64();")
+# each variant: (file, text, replacement) edits of this checkout's sources
+FRIEDMAN_VARIANTS = {
+    "stamps": [
+        ("rank_groups.cu", "struct FriedmanArgs {",
+         "__device__ long long* g_friedman_clocks = nullptr;\n\nstruct FriedmanArgs {"),
+        ("rank_groups.cu", "  double ssq = 0.0;\n  if (k <= nt) {",
+         "  double ssq = 0.0;\n  " + _STAMP.format(i=0) + "\n  if (k <= nt) {"),
+        ("rank_groups.cu", "    part[tid] = r2sum;",
+         "    " + _STAMP.format(i=1) + "\n    part[tid] = r2sum;"),
+        ("rank_groups.cu", "  for (int i = tid; i < n; i += nt) nb += bm[i] != 0;",
+         "  " + _STAMP.format(i=2) + "\n  for (int i = tid; i < n; i += nt) nb += bm[i] != 0;\n  "
+         + _STAMP.format(i=3)),
+        ("rank_groups.cu", "  tie = block_sum(tie, scr);\n  nb = block_sum(nb, scr);\n"
+         "  ssq = block_sum(ssq, scr);\n  if (tid == 0) friedman_write(a, row, nb, ssq, tie);",
+         "  tie = block_sum(tie, scr);\n  " + _STAMP.format(i=4)
+         + "\n  nb = block_sum(nb, scr);\n  " + _STAMP.format(i=5)
+         + "\n  ssq = block_sum(ssq, scr);\n  " + _STAMP.format(i=6)
+         + "\n  if (tid == 0) friedman_write(a, row, nb, ssq, tie);\n  " + _STAMP.format(i=7)),
+        ("rank_groups.cu", 'extern "C" int fm_friedman_warps()',
+         'extern "C" int fm_friedman_clocks(void* p) {\n'
+         "  return int(cudaMemcpyToSymbol(fm::g_friedman_clocks, &p, sizeof(p)));\n}\n\n"
+         'extern "C" int fm_friedman_warps()'),
+    ],
+    "rows1": [("rank_groups.cu", "constexpr int kFriedmanRows = 32;",
+               "constexpr int kFriedmanRows = 1;")],
+    "notail": [("rank_groups.cu",
+                "  if (lane < rows) friedman_write(a, int(row0 + lane), my_nb, my_ssq, my_tie);",
+                "  if (lane < rows) {\n    a.chi2[row0 + lane] = float(my_ssq);\n"
+                "    a.p[row0 + lane] = float(my_nb + my_tie);\n  }")],
+}
+
+
+def friedman_variant(name):
+    """A copy of this checkout's package under build/variants/<name> with
+    FRIEDMAN_VARIANTS[name]'s edits (each text must occur exactly once);
+    returns the copy's root."""
+    import shutil
+
+    root = os.path.join(os.getcwd(), "build", "variants", name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(os.getcwd(), "foremast_tpu_torch"),
+                    os.path.join(root, "foremast_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for fname, old, new in FRIEDMAN_VARIANTS[name]:
+        path = os.path.join(root, "foremast_tpu_torch", "csrc", fname)
+        text = open(path).read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: {old[:60]!r} occurs {text.count(old)} times")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    return root
+
+
+def friedman_variant_run(name):
+    """In a variant's checkout: friedman on the tests phase's tables, timed;
+    for `stamps` the first design's split by its clock stamps."""
+    from foremast_tpu_torch import kernels
+
+    args = cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0]
+    d, bm = cs.tests_inputs(args)[2]
+    B = d.shape[0]
+    if name != "stamps":
+        ms = median_back_to_back_ms(lambda: kernels.friedman(d, bm), cs.TIMED_RUNS)
+        return {"ms": ms, "sha256": _out_digest(tuple(kernels.friedman(d, bm)))}
+    lib = kernels.build.library()
+    lib.fm_friedman_clocks.argtypes = [ctypes.c_void_p]
+    lib.fm_friedman_clocks.restype = ctypes.c_int
+
+    def run():
+        return kernels.friedman(d, bm, path="cta")
+
+    off = median_back_to_back_ms(run, cs.TIMED_RUNS)
+    clocks = torch.zeros((B, 8), dtype=torch.int64, device=cs.DEV)
+    assert lib.fm_friedman_clocks(ctypes.c_void_p(clocks.data_ptr())) == 0
+    on = median_back_to_back_ms(run, cs.TIMED_RUNS)
+    torch.cuda.synchronize()
+    assert lib.fm_friedman_clocks(None) == 0
+    after = median_back_to_back_ms(run, cs.TIMED_RUNS)
+    cyc = clocks.diff(dim=1).double()
+    total = cyc.sum(0)
+    res = {"ms": off, "ms_stamps_on": on, "ms_after": after, "monotone": bool((cyc >= 0).all()),
+           "share": dict(zip(FRIEDMAN_CTA_PHASES, (total / total.sum()).tolist())),
+           "cycles_per_row": dict(zip(FRIEDMAN_CTA_PHASES, cyc.mean(0).tolist())),
+           "sha256": _out_digest(tuple(run()))}
+    return res
+
+
+def friedman_variants():
+    """--profile's variants, each built and timed in a process of its own."""
+    res = {}
+    for name in FRIEDMAN_VARIANTS:
+        root = friedman_variant(name)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--friedman-variant", name],
+                           cwd=root, capture_output=True, text=True, timeout=900)
+        line = p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ""
+        if p.returncode != 0 or not line.startswith("{"):
+            raise RuntimeError(f"variant {name} failed:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        res[name] = json.loads(line)
+        r = res[name]
+        print(f"  friedman variant {name}: {r['ms']:.4f} ms, sha256 {r['sha256']}"
+              + (f"; stamped {r['ms_stamps_on']:.4f} ms, unstamped again {r['ms_after']:.4f}; "
+                 f"split (thread 0's cycles a row) "
+                 + ", ".join(f"{k} {100 * v:.2f}% ({r['cycles_per_row'][k]:.0f})"
+                             for k, v in r["share"].items()) if name == "stamps" else ""),
+              flush=True)
+    return res
+
+
+def friedman_topk(profile, only=None):
+    """--friedman-topk: kernel O's friedman, kernel P and kernel E's DES at
+    the shapes above (only: one of "friedman", "topk", "des"), with P4's
+    shares; (profile) the friedman variants."""
+    from foremast_tpu_torch import kernels
+
+    res = {}
+
+    def timed(what, run, digest=True):
+        ms = median_back_to_back_ms(run, cs.TIMED_RUNS)
+        queued = cs.queued_ms(run, cs.TIMED_RUNS)
+        out = run()
+        sha = _out_digest(out if isinstance(out, dict) else tuple(
+            o for o in out if o is not None)) if digest else None
+        print(f"  {what}: {ms:.4f} ms (median of {cs.TIMED_RUNS}), {queued:.4f} ms queued"
+              + (f", sha256 {sha}" if sha else ""), flush=True)
+        res[what] = {"ms": ms, "queued_ms": queued, "sha256": sha}
+        return ms
+
+    f_paths = getattr(kernels, "FRIEDMAN_PATHS", ()) if _takes_path(kernels.friedman) else ()
+    p_paths = getattr(kernels, "FLEET_TOPK_PATHS", ()) if _takes_path(kernels.fleet_topk) else ()
+    if only in (None, "friedman"):
+        args = cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0]
+        tables = [("tests", *cs.tests_inputs(args)[2])]
+        for n, k, B in FRIEDMAN_SHAPES:
+            tables.append((f"adversarial", *(torch.from_numpy(a).to(cs.DEV) for a in
+                                            cs.adversarial_friedman(B, n, k, np.random.default_rng(
+                                                cs.SEED + n * k)))))
+        for what, d, bm in tables:
+            B, n, k = d.shape
+            what = f"friedman {what} {B} x {n} x {k}"
+            bound = cs.least_time(d.numel() * 4 + bm.numel() + B * 8, 2 * k * k * float(bm.sum()))
+            res[f"{what} bound"] = bound
+            print(f"  {what}: bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+            timed(what, lambda: kernels.friedman(d, bm))
+            for path in f_paths:
+                if kernels.friedman_serves(path, n, k) and path != kernels.friedman_path(n, k):
+                    timed(f"{what}, {path} path forced", lambda: kernels.friedman(d, bm, path=path))
+            del d, bm
+        del tables
+        if profile:
+            res["friedman variants"] = friedman_variants()
+    if only in (None, "topk"):
+        from foremast_tpu_torch.parallel import fleet as fl
+
+        out = fl.score_pairs(*fl.pair_args_from_numpy(
+            cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0], cs.DEV), device=cs.DEV)
+        u, sev = out["unhealthy"], out["severity"]
+        del out
+        B = sev.shape[0]
+        for k in TOPK_K:
+            what = f"fleet_topk {B} k={k}"
+            timed(what, lambda: kernels.fleet_topk(sev, k, u))
+            for path in p_paths:
+                if path != kernels.fleet_topk_path(B, k) and kernels.fleet_topk_serves(path, B, k):
+                    timed(f"{what}, {path} path forced",
+                          lambda: kernels.fleet_topk(sev, k, u, path=path))
+        timed(f"torch.topk + sum {B} k={cs.FLEET_K}",
+              lambda: (torch.topk(torch.where(u, sev, -torch.inf), cs.FLEET_K), u.sum()),
+              digest=False)
+        if hasattr(kernels, "empty_launches"):
+            for n in (1, 2):
+                timed(f"{n} empty launch{'es' if n > 1 else ''}",
+                      lambda: kernels.empty_launches(n, sev.device), digest=False)
+        res["fleet_topk bound"] = cs.least_time(B * 5 + cs.FLEET_K * 12 + 8, B)
+    if only in (None, "des"):
+        res.update(des_p4(timed))
+    for name in ("friedman_path_launches", "fleet_topk_path_launches"):
+        if hasattr(kernels, name):
+            res[name] = dict(getattr(kernels, name))
+    if profile:
+        res["ptxas"] = _ptxas(("friedman", "select_", "topk_", "affine_scan"))
+    return res
+
+
+def des_p4(timed):
+    """Kernel E's DES on the seasonal rows, timed, then P4's shares."""
+    from foremast_tpu_torch import kernels
+
+    res = {}
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    args = cs.season_inputs(gen)[0]
+    x, hist = args[0], (args[1] & ~args[2]).contiguous()
+    del args
+    B, T = x.shape
+    f32 = dict(dtype=torch.float32, device=cs.DEV)
+    al5, be1 = torch.full((B,), 0.5, **f32), torch.full((B,), 0.1, **f32)
+    res["affine_scan des bound"] = cs.least_time(B * T * 9 + B * 8, 11 * B * T)
+    timed(f"affine_scan des seasonal {B} x {T}",
+          lambda: (kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al5, be1),))
+    del x, hist, al5, be1
+    torch.cuda.empty_cache()
+    # P4: the draws side by side, one launch and one walk of each precision
+    draws = [cs.adversarial_series(P4_ROWS, P4_T, torch.Generator(device=cs.DEV).manual_seed(
+        cs.SEED + 1000 + d))[:5] for d in range(P4_DRAWS)]
+    x = torch.cat([a[0] for a in draws])
+    hist = torch.cat([a[1] & ~a[2] for a in draws])
+    al, be = torch.cat([a[3] for a in draws]), torch.cat([a[4] for a in draws])
+    del draws
+    kern = kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be)
+    w64 = cs.des_walk(x, hist, al, be, torch.float64)
+    w32 = cs.des_walk(x, hist, al, be, torch.float32)
+    shares = {"kernel vs float64 walk": cs.scan_limit_share(kern, w64, x, hist),
+              "kernel vs float32 walk": cs.scan_limit_share(kern, w32, x, hist),
+              "float32 walk vs float64 walk": cs.scan_limit_share(w32, w64, x, hist)}
+    for what, sh in shares.items():
+        worst = sh.view(P4_DRAWS, P4_ROWS).amax(1).tolist()
+        res[f"P4 {what}"] = worst
+        print(f"  P4, {what}: worst row of each of {P4_DRAWS} draws of {P4_ROWS} rows at T = "
+              f"{P4_T}, share of compare_scan's DES limit: "
+              + " ".join(f"{v:.4g}" for v in worst) + f"; worst {max(worst):.4g}", flush=True)
+    return res
+
+
 def median_back_to_back_ms(fn, runs):
     """Median of `runs` launches of fn by CUDA events recorded between
     launches enqueued back to back after a warm-up one: the host stays
@@ -1657,9 +1918,10 @@ def main():
     p.add_argument("--bivariate-hw", action="store_true",
                    help="time kernel H and kernel C (the Holt-Winters refit, SES, DES) and print "
                         "their outputs' digests instead")
-    p.add_argument("--only", choices=("bivariate", "smooth", "kruskal", "band", "rank"),
-                   help="with --bivariate-hw, --kruskal-band or --band-rank, time one of the "
-                        "two kernels")
+    p.add_argument("--only", choices=("bivariate", "smooth", "kruskal", "band", "rank",
+                                      "friedman", "topk", "des"),
+                   help="with --bivariate-hw, --kruskal-band, --band-rank or --friedman-topk, "
+                        "time one of their kernels")
     p.add_argument("--compare", nargs=2, metavar=("A", "B"),
                    help="hold two --triage-hw, --lstm-st, --period-hpa or --bivariate-hw output "
                         "files against each other (CPU)")
@@ -1674,6 +1936,11 @@ def main():
     p.add_argument("--band-rank", action="store_true",
                    help="time kernel B's ma_band above T = 4096 (and its staged shapes) and "
                         "kernel O's rank_and_ties, with digests, instead")
+    p.add_argument("--friedman-topk", action="store_true",
+                   help="time kernel O's friedman, kernel P and kernel E's DES, with digests and "
+                        "P4's shares, instead")
+    p.add_argument("--friedman-variant", choices=tuple(FRIEDMAN_VARIANTS),
+                   help=argparse.SUPPRESS)
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
     opt = p.parse_args()
     if opt.compare:
@@ -1720,6 +1987,13 @@ def main():
     if opt.band_rank:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "band_rank": band_rank(opt.profile, opt.only)}), flush=True)
+        return
+    if opt.friedman_variant:
+        print(json.dumps(friedman_variant_run(opt.friedman_variant)), flush=True)
+        return
+    if opt.friedman_topk:
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "friedman_topk": friedman_topk(opt.profile, opt.only)}), flush=True)
         return
     if opt.a_digest:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Kernel H's path choice, kernels A and N's path choice and warp-path grid,
-kernel O's Kruskal-Wallis and rank paths and warp-path grid, kernel B's
-ma_band paths, and kernel C's Holt-Winters launch size, at their boundaries. Plain Python
+kernel O's Kruskal-Wallis, rank and Friedman paths and warp-path grid, kernel
+B's ma_band paths, kernel P's paths, and kernel C's Holt-Winters launch size,
+at their boundaries. Plain Python
 on the library's size formulas (the mirrors are held to their C functions
 by card tests in test_torch_kernels.py), so these run on the CPU."""
 import pytest
@@ -253,3 +254,66 @@ def test_reset_launches_clears_the_rank_path_counts():
     assert set(kernels.rank_path_launches) == set(kernels.RANK_PATHS)
     assert not any(kernels.rank_path_launches.values())
     assert kernels.launches["rank_and_ties"] == 0
+
+
+@pytest.mark.parametrize("n, k, path", [
+    (128, 3, "warp"), (1, 1, "warp"), (20, 6, "warp"), (7, 16, "warp"), (1000, 2, "warp"),
+    (1 << 20, 16, "warp"), ((1 << 20) + 1, 3, "cta"), (0, 3, "cta"), (7, 17, "cta"),
+    (7, 200, "cta"), (5, 0, "cta")])
+def test_friedman_path_by_shape(n, k, path):
+    """friedman's path: a warp for FRIEDMAN_ROWS rows up to WARP_FRIEDMAN_K
+    treatments and WARP_FRIEDMAN_N blocks, the first design's CTA a row
+    beyond; the cta path serves every shape."""
+    assert kernels.WARP_FRIEDMAN_K == 16 and kernels.WARP_FRIEDMAN_N == 1 << 20
+    assert kernels.FRIEDMAN_PATHS == ("warp", "cta")
+    assert kernels.friedman_path(n, k) == path
+    assert kernels.friedman_serves(path, n, k) and kernels.friedman_serves("cta", n, k)
+    assert kernels.friedman_serves("warp", n, k) == (path == "warp")
+
+
+def _tables(B, n, k):
+    return torch.zeros(B, n, k), torch.ones(B, n, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("n, k, path, limit", [
+    (7, 17, "warp", "WARP_FRIEDMAN_K = 16"), (7, 0, "warp", "WARP_FRIEDMAN_K = 16"),
+    (0, 3, "warp", "WARP_FRIEDMAN_N"), (128, 3, "block", "paths")])
+def test_forced_friedman_paths_refuse_a_table_they_do_not_serve(n, k, path, limit):
+    """friedman refuses a forced path that does not serve the shape, naming
+    the limit, before it looks at a tensor (these are CPU tensors)."""
+    with pytest.raises(ValueError, match=limit):
+        kernels.friedman(*_tables(2, n, k), path=path)
+
+
+@pytest.mark.parametrize("n, k, path", [
+    (100_000, 8, "select"), (100_000, 0, "select"), (100_000, 1, "select"),
+    (100_000, 32, "select"), (5, 33, "select"), (33, 100, "chunked"), (100_000, 33, "chunked"),
+    (100_000, 500, "chunked"), (4096, 3000, "chunked")])
+def test_fleet_topk_path_by_k(n, k, path):
+    """fleet_topk's path: the selection by warp minima while min(k, n) <=
+    FLEET_SELECT_K, the first design's chunk sorts above it; the chunked
+    path serves every k."""
+    assert kernels.FLEET_SELECT_K == 32 and kernels.FLEET_TOPK_PATHS == ("select", "chunked")
+    assert kernels.fleet_topk_path(n, k) == path
+    assert kernels.fleet_topk_serves(path, n, k) and kernels.fleet_topk_serves("chunked", n, k)
+    assert kernels.fleet_topk_serves("select", n, k) == (path == "select")
+
+
+@pytest.mark.parametrize("n, k, path, limit", [
+    (100, 33, "select", "FLEET_SELECT_K = 32"), (100_000, 500, "select", "FLEET_SELECT_K = 32"),
+    (100, 8, "sort", "paths")])
+def test_forced_fleet_topk_paths_refuse_a_k_they_do_not_serve(n, k, path, limit):
+    with pytest.raises(ValueError, match=limit):
+        kernels.fleet_topk(torch.zeros(n), k, path=path)
+
+
+def test_reset_launches_clears_the_friedman_and_fleet_topk_path_counts():
+    kernels.friedman_path_launches["warp"] += 2
+    kernels.fleet_topk_path_launches["select"] += 2
+    kernels.launches["friedman"] += 2
+    kernels.reset_launches()
+    assert set(kernels.friedman_path_launches) == set(kernels.FRIEDMAN_PATHS)
+    assert set(kernels.fleet_topk_path_launches) == set(kernels.FLEET_TOPK_PATHS)
+    assert not any(kernels.friedman_path_launches.values())
+    assert not any(kernels.fleet_topk_path_launches.values())
+    assert kernels.launches["friedman"] == 0

@@ -31,7 +31,9 @@ terms and counts exactly, its H and chi2 to 1e-6 relative and p to 1e-5
 (kruskal_groups' and rank_and_ties' paths to one another bit for bit;
 ma_band's three paths likewise);
 kernel P's count, values (bit for bit) and indices exactly; the fleet
-scorer in a world of one over NCCL as score_pairs and P's twin.
+scorer in a world of one over NCCL as score_pairs and P's twin. Kernel O's
+friedman and kernel P each on every path, equal bit for bit; kernel E's DES
+at T = 16384 within half of compare_scan's limit on 16 seeded draws.
 """
 import numpy as np
 import pytest
@@ -1183,6 +1185,86 @@ def test_friedman_matches_twin(card, n, k):
     pc, pp = pw.friedman_plain(d, bm)
     cs.close(chi, pc, cs.STAT_RTOL, 1e-5, "chi2")
     cs.close(p, pp, 0.0, cs.P_ATOL, "p")
+
+
+@pytest.mark.parametrize("n,k", [(128, 3), (20, 6), (7, 16), (300, 2), (33, 4), (9, 8),
+                                 (1, 5), (40, 1), (200, 3), (7, 17)])
+def test_friedman_warp_path_gives_the_cta_path_s_bits(card, n, k):
+    """friedman's default path against the cta path bit for bit on
+    adversarial tables (ties with +-0, NaN, masked-out blocks, rows with no
+    block and with one), 1,027 rows (a ragged last warp and CTA), and
+    against the twin; each path counted."""
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    d, bm = (torch.from_numpy(a).to(card)
+             for a in cs.adversarial_friedman(1027, n, k, np.random.default_rng(n + k)))
+    kernels.reset_launches()
+    got = kernels.friedman(d, bm)
+    path = kernels.friedman_path(n, k)
+    assert kernels.friedman_path_launches[path] == 1 and kernels.launches["friedman"] == 1
+    cta = kernels.friedman(d, bm, path="cta")
+    torch.cuda.synchronize()
+    assert cs.same_bits(got[0], cta[0]) and cs.same_bits(got[1], cta[1])
+    pc, pp = pw.friedman_plain(d, bm)
+    cs.close(got[0], pc, cs.STAT_RTOL, 1e-5, "chi2")
+    if k > 1:  # df = 0: the kernel's p is 1, the twin's NaN (ROADMAP queue 3, P5)
+        cs.close(got[1], pp, 0.0, cs.P_ATOL, "p")
+    lib = kernels.build.library()
+    assert kernels.WARP_FRIEDMAN_K == lib.fm_warp_friedman_k()
+    assert kernels.WARP_FRIEDMAN_N == lib.fm_warp_friedman_n()
+    assert kernels.FRIEDMAN_WARPS == lib.fm_friedman_warps()
+    assert kernels.FRIEDMAN_ROWS == lib.fm_friedman_rows()
+
+
+@pytest.mark.parametrize("n", [5, 4096, 100_000])
+@pytest.mark.parametrize("k", [0, 1, 8, 32])
+def test_fleet_topk_select_path_gives_the_chunked_path_s_outputs(card, n, k):
+    rng = np.random.default_rng(n + k)
+    u, s = (torch.from_numpy(a).to(card) for a in cs.adversarial_topk(n, rng))
+    kernels.reset_launches()
+    got = kernels.fleet_topk(s, k, u, base=5)
+    assert kernels.fleet_topk_path_launches["select"] == 1
+    cs.compare_topk(got, kernels.fleet_topk(s, k, u, base=5, path="chunked"), "chunked")
+    cs.compare_topk(got, fl.fleet_topk_plain(s, k, u, base=5), "twin")
+    assert kernels.FLEET_SELECT_K == kernels.build.library().fm_fleet_select_k()
+
+
+def test_fleet_topk_twice_and_on_two_streams(card):
+    """Kernel P called twice back to back, and on two streams at once,
+    gives the same outputs: it keeps no state between launches."""
+    rng = np.random.default_rng(3)
+    u, s = (torch.from_numpy(a).to(card) for a in cs.adversarial_topk(100_000, rng))
+    want = fl.fleet_topk_plain(s, 8, u)
+    for path in kernels.FLEET_TOPK_PATHS:
+        first = kernels.fleet_topk(s, 8, u, path=path)
+        second = kernels.fleet_topk(s, 8, u, path=path)
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        outs = []
+        torch.cuda.synchronize()
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(kernels.fleet_topk(s, 8, u, path=path))
+        torch.cuda.synchronize()
+        for got in [first, second] + outs:
+            cs.compare_topk(got, want, path)
+
+
+def test_des_scan_margin_on_sixteen_draws_at_16384(card):
+    """Kernel E's DES against its twin (the same maps stepped in float64)
+    on 16 seeded draws of 1,024 adversarial rows at T = 16384: every row
+    within half of compare_scan's limit (P4)."""
+    from foremast_tpu_torch.ops import seqscan as sq
+
+    draws = [cs.adversarial_series(1024, 16384, torch.Generator(device=card).manual_seed(
+        cs.SEED + 1000 + d))[:5] for d in range(16)]
+    x = torch.cat([a[0] for a in draws])
+    hist = torch.cat([a[1] & ~a[2] for a in draws])
+    al, be = torch.cat([a[3] for a in draws]), torch.cat([a[4] for a in draws])
+    del draws
+    kern = kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be)
+    twin = sq.des_predictions_assoc_plain(x, hist, al, be)
+    assert bool((torch.isnan(kern) == torch.isnan(twin)).all())
+    assert float(cs.scan_limit_share(kern, twin, x, hist).max()) <= 0.5
 
 
 @pytest.mark.parametrize("n", [5, 4096, 20_000])

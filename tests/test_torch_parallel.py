@@ -212,7 +212,7 @@ def test_fleet_summary_matches_the_reference_exactly(world, k, few):
     np.testing.assert_array_equal(v.numpy().view(np.int32), np.asarray(rv).view(np.int32))
 
 
-@pytest.mark.parametrize("k", [1, 5, 64, 100])
+@pytest.mark.parametrize("k", [1, 5, 32, 33, 64, 100])
 def test_fleet_topk_twin_is_a_stable_total_order_top_k(k):
     u, s = _given(B=80, seed=k)
     count, v, i = tfl.fleet_topk_plain(torch.from_numpy(s), k, torch.from_numpy(u), base=3)

@@ -183,6 +183,25 @@ def test_friedman_batch_matches_reference_and_scipy(k, B, n):
     assert chi[0] == 0.0 and p[0] == 1.0 and rp[0] == 1.0
 
 
+@pytest.mark.parametrize("k", [16, 17])
+def test_friedman_batch_about_the_warp_limit_matches_reference(k):
+    """Tables of k = kernels.WARP_FRIEDMAN_K treatments (the warp path's
+    widest) and one more (the cta path's): ties on a grid of 0.5 with -0.0
+    and +0.0, NaN in 3% of entries, masked-out blocks, a row with no block
+    and one with a single block; chi2 within 1e-5 relative of the
+    reference's (its float32 sums) and p within P_ATOL."""
+    d, bm = _tables(k + 100, 12, 9, k)
+    rng = np.random.default_rng(k)
+    z = d == 0
+    d[z] = np.where(rng.random(int(z.sum())) < 0.5, 0.0, -0.0)
+    d[rng.random(d.shape) < 0.03] = np.nan
+    chi, p = tpw.friedman_batch(d, bm, device="cpu")
+    rc, rp = _np(jpw.friedman_batch(d, bm))
+    np.testing.assert_allclose(chi.numpy(), rc, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(p.numpy(), rp, atol=P_ATOL)
+    assert chi[0] == 0.0 and p[0] == 1.0 and rp[0] == 1.0
+
+
 def test_friedman_ranks_nan_and_signed_zeros_as_rank_and_ties():
     """NaN ranks highest within a block, tied with the other NaNs; -0.0 and
     +0.0 tie: the reference's rank_and_ties order."""
