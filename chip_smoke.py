@@ -842,10 +842,14 @@ def compare_band_from_preds(x, m, region, preds, thr, mode, mlb, kern):
     return err, int((~exact).sum())
 
 
+PERIOD_WIDE_CHECK = (1025, 2048)  # candidates past kernels.TILE_CANDIDATES
+
+
 def kernels_c_to_f_vs_twin(gen):
     """Kernels C, D, E, F and band_from_preds against their twins on
     adversarial rows at T in {128, 1024, 4096, 16384}; F also on
-    period_edge_rows at each T and with MAX_CANDIDATES candidates at 4096."""
+    period_edge_rows at each T and with TILE_CANDIDATES candidates at 4096
+    (and PERIOD_WIDE_CHECK's on the tiled path)."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.ops import forecast as fc
 
@@ -892,13 +896,25 @@ def kernels_c_to_f_vs_twin(gen):
         check(bool((ke[0][torch.arange(Be, device=DEV) % 8 == 6] == 7).all()),
               "a constant span did not keep its fallback")
         if T == 4096:
-            # MAX_CANDIDATES candidates, 2 to 1025: 1,536 distinct lags
-            allc = tuple(range(2, 2 + kernels.MAX_CANDIDATES))
+            # TILE_CANDIDATES candidates, 2 to 1025: 1,536 distinct lags, the
+            # table path's most
+            allc = tuple(range(2, 2 + kernels.TILE_CANDIDATES))
             errs["detect_period_max"], _ = compare_detect_period(
                 x[:64], hist[:64], allc, fb[:64],
                 kernels.detect_period(x[:64], hist[:64],
                                       torch.tensor(allc, dtype=torch.int32, device=DEV), fb[:64],
                                       0.2, 0.05, 0.01))
+            # past it, the tiled path: 1,025 and 2,048 candidates
+            for C in PERIOD_WIDE_CHECK:
+                wide = tuple(range(2, 2 + C))
+                kernels.reset_launches()
+                got = kernels.detect_period(x[:64], hist[:64],
+                                            torch.tensor(wide, dtype=torch.int32, device=DEV),
+                                            fb[:64], 0.2, 0.05, 0.01)
+                check(kernels.period_path_launches == {"table": 0, "tiled": 1},
+                      f"detect_period with {C} candidates: {kernels.period_path_launches}")
+                errs[f"detect_period_{C}"], _ = compare_detect_period(x[:64], hist[:64], wide,
+                                                                      fb[:64], got)
         preds = torch.where(torch.isfinite(x), x, 30.0) + torch.randn((B, T), generator=gen,
                                                                        device=DEV)
         errs["band_from_preds"], bracketed = compare_band_from_preds(
@@ -1618,7 +1634,41 @@ def compare_st_fit(args, kern, plain, D):
     return max_abs_err(kp, pp), int(ill.sum())
 
 
-ST_WIDEST_C = 24  # with ST_ORDER, D = 32 = kernels.MAX_ST_D
+ST_WIDEST_C = 24  # with ST_ORDER, D = 32 = kernels.WARP_ST_D
+# past the warp path's 32 columns, kernel J's cta path, (C, order): D = 33
+# (ST_CHANGEPOINTS=25 at the engine's ST_ORDER), 47 (Prophet's published
+# defaults, n_changepoints=25 and yearly order 10), 64 and 160 (the gram in
+# device scratch)
+ST_WIDE_CHECK = ((25, ST_ORDER), (25, 10), (40, 11), (150, 4))
+ST_PROPHET_C, ST_PROPHET_ORDER = 25, 10
+
+
+def st_wide_vs_twin():
+    """Kernel J's cta path at ST_WIDE_CHECK's widths on 256 adversarial
+    rows of T = 2048 (a generator of its own: the later checks' rows do not
+    depend on it), each launched once on that path, against the twin; two
+    runs equal bit for bit."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    T, B = 2048, 256
+    args = adversarial_st(B, T, torch.Generator(device=DEV).manual_seed(SEED + 18))
+    line = []
+    for C, order in ST_WIDE_CHECK:
+        D = 2 + C + 2 * order
+        kernels.reset_launches()
+        kern = kernels.st_fit(*args, order, C, 1e-4, 3e-3, 3)
+        check(kernels.st_path_launches == {"warp": 0, "cta": 1},
+              f"st_fit at D = {D}: launches by path {kernels.st_path_launches}")
+        err, ill = compare_st_fit(args, kern, fc.fit_seasonal_trend_plain(
+            *args, order, 1e-4, C, 3e-3, 3), D)
+        again = kernels.st_fit(*args, order, C, 1e-4, 3e-3, 3)
+        check(torch.equal(kern[0], again[0]) and torch.equal(kern[1], again[1]),
+              f"st_fit at D = {D}: two runs differ")
+        line.append(f"D={D} {err:.3g} ({ill} ill-posed)")
+    torch.cuda.synchronize()
+    print(f"  st_fit's cta path, {B} rows x {T}: max |d preds| against the twin "
+          + ", ".join(line) + "; two runs equal bit for bit", flush=True)
 
 
 def kernel_j_vs_twin(gen):
@@ -1630,6 +1680,7 @@ def kernel_j_vs_twin(gen):
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.ops import forecast as fc
 
+    st_wide_vs_twin()
     bad = kernels.st_sincos_check()
     check(bad == 0, f"sincosf differs from sinf / cosf at {bad} float32 arguments")
     print(f"  sincosf against sinf and cosf on all 2^32 float32 arguments: {bad} differ "
@@ -1657,12 +1708,17 @@ def lstm_params(J, F, H, Z, gen):
     N(0, 0.1^2) (flax: zeros), in the flat layout."""
     from foremast_tpu_torch.models import lstm_ae as tl
 
-    parts = []
-    for name, shape in tl.param_shapes(F, H, Z).items():
+    shapes = tl.param_shapes(F, H, Z)
+    out = torch.empty((J, sum(math.prod(s) for s in shapes.values())), device=DEV)
+    at = 0
+    for name, shape in shapes.items():
         fan = shape[0] if len(shape) == 2 else 100.0
-        parts.append(torch.randn((J, math.prod(shape)), generator=gen, device=DEV)
-                     / math.sqrt(fan))
-    return torch.cat(parts, 1).contiguous()
+        n = math.prod(shape)
+        # one part drawn at a time, into its columns: the rows of H = 320
+        # (37 GB at 10,000 jobs) are never held twice
+        out[:, at:at + n] = torch.randn((J, n), generator=gen, device=DEV).div_(math.sqrt(fan))
+        at += n
+    return out
 
 
 def adversarial_lstm(J, K, F, H, Z, gen):
@@ -1769,8 +1825,21 @@ def kernel_k_vs_twin(gen):
         torch.cuda.synchronize()
         print(f"  lstm_ae J={J} K={K} F={F} H={H} Z={Z}: max |d err| {e:.3g}; paths "
               f"{', '.join(paths)} equal bit for bit", flush=True)
+    # past 32 metrics a job and 256 units: the wide path alone serves (its
+    # head over chunks of features); a generator of its own
+    lgen = torch.Generator(device=DEV).manual_seed(SEED + 182)
+    for J, K, F, H, Z in LSTM_LIMIT_CASES:
+        p, x, m, mu, sigma = adversarial_lstm(J, K, F, H, Z, lgen)
+        e, paths = lstm_ae_paths_agree(p, x, m, H, Z, mu, sigma)
+        check(paths == ("wide",), f"lstm_ae at F={F} H={H}: paths {paths}, not the wide alone")
+        torch.cuda.synchronize()
+        print(f"  lstm_ae past the first design's limits J={J} K={K} F={F} H={H} Z={Z}: max "
+              f"|d err| {e:.3g} on the wide path", flush=True)
 
 
+# (J, K, F, H, Z) past 32 metrics a job and 256 units
+LSTM_LIMIT_CASES = ((64, 6, 33, 32, 16), (64, 6, 40, 32, 16), (16, 4, 4, 257, 16),
+                    (16, 4, 4, 320, 64))
 LSTM_TRAIN_WS = (8, 32)  # window lengths of kernel L's check
 # kernel L's widths: K's, one whose slots are not whole float4s (H = 10:
 # the GEMM's scalar staging) and the widest its launchers take (H = Z = 256)
@@ -1941,6 +2010,34 @@ def kernels_l_m_vs_twin(gen):
                   f"grad| {g_err:.3g}, loss NaN on the NaN job on both sides; weight-gradient entry against its "
                   f"twin {w_err:.3g}; two backward runs equal bit for bit; adam bit for bit",
                   flush=True)
+    # past 32 metrics a job and 256 units: the recurrence's wide path (a
+    # generator of its own)
+    lgen = torch.Generator(device=DEV).manual_seed(SEED + 183)
+    for F, H, Z in ((33, 32, 16), (40, 32, 16), (4, 257, 16), (4, 320, 64)):
+        J, K, W = 16, 11, 8
+        p, x, m = adversarial_lstm_train(J, K, W, F, H, Z, lgen)
+        kernels.reset_launches()
+        kern = tl.loss_and_grad(p, x, m, hidden=H, latent=Z, device=DEV)
+        check(kernels.bptt_path_launches == {"group": 0, "wide": 1},
+              f"lstm_train at F={F} H={H}: recurrence launches {kernels.bptt_path_launches}")
+        with torch.enable_grad():
+            q = p.clone().requires_grad_(True)
+            pl = tl.loss_plain(q, x, m, H, Z)
+            pg, = torch.autograd.grad(pl.sum(), q)
+        g_err = compare_lstm_train(kern, (pl.detach(), pg))
+        num, cnt, act = kernels.lstm_train_forward(p, x, m, H, Z)
+        path = lstm_forward_paths_agree(p, x, m, H, Z, (num, cnt, act))
+        w_err = compare_lstm_wgrad(p, x, m, act, H, Z)
+        gpart = lstm_backward_twice(p, x, m, act, H, Z)
+        step = torch.randint(1, 40, (J,), generator=lgen, device=DEV, dtype=torch.int32)
+        compare_adam(p, 1e-3 * torch.randn(p.shape, generator=lgen, device=DEV),
+                     1e-6 * torch.rand(p.shape, generator=lgen, device=DEV), step, gpart, num,
+                     cnt)
+        torch.cuda.synchronize()
+        print(f"  lstm_train past the first design's limits F={F} H={H} Z={Z} W={W}: {J} jobs x "
+              f"{K} windows (recurrence on its wide path; forward {path}), max |d grad| "
+              f"{g_err:.3g}; weight-gradient entry against its twin {w_err:.3g}; two backward "
+              f"runs equal bit for bit; adam bit for bit", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2221,6 +2318,7 @@ def kernel_o_vs_twin(rng):
                                 close(p, pp, 0.0, P_ATOL, f"friedman n={n} k={k} p"))
         worst["friedman"] = max(worst["friedman"], friedman_paths_agree(
             d, bm, pc, pp, f"friedman n={n} k={k}")[1])
+    kernel_o_df0(np.random.default_rng(SEED + 181))
     torch.cuda.synchronize()
     print(f"  rank_and_ties T in {tuple(T for T, _ in RANK_CHECK + RANK_WARP_CHECK)}: ranks, tie "
           f"terms and counts "
@@ -2232,6 +2330,44 @@ def kernel_o_vs_twin(rng):
           f"{worst['friedman']:.3g}, each path that serves k forced, equal bit for bit",
           flush=True)
     return worst
+
+
+KRUSKAL_DF0_T = (128, 4096, 16384)  # k = 1: the warp, cta and scratch paths' shapes
+FRIEDMAN_DF0_N = (5, 128)
+
+
+def kernel_o_df0(rng):
+    """P5: Kruskal-Wallis and Friedman at one group (df = 0) on every path
+    that serves the shape: p equal to the twin's bit for bit, 0 wherever the
+    statistic is defined and 1 (the ok guard) where it is not."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    ran = []
+    for T in KRUSKAL_DF0_T:
+        g, gm = (torch.from_numpy(a).to(DEV) for a in adversarial_groups(
+            64 if T > 512 else 512, 1, T, rng))
+        _, pp = pw.kruskal_plain(g, gm)
+        check(bool(((pp == 0) | (pp == 1)).all()) and bool((pp == 0).any()),
+              f"kruskal_plain at k = 1, T = {T}: p not 0 or 1")
+        for path in kernels.KRUSKAL_PATHS:
+            if kernels.kruskal_serves(path, 1, T):
+                check(same_bits(kernels.kruskal_groups(g, gm, path=path)[1], pp),
+                      f"kruskal_groups at k = 1, T = {T}, {path} path: p differs from the twin's")
+                ran.append(f"kruskal T={T} {path}")
+    for n in FRIEDMAN_DF0_N:
+        d, bm = (torch.from_numpy(a).to(DEV) for a in adversarial_friedman(257, n, 1, rng))
+        _, pp = pw.friedman_plain(d, bm)
+        check(bool(((pp == 0) | (pp == 1)).all()) and bool((pp == 0).any()),
+              f"friedman_plain at k = 1, n = {n}: p not 0 or 1")
+        for path in kernels.FRIEDMAN_PATHS:
+            if kernels.friedman_serves(path, n, 1):
+                check(same_bits(kernels.friedman(d, bm, path=path)[1], pp),
+                      f"friedman at k = 1, n = {n}, {path} path: p differs from the twin's")
+                ran.append(f"friedman n={n} {path}")
+    torch.cuda.synchronize()
+    print(f"  P5, one group (df = 0): p = 0 where the statistic is defined, 1 where not, equal "
+          f"to the twin's on {', '.join(ran)}", flush=True)
 
 
 def adversarial_topk(n, rng):
@@ -2933,7 +3069,7 @@ def hpa_bound(tps_mask, region, sla_mask, sigma_given=False):
 ST_D = 2 + ST_CHANGEPOINTS + 2 * ST_ORDER
 
 
-def st_bound(B, T, n_fit):
+def st_bound(B, T, n_fit, D=ST_D):
     """Least time of kernel J's work: each input read once (value, mask,
     fit mask, period) and each output written once (preds, beta), against
     its multiply-adds, (D + 1)(D + 2) / 2 - 1 per fitted slot for the
@@ -2941,8 +3077,8 @@ def st_bound(B, T, n_fit):
     gram is a float64 matrix product, which the tensor cores run at 67
     TFLOP/s, the fp32 rate outside them; preds are float32 in the
     reference."""
-    ne = (ST_D + 1) * (ST_D + 2) // 2 - 1
-    return least_time(B * T * 10 + B * (4 + 4 * ST_D), ne * n_fit + ST_D * B * T)
+    ne = (D + 1) * (D + 2) // 2 - 1
+    return least_time(B * T * 10 + B * (4 + 4 * D), ne * n_fit + D * B * T)
 
 
 def cholesky_ms(x, mask, fit, period):
@@ -3171,6 +3307,8 @@ def seasonal_path(gen):
           f"{hw_row['ms']:.3f} ms, bound {hw_row['bound_ms']:.3f} ms ({hw_row['bound_by']}, 9 B a "
           f"slot), plain twin {hw_row['plain_ms']:.1f} ms, max |err| against the twin "
           f"{hw_row['max_abs_err']:.3g}", flush=True)
+    prophet = st_prophet_leg(args, st, c)
+    c2048 = period_wide_leg(x, hist)
     # kernel G on the same rows, 7 days of history (bucket 16384)
     g = triage_beside_band(args, "seasonal", SEASON_RUNS)
     result = {}
@@ -3182,7 +3320,91 @@ def seasonal_path(gen):
               f"against the twin {err:.3g}, launches on the path {launches[name]}", flush=True)
     result["smooth_hw"] = hw_row
     result["ma_band"] = ma_row
+    result["st_fit"]["d47"] = prophet
+    result["detect_period"]["c2048"] = c2048
     return result, g
+
+
+PERIOD_WIDE_ROWS = 10_000  # the seasonal rows kernel F's tiled path is timed on
+
+
+def period_wide_leg(x, hist):
+    """Kernel F's tiled path on the first PERIOD_WIDE_ROWS seasonal rows
+    (cut for time) with PERIOD_WIDE_CHECK[-1] candidates (2 to 2049):
+    launched once on that path, its time beside its bound, against the twin
+    on 64 rows and the twin's time on them."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    C = PERIOD_WIDE_CHECK[-1]
+    cands = tuple(range(2, 2 + C))
+    rows = PERIOD_WIDE_ROWS
+    xs, hs = x[:rows], hist[:rows]
+    ct = torch.tensor(cands, dtype=torch.int32, device=DEV)
+    fb = torch.full((rows,), 7, dtype=torch.int32, device=DEV)
+    kernels.reset_launches()
+    kernels.detect_period(xs, hs, ct, fb, 0.2, 0.05, 0.01)
+    torch.cuda.synchronize()
+    check(kernels.period_path_launches == {"table": 0, "tiled": 1},
+          f"detect_period with {C} candidates: {kernels.period_path_launches}")
+    ms = cuda_ms(lambda: kernels.detect_period(xs, hs, ct, fb, 0.2, 0.05, 0.01), 2)
+    err, near = compare_detect_period(xs[:64], hs[:64], cands, fb[:64], kernels.detect_period(
+        xs[:64], hs[:64], ct, fb[:64], 0.2, 0.05, 0.01))
+    plain_ms = cuda_ms(lambda: fc.detect_period_plain(xs[:64], hs[:64], cands, fb[:64], 0.2),
+                       1, warm=False)
+    bound = period_bound(hs, cands)
+    print(f"  detect_period's tiled path, {C} candidates on {rows} rows x {x.shape[1]}: kernel "
+          f"{ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}); against the "
+          f"twin on 64 rows: max |d score| {err:.3g}, {near} bracketed, the twin "
+          f"{plain_ms:.1f} ms on those rows", flush=True)
+    return {"C": C, "rows": rows, "path": "tiled", "launches": 1, "ms": ms, "max_abs_err": err,
+            "plain_ms": plain_ms, "plain_rows": 64, **bound}
+
+
+def st_prophet_leg(args, st, c):
+    """Prophet's published defaults (ST_PROPHET_C changepoints, order
+    ST_PROPHET_ORDER: D = 47, kernel J's cta path) on the seasonal phase's
+    rows: forecast_band under seasonal_trend once (kernel J launched once, on
+    the cta path; sigma and the valid slots' predictions finite) and its
+    wall time (median of 2); kernel J alone on the rows with F's periods
+    (st) beside its bound; against the twin on the first c rows, and the
+    twin's time on those rows. Returns the leg's record."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import forecast as fc
+
+    C, order = ST_PROPHET_C, ST_PROPHET_ORDER
+    D = 2 + C + 2 * order
+    x, mask = args[:2]
+    B, T = x.shape
+
+    def band():
+        return fc.forecast_band(*args, algorithm="seasonal_trend", st_order=order,
+                                st_changepoints=C, device=DEV)
+
+    kernels.reset_launches()
+    out = band()
+    torch.cuda.synchronize()
+    check(kernels.launches["st_fit"] == 1 and kernels.st_path_launches["cta"] == 1,
+          f"seasonal_trend at D = {D}: st_fit launches {kernels.st_path_launches}")
+    check(bool(torch.isfinite(out["sigma"]).all()) and bool(torch.isfinite(out["preds"][mask]).all()),
+          f"seasonal_trend at D = {D}: sigma or predictions not finite")
+    del out
+    e2e = wall_ms(band, 2)
+    sub = tuple(a[:c] for a in st)
+    kern = kernels.st_fit(*sub, order, C, 1e-4, 3e-3, 3)
+    plain_ms = cuda_ms(lambda: fc.fit_seasonal_trend_plain(*sub, order, 1e-4, C, 3e-3, 3), 1,
+                       warm=False)
+    err, ill = compare_st_fit(sub, kern, fc.fit_seasonal_trend_plain(*sub, order, 1e-4, C, 3e-3,
+                                                                      3), D)
+    ms = cuda_ms(lambda: kernels.st_fit(*st, order, C, 1e-4, 3e-3, 3), 2)
+    bound = st_bound(B, T, int((st[1] & st[2]).sum()), D)
+    print(f"  seasonal_trend at Prophet's defaults ({C} changepoints, order {order}: D = {D}, "
+          f"kernel J's cta path), {B} rows x {T}: forecast_band median {np.median(e2e):.3f} ms "
+          f"of 2; st_fit alone {ms:.3f} ms (bound {bound['bound_ms']:.3f} ms, "
+          f"{bound['bound_by']}); against the twin on {c} rows: max |d preds| {err:.3g}, {ill} "
+          f"ill-posed, the twin {plain_ms:.1f} ms on those rows", flush=True)
+    return {"D": D, "path": "cta", "launches": 1, "ms": ms, "band_ms": float(np.median(e2e)),
+            "max_abs_err": err, "plain_ms_rows": c, "plain_ms": plain_ms, **bound}
 
 
 def smooth_hw_row(refit, launches):
@@ -3904,7 +4126,7 @@ def lstm_train_path(gen):
     J = LSTM_TRAIN_JOBS
     x, m = lstm_day_windows(J, gen)
     K = x.shape[1]
-    KB, nkb = kernels.lstm_train_blocks(K, F)
+    KB, nkb = kernels.lstm_train_blocks(K, F, H, Z)
     hist = []
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -4026,6 +4248,112 @@ def lstm_train_path(gen):
          **b["wgrad"]},
         {"name": "adam", "launches": launches["adam"], "max_abs_err": adam_err, "ms": adam_ms,
          "plain_ms": plain_adam, "library_ms": lib_ms, **b["adam"]}]
+
+
+# past the first designs' limits: kernel K's scoring pass at F = 40 (100,000
+# jobs x 2 windows, the engine's H = 32) and at H = 320 (10,000 x 2, Z = 64),
+# then train_fleet (kernels L and M) over 1,024 jobs x 45 windows x 40
+# metrics at H = 32 and over 256 jobs at H = 320 (F = 4), LSTM_LIMIT_EPOCHS
+# epochs each (the plateau needs 10)
+LSTM_LIMIT_SCORE = ((100_000, 40, 32, 16), (10_000, 4, 320, 64))  # (J, F, H, Z), 2 windows
+LSTM_LIMIT_TRAIN = ((1_024, 40, 32, 16), (256, 4, 320, 64))  # (J, F, H, Z), 45 windows
+LSTM_LIMIT_EPOCHS = 2
+LSTM_LIMIT_TWIN_JOBS = 1_000  # the twins' time is taken on this many jobs
+
+
+def lstm_limits_path():
+    """Phase `lstm`, past 32 metrics a job and 256 units, on seeded windows
+    and parameters (a generator of its own): each scoring leg through
+    anomaly_scores_fleet (kernel K launched once, on the wide path; its
+    wall time, the kernel alone beside its bound, the twin on
+    LSTM_LIMIT_TWIN_JOBS jobs, against the twin on CHECK_ROWS // 8 jobs);
+    each training leg through train_fleet (L's recurrence on its wide path
+    each epoch; the wall time an epoch, one epoch's entries alone beside
+    their bounds; losses finite). Returns the legs' records."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 184)
+    n = CHECK_ROWS // 8
+    legs = {"score": [], "train": []}
+    for J, F, H, Z in LSTM_LIMIT_SCORE:
+        p, x, m, mu, sigma = adversarial_lstm(J, 2, F, H, Z, gen)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        z = tl.anomaly_scores_fleet(p, x, m, mu, sigma, hidden=H, latent=Z, device=DEV)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        by_path = lstm_path_launches(2, F, H, Z, f"the scoring pass at F={F} H={H}")
+        check(by_path["path"] == "wide", f"the scoring pass at F={F} H={H} took the "
+                                         f"{by_path['path']} path")
+        err = compare_lstm(kernels.lstm_ae(p[:n], x[:n], m[:n], H, Z, mu[:n], sigma[:n]),
+                           tl.reconstruction_errors_plain(p[:n], x[:n], m[:n], H, Z, mu[:n],
+                                                          sigma[:n]), sigma[:n])
+        check(bool(torch.isfinite(z[m.flatten(2).any(2)]).all()),
+              f"the scoring pass at F={F} H={H}: z not finite")
+        ms = cuda_ms(lambda: kernels.lstm_ae(p, x, m, H, Z, mu, sigma), 2)
+        t = LSTM_LIMIT_TWIN_JOBS
+        plain = chunked_ms(lambda s: tl.reconstruction_errors_plain(
+            p[s], x[s], m[s], H, Z, mu[s], sigma[s]), t, rows=t)
+        b = lstm_bound(J, 2, F, H, Z)
+        legs["score"].append({"shape": f"{J} x 2, F={F} H={H} Z={Z}", **by_path, "ms": ms,
+                              "wall_ms": wall, "max_abs_err": err,
+                              "plain_ms": plain, "plain_jobs": t, **b})
+        print(f"  lstm_ae past the first design's limits, {J} jobs x 2 windows, F={F} H={H} "
+              f"Z={Z} (parameters {p.numel() * 4 / 1e9:.2f} GB): anomaly_scores_fleet "
+              f"{wall:.3f} ms (its first call), kernel {ms:.3f} ms ({by_path['path']} path), bound "
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']}), twin {plain:.1f} ms on {t} jobs; vs "
+              f"twin on {n} jobs: max |d err| {err:.3g}", flush=True)
+        del p, x, m, mu, sigma, z
+        torch.cuda.empty_cache()
+    for J, F, H, Z in LSTM_LIMIT_TRAIN:
+        K, W = LSTM_DAY // LSTM_W, LSTM_W
+        x = torch.randn((J, K, W, F), generator=gen, device=DEV)
+        m = torch.rand((J, K, W, F), generator=gen, device=DEV) > 0.03
+        hist = []
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, mu, sd = tl.train_fleet(x, m, hidden=H, latent=Z, epochs=LSTM_LIMIT_EPOCHS,
+                                        device=DEV, history=hist)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        E = len(hist)
+        check(E == LSTM_LIMIT_EPOCHS and kernels.bptt_path_launches == {"group": 0, "wide": E},
+              f"train_fleet at F={F} H={H}: {E} epochs, recurrence launches "
+              f"{kernels.bptt_path_launches}")
+        check(all(math.isfinite(float(h)) for h in hist) and bool(torch.isfinite(params).all()),
+              f"train_fleet at F={F} H={H}: a loss or a parameter not finite")
+        num, cnt, act0 = kernels.lstm_train_forward(params, x, m, H, Z)
+        fwd_ms = cuda_ms(lambda: kernels.lstm_train_forward(params, x, m, H, Z), 2)
+        act = torch.empty_like(act0)
+        rec_ms = cuda_ms_fresh(lambda: kernels.lstm_train_recurrence(params, x, m, act, H, Z),
+                               lambda: act.copy_(act0), 2)
+        act.copy_(act0)
+        rec = kernels.lstm_train_recurrence(params, x, m, act, H, Z)
+        wg_ms = cuda_ms(lambda: kernels.lstm_train_wgrad(params, x, m, act, rec, H, Z), 2)
+        del act, rec, act0
+        nkb = kernels.lstm_train_blocks(K, F, H, Z)[1]
+        b = lstm_train_bounds(J, K, W, F, H, Z, nkb)
+        legs["train"].append({
+            "shape": f"{J} x {K} x {W}, F={F} H={H} Z={Z}", "epochs": E,
+            "epoch_ms": wall / E * 1e3, "forward_ms": fwd_ms, "recurrence_ms": rec_ms,
+            "wgrad_ms": wg_ms, "forward_bound_ms": b["forward"]["bound_ms"],
+            "recurrence_bound_ms": b["recurrence"]["bound_ms"],
+            "wgrad_bound_ms": b["wgrad"]["bound_ms"], "bound_by": b["backward"]["bound_by"],
+            "recurrence_path": "wide"})
+        print(f"  train_fleet past the first design's limits, {J} jobs x {K} windows x {W} steps, "
+              f"F={F} H={H} Z={Z}: {wall:.3f} s for {E} epochs ({wall / E * 1e3:.1f} ms an "
+              f"epoch), loss {float(hist[0]):.5f} -> {float(hist[-1]):.5f}; one epoch: "
+              f"lstm_train_forward {fwd_ms:.3f} ms ({kernels.lstm_train_forward_path(K, F, H, Z)} "
+              f"path; bound {b['forward']['bound_ms']:.3f} ms, {b['forward']['bound_by']}), "
+              f"lstm_train_recurrence {rec_ms:.3f} ms (wide path; its share of the backward's "
+              f"bound {b['recurrence']['bound_ms']:.3f} ms, {b['backward']['bound_by']}), "
+              f"lstm_train_wgrad {wg_ms:.3f} ms (its share {b['wgrad']['bound_ms']:.3f} ms)",
+              flush=True)
+        del x, m, params, mu, sd
+        torch.cuda.empty_cache()
+    return legs
 
 
 # ---------------------------------------------------------------------------
@@ -4244,10 +4572,10 @@ def idle_split(prof):
 
 
 def engine_arm(fleet, triage, profile_cycle=None, algorithm="moving_average_all",
-               cycles=ENGINE_CYCLES):
+               cycles=ENGINE_CYCLES, **cfg):
     """The fleet through the port's Analyzer on the card, `cycles` cycles
     under the default EngineConfig (triage on or off; ML_ALGORITHM
-    `algorithm`). Per cycle:
+    `algorithm`; other fields from cfg). Per cycle:
     wall, stages, kernel launches (counts reset just before the cycle, read
     just after), the analyzer's launches per family, triage rows, kernel
     builds, the verdict digest, the hpa_score series by app, and the idle
@@ -4265,7 +4593,7 @@ def engine_arm(fleet, triage, profile_cycle=None, algorithm="moving_average_all"
     for doc in fleet["docs"]():
         store.create(doc)
     src = RawFixtureDataSource(keep_urls=False)
-    an = Analyzer(EngineConfig(triage=triage, algorithm=algorithm), src, store,
+    an = Analyzer(EngineConfig(triage=triage, algorithm=algorithm, **cfg), src, store,
                   VerdictExporter(), device=DEV)
     n_cycles, cycles = cycles, []
     for c in range(n_cycles):
@@ -4286,7 +4614,8 @@ def engine_arm(fleet, triage, profile_cycle=None, algorithm="moving_average_all"
         st = an.last_cycle_stages
         cycles.append({
             "wall_s": wall, "jobs": st["jobs"], "stages": st["stage_seconds"],
-            "launches": dict(kernels.launches), "device_launches": an.device_launches - d0,
+            "launches": dict(kernels.launches), "st_paths": dict(kernels.st_path_launches),
+            "device_launches": an.device_launches - d0,
             "triage_launches": an.triage_launches_total - tl0, "triage": st["triage"],
             "builds": build.builds - builds, "digest": verdict_digest(store),
             "idle": idle_split(prof) if prof is not None else None,
@@ -4491,24 +4820,34 @@ def engine_path(rng):
           f"the twin {err:.3g}; {launches} launches in the {ENGINE_CYCLES} cycles", flush=True)
     family = {k: sum(r["launches"][k] for r in cycles) for k in ("bivariate", "hpa_score")}
     engine_seasonal_trend(fleet, args)
+    engine_seasonal_trend(fleet, args, ENGINE_WIDE_CHANGEPOINTS)
     return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **bound}, family
 
 
-def engine_seasonal_trend(fleet, band_args):
-    """One cycle of the fleet under ML_ALGORITHM=seasonal_trend: the band
-    family runs kernels F, J and B's band_from_preds. Every shifted monitor
-    unhealthy, healthy monitors flagged under 1%, no job failing scoring;
-    then kernel J against its twin on the rows the engine packs, each with
-    the period kernel F gives it."""
+ENGINE_WIDE_CHANGEPOINTS = 25  # ST_CHANGEPOINTS=25: D = 33, kernel J's cta path
+
+
+def engine_seasonal_trend(fleet, band_args, changepoints=ST_CHANGEPOINTS):
+    """One cycle of the fleet under ML_ALGORITHM=seasonal_trend with
+    ST_CHANGEPOINTS=changepoints: the band family runs kernels F, J (on the
+    path kernels.st_path names for its D) and B's band_from_preds. Every
+    shifted monitor unhealthy, healthy monitors flagged under 1%, no job
+    failing scoring; then kernel J against its twin on the rows the engine
+    packs, each with the period kernel F gives it."""
     from foremast_tpu_torch import kernels
     from foremast_tpu_torch.engine import jobs as J
     from foremast_tpu_torch.ops import forecast as fc
 
-    _, store, cycles = engine_arm(fleet, triage=True, algorithm="seasonal_trend", cycles=1)
+    _, store, cycles = engine_arm(fleet, triage=True, algorithm="seasonal_trend", cycles=1,
+                                  st_changepoints=changepoints)
     rec = cycles[0]
+    D = 2 + changepoints + 2 * ST_ORDER
     for k in ("detect_period", "st_fit", "band_from_preds"):
         check(rec["launches"][k] >= 1, f"the seasonal_trend cycle launched no {k}")
+    path = kernels.st_path(D)
+    check(rec["st_paths"][path] == rec["launches"]["st_fit"],
+          f"the seasonal_trend cycle at D = {D}: st_fit launches by path {rec['st_paths']}")
     docs = store.by_status(*J.OPEN_STATUSES, *J.TERMINAL_STATUSES)
     status = {d.id: d.status for d in docs}
     failed = [d.id for d in docs if d.reason.startswith("scoring failed")
@@ -4528,10 +4867,11 @@ def engine_seasonal_trend(fleet, band_args):
     cand = torch.tensor(PERIOD_CANDIDATES, dtype=torch.int32, device=DEV)
     period, _ = kernels.detect_period(x, hist, cand, fb, 0.2, 0.05, 0.01)
     st = (x, hist, hist, period)
-    err, ill = compare_st_fit(st, kernels.st_fit(*st, ST_ORDER, ST_CHANGEPOINTS, 1e-4, 3e-3, 3),
-                              fc.fit_seasonal_trend_plain(*st, ST_ORDER, 1e-4, ST_CHANGEPOINTS,
-                                                          3e-3, 3), ST_D)
-    print(f"  seasonal_trend cycle: {rec['jobs']} jobs in {rec['wall_s']:.3f} s; kernel "
+    err, ill = compare_st_fit(st, kernels.st_fit(*st, ST_ORDER, changepoints, 1e-4, 3e-3, 3),
+                              fc.fit_seasonal_trend_plain(*st, ST_ORDER, 1e-4, changepoints,
+                                                          3e-3, 3), D)
+    print(f"  seasonal_trend cycle, ST_CHANGEPOINTS={changepoints} (D = {D}, st_fit's {path} "
+          f"path): {rec['jobs']} jobs in {rec['wall_s']:.3f} s; kernel "
           f"launches { {k: v for k, v in rec['launches'].items() if v} }; "
           f"{len(fleet['shifted'])} shifted monitors unhealthy, healthy monitors flagged "
           f"{flagged} of {len(healthy)} ({share:.5f}, limit 0.01); st_fit at the engine's shape "
@@ -4541,6 +4881,7 @@ def engine_seasonal_trend(fleet, band_args):
 
 ENGINE_LSTM_JOBS, ENGINE_LSTM_APPS = 575, 32  # bench_cycle's 5% of 11,500, lstm_doc's apps
 ENGINE_LSTM_METRICS = ("latency", "cpu", "tps")
+ENGINE_LSTM_WIDE = 40  # metrics of the fleet's one wide job
 # how far a job's z may move between the card and the twins (kernels L, M
 # and K against autograd and the twin's sums in other orders, through 30
 # epochs of training): a verdict may differ only within this of
@@ -4582,6 +4923,19 @@ def engine_lstm_fleet(rng):
             pages[uh], pages[uc] = _prom_body(pts[:nh]), _prom_body(pts[nh:])
             metrics[name] = MetricQueries(current=uc, historical=uh)
         docs.append((jid, f"lstm-app-{i % ENGINE_LSTM_APPS}", metrics))
+    # one job of ENGINE_LSTM_WIDE metrics (past the 32 a warp's lanes hold):
+    # the three kinds' levels and noise in turn, on an app of its own
+    jid, metrics = "lstm-wide", {}
+    load = 1 + 0.5 * np.sin(2 * np.pi * t / 1440 + phase[0])
+    for k in range(ENGINE_LSTM_WIDE):
+        level = rng.uniform(10, 100)
+        v = level * (1 + 0.3 * (k % 3) * (load - 1)) * (1 + 0.05 * rng.standard_normal(n))
+        ts = ENGINE_T0 + STEP * t + rng.uniform(0, 5, n)
+        pts = _prom_points(ts, v, rng.random(n) > 0.05)
+        uh, uc = (f"http://prometheus/q/{jid}/m{k:02d}/{r}" for r in ("h", "c"))
+        pages[uh], pages[uc] = _prom_body(pts[:nh]), _prom_body(pts[nh:])
+        metrics[f"m{k:02d}"] = MetricQueries(current=uc, historical=uh)
+    docs.append((jid, "lstm-app-wide", metrics))
 
     def make_docs():
         return [Document(id=jid, app_name=app, namespace="smoke", strategy="continuous",
@@ -4634,7 +4988,9 @@ def engine_lstm_arm(fleet, device):
         cycles.append({"wall_s": wall, "trained": an._lstm_trained_this_cycle,
                        "train_s": tr1 - tr0, "jobs": an.last_cycle_stages["jobs"],
                        "skips": len(an._lstm_budget_skipped_ids),
-                       "launches": {k: v for k, v in kernels.launches.items() if v}})
+                       "launches": {k: v for k, v in kernels.launches.items() if v},
+                       "wide": (kernels.bptt_path_launches["wide"],
+                                kernels.lstm_ae_path_launches["wide"])})
         if an._lstm_trained_this_cycle == 0:
             break
     return store, cycles, zs, judged
@@ -4653,7 +5009,8 @@ def engine_lstm(rng):
 
     t0 = time.perf_counter()
     fleet = engine_lstm_fleet(rng)
-    print(f"  engine_lstm: {ENGINE_LSTM_JOBS} three-metric jobs over {ENGINE_LSTM_APPS} apps as "
+    print(f"  engine_lstm: {ENGINE_LSTM_JOBS} three-metric jobs over {ENGINE_LSTM_APPS} apps and one "
+          f"of {ENGINE_LSTM_WIDE} metrics as "
           f"query_range bodies, made in {time.perf_counter() - t0:.1f} s; "
           f"{len(fleet['anomalous'])} with a joint anomaly", flush=True)
     thr = EngineConfig().lstm_threshold
@@ -4694,6 +5051,11 @@ def engine_lstm(rng):
             for k in ("lstm_train_forward", "lstm_train_recurrence", "lstm_train_wgrad", "adam",
                       "lstm_ae"):
                 check(total.get(k, 0) >= 1, f"engine_lstm on the card launched no {k}")
+            wide = [sum(rec["wide"][i] for rec in cycles) for i in (0, 1)]
+            check(min(wide) >= 1, f"engine_lstm on the card: the {ENGINE_LSTM_WIDE}-metric job "
+                                  f"took no wide path (recurrence, scoring: {wide})")
+            print(f"  engine_lstm on the card: the {ENGINE_LSTM_WIDE}-metric job's launches on "
+                  f"the wide paths: recurrence {wide[0]}, scoring {wide[1]}", flush=True)
             card_launches = total
     (st_k, z_k), (st_c, z_c) = runs[DEV], runs["cpu"]
     edge = {j for j in z_k if min(abs(z_k[j] - thr), abs(z_c[j] - thr)) <= ENGINE_LSTM_DRIFT}
@@ -4773,6 +5135,9 @@ def main() -> int:
     phase("lstm")
     k = lstm_path(gen)
     lm = lstm_train_path(gen)
+    limits = lstm_limits_path()
+    k["limits"] = limits["score"]
+    lm[1]["limits"] = limits["train"]
     phase("engine")
     g, engine_launches = engine_path(rng)
     lstm_launches = engine_lstm(rng)
@@ -4866,7 +5231,7 @@ def main() -> int:
     # the time of each of its four battery launches; kernel P's its first
     # design's time, its two launches' floor and a call's time from the host
     extra = ("paths", "path", "T", "t16384", "battery_ms", "chunked_ms", "launch_floor_ms",
-             "host_ms")
+             "host_ms", "limits", "d47", "c2048")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(e for e in extra if e in r)}
                                   for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -179,9 +179,11 @@ __device__ inline GroupStats sorted_group_stats(const uint64_t* keys, int nvalid
 // of P(a, x) below x = a + 1 (Q = 1 - P), Lentz's continued fraction of Q
 // above it (Numerical Recipes, 6.2). Both stop at a relative term of 1e-16,
 // within 1000 steps for the a of any chi-square df a launch takes. Q = 1
-// at x <= 0, 0 at x = +inf; NaN stays NaN.
+// at x <= 0, 0 at x = +inf; NaN stays NaN. At a = 0 (a chi-square of df =
+// 0, a point mass at 0) Q is 0 for every x >= 0.
 __device__ inline double gammaincc(double a, double x) {
   if (x != x) return x;
+  if (a == 0.0) return 0.0;
   if (x <= 0.0) return 1.0;
   if (x > 1.0e300) return 0.0;
   const double front = exp(a * log(x) - x - lgamma(a));

@@ -45,11 +45,12 @@
 //     projection runs while it completes. The latents are spread over the
 //     cluster; the head runs after the decoder over the kept history, its
 //     squared errors gathered into CTA 0 and summed there in step order.
-//   - The wide path (`lstm_ae_kernel`, the first design, any width the
-//     launcher takes): a CTA of kLstmThreads threads runs up to KB windows
-//     of one job (grid J x ceil(K / KB)), their steps in lock step
-//     (lstm_step), the parameters in shared memory while they fit, else
-//     read through L1 and L2; two barriers a step.
+//   - The wide path (`lstm_ae_kernel`, the first design, any width): a CTA
+//     of kLstmThreads threads runs up to KB windows of one job (grid J x
+//     ceil(K / KB)), their steps in lock step (lstm_step), the parameters in
+//     shared memory while they fit, else read through L1 and L2; two
+//     barriers a step. Its head loops over the (window, feature) pairs, so
+//     any F runs; it is the only path past 256 units.
 // Full float32 FMA-free arithmetic (-fmad=false, as the library builds),
 // expf / tanhf (never the fast intrinsics), no tensor cores.
 //
@@ -177,13 +178,13 @@ __global__ void __launch_bounds__(kLstmThreads) lstm_ae_kernel(LstmArgs a, int s
   __syncthreads();
   clk.mark(2);
 
-  // the decoder and the head; thread i < nk F keeps window i / F, feature
-  // i % F (nk F <= blockDim: the launcher's KB keeps it so)
-  const int kf = tid < nk * F ? tid : -1;
-  double se = 0.0, cnt = 0.0;
+  // the decoder and the head; thread i keeps (window, feature) pairs kf =
+  // i, i + blockDim, ..., each pair's squared errors and count summed in
+  // step order in part
+  for (int kf = tid; kf < nk * F; kf += blockDim.x) part[2 * kf] = part[2 * kf + 1] = 0.0;
   for (int t = 0; t < W; ++t) {
     lstm_step(nullptr, 0, nullptr, dz, l.wh_d, l.b_d, h, c, gates, nk, H);
-    if (kf >= 0) {
+    for (int kf = tid; kf < nk * F; kf += blockDim.x) {
       const int k = kf / F, f = kf - k * F;
       float acc = 0.0f;
       for (int j = 0; j < H; ++j) acc += h[k * H + j] * l.w1[j * F + f];
@@ -191,14 +192,10 @@ __global__ void __launch_bounds__(kLstmThreads) lstm_ae_kernel(LstmArgs a, int s
       const size_t at = ((win0 + size_t(k) * W) + t) * F + f;
       if (a.mask[at]) {
         const float d = r - a.x[at];
-        se += double(d * d);
-        cnt += 1.0;
+        part[2 * kf] += double(d * d);
+        part[2 * kf + 1] += 1.0;
       }
     }
-  }
-  if (kf >= 0) {
-    part[2 * kf] = se;
-    part[2 * kf + 1] = cnt;
   }
   __syncthreads();
   clk.mark(3);
@@ -946,7 +943,7 @@ extern "C" int fm_lstm_ae(const float* params, long long P, const float* x, cons
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 0) {
-    if (KB < 1 || KB * F > fm::kLstmThreads) return int(cudaErrorInvalidValue);
+    if (KB < 1) return int(cudaErrorInvalidValue);
     const int nkb = (K + KB - 1) / KB;
     fm::LstmArgs a{params, P, x, mask, mu, sigma, J, K, W, F, H, Z, KB, nkb, 0, 0, err, z,
                    clocks};

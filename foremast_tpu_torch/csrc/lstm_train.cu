@@ -47,6 +47,10 @@
 //      decoder is fed z at every step), the encoder's last h, Dense_1's
 //      gradient summed over the steps, and the encoder's input [x, m] as
 //      floats.
+//      Where a group's warps cannot hold the units (H > 256) or a warp's
+//      lanes the features (F > 32), the wide path (`lstm_bptt_wide_kernel`,
+//      kernels.lstm_bptt_path): a CTA a window, threads striding units and
+//      features, the same records and rewritten slots, not tuned.
 //   2. The weight gradients (`lstm_wgrad_kernel`): per job and LSTM, a
 //      tiled float32 GEMM over the K W rewritten slots, dWh = sum h_{t-1}^T
 //      da_t, with the encoder's rows extended by [x_t, m_t, 1] for its input
@@ -193,13 +197,13 @@ __global__ void __launch_bounds__(kTrainThreads) lstm_train_fwd_kernel(TrainArgs
   __syncthreads();
   cyc[3] = clock64();
 
-  // thread i < nk F keeps window i / F, feature i % F (nk F <= blockDim)
-  const int kf = tid < nk * F ? tid : -1;
-  double se = 0.0, n = 0.0;
+  // the head: thread i keeps (window, feature) pairs kf = i, i + blockDim,
+  // ..., each pair's squared errors and count summed in step order in part
+  for (int kf = tid; kf < nk * F; kf += blockDim.x) part[2 * kf] = part[2 * kf + 1] = 0.0;
   for (int t = 0; t < W; ++t) {
     lstm_step(nullptr, 0, nullptr, dz, l.wh_d, l.b_d, h, c, gates, nk, H,
               act + (W + t) * step, stride);
-    if (kf >= 0) {
+    for (int kf = tid; kf < nk * F; kf += blockDim.x) {
       const int k = kf / F, f = kf - k * F;
       float acc = 0.0f;
       for (int j = 0; j < H; ++j) acc += h[k * H + j] * l.w1[j * F + f];
@@ -207,14 +211,10 @@ __global__ void __launch_bounds__(kTrainThreads) lstm_train_fwd_kernel(TrainArgs
       const size_t at = ((win0 + size_t(k)) * W + t) * F + f;
       if (a.mask[at]) {
         const float d = r - a.x[at];
-        se += double(d * d);
-        n += 1.0;
+        part[2 * kf] += double(d * d);
+        part[2 * kf + 1] += 1.0;
       }
     }
-  }
-  if (kf >= 0) {
-    part[2 * kf] = se;
-    part[2 * kf + 1] = n;
   }
   __syncthreads();
   cyc[4] = clock64();
@@ -903,6 +903,157 @@ __global__ void __launch_bounds__(kBpttThreads, 2) lstm_bptt_kernel(BpttArgs a, 
 }
 
 // ---------------------------------------------------------------------------
+// Backward, entry 1, the wide path: a CTA a window, any F and H
+// ---------------------------------------------------------------------------
+// Where the group path does not serve (more than kBpttThreads / 32 warps of
+// units, or more features than a warp's lanes): kBpttWideThreads threads
+// stride the window's units (thread u % blockDim owns unit u: its dh, dc,
+// its slots' entries and its rows of Dense_1's gradient) and its features
+// (thread f % blockDim: the head's error and Dense_1's bias gradient). The
+// same records and rewritten slots as the group path, summed in other
+// orders (held to the twin, not to the group path's bits). The head's
+// products and Dense_1's kernel gradient go through the record in device
+// memory, the state through shared memory: three barriers a step. Not
+// tuned: each unit's row of Wh is read from device memory (L2) each step.
+constexpr int kBpttWideThreads = 256;
+
+// shared floats: da (4H), the decoder's sum of da (4H), h_t, dh, dc and the
+// encoder's last h (H each), the head's errors (F), the latent's gradient (Z)
+__host__ __device__ inline int bptt_wide_floats(int F, int H, int Z) {
+  return 8 * H + 4 * H + F + Z;
+}
+
+__device__ void bptt_wide_steps(bool decoder, const float* wh, const LstmLayout& l,
+                                float* act, const float* xw, const uint8_t* mw, int W, int F,
+                                int H, float* da, float* ddz, float* hs, float* dh, float* dc,
+                                float* df, float* rec, const RecLayout& rl) {
+  const int tid = threadIdx.x, nt = blockDim.x, G = 4 * H;
+  const size_t step = size_t(5) * H;
+  for (int t = W - 1; t >= 0; --t) {
+    float* s = act + t * step;
+    if (decoder) {
+      // h_t, then the head's errors 2 (r - x) at valid slots
+      for (int u = tid; u < H; u += nt) hs[u] = s[3 * H + u] * tanhf(s[4 * H + u]);
+      __syncthreads();
+      for (int f = tid; f < F; f += nt) {
+        float acc = 0.0f;
+        for (int u = 0; u < H; ++u) acc = fmaf(hs[u], l.w1[u * F + f], acc);
+        const float r = acc + l.b1[f];
+        const float d = mw[t * F + f] ? 2.0f * (r - xw[t * F + f]) : 0.0f;
+        df[f] = d;
+        rec[rl.db1 + f] += d;
+      }
+      __syncthreads();
+    }
+    for (int u = tid; u < H; u += nt) {
+      const float ig = s[u], fg = s[H + u], gg = s[2 * H + u], og = s[3 * H + u];
+      const float tc = tanhf(s[4 * H + u]);
+      const float cp = t >= 1 ? (s - step)[4 * H + u] : 0.0f;
+      const float op = t >= 1 ? (s - step)[3 * H + u] : 0.0f;
+      const float hp = op * tanhf(cp);
+      float dhu = dh[u];
+      if (decoder) {
+        const float h = hs[u];
+        float* dw1 = rec + rl.dw1 + size_t(u) * F;
+        for (int f = 0; f < F; ++f) {
+          dhu = fmaf(df[f], l.w1[u * F + f], dhu);
+          dw1[f] = fmaf(h, df[f], dw1[f]);
+        }
+      }
+      const float dcv = dhu * og * (1.0f - tc * tc) + dc[u];
+      float d4[4];
+      d4[0] = (dcv * gg) * (ig * (1.0f - ig));
+      d4[1] = (dcv * cp) * (fg * (1.0f - fg));
+      d4[2] = (dcv * ig) * (1.0f - gg * gg);
+      d4[3] = (dhu * tc) * (og * (1.0f - og));
+      dc[u] = dcv * fg;
+      for (int q = 0; q < 4; ++q) {
+        s[q * H + u] = d4[q];
+        da[q * H + u] = d4[q];
+        if (decoder) ddz[q * H + u] += d4[q];
+      }
+      s[4 * H + u] = hp;
+    }
+    __syncthreads();
+    if (t > 0) {  // dh_{t-1} = da_t Wh^T, unit u's row of Wh
+      for (int u = tid; u < H; u += nt) {
+        const float* wr = wh + size_t(u) * G;
+        float acc = 0.0f;
+        for (int c = 0; c < G; ++c) acc = fmaf(da[c], wr[c], acc);
+        dh[u] = acc;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kBpttWideThreads) lstm_bptt_wide_kernel(BpttArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int F = a.F, H = a.H, Z = a.Z, G = 4 * H, W = a.W, tid = threadIdx.x, nt = blockDim.x;
+  const size_t win = blockIdx.x;  // job * K + window
+  const int job = int(win / a.K);
+  const LstmLayout l = lstm_layout(a.params + size_t(job) * a.P, F, H, Z);
+  const RecLayout rl = rec_layout(F, H, Z, W);
+  const size_t step = size_t(5) * H;
+  float* da = reinterpret_cast<float*>(smem);
+  float* ddz = da + G;
+  float* hs = ddz + G;
+  float* dh = hs + H;
+  float* dc = dh + H;
+  float* hl = dc + H;
+  float* df = hl + H;
+  float* dzs = df + F;
+  float* act_enc = a.act + win * (2 * W * step);
+  float* act_dec = act_enc + W * step;
+  const float* xw = a.x + win * W * F;
+  const uint8_t* mw = a.mask + win * W * F;
+  float* rec = a.rec + win * rl.S;
+  for (int i = tid; i < W * F; i += nt) {
+    const int t = i / F, f = i - t * F;
+    rec[rl.inp + t * 2 * F + f] = xw[i];
+    rec[rl.inp + t * 2 * F + F + f] = mw[i] ? 1.0f : 0.0f;
+  }
+  for (int u = tid; u < H; u += nt) {
+    for (int f = 0; f < F; ++f) rec[rl.dw1 + size_t(u) * F + f] = 0.0f;
+    dh[u] = dc[u] = 0.0f;
+  }
+  for (int f = tid; f < F; f += nt) rec[rl.db1 + f] = 0.0f;
+  for (int i = tid; i < G; i += nt) ddz[i] = 0.0f;
+  __syncthreads();
+
+  // the decoder and its head
+  bptt_wide_steps(true, l.wh_d, l, act_dec, xw, mw, W, F, H, da, ddz, hs, dh, dc, df, rec, rl);
+  // the latent: z = h_enc,W-1 W0 + b0 (as the forward), its gradient
+  // dzl = ddz Wi_d^T, then the encoder's last dh = dzl W0^T
+  for (int u = tid; u < H; u += nt) {
+    const float* s = act_enc + (W - 1) * step;
+    hl[u] = s[3 * H + u] * tanhf(s[4 * H + u]);
+  }
+  __syncthreads();
+  for (int q = tid; q < Z; q += nt) {
+    float acc = 0.0f;
+    for (int j = 0; j < H; ++j) acc += hl[j] * l.w0[j * Z + q];
+    rec[rl.z + q] = acc + l.b0[q];
+    const float* wi = l.wi_d + size_t(q) * G;
+    float d = 0.0f;
+    for (int c = 0; c < G; ++c) d = fmaf(ddz[c], wi[c], d);
+    dzs[q] = d;
+    rec[rl.dzl + q] = d;
+  }
+  for (int i = tid; i < G; i += nt) rec[rl.ddz + i] = ddz[i];
+  for (int u = tid; u < H; u += nt) rec[rl.hlast + u] = hl[u];
+  __syncthreads();
+  for (int u = tid; u < H; u += nt) {
+    float acc = 0.0f;
+    for (int q = 0; q < Z; ++q) acc = fmaf(dzs[q], l.w0[u * Z + q], acc);
+    dh[u] = acc;
+    dc[u] = 0.0f;
+  }
+  __syncthreads();
+  bptt_wide_steps(false, l.wh_e, l, act_enc, xw, mw, W, F, H, da, ddz, hs, dh, dc, df, rec, rl);
+}
+
+// ---------------------------------------------------------------------------
 // Backward, entry 2: the weight gradients
 // ---------------------------------------------------------------------------
 struct WgradArgs {
@@ -1112,8 +1263,7 @@ extern "C" int fm_lstm_train_forward(const float* params, long long P, const flo
                                      int Z, int KB, int smem_params, long long tile_budget,
                                      float* act, double* num, double* cnt, long long* clocks,
                                      void* stream) {
-  if (P != fm::lstm_param_count(F, H, Z) || KB < 1 || KB * F > fm::kTrainThreads || W < 1)
-    return int(cudaErrorInvalidValue);
+  if (P != fm::lstm_param_count(F, H, Z) || KB < 1 || W < 1) return int(cudaErrorInvalidValue);
   const int nkb = (K + KB - 1) / KB;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the tile path where a job's parameters and windows fit its budget
@@ -1171,6 +1321,26 @@ extern "C" int fm_lstm_bptt(const float* params, long long P, const float* x, co
   const int threads = KR / fm::kBpttWin * GT;
   fm::lstm_bptt_kernel<<<J * nkr, threads, smem, static_cast<cudaStream_t>(stream)>>>(a,
                                                                                      wh_smem);
+  return int(cudaGetLastError());
+}
+
+// The wide path of the recurrence: a CTA a window (J K CTAs), any F and H
+// whose window state fits a CTA's shared memory.
+extern "C" long long fm_lstm_bptt_wide_smem_bytes(int F, int H, int Z) {
+  return 4LL * fm::bptt_wide_floats(F, H, Z);
+}
+
+extern "C" int fm_lstm_bptt_wide(const float* params, long long P, const float* x,
+                                 const uint8_t* mask, int J, int K, int W, int F, int H, int Z,
+                                 float* act, float* rec, void* stream) {
+  if (P != fm::lstm_param_count(F, H, Z) || W < 1 || K < 1) return int(cudaErrorInvalidValue);
+  fm::BpttArgs a{params, P, x, mask, J, K, W, F, H, Z, 1, K, 0, act, rec};
+  const int smem = 4 * fm::bptt_wide_floats(F, H, Z);
+  const cudaError_t e = cudaFuncSetAttribute(fm::lstm_bptt_wide_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return int(e);
+  fm::lstm_bptt_wide_kernel<<<J * K, fm::kBpttWideThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 

@@ -62,6 +62,14 @@
 // is dropped. 10.0 ms at that shape on that card, 3.4x its 3.0 ms bound
 // (PERF.md).
 //
+// Past kTileCandidates candidates (the tiled path, kernels.period_path)
+// the lag table holds a tile of them and is rebuilt for each row after its
+// residuals; the scores and eligibility of every candidate stay in shared
+// memory for the pick (5 B a candidate bounds C: fm_period_max_candidates).
+// A lag's sums do not depend on the lags swept beside it, so every output
+// is what one table would give (forced at C <= kTileCandidates, the tiled
+// path gives the table path's bits).
+//
 // Built with -fmad=false, as the rest of the library.
 #include "common.cuh"
 
@@ -69,7 +77,13 @@ namespace fm {
 
 constexpr int kPeriodThreads = 256;
 constexpr int kWarps = kPeriodThreads / 32;
-constexpr int kMaxCandidates = 1024;
+// candidates of one lag table: up to this many the table is built once a
+// CTA (the first design); above it the candidates are swept in tiles of
+// this many, a tile's table built for each row (kernels.TILE_CANDIDATES)
+constexpr int kTileCandidates = 1024;
+// the tiled path's dynamic shared memory stays under an H100 CTA's most
+// (232,448 B) less the kernel's static arrays
+constexpr size_t kPeriodSmemBudget = 232448 - 12 * 1024;
 // distinct lags swept together (the engine's four candidates have seven); a
 // batch's three float64 sums a lag live in registers, and its num, sa, sb
 // and pair counts fill a warp's 32 reduction slots
@@ -111,6 +125,15 @@ __host__ __device__ inline size_t period_smem(int T, int C) {
   const size_t W = size_t(period_words(T)), NL = size_t(period_max_lags(C, T));
   const size_t d = (4 * size_t(T) + 8 + 15) / 16 * 16;
   return d + 4 * W + 8 * NL + 12 * size_t(C) + size_t(C);
+}
+
+// The tiled path's: the residuals, the mask's words, the lag bitmap and its
+// prefix counts, a tile's lags and scores, a tile's lag and half-lag
+// indices, then every candidate's score and eligibility.
+__host__ __device__ inline size_t period_tiled_smem(int T, int C) {
+  const size_t W = size_t(period_words(T)), NL = size_t(period_max_lags(kTileCandidates, T));
+  const size_t d = (4 * size_t(T) + 8 + 15) / 16 * 16;
+  return d + 12 * W + 8 * NL + 8 * size_t(kTileCandidates) + 5 * size_t(C);
 }
 
 __device__ __forceinline__ bool bit_at(const uint32_t* bits, int t) {
@@ -188,6 +211,53 @@ __device__ __forceinline__ void sweep_general(const float* d, const uint32_t* mb
   }
 }
 
+// The lag table of C candidates: a bitmap of the distinct lags, its words'
+// prefix counts, the lags ascending, each candidate's index into them (and
+// its half lag's); *nl the distinct lags. Ends in a barrier.
+__device__ void period_lag_table(const int* cands, int C, int T, uint32_t* lbits, int* pre,
+                                 int* lags, int* cidx, int* hidx, int* nl) {
+  const int tid = threadIdx.x, W = period_words(T);
+  for (int w = tid; w < W; w += kPeriodThreads) lbits[w] = 0;
+  __syncthreads();
+  for (int c = tid; c < C; c += kPeriodThreads) {
+    const int p = cands[c];
+    if (p >= 2 && p < T) {
+      atomicOr(&lbits[p >> 5], 1u << (p & 31));
+      if (p >= 4) atomicOr(&lbits[(p / 2) >> 5], 1u << ((p / 2) & 31));
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int acc = 0;
+    for (int w = 0; w < W; ++w) {
+      pre[w] = acc;
+      acc += __popc(lbits[w]);
+    }
+    *nl = acc;
+  }
+  __syncthreads();
+  for (int w = tid; w < W; w += kPeriodThreads) {
+    uint32_t bits = lbits[w];
+    for (int k = pre[w]; bits != 0; ++k, bits &= bits - 1) lags[k] = 32 * w + __ffs(bits) - 1;
+  }
+  auto rank = [&](int p) {
+    return pre[p >> 5] + __popc(lbits[p >> 5] & ((1u << (p & 31)) - 1u));
+  };
+  for (int c = tid; c < C; c += kPeriodThreads) {
+    const int p = cands[c];
+    const bool valid = p >= 2 && p < T;
+    cidx[c] = valid ? rank(p) : -1;
+    hidx[c] = (valid && p >= 4) ? rank(p / 2) : -1;
+  }
+  __syncthreads();
+}
+
+// kTiled: the candidates in tiles of kTileCandidates, each tile's lag table
+// built for each row after its residuals; every candidate's score and
+// eligibility kept in shared memory for the pick, which is the first
+// design's over all C. A lag's score does not depend on the lags swept
+// beside it, so a candidate scores as it would in one table.
+template <bool kTiled>
 __global__ void __launch_bounds__(kPeriodThreads, 3) detect_period_kernel(PeriodArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Scratch scr;
@@ -196,57 +266,23 @@ __global__ void __launch_bounds__(kPeriodThreads, 3) detect_period_kernel(Period
   __shared__ int nl_s;
   __shared__ long long ck[kPeriodPhases];  // thread 0's cycles a phase, this row
   const int T = a.T, C = a.C, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int W = period_words(T), NL = period_max_lags(C, T);
+  const int CT = kTiled ? kTileCandidates : C;  // candidates a lag table
+  const int W = period_words(T), NL = period_max_lags(CT, T);
   float* d = reinterpret_cast<float*>(smem);
   uint32_t* mb = reinterpret_cast<uint32_t*>(smem + (4 * size_t(T) + 8 + 15) / 16 * 16);
-  int* lags = reinterpret_cast<int*>(mb + W);
+  uint32_t* lbits = kTiled ? mb + W : reinterpret_cast<uint32_t*>(d);
+  int* pre = reinterpret_cast<int*>(lbits + W);
+  int* lags = kTiled ? pre + W : reinterpret_cast<int*>(mb + W);
   float* r = reinterpret_cast<float*>(lags + NL);
   int* cidx = reinterpret_cast<int*>(r + NL);
-  int* hidx = cidx + C;
-  float* S = reinterpret_cast<float*>(hidx + C);
+  int* hidx = cidx + CT;
+  float* S = reinterpret_cast<float*>(hidx + CT);
   uint8_t* ok = reinterpret_cast<uint8_t*>(S + C);
 
-  // the lag table, once per CTA: a bitmap of the distinct lags, its words'
-  // prefix counts (both in the residuals' space), the lags ascending, each
-  // candidate's index into them
-  {
-    uint32_t* lbits = reinterpret_cast<uint32_t*>(d);
-    int* pre = reinterpret_cast<int*>(lbits + W);
-    for (int w = tid; w < W; w += kPeriodThreads) lbits[w] = 0;
-    __syncthreads();
-    for (int c = tid; c < C; c += kPeriodThreads) {
-      const int p = a.cands[c];
-      if (p >= 2 && p < T) {
-        atomicOr(&lbits[p >> 5], 1u << (p & 31));
-        if (p >= 4) atomicOr(&lbits[(p / 2) >> 5], 1u << ((p / 2) & 31));
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int acc = 0;
-      for (int w = 0; w < W; ++w) {
-        pre[w] = acc;
-        acc += __popc(lbits[w]);
-      }
-      nl_s = acc;
-    }
-    __syncthreads();
-    for (int w = tid; w < W; w += kPeriodThreads) {
-      uint32_t bits = lbits[w];
-      for (int k = pre[w]; bits != 0; ++k, bits &= bits - 1) lags[k] = 32 * w + __ffs(bits) - 1;
-    }
-    auto rank = [&](int p) {
-      return pre[p >> 5] + __popc(lbits[p >> 5] & ((1u << (p & 31)) - 1u));
-    };
-    for (int c = tid; c < C; c += kPeriodThreads) {
-      const int p = a.cands[c];
-      const bool valid = p >= 2 && p < T;
-      cidx[c] = valid ? rank(p) : -1;
-      hidx[c] = (valid && p >= 4) ? rank(p / 2) : -1;
-    }
-    __syncthreads();
-  }
-  const int nl = nl_s;
+  // the first design's lag table, once per CTA (its bitmap and prefix
+  // counts in the residuals' space)
+  if (!kTiled) period_lag_table(a.cands, C, T, lbits, pre, lags, cidx, hidx, &nl_s);
+  int nl = nl_s;
 
   for (int row = blockIdx.x; row < a.B; row += gridDim.x) {
     const size_t off = size_t(row) * T;
@@ -344,96 +380,104 @@ __global__ void __launch_bounds__(kPeriodThreads, 3) detect_period_kernel(Period
     lap(1);
 
     // 3. each batch of lags: the sweep, the pairs' counts, one reduction
-    //    whose totals warp 0 turns into the lags' scores
-    for (int b0 = 0; b0 < nl; b0 += kLagBatch) {
-      const int nb = min(kLagBatch, nl - b0);
-      double num[kLagBatch], sa[kLagBatch], sb[kLagBatch];
-#pragma unroll
-      for (int i = 0; i < kLagBatch; ++i) num[i] = sa[i] = sb[i] = 0.0;
-      const int* lp = lags + b0;
-      if (!finite) {
-        sweep_general(d, mb, T, lp, nb, num, sa, sb);
-      } else {
-        static_assert(kLagBatch == 8, "one case for each batch size");
-        switch (nb) {
-          case 1: sweep_finite<1>(d, end, lp, num, sa, sb); break;
-          case 2: sweep_finite<2>(d, end, lp, num, sa, sb); break;
-          case 3: sweep_finite<3>(d, end, lp, num, sa, sb); break;
-          case 4: sweep_finite<4>(d, end, lp, num, sa, sb); break;
-          case 5: sweep_finite<5>(d, end, lp, num, sa, sb); break;
-          case 6: sweep_finite<6>(d, end, lp, num, sa, sb); break;
-          case 7: sweep_finite<7>(d, end, lp, num, sa, sb); break;
-          default: sweep_finite<kLagBatch>(d, end, lp, num, sa, sb); break;
-        }
+    //    whose totals warp 0 turns into the lags' scores (the tiled path:
+    //    for each tile of candidates, after its lag table)
+    for (int c0 = 0, first = 1; kTiled ? c0 < C : first; c0 += CT, first = 0) {
+      const int Ct = kTiled ? min(CT, C - c0) : C;
+      if (kTiled) {
+        period_lag_table(a.cands + c0, Ct, T, lbits, pre, lags, cidx, hidx, &nl_s);
+        nl = nl_s;
       }
-      // pairs with both slots valid: the mask's word w against its words
-      // shifted by the lag (bits past the row are 0)
-      double cnt[kLagBatch];
+      for (int b0 = 0; b0 < nl; b0 += kLagBatch) {
+        const int nb = min(kLagBatch, nl - b0);
+        double num[kLagBatch], sa[kLagBatch], sb[kLagBatch];
 #pragma unroll
-      for (int i = 0; i < kLagBatch; ++i) {
-        int c = 0;
-        if (i < nb) {
-          const int q = lp[i] >> 5, sh = lp[i] & 31;
-          for (int w = tid; w + q < W; w += kPeriodThreads) {
-            const uint32_t lo = mb[w + q], hi = w + q + 1 < W ? mb[w + q + 1] : 0u;
-            c += __popc(mb[w] & __funnelshift_r(lo, hi, sh));
+        for (int i = 0; i < kLagBatch; ++i) num[i] = sa[i] = sb[i] = 0.0;
+        const int* lp = lags + b0;
+        if (!finite) {
+          sweep_general(d, mb, T, lp, nb, num, sa, sb);
+        } else {
+          static_assert(kLagBatch == 8, "one case for each batch size");
+          switch (nb) {
+            case 1: sweep_finite<1>(d, end, lp, num, sa, sb); break;
+            case 2: sweep_finite<2>(d, end, lp, num, sa, sb); break;
+            case 3: sweep_finite<3>(d, end, lp, num, sa, sb); break;
+            case 4: sweep_finite<4>(d, end, lp, num, sa, sb); break;
+            case 5: sweep_finite<5>(d, end, lp, num, sa, sb); break;
+            case 6: sweep_finite<6>(d, end, lp, num, sa, sb); break;
+            case 7: sweep_finite<7>(d, end, lp, num, sa, sb); break;
+            default: sweep_finite<kLagBatch>(d, end, lp, num, sa, sb); break;
           }
         }
-        cnt[i] = double(c);
-      }
-      lap(2);
-      // the warp's totals of num, sa, sb and cnt in two halves of 16 values
-      // (lanes 2k, 2k + 1 hold value k of a half), into two sets of slots
-      // taken in turn: warp 0 reads one batch's while the others write the
-      // next one's. Slots 8 q + i of a warp's 32: lag i's num, sa, sb, cnt
-      // for q = 0..3.
-      double* slots = ((b0 / kLagBatch) & 1) ? slots_b : scr.as<double>();
-      {
-        double v[2 * kLagBatch];
+        // pairs with both slots valid: the mask's word w against its words
+        // shifted by the lag (bits past the row are 0)
+        double cnt[kLagBatch];
 #pragma unroll
         for (int i = 0; i < kLagBatch; ++i) {
-          v[i] = num[i];
-          v[kLagBatch + i] = sa[i];
+          int c = 0;
+          if (i < nb) {
+            const int q = lp[i] >> 5, sh = lp[i] & 31;
+            for (int w = tid; w + q < W; w += kPeriodThreads) {
+              const uint32_t lo = mb[w + q], hi = w + q + 1 < W ? mb[w + q + 1] : 0u;
+              c += __popc(mb[w] & __funnelshift_r(lo, hi, sh));
+            }
+          }
+          cnt[i] = double(c);
         }
-        const double tv = warp_sum_scatter(v);
-        if ((lane & 1) == 0) slots[warp * 32 + (lane >> 1)] = tv;
-      }
-      {
-        double v[2 * kLagBatch];
+        lap(2);
+        // the warp's totals of num, sa, sb and cnt in two halves of 16 values
+        // (lanes 2k, 2k + 1 hold value k of a half), into two sets of slots
+        // taken in turn: warp 0 reads one batch's while the others write the
+        // next one's. Slots 8 q + i of a warp's 32: lag i's num, sa, sb, cnt
+        // for q = 0..3.
+        double* slots = ((b0 / kLagBatch) & 1) ? slots_b : scr.as<double>();
+        {
+          double v[2 * kLagBatch];
 #pragma unroll
-        for (int i = 0; i < kLagBatch; ++i) {
-          v[i] = sb[i];
-          v[kLagBatch + i] = cnt[i];
+          for (int i = 0; i < kLagBatch; ++i) {
+            v[i] = num[i];
+            v[kLagBatch + i] = sa[i];
+          }
+          const double tv = warp_sum_scatter(v);
+          if ((lane & 1) == 0) slots[warp * 32 + (lane >> 1)] = tv;
         }
-        const double tv = warp_sum_scatter(v);
-        if ((lane & 1) == 0) slots[warp * 32 + 2 * kLagBatch + (lane >> 1)] = tv;
+        {
+          double v[2 * kLagBatch];
+#pragma unroll
+          for (int i = 0; i < kLagBatch; ++i) {
+            v[i] = sb[i];
+            v[kLagBatch + i] = cnt[i];
+          }
+          const double tv = warp_sum_scatter(v);
+          if ((lane & 1) == 0) slots[warp * 32 + 2 * kLagBatch + (lane >> 1)] = tv;
+        }
+        __syncthreads();
+        if (warp == 0) {
+          double tot = slots[lane];
+          for (int w = 1; w < kWarps; ++w) tot += slots[w * 32 + lane];
+          const double va = __shfl_sync(kFullWarp, tot, (lane + kLagBatch) & 31);
+          const double vb = __shfl_sync(kFullWarp, tot, (lane + 2 * kLagBatch) & 31);
+          const double cn = __shfl_sync(kFullWarp, tot, (lane + 3 * kLagBatch) & 31);
+          if (lane < nb) {
+            const double den = sqrt(va * vb);
+            const float rr = float(tot / (den == 0.0 ? 1.0 : den));
+            r[b0 + lane] = (cn >= double(lp[lane]) && den > 0.0) ? rr : -CUDART_INF_F;
+          }
+        }
+        lap(3);
+      }
+      __syncthreads();  // the lags' scores
+
+      // 4. the candidates' scores and eligibility, then the pick
+      for (int c = tid; c < Ct; c += kPeriodThreads) {
+        const int i = cidx[c], h = hidx[c];
+        const float sc = i >= 0 ? r[i] : -CUDART_INF_F;
+        S[c0 + c] = sc;
+        ok[c0 + c] = i >= 0 && (h < 0 || sc + a.contrast_margin >= r[h]);
+        a.scores[size_t(row) * C + c0 + c] = sc;
       }
       __syncthreads();
-      if (warp == 0) {
-        double tot = slots[lane];
-        for (int w = 1; w < kWarps; ++w) tot += slots[w * 32 + lane];
-        const double va = __shfl_sync(kFullWarp, tot, (lane + kLagBatch) & 31);
-        const double vb = __shfl_sync(kFullWarp, tot, (lane + 2 * kLagBatch) & 31);
-        const double cn = __shfl_sync(kFullWarp, tot, (lane + 3 * kLagBatch) & 31);
-        if (lane < nb) {
-          const double den = sqrt(va * vb);
-          const float rr = float(tot / (den == 0.0 ? 1.0 : den));
-          r[b0 + lane] = (cn >= double(lp[lane]) && den > 0.0) ? rr : -CUDART_INF_F;
-        }
-      }
-      lap(3);
     }
-    __syncthreads();  // the lags' scores
-
-    // 4. the candidates' scores and eligibility, then the pick
-    for (int c = tid; c < C; c += kPeriodThreads) {
-      const int i = cidx[c], h = hidx[c];
-      const float sc = i >= 0 ? r[i] : -CUDART_INF_F;
-      S[c] = sc;
-      ok[c] = i >= 0 && (h < 0 || sc + a.contrast_margin >= r[h]);
-      a.scores[size_t(row) * C + c] = sc;
-    }
-    __syncthreads();
     if (tid == 0) {
       float best = -CUDART_INF_F;
       for (int c = 0; c < C; ++c) best = nan_max(best, ok[c] ? S[c] : -CUDART_INF_F);
@@ -454,23 +498,36 @@ __global__ void __launch_bounds__(kPeriodThreads, 3) detect_period_kernel(Period
 extern "C" int fm_detect_period(const float* x, const uint8_t* mask, const int* cands, int C,
                                 const int* fallback, float min_acf, float alias_margin,
                                 float contrast_margin, int B, int T, int* period, float* scores,
-                                long long* clocks, void* stream) {
-  if (C < 0 || C > fm::kMaxCandidates) return int(cudaErrorInvalidValue);
+                                long long* clocks, int force_tiled, void* stream) {
+  const bool tiled = C > fm::kTileCandidates || force_tiled;
+  const size_t smem = tiled ? fm::period_tiled_smem(T, C) : fm::period_smem(T, C);
+  if (C < 0 || smem > fm::kPeriodSmemBudget) return int(cudaErrorInvalidValue);
   fm::PeriodArgs a{x, mask, cands, C, fallback, min_acf, alias_margin, contrast_margin, B, T,
                    period, scores, clocks};
-  const size_t smem = fm::period_smem(T, C);
-  cudaError_t e = cudaFuncSetAttribute(fm::detect_period_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  void (*kern)(fm::PeriodArgs) =
+      tiled ? fm::detect_period_kernel<true> : fm::detect_period_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem));
   if (e != cudaSuccess) return int(e);
   // persistent CTAs, rows grid-stride: each CTA builds the lag table once
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return int(e);
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return int(e);
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fm::detect_period_kernel,
-                                                         fm::kPeriodThreads, smem)) != cudaSuccess)
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, fm::kPeriodThreads,
+                                                         smem)) != cudaSuccess)
     return int(e);
   const int grid = min(B, max(sms * per_sm, 1));
-  fm::detect_period_kernel<<<grid, fm::kPeriodThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kern<<<grid, fm::kPeriodThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
+
+// The most candidates a launch at T takes (the tiled path's shared memory).
+extern "C" int fm_period_max_candidates(int T) {
+  int C = fm::kTileCandidates;
+  const size_t base = fm::period_tiled_smem(T, 0);
+  if (base <= fm::kPeriodSmemBudget) C = max(C, int((fm::kPeriodSmemBudget - base) / 5));
+  return C;
+}
+
+extern "C" int fm_period_tile_candidates() { return fm::kTileCandidates; }

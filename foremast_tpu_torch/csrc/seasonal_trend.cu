@@ -10,7 +10,12 @@
 // cp_shrink / (|beta| + 1e-3) on them (the gram is reused, only its
 // diagonal changes); preds = X beta at every slot, padding included.
 //
-// Design: one warp per row, kStWarps rows a CTA (the warps share nothing).
+// Two paths, chosen by the launcher (kernels.st_path): up to kMaxStD = 32
+// columns the warp path below; above it the cta path (st_fit_cta_kernel,
+// further down), which takes any D.
+//
+// The warp path: one warp per row, kStWarps rows a CTA (the warps share
+// nothing).
 //   1. The row's columns are generated in the kernel from its own period;
 //      there is no (T, D) table in device memory. Every column rounds as
 //      the reference's compiled program does (ops/forecast.py:st_columns):
@@ -121,14 +126,19 @@ __device__ __forceinline__ void st_sin_cos(float a, float& s, float& c) { sincos
 
 // A selected slot's augmented design row [X x] (D + 1 floats) into r, as
 // the reference rounds each column.
-__device__ __forceinline__ void st_row(const StWarpMem& w, int C, int K, int t, float x,
-                                       float inv_t, float* r) {
+__device__ __forceinline__ void st_row_cols(const float* knot, const float* ck, int C, int K,
+                                            int t, float x, float inv_t, float* r) {
   const float tf = float(t), tn = tf * inv_t;
   r[0] = 1.0f;
   r[1] = tn;
-  for (int j = 0; j < C; ++j) r[2 + j] = fmaxf(tn - w.knot[j], 0.0f);
-  for (int k = 0; k < K; ++k) st_sin_cos(tf * w.ck[k], r[2 + C + 2 * k], r[3 + C + 2 * k]);
+  for (int j = 0; j < C; ++j) r[2 + j] = fmaxf(tn - knot[j], 0.0f);
+  for (int k = 0; k < K; ++k) st_sin_cos(tf * ck[k], r[2 + C + 2 * k], r[3 + C + 2 * k]);
   r[2 + C + 2 * K] = x;
+}
+
+__device__ __forceinline__ void st_row(const StWarpMem& w, int C, int K, int t, float x,
+                                       float inv_t, float* r) {
+  st_row_cols(w.knot, w.ck, C, K, t, x, inv_t, r);
 }
 
 // The gram's tiles, for each column block b2: the 16 x 8 tiles of row
@@ -354,6 +364,244 @@ cudaError_t st_launch(int NB, const StArgs& a, size_t smem, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The cta path: D > kMaxStD columns (Prophet's defaults, 25 changepoints and
+// order 10, give D = 47), a CTA a row
+// ---------------------------------------------------------------------------
+// A persistent CTA of kStCtaThreads threads walks rows grid-stride:
+//   1. kStCtaThreads slots a round, a slot a thread: the selected ones
+//      (ballots, then the warps' counts) build their rows [X x] as the warp
+//      path does (st_row) into the CTA's tile, compacted, padded with zero
+//      columns to 8 NB and with zero rows to a multiple of 4;
+//   2. the gram's 8 x 8 blocks (b1 <= b2) dealt to the warps in turn, each
+//      block's products over the round's rows on DMMA m8n8k4 (lane (g, t)
+//      reads column 8 b + g of row t for each operand), added to G once a
+//      round; G ((8 NB)^2 doubles, the augmented gram in its upper
+//      triangle, rhs in column D) lives in shared memory while it fits
+//      beside the tile, else in the CTA's slice of device scratch;
+//   3. a left-looking Cholesky by the CTA (column j: the threads over rows
+//      i >= j, two barriers), L written into G's strict lower triangle as
+//      in the warp path, the triangular solves by warp 0; the IRLS rounds
+//      change only the penalty; a non-positive (or NaN) pivot gives the row
+//      NaN, as the twin's cholesky_ex does;
+//   4. preds a thread a slot, summed as the warp path sums them.
+// The sums of the gram and the solve run in another order than the warp
+// path's; the results are held to the twin (float64), not to the warp path.
+// Bound, as the warp path: (D + 1)(D + 2) / 2 - 1 float64 multiply-adds a
+// fitted slot (1,175 at D = 47) at the float64 tensor cores' rate; this
+// path does 64 NB (NB + 1) / 2 a fitted slot (1,344 at D = 47) and is not
+// tuned.
+constexpr int kStCtaThreads = 128;
+constexpr int kStCtaWarps = kStCtaThreads / 32;
+
+struct StCtaMem {
+  double* G;     // (8 NB) x (8 NB)
+  double* pen;   // 8 NB each, from here on
+  double* ldiag;
+  double* tmp;
+  double* beta;
+  double* y;
+  float* knot;   // C
+  float* ck;     // order
+  float* tile;   // kStCtaThreads rows of st_tile_ld(D) floats
+  int* wcnt;     // kStCtaWarps
+};
+
+__host__ __device__ inline int st_cta_ldg(int D) { return (D + 8) / 8 * 8; }
+
+__host__ __device__ inline size_t st_cta_g_bytes(int D) {
+  return size_t(st_cta_ldg(D)) * st_cta_ldg(D) * 8;
+}
+
+// shared bytes besides G
+__host__ __device__ inline size_t st_cta_rest_bytes(int D, int C, int K) {
+  return size_t(5) * st_cta_ldg(D) * 8 +
+         (size_t(C) + K + size_t(kStCtaThreads) * st_tile_ld(D) + kStCtaWarps) * 4;
+}
+
+// whether G takes shared memory (else device scratch) on a card whose CTA
+// may take `most` bytes of it
+__host__ inline bool st_cta_g_shared(int D, int C, int K, size_t most) {
+  return st_cta_g_bytes(D) + st_cta_rest_bytes(D, C, K) <= most;
+}
+
+__device__ inline StCtaMem st_cta_mem(unsigned char* base, double* g_global, int D, int C,
+                                      int K) {
+  StCtaMem m;
+  const int ldg = st_cta_ldg(D);
+  double* d = reinterpret_cast<double*>(base);
+  if (g_global != nullptr) {
+    m.G = g_global;
+  } else {
+    m.G = d;
+    d += size_t(ldg) * ldg;
+  }
+  m.pen = d;
+  m.ldiag = m.pen + ldg;
+  m.tmp = m.ldiag + ldg;
+  m.beta = m.tmp + ldg;
+  m.y = m.beta + ldg;
+  m.knot = reinterpret_cast<float*>(m.y + ldg);
+  m.ck = m.knot + C;
+  m.tile = m.ck + K;
+  m.wcnt = reinterpret_cast<int*>(m.tile + kStCtaThreads * st_tile_ld(D));
+  return m;
+}
+
+// (G + diag(pen)) beta = rhs by the CTA: G's upper triangle and diagonal
+// in, L in its strict lower triangle and ldiag, rhs in G's column D; beta
+// (or NaN) into m.beta. Returns false (every thread) on a pivot that is not
+// positive.
+__device__ bool st_cta_solve(const StCtaMem& m, int D) {
+  const int ldg = st_cta_ldg(D), tid = threadIdx.x;
+  double* G = m.G;
+  bool ok = true;
+  for (int j = 0; j < D; ++j) {
+    for (int i = j + tid; i < D; i += kStCtaThreads) {
+      double s = i == j ? G[size_t(j) * ldg + j] + m.pen[j] : G[size_t(j) * ldg + i];
+      for (int k = 0; k < j; ++k) s -= G[size_t(i) * ldg + k] * G[size_t(j) * ldg + k];
+      m.tmp[i] = s;
+    }
+    __syncthreads();
+    const double piv = m.tmp[j];
+    ok = ok && piv > 0.0;
+    const double ljj = sqrt(piv);
+    for (int i = j + tid; i < D; i += kStCtaThreads) {
+      if (i == j) m.ldiag[j] = ljj;
+      else G[size_t(i) * ldg + j] = m.tmp[i] / ljj;
+    }
+    __syncthreads();
+  }
+  if (tid < 32) {
+    const int lane = tid;
+    // L y = rhs, then L^T beta = y, a column at a time
+    for (int i = lane; i < D; i += 32) m.y[i] = G[size_t(i) * ldg + D];
+    __syncwarp();
+    for (int k = 0; k < D; ++k) {
+      const double yk = m.y[k] / m.ldiag[k];
+      __syncwarp();
+      if (lane == 0) m.y[k] = yk;
+      for (int i = k + 1 + lane; i < D; i += 32) m.y[i] -= G[size_t(i) * ldg + k] * yk;
+      __syncwarp();
+    }
+    for (int k = D - 1; k >= 0; --k) {
+      const double bk = m.y[k] / m.ldiag[k];
+      __syncwarp();
+      if (lane == 0) m.y[k] = bk;
+      for (int i = lane; i < k; i += 32) m.y[i] -= G[size_t(k) * ldg + i] * bk;
+      __syncwarp();
+    }
+    for (int i = lane; i < D; i += 32) m.beta[i] = ok ? m.y[i] : CUDART_NAN;
+  }
+  __syncthreads();
+  return ok;
+}
+
+__global__ void __launch_bounds__(kStCtaThreads) st_fit_cta_kernel(StArgs a, double* scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = a.T, C = a.C, K = a.order, D = 2 + C + 2 * K;
+  const int ldg = st_cta_ldg(D), NB = ldg / 8, ldx = st_tile_ld(D);
+  const StCtaMem m = st_cta_mem(
+      smem, scratch == nullptr ? nullptr : scratch + size_t(blockIdx.x) * ldg * ldg, D, C, K);
+  const float inv_t = 1.0f / float(T - 1 > 1 ? T - 1 : 1);
+  const int g = lane >> 2, t4 = lane & 3;
+  for (int j = tid; j < C; j += kStCtaThreads)
+    m.knot[j] = (float(j + 1) * (1.0f / float(C + 1))) * 0.8f;
+
+  for (int row = blockIdx.x; row < a.B; row += gridDim.x) {
+    const size_t off = size_t(row) * T;
+    const long long c0 = clock64();
+    for (int k = tid; k < K; k += kStCtaThreads)
+      m.ck[k] = (6.2831855f * (1.0f / float(a.period[row]))) * float(k + 1);
+    for (int i = tid; i < ldg * ldg; i += kStCtaThreads) m.G[i] = 0.0;
+    __syncthreads();
+
+    // 1-2. the gram, kStCtaThreads slots a round
+    for (int base = 0; base < T; base += kStCtaThreads) {
+      const int t = base + tid;
+      const bool sel = t < T && a.mask[off + t] && a.fit[off + t];
+      const float xv = sel ? a.x[off + t] : 0.0f;
+      const unsigned bal = __ballot_sync(kFullWarp, sel);
+      if (lane == 0) m.wcnt[warp] = __popc(bal);
+      __syncthreads();
+      int before = 0, n = 0;
+      for (int w = 0; w < kStCtaWarps; ++w) {
+        before += w < warp ? m.wcnt[w] : 0;
+        n += m.wcnt[w];
+      }
+      if (n == 0) {
+        __syncthreads();  // before the next round's counts
+        continue;
+      }
+      if (sel) {
+        float* r = m.tile + (before + __popc(bal & ((1u << lane) - 1u))) * ldx;
+        st_row_cols(m.knot, m.ck, C, K, t, xv, inv_t, r);
+        for (int c = D + 1; c < 8 * NB; ++c) r[c] = 0.0f;
+      }
+      for (int i = tid; i < ((4 - n) & 3) * ldx; i += kStCtaThreads) m.tile[n * ldx + i] = 0.0f;
+      __syncthreads();
+      int u = 0;
+      for (int b2 = 0; b2 < NB; ++b2)
+        for (int b1 = 0; b1 <= b2; ++b1, ++u) {
+          if (u % kStCtaWarps != warp) continue;
+          double acc[2] = {0.0, 0.0};
+          for (int j = 0; j < n; j += 4) {
+            const float* r = m.tile + (j + t4) * ldx + g;
+            const double va = double(r[8 * b1]), vb = double(r[8 * b2]);
+            mma_f64_m8n8k4(acc, &va, &vb);
+          }
+          double* out = m.G + size_t(8 * b1 + g) * ldg + 8 * b2 + 2 * t4;
+          out[0] += acc[0];
+          out[1] += acc[1];
+        }
+      __syncthreads();  // before the next round's rows overwrite the tile
+    }
+    const long long c1 = clock64();
+
+    // 3. the solves
+    for (int p = tid; p < D; p += kStCtaThreads)
+      m.pen[p] = a.ridge + (p >= 2 && p < 2 + C ? a.cp_shrink : 0.0);
+    __syncthreads();
+    bool ok = st_cta_solve(m, D);
+    const int rounds = C > 0 ? (a.l1_iters - 1 > 0 ? a.l1_iters - 1 : 0) : 0;
+    for (int it = 0; it < rounds && ok; ++it) {
+      for (int p = tid; p < D; p += kStCtaThreads) {
+        const bool cp = p >= 2 && p < 2 + C;
+        m.pen[p] = a.ridge + a.cp_shrink * (cp ? 1.0 : 0.0) / (fabs(m.beta[p]) + 1e-3);
+      }
+      __syncthreads();
+      ok = st_cta_solve(m, D);
+    }
+    for (int p = tid; p < D; p += kStCtaThreads) {
+      if (!ok) m.beta[p] = CUDART_NAN;
+      a.beta[size_t(row) * D + p] = float(ok ? m.beta[p] : CUDART_NAN);
+    }
+    __syncthreads();
+    const long long c2 = clock64();
+
+    // 4. preds, a slot a thread, in the warp path's order of terms
+    for (int t = tid; t < T; t += kStCtaThreads) {
+      const float tf = float(t), tn = tf * inv_t;
+      double acc = fma(double(tn), m.beta[1], m.beta[0]);
+      for (int j = 0; j < C; ++j) acc = fma(double(fmaxf(tn - m.knot[j], 0.0f)), m.beta[2 + j], acc);
+      for (int k = 0; k < K; ++k) {
+        float sv, cv;
+        st_sin_cos(tf * m.ck[k], sv, cv);
+        acc = fma(double(cv), m.beta[3 + C + 2 * k], fma(double(sv), m.beta[2 + C + 2 * k], acc));
+      }
+      a.preds[off + t] = float(acc);
+    }
+    if (a.clocks != nullptr && tid == 0) {
+      long long* out = a.clocks + size_t(row) * kStPhases;
+      out[0] = c1 - c0;
+      out[1] = c2 - c1;
+      out[2] = clock64() - c2;
+    }
+    __syncthreads();  // before the next row's constants and G
+  }
+}
+
 // Counts the float32 arguments (all 2^32 bit patterns) at which sincosf's
 // sine or cosine differs in its bits from sinf's or cosf's: kernel J takes
 // both from one sincosf on the premise that the count is 0.
@@ -384,6 +632,52 @@ extern "C" int fm_st_fit(const float* x, const uint8_t* mask, const uint8_t* fit
                clocks};
   const size_t smem = size_t(fm::kStWarps) * fm::st_warp_bytes(D);
   return int(fm::st_launch((D + 1 + 7) / 8, a, smem, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" long long fm_st_cta_scratch_doubles(int order, int C) {
+  const int D = 2 + C + 2 * order;
+  return fm::st_cta_g_shared(D, C, order, 232448) ? 0LL
+                                                   : (long long)fm::st_cta_ldg(D) * fm::st_cta_ldg(D);
+}
+
+// CTAs of the cta path for B rows: the card's resident CTAs, at most B
+extern "C" int fm_st_cta_grid(int order, int C, int B) {
+  const int D = 2 + C + 2 * order;
+  const bool sh = fm::st_cta_g_shared(D, C, order, 232448);
+  const size_t smem = fm::st_cta_rest_bytes(D, C, order) + (sh ? fm::st_cta_g_bytes(D) : 0);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaFuncSetAttribute(fm::st_fit_cta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fm::st_fit_cta_kernel,
+                                                    fm::kStCtaThreads, smem) != cudaSuccess)
+    return -1;
+  const int most = sms * (per_sm > 0 ? per_sm : 1);
+  return B < most ? B : most;
+}
+
+// The cta path (the launcher's choice above D = 32; any D when forced):
+// grid persistent CTAs; scratch holds grid (8 NB)^2
+// doubles where G does not fit shared memory (fm_st_cta_scratch_doubles),
+// else null.
+extern "C" int fm_st_fit_cta(const float* x, const uint8_t* mask, const uint8_t* fit,
+                             const int* period, int order, int C, double ridge, double cp_shrink,
+                             int l1_iters, int B, int T, float* beta, float* preds,
+                             long long* clocks, double* scratch, int grid, void* stream) {
+  const int D = 2 + C + 2 * order;
+  if (order < 0 || C < 0 || T < 1 || grid < 1) return int(cudaErrorInvalidValue);
+  const bool sh = fm::st_cta_g_shared(D, C, order, 232448);
+  if (sh != (scratch == nullptr)) return int(cudaErrorInvalidValue);
+  fm::StArgs a{x, mask, fit, period, B, T, C, order, l1_iters, ridge, cp_shrink, beta, preds,
+               clocks};
+  const size_t smem = fm::st_cta_rest_bytes(D, C, order) + (sh ? fm::st_cta_g_bytes(D) : 0);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fm::st_fit_cta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  fm::st_fit_cta_kernel<<<grid, fm::kStCtaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, scratch);
+  return int(cudaGetLastError());
 }
 
 extern "C" int fm_st_sincos_check(unsigned long long* mismatches, void* stream) {

@@ -52,7 +52,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import kernels
 from .._device import resolve_device
 from ..dataplane.exporter import VerdictExporter
 from ..dataplane.fetch import FetchError, grid_from_series
@@ -904,16 +903,8 @@ class Analyzer:
         Per job: standardize each metric on its history, train the AE on
         non-overlapping historical subwindows (cached per app, LRU-bounded by
         MAX_CACHE_SIZE), then z-score the current window's reconstruction
-        error against the healthy-error distribution. A job with more
-        metrics than the kernels take (MAX_LSTM_FEATURES) fails scoring by
-        name: the check comes before any counter moves, so the per-job
-        retry fails that job alone."""
+        error against the healthy-error distribution."""
         cfg = self.config
-        for it in items:
-            if len(it.metrics) > kernels.MAX_LSTM_FEATURES:
-                raise ValueError(
-                    f"{len(it.metrics)} metrics: the LSTM kernels take at most "
-                    f"{kernels.MAX_LSTM_FEATURES} (MAX_LSTM_FEATURES)")
         results = {}
         memo_on = cfg.score_memo
         memo_zs: list = []   # (item, z) reused without a launch

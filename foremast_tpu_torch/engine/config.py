@@ -15,20 +15,16 @@ NotImplementedError, naming the ROADMAP item, when one of them is set to
 anything but the reference's default, so no deployment silently runs
 without a layer it asked for.
 
-Values the card's kernels cannot take are refused when the config is
-built (`EngineConfig` and so `from_env` raise ValueError naming the knob):
-more than MAX_ST_D seasonal-trend columns (2 + ST_CHANGEPOINTS + 2
-ST_ORDER, kernel J), more than MAX_CANDIDATES entries in
-HW_PERIOD_CANDIDATES (kernel F), LSTM_HIDDEN or LSTM_LATENT outside
-[1, MAX_LSTM_HIDDEN] / [1, MAX_LSTM_LATENT] (kernels K and L); the
-constants are those of ``kernels``.
+LSTM_HIDDEN or LSTM_LATENT below 1 is refused when the config is built
+(`EngineConfig` and so `from_env` raise ValueError naming the knob): the
+reference fails on it when it builds the model. A negative ST_ORDER or
+ST_CHANGEPOINTS is taken as 0, as the reference's fit takes it.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
 
-from .. import kernels
 
 
 @dataclass(frozen=True)
@@ -262,21 +258,11 @@ class EngineConfig:
     policies: dict = field(default_factory=lambda: dict(DEFAULT_POLICIES))
 
     def __post_init__(self):
-        """Refuse, by knob, a value the card's kernels cannot take."""
-        D = 2 + self.st_changepoints + 2 * self.st_order
-        if self.st_order < 0 or self.st_changepoints < 0 or D > kernels.MAX_ST_D:
-            raise ValueError(
-                f"ST_ORDER={self.st_order}, ST_CHANGEPOINTS={self.st_changepoints}: the "
-                f"seasonal-trend fit on the card takes order >= 0, changepoints >= 0 and at "
-                f"most {kernels.MAX_ST_D} columns (2 + ST_CHANGEPOINTS + 2 ST_ORDER = {D})")
-        if len(self.hw_period_candidates) > kernels.MAX_CANDIDATES:
-            raise ValueError(
-                f"HW_PERIOD_CANDIDATES: period detection on the card takes at most "
-                f"{kernels.MAX_CANDIDATES} candidates, got {len(self.hw_period_candidates)}")
-        for knob, v, top in (("LSTM_HIDDEN", self.lstm_hidden, kernels.MAX_LSTM_HIDDEN),
-                             ("LSTM_LATENT", self.lstm_latent, kernels.MAX_LSTM_LATENT)):
-            if not 1 <= v <= top:
-                raise ValueError(f"{knob}={v}: the LSTM kernels on the card take 1 to {top}")
+        """Refuse, by knob, an LSTM width below 1 (the reference fails on
+        it: a layer of no units)."""
+        for knob, v in (("LSTM_HIDDEN", self.lstm_hidden), ("LSTM_LATENT", self.lstm_latent)):
+            if v < 1:
+                raise ValueError(f"{knob}={v}: the LSTM autoencoder takes widths of 1 or more")
 
     def policy_for(self, metric_name: str) -> MetricPolicy:
         """Longest-substring match of configured metric types in the name
@@ -377,8 +363,8 @@ _NOT_PORTED = {
 def from_env(env=None) -> EngineConfig:
     """Build an EngineConfig from the ML_* env-var family. A knob of a
     layer the port has not taken over, set to anything but the reference's
-    default, raises NotImplementedError naming its ROADMAP item; a value the
-    card's kernels cannot take raises ValueError naming the knob."""
+    default, raises NotImplementedError naming its ROADMAP item; an LSTM
+    width below 1 raises ValueError naming the knob."""
     env = dict(os.environ) if env is None else env
     policies = dict(DEFAULT_POLICIES)
     base = MetricPolicy(

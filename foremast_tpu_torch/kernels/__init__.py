@@ -14,7 +14,8 @@
 - Kernel E, `affine_scan` (``csrc/seqscan.cu``), runs SES or DES as a scan
   of affine maps (the long-window forms).
 - Kernel F, `detect_period` (``csrc/period.cu``), elects each row's
-  seasonal period.
+  seasonal period, on the path `period_path` picks by the candidates (one
+  lag table a CTA, or tiles of candidates past TILE_CANDIDATES).
 - Kernel G, `triage_screen` (``csrc/triage.cu``), runs the tier-0 triage
   screen: band counts under the policy band and a shrunk band, and the
   robust z of each row's current region.
@@ -23,7 +24,9 @@
 - Kernel I, `hpa_score` (``csrc/hpa.cu``), scores B HPA rows from their
   traffic predictions, with sigma given or computed from the history.
 - Kernel J, `st_fit` (``csrc/seasonal_trend.cu``), fits the seasonal-trend
-  (Prophet-core) ridge model of B rows, each with its own period.
+  (Prophet-core) ridge model of B rows, each with its own period, on the
+  path `st_path` picks by the columns (a warp a row up to WARP_ST_D, a CTA
+  a row above).
 - Kernel K, `lstm_ae` (``csrc/lstm_ae.cu``), runs the LSTM autoencoder of
   J jobs, each with its own parameters, over K windows a job and writes
   each window's masked reconstruction error (and its z-score), on the
@@ -35,7 +38,8 @@
   `lstm_train_recurrence` (backpropagation through time of each window,
   rewriting the activations as the weight gradients' rows) and
   `lstm_train_wgrad` (those rows' GEMMs and the per-window records' sums
-  into one gradient row a job).
+  into one gradient row a job); the recurrence's path is
+  `lstm_bptt_path`'s (a group of warps, or a CTA a window for wider rows).
 - Kernel M, `adam` (``csrc/adam.cu``), scales L's gradient and applies
   optax's Adam to the J parameter rows in place.
 - Kernel N, `pair_tests` (``csrc/pair_tests.cu``), runs the public
@@ -60,11 +64,13 @@ stream without synchronising, raises if the launch failed, and adds one to
 its entry of `launches` per launch (`lstm_train_backward` launches kernel
 L's two backward entries, counted as `lstm_train_recurrence` and
 `lstm_train_wgrad`; `lstm_ae`, `bivariate`, `pair_verdict`,
-`pair_tests`, `kruskal_groups`, `rank_and_ties`, `ma_band`, `friedman` and
-`fleet_topk` also count by path, in `lstm_ae_path_launches`,
-`bivariate_path_launches`, `pair_path_launches`, `pair_tests_path_launches`,
-`kruskal_path_launches`, `rank_path_launches`, `band_path_launches`,
-`friedman_path_launches` and `fleet_topk_path_launches`).
+`pair_tests`, `kruskal_groups`, `rank_and_ties`, `ma_band`, `friedman`,
+`fleet_topk`, `st_fit`, `detect_period` and `lstm_train_recurrence` also
+count by path, in `lstm_ae_path_launches`, `bivariate_path_launches`,
+`pair_path_launches`, `pair_tests_path_launches`, `kruskal_path_launches`,
+`rank_path_launches`, `band_path_launches`, `friedman_path_launches`,
+`fleet_topk_path_launches`, `st_path_launches`, `period_path_launches` and
+`bptt_path_launches`).
 They take CUDA tensors only; the entry points
 (``parallel.fleet.score_pairs``, ``ops.forecast``, ``ops.seqscan``,
 ``ops.triage``, ``ops.bivariate``, ``ops.hpa``, ``ops.pairwise``,
@@ -101,9 +107,12 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "friedman_serves", "friedman_path_launches", "FLEET_TOPK_PATHS", "FLEET_SELECT_K",
            "fleet_topk_path", "fleet_topk_serves", "fleet_topk_path_launches", "empty_launches",
            "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
-           "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "MAX_CANDIDATES",
-           "MAX_GRID", "MAX_ST_D", "MAX_ST_T", "MAX_LSTM_HIDDEN", "MAX_LSTM_LATENT",
-           "MAX_LSTM_FEATURES", "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
+           "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "TILE_CANDIDATES",
+           "PERIOD_PATHS", "period_path", "period_max_candidates", "period_path_launches",
+           "MAX_GRID", "WARP_ST_D", "ST_PATHS", "st_path", "st_path_launches", "MAX_ST_T",
+           "CLUSTER_LSTM_HIDDEN", "GROUP_BPTT_H", "GROUP_BPTT_F", "BPTT_PATHS",
+           "lstm_bptt_path", "bptt_path_launches",
+           "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
            "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check", "ks_division_check",
            "PAIR_PHASES", "KRUSKAL_PHASES", "RANK_PHASES", "BAND_PHASES", "TRIAGE_PHASES",
            "HW_FIT_PHASES", "ST_FIT_PHASES", "PERIOD_PHASES", "HPA_PHASES", "BI_PHASES", "SMOOTH_HW_PHASES",
@@ -138,7 +147,13 @@ MAX_SCREEN_T = 16384
 # 29 B per candidate (its lag and half-lag indices, its score and
 # eligibility, two distinct lags and their scores) in shared memory
 MAX_PERIOD_T = 16384
-MAX_CANDIDATES = 1024
+# up to TILE_CANDIDATES candidates kernel F builds its lag table once a CTA
+# ("table", the first design); above it ("tiled") it sweeps them in tiles of
+# TILE_CANDIDATES, a tile's lag table built for each row, every candidate's
+# score and eligibility kept for the pick (5 B each, so a CTA's shared
+# memory bounds the candidates: period_max_candidates)
+TILE_CANDIDATES = 1024
+PERIOD_PATHS = ("table", "tiled")
 # kernel H stages 11 B a slot (two floats, three mask bytes) in shared
 # memory, a CTA a slice of at most BI_SLICE_T slots: a row up to BI_SLICE_T
 # is one CTA ("cta" path), a longer one a thread block cluster of
@@ -160,21 +175,31 @@ BIVARIATE_FORCE = None
 MAX_HPA_T = 16384
 # kernel D runs two candidates per lane of a warp
 MAX_GRID = 64
-# kernel J solves with one lane of a warp per column; t is exact in float32
-MAX_ST_D = 32
+# kernel J runs one of two paths (st_path): up to WARP_ST_D columns a warp a
+# row (one lane per column in the solve), above it a CTA a row (any D; the
+# gram in shared memory while it fits, else in device scratch). path=
+# forces one where it serves D (tests, timing). t is exact in float32.
+WARP_ST_D = 32
+ST_PATHS = ("warp", "cta")
 MAX_ST_T = 1 << 24
 # kernel K's wide path: a CTA's gate products, states and per-window
 # partial sums live in shared memory; its parameters join them there up to
 # this many bytes, above it they are read through the caches (L1, L2)
-MAX_LSTM_HIDDEN = 256
-MAX_LSTM_LATENT = 256
-MAX_LSTM_FEATURES = 32
 LSTM_SMEM_PARAMS_BYTES = 96 * 1024
-# kernel L keeps K's limits (a thread per window and feature of the head:
-# KB F <= 256); its recurrence entry holds the recurrent weights (rows of
-# 4H + 1 floats) in shared memory beside its windows' state while the CTA
-# needs at most this many bytes (two CTAs an SM), in device memory above it
-# (H above about 80)
+# kernel K's cluster path takes at most CLUSTER_LSTM_HIDDEN units (8 CTAs of
+# 32); wider rows take the wide path
+CLUSTER_LSTM_HIDDEN = 256
+# kernel L's recurrence runs one of two paths (lstm_bptt_path): "group"
+# (the first design) where a group of 32 ceil(H / 32) threads holds a
+# window's units (H <= GROUP_BPTT_H) and a warp's lanes its features (F <=
+# GROUP_BPTT_F); "wide" (a CTA a window, threads striding units and
+# features; any width) above. The group path holds the recurrent weights
+# (rows of 4H + 1 floats) in shared memory beside its windows' state while
+# the CTA needs at most LSTM_TRAIN_SMEM_BYTES (two CTAs an SM), in device
+# memory above it (H above about 80)
+GROUP_BPTT_H = 256
+GROUP_BPTT_F = 32
+BPTT_PATHS = ("group", "wide")
 LSTM_TRAIN_SMEM_BYTES = 113 * 1024
 # kernel L's forward runs its tile path (a job's windows a CTA, the
 # parameter row in shared memory) where that CTA's shared memory fits this
@@ -299,6 +324,11 @@ band_path_launches = {path: 0 for path in BAND_PATHS}
 # launches)
 friedman_path_launches = {path: 0 for path in FRIEDMAN_PATHS}
 fleet_topk_path_launches = {path: 0 for path in FLEET_TOPK_PATHS}
+# kernel J's, kernel F's and kernel L's recurrence's launches by path (each
+# also counts in launches)
+st_path_launches = {path: 0 for path in ST_PATHS}
+period_path_launches = {path: 0 for path in PERIOD_PATHS}
+bptt_path_launches = {path: 0 for path in BPTT_PATHS}
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
@@ -312,7 +342,8 @@ def reset_launches() -> None:
         launches[k] = 0
     for counts in (lstm_ae_path_launches, bivariate_path_launches, pair_path_launches,
                    pair_tests_path_launches, kruskal_path_launches, rank_path_launches,
-                   band_path_launches, friedman_path_launches, fleet_topk_path_launches):
+                   band_path_launches, friedman_path_launches, fleet_topk_path_launches,
+                   st_path_launches, period_path_launches, bptt_path_launches):
         for k in counts:
             counts[k] = 0
 
@@ -734,11 +765,25 @@ def affine_scan(kind: int, x, mask, alpha, beta=None):
     return preds
 
 
+def period_path(C: int) -> str:
+    """Kernel F's path for C candidates: "table" up to TILE_CANDIDATES,
+    else "tiled"."""
+    return "table" if C <= TILE_CANDIDATES else "tiled"
+
+
+def period_max_candidates(T: int) -> int:
+    """The most candidates kernel F takes at T slots (the tiled path keeps
+    5 B a candidate in a CTA's shared memory: about 29,000 at T = 16384)."""
+    return int(build.library().fm_period_max_candidates(int(T)))
+
+
 def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: float,
-                  contrast_margin: float, phase_clocks=None):
+                  contrast_margin: float, phase_clocks=None, path=None):
     """Launch kernel F: each row's period among `candidates` ((C,) int32,
-    C <= MAX_CANDIDATES) or its `fallback` ((B,) int32). Returns period
-    (B,) int32 and scores (B, C) float32.
+    C <= period_max_candidates(T)) or its `fallback` ((B,) int32), on the
+    path period_path(C) picks (path= forces one of PERIOD_PATHS: "tiled"
+    serves any C, "table" up to TILE_CANDIDATES). Returns period (B,) int32
+    and scores (B, C) float32.
 
     phase_clocks, an int64 (B, len(PERIOD_PHASES)) tensor, receives the SM
     cycles each row spent in each phase of PERIOD_PHASES."""
@@ -747,8 +792,15 @@ def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: f
     if not 1 <= T <= MAX_PERIOD_T:
         raise ValueError(f"detect_period supports 1 <= T <= {MAX_PERIOD_T}; got T = {T}")
     C = candidates.shape[0] if candidates.dim() == 1 else -1
-    if not 0 <= C <= MAX_CANDIDATES:
-        raise ValueError(f"detect_period takes at most {MAX_CANDIDATES} candidates")
+    if C < 0:
+        raise ValueError("detect_period takes a (C,) tensor of candidates")
+    if path is None:
+        path = period_path(C)
+    elif path not in PERIOD_PATHS:
+        raise ValueError(f"kernel F has no path {path!r}; its paths are {PERIOD_PATHS}")
+    elif path == "table" and C > TILE_CANDIDATES:
+        raise ValueError(f"detect_period's table path takes at most TILE_CANDIDATES = "
+                         f"{TILE_CANDIDATES} candidates; got {C}")
     for t, name, dt, shape in (
             (x, "x", torch.float32, (B, T)),
             (mask, "mask", torch.bool, (B, T)),
@@ -762,14 +814,18 @@ def detect_period(x, mask, candidates, fallback, min_acf: float, alias_margin: f
     if B == 0:
         return period, scores
     lib = build.library()
+    if C > TILE_CANDIDATES and C > lib.fm_period_max_candidates(T):
+        raise ValueError(f"detect_period takes at most {lib.fm_period_max_candidates(T)} "
+                         f"candidates at T = {T}; got {C}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fm_detect_period(
             _ptr(x), _ptr(mask), _ptr(candidates), C, _ptr(fallback), float(min_acf),
             float(alias_margin), float(contrast_margin), B, T, _ptr(period), _ptr(scores),
-            _opt(phase_clocks), ctypes.c_void_p(stream))
+            _opt(phase_clocks), int(path == "tiled"), ctypes.c_void_p(stream))
     _raise_on(rc, "detect_period", lib)
     launches["detect_period"] += 1
+    period_path_launches[path] += 1
     return period, scores
 
 
@@ -957,20 +1013,34 @@ def hpa_score(tps, tps_mask, region, tps_pred, sla, sla_mask, sla_static_limit, 
     return out
 
 
+def st_path(D: int) -> str:
+    """Kernel J's path for D columns: "warp" up to WARP_ST_D, else "cta"."""
+    return "warp" if D <= WARP_ST_D else "cta"
+
+
 def st_fit(x, mask, fit_mask, period, order: int, n_changepoints: int, ridge: float,
-           cp_shrink: float, l1_iters: int, phase_clocks=None):
+           cp_shrink: float, l1_iters: int, phase_clocks=None, path=None):
     """Launch kernel J: the seasonal-trend fit of B rows over fit_mask &
     mask, each row with its (B,) int32 period. Returns beta (B, D) and
-    preds (B, T) float32, D = 2 + n_changepoints + 2 order <= MAX_ST_D.
+    preds (B, T) float32, D = 2 + n_changepoints + 2 order, on the path
+    st_path(D) picks (path= forces one of ST_PATHS; ValueError where the
+    warp path does not serve D).
 
     phase_clocks, an int64 (B, len(ST_FIT_PHASES)) tensor, receives the SM
     cycles each row spent in each phase of ST_FIT_PHASES."""
     B, T = x.shape
     dev = x.device
     D = 2 + int(n_changepoints) + 2 * int(order)
-    if order < 0 or n_changepoints < 0 or D > MAX_ST_D:
-        raise ValueError(f"st_fit takes order >= 0, n_changepoints >= 0 and at most "
-                         f"{MAX_ST_D} columns (2 + n_changepoints + 2 order); got {D}")
+    if order < 0 or n_changepoints < 0:
+        raise ValueError(f"st_fit takes order >= 0 and n_changepoints >= 0; got {order}, "
+                         f"{n_changepoints}")
+    if path is None:
+        path = st_path(D)
+    elif path not in ST_PATHS:
+        raise ValueError(f"kernel J has no path {path!r}; its paths are {ST_PATHS}")
+    elif path == "warp" and D > WARP_ST_D:
+        raise ValueError(f"st_fit's warp path takes D <= WARP_ST_D = {WARP_ST_D} columns; "
+                         f"got {D}")
     if not 1 <= T <= MAX_ST_T:
         raise ValueError(f"st_fit supports 1 <= T <= {MAX_ST_T}; got T = {T}")
     for t, name, dt, shape in (
@@ -988,12 +1058,22 @@ def st_fit(x, mask, fit_mask, period, order: int, n_changepoints: int, ridge: fl
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_st_fit(_ptr(x), _ptr(mask), _ptr(fit_mask), _ptr(period), int(order),
-                           int(n_changepoints), float(ridge), float(cp_shrink), int(l1_iters),
-                           B, T, _ptr(beta), _ptr(preds), _opt(phase_clocks),
-                           ctypes.c_void_p(stream))
+        args = (_ptr(x), _ptr(mask), _ptr(fit_mask), _ptr(period), int(order),
+                int(n_changepoints), float(ridge), float(cp_shrink), int(l1_iters), B, T,
+                _ptr(beta), _ptr(preds), _opt(phase_clocks))
+        if path == "warp":
+            rc = lib.fm_st_fit(*args, ctypes.c_void_p(stream))
+        else:
+            grid = lib.fm_st_cta_grid(int(order), int(n_changepoints), B)
+            if grid < 1:
+                raise RuntimeError("st_fit: the cta path's grid could not be sized")
+            per = lib.fm_st_cta_scratch_doubles(int(order), int(n_changepoints))
+            scratch = (torch.empty(grid * per, dtype=torch.float64, device=dev)
+                       if per > 0 else None)
+            rc = lib.fm_st_fit_cta(*args, _opt(scratch), grid, ctypes.c_void_p(stream))
     _raise_on(rc, "st_fit", lib)
     launches["st_fit"] += 1
+    st_path_launches[path] += 1
     return beta, preds
 
 
@@ -1044,11 +1124,8 @@ def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None, phas
     J, K, W, F = x.shape
     dev = x.device
     H, Z = int(hidden), int(latent)
-    if not (1 <= H <= MAX_LSTM_HIDDEN and 1 <= Z <= MAX_LSTM_LATENT
-            and 1 <= F <= MAX_LSTM_FEATURES):
-        raise ValueError(f"lstm_ae supports hidden <= {MAX_LSTM_HIDDEN}, latent <= "
-                         f"{MAX_LSTM_LATENT} and features <= {MAX_LSTM_FEATURES}; got "
-                         f"{H}, {Z}, {F}")
+    if min(H, Z, F) < 1:
+        raise ValueError(f"lstm_ae takes hidden, latent and features >= 1; got {H}, {Z}, {F}")
     if (mu is None) != (sigma is None):
         raise ValueError("lstm_ae takes mu and sigma together")
     named = [(x, "x", torch.float32, (J, K, W, F)), (mask, "mask", torch.bool, (J, K, W, F))]
@@ -1068,7 +1145,7 @@ def lstm_ae(params, x, mask, hidden: int, latent: int, mu=None, sigma=None, phas
     if W < 1:
         raise ValueError("lstm_ae needs windows of W >= 1 steps")
     path = lstm_ae_path(K, F, H, Z, W)
-    KB = lstm_train_blocks(K, F)[0]
+    KB = lstm_train_blocks(K, F, H, Z)[0]
     smem_params = int(lib.fm_lstm_ae_smem_bytes(F, H, Z, KB, 1) <= LSTM_SMEM_PARAMS_BYTES)
     NW = _lstm_ae_windows(path, K, W, F, H, Z)
     with torch.cuda.device(dev):
@@ -1119,7 +1196,7 @@ def _lstm_ae_windows(path: str, K: int, W: int, F: int, H: int, Z: int) -> int:
     where the path does not serve it (the wide path: always, NW unused)."""
     if path == "wide":
         return 2
-    if path == "warp" and H > 32 or path == "cluster" and not 32 < H <= MAX_LSTM_HIDDEN:
+    if path == "warp" and H > 32 or path == "cluster" and not 32 < H <= CLUSTER_LSTM_HIDDEN:
         return 0
     for NW in ((4, 2) if K > 2 else (2,)):
         KW = min(-(-K // NW), 4) * NW  # the largest chunk the launch may take
@@ -1150,10 +1227,25 @@ def lstm_ae_path(K: int, F: int, H: int, Z: int, W: int = 32) -> str:
     return next(p for p in LSTM_AE_PATHS if lstm_ae_serves(p, K, F, H, Z, W))
 
 
-def lstm_train_blocks(K: int, F: int) -> tuple:
-    """(KB, nkb): the windows a CTA of kernel K and of kernel L's forward
-    runs and the window blocks of a job (nkb = ceil(K / KB))."""
-    KB = max(1, min(int(K), 8, 256 // max(int(F), 1)))
+def _lstm_window_bytes(F: int, H: int, Z: int) -> int:
+    """Shared bytes of one window of kernel K's wide path and of kernel
+    L's wide forward (csrc/lstm_ae.cu: lstm_window_floats)."""
+    return 4 * (2 * F + 2 * H + 8 * H + Z + 4 * F)
+
+
+def lstm_train_blocks(K: int, F: int, H: int, Z: int) -> tuple:
+    """(KB, nkb): the windows a CTA of kernel K's wide path and of kernel
+    L's wide forward runs and the window blocks of a job (nkb = ceil(K /
+    KB)): at most 8, at most 256 // F while F <= 256, and as many as a
+    CTA's shared memory holds (which binds only above the widths that the
+    first design served, H or F past 256). ValueError where one window does
+    not fit."""
+    fit = (CTA_SMEM_BYTES - 8) // _lstm_window_bytes(int(F), int(H), int(Z))
+    if fit < 1:
+        raise ValueError(f"the LSTM kernels' wide paths hold a window's state in shared "
+                         f"memory: F={F}, H={H}, Z={Z} takes {_lstm_window_bytes(F, H, Z)} B, "
+                         f"more than a CTA's {CTA_SMEM_BYTES}")
+    KB = max(1, min(int(K), 8, max(256 // max(int(F), 1), 1), fit))
     return KB, -(-int(K) // KB)
 
 
@@ -1162,7 +1254,8 @@ def lstm_train_forward_path(K: int, F: int, H: int, Z: int) -> str:
     widths under LSTM_FORWARD_SMEM_BYTES: "tile" (a CTA for a job's
     windows) or "wide" (lstm_train_blocks' 8 windows a CTA)."""
     lib = build.library()
-    KC = lib.fm_lstm_forward_tile_windows(int(K), int(F), int(H), lstm_train_blocks(K, F)[0])
+    KC = lib.fm_lstm_forward_tile_windows(int(K), int(F), int(H),
+                                          lstm_train_blocks(K, F, H, Z)[0])
     fits = KC > 0 and lib.fm_lstm_forward_tile_smem_bytes(int(F), int(H), int(Z), KC) \
         <= LSTM_FORWARD_SMEM_BYTES
     return "tile" if fits else "wide"
@@ -1172,11 +1265,8 @@ def _lstm_train_check(params, x, mask, hidden: int, latent: int, what: str):
     J, K, W, F = x.shape
     dev = x.device
     H, Z = int(hidden), int(latent)
-    if not (1 <= H <= MAX_LSTM_HIDDEN and 1 <= Z <= MAX_LSTM_LATENT
-            and 1 <= F <= MAX_LSTM_FEATURES):
-        raise ValueError(f"{what} supports hidden <= {MAX_LSTM_HIDDEN}, latent <= "
-                         f"{MAX_LSTM_LATENT} and features <= {MAX_LSTM_FEATURES}; got "
-                         f"{H}, {Z}, {F}")
+    if min(H, Z, F) < 1:
+        raise ValueError(f"{what} takes hidden, latent and features >= 1; got {H}, {Z}, {F}")
     if W < 1 or K < 1:
         raise ValueError(f"{what} needs K >= 1 windows of W >= 1 steps")
     _check(x, "x", torch.float32, (J, K, W, F), dev)
@@ -1201,7 +1291,7 @@ def lstm_train_forward(params, x, mask, hidden: int, latent: int, phase_clocks=N
                                                       "lstm_train_forward")
     if phase_clocks is not None:
         _check(phase_clocks, "phase_clocks", torch.int64, (J, len(LSTM_FORWARD_PHASES)), dev)
-    KB, nkb = lstm_train_blocks(K, F)
+    KB, nkb = lstm_train_blocks(K, F, H, Z)
     num = torch.empty((J, nkb), dtype=torch.float64, device=dev)
     cnt = torch.empty((J, nkb), dtype=torch.float64, device=dev)
     act = torch.empty((J, K, 2, W, 5 * H), dtype=torch.float32, device=dev)
@@ -1220,24 +1310,44 @@ def lstm_train_forward(params, x, mask, hidden: int, latent: int, phase_clocks=N
 
 
 def lstm_bptt_blocks(K: int, H: int) -> tuple:
-    """(KR, nkr): the windows a CTA of kernel L's recurrence entry runs
-    (groups of 32 ceil(H / 32) threads, each over a few windows side by
-    side, at most 256 threads a CTA) and the window blocks of a job
-    (nkr = ceil(K / KR))."""
+    """(KR, nkr): the windows a CTA of kernel L's recurrence entry runs on
+    its group path (groups of 32 ceil(H / 32) threads, each over a few
+    windows side by side, at most 256 threads a CTA) and the window blocks
+    of a job (nkr = ceil(K / KR))."""
     KR = build.library().fm_lstm_bptt_windows(int(K), int(H))
     return KR, -(-int(K) // KR)
 
 
-def lstm_train_recurrence(params, x, mask, act, hidden: int, latent: int):
+def lstm_bptt_path(F: int, H: int) -> str:
+    """Kernel L's recurrence path: "group" for H <= GROUP_BPTT_H and F <=
+    GROUP_BPTT_F, else "wide" (a CTA a window)."""
+    return "group" if H <= GROUP_BPTT_H and F <= GROUP_BPTT_F else "wide"
+
+
+def lstm_train_recurrence(params, x, mask, act, hidden: int, latent: int, path=None):
     """Launch kernel L's recurrence entry: backpropagation through time of
     each window's squared error from the forward's activations act (J, K, 2,
     W, 5H), which it overwrites in place, each step's slot with the gates'
     pre-activation gradient and the previous h (da_t, h_{t-1}). Returns the
     per-window record (J, K, S) float32 that lstm_train_wgrad reads (the
     latent, its gradient, the decoder's sum of da, Dense_1's gradient
-    summed over the window's steps, the encoder's input as floats)."""
+    summed over the window's steps, the encoder's input as floats). The
+    path is lstm_bptt_path(F, H)'s; path= forces one of BPTT_PATHS
+    (ValueError where the group path does not serve)."""
     lib, J, K, W, F, H, Z, P, dev = _lstm_train_check(params, x, mask, hidden, latent,
                                                       "lstm_train_recurrence")
+    if path is None:
+        path = lstm_bptt_path(F, H)
+    elif path not in BPTT_PATHS:
+        raise ValueError(f"kernel L's recurrence has no path {path!r}; its paths are "
+                         f"{BPTT_PATHS}")
+    elif path == "group" and lstm_bptt_path(F, H) != "group":
+        raise ValueError(f"the recurrence's group path takes H <= GROUP_BPTT_H = "
+                         f"{GROUP_BPTT_H} and F <= GROUP_BPTT_F = {GROUP_BPTT_F}; got H={H}, "
+                         f"F={F}")
+    if path == "wide" and lib.fm_lstm_bptt_wide_smem_bytes(F, H, Z) > CTA_SMEM_BYTES:
+        raise ValueError(f"the recurrence's wide path holds a window's state in shared "
+                         f"memory: F={F}, H={H}, Z={Z} does not fit a CTA")
     _check(act, "act", torch.float32, (J, K, 2, W, 5 * H), dev)
     rec = torch.empty((J, K, lib.fm_lstm_rec_floats(F, H, Z, W)), dtype=torch.float32,
                       device=dev)
@@ -1245,11 +1355,16 @@ def lstm_train_recurrence(params, x, mask, act, hidden: int, latent: int):
         return rec
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_lstm_bptt(_ptr(params), P, _ptr(x), _ptr(mask), J, K, W, F, H, Z,
-                              LSTM_TRAIN_SMEM_BYTES, _ptr(act), _ptr(rec),
-                              ctypes.c_void_p(stream))
+        if path == "group":
+            rc = lib.fm_lstm_bptt(_ptr(params), P, _ptr(x), _ptr(mask), J, K, W, F, H, Z,
+                                  LSTM_TRAIN_SMEM_BYTES, _ptr(act), _ptr(rec),
+                                  ctypes.c_void_p(stream))
+        else:
+            rc = lib.fm_lstm_bptt_wide(_ptr(params), P, _ptr(x), _ptr(mask), J, K, W, F, H, Z,
+                                       _ptr(act), _ptr(rec), ctypes.c_void_p(stream))
     _raise_on(rc, "lstm_train_recurrence", lib)
     launches["lstm_train_recurrence"] += 1
+    bptt_path_launches[path] += 1
     return rec
 
 

@@ -141,8 +141,12 @@ def _declare(lib):
     lib.fm_hw_fit_ring_row.restype = I
     lib.fm_affine_scan.argtypes = [I, P, P, P, P, I, I, P, P]
     lib.fm_affine_scan.restype = I
-    lib.fm_detect_period.argtypes = [P, P, P, I, P, F, F, F, I, I, P, P, P, P]
+    lib.fm_detect_period.argtypes = [P, P, P, I, P, F, F, F, I, I, P, P, P, I, P]
     lib.fm_detect_period.restype = I
+    lib.fm_period_max_candidates.argtypes = [I]
+    lib.fm_period_max_candidates.restype = I
+    lib.fm_period_tile_candidates.argtypes = []
+    lib.fm_period_tile_candidates.restype = I
     lib.fm_triage_screen.argtypes = [P] * 7 + [I, I, I] + [P] * 10 + [P]
     lib.fm_triage_screen.restype = I
     lib.fm_bivariate.argtypes = [P] * 10 + [I, I, I] + [P] * 9 + [P, P]
@@ -156,6 +160,12 @@ def _declare(lib):
     D = ctypes.c_double
     lib.fm_st_fit.argtypes = [P] * 4 + [I, I, D, D, I, I, I, P, P, P, P]
     lib.fm_st_fit.restype = I
+    lib.fm_st_fit_cta.argtypes = [P] * 4 + [I, I, D, D, I, I, I, P, P, P, P, I, P]
+    lib.fm_st_fit_cta.restype = I
+    lib.fm_st_cta_grid.argtypes = [I, I, I]
+    lib.fm_st_cta_grid.restype = I
+    lib.fm_st_cta_scratch_doubles.argtypes = [I, I]
+    lib.fm_st_cta_scratch_doubles.restype = LL
     lib.fm_st_sincos_check.argtypes = [P, P]
     lib.fm_st_sincos_check.restype = I
     lib.fm_lstm_ae.argtypes = [P, LL, P, P, P, P] + [I] * 10 + [P] * 4
@@ -184,6 +194,10 @@ def _declare(lib):
     lib.fm_lstm_bptt_windows.restype = I
     lib.fm_lstm_bptt.argtypes = [P, LL, P, P] + [I] * 6 + [LL] + [P] * 3
     lib.fm_lstm_bptt.restype = I
+    lib.fm_lstm_bptt_wide.argtypes = [P, LL, P, P] + [I] * 6 + [P] * 3
+    lib.fm_lstm_bptt_wide.restype = I
+    lib.fm_lstm_bptt_wide_smem_bytes.argtypes = [I] * 3
+    lib.fm_lstm_bptt_wide_smem_bytes.restype = LL
     lib.fm_lstm_wgrad.argtypes = [P] * 3 + [LL] + [I] * 7 + [P]
     lib.fm_lstm_wgrad.restype = I
     lib.fm_adam.argtypes = [P] * 8 + [LL] + [I] * 4 + [F] * 6 + [P]

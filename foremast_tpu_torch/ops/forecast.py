@@ -617,7 +617,10 @@ def fit_seasonal_trend_plain(x, mask, fit_mask, period, order: int = 3, ridge: f
 
 def _fit_st(x, mask, fit_mask, period, order, ridge=1e-4, n_changepoints=0, cp_shrink=3e-3,
             l1_iters=3):
-    """Kernel J on the card, its twin on the CPU (tensors already placed)."""
+    """Kernel J on the card, its twin on the CPU (tensors already placed).
+    A negative order or n_changepoints is taken as 0, as the reference's
+    range(1, order + 1) and its knot grid take it."""
+    order, n_changepoints = max(int(order), 0), max(int(n_changepoints), 0)
     if x.device.type == "cpu":
         return fit_seasonal_trend_plain(x, mask, fit_mask, period, order, ridge,
                                         n_changepoints, cp_shrink, l1_iters)

@@ -14,10 +14,14 @@ def norm_sf(z: torch.Tensor) -> torch.Tensor:
 
 
 def chi2_sf(x: torch.Tensor, df) -> torch.Tensor:
-    """Chi-squared survival function: gammaincc(df/2, x/2), x clamped at 0."""
+    """Chi-squared survival function: gammaincc(df/2, x/2), x clamped at 0.
+
+    At df = 0 the distribution is a point mass at 0, so sf is 0 for every
+    x >= 0 (NaN stays NaN); gammaincc itself gives NaN at a = 0."""
     x = torch.clamp(x, min=0.0)
     df = torch.as_tensor(df, dtype=x.dtype, device=x.device)
-    return torch.special.gammaincc(df / 2.0, x / 2.0)
+    q = torch.special.gammaincc(df / 2.0, x / 2.0)
+    return torch.where(df == 0, torch.where(torch.isnan(x), x, 0.0), q)
 
 
 def kolmogorov_sf(x: torch.Tensor, terms: int = 64) -> torch.Tensor:

@@ -201,7 +201,7 @@ def parent_check(parent: str) -> int:
     for F, H, Z, K, W in ((4, 32, 16, 45, 3), (3, 8, 4, 11, 8), (4, 40, 8, 11, 5),
                           (2, 10, 6, 5, 4)):
         p, x, m = cs.adversarial_lstm_train(3, K, W, F, H, Z, g)
-        KB, nkb = kernels.lstm_train_blocks(K, F)
+        KB, nkb = kernels.lstm_train_blocks(K, F, H, Z)
         num, cnt = torch.empty(3, nkb, dtype=torch.float64), torch.empty(3, nkb, dtype=torch.float64)
         act = torch.empty(3, K, 2, W, 5 * H)
         sp = int(lib.fm_lstm_train_smem_bytes(F, H, Z, KB, 1) <= kernels.LSTM_SMEM_PARAMS_BYTES)
@@ -444,9 +444,18 @@ def parent_check_friedman_topk(lib, rng) -> int:
             theirs = kernels.friedman(d, bm, path="cta")
         finally:
             kbuild.library = mine
-        ok = all(_same(a, b) for a, b in zip(ours, theirs))
+        if k == 1:
+            # P5: at df = 0 p is 0 where chi2 is defined, where the parent
+            # gave 1: chi2 against the parent's, p against the twin's
+            from foremast_tpu_torch.ops import pairwise as pw
+
+            ok = _same(ours[0], theirs[0]) and _same(ours[1], pw.friedman_plain(d, bm)[1])
+            what = "chi2 bit for bit, p the twin's (P5)"
+        else:
+            ok = all(_same(a, b) for a, b in zip(ours, theirs))
+            what = "chi2 and p bit for bit"
         print(f"{'ok  ' if ok else 'FAIL'} friedman n={n} k={k} ({kernels.friedman_path(n, k)} "
-              f"path) against the parent's: chi2 and p bit for bit", flush=True)
+              f"path) against the parent's: {what}", flush=True)
         failures += not ok
     for n in (5, 5000, 70_000):
         u, sev = (torch.from_numpy(a) for a in cs.adversarial_topk(n, rng))
@@ -560,6 +569,12 @@ def parent_check_f_i(lib, parent, g) -> int:
             ok = rc == 0 and torch.equal(kp, per) and _same(ks, sc)
             print(f"{'ok  ' if ok else 'FAIL'} detect_period T={T} C={C}{' edge rows' if edge else ''} "
                   f"against the parent's: periods and scores bit for bit", flush=True)
+            failures += not ok
+            # the tiled path forced (a lag table a row) gives the same bits
+            tp, ts = kernels.detect_period(x, hist, candt, fb, 0.2, 0.05, 0.01, path="tiled")
+            ok = torch.equal(tp, per) and _same(ts, sc)
+            print(f"{'ok  ' if ok else 'FAIL'} detect_period T={T} C={C}{' edge rows' if edge else ''} "
+                  f"tiled path against the parent's: bit for bit", flush=True)
             failures += not ok
     for T, B in ((100, 32), (2048, 16), (16384, 5)):
         a = cs.hpa_edge_rows(B, T, g)
@@ -714,15 +729,24 @@ def self_check() -> int:
     # kernel J at each float64 MMA shape; T = 301 is no multiple of 4 or of
     # a warp's 32 slots; D = 32 (C = 24) and D = 2 (C = 0, order 0); the
     # adversarial rows include one with no selected slot
+    # past WARP_ST_D the cta path: D = 33 (the engine's order at 25
+    # changepoints), 47 (Prophet's defaults), 64 and 160 (the gram in
+    # device scratch); and the cta path forced at D = 20
     for T in (128, 301):
         a = cs.adversarial_st(27, T, g)
-        for C, order in ((0, cs.ST_ORDER), (cs.ST_CHANGEPOINTS, cs.ST_ORDER), (24, 3), (0, 0)):
-            name = f"st_fit T={T} C={C} order={order}"
+        for C, order, path in ((0, cs.ST_ORDER, None), (cs.ST_CHANGEPOINTS, cs.ST_ORDER, None),
+                               (24, 3, None), (0, 0, None), (cs.ST_CHANGEPOINTS, cs.ST_ORDER,
+                                                             "cta"),
+                               (25, 3, None), (25, 10, None), (40, 11, None), (150, 4, None)):
+            if T == 128 and 2 + C + 2 * order > 64:
+                continue
+            name = (f"st_fit T={T} C={C} order={order} "
+                    f"({path or kernels.st_path(2 + C + 2 * order)} path)")
             try:
-                kern = kernels.st_fit(*a, order, C, 1e-4, 3e-3, 3)
+                kern = kernels.st_fit(*a, order, C, 1e-4, 3e-3, 3, path=path)
                 e, ill = cs.compare_st_fit(a, kern, fc.fit_seasonal_trend_plain(
                     *a, order, 1e-4, C, 3e-3, 3), 2 + C + 2 * order)
-                again = kernels.st_fit(*a, order, C, 1e-4, 3e-3, 3)
+                again = kernels.st_fit(*a, order, C, 1e-4, 3e-3, 3, path=path)
                 cs.check(all(torch.equal(u, v) for u, v in zip(kern, again)), "two runs differ")
                 expect(name, True, f"preds |err| {e:.3g}, {ill} rows ill-posed, two runs equal")
             except AssertionError as e:
@@ -739,7 +763,14 @@ def self_check() -> int:
                                   (4, 1, 6, 4, 32, 16), (4, 5, 6, 2, 10, 6),
                                   (3, 3, 6, 9, 32, 16), (3, 3, 6, 17, 32, 16),
                                   (2, 7, 6, 3, 72, 8), (2, 3, 5, 3, 65, 8),
-                                  (2, 2, 3, 4, 256, 16)]):
+                                  (2, 2, 3, 4, 256, 16),
+                                  # past the first design's limits: the
+                                  # wide path at F = 33, 40 and 300 (the
+                                  # head over chunks of features), H = 257
+                                  # and 320
+                                  (2, 3, 4, 33, 8, 4), (2, 3, 5, 40, 32, 16),
+                                  (1, 2, 2, 300, 8, 4), (2, 2, 3, 4, 257, 16),
+                                  (1, 2, 3, 3, 320, 64)]):
         p, x, m, mu, sigma = cs.adversarial_lstm(J, max(K, 2), F, H, Z, g)
         x, m = x[:, :K, :W].contiguous(), m[:, :K, :W].contiguous()
         name = f"lstm_ae J={J} K={K} W={W} F={F} H={H} Z={Z}"
@@ -754,10 +785,16 @@ def self_check() -> int:
     # in shared memory and, under a 1 KB budget, read from device memory; at
     # H = 10 the GEMM stages its rows by 4-byte copies
     saved_budget = kernels.LSTM_TRAIN_SMEM_BYTES
+    # past the group path's limits, the recurrence's wide path: F = 33 and
+    # 40, H = 257 and 320
     for (F, H, Z, K, W), budget in (((3, 8, 4, 11, 8), saved_budget),
                                     ((4, 16, 8, 11, 8), 1024), ((4, 40, 8, 11, 5), saved_budget),
                                     ((4, 40, 8, 6, 5), 1024), ((2, 8, 4, 3, 1), saved_budget),
-                                    ((2, 10, 6, 5, 4), saved_budget)):
+                                    ((2, 10, 6, 5, 4), saved_budget),
+                                    ((33, 16, 8, 3, 3), saved_budget),
+                                    ((40, 8, 4, 3, 4), saved_budget),
+                                    ((4, 257, 8, 2, 3), saved_budget),
+                                    ((3, 320, 16, 2, 2), saved_budget)):
         name = f"lstm_train and adam F={F} H={H} Z={Z} K={K} W={W} budget {budget}"
         kernels.LSTM_TRAIN_SMEM_BYTES = budget
         p, x, m = cs.adversarial_lstm_train(4, K, W, F, H, Z, g)
@@ -809,8 +846,9 @@ def self_check() -> int:
             expect(f"adam P={P}", False, str(e))
     cs.DEV = saved_dev
     # kernel F's edge rows (spans ending early, all padding, non-finite
-    # values, constant spans), rows of 2,100 slots with MAX_CANDIDATES
-    # candidates (1,536 lags in batches), T = 100 (part of a warp past T)
+    # values, constant spans), rows of 2,100 slots with up to
+    # 2 TILE_CANDIDATES candidates (1,536 lags a tile in batches), T = 100
+    # (part of a warp past T)
     cs.DEV = "cpu"
     for T, B in ((100, 16), (300, 24)):
         x_e, h_e, c_e = cs.period_edge_rows(B, T, g)
@@ -823,13 +861,20 @@ def self_check() -> int:
             expect(f"detect_period edge rows T={T}", False, str(err))
     x_l, m_l, r_l = cs.adversarial_series(2, 2100, g)[:3]
     m_l = (m_l & ~r_l).contiguous()
-    c_l = tuple(range(2, 2 + kernels.MAX_CANDIDATES))
-    try:
-        e, near = cs.compare_detect_period(x_l, m_l, c_l, fb[:2], kernels.detect_period(
-            x_l, m_l, torch.tensor(c_l, dtype=torch.int32), fb[:2], 0.2, 0.05, 0.01))
-        expect("detect_period MAX_CANDIDATES", True, f"scores |err| {e:.3g}")
-    except AssertionError as err:
-        expect("detect_period MAX_CANDIDATES", False, str(err))
+    # TILE_CANDIDATES candidates on the table path, then the tiled path at
+    # one more, at two tiles, and with candidates descending (the pick's
+    # order across tiles)
+    for c_l in (tuple(range(2, 2 + kernels.TILE_CANDIDATES)),
+                tuple(range(2, 2 + kernels.TILE_CANDIDATES + 1)),
+                tuple(range(2, 2 + 2 * kernels.TILE_CANDIDATES)),
+                tuple(range(2 + 2 * kernels.TILE_CANDIDATES, 2, -1))):
+        name = f"detect_period {len(c_l)} candidates ({kernels.period_path(len(c_l))} path)"
+        try:
+            e, near = cs.compare_detect_period(x_l, m_l, c_l, fb[:2], kernels.detect_period(
+                x_l, m_l, torch.tensor(c_l, dtype=torch.int32), fb[:2], 0.2, 0.05, 0.01))
+            expect(name, True, f"scores |err| {e:.3g}")
+        except AssertionError as err:
+            expect(name, False, str(err))
     # kernel I's edge rows at each depth of its loads (T = 100, 2048: two
     # slots a thread; 16384: four)
     for T, B in ((100, 32), (2048, 16), (16384, 5)):

@@ -225,6 +225,25 @@ cta kernel (thread 0's cycles a row, FRIEDMAN_CTA_PHASES), which split the
 first design; `rows1`, the warp path with one row a warp (its tail on
 lane 0); `notail`, the warp path without its tail (chi2 and p not
 computed).
+
+--limits holds the paths that lifted the port's limits (kernels J, F, K,
+L) against the parent: first the SHA-256 of kernels J, F, K, L, M and O's
+outputs at the shapes the parent's paths served (J at D = 20 and 32 on
+adversarial rows of T = 2048 and 16384; F with the engine's 4, 40 and
+1,024 candidates on the seasonal rows and on edge rows; K on its warp,
+cluster and wide paths; L's three entries and M on the training pass of
+1,024 jobs and at F = 32, H = 256; O's Kruskal-Wallis and Friedman on
+every path at k >= 2, and at k = 1, where P5 changes p from 1 to 0 by
+design; A and N through --a-digest's rows), each with its time (median of
+20 back to back); then, where the checkout has them, the new paths' times
+beside their bounds at full size: J's cta path at D = 33 and 47 on the
+seasonal phase's 100,000 rows of T = 16384 (kernel F's periods), F's tiled
+path with 2,048 candidates on 10,000 of those rows, K's wide path at F = 40
+(100,000 jobs x 2 windows, H = 32) and at H = 320 (10,000 x 2, Z = 64), L's
+entries at F = 40 (1,024 jobs x 45 windows, H = 32) and at H = 320 (256
+jobs, F = 4, Z = 64) with the recurrence on its wide path (medians of 5).
+Run it from the parent's checkout and this one in one call; every digest
+but the k = 1 ones must agree.
 """
 import hashlib
 import argparse
@@ -1293,6 +1312,176 @@ def des_p4(timed):
     return res
 
 
+LIMITS_RUNS = 5  # the new paths' medians (each launch up to seconds)
+
+
+def limits(out_dir):
+    """--limits: the digests at the parent's shapes, then the new paths."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    res = {}
+
+    def timed(what, run, runs=cs.TIMED_RUNS):
+        out = run()
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        sha = _out_digest(tuple(o for o in outs if o is not None))
+        ms = median_back_to_back_ms(run, runs)
+        print(f"  {what}: {ms:.4f} ms (median of {runs}), sha256 {sha}", flush=True)
+        res[what] = {"ms": ms, "sha256": sha}
+
+    # J at the warp path's shapes
+    for T, B in ((2048, 4096), (16384, 256)):
+        a = cs.adversarial_st(B, T, torch.Generator(device=cs.DEV).manual_seed(cs.SEED + T))
+        for C in (cs.ST_CHANGEPOINTS, cs.ST_WIDEST_C):
+            timed(f"st_fit {B} x {T} D={2 + C + 2 * cs.ST_ORDER}",
+                  lambda: kernels.st_fit(*a, cs.ST_ORDER, C, 1e-4, 3e-3, 3))
+        del a
+    # F with the engine's 4, 40 and 1,024 candidates, and on edge rows
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    args = cs.season_inputs(gen)[0]
+    x, hist = args[0], (args[1] & ~args[2]).contiguous()
+    del args
+    fb = torch.full((x.shape[0],), 1440, dtype=torch.int32, device=cs.DEV)
+    rows = cs.PERIOD_WIDE_ROWS
+    for cands, n in ((cs.PERIOD_CANDIDATES, x.shape[0]), (cs.MANY_CANDIDATES, rows),
+                     (tuple(range(2, 2 + 1024)), 1024)):
+        ct = torch.tensor(cands, dtype=torch.int32, device=cs.DEV)
+        xs, hs = x[:n], hist[:n]
+        timed(f"detect_period {n} x {x.shape[1]} C={len(cands)}",
+              lambda: kernels.detect_period(xs, hs, ct, fb[:n], 0.2, 0.05, 0.01))
+    xe, he, ce = cs.period_edge_rows(256, 16384, torch.Generator(device=cs.DEV).manual_seed(7))
+    timed("detect_period edge rows 256 x 16384",
+          lambda: kernels.detect_period(xe, he, torch.tensor(ce, dtype=torch.int32,
+                                                             device=cs.DEV), fb[:256], 0.2,
+                                        0.05, 0.01))
+    del xe, he
+    # J's cta path on the seasonal rows with F's periods (this tree)
+    if hasattr(kernels, "st_path"):
+        period, _ = kernels.detect_period(x, hist, torch.tensor(
+            cs.PERIOD_CANDIDATES, dtype=torch.int32, device=cs.DEV), fb, 0.2, 0.05, 0.01)
+        n_fit = int(hist.sum())
+        B, T = x.shape
+        for C, order in ((25, cs.ST_ORDER), (cs.ST_PROPHET_C, cs.ST_PROPHET_ORDER)):
+            D = 2 + C + 2 * order
+            b = cs.st_bound(B, T, n_fit, D)
+            res[f"st_fit cta {B} x {T} D={D} bound"] = b
+            print(f"  st_fit's cta path {B} x {T} D={D}: bound {b['bound_ms']:.3f} ms "
+                  f"({b['bound_by']})", flush=True)
+            timed(f"st_fit cta {B} x {T} D={D}",
+                  lambda: kernels.st_fit(x, hist, hist, period, order, C, 1e-4, 3e-3, 3),
+                  LIMITS_RUNS)
+        del period
+        C = 2048
+        cands = tuple(range(2, 2 + C))
+        xs, hs = x[:rows], hist[:rows]
+        b = cs.period_bound(hs, cands)
+        res[f"detect_period tiled {rows} x {T} C={C} bound"] = b
+        print(f"  detect_period's tiled path {rows} x {T} C={C}: bound {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']})", flush=True)
+        ct = torch.tensor(cands, dtype=torch.int32, device=cs.DEV)
+        timed(f"detect_period tiled {rows} x {T} C={C}",
+              lambda: kernels.detect_period(xs, hs, ct, fb[:rows], 0.2, 0.05, 0.01), LIMITS_RUNS)
+        del xs, hs
+    del x, hist, fb
+    torch.cuda.empty_cache()
+    # K on its three paths at the parent's shapes
+    for what, (H, Z, p, x, m, mu, sigma) in lstm_ae_shapes():
+        timed(f"lstm_ae {what}", lambda: kernels.lstm_ae(p, x, m, H, Z, mu, sigma))
+        del p, x, m
+    g = torch.Generator(device=cs.DEV).manual_seed(cs.SEED + 2)
+    for J, F, H, Z in ((4096, 17, 32, 16), (2048, 4, 256, 64)):
+        p, x, m, mu, sigma = cs.adversarial_lstm(J, 2, F, H, Z, g)
+        timed(f"lstm_ae {J} x 2 F={F} H={H}", lambda: kernels.lstm_ae(p, x, m, H, Z, mu, sigma))
+        del p, x, m
+    torch.cuda.empty_cache()
+    # L and M on the training pass, and at F = 32, H = 256
+    for J, F, H, Z in ((cs.LSTM_TRAIN_JOBS, 4, 32, 16), (128, 32, 256, 64)):
+        res.update(_limits_train(J, F, H, Z, timed, cs.TIMED_RUNS, g))
+    # O at k >= 2 on every path, and at k = 1 (P5: differs by design)
+    for k, T, B in ((2, 64, 4096), (3, 128, 100_000), (3, 4096, 2048), (3, 16384, 128),
+                    (1, 128, 4096), (1, 16384, 128)):
+        gr, gm = (torch.from_numpy(v).to(cs.DEV) for v in cs.adversarial_groups(
+            B, k, T, np.random.default_rng(cs.SEED + k * T)))
+        paths = [p_ for p_ in kernels.KRUSKAL_PATHS if kernels.kruskal_serves(p_, k, T)]
+        for path in paths:
+            timed(f"kruskal_groups {B} x {k} x {T} {path}",
+                  lambda: kernels.kruskal_groups(gr, gm, path=path))
+    for n, k, B in ((128, 3, 100_000), (20, 6, 20_000), (7, 17, 4096), (128, 1, 4096)):
+        d, bm = (torch.from_numpy(v).to(cs.DEV) for v in cs.adversarial_friedman(
+            B, n, k, np.random.default_rng(cs.SEED + n * k)))
+        for path in kernels.FRIEDMAN_PATHS:
+            if kernels.friedman_serves(path, n, k):
+                timed(f"friedman {B} x {n} x {k} {path}",
+                      lambda: kernels.friedman(d, bm, path=path))
+    res["a_digest"] = a_digest()
+    # the new LSTM paths (this tree)
+    if hasattr(kernels, "lstm_bptt_path"):
+        for J, F, H, Z in cs.LSTM_LIMIT_SCORE:
+            p, x, m, mu, sigma = cs.adversarial_lstm(J, 2, F, H, Z, g)
+            b = cs.lstm_bound(J, 2, F, H, Z)
+            res[f"lstm_ae wide {J} x 2 F={F} H={H} bound"] = b
+            print(f"  lstm_ae {J} x 2 F={F} H={H}: bound {b['bound_ms']:.3f} ms "
+                  f"({b['bound_by']}), path {kernels.lstm_ae_path(2, F, H, Z)}", flush=True)
+            timed(f"lstm_ae wide {J} x 2 F={F} H={H}",
+                  lambda: kernels.lstm_ae(p, x, m, H, Z, mu, sigma), LIMITS_RUNS)
+            del p, x, m, mu, sigma
+            torch.cuda.empty_cache()
+        for J, F, H, Z in cs.LSTM_LIMIT_TRAIN:
+            res.update(_limits_train(J, F, H, Z, timed, LIMITS_RUNS, g))
+    path = os.path.join(out_dir, "limits_%s.json" % os.path.basename(os.getcwd()))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(res, fh)
+    res["written"] = path
+    return res
+
+
+def _limits_train(J, F, H, Z, timed, runs, g):
+    """Kernel L's three entries and kernel M on J jobs x 45 windows of 32
+    steps at seeded rows (flax's initial scales): digests and times; the
+    recurrence on a fresh copy of the forward's activations each launch."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    K, W = cs.LSTM_DAY // cs.LSTM_W, cs.LSTM_W
+    p, x, m = cs.adversarial_lstm_train(J, K, W, F, H, Z, g)
+    shape = f"{J} x {K} x {W} F={F} H={H} Z={Z}"
+    timed(f"lstm_train_forward {shape}", lambda: kernels.lstm_train_forward(p, x, m, H, Z), runs)
+    num, cnt, act0 = kernels.lstm_train_forward(p, x, m, H, Z)
+    act = act0.clone()
+    rec = kernels.lstm_train_recurrence(p, x, m, act, H, Z)
+    res = {f"lstm_train_recurrence {shape}": {
+        "sha256": _out_digest((act, rec)),
+        "ms": cs.cuda_ms_fresh(lambda: kernels.lstm_train_recurrence(p, x, m, act, H, Z),
+                               lambda: act.copy_(act0), runs)}}
+    print(f"  lstm_train_recurrence {shape}: {res[f'lstm_train_recurrence {shape}']['ms']:.4f} "
+          f"ms (mean of {runs} on fresh copies), sha256 "
+          f"{res[f'lstm_train_recurrence {shape}']['sha256']}", flush=True)
+    act.copy_(act0)
+    rec = kernels.lstm_train_recurrence(p, x, m, act, H, Z)
+    timed(f"lstm_train_wgrad {shape}", lambda: kernels.lstm_train_wgrad(p, x, m, act, rec, H, Z),
+          runs)
+    gpart = kernels.lstm_train_wgrad(p, x, m, act, rec, H, Z)
+    del act, act0, rec
+    step = torch.full((J,), 3, dtype=torch.int32, device=cs.DEV)
+    mom = [1e-3 * torch.randn(p.shape, generator=g, device=cs.DEV),
+           1e-6 * torch.rand(p.shape, generator=g, device=cs.DEV)]
+    work = [p.clone(), mom[0].clone(), mom[1].clone()]
+
+    def adam():
+        for w, v in zip(work, (p, *mom)):
+            w.copy_(v)
+        loss = kernels.adam(*work, step, gpart, num, cnt, tl.LEARNING_RATE, tl.ADAM_B1,
+                            tl.ADAM_B2, tl.ADAM_EPS)
+        return (loss, *work)
+
+    timed(f"adam (with its inputs' copies) {shape}", adam, runs)
+    del p, x, m, gpart, work, mom
+    torch.cuda.empty_cache()
+    return res
+
+
 def median_back_to_back_ms(fn, runs):
     """Median of `runs` launches of fn by CUDA events recorded between
     launches enqueued back to back after a warm-up one: the host stays
@@ -1939,6 +2128,9 @@ def main():
     p.add_argument("--friedman-topk", action="store_true",
                    help="time kernel O's friedman, kernel P and kernel E's DES, with digests and "
                         "P4's shares, instead")
+    p.add_argument("--limits", action="store_true",
+                   help="digests of kernels J, F, K, L, M and O at the parent's shapes and the "
+                        "new paths' times, instead")
     p.add_argument("--friedman-variant", choices=tuple(FRIEDMAN_VARIANTS),
                    help=argparse.SUPPRESS)
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
@@ -1990,6 +2182,14 @@ def main():
         return
     if opt.friedman_variant:
         print(json.dumps(friedman_variant_run(opt.friedman_variant)), flush=True)
+        return
+    if opt.limits:
+        res = limits(opt.out)
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "written": res["written"],
+                          "sha256": {k: v["sha256"] for k, v in res.items()
+                                     if isinstance(v, dict) and "sha256" in v},
+                          "a_digest": res["a_digest"]}), flush=True)
         return
     if opt.friedman_topk:
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),

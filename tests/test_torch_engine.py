@@ -1111,72 +1111,108 @@ def test_from_env_reads_the_lstm_knobs_as_the_reference(key, value):
 
 
 @pytest.mark.parametrize("env,knob", [
-    ({"ST_CHANGEPOINTS": "30"}, "ST_CHANGEPOINTS"),
-    ({"ST_ORDER": "14", "ST_CHANGEPOINTS": "3"}, "ST_ORDER"),
-    ({"ST_ORDER": "-1"}, "ST_ORDER"),
-    ({"HW_PERIOD_CANDIDATES": ",".join(str(p) for p in range(2, 2 + 1025))},
-     "HW_PERIOD_CANDIDATES"),
-    ({"LSTM_HIDDEN": "257"}, "LSTM_HIDDEN"), ({"LSTM_HIDDEN": "0"}, "LSTM_HIDDEN"),
-    ({"LSTM_LATENT": "300"}, "LSTM_LATENT")])
+    ({"LSTM_HIDDEN": "0"}, "LSTM_HIDDEN"), ({"LSTM_LATENT": "0"}, "LSTM_LATENT")])
 def test_config_refuses_at_startup_what_the_card_cannot_take(env, knob):
-    """Values past the kernels' limits (kernels.MAX_ST_D, MAX_CANDIDATES,
-    MAX_LSTM_HIDDEN, MAX_LSTM_LATENT) are refused by name when the config is
-    built, from the environment or directly."""
-    from foremast_tpu_torch import kernels
+    """An LSTM width below 1, which the reference fails on (a layer of no
+    units divides by zero when its model is built), is refused by name
+    when the config is built, from the environment or directly."""
+    from foremast_tpu.models import lstm_ae as jax_lstm
 
-    assert (kernels.MAX_ST_D, kernels.MAX_CANDIDATES, kernels.MAX_LSTM_HIDDEN,
-            kernels.MAX_LSTM_LATENT, kernels.MAX_LSTM_FEATURES) == (32, 1024, 256, 256, 32)
+    key = knob.split("_")[1].lower()
+    with pytest.raises(ZeroDivisionError):
+        jax_lstm.init_state(jax_lstm.LstmAutoencoder(
+            features=3, **{"hidden": 4, "latent": 4, key: 0}), jax.random.PRNGKey(0), 8)
     with pytest.raises(ValueError, match=knob):
         E.from_env(env)
-    cfg = E.from_env({})
-    fields = {"ST_CHANGEPOINTS": "st_changepoints", "ST_ORDER": "st_order",
-              "LSTM_HIDDEN": "lstm_hidden", "LSTM_LATENT": "lstm_latent"}
-    kw = {fields[k]: int(v) for k, v in env.items() if k in fields}
-    if "HW_PERIOD_CANDIDATES" in env:
-        kw["hw_period_candidates"] = tuple(range(2, 2 + 1025))
     with pytest.raises(ValueError, match=knob):
-        E.EngineConfig(**{**{f: getattr(cfg, f) for f in ("st_order", "st_changepoints")}, **kw})
+        E.EngineConfig(**{f"lstm_{key}": 0})
+
+
+_TAKEN_FIELDS = ("st_changepoints", "st_order", "hw_period_candidates", "lstm_hidden",
+                 "lstm_latent")
+
+
+@pytest.mark.parametrize("env", [
+    {"ST_CHANGEPOINTS": "30"}, {"ST_ORDER": "14", "ST_CHANGEPOINTS": "3"},
+    {"HW_PERIOD_CANDIDATES": ",".join(str(p) for p in range(2, 2 + 1025))},
+    {"LSTM_HIDDEN": "257"}, {"LSTM_LATENT": "300"}, {"ST_ORDER": "-1"}],
+    ids=["changepoints_30", "order_14", "candidates_1025", "hidden_257", "latent_300",
+         "order_negative"])
+def test_config_takes_what_the_reference_takes(env):
+    """Values the kernels once refused (more than 32 seasonal-trend columns,
+    more than 1,024 period candidates, LSTM widths past 256) and a negative
+    ST_ORDER, which the reference's fit takes as 0: the port builds the
+    config, from the environment and directly, with the reference's field
+    values."""
+    from foremast_tpu.engine import config as jax_config
+
+    port, ref = E.from_env(env), jax_config.from_env(env)
+    for f in _TAKEN_FIELDS:
+        assert getattr(port, f) == getattr(ref, f), f
+    direct = E.EngineConfig(**{f: getattr(ref, f) for f in _TAKEN_FIELDS})
+    assert all(getattr(direct, f) == getattr(ref, f) for f in _TAKEN_FIELDS)
+
+
+def test_a_negative_order_fits_as_order_zero_as_the_reference():
+    """ST_ORDER=-1 (and a negative changepoint count): the reference's
+    seasonal-trend fit builds no Fourier columns (no knots), as at 0."""
+    from foremast_tpu.ops import forecast as jax_fc
+    from foremast_tpu_torch.ops import forecast as fc
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(10, 1, (3, 96)).astype(np.float32)
+    m = rng.random((3, 96)) > 0.1
+    for order, C in ((-1, 3), (2, -1)):
+        rb, rp = (np.asarray(a) for a in jax_fc.fit_seasonal_trend(
+            x, m, m, 24, order=order, n_changepoints=C))
+        b, p = fc.fit_seasonal_trend(x, m, m, 24, order=order, n_changepoints=C, device="cpu")
+        zb, zp = fc.fit_seasonal_trend(x, m, m, 24, order=max(order, 0),
+                                       n_changepoints=max(C, 0), device="cpu")
+        assert b.shape == rb.shape and torch.equal(b, zb) and torch.equal(p, zp)
+        np.testing.assert_allclose(p.numpy(), rp, rtol=0, atol=1e-3)
 
 
 def test_config_takes_the_kernels_limits_themselves():
-    from foremast_tpu_torch import kernels
+    """Prophet's published defaults, n_changepoints=25 with a yearly Fourier
+    order of 10 (D = 47 columns), and the engine's 25 changepoints at its
+    ST_ORDER of 3 (D = 33): the port's config takes both, as the
+    reference's does."""
+    from foremast_tpu.engine import config as jax_config
 
-    cfg = E.from_env({"ST_ORDER": "3", "ST_CHANGEPOINTS": str(kernels.MAX_ST_D - 8),
-                      "HW_PERIOD_CANDIDATES": ",".join(
-                          str(p) for p in range(2, 2 + kernels.MAX_CANDIDATES)),
-                      "LSTM_HIDDEN": str(kernels.MAX_LSTM_HIDDEN),
-                      "LSTM_LATENT": str(kernels.MAX_LSTM_LATENT)})
-    assert 2 + cfg.st_changepoints + 2 * cfg.st_order == kernels.MAX_ST_D
-    assert len(cfg.hw_period_candidates) == kernels.MAX_CANDIDATES
-    assert (cfg.lstm_hidden, cfg.lstm_latent) == (256, 256)
+    for env, D in (({"ST_CHANGEPOINTS": "25", "ST_ORDER": "10"}, 47),
+                   ({"ST_CHANGEPOINTS": "25"}, 33)):
+        cfg, ref = E.from_env(env), jax_config.from_env(env)
+        assert (cfg.st_changepoints, cfg.st_order) == (ref.st_changepoints, ref.st_order)
+        assert 2 + cfg.st_changepoints + 2 * cfg.st_order == D
 
 
 @pytest.mark.usefixtures("one_torch_thread")
 def test_a_job_of_more_metrics_than_the_kernels_take_fails_scoring_by_name():
-    """A job of MAX_LSTM_FEATURES + 1 metrics fails scoring, naming the
-    limit (a canary aborts); a three-metric job in the same cycle is judged."""
-    from foremast_tpu_torch import kernels
+    """A job of 40 metrics (more than the 32 a warp's lanes hold) beside a
+    three-metric job: both engines judge both, with the same verdicts
+    (verdict_digest); no job aborts."""
+    def run(mod, src_cls, **kw):
+        fixtures = {}
+        store = mod.JobStore()
+        store.create(_multi_job(mod, fixtures, bad=False, jid="ok", app="a", end=NOW - 60))
+        rng = np.random.default_rng(3)
+        metrics = {}
+        for i in range(40):
+            fixtures[f"w/h{i}"] = ((np.arange(64) * STEP).tolist(), rng.normal(5, 1, 64).tolist())
+            fixtures[f"w/c{i}"] = (((64 + np.arange(16)) * STEP).tolist(),
+                                   rng.normal(5, 1, 16).tolist())
+            metrics[f"metric{i}"] = mod.MetricQueries(current=f"w/c{i}", historical=f"w/h{i}")
+        store.create(mod.Document(id="wide", app_name="w", namespace="d", strategy="canary",
+                                  start_time=to_rfc3339(0), end_time=to_rfc3339(NOW - 60),
+                                  metrics=metrics))
+        an = mod.Analyzer(_lstm_cfg(mod, lstm_epochs=3), src_cls(fixtures), store, **kw)
+        return an.run_cycle(worker="w", now=NOW), store
 
-    fixtures = {}
-    store = E.JobStore()
-    store.create(_multi_job(E, fixtures, bad=False, jid="ok", app="a", end=NOW - 60))
-    n = kernels.MAX_LSTM_FEATURES + 1
-    rng = np.random.default_rng(3)
-    metrics = {}
-    for i in range(n):
-        fixtures[f"w/h{i}"] = ((np.arange(64) * STEP).tolist(), rng.normal(5, 1, 64).tolist())
-        fixtures[f"w/c{i}"] = (((64 + np.arange(16)) * STEP).tolist(),
-                               rng.normal(5, 1, 16).tolist())
-        metrics[f"metric{i}"] = E.MetricQueries(current=f"w/c{i}", historical=f"w/h{i}")
-    store.create(E.Document(id="wide", app_name="w", namespace="d", strategy="canary",
-                            start_time=to_rfc3339(0), end_time=to_rfc3339(NOW - 60),
-                            metrics=metrics))
-    an = E.Analyzer(_lstm_cfg(E, lstm_epochs=3), FixtureDataSource(fixtures), store,
-                    device="cpu")
-    out = an.run_cycle(worker="w", now=NOW)
-    assert out == {"ok": E.jobs.COMPLETED_HEALTH, "wide": E.jobs.ABORT}, out
-    assert "MAX_LSTM_FEATURES" in store.get("wide").reason
-    assert "scoring failed" in store.get("wide").reason
+    out, store = run(E, FixtureDataSource, device="cpu")
+    ref_out, ref_store = run(jax_engine, JaxFixtureSource)
+    assert out == ref_out and out["wide"] != E.jobs.ABORT, (out, ref_out)
+    assert store.get("wide").reason == ref_store.get("wide").reason
+    assert verdict_digest(store) == jax_digest(ref_store)
 
 
 @pytest.mark.usefixtures("one_torch_thread")

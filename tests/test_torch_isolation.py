@@ -211,24 +211,35 @@ def test_launchers_refuse_cpu_tensors():
         kernels.hpa_score(x, m, ~m, x, x, m, pol[0], pol[1], pol[0], tps_sigma=pol[0])
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.st_fit(x, m, m, torch.full((2,), 4, dtype=torch.int32), 3, 12, 1e-4, 3e-3, 3)
-    with pytest.raises(ValueError, match="at most 32 columns"):
+    # past 32 columns the cta path takes the row, and refuses CPU tensors
+    # alike; a negative order is refused by name
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.st_fit(x, m, m, torch.full((2,), 4, dtype=torch.int32), 8, 16, 1e-4, 3e-3, 3)
+    with pytest.raises(ValueError, match="order >= 0"):
+        kernels.st_fit(x, m, m, torch.full((2,), 4, dtype=torch.int32), -1, 16, 1e-4, 3e-3, 3)
     P = 2 * 2 * 32 + 8 * 32 + 32 + 8 * 4 + 4 + 4 * 32 + 8 * 32 + 32 + 8 * 2 + 2
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.lstm_ae(torch.zeros((1, P)), torch.zeros((1, 3, 5, 2)),
                         torch.ones((1, 3, 5, 2), dtype=torch.bool), 8, 4)
-    with pytest.raises(ValueError, match="hidden <= 256"):
+    # any width the reference takes reaches the device check; a width of 0
+    # is refused by name
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.lstm_ae(torch.zeros((1, P)), torch.zeros((1, 3, 5, 2)),
                         torch.ones((1, 3, 5, 2), dtype=torch.bool), 512, 4)
+    with pytest.raises(ValueError, match=">= 1"):
+        kernels.lstm_ae(torch.zeros((1, P)), torch.zeros((1, 3, 5, 2)),
+                        torch.ones((1, 3, 5, 2), dtype=torch.bool), 0, 4)
     win, wmask = torch.zeros((1, 3, 5, 2)), torch.ones((1, 3, 5, 2), dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.lstm_train_forward(torch.zeros((1, P)), win, wmask, 8, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.lstm_train_backward(torch.zeros((1, P)), win, wmask,
                                     torch.zeros((1, 3, 2, 5, 40)), 8, 4)
-    with pytest.raises(ValueError, match="features <= 32"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.lstm_train_forward(torch.zeros((1, P)), torch.zeros((1, 3, 5, 33)),
                                    torch.ones((1, 3, 5, 33), dtype=torch.bool), 8, 4)
+    with pytest.raises(ValueError, match=">= 1"):
+        kernels.lstm_train_forward(torch.zeros((1, P)), win, wmask, 8, 0)
     row = torch.zeros((1, P))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.adam(row, row, row, torch.ones(1, dtype=torch.int32), torch.zeros((1, 1, P)),

@@ -317,3 +317,63 @@ def test_reset_launches_clears_the_friedman_and_fleet_topk_path_counts():
     assert not any(kernels.friedman_path_launches.values())
     assert not any(kernels.fleet_topk_path_launches.values())
     assert kernels.launches["friedman"] == 0
+
+
+@pytest.mark.parametrize("D, path", [(2, "warp"), (20, "warp"), (32, "warp"), (33, "cta"),
+                                     (47, "cta"), (160, "cta")])
+def test_st_path_by_columns(D, path):
+    assert kernels.st_path(D) == path
+
+
+@pytest.mark.parametrize("C, path", [(0, "table"), (4, "table"), (1024, "table"),
+                                     (1025, "tiled"), (2048, "tiled")])
+def test_period_path_by_candidates(C, path):
+    assert kernels.period_path(C) == path
+
+
+@pytest.mark.parametrize("F, H, path", [(3, 32, "group"), (32, 256, "group"), (33, 32, "wide"),
+                                        (40, 32, "wide"), (4, 257, "wide"), (4, 320, "wide")])
+def test_lstm_bptt_path_by_width(F, H, path):
+    assert kernels.lstm_bptt_path(F, H) == path
+
+
+@pytest.mark.parametrize("K, F, H, Z, KB", [
+    (45, 4, 32, 16, 8), (45, 32, 256, 256, 8), (45, 40, 32, 16, 6), (2, 40, 32, 16, 2),
+    (45, 300, 8, 4, 1), (45, 4, 320, 64, 8), (45, 4, 1024, 64, 5)])
+def test_lstm_train_blocks_keep_the_first_design_s_windows_and_fit_a_cta(K, F, H, Z, KB):
+    """At the widths the first design served (F and H up to 256) a CTA runs
+    min(K, 8, 256 // F) windows as before; above them as many as a CTA's
+    shared memory holds."""
+    got, nkb = kernels.lstm_train_blocks(K, F, H, Z)
+    assert (got, nkb) == (KB, -(-K // KB))
+    assert got * 4 * (2 * F + 10 * H + Z + 4 * F) <= kernels.CTA_SMEM_BYTES
+
+
+def test_lstm_train_blocks_refuse_a_window_past_a_cta():
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.lstm_train_blocks(2, 4, 6000, 64)
+
+
+def test_reset_launches_clears_the_st_period_and_bptt_path_counts():
+    for counts in (kernels.st_path_launches, kernels.period_path_launches,
+                   kernels.bptt_path_launches):
+        for k in counts:
+            counts[k] = 3
+    kernels.reset_launches()
+    assert not any(kernels.st_path_launches.values())
+    assert not any(kernels.period_path_launches.values())
+    assert not any(kernels.bptt_path_launches.values())
+
+
+def test_forced_paths_refuse_by_name_on_the_cpu():
+    x = torch.zeros(2, 64)
+    m = torch.ones(2, 64, dtype=torch.bool)
+    with pytest.raises(ValueError, match="no path"):
+        kernels.st_fit(x, m, m, torch.full((2,), 8, dtype=torch.int32), 3, 0, 1e-4, 3e-3, 3,
+                       path="block")
+    with pytest.raises(ValueError, match="WARP_ST_D"):
+        kernels.st_fit(x, m, m, torch.full((2,), 8, dtype=torch.int32), 3, 30, 1e-4, 3e-3, 3,
+                       path="warp")
+    with pytest.raises(ValueError, match="TILE_CANDIDATES"):
+        kernels.detect_period(x, m, torch.arange(2, 1027, dtype=torch.int32),
+                              torch.zeros(2, dtype=torch.int32), 0.2, 0.05, 0.01, path="table")

@@ -795,11 +795,11 @@ def test_detect_period_edge_rows_match_twin(card, T):
 
 
 def test_detect_period_takes_max_candidates(card):
-    """MAX_CANDIDATES candidates, 2 to 1025: 1,536 distinct lags, in batches."""
+    """TILE_CANDIDATES candidates, 2 to 1025: 1,536 distinct lags, in batches."""
     gen = torch.Generator(device=card).manual_seed(1024)
     x, m, region = cs.adversarial_series(64, 4096, gen)[:3]
     hist = m & ~region
-    cands = tuple(range(2, 2 + kernels.MAX_CANDIDATES))
+    cands = tuple(range(2, 2 + kernels.TILE_CANDIDATES))
     fb = torch.full((64,), 7, dtype=torch.int32, device=card)
     kern = kernels.detect_period(x, hist, torch.tensor(cands, dtype=torch.int32, device=card),
                                  fb, 0.2, 0.05, 0.01)
@@ -1056,7 +1056,7 @@ KRUSKAL_WARP_SHAPES = [(k, T) for k, T in cs.KRUSKAL_CHECK if k * T <= 512] + [(
 
 
 @pytest.mark.parametrize("path", kernels.KRUSKAL_PATHS)
-@pytest.mark.parametrize("k,T", cs.KRUSKAL_CHECK + ((4, 128),))
+@pytest.mark.parametrize("k,T", cs.KRUSKAL_CHECK + ((4, 128), (1, 128), (1, 4096), (1, 16384)))
 def test_kruskal_groups_paths_match_twin(card, k, T, path):
     from foremast_tpu_torch.ops import pairwise as pw
 
@@ -1207,8 +1207,9 @@ def test_friedman_warp_path_gives_the_cta_path_s_bits(card, n, k):
     assert cs.same_bits(got[0], cta[0]) and cs.same_bits(got[1], cta[1])
     pc, pp = pw.friedman_plain(d, bm)
     cs.close(got[0], pc, cs.STAT_RTOL, 1e-5, "chi2")
-    if k > 1:  # df = 0: the kernel's p is 1, the twin's NaN (ROADMAP queue 3, P5)
-        cs.close(got[1], pp, 0.0, cs.P_ATOL, "p")
+    cs.close(got[1], pp, 0.0, cs.P_ATOL, "p")
+    if k == 1:  # df = 0: p = 0 wherever the statistic is defined
+        assert bool((cta[1] == pp).all()) and bool(((pp == 0) | (pp == 1)).all())
     lib = kernels.build.library()
     assert kernels.WARP_FRIEDMAN_K == lib.fm_warp_friedman_k()
     assert kernels.WARP_FRIEDMAN_N == lib.fm_warp_friedman_n()
@@ -1296,3 +1297,131 @@ def test_fleet_scorer_in_a_world_of_one_over_nccl(card):
     finally:
         if started:
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the paths past the first designs' limits (kernels J, F, K, L)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("C,order", cs.ST_WIDE_CHECK + ((cs.ST_CHANGEPOINTS, cs.ST_ORDER),))
+@pytest.mark.parametrize("T", [301, 2048])
+def test_st_fit_cta_path_matches_twin(card, T, C, order):
+    """Kernel J's cta path at D = 33, 47, 64 and 160 (the gram in device
+    scratch), where st_path sends it, and forced at the engine's D = 20;
+    a row with no selected slot; two runs equal bit for bit."""
+    D = 2 + C + 2 * order
+    gen = torch.Generator(device=card).manual_seed(T + D)
+    x, m, fit, period = cs.adversarial_st(160, T, gen)
+    fit[5] = False
+    args = (x, m, fit, period)
+    kernels.reset_launches()
+    kern = kernels.st_fit(*args, order, C, 1e-4, 3e-3, 3, path="cta")
+    assert kernels.st_path_launches == {"warp": 0, "cta": 1}
+    assert kernels.st_path(D) == ("cta" if D > kernels.WARP_ST_D else "warp")
+    again = kernels.st_fit(*args, order, C, 1e-4, 3e-3, 3, path="cta")
+    plain = fc.fit_seasonal_trend_plain(*args, order, 1e-4, C, 3e-3, 3)
+    torch.cuda.synchronize()
+    cs.compare_st_fit(args, kern, plain, D)
+    assert torch.equal(kern[0], again[0]) and torch.equal(kern[1], again[1])
+    # G in device scratch from D = 137 (the gram's (8 NB)^2 doubles beside
+    # the tile no longer fit a CTA)
+    scratch = kernels.build.library().fm_st_cta_scratch_doubles(order, C)
+    assert (scratch > 0) == (D > 136)
+
+
+def test_st_fit_warp_path_refuses_past_its_columns(card):
+    x, m, fit, period = cs.adversarial_st(8, 64, torch.Generator(device=card).manual_seed(1))
+    with pytest.raises(ValueError, match="WARP_ST_D"):
+        kernels.st_fit(x, m, fit, period, 3, 25, 1e-4, 3e-3, 3, path="warp")
+
+
+@pytest.mark.parametrize("C", [1025, 2048, 3000])
+def test_detect_period_tiled_path_matches_twin(card, C):
+    """Past TILE_CANDIDATES, the tiled path: candidates ascending (1,025,
+    2,048) and descending with duplicates across tiles (3,000), against the
+    twin."""
+    gen = torch.Generator(device=card).manual_seed(C)
+    x, m, region = cs.adversarial_series(64, 4096, gen)[:3]
+    hist = m & ~region
+    cands = (tuple(range(2, 2 + C)) if C < 3000 else
+             tuple(range(2 + 2048, 2, -1)) + tuple(range(2, 2 + C - 2048)))
+    fb = torch.full((64,), 7, dtype=torch.int32, device=card)
+    kernels.reset_launches()
+    kern = kernels.detect_period(x, hist, torch.tensor(cands, dtype=torch.int32, device=card),
+                                 fb, 0.2, 0.05, 0.01)
+    assert kernels.period_path_launches == {"table": 0, "tiled": 1}
+    torch.cuda.synchronize()
+    cs.compare_detect_period(x, hist, cands, fb, kern)
+
+
+@pytest.mark.parametrize("T", [1024, 16384])
+def test_detect_period_tiled_path_gives_the_table_path_s_bits(card, T):
+    """Up to TILE_CANDIDATES the tiled path forced (a lag table a row)
+    gives the table path's periods and scores bit for bit: a lag's score
+    does not depend on the lags swept beside it."""
+    gen = torch.Generator(device=card).manual_seed(T + 7)
+    x, m, region = cs.adversarial_series(256, T, gen)[:3]
+    hist = m & ~region
+    fb = torch.full((256,), 7, dtype=torch.int32, device=card)
+    for cands in ((2, 3, 24) + cs.PERIOD_CANDIDATES, cs.MANY_CANDIDATES):
+        ct = torch.tensor(cands, dtype=torch.int32, device=card)
+        table = kernels.detect_period(x, hist, ct, fb, 0.2, 0.05, 0.01)
+        tiled = kernels.detect_period(x, hist, ct, fb, 0.2, 0.05, 0.01, path="tiled")
+        torch.cuda.synchronize()
+        assert torch.equal(table[0], tiled[0]) and _same_bits(table[1], tiled[1])
+    with pytest.raises(ValueError, match="TILE_CANDIDATES"):
+        kernels.detect_period(x, hist, torch.arange(2, 2 + 1025, dtype=torch.int32,
+                                                    device=card), fb, 0.2, 0.05, 0.01,
+                              path="table")
+    assert kernels.TILE_CANDIDATES == kernels.build.library().fm_period_tile_candidates()
+
+
+@pytest.mark.parametrize("J,K,F,H,Z", cs.LSTM_LIMIT_CASES + ((3, 2, 300, 8, 4),))
+def test_lstm_ae_past_the_first_design_s_limits(card, J, K, F, H, Z):
+    """Kernel K past 32 metrics a job (F = 33, 40; 300: the head over
+    chunks of features) and 256 units (H = 257, 320): the wide path alone
+    serves, against the twin."""
+    gen = torch.Generator(device=card).manual_seed(F * H + Z)
+    p, x, m, mu, sigma = cs.adversarial_lstm(J, K, F, H, Z, gen)
+    e, paths = cs.lstm_ae_paths_agree(p, x, m, H, Z, mu, sigma)
+    assert paths == ("wide",)
+
+
+@pytest.mark.parametrize("F,H,Z", [(33, 32, 16), (40, 32, 16), (4, 257, 16), (4, 320, 64),
+                                   (3, 8, 4)])
+def test_lstm_train_recurrence_wide_path_matches_autograd_through_the_twin(card, F, H, Z):
+    """Kernel L past the group path's limits (F = 33, 40; H = 257, 320),
+    and its wide recurrence forced at a width the group path serves (F = 3,
+    H = 8): loss and gradient against torch autograd through the twin, the
+    weight-gradient entry against its twin, two backward runs equal."""
+    from foremast_tpu_torch.models import lstm_ae as tl
+
+    gen = torch.Generator(device=card).manual_seed(F * H + Z + 1)
+    J, K, W = 16, 11, 8
+    p, x, m = cs.adversarial_lstm_train(J, K, W, F, H, Z, gen)
+    num, cnt, act = kernels.lstm_train_forward(p, x, m, H, Z)
+    kernels.reset_launches()
+    rec = kernels.lstm_train_recurrence(p, x, m, act.clone(), H, Z, path="wide")
+    assert kernels.bptt_path_launches == {"group": 0, "wide": 1}
+    assert rec.shape[:2] == (J, K)
+    if kernels.lstm_bptt_path(F, H) == "wide":
+        kern = tl.loss_and_grad(p, x, m, hidden=H, latent=Z)
+        q = p.clone().requires_grad_(True)
+        loss = tl.loss_plain(q, x, m, H, Z)
+        grad, = torch.autograd.grad(loss.sum(), q)
+        cs.compare_lstm_train(kern, (loss.detach(), grad))
+        cs.compare_lstm_wgrad(p, x, m, act, H, Z)
+        cs.lstm_backward_twice(p, x, m, act, H, Z)
+    else:
+        # the wide path's gradient against the group path's, both against
+        # the twin's sums (other orders: compare_lstm_wgrad's tolerance)
+        group = kernels.lstm_train_backward(p, x, m, act.clone(), H, Z)
+        act_w = act.clone()
+        rec_w = kernels.lstm_train_recurrence(p, x, m, act_w, H, Z, path="wide")
+        wide = kernels.lstm_train_wgrad(p, x, m, act_w, rec_w, H, Z)
+        torch.cuda.synchronize()
+        scale = group.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+        ok = torch.isfinite(group).all(-1, keepdim=True)
+        assert bool((((wide - group).abs() / scale)[ok.expand_as(group)] <= 1e-4).all())
+    if kernels.lstm_bptt_path(F, H) == "wide":
+        with pytest.raises(ValueError, match="GROUP_BPTT"):
+            kernels.lstm_train_recurrence(p, x, m, act.clone(), H, Z, path="group")

@@ -95,7 +95,8 @@ def test_parameter_counts_and_the_flat_layout_round_trip():
         tl.unflatten_params(flat, 4, 32, 8)
 
 
-@pytest.mark.parametrize("F,H,Z", WIDTHS)
+# past the first design's limits: 40 metrics a job, 320 units
+@pytest.mark.parametrize("F,H,Z", WIDTHS + [(40, 32, 16), (4, 320, 64)])
 def test_scoring_entry_points_match_the_reference(F, H, Z):
     W = 32
     model, params = _trained(F, H, Z, 3)

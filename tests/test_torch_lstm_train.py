@@ -134,7 +134,7 @@ def _carried(F, H, Z, W):
     return model, jax.device_get(params), jax.device_get(opt_state), tx
 
 
-@pytest.mark.parametrize("F,H,Z", [(3, 8, 4), (4, 32, 16)])
+@pytest.mark.parametrize("F,H,Z", [(3, 8, 4), (4, 32, 16), (40, 32, 16), (4, 320, 64)])
 def test_one_train_step_from_carried_state_matches_the_reference(F, H, Z):
     W = 16
     model, params, opt_state, tx = _carried(F, H, Z, W)

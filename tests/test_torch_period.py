@@ -176,3 +176,35 @@ def test_plain_twin_in_row_chunks_equals_one_pass(monkeypatch):
     monkeypatch.setattr(tfc, "_PLAIN_CHUNK_SLOTS", 3 * 256)  # chunks of 3 rows
     parts = tfc.detect_period_plain(*args)
     assert torch.equal(whole[0], parts[0]) and torch.equal(whole[1], parts[1])
+
+
+@pytest.mark.parametrize("C", [1025, 2048])
+def test_more_candidates_than_a_tile_match_reference(C):
+    """1,025 and 2,048 candidates (past kernel F's 1,024 a lag table): valid
+    lags spread over both tiles of the card's tiled path, one in the last
+    slot of the first tile and one in the first of the second, a duplicate
+    of an earlier candidate late in the list (the first eligible wins),
+    the rest out of range (p >= T or p < 2), which the reference scores
+    -inf without computing them (its compile time grows with each lag it
+    computes: 1,025 valid lags take minutes)."""
+    x, mask = _fleet(11, B=24, T=1024)
+    T = x.shape[1]
+    cands = [T + i if i % 2 else i % 2 for i in range(C)]  # out of range: >= T or < 2
+    valid = {5: 3, 300: 6, 900: 12, 1023: 24, 1024: 48, C - 600: 90, C - 300: 200,
+             C - 2: 24, C - 1: 600}
+    for at, p in valid.items():
+        cands[at] = p
+    cands = tuple(cands)
+    fallback = 17
+    jp, js, tp, ts = _both(x, mask, cands, fallback, 0.2)
+    _scores_close(ts, js)
+    assert np.isneginf(ts[:, [i for i in range(C) if i not in valid]]).all()
+    # the half lags of the valid candidates alone (an out-of-range one's
+    # half would be a lag to compute)
+    halves = tuple((p // 2 if p >= 4 else 2) if 2 <= p < T else T for p in cands)
+    _, jh = jfc.detect_period(x, mask, halves, np.int32(fallback), np.float32(0.2))
+    near = cs.near_decision(torch.from_numpy(js), torch.from_numpy(np.asarray(jh)), cands,
+                            T).numpy()
+    assert near.mean() < 0.3
+    np.testing.assert_array_equal(tp[~near], jp[~near])
+    assert int(tp[1]) == fallback

@@ -358,3 +358,48 @@ def test_entry_points_take_tensors_and_check_shapes():
         tpw.kruskal_batch(x, xm, device="cpu")
     with pytest.raises(ValueError, match=r"\(B, n, k\)"):
         tpw.friedman_batch(x, xm, device="cpu")
+
+
+@pytest.mark.parametrize("test", ["kruskal", "friedman"])
+@pytest.mark.parametrize("n", [5, 128])
+def test_one_group_gives_p_zero_as_the_reference(test, n):
+    """k = 1 (df = 0): a chi-square of no degrees of freedom is a point
+    mass at 0, so p = 0 wherever the statistic is defined (p = 1 where the
+    ok guard fails: no valid point, or every point tied). The reference's
+    float32 statistic is rounding noise there: above 0 it gives p = 0 as
+    the port does; at or below 0 it gives p = NaN (gammaincc(0, 0) of the
+    clamped statistic; ROADMAP queue 3, R11), and those rows are
+    bracketed."""
+    rng = np.random.default_rng(n)
+    B = 24
+    if test == "kruskal":
+        g = rng.normal(size=(B, 1, n)).astype(np.float32)
+        m = rng.random((B, 1, n)) > 0.2
+        m[2] = False          # no valid point: p = 1
+        g[3] = 4.0            # every point tied: p = 1
+        stat, p = tpw.kruskal_batch(g, m, device="cpu")
+        rstat, rp = _np(jpw.kruskal_batch(g, m))
+        single = tops.kruskal_wallis(g[0], m[0], device="cpu")
+        ref_single = jops.kruskal_wallis(g[0], m[0])
+    else:
+        d = rng.normal(size=(B, n, 1)).astype(np.float32)
+        bm = rng.random((B, n)) < 0.75
+        bm[2] = False         # no block: p = 1
+        stat, p = tpw.friedman_batch(d, bm, device="cpu")
+        rstat, rp = _np(jpw.friedman_batch(d, bm))
+        single = tops.friedman_chi_square(d[0], bm[0], device="cpu")
+        ref_single = jops.friedman_chi_square(d[0], bm[0])
+    stat, p = stat.numpy(), p.numpy()
+    undefined = p == 1.0
+    assert undefined[2] and (test == "friedman" or undefined[3])
+    # the statistic is 0 up to float64 rounding of exact integer sums
+    assert np.all(p[~undefined] == 0.0) and np.all(np.abs(stat[~undefined]) <= 1e-9)
+    assert np.all(rp[undefined] == 1.0)
+    # R11: the reference's statistic at or below 0 (clamped to 0)
+    noise = ~undefined & np.isnan(rp)
+    assert np.all(rstat[noise] <= 0.0)
+    assert np.all(rp[~undefined & ~noise] == 0.0)
+    assert np.all(np.abs(rstat[~undefined]) <= 1e-4)
+    assert float(single[1]) == p[0]
+    # the single form compiles apart: its own noise, 0 or (R11) NaN
+    assert float(ref_single[1]) == p[0] or np.isnan(float(ref_single[1]))

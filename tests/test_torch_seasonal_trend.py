@@ -153,6 +153,44 @@ def test_twin_matches_the_reference_and_a_float64_solve(C, order, l1_iters, T):
         assert not beta[3].any() and not preds[3].any()
 
 
+@pytest.mark.parametrize("T", [420, 2048])
+@pytest.mark.parametrize("C,order", [(25, 3), (25, 10)], ids=["D33", "D47"])
+def test_twin_past_32_columns_matches_the_reference_and_a_float64_solve(C, order, T):
+    """The widths past the warp path's 32 columns: ST_CHANGEPOINTS=25 at the
+    engine's ST_ORDER=3 (D = 33) and Prophet's defaults, 25 changepoints
+    and order 10 (D = 47), at the tolerances above; ill-posed rows (R8)
+    bracketed as above, and the reference's drift where the condition
+    number passes 1e6 bracketed in proportion to it."""
+    period = _PERIOD[T]
+    x, m, fit = _rows(T + C + order, T, period)
+    X = _design(T, period, order, C)
+    scale = np.maximum(np.abs(np.where(m, x, 0)).max(1), 1.0)
+    beta, preds = tfc.fit_seasonal_trend(x, m, fit, period, order, n_changepoints=C,
+                                         device="cpu")
+    beta, preds = beta.numpy(), preds.numpy()
+    ref = np.asarray(jfc.fit_seasonal_trend(x, m, fit, period, order, n_changepoints=C)[1])
+    assert beta.shape == (x.shape[0], 2 + C + 2 * order)
+    checked = 0
+    for i in range(x.shape[0]):
+        b64, p64, cond = _solve64(x[i].astype(np.float64), m[i] & fit[i], X, order, C, 1e-4, 3)
+        sel = np.nonzero(m[i] & fit[i])[0]
+        if sel.size < X.shape[1] or sel[-1] - sel[0] + 1 < period:
+            assert np.isfinite(preds[i]).all(), i
+            continue
+        assert np.abs(preds[i] - p64).max() <= 1e-6 * scale[i], i
+        if cond < 1e6:
+            np.testing.assert_allclose(beta[i], b64, rtol=1e-6, atol=1e-6 * np.abs(b64).max())
+        # R8: the reference's float32 solve drifts with the penalised
+        # gram's condition number, which 25 hinges push past 1e6; there its
+        # drift is bracketed at the same 2e-3 * scale per 1e6 of it
+        bound = 2e-3 * scale[i] * max(1.0, cond / 1e6)
+        assert np.abs(ref[i] - p64).max() <= bound, (i, cond)
+        assert np.abs(preds[i] - ref[i]).max() <= bound, (i, cond)
+        checked += 1
+    assert checked >= 5
+    assert not beta[3].any() and not preds[3].any()
+
+
 def test_per_row_periods_equal_one_call_per_period():
     """Kernel J's interface takes one period per row, where the reference
     takes one per call: a mixed batch equals the per-period calls."""
