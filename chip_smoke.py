@@ -67,7 +67,21 @@ ends; any failure exits non-zero:
              all-masked, one-point and all-tied rows and masked blocks;
              kernel P against its twin bit for bit at n in {5, 4096,
              100,000}, k in {1, 8, 64, 3000, n + 5}, with ties, +-NaN, +-0
-             and +-inf;
+             and +-inf; kernel E's DES on both of its paths at T in {128,
+             1000, 4096, 16383, 16384} on 1,000 rows (the walk forced equal
+             to the twin bit for bit, the scan forced within
+             compare_scan's limit; all-masked rows, masked prefixes, NaN and
+             inf at masked slots, alpha and beta at 0 and 1), and on P4's
+             16 draws of 1,024 rows at T = 16384 (the walk, taken by
+             default there, the twin's bits; the scan within half of the
+             limit); past the first designs' limits: kernels A and N at
+             T = 43,200 (a 30-day window at 60 s) on 1,024 pairs, kernel O's
+             Kruskal-Wallis and ranks at 8 groups of 172,800 (1,382,400
+             keys a row), a fully tied row of 2^21 + 1 keys (the tie term
+             equal to the float32 of the exact integer) and one row of 2^24
+             keys (timed), kernel P on 2^30 + 7 rows keyed from 3 x 2^30
+             (two launches and a merge; the twin in slices of 2^26), each
+             against its twin;
   4. pairs   the pair path at full size: 100,000 ErrorGenerator-style
              (baseline, canary) pairs at T = 128 through resample_to_grid ->
              pack_windows -> score_pairs on the card (kernel A's warp path,
@@ -116,7 +130,11 @@ ends; any failure exits non-zero:
              same inputs (kernel C's Holt-Winters refit with each row's
              fitted parameters and period on the path it took, equal bit
              for bit to the other path), and beside kernel J a Cholesky
-             solve of the same systems.
+             solve of the same systems; then seqscan.des_predictions_assoc
+             on the same rows (kernel E's DES on its walk path, its path
+             counter; the twin's bits on 2,048 rows), timed beside its
+             bound, the scan path forced on the same rows and on one row,
+             and the twin.
   7. families the bivariate and hpa families at full size: 100,000 rows
              made on the card at bucket 2048 (1 day of 60 s history) and
              16384 (7 days). Kernel H through bivariate_normal_anomalies on
@@ -441,6 +459,13 @@ def same_bits(a, b):
     return a.dtype == b.dtype and torch.equal(view(a), view(b))
 
 
+def same_bits_nan(a, b):
+    """Equal bit for bit but for NaN payloads and signs (a NaN matches a
+    NaN), which a host and a card produce differently."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and same_bits(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
 def pair_verdict_paths(rng):
     """Kernel A forced onto each of its paths at PAIR_PATH_T (all three
     serve these windows), on CHECK_ROWS - 1 adversarial rows (the warp
@@ -722,6 +747,72 @@ def des_walk(x, hist, alpha, beta, dtype):
         preds[:, t] = lvl + trend
         lvl, trend = (a00 * lvl + a00 * trend) + c0, (a10 * lvl + a11 * trend) + c1
     return preds.to(torch.float32)
+
+
+WALK_CHECK_T = (128, 1000, 4096, 16383, 16384)  # kernel E's walk: staged tiles or not
+WALK_CHECK_ROWS = 1000  # not a multiple of 32
+P4_DRAWS, P4_ROWS, P4_T = 16, 1024, 16384
+
+
+def walk_rows(B, T, gen):
+    """adversarial_series' DES rows (all masked, a masked prefix, a masked
+    tail, NaN and inf at masked slots, constant, one point) with alpha and
+    beta at (0, 1), (1, 0), (1, 1) and (0, 0) on four rows of each 16.
+    Returns (x, hist, alpha, beta)."""
+    x, m, region, al, be = adversarial_series(B, T, gen)[:5]
+    r = torch.arange(B, device=DEV) % 16
+    for j, (a, b) in enumerate(((0.0, 1.0), (1.0, 0.0), (1.0, 1.0), (0.0, 0.0))):
+        al = torch.where(r == 11 + j, a, al)
+        be = torch.where(r == 11 + j, b, be)
+    return x, (m & ~region).contiguous(), al.contiguous(), be.contiguous()
+
+
+def kernel_e_paths():
+    """Kernel E's DES on both of its paths against its twin: the walk
+    (forced) equal to the twin bit for bit and the scan (forced) within
+    compare_scan's limit at WALK_CHECK_T on WALK_CHECK_ROWS walk_rows; then
+    P4's 16 draws of 1,024 adversarial rows at T = 16384, where the default
+    path is the walk (the twin's bits) and the forced scan stays within half
+    of compare_scan's limit. Returns the largest share of that limit."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import seqscan as sq
+
+    des = kernels.SMOOTH_DES
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    worst = 0.0
+    for T in WALK_CHECK_T:
+        x, hist, al, be = walk_rows(WALK_CHECK_ROWS, T, gen)
+        twin = sq.des_predictions_assoc_plain(x, hist, al, be)
+        walk = kernels.affine_scan(des, x, hist, al, be, path="walk")
+        check(same_bits_nan(walk, twin), f"affine_scan's walk at T = {T}: not the twin's bits "
+              f"(max |err| {max_abs_err(walk, twin):.3g})")
+        scan = kernels.affine_scan(des, x, hist, al, be, path="scan")
+        close_rows(scan, twin, 1e-4, 1e-4 * row_scale(x, hist), f"affine_scan 2 scan T={T}")
+        share = float(scan_limit_share(scan, twin, x, hist).max())
+        worst = max(worst, share)
+        print(f"  affine_scan DES T={T}, {WALK_CHECK_ROWS} rows: the walk the twin's bits; the "
+              f"scan at {share:.3g} of compare_scan's limit", flush=True)
+    draws = [adversarial_series(P4_ROWS, P4_T, torch.Generator(device=DEV).manual_seed(
+        SEED + 1000 + d))[:5] for d in range(P4_DRAWS)]
+    x = torch.cat([a[0] for a in draws])
+    hist = torch.cat([a[1] & ~a[2] for a in draws])
+    al, be = torch.cat([a[3] for a in draws]), torch.cat([a[4] for a in draws])
+    del draws
+    twin = sq.des_predictions_assoc_plain(x, hist, al, be)
+    kernels.reset_launches()
+    walk = kernels.affine_scan(des, x, hist, al, be)
+    check(kernels.scan_path_launches == {"scan": 0, "walk": 1},
+          f"P4's {x.shape[0]} rows did not take the walk: {kernels.scan_path_launches}")
+    check(same_bits_nan(walk, twin), "P4: the walk is not the twin's bits")
+    shares = scan_limit_share(kernels.affine_scan(des, x, hist, al, be, path="scan"), twin, x,
+                              hist).view(P4_DRAWS, P4_ROWS).amax(1)
+    check(float(shares.max()) <= 0.5, f"P4: the scan at {float(shares.max()):.3g} of "
+          f"compare_scan's limit (more than half)")
+    print(f"  P4, {P4_DRAWS} draws of {P4_ROWS} rows at T = {P4_T}: the walk (default at "
+          f"{x.shape[0]} rows) the twin's bits; the scan's worst row of each draw "
+          + " ".join(f"{v:.3g}" for v in shares.tolist()) + " of compare_scan's limit",
+          flush=True)
+    return max(worst, float(shares.max()))
 
 
 def compare_hw_fit(x, hist, fit, period, grid, kern):
@@ -2438,6 +2529,166 @@ def kernel_p_vs_twin(rng):
 
 
 # ---------------------------------------------------------------------------
+# kernels A, N, O and P past their first designs' limits
+# ---------------------------------------------------------------------------
+LONG_PAIR_T, LONG_PAIR_ROWS = 43_200, 1024  # a 30-day window at a 60 s step
+KRUSKAL_LONG = (8, 172_800, 4)  # (k, T, rows): 30 days at a 15 s scrape, 1,382,400 keys
+TIED_KEYS = (1 << 21) + 1  # t^3 - t past a signed 64-bit t^3
+BIG_RANK_KEYS = 1 << 24
+FLEET_PAST_SLICE = (1 << 30) + 7  # rows: two launches of kernel P and a merge
+FLEET_PAST_BASE = 3 << 30  # keys past 2^32
+FLEET_TWIN_SLICE = 1 << 26
+
+
+def past_the_limits():
+    """Kernels A and N at T = 43,200 on 1,024 adversarial pairs (the
+    scratch path), O's ranks and Kruskal-Wallis at k T = 1,382,400, a fully
+    tied row of 2^21 + 1 keys (the tie term against the exact integer) and
+    one row of 2^24 keys, P on 2^30 + 7 rows keyed from 3 x 2^30, each
+    against its twin, each timed. Returns {kernel: its numbers}."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import pairwise as pw
+    from foremast_tpu_torch.ops import ranks as rk
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    rng = np.random.default_rng(SEED + 43_200)
+    out = {}
+    T, B = LONG_PAIR_T, LONG_PAIR_ROWS
+    args = adversarial_pairs(B, T, rng)
+    t = fl.pair_args_from_numpy(args, DEV)
+    kernels.reset_launches()
+    kern = fl.score_pairs(*t, device=DEV)
+    check(kernels.pair_path_launches["scratch"] == 1, f"pair_verdict at T = {T}: "
+          f"{kernels.pair_path_launches}")
+    err, bracketed = compare_pair_verdict(t, kern, fl.pair_verdict_plain(*t))
+    ms = cuda_ms(lambda: fl.score_pairs(*t, device=DEV), 2)
+    out["pair_verdict"] = {"T": T, "rows": B, "max_abs_err": err, "ms": ms,
+                           **pair_bound(args)}
+    print(f"  pair_verdict T={T}, {B} pairs (scratch path): max |dp| {err:.3g}, {bracketed} "
+          f"rows bracketed, {ms:.3f} ms, bound {out['pair_verdict']['bound_ms']:.4f} ms",
+          flush=True)
+    del t, kern
+    x, xm, y, ym = (torch.from_numpy(a).to(DEV) for a in (args[0], args[1], args[2], args[3]))
+    del args
+    plain = pw.two_sample_tests_plain(x, xm, y, ym)
+    names = pw.TWO_SAMPLE_TESTS
+    kernels.reset_launches()
+    got = pw.all_pairwise_tests(x, xm, y, ym, device=DEV)
+    check(kernels.pair_tests_path_launches["scratch"] == 1, f"pair_tests at T = {T}: "
+          f"{kernels.pair_tests_path_launches}")
+    err = compare_pair_tests((torch.stack([got[n][0] for n in names], 1),
+                              torch.stack([got[n][1] for n in names], 1)), plain, names)
+    ns, ps = pw.sign_test_batch(x, y, xm & ym, device=DEV)
+    pns, pps = pw.sign_test_exact_plain(x, y, xm & ym)
+    err = max(err, close(ps, pps, 0.0, P_ATOL, "sign test p at T = 43,200"))
+    check(torch.equal(ns, pns), "sign test at T = 43,200: untied counts differ")
+    ms = cuda_ms(lambda: pw.all_pairwise_tests(x, xm, y, ym, device=DEV), 2)
+    out["pair_tests"] = {"T": T, "rows": B, "max_abs_err": err, "ms": ms}
+    print(f"  pair_tests T={T}, {B} pairs (scratch path): the battery and the sign test, max "
+          f"|dp| {err:.3g}, the battery {ms:.3f} ms", flush=True)
+    del x, xm, y, ym, plain, got
+    torch.cuda.empty_cache()
+
+    k, T, B = KRUSKAL_LONG
+    g, gm = (torch.from_numpy(a).to(DEV) for a in adversarial_groups(B, k, T, rng))
+    kernels.reset_launches()
+    H, p = pw.kruskal_batch(g, gm, device=DEV)
+    check(kernels.kruskal_path_launches["scratch"] == 1, f"kruskal_groups at k T = {k * T}: "
+          f"{kernels.kruskal_path_launches}")
+    pH, pp = pw.kruskal_plain(g, gm)
+    close(H, pH, STAT_RTOL, 1e-6, f"kruskal_groups k T = {k * T} H")
+    err = close(p, pp, 0.0, P_ATOL, f"kruskal_groups k T = {k * T} p")
+    ms = cuda_ms(lambda: pw.kruskal_batch(g, gm, device=DEV), 1)
+    v, m = g.reshape(B, k * T), gm.reshape(B, k * T)
+    kernels.reset_launches()
+    ranks = rk.rank_and_ties(v, m, device=DEV)
+    check(kernels.rank_path_launches["scratch"] == 1, f"rank_and_ties at {k * T} keys: "
+          f"{kernels.rank_path_launches}")
+    compare_ranks(ranks, rk.rank_and_ties_plain(v, m))
+    rms = cuda_ms(lambda: rk.rank_and_ties(v, m, device=DEV), 1)
+    out["kruskal_groups"] = {"k": k, "T": T, "rows": B, "max_abs_err": err, "ms": ms}
+    print(f"  kruskal_groups k={k}, T={T} ({k * T} keys a row), {B} rows (scratch path): max "
+          f"|dp| {err:.3g}, {ms:.3f} ms; rank_and_ties on the same rows: equal to the twin, "
+          f"{rms:.3f} ms", flush=True)
+    del g, gm, v, m, ranks
+
+    n = TIED_KEYS
+    v = torch.full((1, n), 2.5, device=DEV)
+    m = torch.ones((1, n), dtype=torch.bool, device=DEV)
+    r, tie, nv = rk.rank_and_ties(v, m, device=DEV)
+    exact = n ** 3 - n
+    want = float(np.float32(exact))
+    _, ptie, _ = rk.rank_and_ties_plain(v, m)
+    check(float(tie[0]) == want, f"a tied row of {n} keys: tie term {float(tie[0])!r}, the exact "
+          f"{exact} rounds to {want!r}")
+    check(abs(float(ptie[0]) - want) <= float(np.spacing(np.float32(want))),
+          "the twin's tie term is more than one float32 ulp from the exact value")
+    check(bool((r == (n + 1) / 2).all()) and float(nv[0]) == n, "a tied row's ranks or count")
+    half = n // 2 + 1
+    H, p = kernels.kruskal_groups(torch.full((1, 2, half), 2.5, device=DEV),
+                                  torch.ones((1, 2, half), dtype=torch.bool, device=DEV))
+    check(float(H[0]) == 0.0 and float(p[0]) == 1.0, "every key tied: H must be 0 and p 1")
+    print(f"  a fully tied row of {n} keys: tie term {float(tie[0]):.9g} = float32 of the exact "
+          f"{exact} (the twin's float64 sum {float(ptie[0]):.9g}); ranks (t + 1) / 2; "
+          f"Kruskal over two tied groups of {n // 2 + 1}: H 0, p 1", flush=True)
+    del v, m, r
+
+    n = BIG_RANK_KEYS
+    v = torch.round(torch.randn((1, n), generator=torch.Generator(device=DEV).manual_seed(
+        SEED + n), device=DEV) * 100) / 100
+    m = torch.rand((1, n), generator=torch.Generator(device=DEV).manual_seed(SEED + n + 1),
+                   device=DEV) > 0.01
+    # one launch, timed as it runs: one CTA's sort of 2^24 keys takes seconds
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = rk.rank_and_ties(v, m, device=DEV)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    compare_ranks(got, rk.rank_and_ties_plain(v, m))
+    out["rank_and_ties"] = {"T": n, "rows": 1, "ms": ms, **least_time(n * 9 + 8, 0)}
+    print(f"  rank_and_ties, one row of {n} keys (one CTA sorting through device scratch): equal "
+          f"to the twin, {ms:.1f} ms (bound {out['rank_and_ties']['bound_ms']:.4f} ms, bytes)",
+          flush=True)
+    del v, m, got
+    torch.cuda.empty_cache()
+
+    n, base = FLEET_PAST_SLICE, FLEET_PAST_BASE
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    s = torch.round(torch.rand(n, generator=gen, device=DEV) * 1e4) / 1e4
+    # the second slice: six rows above every other, and one tied with the
+    # first slice's largest (the first slice's rows come first)
+    s[n - 7] = 1.0
+    s[n - 6:] = 2.0
+    s[5] = 1.0
+    u = torch.rand(n, generator=gen, device=DEV) < 0.1
+    u[n - 7:] = True
+    u[5] = True
+    kernels.reset_launches()
+    got = kernels.fleet_topk(s, FLEET_K, u, base=base)
+    check(kernels.launches["fleet_topk"] == 3, f"fleet_topk on {n} rows: "
+          f"{kernels.launches['fleet_topk']} launches (two slices and a merge)")
+    ms = cuda_ms(lambda: kernels.fleet_topk(s, FLEET_K, u, base=base), 2)
+    # the twin on the whole would sort 2^30 64-bit keys in ~60 GB; it runs
+    # in slices of FLEET_TWIN_SLICE rows merged by fleet_topk_slices, which
+    # equals the twin on the whole (tests/test_torch_past_limits.py)
+    twin = kernels.fleet_topk_slices(s, FLEET_K, u, base, FLEET_TWIN_SLICE,
+                                     lambda v, k, ok: fl.fleet_topk_plain(v, k, ok, 0))
+    err = compare_topk(got, twin, f"fleet_topk on {n} rows")
+    check(int(got[2][:6].min()) > 1 << 32 and float(got[1][6]) == 1.0 and
+          int(got[2][6]) < base + n - 7, "fleet_topk: the second slice's rows misplaced")
+    out["fleet_topk"] = {"rows": n, "base": base, "max_abs_err": err, "ms": ms,
+                         **least_time(n * 5 + FLEET_K * 12 + 8, n)}
+    print(f"  fleet_topk on {n} rows keyed from {base} (two launches and a merge): count, values "
+          f"and indices (past 2^32) equal to the twin's (in slices of {FLEET_TWIN_SLICE}), "
+          f"{ms:.3f} ms (bound "
+          f"{out['fleet_topk']['bound_ms']:.3f} ms, bytes)", flush=True)
+    del s, u
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the pair path at full size
 # ---------------------------------------------------------------------------
 def error_generator_windows(rng, n, rates, start, minutes):
@@ -3265,6 +3516,7 @@ def seasonal_path(gen):
     rows["affine_scan"] = (err, cuda_ms(lambda: kernels.affine_scan(1, x, hist, al3), 3),
                            chunked_ms(lambda s: sq.ses_predictions_assoc_plain(x[s], hist[s],
                                                                               al3[s]), B))
+    des_row = des_walk_row(x, hist, al5, be1, c)
     preds = kernels.smooth(2, x, hist, al5, be1)
     pol = (thr, mode, mlb)
     err, _ = compare_band_from_preds(
@@ -3319,10 +3571,50 @@ def seasonal_path(gen):
               f"{bounds[name]['bound_ms']:.3f} ms ({bounds[name]['bound_by']}), max |err| "
               f"against the twin {err:.3g}, launches on the path {launches[name]}", flush=True)
     result["smooth_hw"] = hw_row
+    result["affine_scan_des"] = des_row
     result["ma_band"] = ma_row
     result["st_fit"]["d47"] = prophet
     result["detect_period"]["c2048"] = c2048
     return result, g
+
+
+def des_walk_row(x, hist, al, be, c):
+    """Kernel E's DES on the seasonal rows (the engine's alpha 0.5, beta
+    0.1) through seqscan.des_predictions_assoc, its launches counted: the
+    walk path at this many rows, the twin's bits on the first c rows; its
+    time beside its bound, the twin's (in row chunks) and the scan path's
+    forced on the same rows and on one row."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.ops import seqscan as sq
+
+    B, T = x.shape
+    kernels.reset_launches()
+    got = sq.des_predictions_assoc(x, hist, al, be)
+    torch.cuda.synchronize()
+    paths = dict(kernels.scan_path_launches)
+    check(paths == {"scan": 0, "walk": 1}, f"des_predictions_assoc on {B} rows: {paths}")
+    twin = sq.des_predictions_assoc_plain(x[:c], hist[:c], al[:c], be[:c])
+    check(same_bits_nan(got[:c], twin),
+          "affine_scan's walk on the seasonal rows: not the twin's bits")
+    del got
+    des = kernels.SMOOTH_DES
+    row = {"launches": kernels.launches["affine_scan"], "max_abs_err": 0.0, "path": "walk",
+           "paths": paths, "T": T,
+           "ms": cuda_ms(lambda: kernels.affine_scan(des, x, hist, al, be), 5),
+           "scan_ms": cuda_ms(lambda: kernels.affine_scan(des, x, hist, al, be, path="scan"), 3),
+           "scan_one_row_ms": cuda_ms(lambda: kernels.affine_scan(
+               des, x[:1], hist[:1], al[:1], be[:1], path="scan"), 5),
+           "walk_one_row_ms": cuda_ms(lambda: kernels.affine_scan(
+               des, x[:1], hist[:1], al[:1], be[:1], path="walk"), 5),
+           "plain_ms": chunked_ms(lambda s: sq.des_predictions_assoc_plain(
+               x[s], hist[s], al[s], be[s]), B),
+           **least_time(B * T * 9 + B * 8, 11 * B * T)}
+    print(f"  affine_scan DES, {B} rows x {T} (des_predictions_assoc, the walk path): "
+          f"{row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), the scan path "
+          f"forced {row['scan_ms']:.3f} ms; one row: scan {row['scan_one_row_ms']:.3f} ms, walk "
+          f"{row['walk_one_row_ms']:.3f} ms; twin {row['plain_ms']:.1f} ms; the twin's bits on "
+          f"{c} rows", flush=True)
+    return row
 
 
 PERIOD_WIDE_ROWS = 10_000  # the seasonal rows kernel F's tiled path is timed on
@@ -5119,6 +5411,8 @@ def main() -> int:
     kernel_n_vs_twin(rng)
     kernel_o_vs_twin(rng)
     kernel_p_vs_twin(rng)
+    scan_share = kernel_e_paths()
+    past = past_the_limits()
 
     phase("pairs")
     a, pair_args, bad = pair_path(rng)
@@ -5164,6 +5458,12 @@ def main() -> int:
          "replaces": "foremast_tpu/ops/forecast.py:358", **s["hw_fit"]},
         {"name": "affine_scan", "source": csrc + "seqscan.cu",
          "replaces": "foremast_tpu/ops/seqscan.py:61", **s["affine_scan"]},
+        # kernel E's DES kind, a row of its own: its walk path on the
+        # seasonal rows through des_predictions_assoc (the scan path's times
+        # beside it; the scan's worst share of compare_scan's limit)
+        {"name": "affine_scan_des", "source": csrc + "seqscan.cu",
+         "replaces": "foremast_tpu/ops/seqscan.py:89", **s["affine_scan_des"],
+         "limits": {"scan_limit_share": scan_share}},
         {"name": "detect_period", "source": csrc + "period.cu",
          "replaces": "foremast_tpu/ops/forecast.py:225", **s["detect_period"]},
         {"name": "band_from_preds", "source": csrc + "ma_band.cu",
@@ -5214,6 +5514,10 @@ def main() -> int:
                  f"{r['launch_ms']:.3f} ms" if fam_key == "hpa" else ""), flush=True)
     # kernel B's ma_band at the engine's 7-day bucket (seasonal phase, the
     # long path) beside its band-pass row
+    # kernels A, N, O and P past their first designs' limits (phase kernels)
+    for r in rows:
+        if r.get("name") in past:
+            r["limits"] = past[r["name"]]
     b_row = next(r for r in rows if r.get("name") == "ma_band")
     b_row["t16384"] = {k: s["ma_band"][k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
                                                      "launches", "path", "paths", "max_abs_err")}
@@ -5231,7 +5535,8 @@ def main() -> int:
     # the time of each of its four battery launches; kernel P's its first
     # design's time, its two launches' floor and a call's time from the host
     extra = ("paths", "path", "T", "t16384", "battery_ms", "chunked_ms", "launch_floor_ms",
-             "host_ms", "limits", "d47", "c2048")
+             "host_ms", "limits", "d47", "c2048", "scan_ms", "scan_one_row_ms",
+             "walk_one_row_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(e for e in extra if e in r)}
                                   for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -99,13 +99,14 @@ __host__ __device__ inline int next_pow2(int n) {
 // which do not depend on the order of equal keys.
 __device__ inline void bitonic_sort(uint64_t* a, int n) {
   __syncthreads();
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
+  // k unsigned: at n = 2^30 (kernel O's most keys) an int k would overflow
+  for (unsigned k = 2; k <= unsigned(n); k <<= 1) {
+    for (int j = int(k >> 1); j > 0; j >>= 1) {
       for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const int ixj = i ^ j;
         if (ixj > i) {
           const uint64_t x = a[i], y = a[ixj];
-          if ((x > y) == ((i & k) == 0)) {
+          if ((x > y) == ((unsigned(i) & k) == 0u)) {
             a[i] = y;
             a[ixj] = x;
           }

@@ -27,7 +27,9 @@
 //     of integers: twice the ranks, exactly. Up to 8192 keys a row they live
 //     in shared memory (16 B a key with the two scan arrays), above it in
 //     device scratch, one slot per CTA walking rows grid-stride, as kernel
-//     A does above T = 4096.
+//     A does above T = 4096, up to the tag's 2^30 keys a row (a slot of
+//     16 GB there). Past 2,097,151 valid keys a tie group's t^3 - t leaves a
+//     long long, so such rows sum the tie term in limbs (TieTerm), exact.
 //   - Kruskal's per-group rank sums: one pass over the sorted positions per
 //     group, a block sum each (k passes of k T positions; k is small). H and
 //     its tie correction in float64, p = gammaincc((k - 1) / 2, H / 2) in
@@ -86,6 +88,81 @@ __device__ __forceinline__ uint64_t tagged_key(float v, bool valid, uint32_t tag
 }
 __device__ __forceinline__ uint64_t tag_group(uint64_t key) { return key >> kTagBits; }
 
+// The tie term sum(t^3 - t) of a row's tie groups. A row of at most
+// kNarrowTieKeys valid keys sums it in one long long (t^3 < 2^63). A longer
+// row (up to 2^kTagBits keys, t^3 - t < 2^90) sums each group's term in
+// three limbs, bits 0-31, 32-63 and 64 up, each limb a long long sum of
+// values below 2^32: exact for any row the tag serves. Its float and double
+// are the exact sum rounded once.
+constexpr int kNarrowTieKeys = 2097151;
+
+struct TieLimbs {
+  long long l0 = 0, l1 = 0, l2 = 0;
+  // t^3 - t = t (t^2 - 1), t^2 - 1 = ph 2^32 + pl: pl t < 2^63, ph t < 2^59
+  __device__ __forceinline__ void add(long long t) {
+    const unsigned long long u = t, p = u * u - 1ull;
+    const unsigned long long x = (p & 0xffffffffull) * u, y = (p >> 32) * u;
+    l0 += (long long)(x & 0xffffffffull);
+    l1 += (long long)(x >> 32) + (long long)(y & 0xffffffffull);
+    l2 += (long long)(y >> 32);
+  }
+  __device__ __forceinline__ void block_total(Scratch& s) {
+    l0 = block_sum(l0, s);
+    l1 = block_sum(l1, s);
+    l2 = block_sum(l2, s);
+  }
+  // the sum as a 64-bit value at most, scaled by 2^sh, with the bits shifted
+  // out folded into bit 0 (sticky): its float and double round as the
+  // exact sum's
+  __device__ inline unsigned long long top(int& sh) const {
+    unsigned long long a1 = (unsigned long long)l1 + ((unsigned long long)l0 >> 32);
+    const unsigned long long a0 = (unsigned long long)l0 & 0xffffffffull;
+    const unsigned long long a2 = (unsigned long long)l2 + (a1 >> 32);
+    a1 &= 0xffffffffull;
+    const unsigned long long lo = (a1 << 32) | a0;
+    sh = 0;
+    while ((a2 >> sh) != 0ull) ++sh;
+    if (sh == 0) return lo;
+    const unsigned long long dropped = lo & ((1ull << sh) - 1ull);
+    return (a2 << (64 - sh)) | (lo >> sh) | (dropped != 0ull ? 1ull : 0ull);
+  }
+  __device__ inline float to_float() const {
+    int sh;
+    const unsigned long long t = top(sh);
+    return ldexpf(float(t), sh);
+  }
+  __device__ inline double to_double() const {
+    int sh;
+    const unsigned long long t = top(sh);
+    return ldexp(double(t), sh);
+  }
+};
+
+// A row's tie term: one long long up to kNarrowTieKeys valid keys (the
+// first design's sum, its bits), limbs above.
+struct TieTerm {
+  bool narrow;
+  long long tie = 0;
+  TieLimbs wide;
+  __device__ explicit TieTerm(int nvalid) : narrow(nvalid <= kNarrowTieKeys) {}
+  __device__ __forceinline__ void add(long long t) {
+    if (narrow) {
+      tie += t * t * t - t;
+    } else {
+      wide.add(t);
+    }
+  }
+  __device__ __forceinline__ void block_total(Scratch& s) {
+    if (narrow) {
+      tie = block_sum(tie, s);
+    } else {
+      wide.block_total(s);
+    }
+  }
+  __device__ inline float to_float() const { return narrow ? float(tie) : wide.to_float(); }
+  __device__ inline double to_double() const { return narrow ? double(tie) : wide.to_double(); }
+};
+
 // First and last sorted position of each valid position's tie group:
 // first[p] by a max scan of group starts, last by a min scan of group ends
 // over the reversed order (rev[j] is the end for position nvalid - 1 - j).
@@ -131,7 +208,7 @@ __device__ void rank_row(const RankArgs& a, int row, unsigned char* work, Scratc
   const int nvalid = block_sum(nv, scr);
   bitonic_sort(keys, n_sort);
   group_bounds(keys, nvalid, first, rev, scr);
-  long long tie = 0;
+  TieTerm tie(nvalid);
   for (int p = threadIdx.x; p < T; p += blockDim.x) {
     const uint32_t at = uint32_t(keys[p] & kTagMask);
     if (p >= nvalid) {
@@ -139,15 +216,12 @@ __device__ void rank_row(const RankArgs& a, int row, unsigned char* work, Scratc
       continue;
     }
     const int b = first[p], e = rev[nvalid - 1 - p];
-    out[at] = float(b + e + 2) * 0.5f;
-    if (p == e) {
-      const long long t = e - b + 1;
-      tie += t * t * t - t;
-    }
+    out[at] = float((long long)b + e + 2) * 0.5f;
+    if (p == e) tie.add(e - b + 1);
   }
-  tie = block_sum(tie, scr);
+  tie.block_total(scr);
   if (threadIdx.x == 0) {
-    a.tie[row] = float(tie);
+    a.tie[row] = tie.to_float();
     a.n_valid[row] = float(nvalid);
   }
   __syncthreads();  // the next row (grid-stride) reuses work
@@ -176,13 +250,14 @@ __device__ __forceinline__ void kstamp(long long* clocks, int row, int k) {
 }
 
 // H and its p from a row's integers, on every path: nvalid values, ssq the
-// sum over groups of R_g^2 / n_g, the tie term sum(t^3 - t).
+// sum over groups of R_g^2 / n_g, the tie term sum(t^3 - t) (exact, or
+// rounded once past 2^53).
 __device__ __forceinline__ void kruskal_write(const KruskalArgs& a, int row, int nvalid,
-                                              double ssq, long long tie) {
+                                              double ssq, double tie) {
   const double N = nvalid;
   double H = (N * (N + 1.0) == 0.0 ? 12.0 : 12.0 / (N * (N + 1.0))) * ssq - 3.0 * (N + 1.0);
   const double denom = N * N * N - N;
-  const double corr = 1.0 - double(tie) / (denom == 0.0 ? 1.0 : denom);
+  const double corr = 1.0 - tie / (denom == 0.0 ? 1.0 : denom);
   H = H / (corr == 0.0 ? 1.0 : corr);
   const bool ok = corr > 0.0 && N > 0.0;
   a.H[row] = ok ? float(H) : 0.0f;
@@ -208,15 +283,12 @@ __device__ void kruskal_row(const KruskalArgs& a, int row, unsigned char* work, 
   kstamp(a.clocks, row, 2);
   group_bounds(keys, nvalid, first, rev, scr);
   kstamp(a.clocks, row, 3);
-  long long tie = 0;
+  TieTerm tie(nvalid);
   for (int p = threadIdx.x; p < nvalid; p += blockDim.x) {
     const int b = first[p], e = rev[nvalid - 1 - p];
-    if (p == e) {
-      const long long t = e - b + 1;
-      tie += t * t * t - t;
-    }
+    if (p == e) tie.add(e - b + 1);
   }
-  tie = block_sum(tie, scr);
+  tie.block_total(scr);
   // sum over groups of R_g^2 / n_g, with R_g = (sum of twice the ranks) / 2
   double ssq = 0.0;
   for (int grp = 0; grp < k; ++grp) {
@@ -224,7 +296,7 @@ __device__ void kruskal_row(const KruskalArgs& a, int row, unsigned char* work, 
     int cnt = 0;
     for (int p = threadIdx.x; p < nvalid; p += blockDim.x) {
       if (int(keys[p] & kTagMask) != grp) continue;
-      r2 += first[p] + rev[nvalid - 1 - p] + 2;
+      r2 += (long long)first[p] + rev[nvalid - 1 - p] + 2;
       cnt += 1;
     }
     r2 = block_sum(r2, scr);
@@ -233,7 +305,7 @@ __device__ void kruskal_row(const KruskalArgs& a, int row, unsigned char* work, 
     ssq += R * R / (cnt == 0 ? 1.0 : double(cnt));
   }
   kstamp(a.clocks, row, 4);
-  if (threadIdx.x == 0) kruskal_write(a, row, nvalid, ssq, tie);
+  if (threadIdx.x == 0) kruskal_write(a, row, nvalid, ssq, tie.to_double());
   kstamp(a.clocks, row, 5);
   __syncthreads();
 }
@@ -442,7 +514,7 @@ __device__ void kruskal_row_warp(const KruskalArgs& a, int row, uint32_t* sorted
     ssq += R * R / (cnt == 0 ? 1.0 : double(cnt));
   }
   kwstamp(a.clocks, row, 4);
-  if (lane == 0) kruskal_write(a, row, nvalid, ssq, tie);
+  if (lane == 0) kruskal_write(a, row, nvalid, ssq, double(tie));
   kwstamp(a.clocks, row, 5);
 }
 

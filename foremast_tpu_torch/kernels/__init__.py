@@ -12,7 +12,8 @@
   Holt-Winters one-step predictions; kernel D, `hw_fit` (same file), the
   Holt-Winters grid fit.
 - Kernel E, `affine_scan` (``csrc/seqscan.cu``), runs SES or DES as a scan
-  of affine maps (the long-window forms).
+  of affine maps (the long-window forms), on the path `scan_path` picks by
+  kind and rows (DES over many rows walks a lane a row, the twin's bits).
 - Kernel F, `detect_period` (``csrc/period.cu``), elects each row's
   seasonal period, on the path `period_path` picks by the candidates (one
   lag table a CTA, or tiles of candidates past TILE_CANDIDATES).
@@ -65,12 +66,13 @@ its entry of `launches` per launch (`lstm_train_backward` launches kernel
 L's two backward entries, counted as `lstm_train_recurrence` and
 `lstm_train_wgrad`; `lstm_ae`, `bivariate`, `pair_verdict`,
 `pair_tests`, `kruskal_groups`, `rank_and_ties`, `ma_band`, `friedman`,
-`fleet_topk`, `st_fit`, `detect_period` and `lstm_train_recurrence` also
-count by path, in `lstm_ae_path_launches`, `bivariate_path_launches`,
-`pair_path_launches`, `pair_tests_path_launches`, `kruskal_path_launches`,
-`rank_path_launches`, `band_path_launches`, `friedman_path_launches`,
-`fleet_topk_path_launches`, `st_path_launches`, `period_path_launches` and
-`bptt_path_launches`).
+`fleet_topk`, `st_fit`, `detect_period`, `lstm_train_recurrence` and
+`affine_scan` also count by path, in `lstm_ae_path_launches`,
+`bivariate_path_launches`, `pair_path_launches`,
+`pair_tests_path_launches`, `kruskal_path_launches`, `rank_path_launches`,
+`band_path_launches`, `friedman_path_launches`,
+`fleet_topk_path_launches`, `st_path_launches`, `period_path_launches`,
+`bptt_path_launches` and `scan_path_launches`).
 They take CUDA tensors only; the entry points
 (``parallel.fleet.score_pairs``, ``ops.forecast``, ``ops.seqscan``,
 ``ops.triage``, ``ops.bivariate``, ``ops.hpa``, ``ops.pairwise``,
@@ -106,12 +108,14 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
            "WARP_FRIEDMAN_K", "WARP_FRIEDMAN_N", "FRIEDMAN_WARPS", "FRIEDMAN_ROWS", "friedman_path",
            "friedman_serves", "friedman_path_launches", "FLEET_TOPK_PATHS", "FLEET_SELECT_K",
            "fleet_topk_path", "fleet_topk_serves", "fleet_topk_path_launches", "empty_launches",
-           "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "MAX_PAIR_T", "SHARED_PAIR_T", "MAX_BAND_T",
+           "fleet_topk_slices",
+           "MAX_FLEET_ROWS", "MAX_FLEET_SLICE", "PAIR_SORT_T", "SHARED_PAIR_T", "MAX_BAND_T",
            "MAX_PERIOD_T", "MAX_SCREEN_T", "MAX_BI_T", "MAX_HPA_T", "TILE_CANDIDATES",
            "PERIOD_PATHS", "period_path", "period_max_candidates", "period_path_launches",
            "MAX_GRID", "WARP_ST_D", "ST_PATHS", "st_path", "st_path_launches", "MAX_ST_T",
            "CLUSTER_LSTM_HIDDEN", "GROUP_BPTT_H", "GROUP_BPTT_F", "BPTT_PATHS",
-           "lstm_bptt_path", "bptt_path_launches",
+           "lstm_bptt_path", "bptt_path_launches", "SCAN_PATHS", "WALK_ROWS",
+           "scan_path", "scan_serves", "scan_path_launches",
            "LSTM_SMEM_PARAMS_BYTES", "LSTM_TRAIN_SMEM_BYTES",
            "LSTM_FORWARD_SMEM_BYTES", "st_sincos_check", "ks_division_check",
            "PAIR_PHASES", "KRUSKAL_PHASES", "RANK_PHASES", "BAND_PHASES", "TRIAGE_PHASES",
@@ -121,11 +125,14 @@ __all__ = ["launches", "reset_launches", "pair_verdict", "ma_band", "band_from_p
 # kernels A and N run one of three paths (pair_path): up to WARP_PAIR_T a
 # warp a pair, PAIR_WARPS pairs a CTA, the 2T rank keys in registers; up to
 # SHARED_PAIR_T a CTA a pair, its 2T sort entries (16 B each) in shared
-# memory; above it a CTA a pair from device scratch. All three give the same
-# bits. A launcher's path= forces one where it serves T (tests, timing).
+# memory; above it a CTA a pair from device scratch (a slot of
+# next_pow2(2T) x 16 B, 2 MB at a 30-day window of 43,200 steps), as many
+# CTAs as SCRATCH_BYTES holds, at least one. All three give the same bits.
+# A launcher's path= forces one where it serves T (tests, timing). The sort
+# indexes its next_pow2(2T) keys in int, which bounds T at PAIR_SORT_T.
 WARP_PAIR_T = 256
 SHARED_PAIR_T = 4096
-MAX_PAIR_T = 16384  # MAX_WINDOW_STEPS
+PAIR_SORT_T = 1 << 29
 PAIR_PATHS = ("warp", "cta", "scratch")
 PAIR_WARPS = 4  # the warp path's pairs a CTA (fm_pair_warps)
 # kernel B serves rows up to MAX_WINDOW_STEPS. ma_band runs one of three
@@ -224,7 +231,10 @@ LSTM_AE_SMEM_BYTES = 232_448
 PAIR_TEST_BITS = {"mann_whitney": 1, "kruskal": 2, "wilcoxon": 4, "ks": 8, "sign": 16}
 # kernel O: a row's sort keys (T for the ranks, k T for Kruskal-Wallis, 16 B
 # each with the scan arrays) live in shared memory up to this many, in
-# device scratch above it, up to MAX_RANK_KEYS (16 MB of scratch a CTA).
+# device scratch above it, up to MAX_RANK_KEYS, what the key's 30-bit
+# position or group tag holds (a slot of up to 16 GB; past SCRATCH_BYTES
+# one CTA a launch, its one slot). One CTA sorts a row, so a row of
+# millions of keys takes seconds (PERF.md).
 # kruskal_groups runs one of three paths (kruskal_path): up to
 # WARP_RANK_KEYS keys a row a warp a row, KRUSKAL_WARPS rows a CTA, the
 # 32-bit keys in registers; up to SHARED_RANK_KEYS a CTA a row in shared
@@ -233,7 +243,7 @@ PAIR_TEST_BITS = {"mann_whitney": 1, "kruskal": 2, "wilcoxon": 4, "ks": 8, "sign
 # rank_and_ties likewise (rank_path, by T): the same three paths and
 # limits, the warp path on Kruskal's machinery with one group.
 SHARED_RANK_KEYS = 8192
-MAX_RANK_KEYS = 1 << 20
+MAX_RANK_KEYS = 1 << 30  # 2^kTagBits (csrc/rank_groups.cu)
 WARP_RANK_KEYS = 512
 KRUSKAL_PATHS = ("warp", "cta", "scratch")
 RANK_PATHS = KRUSKAL_PATHS
@@ -249,18 +259,33 @@ WARP_FRIEDMAN_N = 1 << 20
 FRIEDMAN_WARPS = 4
 FRIEDMAN_ROWS = 32
 FRIEDMAN_PATHS = ("warp", "cta")
-# kernel P keys a row by its global index in 32 bits, and takes at most
-# MAX_FLEET_SLICE rows a launch (its C entry counts rows and kept keys in
-# int). It runs one of two paths (fleet_topk_path), with the same outputs:
-# up to FLEET_SELECT_K kept keys a selection by rounds of warp minima;
-# the chunked path (the first design: chunk sorts) at any k. Its path=
-# forces one where it serves k (tests, timing).
+# kernel P keys a row by its index in 32 bits (base + i up to
+# MAX_FLEET_ROWS), and takes at most MAX_FLEET_SLICE rows a launch (its C
+# entry counts rows and kept keys in int). fleet_topk serves any n and base:
+# past either limit it launches slices of at most MAX_FLEET_SLICE rows, each
+# keyed from its own 0, and merges their candidates (fleet_topk_slices). It
+# runs one of two paths (fleet_topk_path), with the same outputs: up to
+# FLEET_SELECT_K kept keys a selection by rounds of warp minima; the chunked
+# path (the first design: chunk sorts) at any k. Its path= forces one where
+# it serves k (tests, timing).
 MAX_FLEET_ROWS = (1 << 32) - 1
 MAX_FLEET_SLICE = 1 << 30
 FLEET_SELECT_K = 32
 FLEET_TOPK_PATHS = ("select", "chunked")
 
 SMOOTH_SES, SMOOTH_DES, SMOOTH_HW = 1, 2, 3
+# kernel E runs one of two paths (scan_path), by kind and rows: "scan" (a
+# CTA a row composing the steps' affine maps; SES at any B, DES below
+# WALK_ROWS rows) and "walk" (DES at WALK_ROWS rows and more: a lane a row
+# stepping the twin's float64 maps in order, 32 rows a warp, tiles of 64
+# steps staged in shared memory; the twin's bits). A row walked
+# alone is ~16k dependent steps (0.64 ms at T = 16384 on an H100, the scan
+# 0.08 ms), so few rows take the scan: the walk's time stays ~0.78 ms up to
+# ~8k rows while the scan's grows with the rows, and the walk wins from
+# between 4,224 and 8,448 rows (PERF.md). path= forces one where it serves
+# the kind (tests, timing).
+SCAN_PATHS = ("scan", "walk")
+WALK_ROWS = 2 * 132 * 32  # two warps for each of an H100's SMs
 
 # kernel G's outputs, in the order its C entry takes them
 SCREEN_INT_OUTPUTS = ("count", "shrunk_count", "checked", "n_hist")
@@ -329,6 +354,8 @@ fleet_topk_path_launches = {path: 0 for path in FLEET_TOPK_PATHS}
 st_path_launches = {path: 0 for path in ST_PATHS}
 period_path_launches = {path: 0 for path in PERIOD_PATHS}
 bptt_path_launches = {path: 0 for path in BPTT_PATHS}
+# kernel E's launches by path (each also counts in launches)
+scan_path_launches = {path: 0 for path in SCAN_PATHS}
 
 launches = {"pair_verdict": 0, "ma_band": 0, "band_from_preds": 0, "smooth": 0,
             "hw_fit": 0, "affine_scan": 0, "detect_period": 0, "triage_screen": 0,
@@ -343,7 +370,8 @@ def reset_launches() -> None:
     for counts in (lstm_ae_path_launches, bivariate_path_launches, pair_path_launches,
                    pair_tests_path_launches, kruskal_path_launches, rank_path_launches,
                    band_path_launches, friedman_path_launches, fleet_topk_path_launches,
-                   st_path_launches, period_path_launches, bptt_path_launches):
+                   st_path_launches, period_path_launches, bptt_path_launches,
+                   scan_path_launches):
         for k in counts:
             counts[k] = 0
 
@@ -375,6 +403,12 @@ def pair_path(T: int) -> str:
     if T <= WARP_PAIR_T:
         return "warp"
     return "cta" if T <= SHARED_PAIR_T else "scratch"
+
+
+def _check_pair_t(T: int, kernel: str) -> None:
+    if not 1 <= T <= PAIR_SORT_T:
+        raise ValueError(f"{kernel} supports 1 <= T <= PAIR_SORT_T = {PAIR_SORT_T} (its sort's "
+                         f"int index); got T = {T}")
 
 
 def pair_warp_grid(B: int) -> int:
@@ -430,10 +464,7 @@ def pair_verdict(baseline, b_mask, current, c_mask, pvalue_threshold, test_mask,
     """
     B, T = baseline.shape
     dev = baseline.device
-    if not 1 <= T <= MAX_PAIR_T:
-        raise ValueError(
-            f"pair_verdict supports 1 <= T <= {MAX_PAIR_T} (the largest window "
-            f"bucket); got T = {T}")
+    _check_pair_t(T, "pair_verdict")
     path = _pair_launch_path(T, path, "pair_verdict")
     mpw = min_points.shape[-1] if min_points.dim() == 2 else 0
     if mpw not in (3, 4):
@@ -738,11 +769,29 @@ def hw_fit(x, mask, fit_mask, period, grid, max_period: int | None = None,
     return out
 
 
-def affine_scan(kind: int, x, mask, alpha, beta=None):
+def scan_path(kind: int, B: int, T: int) -> str:
+    """Kernel E's path for B rows of T steps of `kind`: "walk" (a lane a
+    row) for DES at WALK_ROWS rows or more, else "scan" (a CTA a row)."""
+    return "walk" if kind == SMOOTH_DES and B >= WALK_ROWS else "scan"
+
+
+def scan_serves(path: str, kind: int) -> bool:
+    """Whether a path of kernel E serves `kind` (the walk runs DES alone)."""
+    return path == "scan" or (path == "walk" and kind == SMOOTH_DES)
+
+
+def affine_scan(kind: int, x, mask, alpha, beta=None, path=None):
     """Launch kernel E: SES (SMOOTH_SES) or DES (SMOOTH_DES, with beta)
-    one-step predictions (B, T) as a scan of affine maps."""
+    one-step predictions (B, T), on the path scan_path picks: a scan of
+    affine maps a CTA a row, or (DES) the twin's walk a lane a row, its
+    bits. path forces one of SCAN_PATHS (ValueError where it does not serve
+    the kind)."""
     B, T = x.shape
     dev = x.device
+    if path is not None and path not in SCAN_PATHS:
+        raise ValueError(f"affine_scan has the paths {SCAN_PATHS}; got {path!r}")
+    if path is not None and not scan_serves(path, kind):
+        raise ValueError(f"affine_scan's walk path runs DES (SMOOTH_DES) alone; got kind {kind}")
     _check(x, "x", torch.float32, (B, T), dev)
     _check(mask, "mask", torch.bool, (B, T), dev)
     named = [(alpha, "alpha", torch.float32)]
@@ -754,14 +803,20 @@ def affine_scan(kind: int, x, mask, alpha, beta=None):
     preds = torch.empty((B, T), dtype=torch.float32, device=dev)
     if B == 0 or T == 0:
         return preds
+    path = path or scan_path(kind, B, T)
     lib = build.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fm_affine_scan(kind, _ptr(x), _ptr(mask), _ptr(alpha),
-                                None if kind == SMOOTH_SES else _ptr(beta), B, T,
-                                _ptr(preds), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if path == "walk":
+            rc = lib.fm_affine_scan_walk(_ptr(x), _ptr(mask), _ptr(alpha), _ptr(beta), B, T,
+                                         _ptr(preds), stream)
+        else:
+            rc = lib.fm_affine_scan(kind, _ptr(x), _ptr(mask), _ptr(alpha),
+                                    None if kind == SMOOTH_SES else _ptr(beta), B, T,
+                                    _ptr(preds), stream)
     _raise_on(rc, "affine_scan", lib)
     launches["affine_scan"] += 1
+    scan_path_launches[path] += 1
     return preds
 
 
@@ -1449,9 +1504,7 @@ def pair_tests(x, x_mask, y, y_mask, tests: int, *, wilcoxon_table, ks_exact_max
     """
     B, T = x.shape
     dev = x.device
-    if not 1 <= T <= MAX_PAIR_T:
-        raise ValueError(f"pair_tests supports 1 <= T <= {MAX_PAIR_T} (kernel A's window "
-                         f"buckets); got T = {T}")
+    _check_pair_t(T, "pair_tests")
     if not 0 < tests < 1 << len(PAIR_TEST_BITS):
         raise ValueError(f"pair_tests takes a mask of PAIR_TEST_BITS, got {tests}")
     path = _pair_launch_path(T, path, "pair_tests")
@@ -1506,10 +1559,11 @@ def _keys_serve(path: str, n: int) -> bool:
 
 
 def _check_keys(what: str, path, n: int, of: str) -> None:
-    """Refuse a row of more than MAX_RANK_KEYS keys, and a forced path
-    that does not serve n keys (naming its limit)."""
+    """Refuse a row of more than MAX_RANK_KEYS keys (its key's 30-bit tag),
+    and a forced path that does not serve n keys (naming its limit)."""
     if n > MAX_RANK_KEYS:
-        raise ValueError(f"{what} sorts at most {MAX_RANK_KEYS} keys a row; got {n}")
+        raise ValueError(f"{what} sorts at most MAX_RANK_KEYS = {MAX_RANK_KEYS} keys a row, "
+                         f"what its key's 30-bit position or group tag holds; got {n}")
     if path is None:
         return
     if path not in KRUSKAL_PATHS:
@@ -1694,14 +1748,14 @@ def fleet_topk(values, k: int, valid=None, base: int = 0, path=None):
     a row's value taken as -inf where `valid` ((n,) bool) is False, row i
     keyed by the index base + i. Returns count (a 0-d int64 tensor, the
     valid rows; None without `valid`), top_v (min(k, n),) float32 and top_i
-    (min(k, n),) int64. Indices past MAX_FLEET_ROWS and more than
-    MAX_FLEET_SLICE rows are refused. path forces one of FLEET_TOPK_PATHS
-    (ValueError where it does not serve min(k, n))."""
+    (min(k, n),) int64. Up to MAX_FLEET_SLICE rows keyed below
+    MAX_FLEET_ROWS it is one launch; past either it runs fleet_topk_slices
+    over slices of MAX_FLEET_SLICE rows (k up to half of that). path forces
+    one of FLEET_TOPK_PATHS for every launch (ValueError where it does not
+    serve min(k, n))."""
     n = values.shape[0] if values.dim() == 1 else -1
-    if n > MAX_FLEET_SLICE:
-        raise ValueError(f"fleet_topk takes at most {MAX_FLEET_SLICE} rows a launch; got {n}")
-    if base < 0 or base + n - 1 > MAX_FLEET_ROWS:
-        raise ValueError(f"fleet_topk keys rows by a 32-bit index; got base {base}, n {n}")
+    if base < 0:
+        raise ValueError(f"fleet_topk keys rows from base >= 0; got base {base}")
     if k < 0:
         raise ValueError(f"fleet_topk takes k >= 0, got {k}")
     if path is not None and path not in FLEET_TOPK_PATHS:
@@ -1709,6 +1763,48 @@ def fleet_topk(values, k: int, valid=None, base: int = 0, path=None):
     if path is not None and not fleet_topk_serves(path, n, k):
         raise ValueError(f"fleet_topk's {path} path serves min(k, n) <= FLEET_SELECT_K = "
                          f"{FLEET_SELECT_K}; got {min(k, n)}")
+    if n <= MAX_FLEET_SLICE and base + n - 1 <= MAX_FLEET_ROWS:
+        return _fleet_topk_launch(values, k, valid, base, path)
+    return fleet_topk_slices(values, k, valid, base, MAX_FLEET_SLICE,
+                             lambda v, kk, ok: _fleet_topk_launch(v, kk, ok, 0, path))
+
+
+def fleet_topk_slices(values, k: int, valid, base: int, slice_rows: int, topk):
+    """Kernel P's split and merge past one launch, on any `topk(values, k,
+    valid)` that keys rows from 0 and returns (count, top_v, top_i) as
+    fleet_topk does (kernel P, or its twin in tests): the n rows in slices
+    of at most slice_rows, each through topk; the slices' candidates
+    concatenated in slice order and through topk again (keyed by position;
+    again in slices while they outnumber slice_rows), each position mapped
+    back to its slice's offset plus its index there, plus base, in int64;
+    the slices' counts summed in int64. A slice's candidates precede a later
+    slice's, so among equal values the lower index still comes first, as in
+    fleet_summary's merge of ranks' candidates. Past one slice k is at most
+    slice_rows / 2, so that each merge at least halves the rows."""
+    n = values.shape[0]
+    if n <= slice_rows:
+        count, top_v, top_i = topk(values, k, valid)
+        return count, top_v, top_i + base
+    if 2 * k > slice_rows:
+        raise ValueError(f"fleet_topk merges slices of {slice_rows} rows: past one slice it "
+                         f"takes k <= {slice_rows // 2}; got k = {k}")
+    counts, cand_v, cand_i = [], [], []
+    for s in range(0, n, slice_rows):
+        e = min(n, s + slice_rows)
+        count, top_v, top_i = topk(values[s:e], k, None if valid is None else valid[s:e])
+        counts.append(count)
+        cand_v.append(top_v)
+        cand_i.append(top_i + s)
+    count = None if valid is None else torch.stack(counts).sum(dtype=torch.int64)
+    cand_v, cand_i = torch.cat(cand_v), torch.cat(cand_i)
+    _, top_v, pos = fleet_topk_slices(cand_v, k, None, 0, slice_rows, topk)
+    return count, top_v, cand_i[pos] + base
+
+
+def _fleet_topk_launch(values, k: int, valid, base: int, path):
+    """One launch of kernel P: n <= MAX_FLEET_SLICE, base + n - 1 <=
+    MAX_FLEET_ROWS."""
+    n = values.shape[0] if values.dim() == 1 else -1
     dev = values.device
     _check(values, "values", torch.float32, (n,), dev)
     if valid is not None:

@@ -141,6 +141,8 @@ def _declare(lib):
     lib.fm_hw_fit_ring_row.restype = I
     lib.fm_affine_scan.argtypes = [I, P, P, P, P, I, I, P, P]
     lib.fm_affine_scan.restype = I
+    lib.fm_affine_scan_walk.argtypes = [P, P, P, P, I, I, P, P]
+    lib.fm_affine_scan_walk.restype = I
     lib.fm_detect_period.argtypes = [P, P, P, I, P, F, F, F, I, I, P, P, P, I, P]
     lib.fm_detect_period.restype = I
     lib.fm_period_max_candidates.argtypes = [I]

@@ -13,10 +13,13 @@ drifted past the scan check's 1e-4 of a row's scale at T = 16384, and a
 float32 walk of the same steps drifts by up to the same order there).
 
 `ses_predictions_assoc` and `des_predictions_assoc` run kernel E
-(``csrc/seqscan.cu``) on the card: a block-wide scan of the maps per row,
-so the order in which maps combine differs from XLA's tree and the results
-agree with the reference within a tolerance, not to the bit. On the CPU
-they run the plain twins, which apply the same maps one step at a time.
+(``csrc/seqscan.cu``) on the card, on the path `kernels.scan_path` picks:
+SES, and DES over fewer than `kernels.WALK_ROWS` rows, take a block-wide
+scan of the maps per row, so the order in which maps combine differs from
+XLA's tree and the results agree with the reference within a tolerance,
+not to the bit; DES over more rows walks each row's maps one step at a
+time, a lane a row, as the twin does, and gives the twin's bits. On the
+CPU they run the plain twins, which apply the same maps one step at a time.
 """
 from __future__ import annotations
 

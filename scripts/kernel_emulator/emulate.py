@@ -650,6 +650,32 @@ def self_check() -> int:
         twin = sq.ses_predictions_assoc_plain if kind == 1 else sq.des_predictions_assoc_plain
         e = _err(kernels.affine_scan(kind, x, m, *params), twin(x, m, *params))
         expect(f"affine_scan {kind}", e <= 1e-4 * 14, f"max |err| {e:.3g} (combine order)")
+    # kernel E's DES walk: the twin's bits, on rows
+    # with masked prefixes, all-masked rows, NaN / inf at masked slots and
+    # alpha, beta at 0 and 1; T a multiple of 16 (the staged tiles) or not,
+    # B not a multiple of 32; from a generator of its own, so that the
+    # later checks' rows do not depend on these
+    import chip_smoke as cs
+
+    gw = torch.Generator().manual_seed(19)
+    for Bw, Tw in ((37, 128), (70, 100), (65, 208), (5, 1000), (3, 7)):
+        xw = 10 + 3 * torch.randn((Bw, Tw), generator=gw)
+        mw = torch.rand((Bw, Tw), generator=gw) > 0.2
+        aw, bw = torch.rand(Bw, generator=gw), torch.rand(Bw, generator=gw)
+        for i in range(Bw):
+            kind_row = i % 8
+            if kind_row == 1:
+                mw[i] = False
+            elif kind_row == 2:
+                mw[i, :Tw // 2] = False
+            elif kind_row in (3, 4):
+                xw[i, ~mw[i]] = float("nan") if kind_row == 3 else -float("inf")
+            elif kind_row >= 5:
+                aw[i], bw[i] = ((0.0, 1.0), (1.0, 0.0), (1.0, 1.0))[kind_row - 5]
+        got = kernels.affine_scan(2, xw, mw, aw, bw, path="walk")
+        expect(f"affine_scan 2 walk B={Bw} T={Tw}",
+               cs.same_bits_nan(got, sq.des_predictions_assoc_plain(xw, mw, aw, bw)),
+               "the twin's bits (NaN payloads aside)")
     fit = m & (t >= 2 * per[:, None])
     grid = torch.tensor(fc.DEFAULT_GRID, dtype=torch.float32)
     saved = kernels.SCRATCH_BYTES
@@ -1068,6 +1094,18 @@ def new_kernels_check(cs, expect) -> None:
                        f"counts, values and indices equal on paths {served}")
             except AssertionError as err:
                 expect(f"fleet_topk n={n} k={k}", False, str(err))
+    # kernel P past one launch: slices of 1,000 rows (MAX_FLEET_SLICE cut
+    # here), keys past 32 bits, against the twin on the whole
+    saved_slice = kernels.MAX_FLEET_SLICE
+    kernels.MAX_FLEET_SLICE = 1000
+    from foremast_tpu_torch.parallel import fleet as fl
+    u, sev = (torch.from_numpy(a) for a in cs.adversarial_topk(5003, rng))
+    for k, base in ((8, 0), (33, 7), (500, (1 << 32) + 9)):
+        got, want = kernels.fleet_topk(sev, k, u, base), fl.fleet_topk_plain(sev, k, u, base)
+        expect(f"fleet_topk sliced n=5003 k={k} base={base}",
+               int(got[0]) == int(want[0]) and torch.equal(_bits(got[1]), _bits(want[1]))
+               and torch.equal(got[2], want[2]), "count, values and indices equal")
+    kernels.MAX_FLEET_SLICE = saved_slice
     cs.DEV = saved_dev
 
 

@@ -226,6 +226,16 @@ first design; `rows1`, the warp path with one row a warp (its tail on
 lane 0); `notail`, the warp path without its tail (chi2 and p not
 computed).
 
+--des-walk times kernel E's DES on the seasonal phase's 100,000 rows of
+T = 16384 on the path the checkout takes there, and where the checkout has
+paths the scan forced and both paths over 1 to 33,792 rows (DES_WALK_ROWS: where the walk starts to win); one
+row on the scan; SES on the same rows; then kernels A, N, O (every path)
+and P at the parent's shapes with their SHA-256, which must equal the
+parent's. Run it from the parent's checkout and this one in one call
+(parent, change, change, parent). With --profile (this tree) it also
+builds DES_WALK_VARIANTS, copies of the walk with one edit each, under
+build/variants/ and times each on the same rows.
+
 --limits holds the paths that lifted the port's limits (kernels J, F, K,
 L) against the parent: first the SHA-256 of kernels J, F, K, L, M and O's
 outputs at the shapes the parent's paths served (J at D = 20 and 32 on
@@ -1085,7 +1095,7 @@ def band_rank(profile, only=None):
 # tables; kernel P's k; P4's draws
 FRIEDMAN_SHAPES = ((20, 6, 100_000), (7, 200, 20_000))
 TOPK_K = (1, 8, 32, 33)
-P4_DRAWS, P4_ROWS, P4_T = 16, 1024, 16384
+P4_DRAWS, P4_ROWS, P4_T = cs.P4_DRAWS, cs.P4_ROWS, cs.P4_T  # chip_smoke.py's draws
 # the first design's phases, as the `stamps` variant's clock stamps split it
 FRIEDMAN_CTA_PHASES = ("ranks", "combine", "count", "tie_sum", "nb_sum", "ssq_sum", "tail")
 _STAMP = ("if (g_friedman_clocks != nullptr && threadIdx.x == 0) "
@@ -1122,18 +1132,19 @@ FRIEDMAN_VARIANTS = {
 }
 
 
-def friedman_variant(name):
+def friedman_variant(name, variants=None):
     """A copy of this checkout's package under build/variants/<name> with
-    FRIEDMAN_VARIANTS[name]'s edits (each text must occur exactly once);
-    returns the copy's root."""
+    the edits of variants[name] (FRIEDMAN_VARIANTS by default; each text
+    must occur exactly once); returns the copy's root."""
     import shutil
 
+    variants = FRIEDMAN_VARIANTS if variants is None else variants
     root = os.path.join(os.getcwd(), "build", "variants", name)
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(os.getcwd(), "foremast_tpu_torch"),
                     os.path.join(root, "foremast_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for fname, old, new in FRIEDMAN_VARIANTS[name]:
+    for fname, old, new in variants[name]:
         path = os.path.join(root, "foremast_tpu_torch", "csrc", fname)
         text = open(path).read()
         if text.count(old) != 1:
@@ -1430,6 +1441,149 @@ def limits(out_dir):
         for J, F, H, Z in cs.LSTM_LIMIT_TRAIN:
             res.update(_limits_train(J, F, H, Z, timed, LIMITS_RUNS, g))
     path = os.path.join(out_dir, "limits_%s.json" % os.path.basename(os.getcwd()))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(res, fh)
+    res["written"] = path
+    return res
+
+
+DES_WALK_ROWS = (1, 32, 132, 528, 1056, 2112, 4224, 8448, 16896, 33792)  # the sweep at T = 16384
+# --des-walk --profile: copies of this checkout with kernel E's walk edited,
+# each built and timed in a process of its own: `steps32` (tiles of 32
+# steps), `warps2` / `warps1` (2 or 1 warps a CTA: 10 warps an SM at 22.5 KB
+# each instead of 8), `stages3` (three tiles in flight a warp, 2 warps a
+# CTA), `copy` (no walk: each tile's values stored back as its
+# predictions, the staging's own time)
+_WALK_KERNEL = "seqscan.cu"
+DES_WALK_VARIANTS = {
+    "steps32": [(_WALK_KERNEL, "constexpr int kWalkSteps = 64;",
+                 "constexpr int kWalkSteps = 32;")],
+    "warps2": [(_WALK_KERNEL, "constexpr int kWalkWarps = 4;", "constexpr int kWalkWarps = 2;")],
+    "warps1": [(_WALK_KERNEL, "constexpr int kWalkWarps = 4;", "constexpr int kWalkWarps = 1;")],
+    "stages3": [(_WALK_KERNEL, "constexpr int kWalkWarps = 4;", "constexpr int kWalkWarps = 2;"),
+                (_WALK_KERNEL, "constexpr int kWalkStages = 2;",
+                 "constexpr int kWalkStages = 3;")],
+    "copy": [(_WALK_KERNEL, "    if (live) walk_tile<S, kVec>(", "    if (false) walk_tile<S, kVec>(")],
+}
+
+
+def des_walk_variant_run(name):
+    """In a variant's checkout: kernel E's walk on the seasonal rows, timed."""
+    from foremast_tpu_torch import kernels
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    args = cs.season_inputs(gen)[0]
+    x, hist = args[0], (args[1] & ~args[2]).contiguous()
+    del args
+    B = x.shape[0]
+    al5, be1 = (torch.full((B,), v, dtype=torch.float32, device=cs.DEV) for v in (0.5, 0.1))
+
+    def run():
+        return kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al5, be1, path="walk")
+
+    ms = median_back_to_back_ms(run, cs.TIMED_RUNS)
+    return {"ms": ms, "sha256": _out_digest((run(),))}
+
+
+def des_walk_variants():
+    res = {}
+    for name in DES_WALK_VARIANTS:
+        root = friedman_variant(name, DES_WALK_VARIANTS)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--des-walk-variant",
+                            name], cwd=root, capture_output=True, text=True, timeout=900)
+        line = p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ""
+        if p.returncode != 0 or not line.startswith("{"):
+            raise RuntimeError(f"variant {name} failed:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        res[name] = json.loads(line)
+        print(f"  affine_scan des walk variant {name}: {res[name]['ms']:.4f} ms, sha256 "
+              f"{res[name]['sha256']}", flush=True)
+    return res
+
+
+def des_walk_ab(out_dir, profile=False):
+    """--des-walk: kernel E's DES on the seasonal phase's 100,000 rows of
+    T = 16384 (the engine's alpha 0.5, beta 0.1) on the path the checkout
+    takes there (this tree: the walk) and, where the checkout has paths,
+    the scan forced and both paths over DES_WALK_ROWS of those rows (where
+    the walk starts to win); one row on
+    the scan; SES on the same rows; then kernels A, N, O and P at the
+    parent's shapes (--limits' O and friedman shapes, P on the pass's
+    fleet at k = 1, 8, 32, 33, --a-digest's A and N rows). Each the median
+    of 20 launches back to back (5 for the sweep), with a SHA-256 of the
+    outputs."""
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.parallel import fleet as fl
+
+    res = {}
+
+    def timed(what, run, runs=cs.TIMED_RUNS):
+        out = run()
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        sha = _out_digest(tuple(o for o in outs if o is not None))
+        ms = median_back_to_back_ms(run, runs)
+        print(f"  {what}: {ms:.4f} ms (median of {runs}), sha256 {sha}", flush=True)
+        res[what] = {"ms": ms, "sha256": sha}
+        return out
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(cs.SEED)
+    args = cs.season_inputs(gen)[0]
+    x, hist = args[0], (args[1] & ~args[2]).contiguous()
+    del args
+    B, T = x.shape
+    f32 = dict(dtype=torch.float32, device=cs.DEV)
+    al5, be1, al3 = (torch.full((B,), v, **f32) for v in (0.5, 0.1, 0.3))
+    des = kernels.SMOOTH_DES
+    res["affine_scan des bound"] = cs.least_time(B * T * 9 + B * 8, 11 * B * T)
+    paths = _takes_path(kernels.affine_scan)
+    timed(f"affine_scan des {B} x {T}", lambda: kernels.affine_scan(des, x, hist, al5, be1))
+    timed(f"affine_scan des 1 x {T}", lambda: kernels.affine_scan(des, x[:1], hist[:1], al5[:1],
+                                                                  be1[:1]))
+    if paths:
+        timed(f"affine_scan des {B} x {T} scan forced",
+              lambda: kernels.affine_scan(des, x, hist, al5, be1, path="scan"))
+        timed(f"affine_scan des 1 x {T} walk forced",
+              lambda: kernels.affine_scan(des, x[:1], hist[:1], al5[:1], be1[:1], path="walk"))
+        for n in DES_WALK_ROWS:
+            for path in kernels.SCAN_PATHS:
+                timed(f"affine_scan des {n} x {T} {path}", lambda: kernels.affine_scan(
+                    des, x[:n], hist[:n], al5[:n], be1[:n], path=path), 5)
+    timed(f"affine_scan ses {B} x {T}", lambda: kernels.affine_scan(kernels.SMOOTH_SES, x, hist,
+                                                                    al3))
+    del x, hist
+    torch.cuda.empty_cache()
+    # O at k >= 2 on every path and friedman on every path (--limits' shapes)
+    for k, T, B in ((2, 64, 4096), (3, 128, 100_000), (3, 4096, 2048), (3, 16384, 128)):
+        gr, gm = (torch.from_numpy(v).to(cs.DEV) for v in cs.adversarial_groups(
+            B, k, T, np.random.default_rng(cs.SEED + k * T)))
+        for path in kernels.KRUSKAL_PATHS:
+            if kernels.kruskal_serves(path, k, T):
+                timed(f"kruskal_groups {B} x {k} x {T} {path}",
+                      lambda: kernels.kruskal_groups(gr, gm, path=path))
+        v, m = gr.reshape(B, k * T), gm.reshape(B, k * T)
+        for path in kernels.RANK_PATHS:
+            if kernels.rank_serves(path, k * T):
+                timed(f"rank_and_ties {B} x {k * T} {path}",
+                      lambda: kernels.rank_and_ties(v, m, path=path))
+        del gr, gm, v, m
+    for n, k, B in ((128, 3, 100_000), (20, 6, 20_000), (7, 17, 4096)):
+        d, bm = (torch.from_numpy(v).to(cs.DEV) for v in cs.adversarial_friedman(
+            B, n, k, np.random.default_rng(cs.SEED + n * k)))
+        for path in kernels.FRIEDMAN_PATHS:
+            if kernels.friedman_serves(path, n, k):
+                timed(f"friedman {B} x {n} x {k} {path}",
+                      lambda: kernels.friedman(d, bm, path=path))
+    # P on the pass's fleet
+    out = fl.score_pairs(*fl.pair_args_from_numpy(
+        cs.pair_path_inputs(np.random.default_rng(cs.SEED))[0], cs.DEV), device=cs.DEV)
+    u, sev = out["unhealthy"], out["severity"]
+    for k in (1, 8, 32, 33):
+        timed(f"fleet_topk {sev.shape[0]} k={k}", lambda: kernels.fleet_topk(sev, k, u, base=7))
+    res["a_digest"] = a_digest()
+    if profile:
+        res["ptxas"] = _ptxas(("affine_walk", "affine_scan"))
+        res["variants"] = des_walk_variants()
+    path = os.path.join(out_dir, "des_walk_%s.json" % os.path.basename(os.getcwd()))
     os.makedirs(out_dir, exist_ok=True)
     with open(path, "w") as fh:
         json.dump(res, fh)
@@ -2131,6 +2285,11 @@ def main():
     p.add_argument("--limits", action="store_true",
                    help="digests of kernels J, F, K, L, M and O at the parent's shapes and the "
                         "new paths' times, instead")
+    p.add_argument("--des-walk", action="store_true",
+                   help="time kernel E's DES paths and digest A, N, O, P at the parent's "
+                        "shapes instead")
+    p.add_argument("--des-walk-variant", choices=tuple(DES_WALK_VARIANTS),
+                   help=argparse.SUPPRESS)
     p.add_argument("--friedman-variant", choices=tuple(FRIEDMAN_VARIANTS),
                    help=argparse.SUPPRESS)
     p.add_argument("--out", default="chiprun_out", help="where the Chrome trace goes")
@@ -2185,6 +2344,17 @@ def main():
         return
     if opt.limits:
         res = limits(opt.out)
+        print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
+                          "written": res["written"],
+                          "sha256": {k: v["sha256"] for k, v in res.items()
+                                     if isinstance(v, dict) and "sha256" in v},
+                          "a_digest": res["a_digest"]}), flush=True)
+        return
+    if opt.des_walk_variant:
+        print(json.dumps(des_walk_variant_run(opt.des_walk_variant)), flush=True)
+        return
+    if opt.des_walk:
+        res = des_walk_ab(opt.out, opt.profile)
         print(json.dumps({"checkout": os.getcwd(), "device": torch.cuda.get_device_name(0),
                           "written": res["written"],
                           "sha256": {k: v["sha256"] for k, v in res.items()

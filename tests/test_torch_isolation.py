@@ -256,17 +256,27 @@ def test_launchers_refuse_cpu_tensors():
         kernels.friedman(x[None], m)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.fleet_topk(x[0], 8, m[0])
-    with pytest.raises(ValueError, match="32-bit index"):
+    # keys past 32 bits and more rows than one launch take are served (in
+    # slices, each launch keyed from 0): still CUDA tensors only
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.fleet_topk(x[0], 8, m[0], base=kernels.MAX_FLEET_ROWS)
-    with pytest.raises(ValueError, match="32-bit index"):
+    with pytest.raises(ValueError, match="base >= 0"):
         kernels.fleet_topk(x[0], 8, m[0], base=-1)
-    with pytest.raises(ValueError, match=str(kernels.MAX_FLEET_SLICE)):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.fleet_topk(torch.empty(kernels.MAX_FLEET_SLICE + 1, device="meta"), 8)
-    with pytest.raises(ValueError, match=str(kernels.MAX_PAIR_T)):
-        kernels.pair_tests(torch.zeros((1, kernels.MAX_PAIR_T + 1)),
-                           torch.ones((1, kernels.MAX_PAIR_T + 1), dtype=torch.bool),
-                           torch.zeros((1, kernels.MAX_PAIR_T + 1)),
-                           torch.ones((1, kernels.MAX_PAIR_T + 1), dtype=torch.bool), 15,
+    # past the largest window bucket (T = 16384) kernel N's scratch path
+    # serves; past its sort's int index, refused
+    T = kernels.PAIR_SORT_T + 1
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.pair_tests(torch.zeros((1, 16385)), torch.ones((1, 16385), dtype=torch.bool),
+                           torch.zeros((1, 16385)), torch.ones((1, 16385), dtype=torch.bool), 15,
+                           wilcoxon_table=torch.zeros((50, 1276)), ks_exact_max=256,
+                           wilcoxon_exact_max_n=50)
+    with pytest.raises(ValueError, match=str(kernels.PAIR_SORT_T)):
+        kernels.pair_tests(torch.empty((1, T), device="meta"),
+                           torch.empty((1, T), dtype=torch.bool, device="meta"),
+                           torch.empty((1, T), device="meta"),
+                           torch.empty((1, T), dtype=torch.bool, device="meta"), 15,
                            wilcoxon_table=torch.zeros((50, 1276)), ks_exact_max=256,
                            wilcoxon_exact_max_n=50)
     assert set(kernels.launches) == {"pair_verdict", "ma_band", "band_from_preds", "smooth",
@@ -281,10 +291,18 @@ def test_launchers_refuse_cpu_tensors():
 
 def test_pair_verdict_refuses_t_beyond_shared_memory():
     from foremast_tpu_torch import kernels
-    # up to SHARED_PAIR_T in shared memory, up to MAX_PAIR_T (the largest
-    # window bucket) in device scratch; beyond it, refused
-    assert (kernels.SHARED_PAIR_T, kernels.MAX_PAIR_T + 1) == (4096, 16385)
-    args = [torch.from_numpy(a) for a in tfl.pair_arg_spec(1, kernels.MAX_PAIR_T + 1)]
-    with pytest.raises(ValueError, match=str(kernels.MAX_PAIR_T)):
+    # up to SHARED_PAIR_T in shared memory; above it, past the largest
+    # window bucket too (a 30-day window of 43,200 steps), in device
+    # scratch; past PAIR_SORT_T (its sort's int index), refused
+    assert kernels.SHARED_PAIR_T == 4096
+    assert [kernels.pair_path(T) for T in (4096, 4097, 16385, 43200)] == [
+        "cta", "scratch", "scratch", "scratch"]
+    args = [torch.from_numpy(a) for a in tfl.pair_arg_spec(1, 16385)]
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.pair_verdict(*args, wilcoxon_table=torch.zeros(1), ks_exact_max=256,
+                             wilcoxon_exact_max_n=50)
+    T = kernels.PAIR_SORT_T + 1
+    meta = [torch.empty((1, T), dtype=a.dtype, device="meta") for a in args[:4]]
+    with pytest.raises(ValueError, match=str(kernels.PAIR_SORT_T)):
+        kernels.pair_verdict(*meta, *args[4:], wilcoxon_table=torch.zeros(1), ks_exact_max=256,
                              wilcoxon_exact_max_n=50)

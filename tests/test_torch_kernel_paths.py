@@ -210,7 +210,8 @@ def test_reset_launches_clears_the_kruskal_and_band_path_counts():
 
 @pytest.mark.parametrize("T, path", [
     (1, "warp"), (8, "warp"), (100, "warp"), (256, "warp"), (511, "warp"), (512, "warp"),
-    (513, "cta"), (4096, "cta"), (8192, "cta"), (8193, "scratch"), (1 << 20, "scratch")])
+    (513, "cta"), (4096, "cta"), (8192, "cta"), (8193, "scratch"), (1 << 20, "scratch"),
+    ((1 << 20) + 1, "scratch"), (1 << 30, "scratch")])
 def test_rank_path_by_window(T, path):
     """rank_and_ties' path: a warp a row up to WARP_RANK_KEYS (Kruskal's
     limit), then a CTA a row in shared memory, then device scratch; every
@@ -221,18 +222,19 @@ def test_rank_path_by_window(T, path):
     assert served == list(kernels.RANK_PATHS[kernels.RANK_PATHS.index(path):])
 
 
-def _rank_args(B, T):
-    return torch.zeros(B, T), torch.ones(B, T, dtype=torch.bool)
+def _rank_args(B, T, device="cpu"):
+    return torch.zeros(B, T, device=device), torch.ones(B, T, dtype=torch.bool, device=device)
 
 
 @pytest.mark.parametrize("T, path, limit", [
     (513, "warp", "WARP_RANK_KEYS = 512"), (8193, "cta", "SHARED_RANK_KEYS = 8192"),
-    (256, "block", "paths"), ((1 << 20) + 1, "scratch", "at most")])
+    (256, "block", "paths"), ((1 << 30) + 1, "scratch", "30-bit")])
 def test_forced_rank_paths_refuse_a_row_they_do_not_serve(T, path, limit):
     """rank_and_ties refuses a forced path that does not serve T, naming
-    the limit, before it looks at a tensor (these are CPU tensors)."""
+    the limit, before it looks at a tensor (CPU tensors; meta tensors past
+    the scratch path's 2^30 keys, the key's tag)."""
     with pytest.raises(ValueError, match=limit):
-        kernels.rank_and_ties(*_rank_args(1, T), path=path)
+        kernels.rank_and_ties(*_rank_args(1, T, "meta" if T > 1 << 20 else "cpu"), path=path)
 
 
 @pytest.mark.parametrize("T, path", [(600, None), (256, "cta"), (256, "scratch")])

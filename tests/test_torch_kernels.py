@@ -33,7 +33,9 @@ ma_band's three paths likewise);
 kernel P's count, values (bit for bit) and indices exactly; the fleet
 scorer in a world of one over NCCL as score_pairs and P's twin. Kernel O's
 friedman and kernel P each on every path, equal bit for bit; kernel E's DES
-at T = 16384 within half of compare_scan's limit on 16 seeded draws.
+at T = 16384 within half of compare_scan's limit on 16 seeded draws on its
+scan path, and equal to its twin bit for bit on its walk path; kernels A,
+N, O and P past their first designs' limits as chip_smoke.py holds them.
 """
 import numpy as np
 import pytest
@@ -300,9 +302,15 @@ def test_forecast_band_launches_its_kernels(card):
 
 
 def test_launchers_refuse_what_the_kernels_do_not_take(card):
-    args = [torch.from_numpy(a).to(card) for a in fl.pair_arg_spec(2, kernels.MAX_PAIR_T + 1)]
-    with pytest.raises(ValueError, match="16384"):
-        fl.score_pairs(*args)
+    # windows past kernel A's sort index (PAIR_SORT_T) are refused by name
+    # before a tensor is read; 16385, past the largest bucket, is served
+    T = kernels.PAIR_SORT_T + 1
+    args = [torch.from_numpy(a).to(card) for a in fl.pair_arg_spec(2, 16)]
+    meta = [torch.empty((2, T), dtype=a.dtype, device="meta") for a in args[:4]]
+    with pytest.raises(ValueError, match="PAIR_SORT_T"):
+        kernels.pair_verdict(*meta, *args[4:], wilcoxon_table=fl.wilcoxon_pmf_table(card),
+                             ks_exact_max=fl.KS_EXACT_MAX_T,
+                             wilcoxon_exact_max_n=fl.WILCOXON_EXACT_MAX_N)
     x = torch.zeros((4, 64), device=card)[:, ::2]
     m = torch.ones((4, 32), dtype=torch.bool, device=card)
     pol = (torch.ones(4, device=card), torch.full((4,), 3, dtype=torch.int32, device=card),
@@ -1252,8 +1260,9 @@ def test_fleet_topk_twice_and_on_two_streams(card):
 
 def test_des_scan_margin_on_sixteen_draws_at_16384(card):
     """Kernel E's DES against its twin (the same maps stepped in float64)
-    on 16 seeded draws of 1,024 adversarial rows at T = 16384: every row
-    within half of compare_scan's limit (P4)."""
+    on 16 seeded draws of 1,024 adversarial rows at T = 16384: the scan
+    path, forced, every row within half of compare_scan's limit (P4); the
+    walk, which 16,384 rows take by default, the twin's bits."""
     from foremast_tpu_torch.ops import seqscan as sq
 
     draws = [cs.adversarial_series(1024, 16384, torch.Generator(device=card).manual_seed(
@@ -1262,10 +1271,97 @@ def test_des_scan_margin_on_sixteen_draws_at_16384(card):
     hist = torch.cat([a[1] & ~a[2] for a in draws])
     al, be = torch.cat([a[3] for a in draws]), torch.cat([a[4] for a in draws])
     del draws
-    kern = kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be)
+    kern = kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be, path="scan")
     twin = sq.des_predictions_assoc_plain(x, hist, al, be)
     assert bool((torch.isnan(kern) == torch.isnan(twin)).all())
     assert float(cs.scan_limit_share(kern, twin, x, hist).max()) <= 0.5
+    assert kernels.scan_path(kernels.SMOOTH_DES, x.shape[0], 16384) == "walk"
+    assert cs.same_bits_nan(kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be), twin)
+
+
+@pytest.mark.parametrize("T", cs.WALK_CHECK_T)
+def test_affine_scan_des_walk_gives_the_twin_s_bits(card, T):
+    """Kernel E's walk path at T a multiple of 16 (tiles staged by
+    cp.async) and not (element loads), on 1,000 rows (not a multiple of
+    32): all-masked rows, masked prefixes, NaN and inf at masked slots,
+    alpha and beta at 0 and 1. The scan path, default at this many rows,
+    within compare_scan's limit."""
+    from foremast_tpu_torch.ops import seqscan as sq
+
+    x, hist, al, be = cs.walk_rows(cs.WALK_CHECK_ROWS, T,
+                                   torch.Generator(device=card).manual_seed(T))
+    twin = sq.des_predictions_assoc_plain(x, hist, al, be)
+    walk = kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be, path="walk")
+    assert cs.same_bits_nan(walk, twin), cs.max_abs_err(walk, twin)
+    cs.compare_scan(kernels.SMOOTH_DES, x, hist, (al, be),
+                    kernels.affine_scan(kernels.SMOOTH_DES, x, hist, al, be))
+
+
+def test_affine_scan_takes_the_walk_from_walk_rows(card):
+    x, hist, al, be = cs.walk_rows(kernels.WALK_ROWS, 256,
+                                   torch.Generator(device=card).manual_seed(5))
+    for B, path in ((kernels.WALK_ROWS - 1, "scan"), (kernels.WALK_ROWS, "walk")):
+        kernels.reset_launches()
+        kernels.affine_scan(kernels.SMOOTH_DES, x[:B], hist[:B], al[:B], be[:B])
+        kernels.affine_scan(kernels.SMOOTH_SES, x[:B], hist[:B], al[:B])
+        assert kernels.scan_path_launches == {"scan": 1 + (path == "scan"),
+                                              "walk": int(path == "walk")}
+    with pytest.raises(ValueError, match="DES"):
+        kernels.affine_scan(kernels.SMOOTH_SES, x, hist, al, path="walk")
+
+
+def test_pairs_past_the_largest_bucket_match_twins(card):
+    """Kernels A and N at T = 43,200 (a 30-day window at 60 s) on 64
+    adversarial pairs, on their scratch path."""
+    from foremast_tpu_torch.ops import pairwise as pw
+
+    args = cs.adversarial_pairs(64, cs.LONG_PAIR_T, np.random.default_rng(43))
+    t = fl.pair_args_from_numpy(args, card)
+    kernels.reset_launches()
+    cs.compare_pair_verdict(t, fl.score_pairs(*t), fl.pair_verdict_plain(*t))
+    x, xm, y, ym = t[:4]
+    names = pw.TWO_SAMPLE_TESTS
+    got = pw.all_pairwise_tests(x, xm, y, ym)
+    cs.compare_pair_tests((torch.stack([got[n][0] for n in names], 1),
+                           torch.stack([got[n][1] for n in names], 1)),
+                          pw.two_sample_tests_plain(x, xm, y, ym), names)
+    assert kernels.pair_path_launches["scratch"] == kernels.pair_tests_path_launches["scratch"] == 1
+
+
+def test_kernel_o_past_two_to_the_20_keys(card):
+    """Kruskal-Wallis at 8 groups of 172,800 and the same rows' ranks (the
+    scratch path), and a fully tied row of 2^21 + 1 keys, whose tie term
+    leaves a signed 64-bit t^3: equal to the float32 of the exact integer."""
+    from foremast_tpu_torch.ops import pairwise as pw
+    from foremast_tpu_torch.ops import ranks as rk
+
+    k, T, _ = cs.KRUSKAL_LONG
+    g, gm = (torch.from_numpy(a).to(card) for a in cs.adversarial_groups(
+        2, k, T, np.random.default_rng(k)))
+    H, p = kernels.kruskal_groups(g, gm)
+    pH, pp = pw.kruskal_plain(g, gm)
+    cs.close(H, pH, cs.STAT_RTOL, 1e-6, "H")
+    cs.close(p, pp, 0.0, cs.P_ATOL, "p")
+    v, m = g.reshape(2, k * T), gm.reshape(2, k * T)
+    cs.compare_ranks(kernels.rank_and_ties(v, m), rk.rank_and_ties_plain(v, m))
+    n = cs.TIED_KEYS
+    r, tie, nv = kernels.rank_and_ties(torch.full((1, n), -1.5, device=card),
+                                       torch.ones((1, n), dtype=torch.bool, device=card))
+    assert float(tie[0]) == float(np.float32(n ** 3 - n)) and float(nv[0]) == n
+    assert bool((r == (n + 1) / 2).all())
+
+
+def test_fleet_topk_past_one_launch(card, monkeypatch):
+    """Kernel P in slices of 1,000 rows (MAX_FLEET_SLICE cut here), keyed
+    past 2^32, against the twin on the whole."""
+    monkeypatch.setattr(kernels, "MAX_FLEET_SLICE", 1000)
+    u, s = (torch.from_numpy(a).to(card) for a in cs.adversarial_topk(
+        5003, np.random.default_rng(5003)))
+    for k, base in ((8, 0), (33, 7), (500, (1 << 32) + 9)):
+        kernels.reset_launches()
+        cs.compare_topk(kernels.fleet_topk(s, k, u, base=base),
+                        fl.fleet_topk_plain(s, k, u, base=base), f"k={k}")
+        assert kernels.launches["fleet_topk"] >= 7
 
 
 @pytest.mark.parametrize("n", [5, 4096, 20_000])
