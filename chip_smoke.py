@@ -5114,7 +5114,7 @@ def engine_path(rng):
     engine_seasonal_trend(fleet, args)
     engine_seasonal_trend(fleet, args, ENGINE_WIDE_CHANGEPOINTS)
     return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound}, family
+            **bound}, family, fleet
 
 
 ENGINE_WIDE_CHANGEPOINTS = 25  # ST_CHANGEPOINTS=25: D = 33, kernel J's cta path
@@ -5363,6 +5363,517 @@ def engine_lstm(rng):
     return card_launches
 
 
+# ---------------------------------------------------------------------------
+# the engine's own layers on the card
+# ---------------------------------------------------------------------------
+LAYERS_FAIL = {"canary_mid": 200, "canary_end": 100, "continuous": 200, "bivariate": 50,
+               "hpa": 50}  # healthy warm jobs whose fetch fails in cycles 3 and 4
+LAYERS_NOTIFY = {"canary": 400, "continuous": 300, "bivariate": 200, "hpa": 100}
+LAYERS_SPIN_CYCLES = 540_000_000  # ~0.3 s of an H100's SM clock: a hung collect
+LAYERS_WATCHDOG_S = 0.05
+LAYERS_BUDGET_S = 60.0
+LAYERS_AB_JOBS = 2000  # open jobs of the interleaved PROVENANCE off / on cycles
+LAYERS_AB_ORDER = "CAACCA"  # C: PROVENANCE off, A: on
+LAYER_PATHS = ("scored", "triaged", "memo-hit", "stream-scored")
+
+
+def _settled(store):
+    """Every job's (status, anomaly, reason when terminal). An open job keeps
+    the reason of its last degraded-mode stamp (a requeue keeps the reason,
+    as in the reference), so a carried job's "healthy so far" is compared by
+    status."""
+    from foremast_tpu_torch.engine import jobs as J
+
+    return {d.id: (d.status, sorted(d.anomaly.items()),
+                   d.reason if d.status in J.TERMINAL_STATUSES else "")
+            for d in store.by_status(*J.OPEN_STATUSES, *J.TERMINAL_STATUSES)}
+
+
+def _layer_timer(an):
+    """Wrap the layers' host entry points of one analyzer (provenance
+    records and summaries, latency observations and the newest-sample scan
+    they read, stale serving, the shed order, the quarantine's failure
+    count and pruning, health) in one accumulator of seconds; `paths`
+    keeps each job's last recorded verdict path (the recorder itself keeps
+    only its newest 4,096 jobs). A lower bound of the layers' host cost:
+    the dicts `_finish_*` build for a record and the quarantine gate run
+    outside the wrapped calls."""
+    acc = {"s": 0.0, "paths": {}}
+
+    def timed(obj, name, log=False):
+        fn = getattr(obj, name)
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if log:
+                    acc["paths"][a[0]] = a[1]
+                acc["s"] += time.perf_counter() - t0
+        setattr(obj, name, run)
+
+    timed(an.provenance, "record", log=True)
+    for obj, name in ((an.provenance, "begin_cycle"), (an.provenance, "finish_cycle"),
+                      (an, "_observe_latency"), (an, "_newest_sample_ts"),
+                      (an, "_prov_content"), (an, "_serve_stale"), (an, "_job_priority"),
+                      (an, "_record_scoring_failure"), (an, "_prune_degraded_state"),
+                      (an.health, "begin_cycle"), (an.health, "end_cycle")):
+        timed(obj, name)
+    return acc
+
+
+def layers_path(fleet):
+    """Phase `layers`: the engine's own layers over engine_fleet's 11,500
+    jobs on the card, every cycle on the first cycle's pages, at `now`s one
+    step apart. Run A has the defaults (provenance, SLOs, stale serving,
+    quarantine on), run C PROVENANCE off, run B its first cycle under a
+    1e-9 s budget with the flight recorder dumping into a temporary
+    directory. Checks: (5) after A's first cycle the SLO counts equal its
+    judged jobs of each class; (7) A's and C's first cycles' walls, stages
+    and equal digests, then re-confirm partial cycles over 2,000 of their
+    open jobs, C and A interleaved, with equal digests after them; (6)
+    StreamScheduler's partial cycle over 1,000 notified
+    jobs of a fresh store gives A's first sweep's verdicts and hpalogs, each
+    bucket's rows and kernel paths printed; (1) B's first cycle sheds every
+    monitor but the first and scores every canary; (4) its OVERLOADED dump
+    parses and holds provenance and knobs; (2) in A's second and third
+    cycles the fetches of 600 warm jobs fail, mid-window and (for 100
+    canaries) past endTime: each is stale-served, no unhealthy job is, and
+    at the second cycle every job's settled verdict is that of B's second
+    (the budget lifted, no failures), which is (1)'s carried jobs too; at
+    the third the other jobs' verdicts are unchanged; (3) a poison job
+    parked after three failed partial cycles, held without a fetch, then
+    re-admitted; then a collect hung on the card (a spin kernel on the
+    engine's stream) under a 0.05 s watchdog. Kernel counts are reset
+    before each cycle and read after it."""
+    import dataclasses
+    import gc
+    import tempfile
+    import threading
+
+    from foremast_tpu_torch import kernels
+    from foremast_tpu_torch.dataplane import VerdictExporter
+    from foremast_tpu_torch.dataplane.fetch import FetchError, RawFixtureDataSource
+    from foremast_tpu_torch.engine import Analyzer, EngineConfig, JobStore, StreamScheduler
+    from foremast_tpu_torch.engine import jobs as J
+    from foremast_tpu_torch.engine.jobs import verdict_digest
+    from foremast_tpu_torch.engine.slo import classify
+    from foremast_tpu_torch.utils.timeutils import to_rfc3339
+
+    t_phase = time.perf_counter()
+    pages = fleet["pages"][0]
+    nows = [fleet["now"] + k * STEP for k in range(3)]
+    sel = np.random.default_rng(SEED + 20)
+    docs0 = fleet["docs"]()
+    kind = {d.id: d.id.split("-")[0] for d in docs0}
+    strategy = {d.id: d.strategy for d in docs0}
+    monitors = [d.id for d in docs0 if d.strategy in ("continuous", "hpa")]
+    canaries = [d.id for d in docs0 if d.strategy not in ("continuous", "hpa")]
+    bad = fleet["bad"] | fleet["shifted"] | fleet["broken"]
+
+    def pick(k, n, exclude=()):
+        ids = sorted(j for j in kind if kind[j] == k and j not in bad and j not in exclude)
+        return [ids[i] for i in sorted(sel.choice(len(ids), n, replace=False))]
+
+    f_end = pick("canary", LAYERS_FAIL["canary_end"])
+    failing = set(f_end) | set(pick("canary", LAYERS_FAIL["canary_mid"], set(f_end)))
+    for k in ("continuous", "bivariate", "hpa"):
+        failing |= set(pick(k, LAYERS_FAIL[k]))
+    # the canaries of f_end end between the two failing cycles
+    end_of = to_rfc3339(nows[0] + 1.5 * STEP)
+
+    class Source(RawFixtureDataSource):
+        """The fleet's pages; fetches of the jobs in `failing` raise, and
+        each job's fetches are counted."""
+
+        def __init__(self):
+            super().__init__(dict(pages), keep_urls=False)
+            self.failing, self.fetched = set(), {}
+
+        def _raw(self, url):
+            jid = url.split("/")[4]
+            self.fetched[jid] = self.fetched.get(jid, 0) + 1
+            if jid in self.failing:
+                raise FetchError(f"blackout: {url}")
+            return super()._raw(url)
+
+    def arm(**cfg):
+        store = JobStore()
+        for doc in fleet["docs"]():
+            if doc.id in f_end:
+                doc.end_time = end_of
+            store.create(doc)
+        src = Source()
+        an = Analyzer(EngineConfig(**cfg), src, store, VerdictExporter(), device=DEV)
+        return an, store, src, _layer_timer(an)
+
+    buckets = {}
+
+    def log_buckets(an, key):
+        launch = an._launch_chunks
+
+        def run(family, T, B, *a, **kw):
+            buckets.setdefault(key, []).append((family, T, B))
+            return launch(family, T, B, *a, **kw)
+        an._launch_chunks = run
+
+    def kernel_paths():
+        return {name: {p: n for p, n in counts.items() if n}
+                for name, counts in (("pair", kernels.pair_path_launches),
+                                     ("ma_band", kernels.band_path_launches),
+                                     ("bivariate", kernels.bivariate_path_launches))}
+
+    # the interpreter's garbage collections, timed through gc.callbacks
+    # while the phase runs; `cycle` resets the sum
+    gc_acc = {"s": 0.0, "n": 0, "t0": 0.0}
+
+    def gc_timer(step, info):
+        if step == "start":
+            gc_acc["t0"] = time.perf_counter()
+        else:
+            gc_acc["s"] += time.perf_counter() - gc_acc["t0"]
+            gc_acc["n"] += 1
+
+    def cycle(an, timer, now, **kw):
+        kernels.reset_launches()
+        timer["s"], timer["paths"] = 0.0, {}
+        gc_acc["s"], gc_acc["n"] = 0.0, 0
+        t0 = time.perf_counter()
+        out = an.run_cycle(worker="layers", now=now, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(kernels.launches), kernel_paths()
+
+    def verdicts(store, ids):
+        return {j: (store.get(j).status, store.get(j).reason,
+                    sorted(store.get(j).anomaly.items())) for j in ids}
+
+    def hpalogs(store, ids):
+        return {j: [(g.hpascore, g.reason, g.details) for g in store.hpalogs_for(j)]
+                for j in ids if strategy[j] == "hpa"}
+
+    tmp = tempfile.TemporaryDirectory()
+    gc.callbacks.append(gc_timer)
+    an_a, store_a, src_a, timer_a = arm()
+    an_c, store_c, _, timer_c = arm(provenance=False)
+    log_buckets(an_a, "full")
+    print(f"  the kernel library loaded in {an_a.library_load_seconds:.3f} s before run A's "
+          f"first cycle budget (built by phase build)", flush=True)
+
+    # (5), (7): A's and C's first cycles
+    runs = {}
+    for name, an, store, timer in (("A", an_a, store_a, timer_a), ("C", an_c, store_c, timer_c)):
+        out, wall, launches, paths = cycle(an, timer, nows[0])
+        for k in ("pair_verdict", "ma_band", "triage_screen", "bivariate", "smooth",
+                  "hpa_score"):
+            check(launches[k] >= 1, f"layers run {name}, cycle 1 launched no {k}")
+        runs[name] = (out, wall, timer["s"], verdict_digest(store), paths,
+                      dict(timer["paths"]), dict(an.last_cycle_stages["stage_seconds"]),
+                      (gc_acc["s"], gc_acc["n"]))
+    out_a0, wall_a, layer_a, digest_a, full_paths, paths_a0, _, _ = runs["A"]
+    _, wall_c, layer_c, digest_c, _, _, _, _ = runs["C"]
+    check(digest_a == digest_c, "layers: the first cycle's digest differs with PROVENANCE off")
+    print(f"  (7) first cycle, PROVENANCE on / off: {wall_a:.3f} / {wall_c:.3f} s, of them the "
+          f"layers' host entry points {layer_a:.3f} / {layer_c:.3f} s; digests equal", flush=True)
+    judged = {}
+    for j, p in paths_a0.items():
+        if p in LAYER_PATHS:
+            cls = classify(strategy[j])
+            judged[cls] = judged.get(cls, 0) + 1
+    slo = {cls: d["n"] for cls, d in an_a.slo.digest().items()}
+    check(slo == judged, f"layers: SLO counts {slo} != judged jobs of each class {judged}")
+    print(f"  (5) SLO observations {slo} = the jobs judged in the cycle by class; p99 "
+          f"{ {c: d['p99_s'] for c, d in an_a.slo.digest().items()} } s", flush=True)
+    sweep = verdicts(store_a, out_a0)
+    sweep_logs = hpalogs(store_a, out_a0)
+
+    # (7) the layers' host cost: the first cycles' stages, then re-confirm
+    # partial cycles over the same open jobs at the first now, PROVENANCE
+    # off and on interleaved
+    open_ids = sorted(j for j, st in out_a0.items() if st == J.INITIAL)
+    ab_ids = {open_ids[i] for i in sel.choice(len(open_ids), LAYERS_AB_JOBS, replace=False)}
+    ab = {"A": [], "C": []}
+    for name in LAYERS_AB_ORDER:
+        an, timer = (an_a, timer_a) if name == "A" else (an_c, timer_c)
+        _, wall, _, _ = cycle(an, timer, nows[0], job_ids=ab_ids, partial=True)
+        st = dict(an.last_cycle_stages["stage_seconds"])
+        ab[name].append({"wall": wall, **st, "outside the stages": wall - sum(st.values()),
+                         "the layers' entry points": timer["s"], "gc": gc_acc["s"],
+                         "gc collections": gc_acc["n"]})
+    check(verdict_digest(store_a) == verdict_digest(store_c),
+          "layers: the re-confirm cycles' digests differ with PROVENANCE off")
+
+    def spread(rows):
+        out = []
+        for k in rows[0]:
+            vals = sorted(r[k] for r in rows)
+            out.append(f"{k} {float(np.median(vals)):.4f} [{vals[0]:.4f}-{vals[-1]:.4f}]")
+        return ", ".join(out)
+
+    for name in ("A", "C"):
+        st, gcs = runs[name][6], runs[name][7]
+        print(f"  (7) first cycle, PROVENANCE {'on' if name == 'A' else 'off'}: stages "
+              f"{ {k: round(v, 3) for k, v in st.items()} } s, gc {gcs[0]:.3f} s in {gcs[1]} "
+              f"collections", flush=True)
+    for name, label in (("A", "on"), ("C", "off")):
+        print(f"  (7) re-confirm partial cycles over {len(ab_ids)} open jobs, PROVENANCE "
+              f"{label} ({len(ab[name])} of the order {LAYERS_AB_ORDER}), median [min-max] s: "
+              f"{spread(ab[name])}", flush=True)
+
+    # (6) the scheduler's partial cycle over 1,000 notified jobs
+    notified = set()
+    for k, n in LAYERS_NOTIFY.items():
+        ids = sorted(j for j in kind if kind[j] == k)
+        notified |= {ids[i] for i in sel.choice(len(ids), n, replace=False)}
+    an_p, store_p, _, timer_p = arm()
+    log_buckets(an_p, "partial")
+    errors = []
+
+    class AtNow:
+        """The analyzer as the scheduler sees it, its cycles at nows[0]."""
+        waterfall = an_p.waterfall
+
+        def run_cycle(self, worker="layers", job_ids=None, partial=False):
+            try:
+                return an_p.run_cycle(worker=worker, now=nows[0], job_ids=job_ids,
+                                      partial=partial)
+            except Exception as e:  # noqa: BLE001 - reported by the check below
+                errors.append(repr(e))
+                raise
+
+    sched = StreamScheduler(AtNow(), full_cycle_fn=lambda: None, cycle_seconds=600.0,
+                            worker="layers", debounce_seconds=0.0)
+    stop = threading.Event()
+    th = threading.Thread(target=sched.run, args=(stop,), daemon=True)
+    kernels.reset_launches()
+    th.start()
+    try:
+        t0 = time.perf_counter()
+        while sched.sweeps_total < 1 and time.perf_counter() - t0 < 30:
+            time.sleep(0.002)
+        t0 = time.perf_counter()
+        sched.notify(notified)
+        while (sched.partial_cycles_total < 1 and not errors
+               and time.perf_counter() - t0 < 60):
+            time.sleep(0.002)
+        partial_wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        th.join(timeout=30)
+    check(not errors and sched.partial_cycles_total == 1,
+          f"layers: the partial cycle did not run ({errors})")
+    p_paths = kernel_paths()
+    st = an_p.last_cycle_stages
+    check(st["jobs"] == len(notified) and st["partial"],
+          f"layers: the partial cycle claimed {st['jobs']} jobs")
+    got = verdicts(store_p, notified)
+    differ = [j for j in notified if got[j] != sweep[j]]
+    check(not differ, f"layers: {len(differ)} notified jobs' partial-cycle verdicts differ from "
+                      f"the full sweep's, e.g. {[(j, got[j], sweep[j]) for j in differ[:2]]}")
+    logs_p = hpalogs(store_p, notified)
+    check(all(logs_p[j] == sweep_logs[j] for j in logs_p),
+          "layers: a notified hpa job's hpalog differs from the full sweep's")
+    unh = sum(got[j][0] == J.COMPLETED_UNHEALTH for j in notified)
+
+    def rows_by_bucket(key):
+        out = {}
+        for fam, T, B in buckets[key]:
+            out.setdefault(f"{fam}@{T}", []).append(B)
+        return dict(sorted(out.items()))
+
+    print(f"  (6) StreamScheduler: one partial cycle over {len(notified)} notified jobs "
+          f"({LAYERS_NOTIFY}) in {partial_wall:.3f} s from the notify (stages "
+          f"{st['stage_seconds']}): verdicts and hpalogs equal to the full sweep's ({unh} "
+          f"unhealthy among them); rows a launch by family@T: partial {rows_by_bucket('partial')}, "
+          f"full sweep {rows_by_bucket('full')}; kernel paths: partial {p_paths}, full sweep "
+          f"{full_paths}", flush=True)
+    del an_p, store_p
+
+    # (1) shedding and (4) the OVERLOADED dump
+    an_b, store_b, _, timer_b = arm(cycle_deadline_seconds=1e-9, flight_dump_dir=tmp.name)
+    an_b.flight.min_dump_interval_s = 0.0
+    out_b, wall_b0, launches_b, _ = cycle(an_b, timer_b, nows[0])
+    shed = {j for j, p in timer_b["paths"].items() if p == "shed-carryover"}
+    check(len(shed) == len(monitors) - 1 and set(monitors) - shed == {monitors[0]},
+          f"layers: the expired budget shed {len(shed)} of {len(monitors)} monitors")
+    check(all(timer_b["paths"].get(j) in LAYER_PATHS for j in canaries),
+          "layers: a canary was not scored under the expired budget")
+    check(an_b.health.state()[0] == "overloaded", "layers: shedding did not read OVERLOADED")
+    check(an_b.flight.dumps_total == 1,
+          f"layers: OVERLOADED wrote {an_b.flight.dumps_total} flight dumps, not one")
+    with open(an_b.flight.last_dump_path) as f:
+        dump = json.load(f)
+    # the shed event names 16 jobs; their records survive in the recorder
+    # only while fewer than 4,096 jobs were recorded after them (its
+    # bound), so at this size the dump may hold none of them (the CPU test
+    # test_overloaded_dump_holds_every_named_shed_job_s_record holds them
+    # all below the bound)
+    aff = dump["provenance"]["affected_jobs"]
+    shed_ev = [e for e in dump["events"] if e["type"] == "load-shed"]
+    check(dump["reason"] == "health:overloaded" and len(shed_ev) == 1
+          and shed_ev[0]["detail"]["count"] == len(shed)
+          and set(shed_ev[0]["detail"]["jobs"]) <= shed
+          and len(dump["provenance"]["recent"]) == 20,
+          f"layers: the dump ({dump['reason']}) does not hold the shed event and 20 recent "
+          f"provenance records")
+    check(dump["knobs"]["engine"]["cycle_deadline_seconds"] == 1e-9
+          and dump["knobs"]["engine"]["device"].startswith("cuda"),
+          "layers: the dump's knobs are not the run's")
+    print(f"  (1) budget 1e-9 s: {len(shed)} of {len(monitors)} monitors shed, all "
+          f"{len(canaries)} canaries and the first monitor scored in {wall_b0:.3f} s (kernel "
+          f"launches { {k: v for k, v in launches_b.items() if v} })", flush=True)
+    print(f"  (4) the OVERLOADED dump {os.path.basename(an_b.flight.last_dump_path)}: "
+          f"{len(dump['events'])} events (the shed event names {len(shed_ev[-1]['detail']['jobs'])} "
+          f"jobs, {len(aff)} of them still recorded), {len(dump['provenance']['recent'])} "
+          f"recent provenance records, the engine's "
+          f"knobs {sorted(dump['knobs']['engine'])}, {len(dump['knobs']['env'])} env knobs",
+          flush=True)
+    an_b.config = dataclasses.replace(an_b.config, cycle_deadline_seconds=0.0)
+
+    # (2) fetch failures over warm jobs of A, against B without them
+    walls_fail = []
+    for c in (1, 2):
+        src_a.failing = failing
+        out_a, wall_f, _, _ = cycle(an_a, timer_a, nows[c])
+        walls_fail.append(wall_f)
+        stale = {j for j, p in timer_a["paths"].items() if p == "stale-served"}
+        live = failing & set(out_a)
+        check(stale == live and len(live) >= 0.95 * len(failing),
+              f"layers: cycle {c + 1} stale-served {len(stale)} jobs, {len(live)} warm jobs "
+              f"failed")
+        check(not stale & bad and all(out_a0[j] == J.INITIAL for j in stale),
+              "layers: a job not judged healthy was stale-served")
+        ends = [j for j in f_end if j in out_a]
+        want_end = J.COMPLETED_HEALTH if c == 2 else J.INITIAL
+        check(all(out_a[j] == want_end for j in ends)
+              and all(out_a[j] == J.INITIAL for j in stale - set(f_end)),
+              f"layers: cycle {c + 1}'s stale-served statuses are not the rules'")
+        check(all(f"age {c * STEP:.0f}s" in store_a.get(j).reason for j in stale),
+              f"layers: cycle {c + 1}'s stale reasons do not carry the age {c * STEP} s")
+        if c == 1:
+            # B's second cycle: the budget lifted, no failures; the shed
+            # jobs complete, and every job's settled verdict is A's
+            _, wall_b1, _, _ = cycle(an_b, timer_b, nows[1])
+            settled_b = _settled(store_b)
+            check(_settled(store_a) == settled_b and not an_b._shed_streak,
+                  "layers: the shed fleet did not settle to the unshed fleet's verdicts")
+            print(f"  (1) the budget lifted: the {len(shed)} carried jobs completed in "
+                  f"{wall_b1:.3f} s; every job's settled verdict equals the unshed run A's",
+                  flush=True)
+    others = [j for j in settled_b if j not in failing]
+    settled_a = _settled(store_a)
+    differ = [j for j in others if settled_a[j] != settled_b[j]]
+    check(not differ, f"layers: {len(differ)} jobs outside the failures differ from the run "
+                      f"without them, e.g. {differ[:3]}")
+    check(an_a.health.state()[0] == "degraded", "layers: stale serving did not read DEGRADED")
+    print(f"  (2) {len(failing)} warm jobs' fetches failed in cycles 2 and 3 "
+          f"({LAYERS_FAIL}): each stale-served, {len(ends)} canaries past endTime "
+          f"COMPLETED_HEALTH on the last fresh verdict, none of the {len(bad)} unhealthy jobs; "
+          f"the other {len(others)} jobs' verdicts equal B's without failures (their data and "
+          f"endTimes do not change between the two nows); cycles {walls_fail[0]:.3f} / "
+          f"{walls_fail[1]:.3f} s; health DEGRADED", flush=True)
+
+    # (3) a poison job: three failed partial cycles park it, the gate holds
+    # it without a fetch, a healed probe re-admits it
+    poison = next(j for j in sorted(kind) if kind[j] == "bivariate" and j not in bad
+                  and j not in failing)
+    # its next-cycle pages: windows the memo has not seen
+    for url, body in fleet["pages"][1].items():
+        if url.split("/")[4] == poison:
+            src_a.pages[url] = body
+    src_a.failing = set()
+    poisoned = {"on": True}
+    collect, score = an_a._collect_bivariate, an_a._score_bivariate
+
+    def is_poison(entries):
+        return poisoned["on"] and any((e[0] if isinstance(e, tuple) else e).job_id == poison
+                                      for e in entries)
+
+    def poisoned_collect(state):
+        if is_poison(state[0]):
+            raise RuntimeError("poisoned job")
+        return collect(state)
+
+    def poisoned_score(items):
+        if is_poison(items):
+            raise RuntimeError("poisoned job")
+        return score(items)
+
+    an_a._collect_bivariate, an_a._score_bivariate = poisoned_collect, poisoned_score
+    t = nows[2]
+    reasons = []
+    for _ in range(3):
+        t += 10
+        cycle(an_a, timer_a, t, job_ids={poison}, partial=True)
+        reasons.append(store_a.get(poison).reason)
+    check(all(r.startswith("scoring failed: RuntimeError") for r in reasons)
+          and an_a.quarantined_count(t) == 1, f"layers: the poison job was not parked ({reasons})")
+    fetched = src_a.fetched.get(poison, 0)
+    _, _, launches_q, _ = cycle(an_a, timer_a, t + 10, job_ids={poison}, partial=True)
+    check(store_a.get(poison).reason.startswith("quarantined")
+          and src_a.fetched.get(poison, 0) == fetched and not any(launches_q.values()),
+          "layers: the quarantine gate fetched or scored the parked job")
+    poisoned["on"] = False
+    out, _, launches_r, _ = cycle(an_a, timer_a, t + 31, job_ids={poison}, partial=True)
+    path = timer_a["paths"].get(poison)
+    check(poison not in an_a._quarantine and path == "stream-scored"
+          and launches_r["bivariate"] == 1,
+          f"layers: the healed probe did not re-admit the job ({path})")
+    print(f"  (3) poison job {poison}: three failed partial cycles, parked "
+          f"({an_a.jobs_quarantined_total} parking), the gate's cycle fetched and launched "
+          f"nothing, a clean probe 31 s later re-admitted it: {out[poison]}, path {path}, one "
+          f"bivariate launch", flush=True)
+    del an_a, store_a, an_b, store_b, an_c, store_c
+
+    # a collect hung on the card under the watchdog
+    an_w, store_w, _, timer_w = arm(watchdog_seconds=LAYERS_WATCHDOG_S)
+    ids_w = set(canaries[:64])
+    orig = an_w._collect_pairs
+    calls = {"n": 0}
+
+    def hung_collect(state):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            with an_w.staging.on_stream():
+                torch.cuda._sleep(LAYERS_SPIN_CYCLES)
+        return orig(state)
+
+    an_w._collect_pairs = hung_collect
+    out_w, wall_w, _, _ = cycle(an_w, timer_w, nows[0], job_ids=ids_w, partial=True)
+    fires = an_w.watchdog_fires_total
+    state_w = an_w.health.state()[0]
+    paths_w = {timer_w["paths"].get(j) for j in ids_w}
+    check(fires == 2 and state_w == "degraded" and paths_w == {"watchdog-failover"}
+          and all(out_w[j] == J.INITIAL for j in ids_w) and not an_w._quarantine,
+          f"layers: the hung collect gave {fires} watchdog fires, health {state_w}, paths "
+          f"{paths_w}")
+    deadline = time.perf_counter() + 10
+    while an_w._watchdog_abandoned and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    abandoned = an_w._watchdog_abandoned
+    an_w._collect_pairs = orig
+    cycle(an_w, timer_w, nows[0], job_ids=ids_w, partial=True)
+    # a requeued job keeps the watchdog's reason: the healthy compare by
+    # status and anomaly, the terminal by their reasons too
+    healed = {j: v for j, v in _settled(store_w).items() if j in ids_w}
+    check(abandoned == 0 and an_w.health.state()[0] == "ok"
+          and all(healed[j] == (sweep[j][0], sweep[j][2],
+                                sweep[j][1] if sweep[j][0] in J.TERMINAL_STATUSES else "")
+                  for j in ids_w),
+          f"layers: after the hung collect: {abandoned} threads still abandoned, health "
+          f"{an_w.health.state()[0]}")
+    print(f"  watchdog: a collect held ~0.3 s by a spin kernel on the engine's stream under "
+          f"WATCHDOG_S = {LAYERS_WATCHDOG_S}: {fires} fires (the bucket, then one retry; the "
+          f"other retries skipped), {len(ids_w)} canaries requeued as watchdog-failover in "
+          f"{wall_w:.3f} s, health DEGRADED; the abandoned threads returned after the spin; "
+          f"the next cycle OK with the sweep's verdicts", flush=True)
+    gc.callbacks.remove(gc_timer)
+    tmp.cleanup()
+    took = time.perf_counter() - t_phase
+    print(f"  layers: {took:.1f} s (limit {LAYERS_BUDGET_S:.0f} s)", flush=True)
+    check(took <= LAYERS_BUDGET_S, f"layers took {took:.1f} s > {LAYERS_BUDGET_S:.0f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -5433,8 +5944,11 @@ def main() -> int:
     k["limits"] = limits["score"]
     lm[1]["limits"] = limits["train"]
     phase("engine")
-    g, engine_launches = engine_path(rng)
+    g, engine_launches, fleet = engine_path(rng)
     lstm_launches = engine_lstm(rng)
+    phase("layers")
+    layers_path(fleet)
+    del fleet
     phase()
     print(f"  triage_screen, 100,000 rows: {g_bands['ms']:.3f} ms at T = {BAND_T} (bound "
           f"{g_bands['bound_ms']:.3f} ms, twin {g_bands['plain_ms']:.1f} ms, torch.sort "

@@ -27,15 +27,24 @@ into job statuses. Verdict semantics are the reference's:
   * insufficient data by endTime -> completed_unknown;
   * continuous jobs re-materialize START_TIME/END_TIME windows per cycle.
 
+The engine's own layers ride the cycle as in the reference: verdict
+provenance (``engine/provenance.py``), detection-latency SLOs and their
+waterfall (``engine/slo.py``), the flight recorder (``engine/flightrec.py``)
+and the health state machine (``engine/health.py``); and the degraded-mode
+rules: load shedding under CYCLE_DEADLINE_S, stale-verdict serving under
+MAX_STALE_S, poison-job quarantine under QUARANTINE_AFTER and the collect
+watchdog under WATCHDOG_S. ``run_cycle(job_ids=..., partial=True)`` is the
+seam of the event-driven scheduler (``engine/scheduler.py``).
+
 Entry: ``Analyzer(config, source, store, exporter=None, device=None)`` runs
 on the card ("cuda") unless the caller passes device="cpu", where every
 family runs its plain twin; without a card it raises. A CUDA launch either
 runs its kernel or raises, and a failure goes to the per-job retry path on
-the same device, never to the CPU.
+the same device, never to the CPU. On the card the kernel library is
+loaded (built, on a fresh machine) before a cycle's deadline budget starts.
 
-Not in this slice (ROADMAP.md): provenance, SLOs, the flight recorder and
-health monitor, load shedding, stale-verdict serving, quarantine and
-sharding.
+Not in this slice (ROADMAP.md): sharding, delta fetch, retries and
+breakers.
 """
 from __future__ import annotations
 
@@ -66,12 +75,18 @@ from ..ops import forecast as fc
 from ..ops import hpa as hpa_ops
 from ..ops.windowing import MAX_WINDOW_STEPS, Window, bucket_length
 from ..parallel import fleet as fl
+from ..kernels import build as kernel_build
 from ..resilience.policy import Deadline
+from ..utils import knobs
 from ..utils import tracing
 from ..utils.locks import make_lock
 from ..utils.timeutils import from_rfc3339
+from . import flightrec
 from . import jobs as J
+from . import provenance as prov
+from . import slo as slo_mod
 from .config import EngineConfig, MetricPolicy
+from .health import HealthMonitor
 from .staging import Staging
 
 
@@ -82,6 +97,18 @@ class WatchdogTimeout(Exception):
     it like any collect failure — the bucket fails over to the sync
     per-job path — so one hung launch costs one bucket's timeout, not the
     whole cycle."""
+
+
+# shed marker carried through the preprocess stream in the `failed` slot:
+# distinguishable from every real FetchError string (which the analyzer
+# stamps into job reasons) by identity, never shown to users directly
+_SHED = "__cycle_deadline_shed__"
+
+# poison-job quarantine re-admission backoff: first parking sits out
+# QUARANTINE_BASE_S, doubling per subsequent parking up to the cap.
+# QUARANTINE_AFTER is the operator-facing control.
+QUARANTINE_BASE_S = 30.0
+QUARANTINE_MAX_S = 3600.0
 
 
 @dataclass
@@ -269,6 +296,15 @@ class _JobState:
     unhealthy: list = field(default_factory=list)  # (metric, detail, anomaly pairs)
     judged_any: bool = False
     failed: str = ""
+    # per-job fetch accounting from the preprocess thread's trace notes
+    # (fetches, points, seconds) — provenance's "fetch" block
+    fetch: dict = field(default_factory=dict)
+    # ingest marker (monotonic): set as the job's preprocess result streams
+    # in (0 = shed before fetch / quarantined: no latency observation)
+    ingest_at: float = 0.0
+    # window-advance stamp: the newest VALID sample timestamp across the
+    # job's judged current windows (Analyzer._observe_latency)
+    newest_ts: float = 0.0
 
 
 class Analyzer:
@@ -342,6 +378,69 @@ class Analyzer:
         self.watchdog_fires_total = 0
         self._wd_lock = make_lock("engine.analyzer.watchdog")
         self._watchdog_abandoned = 0
+        # seconds the first cycle on the card spent loading (or building)
+        # the kernel library, before its deadline budget started; on the
+        # CPU there is no library to load
+        self.library_load_seconds = 0.0
+        self._library_pending = self.device.type == "cuda"
+        # -- observability: provenance + flight recorder --
+        # per-(job, cycle) verdict attribution (engine/provenance.py);
+        # enabled=False (the PROVENANCE=0 A/B leg) turns every call into a
+        # no-op
+        self.provenance = prov.ProvenanceRecorder(enabled=config.provenance)
+        # incident flight recorder (engine/flightrec.py): bounded ring of
+        # structured engine events, auto-dumped on the transition into
+        # OVERLOADED/STALLED
+        self.flight = flightrec.FlightRecorder(
+            dump_dir=config.flight_dump_dir,
+            tracer=tracing.tracer, provenance=self.provenance,
+            knobs_fn=self._dump_knobs)
+        # monotonic stamp of the current cycle's start: the in-cycle half
+        # of each detection-latency observation (_observe_latency)
+        self._cycle_mono0 = 0.0
+        # jobs whose lstm verdict was served from the z-memo this cycle
+        # (provenance memo-hit classification); reset per cycle
+        self._lstm_memo_jobs: set = set()
+        # -- degraded-mode operation state --
+        # health state machine; the flight recorder hears its transitions
+        # (and dumps on OVERLOADED/STALLED)
+        self.health = HealthMonitor(exporter=self.exporter,
+                                    recorder=self.flight)
+        self.flight.health_fn = self.health.state
+        # detection-latency SLOs (engine/slo.py): ingest->verdict latency
+        # per job class, with per-class targets and error-budget burn. Pure
+        # observation; burn rides the health detail.
+        self.slo = slo_mod.DetectionSLO(
+            exporter=self.exporter,
+            targets={
+                "canary": config.slo_canary_seconds,
+                "continuous": config.slo_continuous_seconds,
+                "hpa": config.slo_hpa_seconds,
+            },
+            objective=config.slo_objective)
+        self.health.configure(slo_fn=self.slo.burn_summary)
+        # detection-latency waterfall: the per-stage decomposition of each
+        # SLO observation, closed at verdict fold (_observe_latency)
+        self.waterfall = slo_mod.DetectionWaterfall(exporter=self.exporter)
+        # monotonic stamp of the current cycle's fold start: splits the
+        # in-cycle tail into the waterfall's score and fold stages
+        self._cycle_fold_mono = 0.0
+        # once-per-window-advance SLO dedupe: job_id -> newest judged
+        # sample ts already observed. Entries die with the job.
+        self._slo_seen: dict[str, float] = {}
+        # load shedding (CYCLE_DEADLINE_S): cumulative shed count + the
+        # consecutive-shed streak per open job (a shed job sorts ahead of
+        # its priority class next cycle)
+        self.jobs_shed_total = 0
+        self._shed_streak: dict[str, int] = {}
+        # stale-verdict serving (MAX_STALE_S): job_id -> last cycle
+        # timestamp at which the job was judged healthy on FRESH data
+        self.stale_verdicts_served_total = 0
+        self._stale_state: dict[str, float] = {}
+        # poison-job quarantine (QUARANTINE_AFTER): job_id ->
+        # [consecutive_failures, quarantined_until, times_quarantined]
+        self.jobs_quarantined_total = 0
+        self._quarantine: dict[str, list] = {}
 
     def _memo_put(self, table: OrderedDict, key, val):
         """Insert-and-bound for the memo table (LRU)."""
@@ -379,6 +478,62 @@ class Analyzer:
                     t.is_increase, t.priority, t.is_absolute, t.pod_window,
                     s.metric, s.historical, s.current, s.is_increase,
                     s.priority, s.is_absolute))
+
+    def _dump_knobs(self) -> dict:
+        """Knob values folded into flight-recorder dumps: the degraded-mode
+        and observability controls an incident post-mortem needs, and the
+        port's process-wide knobs."""
+        cfg = self.config
+        return {
+            "engine": {
+                "cycle_deadline_seconds": cfg.cycle_deadline_seconds,
+                "max_stale_seconds": cfg.max_stale_seconds,
+                "quarantine_after": cfg.quarantine_after,
+                "watchdog_seconds": cfg.watchdog_seconds,
+                "fetch_cycle_deadline_seconds":
+                    cfg.fetch_cycle_deadline_seconds,
+                "score_pipeline": cfg.score_pipeline,
+                "score_memo": cfg.score_memo,
+                "provenance": cfg.provenance,
+                "max_claim_per_cycle": cfg.max_claim_per_cycle,
+                "fetch_concurrency": cfg.fetch_concurrency,
+                "device": str(self.device),
+            },
+            "env": {name: knobs.read(name) for name in knobs.names()},
+        }
+
+    def status_digest(self) -> dict:
+        """Compact JSON-safe status digest: health state, job counts,
+        last-cycle golden signals, lease and triage counters, and per-class
+        detection-latency SLO attainment. Dicts mutated by the cycle thread
+        are snapshotted before summing."""
+        state, _detail = self.health.state()
+        stats = self.last_cycle_stages or {}
+        store = self.store
+        return {
+            "v": 1,
+            "health": state,
+            "cycle_id": self.current_cycle_id,
+            "jobs": store.status_counts(),
+            "cycle": {
+                "jobs": stats.get("jobs", 0),
+                "device_launches": stats.get("device_launches", 0),
+                "shed": stats.get("jobs_shed", 0),
+                "stale_served": stats.get("stale_verdicts_served", 0),
+                "watchdog_fires": stats.get("watchdog_fires", 0),
+                "quarantined": stats.get("quarantined_jobs", 0),
+            },
+            "lease": {
+                "claims": store.lease_claims_total,
+                "steals": store.lease_steals_total,
+            },
+            "triage": {
+                "screened": sum(dict(self.triage_screened_total).values()),
+                "cleared": sum(dict(self.triage_cleared_total).values()),
+                "escalated": sum(dict(self.triage_escalated_total).values()),
+            },
+            "slo": self.slo.digest(),
+        }
 
     # ------------------------------------------------------------------ fetch
     def _fetch_window(self, url: str, now: float) -> Window | None:
@@ -547,10 +702,112 @@ class Analyzer:
 
     def _record_watchdog_fire(self):
         self.watchdog_fires_total += 1
+        self.flight.record_event(flightrec.EVENT_WATCHDOG,
+                                 abandoned=self._watchdog_abandoned)
         self.exporter.record_counter(
             "foremastbrain:watchdog_fires_total", {},
             help="device materializations timed out by the collect "
                  "watchdog (WATCHDOG_S)")
+
+    @staticmethod
+    def _newest_sample_ts(items) -> float:
+        """Newest VALID sample timestamp across a job's judged current
+        windows — the moment the job's window last ADVANCED, on the data's
+        own clock. 0.0 when nothing is judgeable."""
+        pairs, bands, bis, multis, hpas = items
+        curs = ([it.current for it in pairs]
+                + [it.current for it in bands]
+                + [w for it in bis for w in it.cur]
+                + [w for it in multis for w in it.cur]
+                + [it.current for it in hpas])
+        newest = 0.0
+        for w in curs:
+            if w is None or w.n_valid == 0:
+                continue
+            idx = int(np.flatnonzero(w.mask)[-1])
+            newest = max(newest, float(w.start + idx * w.step))
+        return newest
+
+    def _observe_latency(self, st: _JobState, now: float):
+        """One window-advance -> verdict detection-latency observation for a
+        judged job (engine/slo.py), annotated onto its provenance record
+        BEFORE the terminal transition attaches the summary to the
+        Document.
+
+        Two addends, each in a self-consistent clock domain: the poll wait
+        (cycle `now` minus the newest judged sample's own timestamp) and
+        the in-cycle tail (monotonic fold time minus the cycle start). Each
+        WINDOW ADVANCE is observed once: a cycle that re-judges a job on the
+        same newest sample re-confirms an already-detected state. Jobs with
+        no judgeable samples (newest_ts == 0) keep the per-cycle
+        observation. No-op for jobs that ingested nothing this cycle (shed,
+        quarantined, stale-served)."""
+        if not st.ingest_at:
+            return
+        tail0 = self._cycle_mono0 or st.ingest_at
+        mono_now = time.monotonic()
+        lat = max(mono_now - tail0, 0.0)
+        if st.newest_ts > 0:
+            if self._slo_seen.get(st.doc.id, 0.0) >= st.newest_ts:
+                st.ingest_at = 0.0
+                # a re-confirmation consumes nothing: drop any waterfall
+                # record opened for it, or its stages would leak into the
+                # job's NEXT genuine observation
+                self.waterfall.discard(st.doc.id)
+                return  # this advance was already observed
+            self._slo_seen[st.doc.id] = st.newest_ts
+            lat += max(now - st.newest_ts, 0.0)
+        st.ingest_at = 0.0  # at most one observation per cycle
+        self.slo.observe(slo_mod.classify(st.doc.strategy), lat)
+        # waterfall: split the in-cycle tail at the fold boundary and close
+        # this job's stage record
+        fold0 = self._cycle_fold_mono or mono_now
+        wf = self.waterfall.observe(
+            st.doc.id, now=now, newest_ts=st.newest_ts,
+            score_s=max(fold0 - tail0, 0.0),
+            fold_s=max(mono_now - fold0, 0.0))
+        ann = {"detection_latency_s": round(lat, 6)}
+        if wf["stages"]:
+            ann["detection_stages"] = {
+                k: round(v, 6) for k, v in wf["stages"].items()}
+        if wf["trace_id"]:
+            # a pushed job's trace beats the cycle's own
+            ann["trace_id"] = wf["trace_id"]
+        self.provenance.annotate(st.doc.id, **ann)
+        ctx = wf["ctx"]
+        if ctx is not None and ctx.sampled:
+            # close the push's distributed trace AT the verdict: a
+            # remote-parented span carrying the waterfall
+            with tracing.tracer.span(
+                    tracing.SPAN_ENGINE_VERDICT, _remote=ctx,
+                    job_id=st.doc.id, status=st.doc.status,
+                    detection_latency_s=round(lat, 4),
+                    waterfall={k: round(v, 6)
+                               for k, v in wf["stages"].items()}):
+                pass
+
+    def reset_slo(self):
+        """Clear SLO observations AND the once-per-advance dedupe map
+        (resetting the histograms without the map would mute the first
+        post-reset observation per job). The waterfall follows."""
+        self._slo_seen.clear()
+        self.slo.reset()
+        self.waterfall.reset()
+
+    def _prov_content(self, job_id: str) -> str | None:
+        """Compact provenance JSON for a terminal Document's
+        processing_content (None keeps the field untouched when provenance
+        is off)."""
+        if not self.provenance.enabled:
+            return None
+        return self.provenance.summary_json(job_id) or None
+
+    def quarantined_count(self, now: float | None = None) -> int:
+        """Jobs currently parked in poison quarantine. Snapshot first
+        (list() is atomic under the GIL): readers on other threads call
+        this while the cycle thread inserts/pops entries."""
+        now = time.time() if now is None else now
+        return sum(1 for q in list(self._quarantine.values()) if q[1] > now)
 
     # the batch-rung ladder: chunks pad to the smallest rung that fits, so
     # a launch's shape (and its pinned staging buffers) come from a small
@@ -991,6 +1248,7 @@ class Analyzer:
                 if prev is not None and prev[0] == zfp:
                     self._lstm_z_memo.move_to_end(jkey)
                     self.lstm_rescore_skips += 1
+                    self._lstm_memo_jobs.add(it.job_id)
                     memo_zs.append((it, prev[1]))
                     continue
                 zfp_by_job[jkey] = zfp
@@ -1329,19 +1587,38 @@ class Analyzer:
             }
         return out
 
-    def _finish_hpa(self, st: _JobState, res, worker: str, now: float) -> str:
+    def _finish_hpa(self, st: _JobState, res, worker: str, now: float,
+                    path_info: tuple | None = None) -> str:
         """One hpa job's cycle end: the breath-gated score as an hpalog and
         the hpa_score series, then requeue (hpa jobs never terminate)."""
         doc = st.doc
         if res is None:
             # no scoreable hpa window this cycle
+            self.provenance.record(
+                doc.id, prov.PATH_NO_DATA, status=J.INITIAL,
+                detail="no scoreable hpa window", fetch=st.fetch)
             self.store.requeue(doc.id, worker=worker)
             return J.INITIAL
+        self._stale_state[doc.id] = now  # scored on fresh data this cycle
         gated = self.breath.apply(doc.id, res["raw_score"], now=now)
         reason = (
             f"hpa score {gated:.1f} (raw {res['raw_score']:.1f}) via "
             f"{HPA_REASONS.get(res['reason_code'], '?')} on {res['tps_metric']}"
         )
+        if self.provenance.enabled:
+            path, detail = path_info if path_info is not None \
+                else (prov.PATH_SCORED, "")
+            self.provenance.record(
+                doc.id, path, status=J.INITIAL, detail=detail,
+                reason=reason, fetch=st.fetch,
+                families=[{
+                    "family": "hpa", "metric": res["tps_metric"],
+                    "raw_score": round(float(res["raw_score"]), 2),
+                    "gated_score": round(float(gated), 2),
+                    "sla_metric": res["sla_metric"],
+                    "sla_current": round(float(res["sla_current"]), 4),
+                    "sla_limit": round(float(res["sla_limit"]), 4),
+                }])
         if res.get("has_pod_data"):
             # per-pod context rides the free-form reason; details stay
             # {current, upper, lower} band entries
@@ -1367,36 +1644,190 @@ class Analyzer:
         self.store.requeue(doc.id, worker=worker)
         return J.INITIAL
 
-    def run_cycle(self, worker: str = "worker-0", now: float | None = None) -> dict:
-        """One engine cycle. Returns {job_id: new_status} for observability."""
+    # ------------------------------------------------------------- verdict
+    def _serve_stale(self, doc: J.Document, failure: str, worker: str,
+                     now: float, in_postprocess: bool = False) -> str | None:
+        """Re-serve a warm job's last fresh verdict during a source outage.
+
+        A job is warm when it was judged healthy on FRESH data at most
+        MAX_STALE_S ago. Serving means: mid-window, requeue with the
+        staleness age stamped in the reason (no PREPROCESS_FAILED flap);
+        past endTime, complete COMPLETED_HEALTH on the last fresh verdict
+        instead of flipping COMPLETED_UNKNOWN. Unhealthy verdicts are never
+        stale-served — they complete terminally the cycle they are seen, so
+        a live job's last verdict is always "healthy so far". Returns the
+        applied status, or None when the job is not warm (callers fall
+        through to the behavior without stale serving).
+        """
+        max_stale = self.config.max_stale_seconds
+        at = self._stale_state.get(doc.id)
+        if max_stale <= 0 or at is None or now - at > max_stale:
+            return None
+        age = now - at
+        self.stale_verdicts_served_total += 1
+        self.exporter.record_counter(
+            "foremastbrain:stale_verdicts_served_total", {},
+            help="verdicts re-served from warm state during source "
+                 "outages (bounded by MAX_STALE_S)")
+        reason = (f"stale verdict served (age {age:.0f}s, last judged "
+                  f"healthy): {failure}")
+        self.flight.record_event(flightrec.EVENT_STALE_SERVE,
+                                 job_id=doc.id, age=round(age, 1))
+        try:
+            end_time = from_rfc3339(doc.end_time)
+        except (ValueError, TypeError):
+            end_time = (float("inf")
+                        if doc.strategy in CONTINUOUS_STRATEGIES else now)
+        if doc.strategy not in CONTINUOUS_STRATEGIES and now >= end_time:
+            # the watch window closed during the outage: the job watched
+            # healthy right up to the blackout, and the last fresh verdict
+            # is younger than MAX_STALE_S — complete on it
+            if not in_postprocess:
+                self.store.advance(doc.id, J.PREPROCESS_COMPLETED,
+                                   J.POSTPROCESS_INPROGRESS, worker=worker)
+            self._stale_state.pop(doc.id, None)
+            self.provenance.record(
+                doc.id, prov.PATH_STALE_SERVED, status=J.COMPLETED_HEALTH,
+                detail=f"age {age:.0f}s", reason=reason)
+            self.store.transition(doc.id, J.COMPLETED_HEALTH, reason=reason,
+                                  worker=worker,
+                                  processing_content=self._prov_content(doc.id))
+            return J.COMPLETED_HEALTH
+        self.provenance.record(
+            doc.id, prov.PATH_STALE_SERVED, status=J.INITIAL,
+            detail=f"age {age:.0f}s", reason=reason)
+        self.store.transition(doc.id, J.INITIAL, reason=reason, worker=worker)
+        return J.INITIAL
+
+    def _record_scoring_failure(self, job_id: str, now: float):
+        """Quarantine bookkeeping for one per-job retry failure.
+
+        QUARANTINE_AFTER consecutive failures park the job; each parking
+        doubles the re-admission backoff (QUARANTINE_BASE_S..MAX). A job
+        that was quarantined before re-parks on its FIRST post-probe
+        failure — the probe answered the only open question."""
+        qa = self.config.quarantine_after
+        if qa <= 0:
+            return
+        q = self._quarantine.setdefault(job_id, [0, 0.0, 0])
+        q[0] += 1
+        if q[2] > 0 or q[0] >= qa:
+            q[2] += 1
+            q[0] = 0
+            delay = min(QUARANTINE_BASE_S * (2.0 ** (q[2] - 1)),
+                        QUARANTINE_MAX_S)
+            q[1] = now + delay
+            self.jobs_quarantined_total += 1
+            self.flight.record_event(flightrec.EVENT_QUARANTINE,
+                                     job_id=job_id, delay_s=delay,
+                                     times=q[2])
+            self.exporter.record_counter(
+                "foremastbrain:jobs_quarantined_total", {},
+                help="poison-job quarantine parkings (QUARANTINE_AFTER "
+                     "consecutive scoring failures)")
+
+    def _load_library(self):
+        """On the card, load the kernel library (building it on a fresh
+        machine) once, before any cycle budget is armed: a first cycle that
+        paid the build inside CYCLE_DEADLINE_S would shed a whole cold
+        cycle. A failed build raises out of run_cycle."""
+        if not self._library_pending:
+            return
+        t0 = time.perf_counter()
+        kernel_build.library()
+        self.library_load_seconds = time.perf_counter() - t0
+        self._library_pending = False
+
+    def run_cycle(self, worker: str = "worker-0", now: float | None = None,
+                  job_ids=None, partial: bool = False) -> dict:
+        """One engine cycle. Returns {job_id: new_status} for observability.
+
+        ``job_ids``/``partial`` are the event-driven scheduler's seam
+        (engine/scheduler.py StreamScheduler): a PARTIAL cycle claims only
+        the named jobs and runs them through the identical pipeline rungs,
+        so a partial cycle's verdicts are exactly the ones the next full
+        sweep would have produced, just earlier. Partial and full cycles
+        share this entry point and must never run concurrently (the
+        scheduler serializes them on one thread)."""
+        self._load_library()
+        # cycle correlation id, bound into the tracer BEFORE the cycle span
+        # opens; partial cycles mint `-p` ids
         self._cycle_seq += 1
-        cycle_id = f"{worker}-c{self._cycle_seq}"
+        cycle_id = f"{worker}-{'p' if partial else 'c'}{self._cycle_seq}"
         self.current_cycle_id = cycle_id
         t_cycle0 = time.perf_counter()
+        self._cycle_mono0 = time.monotonic()
+        self._cycle_fold_mono = 0.0
+        # a partial cycle triggered by ONE push adopts that push's W3C
+        # context: its engine.cycle span continues the push's trace
+        remote_ctx = (self.waterfall.single_context(job_ids)
+                      if partial and job_ids else None)
         with tracing.tracer.bind(cycle_id=cycle_id), \
+                tracing.tracer.adopt_remote(remote_ctx), \
                 tracing.span(tracing.SPAN_ENGINE_CYCLE, worker=worker):
             now = time.time() if now is None else now
+            self.provenance.begin_cycle(cycle_id, worker=worker)
+            # degraded mode: the whole-cycle deadline budget
+            # (CYCLE_DEADLINE_S). Burns down through fetch -> preprocess ->
+            # dispatch; once expired, un-preprocessed monitor jobs are shed
+            # and carried to the next cycle.
+            cd = self.config.cycle_deadline_seconds
+            cycle_dl = Deadline.after(cd) if cd > 0 else None
             # arm a per-cycle fetch deadline so retry/backoff trains inside
             # a resilient source can never overrun the cycle budget (plain
             # sources have no set_cycle_deadline and skip this)
             sd = getattr(self.source, "set_cycle_deadline", None)
             budget = self.config.fetch_cycle_deadline_seconds
+            fetch_dl = Deadline.after(budget) if budget > 0 else None
+            if cycle_dl is not None:
+                # the fetch retry train must never outlive the CYCLE budget
+                fetch_dl = (cycle_dl if fetch_dl is None
+                            else Deadline(min(fetch_dl.at, cycle_dl.at)))
             if sd is not None:
-                sd(Deadline.after(budget) if budget > 0 else None)
+                sd(fetch_dl)
+            self.health.begin_cycle()
             try:
-                outcomes = self._run_cycle(worker, now)
+                outcomes = self._run_cycle(worker, now, cycle_dl,
+                                           job_ids=job_ids, partial=partial)
             finally:
                 if sd is not None:
                     sd(None)
+            # end_cycle only on SUCCESS: a raising cycle must not refresh
+            # the liveness reference, so a crash-looping engine ages into
+            # STALLED. The deltas come from the stats _run_cycle published.
+            stats = self.last_cycle_stages
+            self.health.end_cycle(
+                shed=stats.get("jobs_shed", 0),
+                stale_served=stats.get("stale_verdicts_served", 0),
+                watchdog_fires=stats.get("watchdog_fires", 0),
+                quarantined=self.quarantined_count(now),
+                deadline_overrun=(cycle_dl is not None
+                                  and cycle_dl.expired()),
+            )
             self.exporter.record_histogram(
                 "foremastbrain:cycle_seconds", {},
                 time.perf_counter() - t_cycle0,
                 help="End-to-end engine cycle duration (seconds).")
             return outcomes
 
-    def _stream_prep(self, claimed: list, now: float):
-        """Yield (doc_id, items, failed) per job, in claim order, as the
-        fetch pool completes chunks.
+    def _job_priority(self, doc: J.Document) -> tuple:
+        """Load-shedding sort key: lower scores FIRST.
+
+        New-deployment analyses (rollingUpdate/canary/rollover) lead and
+        are exempt from shedding (_stream_prep's class gate); steady-state
+        monitors (continuous/hpa) can carry a cycle. Within the monitor
+        class, a job shed on recent cycles sorts ahead, so a permanently
+        blown budget round-robins the fleet instead of starving the tail.
+        """
+        return (1 if doc.strategy in CONTINUOUS_STRATEGIES else 0,
+                -self._shed_streak.get(doc.id, 0))
+
+    def _stream_prep(self, claimed: list, now: float,
+                     deadline: Deadline | None = None):
+        """Yield (doc_id, items, failed, fetch_notes) per job, in claim
+        order, as the fetch pool completes chunks. `fetch_notes` is the
+        tracer's per-job fetch accounting for the provenance record; shed
+        jobs yield `(doc.id, None, _SHED, {})`.
 
         Per-job fetches overlap on a bounded pool (fetch is network-bound in
         production, and the native parser releases the GIL during its scan).
@@ -1404,18 +1835,39 @@ class Analyzer:
         submission order, so the yielded stream — and with it bucket packing
         and verdict folding — stays deterministic; consuming it
         incrementally is what lets the pipeline launch bucket N while
-        bucket N+1 is still fetching."""
+        bucket N+1 is still fetching.
+
+        `deadline` is the cycle budget (CYCLE_DEADLINE_S): once expired,
+        STEADY-STATE jobs (continuous/hpa) not yet fetched yield the _SHED
+        marker WITHOUT touching the network. New-deployment analyses are
+        never shed (a class gate is the only one that holds under the
+        pool's interleaving). The first MONITOR-class job of the cycle is
+        exempt too — the guaranteed-progress floor; the sort puts the
+        longest-shed monitor there, so the floor round-robins the fleet.
+        """
+        guaranteed = next(
+            (d.id for d in claimed if d.strategy in CONTINUOUS_STRATEGIES),
+            None)
         ctx = tracing.tracer.context()
 
         def prep_many(chunk):
             out = []
             with tracing.tracer.attach(ctx):
                 for doc in chunk:
+                    if (deadline is not None and doc.id != guaranteed
+                            and doc.strategy in CONTINUOUS_STRATEGIES
+                            and deadline.expired()):
+                        out.append((doc.id, None, _SHED, {}))
+                        continue
                     with tracing.tracer.bind(job_id=doc.id):
+                        tracing.tracer.begin_notes()
                         try:
-                            out.append((doc.id, self._preprocess(doc, now), ""))
+                            items = self._preprocess(doc, now)
+                            out.append((doc.id, items, "",
+                                        tracing.tracer.take_notes()))
                         except FetchError as e:
-                            out.append((doc.id, None, str(e)))
+                            out.append((doc.id, None, str(e),
+                                        tracing.tracer.take_notes()))
             return out
 
         workers = min(max(self.config.fetch_concurrency, 1), len(claimed) or 1)
@@ -1429,7 +1881,9 @@ class Analyzer:
             for rs in ex.map(prep_many, chunks):
                 yield from rs
 
-    def _run_cycle(self, worker: str, now: float) -> dict:
+    def _run_cycle(self, worker: str, now: float,
+                   cycle_dl: Deadline | None = None, job_ids=None,
+                   partial: bool = False) -> dict:
         from .pipeline import CyclePipeline
 
         with tracing.span(tracing.SPAN_ENGINE_CLAIM):
@@ -1437,8 +1891,34 @@ class Analyzer:
                 worker,
                 limit=self.config.max_claim_per_cycle,
                 max_stuck_seconds=self.config.max_stuck_seconds,
+                only_ids=set(job_ids) if job_ids is not None else None,
             )
         outcomes: dict[str, str] = {}
+        if self._quarantine:
+            # poison-job quarantine gate: parked jobs requeue untouched —
+            # not one fetch, not one per-job retry — until their
+            # re-admission time; everyone else proceeds normally
+            admitted = []
+            for doc in claimed:
+                q = self._quarantine.get(doc.id)
+                if q is not None and now < q[1]:
+                    self.provenance.record(
+                        doc.id, prov.PATH_QUARANTINED, status=J.INITIAL,
+                        detail=(f"re-admission in {q[1] - now:.0f}s, "
+                                f"parked {q[2]}x"))
+                    self.store.transition(
+                        doc.id, J.INITIAL, worker=worker,
+                        reason=(f"quarantined: scoring poisoned; "
+                                f"re-admission in {q[1] - now:.0f}s"))
+                    outcomes[doc.id] = J.INITIAL
+                else:
+                    admitted.append(doc)
+            claimed = admitted
+        # priority order (stable, so claim order breaks ties): deployment
+        # canaries score first; steady-state monitors shed first when the
+        # cycle deadline burns down
+        if cycle_dl is not None:
+            claimed.sort(key=self._job_priority)
         states: dict[str, _JobState] = {}
         all_pairs: list[_PairItem] = []
         all_bands: list[_BandItem] = []
@@ -1447,11 +1927,14 @@ class Analyzer:
         all_hpas: list[_HpaItem] = []
         self._lstm_trained_this_cycle = 0
         self._lstm_budget_skipped_ids = set()
+        self._lstm_memo_jobs = set()
         launches0 = self.device_launches
         rescore_skips0 = self.lstm_rescore_skips
         mega_l0 = self.megabatch_launches_total
         mega_r0 = self.megabatch_real_rows_total
         mega_p0 = self.megabatch_pad_rows_total
+        shed_cycle0 = self.jobs_shed_total
+        stale_cycle0 = self.stale_verdicts_served_total
         wd_cycle0 = self.watchdog_fires_total
         pipe = CyclePipeline(self) if self.config.score_pipeline else None
         stages = {"preprocess": 0.0, "dispatch": 0.0, "collect": 0.0,
@@ -1460,11 +1943,19 @@ class Analyzer:
             for doc in claimed:
                 states[doc.id] = _JobState(doc)
             t_wait = time.perf_counter()
-            for doc_id, items, failed in self._stream_prep(claimed, now):
+            for doc_id, items, failed, fetch_notes in self._stream_prep(
+                    claimed, now, cycle_dl):
                 stages["preprocess"] += time.perf_counter() - t_wait
+                if fetch_notes:
+                    states[doc_id].fetch = fetch_notes
                 if failed:
                     states[doc_id].failed = failed
                 else:
+                    # detection-latency stamps: the job was freshly
+                    # ingested this cycle, and its window last advanced at
+                    # the newest judged sample's own timestamp
+                    states[doc_id].ingest_at = time.monotonic()
+                    states[doc_id].newest_ts = self._newest_sample_ts(items)
                     pairs, bands, bis, multis, hpas = items
                     all_pairs += pairs
                     all_bands += bands
@@ -1478,25 +1969,64 @@ class Analyzer:
                         pipe.feed(pairs, bands, bis, multis, hpas,
                                   strategy=states[doc_id].doc.strategy)
                 t_wait = time.perf_counter()
+        shed_ids: list = []
         for doc_id, st in states.items():
             if not st.failed:
+                self._shed_streak.pop(doc_id, None)
                 self.store.advance(doc_id, J.PREPROCESS_COMPLETED,
                                    J.POSTPROCESS_INPROGRESS, worker=worker)
                 continue
             doc = st.doc
-            if doc.strategy in CONTINUOUS_STRATEGIES:
+            if st.failed == _SHED:
+                # load shedding (CYCLE_DEADLINE_S): the budget burned down
+                # before this job's fetch started. Carry it to the next
+                # cycle — the shed streak promotes it within its class, so
+                # it completes with the verdict it would have had unshed.
+                self.jobs_shed_total += 1
+                self._shed_streak[doc_id] = self._shed_streak.get(doc_id, 0) + 1
+                shed_ids.append(doc_id)
+                self.provenance.record(
+                    doc_id, prov.PATH_SHED_CARRYOVER, status=J.INITIAL,
+                    detail=f"streak {self._shed_streak[doc_id]}")
+                self.exporter.record_counter(
+                    "foremastbrain:jobs_shed_total", {},
+                    help="jobs shed by the cycle deadline budget and "
+                         "carried to the next cycle")
+                self.store.transition(
+                    doc_id, J.INITIAL, worker=worker,
+                    reason="shed: cycle deadline budget exhausted; "
+                           "carried over")
+                outcomes[doc_id] = J.INITIAL
+                continue
+            # real fetch failure: a warm job re-serves its last fresh
+            # verdict instead of flapping (stale-verdict serving)
+            served = self._serve_stale(doc, st.failed, worker, now)
+            if served is not None:
+                outcomes[doc_id] = served
+            elif doc.strategy in CONTINUOUS_STRATEGIES:
                 # perpetual jobs survive transient fetch errors: requeue
                 # instead of dying terminally on one network blip
+                self.provenance.record(
+                    doc_id, prov.PATH_FETCH_RETRY, status=J.INITIAL,
+                    reason=st.failed, fetch=st.fetch)
                 self.store.transition(
                     doc_id, J.INITIAL, reason=f"fetch retry: {st.failed}",
                     worker=worker,
                 )
                 outcomes[doc_id] = J.INITIAL
             else:
+                self.provenance.record(
+                    doc_id, prov.PATH_NO_DATA, status=J.PREPROCESS_FAILED,
+                    reason=st.failed, fetch=st.fetch)
                 self.store.transition(
                     doc_id, J.PREPROCESS_FAILED, reason=st.failed,
-                    worker=worker)
+                    worker=worker,
+                    processing_content=self._prov_content(doc_id))
                 outcomes[doc_id] = J.PREPROCESS_FAILED
+        if shed_ids:
+            self.flight.record_event(flightrec.EVENT_SHED,
+                                     count=len(shed_ids),
+                                     jobs=shed_ids[:16])
 
         live = {k: v for k, v in states.items() if not v.failed}
         fam_seconds: dict[str, float] = {}
@@ -1538,6 +2068,50 @@ class Analyzer:
             self.lstm_budget_skips += len(self._lstm_budget_skipped_ids)
 
         t_fold = time.perf_counter()
+        # waterfall boundary: everything before this instant is the `score`
+        # stage, everything after is `fold` (_observe_latency)
+        self._cycle_fold_mono = time.monotonic()
+        # -- provenance collection (zero work when recording is off) --
+        # per-family score-vs-threshold entries and judged-result counts per
+        # job; counts vs the pipeline's memo-hit map classify each verdict
+        # as fresh-scored or memo-served
+        prov_on = self.provenance.enabled
+        fam_entries: dict[str, list] = {}
+        judged_items: dict[str, int] = {}
+        memo_job_hits = pipe.memo_job_hits if pipe is not None else {}
+        triage_gate = pipe.triage if pipe is not None else None
+        triage_job_hits = triage_gate.job_hits if triage_gate is not None \
+            else {}
+        # per-result screen statistics for cleared rows, keyed by the family
+        # result key, folded into the provenance family entries
+        triage_stats = triage_gate.stats if triage_gate is not None else {}
+        # a partial (event-driven) cycle's fresh scores carry their own
+        # path tag
+        scored_path = prov.PATH_STREAM_SCORED if partial \
+            else prov.PATH_SCORED
+
+        def _vpath(job_id: str) -> tuple:
+            """(path, detail) for a judged job: memo-hit when EVERY result
+            came from the fingerprint memo, triaged when the tier-0 screen
+            cleared the rest, scored otherwise."""
+            n = judged_items.get(job_id, 0)
+            m = memo_job_hits.get(job_id, 0) + (
+                1 if job_id in self._lstm_memo_jobs else 0)
+            t = triage_job_hits.get(job_id, 0)
+            if n and m >= n:
+                return prov.PATH_MEMO_HIT, f"{m}/{n} results from memo"
+            if n and t and m + t >= n:
+                detail = f"{t}/{n} screened clear"
+                if m:
+                    detail += f", {m} memo"
+                return prov.PATH_TRIAGED, detail
+            if t:
+                return (scored_path,
+                        f"{n - m - t}/{n} fresh, {m} memo, {t} triaged")
+            if m:
+                return scored_path, f"{n - m}/{n} fresh, {m} memo"
+            return scored_path, ""
+
         # fold per-metric results into per-job verdicts
         for it in all_pairs:
             r = pair_res.get((it.job_id, it.metric, "pair"))
@@ -1545,6 +2119,16 @@ class Analyzer:
                 continue
             st = live[it.job_id]
             st.judged_any = True
+            if prov_on:
+                judged_items[it.job_id] = judged_items.get(it.job_id, 0) + 1
+                entry = {
+                    "family": "pair", "metric": it.metric,
+                    "min_p": round(r["min_p"], 8),
+                    "alpha": self.config.pairwise_threshold,
+                    "unhealthy": bool(r["unhealthy"])}
+                entry.update(triage_stats.get(
+                    (it.job_id, it.metric, "pair"), {}))
+                fam_entries.setdefault(it.job_id, []).append(entry)
             if r["unhealthy"]:
                 causes = []
                 if r["pairwise_unhealthy"]:
@@ -1560,6 +2144,16 @@ class Analyzer:
                 continue
             st = live[it.job_id]
             st.judged_any = True
+            if prov_on:
+                judged_items[it.job_id] = judged_items.get(it.job_id, 0) + 1
+                entry = {
+                    "family": "band", "metric": it.metric,
+                    "anomalous_points": int(r["count"]),
+                    "band": [round(r["lower"], 4), round(r["upper"], 4)],
+                    "unhealthy": bool(r["unhealthy"])}
+                entry.update(triage_stats.get(
+                    (it.job_id, it.metric, "band"), {}))
+                fam_entries.setdefault(it.job_id, []).append(entry)
             self.exporter.record_bounds(
                 st.doc.app_name, st.doc.namespace, it.metric,
                 r["upper"], r["lower"], float(r["unhealthy"]),
@@ -1579,6 +2173,15 @@ class Analyzer:
                 continue
             st = live[it.job_id]
             st.judged_any = True
+            if prov_on:
+                judged_items[it.job_id] = judged_items.get(it.job_id, 0) + 1
+                entry = {
+                    "family": "bivariate", "metric": "&".join(it.metrics),
+                    "anomalous_points": int(r["count"]),
+                    "unhealthy": bool(r["unhealthy"])}
+                entry.update(triage_stats.get(
+                    (it.job_id, "&".join(it.metrics), "bivariate"), {}))
+                fam_entries.setdefault(it.job_id, []).append(entry)
             for metric, (upper, lower) in r["bounds"].items():
                 self.exporter.record_bounds(
                     st.doc.app_name, st.doc.namespace, metric,
@@ -1600,6 +2203,13 @@ class Analyzer:
                 continue
             st = live[it.job_id]
             st.judged_any = True
+            if prov_on:
+                judged_items[it.job_id] = judged_items.get(it.job_id, 0) + 1
+                fam_entries.setdefault(it.job_id, []).append({
+                    "family": "lstm", "metric": "+".join(it.metrics),
+                    "z": round(float(r["z"]), 4),
+                    "threshold": self.config.lstm_threshold,
+                    "unhealthy": bool(r["unhealthy"])})
             if r["unhealthy"]:
                 st.unhealthy.append(
                     (
@@ -1609,26 +2219,59 @@ class Analyzer:
                         [],
                     )
                 )
+        if prov_on:
+            # hpa results fold inside _finish_hpa; count them here so the
+            # memo-vs-fresh classification sees them like every family
+            for job_id in hpa_res:
+                if job_id in live:
+                    judged_items[job_id] = judged_items.get(job_id, 0) + 1
 
         for job_id, st in live.items():
             doc = st.doc
             if job_id in scoring_failed:
                 reason = f"scoring failed: {scoring_failed[job_id]}"
-                if (scoring_failed[job_id].startswith("WatchdogTimeout")
-                        or doc.strategy in CONTINUOUS_STRATEGIES):
-                    # watchdog fires are infrastructure evidence (a hung
-                    # card), not job poison, and perpetual jobs retry next
-                    # cycle: requeue
+                if scoring_failed[job_id].startswith("WatchdogTimeout"):
+                    # watchdog fires are INFRASTRUCTURE evidence (a hung or
+                    # wedged card), not job poison: every strategy requeues
+                    # for the next cycle
+                    self.provenance.record(
+                        job_id, prov.PATH_WATCHDOG_FAILOVER,
+                        status=J.INITIAL, reason=reason, fetch=st.fetch)
                     self.store.transition(
                         job_id, J.INITIAL, reason=reason, worker=worker)
                     outcomes[job_id] = J.INITIAL
+                    continue
+                if doc.strategy in CONTINUOUS_STRATEGIES:
+                    # perpetual jobs retry next cycle (data may heal) — but
+                    # a job that keeps poisoning its per-job retry is
+                    # parked (quarantine)
+                    self._record_scoring_failure(job_id, now)
+                    self.provenance.record(
+                        job_id, prov.PATH_BLAST_RADIUS, status=J.INITIAL,
+                        reason=reason, fetch=st.fetch)
+                    self.store.transition(job_id, J.INITIAL, reason=reason, worker=worker)
+                    outcomes[job_id] = J.INITIAL
                 else:
+                    self._quarantine.pop(job_id, None)  # terminal: moot
+                    self.provenance.record(
+                        job_id, prov.PATH_BLAST_RADIUS, status=J.ABORT,
+                        reason=reason, fetch=st.fetch)
                     self.store.transition(
-                        job_id, J.ABORT, reason=reason, worker=worker)
+                        job_id, J.ABORT, reason=reason, worker=worker,
+                        processing_content=self._prov_content(job_id))
                     outcomes[job_id] = J.ABORT
                 continue
+            # scored cleanly: full quarantine reset (consecutive = 0)
+            self._quarantine.pop(job_id, None)
             if doc.strategy == STRATEGY_HPA:
-                outcomes[job_id] = self._finish_hpa(st, hpa_res.get(job_id), worker, now)
+                res = hpa_res.get(job_id)
+                outcomes[job_id] = self._finish_hpa(
+                    st, res, worker, now,
+                    path_info=_vpath(job_id) if prov_on else None)
+                if res is not None:
+                    # a scored hpa cycle IS the detection; annotates the
+                    # record _finish_hpa just wrote
+                    self._observe_latency(st, now)
                 continue
             try:
                 end_time = from_rfc3339(doc.end_time)
@@ -1639,32 +2282,77 @@ class Analyzer:
                 metrics = ", ".join(dict.fromkeys(m for m, _, _ in st.unhealthy))
                 reason = "; ".join(f"{m}: {d}" for m, d, _ in st.unhealthy)
                 anomaly = {m: pairs for m, _, pairs in st.unhealthy if pairs}
+                self._stale_state.pop(job_id, None)
                 reason = f"anomaly detected on {metrics} :: {reason}"
+                if prov_on:
+                    path, detail = _vpath(job_id)
+                    self.provenance.record(
+                        job_id, path, status=J.COMPLETED_UNHEALTH,
+                        detail=detail, reason=reason,
+                        families=fam_entries.get(job_id),
+                        fetch=st.fetch)
+                # observed between record and transition: the latency
+                # annotation must land before the summary is attached
+                self._observe_latency(st, now)
                 self.store.transition(
                     job_id, J.COMPLETED_UNHEALTH,
                     reason=reason,
                     anomaly=anomaly, worker=worker,
+                    processing_content=self._prov_content(job_id),
                 )
                 outcomes[job_id] = J.COMPLETED_UNHEALTH
             elif now < end_time:
                 # healthy so far; keep watching until endTime (fail-fast
-                # rule); continuous jobs loop here forever
+                # rule); continuous jobs loop here forever. A judged cycle
+                # refreshes the job's warm stale-serving state.
+                if st.judged_any:
+                    self._stale_state[job_id] = now
+                    if prov_on:
+                        path, detail = _vpath(job_id)
+                        self.provenance.record(
+                            job_id, path, status=J.INITIAL, detail=detail,
+                            families=fam_entries.get(job_id), fetch=st.fetch)
+                    # "healthy so far" is a verdict too: the monitor fleet's
+                    # steady-state latency is exactly this path
+                    self._observe_latency(st, now)
                 self.store.requeue(job_id, worker=worker)
                 outcomes[job_id] = J.INITIAL
             elif st.judged_any:
-                self.store.transition(job_id, J.COMPLETED_HEALTH, worker=worker)
+                self._stale_state.pop(job_id, None)
+                if prov_on:
+                    path, detail = _vpath(job_id)
+                    self.provenance.record(
+                        job_id, path, status=J.COMPLETED_HEALTH,
+                        detail=detail, families=fam_entries.get(job_id),
+                        fetch=st.fetch)
+                self._observe_latency(st, now)
+                self.store.transition(
+                    job_id, J.COMPLETED_HEALTH, worker=worker,
+                    processing_content=self._prov_content(job_id))
                 outcomes[job_id] = J.COMPLETED_HEALTH
             else:
+                # no judgeable data at endTime: a warm job re-serves its
+                # last fresh verdict; cold jobs end unknown
+                served = self._serve_stale(
+                    doc, "insufficient data points to judge", worker, now,
+                    in_postprocess=True)
+                if served is not None:
+                    outcomes[job_id] = served
+                    continue
+                self.provenance.record(
+                    job_id, prov.PATH_NO_DATA, status=J.COMPLETED_UNKNOWN,
+                    reason="insufficient data points to judge",
+                    fetch=st.fetch)
                 self.store.transition(
                     job_id, J.COMPLETED_UNKNOWN,
                     reason="insufficient data points to judge", worker=worker,
+                    processing_content=self._prov_content(job_id),
                 )
                 outcomes[job_id] = J.COMPLETED_UNKNOWN
         stages["fold"] = time.perf_counter() - t_fold
         for name, secs in stages.items():
             tracing.tracer.add_timing(tracing.STAGE_SPANS[name], secs)
         self.exporter.record_cycle_stages(stages, fam_seconds)
-        triage_gate = pipe.triage if pipe is not None else None
         triage_cycle = None
         if triage_gate is not None and triage_gate.active:
             tg = triage_gate
@@ -1735,9 +2423,14 @@ class Analyzer:
                     inc=padded,
                     help="padding rows added to reach mega padding "
                          "classes (waste = padded/real)")
+        self.provenance.finish_cycle(
+            stage_seconds=stages,
+            device_launches=self.device_launches - launches0,
+            jobs=len(claimed))
         self.last_cycle_stages = {
             "cycle_id": self.current_cycle_id,
             "jobs": len(claimed),
+            "partial": partial,
             "pipelined": pipe is not None,
             "stage_seconds": {k: round(v, 6) for k, v in stages.items()},
             "family_score_seconds": {
@@ -1750,8 +2443,36 @@ class Analyzer:
             "triage": triage_cycle,
             "megabatch": mega_cycle,
             "lstm_rescore_skips": self.lstm_rescore_skips - rescore_skips0,
+            # degraded-mode signals: this cycle's contribution + the live
+            # park count (cumulative totals ride the exporter)
+            "jobs_shed": self.jobs_shed_total - shed_cycle0,
+            "stale_verdicts_served":
+            self.stale_verdicts_served_total - stale_cycle0,
             "watchdog_fires": self.watchdog_fires_total - wd_cycle0,
+            "quarantined_jobs": self.quarantined_count(now),
         }
+        self._prune_degraded_state(outcomes, orphan_sweep=not partial)
         self.store.put_state("breath", self.breath.export())
         self.store.flush()
         return outcomes
+
+    def _prune_degraded_state(self, outcomes: dict,
+                              orphan_sweep: bool = True):
+        """Drop per-job degraded-mode state for jobs that can never come
+        back: terminal outcomes this cycle, plus jobs deleted out from under
+        the analyzer. Partial cycles skip the orphan sweep (they would
+        re-scan fleet-sized maps per notify burst); the next full sweep
+        covers it."""
+        for jid, status in outcomes.items():
+            if status in J.TERMINAL_STATUSES:
+                self._stale_state.pop(jid, None)
+                self._quarantine.pop(jid, None)
+                self._shed_streak.pop(jid, None)
+                self._slo_seen.pop(jid, None)
+        if not orphan_sweep:
+            return
+        for table in (self._stale_state, self._quarantine,
+                      self._shed_streak, self._slo_seen):
+            for jid in [j for j in table
+                        if j not in outcomes and self.store.get(j) is None]:
+                table.pop(jid, None)

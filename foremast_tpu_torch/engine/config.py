@@ -8,9 +8,8 @@ min-data-point gates per pairwise test, and the stuck-job takeover limit.
 
 A copy of the reference's ``engine/config.py`` cut to the fields the port
 reads, with the same environment variables and defaults. The knobs of
-layers the port has not taken over yet (delta fetch, provenance, SLOs, the
-flight recorder, retries and breakers, load shedding, stale serving,
-quarantine, the compile cache) are not fields here: `from_env` raises
+layers the port has not taken over yet (delta fetch, retries and breakers,
+the compile cache, prewarming) are not fields here: `from_env` raises
 NotImplementedError, naming the ROADMAP item, when one of them is set to
 anything but the reference's default, so no deployment silently runs
 without a layer it asked for.
@@ -248,6 +247,26 @@ class EngineConfig:
     # finish inside this budget so a flapping backend cannot stretch the
     # cycle past its cadence. 0 disables.
     fetch_cycle_deadline_seconds: float = 8.0  # FETCH_CYCLE_DEADLINE
+    # -- degraded-mode operation --
+    # whole-cycle deadline budget (CYCLE_DEADLINE_S): once it burns down,
+    # STEADY-STATE monitor jobs (continuous/hpa) not yet preprocessed are
+    # SHED and carry over to the next cycle; new-deployment analyses are
+    # exempt (their verdict gates a live rollout). The first monitor-class
+    # job is always let through per cycle (the floor), and a shed job sorts
+    # to the head of the monitor class next cycle. 0 disables. On the card
+    # the budget is armed only after the kernel library has loaded, so a
+    # first cycle that builds the library does not spend the build inside
+    # it (Analyzer.run_cycle).
+    cycle_deadline_seconds: float = 0.0  # CYCLE_DEADLINE_S
+    # stale-verdict serving bound (MAX_STALE_S): when a warm job's fetch
+    # fails or returns no data, its last healthy verdict (at most this old)
+    # is re-served — stamped with its staleness age — instead of flapping
+    # the job to PREPROCESS_FAILED or COMPLETED_UNKNOWN. 0 disables.
+    max_stale_seconds: float = 300.0  # MAX_STALE_S
+    # poison-job quarantine (QUARANTINE_AFTER): a job whose per-job retry
+    # fails this many CONSECUTIVE cycles is parked with exponential
+    # re-admission backoff (30 s doubling, capped 3600 s). 0 disables.
+    quarantine_after: int = 3  # QUARANTINE_AFTER
     # hung-launch watchdog (WATCHDOG_S): bound on one bucket's device
     # materialization in the pipeline collect phase; a stuck launch times
     # out, fails over to the sync per-job path, and is counted on
@@ -255,6 +274,25 @@ class EngineConfig:
     # big first-cycle CPU executions can legitimately run long — enable
     # it once the fleet's shapes are prewarmed/compile-cached).
     watchdog_seconds: float = 0.0  # WATCHDOG_S
+    # -- observability --
+    # verdict provenance recording (PROVENANCE): per-(job, cycle)
+    # attribution records — which verdict path fired, per-family scores vs
+    # thresholds, fetch mode — attached to terminal Documents. Recording
+    # only observes the cycle (verdicts are identical either way); 0
+    # disables it for the A/B leg.
+    provenance: bool = True  # PROVENANCE
+    # flight-recorder dump directory (FLIGHT_DUMP_DIR): incident JSON
+    # snapshots written on the transition into OVERLOADED/STALLED. Empty =
+    # the system temp dir.
+    flight_dump_dir: str = ""  # FLIGHT_DUMP_DIR
+    # detection-latency SLO targets per job class (engine/slo.py), in
+    # seconds; 0 disables the target for that class (latency is still
+    # measured). SLO_OBJECTIVE is the attainment goal the error budget
+    # derives from.
+    slo_canary_seconds: float = 30.0  # SLO_CANARY_S
+    slo_continuous_seconds: float = 60.0  # SLO_CONTINUOUS_S
+    slo_hpa_seconds: float = 60.0  # SLO_HPA_S
+    slo_objective: float = 0.99  # SLO_OBJECTIVE
     policies: dict = field(default_factory=lambda: dict(DEFAULT_POLICIES))
 
     def __post_init__(self):
@@ -348,15 +386,6 @@ _NOT_PORTED = {
     "RETRY_BUDGET_WINDOW": (_env_float, 60.0, 8),
     "BREAKER_FAILURE_THRESHOLD": (_env_int, 5, 8),
     "BREAKER_RECOVERY_SECONDS": (_env_float, 30.0, 8),
-    "CYCLE_DEADLINE_S": (_env_float, 0.0, 8),
-    "MAX_STALE_S": (_env_float, 300.0, 8),
-    "QUARANTINE_AFTER": (_env_int, 3, 8),
-    "PROVENANCE": (_env_bool, True, 8),
-    "FLIGHT_DUMP_DIR": (_env_str, "", 8),
-    "SLO_CANARY_S": (_env_float, 30.0, 8),
-    "SLO_CONTINUOUS_S": (_env_float, 60.0, 8),
-    "SLO_HPA_S": (_env_float, 60.0, 8),
-    "SLO_OBJECTIVE": (_env_float, 0.99, 8),
 }
 
 
@@ -443,6 +472,15 @@ def from_env(env=None) -> EngineConfig:
         sla_limit=_env_float(env, "ML_SLA_LIMIT", 0.0),
         sla_limit_relative=_env_bool(env, "ML_SLA_LIMIT_RELATIVE", False),
         fetch_cycle_deadline_seconds=_env_float(env, "FETCH_CYCLE_DEADLINE", 8.0),
+        cycle_deadline_seconds=_env_float(env, "CYCLE_DEADLINE_S", 0.0),
+        max_stale_seconds=_env_float(env, "MAX_STALE_S", 300.0),
+        quarantine_after=_env_int(env, "QUARANTINE_AFTER", 3),
         watchdog_seconds=_env_float(env, "WATCHDOG_S", 0.0),
+        provenance=_env_bool(env, "PROVENANCE", True),
+        flight_dump_dir=env.get("FLIGHT_DUMP_DIR", ""),
+        slo_canary_seconds=_env_float(env, "SLO_CANARY_S", 30.0),
+        slo_continuous_seconds=_env_float(env, "SLO_CONTINUOUS_S", 60.0),
+        slo_hpa_seconds=_env_float(env, "SLO_HPA_S", 60.0),
+        slo_objective=_env_float(env, "SLO_OBJECTIVE", 0.99),
         policies=policies,
     )

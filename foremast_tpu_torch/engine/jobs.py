@@ -296,20 +296,35 @@ class JobStore:
         return doc
 
     def claim_open_jobs(self, worker: str, limit: int = 1024,
-                        max_stuck_seconds: float = 90.0) -> list[Document]:
+                        max_stuck_seconds: float = 90.0,
+                        only_ids=None) -> list[Document]:
         """Lease up to `limit` runnable jobs for `worker`.
 
         A job is runnable if INITIAL, or stuck in an inprogress status longer
         than max_stuck_seconds (takeover — the reference's shared-nothing
         recovery mechanism).
+
+        `only_ids` scopes the claim to the named jobs — the event-driven
+        scheduler's partial cycles lease exactly the notified jobs instead
+        of walking (and claiming) the whole fleet. When the set is small
+        relative to the store, the walk iterates the ids directly.
         """
         now = time.time()
         out = []
         claims = steals = 0
         with self._lock:
-            for doc in self._jobs.values():
+            if only_ids is not None and len(only_ids) * 4 < len(self._jobs):
+                # sorted: set iteration order is salted per process, and
+                # the claim order feeds deterministic bucket packing
+                candidates = [d for jid in sorted(only_ids)
+                              if (d := self._jobs.get(jid)) is not None]
+            else:
+                candidates = self._jobs.values()
+            for doc in candidates:
                 if len(out) >= limit:
                     break
+                if only_ids is not None and doc.id not in only_ids:
+                    continue
                 if doc.status == INITIAL:
                     doc.status = PREPROCESS_INPROGRESS
                     claims += 1

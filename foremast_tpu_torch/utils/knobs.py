@@ -20,7 +20,7 @@ import os
 
 log = logging.getLogger("foremast_tpu_torch.knobs")
 
-__all__ = ["read", "parse_bool"]
+__all__ = ["read", "parse_bool", "names"]
 
 
 def parse_bool(raw: str) -> bool:
@@ -59,3 +59,9 @@ def read(name: str, env=None):
     except ValueError:
         log.warning("ignoring invalid %s=%r; using %r", name, raw, default)
         return default
+
+
+def names() -> list:
+    """Every knob's variable name, sorted (flight-recorder dumps list their
+    values)."""
+    return sorted(_KNOBS)

@@ -459,10 +459,24 @@ def test_from_env_reads_the_reference_s_variables_and_defaults(env):
             ref_pol.threshold, ref_pol.bound, ref_pol.min_lower_bound, ref_pol.sla_limit), k
 
 
+@pytest.mark.parametrize("key,value,field", [
+    ("PROVENANCE", "0", "provenance"), ("QUARANTINE_AFTER", "1", "quarantine_after"),
+    ("CYCLE_DEADLINE_S", "5", "cycle_deadline_seconds"), ("SLO_HPA_S", "30", "slo_hpa_seconds")])
+def test_from_env_reads_the_knobs_of_the_engine_layers_as_the_reference(key, value, field):
+    """The engine's own layers are ported: their knobs, set off the
+    reference's defaults, are read as the reference reads them."""
+    from foremast_tpu.engine import config as jax_config
+
+    env = {key: value, "metric_type_threshold_count": "1", "metric_type0": "latency"}
+    port, ref = E.from_env(env), jax_config.from_env(env)
+    assert getattr(port, field) == getattr(ref, field)
+    assert getattr(port, field) != getattr(E.from_env({}), field)
+
+
 @pytest.mark.parametrize("key,value,item", [
-    ("PROVENANCE", "0", "queue 1, item 8"), ("QUARANTINE_AFTER", "1", "queue 1, item 8"),
-    ("DELTA_FETCH", "false", "queue 1, item 8"), ("CYCLE_DEADLINE_S", "5", "queue 1, item 8"),
-    ("SLO_HPA_S", "30", "queue 1, item 8")])
+    ("DELTA_FETCH", "false", "queue 1, item 8"), ("RETRY_MAX_ATTEMPTS", "5", "queue 1, item 8"),
+    ("BREAKER_FAILURE_THRESHOLD", "2", "queue 1, item 8"),
+    ("COMPILE_CACHE_PATH", "/var/cache/fm", "queue 1, item 8")])
 def test_from_env_refuses_the_knobs_of_layers_not_ported(key, value, item):
     env = {key: value, "metric_type_threshold_count": "1", "metric_type0": "latency"}
     with pytest.raises(NotImplementedError, match=f"{key}: .*ROADMAP {item}"):
